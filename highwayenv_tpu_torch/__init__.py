@@ -1,0 +1,53 @@
+"""highwayenv_tpu_torch — the PyTorch / CUDA port of highwayenv_tpu.
+
+Batched driving environments whose per-frame simulation runs as a
+hand-written CUDA kernel on an NVIDIA Hopper card.  The JAX package
+``highwayenv_tpu`` stays the reference the port is held against; this
+package imports nothing of it and nothing of JAX.
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
+Registry ids mirror the reference; only the straight highway envs are
+ported so far.
+"""
+
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+_REGISTRY: dict[str, tuple] = {}
+
+
+def register(env_id: str, cls, kwargs: dict | None = None):
+    _REGISTRY[env_id] = (cls, kwargs or {})
+
+
+def make(env_id: str, config: dict | None = None, device=None):
+    """Instantiate a registered environment on ``device`` (default CUDA).
+
+    Returns an env with batched ``reset(batch_size, generator)`` and
+    ``step_autoreset_batched(states, actions, generator)``; see envs/base.py.
+    """
+    if env_id not in _REGISTRY:
+        raise KeyError(
+            f"{env_id!r} is not ported to highwayenv_tpu_torch yet; "
+            f"ported: {sorted(_REGISTRY)}"
+        )
+    cls, base_kwargs = _REGISTRY[env_id]
+    base_config = dict(base_kwargs.get("config", {}))
+    if config:
+        base_config.update(config)
+    return cls(config=base_config or None, device=device)
+
+
+def registered_ids():
+    return sorted(_REGISTRY)
+
+
+def _register_all():
+    from highwayenv_tpu_torch.envs.highway import HighwayEnv, HighwayEnvFast
+
+    register("highway-v0", HighwayEnv)
+    register("highway-fast-v0", HighwayEnvFast)
+
+
+_register_all()

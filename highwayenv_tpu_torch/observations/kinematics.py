@@ -1,0 +1,155 @@
+"""Kinematics observation over a batch of envs.
+
+PyTorch counterpart of ``highwayenv_tpu/observations/kinematics.py``
+(reference envs/common/observation.py ``KinematicObservation``): the
+perception query, the relative features, the stable sort by lane distance,
+lmap normalization, clipping and zero padding, as masked gathers over the
+padded slot axis.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from highwayenv_tpu_torch.road import lane as lane_ops
+from highwayenv_tpu_torch.road.lane import DEFAULT_WIDTH, LaneGeometry
+from highwayenv_tpu_torch.utils.math import lmap
+from highwayenv_tpu_torch.vehicle.state import MAX_SPEED, VehicleState
+
+DEFAULT_FEATURES = ("presence", "x", "y", "vx", "vy")
+SUPPORTED_FEATURES = ("presence", "x", "y", "vx", "vy", "heading", "cos_h", "sin_h")
+PERCEPTION_DISTANCE = 5.0 * MAX_SPEED
+
+
+class KinematicsObservation:
+    """Config-compatible with the reference KinematicObservation for the
+    features above and ``order="sorted"``."""
+
+    def __init__(
+        self,
+        features=None,
+        vehicles_count: int = 5,
+        features_range: dict | None = None,
+        absolute: bool = False,
+        order: str = "sorted",
+        normalize: bool = True,
+        clip: bool = True,
+        see_behind: bool = False,
+        observe_intentions: bool = False,
+        include_obstacles: bool = True,
+        reset_edge_lanes: int | None = None,
+        **kwargs,
+    ):
+        self.features = tuple(features) if features else DEFAULT_FEATURES
+        unported = [f for f in self.features if f not in SUPPORTED_FEATURES]
+        if unported or order != "sorted":
+            raise NotImplementedError(
+                f"Kinematics features {unported} / order={order!r} are not "
+                "ported yet"
+            )
+        self.vehicles_count = vehicles_count
+        self.features_range = features_range
+        self.absolute = absolute
+        self.order = order
+        self.normalize = normalize
+        self.clip = clip
+        self.see_behind = see_behind
+        self.observe_intentions = observe_intentions
+        self.include_obstacles = include_obstacles
+        #: lane count of the ego's reset edge: the reference computes the
+        #: normalization ranges once per reset and keeps them for the
+        #: episode (PARITY #5); None recomputes them from the current lane
+        self.reset_edge_lanes = reset_edge_lanes
+
+    @property
+    def shape(self):
+        return (self.vehicles_count, len(self.features))
+
+    def _feature_table(self, state: VehicleState) -> dict:
+        is_vehicle = state.is_vehicle
+        cos_h, sin_h = torch.cos(state.heading), torch.sin(state.heading)
+        # static objects report zero velocity
+        return {
+            "presence": torch.ones_like(state.speed),
+            "x": state.pos[..., 0],
+            "y": state.pos[..., 1],
+            "vx": torch.where(is_vehicle, state.speed * cos_h, 0.0),
+            "vy": torch.where(is_vehicle, state.speed * sin_h, 0.0),
+            "heading": state.heading,
+            "cos_h": cos_h,
+            "sin_h": sin_h,
+        }
+
+    def observe(self, geo: LaneGeometry, state: VehicleState, ego: int):
+        """Observation of controlled slot ``ego``: (B, N, F) float32."""
+        B, V = state.kind.shape
+        ego_pos = state.pos[:, ego]
+        ego_lane = state.lane[:, ego : ego + 1].expand(B, V)
+
+        # lane-projected signed gaps on the ego's current lane
+        s_all, _ = lane_ops.local_coordinates(geo, ego_lane, state.pos)
+        lane_dist = s_all - s_all[:, ego : ego + 1]
+        d = state.pos - ego_pos[:, None]
+        dist = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+        not_self = torch.arange(V, device=state.kind.device) != ego
+        is_vehicle = state.is_vehicle
+        behind_ok = lane_dist > -2 * 5.0  # -2 * ego LENGTH
+        near = dist < PERCEPTION_DISTANCE
+        veh_ok = is_vehicle & not_self & near & (behind_ok | self.see_behind)
+        obj_ok = (
+            state.active & ~is_vehicle & near & behind_ok & self.include_obstacles
+        )
+        ok = veh_ok | obj_ok
+
+        # stable sort by |lane_dist|, invalid rows last
+        sort_key = torch.where(ok, lane_dist.abs(), math.inf)
+        sel = torch.argsort(sort_key, dim=-1, stable=True)[:, : self.vehicles_count - 1]
+        sel_ok = torch.gather(ok, 1, sel)
+
+        cols = self._feature_table(state)
+        feats = torch.stack([cols[f] for f in self.features], dim=-1)  # (B,V,F)
+        ego_row = feats[:, ego]
+        rows = torch.gather(
+            feats, 1, sel[..., None].expand(-1, -1, feats.shape[-1])
+        )
+        if not self.absolute:
+            rel = torch.tensor(
+                [f in ("x", "y", "vx", "vy") for f in self.features],
+                device=feats.device,
+            )
+            rows = torch.where(rel, rows - ego_row[:, None], rows)
+        rows = torch.where(sel_ok[..., None], rows, 0.0)
+        obs = torch.cat([ego_row[:, None], rows], dim=1)
+        if self.normalize:
+            obs = self._normalize(geo, state, ego, obs)
+        # zero the padding rows after normalization
+        row_ok = torch.cat([torch.ones_like(sel_ok[:, :1]), sel_ok], dim=1)
+        return torch.where(row_ok[..., None], obs, 0.0)
+
+    def _normalize(self, geo, state, ego, obs):
+        """Reference observation.py ``normalize_obs``."""
+        if self.features_range is None:
+            if self.reset_edge_lanes is not None:
+                side = DEFAULT_WIDTH * float(self.reset_edge_lanes)
+            else:
+                li = lane_ops._gather(geo, state.lane[:, ego])
+                side = (DEFAULT_WIDTH * geo.edge_n[li].float())[:, None]
+            ranges = {
+                "x": (-5.0 * MAX_SPEED, 5.0 * MAX_SPEED),
+                "y": (-side, side),
+                "vx": (-2 * MAX_SPEED, 2 * MAX_SPEED),
+                "vy": (-2 * MAX_SPEED, 2 * MAX_SPEED),
+            }
+        else:
+            ranges = {k: (v[0], v[1]) for k, v in self.features_range.items()}
+        out = []
+        for fi, f in enumerate(self.features):
+            col = obs[..., fi]
+            if f in ranges:
+                col = lmap(col, ranges[f], (-1.0, 1.0))
+                if self.clip:
+                    col = col.clamp(-1.0, 1.0)
+            out.append(col)
+        return torch.stack(out, dim=-1)

@@ -6,16 +6,25 @@ Run from the repo root on a machine with an NVIDIA Hopper card:
 
 Phases:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-  2. build every CUDA kernel of the main path from csrc/ (nvcc, sm_90a);
+  2. build every CUDA kernel of the main path from csrc/ (nvcc, sm_90a, one
+     process per source, all started together);
   3. each kernel against its plain torch version at highway-fast-v0
      (V=21, 5 frames) and highway-v0 full width (V=51, 15 frames), B=4096,
-     on three scenes: discrete fields exactly equal, continuous fields
-     within the stated tolerance; then the kernel path of the highway-v0
-     autoreset step against the plain reference path;
+     on four scenes: the dense frame kernel K1, the sort K2a and the unsort
+     K2b (bit-exact), the sorted banded frames K3 (discrete fields and flags
+     exact, continuous fields within the stated tolerance), K1 masked by the
+     flags; then the sorted step against the dense step, and the highway-v0
+     autoreset step of the main path against the plain reference path;
   4. the main path: make("highway-v0") on CUDA, reset B=4096 and a random
-     policy rollout with autoreset, launch counts checked;
-  5. times on the card: kernel, plain version, bound, whole rollout, and a
-     profile of rollout steps (device kernels by name, device busy share).
+     policy rollout with autoreset through the sorted step, each kernel's
+     launch count checked, and a few steps of the dense path
+     (sorted_frames=False);
+  5. times on the card: each kernel's device time (torch.profiler), its
+     plain version's, its bound and the PyTorch yardstick's where there is
+     one, with the wall time of a call (CUDA events); the simulation of a
+     sorted and a dense policy step; the sorted and dense rollouts in
+     turns; and a profile of rollout steps of each (device kernels by name,
+     device busy share).
 
 Exits non-zero on any failed check, and without CUDA.  The last lines are
 the kernels JSON, the card line and ``{"ok": true, "device": {...}}``.
@@ -24,6 +33,7 @@ the kernels JSON, the card line and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -34,6 +44,7 @@ import torch
 B = 4096  # envs, the batch the JAX package's bench drives
 HORIZON = 32  # policy steps of the main-path rollout
 CRASH_HORIZON = 4  # policy steps of the extra rollout from a compressed scene
+DENSE_HORIZON = 4  # policy steps of the dense path (sorted_frames=False)
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
@@ -42,22 +53,35 @@ PEAK_BYTES = 3.35e12  # HBM3
 
 # Tolerances of kernel against plain, the same as the CPU tests hold the
 # plain version to the JAX package: pos absolute 2e-4 m; other continuous
-# fields 1e-4 times the field's magnitude.  The kernel is built without FMA
-# contraction, so it is expected to agree far inside them.
+# fields 1e-4 times the field's magnitude.  The kernels are built without
+# FMA contraction, so they are expected to agree far inside them.  The
+# sorted step against the dense one: a few ulp at the field's magnitude
+# (the banded pass puts a pair's lower rank first in the SAT, the dense
+# pass its lower slot), the bound tests/test_batched_step.py holds the JAX
+# sorted path to.
 POS_ATOL = 2e-4
 REL_TOL = 1e-4
+ULP_BOUND = 32.0 * float(np.finfo(np.float32).eps)
 DISCRETE = ("lane", "target_lane", "crashed", "hit", "impact_pending")
 CONTINUOUS = ("pos", "heading", "speed", "timer", "impact", "steering", "accel")
+SCENES = ("normal", "compressed", "pileup", "pileup_all")
 
 # float32 operations per unit of frame work, counted from the frame's
-# arithmetic (ops/straight_frames.py, csrc/straight_frames.cu); a libm call
-# counts as one operation.  Used for the bound only.
+# arithmetic (ops/straight_frames.py, csrc/straight_common.cuh); a libm call
+# counts as one operation.  Used for the bounds only.
 OPS_SLOT = 160  # per live slot: projection, own IDM, steering, integration
 OPS_NEIGH_PAIR = 9  # per (slot, occupiable other): 3 lanes x (sub, abs, cmp)
 OPS_DECIDING = 274  # per MOBIL-deciding slot: 8 more IDM + incentive tests
 OPS_ABORT_PAIR = 13  # per (lane-changing IDM slot, other slot)
 OPS_SPHERE = 11  # per collision-eligible unordered pair
 OPS_SAT = 210  # per pair within reach: the folded swept SAT
+# the sorted frame's extras, per live slot: one step of a far-band scan
+# (per lane, direction and round: a compare and a select), one step of the
+# collision-band scan (per round: two min / max of s, two max), and the
+# far-band queries and the band-violation test
+OPS_SCAN_STEP = 2
+OPS_COLL_SCAN_STEP = 4
+OPS_FAR_QUERY = 16
 
 
 def card_line() -> str:
@@ -69,7 +93,9 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` runs, after one warm-up."""
+    """Mean time of ``fn()`` between CUDA events over ``reps`` runs, after
+    one warm-up: the device time when the device is the limit, else the
+    host's time to issue the calls."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -82,21 +108,45 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time of one ``fn()``: the self device time of every kernel it
+    launches, summed, from torch.profiler over ``reps`` runs after one
+    warm-up.  Unlike CUDA events it leaves out the gaps in which the host
+    issues the calls, which exceed a small kernel's own time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ) / reps / 1e3
+
+
 def scenes(veh):
     """normal / compressed (x * 0.2: immediate collisions) / pile-up (20
-    vehicles in 6 m), as tests/test_batched_step.py builds them."""
+    vehicles in 6 m) in env 0 / pile-up in every env, as
+    tests/test_batched_step.py builds them."""
     compressed = veh.pos.clone()
     compressed[..., 0] *= 0.2
+    ramp = 100.0 + torch.linspace(0, 6, 20, device=veh.pos.device)
     pileup = veh.pos.clone()
-    pileup[:, :20, 0] = 100.0 + torch.linspace(0, 6, 20, device=pileup.device)
+    pileup[0, :20, 0] = ramp
+    pileup_all = veh.pos.clone()
+    pileup_all[:, :20, 0] = ramp
     return {
         "normal": veh,
         "compressed": veh.replace(pos=compressed),
         "pileup": veh.replace(pos=pileup),
+        "pileup_all": veh.replace(pos=pileup_all),
     }
 
 
-def compare(a, b, where: str) -> float:
+def compare(a, b, where: str, fields=CONTINUOUS, quiet=False) -> float:
     """Discrete fields equal, continuous within tolerance; returns the max
     absolute error over the continuous fields."""
     for name in DISCRETE:
@@ -105,7 +155,7 @@ def compare(a, b, where: str) -> float:
         if n_bad:
             raise AssertionError(f"{where}: {name} differs in {n_bad} entries")
     worst = 0.0
-    for name in CONTINUOUS:
+    for name in fields:
         x, y = getattr(a, name), getattr(b, name)
         if not bool(torch.isfinite(x).all()):
             raise AssertionError(f"{where}: {name} has non-finite values")
@@ -113,15 +163,41 @@ def compare(a, b, where: str) -> float:
         tol = POS_ATOL if name == "pos" else REL_TOL * max(
             1.0, float(y.abs().max())
         )
-        print(f"  {where} {name}: max |kernel - plain| = {err:.3e} (tol {tol:.1e})")
+        if not quiet:
+            print(f"  {where} {name}: max |kernel - plain| = {err:.3e} (tol {tol:.1e})")
         if err > tol:
             raise AssertionError(f"{where}: {name} error {err} > {tol}")
         worst = max(worst, err)
     return worst
 
 
-def frame_ops(veh, out, fs, p, dt) -> float:
-    """float32 operations one frame from ``veh`` to ``out`` needs."""
+def exact(a, b, fields, where: str) -> None:
+    """Bit-exact equality of the named fields (a permutation)."""
+    bad = [n for n in fields if not torch.equal(getattr(a, n), getattr(b, n))]
+    if bad:
+        raise AssertionError(f"{where}: fields differ: {bad}")
+
+
+def compare_steps(a, b, where: str) -> bool:
+    """Sorted step against dense step: discrete equal, continuous within a
+    few ulp at the field's magnitude; returns whether they agree bitwise."""
+    compare(a, b, where, fields=(), quiet=True)
+    bitwise = True
+    for name in CONTINUOUS:
+        x, y = getattr(a, name).double(), getattr(b, name).double()
+        err = float((x - y).abs().max())
+        tol = ULP_BOUND * max(1.0, float(y.abs().max()))
+        if err > tol:
+            raise AssertionError(f"{where}: {name} sorted vs dense {err} > {tol}")
+        bitwise &= err == 0.0
+    return bitwise
+
+
+def _frame_ops(veh, out, fs, p, dt, searched, collided) -> float:
+    """float32 operations one frame from ``veh`` to ``out`` needs, whose
+    neighbour search tests the (slot, column) pairs of the (V, V) mask
+    ``searched`` and whose collision pass the unordered pairs of
+    ``collided``."""
     from highwayenv_tpu_torch.vehicle.state import KIND_IDM
 
     live = veh.kind != 0
@@ -130,20 +206,16 @@ def frame_ops(veh, out, fs, p, dt) -> float:
         py - float(fs.origin[1])
     ) * float(fs.u[1])
     occ = live & (s >= -5.0) & (s < fs.length + 5.0)
-    n_live = live.sum(-1).double()
-    n_occ = occ.sum(-1).double()
-    neigh = (n_live * n_occ - (live & occ).sum(-1)).sum()
+    neigh = (searched & live[:, :, None] & occ[:, None, :]).sum()
     idm = (veh.kind == KIND_IDM) & ~veh.crashed
     mid = veh.lane != veh.target_lane
     deciding = (
         idm & ~mid & (veh.timer > p.lane_change_delay) & veh.enable_lane_change
     ).sum()
     aborting = (idm & mid).sum() * veh.kind.shape[1]
-    V = veh.kind.shape[1]
-    upper = torch.triu(torch.ones(V, V, dtype=torch.bool, device=s.device), 1)
     chk, coll = veh.check_collisions, veh.collidable
     elig = (
-        upper & live[:, :, None] & live[:, None, :]
+        collided & live[:, :, None] & live[:, None, :]
         & (chk[:, :, None] | chk[:, None, :])
         & coll[:, :, None] & coll[:, None, :]
     )
@@ -152,10 +224,51 @@ def frame_ops(veh, out, fs, p, dt) -> float:
     reach = (diag[:, :, None] + diag[:, None, :]) / 2 + out.speed[:, :, None] * dt
     near = elig & ((d * d).sum(-1) <= reach * reach)
     return float(
-        OPS_SLOT * n_live.sum() + OPS_NEIGH_PAIR * neigh
+        OPS_SLOT * live.sum() + OPS_NEIGH_PAIR * neigh
         + OPS_DECIDING * deciding + OPS_ABORT_PAIR * aborting
         + OPS_SPHERE * elig.sum() + OPS_SAT * near.sum()
     )
+
+
+def frame_ops(veh, out, fs, p, dt) -> float:
+    """float32 operations one dense frame needs: every other slot searched,
+    every pair collided."""
+    V = veh.kind.shape[1]
+    eye = torch.eye(V, dtype=torch.bool, device=veh.kind.device)
+    return _frame_ops(veh, out, fs, p, dt, ~eye, torch.triu(~eye))
+
+
+def sorted_frame_ops(veh, out, fs, p, dt) -> float:
+    """float32 operations one banded frame on the rank layout needs: the
+    in-band ranks searched, the pairs of the rank band collided, plus the
+    scans and queries of every live slot."""
+    from highwayenv_tpu_torch.ops.straight_sorted import windows
+
+    V = veh.kind.shape[1]
+    W, Wn = windows(V)
+    ranks = torch.arange(V, device=veh.kind.device)
+    gap = ranks[None, :] - ranks[:, None]
+    band = (gap.abs() <= Wn) & (gap != 0)
+    rounds = math.ceil(math.log2(V))
+    per_slot = (
+        2 * len(fs.offsets) * rounds * OPS_SCAN_STEP + rounds * OPS_COLL_SCAN_STEP
+        + OPS_FAR_QUERY
+    )
+    return _frame_ops(
+        veh, out, fs, p, dt, band, (gap >= 1) & (gap <= W)
+    ) + per_slot * float((veh.kind != 0).sum())
+
+
+def field_bytes(state, fields) -> int:
+    return sum(getattr(state, n).numel() * getattr(state, n).element_size()
+               for n, _, _ in fields)
+
+
+def bound(ops: float, n_bytes: int):
+    """(bound ms, what bounds it) of ``ops`` float32 operations and
+    ``n_bytes`` moved, at the card's peaks."""
+    t_ops, t_bytes = ops / PEAK_FP32_OPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_ops, t_bytes
 
 
 def profile_rollout(env, states, gen, steps: int = 4) -> None:
@@ -186,14 +299,29 @@ def profile_rollout(env, states, gen, steps: int = 4) -> None:
               f"{e.count / steps:6.1f}x  {e.key[:90]}")
 
 
+class FlagRecorder:
+    """Stands in for the K3 wrapper during a rollout and keeps each step's
+    per-env flags (on the device), so the firing share can be read after."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+        self.flags = []
+
+    def __call__(self, *args, **kwargs):
+        out, flags = self.kernel(*args, **kwargs)
+        self.flags.append(flags)
+        return out, flags
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import highwayenv_tpu_torch as ht
-    from highwayenv_tpu_torch.ops import _build, straight_frames
+    from highwayenv_tpu_torch.ops import _build, straight_frames, straight_sorted
     from highwayenv_tpu_torch.parallel.rollout import rollout
 
+    sf, ss = straight_frames, straight_sorted
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -204,36 +332,69 @@ def main() -> int:
 
     print("== 2. build")
     t0 = time.time()
-    paths = _build.build(["straight_frames"])
+    paths = _build.build(["straight_frames", "straight_sort", "straight_frames_sorted"])
     print(f"built {[p.name for p in paths.values()]} in {time.time() - t0:.1f} s")
     for p in paths.values():
         log = p.with_suffix(".log")
         if log.exists():
             print(log.read_text().strip())
 
-    kernel = straight_frames.frames_kernel
-    max_err = 0.0
-    # highway-fast-v0 (V=21, 5 frames) runs the same kernel; the main path
+    k1, k2a, k3, k2b = sf.frames_kernel, ss.sort_kernel, ss.frames_sorted_kernel, ss.unsort_kernel
+    err = {"K1": 0.0, "K2a": 0.0, "K3": 0.0, "K2b": 0.0}
+    # highway-fast-v0 (V=21, 5 frames) runs the same kernels; the main path
     # is highway-v0, checked last so its env and states carry on below
     for env_id in ("highway-fast-v0", "highway-v0"):
         env = ht.make(env_id)
         fs, p, dt, frames = env._straight, env.idm_params, env.dt, env.frames_per_step
-        print(f"== 3. kernel vs plain: {env_id} V={env.num_slots}, {frames} frames, B={B}")
+        print(f"== 3. kernels vs plain: {env_id} V={env.num_slots}, {frames} frames, B={B}")
         gen = env.generator(SEED)
         _, states = env.reset(B, gen)
         actions = torch.randint(0, env.action_type.n, (B,), generator=gen,
                                 device=env.device, dtype=torch.int32)
         for name, veh in scenes(states.vehicles).items():
+            where = f"{env_id} {name}"
             veh = env.action_type.apply(
                 env.geo, veh, veh.kind == 1, env._action_to_slots(actions)
             )
-            out_k = kernel(veh, fs, p, dt, frames)
-            out_p = straight_frames.frames_plain(veh, fs, p, dt, frames)
+            # K1, dense
+            out_k = k1(veh, fs, p, dt, frames)
+            out_p = sf.frames_plain(veh, fs, p, dt, frames)
             torch.cuda.synchronize()
-            max_err = max(max_err, compare(out_k, out_p, f"{env_id} {name}"))
-            print(f"  {env_id} {name}: crashed slots {int(out_k.crashed.sum())}, "
-                  f"pending impacts {int(out_k.impact_pending.sum())}")
-    # the whole autoreset step: kernel path against the plain reference path
+            err["K1"] = max(err["K1"], compare(out_k, out_p, f"{where} K1"))
+            # K2a
+            srt_k, idx_k = k2a(veh, fs)
+            srt_p, idx_p = ss.sort_plain(veh, fs)
+            torch.cuda.synchronize()
+            if not torch.equal(idx_k, idx_p):
+                raise AssertionError(f"{where} K2a: idx differs")
+            exact(srt_k, srt_p, [n for n, _, _ in ss.SORT_FIELDS], f"{where} K2a")
+            # K3 on the same sorted inputs
+            band_k, flags_k = k3(srt_p, idx_p, fs, p, dt, frames)
+            band_p, flags_p = ss.frames_sorted_plain(srt_p, idx_p, fs, p, dt, frames)
+            torch.cuda.synchronize()
+            if not torch.equal(flags_k, flags_p):
+                raise AssertionError(f"{where} K3: flags differ")
+            err["K3"] = max(err["K3"], compare(band_k, band_p, f"{where} K3"))
+            # K2b
+            back_k = k2b(band_p, idx_p, veh)
+            back_p = ss.unsort_plain(band_p, idx_p, veh)
+            torch.cuda.synchronize()
+            exact(back_k, back_p, [n for n, _, _ in ss.MUT_FIELDS], f"{where} K2b")
+            # K1 masked by the flags, over the banded rows
+            mask = flags_p.any(dim=1)
+            fix_k = k1(veh, fs, p, dt, frames, mask=mask, out=back_k)
+            fix_p = sf._masked_plain(veh, fs, p, dt, frames, mask, back_p)
+            torch.cuda.synchronize()
+            err["K1"] = max(err["K1"], compare(fix_k, fix_p, f"{where} K1 masked", quiet=True))
+            # the sorted step (kernels) against the dense step (kernel)
+            bitwise = compare_steps(fix_k, out_k, f"{where} sorted step vs dense")
+            fired = flags_k.sum(dim=0).tolist()
+            print(f"  {where}: firing envs {int(mask.sum())} of {B} (collision "
+                  f"{fired[0]}, neighbour {fired[1]}); sorted step vs dense step "
+                  f"{'bitwise equal' if bitwise else 'within the ulp bound'}; "
+                  f"crashed slots {int(fix_k.crashed.sum())}")
+    # the whole autoreset step: the main path (sorted kernels) against the
+    # plain reference path
     st_k = st_p = states
     for t in range(3):
         acts = torch.randint(0, env.action_type.n, (B,), generator=gen,
@@ -251,23 +412,40 @@ def main() -> int:
             raise AssertionError(f"step {t}: obs / reward disagree")
 
     print(f"== 4. main path: make('highway-v0') on CUDA, B={B}, "
-          f"{HORIZON} + {CRASH_HORIZON} autoreset steps")
+          f"{HORIZON} + {CRASH_HORIZON} autoreset steps, sorted step")
     gen = env.generator(SEED + 1)
     _, states = env.reset(B, gen)
     _, crash_states = env.reset(B, gen)
     crash_states = crash_states.replace(
         vehicles=scenes(crash_states.vehicles)["compressed"]
     )
-    kernel.launches = 0
-    states, metrics = rollout(env, states, HORIZON, gen)
-    _, crash_metrics = rollout(env, crash_states, CRASH_HORIZON, gen)
-    torch.cuda.synchronize()
-    launches = kernel.launches
-    if launches != HORIZON + CRASH_HORIZON:
-        raise AssertionError(
-            f"straight_frames launched {launches} times, expected "
-            f"{HORIZON + CRASH_HORIZON} (one per policy step)"
-        )
+    recorder = FlagRecorder(k3)
+    ss.frames_sorted_kernel = recorder
+    try:
+        for k in (k1, k2a, k3, k2b):
+            k.launches = 0
+        states, metrics = rollout(env, states, HORIZON, gen)
+        _, crash_metrics = rollout(env, crash_states, CRASH_HORIZON, gen)
+        torch.cuda.synchronize()
+        launches = {"K1": k1.launches, "K2a": k2a.launches, "K3": k3.launches,
+                    "K2b": k2b.launches}
+    finally:
+        ss.frames_sorted_kernel = k3
+    steps = HORIZON + CRASH_HORIZON
+    print(f"  launches: {launches}")
+    for name, n in launches.items():
+        if n != steps:
+            raise AssertionError(
+                f"{name} launched {n} times, expected {steps} (one per policy step)"
+            )
+    fl = torch.stack(recorder.flags)  # (steps, B, 2)
+    share = float(fl.any(dim=2).double().mean())
+    coll_share = float(fl[..., 0].double().mean())
+    neigh_share = float(fl[..., 1].double().mean())
+    main_share = float(fl[:HORIZON].any(dim=2).double().mean())
+    print(f"  env-steps whose band flag fired: {share:.6f} of {steps * B} "
+          f"(collision {coll_share:.6f}, neighbour {neigh_share:.6f}); "
+          f"{main_share:.6f} over the {HORIZON} steps from reset")
     m = {k: float(v) for k, v in metrics.items()}
     mc = {k: float(v) for k, v in crash_metrics.items()}
     print(f"  rollout: {m}")
@@ -281,57 +459,165 @@ def main() -> int:
         raise AssertionError("main path: no episode ended")
     if not 0.0 <= m["mean_reward"] <= 1.0:
         raise AssertionError("main path: normalized reward out of [0, 1]")
+    dense_env = ht.make("highway-v0", sorted_frames=False)
+    before = (k1.launches, k2a.launches, k3.launches, k2b.launches)
+    _, dense_metrics = rollout(dense_env, states, DENSE_HORIZON, gen)
+    torch.cuda.synchronize()
+    after = (k1.launches, k2a.launches, k3.launches, k2b.launches)
+    if after != (before[0] + DENSE_HORIZON,) + before[1:]:
+        raise AssertionError(f"dense path launches {before} -> {after}")
+    md = {k: float(v) for k, v in dense_metrics.items()}
+    if not all(np.isfinite(list(md.values()))):
+        raise AssertionError("dense path: non-finite metrics")
+    print(f"  dense path (sorted_frames=False), {DENSE_HORIZON} steps: K1 only, {md}")
 
     print(f"== 5. times on {card}")
     gen = env.generator(SEED + 2)
     _, states = env.reset(B, gen)
-    veh = env.action_type.apply(
-        env.geo, states.vehicles, states.vehicles.kind == 1,
-        env._action_to_slots(torch.ones(B, dtype=torch.int32, device=env.device)),
+    slot_actions = env._action_to_slots(torch.ones(B, dtype=torch.int32, device=env.device))
+    veh = env.action_type.apply(env.geo, states.vehicles, states.vehicles.kind == 1,
+                                slot_actions)
+    srt, idx = ss.sort_plain(veh, fs)
+    band, flags = ss.frames_sorted_plain(srt, idx, fs, p, dt, frames)
+    back = ss.unsort_plain(band, idx, veh)
+    none = torch.zeros(B, dtype=torch.bool, device=env.device)
+    rows = {}
+
+    def timed(label, kernel_fn, plain_fn, library_fn, reps, plain_reps):
+        """(device ms, plain device ms, library device ms or None), printed
+        with the wall time of one kernel call."""
+        ms = device_ms(kernel_fn, reps)
+        wall = cuda_ms(kernel_fn, reps)
+        plain_ms = device_ms(plain_fn, plain_reps)
+        lib_ms = None if library_fn is None else device_ms(library_fn, plain_reps)
+        print(f"  {label}: {ms:.4f} ms on the device ({wall:.4f} ms a call between "
+              f"CUDA events); plain {plain_ms:.4f} ms"
+              + ("" if lib_ms is None else f"; yardstick {lib_ms:.4f} ms"))
+        return ms, plain_ms, lib_ms
+
+    # K2a: bytes of every field read once and written once, plus idx
+    s_key = ss.s_coordinate(veh.pos, fs) + 0.0
+
+    def sort_library():  # torch.sort + torch.gather of every field
+        order = torch.sort(s_key, dim=1, stable=True).indices
+        return [torch.gather(getattr(veh, n), 1, ss._per_row(order, getattr(veh, n)))
+                for n, _, _ in ss.SORT_FIELDS]
+
+    ms, plain_ms, lib_ms = timed(
+        "K2a straight_sort (yardstick: torch.sort + torch.gather sequence)",
+        lambda: k2a(veh, fs), lambda: ss.sort_plain(veh, fs), sort_library, 50, 10,
     )
-    ms = cuda_ms(lambda: kernel(veh, fs, p, dt, frames), 20)
-    plain_ms = cuda_ms(lambda: straight_frames.frames_plain(veh, fs, p, dt, frames), 3)
-    # bound: this input's work, frame by frame through the plain version
+    n_bytes = 2 * field_bytes(veh, ss.SORT_FIELDS) + idx.numel() * 4
+    V = veh.kind.shape[1]
+    rank_ops = 3.0 * B * V * V + 4.0 * B * V
+    bms, by, t_ops, t_bytes = bound(rank_ops, n_bytes)
+    rows["K2a"] = ("straight_sort", "highwayenv_tpu_torch/csrc/straight_sort.cu",
+                   "highwayenv_tpu/ops/straight_pallas_bm.py:1241", ms, plain_ms, bms, by,
+                   lib_ms)
+    print(f"    bound {bms:.4f} ms by {by} ({n_bytes} bytes -> {t_bytes:.4f} ms, "
+          f"{rank_ops:.3e} ops -> {t_ops:.5f} ms)")
+
+    # K3: operations of this input's frames, frame by frame on the plain version
+    ms, plain_ms, _ = timed(
+        "K3 straight_frames_sorted, per policy step",
+        lambda: k3(srt, idx, fs, p, dt, frames),
+        lambda: ss.frames_sorted_plain(srt, idx, fs, p, dt, frames), None, 20, 2,
+    )
+    ops, v = 0.0, srt
+    for _ in range(frames):
+        out, _ = ss.frames_sorted_plain(v, idx, fs, p, dt, 1)
+        ops += sorted_frame_ops(v, out, fs, p, dt)
+        v = out
+    n_bytes = (field_bytes(srt, sf._IN_FIELDS) + field_bytes(band, sf._OUT_FIELDS)
+               + idx.numel() * 4 + B * 2)
+    bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+    rows["K3"] = ("straight_frames_sorted",
+                  "highwayenv_tpu_torch/csrc/straight_frames_sorted.cu",
+                  "highwayenv_tpu/ops/straight_pallas_bm.py:1190", ms, plain_ms, bms, by, None)
+    print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.4f} ms, "
+          f"{n_bytes} bytes -> {t_bytes:.4f} ms); firing envs "
+          f"{int(flags.any(dim=1).sum())}")
+
+    # K2b: the mutated fields and idx read once, the fields written once
+    index = idx.long()
+
+    def unsort_library():  # torch scatter_ of every mutated field
+        return [torch.empty_like(getattr(band, n)).scatter_(
+            1, ss._per_row(index, getattr(band, n)), getattr(band, n))
+            for n, _, _ in ss.MUT_FIELDS]
+
+    ms, plain_ms, lib_ms = timed(
+        "K2b straight_unsort (yardstick: torch scatter_ sequence)",
+        lambda: k2b(band, idx, veh), lambda: ss.unsort_plain(band, idx, veh),
+        unsort_library, 50, 10,
+    )
+    n_bytes = 2 * field_bytes(band, ss.MUT_FIELDS) + idx.numel() * 4
+    bms, by, t_ops, t_bytes = bound(0.0, n_bytes)
+    rows["K2b"] = ("straight_unsort", "highwayenv_tpu_torch/csrc/straight_sort.cu",
+                   "highwayenv_tpu/ops/straight_pallas_bm.py:1257", ms, plain_ms, bms, by,
+                   lib_ms)
+    print(f"    bound {bms:.4f} ms by {by} ({n_bytes} bytes)")
+
+    # K1: dense (every env), and masked with no env firing (the main path's
+    # usual launch)
+    ms, plain_ms, _ = timed(
+        "K1 straight_frames, every env, per policy step",
+        lambda: k1(veh, fs, p, dt, frames),
+        lambda: sf.frames_plain(veh, fs, p, dt, frames), None, 20, 2,
+    )
+    masked_ms = device_ms(lambda: k1(veh, fs, p, dt, frames, mask=none, out=back), 50)
     ops, v = 0.0, veh
     for _ in range(frames):
-        out = straight_frames.frames_plain(v, fs, p, dt, 1)
+        out = sf.frames_plain(v, fs, p, dt, 1)
         ops += frame_ops(v, out, fs, p, dt)
         v = out
-    n_bytes = sum(
-        getattr(veh, name).numel() * getattr(veh, name).element_size()
-        for name, _, _ in straight_frames._IN_FIELDS + straight_frames._OUT_FIELDS
-    )
-    t_ops, t_bytes = ops / PEAK_FP32_OPS * 1e3, n_bytes / PEAK_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    print(f"  straight_frames: {ms:.4f} ms per policy step; plain {plain_ms:.3f} ms; "
-          f"bound {bound_ms:.4f} ms ({ops:.3e} fp32 ops -> {t_ops:.4f} ms, "
-          f"{n_bytes} bytes -> {t_bytes:.4f} ms)")
-    walls = []
-    for _ in range(3):
+    n_bytes = field_bytes(veh, sf._IN_FIELDS) + field_bytes(veh, sf._OUT_FIELDS)
+    bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+    rows["K1"] = ("straight_frames", "highwayenv_tpu_torch/csrc/straight_frames.cu",
+                  "highwayenv_tpu/ops/straight_pallas_bm.py:1190", ms, plain_ms, bms, by, None)
+    print(f"    masked with no env firing: {masked_ms:.4f} ms on the device; bound "
+          f"{bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.4f} ms, {n_bytes} "
+          f"bytes -> {t_bytes:.4f} ms)")
+
+    # the policy step's simulation, and the rollouts, in turns
+    for which, sim in (("sorted", ss.simulate_bm_sorted), ("dense", sf.simulate_bm)):
+        def call(sim=sim):
+            return sim(env, states.vehicles, slot_actions, frames)
+
+        print(f"  {which} simulation of one policy step (meta-action and frames): "
+              f"{device_ms(call, 10):.4f} ms on the device, {cuda_ms(call, 10):.4f} ms "
+              "between CUDA events")
+    walls = {"sorted": [], "dense": []}
+    for which in ("sorted", "dense", "dense", "sorted", "sorted", "dense"):
+        e = env if which == "sorted" else dense_env
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rollout(env, states, HORIZON, gen)
+        rollout(e, states, HORIZON, gen)
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    for wall in walls:
-        print(f"  rollout: {HORIZON} steps x {B} envs in {wall:.4f} s = "
-              f"{HORIZON * B / wall:.1f} env-steps/s ({wall / HORIZON * 1e3:.4f} ms "
-              f"per step, of which the kernel ~{ms:.4f} ms)")
+        walls[which].append(time.perf_counter() - t0)
+    for which, ws in walls.items():
+        for wall in ws:
+            print(f"  {which} rollout: {HORIZON} steps x {B} envs in {wall:.4f} s = "
+                  f"{HORIZON * B / wall:.1f} env-steps/s ({wall / HORIZON * 1e3:.4f} ms "
+                  "per step)")
+    print("  sorted step:")
     profile_rollout(env, states, gen)
+    print("  dense step:")
+    profile_rollout(dense_env, states, gen)
 
     print(json.dumps({"kernels": [{
-        "name": "straight_frames",
+        "name": name,
         "route": "cuda",
-        "source": "highwayenv_tpu_torch/csrc/straight_frames.cu",
-        "replaces": "highwayenv_tpu/ops/straight_pallas_bm.py:1190",
-        "launches": launches,
-        "max_abs_err": max_err,
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[key],
+        "max_abs_err": err[key],
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
-    }]}))
+        "bound_ms": bms,
+        "bound_by": by,
+        "library_ms": lib_ms,
+    } for key, (name, source, replaces, ms, plain_ms, bms, by, lib_ms) in rows.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -21,11 +21,14 @@ def register(env_id: str, cls, kwargs: dict | None = None):
     _REGISTRY[env_id] = (cls, kwargs or {})
 
 
-def make(env_id: str, config: dict | None = None, device=None):
+def make(env_id: str, config: dict | None = None, device=None,
+         sorted_frames: bool = True):
     """Instantiate a registered environment on ``device`` (default CUDA).
 
     Returns an env with batched ``reset(batch_size, generator)`` and
     ``step_autoreset_batched(states, actions, generator)``; see envs/base.py.
+    ``sorted_frames=False`` steps the frames through the dense kernel alone
+    instead of the s-sorted banded path (the JAX package's ``HT_NO_SORTED``).
     """
     if env_id not in _REGISTRY:
         raise KeyError(
@@ -36,7 +39,8 @@ def make(env_id: str, config: dict | None = None, device=None):
     base_config = dict(base_kwargs.get("config", {}))
     if config:
         base_config.update(config)
-    return cls(config=base_config or None, device=device)
+    return cls(config=base_config or None, device=device,
+               sorted_frames=sorted_frames)
 
 
 def registered_ids():

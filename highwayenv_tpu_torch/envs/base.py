@@ -8,8 +8,12 @@ from an explicit ``torch.Generator`` argument instead of a per-env PRNG key
 carried in the state.
 
 A policy step is ``sim_freq // policy_freq`` frames.  ``_simulate_batched``
-runs them through ``ops/straight_frames.simulate_bm`` (the CUDA frame
-kernel on the card); ``_simulate`` runs them through
+runs them, as the JAX package does for lean straight scenes, through
+``ops/straight_sorted.simulate_bm_sorted`` (sort, banded frames, unsort and
+the dense frame kernel on the envs whose band flags fired: four CUDA
+kernels on the card), or with ``sorted_frames=False`` through
+``ops/straight_frames.simulate_bm`` (the dense frame kernel alone, the
+JAX package's ``HT_NO_SORTED=1``); ``_simulate`` runs them through
 ``simulate_frames_reference``, the plain torch loop, on any device.
 """
 
@@ -23,6 +27,7 @@ import torch
 
 from highwayenv_tpu_torch.ops import straight_fast
 from highwayenv_tpu_torch.ops.straight_frames import frames_plain, simulate_bm
+from highwayenv_tpu_torch.ops.straight_sorted import simulate_bm_sorted
 from highwayenv_tpu_torch.road import lane as lane_ops
 from highwayenv_tpu_torch.vehicle.behavior import IDMParams
 from highwayenv_tpu_torch.vehicle.state import KIND_EGO, VehicleState
@@ -89,8 +94,11 @@ class BaseEnv:
     #: initial value of the frame counter
     _initial_steps = 0
 
-    def __init__(self, config: dict | None = None, device=None):
+    def __init__(self, config: dict | None = None, device=None,
+                 sorted_frames: bool = True):
         self.device = resolve_device(device)
+        #: frames on the s-sorted banded path (default) or dense
+        self.sorted_frames = sorted_frames
         self.config = self.default_config()
         self.configure(config)
         self._build()
@@ -243,9 +251,13 @@ class BaseEnv:
         return self._advance(states, actions, simulate_frames_reference)
 
     def _simulate_batched(self, states: EnvState, actions) -> EnvState:
-        """One policy step through the frame kernel (CUDA tensors) or its
-        plain version (CPU tensors)."""
-        return self._advance(states, actions, simulate_bm)
+        """One policy step through the frame kernels (CUDA tensors) or their
+        plain versions (CPU tensors): the sorted path, or the dense one when
+        the env was made with ``sorted_frames=False``.  The ported scenes are
+        all lean (vehicles only), the JAX package's condition for sorting."""
+        return self._advance(
+            states, actions, simulate_bm_sorted if self.sorted_frames else simulate_bm
+        )
 
     # ------------------------------------------------------------------ #
     # reset, heads, autoreset

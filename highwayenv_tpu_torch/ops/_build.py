@@ -2,12 +2,13 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled for
 Hopper (``sm_90a``) into ``build/kernels/<name>-<hash>.so`` at the repo root,
-keyed on a hash of the source and the flags, so the first call builds it and
-later calls load the cached library.  No PyTorch headers are included, which
-keeps a build to seconds.  ``--use_fast_math`` is deliberately absent: it
-swaps sinf/cosf/atanf for approximations.  ``-fmad=false`` keeps every
-multiply and add separately rounded, as the op-by-op torch versions the
-kernels are held against round them.
+keyed on a hash of the source, the ``csrc/`` headers it includes and the
+flags, so the first call builds it and later calls load the cached library.
+No PyTorch headers are included, which keeps a build to seconds.
+``--use_fast_math`` is deliberately absent: it swaps sinf/cosf/atanf for
+approximations.  ``-fmad=false`` keeps every multiply and add separately
+rounded, as the op-by-op torch versions the kernels are held against round
+them.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -39,10 +41,28 @@ def nvcc_path() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: pathlib.Path, seen: set) -> list[bytes]:
+    """The bytes of ``path`` and of every header in its directory that it
+    includes with quotes, recursively, each once."""
+    seen.add(path)
+    text = path.read_bytes()
+    out = [text]
+    for name in _LOCAL_INCLUDE.findall(text):
+        header = path.parent / name.decode()
+        if header not in seen and header.is_file():
+            out += _sources(header, seen)
+    return out
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = (SOURCE_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    """``build/kernels/<name>-<hash>.so``: the hash covers the source, the
+    headers of ``csrc/`` it includes, and the flags."""
+    parts = _sources(SOURCE_DIR / f"{name}.cu", set())
+    key = hashlib.sha256(b"\0".join(parts) + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict[str, pathlib.Path]:

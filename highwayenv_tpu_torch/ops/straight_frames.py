@@ -14,7 +14,11 @@ frame is the straight-road specialization of the reference
   5. bicycle integration and lane re-localization;
   6. swept-SAT collisions with last-write impacts (PARITY #2).
 
-Every phase reads the frame-start state.  ``frames_kernel`` runs all
+Every phase reads the frame-start state.  Phases 1 and 3-5 (``project``,
+``drive``) are shared with the s-sorted frame of ``ops/straight_sorted.py``,
+which replaces the two pair searches 2 and 6 by banded ones, as
+``csrc/straight_common.cuh`` shares them between the two CUDA kernels.
+``frames_kernel`` runs all
 ``frames`` frames of a policy step in one launch of
 ``csrc/straight_frames.cu`` for CUDA tensors, and ``frames_plain`` (batched
 torch over (B, V, V) pair tensors) for CPU tensors; the two compute the
@@ -32,7 +36,6 @@ from __future__ import annotations
 import ctypes
 import math
 
-import numpy as np
 import torch
 
 from highwayenv_tpu_torch.ops import collision
@@ -53,6 +56,38 @@ MAX_LANES = 16
 MAX_SLOTS = 1024
 
 
+def front_pick(ok, s_c):
+    """Front neighbour among the columns where ``ok`` (..., V, V): the
+    smallest key ``s_c``, the LAST column among equal keys; -1 = none."""
+    cols = torch.arange(ok.shape[-1], device=ok.device)
+    key = torch.where(ok, s_c, math.inf)
+    hit = ok & (key == key.amin(dim=-1, keepdim=True))
+    return torch.where(hit, cols, -1).amax(dim=-1)
+
+
+def rear_pick(ok, s_c):
+    """Rear neighbour among the columns where ``ok``: the largest key, the
+    FIRST column among equal keys; -1 = none."""
+    V = ok.shape[-1]
+    cols = torch.arange(V, device=ok.device)
+    key = torch.where(ok, s_c, -math.inf)
+    hit = ok & (key == key.amax(dim=-1, keepdim=True))
+    idx = torch.where(hit, cols, V).amin(dim=-1)
+    return torch.where(idx == V, -1, idx)
+
+
+def lane_members(s, lat0, occupiable, q_off, tol: float):
+    """(B, K, V, V) mask: column c is on the lane of query (k, q), i.e.
+    ``|lat0_c - q_off| <= tol``, is occupiable, and is not q itself."""
+    V = s.shape[-1]
+    cols = torch.arange(V, device=s.device)
+    return (
+        ((lat0[:, None, None, :] - q_off[..., None]).abs() <= tol)
+        & occupiable[:, None, None, :]
+        & (cols[:, None] != cols[None, :])
+    )
+
+
 def neighbours(s, lat0, occupiable, q_off, tol: float):
     """Front / rear neighbour slots of every query (B, K, V), -1 = none.
 
@@ -63,56 +98,67 @@ def neighbours(s, lat0, occupiable, q_off, tol: float):
     FIRST (the reference's ``<=`` / strict ``>`` scans, PARITY #3).  A slot
     is never its own neighbour.
     """
-    V = s.shape[-1]
-    cols = torch.arange(V, device=s.device)
-    member = (
-        ((lat0[:, None, None, :] - q_off[..., None]).abs() <= tol)
-        & occupiable[:, None, None, :]
-        & (cols[:, None] != cols[None, :])
-    )  # (B, K, V, V)
+    member = lane_members(s, lat0, occupiable, q_off, tol)
     s_q = s[:, None, :, None]
     s_c = s[:, None, None, :]
-    front_ok = member & (s_q <= s_c)
-    f_key = torch.where(front_ok, s_c, math.inf)
-    f_hit = front_ok & (f_key == f_key.amin(dim=-1, keepdim=True))
-    front_idx = torch.where(f_hit, cols, -1).amax(dim=-1)
-    rear_ok = member & (s_c < s_q)
-    r_key = torch.where(rear_ok, s_c, -math.inf)
-    r_hit = rear_ok & (r_key == r_key.amax(dim=-1, keepdim=True))
-    rear_idx = torch.where(r_hit, cols, V).amin(dim=-1)
-    return front_idx, torch.where(rear_idx == V, -1, rear_idx)
+    return front_pick(member & (s_q <= s_c), s_c), rear_pick(member & (s_c < s_q), s_c)
 
 
-def _frame_plain(veh: VehicleState, fs: StraightGeo, p: IDMParams, dt: float):
-    """One frame on (B, V) fields; pair tensors are (B, [3,] V, V)."""
-    B, V = veh.kind.shape
-    dev = veh.speed.device
-    off = torch.as_tensor(fs.offsets, device=dev)
+def mobil_gates(veh: VehicleState, p: IDMParams):
+    """Frame-start (idm, mid_change, deciding) masks: uncrashed IDM rows,
+    rows changing lanes, and rows taking a MOBIL decision this frame."""
+    idm = (veh.kind == KIND_IDM) & ~veh.crashed
+    mid_change = veh.lane != veh.target_lane
+    tick = veh.timer > p.lane_change_delay
+    deciding = idm & ~mid_change & tick & veh.enable_lane_change
+    return idm, mid_change, deciding
+
+
+def project(veh: VehicleState, fs: StraightGeo):
+    """Frame-start projection on the road axis: s, lateral offset, lane
+    occupancy (B, V), and the query lanes own / -1 / +1 (clamped) with their
+    offsets (B, 3, V)."""
+    off = torch.as_tensor(fs.offsets, device=veh.speed.device)
     L = off.shape[0]
     ox, oy = float(fs.origin[0]), float(fs.origin[1])
     ux, uy = float(fs.u[0]), float(fs.u[1])
     nx, ny = float(fs.n[0]), float(fs.n[1])
-    eye = torch.eye(V, dtype=torch.bool, device=dev)
-
-    kind = veh.kind
     px, py = veh.pos[..., 0], veh.pos[..., 1]
     s = (px - ox) * ux + (py - oy) * uy
     lat0 = (px - ox) * nx + (py - oy) * ny
-    is_vehicle = veh.is_vehicle
-    idm = (kind == KIND_IDM) & ~veh.crashed
     occupiable = (
         (-VEHICLE_LENGTH <= s) & (s < fs.length + VEHICLE_LENGTH)
-        & veh.active & (kind != KIND_LANDMARK)
+        & veh.active & (veh.kind != KIND_LANDMARK)
     )
     lane = veh.lane.long()
     q_lanes = torch.stack(
         [lane, (lane - 1).clamp(0, L - 1), (lane + 1).clamp(0, L - 1)], dim=1
     )  # (B, 3, V): own lane, lane - 1, lane + 1
     q_off = off[q_lanes.clamp(0, L - 1)]
+    return s, lat0, occupiable, q_lanes, q_off
 
-    front_idx, rear_idx = neighbours(
-        s, lat0, occupiable, q_off, fs.width / 2 + 1.0
-    )  # (B, 3, V)
+
+def drive(
+    veh: VehicleState, fs: StraightGeo, p: IDMParams, dt: float,
+    s, lat0, q_lanes, q_off, front_idx, rear_idx,
+) -> VehicleState:
+    """The frame between the neighbour search and the collision pass: MOBIL
+    with its timer, abort-on-conflict, the P-cascade controls with dual-lane
+    IDM, bicycle integration and re-localization.  ``front_idx`` /
+    ``rear_idx`` (B, 3, V) are the neighbours of the own lane and lanes
+    -1 / +1, -1 = none (``csrc/straight_common.cuh::drive``)."""
+    V = veh.kind.shape[1]
+    dev = veh.speed.device
+    off = torch.as_tensor(fs.offsets, device=dev)
+    L = off.shape[0]
+    ox, oy = float(fs.origin[0]), float(fs.origin[1])
+    nx, ny = float(fs.n[0]), float(fs.n[1])
+    eye = torch.eye(V, dtype=torch.bool, device=dev)
+
+    kind = veh.kind
+    is_vehicle = veh.is_vehicle
+    lane = veh.lane.long()
+    idm, mid_change, deciding = mobil_gates(veh, p)
     cos_h, sin_h = torch.cos(veh.heading), torch.sin(veh.heading)
     vx, vy = veh.speed * cos_h, veh.speed * sin_h
     table = {
@@ -149,9 +195,6 @@ def _frame_plain(veh: VehicleState, fs: StraightGeo, p: IDMParams, dt: float):
     a_of_pred = accel(rears[0], fronts[0])
 
     # --- MOBIL ------------------------------------------------------------ #
-    mid_change = veh.lane != veh.target_lane
-    tick = veh.timer > p.lane_change_delay
-    deciding = idm & ~mid_change & tick & veh.enable_lane_change
     new_timer = torch.where(deciding, 0.0, veh.timer)
     moving = veh.speed.abs() >= 1.0
     target = veh.target_lane
@@ -226,11 +269,20 @@ def _frame_plain(veh: VehicleState, fs: StraightGeo, p: IDMParams, dt: float):
         target_lane=target, timer=new_timer, steering=new_steer, accel=new_accel
     )
 
-    # --- integrate, re-localize on the nearest lane offset, collide -------- #
+    # --- integrate, re-localize on the nearest lane offset ------------------ #
     veh = kinematics.integrate(veh, dt)
     lat_new = (veh.pos[..., 0] - ox) * nx + (veh.pos[..., 1] - oy) * ny
     new_lane = (lat_new[..., None] - off).abs().argmin(dim=-1).to(torch.int32)
-    veh = veh.replace(lane=torch.where(veh.is_vehicle, new_lane, veh.lane))
+    return veh.replace(lane=torch.where(veh.is_vehicle, new_lane, veh.lane))
+
+
+def _frame_plain(veh: VehicleState, fs: StraightGeo, p: IDMParams, dt: float):
+    """One dense frame on (B, V) fields; pair tensors are (B, [3,] V, V)."""
+    s, lat0, occupiable, q_lanes, q_off = project(veh, fs)
+    front_idx, rear_idx = neighbours(
+        s, lat0, occupiable, q_off, fs.width / 2 + 1.0
+    )  # (B, 3, V)
+    veh = drive(veh, fs, p, dt, s, lat0, q_lanes, q_off, front_idx, rear_idx)
     return collision.handle_collisions(veh, dt)
 
 
@@ -299,97 +351,179 @@ _OUT_FIELDS = [
 ]
 
 
-class StraightFramesKernel:
-    """Wrapper of the ``straight_frames`` CUDA kernel.
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; any other device raises.
+    A kernel wrapper launches its kernel on CUDA tensors and runs its plain
+    version on CPU tensors."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type == "cuda"
 
-    Called on CUDA tensors it launches the kernel once for all frames and
-    adds one to ``launches``; on CPU tensors it runs ``frames_plain``.  The
-    shared library is built from ``csrc/straight_frames.cu`` at first use.
-    """
+
+def checked_fields(state, fields, B: int, V: int, dev) -> list[torch.Tensor]:
+    """The tensors of ``fields`` ((name, dtype, trailing shape) triples) in
+    ``state``, each checked to be contiguous, of its dtype and (B, V) +
+    trailing shape, on ``dev``: what a kernel takes as a raw pointer."""
+    out = []
+    for name, dtype, trail in fields:
+        t = getattr(state, name)
+        if t.device != dev or t.dtype != dtype or t.shape != (B, V) + trail:
+            raise ValueError(
+                f"{name}: expected {dtype} {(B, V) + trail} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+        out.append(t)
+    return out
+
+
+def empty_fields(fields, B: int, V: int, dev) -> list[torch.Tensor]:
+    return [torch.empty((B, V) + trail, dtype=dtype, device=dev)
+            for _, dtype, trail in fields]
+
+
+def with_fields(state: VehicleState, fields, tensors) -> VehicleState:
+    """``state`` with the named ``fields`` replaced by ``tensors``."""
+    return state.replace(**{name: t for (name, _, _), t in zip(fields, tensors)})
+
+
+def check_frame_shape(veh: VehicleState, fs: StraightGeo) -> tuple[int, int]:
+    """(B, V) of a state a frame kernel takes: one thread per slot, at most
+    ``MAX_LANES`` lane offsets in its constant block."""
+    B, V = veh.kind.shape
+    if V > MAX_SLOTS:
+        raise ValueError(f"{V} slots > {MAX_SLOTS}: one thread per slot")
+    if len(fs.offsets) > MAX_LANES:
+        raise ValueError(f"{len(fs.offsets)} lanes > {MAX_LANES}")
+    return B, V
+
+
+def kernel_params(fs: StraightGeo, p: IDMParams, dt: float):
+    """The (Geo, Params) structures of the frame kernels."""
+    geo = _Geo(
+        ox=float(fs.origin[0]), oy=float(fs.origin[1]),
+        ux=float(fs.u[0]), uy=float(fs.u[1]),
+        nx=float(fs.n[0]), ny=float(fs.n[1]), theta=fs.theta,
+        in_range_hi=fs.length + VEHICLE_LENGTH,
+        member_tol=fs.width / 2 + 1.0,
+        reach_lat=2 * fs.width,
+        speed_limit=0.0 if math.isinf(fs.speed_limit) else fs.speed_limit,
+        has_limit=0 if math.isinf(fs.speed_limit) else 1,
+        n_lanes=len(fs.offsets),
+    )
+    for i, o in enumerate(fs.offsets):
+        geo.offsets[i] = float(o)
+    params = _Params(
+        dt=dt, acc_max=p.acc_max, comfort_acc_max=p.comfort_acc_max,
+        distance_wanted=p.distance_wanted, time_wanted=p.time_wanted,
+        inv_two_sqrt_ab=p.inv_two_sqrt_ab, politeness=p.politeness,
+        lane_change_delay=p.lane_change_delay, kp_a=controller.KP_A,
+        kp_heading=controller.KP_HEADING, kp_lateral=controller.KP_LATERAL,
+    )
+    return geo, params
+
+
+class KernelWrapper:
+    """A CUDA kernel's wrapper: ``launches`` counts the launches, and the
+    library ``csrc/<source>.cu`` is built and bound at the first launch."""
+
+    source: str
 
     def __init__(self):
         self.launches = 0
         self._lib = None
 
+    def _bind(self, lib) -> None:
+        """Declare the ctypes signature of the library's entry point."""
+        raise NotImplementedError
+
     def _library(self):
         if self._lib is None:
             from highwayenv_tpu_torch.ops import _build
 
-            lib = _build.load_kernel_library("straight_frames")
-            lib.straight_frames.argtypes = (
-                [ctypes.c_void_p] * (len(_IN_FIELDS) + len(_OUT_FIELDS))
-                + [
-                    ctypes.POINTER(_Geo), ctypes.POINTER(_Params),
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                ]
-            )
-            lib.straight_frames.restype = ctypes.c_int
+            lib = _build.load_kernel_library(self.source)
+            self._bind(lib)
             self._lib = lib
         return self._lib
 
+    def _launched(self, name: str, err: int) -> None:
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        self.launches += 1
+
+
+def _masked_plain(veh, fs, p, dt, frames, mask, out):
+    """``frames_plain`` written over the rows of ``out`` where ``mask`` is
+    set, in place.  It runs the whole batch: the CPU's vectorized libm
+    rounds a row differently depending on how many rows run, and the rows
+    must equal those of the dense step."""
+    if bool(mask.any()):
+        dense = frames_plain(veh, fs, p, dt, frames)
+        for name, _, _ in _OUT_FIELDS:
+            t = getattr(out, name)
+            m = mask.view((-1,) + (1,) * (t.dim() - 1))
+            t.copy_(torch.where(m, getattr(dense, name), t))
+    return out
+
+
+class StraightFramesKernel(KernelWrapper):
+    """Wrapper of the dense ``straight_frames`` CUDA kernel (K1).
+
+    Called on CUDA tensors it launches the kernel once for all frames and
+    adds one to ``launches``; on CPU tensors it runs ``frames_plain``.
+
+    With a (B,) bool ``mask`` and an ``out`` state, only the envs where the
+    mask is set are simulated, from ``veh``: their rows of ``out``'s mutated
+    fields are overwritten in place and the other rows are left as they
+    are; ``out`` is returned.  The sorted path uses this as its per-env
+    exact fallback, one launch whatever the number of envs that fire.
+    """
+
+    source = "straight_frames"
+
+    def _bind(self, lib):
+        lib.straight_frames.argtypes = (
+            [ctypes.c_void_p] * (len(_IN_FIELDS) + len(_OUT_FIELDS) + 1)
+            + [
+                ctypes.POINTER(_Geo), ctypes.POINTER(_Params),
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+        )
+        lib.straight_frames.restype = ctypes.c_int
+
     def __call__(
         self, veh: VehicleState, fs: StraightGeo, p: IDMParams, dt: float,
-        frames: int,
+        frames: int, mask: torch.Tensor | None = None,
+        out: VehicleState | None = None,
     ) -> VehicleState:
-        if veh.speed.device.type == "cpu":
-            return frames_plain(veh, fs, p, dt, frames)
-        if veh.speed.device.type != "cuda":
-            raise ValueError(f"unsupported device {veh.speed.device}")
-        B, V = veh.kind.shape
-        L = len(fs.offsets)
-        if V > MAX_SLOTS:
-            raise ValueError(f"{V} slots > {MAX_SLOTS}: one thread per slot")
-        if L > MAX_LANES:
-            raise ValueError(f"{L} lanes > {MAX_LANES}")
+        if (mask is None) != (out is None):
+            raise ValueError("mask and out are given together")
+        if not on_cuda(veh.speed):
+            if mask is None:
+                return frames_plain(veh, fs, p, dt, frames)
+            return _masked_plain(veh, fs, p, dt, frames, mask, out)
+        B, V = check_frame_shape(veh, fs)
         dev = veh.speed.device
-        ins = []
-        for name, dtype, trail in _IN_FIELDS:
-            t = getattr(veh, name)
-            if t.device != dev or t.dtype != dtype or t.shape != (B, V) + trail:
-                raise ValueError(
-                    f"{name}: expected {dtype} {(B, V) + trail} on {dev}, got "
-                    f"{t.dtype} {tuple(t.shape)} on {t.device}"
-                )
-            if not t.is_contiguous():
-                raise ValueError(f"{name} is not contiguous")
-            ins.append(t)
-        outs = {
-            name: torch.empty((B, V) + trail, dtype=dtype, device=dev)
-            for name, dtype, trail in _OUT_FIELDS
-        }
-        geo = _Geo(
-            ox=float(fs.origin[0]), oy=float(fs.origin[1]),
-            ux=float(fs.u[0]), uy=float(fs.u[1]),
-            nx=float(fs.n[0]), ny=float(fs.n[1]), theta=fs.theta,
-            in_range_hi=fs.length + VEHICLE_LENGTH,
-            member_tol=fs.width / 2 + 1.0,
-            reach_lat=2 * fs.width,
-            speed_limit=0.0 if math.isinf(fs.speed_limit) else fs.speed_limit,
-            has_limit=0 if math.isinf(fs.speed_limit) else 1,
-            n_lanes=L,
-        )
-        for i, o in enumerate(fs.offsets):
-            geo.offsets[i] = float(o)
-        params = _Params(
-            dt=dt, acc_max=p.acc_max, comfort_acc_max=p.comfort_acc_max,
-            distance_wanted=p.distance_wanted, time_wanted=p.time_wanted,
-            inv_two_sqrt_ab=p.inv_two_sqrt_ab, politeness=p.politeness,
-            lane_change_delay=p.lane_change_delay, kp_a=controller.KP_A,
-            kp_heading=controller.KP_HEADING, kp_lateral=controller.KP_LATERAL,
-        )
+        ins = checked_fields(veh, _IN_FIELDS, B, V, dev)
+        if mask is None:
+            outs = empty_fields(_OUT_FIELDS, B, V, dev)
+        else:
+            if (mask.dtype != torch.bool or mask.shape != (B,)
+                    or mask.device != dev or not mask.is_contiguous()):
+                raise ValueError(f"mask: expected contiguous bool ({B},) on {dev}")
+            outs = checked_fields(out, _OUT_FIELDS, B, V, dev)
+        geo, params = kernel_params(fs, p, dt)
         lib = self._library()
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.straight_frames(
-                *[t.data_ptr() for t in ins],
-                *[t.data_ptr() for t in outs.values()],
-                ctypes.byref(geo), ctypes.byref(params),
-                B, V, frames, stream,
+                *[t.data_ptr() for t in ins + outs],
+                None if mask is None else mask.data_ptr(),
+                ctypes.byref(geo), ctypes.byref(params), B, V, frames,
+                torch.cuda.current_stream(dev).cuda_stream,
             )
-        if err != 0:
-            raise RuntimeError(f"straight_frames launch failed: CUDA error {err}")
-        self.launches += 1
-        return veh.replace(**outs)
+        self._launched("straight_frames", err)
+        return out if mask is not None else with_fields(veh, _OUT_FIELDS, outs)
 
 
 #: the one wrapper instance the env path launches through

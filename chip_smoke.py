@@ -14,17 +14,23 @@ Phases:
      K2b (bit-exact), the sorted banded frames K3 (discrete fields and flags
      exact, continuous fields within the stated tolerance), K1 masked by the
      flags; then the sorted step against the dense step, and the highway-v0
-     autoreset step of the main path against the plain reference path;
-  4. the main path: make("highway-v0") on CUDA, reset B=4096 and a random
+     autoreset step of the main path against the plain reference path; then
+     the general frame kernel K4 at roundabout-v0 (V=5, L=32, R=11) and
+     merge-v0 (V=6, L=9, an obstacle), B=4096, on the reset scene, 8 steps
+     in, an all-env pile-up and (merge) the obstacle hit, and the
+     roundabout-v0 autoreset step against the plain reference path;
+  4. the main paths: make("highway-v0") on CUDA, reset B=4096 and a random
      policy rollout with autoreset through the sorted step, each kernel's
      launch count checked, and a few steps of the dense path
-     (sorted_frames=False);
-  5. times on the card: each kernel's device time (torch.profiler), its
+     (sorted_frames=False); then make("roundabout-v0") on CUDA, B=4096, a
+     random-policy rollout through K4 (one launch per policy step);
+  5. times on the card: each kernel's device time (torch.profiler, and
+     CUDA events around launches queued behind a device-side wait), its
      plain version's, its bound and the PyTorch yardstick's where there is
      one, with the wall time of a call (CUDA events); the simulation of a
      sorted and a dense policy step; the sorted and dense rollouts in
-     turns; and a profile of rollout steps of each (device kernels by name,
-     device busy share).
+     turns; the roundabout-v0 rollout three times; and a profile of rollout
+     steps of each (device kernels by name, device busy share).
 
 Exits non-zero on any failed check, and without CUDA.  The last lines are
 the kernels JSON, the card line and ``{"ok": true, "device": {...}}``.
@@ -83,6 +89,21 @@ OPS_SCAN_STEP = 2
 OPS_COLL_SCAN_STEP = 4
 OPS_FAR_QUERY = 16
 
+# The general frame (ops/general_frames.py, csrc/general_frames.cu), in the
+# same units.  Per (live slot, lane) and frame: the local coordinates on a
+# straight / sine / circular lane (the projection table), and the lane
+# heading at s plus the closest-lane distance (re-localization).
+GEN_OPS_PROJECT = (8, 13, 16)
+GEN_OPS_RELOCATE = (6, 13, 11)
+GEN_OPS_SLOT = 120  # per live slot: lane-end test, rows, steering, integration
+GEN_OPS_IDM = 25  # per IDM acceleration of a row pair
+GEN_OPS_NEIGH_PAIR = 10  # per (neighbour query, other slot): eligibility, min / max
+GEN_OPS_ABORT_PAIR = 13  # per (lane-changing IDM slot, other slot)
+GEN_OPS_EDGE_LANE = 17  # per lane next_lane measures at a lane end
+GEN_HORIZON = 32  # policy steps of the roundabout-v0 main-path rollout
+GEN_DISCRETE = DISCRETE + ("route_ptr", "speed_index")
+GEN_CONTINUOUS = CONTINUOUS + ("target_speed",)
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -100,6 +121,24 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device time of one ``fn()`` from CUDA events around ``reps`` runs
+    queued behind a device-side wait (``torch.cuda._sleep``) long enough for
+    the host to issue them all, so the events bracket the kernels back to
+    back and no host gap.  ``fn`` must not synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's clock
     start.record()
     for _ in range(reps):
         fn()
@@ -259,6 +298,158 @@ def sorted_frame_ops(veh, out, fs, p, dt) -> float:
     ) + per_slot * float((veh.kind != 0).sum())
 
 
+def gen_frame_ops(veh, out, spec, table) -> float:
+    """float32 operations one general frame from ``veh`` (and its
+    frame-start projection table) to ``out`` needs: per live slot the
+    projection and re-localization on every lane by the lane's kind and the
+    slot's own work; the lanes follow_road measures at a lane end; the IDM
+    accelerations and neighbour scans of the decision pass; the abort scans;
+    the collision pairs as in the straight frame."""
+    from highwayenv_tpu_torch.road import lane as lane_ops
+    from highwayenv_tpu_torch.vehicle.controller import table_row
+    from highwayenv_tpu_torch.vehicle.state import KIND_IDM
+
+    geo, p = spec.geo, spec.p
+    V = veh.kind.shape[1]
+    L = geo.num_lanes
+    dev = veh.kind.device
+    kinds = geo.kind.long()
+    per_lane = float((torch.tensor(GEN_OPS_PROJECT, device=dev)[kinds]
+                      + torch.tensor(GEN_OPS_RELOCATE, device=dev)[kinds]).sum())
+    table_s, table_lat = table
+    live = veh.kind != 0
+    li = veh.lane.clamp(0, L - 1).long()
+    tl = veh.target_lane.clamp(0, L - 1).long()
+    ended = veh.is_controlled & (
+        table_row(table_s, veh.target_lane) > geo.length[tl] - 2.5
+    )
+    n_succ = (geo.succ_edge_base[tl] >= 0).sum(-1).clamp(min=1)
+    edge_lanes = (ended * n_succ).sum() * spec.max_edge_lanes
+    idm = (veh.kind == KIND_IDM) & ~veh.crashed
+    mid = veh.lane != veh.target_lane
+    deciding = idm & ~mid & (veh.timer > p.lane_change_delay) & veh.enable_lane_change
+    cands = torch.zeros_like(veh.lane)
+    for d in (-1, 1):
+        cid = geo.lane_id[li] + d
+        cand = (geo.edge_base[li] + cid).clamp(0, L - 1)
+        reach = lane_ops.reachable_from_coords(
+            geo, cand, table_row(table_s, cand), table_row(table_lat, cand)
+        )
+        cands = cands + (deciding & (cid >= 0) & (cid < geo.edge_n[li]) & reach
+                         & (veh.speed.abs() >= 1.0)).int()
+    dual = idm & (out.target_lane != veh.lane)
+    queries = idm.sum() + cands.sum() + dual.sum()
+    idm_evals = idm.sum() + 2 * deciding.sum() + 4 * cands.sum() + dual.sum()
+    aborting = (idm & mid & (geo.edge_base[li] == geo.edge_base[tl])).sum()
+    # collisions: unordered eligible pairs, and those within reach
+    eye = torch.eye(V, dtype=torch.bool, device=dev)
+    act, vh = out.kind != 0, out.is_vehicle
+    chk, coll = out.check_collisions, out.collidable
+    elig = (
+        torch.triu(~eye) & act[:, :, None] & act[:, None, :]
+        & (vh[:, :, None] | vh[:, None, :]) & (chk[:, :, None] | chk[:, None, :])
+        & coll[:, :, None] & coll[:, None, :]
+    )
+    dpos = out.pos[:, :, None, :] - out.pos[:, None, :, :]
+    diag = torch.sqrt(out.length**2 + out.width**2)
+    reach = (diag[:, :, None] + diag[:, None, :]) / 2 + out.speed[:, :, None] * spec.dt
+    near = elig & ((dpos * dpos).sum(-1) <= reach * reach)
+    return float(
+        (per_lane + GEN_OPS_SLOT) * live.sum() + GEN_OPS_EDGE_LANE * edge_lanes
+        + GEN_OPS_IDM * idm_evals + GEN_OPS_NEIGH_PAIR * (V - 1) * queries
+        + GEN_OPS_ABORT_PAIR * V * aborting + OPS_SPHERE * elig.sum()
+        + OPS_SAT * near.sum()
+    )
+
+
+def general_scenes(env, states, gen):
+    """The general frame's scenes: reset; 8 policy steps in (the plain
+    autoreset path); every env's vehicles in a row 1.5 m apart along the
+    ego's heading (an all-env pile-up); and on merge-v0 the ramp vehicle
+    closing on the end-of-ramp obstacle at 15 m/s and slot 1 on the ego at
+    40 m/s (the obstacle hit)."""
+    from highwayenv_tpu_torch.vehicle.state import KIND_OBSTACLE
+
+    veh = states.vehicles
+    Bn, V = veh.kind.shape
+    dev = veh.pos.device
+    st = states
+    for _ in range(8):
+        acts = torch.randint(0, env.action_type.n, (Bn,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        st = env.step_autoreset(st, acts, gen)[1]
+    out = {"reset": veh, "8 steps in": st.vehicles}
+    h = veh.heading[:, 0]
+    u = torch.stack([torch.cos(h), torch.sin(h)], dim=-1)
+    k = torch.arange(V, device=dev, dtype=torch.float32)
+    row = veh.pos[:, :1] + 1.5 * k[None, :, None] * u[:, None, :]
+    is_veh = veh.is_vehicle
+    out["pile-up"] = veh.replace(
+        pos=torch.where(is_veh[..., None], row, veh.pos),
+        heading=torch.where(is_veh, h[:, None], veh.heading),
+        lane=torch.where(is_veh, veh.lane[:, :1], veh.lane),
+        target_lane=torch.where(is_veh, veh.lane[:, :1], veh.target_lane),
+    )
+    if bool((veh.kind == KIND_OBSTACLE).any()):  # merge-v0: slot 5
+        pos, heading, speed = veh.pos.clone(), veh.heading.clone(), veh.speed.clone()
+        lane, tlane = veh.lane.clone(), veh.target_lane.clone()
+        off = 0.5 * (torch.arange(Bn, device=dev) % 8).float()
+        pos[:, 4, 0] = pos[:, 5, 0] - 7.0 - off
+        pos[:, 4, 1] = pos[:, 5, 1]
+        heading[:, 4], speed[:, 4] = 0.0, 15.0
+        lane[:, 4] = tlane[:, 4] = env.net.global_lane_index(("b", "c", 2))
+        pos[:, 1, 0] = pos[:, 0, 0] - 6.0
+        pos[:, 1, 1] = pos[:, 0, 1]
+        heading[:, 1], speed[:, 1] = 0.0, 40.0
+        lane[:, 1] = tlane[:, 1] = lane[:, 0]
+        out["obstacle hit"] = veh.replace(pos=pos, heading=heading, speed=speed,
+                                          lane=lane, target_lane=tlane)
+    return out
+
+
+def compare_general(a, b, where: str) -> float:
+    """K4 against its plain version: the discrete fields equal, each
+    continuous field within 1e-4 of its magnitude; prints the max error of
+    each and returns the largest."""
+    for name in GEN_DISCRETE:
+        n_bad = int((getattr(a, name) != getattr(b, name)).sum())
+        if n_bad:
+            raise AssertionError(f"{where}: {name} differs in {n_bad} entries")
+    errs = {}
+    for name in GEN_CONTINUOUS:
+        x, y = getattr(a, name), getattr(b, name)
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{where}: {name} has non-finite values")
+        errs[name] = float((x.double() - y.double()).abs().max())
+        tol = REL_TOL * max(1.0, float(y.abs().max()))
+        if errs[name] > tol:
+            raise AssertionError(f"{where}: {name} error {errs[name]} > {tol}")
+    print(f"  {where}: discrete equal; max |kernel - plain| "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f"; crashed slots {int(a.crashed.sum())}")
+    return max(errs.values())
+
+
+def check_autoreset(env, states, gen, label: str) -> None:
+    """Three autoreset steps of the main path against the plain reference
+    path from the same states and generators."""
+    st_k = st_p = states
+    for t in range(3):
+        acts = torch.randint(0, env.action_type.n, (B,), generator=gen,
+                             device=env.device, dtype=torch.int32)
+        g_k, g_p = env.generator(100 + t), env.generator(100 + t)
+        obs_k, st_k, r_k, te_k, tr_k, _ = env.step_autoreset_batched(st_k, acts, g_k)
+        obs_p, st_p, r_p, te_p, tr_p, _ = env.step_autoreset(st_p, acts, g_p)
+        compare(st_k.vehicles, st_p.vehicles, f"{label}step {t}")
+        if not (torch.equal(te_k, te_p) and torch.equal(tr_k, tr_p)):
+            raise AssertionError(f"{label}step {t}: terminated / truncated differ")
+        obs_err = float((obs_k - obs_p).abs().max())
+        rew_err = float((r_k - r_p).abs().max())
+        print(f"  {label}step {t}: obs err {obs_err:.3e}, reward err {rew_err:.3e}")
+        if obs_err > 1e-4 or rew_err > 1e-4:
+            raise AssertionError(f"{label}step {t}: obs / reward disagree")
+
+
 def field_bytes(state, fields) -> int:
     return sum(getattr(state, n).numel() * getattr(state, n).element_size()
                for n, _, _ in fields)
@@ -318,10 +509,11 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import highwayenv_tpu_torch as ht
-    from highwayenv_tpu_torch.ops import _build, straight_frames, straight_sorted
+    from highwayenv_tpu_torch.ops import _build, general_frames, straight_frames, straight_sorted
     from highwayenv_tpu_torch.parallel.rollout import rollout
+    from highwayenv_tpu_torch.road import lane as lane_ops
 
-    sf, ss = straight_frames, straight_sorted
+    sf, ss, gf =straight_frames, straight_sorted, general_frames
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -332,7 +524,9 @@ def main() -> int:
 
     print("== 2. build")
     t0 = time.time()
-    paths = _build.build(["straight_frames", "straight_sort", "straight_frames_sorted"])
+    paths = _build.build(
+        ["straight_frames", "straight_sort", "straight_frames_sorted", "general_frames"]
+    )
     print(f"built {[p.name for p in paths.values()]} in {time.time() - t0:.1f} s")
     for p in paths.values():
         log = p.with_suffix(".log")
@@ -340,6 +534,7 @@ def main() -> int:
             print(log.read_text().strip())
 
     k1, k2a, k3, k2b = sf.frames_kernel, ss.sort_kernel, ss.frames_sorted_kernel, ss.unsort_kernel
+    k4 = gf.frames_general_kernel
     err = {"K1": 0.0, "K2a": 0.0, "K3": 0.0, "K2b": 0.0}
     # highway-fast-v0 (V=21, 5 frames) runs the same kernels; the main path
     # is highway-v0, checked last so its env and states carry on below
@@ -395,21 +590,28 @@ def main() -> int:
                   f"crashed slots {int(fix_k.crashed.sum())}")
     # the whole autoreset step: the main path (sorted kernels) against the
     # plain reference path
-    st_k = st_p = states
-    for t in range(3):
-        acts = torch.randint(0, env.action_type.n, (B,), generator=gen,
-                             device=env.device, dtype=torch.int32)
-        g_k, g_p = env.generator(100 + t), env.generator(100 + t)
-        obs_k, st_k, r_k, te_k, tr_k, _ = env.step_autoreset_batched(st_k, acts, g_k)
-        obs_p, st_p, r_p, te_p, tr_p, _ = env.step_autoreset(st_p, acts, g_p)
-        compare(st_k.vehicles, st_p.vehicles, f"step {t}")
-        if not (torch.equal(te_k, te_p) and torch.equal(tr_k, tr_p)):
-            raise AssertionError(f"step {t}: terminated / truncated differ")
-        obs_err = float((obs_k - obs_p).abs().max())
-        rew_err = float((r_k - r_p).abs().max())
-        print(f"  step {t}: obs err {obs_err:.3e}, reward err {rew_err:.3e}")
-        if obs_err > 1e-4 or rew_err > 1e-4:
-            raise AssertionError(f"step {t}: obs / reward disagree")
+    check_autoreset(env, states, gen, "")
+
+    # K4 on the general path; roundabout-v0 last, its env carried on below
+    err["K4"] = 0.0
+    for env_id in ("merge-v0", "roundabout-v0"):
+        genv = ht.make(env_id)
+        spec, gframes = genv._general, genv.frames_per_step
+        gen = genv.generator(SEED)
+        _, gstates = genv.reset(B, gen)
+        print(f"== 3. K4 vs plain: {env_id} V={genv.num_slots}, L={genv.geo.num_lanes}, "
+              f"R={gstates.vehicles.route_base.shape[-1]}, {gframes} frames, B={B}")
+        for name, veh in general_scenes(genv, gstates, gen).items():
+            acts = torch.randint(0, genv.action_type.n, (B,), generator=gen,
+                                 device=genv.device, dtype=torch.int32)
+            sa = genv._action_to_slots(acts)
+            out_k = k4(veh, spec, sa, gframes)
+            out_p = gf.frames_general_plain(veh, spec, sa, gframes)
+            torch.cuda.synchronize()
+            err["K4"] = max(err["K4"], compare_general(out_k, out_p, f"{env_id} {name}"))
+            if name == "obstacle hit" and not bool(out_k.crashed[:, 4].any()):
+                raise AssertionError("merge-v0: the ramp vehicle hit the obstacle nowhere")
+    check_autoreset(genv, gstates, gen, "roundabout-v0 ")
 
     print(f"== 4. main path: make('highway-v0') on CUDA, B={B}, "
           f"{HORIZON} + {CRASH_HORIZON} autoreset steps, sorted step")
@@ -471,6 +673,38 @@ def main() -> int:
         raise AssertionError("dense path: non-finite metrics")
     print(f"  dense path (sorted_frames=False), {DENSE_HORIZON} steps: K1 only, {md}")
 
+    print(f"== 4. main path: make('roundabout-v0') on CUDA, B={B}, {GEN_HORIZON} "
+          "random-policy autoreset steps through K4")
+    gen = genv.generator(SEED + 1)
+    _, gstates = genv.reset(B, gen)
+    ended = crashed = obs_sum = 0.0
+    finite = torch.ones((), dtype=torch.bool, device=genv.device)
+    for k in (k1, k2a, k3, k2b, k4):
+        k.launches = 0
+    for _ in range(GEN_HORIZON):
+        acts = torch.randint(0, genv.action_type.n, (B,), generator=gen,
+                             device=genv.device, dtype=torch.int32)
+        obs, gstates, reward, term, trunc, _ = genv.step_autoreset_batched(gstates, acts, gen)
+        ended = ended + (term | trunc).sum()
+        crashed = crashed + term.sum()
+        obs_sum = obs_sum + obs.double().sum()
+        finite = finite & torch.isfinite(obs).all() & torch.isfinite(reward).all()
+        for t in (gstates.vehicles.pos, gstates.vehicles.speed, gstates.vehicles.heading):
+            finite = finite & torch.isfinite(t).all()
+    torch.cuda.synchronize()
+    launches["K4"] = k4.launches
+    others = (k1.launches, k2a.launches, k3.launches, k2b.launches)
+    print(f"  launches: K4 {k4.launches} in {GEN_HORIZON} policy steps, straight "
+          f"kernels {others}; obs checksum {float(obs_sum):.6f}; episodes ended "
+          f"{int(ended)}, of which by a crash {int(crashed)}, of {GEN_HORIZON * B} "
+          "env-steps")
+    if k4.launches != GEN_HORIZON or any(others):
+        raise AssertionError("roundabout-v0: K4 must launch once per policy step, alone")
+    if not bool(finite):
+        raise AssertionError("roundabout-v0: non-finite obs, reward or state")
+    if not int(ended) > 0:
+        raise AssertionError("roundabout-v0: no episode ended")
+
     print(f"== 5. times on {card}")
     gen = env.generator(SEED + 2)
     _, states = env.reset(B, gen)
@@ -488,10 +722,12 @@ def main() -> int:
         with the wall time of one kernel call."""
         ms = device_ms(kernel_fn, reps)
         wall = cuda_ms(kernel_fn, reps)
+        queued = queued_ms(kernel_fn, reps)
         plain_ms = device_ms(plain_fn, plain_reps)
         lib_ms = None if library_fn is None else device_ms(library_fn, plain_reps)
         print(f"  {label}: {ms:.4f} ms on the device ({wall:.4f} ms a call between "
-              f"CUDA events); plain {plain_ms:.4f} ms"
+              f"CUDA events; {queued:.4f} ms between CUDA events behind a device-side "
+              f"wait); plain {plain_ms:.4f} ms"
               + ("" if lib_ms is None else f"; yardstick {lib_ms:.4f} ms"))
         return ms, plain_ms, lib_ms
 
@@ -579,6 +815,34 @@ def main() -> int:
           f"{bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.4f} ms, {n_bytes} "
           f"bytes -> {t_bytes:.4f} ms)")
 
+    # K4 at roundabout-v0 from a fresh reset, random actions
+    gspec, gframes = genv._general, genv.frames_per_step
+    _, g0 = genv.reset(B, genv.generator(SEED + 2))
+    gveh = g0.vehicles
+    gsa = genv._action_to_slots(torch.randint(
+        0, genv.action_type.n, (B,), generator=gen, device=genv.device, dtype=torch.int32))
+    ms, plain_ms, _ = timed(
+        "K4 general_frames (roundabout-v0), per policy step",
+        lambda: k4(gveh, gspec, gsa, gframes),
+        lambda: gf.frames_general_plain(gveh, gspec, gsa, gframes), None, 20, 2,
+    )
+    ops, v = 0.0, gveh
+    table = lane_ops.projection_table(gspec.geo, v.pos)
+    for f in range(gframes):
+        out, next_table = gf.frame_general_plain(v, gspec, table, gsa if f == 0 else None)
+        ops += gen_frame_ops(v, out, gspec, table)
+        v, table = out, next_table
+    R = gveh.route_base.shape[-1]
+    lf, li = gf.lane_tables(gspec.geo, genv.device)
+    n_bytes = (field_bytes(gveh, gf._resolve(gf._IN_FIELDS, R)) + gsa.numel() * 4
+               + field_bytes(v, gf._resolve(gf.OUT_FIELDS, R))
+               + lf.numel() * 4 + li.numel() * 4)
+    bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+    rows["K4"] = ("general_frames", "highwayenv_tpu_torch/csrc/general_frames.cu",
+                  "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms, bms, by, None)
+    print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, "
+          f"{n_bytes} bytes -> {t_bytes:.5f} ms)")
+
     # the policy step's simulation, and the rollouts, in turns
     for which, sim in (("sorted", ss.simulate_bm_sorted), ("dense", sf.simulate_bm)):
         def call(sim=sim):
@@ -604,6 +868,17 @@ def main() -> int:
     profile_rollout(env, states, gen)
     print("  dense step:")
     profile_rollout(dense_env, states, gen)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout(genv, g0, GEN_HORIZON, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"  roundabout-v0 rollout: {GEN_HORIZON} steps x {B} envs in {wall:.4f} s "
+              f"= {GEN_HORIZON * B / wall:.1f} env-steps/s ({wall / GEN_HORIZON * 1e3:.4f} "
+              "ms per step)")
+    print("  roundabout-v0 step:")
+    profile_rollout(genv, g0, gen)
 
     print(json.dumps({"kernels": [{
         "name": name,

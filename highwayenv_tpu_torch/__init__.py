@@ -6,8 +6,8 @@ hand-written CUDA kernel on an NVIDIA Hopper card.  The JAX package
 package imports nothing of it and nothing of JAX.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
-Registry ids mirror the reference; only the straight highway envs are
-ported so far.
+Registry ids mirror the reference; ported so far: the straight highway
+envs and, on the general analytic-lane path, roundabout-v0 and merge-v0.
 """
 
 from __future__ import annotations
@@ -15,6 +15,25 @@ from __future__ import annotations
 __version__ = "0.1.0"
 
 _REGISTRY: dict[str, tuple] = {}
+
+#: ids of the reference registry that use the connected-lane neighbour search
+_CONNECTED_IDS = {
+    "merge-v1", "merge-generic-v1", "u-turn-v1", "exit-v1", "roundabout-v1",
+    "roundabout-generic-v1", "racetrack-v1", "racetrack-large-v1",
+    "racetrack-oval-v1", "intersection-v2", "intersection-multi-agent-v2",
+}
+
+
+class NotPortedError(KeyError, NotImplementedError):
+    """``make`` of an id the port does not run (yet)."""
+
+
+def _why_not_ported(env_id: str) -> str:
+    if env_id in _CONNECTED_IDS:
+        return "the connected-lane neighbour search is not ported"
+    if env_id.startswith("intersection"):
+        return "the regulated road's right-of-way pass (kernel K5) is not ported"
+    return "unknown or not ported"
 
 
 def register(env_id: str, cls, kwargs: dict | None = None):
@@ -31,9 +50,9 @@ def make(env_id: str, config: dict | None = None, device=None,
     instead of the s-sorted banded path (the JAX package's ``HT_NO_SORTED``).
     """
     if env_id not in _REGISTRY:
-        raise KeyError(
-            f"{env_id!r} is not ported to highwayenv_tpu_torch yet; "
-            f"ported: {sorted(_REGISTRY)}"
+        raise NotPortedError(
+            f"{env_id!r} is not ported to highwayenv_tpu_torch yet "
+            f"({_why_not_ported(env_id)}); ported: {sorted(_REGISTRY)}"
         )
     cls, base_kwargs = _REGISTRY[env_id]
     base_config = dict(base_kwargs.get("config", {}))
@@ -49,9 +68,13 @@ def registered_ids():
 
 def _register_all():
     from highwayenv_tpu_torch.envs.highway import HighwayEnv, HighwayEnvFast
+    from highwayenv_tpu_torch.envs.merge import MergeEnv
+    from highwayenv_tpu_torch.envs.roundabout import RoundaboutEnv
 
     register("highway-v0", HighwayEnv)
     register("highway-fast-v0", HighwayEnvFast)
+    register("merge-v0", MergeEnv)
+    register("roundabout-v0", RoundaboutEnv)
 
 
 _register_all()

@@ -8,13 +8,20 @@ from an explicit ``torch.Generator`` argument instead of a per-env PRNG key
 carried in the state.
 
 A policy step is ``sim_freq // policy_freq`` frames.  ``_simulate_batched``
-runs them, as the JAX package does for lean straight scenes, through
-``ops/straight_sorted.simulate_bm_sorted`` (sort, banded frames, unsort and
-the dense frame kernel on the envs whose band flags fired: four CUDA
-kernels on the card), or with ``sorted_frames=False`` through
-``ops/straight_frames.simulate_bm`` (the dense frame kernel alone, the
-JAX package's ``HT_NO_SORTED=1``); ``_simulate`` runs them through
-``simulate_frames_reference``, the plain torch loop, on any device.
+runs them, as the JAX package does:
+
+  - on a straight parallel-lane network (highway) through
+    ``ops/straight_sorted.simulate_bm_sorted`` (sort, banded frames, unsort
+    and the dense frame kernel on the envs whose band flags fired: four CUDA
+    kernels on the card), or with ``sorted_frames=False`` through
+    ``ops/straight_frames.simulate_bm`` (the dense frame kernel alone, the
+    JAX package's ``HT_NO_SORTED=1``);
+  - on any other analytic-lane network the general gate admits
+    (roundabout, merge) through ``ops/general_frames.simulate_general``
+    (one launch of the general frame kernel, the ego meta-action inside).
+
+``_simulate`` runs them through the plain torch loops on any device:
+``simulate_frames_reference`` or ``simulate_general_reference``.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from typing import Any
 
 import torch
 
-from highwayenv_tpu_torch.ops import straight_fast
+from highwayenv_tpu_torch.ops import general_frames, straight_fast
 from highwayenv_tpu_torch.ops.straight_frames import frames_plain, simulate_bm
 from highwayenv_tpu_torch.ops.straight_sorted import simulate_bm_sorted
 from highwayenv_tpu_torch.road import lane as lane_ops
@@ -94,6 +101,9 @@ class BaseEnv:
     #: initial value of the frame counter
     _initial_steps = 0
 
+    #: RegulatedRoad envs (right-of-way pass) set this; none is ported yet
+    regulated = False
+
     def __init__(self, config: dict | None = None, device=None,
                  sorted_frames: bool = True):
         self.device = resolve_device(device)
@@ -135,24 +145,31 @@ class BaseEnv:
         self._build_scene()  # subclass: sets self.net / self.geo / slots
         self._build_spaces()
         self.idm_params = IDMParams()
-        self._straight = straight_fast.try_compile(self.net)
+        self.dt = 1.0 / self.config["simulation_frequency"]
+        self.frames_per_step = int(
+            self.config["simulation_frequency"] // self.config["policy_frequency"]
+        )
+        self._straight = (
+            None if self.regulated else straight_fast.try_compile(self.net)
+        )
+        # analytic networks that are not straight take the general path
+        self._general = (
+            general_frames.try_general(self) if self._straight is None else None
+        )
         npc = self.config.get("other_vehicles_type", "").rsplit(".", 1)[-1]
         unported = [
             what for what, bad in (
                 (f"other_vehicles_type={npc}", npc in self._LINEAR_PRESETS),
                 ("sequential_decisions", self.config.get("sequential_decisions")),
-                ("non-straight road networks", self._straight is None),
                 ("several controlled vehicles", len(self.ego_slots) != 1),
             ) if bad
         ]
+        if self._straight is None:
+            unported += general_frames.general_unported(self)
         if unported:
             raise NotImplementedError(
                 f"{type(self).__name__}: {', '.join(unported)} not ported yet"
             )
-        self.dt = 1.0 / self.config["simulation_frequency"]
-        self.frames_per_step = int(
-            self.config["simulation_frequency"] // self.config["policy_frequency"]
-        )
 
     def _build_scene(self):
         raise NotImplementedError
@@ -248,13 +265,21 @@ class BaseEnv:
 
     def _simulate(self, states: EnvState, actions) -> EnvState:
         """One policy step through the plain torch frames."""
+        if self._general is not None:
+            return self._advance(
+                states, actions, general_frames.simulate_general_reference
+            )
         return self._advance(states, actions, simulate_frames_reference)
 
     def _simulate_batched(self, states: EnvState, actions) -> EnvState:
         """One policy step through the frame kernels (CUDA tensors) or their
-        plain versions (CPU tensors): the sorted path, or the dense one when
-        the env was made with ``sorted_frames=False``.  The ported scenes are
-        all lean (vehicles only), the JAX package's condition for sorting."""
+        plain versions (CPU tensors): on a general network the general frame
+        kernel; on a straight one the sorted path, or the dense one when the
+        env was made with ``sorted_frames=False``.  The ported straight
+        scenes are all lean (vehicles only), the JAX package's condition for
+        sorting."""
+        if self._general is not None:
+            return self._advance(states, actions, general_frames.simulate_general)
         return self._advance(
             states, actions, simulate_bm_sorted if self.sorted_frames else simulate_bm
         )

@@ -1,0 +1,331 @@
+"""All frames of a policy step on an analytic-lane network: CUDA kernel + plain torch.
+
+Counterpart of ``highwayenv_tpu/ops/general_pallas_bm.py`` without its
+regulated block (``build_general_frame(regulated=False)``,
+``pallas_simulate_general``), the general path of the envs whose lanes are
+straight, sine and circular (roundabout-v0, merge-v0).  One frame is the
+JAX package's ``BaseEnv._frame`` in its default branch (not regulated, no
+dynamical egos, decisions on the frame-start state):
+
+  1. ``follow_road``: controlled vehicles whose target lane ends take the
+     next lane, along their route or by the closest successor edge;
+  2. the ego's DiscreteMetaAction, on the first frame of the policy step;
+  3. the IDM / MOBIL decision pass on the (B, L, V) projection table of
+     every object on every lane, with the route-directed override and the
+     same-road abort gate, and the dual-lane IDM acceleration;
+  4. the steering P-cascade toward the target lane's heading ahead;
+  5. bicycle integration, the new projection table and the heading-aware
+     re-localization (closest lane by |lat| + overrun + heading distance);
+  6. swept-SAT collisions with obstacles and last-write impacts.
+
+``frames_general_plain`` runs them in batched torch; it is what the CPU
+and ``BaseEnv._simulate`` use.  ``frames_general_kernel`` (K4) runs all
+frames in one launch of ``csrc/general_frames.cu`` for CUDA tensors and
+``frames_general_plain`` for CPU tensors.  ``try_general`` is the scope
+gate: the envs outside it raise when made, naming the reason.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from highwayenv_tpu_torch.ops import collision
+from highwayenv_tpu_torch.ops.straight_frames import (
+    KernelWrapper,
+    checked_fields,
+    empty_fields,
+    on_cuda,
+    with_fields,
+)
+from highwayenv_tpu_torch.road import lane as lane_ops
+from highwayenv_tpu_torch.road.lane import LaneGeometry
+from highwayenv_tpu_torch.vehicle import behavior, controller, kinematics
+from highwayenv_tpu_torch.vehicle.behavior import IDMParams
+from highwayenv_tpu_torch.vehicle.state import KIND_EGO, KIND_IDM, VehicleState
+
+#: the gate's limits: one warp per env holds at most 32 slots, and the
+#: TPU kernel's unrolled lane loops stop at 32 lanes
+MAX_SLOTS = 32
+MAX_LANES = 32
+#: sizes of the kernel's fixed arrays (``MAX_SUCC`` ... in the .cu)
+MAX_SUCC = 4
+MAX_EDGE_LANES = 8
+MAX_SPEEDS = 8
+MAX_ROUTE = 16
+
+
+class GeneralSpec(NamedTuple):
+    """What a general frame needs besides the state."""
+
+    geo: LaneGeometry
+    p: IDMParams
+    dt: float
+    max_edge_lanes: int
+    action_type: object  # DiscreteMetaAction
+
+
+def general_unported(env) -> list[str]:
+    """Why ``env`` cannot take the general path: the JAX package's
+    ``try_general`` conditions that the port's envs can meet, plus the
+    regulated road, whose right-of-way pass (K5) is not ported yet."""
+    geo = env.geo
+    return [
+        what for what, bad in (
+            ("regulated roads (right-of-way pass, kernel K5)",
+             getattr(env, "regulated", False)),
+            ("neighbour_vehicles_connected_lanes (the -v1 connected-lane "
+             "neighbour search)",
+             env.config.get("neighbour_vehicles_connected_lanes", False)),
+            (f"{env.num_slots} slots > {MAX_SLOTS}", env.num_slots > MAX_SLOTS),
+            (f"{geo.num_lanes} lanes > {MAX_LANES}", geo.num_lanes > MAX_LANES),
+        ) if bad
+    ]
+
+
+def try_general(env) -> GeneralSpec | None:
+    """The general path's spec, or None when the env is outside the gate."""
+    if general_unported(env):
+        return None
+    return GeneralSpec(
+        geo=env.geo, p=env.idm_params, dt=env.dt,
+        max_edge_lanes=int(env.max_edge_lanes), action_type=env.action_type,
+    )
+
+
+# --------------------------------------------------------------------------- #
+# plain torch
+# --------------------------------------------------------------------------- #
+
+
+def frame_general_plain(veh: VehicleState, spec: GeneralSpec, table,
+                        slot_actions: torch.Tensor | None):
+    """One frame on (B, V) fields from the frame-start projection table
+    ``(s, lat)`` (B, L, V); the ego meta-action is applied when
+    ``slot_actions`` is given.  Returns the state and the new table."""
+    geo, p = spec.geo, spec.p
+    table_s, table_lat = table
+    veh = controller.follow_road(geo, veh, spec.max_edge_lanes, table_s)
+    if slot_actions is not None:
+        veh = spec.action_type.apply(geo, veh, veh.kind == KIND_EGO, slot_actions)
+    veh, idm_acc = behavior.idm_act(geo, p, veh, table_s, table_lat)
+    # the ego's target is its own after the decision pass: one steering
+    # law serves the ego and the IDM rows
+    steer = controller.steering_from_table(
+        geo, veh.target_lane, veh, table_s, table_lat
+    )
+    is_ego = veh.kind == KIND_EGO
+    is_idm = (veh.kind == KIND_IDM) & ~veh.crashed
+    veh = veh.replace(
+        steering=torch.where(is_ego | is_idm, steer, veh.steering),
+        accel=torch.where(
+            is_ego, controller.speed_control(veh.target_speed, veh.speed),
+            torch.where(is_idm, idm_acc, veh.accel),
+        ),
+    )
+    veh = kinematics.integrate(veh, spec.dt)
+    table = lane_ops.projection_table(geo, veh.pos)
+    new_lane = lane_ops.closest_lane_from_table(geo, *table, veh.heading)
+    veh = veh.replace(lane=torch.where(veh.is_vehicle, new_lane, veh.lane))
+    return collision.handle_collisions(veh, spec.dt), table
+
+
+def frames_general_plain(veh: VehicleState, spec: GeneralSpec,
+                         slot_actions: torch.Tensor, frames: int) -> VehicleState:
+    """``frames`` frames in plain batched torch, the meta-action on the
+    first: K4's reference."""
+    table = lane_ops.projection_table(spec.geo, veh.pos)
+    for i in range(frames):
+        veh, table = frame_general_plain(
+            veh, spec, table, slot_actions if i == 0 else None
+        )
+    return veh
+
+
+# --------------------------------------------------------------------------- #
+# the CUDA kernel's wrapper
+# --------------------------------------------------------------------------- #
+
+_LANE_F = ("sx", "sy", "ux", "uy", "nx", "ny", "heading0", "amplitude",
+           "pulsation", "phase", "cx", "cy", "radius", "start_phase", "cw",
+           "width", "length", "speed_limit")
+_LANE_I = ("kind", "forbidden", "lane_id", "edge_base", "edge_n", "from_node",
+           "to_node")
+LANE_F_WORDS = len(_LANE_F)
+LANE_I_WORDS = 16  # _LANE_I, succ_base[MAX_SUCC], succ_n[MAX_SUCC], padding
+
+
+def lane_tables(geo: LaneGeometry, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's (L, LANE_F_WORDS) float and (L, LANE_I_WORDS) int lane
+    tables (the counterpart of ``GeneralGeo``)."""
+    S = geo.succ_edge_base.shape[1]
+    if S > MAX_SUCC:
+        raise ValueError(f"{S} successor edges > {MAX_SUCC}")
+    cols = {
+        "sx": geo.start[:, 0], "sy": geo.start[:, 1],
+        "ux": geo.direction[:, 0], "uy": geo.direction[:, 1],
+        "nx": geo.direction_lateral[:, 0], "ny": geo.direction_lateral[:, 1],
+        "cx": geo.center[:, 0], "cy": geo.center[:, 1],
+    }
+    lf = torch.stack(
+        [cols[k] if k in cols else getattr(geo, k) for k in _LANE_F], dim=1
+    ).to(device=device, dtype=torch.float32).contiguous()
+    L = geo.num_lanes
+    li = torch.zeros((L, LANE_I_WORDS), dtype=torch.int32)
+    for k, name in enumerate(_LANE_I):
+        li[:, k] = getattr(geo, name).cpu().to(torch.int32)
+    n = len(_LANE_I)
+    li[:, n:n + MAX_SUCC] = -1
+    li[:, n:n + S] = geo.succ_edge_base.cpu()
+    li[:, n + MAX_SUCC:n + MAX_SUCC + S] = geo.succ_edge_n.cpu()
+    return lf, li.to(device).contiguous()
+
+
+class _GenParams(ctypes.Structure):
+    _fields_ = [
+        ("L", ctypes.c_int), ("M", ctypes.c_int), ("V", ctypes.c_int),
+        ("R", ctypes.c_int), ("frames", ctypes.c_int),
+        ("n_speeds", ctypes.c_int), ("longitudinal", ctypes.c_int),
+        ("lateral", ctypes.c_int),
+        ("dt", ctypes.c_float), ("acc_max", ctypes.c_float),
+        ("comfort_acc_max", ctypes.c_float), ("distance_wanted", ctypes.c_float),
+        ("time_wanted", ctypes.c_float), ("inv_two_sqrt_ab", ctypes.c_float),
+        ("politeness", ctypes.c_float), ("lane_change_delay", ctypes.c_float),
+        ("kp_a", ctypes.c_float), ("kp_heading", ctypes.c_float),
+        ("kp_lateral", ctypes.c_float), ("tau_pursuit", ctypes.c_float),
+        ("ts_lo", ctypes.c_float), ("inv_ts_range", ctypes.c_float),
+        ("target_speeds", ctypes.c_float * MAX_SPEEDS),
+    ]
+
+
+_IN_FIELDS = [
+    # (name, dtype, trailing shape); "R" is the route width
+    ("pos", torch.float32, (2,)), ("heading", torch.float32, ()),
+    ("speed", torch.float32, ()), ("lane", torch.int32, ()),
+    ("target_lane", torch.int32, ()), ("target_speed", torch.float32, ()),
+    ("timer", torch.float32, ()), ("crashed", torch.bool, ()),
+    ("hit", torch.bool, ()), ("impact_pending", torch.bool, ()),
+    ("impact", torch.float32, (2,)), ("steering", torch.float32, ()),
+    ("accel", torch.float32, ()), ("route_ptr", torch.int32, ()),
+    ("speed_index", torch.int32, ()), ("delta", torch.float32, ()),
+    ("kind", torch.int32, ()), ("length", torch.float32, ()),
+    ("width", torch.float32, ()), ("check_collisions", torch.bool, ()),
+    ("collidable", torch.bool, ()), ("enable_lane_change", torch.bool, ()),
+    ("mobil_gain", torch.float32, ()), ("mobil_max_braking", torch.float32, ()),
+    ("route_len", torch.int32, ()), ("route_base", torch.int32, ("R",)),
+    ("route_n", torch.int32, ("R",)), ("route_id", torch.int32, ("R",)),
+]
+#: the mutated fields, written to new tensors (JAX ``GEN_MUT_FIELDS``)
+OUT_FIELDS = _IN_FIELDS[:15]
+
+
+def _resolve(fields, R: int):
+    return [(n, d, tuple(R if x == "R" else x for x in t)) for n, d, t in fields]
+
+
+def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int) -> _GenParams:
+    """The kernel's parameter block."""
+    at, p = spec.action_type, spec.p
+    ts = np.asarray(at.target_speeds, np.float32)
+    if not 2 <= len(ts) <= MAX_SPEEDS:
+        raise ValueError(f"{len(ts)} target speeds: 2 to {MAX_SPEEDS} supported")
+    if spec.max_edge_lanes > MAX_EDGE_LANES or R > MAX_ROUTE:
+        raise ValueError(
+            f"max_edge_lanes {spec.max_edge_lanes} > {MAX_EDGE_LANES} or "
+            f"route slots {R} > {MAX_ROUTE}"
+        )
+    out = _GenParams(
+        L=spec.geo.num_lanes, M=spec.max_edge_lanes, V=V, R=R, frames=frames,
+        n_speeds=len(ts), longitudinal=int(at.longitudinal),
+        lateral=int(at.lateral), dt=spec.dt, acc_max=p.acc_max,
+        comfort_acc_max=p.comfort_acc_max, distance_wanted=p.distance_wanted,
+        time_wanted=p.time_wanted, inv_two_sqrt_ab=p.inv_two_sqrt_ab,
+        politeness=p.politeness, lane_change_delay=p.lane_change_delay,
+        kp_a=controller.KP_A, kp_heading=controller.KP_HEADING,
+        kp_lateral=controller.KP_LATERAL, tau_pursuit=controller.TAU_PURSUIT,
+        # speed_to_index's division by the grid's span: torch on CUDA
+        # multiplies by the float32 reciprocal of a scalar divisor
+        ts_lo=float(ts[0]),
+        inv_ts_range=float(np.float32(1.0) / np.float32(float(ts[-1]) - float(ts[0]))),
+    )
+    for i, x in enumerate(ts):
+        out.target_speeds[i] = float(x)
+    return out
+
+
+class GeneralFramesKernel(KernelWrapper):
+    """Wrapper of the ``general_frames`` CUDA kernel (K4).
+
+    Called on CUDA tensors it launches the kernel once for all frames of
+    the policy step, the ego meta-action applied inside on frame 0, and adds
+    one to ``launches``; on CPU tensors it runs ``frames_general_plain``.
+    """
+
+    source = "general_frames"
+
+    def __init__(self):
+        super().__init__()
+        self._tables: dict = {}
+
+    def _bind(self, lib):
+        lib.general_frames.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.POINTER(_GenParams), ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.general_frames.restype = ctypes.c_int
+
+    def _lane_tables(self, geo: LaneGeometry, dev):
+        key = (id(geo), str(dev))
+        if key not in self._tables:
+            self._tables[key] = (geo, lane_tables(geo, dev))
+        return self._tables[key][1]
+
+    def __call__(self, veh: VehicleState, spec: GeneralSpec,
+                 slot_actions: torch.Tensor, frames: int) -> VehicleState:
+        if not on_cuda(veh.speed):
+            return frames_general_plain(veh, spec, slot_actions, frames)
+        B, V = veh.kind.shape
+        R = veh.route_base.shape[-1]
+        if V > MAX_SLOTS or spec.geo.num_lanes > MAX_LANES:
+            raise ValueError(f"V={V}, L={spec.geo.num_lanes}: at most "
+                             f"{MAX_SLOTS} slots and {MAX_LANES} lanes")
+        dev = veh.speed.device
+        ins = checked_fields(veh, _resolve(_IN_FIELDS, R), B, V, dev)
+        if (slot_actions.shape != (B, V) or slot_actions.dtype != torch.int32
+                or slot_actions.device != dev or not slot_actions.is_contiguous()):
+            raise ValueError(f"slot_actions: expected contiguous int32 ({B}, {V}) on {dev}")
+        outs = empty_fields(_resolve(OUT_FIELDS, R), B, V, dev)
+        lf, li = self._lane_tables(spec.geo, dev)
+        params = kernel_params(spec, V, R, frames)
+        ptrs = (ctypes.c_void_p * (len(ins) + 1 + len(outs)))(
+            *[t.data_ptr() for t in ins + [slot_actions] + outs]
+        )
+        lib = self._library()
+        with torch.cuda.device(dev):
+            err = lib.general_frames(
+                ptrs, lf.data_ptr(), li.data_ptr(), ctypes.byref(params),
+                B, torch.cuda.current_stream(dev).cuda_stream,
+            )
+        self._launched("general_frames", err)
+        return with_fields(veh, OUT_FIELDS, outs)
+
+
+#: the one wrapper instance the env path launches through
+frames_general_kernel = GeneralFramesKernel()
+
+
+def simulate_general(env, veh: VehicleState, slot_actions: torch.Tensor,
+                     frames: int) -> VehicleState:
+    """Policy-step simulation on the general path: all ``frames`` frames and
+    the ego meta-action (inside, on frame 0, after follow_road) through
+    ``frames_general_kernel``."""
+    return frames_general_kernel(veh, env._general, slot_actions, frames)
+
+
+def simulate_general_reference(env, veh: VehicleState, slot_actions: torch.Tensor,
+                               frames: int) -> VehicleState:
+    """The same step through ``frames_general_plain`` on any device."""
+    return frames_general_plain(veh, env._general, slot_actions, frames)

@@ -41,7 +41,12 @@ import torch
 from highwayenv_tpu_torch.ops import collision
 from highwayenv_tpu_torch.ops.straight_fast import StraightGeo
 from highwayenv_tpu_torch.vehicle import controller, kinematics
-from highwayenv_tpu_torch.vehicle.behavior import IDMParams, idm_acceleration
+from highwayenv_tpu_torch.vehicle.behavior import (
+    IDMParams,
+    front_pick,
+    idm_acceleration,
+    rear_pick,
+)
 from highwayenv_tpu_torch.vehicle.state import (
     KIND_EGO,
     KIND_IDM,
@@ -54,26 +59,6 @@ from highwayenv_tpu_torch.vehicle.state import (
 MAX_LANES = 16
 #: most slots one thread block can hold (one thread per slot)
 MAX_SLOTS = 1024
-
-
-def front_pick(ok, s_c):
-    """Front neighbour among the columns where ``ok`` (..., V, V): the
-    smallest key ``s_c``, the LAST column among equal keys; -1 = none."""
-    cols = torch.arange(ok.shape[-1], device=ok.device)
-    key = torch.where(ok, s_c, math.inf)
-    hit = ok & (key == key.amin(dim=-1, keepdim=True))
-    return torch.where(hit, cols, -1).amax(dim=-1)
-
-
-def rear_pick(ok, s_c):
-    """Rear neighbour among the columns where ``ok``: the largest key, the
-    FIRST column among equal keys; -1 = none."""
-    V = ok.shape[-1]
-    cols = torch.arange(V, device=ok.device)
-    key = torch.where(ok, s_c, -math.inf)
-    hit = ok & (key == key.amax(dim=-1, keepdim=True))
-    idx = torch.where(hit, cols, V).amin(dim=-1)
-    return torch.where(idx == V, -1, idx)
 
 
 def lane_members(s, lat0, occupiable, q_off, tol: float):

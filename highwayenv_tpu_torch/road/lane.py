@@ -1,20 +1,30 @@
-"""Straight-lane geometry tables and the lane ops the highway path uses.
+"""Lane geometry tables and the lane ops of the straight and general paths.
 
-PyTorch counterpart of the StraightLane rows of
-``highwayenv_tpu/road/lane.py``: the road network is compiled once into a
-``LaneGeometry`` of per-lane tensors, and every lane op is a gather by lane
-index plus elementwise arithmetic.  Sine, circular and poly lanes are not
-ported yet.
+PyTorch counterpart of the analytic rows of ``highwayenv_tpu/road/lane.py``
+(reference road/lane.py StraightLane, SineLane, CircularLane): the road
+network is compiled once into a ``LaneGeometry`` of per-lane tensors, and
+every lane op is a gather by lane index plus elementwise arithmetic.  Each
+op computes the straight, sine and circular forms and selects by the lane's
+kind, as the JAX package's ``_local_core`` / ``_position_core`` /
+``_heading_core`` do; on a network of straight lanes only
+(``geo.all_straight``, set when the network is built) it computes the
+straight form alone, so the highway path runs the same operations as before
+the curved lanes were ported.  Poly lanes are not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
+from highwayenv_tpu_torch.utils.math import wrap_to_pi
+
 # Lane type enum
 STRAIGHT = 0
+SINE = 1
+CIRCULAR = 2
 
 # AbstractLane constants (reference road/lane.py)
 DEFAULT_WIDTH = 4.0
@@ -27,16 +37,23 @@ LINE_CONTINUOUS = 2
 LINE_CONTINUOUS_LINE = 3
 
 
-class LaneGeometry(NamedTuple):
+class LaneTables(NamedTuple):
     """Per-lane tables, leading dim L.  Lanes of one edge occupy contiguous
     global indices; ``global_id = edge_base + lane_id``."""
 
-    kind: torch.Tensor  # (L,) i32
-    start: torch.Tensor  # (L,2) f32
+    kind: torch.Tensor  # (L,) i32: STRAIGHT / SINE / CIRCULAR
+    start: torch.Tensor  # (L,2) f32 (straight and sine axis)
     end: torch.Tensor  # (L,2) f32
-    direction: torch.Tensor  # (L,2) unit vector along the lane
+    direction: torch.Tensor  # (L,2) unit vector along the axis
     direction_lateral: torch.Tensor  # (L,2) left-normal
-    heading0: torch.Tensor  # (L,) lane heading
+    heading0: torch.Tensor  # (L,) axis heading
+    amplitude: torch.Tensor  # (L,) sine amplitude
+    pulsation: torch.Tensor  # (L,) sine pulsation [rad/m]
+    phase: torch.Tensor  # (L,) sine phase [rad]
+    center: torch.Tensor  # (L,2) circle centre
+    radius: torch.Tensor  # (L,) circle radius (1 on other kinds)
+    start_phase: torch.Tensor  # (L,)
+    cw: torch.Tensor  # (L,) +1 clockwise / -1 counter-clockwise
     width: torch.Tensor  # (L,)
     length: torch.Tensor  # (L,)
     speed_limit: torch.Tensor  # (L,) +inf when unlimited
@@ -59,35 +76,99 @@ class LaneGeometry(NamedTuple):
         return self.kind.shape[0]
 
 
+class LaneGeometry(LaneTables):
+    """The lane tables plus a host flag kept beside them, not among them."""
+
+    #: every lane is straight, so the lane ops take the straight form alone;
+    #: ``RoadNetworkBuilder.build`` sets it on the instance, and tables built
+    #: otherwise take the general form, right on any network
+    all_straight = False
+
+
 def _gather(geo: LaneGeometry, lane: torch.Tensor) -> torch.Tensor:
     """Clip lane indices into range (callers mask invalid lanes themselves)."""
     return lane.clamp(0, geo.num_lanes - 1).long()
 
 
+def _local_core(geo: LaneGeometry, li: torch.Tensor, px, py):
+    """(s, lat) of the points (px, py) on the lanes ``li`` (clipped long
+    indices), broadcast together (JAX ``_local_core``, float32 branch)."""
+    dx = px - geo.start[li, 0]
+    dy = py - geo.start[li, 1]
+    d, n = geo.direction[li], geo.direction_lateral[li]
+    s = dx * d[..., 0] + dy * d[..., 1]
+    lat = dx * n[..., 0] + dy * n[..., 1]
+    if geo.all_straight:
+        return s, lat
+    kind = geo.kind[li]
+    lat_sin = lat - geo.amplitude[li] * torch.sin(
+        geo.pulsation[li] * s + geo.phase[li]
+    )
+    dcx = px - geo.center[li, 0]
+    dcy = py - geo.center[li, 1]
+    sp = geo.start_phase[li]
+    phi = sp + wrap_to_pi(torch.atan2(dcy, dcx) - sp)
+    r = torch.sqrt(dcx * dcx + dcy * dcy)
+    cw, radius = geo.cw[li], geo.radius[li]
+    cir = kind == CIRCULAR
+    return (
+        torch.where(cir, cw * (phi - sp) * radius, s),
+        torch.where(cir, cw * (radius - r), torch.where(kind == SINE, lat_sin, lat)),
+    )
+
+
 def local_coordinates(geo: LaneGeometry, lane: torch.Tensor, pos: torch.Tensor):
     """(longitudinal, lateral) coordinates of world positions on a lane.
 
-    lane: (...,) int; pos: (..., 2).  Returns two (...,) tensors.
+    lane: (...,) int; pos: (..., 2), broadcast together.  Returns two
+    tensors of the broadcast shape.
     """
-    li = _gather(geo, lane)
-    dx = pos[..., 0] - geo.start[li, 0]
-    dy = pos[..., 1] - geo.start[li, 1]
-    d, n = geo.direction[li], geo.direction_lateral[li]
-    return dx * d[..., 0] + dy * d[..., 1], dx * n[..., 0] + dy * n[..., 1]
+    return _local_core(geo, _gather(geo, lane), pos[..., 0], pos[..., 1])
 
 
 def position(geo: LaneGeometry, lane, s, lat):
     """World position at local lane coordinates: (..., 2)."""
     li = _gather(geo, lane)
-    return (
+    if geo.all_straight:
+        return (
+            geo.start[li]
+            + s[..., None] * geo.direction[li]
+            + lat[..., None] * geo.direction_lateral[li]
+        )
+    kind = geo.kind[li]
+    lat_eff = torch.where(
+        kind == SINE,
+        lat + geo.amplitude[li] * torch.sin(geo.pulsation[li] * s + geo.phase[li]),
+        lat,
+    )
+    p_str = (
         geo.start[li]
         + s[..., None] * geo.direction[li]
-        + lat[..., None] * geo.direction_lateral[li]
+        + lat_eff[..., None] * geo.direction_lateral[li]
     )
+    cw, radius = geo.cw[li], geo.radius[li]
+    phi = cw * s / radius + geo.start_phase[li]
+    p_cir = geo.center[li] + (radius - lat * cw)[..., None] * torch.stack(
+        [torch.cos(phi), torch.sin(phi)], dim=-1
+    )
+    return torch.where((kind == CIRCULAR)[..., None], p_cir, p_str)
 
 
 def heading_at(geo: LaneGeometry, lane, s):
-    return geo.heading0[_gather(geo, lane)].expand(s.shape)
+    """Lane heading at longitudinal coordinate ``s`` (broadcast)."""
+    li = _gather(geo, lane)
+    if geo.all_straight:
+        return geo.heading0[li].expand(torch.broadcast_shapes(li.shape, s.shape))
+    kind = geo.kind[li]
+    h_sin = geo.heading0[li] + torch.atan(
+        geo.amplitude[li] * geo.pulsation[li]
+        * torch.cos(geo.pulsation[li] * s + geo.phase[li])
+    )
+    cw = geo.cw[li]
+    h_cir = cw * s / geo.radius[li] + geo.start_phase[li] + math.pi / 2 * cw
+    return torch.where(
+        kind == CIRCULAR, h_cir, torch.where(kind == SINE, h_sin, geo.heading0[li])
+    )
 
 
 def on_lane(geo: LaneGeometry, lane, s, lat, margin: float = 0.0):
@@ -100,13 +181,62 @@ def on_lane(geo: LaneGeometry, lane, s, lat, margin: float = 0.0):
     )
 
 
-def is_reachable_from(geo: LaneGeometry, lane, pos):
-    """Reference road/lane.py ``is_reachable_from``."""
+def reachable_from_coords(geo: LaneGeometry, lane, s, lat):
+    """Reference road/lane.py ``is_reachable_from`` with precomputed
+    coordinates."""
     li = _gather(geo, lane)
-    s, lat = local_coordinates(geo, lane, pos)
     close = (
         (lat.abs() <= 2 * geo.width[li])
         & (0 <= s)
         & (s < geo.length[li] + VEHICLE_LENGTH)
     )
     return close & ~geo.forbidden[li]
+
+
+def is_reachable_from(geo: LaneGeometry, lane, pos):
+    """Reference road/lane.py ``is_reachable_from``."""
+    s, lat = local_coordinates(geo, lane, pos)
+    return reachable_from_coords(geo, lane, s, lat)
+
+
+def distance(geo: LaneGeometry, lane, pos):
+    """L1-ish distance from a position to the lane (reference road/lane.py
+    ``distance``)."""
+    li = _gather(geo, lane)
+    s, lat = local_coordinates(geo, lane, pos)
+    return lat.abs() + (s - geo.length[li]).clamp(min=0.0) + (-s).clamp(min=0.0)
+
+
+def _heading_distance(geo, s, lat, heading, heading_weight: float = 1.0):
+    """``distance_with_heading`` over (..., L, V) tables of every lane:
+    |lat| + overrun past either end + the weighted heading difference."""
+    all_lanes = torch.arange(geo.num_lanes, device=s.device)[:, None]
+    angle = wrap_to_pi(heading[..., None, :] - heading_at(geo, all_lanes, s)).abs()
+    length = geo.length[:, None]
+    return (
+        lat.abs() + (s - length).clamp(min=0.0) + (-s).clamp(min=0.0)
+        + heading_weight * angle
+    )
+
+
+def projection_table(geo: LaneGeometry, pos: torch.Tensor):
+    """(s, lat) of every object on every lane: pos (..., V, 2) -> two
+    (..., L, V) tensors."""
+    all_lanes = torch.arange(geo.num_lanes, device=pos.device)[:, None]
+    return _local_core(
+        geo, all_lanes, pos[..., None, :, 0], pos[..., None, :, 1]
+    )
+
+
+def closest_lane_from_table(geo: LaneGeometry, s, lat, heading):
+    """Global index of the lane minimizing ``distance_with_heading``, from a
+    (..., L, V) projection table and the (..., V) headings; the first
+    minimum wins (reference road/road.py ``get_closest_lane_index``)."""
+    d = _heading_distance(geo, s, lat, heading)
+    return torch.argmin(d, dim=-2).to(torch.int32)
+
+
+def closest_lane(geo: LaneGeometry, pos: torch.Tensor, heading: torch.Tensor):
+    """``closest_lane_from_table`` of positions (..., V, 2)."""
+    s, lat = projection_table(geo, pos)
+    return closest_lane_from_table(geo, s, lat, heading)

@@ -1,10 +1,13 @@
-"""Host-side road-network builder: straight lane specs -> LaneGeometry.
+"""Host-side road-network builder: lane specs -> LaneGeometry.
 
-PyTorch counterpart of the straight subset of
-``highwayenv_tpu/road/network.py``: node names become integer ids, lanes of
-one edge get contiguous global indices, and successor / predecessor edges
-are flattened into fixed-width padded tables, all built once in numpy and
-moved to the env's device.
+PyTorch counterpart of the analytic subset of
+``highwayenv_tpu/road/network.py`` (straight, sine and circular lanes; poly
+lanes are not ported yet): node names become integer ids, lanes of one edge
+get contiguous global indices, and successor / predecessor edges are
+flattened into fixed-width padded tables, all built once in numpy and moved
+to the env's device.  The host-side queries the scenario resets use (lane
+lookup, global indices, BFS routes compiled into route arrays) live here
+too.
 """
 
 from __future__ import annotations
@@ -17,11 +20,13 @@ import numpy as np
 import torch
 
 from highwayenv_tpu_torch.road.lane import (
+    CIRCULAR,
     DEFAULT_WIDTH,
     LINE_CONTINUOUS,
     LINE_CONTINUOUS_LINE,
     LINE_NONE,
     LINE_STRIPED,
+    SINE,
     STRAIGHT,
     LaneGeometry,
 )
@@ -61,6 +66,75 @@ class StraightLane:
         if self.line_types is None:
             self.line_types = [LineType.STRIPED, LineType.STRIPED]
 
+    # host-side geometry (spawn positions computed before the tables exist)
+    def position(self, s, lat):
+        return self.start + s * self.direction + lat * self.direction_lateral
+
+    def heading_at(self, s):
+        return self.heading
+
+
+class SineLane(StraightLane):
+    """Spec of a sinusoidal lane (reference road/lane.py SineLane):
+    positional arguments (start, end, amplitude, pulsation, phase, ...)."""
+
+    kind = SINE
+
+    def __init__(self, start, end, amplitude, pulsation, phase,
+                 width=DEFAULT_WIDTH, line_types=None, forbidden=False,
+                 speed_limit=20.0, priority=0):
+        super().__init__(start, end, width, line_types, forbidden, speed_limit,
+                         priority)
+        self.amplitude = amplitude
+        self.pulsation = pulsation
+        self.phase = phase
+
+    def position(self, s, lat):
+        return super().position(
+            s, lat + self.amplitude * np.sin(self.pulsation * s + self.phase)
+        )
+
+    def heading_at(self, s):
+        return super().heading_at(s) + math.atan(
+            self.amplitude * self.pulsation * np.cos(self.pulsation * s + self.phase)
+        )
+
+
+@dataclasses.dataclass
+class CircularLane:
+    """Spec of a circular-arc lane (reference road/lane.py CircularLane)."""
+
+    center: Sequence[float]
+    radius: float
+    start_phase: float
+    end_phase: float
+    clockwise: bool = True
+    width: float = DEFAULT_WIDTH
+    line_types: Optional[Sequence[int]] = None
+    forbidden: bool = False
+    speed_limit: Optional[float] = 20.0
+    priority: int = 0
+
+    kind = CIRCULAR
+
+    def __post_init__(self):
+        self.center = np.asarray(self.center, dtype=np.float64)
+        self.direction = 1 if self.clockwise else -1
+        self.length = self.radius * (self.end_phase - self.start_phase) * self.direction
+        if self.line_types is None:
+            self.line_types = [LineType.STRIPED, LineType.STRIPED]
+
+    def position(self, s, lat):
+        phi = self.direction * s / self.radius + self.start_phase
+        return self.center + (self.radius - lat * self.direction) * np.array(
+            [np.cos(phi), np.sin(phi)]
+        )
+
+    def heading_at(self, s):
+        return self.direction * s / self.radius + self.start_phase + (
+            np.pi / 2 * self.direction
+        )
+
 
 class RoadNetworkBuilder:
     """Accumulates lanes per (from, to) edge, then compiles to LaneGeometry."""
@@ -71,9 +145,10 @@ class RoadNetworkBuilder:
         self._node_ids: dict[str, int] = {}
 
     def add_lane(self, _from: str, _to: str, lane) -> None:
-        if type(lane) is not StraightLane:
+        if type(lane) not in (StraightLane, SineLane, CircularLane):
             raise NotImplementedError(
-                f"{type(lane).__name__} is not ported yet; straight lanes only"
+                f"{type(lane).__name__} is not ported yet; straight, sine and "
+                "circular lanes only"
             )
         self._edges.setdefault((_from, _to), []).append(lane)
         for node in (_from, _to):
@@ -82,6 +157,79 @@ class RoadNetworkBuilder:
     @property
     def edges(self):
         return self._edges
+
+    # ------------------------------------------------------------------ #
+    # host-side queries of the scenario resets
+    # ------------------------------------------------------------------ #
+    def get_lane(self, index):
+        _from, _to, _id = index
+        lanes = self._edges[(_from, _to)]
+        return lanes[0 if _id is None and len(lanes) == 1 else _id]
+
+    def lanes_on_edge(self, _from: str, _to: str):
+        return self._edges[(_from, _to)]
+
+    def global_lane_index(self, index) -> int:
+        """Global lane id of a (from, to, id) reference-style index."""
+        _from, _to, _id = index
+        base = 0
+        for key, lanes in self._edges.items():
+            if key == (_from, _to):
+                return base + (0 if _id is None else _id)
+            base += len(lanes)
+        raise KeyError(index)
+
+    def node_id(self, name: str) -> int:
+        return self._node_ids[name]
+
+    def lane_index_from_global(self, g: int) -> tuple[str, str, int]:
+        """Inverse of ``global_lane_index``."""
+        base = 0
+        for (f, t), lanes in self._edges.items():
+            if g < base + len(lanes):
+                return (f, t, g - base)
+            base += len(lanes)
+        raise KeyError(g)
+
+    def bfs_shortest_path(self, start: str, goal: str) -> list[str]:
+        """Breadth-first shortest node path (reference road/road.py
+        ``bfs_paths``), successors visited in sorted order."""
+        graph: dict[str, list[str]] = {}
+        for f, t in self._edges:
+            graph.setdefault(f, [])
+            if t not in graph[f]:
+                graph[f].append(t)
+        if start not in graph:
+            return []
+        queue = [(start, [start])]
+        while queue:
+            node, path = queue.pop(0)
+            for nxt in sorted(k for k in graph.get(node, []) if k not in path):
+                if nxt == goal:
+                    return path + [nxt]
+                if nxt in graph:
+                    queue.append((nxt, path + [nxt]))
+        return []
+
+    def route_arrays(self, start_index, destination: str, route_slots: int):
+        """``ControlledVehicle.plan_route_to`` compiled into fixed-width
+        arrays: the route ``[start_index] + [(path[i], path[i+1], None)]``
+        over the BFS node path from the start lane's end node.  Returns
+        (route_base, route_n, route_id, route_len): per segment its edge's
+        global base lane, lane count and explicit lane id (-1 = ``None``)."""
+        _from, _to, _id = start_index
+        path = self.bfs_shortest_path(_to, destination)
+        route = [start_index]
+        if path:
+            route += [(path[i], path[i + 1], None) for i in range(len(path) - 1)]
+        base = np.full(route_slots, -1, np.int32)
+        n = np.zeros(route_slots, np.int32)
+        rid = np.full(route_slots, -1, np.int32)
+        for i, (f, t, lid) in enumerate(route[:route_slots]):
+            base[i] = self.global_lane_index((f, t, 0))
+            n[i] = len(self._edges[(f, t)])
+            rid[i] = -1 if lid is None else int(lid)
+        return base, n, rid, min(len(route), route_slots)
 
     @staticmethod
     def straight_road_network(
@@ -128,6 +276,13 @@ class RoadNetworkBuilder:
             "direction": np.zeros((L, 2), f32),
             "direction_lateral": np.zeros((L, 2), f32),
             "heading0": np.zeros(L, f32),
+            "amplitude": np.zeros(L, f32),
+            "pulsation": np.zeros(L, f32),
+            "phase": np.zeros(L, f32),
+            "center": np.zeros((L, 2), f32),
+            "radius": np.ones(L, f32),
+            "start_phase": np.zeros(L, f32),
+            "cw": np.ones(L, f32),
             "width": np.zeros(L, f32),
             "length": np.zeros(L, f32),
             "speed_limit": np.zeros(L, f32),
@@ -147,11 +302,21 @@ class RoadNetworkBuilder:
             edge_bases[key] = g
             for i, lane in enumerate(edge_lanes):
                 t["kind"][g] = lane.kind
-                t["start"][g] = lane.start
-                t["end"][g] = lane.end
-                t["direction"][g] = lane.direction
-                t["direction_lateral"][g] = lane.direction_lateral
-                t["heading0"][g] = lane.heading
+                if lane.kind == CIRCULAR:
+                    t["center"][g] = lane.center
+                    t["radius"][g] = lane.radius
+                    t["start_phase"][g] = lane.start_phase
+                    t["cw"][g] = lane.direction
+                else:
+                    t["start"][g] = lane.start
+                    t["end"][g] = lane.end
+                    t["direction"][g] = lane.direction
+                    t["direction_lateral"][g] = lane.direction_lateral
+                    t["heading0"][g] = lane.heading
+                if lane.kind == SINE:
+                    t["amplitude"][g] = lane.amplitude
+                    t["pulsation"][g] = lane.pulsation
+                    t["phase"][g] = lane.phase
                 t["width"][g] = lane.width
                 t["length"][g] = lane.length
                 t["speed_limit"][g] = (
@@ -198,6 +363,6 @@ class RoadNetworkBuilder:
             for j, (b, n) in enumerate(pred.get(int(t["from_node"][g]), [])):
                 t["pred_edge_base"][g, j] = b
                 t["pred_edge_n"][g, j] = n
-        return LaneGeometry(
-            **{k: torch.as_tensor(v, device=device) for k, v in t.items()}
-        )
+        geo = LaneGeometry(**{k: torch.as_tensor(v, device=device) for k, v in t.items()})
+        geo.all_straight = bool((t["kind"] == STRAIGHT).all())
+        return geo

@@ -1,0 +1,60 @@
+"""Device kernels per rollout step of highway-v0, sorted and dense, on a CUDA card.
+
+Usage (from the repo root, on a machine with a CUDA card):
+
+    python3 highwayenv_tpu_torch/tools/kernel_counts.py [TREE ...]
+
+Each TREE (default ``.``) is the root of a checkout of this repo, for
+example an older commit unpacked with ``git archive`` into ``build/``; each
+is run in a process of its own, so their packages do not mix.  Per tree,
+env variant and repetition the script prints the device kernels per step
+that torch.profiler records over a 4-step random-policy rollout of 4096
+envs.  Two repetitions per variant show when the profiler dropped events,
+which it sometimes does: a dropped event lowers one reading, never raises
+it.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+
+STEPS = 4
+BATCH = 4096
+
+
+def count(tree: str) -> None:
+    sys.path.insert(0, tree)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import highwayenv_tpu_torch as ht
+    from highwayenv_tpu_torch.parallel.rollout import rollout
+
+    print(f"tree {tree}: {ht.__file__}")
+    for which, sorted_frames in (("sorted", True), ("dense", False)):
+        env = ht.make("highway-v0", sorted_frames=sorted_frames)
+        gen = env.generator(0)
+        _, states = env.reset(BATCH, gen)
+        states, _ = rollout(env, states, 2, gen)  # builds and warms the kernels
+        torch.cuda.synchronize()
+        for rep in range(2):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                rollout(env, states, STEPS, gen)
+                torch.cuda.synchronize()
+            n = sum(e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+            print(f"  {which} step, repetition {rep}: {n / STEPS} device kernels per step")
+
+
+def main(argv) -> int:
+    if len(argv) == 2 and argv[0] == "--tree":
+        count(argv[1])
+        return 0
+    for tree in argv or ["."]:
+        subprocess.run([sys.executable, __file__, "--tree", tree], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,13 +1,20 @@
-"""IDM longitudinal model and the MOBIL constants of the NPC policy.
+"""IDM longitudinal model and the MOBIL lane-change policy of the NPCs.
 
-PyTorch counterpart of the pieces of ``highwayenv_tpu/vehicle/behavior.py``
-that the straight-road frame uses (reference vehicle/behavior.py):
+PyTorch counterpart of ``highwayenv_tpu/vehicle/behavior.py`` (reference
+vehicle/behavior.py ``IDMVehicle``):
 
   - IDM:   a = a_c [1 - (v/v0)^delta - (d*/d)^2],
            d* = d0 + vT + v dv / (2 sqrt(ab))
   - MOBIL: safety (imposed braking >= -max_braking) + incentive
-           (jerk >= gain), abort-on-conflict, timer gating; the decision
-           itself lives in ops/straight_frames.py.
+           (jerk >= gain) or, on a route with an explicit lane, the
+           route-directed override; abort-on-conflict, timer gating.
+
+``idm_acceleration`` is shared by both paths.  The straight frame
+(ops/straight_frames.py) runs its own decision pass on the road axis; the
+general pass below (``idm_act``) is the JAX package's default decision pass
+on the (B, L, V) projection table of every object on every lane, with
+neighbour slots as indices (-1 = none).  The connected-lane neighbour mode
+and the sequential decision order are not ported.
 """
 
 from __future__ import annotations
@@ -18,7 +25,11 @@ import math
 import numpy as np
 import torch
 
+from highwayenv_tpu_torch.road import lane as lane_ops
+from highwayenv_tpu_torch.road.lane import VEHICLE_LENGTH, LaneGeometry
 from highwayenv_tpu_torch.utils.math import not_zero
+from highwayenv_tpu_torch.vehicle.controller import table_row
+from highwayenv_tpu_torch.vehicle.state import KIND_IDM, KIND_LANDMARK, VehicleState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,13 +67,21 @@ def idm_acceleration(
 
     ``delta`` is the deciding vehicle's exponent even when the ego row is a
     neighbour (the reference evaluates ``self.DELTA``).  Rows are tensors of
-    one shape; ``front_exists`` masks the interaction term.
+    one shape; ``front_exists`` masks the interaction term.  ``speed_limit``
+    is one float for the road or a tensor of the ego row's lane limits
+    (+inf where unlimited).
     """
-    ego_ts = (
-        ego_target_speed
-        if math.isinf(speed_limit)
-        else ego_target_speed.clamp(0.0, speed_limit)
-    )
+    if torch.is_tensor(speed_limit):
+        ego_ts = torch.where(
+            torch.isinf(speed_limit), ego_target_speed,
+            torch.minimum(ego_target_speed.clamp(min=0.0), speed_limit),
+        )
+    else:
+        ego_ts = (
+            ego_target_speed
+            if math.isinf(speed_limit)
+            else ego_target_speed.clamp(0.0, speed_limit)
+        )
     free = p.comfort_acc_max * (
         1.0 - torch.pow(ego_speed.clamp(min=0.0) / not_zero(ego_ts).abs(), delta)
     )
@@ -78,3 +97,217 @@ def idm_acceleration(
     q = d_star / not_zero(d)
     interaction = p.comfort_acc_max * (q * q)
     return free - torch.where(front_exists, interaction, 0.0)
+
+
+# --------------------------------------------------------------------------- #
+# the general decision pass on the projection table
+# --------------------------------------------------------------------------- #
+
+
+def eligible_on_lane(geo: LaneGeometry, state: VehicleState, table_s, table_lat):
+    """(B, L, V) mask: object j occupies lane l (1 m margin) for the
+    neighbour search (reference road/road.py ``neighbour_vehicles``)."""
+    width = geo.width[:, None]
+    length = geo.length[:, None]
+    on = (
+        (table_lat.abs() <= width / 2 + 1.0)
+        & (-VEHICLE_LENGTH <= table_s)
+        & (table_s < length + VEHICLE_LENGTH)
+    )
+    return on & (state.active & (state.kind != KIND_LANDMARK))[:, None, :]
+
+
+def pair_table(table: torch.Tensor, lane: torch.Tensor) -> torch.Tensor:
+    """``out[b, i, j] = table[b, lane[b, i], j]``: every object projected on
+    each row's query lane (JAX ``lane_ops.pair_project``)."""
+    V = table.shape[-1]
+    li = lane.clamp(0, table.shape[-2] - 1).long()
+    return torch.gather(table, 1, li[..., None].expand(-1, -1, V))
+
+
+def front_pick(ok, s_c):
+    """Front neighbour among the columns where ``ok`` (..., V, V): the
+    smallest key ``s_c``, the LAST column among equal keys; -1 = none."""
+    cols = torch.arange(ok.shape[-1], device=ok.device)
+    key = torch.where(ok, s_c, math.inf)
+    hit = ok & (key == key.amin(dim=-1, keepdim=True))
+    return torch.where(hit, cols, -1).amax(dim=-1)
+
+
+def rear_pick(ok, s_c):
+    """Rear neighbour among the columns where ``ok``: the largest key, the
+    FIRST column among equal keys; -1 = none."""
+    V = ok.shape[-1]
+    cols = torch.arange(V, device=ok.device)
+    key = torch.where(ok, s_c, -math.inf)
+    hit = ok & (key == key.amax(dim=-1, keepdim=True))
+    idx = torch.where(hit, cols, V).amin(dim=-1)
+    return torch.where(idx == V, -1, idx)
+
+
+def neighbours(state: VehicleState, query_lane, table_s, elig):
+    """Front / rear object of each row on its query lane, (B, V) slot
+    indices, -1 = none: front = smallest s_j >= s_i keeping the LAST column
+    among ties, rear = largest s_j < s_i keeping the FIRST (PARITY #3)."""
+    V = state.num_slots
+    eye = torch.eye(V, dtype=torch.bool, device=table_s.device)
+    s_self = table_row(table_s, query_lane)[..., None]
+    s_pairs = pair_table(table_s, query_lane)
+    ok = pair_table(elig, query_lane) & ~eye
+    return (
+        front_pick(ok & (s_self <= s_pairs), s_pairs),
+        rear_pick(ok & (s_pairs < s_self), s_pairs),
+    )
+
+
+class Rows:
+    """The frame-start fields an IDM pair fetches by slot index."""
+
+    def __init__(self, geo: LaneGeometry, state: VehicleState, table_s):
+        self.geo, self.table_s = geo, table_s
+        cos_h, sin_h = torch.cos(state.heading), torch.sin(state.heading)
+        self.fields = {
+            "speed": state.speed, "target_speed": state.target_speed,
+            "lane": state.lane, "cos": cos_h, "sin": sin_h,
+            "vx": state.speed * cos_h, "vy": state.speed * sin_h,
+            "is_vehicle": state.is_vehicle,
+        }
+        self.delta = state.delta
+        self.self_idx = torch.arange(
+            state.num_slots, device=table_s.device
+        ).expand_as(state.lane)
+
+    def get(self, name, idx):
+        return torch.gather(self.fields[name], 1, idx.clamp(min=0))
+
+    def accel(self, p: IDMParams, ego_idx, front_idx):
+        """IDM acceleration of row ``ego_idx`` behind row ``front_idx``
+        (-1 = none), with the deciding row's exponent, the ego's target
+        speed clipped by its current lane's limit and the gap measured on
+        the ego's current lane; 0 where the ego is absent or no vehicle
+        (reference ``IDMVehicle.acceleration``)."""
+        e_lane = self.get("lane", ego_idx)
+        L, V = self.table_s.shape[-2:]
+        flat = self.table_s.flatten(1)
+        lane_off = e_lane.clamp(0, L - 1).long() * V
+
+        def s_on_ego_lane(idx):
+            return torch.gather(flat, 1, lane_off + idx.clamp(min=0))
+
+        acc = idm_acceleration(
+            p, self.geo.speed_limit[lane_ops._gather(self.geo, e_lane)], self.delta,
+            self.get("speed", ego_idx), self.get("target_speed", ego_idx),
+            s_on_ego_lane(ego_idx), self.get("cos", ego_idx),
+            self.get("sin", ego_idx), s_on_ego_lane(front_idx),
+            self.get("vx", front_idx), self.get("vy", front_idx), front_idx >= 0,
+        )
+        return torch.where(
+            (ego_idx >= 0) & self.get("is_vehicle", ego_idx), acc, 0.0
+        )
+
+
+def _mobil(geo, p, state, rows: Rows, cand, cur_front, cur_rear, table_s, elig):
+    """Reference ``IDMVehicle.mobil`` toward lane ``cand`` (B, V)."""
+    me = rows.self_idx
+    new_front, new_rear = neighbours(state, cand, table_s, elig)
+    a_nf_pred = rows.accel(p, new_rear, me)
+    safe = a_nf_pred >= -state.mobil_max_braking
+    a_self_pred = rows.accel(p, me, new_front)
+
+    # route-directed branch: the route head names a lane
+    head_id = torch.gather(
+        state.route_id, -1,
+        state.route_ptr.clamp(0, state.route_id.shape[-1] - 1).long()[..., None],
+    )[..., 0]
+    has_route_id = (state.route_ptr < state.route_len) & (head_id >= 0)
+    tgt_id = geo.lane_id[lane_ops._gather(geo, state.target_lane)]
+    cand_id = geo.lane_id[lane_ops._gather(geo, cand)]
+    route_ok = (torch.sign(cand_id - tgt_id) == torch.sign(head_id - tgt_id)) & (
+        a_self_pred >= -state.mobil_max_braking
+    )
+
+    # incentive branch
+    a_nf = rows.accel(p, new_rear, new_front)
+    a_self = rows.accel(p, me, cur_front)
+    a_of = rows.accel(p, cur_rear, me)
+    a_of_pred = rows.accel(p, cur_rear, cur_front)
+    jerk = a_self_pred - a_self + p.politeness * (
+        a_nf_pred - a_nf + a_of_pred - a_of
+    )
+    return safe & torch.where(has_route_id, route_ok, jerk >= state.mobil_gain)
+
+
+def idm_act(geo: LaneGeometry, p: IDMParams, state: VehicleState, table_s,
+            table_lat):
+    """The decision pass of every IDM vehicle on the frame-start table
+    (reference ``IDMVehicle.act``): abort a lane change into a gap another
+    controlled vehicle is closing (same road only), else the timer-gated
+    MOBIL choice of the left then the right lane; then the IDM acceleration,
+    the minimum of the current and the target lane's while changing lanes.
+    Returns the state with the new target lanes and timers, and the IDM
+    acceleration (B, V)."""
+    V = state.num_slots
+    rows = Rows(geo, state, table_s)
+    me = rows.self_idx
+    elig = eligible_on_lane(geo, state, table_s, table_lat)
+    idm = (state.kind == KIND_IDM) & ~state.crashed
+    lane, tlane = state.lane, state.target_lane
+    li, tli = lane_ops._gather(geo, lane), lane_ops._gather(geo, tlane)
+    mid_change = lane != tlane
+    cur_front, cur_rear = neighbours(state, lane, table_s, elig)
+
+    # abort-on-conflict: [b, i, j] = row i changing lanes against row j
+    s_pairs = pair_table(table_s, lane)
+    d_ij = s_pairs - table_row(table_s, lane)[..., None]
+    vx, vy = rows.fields["vx"], rows.fields["vy"]
+    dv_ij = (vx[..., :, None] - vx[..., None, :]) * rows.fields["cos"][..., None] + (
+        vy[..., :, None] - vy[..., None, :]
+    ) * rows.fields["sin"][..., None]
+    speed = state.speed[..., None]
+    d_star_ij = p.distance_wanted + speed * p.time_wanted + speed * dv_ij * (
+        p.inv_two_sqrt_ab
+    )
+    eye = torch.eye(V, dtype=torch.bool, device=lane.device)
+    conflict = (
+        ~eye
+        & state.is_controlled[:, None, :]
+        & (lane[:, None, :] != tlane[:, :, None])
+        & (tlane[:, None, :] == tlane[:, :, None])
+        & (0.0 < d_ij)
+        & (d_ij < d_star_ij)
+    )
+    abort = (
+        idm & mid_change & (geo.edge_base[li] == geo.edge_base[tli])
+        & conflict.any(dim=-1)
+    )
+
+    # timer-gated side-lane decision, left then right
+    deciding = (
+        idm & ~mid_change & (state.timer > p.lane_change_delay)
+        & state.enable_lane_change
+    )
+    moving = state.speed.abs() >= 1.0
+    target = tlane
+    for delta_id in (-1, 1):
+        cand_id = geo.lane_id[li] + delta_id
+        exists = (cand_id >= 0) & (cand_id < geo.edge_n[li])
+        cand = (geo.edge_base[li] + cand_id).clamp(0, geo.num_lanes - 1)
+        reachable = lane_ops.reachable_from_coords(
+            geo, cand, table_row(table_s, cand), table_row(table_lat, cand)
+        )
+        ok = deciding & exists & reachable & moving & _mobil(
+            geo, p, state, rows, cand, cur_front, cur_rear, table_s, elig
+        )
+        target = torch.where(ok, cand, target)
+    target = torch.where(abort, lane, target)
+    state = state.replace(
+        target_lane=target, timer=torch.where(deciding, 0.0, state.timer)
+    )
+
+    # acceleration; the dual-lane minimum while changing lanes
+    accel = rows.accel(p, me, cur_front)
+    target_front, _ = neighbours(state, target, table_s, elig)
+    accel = torch.where(
+        lane != target, torch.minimum(accel, rows.accel(p, me, target_front)), accel
+    )
+    return state, accel.clamp(-p.acc_max, p.acc_max)

@@ -1,11 +1,12 @@
-"""Low-level controllers and the discrete meta-action on a straight road.
+"""Low-level controllers, lane following and the discrete meta-action.
 
-PyTorch counterpart of the straight subset of
-``highwayenv_tpu/vehicle/controller.py:36-352`` (reference
+PyTorch counterpart of ``highwayenv_tpu/vehicle/controller.py`` (reference
 vehicle/controller.py ``ControlledVehicle``/``MDPVehicle``): the steering
-P-cascade, the speed P controller, the MDP speed index and the meta-action
-target updates.  Lane following at lane ends (``follow_road``) is absent:
-straight networks have no successor lanes.
+P-cascade, the speed P controller, the end-of-lane ``follow_road`` /
+``next_lane`` advance on the lane graph with the route cursor, the MDP
+speed index and the meta-action target updates.  Batched over (B, V); the
+lane queries of a frame read the (B, L, V) projection table of
+``road/lane.py::projection_table``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from highwayenv_tpu_torch.vehicle.state import VehicleState
 TAU_ACC = 0.6
 TAU_HEADING = 0.2
 TAU_LATERAL = 0.6
+TAU_PURSUIT = 0.5 * TAU_HEADING
 KP_A = 1 / TAU_ACC
 KP_HEADING = 1 / TAU_HEADING
 KP_LATERAL = 1 / TAU_LATERAL
@@ -64,6 +66,26 @@ def steering_control(geo: LaneGeometry, target_lane, pos, heading, speed, length
     return steering_from_coords(lane_heading, lat, heading, speed, length)
 
 
+def table_row(table: torch.Tensor, lane: torch.Tensor) -> torch.Tensor:
+    """Row-aligned lane lookup: ``table[b, lane[b, i], i]`` of a (B, L, V)
+    table and (B, V) lanes (JAX ``lane_ops.row_lookup``)."""
+    li = lane.clamp(0, table.shape[-2] - 1).long()
+    return torch.gather(table, -2, li[..., None, :])[..., 0, :]
+
+
+def steering_from_table(geo: LaneGeometry, lane, state: VehicleState, table_s,
+                        table_lat):
+    """Steering toward ``lane`` (B, V) with its (s, lat) read from the
+    projection table; the lane heading is taken a pursuit distance ahead
+    (JAX ``steering_control_from_table``)."""
+    s = table_row(table_s, lane)
+    lat = table_row(table_lat, lane)
+    future = lane_ops.heading_at(geo, lane, s + state.speed * TAU_PURSUIT)
+    return steering_from_coords(
+        future, lat, state.heading, state.speed, state.length
+    )
+
+
 def speed_control(target_speed, speed):
     """Reference vehicle/controller.py ``speed_control``."""
     return KP_A * (target_speed - speed)
@@ -86,6 +108,104 @@ def ego_speed_init(action_type, speed):
     )
     idx = speed_to_index(speed, action_type.target_speeds)
     return idx, ts[idx.long()]
+
+
+# --------------------------------------------------------------------------- #
+# lane-graph following
+# --------------------------------------------------------------------------- #
+
+
+def next_lane_given_next_edge(geo: LaneGeometry, cur_lane, cand_base, cand_n,
+                              next_id, projected, max_edge_lanes: int):
+    """The lane to take on a given next edge (reference road/road.py
+    ``next_lane``'s lane choice).  ``cand_base`` / ``cand_n`` / ``next_id``
+    (...,): the edge's base lane, lane count and explicit lane id (-1 =
+    none); ``projected`` (..., 2).  When the lane counts match an explicit id
+    is honoured, else the current id is kept; when they differ the lane
+    closest to ``projected`` wins (first minimum).  Returns (lane, distance
+    of ``projected`` to it, inf for an empty edge)."""
+    li = lane_ops._gather(geo, cur_lane)
+    ids = torch.arange(max_edge_lanes, device=cand_base.device)
+    valid = ids < cand_n[..., None]
+    d = lane_ops.distance(geo, cand_base[..., None] + ids, projected[..., None, :])
+    d = torch.where(valid, d, math.inf)
+    closest_id = torch.argmin(d, dim=-1)
+    chosen_id = torch.where(
+        geo.edge_n[li] == cand_n,
+        torch.where(next_id >= 0, next_id, geo.lane_id[li]).long(),
+        closest_id,
+    )
+    chosen_id = torch.minimum(
+        chosen_id.clamp(min=0), (cand_n - 1).clamp(min=0).long()
+    )
+    dist = torch.gather(d, -1, chosen_id[..., None])[..., 0]
+    return (cand_base + chosen_id).to(torch.int32), dist
+
+
+def _route_entry(field: torch.Tensor, ptr: torch.Tensor) -> torch.Tensor:
+    """``field[..., clip(ptr)]`` of (B, V, R) route arrays."""
+    p = ptr.clamp(0, field.shape[-1] - 1).long()
+    return torch.gather(field, -1, p[..., None])[..., 0]
+
+
+def next_lane(geo: LaneGeometry, state: VehicleState, cur_lane, s,
+              max_edge_lanes: int):
+    """The lane to follow after ``cur_lane`` (at longitudinal ``s``) ends,
+    and the advanced route cursor (reference road/road.py ``next_lane``):
+    pop the route head when it is the edge being finished; follow the route
+    when its head leaves the end node; else pick among the edges leaving the
+    end node the one whose chosen lane is closest to the position projected
+    on the lane centre (first minimum); with no successor keep the lane."""
+    li = lane_ops._gather(geo, cur_lane)
+    projected = lane_ops.position(geo, cur_lane, s, torch.zeros_like(s))
+
+    ptr = state.route_ptr
+    pop = (ptr < state.route_len) & (
+        _route_entry(state.route_base, ptr) == geo.edge_base[li]
+    )
+    new_ptr = torch.where(pop, ptr + 1, ptr)
+    head_base = _route_entry(state.route_base, new_ptr)
+    follow_route = (new_ptr < state.route_len) & (
+        geo.from_node[lane_ops._gather(geo, head_base)] == geo.to_node[li]
+    )
+    route_lane, _ = next_lane_given_next_edge(
+        geo, cur_lane, head_base, _route_entry(state.route_n, new_ptr),
+        _route_entry(state.route_id, new_ptr), projected, max_edge_lanes,
+    )
+
+    succ_base, succ_n = geo.succ_edge_base[li], geo.succ_edge_n[li]  # (..., S)
+    cand_lane, cand_dist = next_lane_given_next_edge(
+        geo, cur_lane[..., None], succ_base, succ_n,
+        torch.full_like(succ_base, -1), projected[..., None, :], max_edge_lanes,
+    )
+    cand_dist = torch.where(succ_base >= 0, cand_dist, math.inf)
+    best = torch.argmin(cand_dist, dim=-1, keepdim=True)
+    best_lane = torch.gather(cand_lane, -1, best)[..., 0]
+    chosen = torch.where(
+        follow_route, route_lane,
+        torch.where((succ_base >= 0).any(dim=-1), best_lane, cur_lane),
+    )
+    return chosen.to(torch.int32), new_ptr
+
+
+def follow_road(geo: LaneGeometry, state: VehicleState, max_edge_lanes: int,
+                table_s) -> VehicleState:
+    """Controlled vehicles whose target lane ends take the next lane
+    (reference vehicle/controller.py ``follow_road``)."""
+    tl = state.target_lane
+    s = table_row(table_s, tl)
+    ended = s > geo.length[lane_ops._gather(geo, tl)] - lane_ops.VEHICLE_LENGTH / 2
+    nxt, new_ptr = next_lane(geo, state, tl, s, max_edge_lanes)
+    apply = ended & state.is_controlled
+    return state.replace(
+        target_lane=torch.where(apply, nxt, tl),
+        route_ptr=torch.where(apply, new_ptr, state.route_ptr),
+    )
+
+
+# --------------------------------------------------------------------------- #
+# MDP (discrete meta-action) ego control
+# --------------------------------------------------------------------------- #
 
 
 def apply_meta_action(

@@ -18,19 +18,30 @@ Phases:
      the general frame kernel K4 at roundabout-v0 (V=5, L=32, R=11) and
      merge-v0 (V=6, L=9, an obstacle), B=4096, on the reset scene, 8 steps
      in, an all-env pile-up and (merge) the obstacle hit, and the
-     roundabout-v0 autoreset step against the plain reference path;
+     roundabout-v0 autoreset step against the plain reference path; then
+     the regulated frame kernel K5 at intersection-v0 (V=25, L=20, R=3,
+     tick period 7), B=4096, on the reset scene, 8 steps in with the envs'
+     tick phases spread over all 7 values, a conflict scene in which
+     vehicles yield, and the reset's warm-up launch (V=16, 45 frames, frame
+     counter 0), each discrete field and the yielding state exact, and the
+     intersection-v0 autoreset step against the plain reference path;
   4. the main paths: make("highway-v0") on CUDA, reset B=4096 and a random
      policy rollout with autoreset through the sorted step, each kernel's
      launch count checked, and a few steps of the dense path
      (sorted_frames=False); then make("roundabout-v0") on CUDA, B=4096, a
-     random-policy rollout through K4 (one launch per policy step);
+     random-policy rollout through K4 (one launch per policy step); then
+     make("intersection-v0") on CUDA, B=4096, reset and a random-policy
+     rollout through K5 (two launches per policy step, the step's frames
+     and the warm-up of the reset drawn every step, plus one for the first
+     reset), with the ended, crashed and arrived episodes counted;
   5. times on the card: each kernel's device time (torch.profiler, and
      CUDA events around launches queued behind a device-side wait), its
      plain version's, its bound and the PyTorch yardstick's where there is
      one, with the wall time of a call (CUDA events); the simulation of a
      sorted and a dense policy step; the sorted and dense rollouts in
-     turns; the roundabout-v0 rollout three times; and a profile of rollout
-     steps of each (device kernels by name, device busy share).
+     turns; the roundabout-v0 and intersection-v0 rollouts three times
+     each; and a profile of rollout steps of each (device kernels by name,
+     device busy share).
 
 Exits non-zero on any failed check, and without CUDA.  The last lines are
 the kernels JSON, the card line and ``{"ok": true, "device": {...}}``.
@@ -103,6 +114,19 @@ GEN_OPS_EDGE_LANE = 17  # per lane next_lane measures at a lane end
 GEN_HORIZON = 32  # policy steps of the roundabout-v0 main-path rollout
 GEN_DISCRETE = DISCRETE + ("route_ptr", "speed_index")
 GEN_CONTINUOUS = CONTINUOUS + ("target_speed",)
+# The regulated block (road/regulation.py, the kRegulated path of
+# csrc/general_frames.cu), in the same units, on a tick frame: per live
+# vehicle the route walk (per route segment) and one prediction (per time:
+# the segment search, the lane position and heading, cos and sin); per
+# unordered pair of vehicles and time the closeness test; per close (pair,
+# time) the 18 probe points; per conflicting pair the yield decision.
+REG_OPS_SEGMENT = 10
+REG_OPS_TIME = 25
+REG_OPS_CLOSE = 5
+REG_OPS_PROBES = 18 * 20
+REG_OPS_YIELD = 10
+REG_DISCRETE = GEN_DISCRETE + ("is_yielding", "yield_timer")
+INT_HORIZON = 32  # policy steps of the intersection-v0 main-path rollout
 
 
 def card_line() -> str:
@@ -362,6 +386,126 @@ def gen_frame_ops(veh, out, spec, table) -> float:
     )
 
 
+def reg_tick_ops(veh, spec, tick) -> float:
+    """float32 operations of the right-of-way pass on the envs where the
+    (B,) bool ``tick`` is set, from the frame-start state ``veh``."""
+    from highwayenv_tpu_torch.road import regulation
+
+    B, V = veh.kind.shape
+    R = veh.route_base.shape[-1]
+    T = len(regulation.TIMES)
+    pos, _ = regulation.predict_route_positions(spec.geo, veh)
+    vh = veh.is_vehicle & tick[:, None]
+    eye = torch.eye(V, dtype=torch.bool, device=veh.kind.device)
+    pair = torch.triu(~eye) & vh[:, :, None] & vh[:, None, :]
+    d = pos[:, None, :, :, :] - pos[:, :, None, :, :]  # (B, V, V, T, 2): j - i
+    close = ((d * d).sum(-1) <= (veh.length**2)[:, :, None, None]) & pair[..., None]
+    ruled = regulation.enforce_road_rules(spec.geo, veh)
+    conflicts = (ruled.is_yielding & ~veh.is_yielding & tick[:, None]).sum()
+    return float(
+        (REG_OPS_SEGMENT * R + REG_OPS_TIME * T) * vh.sum()
+        + REG_OPS_CLOSE * T * pair.sum() + REG_OPS_PROBES * close.sum()
+        + REG_OPS_YIELD * conflicts
+    )
+
+
+def regulated_ops(veh, spec, sa, frames, steps0) -> float:
+    """float32 operations of ``frames`` regulated frames from ``veh``,
+    counted frame by frame on the plain version: each frame's general
+    operations, plus the right-of-way pass on the envs that tick."""
+    from highwayenv_tpu_torch.ops import general_frames as gf
+    from highwayenv_tpu_torch.road import lane as lane_ops
+
+    ops, v = 0.0, veh
+    phase = torch.remainder(steps0, spec.period)
+    table = lane_ops.projection_table(spec.geo, v.pos)
+    for f in range(frames):
+        tick = torch.remainder(phase + (f + 1), spec.period) == 0
+        out, next_table = gf.frame_general_plain(v, spec, table, sa if f == 0 else None, tick)
+        ops += gen_frame_ops(v, out, spec, table)
+        if bool(tick.any()):
+            ops += reg_tick_ops(v, spec, tick)
+        v, table = out, next_table
+    return ops
+
+
+def yield_ticks(veh, spec, sa, frames, steps0) -> int:
+    """Slot-ticks that yield: over ``frames`` plain regulated frames, the
+    slots yielding after each tick of their env, summed."""
+    from highwayenv_tpu_torch.ops import general_frames as gf
+    from highwayenv_tpu_torch.road import lane as lane_ops
+
+    n, v = 0, veh
+    phase = torch.remainder(steps0, spec.period)
+    table = lane_ops.projection_table(spec.geo, v.pos)
+    for f in range(frames):
+        tick = torch.remainder(phase + (f + 1), spec.period) == 0
+        v, table = gf.frame_general_plain(v, spec, table, sa if f == 0 else None, tick)
+        n += int((v.is_yielding & tick[:, None]).sum())
+    return n
+
+
+def regulated_scenes(env, states, gen):
+    """K5's scenes at intersection-v0, each (vehicles, steps0, slot actions,
+    frames): the reset scene; 8 plain autoreset steps in, with row b's frame
+    counter advanced by 15 b so the tick phases cover all 7 values; a
+    conflict scene (in every env slot 0 approaches the box from corner 0
+    going straight and slot 1 from corner 2 turning left, at the same
+    priority, slot 2 from corner 1 going straight, at a higher one, at
+    distances that vary by env); and the reset's warm-up launch (the first
+    16 slots of fresh spawns, 45 frames, frame counter 0, zero actions)."""
+    import dataclasses
+
+    from highwayenv_tpu_torch.road import lane as lane_ops
+    from highwayenv_tpu_torch.vehicle.state import KIND_IDM, VehicleState
+
+    veh = states.vehicles
+    Bn, V = veh.kind.shape
+    dev = veh.pos.device
+    spread = torch.arange(Bn, device=dev, dtype=torch.int32) * env.frames_per_step
+
+    def actions():
+        acts = torch.randint(0, env.action_type.n, (Bn,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        return env._action_to_slots(acts)
+
+    out = {"reset": (veh, states.steps, actions(), env.frames_per_step)}
+    st = states
+    for _ in range(8):
+        acts = torch.randint(0, env.action_type.n, (Bn,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        st = env.step_autoreset(st, acts, gen)[1]
+    out["8 steps in"] = (st.vehicles, st.steps + spread, actions(), env.frames_per_step)
+
+    rb, rn, rid, rlen = env._routes
+    fields = {f.name: getattr(veh, f.name).clone() for f in dataclasses.fields(VehicleState)}
+    off = (torch.arange(Bn, device=dev) % 16).float()
+    for slot, corner, dest, s0, speed in ((0, 0, 2, 96.0, 8.0), (1, 2, 3, 95.0, 7.0),
+                                          (2, 1, 3, 93.0, 9.0)):
+        lane = env._spawn_lane[corner].expand(Bn)
+        s = s0 - (0.5 + 0.25 * slot) * off
+        fields["pos"][:, slot] = lane_ops.position(env.geo, lane, s, torch.zeros_like(s))
+        fields["heading"][:, slot] = lane_ops.heading_at(env.geo, lane, s)
+        for name, value in (("lane", lane), ("target_lane", lane), ("speed", speed),
+                            ("target_speed", speed), ("kind", KIND_IDM), ("crashed", False),
+                            ("is_yielding", False), ("yield_timer", 0), ("route_ptr", 0),
+                            ("route_len", rlen[corner, dest])):
+            fields[name][:, slot] = value
+        for name, table in (("route_base", rb), ("route_n", rn), ("route_id", rid)):
+            fields[name][:, slot] = table[corner, dest]
+    out["conflict"] = (VehicleState(**fields), states.steps + spread, actions(),
+                       env.frames_per_step)
+
+    spawned, _ = env._spawn_initial(Bn, gen)
+    W = env._warmup_slots
+    sub = VehicleState(**{f.name: getattr(spawned, f.name)[:, :W].contiguous()
+                          for f in dataclasses.fields(VehicleState)})
+    out["warm-up"] = (sub, torch.zeros(Bn, dtype=torch.int32, device=dev),
+                      torch.zeros((Bn, W), dtype=torch.int32, device=dev),
+                      env._warmup_frames)
+    return out
+
+
 def general_scenes(env, states, gen):
     """The general frame's scenes: reset; 8 policy steps in (the plain
     autoreset path); every env's vehicles in a row 1.5 m apart along the
@@ -407,11 +551,11 @@ def general_scenes(env, states, gen):
     return out
 
 
-def compare_general(a, b, where: str) -> float:
-    """K4 against its plain version: the discrete fields equal, each
-    continuous field within 1e-4 of its magnitude; prints the max error of
-    each and returns the largest."""
-    for name in GEN_DISCRETE:
+def compare_general(a, b, where: str, discrete=GEN_DISCRETE) -> float:
+    """K4 (K5) against its plain version: the discrete fields (and the
+    yielding state) equal, each continuous field within 1e-4 of its
+    magnitude; prints the max error of each and returns the largest."""
+    for name in discrete:
         n_bad = int((getattr(a, name) != getattr(b, name)).sum())
         if n_bad:
             raise AssertionError(f"{where}: {name} differs in {n_bad} entries")
@@ -488,6 +632,20 @@ def profile_rollout(env, states, gen, steps: int = 4) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"    {e.self_device_time_total / steps:10.1f} us/step "
               f"{e.count / steps:6.1f}x  {e.key[:90]}")
+
+
+class FrameRecorder:
+    """Stands in for the K5 wrapper during a rollout and keeps the frame
+    count of each call, so the step launches (15 frames) and the warm-up
+    launches (45 frames) can be told apart after."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+        self.frames = []
+
+    def __call__(self, veh, spec, slot_actions, frames, steps0=None):
+        self.frames.append(frames)
+        return self.kernel(veh, spec, slot_actions, frames, steps0)
 
 
 class FlagRecorder:
@@ -613,6 +771,34 @@ def main() -> int:
                 raise AssertionError("merge-v0: the ramp vehicle hit the obstacle nowhere")
     check_autoreset(genv, gstates, gen, "roundabout-v0 ")
 
+    # K5 on the regulated road; its env carried on below
+    k5 = gf.frames_regulated_kernel
+    err["K5 step"] = err["K5 warm-up"] = 0.0
+    ienv = ht.make("intersection-v0")
+    ispec = ienv._general
+    gen = ienv.generator(SEED)
+    _, istates = ienv.reset(B, gen)
+    print(f"== 3. K5 vs plain: intersection-v0 V={ienv.num_slots}, L={ienv.geo.num_lanes}, "
+          f"R={istates.vehicles.route_base.shape[-1]}, {ienv.frames_per_step} frames, tick "
+          f"period {ispec.period}, B={B}")
+    for name, (rveh, rsteps, rsa, rframes) in regulated_scenes(ienv, istates, gen).items():
+        out_k = k5(rveh, ispec, rsa, rframes, rsteps)
+        out_p = gf.frames_general_plain(rveh, ispec, rsa, rframes, rsteps)
+        torch.cuda.synchronize()
+        key = "K5 warm-up" if name == "warm-up" else "K5 step"
+        err[key] = max(err[key], compare_general(
+            out_k, out_p, f"intersection-v0 {name}", REG_DISCRETE))
+        phases = torch.unique(torch.remainder(rsteps, ispec.period)).numel()
+        ticks = yield_ticks(rveh, ispec, rsa, rframes, rsteps)
+        print(f"    V={rveh.kind.shape[1]}, {rframes} frames, {phases} tick phases; slots "
+              f"yielding after the step {int(out_k.is_yielding.sum())}, slot-ticks that "
+              f"yield {ticks}")
+        if name == "conflict" and ticks == 0:
+            raise AssertionError("intersection-v0 conflict scene: no vehicle yields")
+        if name == "8 steps in" and phases != ispec.period:
+            raise AssertionError("intersection-v0: the tick phases are not mixed")
+    check_autoreset(ienv, istates, gen, "intersection-v0 ")
+
     print(f"== 4. main path: make('highway-v0') on CUDA, B={B}, "
           f"{HORIZON} + {CRASH_HORIZON} autoreset steps, sorted step")
     gen = env.generator(SEED + 1)
@@ -704,6 +890,49 @@ def main() -> int:
         raise AssertionError("roundabout-v0: non-finite obs, reward or state")
     if not int(ended) > 0:
         raise AssertionError("roundabout-v0: no episode ended")
+
+    print(f"== 4. main path: make('intersection-v0') on CUDA, B={B}, reset and "
+          f"{INT_HORIZON} random-policy autoreset steps through K5")
+    gen = ienv.generator(SEED + 1)
+    recorder = FrameRecorder(k5)
+    gf.frames_regulated_kernel = recorder
+    try:
+        for k in (k1, k2a, k3, k2b, k4, k5):
+            k.launches = 0
+        _, istates = ienv.reset(B, gen)
+        ended = crashed = arrived = obs_sum = 0.0
+        finite = torch.ones((), dtype=torch.bool, device=ienv.device)
+        for _ in range(INT_HORIZON):
+            acts = torch.randint(0, ienv.action_type.n, (B,), generator=gen,
+                                 device=ienv.device, dtype=torch.int32)
+            obs, istates, reward, term, trunc, info = ienv.step_autoreset_batched(
+                istates, acts, gen)
+            ended = ended + (term | trunc).sum()
+            crashed = crashed + (term & info["crashed"]).sum()
+            arrived = arrived + (term & (info["rewards"]["arrived_reward"] > 0)).sum()
+            obs_sum = obs_sum + obs.double().sum()
+            finite = finite & torch.isfinite(obs).all() & torch.isfinite(reward).all()
+            for t in (istates.vehicles.pos, istates.vehicles.speed, istates.vehicles.heading):
+                finite = finite & torch.isfinite(t).all()
+        torch.cuda.synchronize()
+    finally:
+        gf.frames_regulated_kernel = k5
+    launches["K5 step"] = sum(f == ienv.frames_per_step for f in recorder.frames)
+    launches["K5 warm-up"] = sum(f == ienv._warmup_frames for f in recorder.frames)
+    others = (k1.launches, k2a.launches, k3.launches, k2b.launches, k4.launches)
+    print(f"  launches: K5 {k5.launches} ({launches['K5 step']} step, "
+          f"{launches['K5 warm-up']} warm-up) in {INT_HORIZON} policy steps and the first "
+          f"reset, K4 and straight kernels {others}; obs checksum {float(obs_sum):.6f}; "
+          f"episodes ended {int(ended)}, by a crash {int(crashed)}, by arriving "
+          f"{int(arrived)}, of {INT_HORIZON * B} env-steps")
+    if (k5.launches != 2 * INT_HORIZON + 1 or launches["K5 step"] != INT_HORIZON
+            or launches["K5 warm-up"] != INT_HORIZON + 1 or any(others)):
+        raise AssertionError("intersection-v0: K5 must launch twice per policy step and "
+                             "once for the first reset, alone")
+    if not bool(finite):
+        raise AssertionError("intersection-v0: non-finite obs, reward or state")
+    if not int(ended) > 0:
+        raise AssertionError("intersection-v0: no episode ended")
 
     print(f"== 5. times on {card}")
     gen = env.generator(SEED + 2)
@@ -843,6 +1072,36 @@ def main() -> int:
     print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, "
           f"{n_bytes} bytes -> {t_bytes:.5f} ms)")
 
+    # K5 at intersection-v0 from a fresh reset, the tick phases spread over
+    # all 7 values, random actions; and its warm-up launch
+    _, i0 = ienv.reset(B, ienv.generator(SEED + 2))
+    k5_scenes = regulated_scenes(ienv, i0, gen)
+    for key, scene, label in (("K5 step", "reset", "per policy step"),
+                              ("K5 warm-up", "warm-up", "per reset warm-up")):
+        iveh, isteps, isa, iframes = k5_scenes[scene]
+        if scene == "reset":
+            isteps = isteps + torch.arange(B, device=ienv.device, dtype=torch.int32) * 15
+        ms, plain_ms, _ = timed(
+            f"K5 general_frames_regulated (intersection-v0), {label}",
+            lambda: k5(iveh, ispec, isa, iframes, isteps),
+            lambda: gf.frames_general_plain(iveh, ispec, isa, iframes, isteps), None, 20, 2,
+        )
+        ops = regulated_ops(iveh, ispec, isa, iframes, isteps)
+        out = gf.frames_general_plain(iveh, ispec, isa, iframes, isteps)
+        R = iveh.route_base.shape[-1]
+        lf, li = gf.lane_tables(ispec.geo, ienv.device)
+        n_bytes = (field_bytes(iveh, gf._resolve(gf._IN_FIELDS, R) + gf.REG_FIELDS)
+                   + isa.numel() * 4 + B * 4
+                   + field_bytes(out, gf._resolve(gf.OUT_FIELDS, R) + gf.REG_FIELDS)
+                   + lf.numel() * 4 + li.numel() * 4)
+        bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+        rows[key] = (f"general_frames_regulated ({scene.replace('reset', 'step')})",
+                     "highwayenv_tpu_torch/csrc/general_frames.cu",
+                     "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms, bms, by,
+                     None)
+        print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, "
+              f"{n_bytes} bytes -> {t_bytes:.5f} ms)")
+
     # the policy step's simulation, and the rollouts, in turns
     for which, sim in (("sorted", ss.simulate_bm_sorted), ("dense", sf.simulate_bm)):
         def call(sim=sim):
@@ -879,6 +1138,17 @@ def main() -> int:
               "ms per step)")
     print("  roundabout-v0 step:")
     profile_rollout(genv, g0, gen)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout(ienv, i0, INT_HORIZON, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"  intersection-v0 rollout: {INT_HORIZON} steps x {B} envs in {wall:.4f} s "
+              f"= {INT_HORIZON * B / wall:.1f} env-steps/s ({wall / INT_HORIZON * 1e3:.4f} "
+              "ms per step)")
+    print("  intersection-v0 step:")
+    profile_rollout(ienv, i0, gen)
 
     print(json.dumps({"kernels": [{
         "name": name,

@@ -7,7 +7,8 @@ package imports nothing of it and nothing of JAX.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 Registry ids mirror the reference; ported so far: the straight highway
-envs and, on the general analytic-lane path, roundabout-v0 and merge-v0.
+envs and, on the general analytic-lane path, roundabout-v0, merge-v0 and
+the regulated intersection-v0.
 """
 
 from __future__ import annotations
@@ -31,8 +32,11 @@ class NotPortedError(KeyError, NotImplementedError):
 def _why_not_ported(env_id: str) -> str:
     if env_id in _CONNECTED_IDS:
         return "the connected-lane neighbour search is not ported"
-    if env_id.startswith("intersection"):
-        return "the regulated road's right-of-way pass (kernel K5) is not ported"
+    if env_id.startswith("intersection-multi-agent"):
+        return "MultiAgentAction and MultiAgentObservation are not ported"
+    if env_id == "intersection-v1":
+        return ("ContinuousAction and the BicycleVehicle dynamics "
+                "(vehicle/dynamics.py) are not ported")
     return "unknown or not ported"
 
 
@@ -68,11 +72,13 @@ def registered_ids():
 
 def _register_all():
     from highwayenv_tpu_torch.envs.highway import HighwayEnv, HighwayEnvFast
+    from highwayenv_tpu_torch.envs.intersection import IntersectionEnv
     from highwayenv_tpu_torch.envs.merge import MergeEnv
     from highwayenv_tpu_torch.envs.roundabout import RoundaboutEnv
 
     register("highway-v0", HighwayEnv)
     register("highway-fast-v0", HighwayEnvFast)
+    register("intersection-v0", IntersectionEnv)
     register("merge-v0", MergeEnv)
     register("roundabout-v0", RoundaboutEnv)
 

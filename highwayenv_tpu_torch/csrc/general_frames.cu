@@ -1,18 +1,22 @@
 // All frames of one policy step on an analytic-lane road network (straight,
 // sine and circular lanes): one warp per group of envs, one thread per
-// vehicle slot.
+// vehicle slot.  Two kernels from one template: K4 (entry general_frames)
+// and K5 (entry general_frames_regulated), K4's frame plus the regulated
+// road's right-of-way pass.
 //
-// Replaces the TPU kernel highwayenv_tpu/ops/general_pallas_bm.py::
-// build_general_frame(regulated=False) (pallas_call at :1474, frame body
-// _frame_body_general :473-1352).  Semantics are those of
+// Replaces the TPU kernels highwayenv_tpu/ops/general_pallas_bm.py::
+// build_general_frame(regulated=False) (K4) and (regulated=True) (K5)
+// (pallas_call at :1474, frame body _frame_body_general :473-1352, the
+// regulated block :1158-1351).  Semantics are those of
 // ops/general_frames.py::frames_general_plain, its plain torch version (the
 // JAX package's BaseEnv._frame): per frame follow_road on the lane graph,
 // the ego meta-action on frame 0, the IDM / MOBIL decision pass on the
 // projection table of every slot on every lane, the steering / speed
-// controls, bicycle integration, heading-aware re-localization and the
-// swept-SAT collision pass with obstacles and last-write impacts.  Each
-// operation rounds as the op-by-op torch version does on the same card: the
-// library is built with -fmad=false and the precise libm functions, and
+// controls, on K5's tick frames the right-of-way pass of
+// road/regulation.py, bicycle integration, heading-aware re-localization
+// and the swept-SAT collision pass with obstacles and last-write impacts.
+// Each operation rounds as the op-by-op torch version does on the same card:
+// the library is built with -fmad=false and the precise libm functions, and
 // every expression keeps the torch version's order of operations.
 //
 // What bounds it on an H100: float32 arithmetic and libm calls.  Per frame
@@ -30,6 +34,17 @@
 // rows and its route arrays in shared memory for all frames; each thread
 // keeps its own slot in registers.  Device memory is read once and written
 // once per policy step.
+// K5's right-of-way pass: each env tests its own tick phase, (phase + frame
+// + 1) % period == 0, so envs of one batch tick on different frames with no
+// masking of frames (the TPU kernel's static-slot schedule, :1414-1464,
+// exists because Mosaic cannot branch per env).  On a tick every thread
+// predicts its own slot's T = 11 route-walk positions and heading cos / sin
+// into shared memory, then tests its slot against every other slot, each
+// pair in its (lower, upper) orientation on both of its threads: the
+// closeness pre-test takes the lower slot's length and the yield decision
+// must be one boolean for the pair, so both threads evaluate the same float
+// expressions and no atomics are needed.  The pass writes only the target
+// speed and the yielding state, which nothing later in the frame reads.
 
 #include <string.h>
 
@@ -47,6 +62,11 @@
 #define LANE_SINE 1
 #define LANE_CIRCULAR 2
 #define HALF_PI_F 1.57079632679489661923f
+// road/regulation.py: the prediction times CONFLICT_STEP .. 2.75 s and the
+// yield duration in ticks, YIELD_DURATION * REGULATION_FREQUENCY
+#define REG_TIMES 11
+#define REG_STEP 0.25f
+#define REG_YIELD_TICKS 0.0f
 
 // extra flag bits of the post-integration rows (F_ACTIVE, F_VEHICLE, F_CHECK,
 // F_COLLIDABLE as in straight_common.cuh)
@@ -61,11 +81,11 @@ enum {
 enum {
   LI_KIND, LI_FORBIDDEN, LI_LANE_ID, LI_EDGE_BASE, LI_EDGE_N, LI_FROM, LI_TO,
   LI_SUCC_BASE, LI_SUCC_N = LI_SUCC_BASE + GEN_MAX_SUCC,
-  LANE_I_WORDS = LI_SUCC_N + GEN_MAX_SUCC + 1
+  LI_PRIORITY = LI_SUCC_N + GEN_MAX_SUCC, LANE_I_WORDS
 };
 
 struct GenParams {  // ops/general_frames.py::_GenParams
-  int L, M, V, R, frames, n_speeds, longitudinal, lateral;
+  int L, M, V, R, frames, n_speeds, longitudinal, lateral, period;
   float dt, acc_max, comfort_acc_max, distance_wanted, time_wanted;
   float inv_two_sqrt_ab, politeness, lane_change_delay;
   float kp_a, kp_heading, kp_lateral, tau_pursuit, ts_lo, inv_ts_range;
@@ -121,6 +141,16 @@ struct GenFields {
   float* accel_out;
   int* route_ptr_out;
   int* speed_index_out;
+};
+
+// K5's further (B, V) tensors (ops/general_frames.py::REG_FIELDS) and the
+// (B,) int32 tick phases steps0 % period: inputs, then outputs.
+struct RegFields {
+  const uint8_t* is_yielding;
+  const int* yield_timer;
+  const int* phase;
+  uint8_t* is_yielding_out;
+  int* yield_timer_out;
 };
 
 // The lane tables in shared memory.
@@ -262,6 +292,26 @@ struct EnvSmem {
   }
 };
 
+// One env's arrays of the right-of-way pass in shared memory: every slot's
+// predicted position and heading cos / sin at every time, [t * V + j], and
+// its frame-start position and lane priority.
+struct RegSmem {
+  float *px, *py, *pc, *ps, *fx, *fy;
+  int* prio;
+
+  __host__ __device__ static int words(int V) { return (4 * REG_TIMES + 3) * V; }
+
+  __device__ void carve(float* p, int V) {
+    px = p;
+    py = px + REG_TIMES * V;
+    pc = py + REG_TIMES * V;
+    ps = pc + REG_TIMES * V;
+    fx = ps + REG_TIMES * V;
+    fy = fx + V;
+    prio = reinterpret_cast<int*>(fy + V);
+  }
+};
+
 // frame-start row flags
 #define FS_OCCUPIES 1  // active and not a landmark: may be a neighbour
 #define FS_VEHICLE 2
@@ -336,16 +386,142 @@ struct GSlot {
   float ix = 0.f, iy = 0.f, steer = 0.f, acc = 0.f, delta = 4.f;
   float len = 5.f, wid = 2.f, gain = 0.f, max_braking = 0.f;
   int lane = 0, tlane = 0, kind = KIND_PAD, route_ptr = 0, route_len = 0;
-  int speed_index = 0, action = 0;
+  int speed_index = 0, action = 0, yt = 0;
   bool crashed = false, hit = false, pend = false, chk = false, coll = false,
-       elc = false;
+       elc = false, yld = false;
 
   __device__ bool active() const { return kind != KIND_PAD; }
   __device__ bool is_vehicle() const { return kind >= KIND_EGO && kind <= KIND_PLAIN; }
   __device__ bool is_controlled() const { return kind >= KIND_EGO && kind <= KIND_LINEAR; }
 };
 
-__global__ void general_frames_kernel(GenFields f, const float* lane_f,
+// Any of the 9 probe points (corners, edge midpoints, centre) of the
+// rectangle a (centre, length, width, heading cos / sin) inside the
+// rectangle b: regulation.py::_one_way.
+__device__ bool probes_inside(float ax, float ay, float la, float wa, float ca, float sa,
+                              float bx, float by, float lb, float wb, float cb,
+                              float sb) {
+  const float fxs[9] = {-0.5f, -0.5f, 0.5f, 0.5f, 0.0f, -0.5f, 0.5f, 0.0f, 0.0f};
+  const float fys[9] = {-0.5f, 0.5f, 0.5f, -0.5f, 0.0f, 0.0f, 0.0f, -0.5f, 0.5f};
+  for (int k = 0; k < 9; ++k) {
+    const float lx = fxs[k] * la, ly = fys[k] * wa;
+    const float ppx = ax + ca * lx - sa * ly;
+    const float ppy = ay + sa * lx + ca * ly;
+    const float dxp = ppx - bx, dyp = ppy - by;
+    const float rx = cb * dxp - sb * dyp;
+    const float ry = sb * dxp + cb * dyp;
+    if (-lb / 2.f <= rx && rx <= lb / 2.f && -wb / 2.f <= ry && ry <= wb / 2.f) return true;
+  }
+  return false;
+}
+
+// road/regulation.py::enforce_road_rules for slot i of one env.  Every
+// thread of the warp calls it (the barrier inside); `tick` is the env's own
+// tick test and false on threads that hold no slot.  Reads the frame-start
+// state (after follow_road and the meta-action), writes v.ts, v.yld, v.yt.
+__device__ void regulate(const Lanes& g, const EnvSmem& e, const RegSmem& r, GSlot& v,
+                         const int* rb, const int* rn, const int* rid, int V, int R, int i,
+                         bool tick) {
+  if (tick) {
+    // the constant-speed route walk (predict_route_positions)
+    const int lc = g.clip(v.lane);
+    const float s0 = e.S[lc * V + i];
+    const bool has_rt = v.route_ptr < v.route_len;
+    const int cur_id = g.I(lc, LI_LANE_ID);
+    float cum[GEN_MAX_ROUTE];
+    int seg[GEN_MAX_ROUTE];
+    unsigned valid = 0u;
+    float acc = 0.f;
+    int n_valid = 0, first = -1;
+    for (int q = 0; q < R; ++q) {
+      const bool ok = has_rt && q >= v.route_ptr && q < v.route_len;
+      const int fallback = cur_id < rn[q] ? cur_id : 0;
+      const int seg_id = rid[q] >= 0 ? rid[q] : fallback;
+      seg[q] = ok ? clampi(rb[q] + seg_id, 0, g.L - 1) : v.lane;
+      acc = acc + (ok ? g.F(g.clip(seg[q]), LF_LEN) : 0.f);
+      cum[q] = acc;
+      if (ok) {
+        valid |= 1u << q;
+        ++n_valid;
+        if (first < 0) first = q;
+      }
+    }
+    first = max(first, 0);
+    const int last = n_valid > 0 ? first + n_valid - 1 : 0;
+    for (int t = 0; t < REG_TIMES; ++t) {
+      const float target = s0 + v.speed * (REG_STEP * static_cast<float>(t + 1));
+      int k = first;
+      for (int q = 0; q < R; ++q)
+        if (target > cum[q] && q < last && ((valid >> q) & 1u)) ++k;
+      k = min(k, last);
+      const int lk = g.clip(seg[k]);
+      const float base = k > first ? cum[k - 1] : 0.f;
+      const float s_loc = target - base;
+      float x, y;
+      lane_position(g, lk, s_loc, 0.f, &x, &y);
+      const float h = lane_heading(g, lk, s_loc);
+      r.px[t * V + i] = x;
+      r.py[t * V + i] = y;
+      r.pc[t * V + i] = cosf(h);
+      r.ps[t * V + i] = sinf(h);
+    }
+    r.fx[i] = v.px;
+    r.fy[i] = v.py;
+    r.prio[i] = g.I(lc, LI_PRIORITY);
+  }
+  __syncwarp();
+  if (!tick) return;
+
+  // future overlaps with every other vehicle, each pair as (lower, upper)
+  bool new_yield = false;
+  if (e.flags[i] & FS_VEHICLE) {
+    for (int j = 0; j < V; ++j) {
+      if (j == i || !(e.flags[j] & FS_VEHICLE)) continue;
+      const int a = min(i, j), b = max(i, j);
+      const float la = 1.5f * e.len[a], wa = 0.9f * e.wid[a];
+      const float lb = 1.5f * e.len[b], wb = 0.9f * e.wid[b];
+      const float reach2 = e.len[a] * e.len[a];
+      bool conflict = false;
+      for (int t = 0; t < REG_TIMES && !conflict; ++t) {
+        const int ta = t * V + a, tb = t * V + b;
+        const float dx = r.px[tb] - r.px[ta], dy = r.py[tb] - r.py[ta];
+        if (!(dx * dx + dy * dy <= reach2)) continue;
+        conflict = probes_inside(r.px[ta], r.py[ta], la, wa, r.pc[ta], r.ps[ta], r.px[tb],
+                                 r.py[tb], lb, wb, r.pc[tb], r.ps[tb]) ||
+                   probes_inside(r.px[tb], r.py[tb], lb, wb, r.pc[tb], r.ps[tb], r.px[ta],
+                                 r.py[ta], la, wa, r.pc[ta], r.ps[ta]);
+      }
+      if (!conflict) continue;
+      // the lower priority yields; on a tie the one less far ahead
+      const int pa = r.prio[a], pb = r.prio[b];
+      bool a_yields;
+      if (pa != pb) {
+        a_yields = pa < pb;
+      } else {
+        const float dx0 = r.fx[b] - r.fx[a], dy0 = r.fy[b] - r.fy[a];
+        const float front_ab = dx0 * e.cos[a] + dy0 * e.sin[a];
+        const float front_ba = (-dx0) * e.cos[b] + (-dy0) * e.sin[b];
+        a_yields = front_ab > front_ba;
+      }
+      new_yield = new_yield || (i == a ? a_yields : !a_yields);
+    }
+  }
+  new_yield = new_yield && (v.kind == KIND_IDM || v.kind == KIND_LINEAR);
+
+  // release the expired yielders to the lane's limit, then the new yields
+  const bool expired = v.yld && static_cast<float>(v.yt) >= REG_YIELD_TICKS;
+  if (expired) v.ts = g.F(g.clip(v.lane), LF_LIMIT);
+  if (v.yld && !expired) v.yt = v.yt + 1;
+  v.yld = v.yld && !expired;
+  if (new_yield) {
+    v.ts = 0.f;
+    v.yt = 0;
+    v.yld = true;
+  }
+}
+
+template <bool kRegulated>
+__global__ void general_frames_kernel(GenFields f, RegFields rf, const float* lane_f,
                                       const int* lane_i, GenParams p, int B) {
   extern __shared__ float smem[];
   const int L = p.L, V = p.V, R = p.R, M = p.M;
@@ -366,10 +542,14 @@ __global__ void general_frames_kernel(GenFields f, const float* lane_f,
   const bool live = env_in_warp < per_warp && env < B;
 
   EnvSmem e;
+  RegSmem r;
+  const int env_words = EnvSmem::words(L, V, R) + (kRegulated ? RegSmem::words(V) : 0);
   float* env_base = reinterpret_cast<float*>(li + L * LANE_I_WORDS) +
                     static_cast<size_t>(warp * per_warp + (live ? env_in_warp : 0)) *
-                        EnvSmem::words(L, V, R);
+                        env_words;
   e.carve(env_base, L, V, R);
+  if constexpr (kRegulated) r.carve(env_base + EnvSmem::words(L, V, R), V);
+  const int phase = (kRegulated && live) ? rf.phase[env] : 0;
 
   const size_t o = static_cast<size_t>(env) * V + i;
   GSlot v;
@@ -402,6 +582,10 @@ __global__ void general_frames_kernel(GenFields f, const float* lane_f,
     v.max_braking = f.mobil_max_braking[o];
     v.route_len = f.route_len[o];
     v.action = f.action[o];
+    if constexpr (kRegulated) {
+      v.yld = rf.is_yielding[o] != 0;
+      v.yt = rf.yield_timer[o];
+    }
     for (int r = 0; r < R; ++r) {
       e.rbase[i * R + r] = f.route_base[o * R + r];
       e.rn[i * R + r] = f.route_n[o * R + r];
@@ -598,6 +782,11 @@ __global__ void general_frames_kernel(GenFields f, const float* lane_f,
     }
     __syncwarp();  // the frame-start tables and rows are read
 
+    // --- B': the right-of-way pass on the env's tick frames ----------------
+    if constexpr (kRegulated)
+      regulate(g, e, r, v, rb, rn, rid, V, R, i,
+               live && (phase + frame + 1) % p.period == 0);
+
     // --- C: integration, the new projection table, re-localization --------
     if (live) {
       if (v.is_vehicle()) {
@@ -721,40 +910,64 @@ __global__ void general_frames_kernel(GenFields f, const float* lane_f,
     f.accel_out[o] = v.acc;
     f.route_ptr_out[o] = v.route_ptr;
     f.speed_index_out[o] = v.speed_index;
+    if constexpr (kRegulated) {
+      rf.is_yielding_out[o] = v.yld ? 1 : 0;
+      rf.yield_timer_out[o] = v.yt;
+    }
   }
 }
 
-// ptrs: the N_IN input tensors, the (B, V) int32 slot actions and the N_OUT
-// output tensors, as device pointers in GenFields' order; lane_f / lane_i:
-// the (L, LANE_F_WORDS) float and (L, LANE_I_WORDS) int lane tables on the
-// device.  Launches on `stream` without synchronizing; returns the CUDA
-// error code (cudaErrorInvalidValue for shapes outside the kernel's limits).
-extern "C" int general_frames(void* const* ptrs, const float* lane_f, const int* lane_i,
-                              const GenParams* params, int B, void* stream) {
+template <bool kRegulated>
+static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
+                  const int* lane_i, const GenParams* params, int B, void* stream) {
   static_assert(sizeof(GenFields) == (N_IN + 1 + N_OUT) * sizeof(void*),
                 "GenFields holds one pointer per tensor");
   const GenParams& p = *params;
   if (p.V < 1 || p.V > GEN_MAX_SLOTS || p.L < 1 || p.L > GEN_MAX_LANES || p.R < 1 ||
       p.R > GEN_MAX_ROUTE || p.M < 1 || p.M > GEN_MAX_EDGE_LANES || p.n_speeds < 1 ||
-      p.n_speeds > GEN_MAX_SPEEDS)
+      p.n_speeds > GEN_MAX_SPEEDS || (kRegulated && p.period < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   GenFields f;
   memcpy(&f, ptrs, sizeof(GenFields));
   const int envs_per_block = GEN_WARPS * (32 / p.V);
+  const size_t env_words =
+      EnvSmem::words(p.L, p.V, p.R) + (kRegulated ? RegSmem::words(p.V) : 0);
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(p.L) * LANE_F_WORDS +
                        static_cast<size_t>(p.L) * LANE_I_WORDS +
-                       static_cast<size_t>(envs_per_block) * EnvSmem::words(p.L, p.V, p.R));
+                       static_cast<size_t>(envs_per_block) * env_words);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(general_frames_kernel,
+    cudaError_t e = cudaFuncSetAttribute(general_frames_kernel<kRegulated>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (B > 0) {
     const int blocks = (B + envs_per_block - 1) / envs_per_block;
-    general_frames_kernel<<<blocks, GEN_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-        f, lane_f, lane_i, p, B);
+    general_frames_kernel<kRegulated>
+        <<<blocks, GEN_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+            f, rf, lane_f, lane_i, p, B);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// ptrs: the N_IN input tensors, the (B, V) int32 slot actions and the N_OUT
+// output tensors, as device pointers in GenFields' order; lane_f / lane_i:
+// the (L, LANE_F_WORDS) float and (L, LANE_I_WORDS) int lane tables on the
+// device.  Launches K4 on `stream` without synchronizing; returns the CUDA
+// error code (cudaErrorInvalidValue for shapes outside the kernel's limits).
+extern "C" int general_frames(void* const* ptrs, const float* lane_f, const int* lane_i,
+                              const GenParams* params, int B, void* stream) {
+  return launch<false>(ptrs, RegFields{}, lane_f, lane_i, params, B, stream);
+}
+
+// K5: as general_frames, plus reg_ptrs, the device pointers of RegFields in
+// its order.
+extern "C" int general_frames_regulated(void* const* ptrs, void* const* reg_ptrs,
+                                        const float* lane_f, const int* lane_i,
+                                        const GenParams* params, int B, void* stream) {
+  static_assert(sizeof(RegFields) == 5 * sizeof(void*), "RegFields holds five pointers");
+  RegFields rf;
+  memcpy(&rf, reg_ptrs, sizeof(RegFields));
+  return launch<true>(ptrs, rf, lane_f, lane_i, params, B, stream);
 }

@@ -18,7 +18,10 @@ runs them, as the JAX package does:
     JAX package's ``HT_NO_SORTED=1``);
   - on any other analytic-lane network the general gate admits
     (roundabout, merge) through ``ops/general_frames.simulate_general``
-    (one launch of the general frame kernel, the ego meta-action inside).
+    (one launch of the general frame kernel, the ego meta-action inside);
+    on a regulated road (intersection) the same with the right-of-way pass
+    on each env's tick frames, which ``simulate_general`` reads from the
+    envs' frame counters (one launch of the regulated kernel).
 
 ``_simulate`` runs them through the plain torch loops on any device:
 ``simulate_frames_reference`` or ``simulate_general_reference``.
@@ -36,6 +39,7 @@ from highwayenv_tpu_torch.ops import general_frames, straight_fast
 from highwayenv_tpu_torch.ops.straight_frames import frames_plain, simulate_bm
 from highwayenv_tpu_torch.ops.straight_sorted import simulate_bm_sorted
 from highwayenv_tpu_torch.road import lane as lane_ops
+from highwayenv_tpu_torch.road import regulation
 from highwayenv_tpu_torch.vehicle.behavior import IDMParams
 from highwayenv_tpu_torch.vehicle.state import KIND_EGO, VehicleState
 
@@ -101,7 +105,7 @@ class BaseEnv:
     #: initial value of the frame counter
     _initial_steps = 0
 
-    #: RegulatedRoad envs (right-of-way pass) set this; none is ported yet
+    #: RegulatedRoad envs (the right-of-way pass in the frames) set this
     regulated = False
 
     def __init__(self, config: dict | None = None, device=None,
@@ -144,7 +148,7 @@ class BaseEnv:
     def _build(self):
         self._build_scene()  # subclass: sets self.net / self.geo / slots
         self._build_spaces()
-        self.idm_params = IDMParams()
+        self.idm_params = self._idm_params()
         self.dt = 1.0 / self.config["simulation_frequency"]
         self.frames_per_step = int(
             self.config["simulation_frequency"] // self.config["policy_frequency"]
@@ -173,6 +177,18 @@ class BaseEnv:
 
     def _build_scene(self):
         raise NotImplementedError
+
+    def _idm_params(self) -> IDMParams:
+        """The NPCs' IDM / MOBIL constants; envs with their own tuning
+        override it."""
+        return IDMParams()
+
+    @property
+    def _regulation_period(self) -> int:
+        """Frames between right-of-way ticks on a regulated road."""
+        return int(
+            self.config["simulation_frequency"] // regulation.REGULATION_FREQUENCY
+        )
 
     def _build_spaces(self):
         from highwayenv_tpu_torch.actions.discrete_meta import DiscreteMetaAction
@@ -232,10 +248,11 @@ class BaseEnv:
             "rewards": self._rewards(state, action),
         }
 
-    def ego_on_road(self, state: EnvState) -> torch.Tensor:
-        """RoadObject.on_road of the ego (reference vehicle/objects.py)."""
+    def ego_on_road(self, state: EnvState, ego: int | None = None) -> torch.Tensor:
+        """RoadObject.on_road of the ego in slot ``ego`` (default the first
+        controlled slot; reference vehicle/objects.py)."""
         veh = state.vehicles
-        ego = self.ego_slots[0]
+        ego = self.ego_slots[0] if ego is None else ego
         lane = veh.lane[:, ego]
         s, lat = lane_ops.local_coordinates(self.geo, lane, veh.pos[:, ego])
         return lane_ops.on_lane(self.geo, lane, s, lat)
@@ -253,9 +270,11 @@ class BaseEnv:
         return slots
 
     def _advance(self, states: EnvState, actions, simulate) -> EnvState:
+        # a regulated road's frames tick by each env's own frame counter
+        kw = {"steps0": states.steps} if self.regulated else {}
         veh = simulate(
             self, states.vehicles, self._action_to_slots(actions),
-            self.frames_per_step,
+            self.frames_per_step, **kw,
         )
         return EnvState(
             vehicles=veh,
@@ -319,20 +338,39 @@ class BaseEnv:
             truncated = truncated | (state.steps // self.frames_per_step >= mes)
         return state, reward, terminated, truncated, self._info(state, action)
 
+    def _post_step_population(self, state: EnvState, generator) -> EnvState:
+        """Per-step population update (spawns, clears) after the head, so
+        that it reaches only the next step.  Identity here; an env that
+        overrides it draws from ``generator`` before the step's resets."""
+        return state
+
     def _finish_autoreset(self, state: EnvState, action, generator):
-        """Head, then done rows replaced by fresh scenes, then one observe.
+        """Head, then done rows replaced by fresh scenes.
 
         A full batch of resets is drawn from ``generator`` every step and
         selected where done, so a done row's scene is row ``b`` of
         ``_reset(B, g)`` for a clone ``g`` of the generator taken before the
-        step (and before the frames, which draw nothing)."""
+        step (and before the frames, which draw nothing).  Envs without a
+        population hook observe once, after the select.  Envs with one (the
+        JAX package's order, envs/base.py ``_finish_autoreset``): the head;
+        the observation of the state before the hook; the hook, which draws
+        from ``generator`` first; the full reset drawn after it; where done,
+        the reset state and the reset observation."""
         state, reward, terminated, truncated, info = self._finish_head(
             state, action
         )
         done = terminated | truncated
-        fresh = self._reset_state(state.time.shape[0], generator)
+        B = state.time.shape[0]
+        if type(self)._post_step_population is BaseEnv._post_step_population:
+            fresh = self._reset_state(B, generator)
+            state = where_done(done, fresh, state)
+            return self._observe(state), state, reward, terminated, truncated, info
+        obs = self._observe(state)
+        state = self._post_step_population(state, generator)
+        fresh_obs, fresh = self._reset(B, generator)
         state = where_done(done, fresh, state)
-        return self._observe(state), state, reward, terminated, truncated, info
+        obs = torch.where(done[:, None, None], fresh_obs, obs)
+        return obs, state, reward, terminated, truncated, info
 
     def step_autoreset(self, states: EnvState, actions, generator):
         """Autoreset step through the plain torch frames, the reference the

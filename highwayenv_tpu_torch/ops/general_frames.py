@@ -1,11 +1,11 @@
-"""All frames of a policy step on an analytic-lane network: CUDA kernel + plain torch.
+"""All frames of a policy step on an analytic-lane network: CUDA kernels + plain torch.
 
-Counterpart of ``highwayenv_tpu/ops/general_pallas_bm.py`` without its
-regulated block (``build_general_frame(regulated=False)``,
-``pallas_simulate_general``), the general path of the envs whose lanes are
-straight, sine and circular (roundabout-v0, merge-v0).  One frame is the
-JAX package's ``BaseEnv._frame`` in its default branch (not regulated, no
-dynamical egos, decisions on the frame-start state):
+Counterpart of ``highwayenv_tpu/ops/general_pallas_bm.py``
+(``build_general_frame``, ``pallas_simulate_general``), the general path of
+the envs whose lanes are straight, sine and circular (roundabout-v0,
+merge-v0, intersection-v0).  One frame is the JAX package's
+``BaseEnv._frame`` in its default branch (no dynamical egos, decisions on
+the frame-start state):
 
   1. ``follow_road``: controlled vehicles whose target lane ends take the
      next lane, along their route or by the closest successor edge;
@@ -14,15 +14,21 @@ dynamical egos, decisions on the frame-start state):
      every object on every lane, with the route-directed override and the
      same-road abort gate, and the dual-lane IDM acceleration;
   4. the steering P-cascade toward the target lane's heading ahead;
-  5. bicycle integration, the new projection table and the heading-aware
+  5. on a regulated road (intersection), on the env's tick frames, the
+     right-of-way pass of ``road/regulation.py`` (it writes only the
+     target speed and the yielding state, which no later step of the frame
+     reads);
+  6. bicycle integration, the new projection table and the heading-aware
      re-localization (closest lane by |lat| + overrun + heading distance);
-  6. swept-SAT collisions with obstacles and last-write impacts.
+  7. swept-SAT collisions with obstacles and last-write impacts.
 
 ``frames_general_plain`` runs them in batched torch; it is what the CPU
-and ``BaseEnv._simulate`` use.  ``frames_general_kernel`` (K4) runs all
-frames in one launch of ``csrc/general_frames.cu`` for CUDA tensors and
-``frames_general_plain`` for CPU tensors.  ``try_general`` is the scope
-gate: the envs outside it raise when made, naming the reason.
+and ``BaseEnv._simulate`` use.  On CUDA tensors all frames of a step run in
+one launch of ``csrc/general_frames.cu``: ``frames_general_kernel`` (K4)
+without the regulated block, ``frames_regulated_kernel`` (K5) with it, each
+with its own launch count; on CPU tensors both run
+``frames_general_plain``.  ``try_general`` is the scope gate: the envs
+outside it raise when made, naming the reason.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from highwayenv_tpu_torch.ops.straight_frames import (
     with_fields,
 )
 from highwayenv_tpu_torch.road import lane as lane_ops
+from highwayenv_tpu_torch.road import regulation
 from highwayenv_tpu_torch.road.lane import LaneGeometry
 from highwayenv_tpu_torch.vehicle import behavior, controller, kinematics
 from highwayenv_tpu_torch.vehicle.behavior import IDMParams
@@ -66,17 +73,16 @@ class GeneralSpec(NamedTuple):
     dt: float
     max_edge_lanes: int
     action_type: object  # DiscreteMetaAction
+    #: frames between right-of-way ticks on a regulated road, else None
+    period: int | None = None
 
 
 def general_unported(env) -> list[str]:
     """Why ``env`` cannot take the general path: the JAX package's
-    ``try_general`` conditions that the port's envs can meet, plus the
-    regulated road, whose right-of-way pass (K5) is not ported yet."""
+    ``try_general`` conditions that the port's envs can meet."""
     geo = env.geo
     return [
         what for what, bad in (
-            ("regulated roads (right-of-way pass, kernel K5)",
-             getattr(env, "regulated", False)),
             ("neighbour_vehicles_connected_lanes (the -v1 connected-lane "
              "neighbour search)",
              env.config.get("neighbour_vehicles_connected_lanes", False)),
@@ -93,6 +99,7 @@ def try_general(env) -> GeneralSpec | None:
     return GeneralSpec(
         geo=env.geo, p=env.idm_params, dt=env.dt,
         max_edge_lanes=int(env.max_edge_lanes), action_type=env.action_type,
+        period=env._regulation_period if env.regulated else None,
     )
 
 
@@ -102,10 +109,12 @@ def try_general(env) -> GeneralSpec | None:
 
 
 def frame_general_plain(veh: VehicleState, spec: GeneralSpec, table,
-                        slot_actions: torch.Tensor | None):
+                        slot_actions: torch.Tensor | None,
+                        tick: torch.Tensor | None = None):
     """One frame on (B, V) fields from the frame-start projection table
     ``(s, lat)`` (B, L, V); the ego meta-action is applied when
-    ``slot_actions`` is given.  Returns the state and the new table."""
+    ``slot_actions`` is given, the right-of-way pass in the envs where the
+    (B,) bool ``tick`` is set.  Returns the state and the new table."""
     geo, p = spec.geo, spec.p
     table_s, table_lat = table
     veh = controller.follow_road(geo, veh, spec.max_edge_lanes, table_s)
@@ -126,6 +135,15 @@ def frame_general_plain(veh: VehicleState, spec: GeneralSpec, table,
             torch.where(is_idm, idm_acc, veh.accel),
         ),
     )
+    if tick is not None and bool(tick.any()):
+        # after the controls, before integration, on the frame-start state
+        ruled = regulation.enforce_road_rules(geo, veh)
+        t = tick[:, None]
+        veh = veh.replace(
+            target_speed=torch.where(t, ruled.target_speed, veh.target_speed),
+            is_yielding=torch.where(t, ruled.is_yielding, veh.is_yielding),
+            yield_timer=torch.where(t, ruled.yield_timer, veh.yield_timer),
+        )
     veh = kinematics.integrate(veh, spec.dt)
     table = lane_ops.projection_table(geo, veh.pos)
     new_lane = lane_ops.closest_lane_from_table(geo, *table, veh.heading)
@@ -134,13 +152,26 @@ def frame_general_plain(veh: VehicleState, spec: GeneralSpec, table,
 
 
 def frames_general_plain(veh: VehicleState, spec: GeneralSpec,
-                         slot_actions: torch.Tensor, frames: int) -> VehicleState:
+                         slot_actions: torch.Tensor, frames: int,
+                         steps0: torch.Tensor | None = None) -> VehicleState:
     """``frames`` frames in plain batched torch, the meta-action on the
-    first: K4's reference."""
+    first: K4's reference.  With the (B,) int32 frame counters ``steps0``
+    of a regulated road's envs at the step's start, frame ``i`` of env
+    ``b`` is a right-of-way tick when ``(steps0[b] + i + 1) % period == 0``:
+    K5's reference."""
+    if (steps0 is None) != (spec.period is None):
+        raise ValueError("steps0 goes with a regulated road, and only there")
+    tick_phase = None
+    if steps0 is not None:
+        # the phase alone, in int32: the counter itself may grow without bound
+        tick_phase = torch.remainder(steps0.to(torch.int32), spec.period)
     table = lane_ops.projection_table(spec.geo, veh.pos)
     for i in range(frames):
+        tick = None
+        if tick_phase is not None:
+            tick = torch.remainder(tick_phase + (i + 1), spec.period) == 0
         veh, table = frame_general_plain(
-            veh, spec, table, slot_actions if i == 0 else None
+            veh, spec, table, slot_actions if i == 0 else None, tick
         )
     return veh
 
@@ -155,7 +186,8 @@ _LANE_F = ("sx", "sy", "ux", "uy", "nx", "ny", "heading0", "amplitude",
 _LANE_I = ("kind", "forbidden", "lane_id", "edge_base", "edge_n", "from_node",
            "to_node")
 LANE_F_WORDS = len(_LANE_F)
-LANE_I_WORDS = 16  # _LANE_I, succ_base[MAX_SUCC], succ_n[MAX_SUCC], padding
+LANE_I_WORDS = 16  # _LANE_I, succ_base[MAX_SUCC], succ_n[MAX_SUCC], priority
+LANE_I_PRIORITY = LANE_I_WORDS - 1
 
 
 def lane_tables(geo: LaneGeometry, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -181,6 +213,7 @@ def lane_tables(geo: LaneGeometry, device) -> tuple[torch.Tensor, torch.Tensor]:
     li[:, n:n + MAX_SUCC] = -1
     li[:, n:n + S] = geo.succ_edge_base.cpu()
     li[:, n + MAX_SUCC:n + MAX_SUCC + S] = geo.succ_edge_n.cpu()
+    li[:, LANE_I_PRIORITY] = geo.priority.cpu().to(torch.int32)
     return lf, li.to(device).contiguous()
 
 
@@ -189,7 +222,7 @@ class _GenParams(ctypes.Structure):
         ("L", ctypes.c_int), ("M", ctypes.c_int), ("V", ctypes.c_int),
         ("R", ctypes.c_int), ("frames", ctypes.c_int),
         ("n_speeds", ctypes.c_int), ("longitudinal", ctypes.c_int),
-        ("lateral", ctypes.c_int),
+        ("lateral", ctypes.c_int), ("period", ctypes.c_int),
         ("dt", ctypes.c_float), ("acc_max", ctypes.c_float),
         ("comfort_acc_max", ctypes.c_float), ("distance_wanted", ctypes.c_float),
         ("time_wanted", ctypes.c_float), ("inv_two_sqrt_ab", ctypes.c_float),
@@ -220,6 +253,8 @@ _IN_FIELDS = [
 ]
 #: the mutated fields, written to new tensors (JAX ``GEN_MUT_FIELDS``)
 OUT_FIELDS = _IN_FIELDS[:15]
+#: K5's further fields, read and written (JAX ``gen_fields(R, regulated=True)``)
+REG_FIELDS = [("is_yielding", torch.bool, ()), ("yield_timer", torch.int32, ())]
 
 
 def _resolve(fields, R: int):
@@ -240,7 +275,7 @@ def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int) -> _GenParams:
     out = _GenParams(
         L=spec.geo.num_lanes, M=spec.max_edge_lanes, V=V, R=R, frames=frames,
         n_speeds=len(ts), longitudinal=int(at.longitudinal),
-        lateral=int(at.lateral), dt=spec.dt, acc_max=p.acc_max,
+        lateral=int(at.lateral), period=spec.period or 0, dt=spec.dt, acc_max=p.acc_max,
         comfort_acc_max=p.comfort_acc_max, distance_wanted=p.distance_wanted,
         time_wanted=p.time_wanted, inv_two_sqrt_ab=p.inv_two_sqrt_ab,
         politeness=p.politeness, lane_change_delay=p.lane_change_delay,
@@ -257,25 +292,33 @@ def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int) -> _GenParams:
 
 
 class GeneralFramesKernel(KernelWrapper):
-    """Wrapper of the ``general_frames`` CUDA kernel (K4).
+    """Wrapper of the ``general_frames`` CUDA kernels: K4, or with
+    ``regulated=True`` K5 (the same frame plus the right-of-way pass, a
+    second entry point of the same library).
 
-    Called on CUDA tensors it launches the kernel once for all frames of
+    Called on CUDA tensors it launches its kernel once for all frames of
     the policy step, the ego meta-action applied inside on frame 0, and adds
     one to ``launches``; on CPU tensors it runs ``frames_general_plain``.
+    K5 takes the (B,) int32 frame counters ``steps0`` of the envs at the
+    step's start and passes the kernel only their tick phase
+    ``steps0 % period``, as the JAX wrapper does.
     """
 
     source = "general_frames"
 
-    def __init__(self):
+    def __init__(self, regulated: bool = False):
         super().__init__()
+        self.regulated = regulated
+        self.entry = "general_frames_regulated" if regulated else "general_frames"
         self._tables: dict = {}
 
     def _bind(self, lib):
-        lib.general_frames.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.POINTER(_GenParams), ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.general_frames.restype = ctypes.c_int
+        fn = getattr(lib, self.entry)
+        fn.argtypes = (
+            [ctypes.c_void_p] * (4 if self.regulated else 3)
+            + [ctypes.POINTER(_GenParams), ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
 
     def _lane_tables(self, geo: LaneGeometry, dev):
         key = (id(geo), str(dev))
@@ -284,9 +327,12 @@ class GeneralFramesKernel(KernelWrapper):
         return self._tables[key][1]
 
     def __call__(self, veh: VehicleState, spec: GeneralSpec,
-                 slot_actions: torch.Tensor, frames: int) -> VehicleState:
+                 slot_actions: torch.Tensor, frames: int,
+                 steps0: torch.Tensor | None = None) -> VehicleState:
+        if self.regulated != (steps0 is not None) or self.regulated != (spec.period is not None):
+            raise ValueError("steps0 goes with K5 on a regulated road, and only there")
         if not on_cuda(veh.speed):
-            return frames_general_plain(veh, spec, slot_actions, frames)
+            return frames_general_plain(veh, spec, slot_actions, frames, steps0)
         B, V = veh.kind.shape
         R = veh.route_base.shape[-1]
         if V > MAX_SLOTS or spec.geo.num_lanes > MAX_LANES:
@@ -303,29 +349,45 @@ class GeneralFramesKernel(KernelWrapper):
         ptrs = (ctypes.c_void_p * (len(ins) + 1 + len(outs)))(
             *[t.data_ptr() for t in ins + [slot_actions] + outs]
         )
+        args = [ptrs]
+        if self.regulated:
+            if steps0.shape != (B,) or steps0.dtype != torch.int32 or steps0.device != dev:
+                raise ValueError(f"steps0: expected int32 ({B},) on {dev}")
+            phase = torch.remainder(steps0, spec.period).contiguous()
+            reg_ins = checked_fields(veh, REG_FIELDS, B, V, dev)
+            reg_outs = empty_fields(REG_FIELDS, B, V, dev)
+            reg = reg_ins + [phase] + reg_outs
+            args.append((ctypes.c_void_p * len(reg))(*[t.data_ptr() for t in reg]))
         lib = self._library()
         with torch.cuda.device(dev):
-            err = lib.general_frames(
-                ptrs, lf.data_ptr(), li.data_ptr(), ctypes.byref(params),
+            err = getattr(lib, self.entry)(
+                *args, lf.data_ptr(), li.data_ptr(), ctypes.byref(params),
                 B, torch.cuda.current_stream(dev).cuda_stream,
             )
-        self._launched("general_frames", err)
-        return with_fields(veh, OUT_FIELDS, outs)
+        self._launched(self.entry, err)
+        out = with_fields(veh, OUT_FIELDS, outs)
+        return with_fields(out, REG_FIELDS, reg_outs) if self.regulated else out
 
 
-#: the one wrapper instance the env path launches through
+#: the wrapper instances the env path launches through: K4, and K5 for
+#: regulated roads, each counting its own launches
 frames_general_kernel = GeneralFramesKernel()
+frames_regulated_kernel = GeneralFramesKernel(regulated=True)
 
 
 def simulate_general(env, veh: VehicleState, slot_actions: torch.Tensor,
-                     frames: int) -> VehicleState:
+                     frames: int, steps0: torch.Tensor | None = None) -> VehicleState:
     """Policy-step simulation on the general path: all ``frames`` frames and
     the ego meta-action (inside, on frame 0, after follow_road) through
-    ``frames_general_kernel``."""
-    return frames_general_kernel(veh, env._general, slot_actions, frames)
+    ``frames_general_kernel``, or with the envs' frame counters ``steps0``
+    (a regulated road) through ``frames_regulated_kernel``."""
+    if steps0 is None:
+        return frames_general_kernel(veh, env._general, slot_actions, frames)
+    return frames_regulated_kernel(veh, env._general, slot_actions, frames, steps0)
 
 
 def simulate_general_reference(env, veh: VehicleState, slot_actions: torch.Tensor,
-                               frames: int) -> VehicleState:
+                               frames: int, steps0: torch.Tensor | None = None
+                               ) -> VehicleState:
     """The same step through ``frames_general_plain`` on any device."""
-    return frames_general_plain(veh, env._general, slot_actions, frames)
+    return frames_general_plain(veh, env._general, slot_actions, frames, steps0)

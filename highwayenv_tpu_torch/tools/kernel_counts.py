@@ -1,4 +1,4 @@
-"""Device kernels per rollout step of highway-v0, sorted and dense, on a CUDA card.
+"""Device kernels per rollout step of highway-v0 (sorted and dense) and intersection-v0 on a CUDA card.
 
 Usage (from the repo root, on a machine with a CUDA card):
 
@@ -11,7 +11,7 @@ env variant and repetition the script prints the device kernels per step
 that torch.profiler records over a 4-step random-policy rollout of 4096
 envs.  Two repetitions per variant show when the profiler dropped events,
 which it sometimes does: a dropped event lowers one reading, never raises
-it.
+it.  A tree whose package has no intersection-v0 skips that variant.
 """
 
 from __future__ import annotations
@@ -21,6 +21,12 @@ import sys
 
 STEPS = 4
 BATCH = 4096
+#: (label, env id, make keyword arguments)
+VARIANTS = (
+    ("highway-v0 sorted", "highway-v0", {"sorted_frames": True}),
+    ("highway-v0 dense", "highway-v0", {"sorted_frames": False}),
+    ("intersection-v0", "intersection-v0", {}),
+)
 
 
 def count(tree: str) -> None:
@@ -32,8 +38,10 @@ def count(tree: str) -> None:
     from highwayenv_tpu_torch.parallel.rollout import rollout
 
     print(f"tree {tree}: {ht.__file__}")
-    for which, sorted_frames in (("sorted", True), ("dense", False)):
-        env = ht.make("highway-v0", sorted_frames=sorted_frames)
+    for which, env_id, kwargs in VARIANTS:
+        if env_id not in ht.registered_ids():
+            continue
+        env = ht.make(env_id, **kwargs)
         gen = env.generator(0)
         _, states = env.reset(BATCH, gen)
         states, _ = rollout(env, states, 2, gen)  # builds and warms the kernels

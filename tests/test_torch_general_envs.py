@@ -263,13 +263,14 @@ def test_general_gate_and_what_it_refuses():
     # the -v1 variants' connected-lane neighbour search
     with pytest.raises(NotImplementedError, match="connected"):
         ht.make("roundabout-v0", {"neighbour_vehicles_connected_lanes": True}, device="cpu")
-    # a regulated road's right-of-way pass (K5)
+    # a regulated road takes the general path too, with its tick period
 
     class Regulated(RoundaboutEnv):
         regulated = True
 
-    with pytest.raises(NotImplementedError, match="regulated roads .*K5"):
-        Regulated(device="cpu")
+    reg = Regulated(device="cpu")
+    assert reg._general is not None and reg._general.period == 7
+    assert ht.make("roundabout-v0", device="cpu")._general.period is None
 
     # more slots than one warp holds
 
@@ -286,7 +287,7 @@ def test_general_gate_and_what_it_refuses():
     # ids not registered in the port: NotImplementedError (and KeyError)
     # naming the reason
     for env_id, why in (("roundabout-v1", "connected-lane neighbour search"),
-                        ("intersection-v0", "right-of-way pass .*K5")):
+                        ("intersection-v1", "ContinuousAction")):
         with pytest.raises(NotImplementedError, match=why):
             ht.make(env_id, device="cpu")
         with pytest.raises(KeyError, match="not ported"):

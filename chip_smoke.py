@@ -10,11 +10,14 @@ Phases:
      process per source, all started together);
   3. each kernel against its plain torch version at highway-fast-v0
      (V=21, 5 frames) and highway-v0 full width (V=51, 15 frames), B=4096,
-     on four scenes: the dense frame kernel K1, the sort K2a and the unsort
-     K2b (bit-exact), the sorted banded frames K3 (discrete fields and flags
-     exact, continuous fields within the stated tolerance), K1 masked by the
-     flags; then the sorted step against the dense step, and the highway-v0
-     autoreset step of the main path against the plain reference path; then
+     and at highway-v0 with 31, 32, 63 and 100 vehicles (V = 32, 33, 64,
+     101: one warp, one warp and a slot, two warps, four warps and five
+     slots), B=512, on four scenes each, one of which fires both band
+     flags: the dense frame kernel K1, the sort K2a, the sorted banded
+     frames K3 with its flags, the unsort K2b and K1 masked by the flags,
+     every field bit-exact; then the sorted step against the dense step,
+     and the highway-v0 autoreset step of the main path against the plain
+     reference path; then
      the general frame kernel K4 at roundabout-v0 (V=5, L=32, R=11) and
      merge-v0 (V=6, L=9, an obstacle), B=4096, on the reset scene, 8 steps
      in, an all-env pile-up and (merge) the obstacle hit, and the
@@ -59,6 +62,8 @@ import numpy as np
 import torch
 
 B = 4096  # envs, the batch the JAX package's bench drives
+EDGE_B = 512  # envs of the warp-boundary highway-v0 checks
+EDGE_VEHICLES = (31, 32, 63, 100)  # V = 32, 33, 64, 101
 HORIZON = 32  # policy steps of the main-path rollout
 CRASH_HORIZON = 4  # policy steps of the extra rollout from a compressed scene
 DENSE_HORIZON = 4  # policy steps of the dense path (sorted_frames=False)
@@ -235,10 +240,20 @@ def compare(a, b, where: str, fields=CONTINUOUS, quiet=False) -> float:
 
 
 def exact(a, b, fields, where: str) -> None:
-    """Bit-exact equality of the named fields (a permutation)."""
+    """Bit-exact equality of the named fields."""
     bad = [n for n in fields if not torch.equal(getattr(a, n), getattr(b, n))]
     if bad:
         raise AssertionError(f"{where}: fields differ: {bad}")
+
+
+def exact_state(a, b, where: str) -> float:
+    """Every field of two states bit-exact; returns the max absolute
+    difference over the continuous fields (0.0 when they are)."""
+    import dataclasses
+
+    exact(a, b, [f.name for f in dataclasses.fields(a)], where)
+    return max(float((getattr(a, n).double() - getattr(b, n).double()).abs().max())
+               for n in CONTINUOUS)
 
 
 def compare_steps(a, b, where: str) -> bool:
@@ -694,18 +709,24 @@ def main() -> int:
     k1, k2a, k3, k2b = sf.frames_kernel, ss.sort_kernel, ss.frames_sorted_kernel, ss.unsort_kernel
     k4 = gf.frames_general_kernel
     err = {"K1": 0.0, "K2a": 0.0, "K3": 0.0, "K2b": 0.0}
-    # highway-fast-v0 (V=21, 5 frames) runs the same kernels; the main path
-    # is highway-v0, checked last so its env and states carry on below
-    for env_id in ("highway-fast-v0", "highway-v0"):
-        env = ht.make(env_id)
+    # highway-fast-v0 (V=21, 5 frames) and highway-v0 at the warp
+    # boundaries run the same kernels; the main path is highway-v0, checked
+    # last so its env and states carry on below
+    straight = ([("highway-fast-v0", None, B)]
+                + [("highway-v0", {"vehicles_count": n}, EDGE_B) for n in EDGE_VEHICLES]
+                + [("highway-v0", None, B)])
+    for env_id, config, Bc in straight:
+        env = ht.make(env_id, config)
         fs, p, dt, frames = env._straight, env.idm_params, env.dt, env.frames_per_step
-        print(f"== 3. kernels vs plain: {env_id} V={env.num_slots}, {frames} frames, B={B}")
+        label = f"{env_id} V={env.num_slots}"
+        print(f"== 3. kernels vs plain: {label}, {frames} frames, B={Bc}")
         gen = env.generator(SEED)
-        _, states = env.reset(B, gen)
-        actions = torch.randint(0, env.action_type.n, (B,), generator=gen,
+        _, states = env.reset(Bc, gen)
+        actions = torch.randint(0, env.action_type.n, (Bc,), generator=gen,
                                 device=env.device, dtype=torch.int32)
+        both_fired = False
         for name, veh in scenes(states.vehicles).items():
-            where = f"{env_id} {name}"
+            where = f"{label} {name}"
             veh = env.action_type.apply(
                 env.geo, veh, veh.kind == 1, env._action_to_slots(actions)
             )
@@ -713,7 +734,7 @@ def main() -> int:
             out_k = k1(veh, fs, p, dt, frames)
             out_p = sf.frames_plain(veh, fs, p, dt, frames)
             torch.cuda.synchronize()
-            err["K1"] = max(err["K1"], compare(out_k, out_p, f"{where} K1"))
+            err["K1"] = max(err["K1"], exact_state(out_k, out_p, f"{where} K1"))
             # K2a
             srt_k, idx_k = k2a(veh, fs)
             srt_p, idx_p = ss.sort_plain(veh, fs)
@@ -727,7 +748,7 @@ def main() -> int:
             torch.cuda.synchronize()
             if not torch.equal(flags_k, flags_p):
                 raise AssertionError(f"{where} K3: flags differ")
-            err["K3"] = max(err["K3"], compare(band_k, band_p, f"{where} K3"))
+            err["K3"] = max(err["K3"], exact_state(band_k, band_p, f"{where} K3"))
             # K2b
             back_k = k2b(band_p, idx_p, veh)
             back_p = ss.unsort_plain(band_p, idx_p, veh)
@@ -738,14 +759,18 @@ def main() -> int:
             fix_k = k1(veh, fs, p, dt, frames, mask=mask, out=back_k)
             fix_p = sf._masked_plain(veh, fs, p, dt, frames, mask, back_p)
             torch.cuda.synchronize()
-            err["K1"] = max(err["K1"], compare(fix_k, fix_p, f"{where} K1 masked", quiet=True))
+            err["K1"] = max(err["K1"], exact_state(fix_k, fix_p, f"{where} K1 masked"))
             # the sorted step (kernels) against the dense step (kernel)
             bitwise = compare_steps(fix_k, out_k, f"{where} sorted step vs dense")
             fired = flags_k.sum(dim=0).tolist()
-            print(f"  {where}: firing envs {int(mask.sum())} of {B} (collision "
-                  f"{fired[0]}, neighbour {fired[1]}); sorted step vs dense step "
+            both_fired |= min(fired) > 0
+            print(f"  {where}: K1, K3 and K1 masked bit-exact on every field; firing "
+                  f"envs {int(mask.sum())} of {Bc} (collision {fired[0]}, neighbour "
+                  f"{fired[1]}); sorted step vs dense step "
                   f"{'bitwise equal' if bitwise else 'within the ulp bound'}; "
                   f"crashed slots {int(fix_k.crashed.sum())}")
+        if not both_fired:
+            raise AssertionError(f"{label}: no scene fired both band flags")
     # the whole autoreset step: the main path (sorted kernels) against the
     # plain reference path
     check_autoreset(env, states, gen, "")

@@ -1,11 +1,12 @@
 // Device code shared by the dense (straight_frames.cu) and the s-sorted
 // banded (straight_frames_sorted.cu) frame kernels: the constants, the
 // geometry and IDM parameters, the field pointers, one slot's registers,
-// the rows staged in shared memory, the IDM acceleration of a row pair, the
-// folded swept SAT, and one slot's MOBIL decision, controls, bicycle
-// integration and re-localization.  The two kernels differ only in how they
-// find neighbours and collision partners, so everything a frame does around
-// those two searches lives here and the kernels cannot drift apart.
+// the rows and lane-mask words staged in shared memory, the IDM acceleration
+// of a row pair, the folded swept SAT, the set-bit walk, and one slot's
+// MOBIL decision, controls, bicycle integration and re-localization.  The
+// two kernels differ only in how they find neighbours and collision
+// partners, so everything a frame does around those two searches lives here
+// and the kernels cannot drift apart.
 //
 // Semantics are those of ops/straight_frames.py (frames_plain and its
 // phases), in the specialization the straight highway envs spawn: vehicles
@@ -13,6 +14,27 @@
 // Rounding: the kernels are built with -fmad=false and the precise libm
 // functions, so every operation rounds as the op-by-op torch version does on
 // the same card.
+//
+// What bounds a frame on the H100: issue slots and the latency of dependent
+// shared-memory loads, not bytes or float operations.  Thread 0's clock64()
+// split of a highway-v0 frame (V = 51, tools/kernel_ab.py --clocks) put
+// drive() first in both kernels (42% of the dense kernel's frame, 37.5% of
+// the sorted one's), then the pair searches and the sorted kernel's scans.
+// What the code here does about it: every pair search walks only the set
+// bits of per-warp ballot words (lane membership, the abort scan's
+// candidates, the collision gate) in ascending slot order, which keeps the
+// dense pass's tie rules; drive() evaluates IDM's free-road term (a precise
+// powf) once per ego row, not once per pair, and fetches each neighbour's
+// row where it reads it; the heading's cosf / sinf are carried from one
+// frame's stage_post to the next frame's frame_start; the rows are
+// 16-byte-aligned structs behind one base pointer, so a fetch is two
+// 128-bit loads and the arrays hold few registers; the kernels take their
+// parameter structs as __grid_constant__ (no copy to the stack).  Built for
+// up to 1024 threads a block (__launch_bounds__), a thread gets 64
+// registers, so 16 blocks of two warps share an SM at V = 51; the few
+// values that spill are reloaded once a frame or around the slow path of a
+// precise division, and a build of the same code without the cap (79 and
+// 100 registers, no spills, 12 and 9 blocks an SM) runs slower (PERF.md).
 
 #pragma once
 
@@ -21,6 +43,8 @@
 #include <stdint.h>
 
 #define MAX_LANES 16
+#define MAX_BLOCK_THREADS 1024
+#define FULL_MASK 0xffffffffu
 #define KIND_PAD 0
 #define KIND_EGO 1
 #define KIND_IDM 2
@@ -37,10 +61,10 @@
 #define NOT_ZERO_EPS 0.01f
 
 // flag bits of the frame-start rows
-#define F_OCCUPIABLE 1
 #define F_VEHICLE 2
 #define F_CONTROLLED 4
-// flag bits of the post-integration rows (F_VEHICLE as above)
+// flag bits of the general frame kernel's post-integration rows
+// (general_frames.cu; F_VEHICLE as above)
 #define F_ACTIVE 1
 #define F_CHECK 4
 #define F_COLLIDABLE 8
@@ -126,15 +150,22 @@ struct Row {
   bool ex, vehicle;
 };
 
-// vehicle/behavior.py::idm_acceleration masked as the plain frame's accel()
-__device__ __forceinline__ float accel_pair(const Params& p, const Geo& g,
-                                            float delta, const Row& e,
-                                            const Row& f) {
+// The free-road term of vehicle/behavior.py::idm_acceleration for ego row
+// e, 0 where accel_pair returns 0 without it (a missing row or no vehicle)
+__device__ __forceinline__ float free_term(const Params& p, const Geo& g, float delta,
+                                          const Row& e) {
   if (!(e.ex && e.vehicle)) return 0.f;
   float ts = g.has_limit ? clampf(e.target_speed, 0.f, g.speed_limit)
                          : e.target_speed;
-  float free_acc = p.comfort_acc_max *
-                   (1.0f - powf(fmaxf(e.speed, 0.f) / fabsf(not_zero(ts)), delta));
+  return p.comfort_acc_max *
+         (1.0f - powf(fmaxf(e.speed, 0.f) / fabsf(not_zero(ts)), delta));
+}
+
+// idm_acceleration masked as the plain frame's accel(), given e's free-road
+// term: a row's term is computed once, however many fronts it meets
+__device__ __forceinline__ float accel_pair(const Params& p, float free_acc,
+                                            const Row& e, const Row& f) {
+  if (!(e.ex && e.vehicle)) return 0.f;
   float d = f.s - e.s;
   float dv = (e.speed * e.c - f.vx) * e.c + (e.speed * e.sn - f.vy) * e.sn;
   float d_star = (p.distance_wanted + e.speed * p.time_wanted) +
@@ -218,11 +249,14 @@ __device__ void sat(float dax, float day, float la, float wa, float ca,
 }
 
 // One slot's state, in registers for all frames of a policy step.  A
-// thread without a slot (i >= V) keeps these padding values.
+// thread without a slot (i >= V) keeps these padding values.  ch and sh
+// are cosf and sinf of the heading, carried from one frame's stage_post to
+// the next frame's frame_start; diag, the diagonal, does not change.
 struct Slot {
   float px = 0.f, py = 0.f, heading = 0.f, speed = 0.f, ts = 0.f, timer = 0.f;
   float ix = 0.f, iy = 0.f, steer = 0.f, acc = 0.f, delta = 4.f;
   float len = 5.f, wid = 2.f, gain = 0.f, max_braking = 0.f;
+  float ch = 1.f, sh = 0.f, diag = 0.f;
   int lane = 0, tlane = 0, kind = KIND_PAD;
   bool crashed = false, pend = false, chk = false, coll = false, elc = false;
 
@@ -252,6 +286,13 @@ struct Slot {
     max_braking = f.mobil_max_braking[o];
   }
 
+  // the carried values of the loaded (or padding) fields
+  __device__ void derive() {
+    ch = cosf(heading);
+    sh = sinf(heading);
+    diag = sqrtf(len * len + wid * wid);
+  }
+
   __device__ void store(const Fields& f, size_t o) const {
     f.pos_out[2 * o] = px;
     f.pos_out[2 * o + 1] = py;
@@ -273,131 +314,182 @@ struct Slot {
   __device__ bool is_controlled() const { return kind >= KIND_EGO && kind <= KIND_LINEAR; }
 };
 
-// Frame-start rows, read by the neighbour and abort scans: START_ARRAYS
-// shared-memory arrays of blockDim.x words.
-#define START_ARRAYS 11
-struct StartRows {
-  float *s, *lat, *speed, *ts, *vx, *vy, *cos, *sin;
-  int *lane, *tlane, *flags;
+// A slot's frame-start row in shared memory, two float4s: the neighbour
+// walks read s, the row fetch and the abort scan the rest.
+struct __align__(16) StartRow {
+  float s, speed, ts, vx;
+  float vy, cos, sin;
+  int flags;
+};
 
-  // carves the arrays from p; returns the first word after them
-  __device__ float* carve(float* p, int n) {
-    s = p;
-    lat = s + n;
-    speed = lat + n;
-    ts = speed + n;
-    vx = ts + n;
-    vy = vx + n;
-    cos = vy + n;
-    sin = cos + n;
-    lane = reinterpret_cast<int*>(sin + n);
-    tlane = lane + n;
-    flags = tlane + n;
-    return reinterpret_cast<float*>(flags + n);
+// A slot's post-integration row, three float4s: the sphere pre-check reads
+// the first, the SAT all three.  len, wid and orig (the sorted kernel's
+// original slot) do not change and are staged once per launch.
+struct __align__(16) PostRow {
+  float px, py, speed, diag;
+  float cos, sin, vx, vy;
+  float len, wid;
+  int orig, pad;
+};
+
+// A block's rows and ballot words in shared memory: ROW_WORDS per thread
+// (its two rows, and its lane and target lane for the abort scan's dense
+// fallback) and WARP_WORDS(L) per warp: memb(l), the occupiable slots of
+// the warp on lane l (|lat - offset_l| <= width / 2 + 1); abrt(l), its
+// controlled slots changing lanes into lane l (the abort scan's
+// candidates); and the collision gate's ac (active and collidable slots),
+// veh (vehicles) and chk (slots that check collisions), and a word of
+// padding that keeps what follows 8-byte aligned.  One base pointer each,
+// so the arrays cost few registers.
+#define ROW_WORDS 22
+#define WARP_WORDS(L) (2 * (L) + 4)
+struct Rows {
+  PostRow* post;
+  StartRow* start;
+  int2* lanes;
+  unsigned* words;
+  int nw, L;
+
+  // carves them for n threads and L lanes from p, which is 16-byte aligned;
+  // returns the first word after them
+  __device__ float* carve(float* p, int n, int lanes_) {
+    nw = n / 32;
+    L = lanes_;
+    post = reinterpret_cast<PostRow*>(p);
+    start = reinterpret_cast<StartRow*>(post + n);
+    lanes = reinterpret_cast<int2*>(start + n);
+    words = reinterpret_cast<unsigned*>(lanes + n);
+    return reinterpret_cast<float*>(words + WARP_WORDS(L) * nw);
   }
 
-  // the row of slot j, or the all-zero row of a missing neighbour (j < 0)
+  __device__ unsigned* memb(int l) const { return words + l * nw; }
+  __device__ unsigned* abrt(int l) const { return words + (L + l) * nw; }
+  __device__ unsigned* ac() const { return words + 2 * L * nw; }
+  __device__ unsigned* veh() const { return words + (2 * L + 1) * nw; }
+  __device__ unsigned* chk() const { return words + (2 * L + 2) * nw; }
+
+  __device__ float s(int j) const { return start[j].s; }
+
+  // the frame-start row of slot j, or the all-zero row of a missing
+  // neighbour (j < 0)
   __device__ Row fetch(int j) const {
     Row r;
     r.ex = j >= 0;
     if (r.ex) {
-      r.speed = speed[j];
-      r.target_speed = ts[j];
-      r.s = s[j];
-      r.vx = vx[j];
-      r.vy = vy[j];
-      r.c = cos[j];
-      r.sn = sin[j];
-      r.vehicle = (flags[j] & F_VEHICLE) != 0;
+      const float4 a = reinterpret_cast<const float4*>(start + j)[0];
+      const float4 b = reinterpret_cast<const float4*>(start + j)[1];
+      r.s = a.x;
+      r.speed = a.y;
+      r.target_speed = a.z;
+      r.vx = a.w;
+      r.vy = b.x;
+      r.c = b.y;
+      r.sn = b.z;
+      r.vehicle = (__float_as_int(b.w) & F_VEHICLE) != 0;
     } else {
       r.speed = r.target_speed = r.s = r.vx = r.vy = r.c = r.sn = 0.f;
       r.vehicle = false;
     }
     return r;
   }
+
+  // px, py, speed and diag of slot j after the integration
+  __device__ float4 pose(int j) const { return reinterpret_cast<const float4*>(post + j)[0]; }
 };
 
-// Post-integration rows, read by the collision pass: POST_ARRAYS arrays.
-// len, wid and diag do not change and are staged once per launch.
-#define POST_ARRAYS 11
-struct PostRows {
-  float *px, *py, *speed, *cos, *sin, *vx, *vy, *len, *wid, *diag;
-  int* flags;
+// The ballot of pred over the calling warp, stored by its lane 0 in
+// words[warp]; every thread of the warp calls it.
+__device__ __forceinline__ void ballot_word(unsigned* words, bool pred) {
+  const unsigned bits = __ballot_sync(FULL_MASK, pred);
+  if ((threadIdx.x & 31) == 0) words[threadIdx.x >> 5] = bits;
+}
 
-  __device__ float* carve(float* p, int n) {
-    px = p;
-    py = px + n;
-    speed = py + n;
-    cos = speed + n;
-    sin = cos + n;
-    vx = sin + n;
-    vy = vx + n;
-    len = vy + n;
-    wid = len + n;
-    diag = wid + n;
-    flags = reinterpret_cast<int*>(diag + n);
-    return reinterpret_cast<float*>(flags + n);
+// The bits lo..hi of a word, 0 <= lo, hi <= 31; none where lo > hi.
+__device__ __forceinline__ unsigned span_bits(int lo, int hi) {
+  return (FULL_MASK >> (31 - hi)) & (FULL_MASK << lo);
+}
+
+// Word w of word(w), masked to the slots lo..hi but self.
+template <typename Word>
+__device__ __forceinline__ unsigned band_word(Word word, int w, int lo, int hi, int self) {
+  unsigned bits = word(w) & span_bits(max(lo - (w << 5), 0), min(hi - (w << 5), 31));
+  return w == (self >> 5) ? bits & ~(1u << (self & 31)) : bits;
+}
+
+// Calls visit(j) for every set bit j of the words word(w) with lo <= j <=
+// hi and j != self, in ascending j: the dense pass's column order, so its
+// tie rules hold.
+template <typename Word, typename Visit>
+__device__ __forceinline__ void visit_bits(Word word, int lo, int hi, int self,
+                                           Visit visit) {
+  for (int w = lo >> 5; w <= (hi >> 5); ++w) {
+    for (unsigned bits = band_word(word, w, lo, hi, self); bits; bits &= bits - 1) {
+      visit((w << 5) + __ffs(bits) - 1);
+    }
   }
-};
+}
 
-// One slot's frame-start projection on the road axis and its queries: the
-// own lane and the lanes -1 / +1 (clamped), with their offsets.
+// One slot's frame-start projection on the road axis.
 struct Start {
   float s, lat0, ch, sh, vx, vy;
   bool occ;
-  int q_lane[3];
-  float q_off[3];
 };
+
+// Query k of a slot on `lane`: the own lane (k = 0), lane -1 (k = 1) and
+// lane +1 (k = 2), the last two clamped to the road.
+__device__ __forceinline__ int query_lane(int lane, int k, int L) {
+  return k == 0 ? lane : clampi(lane + (k == 1 ? -1 : 1), 0, L - 1);
+}
 
 __device__ __forceinline__ Start frame_start(const Slot& v, const Geo& g) {
   Start st;
   st.s = (v.px - g.ox) * g.ux + (v.py - g.oy) * g.uy;
   st.lat0 = (v.px - g.ox) * g.nx + (v.py - g.oy) * g.ny;
-  st.ch = cosf(v.heading);
-  st.sh = sinf(v.heading);
+  st.ch = v.ch;
+  st.sh = v.sh;
   st.vx = v.speed * st.ch;
   st.vy = v.speed * st.sh;
   st.occ = (-VEHICLE_LENGTH <= st.s) && (st.s < g.in_range_hi) && v.active() &&
            v.kind != KIND_LANDMARK;
-  const int L = g.n_lanes;
-  st.q_lane[0] = v.lane;
-  st.q_lane[1] = clampi(v.lane - 1, 0, L - 1);
-  st.q_lane[2] = clampi(v.lane + 1, 0, L - 1);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) st.q_off[k] = g.offsets[clampi(st.q_lane[k], 0, L - 1)];
   return st;
 }
 
-__device__ __forceinline__ void stage_start(const StartRows& r, int i, bool live,
-                                            const Slot& v, const Start& st) {
-  r.s[i] = st.s;
-  r.lat[i] = st.lat0;
-  r.speed[i] = v.speed;
-  r.ts[i] = v.ts;
-  r.vx[i] = st.vx;
-  r.vy[i] = st.vy;
-  r.cos[i] = st.ch;
-  r.sin[i] = st.sh;
-  r.lane[i] = v.lane;
-  r.tlane[i] = v.tlane;
-  r.flags[i] = live ? ((st.occ ? F_OCCUPIABLE : 0) | (v.is_vehicle() ? F_VEHICLE : 0) |
-                       (v.is_controlled() ? F_CONTROLLED : 0))
-                    : 0;
+// Is slot i a member of lane l (occupiable, |lat - offset_l| <= width / 2 + 1)?
+__device__ __forceinline__ bool lane_member(const Start& st, bool live, const Geo& g,
+                                            int l) {
+  return live && st.occ && fabsf(st.lat0 - g.offsets[l]) <= g.member_tol;
 }
 
-__device__ __forceinline__ void stage_post(const PostRows& c, int i, bool live,
-                                           const Slot& v) {
-  c.px[i] = v.px;
-  c.py[i] = v.py;
-  c.speed[i] = v.speed;
+// Stages slot i's frame-start row and its bits of the lane and abort
+// words; every thread of the block calls it.
+__device__ __forceinline__ void stage_start(const Rows& r, int i, bool live, const Slot& v,
+                                            const Start& st, const Geo& g) {
+  const bool controlled = live && v.is_controlled();
+  const int flags =
+      live ? ((v.is_vehicle() ? F_VEHICLE : 0) | (controlled ? F_CONTROLLED : 0)) : 0;
+  float4* row = reinterpret_cast<float4*>(r.start + i);
+  row[0] = make_float4(st.s, v.speed, v.ts, st.vx);
+  row[1] = make_float4(st.vy, st.ch, st.sh, __int_as_float(flags));
+  r.lanes[i] = make_int2(v.lane, v.tlane);
+  for (int l = 0; l < g.n_lanes; ++l) {
+    ballot_word(r.memb(l), lane_member(st, live, g, l));
+    ballot_word(r.abrt(l), controlled && v.tlane == l && v.lane != l);
+  }
+}
+
+// Stages slot i's post-integration row and its bits of the collision
+// gate's words, and carries cosf / sinf of the new heading into the next
+// frame; every thread of the block calls it.
+__device__ __forceinline__ void stage_post(const Rows& r, int i, bool live, Slot& v) {
   const float c2 = cosf(v.heading), s2 = sinf(v.heading);
-  c.cos[i] = c2;
-  c.sin[i] = s2;
-  c.vx[i] = v.speed * c2;
-  c.vy[i] = v.speed * s2;
-  c.flags[i] = live ? ((v.active() ? F_ACTIVE : 0) | (v.is_vehicle() ? F_VEHICLE : 0) |
-                       (v.chk ? F_CHECK : 0) | (v.coll ? F_COLLIDABLE : 0))
-                    : 0;
+  float4* row = reinterpret_cast<float4*>(r.post + i);
+  row[0] = make_float4(v.px, v.py, v.speed, v.diag);
+  row[1] = make_float4(c2, s2, v.speed * c2, v.speed * s2);
+  v.ch = c2;
+  v.sh = s2;
+  ballot_word(r.ac(), live && v.active() && v.coll);
+  ballot_word(r.veh(), live && v.is_vehicle());
+  ballot_word(r.chk(), live && v.chk);
 }
 
 __device__ __forceinline__ bool is_idm(const Slot& v) {
@@ -405,54 +497,74 @@ __device__ __forceinline__ bool is_idm(const Slot& v) {
 }
 
 // Everything a frame does to slot i between the neighbour search and the
-// collision pass: MOBIL with its timer, abort-on-conflict (a dense scan of
-// the frame-start rows), the steering / speed P-cascade with dual-lane IDM,
-// bicycle integration and re-localization on the nearest lane offset.
-__device__ void drive(Slot& v, const Start& st, const Row front[3],
-                      const Row rear[3], const StartRows& r, int i, int V,
+// collision pass: MOBIL with its timer, abort-on-conflict (over the
+// candidates of the abort words), the steering / speed P-cascade with
+// dual-lane IDM, bicycle integration and re-localization on the nearest
+// lane offset.  front / rear are the neighbours' slots (-1 none) on the own
+// lane and lanes -1 / +1; each row is fetched where it is read, which keeps
+// the six rows out of the registers.
+__device__ void drive(Slot& v, const Start& st, const int front[3],
+                      const int rear[3], const Rows& r, int i, int V,
                       const Geo& g, const Params& p) {
   const int L = g.n_lanes;
   const int lane = v.lane, tlane = v.tlane;
   const float s = st.s, lat0 = st.lat0, speed = v.speed;
   const bool idm = is_idm(v);
   const Row self = {speed, v.ts, s, st.vx, st.vy, st.ch, st.sh, true, v.is_vehicle()};
+  const float free_self = free_term(p, g, v.delta, self);
 
   // --- MOBIL lane change ----------------------------------------------------
-  const float a_self = accel_pair(p, g, v.delta, self, front[0]);
+  const Row front0 = r.fetch(front[0]);
+  const float a_self = accel_pair(p, free_self, self, front0);
   const bool mid_change = lane != tlane;
   const bool deciding = idm && !mid_change && v.timer > p.lane_change_delay && v.elc;
   float new_timer = deciding ? 0.f : v.timer;
   int target = tlane;
   if (deciding) {
-    const float a_of = accel_pair(p, g, v.delta, rear[0], self);
-    const float a_of_pred = accel_pair(p, g, v.delta, rear[0], front[0]);
+    const Row rear0 = r.fetch(rear[0]);
+    const float free_rear = free_term(p, g, v.delta, rear0);
+    const float a_of = accel_pair(p, free_rear, rear0, self);
+    const float a_of_pred = accel_pair(p, free_rear, rear0, front0);
     const bool moving = fabsf(speed) >= 1.0f;
 #pragma unroll
     for (int k = 1; k < 3; ++k) {
       const int d = k == 1 ? -1 : 1;
       const bool exists = lane + d >= 0 && lane + d < L;
-      const float a_nf = accel_pair(p, g, v.delta, rear[k], front[k]);
-      const float a_nf_pred = accel_pair(p, g, v.delta, rear[k], self);
-      const float a_self_pred = accel_pair(p, g, v.delta, self, front[k]);
+      const Row rear_k = r.fetch(rear[k]), front_k = r.fetch(front[k]);
+      const float free_nf = free_term(p, g, v.delta, rear_k);
+      const float a_nf = accel_pair(p, free_nf, rear_k, front_k);
+      const float a_nf_pred = accel_pair(p, free_nf, rear_k, self);
+      const float a_self_pred = accel_pair(p, free_self, self, front_k);
       const bool safe = a_nf_pred >= -v.max_braking;
       const float jerk = (a_self_pred - a_self) +
                          p.politeness * (((a_nf_pred - a_nf) + a_of_pred) - a_of);
-      const bool reachable = fabsf(lat0 - st.q_off[k]) <= g.reach_lat &&
+      const int q = query_lane(lane, k, L);
+      const bool reachable = fabsf(lat0 - g.offsets[q]) <= g.reach_lat &&
                              0.f <= s && s < g.in_range_hi;
-      if (exists && reachable && moving && safe && jerk >= v.gain) target = st.q_lane[k];
+      if (exists && reachable && moving && safe && jerk >= v.gain) target = q;
     }
   }
   // abort a lane change into a gap another vehicle is closing
   if (idm && mid_change) {
-    bool conflict = false;
-    for (int j = 0; j < V && !conflict; ++j) {
-      if (j == i || !(r.flags[j] & F_CONTROLLED)) continue;
-      if (r.lane[j] == tlane || r.tlane[j] != tlane) continue;
-      const float d_ij = r.s[j] - s;
-      const float dv = (st.vx - r.vx[j]) * st.ch + (st.vy - r.vy[j]) * st.sh;
+    auto closing = [&](int j) {
+      const StartRow& o = r.start[j];
+      const float d_ij = o.s - s;
+      const float dv = (st.vx - o.vx) * st.ch + (st.vy - o.vy) * st.sh;
       const float d_star = (p.distance_wanted + speed * p.time_wanted) +
                            (speed * dv) * p.inv_two_sqrt_ab;
-      conflict = 0.f < d_ij && d_ij < d_star;
+      return 0.f < d_ij && d_ij < d_star;
+    };
+    bool conflict = false;
+    if (tlane >= 0 && tlane < L) {
+      const unsigned* abrt = r.abrt(tlane);
+      visit_bits([&](int w) { return abrt[w]; }, 0, V - 1, i,
+                 [&](int j) { conflict = conflict || closing(j); });
+    } else {  // a target off the road: no abort word, the dense scan
+      for (int j = 0; j < V && !conflict; ++j) {
+        if (j == i || !(r.start[j].flags & F_CONTROLLED)) continue;
+        if (r.lanes[j].x == tlane || r.lanes[j].y != tlane) continue;
+        conflict = closing(j);
+      }
     }
     if (conflict) target = lane;
   }
@@ -468,10 +580,10 @@ __device__ void drive(Slot& v, const Start& st, const Row front[3],
       clampf(atan2f(2.f * sinf(slip), cosf(slip)), -MAX_STEER_F, MAX_STEER_F);
   // dual-lane IDM while changing lanes
   const int d_t = target - lane;
-  const Row& f_t = d_t == 0 ? front[0] : (d_t < 0 ? front[1] : front[2]);
-  const float a_t = accel_pair(p, g, v.delta, self, f_t);
-  const float a_idm =
-      clampf(target != lane ? fminf(a_self, a_t) : a_self, -p.acc_max, p.acc_max);
+  const Row f_t = d_t == 0 ? front0 : r.fetch(d_t < 0 ? front[1] : front[2]);
+  const float a_idm = clampf(
+      target != lane ? fminf(a_self, accel_pair(p, free_self, self, f_t)) : a_self,
+      -p.acc_max, p.acc_max);
   const bool is_ego = v.kind == KIND_EGO;
   if (is_ego || idm) v.steer = steer_pc;
   if (is_ego) {
@@ -513,21 +625,52 @@ __device__ void drive(Slot& v, const Start& st, const Row front[3],
   v.timer = new_timer;
 }
 
-// The pair's collision gate of the dense pass (road collision protocol):
-// both active, one a vehicle, one checking collisions, both collidable.
+// The pair's collision gate of the general frame kernel (road collision
+// protocol): both active, one a vehicle, one checking collisions, both
+// collidable.
 __device__ __forceinline__ bool pair_eligible(int fa, int fb) {
   return (fa & F_ACTIVE) && (fb & F_ACTIVE) && ((fa & F_VEHICLE) || (fb & F_VEHICLE)) &&
          ((fa & F_CHECK) || (fb & F_CHECK)) && (fa & F_COLLIDABLE) && (fb & F_COLLIDABLE);
 }
 
+// Slot i's collision candidates in warp word w: the active, collidable
+// slots that make an eligible pair with it (one of the two a vehicle, one
+// checking collisions); none where slot i is not active and collidable.
+__device__ __forceinline__ unsigned gate_word(const Rows& r, int w, bool ac_i, bool veh_i,
+                                              bool chk_i) {
+  return ac_i ? r.ac()[w] & (veh_i ? FULL_MASK : r.veh()[w]) &
+                    (chk_i ? FULL_MASK : r.chk()[w])
+              : 0u;
+}
+
+// The dense pass's sphere pre-check of the pair (a, b) with poses A and B
+// (px, py, speed, diag), its reach with the speed speed_lo.
+__device__ __forceinline__ bool within_reach(const float4& A, const float4& B,
+                                             float speed_lo, const Params& p) {
+  const float dx = A.x - B.x, dy = A.y - B.y;
+  const float reach = (A.w + B.w) / 2.f + speed_lo * p.dt;
+  return dx * dx + dy * dy <= reach * reach;
+}
+
+// The folded swept SAT of the pair (a, b), a the first rectangle.
+__device__ __forceinline__ void sat_pair(const Rows& r, const Params& p, int a, int b,
+                                         bool* inter, bool* will, float* tx, float* ty) {
+  const PostRow& A = r.post[a];
+  const PostRow& B = r.post[b];
+  sat(A.px, A.py, A.len, A.wid, A.cos, A.sin, B.px, B.py, B.len, B.wid, B.cos, B.sin,
+      (A.vx - B.vx) * p.dt, (A.vy - B.vy) * p.dt, inter, will, tx, ty);
+}
+
 // Launch of a frame kernel with one block per env, one thread per slot
-// (rounded up to a warp) and `words` 4-byte words of shared memory per
-// thread.  Returns the CUDA error code.
+// (rounded up to a warp), `words` 4-byte words of shared memory per thread
+// and `warp_words` per warp.  Returns the CUDA error code.
 template <typename Kernel, typename... Args>
-int launch_per_env(Kernel kernel, int B, int V, int words, void* stream,
-                   Args... args) {
+int launch_per_env(Kernel kernel, int B, int V, int words, int warp_words,
+                   void* stream, Args... args) {
   const int threads = ((V + 31) / 32) * 32;
-  const size_t smem = static_cast<size_t>(words) * threads * sizeof(float);
+  const size_t smem =
+      (static_cast<size_t>(words) * threads + static_cast<size_t>(warp_words) * (threads / 32)) *
+      sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

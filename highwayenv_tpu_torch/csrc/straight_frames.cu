@@ -10,108 +10,125 @@
 //
 // On the sorted main path (ops/straight_sorted.py::simulate_bm_sorted) it is
 // the per-env exact fallback: given a mask, a block whose env has no flag
-// returns at once, and a block whose env has one writes the dense result over
-// the banded row the caller put in the output tensors.  Without a mask every
-// env runs.
+// returns at once, before any barrier, and a block whose env has one writes
+// the dense result over the banded row the caller put in the output
+// tensors.  Without a mask every env runs.
 //
-// What bounds it on an H100: float32 arithmetic on slot pairs.  Per frame
-// each slot scans every other slot for its front/rear neighbours on three
-// lanes and for MOBIL abort conflicts, and runs the swept rectangle SAT
-// against the slots within collision reach: O(V^2) float work per env and
-// frame, against ~6.3 KB of state read and written per env and policy step
-// (V = 51): about 0.7 M float operations per env-step against 6.3 KB, far
-// above the card's ~20 operations per byte, so operations bound it.
-// What the design does about it: the env's fields stay in shared memory for
-// all frames (one pass over device memory per policy step); each thread
-// keeps its own slot in registers and fetches neighbour rows by index; SAT
-// runs only for pairs that pass the sphere pre-check.  Both members of a
-// pair evaluate it (no atomics), so the last-write impact rule resolves in a
-// fixed order.
+// What bounds it on an H100: not float operations (~2.97e9 a highway-v0
+// step at B = 4096, 0.044 ms at the float32 peak) and not bytes (~26 MB),
+// but issue slots and the latency of dependent shared-memory loads.  On the
+// earlier design, which tested every column for lane membership and every
+// slot against the collision gate, thread 0's clock64() split of a
+// highway-v0 frame (V = 51, tools/kernel_ab.py --clocks) was 28% neighbour
+// search, 42% drive(), 25% collision pass, 61k cycles a frame at 92
+// registers.  What this design does about it: the neighbour search visits
+// only the members of its three query lanes (the set bits of the lane
+// ballots, ascending: front `<=` keeps the last column, rear strict `>`
+// the first, as the dense scan); the collision pass tests each pair's
+// sphere pre-check once, at the slot half way behind it on the circle of
+// slots (i tests i + 1 .. i + V / 2, mod V; at even V the pair V / 2 apart
+// twice, to the same result), among the partners that pass the gate
+// words, and a pair within reach sets its bit in both members' words
+// (shared-memory atomicOr, one barrier); each member then runs the swept
+// SAT of its pairs in ascending partner order, in the pair's (lower,
+// upper) orientation, so both get the same result and the last-write
+// impact rule resolves with no exchange; the shared frame code
+// (straight_common.cuh) does the rest.
 
 #include "straight_common.cuh"
 
-__global__ void straight_frames_kernel(Fields f, const uint8_t* mask, Geo g,
-                                       Params p, int V, int frames) {
+__global__ void __launch_bounds__(MAX_BLOCK_THREADS)
+    straight_frames_kernel(const __grid_constant__ Fields f, const uint8_t* mask,
+                           const __grid_constant__ Geo g, const __grid_constant__ Params p,
+                           int V, int frames) {
   if (mask != nullptr && mask[blockIdx.x] == 0) return;  // the whole block
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int N = blockDim.x;
-  StartRows r;
-  PostRows c;
-  c.carve(r.carve(smem, N), N);
+  const int L = g.n_lanes;
+  Rows r;
+  // per slot, its partners whose pair passed the sphere pre-check, [N][N / 32]
+  unsigned* near = reinterpret_cast<unsigned*>(r.carve(smem, N, L));
 
   const int i = threadIdx.x;
   const bool live = i < V;
   const size_t o = static_cast<size_t>(blockIdx.x) * V + i;
   Slot v;
   if (live) v.load(f, o);
-  c.len[i] = v.len;
-  c.wid[i] = v.wid;
-  c.diag[i] = sqrtf(v.len * v.len + v.wid * v.wid);
+  v.derive();
+  r.post[i].len = v.len;
+  r.post[i].wid = v.wid;
 
   for (int frame = 0; frame < frames; ++frame) {
     const Start st = frame_start(v, g);
-    stage_start(r, i, live, v, st);
+    stage_start(r, i, live, v, st, g);
     __syncthreads();
 
     if (live) {
-      // --- neighbours on the own lane and lanes -1 / +1 -------------------
+      // --- neighbours on the own lane and lanes -1 / +1: the members ------
       float f_key[3] = {INFINITY, INFINITY, INFINITY};
       float r_key[3] = {-INFINITY, -INFINITY, -INFINITY};
       int f_idx[3] = {-1, -1, -1};
       int r_idx[3] = {-1, -1, -1};
-      for (int col = 0; col < V; ++col) {
-        if (col == i || !(r.flags[col] & F_OCCUPIABLE)) continue;
-        const float sc = r.s[col], lc = r.lat[col];
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          if (fabsf(lc - st.q_off[k]) <= g.member_tol) {
-            // front: smallest s_c >= s, the last column among ties
-            if (st.s <= sc && sc <= f_key[k]) {
-              f_key[k] = sc;
-              f_idx[k] = col;
-            }
-            // rear: largest s_c < s, the first column among ties
-            if (sc < st.s && sc > r_key[k]) {
-              r_key[k] = sc;
-              r_idx[k] = col;
-            }
-          }
-        }
-      }
-      Row front[3], rear[3];
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        front[k] = r.fetch(f_idx[k]);
-        rear[k] = r.fetch(r_idx[k]);
+        const unsigned* memb = r.memb(clampi(query_lane(v.lane, k, L), 0, L - 1));
+        visit_bits([&](int w) { return memb[w]; }, 0, V - 1, i, [&](int col) {
+          const float sc = r.s(col);
+          // front: smallest s_c >= s, the last column among ties
+          if (st.s <= sc && sc <= f_key[k]) {
+            f_key[k] = sc;
+            f_idx[k] = col;
+          }
+          // rear: largest s_c < s, the first column among ties
+          if (sc < st.s && sc > r_key[k]) {
+            r_key[k] = sc;
+            r_idx[k] = col;
+          }
+        });
       }
-      drive(v, st, front, rear, r, i, V, g, p);
+      drive(v, st, f_idx, r_idx, r, i, V, g, p);
     }
 
-    stage_post(c, i, live, v);
+    // cleared after the last frame's SATs, set only after the next barrier
+    unsigned* mine = near + i * r.nw;
+    for (int w = 0; w < r.nw; ++w) mine[w] = 0u;
+    stage_post(r, i, live, v);
     __syncthreads();
 
-    // --- collisions: sphere pre-check, swept SAT, last-write impacts -------
+    // --- collisions: each pair's sphere pre-check once, half way round ------
+    // slot i tests the slots i + 1 .. i + V / 2 (mod V) that pass its gate,
+    // and a pair within reach sets its bit in both members' words
+    if (live) {
+      const float4 me = r.pose(i);
+      const bool ac = v.active() && v.coll;
+      auto gate = [&](int w) { return gate_word(r, w, ac, v.is_vehicle(), v.chk); };
+      auto test = [&](int j) {
+        const float4 other = r.pose(j);
+        if (i < j ? within_reach(me, other, me.z, p) : within_reach(other, me, other.z, p)) {
+          atomicOr(mine + (j >> 5), 1u << (j & 31));
+          atomicOr(near + j * r.nw + (i >> 5), 1u << (i & 31));
+        }
+      };
+      const int half = i + V / 2;
+      visit_bits(gate, i + 1, min(half, V - 1), i, test);
+      if (half >= V) visit_bits(gate, 0, half - V, i, test);
+    }
+    __syncthreads();
+
+    // --- collisions: the swept SATs of the pairs that passed, impacts -------
     if (live) {
       bool any_inter = false;
       int row_j = -1, col_j = -1;
       float row_tx = 0.f, row_ty = 0.f, col_tx = 0.f, col_ty = 0.f;
-      for (int j = 0; j < V; ++j) {
-        if (j == i) continue;
-        const int a = min(i, j), b = max(i, j);  // a = the pair's ``self``
-        if (!pair_eligible(c.flags[a], c.flags[b])) continue;
-        const float dx = c.px[a] - c.px[b], dy = c.py[a] - c.py[b];
-        const float reach = (c.diag[a] + c.diag[b]) / 2.f + c.speed[a] * p.dt;
-        if (!(dx * dx + dy * dy <= reach * reach)) continue;
+      visit_bits([&](int w) { return mine[w]; }, 0, V - 1, i, [&](int j) {
+        const bool lower = i < j;  // this slot is the pair's ``self``
         bool inter, will;
         float tx, ty;
-        sat(c.px[a], c.py[a], c.len[a], c.wid[a], c.cos[a], c.sin[a], c.px[b],
-            c.py[b], c.len[b], c.wid[b], c.cos[b], c.sin[b],
-            (c.vx[a] - c.vx[b]) * p.dt, (c.vy[a] - c.vy[b]) * p.dt, &inter,
-            &will, &tx, &ty);
+        sat_pair(r, p, lower ? i : j, lower ? j : i, &inter, &will, &tx, &ty);
         any_inter = any_inter || inter;
         if (will) {
           // ascending j: the last write is the max-index partner
-          if (j > i) {
+          if (lower) {
             row_j = j;
             row_tx = 0.5f * tx;
             row_ty = 0.5f * ty;
@@ -121,7 +138,7 @@ __global__ void straight_frames_kernel(Fields f, const uint8_t* mask, Geo g,
             col_ty = -0.5f * ty;
           }
         }
-      }
+      });
       if (row_j >= 0) {
         v.ix = row_tx;
         v.iy = row_ty;
@@ -159,6 +176,7 @@ extern "C" int straight_frames(
               mobil_max_braking, pos_out,     heading_out,     speed_out,
               lane_out,     target_lane_out,  timer_out,       crashed_out,
               impact_pending_out, impact_out, steering_out,    accel_out};
-  return launch_per_env(straight_frames_kernel, B, V, START_ARRAYS + POST_ARRAYS,
-                        stream, f, mask, *geo, *params, V, frames);
+  // per thread: the rows and a word of pre-check bits per warp
+  return launch_per_env(straight_frames_kernel, B, V, ROW_WORDS + (V + 31) / 32,
+                        WARP_WORDS(geo->n_lanes), stream, f, mask, *geo, *params, V, frames);
 }

@@ -11,203 +11,252 @@
 // original slot.  Everything but the two pair searches is the dense
 // kernel's code, in straight_common.cuh.
 //
-//   neighbours: ranks r-Wn..r+Wn in ascending rank with the dense
-//     predicates (front `<=`: the larger rank wins ties; rear strict `>`:
-//     the smaller rank wins), plus, per lane, the winner beyond the band: a
-//     suffix argmin of s over ranks > r+Wn (ties to the larger rank) and a
-//     prefix argmax over ranks < r-Wn (ties to the smaller rank), each a
-//     Hillis-Steele scan in shared memory.  A far member that crossed the
-//     query in s since the sort raises the neighbour flag, on rows that
-//     consume the result (the own lane for uncrashed IDM rows, lanes -1 / +1
-//     for deciding or mid-change rows).
+//   neighbours: the members of the query lane at ranks r-Wn..r+Wn, in
+//     ascending rank with the dense predicates (front `<=`: the larger rank
+//     wins ties; rear strict `>`: the smaller rank wins), plus, per lane,
+//     the winner beyond the band: the suffix argmin of s over ranks > r+Wn
+//     (ties to the larger rank) and the prefix argmax over ranks < r-Wn
+//     (ties to the smaller rank).  A far member that crossed the query in s
+//     since the sort raises the neighbour flag, on rows that consume the
+//     result (the own lane for uncrashed IDM rows, lanes -1 / +1 for
+//     deciding or mid-change rows).
 //   collisions: the swept SAT on the pairs at rank distance 1..W behind the
-//     dense pass's sphere gate, the lower rank as the SAT's first rectangle,
-//     reach with the speed of the lower original slot, and the last-write
-//     impact as a max over the partner's original slot, the row side
-//     (this slot is the pair's `self`, the lower original slot) beating the
-//     column side.  The collision flag rises where an active rank beyond
-//     r+W could be within R = max diag + max speed * dt of the rank's s
-//     (suffix min / max scans of s; R over this env's active slots).
+//     dense pass's gate and sphere pre-check, the lower rank as the SAT's
+//     first rectangle, reach with the speed of the lower original slot, and
+//     the last-write impact as a max over the partner's original slot, the
+//     row side (this slot is the pair's `self`, the lower original slot)
+//     beating the column side.  The collision flag rises where an active
+//     rank beyond r+W could be within R = max diag + max speed * dt of the
+//     rank's s (suffix min / max of s; R over this env's active slots).
 //
 // Each flag is sticky over the frames and written once per env (flags[2b]
 // collision, flags[2b+1] neighbour); the caller re-runs a flagged env
 // through the dense kernel, so the accepted result is always exact.
 //
-// What bounds it on an H100: float32 operations, as the dense kernel, but
-// O(V (W + Wn + L log V)) pair work a frame in place of O(V^2) for the two
-// searches; the abort pass stays dense.  What the design does about it: as
-// the dense kernel (fields in shared memory across frames, one pass over
-// device memory, both members of a pair evaluate it, no atomics); the scans
-// carry only the winner's rank, its s and row are read from the staged rows.
+// What bounds it on an H100: as the dense kernel, issue slots and the
+// latency of dependent shared-memory loads, not float operations (~1.8e9 a
+// highway-v0 step at B = 4096) or bytes.  On the earlier design, which ran
+// each scan as ceil(log2 V) rounds in shared memory with a block barrier
+// each and re-read s through the winner's rank, thread 0's clock64() split
+// of a highway-v0 frame (V = 51, tools/kernel_ab.py --clocks) was 20% the
+// far-band scans, 21% the band search, 37.5% drive(), 3% the collision
+// scans, 13.5% the collision band, 61k cycles a frame at 105 registers, and
+// the kernel was slower than the dense one.  What this design does about
+// it: every scan runs inside a warp on registers, (s, rank) packed into
+// one 64-bit key (float_order) so that __shfl_down_sync / __shfl_up_sync
+// and a plain min / max carry the plain version's tie rule; each thread
+// stores its inclusive in-warp result, one barrier publishes them, and a
+// query joins the result at its position with the warp totals beyond it
+// (lane 0, or 31, of each later, or earlier, warp).  The env's max diag
+// and speed are one warp reduction each.  The band searches walk the set
+// bits of the lane and gate words within the band, ascending; each pair's
+// sphere pre-check runs once, at its lower rank, which publishes a W-bit
+// mask for the other member behind one more barrier (three a frame).  The
+// rest is the dense kernel's.  At V = 51 the two kernels take about the
+// same time: the dense walks of ~13 members a lane cost what the banded
+// walks and the scans cost; from V = 101 on the sorted kernel is faster.
 
 #include "straight_common.cuh"
 
-__global__ void straight_frames_sorted_kernel(Fields f, const int* idx,
-                                              uint8_t* flags, Geo g, Params p,
-                                              int V, int frames, int W, int Wn) {
-  extern __shared__ float smem[];
+// The order of s as an unsigned: a < b as floats, with -0 equal to 0, iff
+// float_order(a) < float_order(b).  A far-band scan packs it with ~rank
+// into one 64-bit key, so a plain min (suffix argmin, ties to the larger
+// rank) or max (prefix argmax, ties to the smaller rank) is the plain
+// version's tie rule, and the neutral key needs no test of its own.
+__device__ __forceinline__ unsigned float_order(float s) {
+  const unsigned b = __float_as_uint(s + 0.f);  // -0 + 0 = +0
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+__global__ void __launch_bounds__(MAX_BLOCK_THREADS)
+    straight_frames_sorted_kernel(const __grid_constant__ Fields f, const int* idx,
+                                  uint8_t* flags, const __grid_constant__ Geo g,
+                                  const __grid_constant__ Params p, int V, int frames, int W,
+                                  int Wn) {
+  extern __shared__ __align__(16) float smem[];
   const int N = blockDim.x;
   const int L = g.n_lanes;
-  StartRows r;
-  PostRows c;
-  int* orig = reinterpret_cast<int*>(c.carve(r.carve(smem, N), N));
-  // winner ranks of the far-band scans, [2 buffers][ahead, behind][L][N]
-  int* nwin = orig + N;
-  // collision-band scans, [2 buffers][s min, s max, diag max, speed max][N]
-  float* cscan = reinterpret_cast<float*>(nwin + 4 * L * N);
-#define NWIN(b, dir, l, j) nwin[(((b) * 2 + (dir)) * L + (l)) * N + (j)]
-#define CSCAN(b, m, j) cscan[((b) * 4 + (m)) * N + (j)]
+  Rows r;
+  // the in-warp suffix min / max of the active ranks' s, [N]
+  float2* band_s = reinterpret_cast<float2*>(r.carve(smem, N, L));
+  // each warp's max diag and max speed, [2][N / 32]
+  float* warp_max = reinterpret_cast<float*>(band_s + N);
+  // the in-warp far-band winners' ranks, [ahead, behind][L][N]
+  short* far = reinterpret_cast<short*>(warp_max + 2 * r.nw);
+  // per rank, bit d - 1: its pair with rank + d passed the sphere pre-check
+  unsigned* near_up = reinterpret_cast<unsigned*>(far + 2 * L * N);
+#define FAR(dir, l, j) far[((dir) * L + (l)) * N + (j)]
 
   const int i = threadIdx.x;
+  const int lane_i = i & 31;
   const bool live = i < V;
   const size_t o = static_cast<size_t>(blockIdx.x) * V + i;
   Slot v;
   if (live) v.load(f, o);
-  c.len[i] = v.len;
-  c.wid[i] = v.wid;
-  c.diag[i] = sqrtf(v.len * v.len + v.wid * v.wid);
-  orig[i] = live ? idx[o] : -1;
+  v.derive();
+  r.post[i].len = v.len;
+  r.post[i].wid = v.wid;
+  r.post[i].orig = live ? idx[o] : -1;
   bool viol_coll = false, viol_neigh = false;
 
   for (int frame = 0; frame < frames; ++frame) {
     const Start st = frame_start(v, g);
-    stage_start(r, i, live, v, st);
+    stage_start(r, i, live, v, st, g);
+    // --- far-band winners per lane: in-warp suffix argmin / prefix argmax --
+    const unsigned long long key =
+        (static_cast<unsigned long long>(float_order(st.s)) << 32) | ~static_cast<unsigned>(i);
     for (int l = 0; l < L; ++l) {
-      const bool member =
-          live && st.occ && fabsf(st.lat0 - g.offsets[l]) <= g.member_tol;
-      NWIN(0, 0, l, i) = member ? i : -1;
-      NWIN(0, 1, l, i) = member ? i : -1;
-    }
-    __syncthreads();
-
-    // --- far-band winners per lane: inclusive suffix argmin / prefix argmax
-    int cur = 0;
-    for (int k = 1; k < V; k *= 2) {
-      if (live) {
-        for (int l = 0; l < L; ++l) {
-          int w = NWIN(cur, 0, l, i);
-          if (i + k < V) {
-            const int w2 = NWIN(cur, 0, l, i + k);
-            if (w2 >= 0 && (w < 0 || r.s[w2] <= r.s[w])) w = w2;
-          }
-          NWIN(1 - cur, 0, l, i) = w;
-          w = NWIN(cur, 1, l, i);
-          if (i - k >= 0) {
-            const int w2 = NWIN(cur, 1, l, i - k);
-            if (w2 >= 0 && (w < 0 || r.s[w2] >= r.s[w])) w = w2;
-          }
-          NWIN(1 - cur, 1, l, i) = w;
+      const bool member = lane_member(st, live, g, l);
+      // ahead: a suffix min, the neutral key the largest; behind: a prefix
+      // max, the neutral key 0.  A lane past the warp's end reads its own key.
+      unsigned long long ka = member ? key : ~0ull, kb = member ? key : 0ull;
+      if (__any_sync(FULL_MASK, member)) {
+#pragma unroll
+        for (int k = 1; k < 32; k *= 2) {
+          ka = min(ka, __shfl_down_sync(FULL_MASK, ka, k));
+          kb = max(kb, __shfl_up_sync(FULL_MASK, kb, k));
         }
       }
-      cur = 1 - cur;
-      __syncthreads();
+      FAR(0, l, i) = ka == ~0ull ? -1 : static_cast<short>(~static_cast<unsigned>(ka));
+      FAR(1, l, i) = kb == 0ull ? -1 : static_cast<short>(~static_cast<unsigned>(kb));
     }
+    __syncthreads();
 
     if (live) {
       // --- banded neighbours on the own lane and lanes -1 / +1 -------------
       const bool idm = is_idm(v);
       const bool mid_change = v.lane != v.tlane;
       const bool deciding = idm && !mid_change && v.timer > p.lane_change_delay && v.elc;
-      Row front[3], rear[3];
+      int front[3], rear[3];
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        const int ql = clampi(st.q_lane[k], 0, L - 1);
-        const int a = i + Wn + 1 < V ? NWIN(cur, 0, ql, i + Wn + 1) : -1;
-        const int b = i - Wn - 1 >= 0 ? NWIN(cur, 1, ql, i - Wn - 1) : -1;
-        const bool crossed = (a >= 0 && r.s[a] < st.s) || (b >= 0 && r.s[b] >= st.s);
+        const int ql = clampi(query_lane(v.lane, k, L), 0, L - 1);
+        // the far winners: the in-warp result at the band's edge joined
+        // with the totals of the warps beyond it
+        int a = -1, b = -1;
+        const int pa = i + Wn + 1, pb = i - Wn - 1;
+        if (pa < V) {
+          a = FAR(0, ql, pa);
+          for (int w = (pa >> 5) + 1; w < r.nw; ++w) {
+            const int a2 = FAR(0, ql, w << 5);
+            if (a2 >= 0 && (a < 0 || r.s(a2) <= r.s(a))) a = a2;
+          }
+        }
+        if (pb >= 0) {
+          b = FAR(1, ql, pb);
+          for (int w = (pb >> 5) - 1; w >= 0; --w) {
+            const int b2 = FAR(1, ql, (w << 5) + 31);
+            if (b2 >= 0 && (b < 0 || r.s(b2) >= r.s(b))) b = b2;
+          }
+        }
+        const float sa_ = a >= 0 ? r.s(a) : 0.f, sb_ = b >= 0 ? r.s(b) : 0.f;
+        const bool crossed = (a >= 0 && sa_ < st.s) || (b >= 0 && sb_ >= st.s);
         if (crossed && (k == 0 ? idm : (deciding || mid_change))) viol_neigh = true;
         float f_key = INFINITY, r_key = -INFINITY;
         int f_idx = -1, r_idx = -1;
-        if (b >= 0 && r.s[b] < st.s) {  // far behind first: it has the smallest ranks
-          r_key = r.s[b];
+        if (b >= 0 && sb_ < st.s) {  // far behind first: it has the smallest ranks
+          r_key = sb_;
           r_idx = b;
         }
-        for (int dd = -Wn; dd <= Wn; ++dd) {
-          const int col = i + dd;
-          if (dd == 0 || col < 0 || col >= V || !(r.flags[col] & F_OCCUPIABLE)) continue;
-          if (!(fabsf(r.lat[col] - st.q_off[k]) <= g.member_tol)) continue;
-          const float sc = r.s[col];
-          if (st.s <= sc && sc <= f_key) {
-            f_key = sc;
-            f_idx = col;
-          }
-          if (sc < st.s && sc > r_key) {
-            r_key = sc;
-            r_idx = col;
-          }
-        }
-        if (a >= 0 && st.s <= r.s[a] && r.s[a] <= f_key) f_idx = a;  // far ahead last
-        front[k] = r.fetch(f_idx);
-        rear[k] = r.fetch(r_idx);
+        const unsigned* memb = r.memb(ql);
+        visit_bits([&](int w) { return memb[w]; }, max(i - Wn, 0), min(i + Wn, V - 1), i,
+                   [&](int col) {
+                     const float sc = r.s(col);
+                     if (st.s <= sc && sc <= f_key) {
+                       f_key = sc;
+                       f_idx = col;
+                     }
+                     if (sc < st.s && sc > r_key) {
+                       r_key = sc;
+                       r_idx = col;
+                     }
+                   });
+        if (a >= 0 && st.s <= sa_ && sa_ <= f_key) f_idx = a;  // far ahead last
+        front[k] = f_idx;
+        rear[k] = r_idx;
       }
       drive(v, st, front, rear, r, i, V, g, p);
     }
 
-    stage_post(c, i, live, v);
+    stage_post(r, i, live, v);
+    // --- collision band: in-warp suffix min / max of s, max diag and speed -
     const bool act = live && v.active();
     const float s_new = (v.px - g.ox) * g.ux + (v.py - g.oy) * g.uy;
-    CSCAN(0, 0, i) = act ? s_new : INFINITY;
-    CSCAN(0, 1, i) = act ? s_new : -INFINITY;
-    CSCAN(0, 2, i) = act ? c.diag[i] : 0.f;
-    CSCAN(0, 3, i) = act ? v.speed : 0.f;
+    {
+      float lo = act ? s_new : INFINITY, hi = act ? s_new : -INFINITY;
+      // an inactive slot counts 0 toward the maxima, a thread without one nothing
+      const float none = live ? 0.f : -INFINITY;
+      float dg = act ? v.diag : none, sp = act ? v.speed : none;
+#pragma unroll
+      for (int k = 1; k < 32; k *= 2) {
+        const float lo2 = __shfl_down_sync(FULL_MASK, lo, k);
+        const float hi2 = __shfl_down_sync(FULL_MASK, hi, k);
+        if (lane_i + k < 32) {
+          lo = fminf(lo, lo2);
+          hi = fmaxf(hi, hi2);
+        }
+        dg = fmaxf(dg, __shfl_xor_sync(FULL_MASK, dg, k));
+        sp = fmaxf(sp, __shfl_xor_sync(FULL_MASK, sp, k));
+      }
+      band_s[i] = make_float2(lo, hi);
+      if (lane_i == 0) {
+        warp_max[i >> 5] = dg;
+        warp_max[r.nw + (i >> 5)] = sp;
+      }
+    }
     __syncthreads();
 
-    // --- suffix min / max of s, and the env's max diag and speed -----------
-    cur = 0;
-    for (int k = 1; k < V; k *= 2) {
-      if (live) {
-        float m0 = CSCAN(cur, 0, i), m1 = CSCAN(cur, 1, i);
-        float m2 = CSCAN(cur, 2, i), m3 = CSCAN(cur, 3, i);
-        if (i + k < V) {
-          m0 = fminf(m0, CSCAN(cur, 0, i + k));
-          m1 = fmaxf(m1, CSCAN(cur, 1, i + k));
-          m2 = fmaxf(m2, CSCAN(cur, 2, i + k));
-          m3 = fmaxf(m3, CSCAN(cur, 3, i + k));
-        }
-        CSCAN(1 - cur, 0, i) = m0;
-        CSCAN(1 - cur, 1, i) = m1;
-        CSCAN(1 - cur, 2, i) = m2;
-        CSCAN(1 - cur, 3, i) = m3;
-      }
-      cur = 1 - cur;
-      __syncthreads();
-    }
-
-    // --- banded collisions: sphere pre-check, swept SAT, last-write impacts
+    // --- banded collisions: the flag, each pair's pre-check at its lower rank
+    const float4 me = r.pose(i);
+    const int me_orig = r.post[i].orig;
+    unsigned up = 0;
     if (live) {
-      const float R = CSCAN(cur, 2, 0) + CSCAN(cur, 3, 0) * p.dt;
-      const int far = i + W + 1;
-      if (act && far < V && CSCAN(cur, 0, far) <= s_new + R &&
-          CSCAN(cur, 1, far) >= s_new - R) {
-        viol_coll = true;
+      const int far_r = i + W + 1;
+      if (act && far_r < V) {
+        float dmax = warp_max[0], smax = warp_max[r.nw];
+        for (int w = 1; w < r.nw; ++w) {
+          dmax = fmaxf(dmax, warp_max[w]);
+          smax = fmaxf(smax, warp_max[r.nw + w]);
+        }
+        const float R = dmax + smax * p.dt;
+        float lo = band_s[far_r].x, hi = band_s[far_r].y;
+        for (int w = (far_r >> 5) + 1; w < r.nw; ++w) {
+          lo = fminf(lo, band_s[w << 5].x);
+          hi = fmaxf(hi, band_s[w << 5].y);
+        }
+        if (lo <= s_new + R && hi >= s_new - R) viol_coll = true;
       }
-      const int me = orig[i];
+      // this rank is the lower of the pair: its pose is the first one, the
+      // reach takes the speed of the lower original slot
+      const bool ac = v.active() && v.coll;
+      visit_bits([&](int w) { return gate_word(r, w, ac, v.is_vehicle(), v.chk); }, i + 1,
+                 min(i + W, V - 1), i, [&](int j) {
+                   const float4 other = r.pose(j);
+                   const float speed_lo = me_orig < r.post[j].orig ? me.z : other.z;
+                   if (within_reach(me, other, speed_lo, p)) up |= 1u << (j - i - 1);
+                 });
+    }
+    near_up[i] = up;
+    __syncthreads();
+
+    // --- banded collisions: the swept SATs of the pairs that passed, impacts
+    if (live) {
       bool any_inter = false, any_will = false;
       int best_r = -1, best_c = -1;  // the partner's original slot
       float imp_rx = 0.f, imp_ry = 0.f, imp_cx = 0.f, imp_cy = 0.f;
-      for (int d = -W; d <= W; ++d) {
-        const int j = i + d;
-        if (d == 0 || j < 0 || j >= V) continue;
-        const int a = min(i, j), b = max(i, j);  // a = the lower rank
-        if (!pair_eligible(c.flags[a], c.flags[b])) continue;
-        const float dx = c.px[a] - c.px[b], dy = c.py[a] - c.py[b];
-        const float speed_lo = orig[a] < orig[b] ? c.speed[a] : c.speed[b];
-        const float reach = (c.diag[a] + c.diag[b]) / 2.f + speed_lo * p.dt;
-        if (!(dx * dx + dy * dy <= reach * reach)) continue;
+      auto hit = [&](int j) {
+        const int partner = r.post[j].orig;
+        const bool lower = i < j;  // this rank is the SAT's first rectangle
         bool inter, will;
         float tx, ty;
-        sat(c.px[a], c.py[a], c.len[a], c.wid[a], c.cos[a], c.sin[a], c.px[b],
-            c.py[b], c.len[b], c.wid[b], c.cos[b], c.sin[b],
-            (c.vx[a] - c.vx[b]) * p.dt, (c.vy[a] - c.vy[b]) * p.dt, &inter,
-            &will, &tx, &ty);
+        sat_pair(r, p, lower ? i : j, lower ? j : i, &inter, &will, &tx, &ty);
         any_inter = any_inter || inter;
         if (will) {
           any_will = true;
           // half the translation toward this slot: +t for the lower rank
           const float hx = 0.5f * tx, hy = 0.5f * ty;
-          const float to_x = i == a ? hx : -hx, to_y = i == a ? hy : -hy;
-          const int partner = orig[j];
-          if (me < partner) {
+          const float to_x = lower ? hx : -hx, to_y = lower ? hy : -hy;
+          if (me_orig < partner) {
             if (partner > best_r) {
               best_r = partner;
               imp_rx = to_x;
@@ -219,7 +268,11 @@ __global__ void straight_frames_sorted_kernel(Fields f, const int* idx,
             imp_cy = to_y;
           }
         }
+      };
+      for (int j = max(i - W, 0); j < i; ++j) {
+        if ((near_up[j] >> (i - j - 1)) & 1u) hit(j);
       }
+      for (; up; up &= up - 1) hit(i + __ffs(up));
       if (best_r >= 0) {
         v.ix = imp_rx;
         v.iy = imp_ry;
@@ -231,8 +284,7 @@ __global__ void straight_frames_sorted_kernel(Fields f, const int* idx,
       v.crashed = v.crashed || any_inter;
     }
   }
-#undef NWIN
-#undef CSCAN
+#undef FAR
 
   const int any_coll = __syncthreads_or(viol_coll);
   const int any_neigh = __syncthreads_or(viol_neigh);
@@ -265,8 +317,11 @@ extern "C" int straight_frames_sorted(
               mobil_max_braking, pos_out,     heading_out,     speed_out,
               lane_out,     target_lane_out,  timer_out,       crashed_out,
               impact_pending_out, impact_out, steering_out,    accel_out};
-  // rows, original slots, the far-band scans and the collision-band scans
-  const int words = START_ARRAYS + POST_ARRAYS + 1 + 4 * geo->n_lanes + 8;
-  return launch_per_env(straight_frames_sorted_kernel, B, V, words, stream, f,
+  // per thread: the rows, the collision band's s, the far-band winners
+  // (two 16-bit ranks per lane) and the pre-check bits; per warp: the
+  // ballot words and the max diag / speed
+  const int words = ROW_WORDS + 2 + geo->n_lanes + 1;
+  const int warp_words = WARP_WORDS(geo->n_lanes) + 2;
+  return launch_per_env(straight_frames_sorted_kernel, B, V, words, warp_words, stream, f,
                         idx, flags, *geo, *params, V, frames, W, Wn);
 }

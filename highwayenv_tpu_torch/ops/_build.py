@@ -57,20 +57,24 @@ def _sources(path: pathlib.Path, seen: set) -> list[bytes]:
     return out
 
 
-def library_path(name: str) -> pathlib.Path:
+def library_path(name: str, source_dir=None, build_dir=None) -> pathlib.Path:
     """``build/kernels/<name>-<hash>.so``: the hash covers the source, the
-    headers of ``csrc/`` it includes, and the flags."""
-    parts = _sources(SOURCE_DIR / f"{name}.cu", set())
+    headers of ``csrc/`` it includes, and the flags.  ``source_dir`` and
+    ``build_dir`` default to ``csrc/`` and ``build/kernels/``."""
+    parts = _sources(pathlib.Path(source_dir or SOURCE_DIR) / f"{name}.cu", set())
     key = hashlib.sha256(b"\0".join(parts) + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
+    return pathlib.Path(build_dir or BUILD_DIR) / f"{name}-{key.hexdigest()[:16]}.so"
 
 
-def build(names) -> dict[str, pathlib.Path]:
-    """Compile every named source whose library is missing, all nvcc
-    processes started together.  The compiler's output (ptxas register and
-    spill report) is kept beside each library as ``.log``."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: library_path(name) for name in names}
+def build(names, source_dir=None, build_dir=None) -> dict[str, pathlib.Path]:
+    """Compile every named source of ``source_dir`` (default ``csrc/``)
+    whose library is missing from ``build_dir`` (default ``build/kernels/``),
+    all nvcc processes started together.  The compiler's output (ptxas
+    register and spill report) is kept beside each library as ``.log``."""
+    source_dir = pathlib.Path(source_dir or SOURCE_DIR)
+    build_dir = pathlib.Path(build_dir or BUILD_DIR)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    paths = {name: library_path(name, source_dir, build_dir) for name in names}
     procs = {}
     for name, out in paths.items():
         if out.exists():
@@ -79,7 +83,7 @@ def build(names) -> dict[str, pathlib.Path]:
         procs[name] = (
             subprocess.Popen(
                 [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                 str(SOURCE_DIR / f"{name}.cu")],
+                 str(source_dir / f"{name}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ),
             tmp,

@@ -1,4 +1,4 @@
-"""Device kernels per rollout step of highway-v0 (sorted and dense) and intersection-v0 on a CUDA card.
+"""Device kernels, device busy time and wall time per rollout step of highway-v0 (sorted and dense) and intersection-v0 on a CUDA card.
 
 Usage (from the repo root, on a machine with a CUDA card):
 
@@ -6,20 +6,26 @@ Usage (from the repo root, on a machine with a CUDA card):
 
 Each TREE (default ``.``) is the root of a checkout of this repo, for
 example an older commit unpacked with ``git archive`` into ``build/``; each
-is run in a process of its own, so their packages do not mix.  Per tree,
-env variant and repetition the script prints the device kernels per step
-that torch.profiler records over a 4-step random-policy rollout of 4096
-envs.  Two repetitions per variant show when the profiler dropped events,
-which it sometimes does: a dropped event lowers one reading, never raises
-it.  A tree whose package has no intersection-v0 skips that variant.
+is run in a process of its own, so their packages do not mix; name the
+trees in turns (parent, change, change, parent) to compare two commits on
+one card.  Per tree, env variant and repetition the script prints the
+device kernels and the device busy time per step that torch.profiler
+records over a 4-step random-policy rollout of 4096 envs, and the wall
+time per step and env-steps/s of a 32-step rollout timed on the host
+clock to a synchronize, without the profiler.  Two repetitions per
+variant show when the profiler dropped events, which it sometimes does:
+a dropped event lowers one reading, never raises it.  A tree whose
+package has no intersection-v0 skips that variant.
 """
 
 from __future__ import annotations
 
 import subprocess
 import sys
+import time
 
 STEPS = 4
+TIMED_STEPS = 32
 BATCH = 4096
 #: (label, env id, make keyword arguments)
 VARIANTS = (
@@ -50,9 +56,18 @@ def count(tree: str) -> None:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 rollout(env, states, STEPS, gen)
                 torch.cuda.synchronize()
-            n = sum(e.count for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-            print(f"  {which} step, repetition {rep}: {n / STEPS} device kernels per step")
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            n = sum(e.count for e in kernels)
+            busy_us = sum(e.self_device_time_total for e in kernels) / STEPS
+            t0 = time.perf_counter()
+            rollout(env, states, TIMED_STEPS, gen)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / TIMED_STEPS
+            print(f"  {which} step, repetition {rep}: {n / STEPS} device kernels per step, "
+                  f"device busy {busy_us:.1f} us per step; {TIMED_STEPS} steps at "
+                  f"{wall * 1e3:.4f} ms per step, {BATCH / wall:.1f} env-steps/s "
+                  f"(busy share {busy_us / (wall * 1e6):.3f})")
 
 
 def main(argv) -> int:

@@ -405,6 +405,212 @@ def test_collision_reach_is_the_envs_own():
 
 
 # --------------------------------------------------------------------------- #
+# (e) the CUDA kernels' search orders, modelled in plain torch
+# --------------------------------------------------------------------------- #
+def _warp_scan(key, rank, lower_wins: bool):
+    """The kernels' in-warp inclusive scan of (key, rank) pairs over the last
+    dim (a multiple of 32): Hillis-Steele rounds k = 1, 2, .., 16 within each
+    32-wide chunk, the pair k ranks up joining a suffix argmin (``lower_wins``
+    False: it wins ties, the larger rank) or the pair k ranks down joining a
+    prefix argmax (``lower_wins``: it wins ties, the smaller rank).  rank -1
+    is no pair."""
+    lane = torch.arange(key.shape[-1]) % 32
+    k = 1
+    while k < 32:
+        if lower_wins:
+            k2 = torch.cat([torch.full_like(key[..., :k], -np.inf), key[..., :-k]], -1)
+            r2 = torch.cat([torch.full_like(rank[..., :k], -1), rank[..., :-k]], -1)
+            take = (lane >= k) & (r2 >= 0) & ((rank < 0) | (k2 >= key))
+        else:
+            k2 = torch.cat([key[..., k:], torch.full_like(key[..., :k], np.inf)], -1)
+            r2 = torch.cat([rank[..., k:], torch.full_like(rank[..., :k], -1)], -1)
+            take = (lane + k < 32) & (r2 >= 0) & ((rank < 0) | (k2 <= key))
+        key, rank = torch.where(take, k2, key), torch.where(take, r2, rank)
+        k *= 2
+    return rank
+
+
+def _key_scan(s, member, ahead: bool):
+    """K3's in-warp scan as it runs: one 64-bit key per rank, the order of s
+    (``float_order``: the float's bits made monotonic, -0.0 read as 0.0) over
+    ~rank, joined by a plain min (ahead) or max (behind) with the key k
+    ranks up or down, a lane past the warp's end reading its own.  Modelled
+    as (high, low) pairs compared in turn; returns the winners' ranks."""
+    N = s.shape[-1]
+    bits = (s + 0.0).view(torch.int32).long() & 0xFFFFFFFF
+    hi = torch.where(bits >= 1 << 31, 0xFFFFFFFF - bits, bits | 1 << 31)
+    lo = (0xFFFFFFFF - torch.arange(N)).expand_as(hi)
+    fill = 0xFFFFFFFF if ahead else 0
+    hi, lo = torch.where(member, hi, fill), torch.where(member, lo, fill)
+    lane = torch.arange(N) % 32
+    k = 1
+    while k < 32:
+        src = torch.arange(N) + (k if ahead else -k)
+        src = torch.where((lane + k < 32) if ahead else (lane >= k), src, torch.arange(N))
+        h2, l2 = hi[..., src], lo[..., src]
+        less = (h2 < hi) | ((h2 == hi) & (l2 < lo))
+        more = (h2 > hi) | ((h2 == hi) & (l2 > lo))
+        take = less if ahead else more
+        hi, lo = torch.where(take, h2, hi), torch.where(take, l2, lo)
+        k *= 2
+    none = (hi == fill) & (lo == fill)
+    return torch.where(none, -1, 0xFFFFFFFF - lo)
+
+
+def _join(scan, pos, s, ahead: bool) -> int:
+    """A query of the two-level scan: the in-warp result at ``pos`` joined
+    with the totals of the warps beyond it (lane 0 of each later warp ahead,
+    lane 31 of each earlier warp behind), nearest first."""
+    w = int(scan[pos])
+    others = range((pos >> 5) + 1, len(scan) // 32) if ahead else range((pos >> 5) - 1, -1, -1)
+    for c in others:
+        w2 = int(scan[32 * c if ahead else 32 * c + 31])
+        if w2 >= 0 and (w < 0 or (s[w2] <= s[w] if ahead else s[w2] >= s[w])):
+            w = w2
+    return w
+
+
+def _ballot_words(bits):
+    """(..., V) bool -> (..., NW) 32-bit words, bit j of word w = slot 32 w + j."""
+    V = bits.shape[-1]
+    pad = torch.zeros(bits.shape[:-1] + (-V % 32,), dtype=torch.bool)
+    b = torch.cat([bits, pad], -1).unflatten(-1, (-1, 32)).long()
+    return (b << torch.arange(32)).sum(-1)
+
+
+def _visit(words, lo: int, hi: int, self_: int):
+    """The slots of the set bits within lo..hi but self_, in ascending
+    order: the kernels' walk (``visit_bits``)."""
+    for w in range(lo >> 5, (hi >> 5) + 1):
+        bits = int(words[w])
+        for j in range(32):
+            col = 32 * w + j
+            if bits >> j & 1 and lo <= col <= hi and col != self_:
+                yield col
+
+
+@pytest.mark.parametrize("V", [1, 21, 32, 33, 51, 64, 101])
+def test_kernel_scans_and_lane_walks_match_the_plain_searches(V):
+    """K3's two-level scans (32-wide chunks, then across chunks; the combine
+    rule and the packed keys the kernel runs it with) and K1 / K3's walks of
+    the lane ballot words in ascending slot order, modelled in plain torch,
+    give ``neigh_banded_plain``'s far winners, fronts, rears and
+    crossings, the dense ``neighbours``, and ``collisions_banded_plain``'s
+    suffix min / max of s and its flag, on tie-heavy scenes: s on a 2.5 m
+    grid with -0.0 against 0.0, vehicles between two lanes, some off the
+    road or inactive."""
+    et = ht.make("highway-v0", config={"vehicles_count": V - 1}, device="cpu")
+    fs, p, dt = et._straight, et.idm_params, et.dt
+    _, states = et.reset(3, et.generator(V))
+    rng = np.random.default_rng(V)
+    B = 3
+    x = 100.0 + 2.5 * rng.integers(0, 6, (B, V))
+    x[:, ::7] = 0.0
+    x[:, 3::7] = -0.0
+    x[:, 5::11] = -50.0  # off the road: not occupiable
+    y = 4.0 * rng.integers(0, 4, (B, V)) + rng.choice([-3.0, -2.0, 0.0, 2.0, 3.0], (B, V))
+    kind = states.vehicles.kind.clone()
+    kind[:, 4::9] = 0  # inactive slots
+    veh = states.vehicles.replace(
+        pos=torch.from_numpy(np.stack([x, y], -1).astype(np.float32)), kind=kind
+    )
+    srt, idx = ss.sort_plain(veh, fs)
+    W, Wn = ss.windows(V)
+    s, lat0, occ, _, _ = sf.project(srt, fs)
+    L = len(fs.offsets)
+    tol = fs.width / 2 + 1.0
+    off = torch.tensor(fs.offsets, dtype=torch.float32)
+    q_off = off[None, :, None].expand(B, L, V).contiguous()  # every lane a query
+    front, rear, crossed = ss.neigh_banded_plain(s, lat0, occ, q_off, tol, Wn)
+    d_front, d_rear = sf.neighbours(s, lat0, occ, q_off, tol)
+    member = sf.lane_members(s, lat0, occ, q_off, tol)  # (B, L, V, V)
+    gap = torch.arange(V)[None, :] - torch.arange(V)[:, None]
+    s_c = s[:, None, None, :]
+    far_a = sf.front_pick(member & (gap > Wn), s_c)
+    far_b = sf.rear_pick(member & (gap < -Wn), s_c)
+
+    # the model: ballot words and the in-warp scans of every lane
+    N = -(-V // 32) * 32
+    mem = (lat0[:, None, :] - off[None, :, None]).abs() <= tol
+    mem = mem & occ[:, None, :]  # (B, L, V)
+    words = _ballot_words(mem)
+    pad = N - V
+    s_pad = torch.cat([s, torch.zeros(B, pad)], -1)[:, None, :].expand(B, L, N)
+    m_pad = torch.cat([mem, torch.zeros(B, L, pad, dtype=torch.bool)], -1)
+    rank = torch.where(m_pad, torch.arange(N), -1)
+    ahead = _warp_scan(torch.where(m_pad, s_pad, np.inf), rank, lower_wins=False)
+    behind = _warp_scan(torch.where(m_pad, s_pad, -np.inf), rank, lower_wins=True)
+    # the packed keys the kernel scans give the same winners
+    assert torch.equal(_key_scan(s_pad, m_pad, ahead=True), ahead)
+    assert torch.equal(_key_scan(s_pad, m_pad, ahead=False), behind)
+    for b in range(B):
+        sb = s[b].tolist()
+        for lane in range(L):
+            for i in range(V):
+                a = _join(ahead[b, lane], i + Wn + 1, sb, True) if i + Wn + 1 < V else -1
+                r_ = _join(behind[b, lane], i - Wn - 1, sb, False) if i - Wn - 1 >= 0 else -1
+                assert (a, r_) == (int(far_a[b, lane, i]), int(far_b[b, lane, i])), (b, lane, i)
+                si = sb[i]
+                cross = (a >= 0 and sb[a] < si) or (r_ >= 0 and sb[r_] >= si)
+                f_key, r_key, f_idx, r_idx = np.inf, -np.inf, -1, -1
+                if r_ >= 0 and sb[r_] < si:
+                    r_key, r_idx = sb[r_], r_
+                band = _visit(words[b, lane], max(i - Wn, 0), min(i + Wn, V - 1), i)
+                for col in band:
+                    if si <= sb[col] <= f_key:
+                        f_key, f_idx = sb[col], col
+                    if sb[col] < si and sb[col] > r_key:
+                        r_key, r_idx = sb[col], col
+                if a >= 0 and si <= sb[a] <= f_key:
+                    f_idx = a
+                assert (f_idx, r_idx, cross) == (
+                    int(front[b, lane, i]), int(rear[b, lane, i]), bool(crossed[b, lane, i])
+                ), (b, lane, i)
+                # the dense walk: every member of the lane
+                f_key, r_key, f_idx, r_idx = np.inf, -np.inf, -1, -1
+                for col in _visit(words[b, lane], 0, V - 1, i):
+                    if si <= sb[col] <= f_key:
+                        f_key, f_idx = sb[col], col
+                    if sb[col] < si and sb[col] > r_key:
+                        r_key, r_idx = sb[col], col
+                assert (f_idx, r_idx) == (int(d_front[b, lane, i]), int(d_rear[b, lane, i]))
+
+    # the collision band: in-warp suffix min / max of s joined across warps,
+    # and the env's max diag and speed, against collisions_banded_plain
+    _, flag = ss.collisions_banded_plain(srt, idx, fs, dt, W)
+    act = srt.active
+    sa = torch.cat([torch.where(act, s, np.inf), torch.full((B, pad), np.inf)], -1)
+    sx = torch.cat([torch.where(act, s, -np.inf), torch.full((B, pad), -np.inf)], -1)
+    lane_ = torch.arange(N) % 32
+    k = 1
+    while k < 32:
+        ok = lane_ + k < 32
+        sa = torch.where(ok, torch.minimum(sa, torch.cat([sa[:, k:], sa[:, :k]], -1)), sa)
+        sx = torch.where(ok, torch.maximum(sx, torch.cat([sx[:, k:], sx[:, :k]], -1)), sx)
+        k *= 2
+    far_min = torch.cummin(torch.where(act, s, np.inf).flip(-1), -1).values.flip(-1)
+    far_max = torch.cummax(torch.where(act, s, -np.inf).flip(-1), -1).values.flip(-1)
+
+    def warp_max(x):  # each warp's max, then the max over the warps
+        x = torch.cat([torch.where(act, x, 0.0), torch.full((B, pad), -np.inf)], -1)
+        return x.unflatten(-1, (-1, 32)).amax(-1).amax(-1)
+
+    R = (warp_max(srt.diagonal) + warp_max(srt.speed) * dt)[:, None]
+    up, down = s + R, s - R  # float32, as the kernel adds them
+    for b in range(B):
+        fired = False
+        for i in range(V):
+            lo, hi = float(sa[b, i]), float(sx[b, i])
+            for c in range((i >> 5) + 1, N // 32):
+                lo, hi = min(lo, float(sa[b, 32 * c])), max(hi, float(sx[b, 32 * c]))
+            assert (lo, hi) == (float(far_min[b, i]), float(far_max[b, i])), (b, i)
+            q = i - W - 1  # the rank whose band ends before i
+            if q >= 0 and bool(act[b, q]):
+                fired |= lo <= float(up[b, q]) and hi >= float(down[b, q])
+        assert fired == bool(flag[b]), b
+
+
+# --------------------------------------------------------------------------- #
 # dispatch, wrappers, build
 # --------------------------------------------------------------------------- #
 def test_make_steps_sorted_by_default_and_dense_on_request(monkeypatch):

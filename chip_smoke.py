@@ -20,13 +20,15 @@ Phases:
      reference path; then
      the general frame kernel K4 at roundabout-v0 (V=5, L=32, R=11) and
      merge-v0 (V=6, L=9, an obstacle), B=4096, on the reset scene, 8 steps
-     in, an all-env pile-up and (merge) the obstacle hit, and the
-     roundabout-v0 autoreset step against the plain reference path; then
-     the regulated frame kernel K5 at intersection-v0 (V=25, L=20, R=3,
-     tick period 7), B=4096, on the reset scene, 8 steps in with the envs'
-     tick phases spread over all 7 values, a conflict scene in which
-     vehicles yield, and the reset's warm-up launch (V=16, 45 frames, frame
-     counter 0), each discrete field and the yielding state exact, and the
+     in, an all-env pile-up and (merge) the obstacle hit, every field
+     bit-exact, and the roundabout-v0 autoreset step against the plain
+     reference path; then the regulated frame kernel K5 at intersection-v0
+     (V=25, L=20, R=3, tick period 7), B=4096, on the reset scene, 8 steps
+     in with the envs' tick phases spread over all 7 values, a conflict
+     scene in which vehicles yield, and the reset's warm-up launch (V=16,
+     45 frames, frame counter 0), and at the warp's edge (duration 20,
+     V=32, B=512) on the reset, spread-phase and conflict scenes, every
+     field bit-exact, the yielding state and the impacts included, and the
      intersection-v0 autoreset step against the plain reference path;
   4. the main paths: make("highway-v0") on CUDA, reset B=4096 and a random
      policy rollout with autoreset through the sorted step, each kernel's
@@ -64,6 +66,7 @@ import torch
 B = 4096  # envs, the batch the JAX package's bench drives
 EDGE_B = 512  # envs of the warp-boundary highway-v0 checks
 EDGE_VEHICLES = (31, 32, 63, 100)  # V = 32, 33, 64, 101
+EDGE_DURATION = 20  # intersection-v0 with V = 32, a full warp
 HORIZON = 32  # policy steps of the main-path rollout
 CRASH_HORIZON = 4  # policy steps of the extra rollout from a compressed scene
 DENSE_HORIZON = 4  # policy steps of the dense path (sorted_frames=False)
@@ -117,7 +120,6 @@ GEN_OPS_NEIGH_PAIR = 10  # per (neighbour query, other slot): eligibility, min /
 GEN_OPS_ABORT_PAIR = 13  # per (lane-changing IDM slot, other slot)
 GEN_OPS_EDGE_LANE = 17  # per lane next_lane measures at a lane end
 GEN_HORIZON = 32  # policy steps of the roundabout-v0 main-path rollout
-GEN_DISCRETE = DISCRETE + ("route_ptr", "speed_index")
 GEN_CONTINUOUS = CONTINUOUS + ("target_speed",)
 # The regulated block (road/regulation.py, the kRegulated path of
 # csrc/general_frames.cu), in the same units, on a tick frame: per live
@@ -130,7 +132,6 @@ REG_OPS_TIME = 25
 REG_OPS_CLOSE = 5
 REG_OPS_PROBES = 18 * 20
 REG_OPS_YIELD = 10
-REG_DISCRETE = GEN_DISCRETE + ("is_yielding", "yield_timer")
 INT_HORIZON = 32  # policy steps of the intersection-v0 main-path rollout
 
 
@@ -566,27 +567,17 @@ def general_scenes(env, states, gen):
     return out
 
 
-def compare_general(a, b, where: str, discrete=GEN_DISCRETE) -> float:
-    """K4 (K5) against its plain version: the discrete fields (and the
-    yielding state) equal, each continuous field within 1e-4 of its
-    magnitude; prints the max error of each and returns the largest."""
-    for name in discrete:
-        n_bad = int((getattr(a, name) != getattr(b, name)).sum())
-        if n_bad:
-            raise AssertionError(f"{where}: {name} differs in {n_bad} entries")
-    errs = {}
+def compare_general(a, b, where: str) -> float:
+    """K4 (K5) against its plain version: every field of the state bit-exact,
+    the yielding state and the impacts included, and the continuous fields
+    finite; prints the crashed slots and returns the max absolute
+    difference over the continuous fields (0.0)."""
+    err = exact_state(a, b, where)
     for name in GEN_CONTINUOUS:
-        x, y = getattr(a, name), getattr(b, name)
-        if not bool(torch.isfinite(x).all()):
+        if not bool(torch.isfinite(getattr(a, name)).all()):
             raise AssertionError(f"{where}: {name} has non-finite values")
-        errs[name] = float((x.double() - y.double()).abs().max())
-        tol = REL_TOL * max(1.0, float(y.abs().max()))
-        if errs[name] > tol:
-            raise AssertionError(f"{where}: {name} error {errs[name]} > {tol}")
-    print(f"  {where}: discrete equal; max |kernel - plain| "
-          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-          + f"; crashed slots {int(a.crashed.sum())}")
-    return max(errs.values())
+    print(f"  {where}: every field bit-exact; crashed slots {int(a.crashed.sum())}")
+    return err
 
 
 def check_autoreset(env, states, gen, label: str) -> None:
@@ -811,8 +802,7 @@ def main() -> int:
         out_p = gf.frames_general_plain(rveh, ispec, rsa, rframes, rsteps)
         torch.cuda.synchronize()
         key = "K5 warm-up" if name == "warm-up" else "K5 step"
-        err[key] = max(err[key], compare_general(
-            out_k, out_p, f"intersection-v0 {name}", REG_DISCRETE))
+        err[key] = max(err[key], compare_general(out_k, out_p, f"intersection-v0 {name}"))
         phases = torch.unique(torch.remainder(rsteps, ispec.period)).numel()
         ticks = yield_ticks(rveh, ispec, rsa, rframes, rsteps)
         print(f"    V={rveh.kind.shape[1]}, {rframes} frames, {phases} tick phases; slots "
@@ -822,6 +812,25 @@ def main() -> int:
             raise AssertionError("intersection-v0 conflict scene: no vehicle yields")
         if name == "8 steps in" and phases != ispec.period:
             raise AssertionError("intersection-v0: the tick phases are not mixed")
+    # K5 at the warp's edge: with duration 20 intersection-v0 has V = 32
+    wenv = ht.make("intersection-v0", {"duration": EDGE_DURATION})
+    wgen = wenv.generator(SEED)
+    _, wstates = wenv.reset(EDGE_B, wgen)
+    print(f"== 3. K5 vs plain: intersection-v0 duration {EDGE_DURATION}, "
+          f"V={wenv.num_slots}, B={EDGE_B}")
+    for name, (rveh, rsteps, rsa, rframes) in regulated_scenes(wenv, wstates, wgen).items():
+        if rveh.kind.shape[1] != 32:  # the warm-up runs 16 slots
+            continue
+        out_k = k5(rveh, wenv._general, rsa, rframes, rsteps)
+        out_p = gf.frames_general_plain(rveh, wenv._general, rsa, rframes, rsteps)
+        torch.cuda.synchronize()
+        err["K5 step"] = max(err["K5 step"], compare_general(
+            out_k, out_p, f"intersection-v0 V=32 {name}"))
+        phases = torch.unique(torch.remainder(rsteps, ispec.period)).numel()
+        print(f"    {phases} tick phases; slots yielding after the step "
+              f"{int(out_k.is_yielding.sum())}")
+        if name == "8 steps in" and phases != ispec.period:
+            raise AssertionError("intersection-v0 V=32: the tick phases are not mixed")
     check_autoreset(ienv, istates, gen, "intersection-v0 ")
 
     print(f"== 4. main path: make('highway-v0') on CUDA, B={B}, "

@@ -1,8 +1,9 @@
 // All frames of one policy step on an analytic-lane road network (straight,
-// sine and circular lanes): one warp per group of envs, one thread per
-// vehicle slot.  Two kernels from one template: K4 (entry general_frames)
-// and K5 (entry general_frames_regulated), K4's frame plus the regulated
-// road's right-of-way pass.
+// sine and circular lanes): a group of G threads per env within one warp
+// (G = 16 up to 16 slots, else 32), thread i of the group the owner of slot
+// i.  Two kernels from one template: K4 (entry general_frames) and K5
+// (entry general_frames_regulated), K4's frame plus the regulated road's
+// right-of-way pass.
 //
 // Replaces the TPU kernels highwayenv_tpu/ops/general_pallas_bm.py::
 // build_general_frame(regulated=False) (K4) and (regulated=True) (K5)
@@ -19,32 +20,63 @@
 // the library is built with -fmad=false and the precise libm functions, and
 // every expression keeps the torch version's order of operations.
 //
-// What bounds it on an H100: float32 arithmetic and libm calls.  Per frame
-// each slot projects itself on every lane (an atan2 and a sqrt per circular
-// lane), re-localizes on every lane, scans the other slots of its env for
-// neighbours on up to four query lanes and for SAT partners: about 10^4
-// operations per slot and frame against ~300 bytes of state per slot and
-// policy step, so operations bound it by far.
-// What the design does about it: V <= 32 and L <= 32 (the gate), so one warp
-// holds floor(32 / V) envs and every exchange between the slots of an env is
-// warp-synchronous (__syncwarp, no block barrier per phase, no atomics).  The
-// lane tables sit in shared memory once per block, indexed by lane id (the
-// TPU kernel's where-chains over L become loads).  Each env keeps its (L, V)
-// projection tables S and LAT, its frame-start rows, its post-integration
-// rows and its route arrays in shared memory for all frames; each thread
-// keeps its own slot in registers.  Device memory is read once and written
-// once per policy step.
-// K5's right-of-way pass: each env tests its own tick phase, (phase + frame
-// + 1) % period == 0, so envs of one batch tick on different frames with no
-// masking of frames (the TPU kernel's static-slot schedule, :1414-1464,
-// exists because Mosaic cannot branch per env).  On a tick every thread
-// predicts its own slot's T = 11 route-walk positions and heading cos / sin
-// into shared memory, then tests its slot against every other slot, each
-// pair in its (lower, upper) orientation on both of its threads: the
-// closeness pre-test takes the lower slot's length and the yield decision
-// must be one boolean for the pair, so both threads evaluate the same float
-// expressions and no atomics are needed.  The pass writes only the target
-// speed and the yielding state, which nothing later in the frame reads.
+// What bounds it on an H100: the latency of one warp's dependent chain of
+// libm calls (atan2f, fmodf, powf, asinf, cosf / sinf) and shared-memory
+// loads, not bytes and not issue slots.  A frame projects every slot on
+// every lane and re-localizes it there, decides and steers each IDM slot,
+// tests every pair of slots for a collision and, on K5's tick frames,
+// predicts every vehicle 11 times ahead and tests every pair of vehicles at
+// those times.  A clock64() split of the per-slot design (PERF.md) put a
+// launch's time at one warp's frame chain times the frames times the waves:
+// a thread per slot walked all L lanes (62% of a roundabout-v0 frame) and
+// scanned all V slots per neighbour query, and both threads of a pair
+// evaluated it.
+//
+// What the design does about it:
+// - More threads than slots.  The work of a frame that is not one slot's
+//   own chain is spread over the group's threads.  The projection table and
+//   the re-localization go slot-major: slot j's L lanes are split over
+//   c = G / V threads (3 at roundabout-v0, 2 at merge-v0, 1 at V = 16 and
+//   25), each keeping the slot's position in registers, the lanes taken
+//   grouped by kind so that a step's lanes rarely diverge (PERF.md: 5-13%
+//   faster than one (lane, slot) item per thread).  K5's route prediction
+//   goes as (time, slot) items (V * 11), the pairs of the collision pass and
+//   of the right-of-way pass as V (V - 1) / 2 items from a per-block pair
+//   table.  The owner keeps its slot in registers and runs what is the
+//   slot's alone: follow_road, the meta-action, the MOBIL decision and the
+//   controls, the integration.
+// - Each pair once, merged without order.  A pair is evaluated on one
+//   thread in its (lower, upper) orientation, as the per-slot loops
+//   evaluated it on both of its threads, and its outcome is merged through
+//   shared memory by integer atomics whose result does not depend on the
+//   order of arrival: crash, hit and yield flags by atomicOr of slot bits;
+//   the impact's last-write rule as the highest partner bit (row before
+//   column: every partner above a slot outranks every partner below it),
+//   whose translation the owner then recomputes with the same SAT; the
+//   closest lane as the atomicMin of a packed key (the order of the
+//   distance, -0 as +0, then the lane index), which is the first minimum of
+//   the lane loop: lane 0 wins on a NaN distance, a NaN on a later lane
+//   never wins.  No float atomics.
+// - Neighbour searches walk bits.  Each lane's bitmask of the slots
+//   eligible there is a warp ballot of the projection step, one atomicOr
+//   per lane and step (never a lane's V slots on one word at once); a
+//   search walks its set bits in ascending slot order with the dense loop's
+//   comparisons (front: smallest s >= own, the last slot among ties; rear:
+//   largest s < own, the first among ties).  IDM's free-road term (a
+//   precise powf) is evaluated once per ego row of a decision.
+// - Shared memory per env: the (L, V) tables and the post-integration rows
+//   share their words with K5's predictions and route walks, which live
+//   only in the right-of-way pass.  A block is GEN_BLOCK = 64 threads.
+//   roundabout-v0 (V=5, L=32, R=11): 4 envs a block, 2.6 KB an env,
+//   14.8 KB a block; the intersection-v0 warm-up (V=16, L=20, R=3): 4
+//   envs, 5.3 KB an env, 24.1 KB a block; intersection-v0 (V=25): 2 envs,
+//   8.2 KB an env, 19.8 KB a block.  Registers (115 and 118, PERF.md) then
+//   allow 8 blocks, 16 warps, an SM: roundabout-v0's 1,024 blocks and the
+//   warm-up's 1,024 run in one wave, intersection-v0's 2,048 in two.
+// Every exchange between an env's threads goes through shared memory or a
+// warp vote at points every thread of the warp reaches (the warp barrier
+// GROUP_SYNC between phases), whatever its env does: a design with one block
+// per env (V > 32) would make them block-wide and keep the rest.
 
 #include <string.h>
 
@@ -56,7 +88,7 @@
 #define GEN_MAX_EDGE_LANES 8
 #define GEN_MAX_SPEEDS 8
 #define GEN_MAX_ROUTE 16
-#define GEN_WARPS 2  // warps per block
+#define GEN_BLOCK 64  // threads a block
 #define KIND_OBSTACLE 5
 #define LANE_STRAIGHT 0
 #define LANE_SINE 1
@@ -67,6 +99,10 @@
 #define REG_TIMES 11
 #define REG_STEP 0.25f
 #define REG_YIELD_TICKS 0.0f
+
+// The barrier between the phases of a frame: an env's threads are one
+// group of one warp, and every thread of the warp reaches it.
+#define GROUP_SYNC() __syncwarp()
 
 // extra flag bits of the post-integration rows (F_ACTIVE, F_VEHICLE, F_CHECK,
 // F_COLLIDABLE as in straight_common.cuh)
@@ -247,29 +283,89 @@ __device__ int lane_on_edge(const Lanes& g, int lt, int base, int n, int next_id
   return base + chosen;
 }
 
-// One env's arrays in shared memory: the projection tables S[l * V + j] and
-// LAT[l * V + j] of slot j on lane l, the frame-start rows, the
-// post-integration rows and the route arrays.
+// The closest lane's key: the order of the distance dl (-0 as +0) above the
+// lane index, so that the smallest key is the loop's first minimum over
+// `l == 0 || dl < best`.  A NaN distance on lane 0 keeps lane 0 whatever
+// follows (key 0); a NaN on a later lane is never taken (the largest key).
+__device__ __forceinline__ unsigned long long lane_key(float dl, int l) {
+  if (dl != dl) return l == 0 ? 0ull : ~0ull;
+  const unsigned b = __float_as_uint(dl + 0.f);
+  const unsigned order = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return (static_cast<unsigned long long>(order) << 32) | static_cast<unsigned>(l);
+}
+
+// One env's arrays in shared memory.  The projection tables S[l * V + j] and
+// LAT[l * V + j] of slot j on lane l and the post-integration rows share
+// their words with K5's right-of-way arrays: the predictions (px / py / pc /
+// ps [t * V + j]), written after the decision pass last reads S / LAT and
+// read before the integration writes the rows, and past them the route
+// walks, written from S (never on it).
 struct EnvSmem {
+  unsigned long long* key;  // the closest lane's packed key, per slot
   float *S, *LAT;
+  // post-integration rows
+  float *px, *py, *pspeed, *pcos, *psin, *pvx, *pvy, *phead;
+  int* pflags;
+  // K5's predictions, on the words above
+  float *qx, *qy, *qc, *qs;
+  // rows that do not change in a step
+  float *len, *wid, *diag;
   // frame-start rows (after follow_road and the meta-action)
   float *speed, *ts, *cos, *sin, *vx, *vy;
   int *lane, *tlane, *flags;
-  // post-integration rows
-  float *px, *py, *pspeed, *pcos, *psin, *pvx, *pvy, *len, *wid, *diag;
-  int* pflags;
   // route arrays, slot-major: [j * R + r]
   int *rbase, *rn, *rid;
+  unsigned* elig;  // per lane, the slots eligible there (frame-start table)
+  unsigned* imp;   // per slot, the partners whose impact it takes
+  unsigned* bits;  // crash, hit and yield slot bits of the env
+  // K5, on the union's words: per slot the route walk's start, frame-start
+  // position, priority, first / last segment and valid segments, and per
+  // segment the cumulative length and the lane
+  float *rs0, *fx, *fy, *rcum;
+  int *prio, *rfirst, *rlast, *rvalid, *rseg;
 
-  __host__ __device__ static int words(int L, int V, int R) {
-    return 2 * L * V + 20 * V + 3 * R * V;
+  __host__ __device__ static int union_words(int L, int V, int R, bool reg) {
+    const int rows = 2 * L * V + 9 * V;
+    return reg ? max(rows, 4 * REG_TIMES * V + 7 * V + 2 * R * V) : rows;
+  }
+  __host__ __device__ static int words(int L, int V, int R, bool reg) {
+    const int w = 2 * V + union_words(L, V, R, reg) + 12 * V + 3 * R * V + L + V + 4;
+    return (w + 1) & ~1;  // keeps the next env's keys 8-byte aligned
   }
 
-  __device__ void carve(float* p, int L, int V, int R) {
-    S = p;
+  __device__ void carve(float* p, int L, int V, int R, bool reg) {
+    key = reinterpret_cast<unsigned long long*>(p);
+    float* u = p + 2 * V;
+    S = u;
     LAT = S + L * V;
     float* q = LAT + L * V;
-    float** fs[] = {&speed, &ts, &cos, &sin, &vx, &vy};
+    float** rows[] = {&px, &py, &pspeed, &pcos, &psin, &pvx, &pvy, &phead};
+    for (float** a : rows) {
+      *a = q;
+      q += V;
+    }
+    pflags = reinterpret_cast<int*>(q);
+    qx = u;
+    qy = qx + REG_TIMES * V;
+    qc = qy + REG_TIMES * V;
+    qs = qc + REG_TIMES * V;
+    if (reg) {  // past the predictions: never on S, which the pass reads first
+      q = qs + REG_TIMES * V;
+      float** rf[] = {&rs0, &fx, &fy};
+      for (float** a : rf) {
+        *a = q;
+        q += V;
+      }
+      int** ri[] = {&prio, &rfirst, &rlast, &rvalid};
+      for (int** a : ri) {
+        *a = reinterpret_cast<int*>(q);
+        q += V;
+      }
+      rcum = q;
+      rseg = reinterpret_cast<int*>(rcum + R * V);
+    }
+    q = u + union_words(L, V, R, reg);
+    float** fs[] = {&len, &wid, &diag, &speed, &ts, &cos, &sin, &vx, &vy};
     for (float** a : fs) {
       *a = q;
       q += V;
@@ -279,38 +375,22 @@ struct EnvSmem {
       *a = reinterpret_cast<int*>(q);
       q += V;
     }
-    float** ps[] = {&px, &py, &pspeed, &pcos, &psin, &pvx, &pvy, &len, &wid, &diag};
-    for (float** a : ps) {
-      *a = q;
-      q += V;
-    }
-    pflags = reinterpret_cast<int*>(q);
-    q += V;
     rbase = reinterpret_cast<int*>(q);
     rn = rbase + R * V;
     rid = rn + R * V;
+    elig = reinterpret_cast<unsigned*>(rid + R * V);
+    imp = elig + L;
+    bits = imp + V;
   }
 };
 
-// One env's arrays of the right-of-way pass in shared memory: every slot's
-// predicted position and heading cos / sin at every time, [t * V + j], and
-// its frame-start position and lane priority.
-struct RegSmem {
-  float *px, *py, *pc, *ps, *fx, *fy;
-  int* prio;
-
-  __host__ __device__ static int words(int V) { return (4 * REG_TIMES + 3) * V; }
-
-  __device__ void carve(float* p, int V) {
-    px = p;
-    py = px + REG_TIMES * V;
-    pc = py + REG_TIMES * V;
-    ps = pc + REG_TIMES * V;
-    fx = ps + REG_TIMES * V;
-    fy = fx + V;
-    prio = reinterpret_cast<int*>(fy + V);
-  }
-};
+// The words of a block's shared memory before its envs' arrays: the lane
+// tables, the lanes' order by kind and the pair table, rounded up to an
+// even count so that each env's keys are 8-byte aligned.
+__host__ __device__ static int block_words(int L, int V) {
+  const int w = L * (LANE_F_WORDS + LANE_I_WORDS + 1) + (V * (V - 1) / 2 + 1) / 2;
+  return (w + 1) & ~1;
+}
 
 // frame-start row flags
 #define FS_OCCUPIES 1  // active and not a landmark: may be a neighbour
@@ -324,24 +404,17 @@ struct Ctx {
   int V, i;
   float delta;  // the deciding slot's IDM exponent
 
-  // vehicle/behavior.py::eligible_on_lane of slot j on lane l
-  __device__ bool eligible(int l, int j) const {
-    const float s = e.S[l * V + j];
-    return (e.flags[j] & FS_OCCUPIES) &&
-           fabsf(e.LAT[l * V + j]) <= g.F(l, LF_WIDTH) / 2.f + 1.0f &&
-           -VEHICLE_LENGTH <= s && s < g.F(l, LF_LEN) + VEHICLE_LENGTH;
-  }
-
   // vehicle/behavior.py::neighbours of slot i on query lane q: front =
   // smallest s >= own s, the last slot among ties; rear = largest s < own s,
-  // the first among ties; -1 = none
+  // the first among ties; -1 = none.  The walk visits the eligible slots in
+  // ascending order, as the dense loop over every slot did.
   __device__ void neighbours(int q, int* front, int* rear) const {
     const int l = g.clip(q);
     const float s_self = e.S[l * V + i];
     float f_key = INFINITY, r_key = -INFINITY;
     int f = -1, r = -1;
-    for (int j = 0; j < V; ++j) {
-      if (j == i || !eligible(l, j)) continue;
+    for (unsigned bits = e.elig[l] & ~(1u << i); bits; bits &= bits - 1) {
+      const int j = __ffs(bits) - 1;
       const float sc = e.S[l * V + j];
       if (s_self <= sc && sc <= f_key) {
         f_key = sc;
@@ -356,35 +429,44 @@ struct Ctx {
     *rear = r;
   }
 
-  // vehicle/behavior.py::Rows.accel: IDM acceleration of slot ego behind
-  // slot front (-1 = none), with the deciding slot's exponent, the ego's
-  // target speed clipped by its current lane's limit and the gap measured on
-  // the ego's current lane; 0 where the ego is absent or no vehicle
-  __device__ float accel(int ego, int front) const {
+  // the free-road term of vehicle/behavior.py::Rows.accel for slot ego, with
+  // the deciding slot's exponent and the ego's target speed clipped by its
+  // current lane's limit; 0 where accel returns 0 without it
+  __device__ float free_acc(int ego) const {
     if (ego < 0 || !(e.flags[ego] & FS_VEHICLE)) return 0.f;
     const int el = g.clip(e.lane[ego]);
     const float limit = g.F(el, LF_LIMIT);
     const float ts_raw = e.ts[ego];
     const float ts = isinf(limit) ? ts_raw : fminf(fmaxf(ts_raw, 0.f), limit);
     const float sp = e.speed[ego];
-    const float free_acc =
-        p.comfort_acc_max * (1.0f - powf(fmaxf(sp, 0.f) / fabsf(not_zero(ts)), delta));
-    if (front < 0) return free_acc;
+    return p.comfort_acc_max * (1.0f - powf(fmaxf(sp, 0.f) / fabsf(not_zero(ts)), delta));
+  }
+
+  // vehicle/behavior.py::Rows.accel: IDM acceleration of slot ego behind
+  // slot front (-1 = none), given ego's free-road term, the gap measured on
+  // the ego's current lane; 0 where the ego is absent or no vehicle
+  __device__ float accel(int ego, int front, float free) const {
+    if (ego < 0 || !(e.flags[ego] & FS_VEHICLE)) return 0.f;
+    if (front < 0) return free;
+    const int el = g.clip(e.lane[ego]);
+    const float sp = e.speed[ego];
     const float d = e.S[el * V + front] - e.S[el * V + ego];
     const float c = e.cos[ego], sn = e.sin[ego];
     const float dv = (sp * c - e.vx[front]) * c + (sp * sn - e.vy[front]) * sn;
     const float d_star =
         (p.distance_wanted + sp * p.time_wanted) + (sp * dv) * p.inv_two_sqrt_ab;
     const float qd = d_star / not_zero(d);
-    return free_acc - p.comfort_acc_max * (qd * qd);
+    return free - p.comfort_acc_max * (qd * qd);
   }
 };
 
-// One slot's state, in registers for all frames of the policy step.
+// One slot's state, in registers for all frames of the policy step; ch / sh
+// are cosf / sinf of the heading, carried from the integration to the next
+// frame's start.
 struct GSlot {
   float px = 0.f, py = 0.f, heading = 0.f, speed = 0.f, ts = 0.f, timer = 0.f;
   float ix = 0.f, iy = 0.f, steer = 0.f, acc = 0.f, delta = 4.f;
-  float len = 5.f, wid = 2.f, gain = 0.f, max_braking = 0.f;
+  float len = 5.f, wid = 2.f, gain = 0.f, max_braking = 0.f, ch = 1.f, sh = 0.f;
   int lane = 0, tlane = 0, kind = KIND_PAD, route_ptr = 0, route_len = 0;
   int speed_index = 0, action = 0, yt = 0;
   bool crashed = false, hit = false, pend = false, chk = false, coll = false,
@@ -403,6 +485,8 @@ __device__ bool probes_inside(float ax, float ay, float la, float wa, float ca, 
                               float sb) {
   const float fxs[9] = {-0.5f, -0.5f, 0.5f, 0.5f, 0.0f, -0.5f, 0.5f, 0.0f, 0.0f};
   const float fys[9] = {-0.5f, 0.5f, 0.5f, -0.5f, 0.0f, 0.0f, 0.0f, -0.5f, 0.5f};
+  bool inside = false;
+#pragma unroll
   for (int k = 0; k < 9; ++k) {
     const float lx = fxs[k] * la, ly = fys[k] * wa;
     const float ppx = ax + ca * lx - sa * ly;
@@ -410,146 +494,131 @@ __device__ bool probes_inside(float ax, float ay, float la, float wa, float ca, 
     const float dxp = ppx - bx, dyp = ppy - by;
     const float rx = cb * dxp - sb * dyp;
     const float ry = sb * dxp + cb * dyp;
-    if (-lb / 2.f <= rx && rx <= lb / 2.f && -wb / 2.f <= ry && ry <= wb / 2.f) return true;
+    inside = inside ||
+             (-lb / 2.f <= rx && rx <= lb / 2.f && -wb / 2.f <= ry && ry <= wb / 2.f);
   }
-  return false;
+  return inside;
 }
 
-// road/regulation.py::enforce_road_rules for slot i of one env.  Every
-// thread of the warp calls it (the barrier inside); `tick` is the env's own
-// tick test and false on threads that hold no slot.  Reads the frame-start
-// state (after follow_road and the meta-action), writes v.ts, v.yld, v.yt.
-__device__ void regulate(const Lanes& g, const EnvSmem& e, const RegSmem& r, GSlot& v,
-                         const int* rb, const int* rn, const int* rid, int V, int R, int i,
-                         bool tick) {
-  if (tick) {
-    // the constant-speed route walk (predict_route_positions)
-    const int lc = g.clip(v.lane);
-    const float s0 = e.S[lc * V + i];
-    const bool has_rt = v.route_ptr < v.route_len;
-    const int cur_id = g.I(lc, LI_LANE_ID);
-    float cum[GEN_MAX_ROUTE];
-    int seg[GEN_MAX_ROUTE];
-    unsigned valid = 0u;
-    float acc = 0.f;
-    int n_valid = 0, first = -1;
-    for (int q = 0; q < R; ++q) {
-      const bool ok = has_rt && q >= v.route_ptr && q < v.route_len;
-      const int fallback = cur_id < rn[q] ? cur_id : 0;
-      const int seg_id = rid[q] >= 0 ? rid[q] : fallback;
-      seg[q] = ok ? clampi(rb[q] + seg_id, 0, g.L - 1) : v.lane;
-      acc = acc + (ok ? g.F(g.clip(seg[q]), LF_LEN) : 0.f);
-      cum[q] = acc;
-      if (ok) {
-        valid |= 1u << q;
-        ++n_valid;
-        if (first < 0) first = q;
-      }
-    }
-    first = max(first, 0);
-    const int last = n_valid > 0 ? first + n_valid - 1 : 0;
-    for (int t = 0; t < REG_TIMES; ++t) {
-      const float target = s0 + v.speed * (REG_STEP * static_cast<float>(t + 1));
-      int k = first;
-      for (int q = 0; q < R; ++q)
-        if (target > cum[q] && q < last && ((valid >> q) & 1u)) ++k;
-      k = min(k, last);
-      const int lk = g.clip(seg[k]);
-      const float base = k > first ? cum[k - 1] : 0.f;
-      const float s_loc = target - base;
-      float x, y;
-      lane_position(g, lk, s_loc, 0.f, &x, &y);
-      const float h = lane_heading(g, lk, s_loc);
-      r.px[t * V + i] = x;
-      r.py[t * V + i] = y;
-      r.pc[t * V + i] = cosf(h);
-      r.ps[t * V + i] = sinf(h);
-    }
-    r.fx[i] = v.px;
-    r.fy[i] = v.py;
-    r.prio[i] = g.I(lc, LI_PRIORITY);
+// Calls fn(a, b) for the pairs a < b of the env's pair table taken by
+// thread t of G.
+template <typename Fn>
+__device__ __forceinline__ void for_pairs(const unsigned short* pairs, int P, int t, int G,
+                                          Fn fn) {
+  for (int k = t; k < P; k += G) {
+    const unsigned ab = pairs[k];
+    fn(static_cast<int>(ab & 255u), static_cast<int>(ab >> 8));
   }
-  __syncwarp();
-  if (!tick) return;
+}
 
-  // future overlaps with every other vehicle, each pair as (lower, upper)
-  bool new_yield = false;
-  if (e.flags[i] & FS_VEHICLE) {
-    for (int j = 0; j < V; ++j) {
-      if (j == i || !(e.flags[j] & FS_VEHICLE)) continue;
-      const int a = min(i, j), b = max(i, j);
-      const float la = 1.5f * e.len[a], wa = 0.9f * e.wid[a];
-      const float lb = 1.5f * e.len[b], wb = 0.9f * e.wid[b];
-      const float reach2 = e.len[a] * e.len[a];
-      bool conflict = false;
-      for (int t = 0; t < REG_TIMES && !conflict; ++t) {
-        const int ta = t * V + a, tb = t * V + b;
-        const float dx = r.px[tb] - r.px[ta], dy = r.py[tb] - r.py[ta];
-        if (!(dx * dx + dy * dy <= reach2)) continue;
-        conflict = probes_inside(r.px[ta], r.py[ta], la, wa, r.pc[ta], r.ps[ta], r.px[tb],
-                                 r.py[tb], lb, wb, r.pc[tb], r.ps[tb]) ||
-                   probes_inside(r.px[tb], r.py[tb], lb, wb, r.pc[tb], r.ps[tb], r.px[ta],
-                                 r.py[ta], la, wa, r.pc[ta], r.ps[ta]);
-      }
-      if (!conflict) continue;
-      // the lower priority yields; on a tie the one less far ahead
-      const int pa = r.prio[a], pb = r.prio[b];
-      bool a_yields;
-      if (pa != pb) {
-        a_yields = pa < pb;
-      } else {
-        const float dx0 = r.fx[b] - r.fx[a], dy0 = r.fy[b] - r.fy[a];
-        const float front_ab = dx0 * e.cos[a] + dy0 * e.sin[a];
-        const float front_ba = (-dx0) * e.cos[b] + (-dy0) * e.sin[b];
-        a_yields = front_ab > front_ba;
-      }
-      new_yield = new_yield || (i == a ? a_yields : !a_yields);
+// Calls fn(m, j) for the items k = m * V + j, m < M, taken by thread t of G.
+template <typename Fn>
+__device__ __forceinline__ void for_items(int M, int V, int t, int G, Fn fn) {
+  int m = t / V, j = t - m * V;
+  while (m < M) {
+    fn(m, j);
+    j += G;
+    while (j >= V) {
+      j -= V;
+      ++m;
     }
   }
-  new_yield = new_yield && (v.kind == KIND_IDM || v.kind == KIND_LINEAR);
+}
 
-  // release the expired yielders to the lane's limit, then the new yields
-  const bool expired = v.yld && static_cast<float>(v.yt) >= REG_YIELD_TICKS;
-  if (expired) v.ts = g.F(g.clip(v.lane), LF_LIMIT);
-  if (v.yld && !expired) v.yt = v.yt + 1;
-  v.yld = v.yld && !expired;
-  if (new_yield) {
-    v.ts = 0.f;
-    v.yt = 0;
-    v.yld = true;
+// The projection table of the env, slot-major: thread t of G takes slot
+// j = t % V and the lanes of order q, q + c, q + 2 c, ... (q = t / V < c =
+// G / V), in steps every thread of the warp runs (has = false past the
+// lanes, the env's end or the c V threads).  A thread writes S and LAT and,
+// when `relocate` and slot j is a vehicle, keeps the smallest packed key of
+// the closest lane over its lanes and merges it with one atomicMin; each
+// lane's eligibility mask is the warp's ballot of the step, one atomicOr per
+// lane from the thread of slot 0.
+__device__ void project_table(const Lanes& g, const EnvSmem& e, const int* lorder, int L,
+                              int V, int t, int G, bool env_live, bool relocate) {
+  const int c = G / V, q = t / V, j = t - q * V;
+  const bool mine = env_live && q < c;
+  const int steps = (L + c - 1) / c;
+  const int base = (threadIdx.x & 31) - t + q * V;  // this q's first lane of the warp
+  const unsigned slot_mask = V == 32 ? FULL_MASK : (1u << V) - 1u;
+  const float px = mine ? e.px[j] : 0.f, py = mine ? e.py[j] : 0.f;
+  const float hd = mine ? e.phead[j] : 0.f;
+  const bool occupies = mine && (e.flags[j] & FS_OCCUPIES);
+  const bool reloc = mine && relocate && (e.pflags[j] & F_VEHICLE);
+  unsigned long long best = ~0ull;
+  for (int step = 0; step < steps; ++step) {
+    const int m = q + step * c;
+    const bool has = mine && m < L;
+    const int l = has ? lorder[m] : 0;
+    bool on = false;
+    if (has) {
+      float s, lat;
+      local_coords(g, l, px, py, &s, &lat);
+      e.S[l * V + j] = s;
+      e.LAT[l * V + j] = lat;
+      // vehicle/behavior.py::eligible_on_lane
+      on = occupies && fabsf(lat) <= g.F(l, LF_WIDTH) / 2.f + 1.0f && -VEHICLE_LENGTH <= s &&
+           s < g.F(l, LF_LEN) + VEHICLE_LENGTH;
+      // closest lane by |lat| + overrun + heading distance
+      if (reloc) {
+        const float dl = fabsf(lat) + fmaxf(s - g.F(l, LF_LEN), 0.f) + fmaxf(-s, 0.f) +
+                         1.0f * fabsf(wrap_to_pi(hd - lane_heading(g, l, s)));
+        const unsigned long long k = lane_key(dl, l);
+        if (k < best) best = k;
+      }
+    }
+    // bit j of the shifted ballot: slot j on this q's lane of the step
+    const unsigned bits = (__ballot_sync(FULL_MASK, on) >> base) & slot_mask;
+    if (has && j == 0 && bits) atomicOr(&e.elig[l], bits);
   }
+  if (reloc) atomicMin(&e.key[j], best);
 }
 
 template <bool kRegulated>
-__global__ void general_frames_kernel(GenFields f, RegFields rf, const float* lane_f,
-                                      const int* lane_i, GenParams p, int B) {
+__global__ void __launch_bounds__(GEN_BLOCK)
+    general_frames_kernel(const __grid_constant__ GenFields f,
+                          const __grid_constant__ RegFields rf, const float* lane_f,
+                          const int* lane_i, const __grid_constant__ GenParams p, int B,
+                          int G) {
   extern __shared__ float smem[];
   const int L = p.L, V = p.V, R = p.R, M = p.M;
+  const int P = V * (V - 1) / 2;
 
-  // the lane tables, once per block
+  // the lane tables, the lanes grouped by kind, and the pair table, once
+  // per block
   float* lf = smem;
   int* li = reinterpret_cast<int*>(lf + L * LANE_F_WORDS);
+  int* lorder = li + L * LANE_I_WORDS;
+  unsigned short* pairs = reinterpret_cast<unsigned short*>(lorder + L);
   for (int k = threadIdx.x; k < L * LANE_F_WORDS; k += blockDim.x) lf[k] = lane_f[k];
   for (int k = threadIdx.x; k < L * LANE_I_WORDS; k += blockDim.x) li[k] = lane_i[k];
+  for (int a = threadIdx.x; a < V; a += blockDim.x) {
+    const int base = a * (2 * V - a - 1) / 2;
+    for (int b = a + 1; b < V; ++b)
+      pairs[base + b - a - 1] = static_cast<unsigned short>(a | (b << 8));
+  }
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int pass = 0; pass < 3; ++pass)
+      for (int l = 0; l < L; ++l) {
+        const int kind = lane_i[l * LANE_I_WORDS + LI_KIND];
+        const int group = kind == LANE_CIRCULAR ? 0 : (kind == LANE_SINE ? 1 : 2);
+        if (group == pass) lorder[n++] = l;
+      }
+  }
   __syncthreads();
   const Lanes g = {lf, li, L};
 
-  const int warp = threadIdx.x / 32, t = threadIdx.x % 32;
-  const int per_warp = 32 / V;  // envs per warp
-  const int env_in_warp = t / V;
-  const int i = t % V;
-  const int env = (blockIdx.x * GEN_WARPS + warp) * per_warp + env_in_warp;
-  const bool live = env_in_warp < per_warp && env < B;
+  const int group = threadIdx.x / G, t = threadIdx.x % G;
+  const int env = blockIdx.x * (GEN_BLOCK / G) + group;
+  const bool env_live = env < B;
+  const bool live = env_live && t < V;  // this thread owns slot t
+  const int i = t;
 
   EnvSmem e;
-  RegSmem r;
-  const int env_words = EnvSmem::words(L, V, R) + (kRegulated ? RegSmem::words(V) : 0);
-  float* env_base = reinterpret_cast<float*>(li + L * LANE_I_WORDS) +
-                    static_cast<size_t>(warp * per_warp + (live ? env_in_warp : 0)) *
-                        env_words;
-  e.carve(env_base, L, V, R);
-  if constexpr (kRegulated) r.carve(env_base + EnvSmem::words(L, V, R), V);
-  const int phase = (kRegulated && live) ? rf.phase[env] : 0;
+  float* env_base = smem + block_words(L, V) +
+                    static_cast<size_t>(group) * EnvSmem::words(L, V, R, kRegulated);
+  e.carve(env_base, L, V, R, kRegulated);
+  const int phase = (kRegulated && env_live) ? rf.phase[env] : 0;
 
   const size_t o = static_cast<size_t>(env) * V + i;
   GSlot v;
@@ -586,6 +655,8 @@ __global__ void general_frames_kernel(GenFields f, RegFields rf, const float* la
       v.yld = rf.is_yielding[o] != 0;
       v.yt = rf.yield_timer[o];
     }
+    v.ch = cosf(v.heading);
+    v.sh = sinf(v.heading);
     for (int r = 0; r < R; ++r) {
       e.rbase[i * R + r] = f.route_base[o * R + r];
       e.rn[i * R + r] = f.route_n[o * R + r];
@@ -594,10 +665,17 @@ __global__ void general_frames_kernel(GenFields f, RegFields rf, const float* la
     e.len[i] = v.len;
     e.wid[i] = v.wid;
     e.diag[i] = sqrtf(v.len * v.len + v.wid * v.wid);
-    // the frame-start projection table: this slot on every lane
-    for (int l = 0; l < L; ++l) local_coords(g, l, v.px, v.py, &e.S[l * V + i], &e.LAT[l * V + i]);
+    e.px[i] = v.px;
+    e.py[i] = v.py;
+    e.flags[i] = ((v.active() && v.kind != KIND_LANDMARK) ? FS_OCCUPIES : 0) |
+                 (v.is_vehicle() ? FS_VEHICLE : 0) | (v.is_controlled() ? FS_CONTROLLED : 0);
   }
-  __syncwarp();
+  if (env_live)
+    for (int l = t; l < L; l += G) e.elig[l] = 0u;
+  GROUP_SYNC();
+  // the frame-start projection table and eligibility masks
+  project_table(g, e, lorder, L, V, t, G, env_live, false);
+  GROUP_SYNC();
 
   const Ctx cx = {g, p, e, V, i, v.delta};
   const int* rb = e.rbase + i * R;
@@ -678,20 +756,16 @@ __global__ void general_frames_kernel(GenFields f, RegFields rf, const float* la
                            !g.I(cl, LI_FORBIDDEN);
         if ((ll || lr) && reach) v.tlane = cand;
       }
-      const float ch = cosf(v.heading), sh = sinf(v.heading);
       e.speed[i] = v.speed;
       e.ts[i] = v.ts;
-      e.cos[i] = ch;
-      e.sin[i] = sh;
-      e.vx[i] = v.speed * ch;
-      e.vy[i] = v.speed * sh;
+      e.cos[i] = v.ch;
+      e.sin[i] = v.sh;
+      e.vx[i] = v.speed * v.ch;
+      e.vy[i] = v.speed * v.sh;
       e.lane[i] = v.lane;
       e.tlane[i] = v.tlane;
-      e.flags[i] = ((v.active() && v.kind != KIND_LANDMARK) ? FS_OCCUPIES : 0) |
-                   (v.is_vehicle() ? FS_VEHICLE : 0) |
-                   (v.is_controlled() ? FS_CONTROLLED : 0);
     }
-    __syncwarp();
+    GROUP_SYNC();
 
     // --- B: the IDM / MOBIL decision pass and the controls ----------------
     if (live) {
@@ -705,12 +779,14 @@ __global__ void general_frames_kernel(GenFields f, RegFields rf, const float* la
       if (idm) {
         int cur_front, cur_rear;
         cx.neighbours(lane, &cur_front, &cur_rear);
-        const float a_self = cx.accel(i, cur_front);
+        const float free_self = cx.free_acc(i);
+        const float a_self = cx.accel(i, cur_front, free_self);
         const bool deciding = !mid_change && v.timer > p.lane_change_delay && v.elc;
         if (deciding) {
           v.timer = 0.f;
-          const float a_of = cx.accel(cur_rear, i);
-          const float a_of_pred = cx.accel(cur_rear, cur_front);
+          const float free_rear = cx.free_acc(cur_rear);
+          const float a_of = cx.accel(cur_rear, i, free_rear);
+          const float a_of_pred = cx.accel(cur_rear, cur_front, free_rear);
           const int head_id = rid[clampi(v.route_ptr, 0, R - 1)];
           const bool has_rid = v.route_ptr < v.route_len && head_id >= 0;
           const int tgt_id = g.I(tc, LI_LANE_ID);
@@ -726,13 +802,14 @@ __global__ void general_frames_kernel(GenFields f, RegFields rf, const float* la
             if (!(exists && reachable && moving)) continue;
             int new_front, new_rear;
             cx.neighbours(cand, &new_front, &new_rear);
-            const float a_nf_pred = cx.accel(new_rear, i);
+            const float free_nr = cx.free_acc(new_rear);
+            const float a_nf_pred = cx.accel(new_rear, i, free_nr);
             const bool safe = a_nf_pred >= -v.max_braking;
-            const float a_self_pred = cx.accel(i, new_front);
+            const float a_self_pred = cx.accel(i, new_front, free_self);
             const int dc = g.I(cand, LI_LANE_ID) - tgt_id, dh = head_id - tgt_id;
             const bool route_ok = ((dc > 0) - (dc < 0)) == ((dh > 0) - (dh < 0)) &&
                                   a_self_pred >= -v.max_braking;
-            const float a_nf = cx.accel(new_rear, new_front);
+            const float a_nf = cx.accel(new_rear, new_front, free_nr);
             const float jerk = (a_self_pred - a_self) +
                                p.politeness * (((a_nf_pred - a_nf) + a_of_pred) - a_of);
             if (safe && (has_rid ? route_ok : jerk >= v.gain)) target = cand;
@@ -760,7 +837,7 @@ __global__ void general_frames_kernel(GenFields f, RegFields rf, const float* la
         if (lane != target) {
           int t_front, t_rear;
           cx.neighbours(target, &t_front, &t_rear);
-          a_idm = fminf(a_self, cx.accel(i, t_front));
+          a_idm = fminf(a_self, cx.accel(i, t_front, free_self));
         }
         a_idm = clampf(a_idm, -p.acc_max, p.acc_max);
       }
@@ -780,14 +857,122 @@ __global__ void general_frames_kernel(GenFields f, RegFields rf, const float* la
         v.acc = is_ego ? p.kp_a * (v.ts - speed) : a_idm;
       }
     }
-    __syncwarp();  // the frame-start tables and rows are read
+    GROUP_SYNC();  // the frame-start table and eligibility masks are read
 
     // --- B': the right-of-way pass on the env's tick frames ----------------
-    if constexpr (kRegulated)
-      regulate(g, e, r, v, rb, rn, rid, V, R, i,
-               live && (phase + frame + 1) % p.period == 0);
+    // road/regulation.py::enforce_road_rules on the frame-start state (after
+    // follow_road and the meta-action); writes v.ts, v.yld, v.yt
+    if constexpr (kRegulated) {
+      const bool tick = env_live && (phase + frame + 1) % p.period == 0;
+      if (__any_sync(FULL_MASK, tick)) {
+        if (tick && t == 0) e.bits[2] = 0u;
+        if (tick && live) {
+          // the constant-speed route walk's segments (predict_route_positions)
+          const int lc = g.clip(v.lane);
+          const bool has_rt = v.route_ptr < v.route_len;
+          const int cur_id = g.I(lc, LI_LANE_ID);
+          unsigned valid = 0u;
+          float acc = 0.f;
+          int n_valid = 0, first = -1;
+          for (int q = 0; q < R; ++q) {
+            const bool ok = has_rt && q >= v.route_ptr && q < v.route_len;
+            const int fallback = cur_id < rn[q] ? cur_id : 0;
+            const int seg_id = rid[q] >= 0 ? rid[q] : fallback;
+            const int seg = ok ? clampi(rb[q] + seg_id, 0, g.L - 1) : v.lane;
+            acc = acc + (ok ? g.F(g.clip(seg), LF_LEN) : 0.f);
+            e.rcum[i * R + q] = acc;
+            e.rseg[i * R + q] = seg;
+            if (ok) {
+              valid |= 1u << q;
+              ++n_valid;
+              if (first < 0) first = q;
+            }
+          }
+          first = max(first, 0);
+          e.rfirst[i] = first;
+          e.rlast[i] = n_valid > 0 ? first + n_valid - 1 : 0;
+          e.rvalid[i] = static_cast<int>(valid);
+          e.rs0[i] = e.S[lc * V + i];
+          e.fx[i] = v.px;
+          e.fy[i] = v.py;
+          e.prio[i] = g.I(lc, LI_PRIORITY);
+        }
+        GROUP_SYNC();  // every read of S / LAT is done: the predictions take their words
+        // every slot's positions and headings at the 11 times, item (t, j)
+        if (tick)
+          for_items(REG_TIMES, V, t, G, [&](int tt, int j) {
+            const int first = e.rfirst[j], last = e.rlast[j];
+            const unsigned valid = static_cast<unsigned>(e.rvalid[j]);
+            const float* cum = e.rcum + j * R;
+            const float target =
+                e.rs0[j] + e.speed[j] * (REG_STEP * static_cast<float>(tt + 1));
+            int k = first;
+            for (int q = 0; q < R; ++q)
+              if (target > cum[q] && q < last && ((valid >> q) & 1u)) ++k;
+            k = min(k, last);
+            const int lk = g.clip(e.rseg[j * R + k]);
+            const float base = k > first ? cum[k - 1] : 0.f;
+            const float s_loc = target - base;
+            float x, y;
+            lane_position(g, lk, s_loc, 0.f, &x, &y);
+            const float h = lane_heading(g, lk, s_loc);
+            e.qx[tt * V + j] = x;
+            e.qy[tt * V + j] = y;
+            e.qc[tt * V + j] = cosf(h);
+            e.qs[tt * V + j] = sinf(h);
+          });
+        GROUP_SYNC();
+        // future overlaps of every pair of vehicles (lower, upper), each
+        // pair on one thread; the yielder's bit
+        if (tick)
+          for_pairs(pairs, P, t, G, [&](int a, int b) {
+            if (!(e.flags[a] & FS_VEHICLE) || !(e.flags[b] & FS_VEHICLE)) return;
+            const float la = 1.5f * e.len[a], wa = 0.9f * e.wid[a];
+            const float lb = 1.5f * e.len[b], wb = 0.9f * e.wid[b];
+            const float reach2 = e.len[a] * e.len[a];
+            bool conflict = false;
+            for (int tt = 0; tt < REG_TIMES && !conflict; ++tt) {
+              const int ta = tt * V + a, tb = tt * V + b;
+              const float dx = e.qx[tb] - e.qx[ta], dy = e.qy[tb] - e.qy[ta];
+              if (!(dx * dx + dy * dy <= reach2)) continue;
+              conflict = probes_inside(e.qx[ta], e.qy[ta], la, wa, e.qc[ta], e.qs[ta],
+                                       e.qx[tb], e.qy[tb], lb, wb, e.qc[tb], e.qs[tb]) ||
+                         probes_inside(e.qx[tb], e.qy[tb], lb, wb, e.qc[tb], e.qs[tb],
+                                       e.qx[ta], e.qy[ta], la, wa, e.qc[ta], e.qs[ta]);
+            }
+            if (!conflict) return;
+            // the lower priority yields; on a tie the one less far ahead
+            const int pa = e.prio[a], pb = e.prio[b];
+            bool a_yields;
+            if (pa != pb) {
+              a_yields = pa < pb;
+            } else {
+              const float dx0 = e.fx[b] - e.fx[a], dy0 = e.fy[b] - e.fy[a];
+              const float front_ab = dx0 * e.cos[a] + dy0 * e.sin[a];
+              const float front_ba = (-dx0) * e.cos[b] + (-dy0) * e.sin[b];
+              a_yields = front_ab > front_ba;
+            }
+            atomicOr(&e.bits[2], 1u << (a_yields ? a : b));
+          });
+        GROUP_SYNC();  // the predictions are read: the rows take their words back
+        if (tick && live) {
+          const bool new_yield = ((e.bits[2] >> i) & 1u) &&
+                                 (v.kind == KIND_IDM || v.kind == KIND_LINEAR);
+          // release the expired yielders to the lane's limit, then the new yields
+          const bool expired = v.yld && static_cast<float>(v.yt) >= REG_YIELD_TICKS;
+          if (expired) v.ts = g.F(g.clip(v.lane), LF_LIMIT);
+          if (v.yld && !expired) v.yt = v.yt + 1;
+          v.yld = v.yld && !expired;
+          if (new_yield) {
+            v.ts = 0.f;
+            v.yt = 0;
+            v.yld = true;
+          }
+        }
+      }
+    }
 
-    // --- C: integration, the new projection table, re-localization --------
+    // --- C: integration and the post-integration rows ---------------------
     if (live) {
       if (v.is_vehicle()) {
         const float speed = v.speed;
@@ -807,89 +992,85 @@ __global__ void general_frames_kernel(GenFields f, RegFields rf, const float* la
         v.pend = false;
         v.timer = v.timer + p.dt;
       }
-      // closest lane by |lat| + overrun + heading distance, first minimum
-      float best = INFINITY;
-      int best_l = 0;
-      for (int l = 0; l < L; ++l) {
-        float s, lat;
-        local_coords(g, l, v.px, v.py, &s, &lat);
-        e.S[l * V + i] = s;
-        e.LAT[l * V + i] = lat;
-        const float dl = fabsf(lat) + fmaxf(s - g.F(l, LF_LEN), 0.f) + fmaxf(-s, 0.f) +
-                         1.0f * fabsf(wrap_to_pi(v.heading - lane_heading(g, l, s)));
-        if (l == 0 || dl < best) {
-          best = dl;
-          best_l = l;
-        }
-      }
-      if (v.is_vehicle()) v.lane = best_l;
-      const float ch = cosf(v.heading), sh = sinf(v.heading);
+      v.ch = cosf(v.heading);
+      v.sh = sinf(v.heading);
       e.px[i] = v.px;
       e.py[i] = v.py;
+      e.phead[i] = v.heading;
       e.pspeed[i] = v.speed;
-      e.pcos[i] = ch;
-      e.psin[i] = sh;
-      e.pvx[i] = v.speed * ch;
-      e.pvy[i] = v.speed * sh;
+      e.pcos[i] = v.ch;
+      e.psin[i] = v.sh;
+      e.pvx[i] = v.speed * v.ch;
+      e.pvy[i] = v.speed * v.sh;
       const bool solid = v.active() && v.kind != KIND_LANDMARK;
       e.pflags[i] = (v.active() ? F_ACTIVE : 0) | (v.is_vehicle() ? F_VEHICLE : 0) |
                     (v.chk ? F_CHECK : 0) | (v.coll ? F_COLLIDABLE : 0) |
                     (solid ? F_SOLID : 0) | (v.kind == KIND_OBSTACLE ? F_OBSTACLE : 0);
+      e.key[i] = ~0ull;
+      e.imp[i] = 0u;
     }
-    __syncwarp();
+    if (env_live) {
+      for (int l = t; l < L; l += G) e.elig[l] = 0u;
+      if (t == 0) e.bits[0] = e.bits[1] = 0u;
+    }
+    GROUP_SYNC();
 
-    // --- D: collisions: sphere pre-check, swept SAT, last-write impacts ----
-    if (live) {
-      const int fi = e.pflags[i];
-      bool crash = false, hit = false;
-      int row_j = -1, col_j = -1;
-      float row_tx = 0.f, row_ty = 0.f, col_tx = 0.f, col_ty = 0.f;
-      for (int j = 0; j < V; ++j) {
-        if (j == i) continue;
-        const int a = min(i, j), b = max(i, j);  // a = the pair's ``self``
+    // --- C': the new projection table and re-localization, slot-major -------
+    project_table(g, e, lorder, L, V, t, G, env_live, true);
+    // --- D: collisions, each pair once: sphere pre-check, swept SAT, slot bits
+    // (no barrier between C' and D: they touch other words)
+    if (env_live)
+      for_pairs(pairs, P, t, G, [&](int a, int b) {
         const int fa = e.pflags[a], fb = e.pflags[b];
-        if (!pair_eligible(fa, fb)) continue;
+        if (!pair_eligible(fa, fb)) return;
         const float dx = e.px[a] - e.px[b], dy = e.py[a] - e.py[b];
         const float reach = (e.diag[a] + e.diag[b]) / 2.f + e.pspeed[a] * p.dt;
-        if (!(dx * dx + dy * dy <= reach * reach)) continue;
+        if (!(dx * dx + dy * dy <= reach * reach)) return;
         bool inter, will;
         float tx, ty;
         sat(e.px[a], e.py[a], e.len[a], e.wid[a], e.pcos[a], e.psin[a], e.px[b], e.py[b],
             e.len[b], e.wid[b], e.pcos[b], e.psin[b], (e.pvx[a] - e.pvx[b]) * p.dt,
             (e.pvy[a] - e.pvy[b]) * p.dt, &inter, &will, &tx, &ty);
         const bool both_solid = (fa & F_SOLID) && (fb & F_SOLID);
-        crash = crash || (inter && both_solid);
-        hit = hit || (inter && !(fi & F_SOLID));
-        if (will && both_solid && !(fi & F_OBSTACLE)) {
-          // the full translation against an obstacle, half each between
-          // two vehicles; ascending j: the last write is the max partner
-          const bool other_obstacle = (e.pflags[j] & F_OBSTACLE) != 0;
-          if (j > i) {
-            const float coef = other_obstacle ? 1.0f : 0.5f;
-            row_j = j;
-            row_tx = coef * tx;
-            row_ty = coef * ty;
-          } else {
-            const float coef = other_obstacle ? 1.0f : -0.5f;
-            col_j = j;
-            col_tx = coef * tx;
-            col_ty = coef * ty;
-          }
+        const unsigned ba = 1u << a, bb = 1u << b;
+        if (inter && both_solid) atomicOr(&e.bits[0], ba | bb);
+        if (inter && !both_solid)
+          atomicOr(&e.bits[1], ((fa & F_SOLID) ? 0u : ba) | ((fb & F_SOLID) ? 0u : bb));
+        if (will && both_solid) {
+          if (!(fa & F_OBSTACLE)) atomicOr(&e.imp[a], bb);
+          if (!(fb & F_OBSTACLE)) atomicOr(&e.imp[b], ba);
         }
+      });
+    GROUP_SYNC();
+
+    // --- D': the closest lane, crash / hit flags, the last-write impact ----
+    if (live) {
+      if (v.is_vehicle()) v.lane = static_cast<int>(e.key[i] & 0xffffffffull);
+      const unsigned partners = e.imp[i];
+      if (partners) {
+        // the highest partner: every partner above i outranks every one
+        // below (row before column), and ascending order leaves the last
+        // write; the full translation against an obstacle, half each
+        // between two vehicles
+        const int j = 31 - __clz(partners);
+        const int a = min(i, j), b = max(i, j);
+        bool inter, will;
+        float tx, ty;
+        sat(e.px[a], e.py[a], e.len[a], e.wid[a], e.pcos[a], e.psin[a], e.px[b], e.py[b],
+            e.len[b], e.wid[b], e.pcos[b], e.psin[b], (e.pvx[a] - e.pvx[b]) * p.dt,
+            (e.pvy[a] - e.pvy[b]) * p.dt, &inter, &will, &tx, &ty);
+        const bool other_obstacle = (e.pflags[j] & F_OBSTACLE) != 0;
+        const float coef = other_obstacle ? 1.0f : (j > i ? 0.5f : -0.5f);
+        v.ix = coef * tx;
+        v.iy = coef * ty;
+        v.pend = true;
       }
-      if (row_j >= 0) {
-        v.ix = row_tx;
-        v.iy = row_ty;
-      } else if (col_j >= 0) {
-        v.ix = col_tx;
-        v.iy = col_ty;
-      }
-      v.pend = v.pend || row_j >= 0 || col_j >= 0;
-      v.crashed = v.crashed || crash;
-      v.hit = v.hit || hit;
+      v.crashed = v.crashed || ((e.bits[0] >> i) & 1u);
+      v.hit = v.hit || ((e.bits[1] >> i) & 1u);
     }
-    // the next frame's phase A writes only frame-start rows, which nobody
-    // reads until after its barrier; phase C's writes come after two more
+    // the next frame's phase A writes only frame-start rows, which nothing
+    // reads until after its barrier; the words read here are rewritten
+    // after two more barriers
   }
 
   if (live) {
@@ -917,6 +1098,10 @@ __global__ void general_frames_kernel(GenFields f, RegFields rf, const float* la
   }
 }
 
+// Threads an env: 16 up to 16 slots, else 32 (32 at V <= 16 ran 1.29x to
+// 1.50x slower at roundabout-v0, merge-v0 and the V = 16 warm-up; PERF.md).
+static int threads_per_env(int V) { return V <= 16 ? 16 : 32; }
+
 template <bool kRegulated>
 static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
                   const int* lane_i, const GenParams* params, int B, void* stream) {
@@ -929,13 +1114,12 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
     return static_cast<int>(cudaErrorInvalidValue);
   GenFields f;
   memcpy(&f, ptrs, sizeof(GenFields));
-  const int envs_per_block = GEN_WARPS * (32 / p.V);
-  const size_t env_words =
-      EnvSmem::words(p.L, p.V, p.R) + (kRegulated ? RegSmem::words(p.V) : 0);
+  const int G = threads_per_env(p.V);
+  const int envs_per_block = GEN_BLOCK / G;
   const size_t smem =
-      sizeof(float) * (static_cast<size_t>(p.L) * LANE_F_WORDS +
-                       static_cast<size_t>(p.L) * LANE_I_WORDS +
-                       static_cast<size_t>(envs_per_block) * env_words);
+      sizeof(float) *
+      (static_cast<size_t>(block_words(p.L, p.V)) +
+       static_cast<size_t>(envs_per_block) * EnvSmem::words(p.L, p.V, p.R, kRegulated));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(general_frames_kernel<kRegulated>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -945,8 +1129,8 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
   if (B > 0) {
     const int blocks = (B + envs_per_block - 1) / envs_per_block;
     general_frames_kernel<kRegulated>
-        <<<blocks, GEN_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-            f, rf, lane_f, lane_i, p, B);
+        <<<blocks, GEN_BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(f, rf, lane_f, lane_i,
+                                                                         p, B, G);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,34 +1,48 @@
-"""A/B of the straight frame kernels K1 and K3: two ``csrc/`` trees on one card.
+"""A/B of the frame kernels: two ``csrc/`` trees on one card.
 
 Usage (from the repo root, on a machine with a CUDA card):
 
     mkdir -p build/baseline
     git archive HEAD highwayenv_tpu_torch/csrc | tar -x -C build/baseline
     python3 highwayenv_tpu_torch/tools/kernel_ab.py [--baseline DIR] [--clocks]
-        [--vehicles N ...]
+        [--kernels straight general] [--vehicles N ...]
 
 ``--baseline`` (default ``build/baseline/highwayenv_tpu_torch/csrc``) is a
 second ``csrc/`` directory, for example a commit's unpacked as above; when it
-is missing only the current kernels run.  For highway-v0 (V=51, 15 frames),
-highway-fast-v0 (V=21, 5 frames) and highway-v0 with each ``--vehicles`` N
-(V = N + 1), at B=4096, the script
+is missing only the current kernels run.  ``--kernels`` picks the families
+(default both):
 
-  1. builds ``straight_frames`` (K1) and ``straight_frames_sorted`` (K3) of
-     both trees into ``build/kernel_ab/`` with the flags of ``ops/_build.py``
-     and prints ptxas's register, stack and spill report;
-  2. runs both builds on the same inputs (the reset scene, the compressed
-     scene and a pile-up in every env; K1 on every env and masked to every
-     third env, K3 with its flags) and checks that every output field and
-     flag is equal bit for bit;
-  3. times each kernel on the reset scene in turns (baseline, current,
-     current, baseline, ``--rounds`` times); a turn is the mean device time
-     of REPS launches queued behind a device-side wait, between CUDA
-     events; it prints each build's mean and the spread (min to max) of its
-     turns;
-  4. with ``--clocks``, builds a copy of each tree's two kernels with a
-     ``clock64()`` stamp before every phase marker of the frame loop (a
-     ``// ---`` comment line, the ``drive(`` call, the ``stage_post(`` call)
-     and prints thread 0's mean cycles per frame in each phase over all
+  straight: K1 (``straight_frames``) and K3 (``straight_frames_sorted``) at
+    highway-v0 (V=51, 15 frames), highway-fast-v0 (V=21, 5 frames) and
+    highway-v0 with each ``--vehicles`` N (V = N + 1), B=4096.  Scenes: the
+    reset scene, the compressed scene and a pile-up in every env; K1 on
+    every env and masked to every third env, K3 with its flags.  Timed: K1
+    on every env, K3, K1 masked with no env firing, on the reset scene.
+  general: K4 (``general_frames``) at roundabout-v0 (V=5, L=32, R=11) and
+    merge-v0 (V=6, L=9, an obstacle) on the reset scene, 8 steps in, an
+    all-env pile-up and (merge) the obstacle hit; K5
+    (``general_frames_regulated``) at intersection-v0 (V=25, L=20, R=3,
+    tick period 7) on the reset scene, 8 steps in with the tick phases
+    spread over all 7 values, a conflict scene with yields and the reset's
+    warm-up launch (V=16, 45 frames), B=4096, the scenes of chip_smoke.py.
+    Timed: K4 at roundabout-v0 and at merge-v0 on the reset scene, K5's
+    step on the reset scene with spread tick phases, K5's warm-up.
+
+For each family the script
+
+  1. builds both trees' sources into ``build/kernel_ab/`` with the flags of
+     ``ops/_build.py`` and prints ptxas's register, stack and spill report;
+  2. runs both builds on the same inputs of every scene and checks that
+     every output field (and K3's flags, K5's yielding state) is equal bit
+     for bit;
+  3. times each kernel in turns (baseline, current, current, baseline,
+     ``--rounds`` times); a turn is the mean device time of REPS launches
+     queued behind a device-side wait, between CUDA events; it prints each
+     build's mean and the spread (min to max) of its turns;
+  4. with ``--clocks``, builds a copy of each tree with a ``clock64()``
+     stamp before every phase marker of the frame loop (a ``// ---``
+     comment line, the ``drive(`` call, the ``stage_post(`` call) and
+     prints thread 0's mean cycles per frame in each phase, over all
      blocks.  The stamps add a few instructions and registers: the split,
      not the total, is what to read.
 
@@ -39,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import pathlib
 import re
 import shutil
@@ -48,15 +63,20 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(REPO))
 
-KERNELS = ("straight_frames", "straight_frames_sorted")
+FAMILIES = {
+    "straight": ("straight_frames", "straight_frames_sorted"),
+    "general": ("general_frames",),
+}
 CONFIGS = (("highway-v0", None), ("highway-fast-v0", None))
 B = 4096
 SEED = 2
 REPS = 20  # launches a turn
 OUT_DIR = REPO / "build" / "kernel_ab"
 
-_FRAME_LOOP = re.compile(r"^\s*for \(int frame = 0; frame < frames; \+\+frame\) \{\s*$")
+_FRAME_LOOP = re.compile(
+    r"^\s*for \(int frame = 0; frame < (p\.)?frames; \+\+frame\) \{\s*$")
 _MARKERS = ("// ---", "drive(", "stage_post(")
+# slot 31 of the sums counts the (block, frame) samples
 _PRELUDE = r"""
 // kernel_ab --clocks: thread 0's clock64() cycles per frame phase, summed over blocks
 __device__ unsigned long long frame_clocks_sum[32];
@@ -67,6 +87,10 @@ __device__ unsigned long long frame_clocks_sum[32];
       atomicAdd(&frame_clocks_sum[k], (unsigned long long)(t_ - clk_last_)); \
       clk_last_ = t_;                                                       \
     }                                                                       \
+  } while (0)
+#define FRAME_COUNT()                                                       \
+  do {                                                                      \
+    if (threadIdx.x == 0) atomicAdd(&frame_clocks_sum[31], 1ull);           \
   } while (0)
 extern "C" int frame_clocks_read(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, frame_clocks_sum, sizeof(frame_clocks_sum));
@@ -105,27 +129,28 @@ def instrument(src: str) -> tuple[str, list[str]]:
             names.append(_phase_name(line.strip()))
         out.append(line)
     out.append(f"FRAME_CLOCK({len(names) - 1});")
+    out.append("FRAME_COUNT();")
     out += lines[end:]
     inc = next(i for i, line in enumerate(out) if line.startswith('#include "straight_common.cuh"'))
     out[inc + 1 : inc + 1] = _PRELUDE.splitlines()
     return "\n".join(out) + "\n", names
 
 
-def instrumented_tree(csrc: pathlib.Path, dest: pathlib.Path) -> dict[str, list[str]]:
-    """Copy of ``csrc`` in ``dest`` with the two frame kernels stamped;
+def instrumented_tree(csrc: pathlib.Path, dest: pathlib.Path, kernels) -> dict[str, list[str]]:
+    """Copy of ``csrc`` in ``dest`` with the named frame kernels stamped;
     returns each kernel's phase names."""
     if dest.exists():
         shutil.rmtree(dest)
     shutil.copytree(csrc, dest)
     names = {}
-    for k in KERNELS:
+    for k in kernels:
         text, names[k] = instrument((csrc / f"{k}.cu").read_text())
         (dest / f"{k}.cu").write_text(text)
     return names
 
 
 def load(path: pathlib.Path, wrapper_cls):
-    """A wrapper instance bound to the library at ``path``."""
+    """A wrapper instance (``wrapper_cls()``) bound to the library at ``path``."""
     lib = ctypes.CDLL(str(path))
     wrapper = wrapper_cls()
     wrapper._bind(lib)
@@ -137,7 +162,7 @@ def ptxas_report(path: pathlib.Path) -> list[str]:
     log = path.with_suffix(".log")
     if not log.exists():
         return []
-    keep = ("registers", "spill", "stack frame")
+    keep = ("registers", "spill", "stack frame", "entry function")
     return [line.strip() for line in log.read_text().splitlines() if any(k in line for k in keep)]
 
 
@@ -159,7 +184,59 @@ def queued_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def scenes(veh):
+def in_turns(fns: dict, rounds: int) -> str:
+    """Times each build's ``fns[label]`` in turns (baseline, current, current,
+    baseline, ``rounds`` times); the line of means, spreads and ratio."""
+    labels = list(fns)
+    times = {label: [] for label in labels}
+    for label in (labels + labels[::-1]) * rounds:
+        times[label].append(queued_ms(fns[label], REPS))
+    line = [f"{label} {sum(t) / len(t):.4f} ms ({min(t):.4f}-{max(t):.4f}, "
+            f"{len(t)} turns)" for label, t in times.items()]
+    if len(labels) == 2:
+        ratio = (sum(times["current"]) / len(times["current"])) / (
+            sum(times["baseline"]) / len(times["baseline"]))
+        line.append(f"current / baseline {ratio:.3f}")
+    return "; ".join(line)
+
+
+def print_clocks(label: str, kname: str, lib, names, run) -> None:
+    """Runs ``run()`` on a stamped build and prints thread 0's mean cycles
+    per frame in each phase."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    if lib.frame_clocks_reset() != 0:
+        raise RuntimeError("frame_clocks_reset failed")
+    run()
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * 32)()
+    if lib.frame_clocks_read(buf) != 0:
+        raise RuntimeError("frame_clocks_read failed")
+    samples = buf[31]
+    cyc = [buf[k] / samples for k in range(len(names))]
+    total = sum(cyc)
+    print(f"  {label} {kname} cycles per frame (thread 0, mean over {samples} block-frames): "
+          f"{total:.0f}")
+    for n, c in zip(names, cyc):
+        print(f"    {c:9.0f} {100 * c / total:5.1f}%  {n}")
+
+
+def equal_fields(a, b, names, where: str) -> None:
+    import torch
+
+    bad = [n for n in names if not torch.equal(getattr(a, n), getattr(b, n))]
+    if bad:
+        raise AssertionError(f"{where}: the builds differ in {bad}")
+
+
+# --------------------------------------------------------------------------- #
+# straight kernels (K1, K3)
+# --------------------------------------------------------------------------- #
+
+
+def straight_scenes(veh):
     """The reset scene, compressed (x * 0.2) and a 20-vehicle pile-up in
     6 m in every env, as chip_smoke.py builds them."""
     import torch
@@ -172,65 +249,20 @@ def scenes(veh):
             "pile-up": veh.replace(pos=pileup)}
 
 
-def equal_fields(a, b, names, where: str) -> None:
+def run_straight(args, paths, clock_paths, phases) -> None:
     import torch
 
-    bad = [n for n in names if not torch.equal(getattr(a, n), getattr(b, n))]
-    if bad:
-        raise AssertionError(f"{where}: the builds differ in {bad}")
-
-
-def main(argv) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--baseline", default=str(REPO / "build/baseline/highwayenv_tpu_torch/csrc"))
-    ap.add_argument("--clocks", action="store_true")
-    ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--vehicles", type=int, nargs="*", default=[])
-    args = ap.parse_args(argv)
-
-    import torch
-
-    if not torch.cuda.is_available():
-        print("kernel_ab: CUDA is not available", file=sys.stderr)
-        return 1
     import highwayenv_tpu_torch as ht
-    from highwayenv_tpu_torch.ops import _build
     from highwayenv_tpu_torch.ops import straight_frames as sf
     from highwayenv_tpu_torch.ops import straight_sorted as ss
     from highwayenv_tpu_torch.vehicle.state import KIND_EGO
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    trees = {"current": _build.SOURCE_DIR}
-    if pathlib.Path(args.baseline).is_dir():
-        trees = {"baseline": pathlib.Path(args.baseline), **trees}
-    else:
-        print(f"no baseline tree at {args.baseline}: the current kernels alone")
-
-    # 1. builds, started together
-    wrappers, clock_libs, phases = {}, {}, {}
-    for label, csrc in trees.items():
-        paths = _build.build(KERNELS, csrc, OUT_DIR / label)
-        for k, path in paths.items():
-            print(f"{label} {k}: {path.name}")
-            for line in ptxas_report(path):
-                print(f"    {line}")
-        wrappers[label] = (load(paths["straight_frames"], sf.StraightFramesKernel)[0],
-                           load(paths["straight_frames_sorted"], ss.FramesSortedKernel)[0])
-        if args.clocks:
-            stamped = OUT_DIR / f"{label}-clocks" / "csrc"
-            phases[label] = instrumented_tree(csrc, stamped)
-            cpaths = _build.build(KERNELS, stamped, OUT_DIR / f"{label}-clocks")
-            clock_libs[label] = {
-                "K1": load(cpaths["straight_frames"], sf.StraightFramesKernel),
-                "K3": load(cpaths["straight_frames_sorted"], ss.FramesSortedKernel),
-            }
-            for k, path in cpaths.items():
-                print(f"{label} {k} with clocks: " + "; ".join(ptxas_report(path)))
-
+    wrappers = {label: (load(p["straight_frames"], sf.StraightFramesKernel)[0],
+                        load(p["straight_frames_sorted"], ss.FramesSortedKernel)[0])
+                for label, p in paths.items()}
+    clock_libs = {label: {"K1": load(p["straight_frames"], sf.StraightFramesKernel),
+                          "K3": load(p["straight_frames_sorted"], ss.FramesSortedKernel)}
+                  for label, p in clock_paths.items()}
     configs = CONFIGS + tuple(("highway-v0", {"vehicles_count": n}) for n in args.vehicles)
     for env_id, config in configs:
         env = ht.make(env_id, config)
@@ -245,7 +277,7 @@ def main(argv) -> int:
         print(f"== {env_id}: V={env.num_slots}, {frames} frames, B={B}")
 
         # 2. the builds agree on every field and flag
-        for name, veh in scenes(v0).items():
+        for name, veh in straight_scenes(v0).items():
             srt, idx = ss.sort_plain(veh, fs)
             res = {}
             for label, (k1, k3) in wrappers.items():
@@ -272,47 +304,258 @@ def main(argv) -> int:
         srt, idx = ss.sort_plain(veh, fs)
         none = torch.zeros(B, dtype=torch.bool, device=env.device)
         back = ss.unsort_plain(ss.frames_sorted_plain(srt, idx, fs, p, dt, frames)[0], idx, veh)
-        labels = list(wrappers)
-        order = (labels + labels[::-1]) * args.rounds
         for kname, make_fn in (
             ("K1 every env", lambda k1, k3: lambda: k1(veh, fs, p, dt, frames)),
             ("K3", lambda k1, k3: lambda: k3(srt, idx, fs, p, dt, frames)),
             ("K1 masked, no env firing",
              lambda k1, k3: lambda: k1(veh, fs, p, dt, frames, mask=none, out=back)),
         ):
-            times = {label: [] for label in labels}
-            for label in order:
-                times[label].append(queued_ms(make_fn(*wrappers[label]), REPS))
-            line = [f"{label} {sum(t) / len(t):.4f} ms ({min(t):.4f}-{max(t):.4f}, "
-                    f"{len(t)} turns)" for label, t in times.items()]
-            if len(labels) == 2:
-                ratio = (sum(times["current"]) / len(times["current"])) / (
-                    sum(times["baseline"]) / len(times["baseline"]))
-                line.append(f"current / baseline {ratio:.3f}")
-            print(f"  {kname}: " + "; ".join(line))
+            fns = {label: make_fn(*w) for label, w in wrappers.items()}
+            print(f"  {kname}: " + in_turns(fns, args.rounds))
 
         # 4. cycles per frame phase
         for label, libs in clock_libs.items():
             for kname, kernel in (("K1", "straight_frames"), ("K3", "straight_frames_sorted")):
                 wrapper, lib = libs[kname]
-                run = (lambda: wrapper(veh, fs, p, dt, frames)) if kname == "K1" else (
-                    lambda: wrapper(srt, idx, fs, p, dt, frames))
-                run()
-                torch.cuda.synchronize()
-                if lib.frame_clocks_reset() != 0:
-                    raise RuntimeError("frame_clocks_reset failed")
-                run()
-                torch.cuda.synchronize()
-                buf = (ctypes.c_ulonglong * 32)()
-                if lib.frame_clocks_read(buf) != 0:
-                    raise RuntimeError("frame_clocks_read failed")
-                names = phases[label][kernel]
-                cyc = [buf[k] / (B * frames) for k in range(len(names))]
-                total = sum(cyc)
-                print(f"  {label} {kname} cycles per frame (thread 0, mean over {B} blocks): "
-                      f"{total:.0f}")
-                for n, c in zip(names, cyc):
-                    print(f"    {c:9.0f} {100 * c / total:5.1f}%  {n}")
+                run = (lambda w=wrapper: w(veh, fs, p, dt, frames)) if kname == "K1" else (
+                    lambda w=wrapper: w(srt, idx, fs, p, dt, frames))
+                print_clocks(label, kname, lib, phases[label][kernel], run)
+
+
+# --------------------------------------------------------------------------- #
+# general kernels (K4, K5)
+# --------------------------------------------------------------------------- #
+
+
+def general_scenes(env, states, gen):
+    """K4's scenes, as chip_smoke.py builds them: reset; 8 policy steps in
+    (the plain autoreset path); every env's vehicles in a row 1.5 m apart
+    along the ego's heading (an all-env pile-up); and on merge-v0 the ramp
+    vehicle closing on the end-of-ramp obstacle at 15 m/s and slot 1 on the
+    ego at 40 m/s (the obstacle hit)."""
+    import torch
+
+    from highwayenv_tpu_torch.vehicle.state import KIND_OBSTACLE
+
+    veh = states.vehicles
+    Bn, V = veh.kind.shape
+    dev = veh.pos.device
+    st = states
+    for _ in range(8):
+        acts = torch.randint(0, env.action_type.n, (Bn,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        st = env.step_autoreset(st, acts, gen)[1]
+    out = {"reset": veh, "8 steps in": st.vehicles}
+    h = veh.heading[:, 0]
+    u = torch.stack([torch.cos(h), torch.sin(h)], dim=-1)
+    k = torch.arange(V, device=dev, dtype=torch.float32)
+    row = veh.pos[:, :1] + 1.5 * k[None, :, None] * u[:, None, :]
+    is_veh = veh.is_vehicle
+    out["pile-up"] = veh.replace(
+        pos=torch.where(is_veh[..., None], row, veh.pos),
+        heading=torch.where(is_veh, h[:, None], veh.heading),
+        lane=torch.where(is_veh, veh.lane[:, :1], veh.lane),
+        target_lane=torch.where(is_veh, veh.lane[:, :1], veh.target_lane),
+    )
+    if bool((veh.kind == KIND_OBSTACLE).any()):  # merge-v0: slot 5
+        pos, heading, speed = veh.pos.clone(), veh.heading.clone(), veh.speed.clone()
+        lane, tlane = veh.lane.clone(), veh.target_lane.clone()
+        off = 0.5 * (torch.arange(Bn, device=dev) % 8).float()
+        pos[:, 4, 0] = pos[:, 5, 0] - 7.0 - off
+        pos[:, 4, 1] = pos[:, 5, 1]
+        heading[:, 4], speed[:, 4] = 0.0, 15.0
+        lane[:, 4] = tlane[:, 4] = env.net.global_lane_index(("b", "c", 2))
+        pos[:, 1, 0] = pos[:, 0, 0] - 6.0
+        pos[:, 1, 1] = pos[:, 0, 1]
+        heading[:, 1], speed[:, 1] = 0.0, 40.0
+        lane[:, 1] = tlane[:, 1] = lane[:, 0]
+        out["obstacle hit"] = veh.replace(pos=pos, heading=heading, speed=speed,
+                                          lane=lane, target_lane=tlane)
+    return out
+
+
+def regulated_scenes(env, states, gen):
+    """K5's scenes at intersection-v0, as chip_smoke.py builds them, each
+    (vehicles, steps0, slot actions, frames): the reset scene; 8 plain
+    autoreset steps in, with row b's frame counter advanced by 15 b so the
+    tick phases cover all 7 values; a conflict scene (slots 0 and 1 at the
+    same priority from corners 0 and 2, slot 2 at a higher one from corner
+    1, at distances that vary by env); and the reset's warm-up launch (the
+    first 16 slots of fresh spawns, 45 frames, frame counter 0)."""
+    import dataclasses
+
+    import torch
+
+    from highwayenv_tpu_torch.road import lane as lane_ops
+    from highwayenv_tpu_torch.vehicle.state import KIND_IDM, VehicleState
+
+    veh = states.vehicles
+    Bn, V = veh.kind.shape
+    dev = veh.pos.device
+    spread = torch.arange(Bn, device=dev, dtype=torch.int32) * env.frames_per_step
+
+    def actions():
+        acts = torch.randint(0, env.action_type.n, (Bn,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        return env._action_to_slots(acts)
+
+    out = {"reset": (veh, states.steps, actions(), env.frames_per_step)}
+    st = states
+    for _ in range(8):
+        acts = torch.randint(0, env.action_type.n, (Bn,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        st = env.step_autoreset(st, acts, gen)[1]
+    out["8 steps in"] = (st.vehicles, st.steps + spread, actions(), env.frames_per_step)
+
+    rb, rn, rid, rlen = env._routes
+    fields = {f.name: getattr(veh, f.name).clone() for f in dataclasses.fields(VehicleState)}
+    off = (torch.arange(Bn, device=dev) % 16).float()
+    for slot, corner, dest, s0, speed in ((0, 0, 2, 96.0, 8.0), (1, 2, 3, 95.0, 7.0),
+                                          (2, 1, 3, 93.0, 9.0)):
+        lane = env._spawn_lane[corner].expand(Bn)
+        s = s0 - (0.5 + 0.25 * slot) * off
+        fields["pos"][:, slot] = lane_ops.position(env.geo, lane, s, torch.zeros_like(s))
+        fields["heading"][:, slot] = lane_ops.heading_at(env.geo, lane, s)
+        for name, value in (("lane", lane), ("target_lane", lane), ("speed", speed),
+                            ("target_speed", speed), ("kind", KIND_IDM), ("crashed", False),
+                            ("is_yielding", False), ("yield_timer", 0), ("route_ptr", 0),
+                            ("route_len", rlen[corner, dest])):
+            fields[name][:, slot] = value
+        for name, table in (("route_base", rb), ("route_n", rn), ("route_id", rid)):
+            fields[name][:, slot] = table[corner, dest]
+    out["conflict"] = (VehicleState(**fields), states.steps + spread, actions(),
+                       env.frames_per_step)
+
+    spawned, _ = env._spawn_initial(Bn, gen)
+    W = env._warmup_slots
+    sub = VehicleState(**{f.name: getattr(spawned, f.name)[:, :W].contiguous()
+                          for f in dataclasses.fields(VehicleState)})
+    out["warm-up"] = (sub, torch.zeros(Bn, dtype=torch.int32, device=dev),
+                      torch.zeros((Bn, W), dtype=torch.int32, device=dev),
+                      env._warmup_frames)
+    return out
+
+
+def run_general(args, paths, clock_paths, phases) -> None:
+    import torch
+
+    import highwayenv_tpu_torch as ht
+    from highwayenv_tpu_torch.ops import general_frames as gf
+
+    k5_cls = functools.partial(gf.GeneralFramesKernel, regulated=True)
+    wrappers = {label: {"K4": load(p["general_frames"], gf.GeneralFramesKernel)[0],
+                        "K5": load(p["general_frames"], k5_cls)[0]}
+                for label, p in paths.items()}
+    clock_libs = {label: {"K4": load(p["general_frames"], gf.GeneralFramesKernel),
+                          "K5": load(p["general_frames"], k5_cls)}
+                  for label, p in clock_paths.items()}
+    names = [n for n, _, _ in gf.OUT_FIELDS]
+    reg_names = names + [n for n, _, _ in gf.REG_FIELDS]
+    timed = {}  # label -> (kernel, call args)
+
+    for env_id in ("roundabout-v0", "merge-v0"):
+        env = ht.make(env_id)
+        spec, frames = env._general, env.frames_per_step
+        gen = env.generator(SEED)
+        _, states = env.reset(B, gen)
+        print(f"== {env_id}: K4, V={env.num_slots}, L={env.geo.num_lanes}, "
+              f"R={states.vehicles.route_base.shape[-1]}, {frames} frames, B={B}")
+        for name, veh in general_scenes(env, states, gen).items():
+            acts = torch.randint(0, env.action_type.n, (B,), generator=gen,
+                                 device=env.device, dtype=torch.int32)
+            sa = env._action_to_slots(acts)
+            res = {label: w["K4"](veh, spec, sa, frames) for label, w in wrappers.items()}
+            torch.cuda.synchronize()
+            first = res[next(iter(res))]
+            for label, out in res.items():
+                equal_fields(out, first, names, f"{env_id} {name} K4")
+            print(f"  {name}: {' and '.join(res)} equal on every field; crashed slots "
+                  f"{int(first.crashed.sum())}")
+            if name == "reset":
+                timed[f"K4 {env_id}"] = ("K4", (veh, spec, sa, frames))
+
+    env = ht.make("intersection-v0")
+    spec = env._general
+    gen = env.generator(SEED)
+    _, states = env.reset(B, gen)
+    print(f"== intersection-v0: K5, V={env.num_slots}, L={env.geo.num_lanes}, "
+          f"R={states.vehicles.route_base.shape[-1]}, {env.frames_per_step} frames, tick "
+          f"period {spec.period}, B={B}")
+    for name, (veh, steps0, sa, frames) in regulated_scenes(env, states, gen).items():
+        if name == "reset":  # the tick phases spread over all 7 values
+            steps0 = steps0 + torch.arange(B, device=env.device, dtype=torch.int32) * 15
+        res = {label: w["K5"](veh, spec, sa, frames, steps0) for label, w in wrappers.items()}
+        torch.cuda.synchronize()
+        first = res[next(iter(res))]
+        for label, out in res.items():
+            equal_fields(out, first, reg_names, f"intersection-v0 {name} K5")
+        print(f"  {name} (V={veh.kind.shape[1]}, {frames} frames): {' and '.join(res)} equal "
+              f"on every field and the yielding state; yielding {int(first.is_yielding.sum())}, "
+              f"crashed slots {int(first.crashed.sum())}")
+        if name in ("reset", "warm-up"):
+            key = "K5 step (reset, spread phases)" if name == "reset" else "K5 warm-up"
+            timed[key] = ("K5", (veh, spec, sa, frames, steps0))
+
+    # 3. device times in turns
+    for key, (k, call) in timed.items():
+        fns = {label: (lambda w=w[k]: w(*call)) for label, w in wrappers.items()}
+        print(f"  {key}: " + in_turns(fns, args.rounds))
+
+    # 4. cycles per frame phase
+    for label, libs in clock_libs.items():
+        for key, (k, call) in timed.items():
+            wrapper, lib = libs[k]
+            print_clocks(label, key, lib, phases[label]["general_frames"],
+                         lambda w=wrapper: w(*call))
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", default=str(REPO / "build/baseline/highwayenv_tpu_torch/csrc"))
+    ap.add_argument("--clocks", action="store_true")
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--kernels", nargs="+", choices=list(FAMILIES), default=list(FAMILIES))
+    ap.add_argument("--vehicles", type=int, nargs="*", default=[])
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: CUDA is not available", file=sys.stderr)
+        return 1
+    from highwayenv_tpu_torch.ops import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    trees = {"current": _build.SOURCE_DIR}
+    if pathlib.Path(args.baseline).is_dir():
+        trees = {"baseline": pathlib.Path(args.baseline), **trees}
+    else:
+        print(f"no baseline tree at {args.baseline}: the current kernels alone")
+
+    # 1. builds
+    kernels = [k for fam in args.kernels for k in FAMILIES[fam]]
+    paths, clock_paths, phases = {}, {}, {}
+    for label, csrc in trees.items():
+        paths[label] = _build.build(kernels, csrc, OUT_DIR / label)
+        for k, path in paths[label].items():
+            print(f"{label} {k}: {path.name}")
+            for line in ptxas_report(path):
+                print(f"    {line}")
+        if args.clocks:
+            stamped = OUT_DIR / f"{label}-clocks" / "csrc"
+            phases[label] = instrumented_tree(csrc, stamped, kernels)
+            clock_paths[label] = _build.build(kernels, stamped, OUT_DIR / f"{label}-clocks")
+            for k, path in clock_paths[label].items():
+                print(f"{label} {k} with clocks: " + "; ".join(ptxas_report(path)))
+
+    if "straight" in args.kernels:
+        run_straight(args, paths, clock_paths, phases)
+    if "general" in args.kernels:
+        run_general(args, paths, clock_paths, phases)
     return 0
 
 

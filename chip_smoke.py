@@ -29,7 +29,14 @@ Phases:
      45 frames, frame counter 0), and at the warp's edge (duration 20,
      V=32, B=512) on the reset, spread-phase and conflict scenes, every
      field bit-exact, the yielding state and the impacts included, and the
-     intersection-v0 autoreset step against the plain reference path;
+     intersection-v0 autoreset step against the plain reference path; then
+     on highway-v0, roundabout-v0 and intersection-v0, B=4096, from a batch
+     with every 8th ego crashed, the compact autoreset (reset_slots P =
+     1024, and 64, which takes further passes) against the full one over 3
+     steps, and CapturedStep replays against eager steps over 8 (full, P =
+     1024, P = 64, and with final_obs full and at P = 64) from one cloned
+     state and generator: obs, every field, reward and flags bit-exact, the
+     generators equal at the end;
   4. the main paths: make("highway-v0") on CUDA, reset B=4096 and a random
      policy rollout with autoreset through the sorted step, each kernel's
      launch count checked, and a few steps of the dense path
@@ -38,15 +45,20 @@ Phases:
      make("intersection-v0") on CUDA, B=4096, reset and a random-policy
      rollout through K5 (two launches per policy step, the step's frames
      and the warm-up of the reset drawn every step, plus one for the first
-     reset), with the ended, crashed and arrived episodes counted;
+     reset), with the ended, crashed and arrived episodes counted; then the
+     three rollouts again with each step one replay of a CapturedStep (the
+     kernels' counts cover the warm-up step and the capture), and a
+     profile of replays for the port's kernels per replay;
   5. times on the card: each kernel's device time (torch.profiler, and
      CUDA events around launches queued behind a device-side wait), its
      plain version's, its bound and the PyTorch yardstick's where there is
      one, with the wall time of a call (CUDA events); the simulation of a
      sorted and a dense policy step; the sorted and dense rollouts in
      turns; the roundabout-v0 and intersection-v0 rollouts three times
-     each; and a profile of rollout steps of each (device kernels by name,
-     device busy share).
+     each; a profile of rollout steps of each (device kernels by name,
+     device busy share); and ms per step of the three envs, eager against
+     graph, full against compact P=1024, three runs each in turns, with
+     the device busy time per step.
 
 Exits non-zero on any failed check, and without CUDA.  The last lines are
 the kernels JSON, the card line and ``{"ok": true, "device": {...}}``.
@@ -56,6 +68,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -133,6 +146,12 @@ REG_OPS_CLOSE = 5
 REG_OPS_PROBES = 18 * 20
 REG_OPS_YIELD = 10
 INT_HORIZON = 32  # policy steps of the intersection-v0 main-path rollout
+COMPACT_SLOTS = (1024, 64)  # reset slots P: one pass a step, and further passes
+COMPACT_STEPS = 3  # autoreset steps of compact against full
+GRAPH_STEPS = 8  # steps of the captured step against the eager one
+CRASH_EVERY = 8  # every 8th ego crashed at the start: 512 done rows at B=4096
+PROFILE_REPLAYS = 4  # replays of a captured step under the profiler
+TIMED_STEPS = 32  # steps of each timed eager / graph, full / compact run
 
 
 def card_line() -> str:
@@ -640,6 +659,200 @@ def profile_rollout(env, states, gen, steps: int = 4) -> None:
               f"{e.count / steps:6.1f}x  {e.key[:90]}")
 
 
+def crashed_every(env, states, k: int = CRASH_EVERY):
+    """``states`` with the ego of every k-th env crashed: their episodes end
+    at the next step."""
+    veh = states.vehicles
+    crashed = veh.crashed.clone()
+    crashed[::k, env.ego_slots[0]] = True
+    return states.replace(vehicles=veh.replace(crashed=crashed))
+
+
+def same_step(a, b, where: str) -> None:
+    """Two autoreset steps' obs, every field of the state, reward,
+    terminated and truncated bit-exact."""
+    import dataclasses
+
+    names = ["obs", "reward", "terminated", "truncated", "time", "steps"]
+    pairs = [a[0], a[2], a[3], a[4], a[1].time, a[1].steps]
+    others = [b[0], b[2], b[3], b[4], b[1].time, b[1].steps]
+    for f in dataclasses.fields(a[1].vehicles):
+        names.append(f.name)
+        pairs.append(getattr(a[1].vehicles, f.name))
+        others.append(getattr(b[1].vehicles, f.name))
+    bad = [n for n, x, y in zip(names, pairs, others) if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(f"{where}: differ in {bad}")
+
+
+class PassCounter:
+    """Stands in for an env's ``_compact_pass`` and counts its calls."""
+
+    def __init__(self, env):
+        self.env, self.fn, self.calls = env, env._compact_pass, 0
+
+    def __enter__(self):
+        self.env._compact_pass = self
+        return self
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.fn(*args, **kwargs)
+
+    def __exit__(self, *exc):
+        del self.env._compact_pass
+
+
+def check_compact(env, states, label: str) -> None:
+    """``reset_slots=P`` against the full autoreset: COMPACT_STEPS steps
+    from ``states`` with every CRASH_EVERY-th ego crashed, from one
+    generator state, each step's outputs bit-exact and the generators equal
+    at the end; prints the done rows and the passes of each step."""
+    start = crashed_every(env, states)
+    for P in COMPACT_SLOTS:
+        g_f, g_c = env.generator(200), env.generator(200)
+        s_f = s_c = start
+        log = []
+        for t in range(COMPACT_STEPS):
+            acts = torch.randint(0, env.action_type.n, (B,), generator=g_f,
+                                 device=env.device, dtype=torch.int32)
+            torch.randint(0, env.action_type.n, (B,), generator=g_c,
+                          device=env.device, dtype=torch.int32)
+            out_f = env.step_autoreset_batched(s_f, acts, g_f)
+            with PassCounter(env) as passes:
+                out_c = env.step_autoreset_batched(s_c, acts, g_c, reset_slots=P)
+            same_step(out_c, out_f, f"{label}P={P} step {t}")
+            log.append(f"{int((out_f[3] | out_f[4]).sum())} done / {passes.calls} passes")
+            s_f, s_c = out_f[1], out_c[1]
+        if not torch.equal(g_f.get_state(), g_c.get_state()):
+            raise AssertionError(f"{label}P={P}: the generators differ")
+        print(f"  {label}compact P={P} vs full, B={B}: bit-exact on every field, obs, "
+              f"reward, terminated, truncated; generator equal; per step {log}")
+
+
+def check_graph(env, states, label: str) -> None:
+    """CapturedStep replays against eager steps: GRAPH_STEPS steps from one
+    cloned state (every CRASH_EVERY-th ego crashed) and one cloned generator
+    state, full and compact, and with ``final_obs`` (the vector env's
+    terminal observations), bit-exact, the generators equal at the end."""
+    from highwayenv_tpu_torch.envs.base import map_fields
+    from highwayenv_tpu_torch.parallel.graph import CapturedStep
+
+    start = crashed_every(env, states)
+    for P, final_obs in [(P, False) for P in (None,) + COMPACT_SLOTS] + [(None, True),
+                                                                         (64, True)]:
+        g_e, g_g = env.generator(300), env.generator(300)
+        s_e = map_fields(torch.clone, start)
+        t0 = time.perf_counter()
+        step = CapturedStep(env, start, g_g, reset_slots=P, final_obs=final_obs)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        where = f"{label}graph P={P}{' final_obs' if final_obs else ''}"
+        dones = []
+        for t in range(GRAPH_STEPS):
+            acts = torch.randint(0, env.action_type.n, (B,), generator=g_e,
+                                 device=env.device, dtype=torch.int32)
+            acts_g = torch.randint(0, env.action_type.n, (B,), generator=g_g,
+                                   device=env.device, dtype=torch.int32)
+            out_e = env._autoreset_rest(*env._autoreset_first(s_e, acts, g_e, P, final_obs))
+            out_g = step(acts_g)
+            same_step(out_g, out_e, f"{where} step {t}")
+            if final_obs and not torch.equal(out_g[5]["final_obs"], out_e[5]["final_obs"]):
+                raise AssertionError(f"{where} step {t}: final_obs differs")
+            dones.append(int((out_e[3] | out_e[4]).sum()))
+            s_e = out_e[1]
+        if not torch.equal(g_e.get_state(), g_g.get_state()):
+            raise AssertionError(f"{where}: the generators differ")
+        print(f"  {label}CapturedStep P={P}{', final_obs' if final_obs else ''} vs eager, "
+              f"{GRAPH_STEPS} steps, B={B}: bit-exact, generator equal; warm-up and capture "
+              f"{capture_s:.3f} s; done rows {dones}")
+
+
+def profile_replays(env, states, gen, kernel_names, reset_slots=None) -> dict:
+    """Device kernels per replay of a CapturedStep, from torch.profiler over
+    PROFILE_REPLAYS replays: {kernel name: launches per replay} for the
+    names containing one of ``kernel_names``, and the device busy time per
+    replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from highwayenv_tpu_torch.parallel.graph import CapturedStep
+
+    step = CapturedStep(env, states, gen, reset_slots=reset_slots)
+    step(torch.zeros(B, dtype=torch.int32, device=env.device))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_REPLAYS):
+            step(torch.randint(0, env.action_type.n, (B,), generator=gen,
+                               device=env.device, dtype=torch.int32))
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = {}
+    for e in kernels:
+        for name in kernel_names:
+            # the demangled symbol: "name(" or "void name<...>("
+            if re.search(r"(^|\s)" + re.escape(name) + r"[<(]", e.key):
+                ours[name] = ours.get(name, 0) + e.count / PROFILE_REPLAYS
+    return {
+        "ours": ours,
+        "kernels": sum(e.count for e in kernels) / PROFILE_REPLAYS,
+        "busy_ms": sum(e.self_device_time_total for e in kernels) / PROFILE_REPLAYS / 1e3,
+    }
+
+
+def stepper(env, states, gen, reset_slots, graph: bool):
+    """``step(actions)``: random-policy autoreset steps from a copy of
+    ``states``, eager or one replay of a CapturedStep (built here), and
+    the action draw; one step taken, untimed."""
+    from highwayenv_tpu_torch.envs.base import map_fields
+    from highwayenv_tpu_torch.parallel.graph import CapturedStep
+
+    if graph:
+        step = CapturedStep(env, states, gen, reset_slots=reset_slots)
+    else:
+        box = [map_fields(torch.clone, states)]
+
+        def step(acts):
+            out = env.step_autoreset_batched(box[0], acts, gen, reset_slots=reset_slots)
+            box[0] = out[1]
+            return out
+
+    def acts():
+        return torch.randint(0, env.action_type.n, (B,), generator=gen,
+                             device=env.device, dtype=torch.int32)
+
+    step(acts())
+    torch.cuda.synchronize()
+    return lambda: step(acts())
+
+
+def timed_steps(env, states, gen, steps: int, reset_slots, graph: bool) -> float:
+    """Wall ms per step of ``steps`` steps (host clock, synchronized at both
+    ends); a CapturedStep is built before the clock starts."""
+    step = stepper(env, states, gen, reset_slots, graph)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def step_device_ms(env, states, gen, reset_slots, graph: bool):
+    """(device busy ms, device kernels) per step (torch.profiler, kernels'
+    self device time) over PROFILE_REPLAYS steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = stepper(env, states, gen, reset_slots, graph)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_REPLAYS):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kernels) / PROFILE_REPLAYS / 1e3,
+            sum(e.count for e in kernels) / PROFILE_REPLAYS)
+
+
 class FrameRecorder:
     """Stands in for the K5 wrapper during a rollout and keeps the frame
     count of each call, so the step launches (15 frames) and the warm-up
@@ -833,6 +1046,13 @@ def main() -> int:
             raise AssertionError("intersection-v0 V=32: the tick phases are not mixed")
     check_autoreset(ienv, istates, gen, "intersection-v0 ")
 
+    # the compact autoreset and the captured step, on the three envs
+    for label, e, st in (("highway-v0 ", env, states), ("roundabout-v0 ", genv, gstates),
+                         ("intersection-v0 ", ienv, istates)):
+        print(f"== 3. {label}compact autoreset vs full, CapturedStep vs eager")
+        check_compact(e, st, label)
+        check_graph(e, st, label)
+
     print(f"== 4. main path: make('highway-v0') on CUDA, B={B}, "
           f"{HORIZON} + {CRASH_HORIZON} autoreset steps, sorted step")
     gen = env.generator(SEED + 1)
@@ -967,6 +1187,44 @@ def main() -> int:
         raise AssertionError("intersection-v0: non-finite obs, reward or state")
     if not int(ended) > 0:
         raise AssertionError("intersection-v0: no episode ended")
+
+    # the three rollouts again, each step one replay of a CapturedStep
+    path_kernels = (
+        ("highway-v0", env, {"K1": k1, "K2a": k2a, "K3": k3, "K2b": k2b},
+         ("straight_frames_kernel", "sort_kernel", "straight_frames_sorted_kernel",
+          "unsort_kernel")),
+        ("roundabout-v0", genv, {"K4": k4}, ("general_frames_kernel<false>",)),
+        ("intersection-v0", ienv, {"K5": k5}, ("general_frames_kernel<true>",)),
+    )
+    for label, e, path, names in path_kernels:
+        print(f"== 4. graph path: make('{label}') on CUDA, B={B}, {HORIZON} random-policy "
+              "autoreset steps, each one replay of a CapturedStep")
+        gen = e.generator(SEED + 3)
+        _, gst = e.reset(B, gen)
+        for k in (k1, k2a, k3, k2b, k4, k5):
+            k.launches = 0
+        gst, gm = rollout(e, gst, HORIZON, gen, graph=True)
+        torch.cuda.synchronize()
+        counts = {name: k.launches for name, k in path.items()}
+        others = sum(k.launches for k in (k1, k2a, k3, k2b, k4, k5)) - sum(counts.values())
+        gm = {k: float(v) for k, v in gm.items()}
+        print(f"  launches counted in Python (the warm-up step and the capture; a replay "
+              f"counts none): {counts}, other kernels {others}; rollout {gm}")
+        if min(counts.values()) < 1 or others:
+            raise AssertionError(f"{label} graph path: its kernels were not captured alone")
+        if not all(np.isfinite(list(gm.values()))) or not gm["done_rate"] > 0:
+            raise AssertionError(f"{label} graph path: non-finite metrics or no episode ended")
+        for k in ("pos", "speed", "heading"):
+            if not bool(torch.isfinite(getattr(gst.vehicles, k)).all()):
+                raise AssertionError(f"{label} graph path: non-finite {k}")
+        prof = profile_replays(e, gst, gen, names)
+        print(f"  profile of {PROFILE_REPLAYS} replays: {prof['kernels']:.1f} device kernels "
+              f"and {prof['busy_ms']:.4f} ms device busy per replay; the port's kernels per "
+              f"replay {prof['ours']}")
+        want = {"intersection-v0": 2.0}.get(label, 1.0)  # K5: step and reset warm-up
+        if prof["kernels"] > 0 and any(prof["ours"].get(n, 0.0) != want for n in names):
+            raise AssertionError(f"{label}: a replay launched {prof['ours']}, expected "
+                                 f"{want} of each of {names}")
 
     print(f"== 5. times on {card}")
     gen = env.generator(SEED + 2)
@@ -1183,6 +1441,49 @@ def main() -> int:
               "ms per step)")
     print("  intersection-v0 step:")
     profile_rollout(ienv, i0, gen)
+
+    # ms per step: eager against graph, full against compact, in turns
+    from highwayenv_tpu_torch.parallel.graph import CapturedStep
+
+    print(f"  ms per step of {TIMED_STEPS} random-policy autoreset steps at B={B}, "
+          f"three runs each in turns, on {card}:")
+    variants = (("eager full", None, False), ("eager compact P=1024", 1024, False),
+                ("graph full", None, True), ("graph compact P=1024", 1024, True))
+    for label, e in (("highway-v0", env), ("roundabout-v0", genv),
+                     ("intersection-v0", ienv)):
+        _, t0_states = e.reset(B, e.generator(SEED + 4))
+        walls = {name: [] for name, _, _ in variants}
+        for r in range(3):
+            order = variants if r % 2 == 0 else variants[::-1]
+            for name, P, graph in order:
+                walls[name].append(timed_steps(e, t0_states, e.generator(SEED + 5), TIMED_STEPS,
+                                               P, graph))
+        for name, P, graph in variants:
+            busy, n_kernels = step_device_ms(e, t0_states, e.generator(SEED + 5), P, graph)
+            mid = sorted(walls[name])[1]
+            print(f"  {label} {name}: " + ", ".join(f"{w:.4f}" for w in walls[name])
+                  + f" ms per step ({B * 1e3 / mid:.1f} env-steps/s at the median); device "
+                  f"busy {busy:.4f} ms per step, {100 * busy / mid:.1f}% of the median, "
+                  f"{n_kernels:.1f} device kernels per step ({card})")
+        # what the compact reset saves on the device: a reset's placement
+        # at B rows and at P rows; and the host's time to issue one replay
+        draws = e._reset_draws(B, e.generator(SEED + 6))
+        part = {k: v[:1024] for k, v in draws.items()}
+        place_b = device_ms(lambda: e._place_state(draws), 5)
+        place_p = device_ms(lambda: e._place_state(part), 5)
+        print(f"  {label} a reset's placement: {place_b:.4f} ms on the device at {B} rows, "
+              f"{place_p:.4f} ms at 1024 rows")
+        for name, P in (("full", None), ("compact P=1024", 1024)):
+            cap = CapturedStep(e, t0_states, e.generator(SEED + 7), reset_slots=P)
+            issue = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cap.graph.replay()
+                issue.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            print(f"  {label} graph {name}: the host issues a replay in "
+                  f"{sorted(issue)[5]:.4f} ms (median of 10, from an idle queue)")
 
     print(json.dumps({"kernels": [{
         "name": name,

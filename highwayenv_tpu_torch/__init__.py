@@ -70,6 +70,22 @@ def registered_ids():
     return sorted(_REGISTRY)
 
 
+def make_vec(env_id: str, num_envs: int, config: dict | None = None, **kw):
+    """Gymnasium VectorEnv over the batched step (vector_env.py): on the card
+    the whole batch steps as one replay of a CUDA graph."""
+    from highwayenv_tpu_torch.vector_env import GymVectorEnv
+
+    return GymVectorEnv(env_id, num_envs, config=config, **kw)
+
+
+def register_gymnasium_envs(namespace: str = "highwayenv_tpu_torch") -> None:
+    """Register every ported id with Gymnasium (gym_env.py): ``make_vec``
+    works, ``make`` says why it does not."""
+    from highwayenv_tpu_torch.gym_env import register_gymnasium_envs as _register
+
+    _register(namespace)
+
+
 def _register_all():
     from highwayenv_tpu_torch.envs.highway import HighwayEnv, HighwayEnvFast
     from highwayenv_tpu_torch.envs.intersection import IntersectionEnv

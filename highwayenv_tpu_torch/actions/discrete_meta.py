@@ -46,17 +46,30 @@ class DiscreteMetaAction:
                 "At least longitudinal or lateral actions must be included"
             )
         self.actions_indexes = {v: k for k, v in self.actions.items()}
+        self._speed_tables: dict = {}
 
     @property
     def n(self) -> int:
         return len(self.actions)
 
+    def space(self):
+        from gymnasium import spaces
+
+        return spaces.Discrete(self.n)
+
+    def speed_table(self, device) -> torch.Tensor:
+        """``target_speeds`` as a float32 tensor on ``device``, copied there
+        once: a step copies no host data, so a CUDA graph can capture it."""
+        key = str(torch.device(device))
+        if key not in self._speed_tables:
+            self._speed_tables[key] = torch.as_tensor(
+                np.asarray(self.target_speeds, np.float32), device=device
+            )
+        return self._speed_tables[key]
+
     def apply(self, geo, state: VehicleState, ego_mask, action):
         """Update the masked controlled vehicles' targets from the action."""
-        return controller.apply_meta_action(
-            geo, state, ego_mask, action, self.target_speeds,
-            longitudinal=self.longitudinal, lateral=self.lateral,
-        )
+        return controller.apply_meta_action(geo, state, ego_mask, action, self)
 
     def available_actions_mask(self, geo, state: VehicleState, ego: int):
         """(B, n) bool mask of the currently available actions (reference

@@ -25,13 +25,23 @@ runs them, as the JAX package does:
 
 ``_simulate`` runs them through the plain torch loops on any device:
 ``simulate_frames_reference`` or ``simulate_general_reference``.
+
+The batched API of the JAX package's ``BaseEnv``: ``reset_batch``,
+``step_batched`` (no autoreset) and ``step_autoreset_batched``, whose
+``reset_slots=P`` replaces the done rows with the same scenes as the full
+autoreset while placing only them, P at a time.  A reset is split into its
+draws (``_reset_draws``, every generator call) and their placement
+(``_place_vehicles``, row-local), which is what makes that exact.  The
+autoreset step is written as a part with no host sync
+(``_autoreset_first``), which ``parallel/graph.py`` captures as a CUDA
+graph, and the rest (``_autoreset_rest``).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -65,18 +75,39 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def map_fields(fn, *states):
+    """``fn`` applied tensor by tensor over EnvStates (or VehicleStates) of
+    one structure: a state of its results."""
+    out = {}
+    for f in dataclasses.fields(states[0]):
+        values = [getattr(s, f.name) for s in states]
+        out[f.name] = (map_fields(fn, *values) if dataclasses.is_dataclass(values[0])
+                       else fn(*values))
+    return type(states[0])(**out)
+
+
+def _rows(mask: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A (B,) or (P,) row mask shaped to broadcast over ``t``."""
+    return mask.view(mask.shape + (1,) * (t.dim() - 1))
+
+
 def where_done(done: torch.Tensor, new, old):
     """Row select over every tensor of two EnvStates (or VehicleStates)."""
-    out = {}
-    for f in dataclasses.fields(old):
-        a, b = getattr(new, f.name), getattr(old, f.name)
-        if dataclasses.is_dataclass(a):
-            out[f.name] = where_done(done, a, b)
-        else:
-            out[f.name] = torch.where(
-                done.view(done.shape + (1,) * (b.dim() - 1)), a, b
-            )
-    return type(old)(**out)
+    return map_fields(lambda a, b: torch.where(_rows(done, b), a, b), new, old)
+
+
+def take_rows(state, idx: torch.Tensor):
+    """Rows ``idx`` of every tensor of an EnvState (or VehicleState)."""
+    return map_fields(lambda t: t[idx], state)
+
+
+def scatter_rows(old, idx: torch.Tensor, valid: torch.Tensor, new):
+    """``old`` (an EnvState or VehicleState) with row ``idx[p]`` replaced by
+    row p of ``new`` where ``valid[p]``; ``idx`` holds distinct rows."""
+    return map_fields(
+        lambda a, b: a.index_copy(0, idx, torch.where(_rows(valid, a), b, a[idx])),
+        old, new,
+    )
 
 
 def simulate_frames_reference(
@@ -93,9 +124,10 @@ def simulate_frames_reference(
 class BaseEnv:
     """Config surface mirrors the reference AbstractEnv.
 
-    Batched API: ``reset(batch_size, generator) -> (obs, EnvState)`` and
-    ``step_autoreset_batched(states, actions, generator)
-    -> (obs, EnvState, reward, terminated, truncated, info)``.
+    Batched API: ``reset(batch_size, generator) -> (obs, EnvState)`` (also
+    ``reset_batch``), ``step_autoreset_batched(states, actions, generator,
+    reset_slots=None)`` and ``step_batched(states, actions, generator)``,
+    each ``-> (obs, EnvState, reward, terminated, truncated, info)``.
     """
 
     #: NPC class presets not ported yet (Linear family; reference
@@ -191,23 +223,18 @@ class BaseEnv:
         )
 
     def _build_spaces(self):
-        from highwayenv_tpu_torch.actions.discrete_meta import DiscreteMetaAction
-        from highwayenv_tpu_torch.observations.kinematics import (
-            KinematicsObservation,
-        )
+        from highwayenv_tpu_torch.factories import action_factory, observation_factory
 
-        act = dict(self.config["action"])
-        obs = dict(self.config["observation"])
-        if act.pop("type") != "DiscreteMetaAction" or obs.pop("type") != "Kinematics":
-            raise NotImplementedError(
-                f"action {self.config['action']['type']} / observation "
-                f"{self.config['observation']['type']}: only DiscreteMetaAction "
-                "and Kinematics are ported, the rest not ported yet"
-            )
-        self.action_type = DiscreteMetaAction(**act)
-        self.observation_type = KinematicsObservation(
-            reset_edge_lanes=self.obs_edge_lanes, **obs
-        )
+        self.action_type = action_factory(self.config["action"], self)
+        self.observation_type = observation_factory(self, self.config["observation"])
+
+    @property
+    def action_space(self):
+        return self.action_type.space()
+
+    @property
+    def observation_space(self):
+        return self.observation_type.space()
 
     #: lane count of the ego's deterministic reset edge (PARITY #5)
     obs_edge_lanes = None
@@ -223,8 +250,19 @@ class BaseEnv:
     def ego_slots(self) -> tuple[int, ...]:
         return (0,)
 
-    def _reset_vehicles(self, batch: int, generator) -> VehicleState:
+    def _reset_draws(self, batch: int, generator) -> dict[str, torch.Tensor]:
+        """Every generator call of a reset of ``batch`` envs, in order:
+        (B, ...) tensors by name.  Row b's draws depend only on the
+        generator's state, never on another row."""
         raise NotImplementedError
+
+    def _place_vehicles(self, draws: dict[str, torch.Tensor]) -> VehicleState:
+        """The scenes of ``draws``' rows.  Row-local and draws nothing, so
+        the rows of any gather of ``draws`` are placed as in the whole."""
+        raise NotImplementedError
+
+    def _reset_vehicles(self, batch: int, generator) -> VehicleState:
+        return self._place_vehicles(self._reset_draws(batch, generator))
 
     def _rewards(self, state: EnvState, action) -> dict[str, torch.Tensor]:
         raise NotImplementedError
@@ -311,9 +349,11 @@ class BaseEnv:
             self.geo, state.vehicles, self.ego_slots[0]
         )
 
-    def _reset_state(self, batch: int, generator) -> EnvState:
+    def _place_state(self, draws: dict[str, torch.Tensor]) -> EnvState:
+        veh = self._place_vehicles(draws)
+        batch = veh.kind.shape[0]
         return EnvState(
-            vehicles=self._reset_vehicles(batch, generator),
+            vehicles=veh,
             time=torch.zeros(batch, dtype=torch.float32, device=self.device),
             steps=torch.full(
                 (batch,), self._initial_steps, dtype=torch.int32,
@@ -321,12 +361,20 @@ class BaseEnv:
             ),
         )
 
+    def _reset_state(self, batch: int, generator) -> EnvState:
+        return self._place_state(self._reset_draws(batch, generator))
+
     def _reset(self, batch: int, generator):
         """``batch`` fresh scenes drawn from ``generator``: (obs, EnvState)."""
         state = self._reset_state(batch, generator)
         return self._observe(state), state
 
     reset = _reset
+
+    def reset_batch(self, batch: int, generator):
+        """The JAX package's ``reset_batch``: ``batch`` fresh scenes, (obs,
+        EnvState), the warm-up of a regulated road on the frame kernel."""
+        return self._reset(batch, generator)
 
     def _finish_head(self, state: EnvState, action):
         """Reward / termination / info on an already-simulated state."""
@@ -338,51 +386,214 @@ class BaseEnv:
             truncated = truncated | (state.steps // self.frames_per_step >= mes)
         return state, reward, terminated, truncated, self._info(state, action)
 
+    def _finish_step(self, state: EnvState, action):
+        """The head with the observation, and no reset: (obs, state,
+        reward, terminated, truncated, info)."""
+        state, reward, terminated, truncated, info = self._finish_head(
+            state, action
+        )
+        return self._observe(state), state, reward, terminated, truncated, info
+
     def _post_step_population(self, state: EnvState, generator) -> EnvState:
         """Per-step population update (spawns, clears) after the head, so
         that it reaches only the next step.  Identity here; an env that
         overrides it draws from ``generator`` before the step's resets."""
         return state
 
-    def _finish_autoreset(self, state: EnvState, action, generator):
-        """Head, then done rows replaced by fresh scenes.
+    @property
+    def _has_population_hook(self) -> bool:
+        return type(self)._post_step_population is not BaseEnv._post_step_population
 
-        A full batch of resets is drawn from ``generator`` every step and
-        selected where done, so a done row's scene is row ``b`` of
-        ``_reset(B, g)`` for a clone ``g`` of the generator taken before the
-        step (and before the frames, which draw nothing).  Envs without a
-        population hook observe once, after the select.  Envs with one (the
-        JAX package's order, envs/base.py ``_finish_autoreset``): the head;
-        the observation of the state before the hook; the hook, which draws
-        from ``generator`` first; the full reset drawn after it; where done,
-        the reset state and the reset observation."""
+    def step_batched(self, states: EnvState, actions, generator):
+        """Step without autoreset, the frames on the frame kernels: the
+        head with the observation, then the population hook (which draws
+        from ``generator`` where the env has one).  For drivers that handle
+        episode ends themselves (``parallel/rollout.py``'s ``fresh_pool``)."""
+        obs, state, reward, terminated, truncated, info = self._finish_step(
+            self._simulate_batched(states, actions), actions
+        )
+        state = self._post_step_population(state, generator)
+        return obs, state, reward, terminated, truncated, info
+
+    def _finish_autoreset(self, state: EnvState, action, generator,
+                          reset_slots: int | None = None, final_obs: bool = False):
+        """Head, then done rows replaced by fresh scenes, up to the compact
+        autoreset's one possible host read.  Returns the step's (obs, state,
+        reward, terminated, truncated, info) and the ``PendingReset`` of a
+        compact autoreset (None on the full path), which ``_autoreset_rest``
+        finishes.
+
+        A full batch of reset draws is made from ``generator`` every step,
+        so a done row's scene is row ``b`` of ``_reset(B, g)`` for a clone
+        ``g`` of the generator taken before the step (and before the
+        frames, which draw nothing).  Envs without a population hook
+        observe once, after the reset.  Envs with one (the JAX package's
+        order, envs/base.py ``_finish_autoreset``): the head; the
+        observation of the state before the hook; the hook, which draws
+        from ``generator`` first; the reset drawn after it; where done, the
+        reset state and the reset observation.  ``final_obs`` takes the
+        second order on every env and keeps the observation before the
+        reset in ``info["final_obs"]``: the same draws, states and
+        observations.  The full path places all B rows of the reset; with
+        ``reset_slots=P`` only the done rows are placed, P at a time
+        (``_compact_first``)."""
         state, reward, terminated, truncated, info = self._finish_head(
             state, action
         )
         done = terminated | truncated
-        B = state.time.shape[0]
-        if type(self)._post_step_population is BaseEnv._post_step_population:
-            fresh = self._reset_state(B, generator)
+        obs = None
+        if final_obs or self._has_population_hook:
+            obs = self._observe(state)
+            state = self._post_step_population(state, generator)
+            if final_obs:
+                info = dict(info, final_obs=obs)
+        pending = None
+        if reset_slots is None:
+            fresh = self._reset_state(done.shape[0], generator)
             state = where_done(done, fresh, state)
-            return self._observe(state), state, reward, terminated, truncated, info
-        obs = self._observe(state)
-        state = self._post_step_population(state, generator)
-        fresh_obs, fresh = self._reset(B, generator)
-        state = where_done(done, fresh, state)
-        obs = torch.where(done[:, None, None], fresh_obs, obs)
-        return obs, state, reward, terminated, truncated, info
+            if obs is not None:
+                obs = torch.where(done[:, None, None], self._observe(fresh), obs)
+        else:
+            pending, obs = self._compact_first(state, done, reset_slots, generator, obs)
+            state = pending.state
+        if obs is None:
+            obs = self._observe(state)
+        return (obs, state, reward, terminated, truncated, info), pending
+
+    # ------------------------------------------------------------------ #
+    # compact autoreset: only the done rows are placed
+    # ------------------------------------------------------------------ #
+    def _compact_pass(self, state: EnvState, draws, mask, reset_slots: int,
+                      obs=None):
+        """Place the first ``reset_slots`` rows of ``mask`` (in row order)
+        from their draws and write them into ``state`` (and their
+        observations into ``obs`` when given).  Returns (state, obs, the
+        rows of ``mask`` still to place).
+
+        The P rows go into a fixed-size (P,) index without a host sync: the
+        masked rows by their rank in the mask (a cumsum), then the first
+        unmasked rows into the slots left, so the index holds P distinct
+        rows and the scatter back writes every row once; a slot that holds
+        an unmasked row writes that row's own values."""
+        B, P = mask.shape[0], reset_slots
+        dev = mask.device
+        rank = torch.cumsum(mask.to(torch.int32), 0) - 1
+        take = mask & (rank < P)
+        n = take.sum()
+        rest = torch.cumsum((~take).to(torch.int32), 0) - 1 + n
+        slot = torch.where(take, rank, rest)
+        idx = torch.empty(P + 1, dtype=torch.long, device=dev)
+        # rows beyond slot P - 1 all land in the spare slot P
+        idx.scatter_(0, torch.clamp(slot, max=P), torch.arange(B, device=dev))
+        idx = idx[:P]
+        valid = torch.arange(P, device=dev) < n
+        fresh = self._place_state({k: v[idx] for k, v in draws.items()})
+        state = scatter_rows(state, idx, valid, fresh)
+        if obs is not None:
+            fresh_obs = self._observe(fresh)
+            obs = obs.index_copy(
+                0, idx, torch.where(valid[:, None, None], fresh_obs, obs[idx])
+            )
+        return state, obs, mask & ~take
+
+    def _compact_first(self, state: EnvState, done, reset_slots: int, generator,
+                       obs=None):
+        """The compact autoreset's draws and first pass, with no host sync:
+        what a captured step runs.  Returns (``PendingReset``, obs with the
+        placed rows' observations when ``obs`` is given); ``_compact_rest``
+        finishes it."""
+        B = done.shape[0]
+        P = min(int(reset_slots), B)
+        if P < 1:
+            raise ValueError(f"reset_slots={reset_slots}: at least 1")
+        draws = self._reset_draws(B, generator)
+        state, obs_out, left = self._compact_pass(state, draws, done, P, obs)
+        return PendingReset(state, draws, left, P, obs is None), obs_out
+
+    def _compact_rest(self, pending: "PendingReset", obs):
+        """The passes after the first: one host read of the rows left, then
+        ceil(left / P) passes.  Where the first pass patched no observation
+        (``pending.observe``) the whole batch is observed again when a pass
+        ran; otherwise ``obs`` is patched row by row.  Returns (state,
+        obs)."""
+        state, draws, left, P, observe = pending
+        n_left = int(left.sum())  # the compact path's one host read
+        if n_left == 0:
+            return state, obs
+        for _ in range(-(-n_left // P)):
+            state, patched, left = self._compact_pass(
+                state, draws, left, P, None if observe else obs
+            )
+            obs = obs if observe else patched
+        return state, self._observe(state) if observe else obs
+
+    def _compact_autoreset(self, state: EnvState, done, reset_slots: int,
+                           generator, obs=None):
+        """Done rows replaced by fresh scenes, placed ``reset_slots`` rows
+        at a time (the JAX package's ``_compact_autoreset``).
+
+        The draws of all B rows are made, as the full path makes them, so
+        the generator advances alike and a done row b gets row b of
+        ``_reset(B, g)``; only the done rows are placed (and, on a regulated
+        road, warmed up), P at a time.  The first pass runs without a host
+        sync; the passes beyond it, which cover every done count, follow
+        one host read of the rows left.  Returns the state, or (state, obs)
+        with the done rows' observations replaced when ``obs`` is given."""
+        pending, obs = self._compact_first(state, done, reset_slots, generator, obs)
+        state, obs = self._compact_rest(pending, obs)
+        return state if obs is None else (state, obs)
+
+    # ------------------------------------------------------------------ #
+    # autoreset steps
+    # ------------------------------------------------------------------ #
+    def _autoreset_first(self, states: EnvState, actions, generator,
+                         reset_slots: int | None = None, final_obs: bool = False):
+        """An autoreset step, the frames on the kernels, up to its one
+        possible host read: what ``parallel/graph.py`` captures
+        (``_finish_autoreset``)."""
+        return self._finish_autoreset(
+            self._simulate_batched(states, actions), actions, generator,
+            reset_slots, final_obs,
+        )
+
+    def _autoreset_rest(self, out, pending: "PendingReset | None"):
+        """``_finish_autoreset``'s outputs finished: the passes of a compact
+        autoreset beyond the first, if rows are left."""
+        if pending is None:
+            return out
+        state, obs = self._compact_rest(pending, out[0])
+        return (obs, state) + tuple(out[2:])
 
     def step_autoreset(self, states: EnvState, actions, generator):
         """Autoreset step through the plain torch frames, the reference the
         kernel path is held against."""
         return self._finish_autoreset(
             self._simulate(states, actions), actions, generator
-        )
+        )[0]
 
-    def step_autoreset_batched(self, states: EnvState, actions, generator):
+    def step_autoreset_batched(self, states: EnvState, actions, generator,
+                               reset_slots: int | None = None):
         """Autoreset step with the frames on the frame kernel: the main
         path.  Same results as ``step_autoreset`` up to the kernel's
-        rounding."""
-        return self._finish_autoreset(
-            self._simulate_batched(states, actions), actions, generator
+        rounding.
+
+        ``reset_slots=P`` places only the done rows, P at a time
+        (``_compact_autoreset``): the same results as the full path, bit
+        for bit where placing a row does not depend on the batch size (on
+        the card), the generator advanced alike.  A step with more than P
+        done rows reads the count left on the host once."""
+        return self._autoreset_rest(
+            *self._autoreset_first(states, actions, generator, reset_slots)
         )
+
+
+class PendingReset(NamedTuple):
+    """A compact autoreset after its first pass: the state so far, the
+    draws of all B rows, the (B,) rows still to place, the slots P of a
+    pass, and whether the observation follows the reset (no rows patched)."""
+
+    state: EnvState
+    draws: dict
+    left: torch.Tensor
+    slots: int
+    observe: bool

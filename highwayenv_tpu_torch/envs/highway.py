@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from highwayenv_tpu_torch.envs.base import BaseEnv, EnvState
@@ -20,7 +19,12 @@ from highwayenv_tpu_torch.road.network import RoadNetworkBuilder
 from highwayenv_tpu_torch.utils.config import update_config
 from highwayenv_tpu_torch.utils.math import lmap
 from highwayenv_tpu_torch.vehicle import controller
-from highwayenv_tpu_torch.vehicle.state import KIND_EGO, KIND_IDM, empty_state
+from highwayenv_tpu_torch.vehicle.state import (
+    KIND_EGO,
+    KIND_IDM,
+    VehicleState,
+    empty_state,
+)
 
 
 def near_split(x, num_bins):
@@ -79,37 +83,50 @@ class HighwayEnv(BaseEnv):
             self._ego_slots.append(len(slots))
             slots.append("ego")
             slots.extend(["npc"] * others)
-        self._is_ego_slot = np.array([s == "ego" for s in slots])
+        self._is_ego_slot = torch.tensor([s == "ego" for s in slots], device=self.device)
         self._npc_check_collisions = True
 
     @property
     def ego_slots(self):
         return tuple(self._ego_slots)
 
-    def _reset_vehicles(self, batch: int, generator):
+    def _reset_draws(self, batch: int, generator) -> dict:
+        """The reset's draws, in order: lanes, NPC speeds, spawn-gap
+        factors and IDM exponents, each (B, V)."""
         cfg = self.config
         B, V, dev = batch, self.num_slots, self.device
-        lanes = cfg["lanes_count"]
-        is_ego = torch.as_tensor(self._is_ego_slot, device=dev).expand(B, V)
-
         lane = torch.randint(
-            0, lanes, (B, V), generator=generator, device=dev, dtype=torch.int32
+            0, cfg["lanes_count"], (B, V), generator=generator, device=dev,
+            dtype=torch.int32,
         )
         if cfg["initial_lane_id"] is not None:
-            lane = torch.where(is_ego, cfg["initial_lane_id"], lane).to(torch.int32)
-
+            lane = torch.where(
+                self._is_ego_slot, cfg["initial_lane_id"], lane
+            ).to(torch.int32)
         speed_limit = self.geo.speed_limit[lane.long()]
-        npc_speed = _uniform(
-            (B, V), 0.7 * speed_limit, 0.8 * speed_limit, generator, dev
-        )
-        speed = torch.where(is_ego, 25.0, npc_speed)
+        return {
+            "lane": lane,
+            "npc_speed": _uniform(
+                (B, V), 0.7 * speed_limit, 0.8 * speed_limit, generator, dev
+            ),
+            "gap": _uniform((B, V), 0.9, 1.1, generator, dev),
+            "delta": _uniform((B, V), 3.5, 4.5, generator, dev),
+        }
+
+    def _place_vehicles(self, draws: dict) -> VehicleState:
+        cfg = self.config
+        lane = draws["lane"]
+        B, V = lane.shape
+        is_ego = self._is_ego_slot.expand(B, V)
+        speed = torch.where(is_ego, 25.0, draws["npc_speed"])
 
         # create_random spawn chain (reference vehicle/kinematics.py)
         spacing = torch.where(
             is_ego, float(cfg["ego_spacing"]), 1.0 / cfg["vehicles_density"]
         )
-        offset = spacing * (12.0 + 1.0 * speed) * math.exp(-5.0 / 40.0 * lanes)
-        delta_x = offset * _uniform((B, V), 0.9, 1.1, generator, dev)
+        offset = (spacing * (12.0 + 1.0 * speed)
+                  * math.exp(-5.0 / 40.0 * cfg["lanes_count"]))
+        delta_x = offset * draws["gap"]
         delta_x[:, 0] += 3.0 * offset[:, 0]  # empty-road head start
         x0 = torch.cumsum(delta_x, dim=1)
         pos = lane_ops.position(self.geo, lane, x0, torch.zeros_like(x0))
@@ -118,10 +135,7 @@ class HighwayEnv(BaseEnv):
         ego_index, ego_target_speed = controller.ego_speed_init(
             self.action_type, speed
         )
-        delta = torch.where(
-            is_ego, 4.0, _uniform((B, V), 3.5, 4.5, generator, dev)
-        )
-        veh = empty_state(B, V, device=dev)
+        veh = empty_state(B, V, device=self.device)
         return veh.replace(
             pos=pos,
             heading=heading.contiguous(),
@@ -131,7 +145,7 @@ class HighwayEnv(BaseEnv):
             target_speed=torch.where(is_ego, ego_target_speed, speed),
             speed_index=torch.where(is_ego, ego_index, 0).to(torch.int32),
             timer=torch.remainder((pos[..., 0] + pos[..., 1]) * math.pi, 1.0),
-            delta=delta,
+            delta=torch.where(is_ego, 4.0, draws["delta"]),
             kind=torch.where(is_ego, KIND_EGO, KIND_IDM).to(torch.int32),
             check_collisions=is_ego | bool(self._npc_check_collisions),
         )

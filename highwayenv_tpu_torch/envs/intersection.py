@@ -270,15 +270,18 @@ class IntersectionEnv(BaseEnv):
         d = veh.pos - pos[:, None, :]
         dist = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
         clear = ~(veh.active & (dist < 15.0)).any(dim=-1)
-        slots = torch.as_tensor(slot, device=dev).expand(B).long()
+        slots = (slot.long() if torch.is_tensor(slot)
+                 else torch.full((B,), slot, dtype=torch.long, device=dev))
         free = torch.gather(veh.kind, 1, slots[:, None])[:, 0] == KIND_PAD
         ok = (draws.accept <= spawn_probability) & clear & free
         hot = (torch.arange(V, device=dev) == slots[:, None]) & ok[:, None]
 
         def put(field, value):
-            value = torch.as_tensor(value, dtype=field.dtype, device=dev)
-            if value.dim() == 1:
-                value = value[:, None]
+            # a Python scalar goes in as a scalar: no host data is copied
+            if torch.is_tensor(value):
+                value = value.to(field.dtype)
+                if value.dim() == 1:
+                    value = value[:, None]
             return torch.where(hot.view(hot.shape + (1,) * (field.dim() - 2)), value, field)
 
         rb, rn, rid, rlen = self._routes
@@ -302,21 +305,25 @@ class IntersectionEnv(BaseEnv):
             route_len=put(veh.route_len, rlen[corner, dest]),
         )
 
-    def _spawn_initial(self, batch: int, generator):
+    def _place_initial(self, draws: SpawnDraws) -> VehicleState:
         """Phase A of the reset: the initial NPCs at stations linspace(0, 80)
         with the reference's default spawn probability 0.6 (the config's
-        ``spawn_probability`` gates only the spawns during an episode).
-        Returns the state and the draws of every reset spawn, the
-        challenger's in the last column."""
+        ``spawn_probability`` gates only the spawns during an episode), from
+        the (B, n) draws of every reset spawn, the challenger's in the last
+        column."""
         n_init = self.config["initial_vehicle_count"]
-        veh = empty_state(batch, self.num_slots, route_slots=self.route_slots,
-                          device=self.device)
-        draws = self.spawn_draws((batch, n_init), generator)
+        veh = empty_state(draws.accept.shape[0], self.num_slots,
+                          route_slots=self.route_slots, device=self.device)
         stations = np.linspace(0, 80, n_init)
         for t in range(n_init - 1):
             veh = self.place_spawn(veh, t, draws.at(t), float(stations[t]),
                                    spawn_probability=0.6)
-        return veh, draws
+        return veh
+
+    def _spawn_initial(self, batch: int, generator):
+        """Phase A from ``batch`` fresh draws: the state and the draws."""
+        draws = self.spawn_draws((batch, self.config["initial_vehicle_count"]), generator)
+        return self._place_initial(draws), draws
 
     @property
     def _warmup_frames(self) -> int:
@@ -344,13 +351,28 @@ class IntersectionEnv(BaseEnv):
             f: torch.cat([getattr(sub, f), getattr(veh, f)[:, W:]], dim=1) for f in fields
         })
 
-    def _reset_vehicles(self, batch: int, generator) -> VehicleState:
-        veh, draws = self._spawn_initial(batch, generator)
-        dest = torch.randint(1, 4, (batch, len(self._ego_slots)), generator=generator,
-                             device=self.device)
-        station = torch.randn((batch, len(self._ego_slots)), generator=generator,
-                              device=self.device)
-        return self._finish_reset_vehicles(self._warm_up(veh), draws, dest, station)
+    def _reset_draws(self, batch: int, generator) -> dict:
+        """The reset's draws (module docstring): the spawn draws of the
+        initial NPCs and the challenger, (B, 10) under ``SpawnDraws``'
+        names, then the egos' destinations and stations, (B, egos), under
+        ``ego_dest`` and ``ego_station``."""
+        draws = self.spawn_draws((batch, self.config["initial_vehicle_count"]), generator)
+        egos = len(self._ego_slots)
+        return {
+            **draws._asdict(),
+            "ego_dest": torch.randint(1, 4, (batch, egos), generator=generator,
+                                      device=self.device),
+            "ego_station": torch.randn((batch, egos), generator=generator,
+                                       device=self.device),
+        }
+
+    def _place_vehicles(self, draws: dict) -> VehicleState:
+        """Phase A, the warm-up (one launch of K5 on CUDA) and phase B."""
+        spawn = SpawnDraws(*(draws[name] for name in SpawnDraws._fields))
+        return self._finish_reset_vehicles(
+            self._warm_up(self._place_initial(spawn)), spawn, draws["ego_dest"],
+            draws["ego_station"],
+        )
 
     def _finish_reset_vehicles(self, veh: VehicleState, draws: SpawnDraws,
                                dest: torch.Tensor, station: torch.Tensor) -> VehicleState:
@@ -378,7 +400,7 @@ class IntersectionEnv(BaseEnv):
             heading = lane_ops.heading_at(self.geo, lane, torch.full((B,), 60.0, device=dev))
             speed = torch.full((B,), 10.0, device=dev)
             index = controller.speed_to_index(speed, ts)
-            target = torch.as_tensor(np.asarray(ts, np.float32), device=dev)[index.long()]
+            target = self.action_type.speed_table(dev)[index.long()]
 
             def put(field, value):
                 field = field.clone()

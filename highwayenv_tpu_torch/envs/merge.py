@@ -32,6 +32,7 @@ from highwayenv_tpu_torch.vehicle.state import (
     KIND_EGO,
     KIND_IDM,
     KIND_OBSTACLE,
+    VehicleState,
     empty_state,
 )
 
@@ -106,20 +107,33 @@ class MergeEnv(BaseEnv):
         )
         # slots: ego, 3 highway NPCs, ramp NPC, end-of-ramp obstacle
         self.num_slots = 6
+        self._kind = torch.tensor(
+            [KIND_EGO, KIND_IDM, KIND_IDM, KIND_IDM, KIND_IDM, KIND_OBSTACLE],
+            dtype=torch.int32, device=self.device,
+        )
+        # the highway NPCs' base stations and speeds
+        self._npc_s = torch.tensor([90.0, 70.0, 5.0], device=self.device)
+        self._npc_speed = torch.tensor([29.0, 31.0, 31.5], device=self.device)
 
-    def _reset_vehicles(self, batch: int, generator):
-        """Reference merge_env.py ``_make_vehicles``."""
-        B, V, dev = batch, self.num_slots, self.device
-
+    def _reset_draws(self, batch: int, generator) -> dict:
+        """The reset's draws, in order, each (B, 3): the three highway NPCs'
+        lanes, stations and speeds."""
+        B, dev = batch, self.device
         # three highway NPCs at s in {90, 70, 5} + U(-5, 5) on a random lane
         # of ("a", "b") (global ids 0 / 1), speeds {29, 31, 31.5} + U(-1, 1)
         lanes = torch.randint(
             0, 2, (B, 3), generator=generator, device=dev, dtype=torch.int32
         )
-        base_s = torch.tensor([90.0, 70.0, 5.0], device=dev)
-        base_v = torch.tensor([29.0, 31.0, 31.5], device=dev)
-        s_npc = base_s + _uniform((B, 3), -5.0, 5.0, generator, dev)
-        v_npc = base_v + _uniform((B, 3), -1.0, 1.0, generator, dev)
+        return {
+            "lanes": lanes,
+            "s": self._npc_s + _uniform((B, 3), -5.0, 5.0, generator, dev),
+            "speed": self._npc_speed + _uniform((B, 3), -1.0, 1.0, generator, dev),
+        }
+
+    def _place_vehicles(self, draws: dict) -> VehicleState:
+        """Reference merge_env.py ``_make_vehicles``."""
+        lanes, s_npc, v_npc = draws["lanes"], draws["s"], draws["speed"]
+        B, V, dev = lanes.shape[0], self.num_slots, self.device
         npc_pos = lane_ops.position(self.geo, lanes, s_npc, torch.zeros_like(s_npc))
         npc_heading = lane_ops.heading_at(self.geo, lanes, s_npc)
 
@@ -139,10 +153,7 @@ class MergeEnv(BaseEnv):
             torch.full((B, 1), 30.0, device=dev), v_npc,
             torch.full((B, 1), 20.0, device=dev), zero,
         ], dim=1)
-        kind = torch.tensor(
-            [KIND_EGO, KIND_IDM, KIND_IDM, KIND_IDM, KIND_IDM, KIND_OBSTACLE],
-            dtype=torch.int32, device=dev,
-        ).expand(B, V)
+        kind = self._kind.expand(B, V)
         lane = lane_ops.closest_lane(self.geo, pos, heading)
         is_ego = kind == KIND_EGO
         ego_index, ego_ts = controller.ego_speed_init(self.action_type, speed)

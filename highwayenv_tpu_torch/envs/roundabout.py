@@ -29,7 +29,7 @@ from highwayenv_tpu_torch.road.network import (
 from highwayenv_tpu_torch.utils.config import update_config
 from highwayenv_tpu_torch.utils.math import lmap
 from highwayenv_tpu_torch.vehicle import controller
-from highwayenv_tpu_torch.vehicle.state import KIND_EGO, KIND_IDM, empty_state
+from highwayenv_tpu_torch.vehicle.state import KIND_EGO, KIND_IDM, VehicleState, empty_state
 
 
 class RoundaboutEnv(BaseEnv):
@@ -190,8 +190,29 @@ class RoundaboutEnv(BaseEnv):
         )
         self._ego_lane = net.global_lane_index(("ser", "ses", 0))
 
-    def _reset_vehicles(self, batch: int, generator):
-        B, V, R, dev = batch, self.num_slots, self.route_slots, self.device
+    def _reset_draws(self, batch: int, generator) -> dict:
+        """The reset's draws, in order: the NPCs' stations, speeds and
+        destinations, each (B, 4), then the IDM exponents, (B, V)."""
+        B, V, dev = batch, self.num_slots, self.device
+        # NPCs on their spawn lanes with Gaussian jitter
+        npc_s = self._spawn_s + 2.0 * torch.randn(
+            (B, 4), generator=generator, device=dev
+        )
+        npc_speed = 16.0 + 2.0 * torch.randn((B, 4), generator=generator, device=dev)
+        dest = torch.randint(0, 3, (B, 4), generator=generator, device=dev)
+        ivd = self.config["incoming_vehicle_destination"]
+        if ivd is not None:
+            dest[:, 0] = int(ivd)
+        return {
+            "s": npc_s,
+            "speed": npc_speed,
+            "dest": dest,
+            "delta": _uniform((B, V), 3.5, 4.5, generator, dev),
+        }
+
+    def _place_vehicles(self, draws: dict) -> VehicleState:
+        npc_s, npc_speed, dest = draws["s"], draws["speed"], draws["dest"]
+        B, V, R, dev = npc_s.shape[0], self.num_slots, self.route_slots, self.device
         is_ego = (torch.arange(V, device=dev) == 0).expand(B, V)
 
         # the ego at s=125 on the south approach, heading taken at s=140
@@ -204,11 +225,6 @@ class RoundaboutEnv(BaseEnv):
             self.geo, ego_lane, torch.full((B,), 140.0, device=dev)
         )
 
-        # NPCs on their spawn lanes with Gaussian jitter
-        npc_s = self._spawn_s + 2.0 * torch.randn(
-            (B, 4), generator=generator, device=dev
-        )
-        npc_speed = 16.0 + 2.0 * torch.randn((B, 4), generator=generator, device=dev)
         npc_lane = self._spawn_lane.expand(B, 4)
         npc_pos = lane_ops.position(self.geo, npc_lane, npc_s, torch.zeros_like(npc_s))
         npc_heading = lane_ops.heading_at(self.geo, npc_lane, npc_s)
@@ -218,10 +234,6 @@ class RoundaboutEnv(BaseEnv):
         speed = torch.cat([torch.full((B, 1), 8.0, device=dev), npc_speed], dim=1)
         lane = lane_ops.closest_lane(self.geo, pos, heading)
 
-        dest = torch.randint(0, 3, (B, 4), generator=generator, device=dev)
-        ivd = self.config["incoming_vehicle_destination"]
-        if ivd is not None:
-            dest[:, 0] = int(ivd)
         npc_i = torch.arange(4, device=dev)
         npc_routes = self._npc_routes[npc_i, dest]  # (B, 4, 3, R)
         routes = torch.cat(
@@ -233,9 +245,6 @@ class RoundaboutEnv(BaseEnv):
         )
 
         ego_index, ego_ts = controller.ego_speed_init(self.action_type, speed)
-        delta = torch.where(
-            is_ego, 4.0, _uniform((B, V), 3.5, 4.5, generator, dev)
-        )
         veh = empty_state(B, V, route_slots=R, device=dev)
         return veh.replace(
             pos=pos,
@@ -246,7 +255,7 @@ class RoundaboutEnv(BaseEnv):
             target_speed=torch.where(is_ego, ego_ts, speed),
             speed_index=torch.where(is_ego, ego_index, 0).to(torch.int32),
             timer=torch.remainder((pos[..., 0] + pos[..., 1]) * math.pi, 1.0),
-            delta=delta,
+            delta=torch.where(is_ego, 4.0, draws["delta"]),
             kind=torch.where(is_ego, KIND_EGO, KIND_IDM).to(torch.int32),
             route_base=routes[:, :, 0].contiguous(),
             route_n=routes[:, :, 1].contiguous(),

@@ -1,0 +1,58 @@
+"""Observation and action types by config["type"].
+
+PyTorch counterpart of ``highwayenv_tpu/factories.py`` (reference
+envs/common/observation.py ``observation_factory`` and envs/common/action.py
+``action_factory``), so scenario configs stay drop-in.  The port has the
+Kinematics observation and the DiscreteMetaAction; every other type the JAX
+package knows raises ``NotPortedError`` naming the module it waits for, and
+an unknown type raises ``ValueError`` as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from highwayenv_tpu_torch import NotPortedError
+from highwayenv_tpu_torch.actions.discrete_meta import DiscreteMetaAction
+from highwayenv_tpu_torch.observations.kinematics import KinematicsObservation
+
+#: the JAX package's other types and the module each one needs
+_UNPORTED_OBSERVATIONS = {
+    "TimeToCollision": "observations/ttc.py",
+    "ExitObservation": "observations/exit_obs.py",
+    "KinematicsGoal": "observations/kinematics_goal.py",
+    "OccupancyGrid": "observations/occupancy_grid.py",
+    "LidarObservation": "observations/lidar.py",
+    "GrayscaleObservation": "observations/grayscale.py",
+    "AttributesObservation": "observations/attributes.py",
+    "MultiAgentObservation": "observations/multi.py",
+    "TupleObservation": "observations/multi.py",
+}
+_UNPORTED_ACTIONS = {
+    "ContinuousAction": "actions/continuous.py",
+    "DiscreteAction": "actions/continuous.py",
+    "MultiAgentAction": "actions/multi_agent.py",
+}
+
+
+def _refuse(what: str, kind: str, unported: dict):
+    if kind in unported:
+        raise NotPortedError(
+            f"{what} type {kind!r} is not ported yet: it needs the port of "
+            f"highwayenv_tpu/{unported[kind]}"
+        )
+    raise ValueError(f"Unknown {what} type: {kind}")
+
+
+def observation_factory(env, config: dict):
+    kwargs = {k: v for k, v in config.items() if k != "type"}
+    if config["type"] == "Kinematics":
+        return KinematicsObservation(
+            reset_edge_lanes=getattr(env, "obs_edge_lanes", None), **kwargs
+        )
+    return _refuse("observation", config["type"], _UNPORTED_OBSERVATIONS)
+
+
+def action_factory(config: dict, env=None):
+    kwargs = {k: v for k, v in config.items() if k != "type"}
+    if config["type"] == "DiscreteMetaAction":
+        return DiscreteMetaAction(**kwargs)
+    return _refuse("action", config["type"], _UNPORTED_ACTIONS)

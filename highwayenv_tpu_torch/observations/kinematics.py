@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from highwayenv_tpu_torch.road import lane as lane_ops
@@ -62,10 +63,26 @@ class KinematicsObservation:
         #: normalization ranges once per reset and keeps them for the
         #: episode (PARITY #5); None recomputes them from the current lane
         self.reset_edge_lanes = reset_edge_lanes
+        self._relative_masks: dict = {}
 
     @property
     def shape(self):
         return (self.vehicles_count, len(self.features))
+
+    def space(self):
+        from gymnasium import spaces
+
+        return spaces.Box(shape=self.shape, low=-np.inf, high=np.inf, dtype=np.float32)
+
+    def _relative(self, device) -> torch.Tensor:
+        """(F,) bool: the features taken relative to the ego, on ``device``,
+        copied there once (a step copies no host data)."""
+        key = str(device)
+        if key not in self._relative_masks:
+            self._relative_masks[key] = torch.tensor(
+                [f in ("x", "y", "vx", "vy") for f in self.features], device=device
+            )
+        return self._relative_masks[key]
 
     def _feature_table(self, state: VehicleState) -> dict:
         is_vehicle = state.is_vehicle
@@ -115,11 +132,9 @@ class KinematicsObservation:
             feats, 1, sel[..., None].expand(-1, -1, feats.shape[-1])
         )
         if not self.absolute:
-            rel = torch.tensor(
-                [f in ("x", "y", "vx", "vy") for f in self.features],
-                device=feats.device,
+            rows = torch.where(
+                self._relative(feats.device), rows - ego_row[:, None], rows
             )
-            rows = torch.where(rel, rows - ego_row[:, None], rows)
         rows = torch.where(sel_ok[..., None], rows, 0.0)
         obs = torch.cat([ego_row[:, None], rows], dim=1)
         if self.normalize:

@@ -5,30 +5,75 @@ sharded_rollout_fn`` on one card: each step draws uniform discrete actions,
 runs ``step_autoreset_batched`` and folds the observation into a checksum so
 the observation head is part of the measured work.  Metrics stay on the
 device until the caller reads them.
+
+The two reset-amortizing options of ``sharded_rollout_fn``:
+
+  - ``compact_reset=P`` passes ``reset_slots=P`` to the autoreset step,
+    which places only the done rows, P at a time: the same results as the
+    default, with the generator advanced alike;
+  - ``fresh_pool=P`` steps through ``step_batched`` and draws P fresh scenes
+    a step, which go to the step's done envs in prefix order (done env k of
+    the step gets scene min(k, P - 1)), with no host sync.  It draws other
+    scenes than the default and reuses the last one past P done envs.
+
+``graph=True`` replays the step as a CUDA graph (``parallel/graph.py``):
+the same results as the eager steps.
 """
 
 from __future__ import annotations
 
 import torch
 
+from highwayenv_tpu_torch.envs.base import take_rows, where_done
 
-def rollout(env, states, horizon: int, generator: torch.Generator):
+
+def rollout(env, states, horizon: int, generator: torch.Generator,
+            fresh_pool: int | None = None, compact_reset: int | None = None,
+            graph: bool = False):
     """Run ``horizon`` policy steps from ``states``.
 
     Returns ``(states, {"mean_reward", "done_rate", "obs_checksum"})`` with
     0-dim tensors: the mean over steps of the batch-mean reward and done
-    flag, and the sum of every observation.
+    flag, and the sum of every observation.  With ``graph=True`` the
+    returned states are the captured step's own buffers.
     """
+    if fresh_pool and compact_reset:
+        raise ValueError(
+            "fresh_pool and compact_reset are alternative reset-amortization "
+            "strategies; pass one"
+        )
+    if graph and fresh_pool:
+        raise ValueError("graph=True captures the autoreset step; fresh_pool "
+                         "steps through step_batched and is not captured")
     B = states.time.shape[0]
+    step = None
+    if graph:
+        from highwayenv_tpu_torch.parallel.graph import CapturedStep
+
+        step = CapturedStep(env, states, generator, reset_slots=compact_reset)
     rewards, dones, obs_sums = [], [], []
     for _ in range(horizon):
         actions = torch.randint(
             0, env.action_type.n, (B,), generator=generator,
             device=states.time.device, dtype=torch.int32,
         )
-        obs, states, reward, term, trunc, _ = env.step_autoreset_batched(
-            states, actions, generator
-        )
+        if step is not None:
+            obs, states, reward, term, trunc, _ = step(actions)
+        elif fresh_pool is None:
+            obs, states, reward, term, trunc, _ = env.step_autoreset_batched(
+                states, actions, generator, reset_slots=compact_reset
+            )
+        else:
+            obs, stepped, reward, term, trunc, _ = env.step_batched(
+                states, actions, generator
+            )
+            done = term | trunc
+            pool_obs, pool = env._reset(fresh_pool, generator)
+            rank = torch.clamp(
+                torch.cumsum(done.to(torch.int32), 0) - 1, 0, fresh_pool - 1
+            )
+            states = where_done(done, take_rows(pool, rank), stepped)
+            obs = torch.where(done[:, None, None], pool_obs[rank], obs)
         rewards.append(reward.mean())
         dones.append((term | trunc).float().mean())
         obs_sums.append(obs.sum())

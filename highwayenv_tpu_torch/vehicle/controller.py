@@ -103,11 +103,8 @@ def ego_speed_init(action_type, speed):
 
     Returns ``(speed_index_i32, target_speed)`` with ``speed``'s shape.
     """
-    ts = torch.as_tensor(
-        np.asarray(action_type.target_speeds, np.float32), device=speed.device
-    )
     idx = speed_to_index(speed, action_type.target_speeds)
-    return idx, ts[idx.long()]
+    return idx, action_type.speed_table(speed.device)[idx.long()]
 
 
 # --------------------------------------------------------------------------- #
@@ -213,18 +210,17 @@ def apply_meta_action(
     state: VehicleState,
     ego_mask: torch.Tensor,
     action: torch.Tensor,
-    target_speeds,
-    longitudinal: bool = True,
-    lateral: bool = True,
+    action_type,
 ) -> VehicleState:
-    """Apply a DiscreteMetaAction to the masked controlled vehicles.
+    """Apply the DiscreteMetaAction ``action_type`` to the masked controlled
+    vehicles.
 
     action: (B, V) int slot actions.  Updates target_lane / speed_index /
     target_speed (reference vehicle/controller.py ``act``).
     """
-    ts = torch.as_tensor(
-        np.asarray(target_speeds, dtype=np.float32), device=action.device
-    )
+    target_speeds = action_type.target_speeds
+    longitudinal, lateral = action_type.longitudinal, action_type.lateral
+    ts = action_type.speed_table(action.device)
     n_speeds = ts.shape[0]
     if longitudinal and lateral:
         lane_left, lane_right = action == LANE_LEFT, action == LANE_RIGHT

@@ -112,6 +112,13 @@ def empty_state(
     def full(shape, value, dtype):
         return torch.full((B, V) + shape, value, dtype=dtype, device=device)
 
+    def columns(values):
+        # filled column by column: no host data is copied to the device
+        out = torch.empty((B, V, len(values)), dtype=f32, device=device)
+        for k, value in enumerate(values):
+            out[..., k] = value
+        return out
+
     return VehicleState(
         pos=full((2,), 0.0, f32),
         heading=full((), 0.0, f32),
@@ -138,12 +145,8 @@ def empty_state(
         yield_timer=full((), 0, i32),
         lateral_speed=full((), 0.0, f32),
         yaw_rate=full((), 0.0, f32),
-        accel_params=torch.tensor(
-            [0.3, 0.3, 2.0], dtype=f32, device=device
-        ).expand(B, V, 3).clone(),
-        steer_params=torch.tensor(
-            [5.0, 5.0 / 0.6], dtype=f32, device=device
-        ).expand(B, V, 2).clone(),
+        accel_params=columns((0.3, 0.3, 2.0)),
+        steer_params=columns((5.0, 5.0 / 0.6)),
         mobil_gain=full((), 0.2, f32),
         mobil_max_braking=full((), 2.0, f32),
         route_base=full((R,), -1, i32),

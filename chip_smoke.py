@@ -12,7 +12,9 @@ Phases:
      (V=21, 5 frames) and highway-v0 full width (V=51, 15 frames), B=4096,
      and at highway-v0 with 31, 32, 63 and 100 vehicles (V = 32, 33, 64,
      101: one warp, one warp and a slot, two warps, four warps and five
-     slots), B=512, on four scenes each, one of which fires both band
+     slots), B=512, and at highway-v0 under a ContinuousAction (the
+     raw-control branch: the egos keep their stored steering and
+     acceleration), B=4096, on four scenes each, one of which fires both band
      flags: the dense frame kernel K1, the sort K2a, the sorted banded
      frames K3 with its flags, the unsort K2b and K1 masked by the flags,
      every field bit-exact; then the sorted step against the dense step,
@@ -22,7 +24,13 @@ Phases:
      merge-v0 (V=6, L=9, an obstacle), B=4096, on the reset scene, 8 steps
      in, an all-env pile-up and (merge) the obstacle hit, every field
      bit-exact, and the roundabout-v0 autoreset step against the plain
-     reference path; then the regulated frame kernel K5 at intersection-v0
+     reference path; then K4's raw-control branch at racetrack-large-v0
+     (V=2, L=27), racetrack-oval-v0 with block_lane (V=10, 8 roadblocks,
+     L=24), racetrack-v0 under a DiscreteAction and racetrack-v0 (V=2,
+     L=18), B=4096, on the reset scene, 8 steps in and the pile-up, every
+     field bit-exact, and the autoreset step of both racetrack-v0 envs
+     against the plain reference path; then the regulated
+     frame kernel K5 at intersection-v0
      (V=25, L=20, R=3, tick period 7), B=4096, on the reset scene, 8 steps
      in with the envs' tick phases spread over all 7 values, a conflict
      scene in which vehicles yield, and the reset's warm-up launch (V=16,
@@ -30,7 +38,8 @@ Phases:
      V=32, B=512) on the reset, spread-phase and conflict scenes, every
      field bit-exact, the yielding state and the impacts included, and the
      intersection-v0 autoreset step against the plain reference path; then
-     on highway-v0, roundabout-v0 and intersection-v0, B=4096, from a batch
+     on highway-v0, roundabout-v0, intersection-v0 and racetrack-v0,
+     B=4096, from a batch
      with every 8th ego crashed, the compact autoreset (reset_slots P =
      1024, and 64, which takes further passes) against the full one over 3
      steps, and CapturedStep replays against eager steps over 8 (full, P =
@@ -46,17 +55,24 @@ Phases:
      rollout through K5 (two launches per policy step, the step's frames
      and the warm-up of the reset drawn every step, plus one for the first
      reset), with the ended, crashed and arrived episodes counted; then the
-     three rollouts again with each step one replay of a CapturedStep (the
+     raw-control paths: make() of racetrack-large-v0, racetrack-oval-v0
+     (block_lane) and racetrack-v0, B=4096, reset and a rollout under
+     U(-1, 1) steering through K4 (one launch per policy step), and
+     highway-v0 under a ContinuousAction through the sorted step; then the
+     seven rollouts again with each step one replay of a CapturedStep (the
      kernels' counts cover the warm-up step and the capture), and a
      profile of replays for the port's kernels per replay;
-  5. times on the card: each kernel's device time (torch.profiler, and
-     CUDA events around launches queued behind a device-side wait), its
-     plain version's, its bound and the PyTorch yardstick's where there is
-     one, with the wall time of a call (CUDA events); the simulation of a
+  5. times on the card: each kernel's time (CUDA events around launches
+     queued behind a device-side wait), its plain version's device time
+     (torch.profiler), its bound and the PyTorch yardstick's where there
+     is one, with the wall time of a call (CUDA events), K4 at racetrack-v0
+     and K3 and K1 at highway-v0 ContinuousAction among them, their
+     bounds without the egos' P-cascade; the simulation of a
      sorted and a dense policy step; the sorted and dense rollouts in
      turns; the roundabout-v0 and intersection-v0 rollouts three times
-     each; a profile of rollout steps of each (device kernels by name,
-     device busy share); and ms per step of the three envs, eager against
+     each, and the three racetrack rollouts; a profile of rollout steps of
+     each (device kernels by name, device busy share); and ms per step of
+     racetrack-v0 and the three envs, eager against
      graph, full against compact P=1024, three runs each in turns, with
      the device busy time per step.
 
@@ -76,11 +92,20 @@ import time
 import numpy as np
 import torch
 
+from highwayenv_tpu_torch.parallel.rollout import random_actions, rollout
+
 B = 4096  # envs, the batch the JAX package's bench drives
 EDGE_B = 512  # envs of the warp-boundary highway-v0 checks
 EDGE_VEHICLES = (31, 32, 63, 100)  # V = 32, 33, 64, 101
 EDGE_DURATION = 20  # intersection-v0 with V = 32, a full warp
 HORIZON = 32  # policy steps of the main-path rollout
+#: highway-v0 under a ContinuousAction: K1's and K3's raw-control branch
+CONTINUOUS_CONFIG = {"action": {"type": "ContinuousAction"}}
+#: racetrack-v0 under a DiscreteAction on both axes: the same raw-control branch
+DISCRETE_CONFIG = {"action": {"type": "DiscreteAction"}}
+#: the racetrack family (K4's raw-control branch); the oval with roadblocks
+RACETRACKS = (("racetrack-large-v0", None), ("racetrack-oval-v0", {"block_lane": True}),
+              ("racetrack-v0", None))
 CRASH_HORIZON = 4  # policy steps of the extra rollout from a compressed scene
 DENSE_HORIZON = 4  # policy steps of the dense path (sorted_frames=False)
 SEED = 0
@@ -113,6 +138,9 @@ OPS_DECIDING = 274  # per MOBIL-deciding slot: 8 more IDM + incentive tests
 OPS_ABORT_PAIR = 13  # per (lane-changing IDM slot, other slot)
 OPS_SPHERE = 11  # per collision-eligible unordered pair
 OPS_SAT = 210  # per pair within reach: the folded swept SAT
+# the ego's P-cascade within OPS_SLOT (steering law and speed control),
+# which a raw-control ego (ContinuousAction) does not run
+OPS_EGO_CONTROLS = 28
 # the sorted frame's extras, per live slot: one step of a far-band scan
 # (per lane, direction and round: a compare and a select), one step of the
 # collision-band scan (per round: two min / max of s, two max), and the
@@ -128,6 +156,10 @@ OPS_FAR_QUERY = 16
 GEN_OPS_PROJECT = (8, 13, 16)
 GEN_OPS_RELOCATE = (6, 13, 11)
 GEN_OPS_SLOT = 120  # per live slot: lane-end test, rows, steering, integration
+# the ego's P-cascade within GEN_OPS_SLOT (the steering law toward the
+# target lane's heading ahead, and the speed control), which a raw-control
+# ego (ContinuousAction) does not run
+GEN_OPS_EGO_CONTROLS = 32
 GEN_OPS_IDM = 25  # per IDM acceleration of a row pair
 GEN_OPS_NEIGH_PAIR = 10  # per (neighbour query, other slot): eligibility, min / max
 GEN_OPS_ABORT_PAIR = 13  # per (lane-changing IDM slot, other slot)
@@ -196,11 +228,23 @@ def queued_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_events(prof, name: str):
+    """The profile's device events of the kernel ``name`` (the demangled
+    symbol: "name(" or "void name<...>(")."""
+    pattern = re.compile(r"(^|\s)" + re.escape(name) + r"[<(]")
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and pattern.search(e.key)]
+
+
 def device_ms(fn, reps: int) -> float:
     """Device time of one ``fn()``: the self device time of every kernel it
     launches, summed, from torch.profiler over ``reps`` runs after one
     warm-up.  Unlike CUDA events it leaves out the gaps in which the host
-    issues the calls, which exceed a small kernel's own time."""
+    issues the calls, which exceed a small kernel's own time.  The profiler
+    drops a share of the launches on the H100 machine (it recorded 2 to 49
+    of 20 to 50 launches of one kernel), so a kernel's own time is taken
+    with ``queued_ms`` and this serves only sums over many kernels (the
+    plain versions, a step's device busy time)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -291,11 +335,11 @@ def compare_steps(a, b, where: str) -> bool:
     return bitwise
 
 
-def _frame_ops(veh, out, fs, p, dt, searched, collided) -> float:
+def _frame_ops(veh, out, fs, p, dt, searched, collided, raw=False) -> float:
     """float32 operations one frame from ``veh`` to ``out`` needs, whose
     neighbour search tests the (slot, column) pairs of the (V, V) mask
     ``searched`` and whose collision pass the unordered pairs of
-    ``collided``."""
+    ``collided``; with ``raw`` the egos run no P-cascade."""
     from highwayenv_tpu_torch.vehicle.state import KIND_IDM
 
     live = veh.kind != 0
@@ -321,22 +365,23 @@ def _frame_ops(veh, out, fs, p, dt, searched, collided) -> float:
     diag = torch.sqrt(out.length**2 + out.width**2)
     reach = (diag[:, :, None] + diag[:, None, :]) / 2 + out.speed[:, :, None] * dt
     near = elig & ((d * d).sum(-1) <= reach * reach)
+    raw_egos = (veh.kind == 1).sum() if raw else 0
     return float(
-        OPS_SLOT * live.sum() + OPS_NEIGH_PAIR * neigh
+        OPS_SLOT * live.sum() - OPS_EGO_CONTROLS * raw_egos + OPS_NEIGH_PAIR * neigh
         + OPS_DECIDING * deciding + OPS_ABORT_PAIR * aborting
         + OPS_SPHERE * elig.sum() + OPS_SAT * near.sum()
     )
 
 
-def frame_ops(veh, out, fs, p, dt) -> float:
+def frame_ops(veh, out, fs, p, dt, raw=False) -> float:
     """float32 operations one dense frame needs: every other slot searched,
     every pair collided."""
     V = veh.kind.shape[1]
     eye = torch.eye(V, dtype=torch.bool, device=veh.kind.device)
-    return _frame_ops(veh, out, fs, p, dt, ~eye, torch.triu(~eye))
+    return _frame_ops(veh, out, fs, p, dt, ~eye, torch.triu(~eye), raw)
 
 
-def sorted_frame_ops(veh, out, fs, p, dt) -> float:
+def sorted_frame_ops(veh, out, fs, p, dt, raw=False) -> float:
     """float32 operations one banded frame on the rank layout needs: the
     in-band ranks searched, the pairs of the rank band collided, plus the
     scans and queries of every live slot."""
@@ -353,17 +398,18 @@ def sorted_frame_ops(veh, out, fs, p, dt) -> float:
         + OPS_FAR_QUERY
     )
     return _frame_ops(
-        veh, out, fs, p, dt, band, (gap >= 1) & (gap <= W)
+        veh, out, fs, p, dt, band, (gap >= 1) & (gap <= W), raw
     ) + per_slot * float((veh.kind != 0).sum())
 
 
-def gen_frame_ops(veh, out, spec, table) -> float:
+def gen_frame_ops(veh, out, spec, table, raw=False) -> float:
     """float32 operations one general frame from ``veh`` (and its
     frame-start projection table) to ``out`` needs: per live slot the
     projection and re-localization on every lane by the lane's kind and the
     slot's own work; the lanes follow_road measures at a lane end; the IDM
     accelerations and neighbour scans of the decision pass; the abort scans;
-    the collision pairs as in the straight frame."""
+    the collision pairs as in the straight frame.  Under raw controls
+    (``raw``) the egos' P-cascade is not counted."""
     from highwayenv_tpu_torch.road import lane as lane_ops
     from highwayenv_tpu_torch.vehicle.controller import table_row
     from highwayenv_tpu_torch.vehicle.state import KIND_IDM
@@ -413,8 +459,10 @@ def gen_frame_ops(veh, out, spec, table) -> float:
     diag = torch.sqrt(out.length**2 + out.width**2)
     reach = (diag[:, :, None] + diag[:, None, :]) / 2 + out.speed[:, :, None] * spec.dt
     near = elig & ((dpos * dpos).sum(-1) <= reach * reach)
+    raw_egos = (veh.kind == 1).sum() if raw else 0
     return float(
-        (per_lane + GEN_OPS_SLOT) * live.sum() + GEN_OPS_EDGE_LANE * edge_lanes
+        (per_lane + GEN_OPS_SLOT) * live.sum() - GEN_OPS_EGO_CONTROLS * raw_egos
+        + GEN_OPS_EDGE_LANE * edge_lanes
         + GEN_OPS_IDM * idm_evals + GEN_OPS_NEIGH_PAIR * (V - 1) * queries
         + GEN_OPS_ABORT_PAIR * V * aborting + OPS_SPHERE * elig.sum()
         + OPS_SAT * near.sum()
@@ -500,15 +548,13 @@ def regulated_scenes(env, states, gen):
     spread = torch.arange(Bn, device=dev, dtype=torch.int32) * env.frames_per_step
 
     def actions():
-        acts = torch.randint(0, env.action_type.n, (Bn,), generator=gen, device=dev,
-                             dtype=torch.int32)
+        acts = random_actions(env, Bn, gen)
         return env._action_to_slots(acts)
 
     out = {"reset": (veh, states.steps, actions(), env.frames_per_step)}
     st = states
     for _ in range(8):
-        acts = torch.randint(0, env.action_type.n, (Bn,), generator=gen, device=dev,
-                             dtype=torch.int32)
+        acts = random_actions(env, Bn, gen)
         st = env.step_autoreset(st, acts, gen)[1]
     out["8 steps in"] = (st.vehicles, st.steps + spread, actions(), env.frames_per_step)
 
@@ -541,21 +587,18 @@ def regulated_scenes(env, states, gen):
     return out
 
 
-def general_scenes(env, states, gen):
+def general_scenes(env, states, gen, obstacle_hit=False):
     """The general frame's scenes: reset; 8 policy steps in (the plain
     autoreset path); every env's vehicles in a row 1.5 m apart along the
-    ego's heading (an all-env pile-up); and on merge-v0 the ramp vehicle
-    closing on the end-of-ramp obstacle at 15 m/s and slot 1 on the ego at
-    40 m/s (the obstacle hit)."""
-    from highwayenv_tpu_torch.vehicle.state import KIND_OBSTACLE
-
+    ego's heading (an all-env pile-up); and with ``obstacle_hit`` (merge-v0)
+    the ramp vehicle closing on the end-of-ramp obstacle at 15 m/s and slot
+    1 on the ego at 40 m/s (the obstacle hit)."""
     veh = states.vehicles
     Bn, V = veh.kind.shape
     dev = veh.pos.device
     st = states
     for _ in range(8):
-        acts = torch.randint(0, env.action_type.n, (Bn,), generator=gen,
-                             device=dev, dtype=torch.int32)
+        acts = random_actions(env, Bn, gen)
         st = env.step_autoreset(st, acts, gen)[1]
     out = {"reset": veh, "8 steps in": st.vehicles}
     h = veh.heading[:, 0]
@@ -569,7 +612,7 @@ def general_scenes(env, states, gen):
         lane=torch.where(is_veh, veh.lane[:, :1], veh.lane),
         target_lane=torch.where(is_veh, veh.lane[:, :1], veh.target_lane),
     )
-    if bool((veh.kind == KIND_OBSTACLE).any()):  # merge-v0: slot 5
+    if obstacle_hit:  # merge-v0: the obstacle in slot 5
         pos, heading, speed = veh.pos.clone(), veh.heading.clone(), veh.speed.clone()
         lane, tlane = veh.lane.clone(), veh.target_lane.clone()
         off = 0.5 * (torch.arange(Bn, device=dev) % 8).float()
@@ -604,8 +647,7 @@ def check_autoreset(env, states, gen, label: str) -> None:
     path from the same states and generators."""
     st_k = st_p = states
     for t in range(3):
-        acts = torch.randint(0, env.action_type.n, (B,), generator=gen,
-                             device=env.device, dtype=torch.int32)
+        acts = random_actions(env, B, gen)
         g_k, g_p = env.generator(100 + t), env.generator(100 + t)
         obs_k, st_k, r_k, te_k, tr_k, _ = env.step_autoreset_batched(st_k, acts, g_k)
         obs_p, st_p, r_p, te_p, tr_p, _ = env.step_autoreset(st_p, acts, g_p)
@@ -635,8 +677,6 @@ def profile_rollout(env, states, gen, steps: int = 4) -> None:
     """Where a rollout step's time goes: device kernels by name and the
     device's busy share of the wall time, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
-
-    from highwayenv_tpu_torch.parallel.rollout import rollout
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -714,10 +754,8 @@ def check_compact(env, states, label: str) -> None:
         s_f = s_c = start
         log = []
         for t in range(COMPACT_STEPS):
-            acts = torch.randint(0, env.action_type.n, (B,), generator=g_f,
-                                 device=env.device, dtype=torch.int32)
-            torch.randint(0, env.action_type.n, (B,), generator=g_c,
-                          device=env.device, dtype=torch.int32)
+            acts = random_actions(env, B, g_f)
+            random_actions(env, B, g_c)
             out_f = env.step_autoreset_batched(s_f, acts, g_f)
             with PassCounter(env) as passes:
                 out_c = env.step_autoreset_batched(s_c, acts, g_c, reset_slots=P)
@@ -750,10 +788,8 @@ def check_graph(env, states, label: str) -> None:
         where = f"{label}graph P={P}{' final_obs' if final_obs else ''}"
         dones = []
         for t in range(GRAPH_STEPS):
-            acts = torch.randint(0, env.action_type.n, (B,), generator=g_e,
-                                 device=env.device, dtype=torch.int32)
-            acts_g = torch.randint(0, env.action_type.n, (B,), generator=g_g,
-                                   device=env.device, dtype=torch.int32)
+            acts = random_actions(env, B, g_e)
+            acts_g = random_actions(env, B, g_g)
             out_e = env._autoreset_rest(*env._autoreset_first(s_e, acts, g_e, P, final_obs))
             out_g = step(acts_g)
             same_step(out_g, out_e, f"{where} step {t}")
@@ -778,21 +814,19 @@ def profile_replays(env, states, gen, kernel_names, reset_slots=None) -> dict:
     from highwayenv_tpu_torch.parallel.graph import CapturedStep
 
     step = CapturedStep(env, states, gen, reset_slots=reset_slots)
-    step(torch.zeros(B, dtype=torch.int32, device=env.device))
+    step(torch.zeros_like(step.actions))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_REPLAYS):
-            step(torch.randint(0, env.action_type.n, (B,), generator=gen,
-                               device=env.device, dtype=torch.int32))
+            step(random_actions(env, B, gen))
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     ours = {}
-    for e in kernels:
-        for name in kernel_names:
-            # the demangled symbol: "name(" or "void name<...>("
-            if re.search(r"(^|\s)" + re.escape(name) + r"[<(]", e.key):
-                ours[name] = ours.get(name, 0) + e.count / PROFILE_REPLAYS
+    for name in kernel_names:
+        count = sum(e.count for e in kernel_events(prof, name))
+        if count:
+            ours[name] = count / PROFILE_REPLAYS
     return {
         "ours": ours,
         "kernels": sum(e.count for e in kernels) / PROFILE_REPLAYS,
@@ -818,8 +852,7 @@ def stepper(env, states, gen, reset_slots, graph: bool):
             return out
 
     def acts():
-        return torch.randint(0, env.action_type.n, (B,), generator=gen,
-                             device=env.device, dtype=torch.int32)
+        return random_actions(env, B, gen)
 
     step(acts())
     torch.cuda.synchronize()
@@ -862,9 +895,9 @@ class FrameRecorder:
         self.kernel = kernel
         self.frames = []
 
-    def __call__(self, veh, spec, slot_actions, frames, steps0=None):
+    def __call__(self, veh, spec, slot_actions, frames, *args, **kwargs):
         self.frames.append(frames)
-        return self.kernel(veh, spec, slot_actions, frames, steps0)
+        return self.kernel(veh, spec, slot_actions, frames, *args, **kwargs)
 
 
 class FlagRecorder:
@@ -887,7 +920,6 @@ def main() -> int:
         return 1
     import highwayenv_tpu_torch as ht
     from highwayenv_tpu_torch.ops import _build, general_frames, straight_frames, straight_sorted
-    from highwayenv_tpu_torch.parallel.rollout import rollout
     from highwayenv_tpu_torch.road import lane as lane_ops
 
     sf, ss, gf =straight_frames, straight_sorted, general_frames
@@ -912,22 +944,25 @@ def main() -> int:
 
     k1, k2a, k3, k2b = sf.frames_kernel, ss.sort_kernel, ss.frames_sorted_kernel, ss.unsort_kernel
     k4 = gf.frames_general_kernel
-    err = {"K1": 0.0, "K2a": 0.0, "K3": 0.0, "K2b": 0.0}
+    err = {"K1": 0.0, "K2a": 0.0, "K3": 0.0, "K2b": 0.0, "K1 raw": 0.0, "K3 raw": 0.0}
     # highway-fast-v0 (V=21, 5 frames) and highway-v0 at the warp
-    # boundaries run the same kernels; the main path is highway-v0, checked
-    # last so its env and states carry on below
+    # boundaries run the same kernels; highway-v0 under a ContinuousAction
+    # runs K1's and K3's raw-control branch (its env carried on below as
+    # cenv); the main path is highway-v0, checked last so its env and
+    # states carry on below
     straight = ([("highway-fast-v0", None, B)]
                 + [("highway-v0", {"vehicles_count": n}, EDGE_B) for n in EDGE_VEHICLES]
-                + [("highway-v0", None, B)])
+                + [("highway-v0", CONTINUOUS_CONFIG, B), ("highway-v0", None, B)])
     for env_id, config, Bc in straight:
         env = ht.make(env_id, config)
         fs, p, dt, frames = env._straight, env.idm_params, env.dt, env.frames_per_step
-        label = f"{env_id} V={env.num_slots}"
+        raw = env.action_type.stores_raw_controls
+        sfx = " raw" if raw else ""
+        label = f"{env_id} V={env.num_slots}" + (" ContinuousAction" if raw else "")
         print(f"== 3. kernels vs plain: {label}, {frames} frames, B={Bc}")
         gen = env.generator(SEED)
         _, states = env.reset(Bc, gen)
-        actions = torch.randint(0, env.action_type.n, (Bc,), generator=gen,
-                                device=env.device, dtype=torch.int32)
+        actions = random_actions(env, Bc, gen)
         both_fired = False
         for name, veh in scenes(states.vehicles).items():
             where = f"{label} {name}"
@@ -935,10 +970,10 @@ def main() -> int:
                 env.geo, veh, veh.kind == 1, env._action_to_slots(actions)
             )
             # K1, dense
-            out_k = k1(veh, fs, p, dt, frames)
-            out_p = sf.frames_plain(veh, fs, p, dt, frames)
+            out_k = k1(veh, fs, p, dt, frames, raw=raw)
+            out_p = sf.frames_plain(veh, fs, p, dt, frames, raw)
             torch.cuda.synchronize()
-            err["K1"] = max(err["K1"], exact_state(out_k, out_p, f"{where} K1"))
+            err["K1" + sfx] = max(err["K1" + sfx], exact_state(out_k, out_p, f"{where} K1"))
             # K2a
             srt_k, idx_k = k2a(veh, fs)
             srt_p, idx_p = ss.sort_plain(veh, fs)
@@ -947,12 +982,12 @@ def main() -> int:
                 raise AssertionError(f"{where} K2a: idx differs")
             exact(srt_k, srt_p, [n for n, _, _ in ss.SORT_FIELDS], f"{where} K2a")
             # K3 on the same sorted inputs
-            band_k, flags_k = k3(srt_p, idx_p, fs, p, dt, frames)
-            band_p, flags_p = ss.frames_sorted_plain(srt_p, idx_p, fs, p, dt, frames)
+            band_k, flags_k = k3(srt_p, idx_p, fs, p, dt, frames, raw=raw)
+            band_p, flags_p = ss.frames_sorted_plain(srt_p, idx_p, fs, p, dt, frames, raw)
             torch.cuda.synchronize()
             if not torch.equal(flags_k, flags_p):
                 raise AssertionError(f"{where} K3: flags differ")
-            err["K3"] = max(err["K3"], exact_state(band_k, band_p, f"{where} K3"))
+            err["K3" + sfx] = max(err["K3" + sfx], exact_state(band_k, band_p, f"{where} K3"))
             # K2b
             back_k = k2b(band_p, idx_p, veh)
             back_p = ss.unsort_plain(band_p, idx_p, veh)
@@ -960,10 +995,11 @@ def main() -> int:
             exact(back_k, back_p, [n for n, _, _ in ss.MUT_FIELDS], f"{where} K2b")
             # K1 masked by the flags, over the banded rows
             mask = flags_p.any(dim=1)
-            fix_k = k1(veh, fs, p, dt, frames, mask=mask, out=back_k)
-            fix_p = sf._masked_plain(veh, fs, p, dt, frames, mask, back_p)
+            fix_k = k1(veh, fs, p, dt, frames, mask=mask, out=back_k, raw=raw)
+            fix_p = sf._masked_plain(veh, fs, p, dt, frames, mask, back_p, raw)
             torch.cuda.synchronize()
-            err["K1"] = max(err["K1"], exact_state(fix_k, fix_p, f"{where} K1 masked"))
+            err["K1" + sfx] = max(err["K1" + sfx],
+                                  exact_state(fix_k, fix_p, f"{where} K1 masked"))
             # the sorted step (kernels) against the dense step (kernel)
             bitwise = compare_steps(fix_k, out_k, f"{where} sorted step vs dense")
             fired = flags_k.sum(dim=0).tolist()
@@ -975,6 +1011,8 @@ def main() -> int:
                   f"crashed slots {int(fix_k.crashed.sum())}")
         if not both_fired:
             raise AssertionError(f"{label}: no scene fired both band flags")
+        if raw:
+            cenv = env
     # the whole autoreset step: the main path (sorted kernels) against the
     # plain reference path
     check_autoreset(env, states, gen, "")
@@ -988,9 +1026,9 @@ def main() -> int:
         _, gstates = genv.reset(B, gen)
         print(f"== 3. K4 vs plain: {env_id} V={genv.num_slots}, L={genv.geo.num_lanes}, "
               f"R={gstates.vehicles.route_base.shape[-1]}, {gframes} frames, B={B}")
-        for name, veh in general_scenes(genv, gstates, gen).items():
-            acts = torch.randint(0, genv.action_type.n, (B,), generator=gen,
-                                 device=genv.device, dtype=torch.int32)
+        for name, veh in general_scenes(genv, gstates, gen,
+                                        obstacle_hit=env_id == "merge-v0").items():
+            acts = random_actions(genv, B, gen)
             sa = genv._action_to_slots(acts)
             out_k = k4(veh, spec, sa, gframes)
             out_p = gf.frames_general_plain(veh, spec, sa, gframes)
@@ -999,6 +1037,35 @@ def main() -> int:
             if name == "obstacle hit" and not bool(out_k.crashed[:, 4].any()):
                 raise AssertionError("merge-v0: the ramp vehicle hit the obstacle nowhere")
     check_autoreset(genv, gstates, gen, "roundabout-v0 ")
+
+    # K4's raw-control branch: the racetrack family, lateral-only
+    # ContinuousAction egos (V=2; the oval with its 8 roadblocks, V=10),
+    # and racetrack-v0 under a DiscreteAction (int actions stored as grid
+    # points); each action stored on the egos first, as the env path does;
+    # racetrack-v0 last, its env carried on below
+    err["K4 raw"] = 0.0
+    checked = RACETRACKS[:-1] + (("racetrack-v0", DISCRETE_CONFIG), RACETRACKS[-1])
+    for env_id, config in checked:
+        renv = ht.make(env_id, config)
+        rspec, rframes = renv._general, renv.frames_per_step
+        label = env_id + (" DiscreteAction" if config == DISCRETE_CONFIG else "")
+        gen = renv.generator(SEED)
+        _, rstates = renv.reset(B, gen)
+        print(f"== 3. K4 raw vs plain: {label} V={renv.num_slots}, L={renv.geo.num_lanes}, "
+              f"{rframes} frames, B={B}, raw controls "
+              f"{renv.action_type.stores_raw_controls}")
+        for name, veh in general_scenes(renv, rstates, gen).items():
+            sa = renv._action_to_slots(random_actions(renv, B, gen))
+            veh, _, raw = gf.store_raw_controls(renv, veh, sa)
+            out_k = k4(veh, rspec, None, rframes, raw=raw)
+            out_p = gf.frames_general_plain(veh, rspec, None, rframes, raw=raw)
+            torch.cuda.synchronize()
+            err["K4 raw"] = max(err["K4 raw"],
+                                compare_general(out_k, out_p, f"{label} {name}"))
+            if name == "pile-up" and not bool(out_k.crashed[:, 0].all()):
+                raise AssertionError(f"{label}: an ego of the pile-up did not crash")
+        if env_id == "racetrack-v0":
+            check_autoreset(renv, rstates, gen, label + " ")
 
     # K5 on the regulated road; its env carried on below
     k5 = gf.frames_regulated_kernel
@@ -1048,7 +1115,8 @@ def main() -> int:
 
     # the compact autoreset and the captured step, on the three envs
     for label, e, st in (("highway-v0 ", env, states), ("roundabout-v0 ", genv, gstates),
-                         ("intersection-v0 ", ienv, istates)):
+                         ("intersection-v0 ", ienv, istates),
+                         ("racetrack-v0 ", renv, rstates)):
         print(f"== 3. {label}compact autoreset vs full, CapturedStep vs eager")
         check_compact(e, st, label)
         check_graph(e, st, label)
@@ -1122,8 +1190,7 @@ def main() -> int:
     for k in (k1, k2a, k3, k2b, k4):
         k.launches = 0
     for _ in range(GEN_HORIZON):
-        acts = torch.randint(0, genv.action_type.n, (B,), generator=gen,
-                             device=genv.device, dtype=torch.int32)
+        acts = random_actions(genv, B, gen)
         obs, gstates, reward, term, trunc, _ = genv.step_autoreset_batched(gstates, acts, gen)
         ended = ended + (term | trunc).sum()
         crashed = crashed + term.sum()
@@ -1157,8 +1224,7 @@ def main() -> int:
         ended = crashed = arrived = obs_sum = 0.0
         finite = torch.ones((), dtype=torch.bool, device=ienv.device)
         for _ in range(INT_HORIZON):
-            acts = torch.randint(0, ienv.action_type.n, (B,), generator=gen,
-                                 device=ienv.device, dtype=torch.int32)
+            acts = random_actions(ienv, B, gen)
             obs, istates, reward, term, trunc, info = ienv.step_autoreset_batched(
                 istates, acts, gen)
             ended = ended + (term | trunc).sum()
@@ -1188,16 +1254,66 @@ def main() -> int:
     if not int(ended) > 0:
         raise AssertionError("intersection-v0: no episode ended")
 
-    # the three rollouts again, each step one replay of a CapturedStep
+    # the raw-control paths: the racetrack family through K4, and highway-v0
+    # under a ContinuousAction through K2a, K3, K2b and masked K1
+    racers = {}
+    for env_id, config in RACETRACKS:
+        e = renv if env_id == "racetrack-v0" else ht.make(env_id, config)
+        racers[env_id] = e
+        print(f"== 4. raw-control path: make('{env_id}'{', ' + str(config) if config else ''})"
+              f" on CUDA, B={B}, V={e.num_slots}, reset and {HORIZON} random-policy "
+              "(U(-1, 1) steering) autoreset steps through K4")
+        gen = e.generator(SEED + 1)
+        _, rst = e.reset(B, gen)
+        for k in (k1, k2a, k3, k2b, k4, k5):
+            k.launches = 0
+        rst, rm = rollout(e, rst, HORIZON, gen)
+        torch.cuda.synchronize()
+        others = (k1.launches, k2a.launches, k3.launches, k2b.launches, k5.launches)
+        rm = {k: float(v) for k, v in rm.items()}
+        print(f"  launches: K4 {k4.launches} in {HORIZON} policy steps, other kernels "
+              f"{others}; rollout {rm}")
+        if k4.launches != HORIZON or any(others):
+            raise AssertionError(f"{env_id}: K4 must launch once per policy step, alone")
+        if not all(np.isfinite(list(rm.values()))) or not rm["done_rate"] > 0:
+            raise AssertionError(f"{env_id}: non-finite metrics or no episode ended")
+        for k in ("pos", "speed", "heading", "steering"):
+            if not bool(torch.isfinite(getattr(rst.vehicles, k)).all()):
+                raise AssertionError(f"{env_id}: non-finite {k}")
+        if env_id == "racetrack-v0":
+            launches["K4 raw"] = k4.launches
+    print(f"== 4. raw-control path: make('highway-v0', {CONTINUOUS_CONFIG}) on CUDA, "
+          f"B={B}, {HORIZON} random-policy (U(-1, 1)) autoreset steps, sorted step")
+    gen = cenv.generator(SEED + 1)
+    _, cst = cenv.reset(B, gen)
+    for k in (k1, k2a, k3, k2b, k4, k5):
+        k.launches = 0
+    cst, cm = rollout(cenv, cst, HORIZON, gen)
+    torch.cuda.synchronize()
+    counts = {"K1": k1.launches, "K2a": k2a.launches, "K3": k3.launches, "K2b": k2b.launches}
+    cm = {k: float(v) for k, v in cm.items()}
+    print(f"  launches: {counts}, K4 and K5 {(k4.launches, k5.launches)}; rollout {cm}")
+    if any(n != HORIZON for n in counts.values()) or k4.launches or k5.launches:
+        raise AssertionError("highway-v0 ContinuousAction: the sorted kernels must "
+                             "launch once per policy step, alone")
+    if not all(np.isfinite(list(cm.values()))):
+        raise AssertionError("highway-v0 ContinuousAction: non-finite metrics")
+    launches["K1 raw"], launches["K3 raw"] = counts["K1"], counts["K3"]
+
+    # the rollouts again, each step one replay of a CapturedStep
+    straight_names = ("straight_frames_kernel", "sort_kernel",
+                      "straight_frames_sorted_kernel", "unsort_kernel")
+    straight_kernels = {"K1": k1, "K2a": k2a, "K3": k3, "K2b": k2b}
     path_kernels = (
-        ("highway-v0", env, {"K1": k1, "K2a": k2a, "K3": k3, "K2b": k2b},
-         ("straight_frames_kernel", "sort_kernel", "straight_frames_sorted_kernel",
-          "unsort_kernel")),
+        ("highway-v0", env, straight_kernels, straight_names),
         ("roundabout-v0", genv, {"K4": k4}, ("general_frames_kernel<false>",)),
         ("intersection-v0", ienv, {"K5": k5}, ("general_frames_kernel<true>",)),
+    ) + tuple((env_id, e, {"K4": k4}, ("general_frames_kernel<false>",))
+              for env_id, e in racers.items()) + (
+        ("highway-v0 ContinuousAction", cenv, straight_kernels, straight_names),
     )
     for label, e, path, names in path_kernels:
-        print(f"== 4. graph path: make('{label}') on CUDA, B={B}, {HORIZON} random-policy "
+        print(f"== 4. graph path: {label} on CUDA, B={B}, {HORIZON} random-policy "
               "autoreset steps, each one replay of a CapturedStep")
         gen = e.generator(SEED + 3)
         _, gst = e.reset(B, gen)
@@ -1239,17 +1355,16 @@ def main() -> int:
     rows = {}
 
     def timed(label, kernel_fn, plain_fn, library_fn, reps, plain_reps):
-        """(device ms, plain device ms, library device ms or None), printed
-        with the wall time of one kernel call."""
-        ms = device_ms(kernel_fn, reps)
+        """(kernel ms, plain device ms, library device ms or None): the
+        kernel's time between CUDA events around launches queued behind a
+        device-side wait, printed with the wall time of one call."""
+        ms = queued_ms(kernel_fn, reps)
         wall = cuda_ms(kernel_fn, reps)
-        queued = queued_ms(kernel_fn, reps)
         plain_ms = device_ms(plain_fn, plain_reps)
         lib_ms = None if library_fn is None else device_ms(library_fn, plain_reps)
-        print(f"  {label}: {ms:.4f} ms on the device ({wall:.4f} ms a call between "
-              f"CUDA events; {queued:.4f} ms between CUDA events behind a device-side "
-              f"wait); plain {plain_ms:.4f} ms"
-              + ("" if lib_ms is None else f"; yardstick {lib_ms:.4f} ms"))
+        print(f"  {label}: {ms:.4f} ms between CUDA events behind a device-side wait "
+              f"({wall:.4f} ms a call between CUDA events); plain {plain_ms:.4f} ms "
+              "on the device" + ("" if lib_ms is None else f"; yardstick {lib_ms:.4f} ms"))
         return ms, plain_ms, lib_ms
 
     # K2a: bytes of every field read once and written once, plus idx
@@ -1322,7 +1437,7 @@ def main() -> int:
         lambda: k1(veh, fs, p, dt, frames),
         lambda: sf.frames_plain(veh, fs, p, dt, frames), None, 20, 2,
     )
-    masked_ms = device_ms(lambda: k1(veh, fs, p, dt, frames, mask=none, out=back), 50)
+    masked_ms = queued_ms(lambda: k1(veh, fs, p, dt, frames, mask=none, out=back), 50)
     ops, v = 0.0, veh
     for _ in range(frames):
         out = sf.frames_plain(v, fs, p, dt, 1)
@@ -1332,7 +1447,7 @@ def main() -> int:
     bms, by, t_ops, t_bytes = bound(ops, n_bytes)
     rows["K1"] = ("straight_frames", "highwayenv_tpu_torch/csrc/straight_frames.cu",
                   "highwayenv_tpu/ops/straight_pallas_bm.py:1190", ms, plain_ms, bms, by, None)
-    print(f"    masked with no env firing: {masked_ms:.4f} ms on the device; bound "
+    print(f"    masked with no env firing: {masked_ms:.4f} ms queued; bound "
           f"{bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.4f} ms, {n_bytes} "
           f"bytes -> {t_bytes:.4f} ms)")
 
@@ -1340,8 +1455,7 @@ def main() -> int:
     gspec, gframes = genv._general, genv.frames_per_step
     _, g0 = genv.reset(B, genv.generator(SEED + 2))
     gveh = g0.vehicles
-    gsa = genv._action_to_slots(torch.randint(
-        0, genv.action_type.n, (B,), generator=gen, device=genv.device, dtype=torch.int32))
+    gsa = genv._action_to_slots(random_actions(genv, B, gen))
     ms, plain_ms, _ = timed(
         "K4 general_frames (roundabout-v0), per policy step",
         lambda: k4(gveh, gspec, gsa, gframes),
@@ -1394,6 +1508,81 @@ def main() -> int:
         print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, "
               f"{n_bytes} bytes -> {t_bytes:.5f} ms)")
 
+    # the raw-control branches: K4 at racetrack-v0 from a fresh reset, and
+    # K3 and K1 at highway-v0 under a ContinuousAction, random actions; the
+    # bounds drop the egos' P-cascade, which these launches do not run
+    rspec, rframes = renv._general, renv.frames_per_step
+    _, r0 = renv.reset(B, renv.generator(SEED + 2))
+    rveh = r0.vehicles
+    # the action stored on the egos first, as the env path does: the launch
+    # reads no slot actions, and its bytes count none
+    rsa = renv._action_to_slots(random_actions(renv, B, gen))
+    rveh, _, _ = gf.store_raw_controls(renv, rveh, rsa)
+    ms, plain_ms, _ = timed(
+        "K4 general_frames, raw controls (racetrack-v0, V=2), per policy step",
+        lambda: k4(rveh, rspec, None, rframes, raw=True),
+        lambda: gf.frames_general_plain(rveh, rspec, None, rframes, raw=True), None, 20, 2,
+    )
+    ops, v = 0.0, rveh
+    table = lane_ops.projection_table(rspec.geo, v.pos)
+    for f in range(rframes):
+        out, next_table = gf.frame_general_plain(v, rspec, table, None, raw=True)
+        ops += gen_frame_ops(v, out, rspec, table, raw=True)
+        v, table = out, next_table
+    lf, li = gf.lane_tables(rspec.geo, renv.device)
+    n_bytes = (field_bytes(rveh, gf._resolve(gf._IN_FIELDS, 1))
+               + field_bytes(v, gf._resolve(gf.OUT_FIELDS, 1))
+               + lf.numel() * 4 + li.numel() * 4)
+    bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+    rows["K4 raw"] = ("general_frames (racetrack-v0, raw controls)",
+                      "highwayenv_tpu_torch/csrc/general_frames.cu",
+                      "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms, bms, by,
+                      None)
+    print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, "
+          f"{n_bytes} bytes -> {t_bytes:.5f} ms)")
+    _, c0 = cenv.reset(B, cenv.generator(SEED + 2))
+    cveh = cenv.action_type.apply(
+        cenv.geo, c0.vehicles, c0.vehicles.kind == 1,
+        cenv._action_to_slots(random_actions(cenv, B, gen)))
+    csrt, cidx = ss.sort_plain(cveh, fs)
+    ms, plain_ms, _ = timed(
+        "K3 straight_frames_sorted, raw controls (highway-v0 ContinuousAction), per step",
+        lambda: k3(csrt, cidx, fs, p, dt, frames, raw=True),
+        lambda: ss.frames_sorted_plain(csrt, cidx, fs, p, dt, frames, True), None, 20, 2,
+    )
+    ops, v = 0.0, csrt
+    for _ in range(frames):
+        out, _ = ss.frames_sorted_plain(v, cidx, fs, p, dt, 1, True)
+        ops += sorted_frame_ops(v, out, fs, p, dt, raw=True)
+        v = out
+    n_bytes = (field_bytes(csrt, sf._IN_FIELDS) + field_bytes(v, sf._OUT_FIELDS)
+               + cidx.numel() * 4 + B * 2)
+    bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+    rows["K3 raw"] = ("straight_frames_sorted (highway-v0 ContinuousAction, raw controls)",
+                      "highwayenv_tpu_torch/csrc/straight_frames_sorted.cu",
+                      "highwayenv_tpu/ops/straight_pallas_bm.py:1190", ms, plain_ms, bms, by,
+                      None)
+    print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.4f} ms, "
+          f"{n_bytes} bytes -> {t_bytes:.4f} ms)")
+    ms, plain_ms, _ = timed(
+        "K1 straight_frames, raw controls (highway-v0 ContinuousAction), every env, per step",
+        lambda: k1(cveh, fs, p, dt, frames, raw=True),
+        lambda: sf.frames_plain(cveh, fs, p, dt, frames, True), None, 20, 2,
+    )
+    ops, v = 0.0, cveh
+    for _ in range(frames):
+        out = sf.frames_plain(v, fs, p, dt, 1, True)
+        ops += frame_ops(v, out, fs, p, dt, raw=True)
+        v = out
+    n_bytes = field_bytes(cveh, sf._IN_FIELDS) + field_bytes(cveh, sf._OUT_FIELDS)
+    bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+    rows["K1 raw"] = ("straight_frames (highway-v0 ContinuousAction, raw controls)",
+                      "highwayenv_tpu_torch/csrc/straight_frames.cu",
+                      "highwayenv_tpu/ops/straight_pallas_bm.py:1190", ms, plain_ms, bms, by,
+                      None)
+    print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.4f} ms, "
+          f"{n_bytes} bytes -> {t_bytes:.4f} ms)")
+
     # the policy step's simulation, and the rollouts, in turns
     for which, sim in (("sorted", ss.simulate_bm_sorted), ("dense", sf.simulate_bm)):
         def call(sim=sim):
@@ -1441,6 +1630,23 @@ def main() -> int:
               "ms per step)")
     print("  intersection-v0 step:")
     profile_rollout(ienv, i0, gen)
+    for env_id, e in racers.items():
+        _, e0 = e.reset(B, e.generator(SEED + 2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout(e, e0, HORIZON, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"  {env_id} rollout: {HORIZON} steps x {B} envs in {wall:.4f} s "
+              f"= {HORIZON * B / wall:.1f} env-steps/s ({wall / HORIZON * 1e3:.4f} "
+              "ms per step)")
+        print(f"  {env_id} step:")
+        profile_rollout(e, e0, gen)
+        obs_ms = device_ms(lambda: e._observe(e0), 5)
+        road_ms = device_ms(
+            lambda: e.observation_type._road_layer(e.geo, e0.vehicles, e.ego_slots[0]), 5)
+        print(f"  {env_id} observation (OccupancyGrid, B={B}): {obs_ms:.4f} ms on the "
+              f"device, of which the on_road layer {road_ms:.4f} ms")
 
     # ms per step: eager against graph, full against compact, in turns
     from highwayenv_tpu_torch.parallel.graph import CapturedStep
@@ -1449,7 +1655,7 @@ def main() -> int:
           f"three runs each in turns, on {card}:")
     variants = (("eager full", None, False), ("eager compact P=1024", 1024, False),
                 ("graph full", None, True), ("graph compact P=1024", 1024, True))
-    for label, e in (("highway-v0", env), ("roundabout-v0", genv),
+    for label, e in (("racetrack-v0", renv), ("highway-v0", env), ("roundabout-v0", genv),
                      ("intersection-v0", ienv)):
         _, t0_states = e.reset(B, e.generator(SEED + 4))
         walls = {name: [] for name, _, _ in variants}

@@ -7,8 +7,10 @@ package imports nothing of it and nothing of JAX.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 Registry ids mirror the reference; ported so far: the straight highway
-envs and, on the general analytic-lane path, roundabout-v0, merge-v0 and
-the regulated intersection-v0.
+envs and, on the general analytic-lane path, roundabout-v0, merge-v0, the
+regulated intersection-v0 and the racetrack family (racetrack-v0,
+racetrack-large-v0, racetrack-oval-v0), whose ContinuousAction egos run the
+frame kernels' raw-control branch.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ def _why_not_ported(env_id: str) -> str:
     if env_id.startswith("intersection-multi-agent"):
         return "MultiAgentAction and MultiAgentObservation are not ported"
     if env_id == "intersection-v1":
-        return ("ContinuousAction and the BicycleVehicle dynamics "
+        return ("the BicycleVehicle dynamics of its dynamical ContinuousAction "
                 "(vehicle/dynamics.py) are not ported")
     return "unknown or not ported"
 
@@ -90,12 +92,20 @@ def _register_all():
     from highwayenv_tpu_torch.envs.highway import HighwayEnv, HighwayEnvFast
     from highwayenv_tpu_torch.envs.intersection import IntersectionEnv
     from highwayenv_tpu_torch.envs.merge import MergeEnv
+    from highwayenv_tpu_torch.envs.racetrack import (
+        RacetrackEnv,
+        RacetrackEnvLarge,
+        RacetrackEnvOval,
+    )
     from highwayenv_tpu_torch.envs.roundabout import RoundaboutEnv
 
     register("highway-v0", HighwayEnv)
     register("highway-fast-v0", HighwayEnvFast)
     register("intersection-v0", IntersectionEnv)
     register("merge-v0", MergeEnv)
+    register("racetrack-v0", RacetrackEnv)
+    register("racetrack-large-v0", RacetrackEnvLarge)
+    register("racetrack-oval-v0", RacetrackEnvOval)
     register("roundabout-v0", RoundaboutEnv)
 
 

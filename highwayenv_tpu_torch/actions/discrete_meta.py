@@ -21,6 +21,12 @@ ACTIONS_LAT = {0: "LANE_LEFT", 1: "IDLE", 2: "LANE_RIGHT"}
 
 
 class DiscreteMetaAction:
+    #: the frames steer and accelerate the egos by the P-cascade toward the
+    #: meta-action's targets (a ContinuousAction's egos keep stored commands)
+    stores_raw_controls = False
+    #: one int32 action an env, no trailing shape
+    action_shape = ()
+
     def __init__(
         self,
         longitudinal: bool = True,

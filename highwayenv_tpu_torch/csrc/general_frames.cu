@@ -13,7 +13,9 @@
 // JAX package's BaseEnv._frame): per frame follow_road on the lane graph,
 // the ego meta-action on frame 0, the IDM / MOBIL decision pass on the
 // projection table of every slot on every lane, the steering / speed
-// controls, on K5's tick frames the right-of-way pass of
+// controls (with GenParams::raw, a ContinuousAction, the TPU kernel's
+// raw_controls branch :1005-1007: no meta-action, and the ego keeps the
+// steering and acc the wrapper stored before the launch), on K5's tick frames the right-of-way pass of
 // road/regulation.py, bicycle integration, heading-aware re-localization
 // and the swept-SAT collision pass with obstacles and last-write impacts.
 // Each operation rounds as the op-by-op torch version does on the same card:
@@ -122,6 +124,7 @@ enum {
 
 struct GenParams {  // ops/general_frames.py::_GenParams
   int L, M, V, R, frames, n_speeds, longitudinal, lateral, period;
+  int raw;  // 1: egos keep their stored controls; no slot actions, n_speeds 0
   float dt, acc_max, comfort_acc_max, distance_wanted, time_wanted;
   float inv_two_sqrt_ab, politeness, lane_change_delay;
   float kp_a, kp_heading, kp_lateral, tau_pursuit, ts_lo, inv_ts_range;
@@ -650,7 +653,7 @@ __global__ void __launch_bounds__(GEN_BLOCK)
     v.gain = f.mobil_gain[o];
     v.max_braking = f.mobil_max_braking[o];
     v.route_len = f.route_len[o];
-    v.action = f.action[o];
+    v.action = p.raw ? 0 : f.action[o];
     if constexpr (kRegulated) {
       v.yld = rf.is_yielding[o] != 0;
       v.yt = rf.yield_timer[o];
@@ -722,7 +725,7 @@ __global__ void __launch_bounds__(GEN_BLOCK)
         v.tlane = next;
         v.route_ptr = new_ptr;
       }
-      if (frame == 0 && v.kind == KIND_EGO) {
+      if (frame == 0 && v.kind == KIND_EGO && !p.raw) {
         const int a = v.action;
         bool ll, lr, fa, sl;
         if (p.longitudinal && p.lateral) {
@@ -842,7 +845,8 @@ __global__ void __launch_bounds__(GEN_BLOCK)
         a_idm = clampf(a_idm, -p.acc_max, p.acc_max);
       }
       v.tlane = target;
-      const bool is_ego = v.kind == KIND_EGO;
+      // a raw-control ego keeps its stored steering and acc
+      const bool is_ego = v.kind == KIND_EGO && !p.raw;
       if (is_ego || idm) {
         // steering toward the target lane's heading a pursuit distance ahead
         const int tg = g.clip(target);
@@ -1109,8 +1113,9 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
                 "GenFields holds one pointer per tensor");
   const GenParams& p = *params;
   if (p.V < 1 || p.V > GEN_MAX_SLOTS || p.L < 1 || p.L > GEN_MAX_LANES || p.R < 1 ||
-      p.R > GEN_MAX_ROUTE || p.M < 1 || p.M > GEN_MAX_EDGE_LANES || p.n_speeds < 1 ||
-      p.n_speeds > GEN_MAX_SPEEDS || (kRegulated && p.period < 1))
+      p.R > GEN_MAX_ROUTE || p.M < 1 || p.M > GEN_MAX_EDGE_LANES ||
+      (p.raw ? p.n_speeds != 0 : (p.n_speeds < 1 || p.n_speeds > GEN_MAX_SPEEDS)) ||
+      (kRegulated && p.period < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   GenFields f;
   memcpy(&f, ptrs, sizeof(GenFields));
@@ -1135,8 +1140,9 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ptrs: the N_IN input tensors, the (B, V) int32 slot actions and the N_OUT
-// output tensors, as device pointers in GenFields' order; lane_f / lane_i:
+// ptrs: the N_IN input tensors, the (B, V) int32 slot actions (null with
+// GenParams::raw, never read) and the N_OUT output tensors, as device
+// pointers in GenFields' order; lane_f / lane_i:
 // the (L, LANE_F_WORDS) float and (L, LANE_I_WORDS) int lane tables on the
 // device.  Launches K4 on `stream` without synchronizing; returns the CUDA
 // error code (cudaErrorInvalidValue for shapes outside the kernel's limits).

@@ -11,7 +11,8 @@
 // Semantics are those of ops/straight_frames.py (frames_plain and its
 // phases), in the specialization the straight highway envs spawn: vehicles
 // only (no obstacles or landmarks) and IDM NPCs (no Linear-family presets).
-// Rounding: the kernels are built with -fmad=false and the precise libm
+// Under Params::raw (a ContinuousAction) the ego keeps its stored steering
+// and acc, the TPU kernels' raw_controls branch.  Rounding: the kernels are built with -fmad=false and the precise libm
 // functions, so every operation rounds as the op-by-op torch version does on
 // the same card.
 //
@@ -86,6 +87,7 @@ struct Params {  // ops/straight_frames.py::_Params
   float acc_max, comfort_acc_max, distance_wanted, time_wanted;
   float inv_two_sqrt_ab, politeness, lane_change_delay;
   float kp_a, kp_heading, kp_lateral;
+  int raw;  // 1: egos keep their stored steering and acc (ContinuousAction)
 };
 
 // The (B, V) fields a frame kernel reads and the ones it writes, in the
@@ -584,7 +586,9 @@ __device__ void drive(Slot& v, const Start& st, const int front[3],
   const float a_idm = clampf(
       target != lane ? fminf(a_self, accel_pair(p, free_self, self, f_t)) : a_self,
       -p.acc_max, p.acc_max);
-  const bool is_ego = v.kind == KIND_EGO;
+  // the ego's P-cascade, unless it keeps its raw controls (the TPU
+  // kernel's raw_controls branch, straight_pallas_bm.py:902-904)
+  const bool is_ego = v.kind == KIND_EGO && !p.raw;
   if (is_ego || idm) v.steer = steer_pc;
   if (is_ego) {
     v.acc = p.kp_a * (v.ts - speed);

@@ -17,8 +17,10 @@ runs them, as the JAX package does:
     ``ops/straight_frames.simulate_bm`` (the dense frame kernel alone, the
     JAX package's ``HT_NO_SORTED=1``);
   - on any other analytic-lane network the general gate admits
-    (roundabout, merge) through ``ops/general_frames.simulate_general``
-    (one launch of the general frame kernel, the ego meta-action inside);
+    (roundabout, merge, racetrack) through
+    ``ops/general_frames.simulate_general`` (one launch of the general
+    frame kernel, the ego meta-action inside, or a ContinuousAction's
+    controls stored before it and kept by the frames);
     on a regulated road (intersection) the same with the right-of-way pass
     on each env's tick frames, which ``simulate_general`` reads from the
     envs' frame counters (one launch of the regulated kernel).
@@ -114,11 +116,13 @@ def simulate_frames_reference(
     env, veh: VehicleState, slot_actions: torch.Tensor, frames: int
 ) -> VehicleState:
     """Policy-step simulation in plain torch on any device: the ego
-    meta-action, then ``frames`` frames of ``frames_plain``.  The
-    counterpart of the JAX package's XLA frame scan; the kernel path
-    (``simulate_bm``) is held against it."""
+    meta-action (or the stored raw controls of a ContinuousAction), then
+    ``frames`` frames of ``frames_plain``.  The counterpart of the JAX
+    package's XLA frame scan; the kernel path (``simulate_bm``) is held
+    against it."""
     veh = env.action_type.apply(env.geo, veh, veh.kind == KIND_EGO, slot_actions)
-    return frames_plain(veh, env._straight, env.idm_params, env.dt, frames)
+    return frames_plain(veh, env._straight, env.idm_params, env.dt, frames,
+                        raw=env.action_type.stores_raw_controls)
 
 
 class BaseEnv:
@@ -299,12 +303,16 @@ class BaseEnv:
     # policy-step simulation
     # ------------------------------------------------------------------ #
     def _action_to_slots(self, actions: torch.Tensor) -> torch.Tensor:
-        """(B,) agent actions -> (B, V) int32 slot actions."""
+        """Agent actions to slot actions: (B,) discrete actions -> (B, V)
+        int32; (B, size) continuous actions -> (B, V, size) float32 (the
+        JAX package's ``_action_to_slots``)."""
+        extra = tuple(self.action_type.action_shape)
+        dtype = torch.float32 if extra else torch.int32
+        batch = actions.shape[: actions.dim() - len(extra)]
         slots = torch.zeros(
-            actions.shape + (self.num_slots,), dtype=torch.int32,
-            device=actions.device,
+            batch + (self.num_slots,) + extra, dtype=dtype, device=actions.device
         )
-        slots[..., self.ego_slots[0]] = actions.to(torch.int32)
+        slots[:, self.ego_slots[0]] = actions.to(dtype)
         return slots
 
     def _advance(self, states: EnvState, actions, simulate) -> EnvState:
@@ -452,7 +460,7 @@ class BaseEnv:
             fresh = self._reset_state(done.shape[0], generator)
             state = where_done(done, fresh, state)
             if obs is not None:
-                obs = torch.where(done[:, None, None], self._observe(fresh), obs)
+                obs = torch.where(_rows(done, obs), self._observe(fresh), obs)
         else:
             pending, obs = self._compact_first(state, done, reset_slots, generator, obs)
             state = pending.state
@@ -492,7 +500,7 @@ class BaseEnv:
         if obs is not None:
             fresh_obs = self._observe(fresh)
             obs = obs.index_copy(
-                0, idx, torch.where(valid[:, None, None], fresh_obs, obs[idx])
+                0, idx, torch.where(_rows(valid, obs), fresh_obs, obs[idx])
             )
         return state, obs, mask & ~take
 

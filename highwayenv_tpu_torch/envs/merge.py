@@ -32,13 +32,11 @@ from highwayenv_tpu_torch.vehicle.state import (
     KIND_EGO,
     KIND_IDM,
     KIND_OBSTACLE,
+    OBJECT_LENGTH,
+    OBJECT_WIDTH,
     VehicleState,
     empty_state,
 )
-
-#: RoadObject size of the obstacle (reference vehicle/objects.py)
-OBJECT_LENGTH = 2.0
-OBJECT_WIDTH = 2.0
 
 
 class MergeEnv(BaseEnv):

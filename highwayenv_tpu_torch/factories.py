@@ -3,23 +3,25 @@
 PyTorch counterpart of ``highwayenv_tpu/factories.py`` (reference
 envs/common/observation.py ``observation_factory`` and envs/common/action.py
 ``action_factory``), so scenario configs stay drop-in.  The port has the
-Kinematics observation and the DiscreteMetaAction; every other type the JAX
-package knows raises ``NotPortedError`` naming the module it waits for, and
-an unknown type raises ``ValueError`` as in the JAX package.
+Kinematics and OccupancyGrid observations and the DiscreteMetaAction,
+ContinuousAction and DiscreteAction; every other type the JAX package knows
+raises ``NotPortedError`` naming the module it waits for, and an unknown
+type raises ``ValueError`` as in the JAX package.
 """
 
 from __future__ import annotations
 
 from highwayenv_tpu_torch import NotPortedError
+from highwayenv_tpu_torch.actions.continuous import ContinuousAction, DiscreteAction
 from highwayenv_tpu_torch.actions.discrete_meta import DiscreteMetaAction
 from highwayenv_tpu_torch.observations.kinematics import KinematicsObservation
+from highwayenv_tpu_torch.observations.occupancy_grid import OccupancyGridObservation
 
 #: the JAX package's other types and the module each one needs
 _UNPORTED_OBSERVATIONS = {
     "TimeToCollision": "observations/ttc.py",
     "ExitObservation": "observations/exit_obs.py",
     "KinematicsGoal": "observations/kinematics_goal.py",
-    "OccupancyGrid": "observations/occupancy_grid.py",
     "LidarObservation": "observations/lidar.py",
     "GrayscaleObservation": "observations/grayscale.py",
     "AttributesObservation": "observations/attributes.py",
@@ -27,8 +29,6 @@ _UNPORTED_OBSERVATIONS = {
     "TupleObservation": "observations/multi.py",
 }
 _UNPORTED_ACTIONS = {
-    "ContinuousAction": "actions/continuous.py",
-    "DiscreteAction": "actions/continuous.py",
     "MultiAgentAction": "actions/multi_agent.py",
 }
 
@@ -48,6 +48,8 @@ def observation_factory(env, config: dict):
         return KinematicsObservation(
             reset_edge_lanes=getattr(env, "obs_edge_lanes", None), **kwargs
         )
+    if config["type"] == "OccupancyGrid":
+        return OccupancyGridObservation(**kwargs)
     return _refuse("observation", config["type"], _UNPORTED_OBSERVATIONS)
 
 
@@ -55,4 +57,8 @@ def action_factory(config: dict, env=None):
     kwargs = {k: v for k, v in config.items() if k != "type"}
     if config["type"] == "DiscreteMetaAction":
         return DiscreteMetaAction(**kwargs)
+    if config["type"] == "ContinuousAction":
+        return ContinuousAction(**kwargs)
+    if config["type"] == "DiscreteAction":
+        return DiscreteAction(**kwargs)
     return _refuse("action", config["type"], _UNPORTED_ACTIONS)

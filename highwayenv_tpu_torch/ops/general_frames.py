@@ -9,11 +9,15 @@ the frame-start state):
 
   1. ``follow_road``: controlled vehicles whose target lane ends take the
      next lane, along their route or by the closest successor edge;
-  2. the ego's DiscreteMetaAction, on the first frame of the policy step;
+  2. the ego's DiscreteMetaAction on the first frame of the policy step;
+     with ``raw`` (a ContinuousAction or DiscreteAction, stored on the
+     egos before the frames: the JAX kernel's ``raw_controls`` branch) the
+     egos keep their stored steering and acceleration instead;
   3. the IDM / MOBIL decision pass on the (B, L, V) projection table of
      every object on every lane, with the route-directed override and the
      same-road abort gate, and the dual-lane IDM acceleration;
-  4. the steering P-cascade toward the target lane's heading ahead;
+  4. the steering P-cascade toward the target lane's heading ahead (IDM
+     rows, and the ego unless it keeps raw controls);
   5. on a regulated road (intersection), on the env's tick frames, the
      right-of-way pass of ``road/regulation.py`` (it writes only the
      target speed and the yielding state, which no later step of the frame
@@ -72,7 +76,7 @@ class GeneralSpec(NamedTuple):
     p: IDMParams
     dt: float
     max_edge_lanes: int
-    action_type: object  # DiscreteMetaAction
+    action_type: object  # DiscreteMetaAction, ContinuousAction or DiscreteAction
     #: frames between right-of-way ticks on a regulated road, else None
     period: int | None = None
 
@@ -81,6 +85,7 @@ def general_unported(env) -> list[str]:
     """Why ``env`` cannot take the general path: the JAX package's
     ``try_general`` conditions that the port's envs can meet."""
     geo = env.geo
+    raw = env.action_type.stores_raw_controls
     return [
         what for what, bad in (
             ("neighbour_vehicles_connected_lanes (the -v1 connected-lane "
@@ -88,6 +93,8 @@ def general_unported(env) -> list[str]:
              env.config.get("neighbour_vehicles_connected_lanes", False)),
             (f"{env.num_slots} slots > {MAX_SLOTS}", env.num_slots > MAX_SLOTS),
             (f"{geo.num_lanes} lanes > {MAX_LANES}", geo.num_lanes > MAX_LANES),
+            ("raw-control actions on a regulated road (K5's raw_controls branch)",
+             raw and env.regulated),
         ) if bad
     ]
 
@@ -103,6 +110,14 @@ def try_general(env) -> GeneralSpec | None:
     )
 
 
+def _check_raw(slot_actions, raw: bool) -> None:
+    """Raw controls are stored before the frames, which then take no slot
+    actions; meta-actions are applied inside and must be given."""
+    if raw != (slot_actions is None):
+        raise ValueError("slot_actions go with meta-actions; raw controls are "
+                         "stored on the egos first (store_raw_controls)")
+
+
 # --------------------------------------------------------------------------- #
 # plain torch
 # --------------------------------------------------------------------------- #
@@ -110,11 +125,12 @@ def try_general(env) -> GeneralSpec | None:
 
 def frame_general_plain(veh: VehicleState, spec: GeneralSpec, table,
                         slot_actions: torch.Tensor | None,
-                        tick: torch.Tensor | None = None):
+                        tick: torch.Tensor | None = None, raw: bool = False):
     """One frame on (B, V) fields from the frame-start projection table
-    ``(s, lat)`` (B, L, V); the ego meta-action is applied when
+    ``(s, lat)`` (B, L, V); the ego's action is applied when
     ``slot_actions`` is given, the right-of-way pass in the envs where the
-    (B,) bool ``tick`` is set.  Returns the state and the new table."""
+    (B,) bool ``tick`` is set; with ``raw`` the egos keep their stored
+    controls.  Returns the state and the new table."""
     geo, p = spec.geo, spec.p
     table_s, table_lat = table
     veh = controller.follow_road(geo, veh, spec.max_edge_lanes, table_s)
@@ -126,7 +142,8 @@ def frame_general_plain(veh: VehicleState, spec: GeneralSpec, table,
     steer = controller.steering_from_table(
         geo, veh.target_lane, veh, table_s, table_lat
     )
-    is_ego = veh.kind == KIND_EGO
+    # a raw-control ego keeps its stored steering and acceleration
+    is_ego = (veh.kind == KIND_EGO) & (not raw)
     is_idm = (veh.kind == KIND_IDM) & ~veh.crashed
     veh = veh.replace(
         steering=torch.where(is_ego | is_idm, steer, veh.steering),
@@ -152,15 +169,18 @@ def frame_general_plain(veh: VehicleState, spec: GeneralSpec, table,
 
 
 def frames_general_plain(veh: VehicleState, spec: GeneralSpec,
-                         slot_actions: torch.Tensor, frames: int,
-                         steps0: torch.Tensor | None = None) -> VehicleState:
-    """``frames`` frames in plain batched torch, the meta-action on the
-    first: K4's reference.  With the (B,) int32 frame counters ``steps0``
-    of a regulated road's envs at the step's start, frame ``i`` of env
-    ``b`` is a right-of-way tick when ``(steps0[b] + i + 1) % period == 0``:
-    K5's reference."""
+                         slot_actions: torch.Tensor | None, frames: int,
+                         steps0: torch.Tensor | None = None,
+                         raw: bool = False) -> VehicleState:
+    """``frames`` frames in plain batched torch, the ego's meta-action on
+    the first, or with ``raw`` (and no ``slot_actions``) the egos' stored
+    controls kept: K4's reference.  With the (B,) int32 frame counters
+    ``steps0`` of a regulated road's envs at the step's start, frame ``i``
+    of env ``b`` is a right-of-way tick when
+    ``(steps0[b] + i + 1) % period == 0``: K5's reference."""
     if (steps0 is None) != (spec.period is None):
         raise ValueError("steps0 goes with a regulated road, and only there")
+    _check_raw(slot_actions, raw)
     tick_phase = None
     if steps0 is not None:
         # the phase alone, in int32: the counter itself may grow without bound
@@ -171,7 +191,7 @@ def frames_general_plain(veh: VehicleState, spec: GeneralSpec,
         if tick_phase is not None:
             tick = torch.remainder(tick_phase + (i + 1), spec.period) == 0
         veh, table = frame_general_plain(
-            veh, spec, table, slot_actions if i == 0 else None, tick
+            veh, spec, table, slot_actions if i == 0 else None, tick, raw=raw
         )
     return veh
 
@@ -222,7 +242,7 @@ class _GenParams(ctypes.Structure):
         ("L", ctypes.c_int), ("M", ctypes.c_int), ("V", ctypes.c_int),
         ("R", ctypes.c_int), ("frames", ctypes.c_int),
         ("n_speeds", ctypes.c_int), ("longitudinal", ctypes.c_int),
-        ("lateral", ctypes.c_int), ("period", ctypes.c_int),
+        ("lateral", ctypes.c_int), ("period", ctypes.c_int), ("raw", ctypes.c_int),
         ("dt", ctypes.c_float), ("acc_max", ctypes.c_float),
         ("comfort_acc_max", ctypes.c_float), ("distance_wanted", ctypes.c_float),
         ("time_wanted", ctypes.c_float), ("inv_two_sqrt_ab", ctypes.c_float),
@@ -261,11 +281,13 @@ def _resolve(fields, R: int):
     return [(n, d, tuple(R if x == "R" else x for x in t)) for n, d, t in fields]
 
 
-def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int) -> _GenParams:
-    """The kernel's parameter block."""
+def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int,
+                  raw: bool = False) -> _GenParams:
+    """The kernel's parameter block.  Raw controls take no target speeds:
+    ``n_speeds = 0`` and ``raw = 1``."""
     at, p = spec.action_type, spec.p
-    ts = np.asarray(at.target_speeds, np.float32)
-    if not 2 <= len(ts) <= MAX_SPEEDS:
+    ts = np.zeros(0, np.float32) if raw else np.asarray(at.target_speeds, np.float32)
+    if not raw and not 2 <= len(ts) <= MAX_SPEEDS:
         raise ValueError(f"{len(ts)} target speeds: 2 to {MAX_SPEEDS} supported")
     if spec.max_edge_lanes > MAX_EDGE_LANES or R > MAX_ROUTE:
         raise ValueError(
@@ -275,7 +297,8 @@ def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int) -> _GenParams:
     out = _GenParams(
         L=spec.geo.num_lanes, M=spec.max_edge_lanes, V=V, R=R, frames=frames,
         n_speeds=len(ts), longitudinal=int(at.longitudinal),
-        lateral=int(at.lateral), period=spec.period or 0, dt=spec.dt, acc_max=p.acc_max,
+        lateral=int(at.lateral), period=spec.period or 0, raw=int(raw),
+        dt=spec.dt, acc_max=p.acc_max,
         comfort_acc_max=p.comfort_acc_max, distance_wanted=p.distance_wanted,
         time_wanted=p.time_wanted, inv_two_sqrt_ab=p.inv_two_sqrt_ab,
         politeness=p.politeness, lane_change_delay=p.lane_change_delay,
@@ -283,8 +306,9 @@ def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int) -> _GenParams:
         kp_lateral=controller.KP_LATERAL, tau_pursuit=controller.TAU_PURSUIT,
         # speed_to_index's division by the grid's span: torch on CUDA
         # multiplies by the float32 reciprocal of a scalar divisor
-        ts_lo=float(ts[0]),
-        inv_ts_range=float(np.float32(1.0) / np.float32(float(ts[-1]) - float(ts[0]))),
+        ts_lo=float(ts[0]) if len(ts) else 0.0,
+        inv_ts_range=(float(np.float32(1.0) / np.float32(float(ts[-1]) - float(ts[0])))
+                      if len(ts) else 0.0),
     )
     for i, x in enumerate(ts):
         out.target_speeds[i] = float(x)
@@ -299,6 +323,8 @@ class GeneralFramesKernel(KernelWrapper):
     Called on CUDA tensors it launches its kernel once for all frames of
     the policy step, the ego meta-action applied inside on frame 0, and adds
     one to ``launches``; on CPU tensors it runs ``frames_general_plain``.
+    With ``raw`` the egos keep the controls stored on them before the call
+    (``store_raw_controls``) and there are no slot actions to read.
     K5 takes the (B,) int32 frame counters ``steps0`` of the envs at the
     step's start and passes the kernel only their tick phase
     ``steps0 % period``, as the JAX wrapper does.
@@ -327,27 +353,31 @@ class GeneralFramesKernel(KernelWrapper):
         return self._tables[key][1]
 
     def __call__(self, veh: VehicleState, spec: GeneralSpec,
-                 slot_actions: torch.Tensor, frames: int,
-                 steps0: torch.Tensor | None = None) -> VehicleState:
+                 slot_actions: torch.Tensor | None, frames: int,
+                 steps0: torch.Tensor | None = None, raw: bool = False) -> VehicleState:
         if self.regulated != (steps0 is not None) or self.regulated != (spec.period is not None):
             raise ValueError("steps0 goes with K5 on a regulated road, and only there")
         if not on_cuda(veh.speed):
-            return frames_general_plain(veh, spec, slot_actions, frames, steps0)
+            return frames_general_plain(veh, spec, slot_actions, frames, steps0, raw)
+        _check_raw(slot_actions, raw)
         B, V = veh.kind.shape
         R = veh.route_base.shape[-1]
         if V > MAX_SLOTS or spec.geo.num_lanes > MAX_LANES:
             raise ValueError(f"V={V}, L={spec.geo.num_lanes}: at most "
                              f"{MAX_SLOTS} slots and {MAX_LANES} lanes")
         dev = veh.speed.device
+        action_ptr = None
+        if not raw:
+            if (slot_actions.shape != (B, V) or slot_actions.dtype != torch.int32
+                    or slot_actions.device != dev or not slot_actions.is_contiguous()):
+                raise ValueError(f"slot_actions: expected contiguous int32 ({B}, {V}) on {dev}")
+            action_ptr = slot_actions.data_ptr()
         ins = checked_fields(veh, _resolve(_IN_FIELDS, R), B, V, dev)
-        if (slot_actions.shape != (B, V) or slot_actions.dtype != torch.int32
-                or slot_actions.device != dev or not slot_actions.is_contiguous()):
-            raise ValueError(f"slot_actions: expected contiguous int32 ({B}, {V}) on {dev}")
         outs = empty_fields(_resolve(OUT_FIELDS, R), B, V, dev)
         lf, li = self._lane_tables(spec.geo, dev)
-        params = kernel_params(spec, V, R, frames)
+        params = kernel_params(spec, V, R, frames, raw)
         ptrs = (ctypes.c_void_p * (len(ins) + 1 + len(outs)))(
-            *[t.data_ptr() for t in ins + [slot_actions] + outs]
+            *[t.data_ptr() for t in ins], action_ptr, *[t.data_ptr() for t in outs]
         )
         args = [ptrs]
         if self.regulated:
@@ -375,19 +405,33 @@ frames_general_kernel = GeneralFramesKernel()
 frames_regulated_kernel = GeneralFramesKernel(regulated=True)
 
 
+def store_raw_controls(env, veh: VehicleState, slot_actions: torch.Tensor):
+    """``(veh, slot_actions, raw)`` for the frames: under an action type
+    that stores raw controls (ContinuousAction, DiscreteAction) its
+    commands stored on the egos in torch, as the JAX wrapper does, and no
+    slot actions left; else ``veh`` and the meta-actions unchanged."""
+    at = env.action_type
+    if not at.stores_raw_controls:
+        return veh, slot_actions, False
+    return at.apply(env.geo, veh, veh.kind == KIND_EGO, slot_actions), None, True
+
+
 def simulate_general(env, veh: VehicleState, slot_actions: torch.Tensor,
                      frames: int, steps0: torch.Tensor | None = None) -> VehicleState:
     """Policy-step simulation on the general path: all ``frames`` frames and
     the ego meta-action (inside, on frame 0, after follow_road) through
     ``frames_general_kernel``, or with the envs' frame counters ``steps0``
-    (a regulated road) through ``frames_regulated_kernel``."""
+    (a regulated road) through ``frames_regulated_kernel``.  Raw controls
+    are stored first (``store_raw_controls``) and the launch reads none."""
+    veh, slot_actions, raw = store_raw_controls(env, veh, slot_actions)
     if steps0 is None:
-        return frames_general_kernel(veh, env._general, slot_actions, frames)
-    return frames_regulated_kernel(veh, env._general, slot_actions, frames, steps0)
+        return frames_general_kernel(veh, env._general, slot_actions, frames, raw=raw)
+    return frames_regulated_kernel(veh, env._general, slot_actions, frames, steps0, raw)
 
 
 def simulate_general_reference(env, veh: VehicleState, slot_actions: torch.Tensor,
                                frames: int, steps0: torch.Tensor | None = None
                                ) -> VehicleState:
     """The same step through ``frames_general_plain`` on any device."""
-    return frames_general_plain(veh, env._general, slot_actions, frames, steps0)
+    veh, slot_actions, raw = store_raw_controls(env, veh, slot_actions)
+    return frames_general_plain(veh, env._general, slot_actions, frames, steps0, raw)

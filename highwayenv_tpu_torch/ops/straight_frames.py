@@ -28,7 +28,10 @@ and IDM NPCs (no Linear-family presets); ``envs/base.py`` refuses other
 configurations when the env is made.
 
 The ego meta-action is applied once per policy step in torch before the
-frames (``simulate_bm``), as ``pallas_simulate_bm`` does.
+frames (``simulate_bm``), as ``pallas_simulate_bm`` does.  Under a
+ContinuousAction (``raw=True``, the JAX kernel's ``raw_controls`` branch)
+that stores the ego's steering and acceleration, and the frames keep them:
+the ego takes no P-cascade.
 """
 
 from __future__ import annotations
@@ -125,13 +128,14 @@ def project(veh: VehicleState, fs: StraightGeo):
 
 def drive(
     veh: VehicleState, fs: StraightGeo, p: IDMParams, dt: float,
-    s, lat0, q_lanes, q_off, front_idx, rear_idx,
+    s, lat0, q_lanes, q_off, front_idx, rear_idx, raw: bool = False,
 ) -> VehicleState:
     """The frame between the neighbour search and the collision pass: MOBIL
     with its timer, abort-on-conflict, the P-cascade controls with dual-lane
     IDM, bicycle integration and re-localization.  ``front_idx`` /
     ``rear_idx`` (B, 3, V) are the neighbours of the own lane and lanes
-    -1 / +1, -1 = none (``csrc/straight_common.cuh::drive``)."""
+    -1 / +1, -1 = none (``csrc/straight_common.cuh::drive``).  With ``raw``
+    the ego keeps its stored steering and acceleration."""
     V = veh.kind.shape[1]
     dev = veh.speed.device
     off = torch.as_tensor(fs.offsets, device=dev)
@@ -243,7 +247,8 @@ def drive(
     acc = torch.where(target != veh.lane, torch.minimum(a_self, a_t), a_self)
     acc = acc.clamp(-p.acc_max, p.acc_max)
 
-    is_ego = kind == KIND_EGO
+    # the ego's P-cascade, unless it keeps its raw controls
+    is_ego = (kind == KIND_EGO) & (not raw)
     new_steer = torch.where(is_ego | idm, steer_pc, veh.steering)
     new_accel = torch.where(
         is_ego,
@@ -261,22 +266,25 @@ def drive(
     return veh.replace(lane=torch.where(veh.is_vehicle, new_lane, veh.lane))
 
 
-def _frame_plain(veh: VehicleState, fs: StraightGeo, p: IDMParams, dt: float):
+def _frame_plain(veh: VehicleState, fs: StraightGeo, p: IDMParams, dt: float,
+                 raw: bool = False):
     """One dense frame on (B, V) fields; pair tensors are (B, [3,] V, V)."""
     s, lat0, occupiable, q_lanes, q_off = project(veh, fs)
     front_idx, rear_idx = neighbours(
         s, lat0, occupiable, q_off, fs.width / 2 + 1.0
     )  # (B, 3, V)
-    veh = drive(veh, fs, p, dt, s, lat0, q_lanes, q_off, front_idx, rear_idx)
+    veh = drive(veh, fs, p, dt, s, lat0, q_lanes, q_off, front_idx, rear_idx, raw)
     return collision.handle_collisions(veh, dt)
 
 
 def frames_plain(
-    veh: VehicleState, fs: StraightGeo, p: IDMParams, dt: float, frames: int
+    veh: VehicleState, fs: StraightGeo, p: IDMParams, dt: float, frames: int,
+    raw: bool = False,
 ) -> VehicleState:
-    """``frames`` frames in plain batched torch (the kernel's reference)."""
+    """``frames`` frames in plain batched torch (the kernel's reference);
+    ``raw``: the ego keeps its stored controls."""
     for _ in range(frames):
-        veh = _frame_plain(veh, fs, p, dt)
+        veh = _frame_plain(veh, fs, p, dt, raw)
     return veh
 
 
@@ -309,6 +317,7 @@ class _Params(ctypes.Structure):
         ("kp_a", ctypes.c_float),
         ("kp_heading", ctypes.c_float),
         ("kp_lateral", ctypes.c_float),
+        ("raw", ctypes.c_int),
     ]
 
 
@@ -384,7 +393,7 @@ def check_frame_shape(veh: VehicleState, fs: StraightGeo) -> tuple[int, int]:
     return B, V
 
 
-def kernel_params(fs: StraightGeo, p: IDMParams, dt: float):
+def kernel_params(fs: StraightGeo, p: IDMParams, dt: float, raw: bool = False):
     """The (Geo, Params) structures of the frame kernels."""
     geo = _Geo(
         ox=float(fs.origin[0]), oy=float(fs.origin[1]),
@@ -405,6 +414,7 @@ def kernel_params(fs: StraightGeo, p: IDMParams, dt: float):
         inv_two_sqrt_ab=p.inv_two_sqrt_ab, politeness=p.politeness,
         lane_change_delay=p.lane_change_delay, kp_a=controller.KP_A,
         kp_heading=controller.KP_HEADING, kp_lateral=controller.KP_LATERAL,
+        raw=int(raw),
     )
     return geo, params
 
@@ -438,13 +448,13 @@ class KernelWrapper:
         self.launches += 1
 
 
-def _masked_plain(veh, fs, p, dt, frames, mask, out):
+def _masked_plain(veh, fs, p, dt, frames, mask, out, raw: bool = False):
     """``frames_plain`` written over the rows of ``out`` where ``mask`` is
     set, in place.  It runs the whole batch: the CPU's vectorized libm
     rounds a row differently depending on how many rows run, and the rows
     must equal those of the dense step."""
     if bool(mask.any()):
-        dense = frames_plain(veh, fs, p, dt, frames)
+        dense = frames_plain(veh, fs, p, dt, frames, raw)
         for name, _, _ in _OUT_FIELDS:
             t = getattr(out, name)
             m = mask.view((-1,) + (1,) * (t.dim() - 1))
@@ -463,6 +473,7 @@ class StraightFramesKernel(KernelWrapper):
     fields are overwritten in place and the other rows are left as they
     are; ``out`` is returned.  The sorted path uses this as its per-env
     exact fallback, one launch whatever the number of envs that fire.
+    ``raw``: the ego keeps its stored controls (ContinuousAction).
     """
 
     source = "straight_frames"
@@ -480,14 +491,14 @@ class StraightFramesKernel(KernelWrapper):
     def __call__(
         self, veh: VehicleState, fs: StraightGeo, p: IDMParams, dt: float,
         frames: int, mask: torch.Tensor | None = None,
-        out: VehicleState | None = None,
+        out: VehicleState | None = None, raw: bool = False,
     ) -> VehicleState:
         if (mask is None) != (out is None):
             raise ValueError("mask and out are given together")
         if not on_cuda(veh.speed):
             if mask is None:
-                return frames_plain(veh, fs, p, dt, frames)
-            return _masked_plain(veh, fs, p, dt, frames, mask, out)
+                return frames_plain(veh, fs, p, dt, frames, raw)
+            return _masked_plain(veh, fs, p, dt, frames, mask, out, raw)
         B, V = check_frame_shape(veh, fs)
         dev = veh.speed.device
         ins = checked_fields(veh, _IN_FIELDS, B, V, dev)
@@ -498,7 +509,7 @@ class StraightFramesKernel(KernelWrapper):
                     or mask.device != dev or not mask.is_contiguous()):
                 raise ValueError(f"mask: expected contiguous bool ({B},) on {dev}")
             outs = checked_fields(out, _OUT_FIELDS, B, V, dev)
-        geo, params = kernel_params(fs, p, dt)
+        geo, params = kernel_params(fs, p, dt, raw)
         lib = self._library()
         with torch.cuda.device(dev):
             err = lib.straight_frames(
@@ -518,7 +529,8 @@ frames_kernel = StraightFramesKernel()
 def simulate_bm(
     env, veh: VehicleState, slot_actions: torch.Tensor, frames: int
 ) -> VehicleState:
-    """Policy-step simulation: the ego meta-action in torch (frame 0), then
+    """Policy-step simulation: the ego's action in torch (frame 0), then
     all ``frames`` frames through ``frames_kernel``."""
     veh = env.action_type.apply(env.geo, veh, veh.kind == KIND_EGO, slot_actions)
-    return frames_kernel(veh, env._straight, env.idm_params, env.dt, frames)
+    return frames_kernel(veh, env._straight, env.idm_params, env.dt, frames,
+                         raw=env.action_type.stores_raw_controls)

@@ -250,13 +250,13 @@ def collisions_banded_plain(veh: VehicleState, idx: torch.Tensor, fs: StraightGe
 
 
 def frames_sorted_plain(srt: VehicleState, idx: torch.Tensor, fs: StraightGeo,
-                        p: IDMParams, dt: float, frames: int):
+                        p: IDMParams, dt: float, frames: int, raw: bool = False):
     """K3's plain version: ``frames`` frames of the rank-order state ``srt``
     with the banded searches; ``(srt, flags)`` with ``flags`` (B, 2) bool,
     sticky over the frames: [:, 0] the collision band's, [:, 1] the
     neighbour band's.  The neighbour flag counts only rows that consume the
     query: the own lane for uncrashed IDM rows, lanes -1 / +1 for deciding
-    or mid-change rows."""
+    or mid-change rows.  ``raw``: the ego keeps its stored controls."""
     B, V = srt.kind.shape
     W, Wn = windows(V)
     flags = torch.zeros(B, 2, dtype=torch.bool, device=srt.speed.device)
@@ -269,7 +269,7 @@ def frames_sorted_plain(srt: VehicleState, idx: torch.Tensor, fs: StraightGeo,
         side = deciding | mid_change
         consumes = torch.stack([idm, side, side], dim=1)
         srt = straight_frames.drive(
-            srt, fs, p, dt, s, lat0, q_lanes, q_off, front, rear
+            srt, fs, p, dt, s, lat0, q_lanes, q_off, front, rear, raw
         )
         srt, coll = collisions_banded_plain(srt, idx, fs, dt, W)
         neigh = (crossed & consumes).flatten(1).any(dim=-1)
@@ -386,16 +386,16 @@ class FramesSortedKernel(KernelWrapper):
         lib.straight_frames_sorted.restype = ctypes.c_int
 
     def __call__(self, srt: VehicleState, idx: torch.Tensor, fs: StraightGeo,
-                 p: IDMParams, dt: float, frames: int):
+                 p: IDMParams, dt: float, frames: int, raw: bool = False):
         if not on_cuda(srt.speed):
-            return frames_sorted_plain(srt, idx, fs, p, dt, frames)
+            return frames_sorted_plain(srt, idx, fs, p, dt, frames, raw)
         B, V = check_frame_shape(srt, fs)
         dev = srt.speed.device
         ins = checked_fields(srt, SORT_FIELDS, B, V, dev)
         index = _checked_idx(idx, B, V, dev)
         outs = empty_fields(MUT_FIELDS, B, V, dev)
         flags = torch.empty((B, 2), dtype=torch.bool, device=dev)
-        geo, params = kernel_params(fs, p, dt)
+        geo, params = kernel_params(fs, p, dt, raw)
         W, Wn = windows(V)
         lib = self._library()
         with torch.cuda.device(dev):
@@ -417,14 +417,16 @@ unsort_kernel = UnsortKernel()
 
 def simulate_bm_sorted(env, veh: VehicleState, slot_actions: torch.Tensor,
                        frames: int, return_flags: bool = False):
-    """Policy-step simulation on the s-sorted layout: the ego meta-action,
-    K2a, K3, K2b, then K1 on the envs whose band flags fired.  With
-    ``return_flags`` also returns the (B, 2) flags (collision, neighbour)
-    for diagnostics, as ``return_viol`` does in JAX."""
+    """Policy-step simulation on the s-sorted layout: the ego's action
+    (a meta-action, or a ContinuousAction's stored controls, which the
+    frames then keep), K2a, K3, K2b, then K1 on the envs whose band flags
+    fired.  With ``return_flags`` also returns the (B, 2) flags (collision,
+    neighbour) for diagnostics, as ``return_viol`` does in JAX."""
     veh = env.action_type.apply(env.geo, veh, veh.kind == KIND_EGO, slot_actions)
     fs, p, dt = env._straight, env.idm_params, env.dt
+    raw = env.action_type.stores_raw_controls
     srt, idx = sort_kernel(veh, fs)
-    srt, flags = frames_sorted_kernel(srt, idx, fs, p, dt, frames)
+    srt, flags = frames_sorted_kernel(srt, idx, fs, p, dt, frames, raw=raw)
     out = unsort_kernel(srt, idx, veh)
-    out = frames_kernel(veh, fs, p, dt, frames, mask=flags.any(dim=1), out=out)
+    out = frames_kernel(veh, fs, p, dt, frames, mask=flags.any(dim=1), out=out, raw=raw)
     return (out, flags) if return_flags else out

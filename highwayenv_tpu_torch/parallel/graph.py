@@ -7,7 +7,8 @@ a replay issues one.  ``CapturedStep`` holds the batch's state in static
 buffers (the donated argument), warms the step up once eagerly (which
 builds the kernels, the lane tables and the device constants before
 capture), captures ``step_autoreset_batched`` into a ``torch.cuda.CUDAGraph``
-with the actions in a static (B,) buffer, and replays the graph each step.
+with the actions in a static buffer ((B,) int32, or (B, size) float32 for a
+continuous action), and replays the graph each step.
 
 The env's generator is registered with the graph, so each replay advances
 it as an eager step does and draws the same numbers: N replays give the
@@ -61,7 +62,11 @@ class CapturedStep:
         self.env, self.generator = env, generator
         B = states.time.shape[0]
         self.states = map_fields(torch.clone, states)
-        self.actions = torch.zeros(B, dtype=torch.int32, device=dev)
+        # the actions' buffer: (B,) int32 for a discrete action type,
+        # (B, size) float32 for a continuous one
+        extra = tuple(env.action_type.action_shape)
+        self.actions = torch.zeros((B,) + extra, device=dev,
+                                   dtype=torch.float32 if extra else torch.int32)
 
         def first(batch):
             return env._autoreset_first(

@@ -1,10 +1,12 @@
 """Single-device random-policy rollout with per-env autoreset.
 
 Counterpart of the body of ``highwayenv_tpu/parallel/sharding.py::
-sharded_rollout_fn`` on one card: each step draws uniform discrete actions,
-runs ``step_autoreset_batched`` and folds the observation into a checksum so
-the observation head is part of the measured work.  Metrics stay on the
-device until the caller reads them.
+sharded_rollout_fn`` on one card: each step draws uniform random actions
+(``random_actions``: an integer in [0, n) for a discrete action, U(-1, 1)
+on each axis of a continuous one, as ``_action_sampler`` does), runs
+``step_autoreset_batched`` and folds the observation into a checksum so the
+observation head is part of the measured work.  Metrics stay on the device
+until the caller reads them.
 
 The two reset-amortizing options of ``sharded_rollout_fn``:
 
@@ -24,7 +26,20 @@ from __future__ import annotations
 
 import torch
 
-from highwayenv_tpu_torch.envs.base import take_rows, where_done
+from highwayenv_tpu_torch.envs.base import _rows, take_rows, where_done
+
+
+def random_actions(env, batch: int, generator: torch.Generator, device=None):
+    """A uniform random action per env: (B,) int32 in [0, n) for a discrete
+    action type, (B, size) float32 U(-1, 1) for a continuous one."""
+    at = env.action_type
+    device = env.device if device is None else device
+    if not at.action_shape:
+        return torch.randint(0, at.n, (batch,), generator=generator, device=device,
+                             dtype=torch.int32)
+    return torch.empty((batch, at.size), dtype=torch.float32, device=device).uniform_(
+        -1.0, 1.0, generator=generator
+    )
 
 
 def rollout(env, states, horizon: int, generator: torch.Generator,
@@ -53,10 +68,7 @@ def rollout(env, states, horizon: int, generator: torch.Generator,
         step = CapturedStep(env, states, generator, reset_slots=compact_reset)
     rewards, dones, obs_sums = [], [], []
     for _ in range(horizon):
-        actions = torch.randint(
-            0, env.action_type.n, (B,), generator=generator,
-            device=states.time.device, dtype=torch.int32,
-        )
+        actions = random_actions(env, B, generator, states.time.device)
         if step is not None:
             obs, states, reward, term, trunc, _ = step(actions)
         elif fresh_pool is None:
@@ -73,7 +85,7 @@ def rollout(env, states, horizon: int, generator: torch.Generator,
                 torch.cumsum(done.to(torch.int32), 0) - 1, 0, fresh_pool - 1
             )
             states = where_done(done, take_rows(pool, rank), stepped)
-            obs = torch.where(done[:, None, None], pool_obs[rank], obs)
+            obs = torch.where(_rows(done, obs), pool_obs[rank], obs)
         rewards.append(reward.mean())
         dones.append((term | trunc).float().mean())
         obs_sums.append(obs.sum())

@@ -127,7 +127,11 @@ class GymVectorEnv(VectorEnv):
     def step(self, actions):
         if self._states is None:
             raise RuntimeError("reset() must be called before step()")
-        actions = torch.as_tensor(np.asarray(actions), device=self.env.device)
+        actions = np.asarray(actions)
+        if self.env.action_type.action_shape:
+            # a Box action: float32, as the JAX package's _action_to_slots
+            actions = actions.astype(np.float32)
+        actions = torch.as_tensor(actions, device=self.env.device)
         if self._captured is not None:
             out = self._captured(actions)
         else:

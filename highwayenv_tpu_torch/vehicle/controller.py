@@ -99,10 +99,14 @@ def speed_to_index(speed: torch.Tensor, target_speeds) -> torch.Tensor:
 
 
 def ego_speed_init(action_type, speed):
-    """Meta-action egos snap to the nearest ``target_speeds`` entry.
+    """Meta-action egos snap to the nearest ``target_speeds`` entry;
+    raw-control egos (ContinuousAction, DiscreteAction) keep their spawn
+    speed and carry no speed index.
 
     Returns ``(speed_index_i32, target_speed)`` with ``speed``'s shape.
     """
+    if action_type.stores_raw_controls:
+        return torch.zeros_like(speed, dtype=torch.int32), speed
     idx = speed_to_index(speed, action_type.target_speeds)
     return idx, action_type.speed_table(speed.device)[idx.long()]
 

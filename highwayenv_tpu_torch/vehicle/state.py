@@ -25,6 +25,9 @@ KIND_LANDMARK = 6  # non-solid
 # Vehicle constants (reference vehicle/kinematics.py)
 VEHICLE_LENGTH = 5.0
 VEHICLE_WIDTH = 2.0
+# RoadObject size of obstacles (reference vehicle/objects.py)
+OBJECT_LENGTH = 2.0
+OBJECT_WIDTH = 2.0
 MAX_SPEED = 40.0
 MIN_SPEED = -40.0
 

@@ -74,7 +74,7 @@ def test_make_defaults_to_cuda_and_refuses_without_it(monkeypatch):
 def test_unknown_or_unported_id_raises_keyerror():
     assert ht.registered_ids() == [
         "highway-fast-v0", "highway-v0", "intersection-v0", "merge-v0",
-        "roundabout-v0",
+        "racetrack-large-v0", "racetrack-oval-v0", "racetrack-v0", "roundabout-v0",
     ]
     for env_id in ("merge-v1", "two-way-v0", "no-such-env-v0"):
         with pytest.raises(KeyError, match="not ported"):
@@ -86,7 +86,7 @@ def test_unknown_or_unported_id_raises_keyerror():
     [
         {"other_vehicles_type": "highway_env.vehicle.behavior.LinearVehicle"},
         {"controlled_vehicles": 2},
-        {"observation": {"type": "OccupancyGrid"}},
+        {"observation": {"type": "LidarObservation"}},
     ],
 )
 def test_unported_configurations_raise_at_make(config):

@@ -333,7 +333,7 @@ def test_registry_and_what_stays_unported():
     et = ht.make("intersection-v0", device="cpu")
     assert et.regulated and et._straight is None and et._general.period == 7
     for env_id, why in (
-        ("intersection-v1", "ContinuousAction and the BicycleVehicle dynamics"),
+        ("intersection-v1", "BicycleVehicle dynamics of its dynamical ContinuousAction"),
         ("intersection-v2", "connected-lane neighbour search"),
         ("intersection-multi-agent-v0", "MultiAgentAction and MultiAgentObservation"),
         ("intersection-multi-agent-v1", "MultiAgentAction and MultiAgentObservation"),

@@ -266,9 +266,9 @@ def test_tick_schedule_of_the_plain_frames(monkeypatch):
         passes.append(True)
         return real_rules(geo, state)
 
-    def frame(veh, spec, table, sa, tick=None):
+    def frame(veh, spec, table, sa, tick=None, **kw):
         ticks.append(tick.clone())
-        return real_frame(veh, spec, table, sa, tick)
+        return real_frame(veh, spec, table, sa, tick, **kw)
 
     monkeypatch.setattr(t_regulation, "enforce_road_rules", rules)
     monkeypatch.setattr(general_frames, "frame_general_plain", frame)

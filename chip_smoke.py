@@ -15,14 +15,19 @@ Phases:
      slots), B=512, and at highway-v0 under a ContinuousAction (the
      raw-control branch: the egos keep their stored steering and
      acceleration), B=4096, on four scenes each, one of which fires both band
-     flags: the dense frame kernel K1, the sort K2a, the sorted banded
-     frames K3 with its flags, the unsort K2b and K1 masked by the flags,
-     every field bit-exact; then the sorted step against the dense step,
-     and the highway-v0 autoreset step of the main path against the plain
-     reference path; then
+     flags, and the Linear rows' branch at highway-v0 under the LinearVehicle
+     preset (four scenes), under AggressiveVehicle and with
+     change_vehicles' Linear rows on the IDM-config env (two scenes each),
+     B=4096, K1 there also masked to every env: the dense frame kernel K1,
+     the sort K2a, the sorted banded frames K3 with its flags, the unsort
+     K2b and K1 masked by the flags, every field bit-exact; then the sorted
+     step against the dense step, and the highway-v0 autoreset step of the
+     main path and of highway-v0 LinearVehicle against the plain reference
+     path; then
      the general frame kernel K4 at roundabout-v0 (V=5, L=32, R=11) and
-     merge-v0 (V=6, L=9, an obstacle), B=4096, on the reset scene, 8 steps
-     in, an all-env pile-up and (merge) the obstacle hit, every field
+     merge-v0 (V=6, L=9, an obstacle), and its Linear rows' branch at
+     roundabout-v0 under AggressiveVehicle, B=4096, on the reset scene, 8
+     steps in, an all-env pile-up and (merge) the obstacle hit, every field
      bit-exact, and the roundabout-v0 autoreset step against the plain
      reference path; then K4's raw-control branch at racetrack-large-v0
      (V=2, L=27), racetrack-oval-v0 with block_lane (V=10, 8 roadblocks,
@@ -36,9 +41,14 @@ Phases:
      scene in which vehicles yield, and the reset's warm-up launch (V=16,
      45 frames, frame counter 0), and at the warp's edge (duration 20,
      V=32, B=512) on the reset, spread-phase and conflict scenes, every
-     field bit-exact, the yielding state and the impacts included, and the
-     intersection-v0 autoreset step against the plain reference path; then
-     on highway-v0, roundabout-v0, intersection-v0 and racetrack-v0,
+     field bit-exact, the yielding state and the impacts included; K5's
+     Linear rows' branch (DefensiveVehicle) and its raw-control branch (a
+     ContinuousAction) at intersection-v0, B=4096, on the reset scene with
+     the tick phases spread over all 7 values, the conflict scene and
+     (raw) the warm-up launch, every field bit-exact; and the intersection-v0
+     autoreset step against the plain reference path; then
+     on highway-v0, roundabout-v0, intersection-v0, racetrack-v0 and
+     highway-v0 LinearVehicle,
      B=4096, from a batch
      with every 8th ego crashed, the compact autoreset (reset_slots P =
      1024, and 64, which takes further passes) against the full one over 3
@@ -59,7 +69,12 @@ Phases:
      (block_lane) and racetrack-v0, B=4096, reset and a rollout under
      U(-1, 1) steering through K4 (one launch per policy step), and
      highway-v0 under a ContinuousAction through the sorted step; then the
-     seven rollouts again with each step one replay of a CapturedStep (the
+     Linear slice's paths, each with the counts set to 0 just before it:
+     highway-v0 LinearVehicle through the sorted step (its main path),
+     roundabout-v0 AggressiveVehicle through K4, intersection-v0
+     DefensiveVehicle and intersection-v0 ContinuousAction through K5
+     (reset and rollout); then the eight rollouts (the seven and highway-v0
+     LinearVehicle) again with each step one replay of a CapturedStep (the
      kernels' counts cover the warm-up step and the capture), and a
      profile of replays for the port's kernels per replay;
   5. times on the card: each kernel's time (CUDA events around launches
@@ -67,12 +82,16 @@ Phases:
      (torch.profiler), its bound and the PyTorch yardstick's where there
      is one, with the wall time of a call (CUDA events), K4 at racetrack-v0
      and K3 and K1 at highway-v0 ContinuousAction among them, their
-     bounds without the egos' P-cascade; the simulation of a
+     bounds without the egos' P-cascade, and the Linear rows' branches (K3
+     and K1 at highway-v0 LinearVehicle, K4 at roundabout-v0
+     AggressiveVehicle, K5's step at intersection-v0 DefensiveVehicle) and
+     K5's raw-control branch (intersection-v0 ContinuousAction), their
+     bounds with the linear laws' operations; the simulation of a
      sorted and a dense policy step; the sorted and dense rollouts in
      turns; the roundabout-v0 and intersection-v0 rollouts three times
      each, and the three racetrack rollouts; a profile of rollout steps of
      each (device kernels by name, device busy share); and ms per step of
-     racetrack-v0 and the three envs, eager against
+     racetrack-v0, the three envs and highway-v0 LinearVehicle, eager against
      graph, full against compact P=1024, three runs each in turns, with
      the device busy time per step.
 
@@ -101,6 +120,11 @@ EDGE_DURATION = 20  # intersection-v0 with V = 32, a full warp
 HORIZON = 32  # policy steps of the main-path rollout
 #: highway-v0 under a ContinuousAction: K1's and K3's raw-control branch
 CONTINUOUS_CONFIG = {"action": {"type": "ContinuousAction"}}
+NPC = "highway_env.vehicle.behavior."
+# the Linear-family NPC presets (the kernels' Linear rows' branch)
+LINEAR_CONFIG = {"other_vehicles_type": NPC + "LinearVehicle"}
+AGGRESSIVE_CONFIG = {"other_vehicles_type": NPC + "AggressiveVehicle"}
+DEFENSIVE_CONFIG = {"other_vehicles_type": NPC + "DefensiveVehicle"}
 #: racetrack-v0 under a DiscreteAction on both axes: the same raw-control branch
 DISCRETE_CONFIG = {"action": {"type": "DiscreteAction"}}
 #: the racetrack family (K4's raw-control branch); the oval with roadblocks
@@ -141,6 +165,19 @@ OPS_SAT = 210  # per pair within reach: the folded swept SAT
 # the ego's P-cascade within OPS_SLOT (steering law and speed control),
 # which a raw-control ego (ContinuousAction) does not run
 OPS_EGO_CONTROLS = 28
+# a Linear row's laws in place of IDM's: per acceleration of a row pair
+# three products and two mins where IDM takes OPS_IDM_PAIR, and for its
+# steering two products where the P-cascade's steering takes
+# OPS_STEER_PC (OPS_EGO_CONTROLS less the speed control's two)
+OPS_IDM_PAIR = 25
+OPS_LINEAR_ACCEL = 5
+OPS_STEER_PC = OPS_EGO_CONTROLS - 2
+OPS_LINEAR_STEER = 2
+# the evaluations of a row pair's acceleration per live slot (its own) and
+# per MOBIL-deciding slot (OPS_DECIDING's 8)
+EVALS_SLOT, EVALS_DECIDING = 1, 8
+# the fields only a Linear row's thread reads
+PARAM_FIELDS = ("accel_params", "steer_params")
 # the sorted frame's extras, per live slot: one step of a far-band scan
 # (per lane, direction and round: a compare and a select), one step of the
 # collision-band scan (per round: two min / max of s, two max), and the
@@ -161,6 +198,7 @@ GEN_OPS_SLOT = 120  # per live slot: lane-end test, rows, steering, integration
 # ego (ContinuousAction) does not run
 GEN_OPS_EGO_CONTROLS = 32
 GEN_OPS_IDM = 25  # per IDM acceleration of a row pair
+GEN_OPS_STEER_PC = GEN_OPS_EGO_CONTROLS - 2  # the P-cascade's steering
 GEN_OPS_NEIGH_PAIR = 10  # per (neighbour query, other slot): eligibility, min / max
 GEN_OPS_ABORT_PAIR = 13  # per (lane-changing IDM slot, other slot)
 GEN_OPS_EDGE_LANE = 17  # per lane next_lane measures at a lane end
@@ -230,8 +268,10 @@ def queued_ms(fn, reps: int) -> float:
 
 def kernel_events(prof, name: str):
     """The profile's device events of the kernel ``name`` (the demangled
-    symbol: "name(" or "void name<...>(")."""
-    pattern = re.compile(r"(^|\s)" + re.escape(name) + r"[<(]")
+    symbol: "name(" or "void name<...>(", any instantiation; a name that
+    ends inside the template arguments, "name<false,", picks those that
+    begin so)."""
+    pattern = re.compile(r"(^|\s)" + re.escape(name) + r"[<(, ]")
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and pattern.search(e.key)]
 
@@ -339,8 +379,10 @@ def _frame_ops(veh, out, fs, p, dt, searched, collided, raw=False) -> float:
     """float32 operations one frame from ``veh`` to ``out`` needs, whose
     neighbour search tests the (slot, column) pairs of the (V, V) mask
     ``searched`` and whose collision pass the unordered pairs of
-    ``collided``; with ``raw`` the egos run no P-cascade."""
-    from highwayenv_tpu_torch.vehicle.state import KIND_IDM
+    ``collided``; with ``raw`` the egos run no P-cascade.  A Linear row's
+    accelerations and steering count the linear laws' operations."""
+    from highwayenv_tpu_torch.vehicle.behavior import is_driven
+    from highwayenv_tpu_torch.vehicle.state import KIND_LINEAR
 
     live = veh.kind != 0
     px, py = veh.pos[..., 0], veh.pos[..., 1]
@@ -349,11 +391,13 @@ def _frame_ops(veh, out, fs, p, dt, searched, collided, raw=False) -> float:
     ) * float(fs.u[1])
     occ = live & (s >= -5.0) & (s < fs.length + 5.0)
     neigh = (searched & live[:, :, None] & occ[:, None, :]).sum()
-    idm = (veh.kind == KIND_IDM) & ~veh.crashed
+    idm = is_driven(veh)
     mid = veh.lane != veh.target_lane
-    deciding = (
-        idm & ~mid & (veh.timer > p.lane_change_delay) & veh.enable_lane_change
-    ).sum()
+    deciding_rows = idm & ~mid & (veh.timer > p.lane_change_delay) & veh.enable_lane_change
+    deciding = deciding_rows.sum()
+    lin = veh.kind == KIND_LINEAR
+    lin_evals = EVALS_SLOT * lin.sum() + EVALS_DECIDING * (lin & deciding_rows).sum()
+    lin_steer = (lin & idm).sum()
     aborting = (idm & mid).sum() * veh.kind.shape[1]
     chk, coll = veh.check_collisions, veh.collidable
     elig = (
@@ -370,6 +414,8 @@ def _frame_ops(veh, out, fs, p, dt, searched, collided, raw=False) -> float:
         OPS_SLOT * live.sum() - OPS_EGO_CONTROLS * raw_egos + OPS_NEIGH_PAIR * neigh
         + OPS_DECIDING * deciding + OPS_ABORT_PAIR * aborting
         + OPS_SPHERE * elig.sum() + OPS_SAT * near.sum()
+        - (OPS_IDM_PAIR - OPS_LINEAR_ACCEL) * lin_evals
+        - (OPS_STEER_PC - OPS_LINEAR_STEER) * lin_steer
     )
 
 
@@ -409,10 +455,12 @@ def gen_frame_ops(veh, out, spec, table, raw=False) -> float:
     slot's own work; the lanes follow_road measures at a lane end; the IDM
     accelerations and neighbour scans of the decision pass; the abort scans;
     the collision pairs as in the straight frame.  Under raw controls
-    (``raw``) the egos' P-cascade is not counted."""
+    (``raw``) the egos' P-cascade is not counted.  A Linear row's
+    accelerations and steering count the linear laws' operations."""
     from highwayenv_tpu_torch.road import lane as lane_ops
+    from highwayenv_tpu_torch.vehicle.behavior import is_driven
     from highwayenv_tpu_torch.vehicle.controller import table_row
-    from highwayenv_tpu_torch.vehicle.state import KIND_IDM
+    from highwayenv_tpu_torch.vehicle.state import KIND_LINEAR
 
     geo, p = spec.geo, spec.p
     V = veh.kind.shape[1]
@@ -430,7 +478,7 @@ def gen_frame_ops(veh, out, spec, table, raw=False) -> float:
     )
     n_succ = (geo.succ_edge_base[tl] >= 0).sum(-1).clamp(min=1)
     edge_lanes = (ended * n_succ).sum() * spec.max_edge_lanes
-    idm = (veh.kind == KIND_IDM) & ~veh.crashed
+    idm = is_driven(veh)
     mid = veh.lane != veh.target_lane
     deciding = idm & ~mid & (veh.timer > p.lane_change_delay) & veh.enable_lane_change
     cands = torch.zeros_like(veh.lane)
@@ -444,7 +492,14 @@ def gen_frame_ops(veh, out, spec, table, raw=False) -> float:
                          & (veh.speed.abs() >= 1.0)).int()
     dual = idm & (out.target_lane != veh.lane)
     queries = idm.sum() + cands.sum() + dual.sum()
-    idm_evals = idm.sum() + 2 * deciding.sum() + 4 * cands.sum() + dual.sum()
+
+    def evals(rows):
+        return rows.sum() + 2 * (rows & deciding).sum() + 4 * (cands * rows).sum() + (
+            rows & dual).sum()
+
+    lin = idm & (veh.kind == KIND_LINEAR)
+    lin_evals = evals(lin)
+    idm_evals = evals(idm) - lin_evals
     aborting = (idm & mid & (geo.edge_base[li] == geo.edge_base[tl])).sum()
     # collisions: unordered eligible pairs, and those within reach
     eye = torch.eye(V, dtype=torch.bool, device=dev)
@@ -463,7 +518,9 @@ def gen_frame_ops(veh, out, spec, table, raw=False) -> float:
     return float(
         (per_lane + GEN_OPS_SLOT) * live.sum() - GEN_OPS_EGO_CONTROLS * raw_egos
         + GEN_OPS_EDGE_LANE * edge_lanes
-        + GEN_OPS_IDM * idm_evals + GEN_OPS_NEIGH_PAIR * (V - 1) * queries
+        + GEN_OPS_IDM * idm_evals + OPS_LINEAR_ACCEL * lin_evals
+        - (GEN_OPS_STEER_PC - OPS_LINEAR_STEER) * lin.sum()
+        + GEN_OPS_NEIGH_PAIR * (V - 1) * queries
         + GEN_OPS_ABORT_PAIR * V * aborting + OPS_SPHERE * elig.sum()
         + OPS_SAT * near.sum()
     )
@@ -528,15 +585,17 @@ def yield_ticks(veh, spec, sa, frames, steps0) -> int:
     return n
 
 
-def regulated_scenes(env, states, gen):
+def regulated_scenes(env, states, gen, steps_in: bool = True):
     """K5's scenes at intersection-v0, each (vehicles, steps0, slot actions,
-    frames): the reset scene; 8 plain autoreset steps in, with row b's frame
+    frames): the reset scene; with ``steps_in`` 8 plain autoreset steps in,
+    with row b's frame
     counter advanced by 15 b so the tick phases cover all 7 values; a
     conflict scene (in every env slot 0 approaches the box from corner 0
     going straight and slot 1 from corner 2 turning left, at the same
     priority, slot 2 from corner 1 going straight, at a higher one, at
     distances that vary by env); and the reset's warm-up launch (the first
-    16 slots of fresh spawns, 45 frames, frame counter 0, zero actions)."""
+    16 slots of fresh spawns, 45 frames, frame counter 0, zero actions of
+    the action type's shape)."""
     import dataclasses
 
     from highwayenv_tpu_torch.road import lane as lane_ops
@@ -552,11 +611,12 @@ def regulated_scenes(env, states, gen):
         return env._action_to_slots(acts)
 
     out = {"reset": (veh, states.steps, actions(), env.frames_per_step)}
-    st = states
-    for _ in range(8):
-        acts = random_actions(env, Bn, gen)
-        st = env.step_autoreset(st, acts, gen)[1]
-    out["8 steps in"] = (st.vehicles, st.steps + spread, actions(), env.frames_per_step)
+    if steps_in:
+        st = states
+        for _ in range(8):
+            acts = random_actions(env, Bn, gen)
+            st = env.step_autoreset(st, acts, gen)[1]
+        out["8 steps in"] = (st.vehicles, st.steps + spread, actions(), env.frames_per_step)
 
     rb, rn, rid, rlen = env._routes
     fields = {f.name: getattr(veh, f.name).clone() for f in dataclasses.fields(VehicleState)}
@@ -581,8 +641,10 @@ def regulated_scenes(env, states, gen):
     W = env._warmup_slots
     sub = VehicleState(**{f.name: getattr(spawned, f.name)[:, :W].contiguous()
                           for f in dataclasses.fields(VehicleState)})
+    extra = tuple(env.action_type.action_shape)
     out["warm-up"] = (sub, torch.zeros(Bn, dtype=torch.int32, device=dev),
-                      torch.zeros((Bn, W), dtype=torch.int32, device=dev),
+                      torch.zeros((Bn, W) + extra, device=dev,
+                                  dtype=torch.float32 if extra else torch.int32),
                       env._warmup_frames)
     return out
 
@@ -664,6 +726,18 @@ def check_autoreset(env, states, gen, label: str) -> None:
 def field_bytes(state, fields) -> int:
     return sum(getattr(state, n).numel() * getattr(state, n).element_size()
                for n, _, _ in fields)
+
+
+def read_bytes(state, fields) -> int:
+    """The bytes a frame kernel reads of ``fields``: every field once, but
+    the Linear parameter fields only on the Linear rows, the only threads
+    that load them."""
+    from highwayenv_tpu_torch.vehicle.state import KIND_LINEAR
+
+    rows = int((state.kind == KIND_LINEAR).sum())
+    params = [f for f in fields if f[0] in PARAM_FIELDS]
+    per_row = sum(math.prod(trail) * 4 for _, _, trail in params)
+    return field_bytes(state, [f for f in fields if f[0] not in PARAM_FIELDS]) + rows * per_row
 
 
 def bound(ops: float, n_bytes: int):
@@ -915,12 +989,16 @@ class FlagRecorder:
 
 
 def main() -> int:
+    start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import highwayenv_tpu_torch as ht
+    from highwayenv_tpu_torch.envs import preprocessors
+    from highwayenv_tpu_torch.envs.base import map_fields
     from highwayenv_tpu_torch.ops import _build, general_frames, straight_frames, straight_sorted
     from highwayenv_tpu_torch.road import lane as lane_ops
+    from highwayenv_tpu_torch.vehicle.state import KIND_LINEAR
 
     sf, ss, gf =straight_frames, straight_sorted, general_frames
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -944,33 +1022,50 @@ def main() -> int:
 
     k1, k2a, k3, k2b = sf.frames_kernel, ss.sort_kernel, ss.frames_sorted_kernel, ss.unsort_kernel
     k4 = gf.frames_general_kernel
-    err = {"K1": 0.0, "K2a": 0.0, "K3": 0.0, "K2b": 0.0, "K1 raw": 0.0, "K3 raw": 0.0}
+    err = {"K1": 0.0, "K2a": 0.0, "K3": 0.0, "K2b": 0.0, "K1 raw": 0.0, "K3 raw": 0.0,
+           "K1 linear": 0.0, "K3 linear": 0.0}
     # highway-fast-v0 (V=21, 5 frames) and highway-v0 at the warp
     # boundaries run the same kernels; highway-v0 under a ContinuousAction
     # runs K1's and K3's raw-control branch (its env carried on below as
-    # cenv); the main path is highway-v0, checked last so its env and
-    # states carry on below
-    straight = ([("highway-fast-v0", None, B)]
-                + [("highway-v0", {"vehicles_count": n}, EDGE_B) for n in EDGE_VEHICLES]
-                + [("highway-v0", CONTINUOUS_CONFIG, B), ("highway-v0", None, B)])
-    for env_id, config, Bc in straight:
+    # cenv); under the LinearVehicle preset (carried on as lenv, the Linear
+    # slice's main path) and AggressiveVehicle, and with change_vehicles'
+    # Linear rows on the IDM-config env, the Linear rows' branch, with K1
+    # also masked to every env; the main path is highway-v0, checked last
+    # so its env and states carry on below.  Each entry: (env id, config,
+    # B, the class change_vehicles puts on the reset state or None, scenes)
+    straight = ([("highway-fast-v0", None, B, None, SCENES)]
+                + [("highway-v0", {"vehicles_count": n}, EDGE_B, None, SCENES)
+                   for n in EDGE_VEHICLES]
+                + [("highway-v0", CONTINUOUS_CONFIG, B, None, SCENES),
+                   ("highway-v0", LINEAR_CONFIG, B, None, SCENES),
+                   ("highway-v0", AGGRESSIVE_CONFIG, B, None, ("normal", "pileup_all")),
+                   ("highway-v0", None, B, NPC + "LinearVehicle", ("normal", "pileup_all")),
+                   ("highway-v0", None, B, None, SCENES)])
+    for env_id, config, Bc, change, scene_names in straight:
         env = ht.make(env_id, config)
         fs, p, dt, frames = env._straight, env.idm_params, env.dt, env.frames_per_step
         raw = env.action_type.stores_raw_controls
-        sfx = " raw" if raw else ""
-        label = f"{env_id} V={env.num_slots}" + (" ContinuousAction" if raw else "")
-        print(f"== 3. kernels vs plain: {label}, {frames} frames, B={Bc}")
         gen = env.generator(SEED)
         _, states = env.reset(Bc, gen)
+        if change is not None:
+            states = preprocessors.change_vehicles(env, states, change)
+        linear = env.linear_rows
+        sfx = " raw" if raw else (" linear" if linear else "")
+        label = (f"{env_id} V={env.num_slots}" + (" ContinuousAction" if raw else "")
+                 + (f" {env.npc_preset}" if env.npc_preset else "")
+                 + (f" change_vehicles({change.rsplit('.', 1)[-1]})" if change else ""))
+        print(f"== 3. kernels vs plain: {label}, {frames} frames, B={Bc}")
         actions = random_actions(env, Bc, gen)
         both_fired = False
         for name, veh in scenes(states.vehicles).items():
+            if name not in scene_names:
+                continue
             where = f"{label} {name}"
             veh = env.action_type.apply(
                 env.geo, veh, veh.kind == 1, env._action_to_slots(actions)
             )
             # K1, dense
-            out_k = k1(veh, fs, p, dt, frames, raw=raw)
+            out_k = k1(veh, fs, p, dt, frames, raw=raw, linear=linear)
             out_p = sf.frames_plain(veh, fs, p, dt, frames, raw)
             torch.cuda.synchronize()
             err["K1" + sfx] = max(err["K1" + sfx], exact_state(out_k, out_p, f"{where} K1"))
@@ -982,7 +1077,7 @@ def main() -> int:
                 raise AssertionError(f"{where} K2a: idx differs")
             exact(srt_k, srt_p, [n for n, _, _ in ss.SORT_FIELDS], f"{where} K2a")
             # K3 on the same sorted inputs
-            band_k, flags_k = k3(srt_p, idx_p, fs, p, dt, frames, raw=raw)
+            band_k, flags_k = k3(srt_p, idx_p, fs, p, dt, frames, raw=raw, linear=linear)
             band_p, flags_p = ss.frames_sorted_plain(srt_p, idx_p, fs, p, dt, frames, raw)
             torch.cuda.synchronize()
             if not torch.equal(flags_k, flags_p):
@@ -993,9 +1088,20 @@ def main() -> int:
             back_p = ss.unsort_plain(band_p, idx_p, veh)
             torch.cuda.synchronize()
             exact(back_k, back_p, [n for n, _, _ in ss.MUT_FIELDS], f"{where} K2b")
+            if linear:
+                # K1 masked to every env: the dense step
+                every = torch.ones(Bc, dtype=torch.bool, device=veh.speed.device)
+                all_k = k1(veh, fs, p, dt, frames, mask=every,
+                           out=map_fields(torch.clone, back_k), raw=raw, linear=True)
+                all_p = sf._masked_plain(veh, fs, p, dt, frames, every,
+                                         map_fields(torch.clone, back_p), raw)
+                torch.cuda.synchronize()
+                err["K1" + sfx] = max(err["K1" + sfx],
+                                      exact_state(all_k, all_p, f"{where} K1 masked to every env"))
             # K1 masked by the flags, over the banded rows
             mask = flags_p.any(dim=1)
-            fix_k = k1(veh, fs, p, dt, frames, mask=mask, out=back_k, raw=raw)
+            fix_k = k1(veh, fs, p, dt, frames, mask=mask, out=back_k, raw=raw,
+                       linear=linear)
             fix_p = sf._masked_plain(veh, fs, p, dt, frames, mask, back_p, raw)
             torch.cuda.synchronize()
             err["K1" + sfx] = max(err["K1" + sfx],
@@ -1004,38 +1110,54 @@ def main() -> int:
             bitwise = compare_steps(fix_k, out_k, f"{where} sorted step vs dense")
             fired = flags_k.sum(dim=0).tolist()
             both_fired |= min(fired) > 0
+            lin_rows = int((veh.kind == KIND_LINEAR).sum())
             print(f"  {where}: K1, K3 and K1 masked bit-exact on every field; firing "
                   f"envs {int(mask.sum())} of {Bc} (collision {fired[0]}, neighbour "
                   f"{fired[1]}); sorted step vs dense step "
                   f"{'bitwise equal' if bitwise else 'within the ulp bound'}; "
-                  f"crashed slots {int(fix_k.crashed.sum())}")
-        if not both_fired:
+                  f"crashed slots {int(fix_k.crashed.sum())}; Linear rows {lin_rows}, lane "
+                  f"changes under way {int((fix_k.target_lane != fix_k.lane).sum())}")
+            if linear and not lin_rows:
+                raise AssertionError(f"{where}: no Linear row")
+        if not both_fired and scene_names == SCENES:
             raise AssertionError(f"{label}: no scene fired both band flags")
         if raw:
             cenv = env
+        if config == LINEAR_CONFIG:
+            lenv, lstates = env, states
     # the whole autoreset step: the main path (sorted kernels) against the
-    # plain reference path
+    # plain reference path, and the Linear slice's main path
     check_autoreset(env, states, gen, "")
+    check_autoreset(lenv, lstates, lenv.generator(SEED), "highway-v0 LinearVehicle ")
 
-    # K4 on the general path; roundabout-v0 last, its env carried on below
-    err["K4"] = 0.0
-    for env_id in ("merge-v0", "roundabout-v0"):
-        genv = ht.make(env_id)
+    # K4 on the general path, and its Linear rows' branch at roundabout-v0
+    # under AggressiveVehicle (its env carried on as aenv); roundabout-v0
+    # last, its env carried on below
+    err["K4"] = err["K4 linear"] = 0.0
+    for env_id, config in (("merge-v0", None), ("roundabout-v0", AGGRESSIVE_CONFIG),
+                           ("roundabout-v0", None)):
+        genv = ht.make(env_id, config)
         spec, gframes = genv._general, genv.frames_per_step
         gen = genv.generator(SEED)
         _, gstates = genv.reset(B, gen)
-        print(f"== 3. K4 vs plain: {env_id} V={genv.num_slots}, L={genv.geo.num_lanes}, "
+        key = "K4 linear" if config else "K4"
+        label = env_id + (f" {genv.npc_preset}" if config else "")
+        print(f"== 3. {key} vs plain: {label} V={genv.num_slots}, L={genv.geo.num_lanes}, "
               f"R={gstates.vehicles.route_base.shape[-1]}, {gframes} frames, B={B}")
         for name, veh in general_scenes(genv, gstates, gen,
                                         obstacle_hit=env_id == "merge-v0").items():
             acts = random_actions(genv, B, gen)
             sa = genv._action_to_slots(acts)
-            out_k = k4(veh, spec, sa, gframes)
+            out_k = k4(veh, spec, sa, gframes, linear=genv.linear_rows)
             out_p = gf.frames_general_plain(veh, spec, sa, gframes)
             torch.cuda.synchronize()
-            err["K4"] = max(err["K4"], compare_general(out_k, out_p, f"{env_id} {name}"))
+            err[key] = max(err[key], compare_general(out_k, out_p, f"{label} {name}"))
+            if config and not bool((veh.kind == KIND_LINEAR).any()):
+                raise AssertionError(f"{label} {name}: no Linear row")
             if name == "obstacle hit" and not bool(out_k.crashed[:, 4].any()):
                 raise AssertionError("merge-v0: the ramp vehicle hit the obstacle nowhere")
+        if config:
+            aenv = genv
     check_autoreset(genv, gstates, gen, "roundabout-v0 ")
 
     # K4's raw-control branch: the racetrack family, lateral-only
@@ -1057,7 +1179,7 @@ def main() -> int:
         for name, veh in general_scenes(renv, rstates, gen).items():
             sa = renv._action_to_slots(random_actions(renv, B, gen))
             veh, _, raw = gf.store_raw_controls(renv, veh, sa)
-            out_k = k4(veh, rspec, None, rframes, raw=raw)
+            out_k = k4(veh, rspec, None, rframes, raw=raw, linear=False)
             out_p = gf.frames_general_plain(veh, rspec, None, rframes, raw=raw)
             torch.cuda.synchronize()
             err["K4 raw"] = max(err["K4 raw"],
@@ -1078,7 +1200,7 @@ def main() -> int:
           f"R={istates.vehicles.route_base.shape[-1]}, {ienv.frames_per_step} frames, tick "
           f"period {ispec.period}, B={B}")
     for name, (rveh, rsteps, rsa, rframes) in regulated_scenes(ienv, istates, gen).items():
-        out_k = k5(rveh, ispec, rsa, rframes, rsteps)
+        out_k = k5(rveh, ispec, rsa, rframes, rsteps, linear=False)
         out_p = gf.frames_general_plain(rveh, ispec, rsa, rframes, rsteps)
         torch.cuda.synchronize()
         key = "K5 warm-up" if name == "warm-up" else "K5 step"
@@ -1101,7 +1223,7 @@ def main() -> int:
     for name, (rveh, rsteps, rsa, rframes) in regulated_scenes(wenv, wstates, wgen).items():
         if rveh.kind.shape[1] != 32:  # the warm-up runs 16 slots
             continue
-        out_k = k5(rveh, wenv._general, rsa, rframes, rsteps)
+        out_k = k5(rveh, wenv._general, rsa, rframes, rsteps, linear=False)
         out_p = gf.frames_general_plain(rveh, wenv._general, rsa, rframes, rsteps)
         torch.cuda.synchronize()
         err["K5 step"] = max(err["K5 step"], compare_general(
@@ -1111,16 +1233,56 @@ def main() -> int:
               f"{int(out_k.is_yielding.sum())}")
         if name == "8 steps in" and phases != ispec.period:
             raise AssertionError("intersection-v0 V=32: the tick phases are not mixed")
+    # K5's Linear rows' branch at intersection-v0 under DefensiveVehicle
+    # (denv) and its raw-control branch under a ContinuousAction (cienv):
+    # the reset scene with the tick phases spread over all 7 values, the
+    # conflict scene and, under raw controls, the warm-up launch, each
+    # action stored on the egos first under raw controls
+    err["K5 linear"] = err["K5 raw"] = 0.0
+    k5_envs = {}
+    for key, config, what in (("K5 linear", DEFENSIVE_CONFIG, "DefensiveVehicle"),
+                              ("K5 raw", CONTINUOUS_CONFIG, "ContinuousAction")):
+        xenv = ht.make("intersection-v0", config)
+        k5_envs[key] = xenv
+        xgen = xenv.generator(SEED)
+        _, xstates = xenv.reset(B, xgen)
+        label = f"intersection-v0 {what}"
+        print(f"== 3. {key} vs plain: {label}, V={xenv.num_slots}, B={B}, raw controls "
+              f"{xenv.action_type.stores_raw_controls}")
+        spread = torch.arange(B, device=xenv.device, dtype=torch.int32) * xenv.frames_per_step
+        for name, (rveh, rsteps, rsa, rframes) in regulated_scenes(
+                xenv, xstates, xgen, steps_in=False).items():
+            if name == "warm-up" and key == "K5 linear":
+                continue  # IDM rows: the preset goes on after the warm-up
+            if name == "reset":
+                rsteps = rsteps + spread
+            rveh, rsa, raw = gf.store_raw_controls(xenv, rveh, rsa)
+            out_k = k5(rveh, xenv._general, rsa, rframes, rsteps, raw=raw,
+                       linear=xenv.linear_rows)
+            out_p = gf.frames_general_plain(rveh, xenv._general, rsa, rframes, rsteps, raw=raw)
+            torch.cuda.synchronize()
+            err[key] = max(err[key], compare_general(out_k, out_p, f"{label} {name}"))
+            phases = torch.unique(torch.remainder(rsteps, ispec.period)).numel()
+            lin_rows = int((rveh.kind == KIND_LINEAR).sum())
+            print(f"    V={rveh.kind.shape[1]}, {rframes} frames, {phases} tick phases; "
+                  f"Linear rows {lin_rows}; slots yielding after the step "
+                  f"{int(out_k.is_yielding.sum())}")
+            if name == "reset" and phases != ispec.period:
+                raise AssertionError(f"{label}: the tick phases are not mixed")
+            if key == "K5 linear" and name != "warm-up" and not lin_rows:
+                raise AssertionError(f"{label} {name}: no Linear row")
     check_autoreset(ienv, istates, gen, "intersection-v0 ")
 
     # the compact autoreset and the captured step, on the three envs
     for label, e, st in (("highway-v0 ", env, states), ("roundabout-v0 ", genv, gstates),
                          ("intersection-v0 ", ienv, istates),
-                         ("racetrack-v0 ", renv, rstates)):
+                         ("racetrack-v0 ", renv, rstates),
+                         ("highway-v0 LinearVehicle ", lenv, lstates)):
         print(f"== 3. {label}compact autoreset vs full, CapturedStep vs eager")
         check_compact(e, st, label)
         check_graph(e, st, label)
 
+    print(f"(phases 1-3: {time.time() - start:.0f} s)")
     print(f"== 4. main path: make('highway-v0') on CUDA, B={B}, "
           f"{HORIZON} + {CRASH_HORIZON} autoreset steps, sorted step")
     gen = env.generator(SEED + 1)
@@ -1300,17 +1462,97 @@ def main() -> int:
         raise AssertionError("highway-v0 ContinuousAction: non-finite metrics")
     launches["K1 raw"], launches["K3 raw"] = counts["K1"], counts["K3"]
 
+    # the Linear slice's paths, each driven with the counts set to 0 just
+    # before it: highway-v0 under LinearVehicle through the sorted step (the
+    # slice's main path), roundabout-v0 under AggressiveVehicle through K4,
+    # and intersection-v0 under DefensiveVehicle and under a
+    # ContinuousAction through K5 (reset and steps: each step's launch and
+    # the warm-up of the reset drawn every step)
+    print(f"== 4. Linear main path: make('highway-v0', {LINEAR_CONFIG}) on CUDA, B={B}, "
+          f"reset and {HORIZON} random-policy autoreset steps, sorted step")
+    gen = lenv.generator(SEED + 1)
+    for k in (k1, k2a, k3, k2b, k4, k5):
+        k.launches = 0
+    _, lst = lenv.reset(B, gen)
+    lst, lm = rollout(lenv, lst, HORIZON, gen)
+    torch.cuda.synchronize()
+    counts = {"K1": k1.launches, "K2a": k2a.launches, "K3": k3.launches, "K2b": k2b.launches}
+    lm = {k: float(v) for k, v in lm.items()}
+    lin_rows = int((lst.vehicles.kind == KIND_LINEAR).sum())
+    print(f"  launches: {counts}, K4 and K5 {(k4.launches, k5.launches)}; rollout {lm}; "
+          f"Linear rows at the end {lin_rows} of {B * lenv.num_slots} slots")
+    if any(n != HORIZON for n in counts.values()) or k4.launches or k5.launches:
+        raise AssertionError("highway-v0 LinearVehicle: the sorted kernels must launch once "
+                             "per policy step, alone")
+    if not all(np.isfinite(list(lm.values()))) or not lm["done_rate"] > 0 or not lin_rows:
+        raise AssertionError("highway-v0 LinearVehicle: non-finite metrics, no episode "
+                             "ended or no Linear row")
+    for k in ("pos", "speed", "heading", "steering", "accel"):
+        if not bool(torch.isfinite(getattr(lst.vehicles, k)).all()):
+            raise AssertionError(f"highway-v0 LinearVehicle: non-finite {k}")
+    launches["K1 linear"], launches["K3 linear"] = counts["K1"], counts["K3"]
+    print(f"== 4. Linear path: make('roundabout-v0', {AGGRESSIVE_CONFIG}) on CUDA, B={B}, "
+          f"reset and {HORIZON} random-policy autoreset steps through K4")
+    gen = aenv.generator(SEED + 1)
+    for k in (k1, k2a, k3, k2b, k4, k5):
+        k.launches = 0
+    _, ast_ = aenv.reset(B, gen)
+    ast_, am = rollout(aenv, ast_, HORIZON, gen)
+    torch.cuda.synchronize()
+    others = (k1.launches, k2a.launches, k3.launches, k2b.launches, k5.launches)
+    am = {k: float(v) for k, v in am.items()}
+    print(f"  launches: K4 {k4.launches} in {HORIZON} policy steps, other kernels {others}; "
+          f"rollout {am}")
+    if k4.launches != HORIZON or any(others):
+        raise AssertionError("roundabout-v0 AggressiveVehicle: K4 must launch once per "
+                             "policy step, alone")
+    if not all(np.isfinite(list(am.values()))) or not am["done_rate"] > 0:
+        raise AssertionError("roundabout-v0 AggressiveVehicle: non-finite metrics or no "
+                             "episode ended")
+    launches["K4 linear"] = k4.launches
+    for key, xenv in k5_envs.items():
+        what = "DefensiveVehicle" if key == "K5 linear" else "ContinuousAction"
+        print(f"== 4. {'Linear' if key == 'K5 linear' else 'raw-control'} path: "
+              f"make('intersection-v0', {what}) on CUDA, B={B}, reset and {HORIZON} "
+              "random-policy autoreset steps through K5")
+        gen = xenv.generator(SEED + 1)
+        recorder = FrameRecorder(k5)
+        gf.frames_regulated_kernel = recorder
+        try:
+            for k in (k1, k2a, k3, k2b, k4, k5):
+                k.launches = 0
+            _, xst = xenv.reset(B, gen)
+            xst, xm = rollout(xenv, xst, HORIZON, gen)
+            torch.cuda.synchronize()
+        finally:
+            gf.frames_regulated_kernel = k5
+        step_n = sum(f == xenv.frames_per_step for f in recorder.frames)
+        warm_n = sum(f == xenv._warmup_frames for f in recorder.frames)
+        others = (k1.launches, k2a.launches, k3.launches, k2b.launches, k4.launches)
+        xm = {k: float(v) for k, v in xm.items()}
+        print(f"  launches: K5 {k5.launches} ({step_n} step, {warm_n} warm-up) in {HORIZON} "
+              f"policy steps and the first reset, other kernels {others}; rollout {xm}")
+        if (k5.launches != 2 * HORIZON + 1 or step_n != HORIZON or warm_n != HORIZON + 1
+                or any(others)):
+            raise AssertionError(f"intersection-v0 {what}: K5 must launch twice per policy "
+                                 "step and once for the first reset, alone")
+        if not all(np.isfinite(list(xm.values()))) or not xm["done_rate"] > 0:
+            raise AssertionError(f"intersection-v0 {what}: non-finite metrics or no episode "
+                                 "ended")
+        launches[key] = step_n
+
     # the rollouts again, each step one replay of a CapturedStep
     straight_names = ("straight_frames_kernel", "sort_kernel",
                       "straight_frames_sorted_kernel", "unsort_kernel")
     straight_kernels = {"K1": k1, "K2a": k2a, "K3": k3, "K2b": k2b}
     path_kernels = (
         ("highway-v0", env, straight_kernels, straight_names),
-        ("roundabout-v0", genv, {"K4": k4}, ("general_frames_kernel<false>",)),
-        ("intersection-v0", ienv, {"K5": k5}, ("general_frames_kernel<true>",)),
-    ) + tuple((env_id, e, {"K4": k4}, ("general_frames_kernel<false>",))
+        ("roundabout-v0", genv, {"K4": k4}, ("general_frames_kernel<false,",)),
+        ("intersection-v0", ienv, {"K5": k5}, ("general_frames_kernel<true,",)),
+    ) + tuple((env_id, e, {"K4": k4}, ("general_frames_kernel<false,",))
               for env_id, e in racers.items()) + (
         ("highway-v0 ContinuousAction", cenv, straight_kernels, straight_names),
+        ("highway-v0 LinearVehicle", lenv, straight_kernels, straight_names),
     )
     for label, e, path, names in path_kernels:
         print(f"== 4. graph path: {label} on CUDA, B={B}, {HORIZON} random-policy "
@@ -1342,6 +1584,7 @@ def main() -> int:
             raise AssertionError(f"{label}: a replay launched {prof['ours']}, expected "
                                  f"{want} of each of {names}")
 
+    print(f"(phases 1-4: {time.time() - start:.0f} s)")
     print(f"== 5. times on {card}")
     gen = env.generator(SEED + 2)
     _, states = env.reset(B, gen)
@@ -1364,7 +1607,8 @@ def main() -> int:
         lib_ms = None if library_fn is None else device_ms(library_fn, plain_reps)
         print(f"  {label}: {ms:.4f} ms between CUDA events behind a device-side wait "
               f"({wall:.4f} ms a call between CUDA events); plain {plain_ms:.4f} ms "
-              "on the device" + ("" if lib_ms is None else f"; yardstick {lib_ms:.4f} ms"))
+              "on the device" + ("" if lib_ms is None else f"; yardstick {lib_ms:.4f} ms")
+              + f" [at {time.time() - start:.0f} s]")
         return ms, plain_ms, lib_ms
 
     # K2a: bytes of every field read once and written once, plus idx
@@ -1392,7 +1636,7 @@ def main() -> int:
     # K3: operations of this input's frames, frame by frame on the plain version
     ms, plain_ms, _ = timed(
         "K3 straight_frames_sorted, per policy step",
-        lambda: k3(srt, idx, fs, p, dt, frames),
+        lambda: k3(srt, idx, fs, p, dt, frames, linear=False),
         lambda: ss.frames_sorted_plain(srt, idx, fs, p, dt, frames), None, 20, 2,
     )
     ops, v = 0.0, srt
@@ -1400,7 +1644,7 @@ def main() -> int:
         out, _ = ss.frames_sorted_plain(v, idx, fs, p, dt, 1)
         ops += sorted_frame_ops(v, out, fs, p, dt)
         v = out
-    n_bytes = (field_bytes(srt, sf._IN_FIELDS) + field_bytes(band, sf._OUT_FIELDS)
+    n_bytes = (read_bytes(srt, sf._IN_FIELDS) + field_bytes(band, sf._OUT_FIELDS)
                + idx.numel() * 4 + B * 2)
     bms, by, t_ops, t_bytes = bound(ops, n_bytes)
     rows["K3"] = ("straight_frames_sorted",
@@ -1434,16 +1678,17 @@ def main() -> int:
     # usual launch)
     ms, plain_ms, _ = timed(
         "K1 straight_frames, every env, per policy step",
-        lambda: k1(veh, fs, p, dt, frames),
+        lambda: k1(veh, fs, p, dt, frames, linear=False),
         lambda: sf.frames_plain(veh, fs, p, dt, frames), None, 20, 2,
     )
-    masked_ms = queued_ms(lambda: k1(veh, fs, p, dt, frames, mask=none, out=back), 50)
+    masked_ms = queued_ms(lambda: k1(veh, fs, p, dt, frames, mask=none, out=back,
+                                   linear=False), 50)
     ops, v = 0.0, veh
     for _ in range(frames):
         out = sf.frames_plain(v, fs, p, dt, 1)
         ops += frame_ops(v, out, fs, p, dt)
         v = out
-    n_bytes = field_bytes(veh, sf._IN_FIELDS) + field_bytes(veh, sf._OUT_FIELDS)
+    n_bytes = read_bytes(veh, sf._IN_FIELDS) + field_bytes(veh, sf._OUT_FIELDS)
     bms, by, t_ops, t_bytes = bound(ops, n_bytes)
     rows["K1"] = ("straight_frames", "highwayenv_tpu_torch/csrc/straight_frames.cu",
                   "highwayenv_tpu/ops/straight_pallas_bm.py:1190", ms, plain_ms, bms, by, None)
@@ -1458,7 +1703,7 @@ def main() -> int:
     gsa = genv._action_to_slots(random_actions(genv, B, gen))
     ms, plain_ms, _ = timed(
         "K4 general_frames (roundabout-v0), per policy step",
-        lambda: k4(gveh, gspec, gsa, gframes),
+        lambda: k4(gveh, gspec, gsa, gframes, linear=False),
         lambda: gf.frames_general_plain(gveh, gspec, gsa, gframes), None, 20, 2,
     )
     ops, v = 0.0, gveh
@@ -1469,7 +1714,7 @@ def main() -> int:
         v, table = out, next_table
     R = gveh.route_base.shape[-1]
     lf, li = gf.lane_tables(gspec.geo, genv.device)
-    n_bytes = (field_bytes(gveh, gf._resolve(gf._IN_FIELDS, R)) + gsa.numel() * 4
+    n_bytes = (read_bytes(gveh, gf._resolve(gf._IN_FIELDS, R)) + gsa.numel() * 4
                + field_bytes(v, gf._resolve(gf.OUT_FIELDS, R))
                + lf.numel() * 4 + li.numel() * 4)
     bms, by, t_ops, t_bytes = bound(ops, n_bytes)
@@ -1489,14 +1734,14 @@ def main() -> int:
             isteps = isteps + torch.arange(B, device=ienv.device, dtype=torch.int32) * 15
         ms, plain_ms, _ = timed(
             f"K5 general_frames_regulated (intersection-v0), {label}",
-            lambda: k5(iveh, ispec, isa, iframes, isteps),
+            lambda: k5(iveh, ispec, isa, iframes, isteps, linear=False),
             lambda: gf.frames_general_plain(iveh, ispec, isa, iframes, isteps), None, 20, 2,
         )
         ops = regulated_ops(iveh, ispec, isa, iframes, isteps)
         out = gf.frames_general_plain(iveh, ispec, isa, iframes, isteps)
         R = iveh.route_base.shape[-1]
         lf, li = gf.lane_tables(ispec.geo, ienv.device)
-        n_bytes = (field_bytes(iveh, gf._resolve(gf._IN_FIELDS, R) + gf.REG_FIELDS)
+        n_bytes = (read_bytes(iveh, gf._resolve(gf._IN_FIELDS, R) + gf.REG_FIELDS)
                    + isa.numel() * 4 + B * 4
                    + field_bytes(out, gf._resolve(gf.OUT_FIELDS, R) + gf.REG_FIELDS)
                    + lf.numel() * 4 + li.numel() * 4)
@@ -1520,7 +1765,7 @@ def main() -> int:
     rveh, _, _ = gf.store_raw_controls(renv, rveh, rsa)
     ms, plain_ms, _ = timed(
         "K4 general_frames, raw controls (racetrack-v0, V=2), per policy step",
-        lambda: k4(rveh, rspec, None, rframes, raw=True),
+        lambda: k4(rveh, rspec, None, rframes, raw=True, linear=False),
         lambda: gf.frames_general_plain(rveh, rspec, None, rframes, raw=True), None, 20, 2,
     )
     ops, v = 0.0, rveh
@@ -1530,7 +1775,7 @@ def main() -> int:
         ops += gen_frame_ops(v, out, rspec, table, raw=True)
         v, table = out, next_table
     lf, li = gf.lane_tables(rspec.geo, renv.device)
-    n_bytes = (field_bytes(rveh, gf._resolve(gf._IN_FIELDS, 1))
+    n_bytes = (read_bytes(rveh, gf._resolve(gf._IN_FIELDS, 1))
                + field_bytes(v, gf._resolve(gf.OUT_FIELDS, 1))
                + lf.numel() * 4 + li.numel() * 4)
     bms, by, t_ops, t_bytes = bound(ops, n_bytes)
@@ -1547,7 +1792,7 @@ def main() -> int:
     csrt, cidx = ss.sort_plain(cveh, fs)
     ms, plain_ms, _ = timed(
         "K3 straight_frames_sorted, raw controls (highway-v0 ContinuousAction), per step",
-        lambda: k3(csrt, cidx, fs, p, dt, frames, raw=True),
+        lambda: k3(csrt, cidx, fs, p, dt, frames, raw=True, linear=False),
         lambda: ss.frames_sorted_plain(csrt, cidx, fs, p, dt, frames, True), None, 20, 2,
     )
     ops, v = 0.0, csrt
@@ -1555,7 +1800,7 @@ def main() -> int:
         out, _ = ss.frames_sorted_plain(v, cidx, fs, p, dt, 1, True)
         ops += sorted_frame_ops(v, out, fs, p, dt, raw=True)
         v = out
-    n_bytes = (field_bytes(csrt, sf._IN_FIELDS) + field_bytes(v, sf._OUT_FIELDS)
+    n_bytes = (read_bytes(csrt, sf._IN_FIELDS) + field_bytes(v, sf._OUT_FIELDS)
                + cidx.numel() * 4 + B * 2)
     bms, by, t_ops, t_bytes = bound(ops, n_bytes)
     rows["K3 raw"] = ("straight_frames_sorted (highway-v0 ContinuousAction, raw controls)",
@@ -1566,7 +1811,7 @@ def main() -> int:
           f"{n_bytes} bytes -> {t_bytes:.4f} ms)")
     ms, plain_ms, _ = timed(
         "K1 straight_frames, raw controls (highway-v0 ContinuousAction), every env, per step",
-        lambda: k1(cveh, fs, p, dt, frames, raw=True),
+        lambda: k1(cveh, fs, p, dt, frames, raw=True, linear=False),
         lambda: sf.frames_plain(cveh, fs, p, dt, frames, True), None, 20, 2,
     )
     ops, v = 0.0, cveh
@@ -1574,7 +1819,7 @@ def main() -> int:
         out = sf.frames_plain(v, fs, p, dt, 1, True)
         ops += frame_ops(v, out, fs, p, dt, raw=True)
         v = out
-    n_bytes = field_bytes(cveh, sf._IN_FIELDS) + field_bytes(cveh, sf._OUT_FIELDS)
+    n_bytes = read_bytes(cveh, sf._IN_FIELDS) + field_bytes(cveh, sf._OUT_FIELDS)
     bms, by, t_ops, t_bytes = bound(ops, n_bytes)
     rows["K1 raw"] = ("straight_frames (highway-v0 ContinuousAction, raw controls)",
                       "highwayenv_tpu_torch/csrc/straight_frames.cu",
@@ -1583,6 +1828,126 @@ def main() -> int:
     print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.4f} ms, "
           f"{n_bytes} bytes -> {t_bytes:.4f} ms)")
 
+    # the Linear rows' branches: K3 and K1 at highway-v0 under LinearVehicle,
+    # K4 at roundabout-v0 under AggressiveVehicle, K5's step at
+    # intersection-v0 under DefensiveVehicle, from fresh resets with random
+    # actions; and K5's raw-control branch at intersection-v0 under a
+    # ContinuousAction (the action stored on the egos first); the bounds
+    # count the linear laws' operations and the parameter fields' bytes on
+    # the Linear rows
+    _, l0 = lenv.reset(B, lenv.generator(SEED + 2))
+    lveh = lenv.action_type.apply(
+        lenv.geo, l0.vehicles, l0.vehicles.kind == 1,
+        lenv._action_to_slots(random_actions(lenv, B, gen)))
+    lsrt, lidx = ss.sort_plain(lveh, fs)
+    ms, plain_ms, _ = timed(
+        "K3 straight_frames_sorted, Linear rows (highway-v0 LinearVehicle), per step",
+        lambda: k3(lsrt, lidx, fs, p, dt, frames, linear=True),
+        lambda: ss.frames_sorted_plain(lsrt, lidx, fs, p, dt, frames), None, 20, 2,
+    )
+    ops, v = 0.0, lsrt
+    for _ in range(frames):
+        out, _ = ss.frames_sorted_plain(v, lidx, fs, p, dt, 1)
+        ops += sorted_frame_ops(v, out, fs, p, dt)
+        v = out
+    n_bytes = (read_bytes(lsrt, sf._IN_FIELDS) + field_bytes(v, sf._OUT_FIELDS)
+               + lidx.numel() * 4 + B * 2)
+    bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+    rows["K3 linear"] = ("straight_frames_sorted (highway-v0 LinearVehicle, Linear rows)",
+                         "highwayenv_tpu_torch/csrc/straight_frames_sorted.cu",
+                         "highwayenv_tpu/ops/straight_pallas_bm.py:1190", ms, plain_ms, bms,
+                         by, None)
+    print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.4f} ms, "
+          f"{n_bytes} bytes -> {t_bytes:.4f} ms); Linear rows "
+          f"{int((lveh.kind == KIND_LINEAR).sum())}")
+    ms, plain_ms, _ = timed(
+        "K1 straight_frames, Linear rows (highway-v0 LinearVehicle), every env, per step",
+        lambda: k1(lveh, fs, p, dt, frames, linear=True),
+        lambda: sf.frames_plain(lveh, fs, p, dt, frames), None, 20, 2,
+    )
+    masked_ms = queued_ms(lambda: k1(lveh, fs, p, dt, frames, mask=none, out=back,
+                                   linear=True), 50)
+    ops, v = 0.0, lveh
+    for _ in range(frames):
+        out = sf.frames_plain(v, fs, p, dt, 1)
+        ops += frame_ops(v, out, fs, p, dt)
+        v = out
+    n_bytes = read_bytes(lveh, sf._IN_FIELDS) + field_bytes(lveh, sf._OUT_FIELDS)
+    bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+    rows["K1 linear"] = ("straight_frames (highway-v0 LinearVehicle, Linear rows)",
+                         "highwayenv_tpu_torch/csrc/straight_frames.cu",
+                         "highwayenv_tpu/ops/straight_pallas_bm.py:1190", ms, plain_ms, bms,
+                         by, None)
+    print(f"    masked with no env firing: {masked_ms:.4f} ms queued; bound {bms:.4f} ms by "
+          f"{by} ({ops:.3e} fp32 ops -> {t_ops:.4f} ms, {n_bytes} bytes -> {t_bytes:.4f} ms)")
+    aspec = aenv._general
+    _, a0 = aenv.reset(B, aenv.generator(SEED + 2))
+    aveh = a0.vehicles
+    asa = aenv._action_to_slots(random_actions(aenv, B, gen))
+    ms, plain_ms, _ = timed(
+        "K4 general_frames, Linear rows (roundabout-v0 AggressiveVehicle), per policy step",
+        lambda: k4(aveh, aspec, asa, gframes, linear=True),
+        lambda: gf.frames_general_plain(aveh, aspec, asa, gframes), None, 20, 2,
+    )
+    ops, v = 0.0, aveh
+    table = lane_ops.projection_table(aspec.geo, v.pos)
+    for f in range(gframes):
+        out, next_table = gf.frame_general_plain(v, aspec, table, asa if f == 0 else None)
+        ops += gen_frame_ops(v, out, aspec, table)
+        v, table = out, next_table
+    R = aveh.route_base.shape[-1]
+    lf, li = gf.lane_tables(aspec.geo, aenv.device)
+    n_bytes = (read_bytes(aveh, gf._resolve(gf._IN_FIELDS, R)) + asa.numel() * 4
+               + field_bytes(v, gf._resolve(gf.OUT_FIELDS, R))
+               + lf.numel() * 4 + li.numel() * 4)
+    bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+    rows["K4 linear"] = ("general_frames (roundabout-v0 AggressiveVehicle, Linear rows)",
+                         "highwayenv_tpu_torch/csrc/general_frames.cu",
+                         "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms, bms, by,
+                         None)
+    print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, "
+          f"{n_bytes} bytes -> {t_bytes:.5f} ms)")
+    for key, xenv in k5_envs.items():
+        what = "DefensiveVehicle, Linear rows" if key == "K5 linear" else (
+            "ContinuousAction, raw controls")
+        xspec = xenv._general
+        _, x0 = xenv.reset(B, xenv.generator(SEED + 2))
+        xsteps = x0.steps + torch.arange(B, device=xenv.device, dtype=torch.int32) * 15
+        xsa = xenv._action_to_slots(random_actions(xenv, B, gen))
+        xveh, xsa, raw = gf.store_raw_controls(xenv, x0.vehicles, xsa)
+        ms, plain_ms, _ = timed(
+            f"K5 general_frames_regulated (intersection-v0 {what}), per policy step",
+            lambda: k5(xveh, xspec, xsa, xenv.frames_per_step, xsteps, raw=raw,
+                       linear=xenv.linear_rows),
+            lambda: gf.frames_general_plain(xveh, xspec, xsa, xenv.frames_per_step, xsteps,
+                                            raw=raw), None, 20, 2,
+        )
+        ops, v = 0.0, xveh
+        phase = torch.remainder(xsteps, xspec.period)
+        table = lane_ops.projection_table(xspec.geo, v.pos)
+        for f in range(xenv.frames_per_step):
+            tick = torch.remainder(phase + (f + 1), xspec.period) == 0
+            out, next_table = gf.frame_general_plain(v, xspec, table, xsa if f == 0 else None,
+                                                     tick, raw=raw)
+            ops += gen_frame_ops(v, out, xspec, table, raw=raw)
+            if bool(tick.any()):
+                ops += reg_tick_ops(v, xspec, tick)
+            v, table = out, next_table
+        R = xveh.route_base.shape[-1]
+        lf, li = gf.lane_tables(xspec.geo, xenv.device)
+        n_bytes = (read_bytes(xveh, gf._resolve(gf._IN_FIELDS, R) + gf.REG_FIELDS)
+                   + (0 if raw else xsa.numel() * 4) + B * 4
+                   + field_bytes(v, gf._resolve(gf.OUT_FIELDS, R) + gf.REG_FIELDS)
+                   + lf.numel() * 4 + li.numel() * 4)
+        bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+        rows[key] = (f"general_frames_regulated (intersection-v0 {what})",
+                     "highwayenv_tpu_torch/csrc/general_frames.cu",
+                     "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms, bms, by,
+                     None)
+        print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, "
+              f"{n_bytes} bytes -> {t_bytes:.5f} ms)")
+
+    print(f"  [the kernel table done at {time.time() - start:.0f} s]")
     # the policy step's simulation, and the rollouts, in turns
     for which, sim in (("sorted", ss.simulate_bm_sorted), ("dense", sf.simulate_bm)):
         def call(sim=sim):
@@ -1656,7 +2021,8 @@ def main() -> int:
     variants = (("eager full", None, False), ("eager compact P=1024", 1024, False),
                 ("graph full", None, True), ("graph compact P=1024", 1024, True))
     for label, e in (("racetrack-v0", renv), ("highway-v0", env), ("roundabout-v0", genv),
-                     ("intersection-v0", ienv)):
+                     ("intersection-v0", ienv), ("highway-v0 LinearVehicle", lenv)):
+        print(f"  [{label} at {time.time() - start:.0f} s]")
         _, t0_states = e.reset(B, e.generator(SEED + 4))
         walls = {name: [] for name, _, _ in variants}
         for r in range(3):
@@ -1691,6 +2057,7 @@ def main() -> int:
             print(f"  {label} graph {name}: the host issues a replay in "
                   f"{sorted(issue)[5]:.4f} ms (median of 10, from an idle queue)")
 
+    print(f"(phases 1-5: {time.time() - start:.0f} s)")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -10,7 +10,9 @@ Registry ids mirror the reference; ported so far: the straight highway
 envs and, on the general analytic-lane path, roundabout-v0, merge-v0, the
 regulated intersection-v0 and the racetrack family (racetrack-v0,
 racetrack-large-v0, racetrack-oval-v0), whose ContinuousAction egos run the
-frame kernels' raw-control branch.
+frame kernels' raw-control branch; on every id the NPCs may be the
+Linear-family classes (``other_vehicles_type``), which the frame kernels'
+Linear rows' instantiation steps.
 """
 
 from __future__ import annotations

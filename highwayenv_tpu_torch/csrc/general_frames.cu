@@ -15,9 +15,19 @@
 // projection table of every slot on every lane, the steering / speed
 // controls (with GenParams::raw, a ContinuousAction, the TPU kernel's
 // raw_controls branch :1005-1007: no meta-action, and the ego keeps the
-// steering and acc the wrapper stored before the launch), on K5's tick frames the right-of-way pass of
-// road/regulation.py, bicycle integration, heading-aware re-localization
-// and the swept-SAT collision pass with obstacles and last-write impacts.
+// steering and acc the wrapper stored before the launch, on K4 and K5
+// alike), on K5's tick frames the right-of-way pass of road/regulation.py,
+// bicycle integration, heading-aware re-localization and the swept-SAT
+// collision pass with obstacles and last-write impacts.  A Linear row (kind
+// KIND_LINEAR, the TPU kernel's has_linear branch :505, :737, :786,
+// :979-987) decides with LinearVehicle's acceleration in every pair it
+// evaluates, its own law and parameters even where the pair's ego is a
+// neighbour, and steers by LinearVehicle's law; the law goes by the row's
+// kind.  Each entry launches one of two instantiations: with
+// GenParams::linear the one whose decision pass reads each row's kind,
+// without it the IDM code alone (the parent's registers, so an IDM-only
+// scene pays nothing for the branch), which traps where it meets a Linear
+// row (trap_on_linear, straight_common.cuh).
 // Each operation rounds as the op-by-op torch version does on the same card:
 // the library is built with -fmad=false and the precise libm functions, and
 // every expression keeps the torch version's order of operations.
@@ -129,11 +139,12 @@ struct GenParams {  // ops/general_frames.py::_GenParams
   float inv_two_sqrt_ab, politeness, lane_change_delay;
   float kp_a, kp_heading, kp_lateral, tau_pursuit, ts_lo, inv_ts_range;
   float target_speeds[GEN_MAX_SPEEDS];
+  int linear;  // 1: Linear rows possible (the Linear rows' instantiation)
 };
 
 // The (B, V[, ...]) tensors, in the order of ops/general_frames.py::
 // _IN_FIELDS, then the slot actions, then OUT_FIELDS.
-#define N_IN 28
+#define N_IN 30
 #define N_OUT 15
 struct GenFields {
   const float* pos;
@@ -164,6 +175,8 @@ struct GenFields {
   const int* route_base;
   const int* route_n;
   const int* route_id;
+  const float* accel_params;  // (B, V, 3), read on Linear rows only
+  const float* steer_params;  // (B, V, 2), read on Linear rows only
   const int* action;
   float* pos_out;
   float* heading_out;
@@ -400,12 +413,14 @@ __host__ __device__ static int block_words(int L, int V) {
 #define FS_VEHICLE 2
 #define FS_CONTROLLED 4
 
+template <bool kLinear>
 struct Ctx {
   const Lanes& g;
   const GenParams& p;
   const EnvSmem& e;
   int V, i;
   float delta;  // the deciding slot's IDM exponent
+  Law law;      // the deciding slot's acceleration law, read where kLinear
 
   // vehicle/behavior.py::neighbours of slot i on query lane q: front =
   // smallest s >= own s, the last slot among ties; rear = largest s < own s,
@@ -434,9 +449,10 @@ struct Ctx {
 
   // the free-road term of vehicle/behavior.py::Rows.accel for slot ego, with
   // the deciding slot's exponent and the ego's target speed clipped by its
-  // current lane's limit; 0 where accel returns 0 without it
+  // current lane's limit; 0 where accel returns 0 without it or does not
+  // read it (a Linear decider)
   __device__ float free_acc(int ego) const {
-    if (ego < 0 || !(e.flags[ego] & FS_VEHICLE)) return 0.f;
+    if (ego < 0 || !(e.flags[ego] & FS_VEHICLE) || (kLinear && law.linear)) return 0.f;
     const int el = g.clip(e.lane[ego]);
     const float limit = g.F(el, LF_LIMIT);
     const float ts_raw = e.ts[ego];
@@ -447,9 +463,18 @@ struct Ctx {
 
   // vehicle/behavior.py::Rows.accel: IDM acceleration of slot ego behind
   // slot front (-1 = none), given ego's free-road term, the gap measured on
-  // the ego's current lane; 0 where the ego is absent or no vehicle
+  // the ego's current lane, or the deciding slot's linear law; 0 where the
+  // ego is absent or no vehicle
   __device__ float accel(int ego, int front, float free) const {
     if (ego < 0 || !(e.flags[ego] & FS_VEHICLE)) return 0.f;
+    if (kLinear && law.linear) {
+      const int el = g.clip(e.lane[ego]);
+      const bool ex = front >= 0;
+      const Row er = {e.speed[ego], e.ts[ego], e.S[el * V + ego], 0.f, 0.f, 0.f, 0.f, true, true};
+      const Row fr = {ex ? e.speed[front] : 0.f, 0.f, ex ? e.S[el * V + front] : 0.f,
+                      0.f, 0.f, 0.f, 0.f, ex, ex};
+      return linear_accel(p.distance_wanted, law, er, fr);
+    }
     if (front < 0) return free;
     const int el = g.clip(e.lane[ego]);
     const float sp = e.speed[ego];
@@ -576,7 +601,108 @@ __device__ void project_table(const Lanes& g, const EnvSmem& e, const int* lorde
   if (reloc) atomicMin(&e.key[j], best);
 }
 
-template <bool kRegulated>
+// Phase B for the owner of slot i: the IDM / MOBIL decision pass and the
+// controls.  kLinear: each row's own kind picks its law (a Linear row's is
+// LinearVehicle's); without it every law is IDM's.
+template <bool kLinear>
+__device__ __forceinline__ void decide(GSlot& v, const Ctx<kLinear>& cx, const Lanes& g,
+                                       const GenParams& p, const EnvSmem& e, int i, int V,
+                                       int R, const int* rid) {
+  const bool idm = (v.kind == KIND_IDM || (kLinear && v.kind == KIND_LINEAR)) && !v.crashed;
+  const int lane = v.lane, tlane = v.tlane;
+  const int lc = g.clip(lane), tc = g.clip(tlane);
+  const bool mid_change = lane != tlane;
+  const float speed = v.speed;
+  int target = tlane;
+  float a_idm = 0.f;
+  if (idm) {
+    int cur_front, cur_rear;
+    cx.neighbours(lane, &cur_front, &cur_rear);
+    const float free_self = cx.free_acc(i);
+    const float a_self = cx.accel(i, cur_front, free_self);
+    const bool deciding = !mid_change && v.timer > p.lane_change_delay && v.elc;
+    if (deciding) {
+      v.timer = 0.f;
+      const float free_rear = cx.free_acc(cur_rear);
+      const float a_of = cx.accel(cur_rear, i, free_rear);
+      const float a_of_pred = cx.accel(cur_rear, cur_front, free_rear);
+      const int head_id = rid[clampi(v.route_ptr, 0, R - 1)];
+      const bool has_rid = v.route_ptr < v.route_len && head_id >= 0;
+      const int tgt_id = g.I(tc, LI_LANE_ID);
+      const bool moving = fabsf(speed) >= 1.0f;
+      for (int d = -1; d <= 1; d += 2) {
+        const int cand_id = g.I(lc, LI_LANE_ID) + d;
+        const bool exists = cand_id >= 0 && cand_id < g.I(lc, LI_EDGE_N);
+        const int cand = g.clip(g.I(lc, LI_EDGE_BASE) + cand_id);
+        const float s_c = e.S[cand * V + i], lat_c = e.LAT[cand * V + i];
+        const bool reachable = fabsf(lat_c) <= 2.f * g.F(cand, LF_WIDTH) && 0.f <= s_c &&
+                               s_c < g.F(cand, LF_LEN) + VEHICLE_LENGTH &&
+                               !g.I(cand, LI_FORBIDDEN);
+        if (!(exists && reachable && moving)) continue;
+        int new_front, new_rear;
+        cx.neighbours(cand, &new_front, &new_rear);
+        const float free_nr = cx.free_acc(new_rear);
+        const float a_nf_pred = cx.accel(new_rear, i, free_nr);
+        const bool safe = a_nf_pred >= -v.max_braking;
+        const float a_self_pred = cx.accel(i, new_front, free_self);
+        const int dc = g.I(cand, LI_LANE_ID) - tgt_id, dh = head_id - tgt_id;
+        const bool route_ok = ((dc > 0) - (dc < 0)) == ((dh > 0) - (dh < 0)) &&
+                              a_self_pred >= -v.max_braking;
+        const float a_nf = cx.accel(new_rear, new_front, free_nr);
+        const float jerk = (a_self_pred - a_self) +
+                           p.politeness * (((a_nf_pred - a_nf) + a_of_pred) - a_of);
+        if (safe && (has_rid ? route_ok : jerk >= v.gain)) target = cand;
+      }
+    }
+    // abort a lane change into a gap another controlled vehicle is
+    // closing, on the same road only
+    if (mid_change && g.I(lc, LI_EDGE_BASE) == g.I(tc, LI_EDGE_BASE)) {
+      const float s_self = e.S[lc * V + i];
+      const float ch = e.cos[i], sh = e.sin[i], vxi = e.vx[i], vyi = e.vy[i];
+      bool conflict = false;
+      for (int j = 0; j < V && !conflict; ++j) {
+        if (j == i || !(e.flags[j] & FS_CONTROLLED)) continue;
+        if (e.lane[j] == tlane || e.tlane[j] != tlane) continue;
+        const float d_ij = e.S[lc * V + j] - s_self;
+        const float dv = (vxi - e.vx[j]) * ch + (vyi - e.vy[j]) * sh;
+        const float d_star =
+            (p.distance_wanted + speed * p.time_wanted) + (speed * dv) * p.inv_two_sqrt_ab;
+        conflict = 0.f < d_ij && d_ij < d_star;
+      }
+      if (conflict) target = lane;
+    }
+    // the dual-lane IDM minimum while changing lanes
+    a_idm = a_self;
+    if (lane != target) {
+      int t_front, t_rear;
+      cx.neighbours(target, &t_front, &t_rear);
+      a_idm = fminf(a_self, cx.accel(i, t_front, free_self));
+    }
+    a_idm = clampf(a_idm, -p.acc_max, p.acc_max);
+  }
+  v.tlane = target;
+  // a raw-control ego keeps its stored steering and acc
+  const bool is_ego = v.kind == KIND_EGO && !p.raw;
+  if (is_ego || idm) {
+    // steering toward the target lane's heading a pursuit distance ahead
+    const int tg = g.clip(target);
+    const float s = e.S[tg * V + i], lat = e.LAT[tg * V + i];
+    const float future = lane_heading(g, tg, s + speed * p.tau_pursuit);
+    if (kLinear && cx.law.linear) {
+      v.steer = linear_steer(future, lat, v.heading, speed, v.len, cx.law.sp0, cx.law.sp1);
+    } else {
+      const float heading_cmd =
+          asinf(clampf((-p.kp_lateral * lat) / not_zero(speed), -1.f, 1.f));
+      const float heading_ref = future + clampf(heading_cmd, -QUARTER_PI_F, QUARTER_PI_F);
+      const float rate = p.kp_heading * wrap_to_pi(heading_ref - v.heading);
+      const float slip = asinf(clampf(v.len / 2.f / not_zero(speed) * rate, -1.f, 1.f));
+      v.steer = clampf(atan2f(2.f * sinf(slip), cosf(slip)), -MAX_STEER_F, MAX_STEER_F);
+    }
+    v.acc = is_ego ? p.kp_a * (v.ts - speed) : a_idm;
+  }
+}
+
+template <bool kRegulated, bool kLinear>
 __global__ void __launch_bounds__(GEN_BLOCK)
     general_frames_kernel(const __grid_constant__ GenFields f,
                           const __grid_constant__ RegFields rf, const float* lane_f,
@@ -680,7 +806,16 @@ __global__ void __launch_bounds__(GEN_BLOCK)
   project_table(g, e, lorder, L, V, t, G, env_live, false);
   GROUP_SYNC();
 
-  const Ctx cx = {g, p, e, V, i, v.delta};
+  // the deciding slot's law: its kind and, on a Linear row, its parameters
+  Law law = {kLinear && v.kind == KIND_LINEAR, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (law.linear) {
+    law.th0 = f.accel_params[3 * o];
+    law.th1 = f.accel_params[3 * o + 1];
+    law.th2 = f.accel_params[3 * o + 2];
+    law.sp0 = f.steer_params[2 * o];
+    law.sp1 = f.steer_params[2 * o + 1];
+  }
+  const Ctx<kLinear> cx = {g, p, e, V, i, v.delta, law};
   const int* rb = e.rbase + i * R;
   const int* rn = e.rn + i * R;
   const int* rid = e.rid + i * R;
@@ -771,96 +906,7 @@ __global__ void __launch_bounds__(GEN_BLOCK)
     GROUP_SYNC();
 
     // --- B: the IDM / MOBIL decision pass and the controls ----------------
-    if (live) {
-      const bool idm = v.kind == KIND_IDM && !v.crashed;
-      const int lane = v.lane, tlane = v.tlane;
-      const int lc = g.clip(lane), tc = g.clip(tlane);
-      const bool mid_change = lane != tlane;
-      const float speed = v.speed;
-      int target = tlane;
-      float a_idm = 0.f;
-      if (idm) {
-        int cur_front, cur_rear;
-        cx.neighbours(lane, &cur_front, &cur_rear);
-        const float free_self = cx.free_acc(i);
-        const float a_self = cx.accel(i, cur_front, free_self);
-        const bool deciding = !mid_change && v.timer > p.lane_change_delay && v.elc;
-        if (deciding) {
-          v.timer = 0.f;
-          const float free_rear = cx.free_acc(cur_rear);
-          const float a_of = cx.accel(cur_rear, i, free_rear);
-          const float a_of_pred = cx.accel(cur_rear, cur_front, free_rear);
-          const int head_id = rid[clampi(v.route_ptr, 0, R - 1)];
-          const bool has_rid = v.route_ptr < v.route_len && head_id >= 0;
-          const int tgt_id = g.I(tc, LI_LANE_ID);
-          const bool moving = fabsf(speed) >= 1.0f;
-          for (int d = -1; d <= 1; d += 2) {
-            const int cand_id = g.I(lc, LI_LANE_ID) + d;
-            const bool exists = cand_id >= 0 && cand_id < g.I(lc, LI_EDGE_N);
-            const int cand = g.clip(g.I(lc, LI_EDGE_BASE) + cand_id);
-            const float s_c = e.S[cand * V + i], lat_c = e.LAT[cand * V + i];
-            const bool reachable = fabsf(lat_c) <= 2.f * g.F(cand, LF_WIDTH) && 0.f <= s_c &&
-                                   s_c < g.F(cand, LF_LEN) + VEHICLE_LENGTH &&
-                                   !g.I(cand, LI_FORBIDDEN);
-            if (!(exists && reachable && moving)) continue;
-            int new_front, new_rear;
-            cx.neighbours(cand, &new_front, &new_rear);
-            const float free_nr = cx.free_acc(new_rear);
-            const float a_nf_pred = cx.accel(new_rear, i, free_nr);
-            const bool safe = a_nf_pred >= -v.max_braking;
-            const float a_self_pred = cx.accel(i, new_front, free_self);
-            const int dc = g.I(cand, LI_LANE_ID) - tgt_id, dh = head_id - tgt_id;
-            const bool route_ok = ((dc > 0) - (dc < 0)) == ((dh > 0) - (dh < 0)) &&
-                                  a_self_pred >= -v.max_braking;
-            const float a_nf = cx.accel(new_rear, new_front, free_nr);
-            const float jerk = (a_self_pred - a_self) +
-                               p.politeness * (((a_nf_pred - a_nf) + a_of_pred) - a_of);
-            if (safe && (has_rid ? route_ok : jerk >= v.gain)) target = cand;
-          }
-        }
-        // abort a lane change into a gap another controlled vehicle is
-        // closing, on the same road only
-        if (mid_change && g.I(lc, LI_EDGE_BASE) == g.I(tc, LI_EDGE_BASE)) {
-          const float s_self = e.S[lc * V + i];
-          const float ch = e.cos[i], sh = e.sin[i], vxi = e.vx[i], vyi = e.vy[i];
-          bool conflict = false;
-          for (int j = 0; j < V && !conflict; ++j) {
-            if (j == i || !(e.flags[j] & FS_CONTROLLED)) continue;
-            if (e.lane[j] == tlane || e.tlane[j] != tlane) continue;
-            const float d_ij = e.S[lc * V + j] - s_self;
-            const float dv = (vxi - e.vx[j]) * ch + (vyi - e.vy[j]) * sh;
-            const float d_star =
-                (p.distance_wanted + speed * p.time_wanted) + (speed * dv) * p.inv_two_sqrt_ab;
-            conflict = 0.f < d_ij && d_ij < d_star;
-          }
-          if (conflict) target = lane;
-        }
-        // the dual-lane IDM minimum while changing lanes
-        a_idm = a_self;
-        if (lane != target) {
-          int t_front, t_rear;
-          cx.neighbours(target, &t_front, &t_rear);
-          a_idm = fminf(a_self, cx.accel(i, t_front, free_self));
-        }
-        a_idm = clampf(a_idm, -p.acc_max, p.acc_max);
-      }
-      v.tlane = target;
-      // a raw-control ego keeps its stored steering and acc
-      const bool is_ego = v.kind == KIND_EGO && !p.raw;
-      if (is_ego || idm) {
-        // steering toward the target lane's heading a pursuit distance ahead
-        const int tg = g.clip(target);
-        const float s = e.S[tg * V + i], lat = e.LAT[tg * V + i];
-        const float future = lane_heading(g, tg, s + speed * p.tau_pursuit);
-        const float heading_cmd =
-            asinf(clampf((-p.kp_lateral * lat) / not_zero(speed), -1.f, 1.f));
-        const float heading_ref = future + clampf(heading_cmd, -QUARTER_PI_F, QUARTER_PI_F);
-        const float rate = p.kp_heading * wrap_to_pi(heading_ref - v.heading);
-        const float slip = asinf(clampf(v.len / 2.f / not_zero(speed) * rate, -1.f, 1.f));
-        v.steer = clampf(atan2f(2.f * sinf(slip), cosf(slip)), -MAX_STEER_F, MAX_STEER_F);
-        v.acc = is_ego ? p.kp_a * (v.ts - speed) : a_idm;
-      }
-    }
+    if (live) decide<kLinear>(v, cx, g, p, e, i, V, R, rid);
     GROUP_SYNC();  // the frame-start table and eligibility masks are read
 
     // --- B': the right-of-way pass on the env's tick frames ----------------
@@ -1077,6 +1123,7 @@ __global__ void __launch_bounds__(GEN_BLOCK)
     // after two more barriers
   }
 
+  if (!kLinear) trap_on_linear(live && v.kind == KIND_LINEAR);
   if (live) {
     f.pos_out[2 * o] = v.px;
     f.pos_out[2 * o + 1] = v.py;
@@ -1125,17 +1172,18 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
       sizeof(float) *
       (static_cast<size_t>(block_words(p.L, p.V)) +
        static_cast<size_t>(envs_per_block) * EnvSmem::words(p.L, p.V, p.R, kRegulated));
+  // the Linear rows' instantiation where the caller says they are possible
+  auto kernel = p.linear ? general_frames_kernel<kRegulated, true>
+                         : general_frames_kernel<kRegulated, false>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(general_frames_kernel<kRegulated>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (B > 0) {
     const int blocks = (B + envs_per_block - 1) / envs_per_block;
-    general_frames_kernel<kRegulated>
-        <<<blocks, GEN_BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(f, rf, lane_f, lane_i,
-                                                                         p, B, G);
+    kernel<<<blocks, GEN_BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(f, rf, lane_f,
+                                                                          lane_i, p, B, G);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,9 +10,19 @@
 //
 // Semantics are those of ops/straight_frames.py (frames_plain and its
 // phases), in the specialization the straight highway envs spawn: vehicles
-// only (no obstacles or landmarks) and IDM NPCs (no Linear-family presets).
-// Under Params::raw (a ContinuousAction) the ego keeps its stored steering
-// and acc, the TPU kernels' raw_controls branch.  Rounding: the kernels are built with -fmad=false and the precise libm
+// only (no obstacles or landmarks), IDM and Linear NPCs.  A Linear row
+// (kind KIND_LINEAR, the TPU kernels' has_linear branch,
+// straight_pallas_bm.py:569-573, :697-707, :857-862) decides with
+// LinearVehicle's acceleration in every pair it evaluates, its own law and
+// parameters even where the pair's ego is a neighbour, and steers by
+// LinearVehicle's law; the law goes by the row's kind, as the JAX package's
+// XLA frame decides it.  Each kernel is two instantiations: with
+// Params::linear the one whose drive() reads each row's kind (LinearSlot),
+// without it the IDM code alone (Slot: the parent's code, so an IDM-only
+// scene pays nothing for the branch), which traps where it meets a Linear
+// row (trap_on_linear).  Under Params::raw (a ContinuousAction) the ego
+// keeps its stored steering and acc, the TPU kernels' raw_controls branch.
+// Rounding: the kernels are built with -fmad=false and the precise libm
 // functions, so every operation rounds as the op-by-op torch version does on
 // the same card.
 //
@@ -87,7 +97,8 @@ struct Params {  // ops/straight_frames.py::_Params
   float acc_max, comfort_acc_max, distance_wanted, time_wanted;
   float inv_two_sqrt_ab, politeness, lane_change_delay;
   float kp_a, kp_heading, kp_lateral;
-  int raw;  // 1: egos keep their stored steering and acc (ContinuousAction)
+  int raw;     // 1: egos keep their stored steering and acc (ContinuousAction)
+  int linear;  // 1: Linear rows possible (the Linear rows' instantiation)
 };
 
 // The (B, V) fields a frame kernel reads and the ones it writes, in the
@@ -114,6 +125,8 @@ struct Fields {
   const uint8_t* enable_lane_change;
   const float* mobil_gain;
   const float* mobil_max_braking;
+  const float* accel_params;  // (B, V, 3), read on Linear rows only
+  const float* steer_params;  // (B, V, 2), read on Linear rows only
   float* pos_out;
   float* heading_out;
   float* speed_out;
@@ -152,11 +165,46 @@ struct Row {
   bool ex, vehicle;
 };
 
+// The deciding row's laws: IDM's and the P-cascade, or LinearVehicle's
+// with its acceleration parameters theta (vehicle/behavior.py::
+// linear_acceleration) and steering parameters sp
+// (vehicle/controller.py::linear_steering).
+struct Law {
+  bool linear;
+  float th0, th1, th2, sp0, sp1;
+};
+
+// LinearVehicle's time headway of its safe distance
+#define LINEAR_TIME_WANTED 2.5f
+
+// vehicle/behavior.py::linear_acceleration of ego row e behind row f: the
+// unclipped target speed, the front row's scalar speed, dv and dp 0 where
+// no front row exists; distance_wanted is IDM's jam distance d0
+__device__ __forceinline__ float linear_accel(float distance_wanted, const Law& law,
+                                              const Row& e, const Row& f) {
+  const float vt = e.target_speed - e.speed;
+  const float d_safe = distance_wanted + fmaxf(e.speed, 0.f) * LINEAR_TIME_WANTED;
+  const float dv = fminf(f.speed - e.speed, 0.f);
+  const float dp = fminf((f.s - e.s) - d_safe, 0.f);
+  return (law.th0 * vt + law.th1 * (f.ex ? dv : 0.f)) + law.th2 * (f.ex ? dp : 0.f);
+}
+
+// LinearVehicle's steering (vehicle/controller.py::linear_steering) toward a
+// lane of heading lane_heading, lat off it, with the parameters sp
+__device__ __forceinline__ float linear_steer(float lane_heading, float lat, float heading,
+                                              float speed, float len, float sp0, float sp1) {
+  const float nz = not_zero(speed);
+  const float feat_h = wrap_to_pi(lane_heading - heading) * len / nz;
+  const float feat_lat = -lat * len / (nz * nz);
+  return clampf(sp0 * feat_h + sp1 * feat_lat, -MAX_STEER_F, MAX_STEER_F);
+}
+
 // The free-road term of vehicle/behavior.py::idm_acceleration for ego row
 // e, 0 where accel_pair returns 0 without it (a missing row or no vehicle)
-__device__ __forceinline__ float free_term(const Params& p, const Geo& g, float delta,
-                                          const Row& e) {
-  if (!(e.ex && e.vehicle)) return 0.f;
+// or does not read it (a Linear decider)
+__device__ __forceinline__ float free_term(const Params& p, const Geo& g, const Law& law,
+                                          float delta, const Row& e) {
+  if (!(e.ex && e.vehicle) || law.linear) return 0.f;
   float ts = g.has_limit ? clampf(e.target_speed, 0.f, g.speed_limit)
                          : e.target_speed;
   return p.comfort_acc_max *
@@ -164,10 +212,12 @@ __device__ __forceinline__ float free_term(const Params& p, const Geo& g, float 
 }
 
 // idm_acceleration masked as the plain frame's accel(), given e's free-road
-// term: a row's term is computed once, however many fronts it meets
-__device__ __forceinline__ float accel_pair(const Params& p, float free_acc,
+// term: a row's term is computed once, however many fronts it meets; the
+// decider's linear law where it is Linear
+__device__ __forceinline__ float accel_pair(const Params& p, const Law& law, float free_acc,
                                             const Row& e, const Row& f) {
   if (!(e.ex && e.vehicle)) return 0.f;
+  if (law.linear) return linear_accel(p.distance_wanted, law, e, f);
   float d = f.s - e.s;
   float dv = (e.speed * e.c - f.vx) * e.c + (e.speed * e.sn - f.vy) * e.sn;
   float d_star = (p.distance_wanted + e.speed * p.time_wanted) +
@@ -315,6 +365,40 @@ struct Slot {
   __device__ bool is_vehicle() const { return kind >= KIND_EGO && kind <= KIND_PLAIN; }
   __device__ bool is_controlled() const { return kind >= KIND_EGO && kind <= KIND_LINEAR; }
 };
+
+// A slot of the kernels' Linear rows' instantiation: the slot and, on a
+// Linear row, its five parameters, loaded once a launch.
+struct LinearSlot : Slot {
+  float th0 = 0.f, th1 = 0.f, th2 = 0.f, sp0 = 0.f, sp1 = 0.f;
+
+  __device__ void load(const Fields& f, size_t o) {
+    Slot::load(f, o);
+    if (kind == KIND_LINEAR) {
+      th0 = f.accel_params[3 * o];
+      th1 = f.accel_params[3 * o + 1];
+      th2 = f.accel_params[3 * o + 2];
+      sp0 = f.steer_params[2 * o];
+      sp1 = f.steer_params[2 * o + 1];
+    }
+  }
+};
+
+// The slot type of a frame kernel's instantiation
+template <bool kLinear>
+struct SlotOf {
+  using type = Slot;
+};
+template <>
+struct SlotOf<true> {
+  using type = LinearSlot;
+};
+
+// A slot's laws: IDM's for a Slot (every branch of drive() on the linear
+// law folds away), its kind's for a LinearSlot
+__device__ __forceinline__ Law law_of(const Slot&) { return {false, 0.f, 0.f, 0.f, 0.f, 0.f}; }
+__device__ __forceinline__ Law law_of(const LinearSlot& v) {
+  return {v.kind == KIND_LINEAR, v.th0, v.th1, v.th2, v.sp0, v.sp1};
+}
 
 // A slot's frame-start row in shared memory, two float4s: the neighbour
 // walks read s, the row fetch and the abort scan the rest.
@@ -494,8 +578,13 @@ __device__ __forceinline__ void stage_post(const Rows& r, int i, bool live, Slot
   ballot_word(r.chk(), live && v.chk);
 }
 
+// the rows the NPC decision pass drives: uncrashed IDM NPCs, and in the
+// Linear rows' instantiation (a LinearSlot) uncrashed Linear NPCs too
 __device__ __forceinline__ bool is_idm(const Slot& v) {
   return v.kind == KIND_IDM && !v.crashed;
+}
+__device__ __forceinline__ bool is_idm(const LinearSlot& v) {
+  return (v.kind == KIND_IDM || v.kind == KIND_LINEAR) && !v.crashed;
 }
 
 // Everything a frame does to slot i between the neighbour search and the
@@ -504,39 +593,42 @@ __device__ __forceinline__ bool is_idm(const Slot& v) {
 // dual-lane IDM, bicycle integration and re-localization on the nearest
 // lane offset.  front / rear are the neighbours' slots (-1 none) on the own
 // lane and lanes -1 / +1; each row is fetched where it is read, which keeps
-// the six rows out of the registers.
-__device__ void drive(Slot& v, const Start& st, const int front[3],
-                      const int rear[3], const Rows& r, int i, int V,
-                      const Geo& g, const Params& p) {
+// the six rows out of the registers.  S: a LinearSlot, whose kind picks its
+// laws (a Linear row's are LinearVehicle's), or a Slot, whose laws are
+// IDM's and the P-cascade.
+template <class S>
+__device__ void drive(S& v, const Start& st, const int front[3], const int rear[3],
+                      const Rows& r, int i, int V, const Geo& g, const Params& p) {
   const int L = g.n_lanes;
   const int lane = v.lane, tlane = v.tlane;
   const float s = st.s, lat0 = st.lat0, speed = v.speed;
   const bool idm = is_idm(v);
+  const Law law = law_of(v);
   const Row self = {speed, v.ts, s, st.vx, st.vy, st.ch, st.sh, true, v.is_vehicle()};
-  const float free_self = free_term(p, g, v.delta, self);
+  const float free_self = free_term(p, g, law, v.delta, self);
 
   // --- MOBIL lane change ----------------------------------------------------
   const Row front0 = r.fetch(front[0]);
-  const float a_self = accel_pair(p, free_self, self, front0);
+  const float a_self = accel_pair(p, law, free_self, self, front0);
   const bool mid_change = lane != tlane;
   const bool deciding = idm && !mid_change && v.timer > p.lane_change_delay && v.elc;
   float new_timer = deciding ? 0.f : v.timer;
   int target = tlane;
   if (deciding) {
     const Row rear0 = r.fetch(rear[0]);
-    const float free_rear = free_term(p, g, v.delta, rear0);
-    const float a_of = accel_pair(p, free_rear, rear0, self);
-    const float a_of_pred = accel_pair(p, free_rear, rear0, front0);
+    const float free_rear = free_term(p, g, law, v.delta, rear0);
+    const float a_of = accel_pair(p, law, free_rear, rear0, self);
+    const float a_of_pred = accel_pair(p, law, free_rear, rear0, front0);
     const bool moving = fabsf(speed) >= 1.0f;
 #pragma unroll
     for (int k = 1; k < 3; ++k) {
       const int d = k == 1 ? -1 : 1;
       const bool exists = lane + d >= 0 && lane + d < L;
       const Row rear_k = r.fetch(rear[k]), front_k = r.fetch(front[k]);
-      const float free_nf = free_term(p, g, v.delta, rear_k);
-      const float a_nf = accel_pair(p, free_nf, rear_k, front_k);
-      const float a_nf_pred = accel_pair(p, free_nf, rear_k, self);
-      const float a_self_pred = accel_pair(p, free_self, self, front_k);
+      const float free_nf = free_term(p, g, law, v.delta, rear_k);
+      const float a_nf = accel_pair(p, law, free_nf, rear_k, front_k);
+      const float a_nf_pred = accel_pair(p, law, free_nf, rear_k, self);
+      const float a_self_pred = accel_pair(p, law, free_self, self, front_k);
       const bool safe = a_nf_pred >= -v.max_braking;
       const float jerk = (a_self_pred - a_self) +
                          p.politeness * (((a_nf_pred - a_nf) + a_of_pred) - a_of);
@@ -573,18 +665,22 @@ __device__ void drive(Slot& v, const Start& st, const int front[3],
 
   // --- low-level controls ---------------------------------------------------
   const float lat_t = lat0 - g.offsets[clampi(target, 0, L - 1)];
-  const float heading_cmd =
-      asinf(clampf((-p.kp_lateral * lat_t) / not_zero(speed), -1.f, 1.f));
-  const float heading_ref = g.theta + clampf(heading_cmd, -QUARTER_PI_F, QUARTER_PI_F);
-  const float rate = p.kp_heading * wrap_to_pi(heading_ref - v.heading);
-  const float slip = asinf(clampf(v.len / 2.f / not_zero(speed) * rate, -1.f, 1.f));
-  const float steer_pc =
-      clampf(atan2f(2.f * sinf(slip), cosf(slip)), -MAX_STEER_F, MAX_STEER_F);
+  float steer_pc;
+  if (law.linear) {
+    steer_pc = linear_steer(g.theta, lat_t, v.heading, speed, v.len, law.sp0, law.sp1);
+  } else {
+    const float heading_cmd =
+        asinf(clampf((-p.kp_lateral * lat_t) / not_zero(speed), -1.f, 1.f));
+    const float heading_ref = g.theta + clampf(heading_cmd, -QUARTER_PI_F, QUARTER_PI_F);
+    const float rate = p.kp_heading * wrap_to_pi(heading_ref - v.heading);
+    const float slip = asinf(clampf(v.len / 2.f / not_zero(speed) * rate, -1.f, 1.f));
+    steer_pc = clampf(atan2f(2.f * sinf(slip), cosf(slip)), -MAX_STEER_F, MAX_STEER_F);
+  }
   // dual-lane IDM while changing lanes
   const int d_t = target - lane;
   const Row f_t = d_t == 0 ? front0 : r.fetch(d_t < 0 ? front[1] : front[2]);
   const float a_idm = clampf(
-      target != lane ? fminf(a_self, accel_pair(p, free_self, self, f_t)) : a_self,
+      target != lane ? fminf(a_self, accel_pair(p, law, free_self, self, f_t)) : a_self,
       -p.acc_max, p.acc_max);
   // the ego's P-cascade, unless it keeps its raw controls (the TPU
   // kernel's raw_controls branch, straight_pallas_bm.py:902-904)
@@ -627,6 +723,17 @@ __device__ void drive(Slot& v, const Start& st, const int front[3],
     v.lane = best;
   }
   v.timer = new_timer;
+}
+
+// The IDM instantiation of a frame kernel meets no Linear row: where its
+// block holds one (linear_row in some thread), the caller launched it with
+// Params::linear (GenParams::linear) off on a state that has Linear rows,
+// and the launch traps (cudaErrorLaunchFailure) before it stores the
+// block's rows, so no row comes out stepped as IDM.  Every thread of the
+// block calls it, after the frame loop: there the check leaves the loop's
+// registers and spills as they are without it.
+__device__ __forceinline__ void trap_on_linear(bool linear_row) {
+  if (__syncthreads_or(linear_row)) __trap();
 }
 
 // The pair's collision gate of the general frame kernel (road collision

@@ -37,6 +37,7 @@
 
 #include "straight_common.cuh"
 
+template <bool kLinear>
 __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
     straight_frames_kernel(const __grid_constant__ Fields f, const uint8_t* mask,
                            const __grid_constant__ Geo g, const __grid_constant__ Params p,
@@ -52,7 +53,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
   const int i = threadIdx.x;
   const bool live = i < V;
   const size_t o = static_cast<size_t>(blockIdx.x) * V + i;
-  Slot v;
+  typename SlotOf<kLinear>::type v;
   if (live) v.load(f, o);
   v.derive();
   r.post[i].len = v.len;
@@ -151,6 +152,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
     }
   }
 
+  if (!kLinear) trap_on_linear(live && v.kind == KIND_LINEAR);
   if (live) v.store(f, o);
 }
 
@@ -162,7 +164,8 @@ extern "C" int straight_frames(
     const int* kind, const float* length, const float* width,
     const uint8_t* check_collisions, const uint8_t* collidable,
     const uint8_t* enable_lane_change, const float* mobil_gain,
-    const float* mobil_max_braking, float* pos_out, float* heading_out,
+    const float* mobil_max_braking, const float* accel_params,
+    const float* steer_params, float* pos_out, float* heading_out,
     float* speed_out, int* lane_out, int* target_lane_out, float* timer_out,
     uint8_t* crashed_out, uint8_t* impact_pending_out, float* impact_out,
     float* steering_out, float* accel_out, const uint8_t* mask,
@@ -173,10 +176,13 @@ extern "C" int straight_frames(
               impact_pending, impact,         steering,        accel,
               delta,        kind,             length,          width,
               check_collisions, collidable,   enable_lane_change, mobil_gain,
-              mobil_max_braking, pos_out,     heading_out,     speed_out,
+              mobil_max_braking, accel_params, steer_params,
+              pos_out,      heading_out,      speed_out,
               lane_out,     target_lane_out,  timer_out,       crashed_out,
               impact_pending_out, impact_out, steering_out,    accel_out};
+  // the Linear rows' instantiation where the caller says they are possible;
   // per thread: the rows and a word of pre-check bits per warp
-  return launch_per_env(straight_frames_kernel, B, V, ROW_WORDS + (V + 31) / 32,
+  auto kernel = params->linear ? straight_frames_kernel<true> : straight_frames_kernel<false>;
+  return launch_per_env(kernel, B, V, ROW_WORDS + (V + 31) / 32,
                         WARP_WORDS(geo->n_lanes), stream, f, mask, *geo, *params, V, frames);
 }

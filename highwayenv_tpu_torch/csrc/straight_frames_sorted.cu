@@ -68,6 +68,7 @@ __device__ __forceinline__ unsigned float_order(float s) {
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
+template <bool kLinear>
 __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
     straight_frames_sorted_kernel(const __grid_constant__ Fields f, const int* idx,
                                   uint8_t* flags, const __grid_constant__ Geo g,
@@ -91,7 +92,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
   const int lane_i = i & 31;
   const bool live = i < V;
   const size_t o = static_cast<size_t>(blockIdx.x) * V + i;
-  Slot v;
+  typename SlotOf<kLinear>::type v;
   if (live) v.load(f, o);
   v.derive();
   r.post[i].len = v.len;
@@ -288,6 +289,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
 
   const int any_coll = __syncthreads_or(viol_coll);
   const int any_neigh = __syncthreads_or(viol_neigh);
+  if (!kLinear) trap_on_linear(live && v.kind == KIND_LINEAR);
   if (live) v.store(f, o);
   if (i == 0) {
     flags[2 * blockIdx.x] = any_coll ? 1 : 0;
@@ -303,7 +305,8 @@ extern "C" int straight_frames_sorted(
     const int* kind, const float* length, const float* width,
     const uint8_t* check_collisions, const uint8_t* collidable,
     const uint8_t* enable_lane_change, const float* mobil_gain,
-    const float* mobil_max_braking, float* pos_out, float* heading_out,
+    const float* mobil_max_braking, const float* accel_params,
+    const float* steer_params, float* pos_out, float* heading_out,
     float* speed_out, int* lane_out, int* target_lane_out, float* timer_out,
     uint8_t* crashed_out, uint8_t* impact_pending_out, float* impact_out,
     float* steering_out, float* accel_out, const int* idx, uint8_t* flags,
@@ -314,7 +317,8 @@ extern "C" int straight_frames_sorted(
               impact_pending, impact,         steering,        accel,
               delta,        kind,             length,          width,
               check_collisions, collidable,   enable_lane_change, mobil_gain,
-              mobil_max_braking, pos_out,     heading_out,     speed_out,
+              mobil_max_braking, accel_params, steer_params,
+              pos_out,      heading_out,      speed_out,
               lane_out,     target_lane_out,  timer_out,       crashed_out,
               impact_pending_out, impact_out, steering_out,    accel_out};
   // per thread: the rows, the collision band's s, the far-band winners
@@ -322,6 +326,9 @@ extern "C" int straight_frames_sorted(
   // ballot words and the max diag / speed
   const int words = ROW_WORDS + 2 + geo->n_lanes + 1;
   const int warp_words = WARP_WORDS(geo->n_lanes) + 2;
-  return launch_per_env(straight_frames_sorted_kernel, B, V, words, warp_words, stream, f,
+  // the Linear rows' instantiation where the caller says they are possible
+  auto kernel =
+      params->linear ? straight_frames_sorted_kernel<true> : straight_frames_sorted_kernel<false>;
+  return launch_per_env(kernel, B, V, words, warp_words, stream, f,
                         idx, flags, *geo, *params, V, frames, W, Wn);
 }

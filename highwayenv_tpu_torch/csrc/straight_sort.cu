@@ -13,7 +13,7 @@
 //   K2b: the row at rank r moves back to slot idx[r].
 //
 // Both are pure permutations and bit-exact.  What bounds them on an H100:
-// bytes.  K2a moves ~77 bytes a slot each way (B = 4096, V = 51: ~32 MB),
+// bytes.  K2a moves ~97 bytes a slot each way (B = 4096, V = 51: ~41 MB),
 // against B V^2 ~ 1e7 comparisons for the ranks; K2b moves the 11 mutated
 // fields.  What the design does about it: one pass over each field, the
 // env's s staged once in shared memory for the rank count, and the field
@@ -24,7 +24,7 @@
 
 #define MAX_FIELDS 32
 
-// The fields one launch permutes: (B, V) rows of 1, 4 or 8 bytes a slot.
+// The fields one launch permutes: (B, V) rows of 1, 4, 8 or 12 bytes a slot.
 struct Perm {
   const void* in[MAX_FIELDS];
   void* out[MAX_FIELDS];
@@ -41,6 +41,14 @@ __device__ __forceinline__ void move_row(const Perm& p, size_t from, size_t to) 
       case 4:
         static_cast<uint32_t*>(p.out[k])[to] = static_cast<const uint32_t*>(p.in[k])[from];
         break;
+      case 12: {  // a float triple
+        const uint32_t* in = static_cast<const uint32_t*>(p.in[k]) + 3 * from;
+        uint32_t* out = static_cast<uint32_t*>(p.out[k]) + 3 * to;
+        out[0] = in[0];
+        out[1] = in[1];
+        out[2] = in[2];
+        break;
+      }
       default:  // 8: a float pair
         static_cast<uint2*>(p.out[k])[to] = static_cast<const uint2*>(p.in[k])[from];
         break;

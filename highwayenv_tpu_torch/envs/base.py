@@ -28,6 +28,12 @@ runs them, as the JAX package does:
 ``_simulate`` runs them through the plain torch loops on any device:
 ``simulate_frames_reference`` or ``simulate_general_reference``.
 
+Under a Linear-family ``other_vehicles_type`` (``NPC_PRESETS``) every
+placed scene's IDM NPCs become Linear NPCs of the preset
+(``_apply_npc_type`` in ``_place_state``, so the full and the compact
+autoreset alike), and ``linear_rows`` sends the frames to the kernels'
+Linear rows' instantiation.
+
 The batched API of the JAX package's ``BaseEnv``: ``reset_batch``,
 ``step_batched`` (no autoreset) and ``step_autoreset_batched``, whose
 ``reset_slots=P`` replaces the done rows with the same scenes as the full
@@ -53,7 +59,37 @@ from highwayenv_tpu_torch.ops.straight_sorted import simulate_bm_sorted
 from highwayenv_tpu_torch.road import lane as lane_ops
 from highwayenv_tpu_torch.road import regulation
 from highwayenv_tpu_torch.vehicle.behavior import IDMParams
-from highwayenv_tpu_torch.vehicle.state import KIND_EGO, VehicleState
+from highwayenv_tpu_torch.vehicle.state import (
+    KIND_EGO,
+    KIND_IDM,
+    KIND_LINEAR,
+    VehicleState,
+)
+
+#: NPC class presets of ``other_vehicles_type``: the LinearVehicle
+#: acceleration parameters and the MOBIL gain of each class (reference
+#: vehicle/behavior.py ``LinearVehicle``, ``AggressiveVehicle``,
+#: ``DefensiveVehicle``; the JAX package's ``BaseEnv._NPC_PRESETS``)
+NPC_PRESETS = {
+    "LinearVehicle": ((0.3, 0.3, 2.0), 0.2),
+    "AggressiveVehicle": ((0.8 / (0.25 * 30), 0.8 / (0.75 * 30), 0.5), 1.0),
+    "DefensiveVehicle": ((1.2 / (0.25 * 30), 1.2 / (0.75 * 30), 2.0), 1.0),
+}
+
+
+def with_preset(veh: VehicleState, mask: torch.Tensor, name: str) -> VehicleState:
+    """``veh`` with the rows of the (B, V) ``mask`` made Linear NPCs of the
+    preset ``name``: kind, acceleration parameters and MOBIL gain; the
+    steering parameters keep their values."""
+    accel_params, gain = NPC_PRESETS[name]
+    params = veh.accel_params.clone()
+    for k, x in enumerate(accel_params):
+        params[..., k] = torch.where(mask, x, params[..., k])
+    return veh.replace(
+        kind=torch.where(mask, KIND_LINEAR, veh.kind).to(torch.int32),
+        accel_params=params,
+        mobil_gain=torch.where(mask, gain, veh.mobil_gain),
+    )
 
 
 @dataclasses.dataclass
@@ -134,10 +170,6 @@ class BaseEnv:
     each ``-> (obs, EnvState, reward, terminated, truncated, info)``.
     """
 
-    #: NPC class presets not ported yet (Linear family; reference
-    #: vehicle/behavior.py LinearVehicle, Aggressive/DefensiveVehicle)
-    _LINEAR_PRESETS = ("LinearVehicle", "AggressiveVehicle", "DefensiveVehicle")
-
     #: initial value of the frame counter
     _initial_steps = 0
 
@@ -196,10 +228,13 @@ class BaseEnv:
         self._general = (
             general_frames.try_general(self) if self._straight is None else None
         )
-        npc = self.config.get("other_vehicles_type", "").rsplit(".", 1)[-1]
+        #: Linear rows possible: the frame kernels run their Linear rows'
+        #: instantiation (set by a preset, or by ``preprocessors``'
+        #: ``change_vehicles``); without it a Linear row stops the IDM code
+        #: with an error
+        self.linear_rows = self.npc_preset is not None
         unported = [
             what for what, bad in (
-                (f"other_vehicles_type={npc}", npc in self._LINEAR_PRESETS),
                 ("sequential_decisions", self.config.get("sequential_decisions")),
                 ("several controlled vehicles", len(self.ego_slots) != 1),
             ) if bad
@@ -357,8 +392,23 @@ class BaseEnv:
             self.geo, state.vehicles, self.ego_slots[0]
         )
 
+    @property
+    def npc_preset(self) -> str | None:
+        """The Linear-family class ``config["other_vehicles_type"]`` names,
+        or None for any other class (IDM)."""
+        name = self.config.get("other_vehicles_type", "").rsplit(".", 1)[-1]
+        return name if name in NPC_PRESETS else None
+
+    def _apply_npc_type(self, veh: VehicleState) -> VehicleState:
+        """The scene's IDM NPCs made the ``other_vehicles_type`` preset's
+        Linear NPCs (the JAX package's ``_apply_npc_type``); unchanged under
+        any other class."""
+        name = self.npc_preset
+        return veh if name is None else with_preset(veh, veh.kind == KIND_IDM, name)
+
     def _place_state(self, draws: dict[str, torch.Tensor]) -> EnvState:
-        veh = self._place_vehicles(draws)
+        # the preset goes on every placed scene, full or compact reset
+        veh = self._apply_npc_type(self._place_vehicles(draws))
         batch = veh.kind.shape[0]
         return EnvState(
             vehicles=veh,

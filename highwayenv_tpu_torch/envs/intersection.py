@@ -16,6 +16,12 @@ the CPU), then places the challenger and the ego and drops the NPCs within
 their placement (``place_spawn``), so a test can feed the placement the
 JAX package's own draws.
 
+Under a Linear-family ``other_vehicles_type`` the preset goes on the placed
+scene after the warm-up (``BaseEnv._place_state``), so the warm-up drives
+IDM rows only, and a spawn during the episode places an IDM vehicle: both
+as the JAX package does (``highwayenv_tpu/envs/intersection.py``), where
+the reference spawns the configured class everywhere.
+
 Draw order.  A reset draws from its generator, in this order: the spawn
 draws of the 9 initial NPCs and the challenger as (B, 10) tensors (accept
 uniform, corner, destination offset, station normal, speed normal, IDM
@@ -343,9 +349,14 @@ class IntersectionEnv(BaseEnv):
         dev = self.device
         fields = [f.name for f in dataclasses.fields(VehicleState)]
         sub = VehicleState(**{f: getattr(veh, f)[:, :W].contiguous() for f in fields})
+        # zero slot actions of the action type's shape: there is no ego yet
+        extra = tuple(self.action_type.action_shape)
+        zeros = torch.zeros((B, W) + extra, device=dev,
+                            dtype=torch.float32 if extra else torch.int32)
+        # IDM rows only: a preset goes on after the warm-up
         sub = general_frames.simulate_general(
-            self, sub, torch.zeros((B, W), dtype=torch.int32, device=dev),
-            self._warmup_frames, steps0=torch.zeros(B, dtype=torch.int32, device=dev),
+            self, sub, zeros, self._warmup_frames,
+            steps0=torch.zeros(B, dtype=torch.int32, device=dev), linear=False,
         )
         return VehicleState(**{
             f: torch.cat([getattr(sub, f), getattr(veh, f)[:, W:]], dim=1) for f in fields
@@ -379,7 +390,10 @@ class IntersectionEnv(BaseEnv):
         """Phase B of the reset: the challenger crossing straight ahead, then
         each ego at s = 60 + 5 (1 + N(0, 1)) on the incoming lane of corner
         ``k % 4``, at 10 m/s, routed to ``destination`` (or to the drawn
-        ``dest``), and the NPCs within 20 m of it dropped."""
+        ``dest``), and the NPCs within 20 m of it dropped.  An action type
+        without target speeds (a ContinuousAction) gives the ego no target
+        speed, speed index or route, as the reference's plain-Vehicle ego
+        skips them."""
         cfg = self.config
         n_init = cfg["initial_vehicle_count"]
         B = veh.kind.shape[0]
@@ -389,7 +403,7 @@ class IntersectionEnv(BaseEnv):
             speed_deviation=0.0, spawn_probability=1.0, go_straight=True,
         )
         rb, rn, rid, rlen = self._routes
-        ts = self.action_type.target_speeds
+        meta = hasattr(self.action_type, "target_speeds")
         for k, slot in enumerate(self._ego_slots):
             corner = k % 4
             lane = self._spawn_lane[corner].expand(B)
@@ -399,8 +413,6 @@ class IntersectionEnv(BaseEnv):
             pos = lane_ops.position(self.geo, lane, s, torch.zeros_like(s))
             heading = lane_ops.heading_at(self.geo, lane, torch.full((B,), 60.0, device=dev))
             speed = torch.full((B,), 10.0, device=dev)
-            index = controller.speed_to_index(speed, ts)
-            target = self.action_type.speed_table(dev)[index.long()]
 
             def put(field, value):
                 field = field.clone()
@@ -414,13 +426,18 @@ class IntersectionEnv(BaseEnv):
                 lane=put(veh.lane, lane),
                 target_lane=put(veh.target_lane, lane),
                 kind=put(veh.kind, KIND_EGO),
-                target_speed=put(veh.target_speed, target),
-                speed_index=put(veh.speed_index, index),
-                route_base=put(veh.route_base, rb[corner][d]),
-                route_n=put(veh.route_n, rn[corner][d]),
-                route_id=put(veh.route_id, rid[corner][d]),
-                route_len=put(veh.route_len, rlen[corner][d]),
             )
+            if meta:
+                index = controller.speed_to_index(speed, self.action_type.target_speeds)
+                veh = veh.replace(
+                    target_speed=put(veh.target_speed,
+                                     self.action_type.speed_table(dev)[index.long()]),
+                    speed_index=put(veh.speed_index, index),
+                    route_base=put(veh.route_base, rb[corner][d]),
+                    route_n=put(veh.route_n, rn[corner][d]),
+                    route_id=put(veh.route_id, rid[corner][d]),
+                    route_len=put(veh.route_len, rlen[corner][d]),
+                )
             # no NPC within 20 m of the ego
             dp = veh.pos - pos[:, None, :]
             near = torch.sqrt(dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1]) < 20.0

@@ -15,9 +15,11 @@ the frame-start state):
      egos keep their stored steering and acceleration instead;
   3. the IDM / MOBIL decision pass on the (B, L, V) projection table of
      every object on every lane, with the route-directed override and the
-     same-road abort gate, and the dual-lane IDM acceleration;
+     same-road abort gate, and the dual-lane IDM acceleration; a Linear
+     row (``KIND_LINEAR``) decides with LinearVehicle's acceleration;
   4. the steering P-cascade toward the target lane's heading ahead (IDM
-     rows, and the ego unless it keeps raw controls);
+     rows, and the ego unless it keeps raw controls), LinearVehicle's
+     steering law on Linear rows;
   5. on a regulated road (intersection), on the env's tick frames, the
      right-of-way pass of ``road/regulation.py`` (it writes only the
      target speed and the yielding state, which no later step of the frame
@@ -56,7 +58,7 @@ from highwayenv_tpu_torch.road import regulation
 from highwayenv_tpu_torch.road.lane import LaneGeometry
 from highwayenv_tpu_torch.vehicle import behavior, controller, kinematics
 from highwayenv_tpu_torch.vehicle.behavior import IDMParams
-from highwayenv_tpu_torch.vehicle.state import KIND_EGO, KIND_IDM, VehicleState
+from highwayenv_tpu_torch.vehicle.state import KIND_EGO, KIND_LINEAR, VehicleState
 
 #: the gate's limits: one warp per env holds at most 32 slots, and the
 #: TPU kernel's unrolled lane loops stop at 32 lanes
@@ -85,7 +87,6 @@ def general_unported(env) -> list[str]:
     """Why ``env`` cannot take the general path: the JAX package's
     ``try_general`` conditions that the port's envs can meet."""
     geo = env.geo
-    raw = env.action_type.stores_raw_controls
     return [
         what for what, bad in (
             ("neighbour_vehicles_connected_lanes (the -v1 connected-lane "
@@ -93,8 +94,6 @@ def general_unported(env) -> list[str]:
              env.config.get("neighbour_vehicles_connected_lanes", False)),
             (f"{env.num_slots} slots > {MAX_SLOTS}", env.num_slots > MAX_SLOTS),
             (f"{geo.num_lanes} lanes > {MAX_LANES}", geo.num_lanes > MAX_LANES),
-            ("raw-control actions on a regulated road (K5's raw_controls branch)",
-             raw and env.regulated),
         ) if bad
     ]
 
@@ -138,13 +137,13 @@ def frame_general_plain(veh: VehicleState, spec: GeneralSpec, table,
         veh = spec.action_type.apply(geo, veh, veh.kind == KIND_EGO, slot_actions)
     veh, idm_acc = behavior.idm_act(geo, p, veh, table_s, table_lat)
     # the ego's target is its own after the decision pass: one steering
-    # law serves the ego and the IDM rows
+    # law serves the ego and the IDM rows, LinearVehicle's the Linear rows
     steer = controller.steering_from_table(
-        geo, veh.target_lane, veh, table_s, table_lat
+        geo, veh.target_lane, veh, table_s, table_lat, veh.kind == KIND_LINEAR
     )
     # a raw-control ego keeps its stored steering and acceleration
     is_ego = (veh.kind == KIND_EGO) & (not raw)
-    is_idm = (veh.kind == KIND_IDM) & ~veh.crashed
+    is_idm = behavior.is_driven(veh)
     veh = veh.replace(
         steering=torch.where(is_ego | is_idm, steer, veh.steering),
         accel=torch.where(
@@ -251,6 +250,7 @@ class _GenParams(ctypes.Structure):
         ("kp_lateral", ctypes.c_float), ("tau_pursuit", ctypes.c_float),
         ("ts_lo", ctypes.c_float), ("inv_ts_range", ctypes.c_float),
         ("target_speeds", ctypes.c_float * MAX_SPEEDS),
+        ("linear", ctypes.c_int),
     ]
 
 
@@ -270,6 +270,8 @@ _IN_FIELDS = [
     ("mobil_gain", torch.float32, ()), ("mobil_max_braking", torch.float32, ()),
     ("route_len", torch.int32, ()), ("route_base", torch.int32, ("R",)),
     ("route_n", torch.int32, ("R",)), ("route_id", torch.int32, ("R",)),
+    # read on Linear rows only
+    ("accel_params", torch.float32, (3,)), ("steer_params", torch.float32, (2,)),
 ]
 #: the mutated fields, written to new tensors (JAX ``GEN_MUT_FIELDS``)
 OUT_FIELDS = _IN_FIELDS[:15]
@@ -282,9 +284,10 @@ def _resolve(fields, R: int):
 
 
 def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int,
-                  raw: bool = False) -> _GenParams:
+                  raw: bool = False, linear: bool = True) -> _GenParams:
     """The kernel's parameter block.  Raw controls take no target speeds:
-    ``n_speeds = 0`` and ``raw = 1``."""
+    ``n_speeds = 0`` and ``raw = 1``; ``linear`` picks the Linear rows'
+    instantiation."""
     at, p = spec.action_type, spec.p
     ts = np.zeros(0, np.float32) if raw else np.asarray(at.target_speeds, np.float32)
     if not raw and not 2 <= len(ts) <= MAX_SPEEDS:
@@ -309,6 +312,7 @@ def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int,
         ts_lo=float(ts[0]) if len(ts) else 0.0,
         inv_ts_range=(float(np.float32(1.0) / np.float32(float(ts[-1]) - float(ts[0])))
                       if len(ts) else 0.0),
+        linear=int(linear),
     )
     for i, x in enumerate(ts):
         out.target_speeds[i] = float(x)
@@ -327,10 +331,14 @@ class GeneralFramesKernel(KernelWrapper):
     (``store_raw_controls``) and there are no slot actions to read.
     K5 takes the (B,) int32 frame counters ``steps0`` of the envs at the
     step's start and passes the kernel only their tick phase
-    ``steps0 % period``, as the JAX wrapper does.
+    ``steps0 % period``, as the JAX wrapper does.  ``linear`` as for K1
+    (``ops/straight_frames.py``): the Linear rows' instantiation, or the
+    IDM code, which traps on a Linear row.
     """
 
     source = "general_frames"
+    #: the fields the kernel reads, in the order of its pointer block
+    in_fields = _IN_FIELDS
 
     def __init__(self, regulated: bool = False):
         super().__init__()
@@ -354,10 +362,12 @@ class GeneralFramesKernel(KernelWrapper):
 
     def __call__(self, veh: VehicleState, spec: GeneralSpec,
                  slot_actions: torch.Tensor | None, frames: int,
-                 steps0: torch.Tensor | None = None, raw: bool = False) -> VehicleState:
+                 steps0: torch.Tensor | None = None, raw: bool = False,
+                 linear: bool = True) -> VehicleState:
         if self.regulated != (steps0 is not None) or self.regulated != (spec.period is not None):
             raise ValueError("steps0 goes with K5 on a regulated road, and only there")
         if not on_cuda(veh.speed):
+            self.check_linear(veh, linear)
             return frames_general_plain(veh, spec, slot_actions, frames, steps0, raw)
         _check_raw(slot_actions, raw)
         B, V = veh.kind.shape
@@ -372,10 +382,10 @@ class GeneralFramesKernel(KernelWrapper):
                     or slot_actions.device != dev or not slot_actions.is_contiguous()):
                 raise ValueError(f"slot_actions: expected contiguous int32 ({B}, {V}) on {dev}")
             action_ptr = slot_actions.data_ptr()
-        ins = checked_fields(veh, _resolve(_IN_FIELDS, R), B, V, dev)
+        ins = checked_fields(veh, _resolve(self.in_fields, R), B, V, dev)
         outs = empty_fields(_resolve(OUT_FIELDS, R), B, V, dev)
         lf, li = self._lane_tables(spec.geo, dev)
-        params = kernel_params(spec, V, R, frames, raw)
+        params = kernel_params(spec, V, R, frames, raw, linear)
         ptrs = (ctypes.c_void_p * (len(ins) + 1 + len(outs)))(
             *[t.data_ptr() for t in ins], action_ptr, *[t.data_ptr() for t in outs]
         )
@@ -417,16 +427,21 @@ def store_raw_controls(env, veh: VehicleState, slot_actions: torch.Tensor):
 
 
 def simulate_general(env, veh: VehicleState, slot_actions: torch.Tensor,
-                     frames: int, steps0: torch.Tensor | None = None) -> VehicleState:
+                     frames: int, steps0: torch.Tensor | None = None,
+                     linear: bool | None = None) -> VehicleState:
     """Policy-step simulation on the general path: all ``frames`` frames and
     the ego meta-action (inside, on frame 0, after follow_road) through
     ``frames_general_kernel``, or with the envs' frame counters ``steps0``
     (a regulated road) through ``frames_regulated_kernel``.  Raw controls
-    are stored first (``store_raw_controls``) and the launch reads none."""
+    are stored first (``store_raw_controls``) and the launch reads none.
+    ``linear`` (default ``env.linear_rows``): Linear rows possible."""
     veh, slot_actions, raw = store_raw_controls(env, veh, slot_actions)
+    linear = env.linear_rows if linear is None else linear
     if steps0 is None:
-        return frames_general_kernel(veh, env._general, slot_actions, frames, raw=raw)
-    return frames_regulated_kernel(veh, env._general, slot_actions, frames, steps0, raw)
+        return frames_general_kernel(veh, env._general, slot_actions, frames, raw=raw,
+                                     linear=linear)
+    return frames_regulated_kernel(veh, env._general, slot_actions, frames, steps0, raw,
+                                   linear)
 
 
 def simulate_general_reference(env, veh: VehicleState, slot_actions: torch.Tensor,

@@ -23,9 +23,15 @@ which replaces the two pair searches 2 and 6 by banded ones, as
 ``csrc/straight_frames.cu`` for CUDA tensors, and ``frames_plain`` (batched
 torch over (B, V, V) pair tensors) for CPU tensors; the two compute the
 same float32 arithmetic in the same order.  The kernel covers the scenes
-the straight highway envs spawn: vehicles only (no obstacles or landmarks)
-and IDM NPCs (no Linear-family presets); ``envs/base.py`` refuses other
-configurations when the env is made.
+the straight highway envs spawn: vehicles only (no obstacles or
+landmarks), IDM and Linear NPCs.  A Linear row (``KIND_LINEAR``: the
+Linear-family presets, or ``envs/preprocessors.change_vehicles``) takes
+the same MOBIL decisions with LinearVehicle's acceleration wherever it
+decides, and LinearVehicle's steering; the law goes by each row's kind, as
+the JAX package's XLA frame decides it.  The kernels run their Linear
+rows' instantiation where the caller passes ``linear`` (the env path: the
+env's ``linear_rows``), else their IDM code alone, which stops on a Linear
+row with an error.
 
 The ego meta-action is applied once per policy step in torch before the
 frames (``simulate_bm``), as ``pallas_simulate_bm`` does.  Under a
@@ -48,12 +54,13 @@ from highwayenv_tpu_torch.vehicle.behavior import (
     IDMParams,
     front_pick,
     idm_acceleration,
+    is_driven,
     rear_pick,
 )
 from highwayenv_tpu_torch.vehicle.state import (
     KIND_EGO,
-    KIND_IDM,
     KIND_LANDMARK,
+    KIND_LINEAR,
     VEHICLE_LENGTH,
     VehicleState,
 )
@@ -93,9 +100,10 @@ def neighbours(s, lat0, occupiable, q_off, tol: float):
 
 
 def mobil_gates(veh: VehicleState, p: IDMParams):
-    """Frame-start (idm, mid_change, deciding) masks: uncrashed IDM rows,
-    rows changing lanes, and rows taking a MOBIL decision this frame."""
-    idm = (veh.kind == KIND_IDM) & ~veh.crashed
+    """Frame-start (idm, mid_change, deciding) masks: uncrashed IDM and
+    Linear rows, rows changing lanes, and rows taking a MOBIL decision this
+    frame."""
+    idm = is_driven(veh)
     mid_change = veh.lane != veh.target_lane
     tick = veh.timer > p.lane_change_delay
     deciding = idm & ~mid_change & tick & veh.enable_lane_change
@@ -135,7 +143,9 @@ def drive(
     IDM, bicycle integration and re-localization.  ``front_idx`` /
     ``rear_idx`` (B, 3, V) are the neighbours of the own lane and lanes
     -1 / +1, -1 = none (``csrc/straight_common.cuh::drive``).  With ``raw``
-    the ego keeps its stored steering and acceleration."""
+    the ego keeps its stored steering and acceleration.  A Linear row's
+    accelerations, its own and its neighbours' in its MOBIL decision, and
+    its steering are LinearVehicle's."""
     V = veh.kind.shape[1]
     dev = veh.speed.device
     off = torch.as_tensor(fs.offsets, device=dev)
@@ -171,11 +181,14 @@ def drive(
     fronts = [fetch(front_idx[:, k]) for k in range(3)]
     rears = [fetch(rear_idx[:, k]) for k in range(3)]
 
+    linear = kind == KIND_LINEAR
+    law = (linear, veh.accel_params)
+
     def accel(eg, fr):
         a = idm_acceleration(
             p, fs.speed_limit, veh.delta,
             eg["speed"], eg["target_speed"], eg["s"], eg["cos"], eg["sin"],
-            fr["s"], fr["vx"], fr["vy"], fr["ex"],
+            fr["s"], fr["vx"], fr["vy"], fr["ex"], law, fr["speed"],
         )
         return torch.where(eg["ex"] & eg["is_vehicle"], a, 0.0)
 
@@ -230,9 +243,11 @@ def drive(
 
     # --- low-level controls ------------------------------------------------ #
     lat_t = lat0 - off[target.long().clamp(0, L - 1)]
-    steer_pc = controller.steering_from_coords(
+    steer_pc = torch.where(linear, controller.linear_steering(
+        fs.theta, lat_t, veh.heading, veh.speed, veh.length, veh.steer_params
+    ), controller.steering_from_coords(
         fs.theta, lat_t, veh.heading, veh.speed, veh.length
-    )
+    ))
     # dual-lane IDM while changing lanes: the target is within one lane of
     # the current one, so its front neighbour is one of the three queries
     d_t = target - veh.lane
@@ -241,7 +256,7 @@ def drive(
             d_t == 0, fronts[0][key],
             torch.where(d_t < 0, fronts[1][key], fronts[2][key]),
         )
-        for key in ("s", "vx", "vy", "ex")
+        for key in ("s", "vx", "vy", "speed", "ex")
     }
     a_t = accel(self_row, npt)
     acc = torch.where(target != veh.lane, torch.minimum(a_self, a_t), a_self)
@@ -318,6 +333,7 @@ class _Params(ctypes.Structure):
         ("kp_heading", ctypes.c_float),
         ("kp_lateral", ctypes.c_float),
         ("raw", ctypes.c_int),
+        ("linear", ctypes.c_int),
     ]
 
 
@@ -334,6 +350,8 @@ _IN_FIELDS = [
     ("check_collisions", torch.bool, ()), ("collidable", torch.bool, ()),
     ("enable_lane_change", torch.bool, ()), ("mobil_gain", torch.float32, ()),
     ("mobil_max_braking", torch.float32, ()),
+    # read on Linear rows only
+    ("accel_params", torch.float32, (3,)), ("steer_params", torch.float32, (2,)),
 ]
 _OUT_FIELDS = [
     ("pos", torch.float32, (2,)), ("heading", torch.float32, ()),
@@ -393,8 +411,10 @@ def check_frame_shape(veh: VehicleState, fs: StraightGeo) -> tuple[int, int]:
     return B, V
 
 
-def kernel_params(fs: StraightGeo, p: IDMParams, dt: float, raw: bool = False):
-    """The (Geo, Params) structures of the frame kernels."""
+def kernel_params(fs: StraightGeo, p: IDMParams, dt: float, raw: bool = False,
+                  linear: bool = True):
+    """The (Geo, Params) structures of the frame kernels; ``linear`` picks
+    the kernels' Linear rows' instantiation."""
     geo = _Geo(
         ox=float(fs.origin[0]), oy=float(fs.origin[1]),
         ux=float(fs.u[0]), uy=float(fs.u[1]),
@@ -414,7 +434,7 @@ def kernel_params(fs: StraightGeo, p: IDMParams, dt: float, raw: bool = False):
         inv_two_sqrt_ab=p.inv_two_sqrt_ab, politeness=p.politeness,
         lane_change_delay=p.lane_change_delay, kp_a=controller.KP_A,
         kp_heading=controller.KP_HEADING, kp_lateral=controller.KP_LATERAL,
-        raw=int(raw),
+        raw=int(raw), linear=int(linear),
     )
     return geo, params
 
@@ -441,6 +461,16 @@ class KernelWrapper:
             self._bind(lib)
             self._lib = lib
         return self._lib
+
+    @staticmethod
+    def check_linear(veh: VehicleState, linear: bool) -> None:
+        """On CPU tensors, what the kernel's IDM instantiation asserts on the
+        card: without ``linear`` the state holds no Linear row."""
+        if not linear and bool((veh.kind == KIND_LINEAR).any()):
+            raise ValueError(
+                "Linear rows (KIND_LINEAR) in a frame call with linear=False: the "
+                "kernels' IDM code would trap on the card"
+            )
 
     def _launched(self, name: str, err: int) -> None:
         if err != 0:
@@ -474,13 +504,19 @@ class StraightFramesKernel(KernelWrapper):
     are; ``out`` is returned.  The sorted path uses this as its per-env
     exact fallback, one launch whatever the number of envs that fire.
     ``raw``: the ego keeps its stored controls (ContinuousAction).
+    ``linear``: Linear rows are possible, and the kernel's instantiation
+    that reads each row's kind runs; without it the IDM code alone runs,
+    which traps on a Linear row (cudaErrorLaunchFailure; on CPU tensors a
+    ValueError).
     """
 
     source = "straight_frames"
+    #: the fields the kernel reads, in the order of its arguments
+    in_fields = _IN_FIELDS
 
     def _bind(self, lib):
         lib.straight_frames.argtypes = (
-            [ctypes.c_void_p] * (len(_IN_FIELDS) + len(_OUT_FIELDS) + 1)
+            [ctypes.c_void_p] * (len(self.in_fields) + len(_OUT_FIELDS) + 1)
             + [
                 ctypes.POINTER(_Geo), ctypes.POINTER(_Params),
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -491,17 +527,18 @@ class StraightFramesKernel(KernelWrapper):
     def __call__(
         self, veh: VehicleState, fs: StraightGeo, p: IDMParams, dt: float,
         frames: int, mask: torch.Tensor | None = None,
-        out: VehicleState | None = None, raw: bool = False,
+        out: VehicleState | None = None, raw: bool = False, linear: bool = True,
     ) -> VehicleState:
         if (mask is None) != (out is None):
             raise ValueError("mask and out are given together")
         if not on_cuda(veh.speed):
+            self.check_linear(veh, linear)
             if mask is None:
                 return frames_plain(veh, fs, p, dt, frames, raw)
             return _masked_plain(veh, fs, p, dt, frames, mask, out, raw)
         B, V = check_frame_shape(veh, fs)
         dev = veh.speed.device
-        ins = checked_fields(veh, _IN_FIELDS, B, V, dev)
+        ins = checked_fields(veh, self.in_fields, B, V, dev)
         if mask is None:
             outs = empty_fields(_OUT_FIELDS, B, V, dev)
         else:
@@ -509,7 +546,7 @@ class StraightFramesKernel(KernelWrapper):
                     or mask.device != dev or not mask.is_contiguous()):
                 raise ValueError(f"mask: expected contiguous bool ({B},) on {dev}")
             outs = checked_fields(out, _OUT_FIELDS, B, V, dev)
-        geo, params = kernel_params(fs, p, dt, raw)
+        geo, params = kernel_params(fs, p, dt, raw, linear)
         lib = self._library()
         with torch.cuda.device(dev):
             err = lib.straight_frames(
@@ -533,4 +570,4 @@ def simulate_bm(
     all ``frames`` frames through ``frames_kernel``."""
     veh = env.action_type.apply(env.geo, veh, veh.kind == KIND_EGO, slot_actions)
     return frames_kernel(veh, env._straight, env.idm_params, env.dt, frames,
-                         raw=env.action_type.stores_raw_controls)
+                         raw=env.action_type.stores_raw_controls, linear=env.linear_rows)

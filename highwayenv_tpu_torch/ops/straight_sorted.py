@@ -370,13 +370,15 @@ class UnsortKernel(KernelWrapper):
 class FramesSortedKernel(KernelWrapper):
     """Wrapper of K3, ``csrc/straight_frames_sorted.cu``: ``(srt, idx, fs,
     p, dt, frames) -> (srt, flags)`` as ``frames_sorted_plain``, all frames
-    in one launch."""
+    in one launch; ``raw`` and ``linear`` as for K1."""
 
     source = "straight_frames_sorted"
+    #: the fields the kernel reads, in the order of its arguments
+    in_fields = SORT_FIELDS
 
     def _bind(self, lib):
         lib.straight_frames_sorted.argtypes = (
-            [ctypes.c_void_p] * (len(SORT_FIELDS) + len(MUT_FIELDS) + 2)
+            [ctypes.c_void_p] * (len(self.in_fields) + len(MUT_FIELDS) + 2)
             + [
                 ctypes.POINTER(_Geo), ctypes.POINTER(_Params),
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -386,16 +388,18 @@ class FramesSortedKernel(KernelWrapper):
         lib.straight_frames_sorted.restype = ctypes.c_int
 
     def __call__(self, srt: VehicleState, idx: torch.Tensor, fs: StraightGeo,
-                 p: IDMParams, dt: float, frames: int, raw: bool = False):
+                 p: IDMParams, dt: float, frames: int, raw: bool = False,
+                 linear: bool = True):
         if not on_cuda(srt.speed):
+            self.check_linear(srt, linear)
             return frames_sorted_plain(srt, idx, fs, p, dt, frames, raw)
         B, V = check_frame_shape(srt, fs)
         dev = srt.speed.device
-        ins = checked_fields(srt, SORT_FIELDS, B, V, dev)
+        ins = checked_fields(srt, self.in_fields, B, V, dev)
         index = _checked_idx(idx, B, V, dev)
         outs = empty_fields(MUT_FIELDS, B, V, dev)
         flags = torch.empty((B, 2), dtype=torch.bool, device=dev)
-        geo, params = kernel_params(fs, p, dt, raw)
+        geo, params = kernel_params(fs, p, dt, raw, linear)
         W, Wn = windows(V)
         lib = self._library()
         with torch.cuda.device(dev):
@@ -424,9 +428,10 @@ def simulate_bm_sorted(env, veh: VehicleState, slot_actions: torch.Tensor,
     neighbour) for diagnostics, as ``return_viol`` does in JAX."""
     veh = env.action_type.apply(env.geo, veh, veh.kind == KIND_EGO, slot_actions)
     fs, p, dt = env._straight, env.idm_params, env.dt
-    raw = env.action_type.stores_raw_controls
+    raw, linear = env.action_type.stores_raw_controls, env.linear_rows
     srt, idx = sort_kernel(veh, fs)
-    srt, flags = frames_sorted_kernel(srt, idx, fs, p, dt, frames, raw=raw)
+    srt, flags = frames_sorted_kernel(srt, idx, fs, p, dt, frames, raw=raw, linear=linear)
     out = unsort_kernel(srt, idx, veh)
-    out = frames_kernel(veh, fs, p, dt, frames, mask=flags.any(dim=1), out=out, raw=raw)
+    out = frames_kernel(veh, fs, p, dt, frames, mask=flags.any(dim=1), out=out, raw=raw,
+                        linear=linear)
     return (out, flags) if return_flags else out

@@ -14,10 +14,12 @@ is missing only the current kernels run.  ``--kernels`` picks the families
 
   straight: K1 (``straight_frames``) and K3 (``straight_frames_sorted``) at
     highway-v0 (V=51, 15 frames), highway-fast-v0 (V=21, 5 frames) and
-    highway-v0 with each ``--vehicles`` N (V = N + 1), B=4096.  Scenes: the
-    reset scene, the compressed scene and a pile-up in every env; K1 on
-    every env and masked to every third env, K3 with its flags.  Timed: K1
-    on every env, K3, K1 masked with no env firing, on the reset scene.
+    highway-v0 with each ``--vehicles`` N (V = N + 1), B=4096, and at
+    highway-v0 under the LinearVehicle preset (the Linear rows' branch).
+    Scenes: the reset scene, the compressed scene and a pile-up in every
+    env; K1 on every env and masked to every third env, K3 with its flags.
+    Timed: K1 on every env, K3, K1 masked with no env firing, on the reset
+    scene.
   general: K4 (``general_frames``) at roundabout-v0 (V=5, L=32, R=11) and
     merge-v0 (V=6, L=9, an obstacle) on the reset scene, 8 steps in, an
     all-env pile-up and (merge) the obstacle hit; K5
@@ -26,7 +28,17 @@ is missing only the current kernels run.  ``--kernels`` picks the families
     spread over all 7 values, a conflict scene with yields and the reset's
     warm-up launch (V=16, 45 frames), B=4096, the scenes of chip_smoke.py.
     Timed: K4 at roundabout-v0 and at merge-v0 on the reset scene, K5's
-    step on the reset scene with spread tick phases, K5's warm-up.
+    step on the reset scene with spread tick phases, K5's warm-up.  Then
+    the Linear rows' branch: K4 at roundabout-v0 under AggressiveVehicle
+    and K5's step at intersection-v0 under DefensiveVehicle, and K5's
+    raw-control branch at intersection-v0 under a ContinuousAction, each on
+    the reset scene (spread tick phases on K5).
+
+Each scene runs the instantiation its env path launches: ``linear`` on
+for the Linear scenes, off (the IDM code alone) for the others.  A tree
+whose kernels read no Linear parameters (a baseline from before them, told
+by its sources) is bound with its own field list and runs the scenes
+without Linear rows alone.
 
 For each family the script
 
@@ -41,7 +53,7 @@ For each family the script
      build's mean and the spread (min to max) of its turns;
   4. with ``--clocks``, builds a copy of each tree with a ``clock64()``
      stamp before every phase marker of the frame loop (a ``// ---``
-     comment line, the ``drive(`` call, the ``stage_post(`` call) and
+     comment line, the ``drive`` call, the ``stage_post(`` call) and
      prints thread 0's mean cycles per frame in each phase, over all
      blocks.  The stamps add a few instructions and registers: the split,
      not the total, is what to read.
@@ -68,6 +80,16 @@ FAMILIES = {
     "general": ("general_frames",),
 }
 CONFIGS = (("highway-v0", None), ("highway-fast-v0", None))
+NPC = "highway_env.vehicle.behavior."
+LINEAR_CONFIGS = (("highway-v0", {"other_vehicles_type": NPC + "LinearVehicle"}),)
+#: the general path's Linear and raw scenes, each (env id, config, kernel)
+GENERAL_LINEAR = (
+    ("roundabout-v0", {"other_vehicles_type": NPC + "AggressiveVehicle"}, "K4"),
+    ("intersection-v0", {"other_vehicles_type": NPC + "DefensiveVehicle"}, "K5"),
+    ("intersection-v0", {"action": {"type": "ContinuousAction"}}, "K5"),
+)
+#: the fields only the kernels of the Linear rows' branch read
+PARAM_FIELDS = ("accel_params", "steer_params")
 B = 4096
 SEED = 2
 REPS = 20  # launches a turn
@@ -75,7 +97,7 @@ OUT_DIR = REPO / "build" / "kernel_ab"
 
 _FRAME_LOOP = re.compile(
     r"^\s*for \(int frame = 0; frame < (p\.)?frames; \+\+frame\) \{\s*$")
-_MARKERS = ("// ---", "drive(", "stage_post(")
+_MARKERS = ("// ---", "drive(", "drive<", "stage_post(")
 # slot 31 of the sums counts the (block, frame) samples
 _PRELUDE = r"""
 // kernel_ab --clocks: thread 0's clock64() cycles per frame phase, summed over blocks
@@ -103,7 +125,7 @@ extern "C" int frame_clocks_reset() {
 
 
 def _phase_name(line: str) -> str:
-    if line.startswith("drive("):
+    if line.startswith(("drive(", "drive<")):
         return "drive()"
     if line.startswith("stage_post("):
         return "stage_post() and what follows it"
@@ -149,10 +171,21 @@ def instrumented_tree(csrc: pathlib.Path, dest: pathlib.Path, kernels) -> dict[s
     return names
 
 
-def load(path: pathlib.Path, wrapper_cls):
-    """A wrapper instance (``wrapper_cls()``) bound to the library at ``path``."""
+def reads_params(csrc: pathlib.Path) -> bool:
+    """Whether the kernels of the tree ``csrc`` read the Linear rows'
+    parameter fields (the current field lists) or predate them."""
+    return all(PARAM_FIELDS[0] in (csrc / name).read_text()
+               for name in ("straight_common.cuh", "general_frames.cu"))
+
+
+def load(path: pathlib.Path, wrapper_cls, params: bool = True):
+    """A wrapper instance (``wrapper_cls()``) bound to the library at
+    ``path``; ``params=False``: a library whose kernels take no parameter
+    fields, bound with its field list."""
     lib = ctypes.CDLL(str(path))
     wrapper = wrapper_cls()
+    if not params:
+        wrapper.in_fields = [f for f in wrapper.in_fields if f[0] not in PARAM_FIELDS]
     wrapper._bind(lib)
     wrapper._lib = lib
     return wrapper, lib
@@ -249,7 +282,7 @@ def straight_scenes(veh):
             "pile-up": veh.replace(pos=pileup)}
 
 
-def run_straight(args, paths, clock_paths, phases) -> None:
+def run_straight(args, paths, clock_paths, phases, params) -> None:
     import torch
 
     import highwayenv_tpu_torch as ht
@@ -257,14 +290,20 @@ def run_straight(args, paths, clock_paths, phases) -> None:
     from highwayenv_tpu_torch.ops import straight_sorted as ss
     from highwayenv_tpu_torch.vehicle.state import KIND_EGO
 
-    wrappers = {label: (load(p["straight_frames"], sf.StraightFramesKernel)[0],
-                        load(p["straight_frames_sorted"], ss.FramesSortedKernel)[0])
-                for label, p in paths.items()}
-    clock_libs = {label: {"K1": load(p["straight_frames"], sf.StraightFramesKernel),
-                          "K3": load(p["straight_frames_sorted"], ss.FramesSortedKernel)}
-                  for label, p in clock_paths.items()}
-    configs = CONFIGS + tuple(("highway-v0", {"vehicles_count": n}) for n in args.vehicles)
+    all_wrappers = {
+        label: (load(p["straight_frames"], sf.StraightFramesKernel, params[label])[0],
+                load(p["straight_frames_sorted"], ss.FramesSortedKernel, params[label])[0])
+        for label, p in paths.items()}
+    all_clock_libs = {
+        label: {"K1": load(p["straight_frames"], sf.StraightFramesKernel, params[label]),
+                "K3": load(p["straight_frames_sorted"], ss.FramesSortedKernel, params[label])}
+        for label, p in clock_paths.items()}
+    configs = (CONFIGS + tuple(("highway-v0", {"vehicles_count": n}) for n in args.vehicles)
+               + LINEAR_CONFIGS)
     for env_id, config in configs:
+        linear = (env_id, config) in LINEAR_CONFIGS
+        wrappers = {k: w for k, w in all_wrappers.items() if params[k] or not linear}
+        clock_libs = {k: w for k, w in all_clock_libs.items() if params[k] or not linear}
         env = ht.make(env_id, config)
         fs, p, dt, frames = env._straight, env.idm_params, env.dt, env.frames_per_step
         gen = env.generator(SEED)
@@ -274,18 +313,19 @@ def run_straight(args, paths, clock_paths, phases) -> None:
         v0 = env.action_type.apply(env.geo, v0, v0.kind == KIND_EGO, sa)
         mask = torch.arange(B, device=env.device) % 3 == 0
         out_names = [n for n, _, _ in sf._OUT_FIELDS]
-        print(f"== {env_id}: V={env.num_slots}, {frames} frames, B={B}")
+        print(f"== {env_id}{' LinearVehicle' if linear else ''}: V={env.num_slots}, "
+              f"{frames} frames, B={B}")
 
         # 2. the builds agree on every field and flag
         for name, veh in straight_scenes(v0).items():
             srt, idx = ss.sort_plain(veh, fs)
             res = {}
             for label, (k1, k3) in wrappers.items():
-                dense = k1(veh, fs, p, dt, frames)
-                band, flags = k3(srt, idx, fs, p, dt, frames)
+                dense = k1(veh, fs, p, dt, frames, linear=linear)
+                band, flags = k3(srt, idx, fs, p, dt, frames, linear=linear)
                 base = ss.unsort_plain(band, idx, veh)
                 out = base.replace(**{n: getattr(base, n).clone() for n in out_names})
-                masked = k1(veh, fs, p, dt, frames, mask=mask, out=out)
+                masked = k1(veh, fs, p, dt, frames, mask=mask, out=out, linear=linear)
                 res[label] = (dense, band, flags, masked)
             torch.cuda.synchronize()
             first = res[next(iter(res))]
@@ -305,10 +345,11 @@ def run_straight(args, paths, clock_paths, phases) -> None:
         none = torch.zeros(B, dtype=torch.bool, device=env.device)
         back = ss.unsort_plain(ss.frames_sorted_plain(srt, idx, fs, p, dt, frames)[0], idx, veh)
         for kname, make_fn in (
-            ("K1 every env", lambda k1, k3: lambda: k1(veh, fs, p, dt, frames)),
-            ("K3", lambda k1, k3: lambda: k3(srt, idx, fs, p, dt, frames)),
+            ("K1 every env", lambda k1, k3: lambda: k1(veh, fs, p, dt, frames, linear=linear)),
+            ("K3", lambda k1, k3: lambda: k3(srt, idx, fs, p, dt, frames, linear=linear)),
             ("K1 masked, no env firing",
-             lambda k1, k3: lambda: k1(veh, fs, p, dt, frames, mask=none, out=back)),
+             lambda k1, k3: lambda: k1(veh, fs, p, dt, frames, mask=none, out=back,
+                                       linear=linear)),
         ):
             fns = {label: make_fn(*w) for label, w in wrappers.items()}
             print(f"  {kname}: " + in_turns(fns, args.rounds))
@@ -317,8 +358,9 @@ def run_straight(args, paths, clock_paths, phases) -> None:
         for label, libs in clock_libs.items():
             for kname, kernel in (("K1", "straight_frames"), ("K3", "straight_frames_sorted")):
                 wrapper, lib = libs[kname]
-                run = (lambda w=wrapper: w(veh, fs, p, dt, frames)) if kname == "K1" else (
-                    lambda w=wrapper: w(srt, idx, fs, p, dt, frames))
+                run = (lambda w=wrapper: w(veh, fs, p, dt, frames, linear=linear)) if (
+                    kname == "K1") else (
+                    lambda w=wrapper: w(srt, idx, fs, p, dt, frames, linear=linear))
                 print_clocks(label, kname, lib, phases[label][kernel], run)
 
 
@@ -436,22 +478,24 @@ def regulated_scenes(env, states, gen):
     return out
 
 
-def run_general(args, paths, clock_paths, phases) -> None:
+def run_general(args, paths, clock_paths, phases, params) -> None:
     import torch
 
     import highwayenv_tpu_torch as ht
     from highwayenv_tpu_torch.ops import general_frames as gf
 
     k5_cls = functools.partial(gf.GeneralFramesKernel, regulated=True)
-    wrappers = {label: {"K4": load(p["general_frames"], gf.GeneralFramesKernel)[0],
-                        "K5": load(p["general_frames"], k5_cls)[0]}
+    wrappers = {label: {"K4": load(p["general_frames"], gf.GeneralFramesKernel,
+                                   params[label])[0],
+                        "K5": load(p["general_frames"], k5_cls, params[label])[0]}
                 for label, p in paths.items()}
-    clock_libs = {label: {"K4": load(p["general_frames"], gf.GeneralFramesKernel),
-                          "K5": load(p["general_frames"], k5_cls)}
+    clock_libs = {label: {"K4": load(p["general_frames"], gf.GeneralFramesKernel,
+                                     params[label]),
+                          "K5": load(p["general_frames"], k5_cls, params[label])}
                   for label, p in clock_paths.items()}
     names = [n for n, _, _ in gf.OUT_FIELDS]
     reg_names = names + [n for n, _, _ in gf.REG_FIELDS]
-    timed = {}  # label -> (kernel, call args)
+    timed = {}  # label -> (kernel, call args, the tree labels that run it)
 
     for env_id in ("roundabout-v0", "merge-v0"):
         env = ht.make(env_id)
@@ -464,7 +508,8 @@ def run_general(args, paths, clock_paths, phases) -> None:
             acts = torch.randint(0, env.action_type.n, (B,), generator=gen,
                                  device=env.device, dtype=torch.int32)
             sa = env._action_to_slots(acts)
-            res = {label: w["K4"](veh, spec, sa, frames) for label, w in wrappers.items()}
+            res = {label: w["K4"](veh, spec, sa, frames, linear=False)
+                   for label, w in wrappers.items()}
             torch.cuda.synchronize()
             first = res[next(iter(res))]
             for label, out in res.items():
@@ -472,7 +517,8 @@ def run_general(args, paths, clock_paths, phases) -> None:
             print(f"  {name}: {' and '.join(res)} equal on every field; crashed slots "
                   f"{int(first.crashed.sum())}")
             if name == "reset":
-                timed[f"K4 {env_id}"] = ("K4", (veh, spec, sa, frames))
+                timed[f"K4 {env_id}"] = ("K4", (veh, spec, sa, frames), list(wrappers),
+                                         {"linear": False})
 
     env = ht.make("intersection-v0")
     spec = env._general
@@ -484,7 +530,8 @@ def run_general(args, paths, clock_paths, phases) -> None:
     for name, (veh, steps0, sa, frames) in regulated_scenes(env, states, gen).items():
         if name == "reset":  # the tick phases spread over all 7 values
             steps0 = steps0 + torch.arange(B, device=env.device, dtype=torch.int32) * 15
-        res = {label: w["K5"](veh, spec, sa, frames, steps0) for label, w in wrappers.items()}
+        res = {label: w["K5"](veh, spec, sa, frames, steps0, linear=False)
+               for label, w in wrappers.items()}
         torch.cuda.synchronize()
         first = res[next(iter(res))]
         for label, out in res.items():
@@ -494,19 +541,54 @@ def run_general(args, paths, clock_paths, phases) -> None:
               f"crashed slots {int(first.crashed.sum())}")
         if name in ("reset", "warm-up"):
             key = "K5 step (reset, spread phases)" if name == "reset" else "K5 warm-up"
-            timed[key] = ("K5", (veh, spec, sa, frames, steps0))
+            timed[key] = ("K5", (veh, spec, sa, frames, steps0), list(wrappers),
+                          {"linear": False})
+
+    # the Linear rows' branch of K4 and K5 (on the trees that take the
+    # parameter fields) and K5's raw-control branch, on the reset scene
+    for env_id, config, k in GENERAL_LINEAR:
+        env = ht.make(env_id, config)
+        spec, frames = env._general, env.frames_per_step
+        _, states = env.reset(B, env.generator(SEED))
+        veh = states.vehicles
+        acts = (torch.rand((B,) + tuple(env.action_type.action_shape), generator=gen,
+                           device=env.device) * 2 - 1
+                if env.action_type.stores_raw_controls else
+                torch.randint(0, env.action_type.n, (B,), generator=gen, device=env.device,
+                              dtype=torch.int32))
+        veh, sa, raw = gf.store_raw_controls(env, veh, env._action_to_slots(acts))
+        linear = env.linear_rows
+        extra = ()
+        if env.regulated:  # the tick phases spread over all 7 values
+            extra = (states.steps + torch.arange(B, device=env.device, dtype=torch.int32) * 15,)
+        labels = [label for label in wrappers if params[label] or not linear]
+        res = {label: wrappers[label][k](veh, spec, sa, frames, *extra, raw=raw, linear=linear)
+               for label in labels}
+        torch.cuda.synchronize()
+        what = config.get("other_vehicles_type", "ContinuousAction").rsplit(".", 1)[-1]
+        key = f"{k} {env_id} {what}"
+        print(f"== {key}: V={env.num_slots}, {frames} frames, B={B}, raw controls {raw}: "
+              f"{' and '.join(res)} ran; crashed slots "
+              f"{int(res[labels[0]].crashed.sum())}")
+        if len(res) > 1:
+            first = res[labels[0]]
+            for label, out in res.items():
+                equal_fields(out, first, reg_names if env.regulated else names, key)
+        timed[key] = (k, (veh, spec, sa, frames, *extra), labels, {"raw": raw, "linear": linear})
 
     # 3. device times in turns
-    for key, (k, call) in timed.items():
-        fns = {label: (lambda w=w[k]: w(*call)) for label, w in wrappers.items()}
+    for key, (k, call, labels, kw) in timed.items():
+        fns = {label: (lambda w=wrappers[label][k]: w(*call, **kw)) for label in labels}
         print(f"  {key}: " + in_turns(fns, args.rounds))
 
     # 4. cycles per frame phase
     for label, libs in clock_libs.items():
-        for key, (k, call) in timed.items():
+        for key, (k, call, labels, kw) in timed.items():
+            if label not in labels:
+                continue
             wrapper, lib = libs[k]
             print_clocks(label, key, lib, phases[label]["general_frames"],
-                         lambda w=wrapper: w(*call))
+                         lambda w=wrapper: w(*call, **kw))
 
 
 def main(argv) -> int:
@@ -552,10 +634,12 @@ def main(argv) -> int:
             for k, path in clock_paths[label].items():
                 print(f"{label} {k} with clocks: " + "; ".join(ptxas_report(path)))
 
+    params = {label: reads_params(pathlib.Path(csrc)) for label, csrc in trees.items()}
+    print(f"trees that read the Linear parameter fields: {params}")
     if "straight" in args.kernels:
-        run_straight(args, paths, clock_paths, phases)
+        run_straight(args, paths, clock_paths, phases, params)
     if "general" in args.kernels:
-        run_general(args, paths, clock_paths, phases)
+        run_general(args, paths, clock_paths, phases, params)
     return 0
 
 

@@ -8,6 +8,10 @@ vehicle/behavior.py ``IDMVehicle``):
   - MOBIL: safety (imposed braking >= -max_braking) + incentive
            (jerk >= gain) or, on a route with an explicit lane, the
            route-directed override; abort-on-conflict, timer gating.
+  - LinearVehicle (the Linear, Aggressive and Defensive presets, kind
+           ``KIND_LINEAR``): the same decisions, with the acceleration
+           theta . [v0 - v, min(v_f - v, 0), min(d - d_safe, 0)] in place
+           of IDM's wherever the deciding row is Linear.
 
 ``idm_acceleration`` is shared by both paths.  The straight frame
 (ops/straight_frames.py) runs its own decision pass on the road axis; the
@@ -29,7 +33,16 @@ from highwayenv_tpu_torch.road import lane as lane_ops
 from highwayenv_tpu_torch.road.lane import VEHICLE_LENGTH, LaneGeometry
 from highwayenv_tpu_torch.utils.math import not_zero
 from highwayenv_tpu_torch.vehicle.controller import table_row
-from highwayenv_tpu_torch.vehicle.state import KIND_IDM, KIND_LANDMARK, VehicleState
+from highwayenv_tpu_torch.vehicle.state import (
+    KIND_IDM,
+    KIND_LANDMARK,
+    KIND_LINEAR,
+    VehicleState,
+)
+
+#: LinearVehicle's time headway of its safe distance (reference
+#: ``LinearVehicle.TIME_WANTED``), not ``IDMParams.time_wanted``
+LINEAR_TIME_WANTED = 2.5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,10 +71,36 @@ class IDMParams:
         return float(np.float32(1.0) / two_sqrt_ab)
 
 
+def is_driven(state: VehicleState) -> torch.Tensor:
+    """(B, V) rows the NPC decision pass drives: uncrashed IDM and Linear
+    NPCs."""
+    return ((state.kind == KIND_IDM) | (state.kind == KIND_LINEAR)) & ~state.crashed
+
+
+def linear_acceleration(
+    p: IDMParams, accel_params, ego_speed, ego_target_speed, ego_s,
+    front_s, front_speed, front_exists,
+):
+    """LinearVehicle's acceleration of an ego row behind a front row
+    (reference ``LinearVehicle.acceleration``): theta . [vt, dv, dp] with
+    vt = v0 - v on the unclipped target speed, dv = min(v_f - v, 0) on the
+    front row's scalar speed, dp = min(d - d_safe, 0) with d_safe =
+    d0 + max(v, 0) ``LINEAR_TIME_WANTED``; dv and dp are 0 where no front
+    row exists.  ``accel_params`` (..., 3) is the deciding row's theta."""
+    vt = ego_target_speed - ego_speed
+    d_safe = p.distance_wanted + ego_speed.clamp(min=0.0) * LINEAR_TIME_WANTED
+    dv = (front_speed - ego_speed).clamp(max=0.0)
+    dp = ((front_s - ego_s) - d_safe).clamp(max=0.0)
+    return (
+        accel_params[..., 0] * vt
+        + accel_params[..., 1] * torch.where(front_exists, dv, 0.0)
+    ) + accel_params[..., 2] * torch.where(front_exists, dp, 0.0)
+
+
 def idm_acceleration(
     p: IDMParams, speed_limit: float, delta,
     ego_speed, ego_target_speed, ego_s, ego_cos, ego_sin,
-    front_s, front_vx, front_vy, front_exists,
+    front_s, front_vx, front_vy, front_exists, linear, front_speed,
 ):
     """IDM acceleration of an ego row behind a front row.
 
@@ -69,7 +108,11 @@ def idm_acceleration(
     neighbour (the reference evaluates ``self.DELTA``).  Rows are tensors of
     one shape; ``front_exists`` masks the interaction term.  ``speed_limit``
     is one float for the road or a tensor of the ego row's lane limits
-    (+inf where unlimited).
+    (+inf where unlimited).  ``linear`` is the deciding rows'
+    ``(mask, accel_params)``: where the mask is set the acceleration is
+    ``linear_acceleration`` with their parameters, which reads the front
+    row's ``front_speed`` (the decider's law, as the reference calls
+    ``self.acceleration`` on a neighbour).
     """
     if torch.is_tensor(speed_limit):
         ego_ts = torch.where(
@@ -96,7 +139,12 @@ def idm_acceleration(
     )
     q = d_star / not_zero(d)
     interaction = p.comfort_acc_max * (q * q)
-    return free - torch.where(front_exists, interaction, 0.0)
+    acc = free - torch.where(front_exists, interaction, 0.0)
+    mask, accel_params = linear
+    return torch.where(mask, linear_acceleration(
+        p, accel_params, ego_speed, ego_target_speed, ego_s, front_s, front_speed,
+        front_exists,
+    ), acc)
 
 
 # --------------------------------------------------------------------------- #
@@ -161,7 +209,8 @@ def neighbours(state: VehicleState, query_lane, table_s, elig):
 
 
 class Rows:
-    """The frame-start fields an IDM pair fetches by slot index."""
+    """The frame-start fields an IDM pair fetches by slot index, and the
+    deciding rows' law (``linear``: their Linear mask and parameters)."""
 
     def __init__(self, geo: LaneGeometry, state: VehicleState, table_s):
         self.geo, self.table_s = geo, table_s
@@ -173,6 +222,7 @@ class Rows:
             "is_vehicle": state.is_vehicle,
         }
         self.delta = state.delta
+        self.linear = (state.kind == KIND_LINEAR, state.accel_params)
         self.self_idx = torch.arange(
             state.num_slots, device=table_s.device
         ).expand_as(state.lane)
@@ -184,8 +234,9 @@ class Rows:
         """IDM acceleration of row ``ego_idx`` behind row ``front_idx``
         (-1 = none), with the deciding row's exponent, the ego's target
         speed clipped by its current lane's limit and the gap measured on
-        the ego's current lane; 0 where the ego is absent or no vehicle
-        (reference ``IDMVehicle.acceleration``)."""
+        the ego's current lane, or the deciding row's linear law; 0 where
+        the ego is absent or no vehicle (reference
+        ``IDMVehicle.acceleration``)."""
         e_lane = self.get("lane", ego_idx)
         L, V = self.table_s.shape[-2:]
         flat = self.table_s.flatten(1)
@@ -200,6 +251,7 @@ class Rows:
             s_on_ego_lane(ego_idx), self.get("cos", ego_idx),
             self.get("sin", ego_idx), s_on_ego_lane(front_idx),
             self.get("vx", front_idx), self.get("vy", front_idx), front_idx >= 0,
+            self.linear, self.get("speed", front_idx),
         )
         return torch.where(
             (ego_idx >= 0) & self.get("is_vehicle", ego_idx), acc, 0.0
@@ -239,7 +291,7 @@ def _mobil(geo, p, state, rows: Rows, cand, cur_front, cur_rear, table_s, elig):
 
 def idm_act(geo: LaneGeometry, p: IDMParams, state: VehicleState, table_s,
             table_lat):
-    """The decision pass of every IDM vehicle on the frame-start table
+    """The decision pass of every IDM and Linear vehicle on the frame-start table
     (reference ``IDMVehicle.act``): abort a lane change into a gap another
     controlled vehicle is closing (same road only), else the timer-gated
     MOBIL choice of the left then the right lane; then the IDM acceleration,
@@ -250,7 +302,7 @@ def idm_act(geo: LaneGeometry, p: IDMParams, state: VehicleState, table_s,
     rows = Rows(geo, state, table_s)
     me = rows.self_idx
     elig = eligible_on_lane(geo, state, table_s, table_lat)
-    idm = (state.kind == KIND_IDM) & ~state.crashed
+    idm = is_driven(state)
     lane, tlane = state.lane, state.target_lane
     li, tli = lane_ops._gather(geo, lane), lane_ops._gather(geo, tlane)
     mid_change = lane != tlane

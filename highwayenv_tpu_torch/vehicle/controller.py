@@ -59,6 +59,20 @@ def steering_from_coords(lane_heading, lat, heading, speed, vehicle_length):
     return steering_angle.clamp(-MAX_STEERING_ANGLE, MAX_STEERING_ANGLE)
 
 
+def linear_steering(lane_heading, lat, heading, speed, vehicle_length, steer_params):
+    """LinearVehicle's lateral controller (reference
+    ``LinearVehicle.steering_control``), linear in its ``steer_params``
+    (..., 2): p0 wrap(lane_heading - heading) length / v + p1 (-lat length
+    / v^2), v = not_zero(speed), clipped as the P-cascade's angle.
+    ``lane_heading`` is the target lane's heading a pursuit distance ahead
+    and ``lat`` the lateral offset from it."""
+    v = not_zero(speed)
+    feat_h = wrap_to_pi(lane_heading - heading) * vehicle_length / v
+    feat_lat = -lat * vehicle_length / (v * v)
+    steering_angle = steer_params[..., 0] * feat_h + steer_params[..., 1] * feat_lat
+    return steering_angle.clamp(-MAX_STEERING_ANGLE, MAX_STEERING_ANGLE)
+
+
 def steering_control(geo: LaneGeometry, target_lane, pos, heading, speed, length):
     """Steering toward ``target_lane`` (straight lanes: constant heading)."""
     _s, lat = lane_ops.local_coordinates(geo, target_lane, pos)
@@ -74,16 +88,20 @@ def table_row(table: torch.Tensor, lane: torch.Tensor) -> torch.Tensor:
 
 
 def steering_from_table(geo: LaneGeometry, lane, state: VehicleState, table_s,
-                        table_lat):
+                        table_lat, linear):
     """Steering toward ``lane`` (B, V) with its (s, lat) read from the
     projection table; the lane heading is taken a pursuit distance ahead
-    (JAX ``steering_control_from_table``)."""
+    (JAX ``steering_control_from_table``).  Where the (B, V) mask ``linear``
+    is set, LinearVehicle's law (``linear_steering``) instead."""
     s = table_row(table_s, lane)
     lat = table_row(table_lat, lane)
     future = lane_ops.heading_at(geo, lane, s + state.speed * TAU_PURSUIT)
-    return steering_from_coords(
+    steer = steering_from_coords(
         future, lat, state.heading, state.speed, state.length
     )
+    return torch.where(linear, linear_steering(
+        future, lat, state.heading, state.speed, state.length, state.steer_params
+    ), steer)
 
 
 def speed_control(target_speed, speed):

@@ -84,7 +84,7 @@ def test_unknown_or_unported_id_raises_keyerror():
 @pytest.mark.parametrize(
     "config",
     [
-        {"other_vehicles_type": "highway_env.vehicle.behavior.LinearVehicle"},
+        {"sequential_decisions": True},
         {"controlled_vehicles": 2},
         {"observation": {"type": "LidarObservation"}},
     ],
@@ -92,6 +92,15 @@ def test_unknown_or_unported_id_raises_keyerror():
 def test_unported_configurations_raise_at_make(config):
     with pytest.raises(NotImplementedError, match="not ported"):
         ht.make("highway-v0", config, device="cpu")
+
+
+def test_route_choice_preprocessor_is_not_ported():
+    from highwayenv_tpu_torch.envs import preprocessors
+
+    env = ht.make("intersection-v0", device="cpu")
+    _, state = env.reset(2, env.generator(0))
+    with pytest.raises(ht.NotPortedError, match="ops/uncertainty.py"):
+        preprocessors.set_route_at_intersection(env, state, 0, "random")
 
 
 def test_bridge_round_trip_is_bitwise():

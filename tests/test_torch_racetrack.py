@@ -403,8 +403,9 @@ def test_gate_refusals_name_their_reason():
     class RegulatedRacetrack(RacetrackEnv):
         regulated = True
 
-    with pytest.raises(NotImplementedError, match="raw-control actions on a regulated road"):
-        RegulatedRacetrack(device="cpu")
+    # raw controls on a regulated road take K5's raw-control branch
+    regulated = RegulatedRacetrack(device="cpu")
+    assert regulated._general is not None and regulated._general.period is not None
     with pytest.raises(NotPortedError, match="vehicle/dynamics.py"):
         ht.make("racetrack-v0", {"action": {"type": "ContinuousAction", "dynamical": True}},
                 device="cpu")

@@ -69,7 +69,9 @@ CASES = [("highway-fast-v0", s) for s in SCENES] + [("highway-v0", "pileup")]
 DISCRETE = ("lane", "target_lane", "crashed", "impact_pending")
 CONTINUOUS = ("pos", "heading", "speed", "timer", "impact", "steering", "accel")
 # port field -> JAX batch-minor fields
-_BM = {"pos": ("px", "py"), "impact": ("impact_x", "impact_y")}
+_BM = {"pos": ("px", "py"), "impact": ("impact_x", "impact_y"),
+       "accel_params": ("accel_p0", "accel_p1", "accel_p2"),
+       "steer_params": ("steer_p0", "steer_p1")}
 
 _SETUP: dict = {}
 _BANDED: dict = {}

@@ -46,9 +46,14 @@ Phases:
      ContinuousAction) at intersection-v0, B=4096, on the reset scene with
      the tick phases spread over all 7 values, the conflict scene and
      (raw) the warm-up launch, every field bit-exact; and the intersection-v0
-     autoreset step against the plain reference path; then
-     on highway-v0, roundabout-v0, intersection-v0, racetrack-v0 and
-     highway-v0 LinearVehicle,
+     autoreset step against the plain reference path; then K4 at the
+     five envs of the time-to-collision, exit and generic slice at B=4096,
+     exit-v0 (V=21, L=20, 7 lanes on one edge, 5 frames: the kernel's
+     32-thread group), u-turn-v0, two-way-v0, merge-generic-v0 and
+     roundabout-generic-v0 (L=32), on the reset scene, 8 steps in and the
+     all-env pile-up, every field bit-exact; then
+     on highway-v0, roundabout-v0, intersection-v0, racetrack-v0,
+     highway-v0 LinearVehicle, u-turn-v0 and exit-v0 (is_success too),
      B=4096, from a batch
      with every 8th ego crashed, the compact autoreset (reset_slots P =
      1024, and 64, which takes further passes) against the full one over 3
@@ -73,10 +78,14 @@ Phases:
      highway-v0 LinearVehicle through the sorted step (its main path),
      roundabout-v0 AggressiveVehicle through K4, intersection-v0
      DefensiveVehicle and intersection-v0 ContinuousAction through K5
-     (reset and rollout); then the eight rollouts (the seven and highway-v0
-     LinearVehicle) again with each step one replay of a CapturedStep (the
-     kernels' counts cover the warm-up step and the capture), and a
-     profile of replays for the port's kernels per replay;
+     (reset and rollout); then the slice's five paths, each with the counts set to
+     0 just before it: merge-generic-v0, roundabout-generic-v0,
+     two-way-v0, u-turn-v0 and exit-v0, B=4096, reset and a rollout
+     through K4 (one launch per policy step); then the thirteen rollouts
+     (the seven, highway-v0 LinearVehicle and the slice's five) again
+     with each step one replay of a CapturedStep (the kernels' counts
+     cover the warm-up step and the capture), and a profile of replays
+     for the port's kernels per replay;
   5. times on the card: each kernel's time (CUDA events around launches
      queued behind a device-side wait), its plain version's device time
      (torch.profiler), its bound and the PyTorch yardstick's where there
@@ -86,14 +95,18 @@ Phases:
      and K1 at highway-v0 LinearVehicle, K4 at roundabout-v0
      AggressiveVehicle, K5's step at intersection-v0 DefensiveVehicle) and
      K5's raw-control branch (intersection-v0 ContinuousAction), their
-     bounds with the linear laws' operations; the simulation of a
+     bounds with the linear laws' operations, and K4 at exit-v0 and
+     u-turn-v0 (the timed launch's output held bit-exact to the plain
+     version's); the simulation of a
      sorted and a dense policy step; the sorted and dense rollouts in
      turns; the roundabout-v0 and intersection-v0 rollouts three times
      each, and the three racetrack rollouts; a profile of rollout steps of
      each (device kernels by name, device busy share); and ms per step of
      racetrack-v0, the three envs and highway-v0 LinearVehicle, eager against
      graph, full against compact P=1024, three runs each in turns, with
-     the device busy time per step.
+     the device busy time per step, and of the slice's five envs eager
+     against graph, full autoreset, with a profile of eager steps, the
+     observation's and a reset placement's device time.
 
 Exits non-zero on any failed check, and without CUDA.  The last lines are
 the kernels JSON, the card line and ``{"ok": true, "device": {...}}``.
@@ -216,6 +229,14 @@ REG_OPS_CLOSE = 5
 REG_OPS_PROBES = 18 * 20
 REG_OPS_YIELD = 10
 INT_HORIZON = 32  # policy steps of the intersection-v0 main-path rollout
+#: the five envs of the slice of the time-to-collision and exit observations
+#: and the generic roads, which the JAX package steps on K4, each checked,
+#: driven and timed at B: exit-v0 runs the kernel's 32-thread group (V=21)
+SLICE_ENVS = ("exit-v0", "u-turn-v0", "two-way-v0", "merge-generic-v0",
+              "roundabout-generic-v0")
+#: the slice's envs with a K4 row of their own in the kernels line: the
+#: 32-thread group (exit-v0) and the circular U-turn (u-turn-v0)
+SLICE_ROWS = ("exit-v0", "u-turn-v0")
 COMPACT_SLOTS = (1024, 64)  # reset slots P: one pass a step, and further passes
 COMPACT_STEPS = 3  # autoreset steps of compact against full
 GRAPH_STEPS = 8  # steps of the captured step against the eager one
@@ -747,6 +768,92 @@ def bound(ops: float, n_bytes: int):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_ops, t_bytes
 
 
+def group_size(V: int) -> int:
+    """Threads per env of the general frame kernel (``threads_per_env`` in
+    csrc/general_frames.cu)."""
+    return 16 if V <= 16 else 32
+
+
+def k4_work(gf, env, veh, sa):
+    """(float32 operations, bytes) of one K4 launch from ``veh`` with the
+    slot actions ``sa``: the operations counted frame by frame on the plain
+    version (``gen_frame_ops``), the bytes of every field read and written
+    once (``read_bytes``), the slot actions and the lane tables."""
+    from highwayenv_tpu_torch.road import lane as lane_ops
+
+    spec = env._general
+    ops, v = 0.0, veh
+    table = lane_ops.projection_table(spec.geo, v.pos)
+    for f in range(env.frames_per_step):
+        out, next_table = gf.frame_general_plain(v, spec, table, sa if f == 0 else None)
+        ops += gen_frame_ops(v, out, spec, table)
+        v, table = out, next_table
+    R = veh.route_base.shape[-1]
+    lf, li = gf.lane_tables(spec.geo, env.device)
+    n_bytes = (read_bytes(veh, gf._resolve(gf._IN_FIELDS, R)) + sa.numel() * 4
+               + field_bytes(v, gf._resolve(gf.OUT_FIELDS, R))
+               + lf.numel() * 4 + li.numel() * 4)
+    return ops, n_bytes
+
+
+def check_slice_kernels(ht, gf, err) -> dict:
+    """K4 against its plain version at the five envs of the slice
+    (SLICE_ENVS) on the reset scene, 8 steps in and the all-env pile-up,
+    every field bit-exact; records each env's max error in ``err`` under
+    "K4 <env id>".  Returns {env id: (env, states)}."""
+    k4 = gf.frames_general_kernel
+    envs = {}
+    for env_id in SLICE_ENVS:
+        env = ht.make(env_id)
+        spec, frames = env._general, env.frames_per_step
+        gen = env.generator(SEED)
+        _, states = env.reset(B, gen)
+        V, key = env.num_slots, f"K4 {env_id}"
+        err[key] = 0.0
+        print(f"== 3. K4 vs plain: {env_id} V={V}, L={env.geo.num_lanes}, "
+              f"R={states.vehicles.route_base.shape[-1]}, at most {spec.max_edge_lanes} "
+              f"lanes an edge, group {group_size(V)} threads an env, {frames} frames, "
+              f"B={B}, observation {type(env.observation_type).__name__}")
+        for name, veh in general_scenes(env, states, gen).items():
+            sa = env._action_to_slots(random_actions(env, B, gen))
+            out_k = k4(veh, spec, sa, frames, linear=env.linear_rows)
+            out_p = gf.frames_general_plain(veh, spec, sa, frames)
+            torch.cuda.synchronize()
+            err[key] = max(err[key], compare_general(out_k, out_p, f"{env_id} {name}"))
+            if name == "pile-up" and not bool(out_k.crashed[:, 0].any()):
+                raise AssertionError(f"{env_id}: no ego of the pile-up crashed")
+        envs[env_id] = (env, states)
+    return envs
+
+
+def drive_slice(envs, kernels, launches) -> None:
+    """The slice's paths: each env of ``envs`` made on CUDA, reset and a
+    HORIZON-step random-policy rollout through K4 at B, the counts set to
+    0 just before and read just after: K4 once per policy step, alone."""
+    k4 = kernels["K4"]
+    for env_id, (env, _) in envs.items():
+        print(f"== 4. slice path: make('{env_id}') on CUDA, B={B}, reset and {HORIZON} "
+              "random-policy autoreset steps through K4")
+        gen = env.generator(SEED + 1)
+        for k in kernels.values():
+            k.launches = 0
+        _, st = env.reset(B, gen)
+        st, m = rollout(env, st, HORIZON, gen)
+        torch.cuda.synchronize()
+        others = {n: k.launches for n, k in kernels.items() if n != "K4"}
+        m = {k: float(v) for k, v in m.items()}
+        print(f"  launches: K4 {k4.launches} in {HORIZON} policy steps, other kernels "
+              f"{others}; rollout {m}")
+        if k4.launches != HORIZON or any(others.values()):
+            raise AssertionError(f"{env_id}: K4 must launch once per policy step, alone")
+        if not all(np.isfinite(list(m.values()))) or not m["done_rate"] > 0:
+            raise AssertionError(f"{env_id}: non-finite metrics or no episode ended")
+        for k in ("pos", "speed", "heading"):
+            if not bool(torch.isfinite(getattr(st.vehicles, k)).all()):
+                raise AssertionError(f"{env_id}: non-finite {k}")
+        launches[f"K4 {env_id}"] = k4.launches
+
+
 def profile_rollout(env, states, gen, steps: int = 4) -> None:
     """Where a rollout step's time goes: device kernels by name and the
     device's busy share of the wall time, from torch.profiler."""
@@ -784,7 +891,7 @@ def crashed_every(env, states, k: int = CRASH_EVERY):
 
 def same_step(a, b, where: str) -> None:
     """Two autoreset steps' obs, every field of the state, reward,
-    terminated and truncated bit-exact."""
+    terminated, truncated and (exit-v0) ``info["is_success"]`` bit-exact."""
     import dataclasses
 
     names = ["obs", "reward", "terminated", "truncated", "time", "steps"]
@@ -794,6 +901,10 @@ def same_step(a, b, where: str) -> None:
         names.append(f.name)
         pairs.append(getattr(a[1].vehicles, f.name))
         others.append(getattr(b[1].vehicles, f.name))
+    if "is_success" in a[5]:  # exit-v0
+        names.append("is_success")
+        pairs.append(a[5]["is_success"])
+        others.append(b[5]["is_success"])
     bad = [n for n, x, y in zip(names, pairs, others) if not torch.equal(x, y)]
     if bad:
         raise AssertionError(f"{where}: differ in {bad}")
@@ -1273,11 +1384,19 @@ def main() -> int:
                 raise AssertionError(f"{label} {name}: no Linear row")
     check_autoreset(ienv, istates, gen, "intersection-v0 ")
 
-    # the compact autoreset and the captured step, on the three envs
+    # K4 at the slice's five envs; exit-v0 (B rows) and u-turn-v0 (a fresh
+    # batch of B rows) carry on to the compact and captured checks
+    slice_envs = check_slice_kernels(ht, gf, err)
+    xenv, xstates = slice_envs["exit-v0"]
+    uenv = slice_envs["u-turn-v0"][0]
+    _, ustates = uenv.reset(B, uenv.generator(SEED))
+
+    # the compact autoreset and the captured step
     for label, e, st in (("highway-v0 ", env, states), ("roundabout-v0 ", genv, gstates),
                          ("intersection-v0 ", ienv, istates),
                          ("racetrack-v0 ", renv, rstates),
-                         ("highway-v0 LinearVehicle ", lenv, lstates)):
+                         ("highway-v0 LinearVehicle ", lenv, lstates),
+                         ("u-turn-v0 ", uenv, ustates), ("exit-v0 ", xenv, xstates)):
         print(f"== 3. {label}compact autoreset vs full, CapturedStep vs eager")
         check_compact(e, st, label)
         check_graph(e, st, label)
@@ -1541,6 +1660,10 @@ def main() -> int:
                                  "ended")
         launches[key] = step_n
 
+    # the slice's paths, each with the counts set to 0 just before it
+    drive_slice(slice_envs, {"K1": k1, "K2a": k2a, "K3": k3, "K2b": k2b, "K4": k4, "K5": k5},
+                launches)
+
     # the rollouts again, each step one replay of a CapturedStep
     straight_names = ("straight_frames_kernel", "sort_kernel",
                       "straight_frames_sorted_kernel", "unsort_kernel")
@@ -1553,7 +1676,8 @@ def main() -> int:
               for env_id, e in racers.items()) + (
         ("highway-v0 ContinuousAction", cenv, straight_kernels, straight_names),
         ("highway-v0 LinearVehicle", lenv, straight_kernels, straight_names),
-    )
+    ) + tuple((env_id, e, {"K4": k4}, ("general_frames_kernel<false,",))
+              for env_id, (e, _) in slice_envs.items())
     for label, e, path, names in path_kernels:
         print(f"== 4. graph path: {label} on CUDA, B={B}, {HORIZON} random-policy "
               "autoreset steps, each one replay of a CapturedStep")
@@ -1706,17 +1830,7 @@ def main() -> int:
         lambda: k4(gveh, gspec, gsa, gframes, linear=False),
         lambda: gf.frames_general_plain(gveh, gspec, gsa, gframes), None, 20, 2,
     )
-    ops, v = 0.0, gveh
-    table = lane_ops.projection_table(gspec.geo, v.pos)
-    for f in range(gframes):
-        out, next_table = gf.frame_general_plain(v, gspec, table, gsa if f == 0 else None)
-        ops += gen_frame_ops(v, out, gspec, table)
-        v, table = out, next_table
-    R = gveh.route_base.shape[-1]
-    lf, li = gf.lane_tables(gspec.geo, genv.device)
-    n_bytes = (read_bytes(gveh, gf._resolve(gf._IN_FIELDS, R)) + gsa.numel() * 4
-               + field_bytes(v, gf._resolve(gf.OUT_FIELDS, R))
-               + lf.numel() * 4 + li.numel() * 4)
+    ops, n_bytes = k4_work(gf, genv, gveh, gsa)
     bms, by, t_ops, t_bytes = bound(ops, n_bytes)
     rows["K4"] = ("general_frames", "highwayenv_tpu_torch/csrc/general_frames.cu",
                   "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms, bms, by, None)
@@ -1889,17 +2003,7 @@ def main() -> int:
         lambda: k4(aveh, aspec, asa, gframes, linear=True),
         lambda: gf.frames_general_plain(aveh, aspec, asa, gframes), None, 20, 2,
     )
-    ops, v = 0.0, aveh
-    table = lane_ops.projection_table(aspec.geo, v.pos)
-    for f in range(gframes):
-        out, next_table = gf.frame_general_plain(v, aspec, table, asa if f == 0 else None)
-        ops += gen_frame_ops(v, out, aspec, table)
-        v, table = out, next_table
-    R = aveh.route_base.shape[-1]
-    lf, li = gf.lane_tables(aspec.geo, aenv.device)
-    n_bytes = (read_bytes(aveh, gf._resolve(gf._IN_FIELDS, R)) + asa.numel() * 4
-               + field_bytes(v, gf._resolve(gf.OUT_FIELDS, R))
-               + lf.numel() * 4 + li.numel() * 4)
+    ops, n_bytes = k4_work(gf, aenv, aveh, asa)
     bms, by, t_ops, t_bytes = bound(ops, n_bytes)
     rows["K4 linear"] = ("general_frames (roundabout-v0 AggressiveVehicle, Linear rows)",
                          "highwayenv_tpu_torch/csrc/general_frames.cu",
@@ -1907,6 +2011,33 @@ def main() -> int:
                          None)
     print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, "
           f"{n_bytes} bytes -> {t_bytes:.5f} ms)")
+    # K4 at the slice's envs with a row of their own, from fresh resets with
+    # random actions
+    for env_id in SLICE_ROWS:
+        e = slice_envs[env_id][0]
+        _, s0 = e.reset(B, e.generator(SEED + 2))
+        sveh, sspec, sframes = s0.vehicles, e._general, e.frames_per_step
+        ssa = e._action_to_slots(random_actions(e, B, gen))
+        what = f"{env_id}, V={e.num_slots}, group {group_size(e.num_slots)}"
+        # the timed launch's own output against the plain version's
+        out_k = k4(sveh, sspec, ssa, sframes, linear=False)
+        out_p = gf.frames_general_plain(sveh, sspec, ssa, sframes)
+        torch.cuda.synchronize()
+        err[f"K4 {env_id}"] = max(err[f"K4 {env_id}"],
+                                  compare_general(out_k, out_p, f"{env_id} timed inputs"))
+        ms, plain_ms, _ = timed(
+            f"K4 general_frames ({what}), per policy step",
+            lambda: k4(sveh, sspec, ssa, sframes, linear=False),
+            lambda: gf.frames_general_plain(sveh, sspec, ssa, sframes), None, 20, 2,
+        )
+        ops, n_bytes = k4_work(gf, e, sveh, ssa)
+        bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+        rows[f"K4 {env_id}"] = (f"general_frames ({what})",
+                                "highwayenv_tpu_torch/csrc/general_frames.cu",
+                                "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms,
+                                bms, by, None)
+        print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, "
+              f"{n_bytes} bytes -> {t_bytes:.5f} ms)")
     for key, xenv in k5_envs.items():
         what = "DefensiveVehicle, Linear rows" if key == "K5 linear" else (
             "ContinuousAction, raw controls")
@@ -2056,6 +2187,33 @@ def main() -> int:
             torch.cuda.synchronize()
             print(f"  {label} graph {name}: the host issues a replay in "
                   f"{sorted(issue)[5]:.4f} ms (median of 10, from an idle queue)")
+
+    # the slice's envs: eager against graph, the full autoreset, in turns
+    for env_id, (e, _) in slice_envs.items():
+        print(f"  [{env_id} at {time.time() - start:.0f} s]")
+        _, t0_states = e.reset(B, e.generator(SEED + 4))
+        walls = {name: [] for name in ("eager full", "graph full")}
+        for r in range(3):
+            for name in (("eager full", "graph full") if r % 2 == 0
+                         else ("graph full", "eager full")):
+                walls[name].append(timed_steps(e, t0_states, e.generator(SEED + 5),
+                                               TIMED_STEPS, None, name == "graph full"))
+        for name, ws in walls.items():
+            busy, n_kernels = step_device_ms(e, t0_states, e.generator(SEED + 5), None,
+                                             name == "graph full")
+            mid = sorted(ws)[1]
+            print(f"  {env_id} {name}: " + ", ".join(f"{w:.4f}" for w in ws)
+                  + f" ms per step ({B * 1e3 / mid:.1f} env-steps/s at the median); device "
+                  f"busy {busy:.4f} ms per step, {100 * busy / mid:.1f}% of the median, "
+                  f"{n_kernels:.1f} device kernels per step ({card})")
+        # where an eager step's device time goes: kernels by name, the
+        # observation and a reset's placement at B rows
+        profile_rollout(e, t0_states, e.generator(SEED + 5))
+        draws = e._reset_draws(B, e.generator(SEED + 6))
+        obs_ms = device_ms(lambda: e._observe(t0_states), 5)
+        place_ms = device_ms(lambda: e._place_state(draws), 5)
+        print(f"  {env_id} observation ({type(e.observation_type).__name__}): {obs_ms:.4f} "
+              f"ms on the device; a reset's placement at {B} rows {place_ms:.4f} ms")
 
     print(f"(phases 1-5: {time.time() - start:.0f} s)")
     print(json.dumps({"kernels": [{

@@ -7,7 +7,9 @@ package imports nothing of it and nothing of JAX.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 Registry ids mirror the reference; ported so far: the straight highway
-envs and, on the general analytic-lane path, roundabout-v0, merge-v0, the
+envs and, on the general analytic-lane path, roundabout-v0, merge-v0,
+merge-generic-v0, roundabout-generic-v0, two-way-v0 and u-turn-v0 (the
+time-to-collision observation), exit-v0 (the exit observation), the
 regulated intersection-v0 and the racetrack family (racetrack-v0,
 racetrack-large-v0, racetrack-oval-v0), whose ContinuousAction egos run the
 frame kernels' raw-control branch; on every id the NPCs may be the
@@ -91,24 +93,34 @@ def register_gymnasium_envs(namespace: str = "highwayenv_tpu_torch") -> None:
 
 
 def _register_all():
+    from highwayenv_tpu_torch.envs.exit import ExitEnv
     from highwayenv_tpu_torch.envs.highway import HighwayEnv, HighwayEnvFast
     from highwayenv_tpu_torch.envs.intersection import IntersectionEnv
     from highwayenv_tpu_torch.envs.merge import MergeEnv
+    from highwayenv_tpu_torch.envs.merge_generic import MergeGenericEnv
     from highwayenv_tpu_torch.envs.racetrack import (
         RacetrackEnv,
         RacetrackEnvLarge,
         RacetrackEnvOval,
     )
     from highwayenv_tpu_torch.envs.roundabout import RoundaboutEnv
+    from highwayenv_tpu_torch.envs.roundabout_generic import RoundaboutGenericEnv
+    from highwayenv_tpu_torch.envs.two_way import TwoWayEnv
+    from highwayenv_tpu_torch.envs.u_turn import UTurnEnv
 
+    register("exit-v0", ExitEnv)
     register("highway-v0", HighwayEnv)
     register("highway-fast-v0", HighwayEnvFast)
     register("intersection-v0", IntersectionEnv)
     register("merge-v0", MergeEnv)
+    register("merge-generic-v0", MergeGenericEnv)
     register("racetrack-v0", RacetrackEnv)
     register("racetrack-large-v0", RacetrackEnvLarge)
     register("racetrack-oval-v0", RacetrackEnvOval)
     register("roundabout-v0", RoundaboutEnv)
+    register("roundabout-generic-v0", RoundaboutGenericEnv)
+    register("two-way-v0", TwoWayEnv)
+    register("u-turn-v0", UTurnEnv)
 
 
 _register_all()

@@ -3,7 +3,8 @@
 PyTorch counterpart of ``highwayenv_tpu/factories.py`` (reference
 envs/common/observation.py ``observation_factory`` and envs/common/action.py
 ``action_factory``), so scenario configs stay drop-in.  The port has the
-Kinematics and OccupancyGrid observations and the DiscreteMetaAction,
+Kinematics, TimeToCollision, ExitObservation and OccupancyGrid
+observations and the DiscreteMetaAction,
 ContinuousAction and DiscreteAction; every other type the JAX package knows
 raises ``NotPortedError`` naming the module it waits for, and an unknown
 type raises ``ValueError`` as in the JAX package.
@@ -14,13 +15,13 @@ from __future__ import annotations
 from highwayenv_tpu_torch import NotPortedError
 from highwayenv_tpu_torch.actions.continuous import ContinuousAction, DiscreteAction
 from highwayenv_tpu_torch.actions.discrete_meta import DiscreteMetaAction
+from highwayenv_tpu_torch.observations.exit_obs import ExitObservation
 from highwayenv_tpu_torch.observations.kinematics import KinematicsObservation
 from highwayenv_tpu_torch.observations.occupancy_grid import OccupancyGridObservation
+from highwayenv_tpu_torch.observations.ttc import TimeToCollisionObservation
 
 #: the JAX package's other types and the module each one needs
 _UNPORTED_OBSERVATIONS = {
-    "TimeToCollision": "observations/ttc.py",
-    "ExitObservation": "observations/exit_obs.py",
     "KinematicsGoal": "observations/kinematics_goal.py",
     "LidarObservation": "observations/lidar.py",
     "GrayscaleObservation": "observations/grayscale.py",
@@ -46,6 +47,12 @@ def observation_factory(env, config: dict):
     kwargs = {k: v for k, v in config.items() if k != "type"}
     if config["type"] == "Kinematics":
         return KinematicsObservation(
+            reset_edge_lanes=getattr(env, "obs_edge_lanes", None), **kwargs
+        )
+    if config["type"] == "TimeToCollision":
+        return TimeToCollisionObservation(env, **kwargs)
+    if config["type"] == "ExitObservation":
+        return ExitObservation(
             reset_edge_lanes=getattr(env, "obs_edge_lanes", None), **kwargs
         )
     if config["type"] == "OccupancyGrid":

@@ -136,12 +136,19 @@ class KinematicsObservation:
                 self._relative(feats.device), rows - ego_row[:, None], rows
             )
         rows = torch.where(sel_ok[..., None], rows, 0.0)
-        obs = torch.cat([ego_row[:, None], rows], dim=1)
+        # the displayed ego row may differ from the world-frame row the
+        # others are taken relative to (ExitObservation)
+        obs = torch.cat([self._ego_row(geo, state, ego, ego_row)[:, None], rows], dim=1)
         if self.normalize:
             obs = self._normalize(geo, state, ego, obs)
         # zero the padding rows after normalization
         row_ok = torch.cat([torch.ones_like(sel_ok[:, :1]), sel_ok], dim=1)
         return torch.where(row_ok[..., None], obs, 0.0)
+
+    def _ego_row(self, geo, state, ego, ego_row):
+        """Hook: the ego's (B, F) feature row as displayed, before
+        normalization."""
+        return ego_row
 
     def _normalize(self, geo, state, ego, obs):
         """Reference observation.py ``normalize_obs``."""

@@ -191,6 +191,30 @@ class RoadNetworkBuilder:
             base += len(lanes)
         raise KeyError(g)
 
+    def connectivity_matrix(self, depth: int = 3, same_lane: bool = False) -> np.ndarray:
+        """(L, L) bool host matrix of reference road/road.py
+        ``is_connected_road(l1, l2, depth=depth)`` on its route-less path:
+        l2 is on l1's road, or on a road that leads into it, within
+        ``depth`` successor edges of l1 keeping its lane id.  The
+        time-to-collision grid (``observations/ttc.py``) gates on it."""
+        indices = [(f, t, i) for (f, t), lanes in self._edges.items()
+                   for i in range(len(lanes))]
+
+        def connected(i1, i2, depth):
+            f1, t1, id1 = i1
+            f2, t2, id2 = i2
+            lane_ok = not same_lane or id1 == id2
+            if ((f1, t1) == (f2, t2) or t2 == f1) and lane_ok:
+                return True
+            return depth > 0 and any(
+                connected((t1, nt, id1), i2, depth - 1)
+                for nf, nt in self._edges if nf == t1
+            )
+
+        return np.array([[connected(i1, i2, depth) for i2 in indices]
+                         for i1 in indices], dtype=bool).reshape(
+            len(indices), len(indices))
+
     def bfs_shortest_path(self, start: str, goal: str) -> list[str]:
         """Breadth-first shortest node path (reference road/road.py
         ``bfs_paths``), successors visited in sorted order."""

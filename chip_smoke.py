@@ -51,10 +51,18 @@ Phases:
      exit-v0 (V=21, L=20, 7 lanes on one edge, 5 frames: the kernel's
      32-thread group), u-turn-v0, two-way-v0, merge-generic-v0 and
      roundabout-generic-v0 (L=32), on the reset scene, 8 steps in and the
-     all-env pile-up, every field bit-exact; then
+     all-env pile-up, every field bit-exact; then K4's raw-control branch
+     on 14 lanes an edge at the parking family, parking-v0 (V=6, 3
+     frames), parking-ActionRepeat-v0 (15 frames) and parking-parked-v0
+     (V=16), B=4096, on the reset scene, 8 steps in, the pile-up and a
+     scene in which the egos hit the walls, their goal landmarks and the
+     parked cars, every field bit-exact, and make() on the card refusing
+     configs beyond the kernels' arrays (17 target speeds, 17 straight
+     lanes), naming the limit; then
      on highway-v0, roundabout-v0, intersection-v0, racetrack-v0,
-     highway-v0 LinearVehicle, u-turn-v0 and exit-v0 (is_success too),
-     B=4096, from a batch
+     highway-v0 LinearVehicle, u-turn-v0, exit-v0 (is_success too) and
+     parking-v0 (the KinematicsGoal dict observation, field by field, and
+     is_success), B=4096, from a batch
      with every 8th ego crashed, the compact autoreset (reset_slots P =
      1024, and 64, which takes further passes) against the full one over 3
      steps, and CapturedStep replays against eager steps over 8 (full, P =
@@ -81,11 +89,12 @@ Phases:
      (reset and rollout); then the slice's five paths, each with the counts set to
      0 just before it: merge-generic-v0, roundabout-generic-v0,
      two-way-v0, u-turn-v0 and exit-v0, B=4096, reset and a rollout
-     through K4 (one launch per policy step); then the thirteen rollouts
-     (the seven, highway-v0 LinearVehicle and the slice's five) again
-     with each step one replay of a CapturedStep (the kernels' counts
-     cover the warm-up step and the capture), and a profile of replays
-     for the port's kernels per replay;
+     through K4 (one launch per policy step); then the parking family's
+     three paths in the same way, every 8th ego crashed at the start; then
+     the sixteen rollouts (the seven, highway-v0 LinearVehicle, the
+     slice's five and the parking family) again with each step one replay
+     of a CapturedStep (the kernels' counts cover the warm-up step and the
+     capture), and a profile of replays for the port's kernels per replay;
   5. times on the card: each kernel's time (CUDA events around launches
      queued behind a device-side wait), its plain version's device time
      (torch.profiler), its bound and the PyTorch yardstick's where there
@@ -95,18 +104,20 @@ Phases:
      and K1 at highway-v0 LinearVehicle, K4 at roundabout-v0
      AggressiveVehicle, K5's step at intersection-v0 DefensiveVehicle) and
      K5's raw-control branch (intersection-v0 ContinuousAction), their
-     bounds with the linear laws' operations, and K4 at exit-v0 and
-     u-turn-v0 (the timed launch's output held bit-exact to the plain
-     version's); the simulation of a
+     bounds with the linear laws' operations, and K4 at exit-v0,
+     u-turn-v0 and the three parking ids (raw controls; the timed
+     launch's output held bit-exact to the plain version's); the
+     simulation of a
      sorted and a dense policy step; the sorted and dense rollouts in
      turns; the roundabout-v0 and intersection-v0 rollouts three times
      each, and the three racetrack rollouts; a profile of rollout steps of
      each (device kernels by name, device busy share); and ms per step of
      racetrack-v0, the three envs and highway-v0 LinearVehicle, eager against
      graph, full against compact P=1024, three runs each in turns, with
-     the device busy time per step, and of the slice's five envs eager
-     against graph, full autoreset, with a profile of eager steps, the
-     observation's and a reset placement's device time.
+     the device busy time per step, and of the slice's five envs and the
+     parking family eager against graph, full autoreset, with a profile
+     of eager steps, the observation's and a reset placement's device
+     time.
 
 Exits non-zero on any failed check, and without CUDA.  The last lines are
 the kernels JSON, the card line and ``{"ok": true, "device": {...}}``.
@@ -237,12 +248,27 @@ SLICE_ENVS = ("exit-v0", "u-turn-v0", "two-way-v0", "merge-generic-v0",
 #: the slice's envs with a K4 row of their own in the kernels line: the
 #: 32-thread group (exit-v0) and the circular U-turn (u-turn-v0)
 SLICE_ROWS = ("exit-v0", "u-turn-v0")
+#: the parking family: K4's raw-control branch on 14 lanes an edge (V=6, 6
+#: and 16; 3, 15 and 3 frames), each checked, driven, timed and with a K4
+#: row of its own at B
+PARKING_ENVS = ("parking-v0", "parking-ActionRepeat-v0", "parking-parked-v0")
+#: configs beyond the kernels' arrays, each (env id, config, the limit named)
+OVER_LIMITS = (
+    ("roundabout-v0", {"action": {"type": "DiscreteMetaAction",
+                                  "target_speeds": list(range(17))}},
+     "17 target speeds outside 2 to 16"),
+    ("highway-v0", {"lanes_count": 17}, "17 straight lanes > 16"),
+)
 COMPACT_SLOTS = (1024, 64)  # reset slots P: one pass a step, and further passes
 COMPACT_STEPS = 3  # autoreset steps of compact against full
 GRAPH_STEPS = 8  # steps of the captured step against the eager one
 CRASH_EVERY = 8  # every 8th ego crashed at the start: 512 done rows at B=4096
 PROFILE_REPLAYS = 4  # replays of a captured step under the profiler
 TIMED_STEPS = 32  # steps of each timed eager / graph, full / compact run
+#: profiled runs of a frame kernel's plain version, after one warm-up (its
+#: device time is a yardstick; each run is tens to hundreds of ms, and the
+#: profiler's processing of its thousands of small kernels dominates phase 5)
+PLAIN_REPS = 1
 
 
 def card_line() -> str:
@@ -776,21 +802,23 @@ def group_size(V: int) -> int:
 
 def k4_work(gf, env, veh, sa):
     """(float32 operations, bytes) of one K4 launch from ``veh`` with the
-    slot actions ``sa``: the operations counted frame by frame on the plain
+    slot actions ``sa`` (None: raw controls stored on the egos, which run
+    no P-cascade): the operations counted frame by frame on the plain
     version (``gen_frame_ops``), the bytes of every field read and written
     once (``read_bytes``), the slot actions and the lane tables."""
     from highwayenv_tpu_torch.road import lane as lane_ops
 
-    spec = env._general
+    spec, raw = env._general, sa is None
     ops, v = 0.0, veh
     table = lane_ops.projection_table(spec.geo, v.pos)
     for f in range(env.frames_per_step):
-        out, next_table = gf.frame_general_plain(v, spec, table, sa if f == 0 else None)
-        ops += gen_frame_ops(v, out, spec, table)
+        out, next_table = gf.frame_general_plain(v, spec, table, sa if f == 0 else None,
+                                                 raw=raw)
+        ops += gen_frame_ops(v, out, spec, table, raw=raw)
         v, table = out, next_table
     R = veh.route_base.shape[-1]
     lf, li = gf.lane_tables(spec.geo, env.device)
-    n_bytes = (read_bytes(veh, gf._resolve(gf._IN_FIELDS, R)) + sa.numel() * 4
+    n_bytes = (read_bytes(veh, gf._resolve(gf._IN_FIELDS, R)) + (0 if raw else sa.numel() * 4)
                + field_bytes(v, gf._resolve(gf.OUT_FIELDS, R))
                + lf.numel() * 4 + li.numel() * 4)
     return ops, n_bytes
@@ -826,10 +854,103 @@ def check_slice_kernels(ht, gf, err) -> dict:
     return envs
 
 
-def drive_slice(envs, kernels, launches) -> None:
+def parking_hits(env, veh):
+    """The parking scene in which every env's ego is about to hit
+    something: in env b, by b % 3, the north wall (0.2 m from it, heading
+    north, east of the spots), its goal landmark (0.3 m from it, along the
+    goal's heading) or, on parking-parked-v0, its first parked car (0.3 m
+    from it), else the east wall (its front at the wall's face); at 3 to
+    7 m/s by env."""
+    Bn = veh.kind.shape[0]
+    dev = veh.pos.device
+    b = torch.arange(Bn, device=dev)
+    which = (b % 3)[:, None]
+
+    def behind(slot, gap):
+        h = veh.heading[:, slot]
+        return veh.pos[:, slot] - gap * torch.stack([torch.cos(h), torch.sin(h)], -1), h
+
+    goal_pos, goal_head = behind(env.goal_slot_of(0), 3.8)
+    if env.config["vehicles_count"]:
+        other_pos, other_head = behind(1, 5.3)
+    else:
+        other_pos = torch.tensor([32.0, 0.0], device=dev).expand(Bn, 2)
+        other_head = torch.zeros(Bn, device=dev)
+    wall_pos = torch.stack([29.5 + ((b // 3) % 3).float(),
+                            torch.full((Bn,), 17.8, device=dev)], -1)
+    pos, heading, speed = veh.pos.clone(), veh.heading.clone(), veh.speed.clone()
+    pos[:, 0] = torch.where(which == 0, wall_pos,
+                            torch.where(which == 1, goal_pos, other_pos))
+    heading[:, 0] = torch.where(which[:, 0] == 0, math.pi / 2,
+                                torch.where(which[:, 0] == 1, goal_head, other_head))
+    speed[:, 0] = 3.0 + (b % 5).float()
+    return veh.replace(pos=pos, heading=heading, speed=speed)
+
+
+def check_parking_kernels(ht, gf, err) -> dict:
+    """K4's raw-control branch against its plain version at the parking
+    family (PARKING_ENVS), 14 lanes an edge, on the reset scene, 8 steps
+    in, the all-env pile-up and the scene where the egos hit the walls,
+    their goals and the parked cars, every field bit-exact; records each
+    env's max error in ``err`` under "K4 <env id>".  Returns {env id:
+    (env, states)}."""
+    k4 = gf.frames_general_kernel
+    envs = {}
+    for env_id in PARKING_ENVS:
+        env = ht.make(env_id)
+        spec, frames = env._general, env.frames_per_step
+        gen = env.generator(SEED)
+        _, states = env.reset(B, gen)
+        V, key = env.num_slots, f"K4 {env_id}"
+        err[key] = 0.0
+        print(f"== 3. K4 raw vs plain: {env_id} V={V}, L={env.geo.num_lanes}, "
+              f"{spec.max_edge_lanes} lanes an edge, group {group_size(V)} threads an env, "
+              f"{frames} frames, B={B}, raw controls {env.action_type.stores_raw_controls}, "
+              f"observation {type(env.observation_type).__name__}")
+        scenes_ = general_scenes(env, states, gen)
+        scenes_["hits"] = parking_hits(env, states.vehicles)
+        for name, veh in scenes_.items():
+            sa = env._action_to_slots(random_actions(env, B, gen))
+            veh, _, raw = gf.store_raw_controls(env, veh, sa)
+            out_k = k4(veh, spec, None, frames, raw=raw, linear=env.linear_rows)
+            out_p = gf.frames_general_plain(veh, spec, None, frames, raw=raw)
+            torch.cuda.synchronize()
+            err[key] = max(err[key], compare_general(out_k, out_p, f"{env_id} {name}"))
+            if name == "hits":
+                which = torch.arange(B, device=env.device) % 3
+                walls = int(out_k.crashed[which == 0, 0].sum())
+                goals = int(out_k.hit[which == 1, env.goal_slot_of(0)].sum())
+                others = int(out_k.crashed[which == 2, 0].sum())
+                print(f"  {env_id} hits: egos crashed into the north wall {walls}, goal "
+                      f"landmarks hit {goals} (egos crashed there "
+                      f"{int(out_k.crashed[which == 1, 0].sum())}), egos crashed into a "
+                      f"{'parked car' if env.config['vehicles_count'] else 'wall'} {others}")
+                if not (walls and goals and others):
+                    raise AssertionError(f"{env_id}: the hits scene did not hit")
+        envs[env_id] = (env, states)
+    return envs
+
+
+def check_refusals(ht) -> None:
+    """``make`` on the card refuses what the kernels' arrays do not hold,
+    as on the CPU, naming the limit: no such env reaches a launch."""
+    for env_id, config, what in OVER_LIMITS:
+        try:
+            ht.make(env_id, config)
+        except NotImplementedError as e:
+            if what not in str(e) or "not ported" not in str(e):
+                raise AssertionError(f"{env_id}: refused for another reason: {e}") from e
+            print(f"  make('{env_id}', {config}) on CUDA refused: {e}")
+        else:
+            raise AssertionError(f"{env_id} {config}: made past the kernels' limits")
+
+
+def drive_slice(envs, kernels, launches, crash_first: bool = False) -> None:
     """The slice's paths: each env of ``envs`` made on CUDA, reset and a
     HORIZON-step random-policy rollout through K4 at B, the counts set to
-    0 just before and read just after: K4 once per policy step, alone."""
+    0 just before and read just after: K4 once per policy step, alone.
+    ``crash_first``: every CRASH_EVERY-th ego crashed at the start, so
+    that episodes end within the horizon (parking-v0's last 100 s)."""
     k4 = kernels["K4"]
     for env_id, (env, _) in envs.items():
         print(f"== 4. slice path: make('{env_id}') on CUDA, B={B}, reset and {HORIZON} "
@@ -838,6 +959,8 @@ def drive_slice(envs, kernels, launches) -> None:
         for k in kernels.values():
             k.launches = 0
         _, st = env.reset(B, gen)
+        if crash_first:
+            st = crashed_every(env, st)
         st, m = rollout(env, st, HORIZON, gen)
         torch.cuda.synchronize()
         others = {n: k.launches for n, k in kernels.items() if n != "K4"}
@@ -889,19 +1012,34 @@ def crashed_every(env, states, k: int = CRASH_EVERY):
     return states.replace(vehicles=veh.replace(crashed=crashed))
 
 
+def obs_fields(obs) -> dict:
+    """An observation's tensors by name: itself, or a dict one's fields."""
+    return {f"obs {k}": v for k, v in obs.items()} if isinstance(obs, dict) else {"obs": obs}
+
+
+def same_obs(a, b) -> bool:
+    """Two observations (tensors, or dicts of tensors) bit-exact."""
+    fa, fb = obs_fields(a), obs_fields(b)
+    return fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k]) for k in fa)
+
+
 def same_step(a, b, where: str) -> None:
-    """Two autoreset steps' obs, every field of the state, reward,
-    terminated, truncated and (exit-v0) ``info["is_success"]`` bit-exact."""
+    """Two autoreset steps' obs (every field of a dict one), every field of
+    the state, reward, terminated, truncated and (exit-v0, parking)
+    ``info["is_success"]`` bit-exact."""
     import dataclasses
 
-    names = ["obs", "reward", "terminated", "truncated", "time", "steps"]
-    pairs = [a[0], a[2], a[3], a[4], a[1].time, a[1].steps]
-    others = [b[0], b[2], b[3], b[4], b[1].time, b[1].steps]
+    oa, ob = obs_fields(a[0]), obs_fields(b[0])
+    if oa.keys() != ob.keys():
+        raise AssertionError(f"{where}: observation fields {list(oa)} and {list(ob)}")
+    names = list(oa) + ["reward", "terminated", "truncated", "time", "steps"]
+    pairs = list(oa.values()) + [a[2], a[3], a[4], a[1].time, a[1].steps]
+    others = list(ob.values()) + [b[2], b[3], b[4], b[1].time, b[1].steps]
     for f in dataclasses.fields(a[1].vehicles):
         names.append(f.name)
         pairs.append(getattr(a[1].vehicles, f.name))
         others.append(getattr(b[1].vehicles, f.name))
-    if "is_success" in a[5]:  # exit-v0
+    if "is_success" in a[5]:  # exit-v0, parking
         names.append("is_success")
         pairs.append(a[5]["is_success"])
         others.append(b[5]["is_success"])
@@ -978,7 +1116,7 @@ def check_graph(env, states, label: str) -> None:
             out_e = env._autoreset_rest(*env._autoreset_first(s_e, acts, g_e, P, final_obs))
             out_g = step(acts_g)
             same_step(out_g, out_e, f"{where} step {t}")
-            if final_obs and not torch.equal(out_g[5]["final_obs"], out_e[5]["final_obs"]):
+            if final_obs and not same_obs(out_g[5]["final_obs"], out_e[5]["final_obs"]):
                 raise AssertionError(f"{where} step {t}: final_obs differs")
             dones.append(int((out_e[3] | out_e[4]).sum()))
             s_e = out_e[1]
@@ -1390,13 +1528,21 @@ def main() -> int:
     xenv, xstates = slice_envs["exit-v0"]
     uenv = slice_envs["u-turn-v0"][0]
     _, ustates = uenv.reset(B, uenv.generator(SEED))
+    # K4's raw-control branch on 14 lanes an edge: the parking family;
+    # parking-v0 carries on to the compact and captured checks (the dict
+    # observation)
+    parking_envs = check_parking_kernels(ht, gf, err)
+    penv, pstates = parking_envs["parking-v0"]
+    print("== 3. the kernels' limits refused at make")
+    check_refusals(ht)
 
     # the compact autoreset and the captured step
     for label, e, st in (("highway-v0 ", env, states), ("roundabout-v0 ", genv, gstates),
                          ("intersection-v0 ", ienv, istates),
                          ("racetrack-v0 ", renv, rstates),
                          ("highway-v0 LinearVehicle ", lenv, lstates),
-                         ("u-turn-v0 ", uenv, ustates), ("exit-v0 ", xenv, xstates)):
+                         ("u-turn-v0 ", uenv, ustates), ("exit-v0 ", xenv, xstates),
+                         ("parking-v0 ", penv, pstates)):
         print(f"== 3. {label}compact autoreset vs full, CapturedStep vs eager")
         check_compact(e, st, label)
         check_graph(e, st, label)
@@ -1660,9 +1806,11 @@ def main() -> int:
                                  "ended")
         launches[key] = step_n
 
-    # the slice's paths, each with the counts set to 0 just before it
-    drive_slice(slice_envs, {"K1": k1, "K2a": k2a, "K3": k3, "K2b": k2b, "K4": k4, "K5": k5},
-                launches)
+    # the slice's paths, each with the counts set to 0 just before it; then
+    # the parking family's, every 8th ego crashed at the start
+    all_kernels = {"K1": k1, "K2a": k2a, "K3": k3, "K2b": k2b, "K4": k4, "K5": k5}
+    drive_slice(slice_envs, all_kernels, launches)
+    drive_slice(parking_envs, all_kernels, launches, crash_first=True)
 
     # the rollouts again, each step one replay of a CapturedStep
     straight_names = ("straight_frames_kernel", "sort_kernel",
@@ -1677,12 +1825,14 @@ def main() -> int:
         ("highway-v0 ContinuousAction", cenv, straight_kernels, straight_names),
         ("highway-v0 LinearVehicle", lenv, straight_kernels, straight_names),
     ) + tuple((env_id, e, {"K4": k4}, ("general_frames_kernel<false,",))
-              for env_id, (e, _) in slice_envs.items())
+              for env_id, (e, _) in {**slice_envs, **parking_envs}.items())
     for label, e, path, names in path_kernels:
         print(f"== 4. graph path: {label} on CUDA, B={B}, {HORIZON} random-policy "
               "autoreset steps, each one replay of a CapturedStep")
         gen = e.generator(SEED + 3)
         _, gst = e.reset(B, gen)
+        if label in PARKING_ENVS:
+            gst = crashed_every(e, gst)
         for k in (k1, k2a, k3, k2b, k4, k5):
             k.launches = 0
         gst, gm = rollout(e, gst, HORIZON, gen, graph=True)
@@ -1761,7 +1911,7 @@ def main() -> int:
     ms, plain_ms, _ = timed(
         "K3 straight_frames_sorted, per policy step",
         lambda: k3(srt, idx, fs, p, dt, frames, linear=False),
-        lambda: ss.frames_sorted_plain(srt, idx, fs, p, dt, frames), None, 20, 2,
+        lambda: ss.frames_sorted_plain(srt, idx, fs, p, dt, frames), None, 20, PLAIN_REPS,
     )
     ops, v = 0.0, srt
     for _ in range(frames):
@@ -1803,7 +1953,7 @@ def main() -> int:
     ms, plain_ms, _ = timed(
         "K1 straight_frames, every env, per policy step",
         lambda: k1(veh, fs, p, dt, frames, linear=False),
-        lambda: sf.frames_plain(veh, fs, p, dt, frames), None, 20, 2,
+        lambda: sf.frames_plain(veh, fs, p, dt, frames), None, 20, PLAIN_REPS,
     )
     masked_ms = queued_ms(lambda: k1(veh, fs, p, dt, frames, mask=none, out=back,
                                    linear=False), 50)
@@ -1828,7 +1978,7 @@ def main() -> int:
     ms, plain_ms, _ = timed(
         "K4 general_frames (roundabout-v0), per policy step",
         lambda: k4(gveh, gspec, gsa, gframes, linear=False),
-        lambda: gf.frames_general_plain(gveh, gspec, gsa, gframes), None, 20, 2,
+        lambda: gf.frames_general_plain(gveh, gspec, gsa, gframes), None, 20, PLAIN_REPS,
     )
     ops, n_bytes = k4_work(gf, genv, gveh, gsa)
     bms, by, t_ops, t_bytes = bound(ops, n_bytes)
@@ -1849,7 +1999,7 @@ def main() -> int:
         ms, plain_ms, _ = timed(
             f"K5 general_frames_regulated (intersection-v0), {label}",
             lambda: k5(iveh, ispec, isa, iframes, isteps, linear=False),
-            lambda: gf.frames_general_plain(iveh, ispec, isa, iframes, isteps), None, 20, 2,
+            lambda: gf.frames_general_plain(iveh, ispec, isa, iframes, isteps), None, 20, PLAIN_REPS,
         )
         ops = regulated_ops(iveh, ispec, isa, iframes, isteps)
         out = gf.frames_general_plain(iveh, ispec, isa, iframes, isteps)
@@ -1880,7 +2030,7 @@ def main() -> int:
     ms, plain_ms, _ = timed(
         "K4 general_frames, raw controls (racetrack-v0, V=2), per policy step",
         lambda: k4(rveh, rspec, None, rframes, raw=True, linear=False),
-        lambda: gf.frames_general_plain(rveh, rspec, None, rframes, raw=True), None, 20, 2,
+        lambda: gf.frames_general_plain(rveh, rspec, None, rframes, raw=True), None, 20, PLAIN_REPS,
     )
     ops, v = 0.0, rveh
     table = lane_ops.projection_table(rspec.geo, v.pos)
@@ -1907,7 +2057,7 @@ def main() -> int:
     ms, plain_ms, _ = timed(
         "K3 straight_frames_sorted, raw controls (highway-v0 ContinuousAction), per step",
         lambda: k3(csrt, cidx, fs, p, dt, frames, raw=True, linear=False),
-        lambda: ss.frames_sorted_plain(csrt, cidx, fs, p, dt, frames, True), None, 20, 2,
+        lambda: ss.frames_sorted_plain(csrt, cidx, fs, p, dt, frames, True), None, 20, PLAIN_REPS,
     )
     ops, v = 0.0, csrt
     for _ in range(frames):
@@ -1926,7 +2076,7 @@ def main() -> int:
     ms, plain_ms, _ = timed(
         "K1 straight_frames, raw controls (highway-v0 ContinuousAction), every env, per step",
         lambda: k1(cveh, fs, p, dt, frames, raw=True, linear=False),
-        lambda: sf.frames_plain(cveh, fs, p, dt, frames, True), None, 20, 2,
+        lambda: sf.frames_plain(cveh, fs, p, dt, frames, True), None, 20, PLAIN_REPS,
     )
     ops, v = 0.0, cveh
     for _ in range(frames):
@@ -1957,7 +2107,7 @@ def main() -> int:
     ms, plain_ms, _ = timed(
         "K3 straight_frames_sorted, Linear rows (highway-v0 LinearVehicle), per step",
         lambda: k3(lsrt, lidx, fs, p, dt, frames, linear=True),
-        lambda: ss.frames_sorted_plain(lsrt, lidx, fs, p, dt, frames), None, 20, 2,
+        lambda: ss.frames_sorted_plain(lsrt, lidx, fs, p, dt, frames), None, 20, PLAIN_REPS,
     )
     ops, v = 0.0, lsrt
     for _ in range(frames):
@@ -1977,7 +2127,7 @@ def main() -> int:
     ms, plain_ms, _ = timed(
         "K1 straight_frames, Linear rows (highway-v0 LinearVehicle), every env, per step",
         lambda: k1(lveh, fs, p, dt, frames, linear=True),
-        lambda: sf.frames_plain(lveh, fs, p, dt, frames), None, 20, 2,
+        lambda: sf.frames_plain(lveh, fs, p, dt, frames), None, 20, PLAIN_REPS,
     )
     masked_ms = queued_ms(lambda: k1(lveh, fs, p, dt, frames, mask=none, out=back,
                                    linear=True), 50)
@@ -2001,7 +2151,7 @@ def main() -> int:
     ms, plain_ms, _ = timed(
         "K4 general_frames, Linear rows (roundabout-v0 AggressiveVehicle), per policy step",
         lambda: k4(aveh, aspec, asa, gframes, linear=True),
-        lambda: gf.frames_general_plain(aveh, aspec, asa, gframes), None, 20, 2,
+        lambda: gf.frames_general_plain(aveh, aspec, asa, gframes), None, 20, PLAIN_REPS,
     )
     ops, n_bytes = k4_work(gf, aenv, aveh, asa)
     bms, by, t_ops, t_bytes = bound(ops, n_bytes)
@@ -2028,9 +2178,36 @@ def main() -> int:
         ms, plain_ms, _ = timed(
             f"K4 general_frames ({what}), per policy step",
             lambda: k4(sveh, sspec, ssa, sframes, linear=False),
-            lambda: gf.frames_general_plain(sveh, sspec, ssa, sframes), None, 20, 2,
+            lambda: gf.frames_general_plain(sveh, sspec, ssa, sframes), None, 20, PLAIN_REPS,
         )
         ops, n_bytes = k4_work(gf, e, sveh, ssa)
+        bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+        rows[f"K4 {env_id}"] = (f"general_frames ({what})",
+                                "highwayenv_tpu_torch/csrc/general_frames.cu",
+                                "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms,
+                                bms, by, None)
+        print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, "
+              f"{n_bytes} bytes -> {t_bytes:.5f} ms)")
+    # K4's raw-control branch at the parking family, 14 lanes an edge, from
+    # fresh resets with random actions stored on the egos first
+    for env_id, (e, _) in parking_envs.items():
+        _, s0 = e.reset(B, e.generator(SEED + 2))
+        sspec, sframes = e._general, e.frames_per_step
+        sveh, _, _ = gf.store_raw_controls(
+            e, s0.vehicles, e._action_to_slots(random_actions(e, B, gen)))
+        what = f"{env_id}, raw controls, V={e.num_slots}, group {group_size(e.num_slots)}"
+        # the timed launch's own output against the plain version's
+        out_k = k4(sveh, sspec, None, sframes, raw=True, linear=False)
+        out_p = gf.frames_general_plain(sveh, sspec, None, sframes, raw=True)
+        torch.cuda.synchronize()
+        err[f"K4 {env_id}"] = max(err[f"K4 {env_id}"],
+                                  compare_general(out_k, out_p, f"{env_id} timed inputs"))
+        ms, plain_ms, _ = timed(
+            f"K4 general_frames ({what}), per policy step",
+            lambda: k4(sveh, sspec, None, sframes, raw=True, linear=False),
+            lambda: gf.frames_general_plain(sveh, sspec, None, sframes, raw=True), None, 20, PLAIN_REPS,
+        )
+        ops, n_bytes = k4_work(gf, e, sveh, None)
         bms, by, t_ops, t_bytes = bound(ops, n_bytes)
         rows[f"K4 {env_id}"] = (f"general_frames ({what})",
                                 "highwayenv_tpu_torch/csrc/general_frames.cu",
@@ -2051,7 +2228,7 @@ def main() -> int:
             lambda: k5(xveh, xspec, xsa, xenv.frames_per_step, xsteps, raw=raw,
                        linear=xenv.linear_rows),
             lambda: gf.frames_general_plain(xveh, xspec, xsa, xenv.frames_per_step, xsteps,
-                                            raw=raw), None, 20, 2,
+                                            raw=raw), None, 20, PLAIN_REPS,
         )
         ops, v = 0.0, xveh
         phase = torch.remainder(xsteps, xspec.period)
@@ -2188,8 +2365,9 @@ def main() -> int:
             print(f"  {label} graph {name}: the host issues a replay in "
                   f"{sorted(issue)[5]:.4f} ms (median of 10, from an idle queue)")
 
-    # the slice's envs: eager against graph, the full autoreset, in turns
-    for env_id, (e, _) in slice_envs.items():
+    # the slice's envs and the parking family: eager against graph, the
+    # full autoreset, in turns
+    for env_id, (e, _) in {**slice_envs, **parking_envs}.items():
         print(f"  [{env_id} at {time.time() - start:.0f} s]")
         _, t0_states = e.reset(B, e.generator(SEED + 4))
         walls = {name: [] for name in ("eager full", "graph full")}

@@ -10,9 +10,11 @@ Registry ids mirror the reference; ported so far: the straight highway
 envs and, on the general analytic-lane path, roundabout-v0, merge-v0,
 merge-generic-v0, roundabout-generic-v0, two-way-v0 and u-turn-v0 (the
 time-to-collision observation), exit-v0 (the exit observation), the
-regulated intersection-v0 and the racetrack family (racetrack-v0,
-racetrack-large-v0, racetrack-oval-v0), whose ContinuousAction egos run the
-frame kernels' raw-control branch; on every id the NPCs may be the
+regulated intersection-v0, and the racetrack family (racetrack-v0,
+racetrack-large-v0, racetrack-oval-v0) and the parking family
+(parking-v0, parking-ActionRepeat-v0, parking-parked-v0: the KinematicsGoal
+dict observation), whose ContinuousAction egos run the frame kernels'
+raw-control branch; on every id the NPCs may be the
 Linear-family classes (``other_vehicles_type``), which the frame kernels'
 Linear rows' instantiation steps.
 """
@@ -98,6 +100,11 @@ def _register_all():
     from highwayenv_tpu_torch.envs.intersection import IntersectionEnv
     from highwayenv_tpu_torch.envs.merge import MergeEnv
     from highwayenv_tpu_torch.envs.merge_generic import MergeGenericEnv
+    from highwayenv_tpu_torch.envs.parking import (
+        ParkingEnv,
+        ParkingEnvActionRepeat,
+        ParkingEnvParkedVehicles,
+    )
     from highwayenv_tpu_torch.envs.racetrack import (
         RacetrackEnv,
         RacetrackEnvLarge,
@@ -114,6 +121,9 @@ def _register_all():
     register("intersection-v0", IntersectionEnv)
     register("merge-v0", MergeEnv)
     register("merge-generic-v0", MergeGenericEnv)
+    register("parking-v0", ParkingEnv)
+    register("parking-ActionRepeat-v0", ParkingEnvActionRepeat)
+    register("parking-parked-v0", ParkingEnvParkedVehicles)
     register("racetrack-v0", RacetrackEnv)
     register("racetrack-large-v0", RacetrackEnvLarge)
     register("racetrack-oval-v0", RacetrackEnvOval)

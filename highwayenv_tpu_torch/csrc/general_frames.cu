@@ -97,8 +97,7 @@
 #define GEN_MAX_LANES 32
 #define GEN_MAX_SLOTS 32
 #define GEN_MAX_SUCC 4
-#define GEN_MAX_EDGE_LANES 8
-#define GEN_MAX_SPEEDS 8
+#define GEN_MAX_SPEEDS 16
 #define GEN_MAX_ROUTE 16
 #define GEN_BLOCK 64  // threads a block
 #define KIND_OBSTACLE 5
@@ -132,7 +131,7 @@ enum {
   LI_PRIORITY = LI_SUCC_N + GEN_MAX_SUCC, LANE_I_WORDS
 };
 
-struct GenParams {  // ops/general_frames.py::_GenParams
+struct GenParams {  // ops/general_frames.py::params_struct
   int L, M, V, R, frames, n_speeds, longitudinal, lateral, period;
   int raw;  // 1: egos keep their stored controls; no slot actions, n_speeds 0
   float dt, acc_max, comfort_acc_max, distance_wanted, time_wanted;
@@ -141,6 +140,8 @@ struct GenParams {  // ops/general_frames.py::_GenParams
   float target_speeds[GEN_MAX_SPEEDS];
   int linear;  // 1: Linear rows possible (the Linear rows' instantiation)
 };
+static_assert(sizeof(GenParams) == (25 + GEN_MAX_SPEEDS) * sizeof(int),
+              "GenParams: 10 ints, 14 floats, the speed grid and linear, as params_struct");
 
 // The (B, V[, ...]) tensors, in the order of ops/general_frames.py::
 // _IN_FIELDS, then the slot actions, then OUT_FIELDS.
@@ -272,11 +273,17 @@ __device__ float lane_heading(const Lanes& g, int l, float s) {
 // vehicle/controller.py::next_lane_given_next_edge: the lane taken on an
 // edge (base, n) with explicit lane id next_id (-1 = none) by a vehicle whose
 // target lane is lt (clipped), from the point (px, py); *dist is the point's
-// distance to it (inf for an empty edge).
+// distance to it (inf for an empty edge).  The loop keeps the distance of
+// the lane it will return (the explicit one on an edge as wide as lt's, else
+// its first minimum) rather than every lane's, so no array bounds the lanes
+// an edge (M <= GEN_MAX_LANES).
 __device__ int lane_on_edge(const Lanes& g, int lt, int base, int n, int next_id,
                             float px, float py, int M, float* dist) {
-  float d[GEN_MAX_EDGE_LANES];
-  float best = INFINITY;
+  const bool same_width = g.I(lt, LI_EDGE_N) == n;
+  const int lane_max = max(n - 1, 0);
+  const int wanted = min(max(next_id >= 0 ? next_id : g.I(lt, LI_LANE_ID), 0), lane_max);
+  const int wanted_m = min(wanted, M - 1);
+  float best = INFINITY, d_closest = INFINITY, d_wanted = INFINITY;
   int closest = 0;
   for (int m = 0; m < M; ++m) {
     float dm = INFINITY;
@@ -286,17 +293,17 @@ __device__ int lane_on_edge(const Lanes& g, int lt, int base, int n, int next_id
       local_coords(g, l, px, py, &s, &lat);
       dm = fabsf(lat) + fmaxf(s - g.F(l, LF_LEN), 0.f) + fmaxf(-s, 0.f);
     }
-    d[m] = dm;
+    if (m == 0) d_closest = dm;  // the first minimum starts at lane 0
+    if (m == wanted_m) d_wanted = dm;
     if (dm < best) {  // first minimum
       best = dm;
       closest = m;
+      d_closest = dm;
     }
   }
-  int chosen = g.I(lt, LI_EDGE_N) == n ? (next_id >= 0 ? next_id : g.I(lt, LI_LANE_ID))
-                                       : closest;
-  chosen = min(max(chosen, 0), max(n - 1, 0));
-  *dist = d[min(chosen, M - 1)];
-  return base + chosen;
+  // a first minimum lies below n (or is lane 0), so clipping keeps it
+  *dist = same_width ? d_wanted : d_closest;
+  return base + (same_width ? wanted : min(closest, lane_max));
 }
 
 // The closest lane's key: the order of the distance dl (-0 as +0) above the
@@ -1160,7 +1167,7 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
                 "GenFields holds one pointer per tensor");
   const GenParams& p = *params;
   if (p.V < 1 || p.V > GEN_MAX_SLOTS || p.L < 1 || p.L > GEN_MAX_LANES || p.R < 1 ||
-      p.R > GEN_MAX_ROUTE || p.M < 1 || p.M > GEN_MAX_EDGE_LANES ||
+      p.R > GEN_MAX_ROUTE || p.M < 1 || p.M > GEN_MAX_LANES ||
       (p.raw ? p.n_speeds != 0 : (p.n_speeds < 1 || p.n_speeds > GEN_MAX_SPEEDS)) ||
       (kRegulated && p.period < 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1198,6 +1205,9 @@ extern "C" int general_frames(void* const* ptrs, const float* lane_f, const int*
                               const GenParams* params, int B, void* stream) {
   return launch<false>(ptrs, RegFields{}, lane_f, lane_i, params, B, stream);
 }
+
+// The size of GenParams, which the wrapper holds its ctypes mirror to.
+extern "C" int general_params_bytes() { return static_cast<int>(sizeof(GenParams)); }
 
 // K5: as general_frames, plus reg_ptrs, the device pointers of RegFields in
 // its order.

@@ -53,7 +53,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from highwayenv_tpu_torch.ops import general_frames, straight_fast
+from highwayenv_tpu_torch.ops import general_frames, straight_fast, straight_frames
 from highwayenv_tpu_torch.ops.straight_frames import frames_plain, simulate_bm
 from highwayenv_tpu_torch.ops.straight_sorted import simulate_bm_sorted
 from highwayenv_tpu_torch.road import lane as lane_ops
@@ -127,6 +127,14 @@ def map_fields(fn, *states):
 def _rows(mask: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """A (B,) or (P,) row mask shaped to broadcast over ``t``."""
     return mask.view(mask.shape + (1,) * (t.dim() - 1))
+
+
+def map_obs(fn, *obs):
+    """``fn`` over observations of one structure: a tensor, or a dict of
+    tensors (KinematicsGoal) key by key."""
+    if isinstance(obs[0], dict):
+        return {k: fn(*(o[k] for o in obs)) for k in obs[0]}
+    return fn(*obs)
 
 
 def where_done(done: torch.Tensor, new, old):
@@ -241,6 +249,8 @@ class BaseEnv:
         ]
         if self._straight is None:
             unported += general_frames.general_unported(self)
+        else:
+            unported += straight_frames.kernel_limits(self.num_slots, self._straight)
         if unported:
             raise NotImplementedError(
                 f"{type(self).__name__}: {', '.join(unported)} not ported yet"
@@ -277,6 +287,9 @@ class BaseEnv:
 
     #: lane count of the ego's deterministic reset edge (PARITY #5)
     obs_edge_lanes = None
+
+    #: route slots R of the state; envs whose vehicles follow routes set it
+    route_slots = 1
 
     def generator(self, seed: int) -> torch.Generator:
         """A seeded generator on the env's device."""
@@ -318,12 +331,16 @@ class BaseEnv:
     def _info(self, state: EnvState, action) -> dict[str, Any]:
         """Reference envs/common/abstract.py ``_info``."""
         ego = self.ego_slots[0]
-        return {
+        info = {
             "speed": state.vehicles.speed[:, ego],
             "crashed": state.vehicles.crashed[:, ego],
             "action": action,
-            "rewards": self._rewards(state, action),
         }
+        try:
+            info["rewards"] = self._rewards(state, action)
+        except NotImplementedError:  # an env without reward terms (parking)
+            pass
+        return info
 
     def ego_on_road(self, state: EnvState, ego: int | None = None) -> torch.Tensor:
         """RoadObject.on_road of the ego in slot ``ego`` (default the first
@@ -510,7 +527,8 @@ class BaseEnv:
             fresh = self._reset_state(done.shape[0], generator)
             state = where_done(done, fresh, state)
             if obs is not None:
-                obs = torch.where(_rows(done, obs), self._observe(fresh), obs)
+                obs = map_obs(lambda a, b: torch.where(_rows(done, b), a, b),
+                              self._observe(fresh), obs)
         else:
             pending, obs = self._compact_first(state, done, reset_slots, generator, obs)
             state = pending.state
@@ -548,9 +566,9 @@ class BaseEnv:
         fresh = self._place_state({k: v[idx] for k, v in draws.items()})
         state = scatter_rows(state, idx, valid, fresh)
         if obs is not None:
-            fresh_obs = self._observe(fresh)
-            obs = obs.index_copy(
-                0, idx, torch.where(_rows(valid, obs), fresh_obs, obs[idx])
+            obs = map_obs(
+                lambda o, f: o.index_copy(0, idx, torch.where(_rows(valid, o), f, o[idx])),
+                obs, self._observe(fresh),
             )
         return state, obs, mask & ~take
 

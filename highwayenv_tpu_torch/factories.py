@@ -3,8 +3,8 @@
 PyTorch counterpart of ``highwayenv_tpu/factories.py`` (reference
 envs/common/observation.py ``observation_factory`` and envs/common/action.py
 ``action_factory``), so scenario configs stay drop-in.  The port has the
-Kinematics, TimeToCollision, ExitObservation and OccupancyGrid
-observations and the DiscreteMetaAction,
+Kinematics, KinematicsGoal, TimeToCollision, ExitObservation and
+OccupancyGrid observations and the DiscreteMetaAction,
 ContinuousAction and DiscreteAction; every other type the JAX package knows
 raises ``NotPortedError`` naming the module it waits for, and an unknown
 type raises ``ValueError`` as in the JAX package.
@@ -17,12 +17,12 @@ from highwayenv_tpu_torch.actions.continuous import ContinuousAction, DiscreteAc
 from highwayenv_tpu_torch.actions.discrete_meta import DiscreteMetaAction
 from highwayenv_tpu_torch.observations.exit_obs import ExitObservation
 from highwayenv_tpu_torch.observations.kinematics import KinematicsObservation
+from highwayenv_tpu_torch.observations.kinematics_goal import KinematicsGoalObservation
 from highwayenv_tpu_torch.observations.occupancy_grid import OccupancyGridObservation
 from highwayenv_tpu_torch.observations.ttc import TimeToCollisionObservation
 
 #: the JAX package's other types and the module each one needs
 _UNPORTED_OBSERVATIONS = {
-    "KinematicsGoal": "observations/kinematics_goal.py",
     "LidarObservation": "observations/lidar.py",
     "GrayscaleObservation": "observations/grayscale.py",
     "AttributesObservation": "observations/attributes.py",
@@ -49,6 +49,8 @@ def observation_factory(env, config: dict):
         return KinematicsObservation(
             reset_edge_lanes=getattr(env, "obs_edge_lanes", None), **kwargs
         )
+    if config["type"] == "KinematicsGoal":
+        return KinematicsGoalObservation(env, **kwargs)
     if config["type"] == "TimeToCollision":
         return TimeToCollisionObservation(env, **kwargs)
     if config["type"] == "ExitObservation":

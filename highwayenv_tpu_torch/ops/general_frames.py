@@ -61,13 +61,13 @@ from highwayenv_tpu_torch.vehicle.behavior import IDMParams
 from highwayenv_tpu_torch.vehicle.state import KIND_EGO, KIND_LINEAR, VehicleState
 
 #: the gate's limits: one warp per env holds at most 32 slots, and the
-#: TPU kernel's unrolled lane loops stop at 32 lanes
+#: TPU kernel's unrolled lane loops stop at 32 lanes (also the most lanes
+#: an edge can have)
 MAX_SLOTS = 32
 MAX_LANES = 32
-#: sizes of the kernel's fixed arrays (``MAX_SUCC`` ... in the .cu)
+#: sizes of the kernel's fixed arrays (``GEN_MAX_SUCC`` ... in the .cu)
 MAX_SUCC = 4
-MAX_EDGE_LANES = 8
-MAX_SPEEDS = 8
+MAX_SPEEDS = 16
 MAX_ROUTE = 16
 
 
@@ -83,19 +83,40 @@ class GeneralSpec(NamedTuple):
     period: int | None = None
 
 
-def general_unported(env) -> list[str]:
-    """Why ``env`` cannot take the general path: the JAX package's
-    ``try_general`` conditions that the port's envs can meet."""
-    geo = env.geo
+def kernel_limits(V: int, L: int, M: int, R: int, S: int,
+                  n_speeds: int | None) -> list[str]:
+    """The limits of the kernels' arrays that a scene of V slots, L lanes,
+    at most M lanes an edge, R route slots, S successor edges a lane and
+    ``n_speeds`` target speeds (None under raw controls) breaks."""
     return [
         what for what, bad in (
-            ("neighbour_vehicles_connected_lanes (the -v1 connected-lane "
-             "neighbour search)",
-             env.config.get("neighbour_vehicles_connected_lanes", False)),
-            (f"{env.num_slots} slots > {MAX_SLOTS}", env.num_slots > MAX_SLOTS),
-            (f"{geo.num_lanes} lanes > {MAX_LANES}", geo.num_lanes > MAX_LANES),
+            (f"{V} slots > {MAX_SLOTS}", V > MAX_SLOTS),
+            (f"{L} lanes > {MAX_LANES}", L > MAX_LANES),
+            (f"{M} lanes an edge > {MAX_LANES}", M > MAX_LANES),
+            (f"{R} route slots > {MAX_ROUTE}", R > MAX_ROUTE),
+            (f"{S} successor edges > {MAX_SUCC}", S > MAX_SUCC),
+            (f"{n_speeds} target speeds outside 2 to {MAX_SPEEDS}",
+             n_speeds is not None and not 2 <= n_speeds <= MAX_SPEEDS),
         ) if bad
     ]
+
+
+def general_unported(env) -> list[str]:
+    """Why ``env`` cannot take the general path: the JAX package's
+    ``try_general`` conditions that the port's envs can meet, and every
+    limit of the kernels' arrays, so that no env that is made is refused
+    at launch."""
+    geo, at = env.geo, env.action_type
+    connected = env.config.get("neighbour_vehicles_connected_lanes", False)
+    return (
+        ["neighbour_vehicles_connected_lanes (the -v1 connected-lane neighbour "
+         "search)"] * bool(connected)
+        + kernel_limits(
+            env.num_slots, geo.num_lanes, int(env.max_edge_lanes), env.route_slots,
+            geo.succ_edge_base.shape[1],
+            None if at.stores_raw_controls else len(at.target_speeds),
+        )
+    )
 
 
 def try_general(env) -> GeneralSpec | None:
@@ -213,7 +234,7 @@ def lane_tables(geo: LaneGeometry, device) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's (L, LANE_F_WORDS) float and (L, LANE_I_WORDS) int lane
     tables (the counterpart of ``GeneralGeo``)."""
     S = geo.succ_edge_base.shape[1]
-    if S > MAX_SUCC:
+    if S > MAX_SUCC:  # refused at make (general_unported)
         raise ValueError(f"{S} successor edges > {MAX_SUCC}")
     cols = {
         "sx": geo.start[:, 0], "sy": geo.start[:, 1],
@@ -236,22 +257,31 @@ def lane_tables(geo: LaneGeometry, device) -> tuple[torch.Tensor, torch.Tensor]:
     return lf, li.to(device).contiguous()
 
 
-class _GenParams(ctypes.Structure):
-    _fields_ = [
-        ("L", ctypes.c_int), ("M", ctypes.c_int), ("V", ctypes.c_int),
-        ("R", ctypes.c_int), ("frames", ctypes.c_int),
-        ("n_speeds", ctypes.c_int), ("longitudinal", ctypes.c_int),
-        ("lateral", ctypes.c_int), ("period", ctypes.c_int), ("raw", ctypes.c_int),
-        ("dt", ctypes.c_float), ("acc_max", ctypes.c_float),
-        ("comfort_acc_max", ctypes.c_float), ("distance_wanted", ctypes.c_float),
-        ("time_wanted", ctypes.c_float), ("inv_two_sqrt_ab", ctypes.c_float),
-        ("politeness", ctypes.c_float), ("lane_change_delay", ctypes.c_float),
-        ("kp_a", ctypes.c_float), ("kp_heading", ctypes.c_float),
-        ("kp_lateral", ctypes.c_float), ("tau_pursuit", ctypes.c_float),
-        ("ts_lo", ctypes.c_float), ("inv_ts_range", ctypes.c_float),
-        ("target_speeds", ctypes.c_float * MAX_SPEEDS),
-        ("linear", ctypes.c_int),
-    ]
+def params_struct(max_speeds: int = MAX_SPEEDS) -> type:
+    """The ctypes mirror of the .cu's ``GenParams`` with a speed grid of
+    ``max_speeds`` entries (its ``GEN_MAX_SPEEDS``)."""
+
+    class GenParams(ctypes.Structure):
+        _fields_ = [
+            ("L", ctypes.c_int), ("M", ctypes.c_int), ("V", ctypes.c_int),
+            ("R", ctypes.c_int), ("frames", ctypes.c_int),
+            ("n_speeds", ctypes.c_int), ("longitudinal", ctypes.c_int),
+            ("lateral", ctypes.c_int), ("period", ctypes.c_int), ("raw", ctypes.c_int),
+            ("dt", ctypes.c_float), ("acc_max", ctypes.c_float),
+            ("comfort_acc_max", ctypes.c_float), ("distance_wanted", ctypes.c_float),
+            ("time_wanted", ctypes.c_float), ("inv_two_sqrt_ab", ctypes.c_float),
+            ("politeness", ctypes.c_float), ("lane_change_delay", ctypes.c_float),
+            ("kp_a", ctypes.c_float), ("kp_heading", ctypes.c_float),
+            ("kp_lateral", ctypes.c_float), ("tau_pursuit", ctypes.c_float),
+            ("ts_lo", ctypes.c_float), ("inv_ts_range", ctypes.c_float),
+            ("target_speeds", ctypes.c_float * max_speeds),
+            ("linear", ctypes.c_int),
+        ]
+
+    return GenParams
+
+
+GenParams = params_struct()
 
 
 _IN_FIELDS = [
@@ -284,20 +314,19 @@ def _resolve(fields, R: int):
 
 
 def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int,
-                  raw: bool = False, linear: bool = True) -> _GenParams:
-    """The kernel's parameter block.  Raw controls take no target speeds:
-    ``n_speeds = 0`` and ``raw = 1``; ``linear`` picks the Linear rows'
-    instantiation."""
+                  raw: bool = False, linear: bool = True, params_type=GenParams):
+    """The kernel's parameter block, a ``params_type``.  Raw controls take
+    no target speeds: ``n_speeds = 0`` and ``raw = 1``; ``linear`` picks
+    the Linear rows' instantiation.  A scene outside the kernels' limits
+    raises: ``make`` refuses its env (``general_unported``)."""
     at, p = spec.action_type, spec.p
     ts = np.zeros(0, np.float32) if raw else np.asarray(at.target_speeds, np.float32)
-    if not raw and not 2 <= len(ts) <= MAX_SPEEDS:
-        raise ValueError(f"{len(ts)} target speeds: 2 to {MAX_SPEEDS} supported")
-    if spec.max_edge_lanes > MAX_EDGE_LANES or R > MAX_ROUTE:
-        raise ValueError(
-            f"max_edge_lanes {spec.max_edge_lanes} > {MAX_EDGE_LANES} or "
-            f"route slots {R} > {MAX_ROUTE}"
-        )
-    out = _GenParams(
+    geo = spec.geo
+    bad = kernel_limits(V, geo.num_lanes, spec.max_edge_lanes, R,
+                        geo.succ_edge_base.shape[1], None if raw else len(ts))
+    if bad:
+        raise ValueError(f"outside the general kernels' limits: {', '.join(bad)}")
+    out = params_type(
         L=spec.geo.num_lanes, M=spec.max_edge_lanes, V=V, R=R, frames=frames,
         n_speeds=len(ts), longitudinal=int(at.longitudinal),
         lateral=int(at.lateral), period=spec.period or 0, raw=int(raw),
@@ -339,6 +368,8 @@ class GeneralFramesKernel(KernelWrapper):
     source = "general_frames"
     #: the fields the kernel reads, in the order of its pointer block
     in_fields = _IN_FIELDS
+    #: the ctypes mirror of the library's parameter block
+    params_type = GenParams
 
     def __init__(self, regulated: bool = False):
         super().__init__()
@@ -347,10 +378,14 @@ class GeneralFramesKernel(KernelWrapper):
         self._tables: dict = {}
 
     def _bind(self, lib):
+        size = getattr(lib, "general_params_bytes", None)
+        if size is not None and size() != ctypes.sizeof(self.params_type):
+            raise RuntimeError(f"GenParams is {size()} bytes in the library, "
+                               f"{ctypes.sizeof(self.params_type)} in its mirror")
         fn = getattr(lib, self.entry)
         fn.argtypes = (
             [ctypes.c_void_p] * (4 if self.regulated else 3)
-            + [ctypes.POINTER(_GenParams), ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.POINTER(self.params_type), ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
 
@@ -372,9 +407,6 @@ class GeneralFramesKernel(KernelWrapper):
         _check_raw(slot_actions, raw)
         B, V = veh.kind.shape
         R = veh.route_base.shape[-1]
-        if V > MAX_SLOTS or spec.geo.num_lanes > MAX_LANES:
-            raise ValueError(f"V={V}, L={spec.geo.num_lanes}: at most "
-                             f"{MAX_SLOTS} slots and {MAX_LANES} lanes")
         dev = veh.speed.device
         action_ptr = None
         if not raw:
@@ -385,7 +417,7 @@ class GeneralFramesKernel(KernelWrapper):
         ins = checked_fields(veh, _resolve(self.in_fields, R), B, V, dev)
         outs = empty_fields(_resolve(OUT_FIELDS, R), B, V, dev)
         lf, li = self._lane_tables(spec.geo, dev)
-        params = kernel_params(spec, V, R, frames, raw, linear)
+        params = kernel_params(spec, V, R, frames, raw, linear, self.params_type)
         ptrs = (ctypes.c_void_p * (len(ins) + 1 + len(outs)))(
             *[t.data_ptr() for t in ins], action_ptr, *[t.data_ptr() for t in outs]
         )

@@ -400,14 +400,25 @@ def with_fields(state: VehicleState, fields, tensors) -> VehicleState:
     return state.replace(**{name: t for (name, _, _), t in zip(fields, tensors)})
 
 
+def kernel_limits(V: int, fs: StraightGeo) -> list[str]:
+    """The limits of the straight kernels that a scene of V slots on ``fs``
+    breaks: one thread per slot, at most ``MAX_LANES`` lane offsets in the
+    constant block."""
+    return [
+        what for what, bad in (
+            (f"{V} slots > {MAX_SLOTS}", V > MAX_SLOTS),
+            (f"{len(fs.offsets)} straight lanes > {MAX_LANES}", len(fs.offsets) > MAX_LANES),
+        ) if bad
+    ]
+
+
 def check_frame_shape(veh: VehicleState, fs: StraightGeo) -> tuple[int, int]:
-    """(B, V) of a state a frame kernel takes: one thread per slot, at most
-    ``MAX_LANES`` lane offsets in its constant block."""
+    """(B, V) of a state a frame kernel takes; a scene outside the kernels'
+    limits raises (``make`` refuses its env)."""
     B, V = veh.kind.shape
-    if V > MAX_SLOTS:
-        raise ValueError(f"{V} slots > {MAX_SLOTS}: one thread per slot")
-    if len(fs.offsets) > MAX_LANES:
-        raise ValueError(f"{len(fs.offsets)} lanes > {MAX_LANES}")
+    bad = kernel_limits(V, fs)
+    if bad:
+        raise ValueError(f"outside the straight kernels' limits: {', '.join(bad)}")
     return B, V
 
 

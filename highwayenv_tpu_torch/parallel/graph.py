@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from highwayenv_tpu_torch.envs.base import EnvState, map_fields
+from highwayenv_tpu_torch.envs.base import EnvState, map_fields, map_obs
 
 
 class CapturedStep:
@@ -103,5 +103,5 @@ class CapturedStep:
             state, new_obs = self.env._compact_rest(self._pending, obs)
             if state is not self._pending.state:  # further passes ran
                 self.load(state)
-                obs.copy_(new_obs)
+                map_obs(lambda dst, src: dst.copy_(src), obs, new_obs)
         return (obs, self.states) + tuple(self._out[2:])

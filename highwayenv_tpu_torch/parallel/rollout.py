@@ -4,8 +4,9 @@ Counterpart of the body of ``highwayenv_tpu/parallel/sharding.py::
 sharded_rollout_fn`` on one card: each step draws uniform random actions
 (``random_actions``: an integer in [0, n) for a discrete action, U(-1, 1)
 on each axis of a continuous one, as ``_action_sampler`` does), runs
-``step_autoreset_batched`` and folds the observation into a checksum so the
-observation head is part of the measured work.  Metrics stay on the device
+``step_autoreset_batched`` and folds the observation (every field of a
+dict one) into a checksum so the observation head is part of the measured
+work.  Metrics stay on the device
 until the caller reads them.
 
 The two reset-amortizing options of ``sharded_rollout_fn``:
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from highwayenv_tpu_torch.envs.base import _rows, take_rows, where_done
+from highwayenv_tpu_torch.envs.base import _rows, map_obs, take_rows, where_done
 
 
 def random_actions(env, batch: int, generator: torch.Generator, device=None):
@@ -40,6 +41,13 @@ def random_actions(env, batch: int, generator: torch.Generator, device=None):
     return torch.empty((batch, at.size), dtype=torch.float32, device=device).uniform_(
         -1.0, 1.0, generator=generator
     )
+
+
+def obs_sum(obs) -> torch.Tensor:
+    """The sum of every observation, of every field of a dict one."""
+    if isinstance(obs, dict):
+        return torch.stack([v.sum() for v in obs.values()]).sum()
+    return obs.sum()
 
 
 def rollout(env, states, horizon: int, generator: torch.Generator,
@@ -85,10 +93,10 @@ def rollout(env, states, horizon: int, generator: torch.Generator,
                 torch.cumsum(done.to(torch.int32), 0) - 1, 0, fresh_pool - 1
             )
             states = where_done(done, take_rows(pool, rank), stepped)
-            obs = torch.where(_rows(done, obs), pool_obs[rank], obs)
+            obs = map_obs(lambda p, o: torch.where(_rows(done, o), p[rank], o), pool_obs, obs)
         rewards.append(reward.mean())
         dones.append((term | trunc).float().mean())
-        obs_sums.append(obs.sum())
+        obs_sums.append(obs_sum(obs))
     return states, {
         "mean_reward": torch.stack(rewards).mean(),
         "done_rate": torch.stack(dones).mean(),

@@ -20,14 +20,15 @@ is missing only the current kernels run.  ``--kernels`` picks the families
     env; K1 on every env and masked to every third env, K3 with its flags.
     Timed: K1 on every env, K3, K1 masked with no env firing, on the reset
     scene.
-  general: K4 (``general_frames``) at roundabout-v0 (V=5, L=32, R=11) and
-    merge-v0 (V=6, L=9, an obstacle) on the reset scene, 8 steps in, an
+  general: K4 (``general_frames``) at roundabout-v0 (V=5, L=32, R=11),
+    merge-v0 (V=6, L=9, an obstacle) and exit-v0 (V=21, L=20, 7 lanes on
+    one edge, the 32-thread group) on the reset scene, 8 steps in, an
     all-env pile-up and (merge) the obstacle hit; K5
     (``general_frames_regulated``) at intersection-v0 (V=25, L=20, R=3,
     tick period 7) on the reset scene, 8 steps in with the tick phases
     spread over all 7 values, a conflict scene with yields and the reset's
     warm-up launch (V=16, 45 frames), B=4096, the scenes of chip_smoke.py.
-    Timed: K4 at roundabout-v0 and at merge-v0 on the reset scene, K5's
+    Timed: K4 at roundabout-v0, merge-v0 and exit-v0 on the reset scene, K5's
     step on the reset scene with spread tick phases, K5's warm-up.  Then
     the Linear rows' branch: K4 at roundabout-v0 under AggressiveVehicle
     and K5's step at intersection-v0 under DefensiveVehicle, and K5's
@@ -38,7 +39,8 @@ Each scene runs the instantiation its env path launches: ``linear`` on
 for the Linear scenes, off (the IDM code alone) for the others.  A tree
 whose kernels read no Linear parameters (a baseline from before them, told
 by its sources) is bound with its own field list and runs the scenes
-without Linear rows alone.
+without Linear rows alone; the general kernels of each tree are bound with
+a parameter block of that tree's ``GEN_MAX_SPEEDS``.
 
 For each family the script
 
@@ -178,14 +180,25 @@ def reads_params(csrc: pathlib.Path) -> bool:
                for name in ("straight_common.cuh", "general_frames.cu"))
 
 
-def load(path: pathlib.Path, wrapper_cls, params: bool = True):
+def speed_slots(csrc: pathlib.Path) -> int:
+    """The size of the target-speed grid in the general kernels'
+    parameter block of the tree ``csrc`` (its ``GEN_MAX_SPEEDS``)."""
+    text = (csrc / "general_frames.cu").read_text()
+    return int(re.search(r"#define GEN_MAX_SPEEDS (\d+)", text).group(1))
+
+
+def load(path: pathlib.Path, wrapper_cls, params: bool = True, params_type=None):
     """A wrapper instance (``wrapper_cls()``) bound to the library at
     ``path``; ``params=False``: a library whose kernels take no parameter
-    fields, bound with its field list."""
+    fields, bound with its field list; ``params_type``: the ctypes
+    parameter block of a general library, where it is not the current
+    one."""
     lib = ctypes.CDLL(str(path))
     wrapper = wrapper_cls()
     if not params:
         wrapper.in_fields = [f for f in wrapper.in_fields if f[0] not in PARAM_FIELDS]
+    if params_type is not None:
+        wrapper.params_type = params_type
     wrapper._bind(lib)
     wrapper._lib = lib
     return wrapper, lib
@@ -478,26 +491,27 @@ def regulated_scenes(env, states, gen):
     return out
 
 
-def run_general(args, paths, clock_paths, phases, params) -> None:
+def run_general(args, paths, clock_paths, phases, params, speeds) -> None:
     import torch
 
     import highwayenv_tpu_torch as ht
     from highwayenv_tpu_torch.ops import general_frames as gf
 
     k5_cls = functools.partial(gf.GeneralFramesKernel, regulated=True)
-    wrappers = {label: {"K4": load(p["general_frames"], gf.GeneralFramesKernel,
-                                   params[label])[0],
-                        "K5": load(p["general_frames"], k5_cls, params[label])[0]}
+
+    def bound(p, label):
+        block = gf.params_struct(speeds[label])
+        return {k: load(p["general_frames"], cls, params[label], block)
+                for k, cls in (("K4", gf.GeneralFramesKernel), ("K5", k5_cls))}
+
+    wrappers = {label: {k: w for k, (w, _) in bound(p, label).items()}
                 for label, p in paths.items()}
-    clock_libs = {label: {"K4": load(p["general_frames"], gf.GeneralFramesKernel,
-                                     params[label]),
-                          "K5": load(p["general_frames"], k5_cls, params[label])}
-                  for label, p in clock_paths.items()}
+    clock_libs = {label: bound(p, label) for label, p in clock_paths.items()}
     names = [n for n, _, _ in gf.OUT_FIELDS]
     reg_names = names + [n for n, _, _ in gf.REG_FIELDS]
     timed = {}  # label -> (kernel, call args, the tree labels that run it)
 
-    for env_id in ("roundabout-v0", "merge-v0"):
+    for env_id in ("roundabout-v0", "merge-v0", "exit-v0"):
         env = ht.make(env_id)
         spec, frames = env._general, env.frames_per_step
         gen = env.generator(SEED)
@@ -639,7 +653,9 @@ def main(argv) -> int:
     if "straight" in args.kernels:
         run_straight(args, paths, clock_paths, phases, params)
     if "general" in args.kernels:
-        run_general(args, paths, clock_paths, phases, params)
+        speeds = {label: speed_slots(pathlib.Path(csrc)) for label, csrc in trees.items()}
+        print(f"the general kernels' target-speed slots: {speeds}")
+        run_general(args, paths, clock_paths, phases, params, speeds)
     return 0
 
 

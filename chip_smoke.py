@@ -56,13 +56,23 @@ Phases:
      frames), parking-ActionRepeat-v0 (15 frames) and parking-parked-v0
      (V=16), B=4096, on the reset scene, 8 steps in, the pile-up and a
      scene in which the egos hit the walls, their goal landmarks and the
-     parked cars, every field bit-exact, and make() on the card refusing
-     configs beyond the kernels' arrays (17 target speeds, 17 straight
-     lanes), naming the limit; then
+     parked cars, every field bit-exact; then (PR 12) the connected-lane
+     search: K4's kConnected instantiation at roundabout-v1, merge-v1,
+     u-turn-v1, exit-v1 (the 32-thread group) and racetrack-v1 (raw
+     controls) on the reset scene, 8 steps in and the pile-up, K5's at
+     intersection-v2 and intersection-multi-agent-v2 and K5 with two egos
+     at intersection-multi-agent-v0 on the reset scene, 8 steps in with
+     the tick phases spread, the conflict scene and the warm-up, B=4096,
+     every field bit-exact, and the roundabout-v1 and intersection-v2
+     autoreset steps against the plain reference path; make() on the card
+     refusing configs beyond the kernels' arrays (17 target speeds, 17
+     straight lanes, 12 connected-lane candidates a lane), naming the
+     limit; then
      on highway-v0, roundabout-v0, intersection-v0, racetrack-v0,
      highway-v0 LinearVehicle, u-turn-v0, exit-v0 (is_success too) and
      parking-v0 (the KinematicsGoal dict observation, field by field, and
-     is_success), B=4096, from a batch
+     is_success) and intersection-multi-agent-v0 (the tuple observation,
+     element by element), B=4096, from a batch
      with every 8th ego crashed, the compact autoreset (reset_slots P =
      1024, and 64, which takes further passes) against the full one over 3
      steps, and CapturedStep replays against eager steps over 8 (full, P =
@@ -91,6 +101,11 @@ Phases:
      two-way-v0, u-turn-v0 and exit-v0, B=4096, reset and a rollout
      through K4 (one launch per policy step); then the parking family's
      three paths in the same way, every 8th ego crashed at the start; then
+     (PR 12) roundabout-v1, intersection-v2 and intersection-multi-agent-v0
+     the same way, eager and through a CapturedStep, and 4 captured steps
+     at each other new id, the counts of each instantiation read after
+     each (one connected K4 launch a step, or K5's two, and none of the v0
+     instantiation at a connected id) and a profile of replays; then
      the sixteen rollouts (the seven, highway-v0 LinearVehicle, the
      slice's five and the parking family) again with each step one replay
      of a CapturedStep (the kernels' counts cover the warm-up step and the
@@ -106,7 +121,9 @@ Phases:
      K5's raw-control branch (intersection-v0 ContinuousAction), their
      bounds with the linear laws' operations, and K4 at exit-v0,
      u-turn-v0 and the three parking ids (raw controls; the timed
-     launch's output held bit-exact to the plain version's); the
+     launch's output held bit-exact to the plain version's), and (PR 12)
+     the connected K4 at roundabout-v1 and K5 at intersection-v2, each
+     beside the v0 instantiation's time on the same scene; the
      simulation of a
      sorted and a dense policy step; the sorted and dense rollouts in
      turns; the roundabout-v0 and intersection-v0 rollouts three times
@@ -114,8 +131,9 @@ Phases:
      each (device kernels by name, device busy share); and ms per step of
      racetrack-v0, the three envs and highway-v0 LinearVehicle, eager against
      graph, full against compact P=1024, three runs each in turns, with
-     the device busy time per step, and of the slice's five envs and the
-     parking family eager against graph, full autoreset, with a profile
+     the device busy time per step, and of the slice's five envs, the
+     parking family, roundabout-v1, intersection-v2 and
+     intersection-multi-agent-v0 eager against graph, full autoreset, with a profile
      of eager steps, the observation's and a reset placement's device
      time.
 
@@ -259,12 +277,40 @@ OVER_LIMITS = (
      "17 target speeds outside 2 to 16"),
     ("highway-v0", {"lanes_count": 17}, "17 straight lanes > 16"),
 )
+#: the connected-lane search (PR 12): K4's kConnected instantiation held to
+#: its plain version at these ids (exit-v1: the 32-thread group; racetrack-v1:
+#: raw controls), K5's at intersection-v2 and, with two egos, at
+#: intersection-multi-agent-v0 (K5 as it is) and -v2 (kConnected)
+CONNECTED_K4 = ("roundabout-v1", "merge-v1", "u-turn-v1", "exit-v1", "racetrack-v1")
+REGULATED_12 = ("intersection-v2", "intersection-multi-agent-v0",
+                "intersection-multi-agent-v2")
+#: the slice's ids driven HORIZON steps, eager and captured, with a row of
+#: eager against captured ms; every other new id takes CONNECTED_SHORT
+#: captured steps
+CONNECTED_ROLLOUTS = ("roundabout-v1", "intersection-v2", "intersection-multi-agent-v0")
+CONNECTED_OTHERS = ("merge-v1", "merge-generic-v1", "u-turn-v1", "exit-v1",
+                    "roundabout-generic-v1", "racetrack-v1", "racetrack-large-v1",
+                    "racetrack-oval-v1", "intersection-multi-agent-v2")
+CONNECTED_SHORT = 4
+#: the general path's wrappers in ops/general_frames.py and the demangled
+#: names of their IDM instantiations in a profile
+GENERAL_PATHS = {
+    "K4": ("frames_general_kernel", "general_frames_kernel<false, false, false>"),
+    "K4 connected": ("frames_general_connected_kernel",
+                     "general_frames_kernel<false, false, true>"),
+    "K5": ("frames_regulated_kernel", "general_frames_kernel<true, false, false>"),
+    "K5 connected": ("frames_regulated_connected_kernel",
+                     "general_frames_kernel<true, false, true>"),
+}
+#: per query and candidate lane of the connected walk: the candidate and its
+#: offset loaded, the seen mask applied and merged
+GEN_OPS_CONN_LANE = 4
 COMPACT_SLOTS = (1024, 64)  # reset slots P: one pass a step, and further passes
 COMPACT_STEPS = 3  # autoreset steps of compact against full
 GRAPH_STEPS = 8  # steps of the captured step against the eager one
 CRASH_EVERY = 8  # every 8th ego crashed at the start: 512 done rows at B=4096
 PROFILE_REPLAYS = 4  # replays of a captured step under the profiler
-TIMED_STEPS = 32  # steps of each timed eager / graph, full / compact run
+TIMED_STEPS = 16  # steps of each timed eager / graph, full / compact run
 #: profiled runs of a frame kernel's plain version, after one warm-up (its
 #: device time is a yardstick; each run is tens to hundreds of ms, and the
 #: profiler's processing of its thousands of small kernels dominates phase 5)
@@ -503,7 +549,10 @@ def gen_frame_ops(veh, out, spec, table, raw=False) -> float:
     accelerations and neighbour scans of the decision pass; the abort scans;
     the collision pairs as in the straight frame.  Under raw controls
     (``raw``) the egos' P-cascade is not counted.  A Linear row's
-    accelerations and steering count the linear laws' operations."""
+    accelerations and steering count the linear laws' operations.  Under the
+    connected-lane search (``spec.connected``) each query also walks the
+    candidate lanes of its lane and adds an offset to the key of each slot
+    it visits."""
     from highwayenv_tpu_torch.road import lane as lane_ops
     from highwayenv_tpu_torch.vehicle.behavior import is_driven
     from highwayenv_tpu_torch.vehicle.controller import table_row
@@ -528,17 +577,26 @@ def gen_frame_ops(veh, out, spec, table, raw=False) -> float:
     idm = is_driven(veh)
     mid = veh.lane != veh.target_lane
     deciding = idm & ~mid & (veh.timer > p.lane_change_delay) & veh.enable_lane_change
+    n_cand = (geo.conn_lanes >= 0).sum(-1)  # candidate lanes of each lane
     cands = torch.zeros_like(veh.lane)
+    cand_lanes = torch.zeros_like(veh.lane)
     for d in (-1, 1):
         cid = geo.lane_id[li] + d
         cand = (geo.edge_base[li] + cid).clamp(0, L - 1)
         reach = lane_ops.reachable_from_coords(
             geo, cand, table_row(table_s, cand), table_row(table_lat, cand)
         )
-        cands = cands + (deciding & (cid >= 0) & (cid < geo.edge_n[li]) & reach
-                         & (veh.speed.abs() >= 1.0)).int()
+        asked = (deciding & (cid >= 0) & (cid < geo.edge_n[li]) & reach
+                 & (veh.speed.abs() >= 1.0)).int()
+        cands = cands + asked
+        cand_lanes = cand_lanes + asked * n_cand[cand]
     dual = idm & (out.target_lane != veh.lane)
     queries = idm.sum() + cands.sum() + dual.sum()
+    conn_ops = 0
+    if spec.connected:
+        walked = (idm * n_cand[li]).sum() + cand_lanes.sum() + (
+            dual * n_cand[out.target_lane.clamp(0, L - 1).long()]).sum()
+        conn_ops = GEN_OPS_CONN_LANE * walked + (V - 1) * queries
 
     def evals(rows):
         return rows.sum() + 2 * (rows & deciding).sum() + 4 * (cands * rows).sum() + (
@@ -567,7 +625,7 @@ def gen_frame_ops(veh, out, spec, table, raw=False) -> float:
         + GEN_OPS_EDGE_LANE * edge_lanes
         + GEN_OPS_IDM * idm_evals + OPS_LINEAR_ACCEL * lin_evals
         - (GEN_OPS_STEER_PC - OPS_LINEAR_STEER) * lin.sum()
-        + GEN_OPS_NEIGH_PAIR * (V - 1) * queries
+        + GEN_OPS_NEIGH_PAIR * (V - 1) * queries + conn_ops
         + GEN_OPS_ABORT_PAIR * V * aborting + OPS_SPHERE * elig.sum()
         + OPS_SAT * near.sum()
     )
@@ -800,15 +858,16 @@ def group_size(V: int) -> int:
     return 16 if V <= 16 else 32
 
 
-def k4_work(gf, env, veh, sa):
+def k4_work(gf, env, veh, sa, spec=None):
     """(float32 operations, bytes) of one K4 launch from ``veh`` with the
     slot actions ``sa`` (None: raw controls stored on the egos, which run
-    no P-cascade): the operations counted frame by frame on the plain
-    version (``gen_frame_ops``), the bytes of every field read and written
-    once (``read_bytes``), the slot actions and the lane tables."""
+    no P-cascade) under ``spec`` (default the env's): the operations
+    counted frame by frame on the plain version (``gen_frame_ops``), the
+    bytes of every field read and written once (``read_bytes``), the slot
+    actions, the lane tables and (connected) the candidate tables."""
     from highwayenv_tpu_torch.road import lane as lane_ops
 
-    spec, raw = env._general, sa is None
+    spec, raw = spec or env._general, sa is None
     ops, v = 0.0, veh
     table = lane_ops.projection_table(spec.geo, v.pos)
     for f in range(env.frames_per_step):
@@ -820,7 +879,29 @@ def k4_work(gf, env, veh, sa):
     lf, li = gf.lane_tables(spec.geo, env.device)
     n_bytes = (read_bytes(veh, gf._resolve(gf._IN_FIELDS, R)) + (0 if raw else sa.numel() * 4)
                + field_bytes(v, gf._resolve(gf.OUT_FIELDS, R))
-               + lf.numel() * 4 + li.numel() * 4)
+               + lf.numel() * 4 + li.numel() * 4 + conn_bytes(gf, spec))
+    return ops, n_bytes
+
+
+def conn_bytes(gf, spec) -> int:
+    """The bytes of the candidate tables a connected launch reads."""
+    return 2 * 4 * spec.geo.num_lanes * gf.MAX_CONN if spec.connected else 0
+
+
+def k5_work(gf, env, veh, sa, steps0, frames, spec=None):
+    """(float32 operations, bytes) of one K5 launch under ``spec``
+    (default the env's): ``regulated_ops``, and the bytes of every field
+    and K5's own read and written once, the slot actions, the tick phases,
+    the lane tables and (connected) the candidate tables."""
+    spec = spec or env._general
+    ops = regulated_ops(veh, spec, sa, frames, steps0)
+    out = gf.frames_general_plain(veh, spec, sa, frames, steps0)
+    R = veh.route_base.shape[-1]
+    lf, li = gf.lane_tables(spec.geo, env.device)
+    n_bytes = (read_bytes(veh, gf._resolve(gf._IN_FIELDS, R) + gf.REG_FIELDS)
+               + sa.numel() * 4 + veh.kind.shape[0] * 4
+               + field_bytes(out, gf._resolve(gf.OUT_FIELDS, R) + gf.REG_FIELDS)
+               + lf.numel() * 4 + li.numel() * 4 + conn_bytes(gf, spec))
     return ops, n_bytes
 
 
@@ -943,6 +1024,156 @@ def check_refusals(ht) -> None:
             print(f"  make('{env_id}', {config}) on CUDA refused: {e}")
         else:
             raise AssertionError(f"{env_id} {config}: made past the kernels' limits")
+    what = "12 connected-lane candidates > 9"
+    try:
+        crowded_merge(ht)
+    except NotImplementedError as e:
+        if what not in str(e) or "not ported" not in str(e):
+            raise AssertionError(f"crowded merge-v1: refused for another reason: {e}") from e
+        print(f"  merge-v1 with 10 predecessor edges into a node, on CUDA, refused: {e}")
+    else:
+        raise AssertionError("crowded merge-v1: made past the candidate tables")
+
+
+def check_connected_kernels(ht, gf, err) -> dict:
+    """K4's kConnected instantiation against its plain version at
+    CONNECTED_K4 on the reset scene, 8 steps in and the all-env pile-up
+    (racetrack-v1's raw controls stored on the egos first), and K5 at
+    REGULATED_12 on ``regulated_scenes`` (the tick phases spread over all 7
+    values, the conflict scene, the warm-up): kConnected at intersection-v2
+    and intersection-multi-agent-v2, the v0 instantiation with two egos at
+    intersection-multi-agent-v0; every field bit-exact.  Records the errors
+    under "K4 connected", "K5 connected" and "K5 step" / "K5 warm-up".
+    Returns {env id: (env, states)}."""
+    envs = {}
+    err["K4 connected"] = err["K5 connected"] = 0.0
+    k4c = gf.frames_general_connected_kernel
+    for env_id in CONNECTED_K4:
+        env = ht.make(env_id)
+        spec, frames = env._general, env.frames_per_step
+        gen = env.generator(SEED)
+        _, states = env.reset(B, gen)
+        print(f"== 3. K4 connected vs plain: {env_id} V={env.num_slots}, "
+              f"L={env.geo.num_lanes}, candidate lanes a lane "
+              f"{int((env.geo.conn_lanes >= 0).sum(-1).max())} of "
+              f"{env.geo.conn_lanes.shape[1]}, group {group_size(env.num_slots)} threads "
+              f"an env, {frames} frames, B={B}, raw controls "
+              f"{env.action_type.stores_raw_controls}")
+        if not spec.connected:
+            raise AssertionError(f"{env_id}: the spec has no connected-lane search")
+        for name, veh in general_scenes(env, states, gen).items():
+            sa = env._action_to_slots(random_actions(env, B, gen))
+            veh, sa, raw = gf.store_raw_controls(env, veh, sa)
+            out_k = k4c(veh, spec, sa, frames, raw=raw, linear=env.linear_rows)
+            out_p = gf.frames_general_plain(veh, spec, sa, frames, raw=raw)
+            torch.cuda.synchronize()
+            err["K4 connected"] = max(err["K4 connected"],
+                                      compare_general(out_k, out_p, f"{env_id} {name}"))
+        envs[env_id] = (env, states)
+    for env_id in REGULATED_12:
+        env = ht.make(env_id)
+        spec = env._general
+        kernel = gf.frames_regulated_connected_kernel if spec.connected else (
+            gf.frames_regulated_kernel)
+        gen = env.generator(SEED)
+        _, states = env.reset(B, gen)
+        print(f"== 3. K5{' connected' if spec.connected else ''} vs plain: {env_id} "
+              f"V={env.num_slots}, egos {env.ego_slots}, {env.frames_per_step} frames, "
+              f"tick period {spec.period}, B={B}")
+        for name, (rveh, rsteps, rsa, rframes) in regulated_scenes(env, states, gen).items():
+            out_k = kernel(rveh, spec, rsa, rframes, rsteps, linear=False)
+            out_p = gf.frames_general_plain(rveh, spec, rsa, rframes, rsteps)
+            torch.cuda.synchronize()
+            key = "K5 connected" if spec.connected else (
+                "K5 warm-up" if name == "warm-up" else "K5 step")
+            err[key] = max(err[key], compare_general(out_k, out_p, f"{env_id} {name}"))
+            phases = torch.unique(torch.remainder(rsteps, spec.period)).numel()
+            print(f"    V={rveh.kind.shape[1]}, {rframes} frames, {phases} tick phases; "
+                  f"slots yielding after the step {int(out_k.is_yielding.sum())}")
+            if name == "8 steps in" and phases != spec.period:
+                raise AssertionError(f"{env_id}: the tick phases are not mixed")
+        envs[env_id] = (env, states)
+    return envs
+
+
+def crowded_merge(ht):
+    """merge-v1 with 8 more one-lane edges into node "b": 10 predecessor
+    edges, 12 candidate lanes on the lanes leaving "b", beyond the
+    kernels' candidate tables."""
+    from highwayenv_tpu_torch.envs.merge import MergeEnv
+    from highwayenv_tpu_torch.road.network import StraightLane
+
+    class CrowdedMerge(MergeEnv):
+        def _build_scene(self):
+            super()._build_scene()
+            for k in range(8):
+                self.net.add_lane(f"x{k}", "b", StraightLane(
+                    [100.0, 40.0 + 10.0 * k], [230.0, 40.0 + 10.0 * k]))
+            self.geo = self.net.build(device=self.device)
+
+    return CrowdedMerge(config={"neighbour_vehicles_connected_lanes": True})
+
+
+def drive_connected(gf, envs, kernels, launches) -> None:
+    """The slice's paths, each with the counts set to 0 just before it:
+    CONNECTED_ROLLOUTS made on CUDA, reset and HORIZON random-policy
+    autoreset steps eager (the connected K4 once a step; K5 once a step
+    and once a warm-up, plus the first reset's), then the same through a
+    CapturedStep, and CONNECTED_OTHERS CONNECTED_SHORT captured steps;
+    each replay profiled: one launch of the path's instantiation (two on a
+    regulated road), none of the v0 instantiation at a connected id."""
+    gf_names = {path: name for path, (_, name) in GENERAL_PATHS.items()}
+    for env_id in CONNECTED_ROLLOUTS + CONNECTED_OTHERS:
+        env = envs[env_id]
+        spec = env._general
+        path = ("K5" if env.regulated else "K4") + (" connected" if spec.connected else "")
+        per_step = 2 if env.regulated else 1
+        for graph in (False, True):
+            if not graph and env_id not in CONNECTED_ROLLOUTS:
+                continue
+            steps = HORIZON if env_id in CONNECTED_ROLLOUTS else CONNECTED_SHORT
+            print(f"== 4. slice path: make('{env_id}') on CUDA, B={B}, reset and {steps} "
+                  f"random-policy autoreset steps through {path}"
+                  + (", each one replay of a CapturedStep" if graph else ""))
+            gen = env.generator(SEED + (3 if graph else 1))
+            recorder = FrameRecorder(kernels[path])
+            attr = GENERAL_PATHS[path][0]
+            setattr(gf, attr, recorder)
+            try:
+                for k in kernels.values():
+                    k.launches = 0
+                _, st = env.reset(B, gen)
+                st, m = rollout(env, st, steps, gen, graph=graph)
+                torch.cuda.synchronize()
+            finally:
+                setattr(gf, attr, kernels[path])
+            counts = {n: k.launches for n, k in kernels.items()}
+            m = {k: float(v) for k, v in m.items()}
+            step_n = sum(f == env.frames_per_step for f in recorder.frames)
+            print(f"  launches counted in Python: {counts} ({step_n} of {env.frames_per_step} "
+                  f"frames){' (the warm-up step and the capture)' if graph else ''}; "
+                  f"rollout {m}")
+            others = sum(n for name, n in counts.items() if name != path)
+            want = (steps * per_step + (1 if env.regulated else 0)) if not graph else None
+            if others or (want is not None and counts[path] != want) or counts[path] < 1:
+                raise AssertionError(f"{env_id}: {path} must launch {per_step} a step, alone")
+            if not all(np.isfinite(list(m.values()))):
+                raise AssertionError(f"{env_id}: non-finite metrics")
+            for k in ("pos", "speed", "heading"):
+                if not bool(torch.isfinite(getattr(st.vehicles, k)).all()):
+                    raise AssertionError(f"{env_id}: non-finite {k}")
+            if not graph:
+                launches[f"{path} {env_id}"] = step_n
+                continue
+            prof = profile_replays(env, st, gen, list(gf_names.values()))
+            ours = {n: prof["ours"].get(gf_names[n], 0.0) for n in gf_names}
+            print(f"  profile of {PROFILE_REPLAYS} replays: {prof['kernels']:.1f} device "
+                  f"kernels and {prof['busy_ms']:.4f} ms device busy per replay; per replay "
+                  f"{ours}")
+            if prof["kernels"] > 0 and (ours[path] != per_step or any(
+                    v for n, v in ours.items() if n != path)):
+                raise AssertionError(f"{env_id}: a replay launched {ours}, expected "
+                                     f"{per_step} of {path} alone")
 
 
 def drive_slice(envs, kernels, launches, crash_first: bool = False) -> None:
@@ -1012,19 +1243,27 @@ def crashed_every(env, states, k: int = CRASH_EVERY):
     return states.replace(vehicles=veh.replace(crashed=crashed))
 
 
-def obs_fields(obs) -> dict:
-    """An observation's tensors by name: itself, or a dict one's fields."""
-    return {f"obs {k}": v for k, v in obs.items()} if isinstance(obs, dict) else {"obs": obs}
+def obs_fields(obs, name: str = "obs") -> dict:
+    """An observation's tensors by name: itself, a dict one's fields, a
+    tuple one's elements (one per ego), recursively."""
+    if isinstance(obs, dict):
+        parts = obs.items()
+    elif isinstance(obs, tuple):
+        parts = enumerate(obs)
+    else:
+        return {name: obs}
+    return {k: v for key, part in parts for k, v in obs_fields(part, f"{name} {key}").items()}
 
 
 def same_obs(a, b) -> bool:
-    """Two observations (tensors, or dicts of tensors) bit-exact."""
+    """Two observations (tensors, or dicts or tuples of them) bit-exact."""
     fa, fb = obs_fields(a), obs_fields(b)
     return fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k]) for k in fa)
 
 
 def same_step(a, b, where: str) -> None:
-    """Two autoreset steps' obs (every field of a dict one), every field of
+    """Two autoreset steps' obs (every field of a dict one, every element of
+    a tuple one), every field of
     the state, reward, terminated, truncated and (exit-v0, parking)
     ``info["is_success"]`` bit-exact."""
     import dataclasses
@@ -1533,6 +1772,14 @@ def main() -> int:
     # observation)
     parking_envs = check_parking_kernels(ht, gf, err)
     penv, pstates = parking_envs["parking-v0"]
+    # the connected-lane search's K4 and K5 and the two-ego K5 (PR 12);
+    # intersection-multi-agent-v0 carries on to the compact and captured
+    # checks (the tuple observation)
+    conn_envs = check_connected_kernels(ht, gf, err)
+    menv, mstates = conn_envs["intersection-multi-agent-v0"]
+    for env_id in ("roundabout-v1", "intersection-v2"):
+        check_autoreset(*conn_envs[env_id], conn_envs[env_id][0].generator(SEED),
+                        env_id + " ")
     print("== 3. the kernels' limits refused at make")
     check_refusals(ht)
 
@@ -1542,7 +1789,8 @@ def main() -> int:
                          ("racetrack-v0 ", renv, rstates),
                          ("highway-v0 LinearVehicle ", lenv, lstates),
                          ("u-turn-v0 ", uenv, ustates), ("exit-v0 ", xenv, xstates),
-                         ("parking-v0 ", penv, pstates)):
+                         ("parking-v0 ", penv, pstates),
+                         ("intersection-multi-agent-v0 ", menv, mstates)):
         print(f"== 3. {label}compact autoreset vs full, CapturedStep vs eager")
         check_compact(e, st, label)
         check_graph(e, st, label)
@@ -1811,6 +2059,14 @@ def main() -> int:
     all_kernels = {"K1": k1, "K2a": k2a, "K3": k3, "K2b": k2b, "K4": k4, "K5": k5}
     drive_slice(slice_envs, all_kernels, launches)
     drive_slice(parking_envs, all_kernels, launches, crash_first=True)
+    # the connected-lane search's paths and the two-ego intersection (PR 12)
+    k4c, k5c = gf.frames_general_connected_kernel, gf.frames_regulated_connected_kernel
+    conn_kernels = {**all_kernels, "K4 connected": k4c, "K5 connected": k5c}
+    drive_connected(gf, {env_id: conn_envs[env_id][0] if env_id in conn_envs else ht.make(env_id)
+                     for env_id in CONNECTED_ROLLOUTS + CONNECTED_OTHERS},
+                    conn_kernels, launches)
+    launches["K4 connected"] = launches["K4 connected roundabout-v1"]
+    launches["K5 connected"] = launches["K5 connected intersection-v2"]
 
     # the rollouts again, each step one replay of a CapturedStep
     straight_names = ("straight_frames_kernel", "sort_kernel",
@@ -2255,6 +2511,47 @@ def main() -> int:
         print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, "
               f"{n_bytes} bytes -> {t_bytes:.5f} ms)")
 
+    # the connected K4 at roundabout-v1 and K5 at intersection-v2 from fresh
+    # resets with random actions (K5: the tick phases spread over all 7
+    # values), each beside the v0 instantiation on the same scene under the
+    # v0 spec (roundabout-v0, intersection-v0)
+    for key, env_id, v0_id in (("K4 connected", "roundabout-v1", "roundabout-v0"),
+                               ("K5 connected", "intersection-v2", "intersection-v0")):
+        e = conn_envs[env_id][0]
+        spec, v0_spec, frames = e._general, ht.make(v0_id)._general, e.frames_per_step
+        _, s0 = e.reset(B, e.generator(SEED + 2))
+        sveh = s0.vehicles
+        ssa = e._action_to_slots(random_actions(e, B, gen))
+        if e.regulated:
+            steps0 = s0.steps + torch.arange(B, device=e.device, dtype=torch.int32) * 15
+            args, v0_args = (sveh, spec, ssa, frames, steps0), (sveh, v0_spec, ssa, frames, steps0)
+            kernel, v0_kernel = k5c, k5
+            plain = lambda: gf.frames_general_plain(sveh, spec, ssa, frames, steps0)  # noqa: E731
+            ops, n_bytes = k5_work(gf, e, sveh, ssa, steps0, frames)
+        else:
+            args, v0_args = (sveh, spec, ssa, frames), (sveh, v0_spec, ssa, frames)
+            kernel, v0_kernel = k4c, k4
+            plain = lambda: gf.frames_general_plain(sveh, spec, ssa, frames)  # noqa: E731
+            ops, n_bytes = k4_work(gf, e, sveh, ssa)
+        out_k = kernel(*args, linear=False)
+        torch.cuda.synchronize()
+        err[key] = max(err[key], compare_general(out_k, plain(), f"{env_id} timed inputs"))
+        what = f"{env_id}, V={e.num_slots}, group {group_size(e.num_slots)}"
+        ms, plain_ms, _ = timed(f"{key} ({what}), per policy step",
+                                lambda: kernel(*args, linear=False), plain, None, 20, PLAIN_REPS)
+        v0_ms = queued_ms(lambda: v0_kernel(*v0_args, linear=False), 20)
+        v0_ops, v0_bytes = (k5_work(gf, e, sveh, ssa, steps0, frames, v0_spec) if e.regulated
+                            else k4_work(gf, e, sveh, ssa, v0_spec))
+        bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+        v0_bms, v0_by, _, _ = bound(v0_ops, v0_bytes)
+        rows[key] = (f"{'general_frames_regulated' if e.regulated else 'general_frames'}"
+                     f"_connected ({env_id})", "highwayenv_tpu_torch/csrc/general_frames.cu",
+                     "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms, bms, by,
+                     None)
+        print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, "
+              f"{n_bytes} bytes -> {t_bytes:.5f} ms); the v0 instantiation on the same "
+              f"scene under {v0_id}'s spec: {v0_ms:.4f} ms queued, bound {v0_bms:.4f} ms by "
+              f"{v0_by}; connected / v0 {ms / v0_ms:.3f}")
     print(f"  [the kernel table done at {time.time() - start:.0f} s]")
     # the policy step's simulation, and the rollouts, in turns
     for which, sim in (("sorted", ss.simulate_bm_sorted), ("dense", sf.simulate_bm)):
@@ -2367,7 +2664,8 @@ def main() -> int:
 
     # the slice's envs and the parking family: eager against graph, the
     # full autoreset, in turns
-    for env_id, (e, _) in {**slice_envs, **parking_envs}.items():
+    for env_id, (e, _) in {**slice_envs, **parking_envs, **{
+            k: conn_envs[k] for k in CONNECTED_ROLLOUTS}}.items():
         print(f"  [{env_id} at {time.time() - start:.0f} s]")
         _, t0_states = e.reset(B, e.generator(SEED + 4))
         walls = {name: [] for name in ("eager full", "graph full")}

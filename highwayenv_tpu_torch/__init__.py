@@ -16,7 +16,12 @@ racetrack-large-v0, racetrack-oval-v0) and the parking family
 dict observation), whose ContinuousAction egos run the frame kernels'
 raw-control branch; on every id the NPCs may be the
 Linear-family classes (``other_vehicles_type``), which the frame kernels'
-Linear rows' instantiation steps.
+Linear rows' instantiation steps.  The -v1 / -v2 ids (merge-v1,
+merge-generic-v1, u-turn-v1, exit-v1, roundabout-v1, roundabout-generic-v1,
+racetrack-v1, racetrack-large-v1, racetrack-oval-v1, intersection-v2)
+search neighbours on the connected lanes too, on the general kernels'
+connected instantiations; intersection-multi-agent-v0 and -v2 run two egos
+with a MultiAgentAction and a MultiAgentObservation (a tuple observation).
 """
 
 from __future__ import annotations
@@ -25,11 +30,19 @@ __version__ = "0.1.0"
 
 _REGISTRY: dict[str, tuple] = {}
 
-#: ids of the reference registry that use the connected-lane neighbour search
-_CONNECTED_IDS = {
-    "merge-v1", "merge-generic-v1", "u-turn-v1", "exit-v1", "roundabout-v1",
-    "roundabout-generic-v1", "racetrack-v1", "racetrack-large-v1",
-    "racetrack-oval-v1", "intersection-v2", "intersection-multi-agent-v2",
+#: the config of the ids with the connected-lane neighbour search (the
+#: reference's ConnectedLaneNeighboursMixin)
+CONNECTED = {"config": {"neighbour_vehicles_connected_lanes": True}}
+
+#: the reference registry's ids that the port does not run, and why
+_UNPORTED_IDS = {
+    "intersection-multi-agent-v1": (
+        "Gymnasium's MultiAgentWrapper over the single-env GymEnv, which waits "
+        "for highwayenv_tpu/seeding.py"),
+    "intersection-v1": ("the BicycleVehicle dynamics of its dynamical ContinuousAction "
+                        "(vehicle/dynamics.py) are not ported"),
+    "lane-keeping-v0": ("its own _step and the BicycleVehicle dynamics "
+                        "(envs/lane_keeping.py, vehicle/dynamics.py) are not ported"),
 }
 
 
@@ -38,14 +51,7 @@ class NotPortedError(KeyError, NotImplementedError):
 
 
 def _why_not_ported(env_id: str) -> str:
-    if env_id in _CONNECTED_IDS:
-        return "the connected-lane neighbour search is not ported"
-    if env_id.startswith("intersection-multi-agent"):
-        return "MultiAgentAction and MultiAgentObservation are not ported"
-    if env_id == "intersection-v1":
-        return ("the BicycleVehicle dynamics of its dynamical ContinuousAction "
-                "(vehicle/dynamics.py) are not ported")
-    return "unknown or not ported"
+    return _UNPORTED_IDS.get(env_id, "unknown or not ported")
 
 
 def register(env_id: str, cls, kwargs: dict | None = None):
@@ -97,7 +103,10 @@ def register_gymnasium_envs(namespace: str = "highwayenv_tpu_torch") -> None:
 def _register_all():
     from highwayenv_tpu_torch.envs.exit import ExitEnv
     from highwayenv_tpu_torch.envs.highway import HighwayEnv, HighwayEnvFast
-    from highwayenv_tpu_torch.envs.intersection import IntersectionEnv
+    from highwayenv_tpu_torch.envs.intersection import (
+        IntersectionEnv,
+        MultiAgentIntersectionEnv,
+    )
     from highwayenv_tpu_torch.envs.merge import MergeEnv
     from highwayenv_tpu_torch.envs.merge_generic import MergeGenericEnv
     from highwayenv_tpu_torch.envs.parking import (
@@ -116,21 +125,33 @@ def _register_all():
     from highwayenv_tpu_torch.envs.u_turn import UTurnEnv
 
     register("exit-v0", ExitEnv)
+    register("exit-v1", ExitEnv, CONNECTED)
     register("highway-v0", HighwayEnv)
     register("highway-fast-v0", HighwayEnvFast)
     register("intersection-v0", IntersectionEnv)
+    register("intersection-v2", IntersectionEnv, CONNECTED)
+    register("intersection-multi-agent-v0", MultiAgentIntersectionEnv)
+    register("intersection-multi-agent-v2", MultiAgentIntersectionEnv, CONNECTED)
     register("merge-v0", MergeEnv)
+    register("merge-v1", MergeEnv, CONNECTED)
     register("merge-generic-v0", MergeGenericEnv)
+    register("merge-generic-v1", MergeGenericEnv, CONNECTED)
     register("parking-v0", ParkingEnv)
     register("parking-ActionRepeat-v0", ParkingEnvActionRepeat)
     register("parking-parked-v0", ParkingEnvParkedVehicles)
     register("racetrack-v0", RacetrackEnv)
+    register("racetrack-v1", RacetrackEnv, CONNECTED)
     register("racetrack-large-v0", RacetrackEnvLarge)
+    register("racetrack-large-v1", RacetrackEnvLarge, CONNECTED)
     register("racetrack-oval-v0", RacetrackEnvOval)
+    register("racetrack-oval-v1", RacetrackEnvOval, CONNECTED)
     register("roundabout-v0", RoundaboutEnv)
+    register("roundabout-v1", RoundaboutEnv, CONNECTED)
     register("roundabout-generic-v0", RoundaboutGenericEnv)
+    register("roundabout-generic-v1", RoundaboutGenericEnv, CONNECTED)
     register("two-way-v0", TwoWayEnv)
     register("u-turn-v0", UTurnEnv)
+    register("u-turn-v1", UTurnEnv, CONNECTED)
 
 
 _register_all()

@@ -28,6 +28,15 @@
 // without it the IDM code alone (the parent's registers, so an IDM-only
 // scene pays nothing for the branch), which traps where it meets a Linear
 // row (trap_on_linear, straight_common.cuh).
+// Each entry has a kConnected twin (general_frames_connected,
+// general_frames_regulated_connected) for the -v1 / -v2 ids' connected-lane
+// neighbour search (vehicle/behavior.py::neighbours_connected): every
+// neighbour query also walks the slots on the query lane's successor and
+// predecessor lanes, from per-lane candidate tables that only these
+// instantiations receive and keep in shared memory.  The TPU kernels have
+// no such branch (the JAX package runs those ids on its XLA frames,
+// BaseEnv._frame); the plain version with GeneralSpec.connected is held to
+// that XLA path on the CPU and this branch to the plain version on the card.
 // Each operation rounds as the op-by-op torch version does on the same card:
 // the library is built with -fmad=false and the precise libm functions, and
 // every expression keeps the torch version's order of operations.
@@ -97,6 +106,9 @@
 #define GEN_MAX_LANES 32
 #define GEN_MAX_SLOTS 32
 #define GEN_MAX_SUCC 4
+#define GEN_MAX_PRED 4
+// the connected-lane search's candidates a lane: itself, successors, predecessors
+#define GEN_MAX_CONN (1 + GEN_MAX_SUCC + GEN_MAX_PRED)
 #define GEN_MAX_SPEEDS 16
 #define GEN_MAX_ROUTE 16
 #define GEN_BLOCK 64  // threads a block
@@ -408,10 +420,12 @@ struct EnvSmem {
 };
 
 // The words of a block's shared memory before its envs' arrays: the lane
-// tables, the lanes' order by kind and the pair table, rounded up to an
-// even count so that each env's keys are 8-byte aligned.
-__host__ __device__ static int block_words(int L, int V) {
-  const int w = L * (LANE_F_WORDS + LANE_I_WORDS + 1) + (V * (V - 1) / 2 + 1) / 2;
+// tables, the lanes' order by kind, under the connected-lane search the
+// candidate lanes and offsets of every lane, and the pair table, rounded up
+// to an even count so that each env's keys are 8-byte aligned.
+__host__ __device__ static int block_words(int L, int V, bool conn) {
+  const int w = L * (LANE_F_WORDS + LANE_I_WORDS + 1) + (conn ? 2 * L * GEN_MAX_CONN : 0) +
+                (V * (V - 1) / 2 + 1) / 2;
   return (w + 1) & ~1;
 }
 
@@ -420,7 +434,7 @@ __host__ __device__ static int block_words(int L, int V) {
 #define FS_VEHICLE 2
 #define FS_CONTROLLED 4
 
-template <bool kLinear>
+template <bool kLinear, bool kConnected>
 struct Ctx {
   const Lanes& g;
   const GenParams& p;
@@ -428,26 +442,60 @@ struct Ctx {
   int V, i;
   float delta;  // the deciding slot's IDM exponent
   Law law;      // the deciding slot's acceleration law, read where kLinear
+  // kConnected: each lane's GEN_MAX_CONN candidate lanes (-1 pad) and the
+  // offsets that shift a candidate's s into the lane's frame
+  const int* conn_l;
+  const float* conn_f;
 
   // vehicle/behavior.py::neighbours of slot i on query lane q: front =
   // smallest s >= own s, the last slot among ties; rear = largest s < own s,
   // the first among ties; -1 = none.  The walk visits the eligible slots in
   // ascending order, as the dense loop over every slot did.
+  // kConnected: vehicle/behavior.py::neighbours_connected.  The candidate
+  // lanes of q in column order; a slot counts on the first candidate whose
+  // eligibility bit it has (the bits already seen are masked off), with its
+  // s there plus the candidate's offset as its key (one float add, as the
+  // plain s + offset).  The slots no longer come in ascending order, so the
+  // tie rules are explicit: the front keeps the highest slot among equal
+  // keys, the rear the lowest.
   __device__ void neighbours(int q, int* front, int* rear) const {
     const int l = g.clip(q);
     const float s_self = e.S[l * V + i];
     float f_key = INFINITY, r_key = -INFINITY;
     int f = -1, r = -1;
-    for (unsigned bits = e.elig[l] & ~(1u << i); bits; bits &= bits - 1) {
-      const int j = __ffs(bits) - 1;
-      const float sc = e.S[l * V + j];
-      if (s_self <= sc && sc <= f_key) {
-        f_key = sc;
-        f = j;
+    if constexpr (kConnected) {
+      unsigned seen = 1u << i;
+      for (int k = 0; k < GEN_MAX_CONN; ++k) {
+        const int c = conn_l[l * GEN_MAX_CONN + k];
+        if (c < 0) continue;
+        const float off = conn_f[l * GEN_MAX_CONN + k];
+        unsigned bits = e.elig[c] & ~seen;
+        seen |= bits;
+        for (; bits; bits &= bits - 1) {
+          const int j = __ffs(bits) - 1;
+          const float sc = e.S[c * V + j] + off;
+          if (s_self <= sc && (sc < f_key || (sc == f_key && j > f))) {
+            f_key = sc;
+            f = j;
+          }
+          if (sc < s_self && (sc > r_key || (sc == r_key && j < r))) {
+            r_key = sc;
+            r = j;
+          }
+        }
       }
-      if (sc < s_self && sc > r_key) {
-        r_key = sc;
-        r = j;
+    } else {
+      for (unsigned bits = e.elig[l] & ~(1u << i); bits; bits &= bits - 1) {
+        const int j = __ffs(bits) - 1;
+        const float sc = e.S[l * V + j];
+        if (s_self <= sc && sc <= f_key) {
+          f_key = sc;
+          f = j;
+        }
+        if (sc < s_self && sc > r_key) {
+          r_key = sc;
+          r = j;
+        }
       }
     }
     *front = f;
@@ -611,8 +659,9 @@ __device__ void project_table(const Lanes& g, const EnvSmem& e, const int* lorde
 // Phase B for the owner of slot i: the IDM / MOBIL decision pass and the
 // controls.  kLinear: each row's own kind picks its law (a Linear row's is
 // LinearVehicle's); without it every law is IDM's.
-template <bool kLinear>
-__device__ __forceinline__ void decide(GSlot& v, const Ctx<kLinear>& cx, const Lanes& g,
+template <bool kLinear, bool kConnected>
+__device__ __forceinline__ void decide(GSlot& v, const Ctx<kLinear, kConnected>& cx,
+                                       const Lanes& g,
                                        const GenParams& p, const EnvSmem& e, int i, int V,
                                        int R, const int* rid) {
   const bool idm = (v.kind == KIND_IDM || (kLinear && v.kind == KIND_LINEAR)) && !v.crashed;
@@ -709,22 +758,38 @@ __device__ __forceinline__ void decide(GSlot& v, const Ctx<kLinear>& cx, const L
   }
 }
 
-template <bool kRegulated, bool kLinear>
+// conn_lanes / conn_offsets: the (L, GEN_MAX_CONN) candidate tables, read by
+// the kConnected instantiations alone (last, so that the other parameters
+// keep their places)
+template <bool kRegulated, bool kLinear, bool kConnected>
 __global__ void __launch_bounds__(GEN_BLOCK)
     general_frames_kernel(const __grid_constant__ GenFields f,
                           const __grid_constant__ RegFields rf, const float* lane_f,
                           const int* lane_i, const __grid_constant__ GenParams p, int B,
-                          int G) {
+                          int G, const int* conn_lanes, const float* conn_offsets) {
   extern __shared__ float smem[];
   const int L = p.L, V = p.V, R = p.R, M = p.M;
   const int P = V * (V - 1) / 2;
 
-  // the lane tables, the lanes grouped by kind, and the pair table, once
-  // per block
+  // the lane tables, the lanes grouped by kind, the candidate tables
+  // (kConnected), and the pair table, once per block
   float* lf = smem;
   int* li = reinterpret_cast<int*>(lf + L * LANE_F_WORDS);
   int* lorder = li + L * LANE_I_WORDS;
-  unsigned short* pairs = reinterpret_cast<unsigned short*>(lorder + L);
+  int* conn_l = nullptr;
+  float* conn_f = nullptr;
+  unsigned short* pairs;
+  if constexpr (kConnected) {
+    conn_l = lorder + L;
+    conn_f = reinterpret_cast<float*>(conn_l + L * GEN_MAX_CONN);
+    pairs = reinterpret_cast<unsigned short*>(conn_f + L * GEN_MAX_CONN);
+    for (int k = threadIdx.x; k < L * GEN_MAX_CONN; k += blockDim.x) {
+      conn_l[k] = conn_lanes[k];
+      conn_f[k] = conn_offsets[k];
+    }
+  } else {
+    pairs = reinterpret_cast<unsigned short*>(lorder + L);
+  }
   for (int k = threadIdx.x; k < L * LANE_F_WORDS; k += blockDim.x) lf[k] = lane_f[k];
   for (int k = threadIdx.x; k < L * LANE_I_WORDS; k += blockDim.x) li[k] = lane_i[k];
   for (int a = threadIdx.x; a < V; a += blockDim.x) {
@@ -751,7 +816,7 @@ __global__ void __launch_bounds__(GEN_BLOCK)
   const int i = t;
 
   EnvSmem e;
-  float* env_base = smem + block_words(L, V) +
+  float* env_base = smem + block_words(L, V, kConnected) +
                     static_cast<size_t>(group) * EnvSmem::words(L, V, R, kRegulated);
   e.carve(env_base, L, V, R, kRegulated);
   const int phase = (kRegulated && env_live) ? rf.phase[env] : 0;
@@ -822,7 +887,7 @@ __global__ void __launch_bounds__(GEN_BLOCK)
     law.sp0 = f.steer_params[2 * o];
     law.sp1 = f.steer_params[2 * o + 1];
   }
-  const Ctx<kLinear> cx = {g, p, e, V, i, v.delta, law};
+  const Ctx<kLinear, kConnected> cx = {g, p, e, V, i, v.delta, law, conn_l, conn_f};
   const int* rb = e.rbase + i * R;
   const int* rn = e.rn + i * R;
   const int* rid = e.rid + i * R;
@@ -913,7 +978,7 @@ __global__ void __launch_bounds__(GEN_BLOCK)
     GROUP_SYNC();
 
     // --- B: the IDM / MOBIL decision pass and the controls ----------------
-    if (live) decide<kLinear>(v, cx, g, p, e, i, V, R, rid);
+    if (live) decide<kLinear, kConnected>(v, cx, g, p, e, i, V, R, rid);
     GROUP_SYNC();  // the frame-start table and eligibility masks are read
 
     // --- B': the right-of-way pass on the env's tick frames ----------------
@@ -1160,16 +1225,17 @@ __global__ void __launch_bounds__(GEN_BLOCK)
 // 1.50x slower at roundabout-v0, merge-v0 and the V = 16 warm-up; PERF.md).
 static int threads_per_env(int V) { return V <= 16 ? 16 : 32; }
 
-template <bool kRegulated>
+template <bool kRegulated, bool kConnected>
 static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
-                  const int* lane_i, const GenParams* params, int B, void* stream) {
+                  const int* lane_i, const int* conn_lanes, const float* conn_offsets,
+                  const GenParams* params, int B, void* stream) {
   static_assert(sizeof(GenFields) == (N_IN + 1 + N_OUT) * sizeof(void*),
                 "GenFields holds one pointer per tensor");
   const GenParams& p = *params;
   if (p.V < 1 || p.V > GEN_MAX_SLOTS || p.L < 1 || p.L > GEN_MAX_LANES || p.R < 1 ||
       p.R > GEN_MAX_ROUTE || p.M < 1 || p.M > GEN_MAX_LANES ||
       (p.raw ? p.n_speeds != 0 : (p.n_speeds < 1 || p.n_speeds > GEN_MAX_SPEEDS)) ||
-      (kRegulated && p.period < 1))
+      (kRegulated && p.period < 1) || (kConnected && (!conn_lanes || !conn_offsets)))
     return static_cast<int>(cudaErrorInvalidValue);
   GenFields f;
   memcpy(&f, ptrs, sizeof(GenFields));
@@ -1177,11 +1243,11 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
   const int envs_per_block = GEN_BLOCK / G;
   const size_t smem =
       sizeof(float) *
-      (static_cast<size_t>(block_words(p.L, p.V)) +
+      (static_cast<size_t>(block_words(p.L, p.V, kConnected)) +
        static_cast<size_t>(envs_per_block) * EnvSmem::words(p.L, p.V, p.R, kRegulated));
   // the Linear rows' instantiation where the caller says they are possible
-  auto kernel = p.linear ? general_frames_kernel<kRegulated, true>
-                         : general_frames_kernel<kRegulated, false>;
+  auto kernel = p.linear ? general_frames_kernel<kRegulated, true, kConnected>
+                         : general_frames_kernel<kRegulated, false, kConnected>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -1189,8 +1255,8 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
   }
   if (B > 0) {
     const int blocks = (B + envs_per_block - 1) / envs_per_block;
-    kernel<<<blocks, GEN_BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(f, rf, lane_f,
-                                                                          lane_i, p, B, G);
+    kernel<<<blocks, GEN_BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+        f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1203,7 +1269,8 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
 // error code (cudaErrorInvalidValue for shapes outside the kernel's limits).
 extern "C" int general_frames(void* const* ptrs, const float* lane_f, const int* lane_i,
                               const GenParams* params, int B, void* stream) {
-  return launch<false>(ptrs, RegFields{}, lane_f, lane_i, params, B, stream);
+  return launch<false, false>(ptrs, RegFields{}, lane_f, lane_i, nullptr, nullptr, params, B,
+                              stream);
 }
 
 // The size of GenParams, which the wrapper holds its ctypes mirror to.
@@ -1217,5 +1284,30 @@ extern "C" int general_frames_regulated(void* const* ptrs, void* const* reg_ptrs
   static_assert(sizeof(RegFields) == 5 * sizeof(void*), "RegFields holds five pointers");
   RegFields rf;
   memcpy(&rf, reg_ptrs, sizeof(RegFields));
-  return launch<true>(ptrs, rf, lane_f, lane_i, params, B, stream);
+  return launch<true, false>(ptrs, rf, lane_f, lane_i, nullptr, nullptr, params, B, stream);
+}
+
+// The connected-lane search's K4: as general_frames, plus conn_lanes /
+// conn_offsets, the (L, GEN_MAX_CONN) int candidate lanes (-1 pad) and float
+// offsets of ops/general_frames.py::conn_tables on the device.
+extern "C" int general_frames_connected(void* const* ptrs, const float* lane_f,
+                                        const int* lane_i, const int* conn_lanes,
+                                        const float* conn_offsets, const GenParams* params,
+                                        int B, void* stream) {
+  return launch<false, true>(ptrs, RegFields{}, lane_f, lane_i, conn_lanes, conn_offsets,
+                             params, B, stream);
+}
+
+// The connected-lane search's K5: as general_frames_regulated, plus the
+// candidate tables of general_frames_connected.
+extern "C" int general_frames_regulated_connected(void* const* ptrs, void* const* reg_ptrs,
+                                                  const float* lane_f, const int* lane_i,
+                                                  const int* conn_lanes,
+                                                  const float* conn_offsets,
+                                                  const GenParams* params, int B,
+                                                  void* stream) {
+  RegFields rf;
+  memcpy(&rf, reg_ptrs, sizeof(RegFields));
+  return launch<true, true>(ptrs, rf, lane_f, lane_i, conn_lanes, conn_offsets, params, B,
+                            stream);
 }

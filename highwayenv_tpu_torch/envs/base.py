@@ -130,10 +130,13 @@ def _rows(mask: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 
 def map_obs(fn, *obs):
-    """``fn`` over observations of one structure: a tensor, or a dict of
-    tensors (KinematicsGoal) key by key."""
+    """``fn`` over observations of one structure: a tensor, a dict of them
+    (KinematicsGoal) key by key, or a tuple of them (one per ego of a
+    multi-agent observation) element by element."""
     if isinstance(obs[0], dict):
-        return {k: fn(*(o[k] for o in obs)) for k in obs[0]}
+        return {k: map_obs(fn, *(o[k] for o in obs)) for k in obs[0]}
+    if isinstance(obs[0], tuple):
+        return tuple(map_obs(fn, *parts) for parts in zip(*obs, strict=True))
     return fn(*obs)
 
 
@@ -183,6 +186,10 @@ class BaseEnv:
 
     #: RegulatedRoad envs (the right-of-way pass in the frames) set this
     regulated = False
+
+    #: envs whose several controlled vehicles are ported (the intersection
+    #: family) set this; the others refuse ``controlled_vehicles`` > 1
+    several_egos = False
 
     def __init__(self, config: dict | None = None, device=None,
                  sorted_frames: bool = True):
@@ -244,7 +251,8 @@ class BaseEnv:
         unported = [
             what for what, bad in (
                 ("sequential_decisions", self.config.get("sequential_decisions")),
-                ("several controlled vehicles", len(self.ego_slots) != 1),
+                ("several controlled vehicles",
+                 len(self.ego_slots) != 1 and not self.several_egos),
             ) if bad
         ]
         if self._straight is None:
@@ -354,17 +362,29 @@ class BaseEnv:
     # ------------------------------------------------------------------ #
     # policy-step simulation
     # ------------------------------------------------------------------ #
+    @property
+    def action_shape(self) -> tuple[int, ...]:
+        """The shape of one env's action: the action type's, behind the
+        agent axis (n_agents,) where the env has several egos."""
+        agents = () if len(self.ego_slots) == 1 else (len(self.ego_slots),)
+        return agents + tuple(self.action_type.action_shape)
+
     def _action_to_slots(self, actions: torch.Tensor) -> torch.Tensor:
         """Agent actions to slot actions: (B,) discrete actions -> (B, V)
-        int32; (B, size) continuous actions -> (B, V, size) float32 (the
-        JAX package's ``_action_to_slots``)."""
+        int32; (B, size) continuous actions -> (B, V, size) float32; with
+        several egos (B, n_agents, ...) actions, agent k's to slot
+        ``ego_slots[k]`` (the JAX package's ``_action_to_slots``)."""
         extra = tuple(self.action_type.action_shape)
         dtype = torch.float32 if extra else torch.int32
-        batch = actions.shape[: actions.dim() - len(extra)]
+        batch = actions.shape[: actions.dim() - len(self.action_shape)]
         slots = torch.zeros(
             batch + (self.num_slots,) + extra, dtype=dtype, device=actions.device
         )
-        slots[:, self.ego_slots[0]] = actions.to(dtype)
+        if len(self.ego_slots) == 1:
+            slots[:, self.ego_slots[0]] = actions.to(dtype)
+        else:
+            for k, slot in enumerate(self.ego_slots):
+                slots[:, slot] = actions[:, k].to(dtype)
         return slots
 
     def _advance(self, states: EnvState, actions, simulate) -> EnvState:
@@ -404,10 +424,15 @@ class BaseEnv:
     # ------------------------------------------------------------------ #
     # reset, heads, autoreset
     # ------------------------------------------------------------------ #
-    def _observe(self, state: EnvState) -> torch.Tensor:
-        return self.observation_type.observe(
-            self.geo, state.vehicles, self.ego_slots[0]
-        )
+    def _observe(self, state: EnvState):
+        """The observation of the ego, or with several egos or a
+        multi-agent observation the tuple of each ego slot's (the JAX
+        package's ``_observe``)."""
+        obs_type = self.observation_type
+        if len(self.ego_slots) == 1 and not getattr(obs_type, "multi_agent", False):
+            return obs_type.observe(self.geo, state.vehicles, self.ego_slots[0])
+        return tuple(obs_type.observe(self.geo, state.vehicles, slot)
+                     for slot in self.ego_slots)
 
     @property
     def npc_preset(self) -> str | None:

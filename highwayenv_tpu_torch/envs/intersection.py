@@ -1,7 +1,9 @@
 """Four-way regulated intersection with a changing vehicle population.
 
 PyTorch counterpart of ``highwayenv_tpu/envs/intersection.py`` (reference
-highway_env/envs/intersection_env.py, intersection-v0).  Four corners of
+highway_env/envs/intersection_env.py: intersection-v0, and with the
+connected-lane neighbour search intersection-v2; ``MultiAgentIntersectionEnv``
+is intersection-multi-agent-v0 and -v2, two egos).  Four corners of
 five lanes each (incoming, right turn, left turn, straight, exit) on a
 regulated road: every ``sim_freq // 2`` frames the right-of-way pass makes
 the lower-priority vehicle of each predicted conflict yield.  The padded
@@ -144,6 +146,7 @@ class SpawnDraws(NamedTuple):
 
 class IntersectionEnv(BaseEnv):
     regulated = True
+    several_egos = True
 
     @classmethod
     def default_config(cls) -> dict:
@@ -534,3 +537,49 @@ class IntersectionEnv(BaseEnv):
             for s in self.ego_slots
         )
         return info
+
+
+class MultiAgentIntersectionEnv(IntersectionEnv):
+    """intersection-multi-agent-v0 and -v2 (reference intersection_env.py
+    ``MultiAgentIntersectionEnv``): two egos in slots 24 and 25, on corners
+    0 and 1, each with its own DiscreteMetaAction and Kinematics
+    observation; the reward is the agents' mean, an episode ends when an
+    ego crashes or every ego has arrived, and ``info`` carries
+    ``agents_rewards`` and ``agents_terminated``."""
+
+    @classmethod
+    def default_config(cls) -> dict:
+        config = super().default_config()
+        update_config(
+            config,
+            {
+                "action": {
+                    "type": "MultiAgentAction",
+                    "action_config": {
+                        "type": "DiscreteMetaAction",
+                        "lateral": False,
+                        "longitudinal": True,
+                        "target_speeds": [0, 4.5, 9],
+                    },
+                },
+                "observation": {
+                    "type": "MultiAgentObservation",
+                    "observation_config": {
+                        "type": "Kinematics",
+                        "vehicles_count": 15,
+                        "features": ["presence", "x", "y", "vx", "vy", "cos_h", "sin_h"],
+                        "features_range": {
+                            "x": [-100, 100],
+                            "y": [-100, 100],
+                            "vx": [-20, 20],
+                            "vy": [-20, 20],
+                        },
+                        "absolute": True,
+                        "flatten": False,
+                        "observe_intentions": False,
+                    },
+                },
+                "controlled_vehicles": 2,
+            },
+        )
+        return config

@@ -3,11 +3,12 @@
 PyTorch counterpart of ``highwayenv_tpu/factories.py`` (reference
 envs/common/observation.py ``observation_factory`` and envs/common/action.py
 ``action_factory``), so scenario configs stay drop-in.  The port has the
-Kinematics, KinematicsGoal, TimeToCollision, ExitObservation and
-OccupancyGrid observations and the DiscreteMetaAction,
-ContinuousAction and DiscreteAction; every other type the JAX package knows
-raises ``NotPortedError`` naming the module it waits for, and an unknown
-type raises ``ValueError`` as in the JAX package.
+Kinematics, KinematicsGoal, TimeToCollision, ExitObservation,
+OccupancyGrid, MultiAgentObservation and TupleObservation observations and
+the DiscreteMetaAction, ContinuousAction, DiscreteAction and
+MultiAgentAction (every action type the JAX package knows); every other
+observation type it knows raises ``NotPortedError`` naming the module it
+waits for, and an unknown type raises ``ValueError`` as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,9 +16,11 @@ from __future__ import annotations
 from highwayenv_tpu_torch import NotPortedError
 from highwayenv_tpu_torch.actions.continuous import ContinuousAction, DiscreteAction
 from highwayenv_tpu_torch.actions.discrete_meta import DiscreteMetaAction
+from highwayenv_tpu_torch.actions.multi_agent import MultiAgentAction
 from highwayenv_tpu_torch.observations.exit_obs import ExitObservation
 from highwayenv_tpu_torch.observations.kinematics import KinematicsObservation
 from highwayenv_tpu_torch.observations.kinematics_goal import KinematicsGoalObservation
+from highwayenv_tpu_torch.observations.multi import MultiAgentObservation, TupleObservation
 from highwayenv_tpu_torch.observations.occupancy_grid import OccupancyGridObservation
 from highwayenv_tpu_torch.observations.ttc import TimeToCollisionObservation
 
@@ -26,21 +29,16 @@ _UNPORTED_OBSERVATIONS = {
     "LidarObservation": "observations/lidar.py",
     "GrayscaleObservation": "observations/grayscale.py",
     "AttributesObservation": "observations/attributes.py",
-    "MultiAgentObservation": "observations/multi.py",
-    "TupleObservation": "observations/multi.py",
-}
-_UNPORTED_ACTIONS = {
-    "MultiAgentAction": "actions/multi_agent.py",
 }
 
 
-def _refuse(what: str, kind: str, unported: dict):
-    if kind in unported:
+def _refuse_observation(kind: str):
+    if kind in _UNPORTED_OBSERVATIONS:
         raise NotPortedError(
-            f"{what} type {kind!r} is not ported yet: it needs the port of "
-            f"highwayenv_tpu/{unported[kind]}"
+            f"observation type {kind!r} is not ported yet: it needs the port of "
+            f"highwayenv_tpu/{_UNPORTED_OBSERVATIONS[kind]}"
         )
-    raise ValueError(f"Unknown {what} type: {kind}")
+    raise ValueError(f"Unknown observation type: {kind}")
 
 
 def observation_factory(env, config: dict):
@@ -59,7 +57,11 @@ def observation_factory(env, config: dict):
         )
     if config["type"] == "OccupancyGrid":
         return OccupancyGridObservation(**kwargs)
-    return _refuse("observation", config["type"], _UNPORTED_OBSERVATIONS)
+    if config["type"] == "MultiAgentObservation":
+        return MultiAgentObservation(env, **kwargs)
+    if config["type"] == "TupleObservation":
+        return TupleObservation(env, **kwargs)
+    return _refuse_observation(config["type"])
 
 
 def action_factory(config: dict, env=None):
@@ -70,4 +72,6 @@ def action_factory(config: dict, env=None):
         return ContinuousAction(**kwargs)
     if config["type"] == "DiscreteAction":
         return DiscreteAction(**kwargs)
-    return _refuse("action", config["type"], _UNPORTED_ACTIONS)
+    if config["type"] == "MultiAgentAction":
+        return MultiAgentAction(env, **kwargs)
+    raise ValueError(f"Unknown action type: {config['type']}")

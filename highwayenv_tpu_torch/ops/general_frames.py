@@ -16,7 +16,10 @@ the frame-start state):
   3. the IDM / MOBIL decision pass on the (B, L, V) projection table of
      every object on every lane, with the route-directed override and the
      same-road abort gate, and the dual-lane IDM acceleration; a Linear
-     row (``KIND_LINEAR``) decides with LinearVehicle's acceleration;
+     row (``KIND_LINEAR``) decides with LinearVehicle's acceleration; with
+     ``GeneralSpec.connected`` (the -v1 / -v2 ids) every neighbour query
+     also searches the query lane's successor and predecessor lanes
+     (``behavior.neighbours_connected``);
   4. the steering P-cascade toward the target lane's heading ahead (IDM
      rows, and the ego unless it keeps raw controls), LinearVehicle's
      steering law on Linear rows;
@@ -31,10 +34,12 @@ the frame-start state):
 ``frames_general_plain`` runs them in batched torch; it is what the CPU
 and ``BaseEnv._simulate`` use.  On CUDA tensors all frames of a step run in
 one launch of ``csrc/general_frames.cu``: ``frames_general_kernel`` (K4)
-without the regulated block, ``frames_regulated_kernel`` (K5) with it, each
-with its own launch count; on CPU tensors both run
-``frames_general_plain``.  ``try_general`` is the scope gate: the envs
-outside it raise when made, naming the reason.
+without the regulated block, ``frames_regulated_kernel`` (K5) with it, and
+on a connected spec their ``kConnected`` instantiations
+``frames_general_connected_kernel`` and
+``frames_regulated_connected_kernel``, each with its own launch count; on
+CPU tensors all run ``frames_general_plain``.  ``try_general`` is the scope
+gate: the envs outside it raise when made, naming the reason.
 """
 
 from __future__ import annotations
@@ -67,6 +72,9 @@ MAX_SLOTS = 32
 MAX_LANES = 32
 #: sizes of the kernel's fixed arrays (``GEN_MAX_SUCC`` ... in the .cu)
 MAX_SUCC = 4
+MAX_PRED = 4
+#: the connected-lane search's candidates a lane: itself, successors, predecessors
+MAX_CONN = 1 + MAX_SUCC + MAX_PRED
 MAX_SPEEDS = 16
 MAX_ROUTE = 16
 
@@ -81,13 +89,21 @@ class GeneralSpec(NamedTuple):
     action_type: object  # DiscreteMetaAction, ContinuousAction or DiscreteAction
     #: frames between right-of-way ticks on a regulated road, else None
     period: int | None = None
+    #: the connected-lane neighbour search (``neighbour_vehicles_connected_lanes``)
+    connected: bool = False
 
 
 def kernel_limits(V: int, L: int, M: int, R: int, S: int,
-                  n_speeds: int | None) -> list[str]:
+                  n_speeds: int | None, P: int | None = None) -> list[str]:
     """The limits of the kernels' arrays that a scene of V slots, L lanes,
-    at most M lanes an edge, R route slots, S successor edges a lane and
-    ``n_speeds`` target speeds (None under raw controls) breaks."""
+    at most M lanes an edge, R route slots, S successor edges a lane,
+    ``n_speeds`` target speeds (None under raw controls) and, under the
+    connected-lane search, P predecessor edges a lane (None without it)
+    breaks."""
+    conn = [] if P is None else [
+        (f"{P} predecessor edges > {MAX_PRED}", P > MAX_PRED),
+        (f"{1 + S + P} connected-lane candidates > {MAX_CONN}", 1 + S + P > MAX_CONN),
+    ]
     return [
         what for what, bad in (
             (f"{V} slots > {MAX_SLOTS}", V > MAX_SLOTS),
@@ -97,25 +113,26 @@ def kernel_limits(V: int, L: int, M: int, R: int, S: int,
             (f"{S} successor edges > {MAX_SUCC}", S > MAX_SUCC),
             (f"{n_speeds} target speeds outside 2 to {MAX_SPEEDS}",
              n_speeds is not None and not 2 <= n_speeds <= MAX_SPEEDS),
+            *conn,
         ) if bad
     ]
 
 
+def _connected(env) -> bool:
+    return bool(env.config.get("neighbour_vehicles_connected_lanes", False))
+
+
 def general_unported(env) -> list[str]:
-    """Why ``env`` cannot take the general path: the JAX package's
-    ``try_general`` conditions that the port's envs can meet, and every
-    limit of the kernels' arrays, so that no env that is made is refused
-    at launch."""
+    """Why ``env`` cannot take the general path: every limit of the
+    kernels' arrays, so that no env that is made is refused at launch (the
+    JAX package's gate bounds only V and L, and runs the connected-lane
+    search outside its kernel)."""
     geo, at = env.geo, env.action_type
-    connected = env.config.get("neighbour_vehicles_connected_lanes", False)
-    return (
-        ["neighbour_vehicles_connected_lanes (the -v1 connected-lane neighbour "
-         "search)"] * bool(connected)
-        + kernel_limits(
-            env.num_slots, geo.num_lanes, int(env.max_edge_lanes), env.route_slots,
-            geo.succ_edge_base.shape[1],
-            None if at.stores_raw_controls else len(at.target_speeds),
-        )
+    return kernel_limits(
+        env.num_slots, geo.num_lanes, int(env.max_edge_lanes), env.route_slots,
+        geo.succ_edge_base.shape[1],
+        None if at.stores_raw_controls else len(at.target_speeds),
+        geo.pred_edge_base.shape[1] if _connected(env) else None,
     )
 
 
@@ -127,6 +144,7 @@ def try_general(env) -> GeneralSpec | None:
         geo=env.geo, p=env.idm_params, dt=env.dt,
         max_edge_lanes=int(env.max_edge_lanes), action_type=env.action_type,
         period=env._regulation_period if env.regulated else None,
+        connected=_connected(env),
     )
 
 
@@ -156,7 +174,7 @@ def frame_general_plain(veh: VehicleState, spec: GeneralSpec, table,
     veh = controller.follow_road(geo, veh, spec.max_edge_lanes, table_s)
     if slot_actions is not None:
         veh = spec.action_type.apply(geo, veh, veh.kind == KIND_EGO, slot_actions)
-    veh, idm_acc = behavior.idm_act(geo, p, veh, table_s, table_lat)
+    veh, idm_acc = behavior.idm_act(geo, p, veh, table_s, table_lat, spec.connected)
     # the ego's target is its own after the decision pass: one steering
     # law serves the ego and the IDM rows, LinearVehicle's the Linear rows
     steer = controller.steering_from_table(
@@ -257,6 +275,19 @@ def lane_tables(geo: LaneGeometry, device) -> tuple[torch.Tensor, torch.Tensor]:
     return lf, li.to(device).contiguous()
 
 
+def conn_tables(geo: LaneGeometry, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The connected kernels' (L, MAX_CONN) int candidate lanes (-1 pad)
+    and float offsets: ``geo.conn_lanes`` / ``conn_offsets`` padded."""
+    L, K = geo.conn_lanes.shape
+    if K > MAX_CONN:  # refused at make (general_unported)
+        raise ValueError(f"{K} connected-lane candidates > {MAX_CONN}")
+    lanes = torch.full((L, MAX_CONN), -1, dtype=torch.int32)
+    offsets = torch.zeros((L, MAX_CONN), dtype=torch.float32)
+    lanes[:, :K] = geo.conn_lanes.cpu()
+    offsets[:, :K] = geo.conn_offsets.cpu()
+    return lanes.to(device).contiguous(), offsets.to(device).contiguous()
+
+
 def params_struct(max_speeds: int = MAX_SPEEDS) -> type:
     """The ctypes mirror of the .cu's ``GenParams`` with a speed grid of
     ``max_speeds`` entries (its ``GEN_MAX_SPEEDS``)."""
@@ -323,7 +354,8 @@ def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int,
     ts = np.zeros(0, np.float32) if raw else np.asarray(at.target_speeds, np.float32)
     geo = spec.geo
     bad = kernel_limits(V, geo.num_lanes, spec.max_edge_lanes, R,
-                        geo.succ_edge_base.shape[1], None if raw else len(ts))
+                        geo.succ_edge_base.shape[1], None if raw else len(ts),
+                        geo.pred_edge_base.shape[1] if spec.connected else None)
     if bad:
         raise ValueError(f"outside the general kernels' limits: {', '.join(bad)}")
     out = params_type(
@@ -351,7 +383,11 @@ def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int,
 class GeneralFramesKernel(KernelWrapper):
     """Wrapper of the ``general_frames`` CUDA kernels: K4, or with
     ``regulated=True`` K5 (the same frame plus the right-of-way pass, a
-    second entry point of the same library).
+    second entry point of the same library); with ``connected=True`` their
+    ``kConnected`` instantiations (entries ``general_frames_connected`` and
+    ``general_frames_regulated_connected``), which search the connected
+    lanes from the lane tables' candidates (``conn_tables``) and take only a
+    connected spec, as the others take only a spec without it.
 
     Called on CUDA tensors it launches its kernel once for all frames of
     the policy step, the ego meta-action applied inside on frame 0, and adds
@@ -371,10 +407,11 @@ class GeneralFramesKernel(KernelWrapper):
     #: the ctypes mirror of the library's parameter block
     params_type = GenParams
 
-    def __init__(self, regulated: bool = False):
+    def __init__(self, regulated: bool = False, connected: bool = False):
         super().__init__()
-        self.regulated = regulated
-        self.entry = "general_frames_regulated" if regulated else "general_frames"
+        self.regulated, self.connected = regulated, connected
+        self.entry = ("general_frames" + "_regulated" * regulated
+                      + "_connected" * connected)
         self._tables: dict = {}
 
     def _bind(self, lib):
@@ -384,7 +421,7 @@ class GeneralFramesKernel(KernelWrapper):
                                f"{ctypes.sizeof(self.params_type)} in its mirror")
         fn = getattr(lib, self.entry)
         fn.argtypes = (
-            [ctypes.c_void_p] * (4 if self.regulated else 3)
+            [ctypes.c_void_p] * (3 + self.regulated + 2 * self.connected)
             + [ctypes.POINTER(self.params_type), ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -392,7 +429,8 @@ class GeneralFramesKernel(KernelWrapper):
     def _lane_tables(self, geo: LaneGeometry, dev):
         key = (id(geo), str(dev))
         if key not in self._tables:
-            self._tables[key] = (geo, lane_tables(geo, dev))
+            conn = conn_tables(geo, dev) if self.connected else ()
+            self._tables[key] = (geo, lane_tables(geo, dev) + conn)
         return self._tables[key][1]
 
     def __call__(self, veh: VehicleState, spec: GeneralSpec,
@@ -401,6 +439,9 @@ class GeneralFramesKernel(KernelWrapper):
                  linear: bool = True) -> VehicleState:
         if self.regulated != (steps0 is not None) or self.regulated != (spec.period is not None):
             raise ValueError("steps0 goes with K5 on a regulated road, and only there")
+        if self.connected != spec.connected:
+            raise ValueError("the connected instantiations take a connected spec, and only "
+                             "they do")
         if not on_cuda(veh.speed):
             self.check_linear(veh, linear)
             return frames_general_plain(veh, spec, slot_actions, frames, steps0, raw)
@@ -416,7 +457,7 @@ class GeneralFramesKernel(KernelWrapper):
             action_ptr = slot_actions.data_ptr()
         ins = checked_fields(veh, _resolve(self.in_fields, R), B, V, dev)
         outs = empty_fields(_resolve(OUT_FIELDS, R), B, V, dev)
-        lf, li = self._lane_tables(spec.geo, dev)
+        tables = [t.data_ptr() for t in self._lane_tables(spec.geo, dev)]
         params = kernel_params(spec, V, R, frames, raw, linear, self.params_type)
         ptrs = (ctypes.c_void_p * (len(ins) + 1 + len(outs)))(
             *[t.data_ptr() for t in ins], action_ptr, *[t.data_ptr() for t in outs]
@@ -433,7 +474,7 @@ class GeneralFramesKernel(KernelWrapper):
         lib = self._library()
         with torch.cuda.device(dev):
             err = getattr(lib, self.entry)(
-                *args, lf.data_ptr(), li.data_ptr(), ctypes.byref(params),
+                *args, *tables, ctypes.byref(params),
                 B, torch.cuda.current_stream(dev).cuda_stream,
             )
         self._launched(self.entry, err)
@@ -442,9 +483,12 @@ class GeneralFramesKernel(KernelWrapper):
 
 
 #: the wrapper instances the env path launches through: K4, and K5 for
-#: regulated roads, each counting its own launches
+#: regulated roads, and their connected instantiations for the envs with the
+#: connected-lane search, each counting its own launches
 frames_general_kernel = GeneralFramesKernel()
 frames_regulated_kernel = GeneralFramesKernel(regulated=True)
+frames_general_connected_kernel = GeneralFramesKernel(connected=True)
+frames_regulated_connected_kernel = GeneralFramesKernel(regulated=True, connected=True)
 
 
 def store_raw_controls(env, veh: VehicleState, slot_actions: torch.Tensor):
@@ -464,16 +508,18 @@ def simulate_general(env, veh: VehicleState, slot_actions: torch.Tensor,
     """Policy-step simulation on the general path: all ``frames`` frames and
     the ego meta-action (inside, on frame 0, after follow_road) through
     ``frames_general_kernel``, or with the envs' frame counters ``steps0``
-    (a regulated road) through ``frames_regulated_kernel``.  Raw controls
-    are stored first (``store_raw_controls``) and the launch reads none.
-    ``linear`` (default ``env.linear_rows``): Linear rows possible."""
+    (a regulated road) through ``frames_regulated_kernel``; under the
+    connected-lane search through their connected instantiations.  Raw
+    controls are stored first (``store_raw_controls``) and the launch reads
+    none.  ``linear`` (default ``env.linear_rows``): Linear rows possible."""
     veh, slot_actions, raw = store_raw_controls(env, veh, slot_actions)
     linear = env.linear_rows if linear is None else linear
+    spec = env._general
     if steps0 is None:
-        return frames_general_kernel(veh, env._general, slot_actions, frames, raw=raw,
-                                     linear=linear)
-    return frames_regulated_kernel(veh, env._general, slot_actions, frames, steps0, raw,
-                                   linear)
+        kernel = frames_general_connected_kernel if spec.connected else frames_general_kernel
+        return kernel(veh, spec, slot_actions, frames, raw=raw, linear=linear)
+    kernel = frames_regulated_connected_kernel if spec.connected else frames_regulated_kernel
+    return kernel(veh, spec, slot_actions, frames, steps0, raw, linear)
 
 
 def simulate_general_reference(env, veh: VehicleState, slot_actions: torch.Tensor,

@@ -8,7 +8,9 @@ buffers (the donated argument), warms the step up once eagerly (which
 builds the kernels, the lane tables and the device constants before
 capture), captures ``step_autoreset_batched`` into a ``torch.cuda.CUDAGraph``
 with the actions in a static buffer ((B,) int32, or (B, size) float32 for a
-continuous action), and replays the graph each step.
+continuous action; (B, n_agents, ...) with several egos), and replays the
+graph each step.  A tuple observation (one per ego) is a tuple of static
+buffers.
 
 The env's generator is registered with the graph, so each replay advances
 it as an eager step does and draws the same numbers: N replays give the
@@ -63,10 +65,11 @@ class CapturedStep:
         B = states.time.shape[0]
         self.states = map_fields(torch.clone, states)
         # the actions' buffer: (B,) int32 for a discrete action type,
-        # (B, size) float32 for a continuous one
-        extra = tuple(env.action_type.action_shape)
-        self.actions = torch.zeros((B,) + extra, device=dev,
-                                   dtype=torch.float32 if extra else torch.int32)
+        # (B, size) float32 for a continuous one, behind (n_agents,) with
+        # several egos
+        continuous = bool(env.action_type.action_shape)
+        self.actions = torch.zeros((B,) + env.action_shape, device=dev,
+                                   dtype=torch.float32 if continuous else torch.int32)
 
         def first(batch):
             return env._autoreset_first(

@@ -6,7 +6,7 @@ sharded_rollout_fn`` on one card: each step draws uniform random actions
 on each axis of a continuous one, as ``_action_sampler`` does), runs
 ``step_autoreset_batched`` and folds the observation (every field of a
 dict one) into a checksum so the observation head is part of the measured
-work.  Metrics stay on the device
+work (every element of a tuple one).  Metrics stay on the device
 until the caller reads them.
 
 The two reset-amortizing options of ``sharded_rollout_fn``:
@@ -31,22 +31,27 @@ from highwayenv_tpu_torch.envs.base import _rows, map_obs, take_rows, where_done
 
 
 def random_actions(env, batch: int, generator: torch.Generator, device=None):
-    """A uniform random action per env: (B,) int32 in [0, n) for a discrete
-    action type, (B, size) float32 U(-1, 1) for a continuous one."""
+    """A uniform random action per env (and per agent, (B, n_agents, ...),
+    where the env has several egos): int32 in [0, n) for a discrete action
+    type, (..., size) float32 U(-1, 1) for a continuous one."""
     at = env.action_type
     device = env.device if device is None else device
+    shape = (batch,) + env.action_shape
     if not at.action_shape:
-        return torch.randint(0, at.n, (batch,), generator=generator, device=device,
+        return torch.randint(0, at.n, shape, generator=generator, device=device,
                              dtype=torch.int32)
-    return torch.empty((batch, at.size), dtype=torch.float32, device=device).uniform_(
+    return torch.empty(shape, dtype=torch.float32, device=device).uniform_(
         -1.0, 1.0, generator=generator
     )
 
 
 def obs_sum(obs) -> torch.Tensor:
-    """The sum of every observation, of every field of a dict one."""
+    """The sum of every observation: of every field of a dict one, of
+    every element of a tuple one."""
     if isinstance(obs, dict):
-        return torch.stack([v.sum() for v in obs.values()]).sum()
+        obs = tuple(obs.values())
+    if isinstance(obs, tuple):
+        return torch.stack([obs_sum(o) for o in obs]).sum()
     return obs.sum()
 
 

@@ -70,6 +70,10 @@ class LaneTables(NamedTuple):
     succ_edge_n: torch.Tensor  # (L,S) i32
     pred_edge_base: torch.Tensor  # (L,P) i32, -1 pad
     pred_edge_n: torch.Tensor  # (L,P) i32
+    #: the connected-lane search's candidates of each lane: itself, then its
+    #: successor edges' lanes, then its predecessor edges' lanes, -1 pad
+    conn_lanes: torch.Tensor  # (L,K) i32, K = 1 + S + P
+    conn_offsets: torch.Tensor  # (L,K) f32: a candidate's s shifted into the lane's frame
 
     @property
     def num_lanes(self) -> int:

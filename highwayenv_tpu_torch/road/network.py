@@ -387,6 +387,22 @@ class RoadNetworkBuilder:
             for j, (b, n) in enumerate(pred.get(int(t["from_node"][g]), [])):
                 t["pred_edge_base"][g, j] = b
                 t["pred_edge_n"][g, j] = n
+        # the connected-lane search's candidates: the lane itself (offset
+        # 0), each successor edge's lane of the same id (or lane 0) at
+        # +own length, each predecessor edge's at -its length
+        t["conn_lanes"] = np.full((L, 1 + S + P), -1, i32)
+        t["conn_offsets"] = np.zeros((L, 1 + S + P), f32)
+        for g in range(L):
+            lid = t["lane_id"][g]
+            cands = [(g, 0.0)]
+            for b, n in succ.get(int(t["to_node"][g]), []):
+                cands.append((b + (lid if lid < n else 0), t["length"][g]))
+            for b, n in pred.get(int(t["from_node"][g]), []):
+                prev = b + (lid if lid < n else 0)
+                cands.append((prev, -t["length"][prev]))
+            for k, (lane, offset) in enumerate(cands):
+                t["conn_lanes"][g, k] = lane
+                t["conn_offsets"][g, k] = offset
         geo = LaneGeometry(**{k: torch.as_tensor(v, device=device) for k, v in t.items()})
         geo.all_straight = bool((t["kind"] == STRAIGHT).all())
         return geo

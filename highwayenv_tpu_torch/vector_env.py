@@ -127,6 +127,9 @@ class GymVectorEnv(VectorEnv):
     def step(self, actions):
         if self._states is None:
             raise RuntimeError("reset() must be called before step()")
+        if isinstance(actions, (tuple, list)) and len(self.env.ego_slots) > 1:
+            # a batched Tuple space's sample: one (B, ...) array per agent
+            actions = np.stack([np.asarray(a) for a in actions], axis=1)
         actions = np.asarray(actions)
         if self.env.action_type.action_shape:
             # a Box action: float32, as the JAX package's _action_to_slots

@@ -17,8 +17,11 @@ vehicle/behavior.py ``IDMVehicle``):
 (ops/straight_frames.py) runs its own decision pass on the road axis; the
 general pass below (``idm_act``) is the JAX package's default decision pass
 on the (B, L, V) projection table of every object on every lane, with
-neighbour slots as indices (-1 = none).  The connected-lane neighbour mode
-and the sequential decision order are not ported.
+neighbour slots as indices (-1 = none).  With ``connected`` (the -v1 and
+-v2 ids' ``neighbour_vehicles_connected_lanes``) every neighbour query goes
+through ``neighbours_connected``, which also searches the query lane's
+successor and predecessor lanes.  The sequential decision order is not
+ported.
 """
 
 from __future__ import annotations
@@ -208,6 +211,51 @@ def neighbours(state: VehicleState, query_lane, table_s, elig):
     )
 
 
+def neighbours_connected(geo: LaneGeometry, state: VehicleState, query_lane, table_s,
+                         table_lat):
+    """Front / rear object of each row on its query lane and the lanes
+    connected to it (reference road/road.py ``neighbour_vehicles`` with
+    ``neighbour_vehicles_connected_lanes``), (B, V) slot indices, -1 = none.
+
+    The candidates of the query lane q are ``geo.conn_lanes[q]`` (q itself,
+    its successor lanes, its predecessor lanes).  Each object takes the
+    FIRST candidate it is on (the 1 m margin and ``-VEHICLE_LENGTH <= s <
+    length + VEHICLE_LENGTH``), and its s there shifted by that candidate's
+    offset is its key; eligibility and the tie rules are ``neighbours``':
+    front = smallest key >= s_i keeping the LAST column among ties, rear =
+    largest key < s_i keeping the FIRST.  ``s_i`` is the row's own s on q."""
+    Bn, L, V = table_s.shape
+    q = lane_ops._gather(geo, query_lane)
+    cand = geo.conn_lanes[q]  # (B, V, K)
+    K = cand.shape[-1]
+    cl = cand.clamp(0, L - 1).long()
+    rows = cl.flatten(1)[..., None].expand(-1, -1, V)  # (B, V K, V)
+    s_k = torch.gather(table_s, 1, rows).view(Bn, V, K, V)
+    lat_k = torch.gather(table_lat, 1, rows).view(Bn, V, K, V)
+    on = (
+        (lat_k.abs() <= (geo.width[cl] / 2 + 1.0)[..., None])
+        & (-VEHICLE_LENGTH <= s_k)
+        & (s_k < (geo.length[cl] + VEHICLE_LENGTH)[..., None])
+        & (cand >= 0)[..., None]
+    )
+    # the first candidate each object is on (0 where it is on none)
+    first = on.to(torch.uint8).argmax(dim=-2, keepdim=True)  # (B, V, 1, V)
+    key = torch.gather(s_k, 2, first)[..., 0, :] + torch.gather(
+        geo.conn_offsets[q], 2, first[..., 0, :])
+    eye = torch.eye(V, dtype=torch.bool, device=table_s.device)
+    ok = on.any(dim=-2) & ~eye & (state.active & (state.kind != KIND_LANDMARK))[:, None, :]
+    s_self = table_row(table_s, query_lane)[..., None]
+    return front_pick(ok & (s_self <= key), key), rear_pick(ok & (key < s_self), key)
+
+
+def query_neighbours(geo, state, query_lane, table_s, table_lat, elig, connected: bool):
+    """``neighbours_connected`` with ``connected``, else ``neighbours`` (the
+    JAX package's ``_query_neighbours``)."""
+    if connected:
+        return neighbours_connected(geo, state, query_lane, table_s, table_lat)
+    return neighbours(state, query_lane, table_s, elig)
+
+
 class Rows:
     """The frame-start fields an IDM pair fetches by slot index, and the
     deciding rows' law (``linear``: their Linear mask and parameters)."""
@@ -258,10 +306,11 @@ class Rows:
         )
 
 
-def _mobil(geo, p, state, rows: Rows, cand, cur_front, cur_rear, table_s, elig):
+def _mobil(geo, p, state, rows: Rows, cand, cur_front, cur_rear, table, elig,
+           connected: bool):
     """Reference ``IDMVehicle.mobil`` toward lane ``cand`` (B, V)."""
     me = rows.self_idx
-    new_front, new_rear = neighbours(state, cand, table_s, elig)
+    new_front, new_rear = query_neighbours(geo, state, cand, *table, elig, connected)
     a_nf_pred = rows.accel(p, new_rear, me)
     safe = a_nf_pred >= -state.mobil_max_braking
     a_self_pred = rows.accel(p, me, new_front)
@@ -290,14 +339,16 @@ def _mobil(geo, p, state, rows: Rows, cand, cur_front, cur_rear, table_s, elig):
 
 
 def idm_act(geo: LaneGeometry, p: IDMParams, state: VehicleState, table_s,
-            table_lat):
+            table_lat, connected: bool = False):
     """The decision pass of every IDM and Linear vehicle on the frame-start table
     (reference ``IDMVehicle.act``): abort a lane change into a gap another
     controlled vehicle is closing (same road only), else the timer-gated
     MOBIL choice of the left then the right lane; then the IDM acceleration,
     the minimum of the current and the target lane's while changing lanes.
-    Returns the state with the new target lanes and timers, and the IDM
-    acceleration (B, V)."""
+    ``connected``: every neighbour query searches the connected lanes too
+    (``neighbours_connected``); the gaps stay measured on the ego's own
+    lane.  Returns the state with the new target lanes and timers, and the
+    IDM acceleration (B, V)."""
     V = state.num_slots
     rows = Rows(geo, state, table_s)
     me = rows.self_idx
@@ -306,7 +357,8 @@ def idm_act(geo: LaneGeometry, p: IDMParams, state: VehicleState, table_s,
     lane, tlane = state.lane, state.target_lane
     li, tli = lane_ops._gather(geo, lane), lane_ops._gather(geo, tlane)
     mid_change = lane != tlane
-    cur_front, cur_rear = neighbours(state, lane, table_s, elig)
+    table = (table_s, table_lat)
+    cur_front, cur_rear = query_neighbours(geo, state, lane, *table, elig, connected)
 
     # abort-on-conflict: [b, i, j] = row i changing lanes against row j
     s_pairs = pair_table(table_s, lane)
@@ -348,7 +400,7 @@ def idm_act(geo: LaneGeometry, p: IDMParams, state: VehicleState, table_s,
             geo, cand, table_row(table_s, cand), table_row(table_lat, cand)
         )
         ok = deciding & exists & reachable & moving & _mobil(
-            geo, p, state, rows, cand, cur_front, cur_rear, table_s, elig
+            geo, p, state, rows, cand, cur_front, cur_rear, table, elig, connected
         )
         target = torch.where(ok, cand, target)
     target = torch.where(abort, lane, target)
@@ -358,7 +410,7 @@ def idm_act(geo: LaneGeometry, p: IDMParams, state: VehicleState, table_s,
 
     # acceleration; the dual-lane minimum while changing lanes
     accel = rows.accel(p, me, cur_front)
-    target_front, _ = neighbours(state, target, table_s, elig)
+    target_front, _ = query_neighbours(geo, state, target, *table, elig, connected)
     accel = torch.where(
         lane != target, torch.minimum(accel, rows.accel(p, me, target_front)), accel
     )

@@ -260,9 +260,10 @@ def test_general_gate_and_what_it_refuses():
         assert env._straight is None and env._general is not None, env_id
     env = ht.make("highway-v0", device="cpu")
     assert env._straight is not None and env._general is None
-    # the -v1 variants' connected-lane neighbour search
-    with pytest.raises(NotImplementedError, match="connected"):
-        ht.make("roundabout-v0", {"neighbour_vehicles_connected_lanes": True}, device="cpu")
+    # the -v1 variants' connected-lane neighbour search: the same gate, its spec
+    # carries the search
+    env = ht.make("roundabout-v0", {"neighbour_vehicles_connected_lanes": True}, device="cpu")
+    assert env._general is not None and env._general.connected
     # a regulated road takes the general path too, with its tick period
 
     class Regulated(RoundaboutEnv):
@@ -286,7 +287,7 @@ def test_general_gate_and_what_it_refuses():
         RoadNetworkBuilder().add_lane("a", "b", object())
     # ids not registered in the port: NotImplementedError (and KeyError)
     # naming the reason
-    for env_id, why in (("roundabout-v1", "connected-lane neighbour search"),
+    for env_id, why in (("intersection-multi-agent-v1", "seeding.py"),
                         ("intersection-v1", "ContinuousAction")):
         with pytest.raises(NotImplementedError, match=why):
             ht.make(env_id, device="cpu")

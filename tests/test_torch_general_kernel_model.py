@@ -21,7 +21,15 @@ and hold the model to the plain version the kernel is held to on the card
   (c) the collision pass with each pair evaluated once, crash and hit
       flags merged as slot bits, the impact from the highest partner bit;
   (d) the right-of-way pass with each pair of vehicles evaluated once and
-      the yielder's bit merged, at equal and unequal priority.
+      the yielder's bit merged, at equal and unequal priority;
+  (e) the connected-lane search (``kConnected``) as a walk of the query
+      lane's candidate lanes in column order, each slot taken on the first
+      candidate whose eligibility bit it has (the bits seen masked off),
+      its key its s there plus the candidate's offset, the keys merged in a
+      shuffled order with the explicit tie rules (front: the highest slot
+      among equal keys, rear: the lowest), held to the plain
+      ``behavior.neighbours_connected`` at V = 5, 6, 21 and 26
+      (roundabout-v1, merge-v1, exit-v1, intersection-multi-agent-v2).
 
 The pairs are merged in a shuffled order: the result must not depend on it.
 """
@@ -388,3 +396,75 @@ def test_pair_once_yield_merge_matches_enforce_road_rules(V):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     assert kinds["equal"] > 0 and kinds["unequal"] > 0, kinds
     assert bool((want.is_yielding & ~veh.is_yielding).any())
+
+
+# --------------------------------------------------------------------------- #
+# (e) the connected-lane search: candidate walks, explicit tie rules
+# --------------------------------------------------------------------------- #
+
+CONNECTED_SIZES = {5: "roundabout-v1", 6: "merge-v1", 21: "exit-v1",
+                   26: "intersection-multi-agent-v2"}
+
+
+def _connected_walk(geo, veh, query, table_s, elig, seed: int):
+    """The kernel's ``Ctx::neighbours`` under kConnected, one (env, slot) at
+    a time: the candidate lanes of the query lane in column order (pads
+    skipped), the slots newly seen on each (its eligibility bits but the
+    slots seen and the slot itself), key = s there + the offset; the keys
+    fed to the front / rear selection in a shuffled order with the
+    explicit tie rules.  Returns (front, rear), -1 = none."""
+    Bn, L, V = table_s.shape
+    rng = np.random.default_rng(seed)
+    lanes, offsets = geo.conn_lanes.tolist(), geo.conn_offsets.tolist()
+    bits = (elig.to(torch.int64) << torch.arange(V)).sum(dim=-1).tolist()  # (B, L)
+    s = table_s.tolist()
+    front = np.full((Bn, V), -1)
+    rear = np.full((Bn, V), -1)
+    f32 = np.float32
+    for b in range(Bn):
+        for i in range(V):
+            q = min(max(int(query[b, i]), 0), L - 1)
+            s_self = f32(s[b][q][i])
+            seen, items = 1 << i, []
+            for c, off in zip(lanes[q], offsets[q]):
+                if c < 0:
+                    continue
+                new = bits[b][c] & ~seen
+                seen |= new
+                items += [(j, f32(s[b][c][j]) + f32(off)) for j in range(V) if new >> j & 1]
+            f_key, r_key, f, r = f32(np.inf), f32(-np.inf), -1, -1
+            for k in rng.permutation(len(items)):
+                j, key = items[k]
+                if s_self <= key and (key < f_key or (key == f_key and j > f)):
+                    f_key, f = key, j
+                if key < s_self and (key > r_key or (key == r_key and j < r)):
+                    r_key, r = key, j
+            front[b, i], rear[b, i] = f, r
+    return torch.from_numpy(front), torch.from_numpy(rear)
+
+
+@pytest.mark.parametrize("V", sorted(CONNECTED_SIZES))
+def test_connected_candidate_walks_keep_the_tie_rules(V):
+    env = ht.make(CONNECTED_SIZES[V], device="cpu")
+    assert env.num_slots == V and env._general.connected
+    _, states = env.reset(B, env.generator(V))
+    veh = states.vehicles
+    geo = env.geo
+    s, lat = lane_ops.projection_table(geo, veh.pos)
+    # the reset tables, then s on a 2.5 m grid with lat 0 on most entries:
+    # equal keys across slots and slots on several candidate lanes
+    rng = np.random.default_rng(V)
+    grid = torch.round(s / 2.5) * 2.5
+    flat = torch.where(torch.from_numpy(rng.random(lat.shape) < 0.7), lat * 0.0, lat)
+    found = 0
+    for table_s, table_lat in ((s, lat), (grid, flat)):
+        elig = behavior.eligible_on_lane(geo, veh, table_s, table_lat)
+        queries = [veh.lane, veh.target_lane] + [
+            torch.full((B, V), lane, dtype=torch.int32) for lane in range(geo.num_lanes)]
+        for k, query in enumerate(queries):
+            want_f, want_r = behavior.neighbours_connected(geo, veh, query, table_s, table_lat)
+            got_f, got_r = _connected_walk(geo, veh, query, table_s, elig, seed=V + k)
+            assert torch.equal(got_f, want_f.to(torch.int64)), k
+            assert torch.equal(got_r, want_r.to(torch.int64)), k
+            found += int((want_f >= 0).sum() + (want_r >= 0).sum())
+    assert found > 0

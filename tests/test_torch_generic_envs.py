@@ -34,7 +34,7 @@ import highwayenv_tpu_torch as ht
 from highwayenv_tpu_torch.bridge import from_numpy_state
 from highwayenv_tpu_torch.envs import roundabout_generic
 from highwayenv_tpu_torch.ops import general_frames
-from highwayenv_tpu_torch.parallel.rollout import rollout
+from highwayenv_tpu_torch.parallel.rollout import random_actions, rollout
 from highwayenv_tpu_torch.vehicle.state import (
     KIND_EGO,
     KIND_IDM,
@@ -405,9 +405,14 @@ def test_compact_autoreset_and_rollout(env_id):
     "env_id", ["merge-generic-v1", "roundabout-generic-v1", "u-turn-v1", "exit-v1"]
 )
 def test_v1_ids_name_the_connected_lane_search(env_id):
-    """The -v1 forms of this slice's envs wait for the connected-lane
-    neighbour search: NotPortedError (a KeyError and a NotImplementedError)."""
-    with pytest.raises(ht.NotPortedError, match="connected-lane neighbour search"):
-        ht.make(env_id, device="cpu")
-    with pytest.raises(NotImplementedError, match="connected-lane"):
-        ht.make(env_id, device="cpu")
+    """The -v1 forms of this slice's envs are the -v0 envs with the
+    connected-lane neighbour search in their general spec; one CPU step of
+    each runs the plain frames (tests/test_torch_connected.py holds them to
+    the JAX package)."""
+    env = ht.make(env_id, device="cpu")
+    assert env.config["neighbour_vehicles_connected_lanes"] and env._general.connected
+    assert type(env) is type(ht.make(env_id.replace("-v1", "-v0"), device="cpu"))
+    gen = env.generator(0)
+    _, st = env.reset(2, gen)
+    obs, st, reward, *_ = env.step_autoreset_batched(st, random_actions(env, 2, gen), gen)
+    assert bool(torch.isfinite(obs).all()) and bool(torch.isfinite(reward).all())

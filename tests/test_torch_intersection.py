@@ -334,13 +334,17 @@ def test_registry_and_what_stays_unported():
     assert et.regulated and et._straight is None and et._general.period == 7
     for env_id, why in (
         ("intersection-v1", "BicycleVehicle dynamics of its dynamical ContinuousAction"),
-        ("intersection-v2", "connected-lane neighbour search"),
-        ("intersection-multi-agent-v0", "MultiAgentAction and MultiAgentObservation"),
-        ("intersection-multi-agent-v1", "MultiAgentAction and MultiAgentObservation"),
-        ("intersection-multi-agent-v2", "connected-lane neighbour search"),
+        ("intersection-multi-agent-v1", "MultiAgentWrapper.*seeding.py"),
     ):
         with pytest.raises(ht.NotPortedError, match=why):
             ht.make(env_id, device="cpu")
+    # -v2 and the multi-agent ids: the connected-lane search, two egos
+    for env_id, connected, egos in (("intersection-v2", True, (24,)),
+                                    ("intersection-multi-agent-v0", False, (24, 25)),
+                                    ("intersection-multi-agent-v2", True, (24, 25))):
+        env = ht.make(env_id, device="cpu")
+        assert env.regulated and env._general.connected == connected, env_id
+        assert env.ego_slots == egos and env._general.period == 7, env_id
 
 
 def test_rollout_on_the_cpu_is_finite_and_launches_no_kernel():

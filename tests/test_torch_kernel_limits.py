@@ -2,11 +2,12 @@
 
 Every limit of the CUDA frame kernels' arrays (slots, lanes, lanes an
 edge, route slots, successor edges and target speeds of the general
-kernels; slots and lanes of the straight ones) is checked by ``make`` on
-every device, which raises ``NotImplementedError`` naming the limit and
-"not ported", as it does for the connected-lane search.  So
-``kernel_params``, ``lane_tables`` and ``check_frame_shape`` never raise
-for an env that ``make`` returned: checked here for every registered id.
+kernels, and under the connected-lane search predecessor edges and
+candidates a lane; slots and lanes of the straight ones) is checked by
+``make`` on every device, which raises ``NotImplementedError`` naming the
+limit and "not ported".  So ``kernel_params``, ``lane_tables``,
+``conn_tables`` and ``check_frame_shape`` never raise for an env that
+``make`` returned: checked here for every registered id.
 
 Three configs that the general kernels refused at launch before their
 edge-lane and target-speed arrays were widened now make, and one policy
@@ -79,6 +80,9 @@ def _launch_tables(env):
         return None
     assert veh.route_base.shape[-1] == env.route_slots
     general_frames.lane_tables(env.geo, env.device)
+    if env._general.connected:
+        lanes, _ = general_frames.conn_tables(env.geo, env.device)
+        assert torch.equal(lanes[:, :env.geo.conn_lanes.shape[1]], env.geo.conn_lanes)
     return general_frames.kernel_params(
         env._general, env.num_slots, env.route_slots, env.frames_per_step,
         raw=env.action_type.stores_raw_controls, linear=env.linear_rows)
@@ -139,6 +143,23 @@ def test_each_general_limit_is_named(limits, what):
     assert general_frames.kernel_limits(*limits) == [what]
     assert general_frames.kernel_limits(32, 32, 32, 16, 4, 16) == []
     assert general_frames.kernel_limits(32, 32, 32, 16, 4, None) == []
+    assert general_frames.kernel_limits(32, 32, 32, 16, 4, 16, 4) == []
+
+
+@pytest.mark.parametrize("limits,what", [
+    ((25, 20, 4, 3, 3, 3, 5), ["5 predecessor edges > 4"]),
+    ((25, 20, 4, 3, 4, 3, 5),
+     ["5 predecessor edges > 4", "10 connected-lane candidates > 9"]),
+    ((25, 20, 4, 3, 5, 3, 4),
+     ["5 successor edges > 4", "10 connected-lane candidates > 9"]),
+], ids=["predecessors", "predecessors-and-candidates", "successors-and-candidates"])
+def test_connected_limits_are_named(limits, what):
+    """Under the connected-lane search (P given) the kernels' candidate
+    tables hold MAX_CONN = 1 + MAX_SUCC + MAX_PRED lanes a lane."""
+    assert general_frames.MAX_CONN == 1 + general_frames.MAX_SUCC + general_frames.MAX_PRED
+    assert general_frames.kernel_limits(*limits) == what
+    # without the search, predecessors are not read
+    assert general_frames.kernel_limits(*limits[:6]) == what[:1] * (limits[4] > 4)
 
 
 def test_a_route_longer_than_the_kernel_is_refused_at_make():
@@ -153,6 +174,28 @@ def test_a_route_longer_than_the_kernel_is_refused_at_make():
 
     with pytest.raises(NotImplementedError, match="17 route slots > 16.*not ported"):
         LongRoutes(device="cpu")
+
+
+def test_a_crowded_node_is_refused_under_the_connected_search():
+    """merge with 8 more edges into node "b" (10 predecessor edges, 12
+    candidate lanes): made without the connected-lane search, which never
+    reads predecessors, refused with it."""
+    from highwayenv_tpu_torch.envs.merge import MergeEnv
+    from highwayenv_tpu_torch.road.network import StraightLane
+
+    class CrowdedMerge(MergeEnv):
+        def _build_scene(self):
+            super()._build_scene()
+            for k in range(8):
+                self.net.add_lane(f"x{k}", "b", StraightLane(
+                    [100.0, 40.0 + 10.0 * k], [230.0, 40.0 + 10.0 * k]))
+            self.geo = self.net.build(device=self.device)
+
+    env = CrowdedMerge(device="cpu")
+    assert env.geo.pred_edge_base.shape[1] == 10 and env.geo.conn_lanes.shape[1] == 12
+    with pytest.raises(NotImplementedError, match="10 predecessor edges > 4, 12 "
+                       "connected-lane candidates > 9 not ported"):
+        CrowdedMerge({"neighbour_vehicles_connected_lanes": True}, device="cpu")
 
 
 @pytest.mark.parametrize("env_id", ht.registered_ids())

@@ -413,10 +413,10 @@ def test_gate_refusals_name_their_reason():
     with pytest.raises(NotImplementedError, match="40 lanes > 32"):
         ht.make("racetrack-oval-v0", {"no_lanes": 5}, device="cpu")
     assert ht.make("racetrack-oval-v0", {"no_lanes": 4}, device="cpu").geo.num_lanes == 32
-    # the -v1 ids stay unported: the connected-lane neighbour search
+    # the -v1 ids: the same envs with the connected-lane neighbour search
     for env_id in ("racetrack-v1", "racetrack-large-v1", "racetrack-oval-v1"):
-        with pytest.raises(NotPortedError, match="connected-lane"):
-            ht.make(env_id, device="cpu")
+        env = ht.make(env_id, device="cpu")
+        assert env._general.connected and env.action_type.stores_raw_controls
 
 
 @pytest.mark.parametrize("env_id", ENV_IDS)

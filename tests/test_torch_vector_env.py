@@ -124,8 +124,8 @@ def test_spaces_match_jax(env_id):
 def test_unported_types_name_their_module():
     with pytest.raises(ht.NotPortedError, match="observations/lidar.py"):
         ht.make("highway-v0", {"observation": {"type": "LidarObservation"}}, device="cpu")
-    with pytest.raises(ht.NotPortedError, match="actions/multi_agent.py"):
-        ht.make("highway-v0", {"action": {"type": "MultiAgentAction"}}, device="cpu")
+    with pytest.raises(ht.NotPortedError, match="observations/grayscale.py"):
+        ht.make("highway-v0", {"observation": {"type": "GrayscaleObservation"}}, device="cpu")
     with pytest.raises(ValueError, match="Unknown observation type"):
         ht.make("highway-v0", {"observation": {"type": "NoSuchObservation"}}, device="cpu")
 

@@ -64,18 +64,29 @@ Phases:
      at intersection-multi-agent-v0 on the reset scene, 8 steps in with
      the tick phases spread, the conflict scene and the warm-up, B=4096,
      every field bit-exact, and the roundabout-v1 and intersection-v2
-     autoreset steps against the plain reference path; make() on the card
+     autoreset steps against the plain reference path; then the
+     kDynamical instantiations: K5's at intersection-v1 (V=25, the ego on
+     the tire-slip model) on the reset scene with the tick phases spread,
+     8 steps in, the conflict scene and the warm-up, and K4's at
+     lane-keeping-v0 (V=1, L=3, 1 frame) on the reset scene, 8 steps in and
+     the pile-up, each also on a scene with crashed egos and pending
+     impacts and one with the egos braking across |v| = 1 and steering and
+     yaw rates past their clips, B=4096, every field bit-exact (the lateral
+     speed and yaw rate included), and both ids' autoreset steps against
+     the plain reference path; make() on the card
      refusing configs beyond the kernels' arrays (17 target speeds, 17
      straight lanes, 12 connected-lane candidates a lane), naming the
      limit; then
      on highway-v0, roundabout-v0, intersection-v0, racetrack-v0,
      highway-v0 LinearVehicle, u-turn-v0, exit-v0 (is_success too) and
      parking-v0 (the KinematicsGoal dict observation, field by field, and
-     is_success) and intersection-multi-agent-v0 (the tuple observation,
-     element by element), B=4096, from a batch
+     is_success), intersection-multi-agent-v0 (the tuple observation,
+     element by element), intersection-v1 and lane-keeping-v0 (the
+     AttributesObservation dict key by key; its rows 1 to 8 steps short of
+     their 200-step truncation), B=4096, from a batch
      with every 8th ego crashed, the compact autoreset (reset_slots P =
      1024, and 64, which takes further passes) against the full one over 3
-     steps, and CapturedStep replays against eager steps over 8 (full, P =
+     steps, and CapturedStep replays against eager steps over 4 (full, P =
      1024, P = 64, and with final_obs full and at P = 64) from one cloned
      state and generator: obs, every field, reward and flags bit-exact, the
      generators equal at the end;
@@ -106,6 +117,10 @@ Phases:
      at each other new id, the counts of each instantiation read after
      each (one connected K4 launch a step, or K5's two, and none of the v0
      instantiation at a connected id) and a profile of replays; then
+     intersection-v1 and lane-keeping-v0 the same way, eager and
+     captured, through K5's and K4's kDynamical instantiations (K5's twice
+     a step: the step and the warm-up of the reset batch), none of any
+     other instantiation; then
      the sixteen rollouts (the seven, highway-v0 LinearVehicle, the
      slice's five and the parking family) again with each step one replay
      of a CapturedStep (the kernels' counts cover the warm-up step and the
@@ -123,7 +138,9 @@ Phases:
      u-turn-v0 and the three parking ids (raw controls; the timed
      launch's output held bit-exact to the plain version's), and (PR 12)
      the connected K4 at roundabout-v1 and K5 at intersection-v2, each
-     beside the v0 instantiation's time on the same scene; the
+     beside the v0 instantiation's time on the same scene, and the
+     dynamical K5 at intersection-v1 and K4 at lane-keeping-v0, each beside
+     the v0 instantiation's raw branch on the same scene; the
      simulation of a
      sorted and a dense policy step; the sorted and dense rollouts in
      turns; the roundabout-v0 and intersection-v0 rollouts three times
@@ -132,8 +149,9 @@ Phases:
      racetrack-v0, the three envs and highway-v0 LinearVehicle, eager against
      graph, full against compact P=1024, three runs each in turns, with
      the device busy time per step, and of the slice's five envs, the
-     parking family, roundabout-v1, intersection-v2 and
-     intersection-multi-agent-v0 eager against graph, full autoreset, with a profile
+     parking family, roundabout-v1, intersection-v2,
+     intersection-multi-agent-v0, intersection-v1 and lane-keeping-v0 eager
+     against graph, full autoreset, with a profile
      of eager steps, the observation's and a reset placement's device
      time.
 
@@ -295,22 +313,33 @@ CONNECTED_SHORT = 4
 #: the general path's wrappers in ops/general_frames.py and the demangled
 #: names of their IDM instantiations in a profile
 GENERAL_PATHS = {
-    "K4": ("frames_general_kernel", "general_frames_kernel<false, false, false>"),
+    "K4": ("frames_general_kernel", "general_frames_kernel<false, false, false, false>"),
     "K4 connected": ("frames_general_connected_kernel",
-                     "general_frames_kernel<false, false, true>"),
-    "K5": ("frames_regulated_kernel", "general_frames_kernel<true, false, false>"),
+                     "general_frames_kernel<false, false, true, false>"),
+    "K5": ("frames_regulated_kernel", "general_frames_kernel<true, false, false, false>"),
     "K5 connected": ("frames_regulated_connected_kernel",
-                     "general_frames_kernel<true, false, true>"),
+                     "general_frames_kernel<true, false, true, false>"),
+    "K4 dynamical": ("frames_general_dynamical_kernel",
+                     "general_frames_kernel<false, false, false, true, DynFields>"),
+    "K5 dynamical": ("frames_regulated_dynamical_kernel",
+                     "general_frames_kernel<true, false, false, true, DynFields>"),
 }
+#: the ids of the dynamical ContinuousAction: K5's and K4's
+#: kDynamical instantiations
+DYNAMICAL_IDS = ("intersection-v1", "lane-keeping-v0")
+#: per ego row and frame of a dynamical spec: one RK4 step of the tire-slip
+#: model, four derivatives of 27 operations (two atan2f, cosf, sinf each
+#: counted as one) and the 78 of the stage sums, and the two clips
+DYN_OPS_RK4 = 4 * 27 + 78 + 4
 #: per query and candidate lane of the connected walk: the candidate and its
 #: offset loaded, the seen mask applied and merged
 GEN_OPS_CONN_LANE = 4
 COMPACT_SLOTS = (1024, 64)  # reset slots P: one pass a step, and further passes
 COMPACT_STEPS = 3  # autoreset steps of compact against full
-GRAPH_STEPS = 8  # steps of the captured step against the eager one
+GRAPH_STEPS = 4  # steps of the captured step against the eager one
 CRASH_EVERY = 8  # every 8th ego crashed at the start: 512 done rows at B=4096
-PROFILE_REPLAYS = 4  # replays of a captured step under the profiler
-TIMED_STEPS = 16  # steps of each timed eager / graph, full / compact run
+PROFILE_REPLAYS = 2  # replays of a captured step under the profiler
+TIMED_STEPS = 8  # steps of each timed eager / graph, full / compact run
 #: profiled runs of a frame kernel's plain version, after one warm-up (its
 #: device time is a yardstick; each run is tens to hundreds of ms, and the
 #: profiler's processing of its thousands of small kernels dominates phase 5)
@@ -552,7 +581,8 @@ def gen_frame_ops(veh, out, spec, table, raw=False) -> float:
     accelerations and steering count the linear laws' operations.  Under the
     connected-lane search (``spec.connected``) each query also walks the
     candidate lanes of its lane and adds an offset to the key of each slot
-    it visits."""
+    it visits.  Under a dynamical action (``spec.dynamical``) each ego row
+    also takes one RK4 step (DYN_OPS_RK4)."""
     from highwayenv_tpu_torch.road import lane as lane_ops
     from highwayenv_tpu_torch.vehicle.behavior import is_driven
     from highwayenv_tpu_torch.vehicle.controller import table_row
@@ -620,8 +650,9 @@ def gen_frame_ops(veh, out, spec, table, raw=False) -> float:
     reach = (diag[:, :, None] + diag[:, None, :]) / 2 + out.speed[:, :, None] * spec.dt
     near = elig & ((dpos * dpos).sum(-1) <= reach * reach)
     raw_egos = (veh.kind == 1).sum() if raw else 0
+    rk4 = DYN_OPS_RK4 * (veh.kind == 1).sum() if spec.dynamical else 0
     return float(
-        (per_lane + GEN_OPS_SLOT) * live.sum() - GEN_OPS_EGO_CONTROLS * raw_egos
+        rk4 + (per_lane + GEN_OPS_SLOT) * live.sum() - GEN_OPS_EGO_CONTROLS * raw_egos
         + GEN_OPS_EDGE_LANE * edge_lanes
         + GEN_OPS_IDM * idm_evals + OPS_LINEAR_ACCEL * lin_evals
         - (GEN_OPS_STEER_PC - OPS_LINEAR_STEER) * lin.sum()
@@ -654,24 +685,26 @@ def reg_tick_ops(veh, spec, tick) -> float:
     )
 
 
-def regulated_ops(veh, spec, sa, frames, steps0) -> float:
-    """float32 operations of ``frames`` regulated frames from ``veh``,
-    counted frame by frame on the plain version: each frame's general
-    operations, plus the right-of-way pass on the envs that tick."""
+def regulated_ops(veh, spec, sa, frames, steps0):
+    """(float32 operations, the state after) of ``frames`` regulated frames
+    from ``veh``, counted frame by frame on the plain version: each frame's
+    general operations, plus the right-of-way pass on the envs that tick.
+    ``sa`` None: raw controls stored on the egos."""
     from highwayenv_tpu_torch.ops import general_frames as gf
     from highwayenv_tpu_torch.road import lane as lane_ops
 
-    ops, v = 0.0, veh
+    ops, v, raw = 0.0, veh, sa is None
     phase = torch.remainder(steps0, spec.period)
     table = lane_ops.projection_table(spec.geo, v.pos)
     for f in range(frames):
         tick = torch.remainder(phase + (f + 1), spec.period) == 0
-        out, next_table = gf.frame_general_plain(v, spec, table, sa if f == 0 else None, tick)
-        ops += gen_frame_ops(v, out, spec, table)
+        out, next_table = gf.frame_general_plain(v, spec, table, sa if f == 0 else None, tick,
+                                                 raw=raw)
+        ops += gen_frame_ops(v, out, spec, table, raw=raw)
         if bool(tick.any()):
             ops += reg_tick_ops(v, spec, tick)
         v, table = out, next_table
-    return ops
+    return ops, v
 
 
 def yield_ticks(veh, spec, sa, frames, steps0) -> int:
@@ -692,8 +725,9 @@ def yield_ticks(veh, spec, sa, frames, steps0) -> int:
 
 def regulated_scenes(env, states, gen, steps_in: bool = True):
     """K5's scenes at intersection-v0, each (vehicles, steps0, slot actions,
-    frames): the reset scene; with ``steps_in`` 8 plain autoreset steps in,
-    with row b's frame
+    frames): the reset scene; with ``steps_in`` 8 autoreset steps in (the
+    env path, on the kernels: a mid-episode state to hold them to their
+    plain versions on), with row b's frame
     counter advanced by 15 b so the tick phases cover all 7 values; a
     conflict scene (in every env slot 0 approaches the box from corner 0
     going straight and slot 1 from corner 2 turning left, at the same
@@ -720,7 +754,7 @@ def regulated_scenes(env, states, gen, steps_in: bool = True):
         st = states
         for _ in range(8):
             acts = random_actions(env, Bn, gen)
-            st = env.step_autoreset(st, acts, gen)[1]
+            st = env.step_autoreset_batched(st, acts, gen)[1]
         out["8 steps in"] = (st.vehicles, st.steps + spread, actions(), env.frames_per_step)
 
     rb, rn, rid, rlen = env._routes
@@ -755,8 +789,8 @@ def regulated_scenes(env, states, gen, steps_in: bool = True):
 
 
 def general_scenes(env, states, gen, obstacle_hit=False):
-    """The general frame's scenes: reset; 8 policy steps in (the plain
-    autoreset path); every env's vehicles in a row 1.5 m apart along the
+    """The general frame's scenes: reset; 8 policy steps in (the env's
+    autoreset path, on the kernels); every env's vehicles in a row 1.5 m apart along the
     ego's heading (an all-env pile-up); and with ``obstacle_hit`` (merge-v0)
     the ramp vehicle closing on the end-of-ramp obstacle at 15 m/s and slot
     1 on the ego at 40 m/s (the obstacle hit)."""
@@ -766,7 +800,7 @@ def general_scenes(env, states, gen, obstacle_hit=False):
     st = states
     for _ in range(8):
         acts = random_actions(env, Bn, gen)
-        st = env.step_autoreset(st, acts, gen)[1]
+        st = env.step_autoreset_batched(st, acts, gen)[1]
     out = {"reset": veh, "8 steps in": st.vehicles}
     h = veh.heading[:, 0]
     u = torch.stack([torch.cos(h), torch.sin(h)], dim=-1)
@@ -821,7 +855,8 @@ def check_autoreset(env, states, gen, label: str) -> None:
         compare(st_k.vehicles, st_p.vehicles, f"{label}step {t}")
         if not (torch.equal(te_k, te_p) and torch.equal(tr_k, tr_p)):
             raise AssertionError(f"{label}step {t}: terminated / truncated differ")
-        obs_err = float((obs_k - obs_p).abs().max())
+        fk, fp = obs_fields(obs_k), obs_fields(obs_p)
+        obs_err = max(float((fk[k] - fp[k]).abs().max()) for k in fk)
         rew_err = float((r_k - r_p).abs().max())
         print(f"  {label}step {t}: obs err {obs_err:.3e}, reward err {rew_err:.3e}")
         if obs_err > 1e-4 or rew_err > 1e-4:
@@ -879,7 +914,8 @@ def k4_work(gf, env, veh, sa, spec=None):
     lf, li = gf.lane_tables(spec.geo, env.device)
     n_bytes = (read_bytes(veh, gf._resolve(gf._IN_FIELDS, R)) + (0 if raw else sa.numel() * 4)
                + field_bytes(v, gf._resolve(gf.OUT_FIELDS, R))
-               + lf.numel() * 4 + li.numel() * 4 + conn_bytes(gf, spec))
+               + lf.numel() * 4 + li.numel() * 4 + conn_bytes(gf, spec)
+               + dyn_bytes(gf, spec, veh))
     return ops, n_bytes
 
 
@@ -888,20 +924,28 @@ def conn_bytes(gf, spec) -> int:
     return 2 * 4 * spec.geo.num_lanes * gf.MAX_CONN if spec.connected else 0
 
 
+def dyn_bytes(gf, spec, veh) -> int:
+    """The bytes of the lateral speed and yaw rate a dynamical launch reads
+    and writes, 16 a row."""
+    return 2 * field_bytes(veh, gf.DYN_FIELDS) if spec.dynamical else 0
+
+
 def k5_work(gf, env, veh, sa, steps0, frames, spec=None):
     """(float32 operations, bytes) of one K5 launch under ``spec``
     (default the env's): ``regulated_ops``, and the bytes of every field
-    and K5's own read and written once, the slot actions, the tick phases,
-    the lane tables and (connected) the candidate tables."""
-    spec = spec or env._general
-    ops = regulated_ops(veh, spec, sa, frames, steps0)
-    out = gf.frames_general_plain(veh, spec, sa, frames, steps0)
+    and K5's own read and written once, the slot actions (none with ``sa``
+    None: raw controls stored on the egos), the tick phases, the lane
+    tables, (connected) the candidate tables and (dynamical) the lateral
+    speed and yaw rate."""
+    spec, raw = spec or env._general, sa is None
+    ops, out = regulated_ops(veh, spec, sa, frames, steps0)
     R = veh.route_base.shape[-1]
     lf, li = gf.lane_tables(spec.geo, env.device)
     n_bytes = (read_bytes(veh, gf._resolve(gf._IN_FIELDS, R) + gf.REG_FIELDS)
-               + sa.numel() * 4 + veh.kind.shape[0] * 4
+               + (0 if raw else sa.numel() * 4) + veh.kind.shape[0] * 4
                + field_bytes(out, gf._resolve(gf.OUT_FIELDS, R) + gf.REG_FIELDS)
-               + lf.numel() * 4 + li.numel() * 4 + conn_bytes(gf, spec))
+               + lf.numel() * 4 + li.numel() * 4 + conn_bytes(gf, spec)
+               + dyn_bytes(gf, spec, veh))
     return ops, n_bytes
 
 
@@ -1096,6 +1140,98 @@ def check_connected_kernels(ht, gf, err) -> dict:
     return envs
 
 
+def dynamical_scenes(env, states):
+    """The dynamical instantiations' own scenes from ``states``: "crashed
+    ego", every other env's ego crashed and every fourth with a pending
+    impact of (0.7, 0.7) (a dynamical ego's position does not take it);
+    "low speed", the egos' speeds spread over 0.5 to 1.5 m/s across the
+    damping branch's |v| = 1, their yaw rates over +-9 rad/s (past the
+    +-2 pi clip) and lateral speeds over +-2 m/s.  ``store_low_speed_steering``
+    then puts the steering past the +-pi/2 clip."""
+    veh = states.vehicles
+    Bn = veh.kind.shape[0]
+    dev = veh.pos.device
+    ego = veh.kind == 1
+    row = torch.arange(Bn, device=dev)[:, None]
+    hit = ego & (row % 4 == 0)
+    u = ((torch.arange(Bn, device=dev) % 64).float() / 63.0)[:, None]
+    return {
+        "crashed ego": veh.replace(
+            crashed=veh.crashed | (ego & (row % 2 == 0)),
+            impact_pending=veh.impact_pending | hit,
+            impact=torch.where(hit[..., None], 0.7, veh.impact),
+        ),
+        "low speed": veh.replace(
+            speed=torch.where(ego, 0.5 + u, veh.speed),
+            yaw_rate=torch.where(ego, 9.0 * (2.0 * u - 1.0), veh.yaw_rate),
+            lateral_speed=torch.where(ego, 2.0 * (1.0 - 2.0 * u), veh.lateral_speed),
+        ),
+    }
+
+
+def store_low_speed_steering(veh):
+    """The egos of every third env steering at +-2 rad, past the +-pi/2
+    clip, after their controls are stored."""
+    Bn = veh.kind.shape[0]
+    row = torch.arange(Bn, device=veh.pos.device)[:, None]
+    wide = (veh.kind == 1) & (row % 3 == 0)
+    return veh.replace(steering=torch.where(wide, torch.where(row % 2 == 0, 2.0, -2.0),
+                                            veh.steering))
+
+
+def check_dynamical_kernels(ht, gf, err) -> dict:
+    """The kDynamical instantiations against their plain versions:
+    K5's at intersection-v1 on ``regulated_scenes`` (the reset scene with
+    the tick phases spread over all 7 values, 8 steps in, the conflict
+    scene, the warm-up, which holds no ego row) and K4's at lane-keeping-v0
+    on ``general_scenes`` (reset, 8 steps in, the pile-up), plus
+    ``dynamical_scenes``' crashed-ego and low-speed scenes, each with the
+    egos' raw controls stored first; every field bit-exact, the lateral
+    speed and yaw rate included.  Records the errors under "K5 dynamical"
+    and "K4 dynamical".  Returns {env id: (env, states)}."""
+    envs = {}
+    for env_id in DYNAMICAL_IDS:
+        env = ht.make(env_id)
+        spec, frames = env._general, env.frames_per_step
+        key = ("K5" if env.regulated else "K4") + " dynamical"
+        kernel = gf.frames_kernel_for(spec, env.regulated)
+        if not spec.dynamical or kernel.entry != "general_frames" + (
+                "_regulated" * env.regulated) + "_dynamical":
+            raise AssertionError(f"{env_id}: not on a dynamical instantiation")
+        err[key] = 0.0
+        gen = env.generator(SEED)
+        _, states = env.reset(B, gen)
+        print(f"== 3. {key} vs plain: {env_id} V={env.num_slots}, L={env.geo.num_lanes}, "
+              f"egos {env.ego_slots}, {frames} frames, B={B}, dt {env.dt:.6f}")
+        spread = states.steps + torch.arange(B, device=env.device, dtype=torch.int32) * 15
+        if env.regulated:
+            cases = regulated_scenes(env, states, gen)
+            cases["reset"] = (cases["reset"][0], spread) + cases["reset"][2:]
+        else:
+            cases = {name: (veh, None, env._action_to_slots(random_actions(env, B, gen)), frames)
+                     for name, veh in general_scenes(env, states, gen).items()}
+        for name, veh in dynamical_scenes(env, states).items():
+            cases[name] = (veh, spread if env.regulated else None,
+                           env._action_to_slots(random_actions(env, B, gen)), frames)
+        for name, (veh, steps0, sa, nframes) in cases.items():
+            veh, sa, raw = gf.store_raw_controls(env, veh, sa)
+            if name == "low speed":
+                veh = store_low_speed_steering(veh)
+            out_k = kernel(veh, spec, sa, nframes, steps0, raw=raw, linear=False)
+            out_p = gf.frames_general_plain(veh, spec, sa, nframes, steps0, raw=raw)
+            torch.cuda.synchronize()
+            err[key] = max(err[key], compare_general(out_k, out_p, f"{env_id} {name}"))
+            ego = veh.kind == 1
+            print(f"    V={veh.kind.shape[1]}, {nframes} frames; ego rows {int(ego.sum())}, "
+                  f"below 1 m/s {int((ego & (veh.speed.abs() < 1)).sum())}, crashed "
+                  f"{int((ego & veh.crashed).sum())}; |yaw rate| after the step up to "
+                  f"{float(out_k.yaw_rate.abs().max()):.4f}")
+            if name in ("reset", "low speed") and not bool((out_k.yaw_rate[ego] != 0).any()):
+                raise AssertionError(f"{env_id} {name}: no ego turned")
+        envs[env_id] = (env, states)
+    return envs
+
+
 def crowded_merge(ht):
     """merge-v1 with 8 more one-lane edges into node "b": 10 predecessor
     edges, 12 candidate lanes on the lanes leaving "b", beyond the
@@ -1114,24 +1250,27 @@ def crowded_merge(ht):
     return CrowdedMerge(config={"neighbour_vehicles_connected_lanes": True})
 
 
-def drive_connected(gf, envs, kernels, launches) -> None:
-    """The slice's paths, each with the counts set to 0 just before it:
-    CONNECTED_ROLLOUTS made on CUDA, reset and HORIZON random-policy
-    autoreset steps eager (the connected K4 once a step; K5 once a step
-    and once a warm-up, plus the first reset's), then the same through a
-    CapturedStep, and CONNECTED_OTHERS CONNECTED_SHORT captured steps;
+def drive_general_paths(gf, envs, kernels, launches, rollouts, others=()) -> None:
+    """A slice's general paths, each with the counts set to 0 just before
+    it: ``rollouts`` made on CUDA, reset and HORIZON random-policy
+    autoreset steps eager (K4's instantiation once a step; K5's once a
+    step and once a warm-up, plus the first reset's), then the same
+    through a CapturedStep, and ``others`` CONNECTED_SHORT captured steps;
     each replay profiled: one launch of the path's instantiation (two on a
-    regulated road), none of the v0 instantiation at a connected id."""
+    regulated road: its step and its reset's warm-up), none of any other
+    instantiation (at a connected id the v0 one's, at a dynamical id the
+    v0 one's)."""
     gf_names = {path: name for path, (_, name) in GENERAL_PATHS.items()}
-    for env_id in CONNECTED_ROLLOUTS + CONNECTED_OTHERS:
+    for env_id in rollouts + others:
         env = envs[env_id]
         spec = env._general
-        path = ("K5" if env.regulated else "K4") + (" connected" if spec.connected else "")
+        path = (("K5" if env.regulated else "K4") + (" connected" if spec.connected else "")
+                + (" dynamical" if spec.dynamical else ""))
         per_step = 2 if env.regulated else 1
         for graph in (False, True):
-            if not graph and env_id not in CONNECTED_ROLLOUTS:
+            if not graph and env_id not in rollouts:
                 continue
-            steps = HORIZON if env_id in CONNECTED_ROLLOUTS else CONNECTED_SHORT
+            steps = HORIZON if env_id in rollouts else CONNECTED_SHORT
             print(f"== 4. slice path: make('{env_id}') on CUDA, B={B}, reset and {steps} "
                   f"random-policy autoreset steps through {path}"
                   + (", each one replay of a CapturedStep" if graph else ""))
@@ -1613,6 +1752,7 @@ def main() -> int:
             cenv = env
         if config == LINEAR_CONFIG:
             lenv, lstates = env, states
+    print(f"  [straight kernels checked at {time.time() - start:.0f} s]")
     # the whole autoreset step: the main path (sorted kernels) against the
     # plain reference path, and the Linear slice's main path
     check_autoreset(env, states, gen, "")
@@ -1677,6 +1817,7 @@ def main() -> int:
         if env_id == "racetrack-v0":
             check_autoreset(renv, rstates, gen, label + " ")
 
+    print(f"  [K4 checked at {time.time() - start:.0f} s]")
     # K5 on the regulated road; its env carried on below
     k5 = gf.frames_regulated_kernel
     err["K5 step"] = err["K5 warm-up"] = 0.0
@@ -1761,6 +1902,7 @@ def main() -> int:
                 raise AssertionError(f"{label} {name}: no Linear row")
     check_autoreset(ienv, istates, gen, "intersection-v0 ")
 
+    print(f"  [K5 checked at {time.time() - start:.0f} s]")
     # K4 at the slice's five envs; exit-v0 (B rows) and u-turn-v0 (a fresh
     # batch of B rows) carry on to the compact and captured checks
     slice_envs = check_slice_kernels(ht, gf, err)
@@ -1780,6 +1922,18 @@ def main() -> int:
     for env_id in ("roundabout-v1", "intersection-v2"):
         check_autoreset(*conn_envs[env_id], conn_envs[env_id][0].generator(SEED),
                         env_id + " ")
+    # the dynamical K5 and K4; both ids carry on to the compact and
+    # captured checks, lane-keeping-v0's rows 1 to 8 steps short of its
+    # 200-step truncation, its only episode end
+    dyn_envs = check_dynamical_kernels(ht, gf, err)
+    v1env, v1states = dyn_envs["intersection-v1"]
+    lkenv, lkstates = dyn_envs["lane-keeping-v0"]
+    lkstates = lkstates.replace(steps=199 - torch.remainder(
+        torch.arange(B, device=lkenv.device, dtype=torch.int32), 8))
+    for env_id, (e, st) in dyn_envs.items():
+        check_autoreset(e, st, e.generator(SEED), env_id + " ")
+    print(f"  [the slice, parking, connected and dynamical kernels checked at "
+          f"{time.time() - start:.0f} s]")
     print("== 3. the kernels' limits refused at make")
     check_refusals(ht)
 
@@ -1790,8 +1944,11 @@ def main() -> int:
                          ("highway-v0 LinearVehicle ", lenv, lstates),
                          ("u-turn-v0 ", uenv, ustates), ("exit-v0 ", xenv, xstates),
                          ("parking-v0 ", penv, pstates),
-                         ("intersection-multi-agent-v0 ", menv, mstates)):
-        print(f"== 3. {label}compact autoreset vs full, CapturedStep vs eager")
+                         ("intersection-multi-agent-v0 ", menv, mstates),
+                         ("intersection-v1 ", v1env, v1states),
+                         ("lane-keeping-v0 ", lkenv, lkstates)):
+        print(f"== 3. {label}compact autoreset vs full, CapturedStep vs eager "
+              f"[at {time.time() - start:.0f} s]")
         check_compact(e, st, label)
         check_graph(e, st, label)
 
@@ -2061,12 +2218,23 @@ def main() -> int:
     drive_slice(parking_envs, all_kernels, launches, crash_first=True)
     # the connected-lane search's paths and the two-ego intersection (PR 12)
     k4c, k5c = gf.frames_general_connected_kernel, gf.frames_regulated_connected_kernel
-    conn_kernels = {**all_kernels, "K4 connected": k4c, "K5 connected": k5c}
-    drive_connected(gf, {env_id: conn_envs[env_id][0] if env_id in conn_envs else ht.make(env_id)
-                     for env_id in CONNECTED_ROLLOUTS + CONNECTED_OTHERS},
-                    conn_kernels, launches)
+    k4d, k5d = gf.frames_general_dynamical_kernel, gf.frames_regulated_dynamical_kernel
+    conn_kernels = {**all_kernels, "K4 connected": k4c, "K5 connected": k5c,
+                    "K4 dynamical": k4d, "K5 dynamical": k5d}
+    drive_general_paths(gf, {env_id: conn_envs[env_id][0] if env_id in conn_envs
+                             else ht.make(env_id)
+                             for env_id in CONNECTED_ROLLOUTS + CONNECTED_OTHERS},
+                        conn_kernels, launches, CONNECTED_ROLLOUTS, CONNECTED_OTHERS)
     launches["K4 connected"] = launches["K4 connected roundabout-v1"]
     launches["K5 connected"] = launches["K5 connected intersection-v2"]
+    # the dynamical paths: intersection-v1 through K5's kDynamical
+    # instantiation (its step and the warm-up of its resets: the warm-up has
+    # no ego row, and the env's spec sends it there too), lane-keeping-v0
+    # through K4's
+    drive_general_paths(gf, {env_id: dyn_envs[env_id][0] for env_id in DYNAMICAL_IDS},
+                        conn_kernels, launches, DYNAMICAL_IDS)
+    launches["K5 dynamical"] = launches["K5 dynamical intersection-v1"]
+    launches["K4 dynamical"] = launches["K4 dynamical lane-keeping-v0"]
 
     # the rollouts again, each step one replay of a CapturedStep
     straight_names = ("straight_frames_kernel", "sort_kernel",
@@ -2257,8 +2425,7 @@ def main() -> int:
             lambda: k5(iveh, ispec, isa, iframes, isteps, linear=False),
             lambda: gf.frames_general_plain(iveh, ispec, isa, iframes, isteps), None, 20, PLAIN_REPS,
         )
-        ops = regulated_ops(iveh, ispec, isa, iframes, isteps)
-        out = gf.frames_general_plain(iveh, ispec, isa, iframes, isteps)
+        ops, out = regulated_ops(iveh, ispec, isa, iframes, isteps)
         R = iveh.route_base.shape[-1]
         lf, li = gf.lane_tables(ispec.geo, ienv.device)
         n_bytes = (read_bytes(iveh, gf._resolve(gf._IN_FIELDS, R) + gf.REG_FIELDS)
@@ -2540,18 +2707,56 @@ def main() -> int:
         ms, plain_ms, _ = timed(f"{key} ({what}), per policy step",
                                 lambda: kernel(*args, linear=False), plain, None, 20, PLAIN_REPS)
         v0_ms = queued_ms(lambda: v0_kernel(*v0_args, linear=False), 20)
-        v0_ops, v0_bytes = (k5_work(gf, e, sveh, ssa, steps0, frames, v0_spec) if e.regulated
-                            else k4_work(gf, e, sveh, ssa, v0_spec))
         bms, by, t_ops, t_bytes = bound(ops, n_bytes)
-        v0_bms, v0_by, _, _ = bound(v0_ops, v0_bytes)
         rows[key] = (f"{'general_frames_regulated' if e.regulated else 'general_frames'}"
                      f"_connected ({env_id})", "highwayenv_tpu_torch/csrc/general_frames.cu",
                      "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms, bms, by,
                      None)
         print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, "
               f"{n_bytes} bytes -> {t_bytes:.5f} ms); the v0 instantiation on the same "
-              f"scene under {v0_id}'s spec: {v0_ms:.4f} ms queued, bound {v0_bms:.4f} ms by "
-              f"{v0_by}; connected / v0 {ms / v0_ms:.3f}")
+              f"scene under {v0_id}'s spec: {v0_ms:.4f} ms queued; connected / v0 "
+              f"{ms / v0_ms:.3f}")
+    # the dynamical K5 at intersection-v1 and K4 at lane-keeping-v0
+    # from fresh resets with random actions stored on the egos (K5: the tick
+    # phases spread over all 7 values), each beside the v0 instantiation's
+    # raw branch on the same scene under the spec without the flag
+    for key, env_id in (("K5 dynamical", "intersection-v1"), ("K4 dynamical", "lane-keeping-v0")):
+        e = dyn_envs[env_id][0]
+        dspec, dframes = e._general, e.frames_per_step
+        v0_spec = dspec._replace(dynamical=False)
+        _, s0 = e.reset(B, e.generator(SEED + 2))
+        sveh, _, _ = gf.store_raw_controls(
+            e, s0.vehicles, e._action_to_slots(random_actions(e, B, gen)))
+        extra = ((s0.steps + torch.arange(B, device=e.device, dtype=torch.int32) * 15,)
+                 if e.regulated else ())
+        kernel = gf.frames_kernel_for(dspec, e.regulated)
+        v0_kernel = gf.frames_kernel_for(v0_spec, e.regulated)
+        args = (sveh, dspec, None, dframes, *extra)
+        v0_args = (sveh, v0_spec, None, dframes, *extra)
+
+        def plain(args=args):
+            return gf.frames_general_plain(*args, raw=True)
+
+        out_k = kernel(*args, raw=True, linear=False)
+        torch.cuda.synchronize()
+        err[key] = max(err[key], compare_general(out_k, plain(), f"{env_id} timed inputs"))
+        what = f"{env_id}, V={e.num_slots}, group {group_size(e.num_slots)}, raw controls"
+        ms, plain_ms, _ = timed(
+            f"{key} ({what}), per policy step",
+            lambda kernel=kernel, args=args: kernel(*args, raw=True, linear=False), plain,
+            None, 20, PLAIN_REPS)
+        v0_ms = queued_ms(lambda: v0_kernel(*v0_args, raw=True, linear=False), 20)
+        ops, n_bytes = (k5_work(gf, e, sveh, None, extra[0], dframes) if e.regulated
+                        else k4_work(gf, e, sveh, None))
+        bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+        rows[key] = (f"{'general_frames_regulated' if e.regulated else 'general_frames'}"
+                     f"_dynamical ({env_id})", "highwayenv_tpu_torch/csrc/general_frames.cu",
+                     "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms, bms, by,
+                     None)
+        print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, "
+              f"{n_bytes} bytes -> {t_bytes:.5f} ms); the v0 instantiation's raw branch on "
+              f"the same scene without the flag: {v0_ms:.4f} ms queued; dynamical / v0 "
+              f"{ms / v0_ms:.3f}")
     print(f"  [the kernel table done at {time.time() - start:.0f} s]")
     # the policy step's simulation, and the rollouts, in turns
     for which, sim in (("sorted", ss.simulate_bm_sorted), ("dense", sf.simulate_bm)):
@@ -2665,7 +2870,7 @@ def main() -> int:
     # the slice's envs and the parking family: eager against graph, the
     # full autoreset, in turns
     for env_id, (e, _) in {**slice_envs, **parking_envs, **{
-            k: conn_envs[k] for k in CONNECTED_ROLLOUTS}}.items():
+            k: conn_envs[k] for k in CONNECTED_ROLLOUTS}, **dyn_envs}.items():
         print(f"  [{env_id} at {time.time() - start:.0f} s]")
         _, t0_states = e.reset(B, e.generator(SEED + 4))
         walls = {name: [] for name in ("eager full", "graph full")}

@@ -21,7 +21,10 @@ merge-generic-v1, u-turn-v1, exit-v1, roundabout-v1, roundabout-generic-v1,
 racetrack-v1, racetrack-large-v1, racetrack-oval-v1, intersection-v2)
 search neighbours on the connected lanes too, on the general kernels'
 connected instantiations; intersection-multi-agent-v0 and -v2 run two egos
-with a MultiAgentAction and a MultiAgentObservation (a tuple observation).
+with a MultiAgentAction and a MultiAgentObservation (a tuple observation);
+intersection-v1 and lane-keeping-v0 (the AttributesObservation dict) drive a
+dynamical ContinuousAction ego on the BicycleVehicle tire-slip model, on
+the general kernels' dynamical instantiations.
 """
 
 from __future__ import annotations
@@ -39,10 +42,6 @@ _UNPORTED_IDS = {
     "intersection-multi-agent-v1": (
         "Gymnasium's MultiAgentWrapper over the single-env GymEnv, which waits "
         "for highwayenv_tpu/seeding.py"),
-    "intersection-v1": ("the BicycleVehicle dynamics of its dynamical ContinuousAction "
-                        "(vehicle/dynamics.py) are not ported"),
-    "lane-keeping-v0": ("its own _step and the BicycleVehicle dynamics "
-                        "(envs/lane_keeping.py, vehicle/dynamics.py) are not ported"),
 }
 
 
@@ -104,9 +103,11 @@ def _register_all():
     from highwayenv_tpu_torch.envs.exit import ExitEnv
     from highwayenv_tpu_torch.envs.highway import HighwayEnv, HighwayEnvFast
     from highwayenv_tpu_torch.envs.intersection import (
+        ContinuousIntersectionEnv,
         IntersectionEnv,
         MultiAgentIntersectionEnv,
     )
+    from highwayenv_tpu_torch.envs.lane_keeping import LaneKeepingEnv
     from highwayenv_tpu_torch.envs.merge import MergeEnv
     from highwayenv_tpu_torch.envs.merge_generic import MergeGenericEnv
     from highwayenv_tpu_torch.envs.parking import (
@@ -129,9 +130,11 @@ def _register_all():
     register("highway-v0", HighwayEnv)
     register("highway-fast-v0", HighwayEnvFast)
     register("intersection-v0", IntersectionEnv)
+    register("intersection-v1", ContinuousIntersectionEnv)
     register("intersection-v2", IntersectionEnv, CONNECTED)
     register("intersection-multi-agent-v0", MultiAgentIntersectionEnv)
     register("intersection-multi-agent-v2", MultiAgentIntersectionEnv, CONNECTED)
+    register("lane-keeping-v0", LaneKeepingEnv)
     register("merge-v0", MergeEnv)
     register("merge-v1", MergeEnv, CONNECTED)
     register("merge-generic-v0", MergeGenericEnv)

@@ -7,8 +7,10 @@ agent's [-1, 1] action is clipped, lmapped onto ``acceleration_range`` /
 The frames then keep it (``stores_raw_controls``): the ego takes no
 P-cascade, and the frame kernels run their raw-control branch.
 
-``dynamical=True`` (the BicycleVehicle tire-slip integrator of
-``vehicle/dynamics.py``) is not ported and raises ``NotPortedError``.
+``dynamical=True`` integrates the egos with the BicycleVehicle tire-slip
+model of ``vehicle/dynamics.py`` instead of the kinematic bicycle: a flag
+the general frames read (``GeneralSpec.dynamical``, the kernels'
+``kDynamical`` instantiations); a straight road refuses it at ``make``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,6 @@ import math
 import numpy as np
 import torch
 
-from highwayenv_tpu_torch import NotPortedError
 from highwayenv_tpu_torch.utils.math import lmap
 from highwayenv_tpu_torch.vehicle.state import VehicleState
 
@@ -49,12 +50,6 @@ class ContinuousAction:
         self.lateral = lateral
         if not self.lateral and not self.longitudinal:
             raise ValueError("Either longitudinal and/or lateral control must be enabled")
-        if dynamical:
-            raise NotPortedError(
-                "ContinuousAction(dynamical=True) is not ported yet: it needs the "
-                "port of highwayenv_tpu/vehicle/dynamics.py (the BicycleVehicle "
-                "integrator)"
-            )
         self.dynamical = dynamical
         self.clip = clip
         self.size = 2 if self.lateral and self.longitudinal else 1

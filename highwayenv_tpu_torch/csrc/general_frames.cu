@@ -37,6 +37,16 @@
 // no such branch (the JAX package runs those ids on its XLA frames,
 // BaseEnv._frame); the plain version with GeneralSpec.connected is held to
 // that XLA path on the CPU and this branch to the plain version on the card.
+// Each entry but the connected ones has a kDynamical twin
+// (general_frames_dynamical, general_frames_regulated_dynamical) for a
+// dynamical ContinuousAction (intersection-v1, lane-keeping-v0): after the
+// kinematic integration the ego rows take their position, heading and speed
+// from one RK4 step of the BicycleVehicle tire-slip model
+// (vehicle/dynamics.py::integrate_dynamic) and write their lateral speed and
+// yaw rate, which these instantiations alone read and write (DynFields, the
+// kernel's last parameter, which the others do not have).  The TPU kernels
+// have no such branch either (the JAX package runs those ids on its XLA
+// frames, BaseEnv._frame, whose override this follows).
 // Each operation rounds as the op-by-op torch version does on the same card:
 // the library is built with -fmad=false and the precise libm functions, and
 // every expression keeps the torch version's order of operations.
@@ -217,6 +227,77 @@ struct RegFields {
   uint8_t* is_yielding_out;
   int* yield_timer_out;
 };
+
+// The kDynamical instantiations' further (B, V) tensors (ops/general_frames.py::
+// DYN_FIELDS) in and out, and the float32 factors of
+// vehicle/dynamics.py::kernel_constants.
+struct DynFields {
+  const float* lateral_speed;
+  const float* yaw_rate;
+  float* lateral_speed_out;
+  float* yaw_rate_out;
+  float dt_half, dt_sixth;  // float32(dt / 2) and float32(dt / 6), as torch rounds them
+  float damp;               // float32(INERTIA_Z / LENGTH_A): the low-speed damping
+  float inv_inertia;        // float32(1 / INERTIA_Z), the reciprocal torch divides by
+};
+static_assert(sizeof(DynFields) == 4 * sizeof(void*) + 4 * sizeof(float),
+              "DynFields: four pointers and four floats, as ops/general_frames.py::DynFields");
+
+// torch.clamp with scalar bounds: a NaN stays NaN
+__device__ __forceinline__ float clamp_keep_nan(float x, float lo, float hi) {
+  return x != x ? x : fminf(fmaxf(x, lo), hi);
+}
+
+// vehicle/dynamics.py::_derivative of the state s = (x, y, psi, v, v_lat, r)
+// at (steer, acc) into k, in torch's order of operations with the model's
+// constants: LENGTH_A = LENGTH_B = 2.5, 2 * FRICTION = 30, MASS = 1 (a
+// product or quotient by it is exact), and the quotient by INERTIA_Z, a
+// Python scalar, a product with its reciprocal as torch on the card takes it
+// (in double, rounded to float32).
+__device__ __forceinline__ void bicycle_derivative(const float* s, float steer, float acc,
+                                                   const DynFields& d, float* k) {
+  const float v = s[3], vl = s[4], r = s[5];
+  const float theta_vf = atan2f(vl + 2.5f * r, v);
+  const float theta_vr = atan2f(vl - 2.5f * r, v);
+  float f_yf = 30.0f * (steer - theta_vf);
+  float f_yr = 30.0f * (0.0f - theta_vr);
+  if (fabsf(v) < 1.0f) {  // the low-speed damping branch
+    f_yf = -vl - d.damp * r;
+    f_yr = -vl + d.damp * r;
+  }
+  const float c = cosf(s[2]), sn = sinf(s[2]);
+  k[0] = c * v - sn * vl;
+  k[1] = sn * v + c * vl;
+  k[2] = r;
+  k[3] = acc;
+  k[4] = (f_yf + f_yr) - r * v;
+  k[5] = (2.5f * f_yf - 2.5f * f_yr) * d.inv_inertia;
+}
+
+// vehicle/dynamics.py::integrate_dynamic on one row: s, the pre-integration
+// (x, y, psi, v, v_lat, r) with r clipped, takes one RK4 step of dt at the
+// clipped actions; the stage sum accumulates as torch evaluates
+// f1 + 2 * f2 + 2 * f3 + f4, left to right.
+__device__ void bicycle_rk4(float* s, float steer, float acc, float dt, const DynFields& d) {
+  float k[6], st[6], sum[6];
+  bicycle_derivative(s, steer, acc, d, k);
+  for (int c = 0; c < 6; ++c) {
+    sum[c] = k[c];
+    st[c] = s[c] + k[c] * d.dt_half;
+  }
+  bicycle_derivative(st, steer, acc, d, k);
+  for (int c = 0; c < 6; ++c) {
+    sum[c] = sum[c] + 2.0f * k[c];
+    st[c] = s[c] + k[c] * d.dt_half;
+  }
+  bicycle_derivative(st, steer, acc, d, k);
+  for (int c = 0; c < 6; ++c) {
+    sum[c] = sum[c] + 2.0f * k[c];
+    st[c] = s[c] + k[c] * dt;
+  }
+  bicycle_derivative(st, steer, acc, d, k);
+  for (int c = 0; c < 6; ++c) s[c] = s[c] + d.dt_sixth * (sum[c] + k[c]);
+}
 
 // The lane tables in shared memory.
 struct Lanes {
@@ -760,13 +841,17 @@ __device__ __forceinline__ void decide(GSlot& v, const Ctx<kLinear, kConnected>&
 
 // conn_lanes / conn_offsets: the (L, GEN_MAX_CONN) candidate tables, read by
 // the kConnected instantiations alone (last, so that the other parameters
-// keep their places)
-template <bool kRegulated, bool kLinear, bool kConnected>
+// keep their places); dyn: the kDynamical instantiations' DynFields, a
+// parameter of theirs alone (an empty pack elsewhere)
+template <bool kRegulated, bool kLinear, bool kConnected, bool kDynamical, typename... Dyn>
 __global__ void __launch_bounds__(GEN_BLOCK)
     general_frames_kernel(const __grid_constant__ GenFields f,
                           const __grid_constant__ RegFields rf, const float* lane_f,
                           const int* lane_i, const __grid_constant__ GenParams p, int B,
-                          int G, const int* conn_lanes, const float* conn_offsets) {
+                          int G, const int* conn_lanes, const float* conn_offsets,
+                          const Dyn... dyn) {
+  static_assert(sizeof...(Dyn) == (kDynamical ? 1 : 0) && !(kDynamical && kConnected),
+                "a kDynamical instantiation takes its DynFields, and is not connected");
   extern __shared__ float smem[];
   const int L = p.L, V = p.V, R = p.R, M = p.M;
   const int P = V * (V - 1) / 2;
@@ -823,6 +908,16 @@ __global__ void __launch_bounds__(GEN_BLOCK)
 
   const size_t o = static_cast<size_t>(env) * V + i;
   GSlot v;
+  // kDynamical: the slot's lateral speed and yaw rate, and its DynFields
+  [[maybe_unused]] DynFields df{};
+  float lat_sp = 0.f, yaw = 0.f;
+  if constexpr (kDynamical) {
+    ((df = dyn), ...);
+    if (live) {
+      lat_sp = df.lateral_speed[o];
+      yaw = df.yaw_rate[o];
+    }
+  }
   if (live) {
     v.px = f.pos[2 * o];
     v.py = f.pos[2 * o + 1];
@@ -1104,6 +1199,8 @@ __global__ void __launch_bounds__(GEN_BLOCK)
                                : (speed < MIN_SPEED ? fmaxf(ac, MIN_SPEED - speed) : ac);
         const float beta = atanf(0.5f * tanf(st_angle));
         const float hb = v.heading + beta;
+        // kDynamical: the ego's pre-integration row, the RK4's input
+        float s6[6] = {v.px, v.py, v.heading, speed, lat_sp, yaw};
         v.px = (v.px + (speed * cosf(hb)) * p.dt) + (v.pend ? v.ix : 0.f);
         v.py = (v.py + (speed * sinf(hb)) * p.dt) + (v.pend ? v.iy : 0.f);
         v.crashed = v.crashed || v.pend;
@@ -1113,6 +1210,20 @@ __global__ void __launch_bounds__(GEN_BLOCK)
         v.iy = 0.f;
         v.pend = false;
         v.timer = v.timer + p.dt;
+        if constexpr (kDynamical) {
+          // the ego's position (without the impact), heading and speed from
+          // one RK4 step; it keeps the crash, impact and timer updates above
+          if (v.kind == KIND_EGO) {
+            s6[5] = clamp_keep_nan(yaw, -TWO_PI_F, TWO_PI_F);
+            bicycle_rk4(s6, clamp_keep_nan(st_angle, -HALF_PI_F, HALF_PI_F), ac, p.dt, df);
+            v.px = s6[0];
+            v.py = s6[1];
+            v.heading = s6[2];
+            v.speed = s6[3];
+            lat_sp = s6[4];
+            yaw = s6[5];
+          }
+        }
       }
       v.ch = cosf(v.heading);
       v.sh = sinf(v.heading);
@@ -1218,6 +1329,10 @@ __global__ void __launch_bounds__(GEN_BLOCK)
       rf.is_yielding_out[o] = v.yld ? 1 : 0;
       rf.yield_timer_out[o] = v.yt;
     }
+    if constexpr (kDynamical) {
+      df.lateral_speed_out[o] = lat_sp;
+      df.yaw_rate_out[o] = yaw;
+    }
   }
 }
 
@@ -1225,17 +1340,20 @@ __global__ void __launch_bounds__(GEN_BLOCK)
 // 1.50x slower at roundabout-v0, merge-v0 and the V = 16 warm-up; PERF.md).
 static int threads_per_env(int V) { return V <= 16 ? 16 : 32; }
 
-template <bool kRegulated, bool kConnected>
+// dyn: the kDynamical instantiations' DynFields (one pointer), or nothing
+template <bool kRegulated, bool kConnected, typename... Dyn>
 static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
                   const int* lane_i, const int* conn_lanes, const float* conn_offsets,
-                  const GenParams* params, int B, void* stream) {
+                  const GenParams* params, int B, void* stream, const Dyn*... dyn) {
   static_assert(sizeof(GenFields) == (N_IN + 1 + N_OUT) * sizeof(void*),
                 "GenFields holds one pointer per tensor");
+  constexpr bool kDynamical = sizeof...(Dyn) > 0;
   const GenParams& p = *params;
   if (p.V < 1 || p.V > GEN_MAX_SLOTS || p.L < 1 || p.L > GEN_MAX_LANES || p.R < 1 ||
       p.R > GEN_MAX_ROUTE || p.M < 1 || p.M > GEN_MAX_LANES ||
       (p.raw ? p.n_speeds != 0 : (p.n_speeds < 1 || p.n_speeds > GEN_MAX_SPEEDS)) ||
-      (kRegulated && p.period < 1) || (kConnected && (!conn_lanes || !conn_offsets)))
+      (kRegulated && p.period < 1) || (kConnected && (!conn_lanes || !conn_offsets)) ||
+      (false || ... || (dyn == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   GenFields f;
   memcpy(&f, ptrs, sizeof(GenFields));
@@ -1246,8 +1364,8 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
       (static_cast<size_t>(block_words(p.L, p.V, kConnected)) +
        static_cast<size_t>(envs_per_block) * EnvSmem::words(p.L, p.V, p.R, kRegulated));
   // the Linear rows' instantiation where the caller says they are possible
-  auto kernel = p.linear ? general_frames_kernel<kRegulated, true, kConnected>
-                         : general_frames_kernel<kRegulated, false, kConnected>;
+  auto kernel = p.linear ? general_frames_kernel<kRegulated, true, kConnected, kDynamical, Dyn...>
+                         : general_frames_kernel<kRegulated, false, kConnected, kDynamical, Dyn...>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -1256,7 +1374,7 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
   if (B > 0) {
     const int blocks = (B + envs_per_block - 1) / envs_per_block;
     kernel<<<blocks, GEN_BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
-        f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets);
+        f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, *dyn...);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1310,4 +1428,27 @@ extern "C" int general_frames_regulated_connected(void* const* ptrs, void* const
   memcpy(&rf, reg_ptrs, sizeof(RegFields));
   return launch<true, true>(ptrs, rf, lane_f, lane_i, conn_lanes, conn_offsets, params, B,
                             stream);
+}
+
+// The size of DynFields, which the wrapper holds its ctypes mirror to.
+extern "C" int general_dyn_bytes() { return static_cast<int>(sizeof(DynFields)); }
+
+// K4 under a dynamical action: as general_frames, plus dyn, the host
+// DynFields (lateral speed and yaw rate in and out, the RK4's factors).
+extern "C" int general_frames_dynamical(void* const* ptrs, const float* lane_f,
+                                        const int* lane_i, const GenParams* params, int B,
+                                        void* stream, const DynFields* dyn) {
+  return launch<false, false>(ptrs, RegFields{}, lane_f, lane_i, nullptr, nullptr, params, B,
+                              stream, dyn);
+}
+
+// K5 under a dynamical action: as general_frames_regulated, plus dyn.
+extern "C" int general_frames_regulated_dynamical(void* const* ptrs, void* const* reg_ptrs,
+                                                  const float* lane_f, const int* lane_i,
+                                                  const GenParams* params, int B, void* stream,
+                                                  const DynFields* dyn) {
+  RegFields rf;
+  memcpy(&rf, reg_ptrs, sizeof(RegFields));
+  return launch<true, false>(ptrs, rf, lane_f, lane_i, nullptr, nullptr, params, B, stream,
+                             dyn);
 }

@@ -253,6 +253,11 @@ class BaseEnv:
                 ("sequential_decisions", self.config.get("sequential_decisions")),
                 ("several controlled vehicles",
                  len(self.ego_slots) != 1 and not self.several_egos),
+                # the straight frames integrate every row kinematically (so
+                # does the JAX package's straight path, which never reads
+                # the flag)
+                ("a dynamical action on a straight road",
+                 self._straight is not None and general_frames.dynamical(self.action_type)),
             ) if bad
         ]
         if self._straight is None:
@@ -394,7 +399,8 @@ class BaseEnv:
             self, states.vehicles, self._action_to_slots(actions),
             self.frames_per_step, **kw,
         )
-        return EnvState(
+        # replace, not a new EnvState: an env's state may carry more fields
+        return states.replace(
             vehicles=veh,
             time=states.time + 1.0 / self.config["policy_frequency"],
             steps=states.steps + self.frames_per_step,
@@ -427,8 +433,11 @@ class BaseEnv:
     def _observe(self, state: EnvState):
         """The observation of the ego, or with several egos or a
         multi-agent observation the tuple of each ego slot's (the JAX
-        package's ``_observe``)."""
+        package's ``_observe``); an observation of the whole EnvState
+        (``observes_env``: AttributesObservation) takes the state."""
         obs_type = self.observation_type
+        if getattr(obs_type, "observes_env", False):
+            return obs_type.observe_env(self, state)
         if len(self.ego_slots) == 1 and not getattr(obs_type, "multi_agent", False):
             return obs_type.observe(self.geo, state.vehicles, self.ego_slots[0])
         return tuple(obs_type.observe(self.geo, state.vehicles, slot)
@@ -486,13 +495,15 @@ class BaseEnv:
             truncated = truncated | (state.steps // self.frames_per_step >= mes)
         return state, reward, terminated, truncated, self._info(state, action)
 
-    def _finish_step(self, state: EnvState, action):
-        """The head with the observation, and no reset: (obs, state,
-        reward, terminated, truncated, info)."""
+    def _finish_step(self, state: EnvState, action, obs=None):
+        """The head with the observation (``obs`` where the step observed
+        before its frames), and no reset: (obs, state, reward, terminated,
+        truncated, info)."""
         state, reward, terminated, truncated, info = self._finish_head(
             state, action
         )
-        return self._observe(state), state, reward, terminated, truncated, info
+        obs = self._observe(state) if obs is None else obs
+        return obs, state, reward, terminated, truncated, info
 
     def _post_step_population(self, state: EnvState, generator) -> EnvState:
         """Per-step population update (spawns, clears) after the head, so
@@ -504,19 +515,44 @@ class BaseEnv:
     def _has_population_hook(self) -> bool:
         return type(self)._post_step_population is not BaseEnv._post_step_population
 
+    def _pre_step(self, states: EnvState, generator) -> EnvState:
+        """The state a step observes as its observation, made from
+        ``states`` before the frames (which simulate from it); it may draw
+        from ``generator`` (observation noise), before any other draw of the
+        step.  Not called here; an env that overrides it (lane-keeping,
+        whose JAX ``_step`` observes the pre-step state) observes before
+        its frames."""
+        return states
+
+    @property
+    def observes_before_step(self) -> bool:
+        return type(self)._pre_step is not BaseEnv._pre_step
+
+    def _observed_before(self, states: EnvState, generator):
+        """(the state to simulate, the step's observation or None): where
+        the env observes before its frames, its ``_pre_step`` state and the
+        observation of it."""
+        if not self.observes_before_step:
+            return states, None
+        states = self._pre_step(states, generator)
+        return states, self._observe(states)
+
     def step_batched(self, states: EnvState, actions, generator):
         """Step without autoreset, the frames on the frame kernels: the
-        head with the observation, then the population hook (which draws
-        from ``generator`` where the env has one).  For drivers that handle
+        head with the observation (an ``observes_before_step`` env's taken
+        before the frames), then the population hook (which draws from
+        ``generator`` where the env has one).  For drivers that handle
         episode ends themselves (``parallel/rollout.py``'s ``fresh_pool``)."""
+        states, pre_obs = self._observed_before(states, generator)
         obs, state, reward, terminated, truncated, info = self._finish_step(
-            self._simulate_batched(states, actions), actions
+            self._simulate_batched(states, actions), actions, pre_obs
         )
         state = self._post_step_population(state, generator)
         return obs, state, reward, terminated, truncated, info
 
     def _finish_autoreset(self, state: EnvState, action, generator,
-                          reset_slots: int | None = None, final_obs: bool = False):
+                          reset_slots: int | None = None, final_obs: bool = False,
+                          obs=None):
         """Head, then done rows replaced by fresh scenes, up to the compact
         autoreset's one possible host read.  Returns the step's (obs, state,
         reward, terminated, truncated, info) and the ``PendingReset`` of a
@@ -534,19 +570,20 @@ class BaseEnv:
         reset state and the reset observation.  ``final_obs`` takes the
         second order on every env and keeps the observation before the
         reset in ``info["final_obs"]``: the same draws, states and
-        observations.  The full path places all B rows of the reset; with
+        observations.  An ``observes_before_step`` env passes the step's
+        ``obs``, taken before the frames, which the reset patches in the
+        same way.  The full path places all B rows of the reset; with
         ``reset_slots=P`` only the done rows are placed, P at a time
         (``_compact_first``)."""
         state, reward, terminated, truncated, info = self._finish_head(
             state, action
         )
         done = terminated | truncated
-        obs = None
-        if final_obs or self._has_population_hook:
+        if obs is None and (final_obs or self._has_population_hook):
             obs = self._observe(state)
-            state = self._post_step_population(state, generator)
-            if final_obs:
-                info = dict(info, final_obs=obs)
+        state = self._post_step_population(state, generator)
+        if final_obs:
+            info = dict(info, final_obs=obs)
         pending = None
         if reset_slots is None:
             fresh = self._reset_state(done.shape[0], generator)
@@ -652,9 +689,10 @@ class BaseEnv:
         """An autoreset step, the frames on the kernels, up to its one
         possible host read: what ``parallel/graph.py`` captures
         (``_finish_autoreset``)."""
+        states, obs = self._observed_before(states, generator)
         return self._finish_autoreset(
             self._simulate_batched(states, actions), actions, generator,
-            reset_slots, final_obs,
+            reset_slots, final_obs, obs,
         )
 
     def _autoreset_rest(self, out, pending: "PendingReset | None"):
@@ -668,8 +706,9 @@ class BaseEnv:
     def step_autoreset(self, states: EnvState, actions, generator):
         """Autoreset step through the plain torch frames, the reference the
         kernel path is held against."""
+        states, obs = self._observed_before(states, generator)
         return self._finish_autoreset(
-            self._simulate(states, actions), actions, generator
+            self._simulate(states, actions), actions, generator, obs=obs
         )[0]
 
     def step_autoreset_batched(self, states: EnvState, actions, generator,

@@ -3,7 +3,8 @@
 PyTorch counterpart of ``highwayenv_tpu/envs/intersection.py`` (reference
 highway_env/envs/intersection_env.py: intersection-v0, and with the
 connected-lane neighbour search intersection-v2; ``MultiAgentIntersectionEnv``
-is intersection-multi-agent-v0 and -v2, two egos).  Four corners of
+is intersection-multi-agent-v0 and -v2, two egos; ``ContinuousIntersectionEnv``
+is intersection-v1, a dynamical ContinuousAction ego).  Four corners of
 five lanes each (incoming, right turn, left turn, straight, exit) on a
 regulated road: every ``sim_freq // 2`` frames the right-of-way pass makes
 the lower-priority vehicle of each predicted conflict yield.  The padded
@@ -580,6 +581,50 @@ class MultiAgentIntersectionEnv(IntersectionEnv):
                     },
                 },
                 "controlled_vehicles": 2,
+            },
+        )
+        return config
+
+
+class ContinuousIntersectionEnv(IntersectionEnv):
+    """intersection-v1 (reference intersection_env.py
+    ``ContinuousIntersectionEnv``): the ego under a dynamical
+    ContinuousAction, longitudinal and lateral, steering within +-pi/3 (the
+    BicycleVehicle tire-slip model, K5's ``kDynamical`` instantiation on the
+    card), and the Kinematics observation of 5 vehicles with the offsets
+    from each row's lane (``long_off``, ``lat_off``, ``ang_off``)."""
+
+    @classmethod
+    def default_config(cls) -> dict:
+        config = super().default_config()
+        update_config(
+            config,
+            {
+                "observation": {
+                    "type": "Kinematics",
+                    "vehicles_count": 5,
+                    "features": [
+                        "presence", "x", "y", "vx", "vy",
+                        "long_off", "lat_off", "ang_off",
+                    ],
+                    "features_range": {
+                        "x": [-100, 100],
+                        "y": [-100, 100],
+                        "vx": [-20, 20],
+                        "vy": [-20, 20],
+                    },
+                    "absolute": True,
+                    "flatten": False,
+                    "observe_intentions": False,
+                },
+                "action": {
+                    "type": "ContinuousAction",
+                    "steering_range": [-np.pi / 3, np.pi / 3],
+                    "longitudinal": True,
+                    "lateral": True,
+                    "dynamical": True,
+                    "target_speeds": [0, 4.5, 9],
+                },
             },
         )
         return config

@@ -4,7 +4,8 @@ PyTorch counterpart of ``highwayenv_tpu/factories.py`` (reference
 envs/common/observation.py ``observation_factory`` and envs/common/action.py
 ``action_factory``), so scenario configs stay drop-in.  The port has the
 Kinematics, KinematicsGoal, TimeToCollision, ExitObservation,
-OccupancyGrid, MultiAgentObservation and TupleObservation observations and
+OccupancyGrid, MultiAgentObservation, TupleObservation and
+AttributesObservation observations and
 the DiscreteMetaAction, ContinuousAction, DiscreteAction and
 MultiAgentAction (every action type the JAX package knows); every other
 observation type it knows raises ``NotPortedError`` naming the module it
@@ -17,6 +18,7 @@ from highwayenv_tpu_torch import NotPortedError
 from highwayenv_tpu_torch.actions.continuous import ContinuousAction, DiscreteAction
 from highwayenv_tpu_torch.actions.discrete_meta import DiscreteMetaAction
 from highwayenv_tpu_torch.actions.multi_agent import MultiAgentAction
+from highwayenv_tpu_torch.observations.attributes import AttributesObservation
 from highwayenv_tpu_torch.observations.exit_obs import ExitObservation
 from highwayenv_tpu_torch.observations.kinematics import KinematicsObservation
 from highwayenv_tpu_torch.observations.kinematics_goal import KinematicsGoalObservation
@@ -28,7 +30,6 @@ from highwayenv_tpu_torch.observations.ttc import TimeToCollisionObservation
 _UNPORTED_OBSERVATIONS = {
     "LidarObservation": "observations/lidar.py",
     "GrayscaleObservation": "observations/grayscale.py",
-    "AttributesObservation": "observations/attributes.py",
 }
 
 
@@ -61,6 +62,8 @@ def observation_factory(env, config: dict):
         return MultiAgentObservation(env, **kwargs)
     if config["type"] == "TupleObservation":
         return TupleObservation(env, **kwargs)
+    if config["type"] == "AttributesObservation":
+        return AttributesObservation(env, **kwargs)
     return _refuse_observation(config["type"])
 
 

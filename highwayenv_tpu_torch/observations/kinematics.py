@@ -20,7 +20,10 @@ from highwayenv_tpu_torch.utils.math import lmap
 from highwayenv_tpu_torch.vehicle.state import MAX_SPEED, VehicleState
 
 DEFAULT_FEATURES = ("presence", "x", "y", "vx", "vy")
-SUPPORTED_FEATURES = ("presence", "x", "y", "vx", "vy", "heading", "cos_h", "sin_h")
+SUPPORTED_FEATURES = ("presence", "x", "y", "vx", "vy", "heading", "cos_h", "sin_h",
+                      "long_off", "lat_off", "ang_off")
+#: the features measured in the frame of each row's current lane
+LANE_FEATURES = ("long_off", "lat_off", "ang_off")
 PERCEPTION_DISTANCE = 5.0 * MAX_SPEED
 
 
@@ -84,11 +87,13 @@ class KinematicsObservation:
             )
         return self._relative_masks[key]
 
-    def _feature_table(self, state: VehicleState) -> dict:
+    def _feature_table(self, geo: LaneGeometry, state: VehicleState) -> dict:
         is_vehicle = state.is_vehicle
         cos_h, sin_h = torch.cos(state.heading), torch.sin(state.heading)
-        # static objects report zero velocity
-        return {
+        # static objects report zero velocity; the velocity is speed times
+        # the heading's direction (a dynamical ego's lateral speed aside), as
+        # the JAX package's VehicleState.velocity
+        cols = {
             "presence": torch.ones_like(state.speed),
             "x": state.pos[..., 0],
             "y": state.pos[..., 1],
@@ -98,6 +103,13 @@ class KinematicsObservation:
             "cos_h": cos_h,
             "sin_h": sin_h,
         }
+        if any(f in LANE_FEATURES for f in self.features):
+            # the offsets in the frame of each row's current lane
+            s, lat = lane_ops.local_coordinates(geo, state.lane, state.pos)
+            cols["long_off"] = s
+            cols["lat_off"] = lat
+            cols["ang_off"] = lane_ops.local_angle(geo, state.lane, state.heading, s)
+        return cols
 
     def observe(self, geo: LaneGeometry, state: VehicleState, ego: int):
         """Observation of controlled slot ``ego``: (B, N, F) float32."""
@@ -125,7 +137,7 @@ class KinematicsObservation:
         sel = torch.argsort(sort_key, dim=-1, stable=True)[:, : self.vehicles_count - 1]
         sel_ok = torch.gather(ok, 1, sel)
 
-        cols = self._feature_table(state)
+        cols = self._feature_table(geo, state)
         feats = torch.stack([cols[f] for f in self.features], dim=-1)  # (B,V,F)
         ego_row = feats[:, ego]
         rows = torch.gather(

@@ -27,8 +27,12 @@ the frame-start state):
      right-of-way pass of ``road/regulation.py`` (it writes only the
      target speed and the yielding state, which no later step of the frame
      reads);
-  6. bicycle integration, the new projection table and the heading-aware
-     re-localization (closest lane by |lat| + overrun + heading distance);
+  6. bicycle integration (with ``GeneralSpec.dynamical``, a dynamical
+     ContinuousAction, the egos' rows then taken from one RK4 step of the
+     tire-slip model of ``vehicle/dynamics.py``, as the JAX package's
+     ``BaseEnv._frame`` overrides them), the new projection table and the
+     heading-aware re-localization (closest lane by |lat| + overrun +
+     heading distance);
   7. swept-SAT collisions with obstacles and last-write impacts.
 
 ``frames_general_plain`` runs them in batched torch; it is what the CPU
@@ -37,7 +41,9 @@ one launch of ``csrc/general_frames.cu``: ``frames_general_kernel`` (K4)
 without the regulated block, ``frames_regulated_kernel`` (K5) with it, and
 on a connected spec their ``kConnected`` instantiations
 ``frames_general_connected_kernel`` and
-``frames_regulated_connected_kernel``, each with its own launch count; on
+``frames_regulated_connected_kernel``, and on a dynamical spec their
+``kDynamical`` instantiations ``frames_general_dynamical_kernel`` and
+``frames_regulated_dynamical_kernel``, each with its own launch count; on
 CPU tensors all run ``frames_general_plain``.  ``try_general`` is the scope
 gate: the envs outside it raise when made, naming the reason.
 """
@@ -61,7 +67,7 @@ from highwayenv_tpu_torch.ops.straight_frames import (
 from highwayenv_tpu_torch.road import lane as lane_ops
 from highwayenv_tpu_torch.road import regulation
 from highwayenv_tpu_torch.road.lane import LaneGeometry
-from highwayenv_tpu_torch.vehicle import behavior, controller, kinematics
+from highwayenv_tpu_torch.vehicle import behavior, controller, dynamics, kinematics
 from highwayenv_tpu_torch.vehicle.behavior import IDMParams
 from highwayenv_tpu_torch.vehicle.state import KIND_EGO, KIND_LINEAR, VehicleState
 
@@ -91,18 +97,23 @@ class GeneralSpec(NamedTuple):
     period: int | None = None
     #: the connected-lane neighbour search (``neighbour_vehicles_connected_lanes``)
     connected: bool = False
+    #: the egos integrate by the tire-slip model (a dynamical action type)
+    dynamical: bool = False
 
 
 def kernel_limits(V: int, L: int, M: int, R: int, S: int,
-                  n_speeds: int | None, P: int | None = None) -> list[str]:
+                  n_speeds: int | None, P: int | None = None,
+                  dynamical: bool = False) -> list[str]:
     """The limits of the kernels' arrays that a scene of V slots, L lanes,
     at most M lanes an edge, R route slots, S successor edges a lane,
     ``n_speeds`` target speeds (None under raw controls) and, under the
     connected-lane search, P predecessor edges a lane (None without it)
-    breaks."""
+    breaks; and a dynamical action under the connected-lane search, which no
+    instantiation runs."""
     conn = [] if P is None else [
         (f"{P} predecessor edges > {MAX_PRED}", P > MAX_PRED),
         (f"{1 + S + P} connected-lane candidates > {MAX_CONN}", 1 + S + P > MAX_CONN),
+        ("a dynamical action under the connected-lane search", dynamical),
     ]
     return [
         what for what, bad in (
@@ -122,6 +133,11 @@ def _connected(env) -> bool:
     return bool(env.config.get("neighbour_vehicles_connected_lanes", False))
 
 
+def dynamical(action_type) -> bool:
+    """Whether ``action_type`` integrates its egos by the tire-slip model."""
+    return bool(getattr(action_type, "dynamical", False))
+
+
 def general_unported(env) -> list[str]:
     """Why ``env`` cannot take the general path: every limit of the
     kernels' arrays, so that no env that is made is refused at launch (the
@@ -133,6 +149,7 @@ def general_unported(env) -> list[str]:
         geo.succ_edge_base.shape[1],
         None if at.stores_raw_controls else len(at.target_speeds),
         geo.pred_edge_base.shape[1] if _connected(env) else None,
+        dynamical(at),
     )
 
 
@@ -144,7 +161,7 @@ def try_general(env) -> GeneralSpec | None:
         geo=env.geo, p=env.idm_params, dt=env.dt,
         max_edge_lanes=int(env.max_edge_lanes), action_type=env.action_type,
         period=env._regulation_period if env.regulated else None,
-        connected=_connected(env),
+        connected=_connected(env), dynamical=dynamical(env.action_type),
     )
 
 
@@ -199,7 +216,20 @@ def frame_general_plain(veh: VehicleState, spec: GeneralSpec, table,
             is_yielding=torch.where(t, ruled.is_yielding, veh.is_yielding),
             yield_timer=torch.where(t, ruled.yield_timer, veh.yield_timer),
         )
+    pre = veh
     veh = kinematics.integrate(veh, spec.dt)
+    if spec.dynamical:
+        # the egos' rows from one RK4 step of the pre-integration state; they
+        # keep the kinematic pass's crash, impact and timer updates
+        ego = pre.kind == KIND_EGO
+        dyn = dynamics.integrate_dynamic(pre, spec.dt, ego)
+        veh = veh.replace(
+            pos=torch.where(ego[..., None], dyn.pos, veh.pos),
+            heading=torch.where(ego, dyn.heading, veh.heading),
+            speed=torch.where(ego, dyn.speed, veh.speed),
+            lateral_speed=torch.where(ego, dyn.lateral_speed, veh.lateral_speed),
+            yaw_rate=torch.where(ego, dyn.yaw_rate, veh.yaw_rate),
+        )
     table = lane_ops.projection_table(geo, veh.pos)
     new_lane = lane_ops.closest_lane_from_table(geo, *table, veh.heading)
     veh = veh.replace(lane=torch.where(veh.is_vehicle, new_lane, veh.lane))
@@ -338,6 +368,20 @@ _IN_FIELDS = [
 OUT_FIELDS = _IN_FIELDS[:15]
 #: K5's further fields, read and written (JAX ``gen_fields(R, regulated=True)``)
 REG_FIELDS = [("is_yielding", torch.bool, ()), ("yield_timer", torch.int32, ())]
+#: the ``kDynamical`` instantiations' further fields, read and written
+DYN_FIELDS = [("lateral_speed", torch.float32, ()), ("yaw_rate", torch.float32, ())]
+
+
+class DynFields(ctypes.Structure):
+    """The ctypes mirror of the .cu's ``DynFields``: the device pointers of
+    ``DYN_FIELDS`` in and out, then ``dynamics.kernel_constants(dt)``."""
+
+    _fields_ = [
+        ("lateral_speed", ctypes.c_void_p), ("yaw_rate", ctypes.c_void_p),
+        ("lateral_speed_out", ctypes.c_void_p), ("yaw_rate_out", ctypes.c_void_p),
+        ("dt_half", ctypes.c_float), ("dt_sixth", ctypes.c_float),
+        ("damp", ctypes.c_float), ("inv_inertia", ctypes.c_float),
+    ]
 
 
 def _resolve(fields, R: int):
@@ -352,10 +396,13 @@ def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int,
     raises: ``make`` refuses its env (``general_unported``)."""
     at, p = spec.action_type, spec.p
     ts = np.zeros(0, np.float32) if raw else np.asarray(at.target_speeds, np.float32)
+    # the grid as controller.speed_to_index takes it
+    span = None if raw else np.asarray(at.target_speeds)
     geo = spec.geo
     bad = kernel_limits(V, geo.num_lanes, spec.max_edge_lanes, R,
                         geo.succ_edge_base.shape[1], None if raw else len(ts),
-                        geo.pred_edge_base.shape[1] if spec.connected else None)
+                        geo.pred_edge_base.shape[1] if spec.connected else None,
+                        spec.dynamical)
     if bad:
         raise ValueError(f"outside the general kernels' limits: {', '.join(bad)}")
     out = params_type(
@@ -368,11 +415,11 @@ def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int,
         politeness=p.politeness, lane_change_delay=p.lane_change_delay,
         kp_a=controller.KP_A, kp_heading=controller.KP_HEADING,
         kp_lateral=controller.KP_LATERAL, tau_pursuit=controller.TAU_PURSUIT,
-        # speed_to_index's division by the grid's span: torch on CUDA
-        # multiplies by the float32 reciprocal of a scalar divisor
+        # speed_to_index's division by the grid's span, a Python scalar:
+        # torch on CUDA multiplies by its reciprocal, taken in double and
+        # rounded to float32
         ts_lo=float(ts[0]) if len(ts) else 0.0,
-        inv_ts_range=(float(np.float32(1.0) / np.float32(float(ts[-1]) - float(ts[0])))
-                      if len(ts) else 0.0),
+        inv_ts_range=(float(np.float32(1.0 / (span[-1] - span[0]))) if len(ts) else 0.0),
         linear=int(linear),
     )
     for i, x in enumerate(ts):
@@ -387,7 +434,12 @@ class GeneralFramesKernel(KernelWrapper):
     ``kConnected`` instantiations (entries ``general_frames_connected`` and
     ``general_frames_regulated_connected``), which search the connected
     lanes from the lane tables' candidates (``conn_tables``) and take only a
-    connected spec, as the others take only a spec without it.
+    connected spec, as the others take only a spec without it; with
+    ``dynamical=True`` their ``kDynamical`` instantiations (entries
+    ``general_frames_dynamical`` and ``general_frames_regulated_dynamical``),
+    which integrate the egos by the tire-slip model and read and write
+    ``lateral_speed`` and ``yaw_rate`` too (``DynFields``), for a dynamical
+    spec only.
 
     Called on CUDA tensors it launches its kernel once for all frames of
     the policy step, the ego meta-action applied inside on frame 0, and adds
@@ -407,22 +459,30 @@ class GeneralFramesKernel(KernelWrapper):
     #: the ctypes mirror of the library's parameter block
     params_type = GenParams
 
-    def __init__(self, regulated: bool = False, connected: bool = False):
+    def __init__(self, regulated: bool = False, connected: bool = False,
+                 dynamical: bool = False):
         super().__init__()
-        self.regulated, self.connected = regulated, connected
+        if connected and dynamical:  # refused at make (kernel_limits)
+            raise ValueError("no instantiation is both connected and dynamical")
+        self.regulated, self.connected, self.dynamical = regulated, connected, dynamical
         self.entry = ("general_frames" + "_regulated" * regulated
-                      + "_connected" * connected)
+                      + "_connected" * connected + "_dynamical" * dynamical)
         self._tables: dict = {}
 
     def _bind(self, lib):
-        size = getattr(lib, "general_params_bytes", None)
-        if size is not None and size() != ctypes.sizeof(self.params_type):
-            raise RuntimeError(f"GenParams is {size()} bytes in the library, "
-                               f"{ctypes.sizeof(self.params_type)} in its mirror")
+        sizes = [("general_params_bytes", "GenParams", self.params_type)]
+        if self.dynamical:
+            sizes.append(("general_dyn_bytes", "DynFields", DynFields))
+        for fn_name, what, mirror in sizes:
+            size = getattr(lib, fn_name, None)
+            if size is not None and size() != ctypes.sizeof(mirror):
+                raise RuntimeError(f"{what} is {size()} bytes in the library, "
+                                   f"{ctypes.sizeof(mirror)} in its mirror")
         fn = getattr(lib, self.entry)
         fn.argtypes = (
             [ctypes.c_void_p] * (3 + self.regulated + 2 * self.connected)
             + [ctypes.POINTER(self.params_type), ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.POINTER(DynFields)] * self.dynamical
         )
         fn.restype = ctypes.c_int
 
@@ -441,6 +501,9 @@ class GeneralFramesKernel(KernelWrapper):
             raise ValueError("steps0 goes with K5 on a regulated road, and only there")
         if self.connected != spec.connected:
             raise ValueError("the connected instantiations take a connected spec, and only "
+                             "they do")
+        if self.dynamical != spec.dynamical:
+            raise ValueError("the dynamical instantiations take a dynamical spec, and only "
                              "they do")
         if not on_cuda(veh.speed):
             self.check_linear(veh, linear)
@@ -471,24 +534,37 @@ class GeneralFramesKernel(KernelWrapper):
             reg_outs = empty_fields(REG_FIELDS, B, V, dev)
             reg = reg_ins + [phase] + reg_outs
             args.append((ctypes.c_void_p * len(reg))(*[t.data_ptr() for t in reg]))
+        dyn = []
+        if self.dynamical:
+            dyn_ins = checked_fields(veh, DYN_FIELDS, B, V, dev)
+            dyn_outs = empty_fields(DYN_FIELDS, B, V, dev)
+            dyn = [ctypes.byref(DynFields(
+                *[t.data_ptr() for t in dyn_ins + dyn_outs],
+                *dynamics.kernel_constants(spec.dt),
+            ))]
         lib = self._library()
         with torch.cuda.device(dev):
             err = getattr(lib, self.entry)(
                 *args, *tables, ctypes.byref(params),
-                B, torch.cuda.current_stream(dev).cuda_stream,
+                B, torch.cuda.current_stream(dev).cuda_stream, *dyn,
             )
         self._launched(self.entry, err)
         out = with_fields(veh, OUT_FIELDS, outs)
-        return with_fields(out, REG_FIELDS, reg_outs) if self.regulated else out
+        if self.regulated:
+            out = with_fields(out, REG_FIELDS, reg_outs)
+        return with_fields(out, DYN_FIELDS, dyn_outs) if self.dynamical else out
 
 
 #: the wrapper instances the env path launches through: K4, and K5 for
-#: regulated roads, and their connected instantiations for the envs with the
-#: connected-lane search, each counting its own launches
+#: regulated roads, their connected instantiations for the envs with the
+#: connected-lane search and their dynamical ones for a dynamical action,
+#: each counting its own launches
 frames_general_kernel = GeneralFramesKernel()
 frames_regulated_kernel = GeneralFramesKernel(regulated=True)
 frames_general_connected_kernel = GeneralFramesKernel(connected=True)
 frames_regulated_connected_kernel = GeneralFramesKernel(regulated=True, connected=True)
+frames_general_dynamical_kernel = GeneralFramesKernel(dynamical=True)
+frames_regulated_dynamical_kernel = GeneralFramesKernel(regulated=True, dynamical=True)
 
 
 def store_raw_controls(env, veh: VehicleState, slot_actions: torch.Tensor):
@@ -509,17 +585,25 @@ def simulate_general(env, veh: VehicleState, slot_actions: torch.Tensor,
     the ego meta-action (inside, on frame 0, after follow_road) through
     ``frames_general_kernel``, or with the envs' frame counters ``steps0``
     (a regulated road) through ``frames_regulated_kernel``; under the
-    connected-lane search through their connected instantiations.  Raw
-    controls are stored first (``store_raw_controls``) and the launch reads
-    none.  ``linear`` (default ``env.linear_rows``): Linear rows possible."""
+    connected-lane search through their connected instantiations, under a
+    dynamical action through their dynamical ones (``frames_kernel_for``).
+    Raw controls are stored first (``store_raw_controls``) and the launch
+    reads none.  ``linear`` (default ``env.linear_rows``): Linear rows
+    possible."""
     veh, slot_actions, raw = store_raw_controls(env, veh, slot_actions)
     linear = env.linear_rows if linear is None else linear
-    spec = env._general
-    if steps0 is None:
-        kernel = frames_general_connected_kernel if spec.connected else frames_general_kernel
-        return kernel(veh, spec, slot_actions, frames, raw=raw, linear=linear)
-    kernel = frames_regulated_connected_kernel if spec.connected else frames_regulated_kernel
-    return kernel(veh, spec, slot_actions, frames, steps0, raw, linear)
+    kernel = frames_kernel_for(env._general, steps0 is not None)
+    return kernel(veh, env._general, slot_actions, frames, steps0, raw, linear)
+
+
+def frames_kernel_for(spec: GeneralSpec, regulated: bool) -> GeneralFramesKernel:
+    """The wrapper instance of ``spec``'s instantiation: K4, or K5 on a
+    regulated road, connected or dynamical as the spec is."""
+    if spec.connected:
+        return frames_regulated_connected_kernel if regulated else frames_general_connected_kernel
+    if spec.dynamical:
+        return frames_regulated_dynamical_kernel if regulated else frames_general_dynamical_kernel
+    return frames_regulated_kernel if regulated else frames_general_kernel
 
 
 def simulate_general_reference(env, veh: VehicleState, slot_actions: torch.Tensor,

@@ -211,6 +211,12 @@ def distance(geo: LaneGeometry, lane, pos):
     return lat.abs() + (s - geo.length[li]).clamp(min=0.0) + (-s).clamp(min=0.0)
 
 
+def local_angle(geo: LaneGeometry, lane, heading, s):
+    """The heading relative to the lane's at ``s``, wrapped to [-pi, pi)
+    (reference road/lane.py ``local_angle``)."""
+    return wrap_to_pi(heading - heading_at(geo, lane, s))
+
+
 def _heading_distance(geo, s, lat, heading, heading_weight: float = 1.0):
     """``distance_with_heading`` over (..., L, V) tables of every lane:
     |lat| + overrun past either end + the weighted heading difference."""

@@ -33,7 +33,12 @@ is missing only the current kernels run.  ``--kernels`` picks the families
     the Linear rows' branch: K4 at roundabout-v0 under AggressiveVehicle
     and K5's step at intersection-v0 under DefensiveVehicle, and K5's
     raw-control branch at intersection-v0 under a ContinuousAction, each on
-    the reset scene (spread tick phases on K5).
+    the reset scene (spread tick phases on K5).  Then the ``kDynamical``
+    instantiations, on the trees that have them: K5's at intersection-v1
+    (reset scene, spread tick phases, a fifth of the egos crashed, a fifth
+    below 1 m/s) and K4's at lane-keeping-v0 (V=1, L=3, 1 frame), each
+    timed beside the v0 instantiation's raw branch on the same scene (its
+    spec without the flag), which both trees run and compare.
 
 Each scene runs the instantiation its env path launches: ``linear`` on
 for the Linear scenes, off (the IDM code alone) for the others.  A tree
@@ -90,6 +95,8 @@ GENERAL_LINEAR = (
     ("intersection-v0", {"other_vehicles_type": NPC + "DefensiveVehicle"}, "K5"),
     ("intersection-v0", {"action": {"type": "ContinuousAction"}}, "K5"),
 )
+#: the dynamical scenes, each (env id, kernel)
+GENERAL_DYNAMICAL = (("intersection-v1", "K5"), ("lane-keeping-v0", "K4"))
 #: the fields only the kernels of the Linear rows' branch read
 PARAM_FIELDS = ("accel_params", "steer_params")
 B = 4096
@@ -178,6 +185,12 @@ def reads_params(csrc: pathlib.Path) -> bool:
     parameter fields (the current field lists) or predate them."""
     return all(PARAM_FIELDS[0] in (csrc / name).read_text()
                for name in ("straight_common.cuh", "general_frames.cu"))
+
+
+def has_dynamical(csrc: pathlib.Path) -> bool:
+    """Whether the general kernels of the tree ``csrc`` have the
+    ``kDynamical`` entries."""
+    return "general_frames_dynamical" in (csrc / "general_frames.cu").read_text()
 
 
 def speed_slots(csrc: pathlib.Path) -> int:
@@ -491,18 +504,56 @@ def regulated_scenes(env, states, gen):
     return out
 
 
-def run_general(args, paths, clock_paths, phases, params, speeds) -> None:
+def dynamical_scene(env, states, gen):
+    """The dynamical instantiations' scene of ``env`` (intersection-v1 or
+    lane-keeping-v0): the reset scene with the actions stored, a fifth of the
+    egos crashed and a fifth below 1 m/s (the low-speed damping branch), and
+    on a regulated road the tick phases spread over all 7 values; (vehicles,
+    slot actions, the K5 frame counters or nothing)."""
+    import torch
+
+    from highwayenv_tpu_torch.ops import general_frames as gf
+    from highwayenv_tpu_torch.vehicle.state import KIND_EGO
+
+    veh = states.vehicles
+    dev = veh.pos.device
+    Bn = veh.kind.shape[0]
+    ego = veh.kind == KIND_EGO
+    row = (torch.arange(Bn, device=dev) % 5)[:, None]
+    veh = veh.replace(
+        crashed=veh.crashed | (ego & (row == 0)),
+        speed=torch.where(ego & (row == 1), 0.8, veh.speed),
+        yaw_rate=torch.where(ego, 0.3, veh.yaw_rate),
+        lateral_speed=torch.where(ego, -0.2, veh.lateral_speed),
+    )
+    acts = torch.rand((Bn,) + tuple(env.action_type.action_shape), generator=gen,
+                      device=dev) * 2 - 1
+    veh, sa, raw = gf.store_raw_controls(env, veh, env._action_to_slots(acts))
+    assert raw
+    extra = ()
+    if env.regulated:
+        extra = (states.steps + torch.arange(Bn, device=dev, dtype=torch.int32) * 15,)
+    return veh, sa, extra
+
+
+def run_general(args, paths, clock_paths, phases, params, speeds, dynamical) -> None:
     import torch
 
     import highwayenv_tpu_torch as ht
     from highwayenv_tpu_torch.ops import general_frames as gf
 
-    k5_cls = functools.partial(gf.GeneralFramesKernel, regulated=True)
+    kinds = {
+        "K4": gf.GeneralFramesKernel,
+        "K5": functools.partial(gf.GeneralFramesKernel, regulated=True),
+        "K4 dynamical": functools.partial(gf.GeneralFramesKernel, dynamical=True),
+        "K5 dynamical": functools.partial(gf.GeneralFramesKernel, regulated=True,
+                                          dynamical=True),
+    }
 
     def bound(p, label):
         block = gf.params_struct(speeds[label])
         return {k: load(p["general_frames"], cls, params[label], block)
-                for k, cls in (("K4", gf.GeneralFramesKernel), ("K5", k5_cls))}
+                for k, cls in kinds.items() if dynamical[label] or "dynamical" not in k}
 
     wrappers = {label: {k: w for k, (w, _) in bound(p, label).items()}
                 for label, p in paths.items()}
@@ -590,6 +641,38 @@ def run_general(args, paths, clock_paths, phases, params, speeds) -> None:
                 equal_fields(out, first, reg_names if env.regulated else names, key)
         timed[key] = (k, (veh, spec, sa, frames, *extra), labels, {"raw": raw, "linear": linear})
 
+    # the kDynamical instantiations on the trees that have them, each beside
+    # the v0 instantiation's raw branch on the same scene
+    for env_id, k in GENERAL_DYNAMICAL:
+        env = ht.make(env_id)
+        spec, frames = env._general, env.frames_per_step
+        _, states = env.reset(B, env.generator(SEED))
+        veh, sa, extra = dynamical_scene(env, states, gen)
+        labels = [label for label in wrappers if dynamical[label]]
+        kd = f"{k} dynamical"
+        res = {label: wrappers[label][kd](veh, spec, sa, frames, *extra, raw=True, linear=False)
+               for label in labels}
+        torch.cuda.synchronize()
+        first = res[labels[0]]
+        fields = (reg_names if env.regulated else names) + [n for n, _, _ in gf.DYN_FIELDS]
+        for label, out in res.items():
+            equal_fields(out, first, fields, f"{kd} {env_id}")
+        print(f"== {kd} {env_id}: V={env.num_slots}, L={env.geo.num_lanes}, {frames} frames, "
+              f"B={B}: {' and '.join(res)} ran; crashed slots {int(first.crashed.sum())}")
+        timed[f"{kd} {env_id}"] = (kd, (veh, spec, sa, frames, *extra), labels,
+                                   {"raw": True, "linear": False})
+        v0 = spec._replace(dynamical=False)
+        res = {label: w[k](veh, v0, sa, frames, *extra, raw=True, linear=False)
+               for label, w in wrappers.items()}
+        torch.cuda.synchronize()
+        first = res[next(iter(res))]
+        for label, out in res.items():
+            equal_fields(out, first, reg_names if env.regulated else names,
+                         f"{k} {env_id} without the flag")
+        print(f"  {k} (v0 raw) on the same scene: {' and '.join(res)} equal on every field")
+        timed[f"{k} {env_id} v0 raw, same scene"] = (
+            k, (veh, v0, sa, frames, *extra), list(wrappers), {"raw": True, "linear": False})
+
     # 3. device times in turns
     for key, (k, call, labels, kw) in timed.items():
         fns = {label: (lambda w=wrappers[label][k]: w(*call, **kw)) for label in labels}
@@ -655,7 +738,9 @@ def main(argv) -> int:
     if "general" in args.kernels:
         speeds = {label: speed_slots(pathlib.Path(csrc)) for label, csrc in trees.items()}
         print(f"the general kernels' target-speed slots: {speeds}")
-        run_general(args, paths, clock_paths, phases, params, speeds)
+        dynamical = {label: has_dynamical(pathlib.Path(csrc)) for label, csrc in trees.items()}
+        print(f"trees with the kDynamical instantiations: {dynamical}")
+        run_general(args, paths, clock_paths, phases, params, speeds, dynamical)
     return 0
 
 

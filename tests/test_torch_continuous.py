@@ -3,8 +3,8 @@ and highway-v0 under a ContinuousAction, on the CPU.
 
 The action module: the clip and the lmap onto the acceleration and steering
 ranges, the longitudinal-only and lateral-only forms, the row-major grid
-order of DiscreteAction, equal Gymnasium spaces, and the refusal of
-``dynamical=True`` (the BicycleVehicle dynamics are not ported).  The
+order of DiscreteAction, equal Gymnasium spaces, and ``dynamical=True``,
+a flag of the general frames that a straight road refuses at make.  The
 stored controls of a ContinuousAction are exact: the lmap is the same
 float32 arithmetic; DiscreteAction's grid points agree within 2 ulp.
 
@@ -132,9 +132,9 @@ def test_action_types_through_make_and_the_dynamical_refusal():
         ej = hj.make("highway-v0", {"action": {"type": kind}})
         assert type(et.action_type) is cls
         assert et.action_space == ej.action_space
-    with pytest.raises(ht.NotPortedError, match="vehicle/dynamics.py"):
-        t_continuous.ContinuousAction(dynamical=True)
-    with pytest.raises(ht.NotPortedError, match="vehicle/dynamics.py"):
+    # dynamical: a flag the general frames read; the straight road refuses it
+    assert t_continuous.ContinuousAction(dynamical=True).dynamical
+    with pytest.raises(NotImplementedError, match="a dynamical action on a straight road"):
         ht.make("highway-v0", {"action": {"type": "DiscreteAction", "dynamical": True}},
                 device="cpu")
     with pytest.raises(ValueError, match="longitudinal and/or lateral"):

@@ -75,14 +75,15 @@ def test_unknown_or_unported_id_raises_keyerror():
     assert ht.registered_ids() == [
         "exit-v0", "exit-v1", "highway-fast-v0", "highway-v0",
         "intersection-multi-agent-v0", "intersection-multi-agent-v2", "intersection-v0",
-        "intersection-v2", "merge-generic-v0", "merge-generic-v1", "merge-v0", "merge-v1",
+        "intersection-v1", "intersection-v2", "lane-keeping-v0", "merge-generic-v0",
+        "merge-generic-v1", "merge-v0", "merge-v1",
         "parking-ActionRepeat-v0", "parking-parked-v0", "parking-v0",
         "racetrack-large-v0", "racetrack-large-v1", "racetrack-oval-v0",
         "racetrack-oval-v1", "racetrack-v0", "racetrack-v1", "roundabout-generic-v0",
         "roundabout-generic-v1", "roundabout-v0", "roundabout-v1", "two-way-v0",
         "u-turn-v0", "u-turn-v1",
     ]
-    for env_id in ("intersection-v1", "intersection-multi-agent-v1", "no-such-env-v0"):
+    for env_id in ("intersection-multi-agent-v1", "no-such-env-v0"):
         with pytest.raises(KeyError, match="not ported"):
             ht.make(env_id, device="cpu")
 

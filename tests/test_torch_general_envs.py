@@ -287,12 +287,14 @@ def test_general_gate_and_what_it_refuses():
         RoadNetworkBuilder().add_lane("a", "b", object())
     # ids not registered in the port: NotImplementedError (and KeyError)
     # naming the reason
-    for env_id, why in (("intersection-multi-agent-v1", "seeding.py"),
-                        ("intersection-v1", "ContinuousAction")):
+    for env_id, why in (("intersection-multi-agent-v1", "seeding.py"),):
         with pytest.raises(NotImplementedError, match=why):
             ht.make(env_id, device="cpu")
         with pytest.raises(KeyError, match="not ported"):
             ht.make(env_id, device="cpu")
+    # intersection-v1 is made: the regulated road under a dynamical action
+    env = ht.make("intersection-v1", device="cpu")
+    assert env.regulated and env._general.dynamical
 
 
 @pytest.mark.parametrize("env_id", ["roundabout-v0", "merge-v0"])

@@ -333,11 +333,13 @@ def test_registry_and_what_stays_unported():
     et = ht.make("intersection-v0", device="cpu")
     assert et.regulated and et._straight is None and et._general.period == 7
     for env_id, why in (
-        ("intersection-v1", "BicycleVehicle dynamics of its dynamical ContinuousAction"),
         ("intersection-multi-agent-v1", "MultiAgentWrapper.*seeding.py"),
     ):
         with pytest.raises(ht.NotPortedError, match=why):
             ht.make(env_id, device="cpu")
+    # intersection-v1: the regulated road under a dynamical ContinuousAction
+    v1 = ht.make("intersection-v1", device="cpu")
+    assert v1.regulated and v1._general.period == 7 and v1._general.dynamical
     # -v2 and the multi-agent ids: the connected-lane search, two egos
     for env_id, connected, egos in (("intersection-v2", True, (24,)),
                                     ("intersection-multi-agent-v0", False, (24, 25)),

@@ -125,7 +125,12 @@ def test_probe_configs_make_and_step_as_jax(env_id, config, edge_lanes, n_speeds
     ("highway-v0", {"lanes_count": 17}, "17 straight lanes > 16"),
     ("highway-fast-v0", {"vehicles_count": 1024}, "1025 slots > 1024"),
     ("racetrack-oval-v0", {"no_lanes": 5}, "40 lanes > 32"),
-], ids=["speeds-17", "speeds-1", "straight-lanes", "straight-slots", "general-lanes"])
+    ("highway-v0", {"action": {"type": "ContinuousAction", "dynamical": True}},
+     "a dynamical action on a straight road"),
+    ("intersection-v2", {"action": {"type": "ContinuousAction", "dynamical": True}},
+     "a dynamical action under the connected-lane search"),
+], ids=["speeds-17", "speeds-1", "straight-lanes", "straight-slots", "general-lanes",
+        "straight-dynamical", "connected-dynamical"])
 def test_over_limit_configs_are_refused_at_make(env_id, config, what):
     with pytest.raises(NotImplementedError, match=f"{what}.*not ported"):
         ht.make(env_id, config, device="cpu")
@@ -152,7 +157,9 @@ def test_each_general_limit_is_named(limits, what):
      ["5 predecessor edges > 4", "10 connected-lane candidates > 9"]),
     ((25, 20, 4, 3, 5, 3, 4),
      ["5 successor edges > 4", "10 connected-lane candidates > 9"]),
-], ids=["predecessors", "predecessors-and-candidates", "successors-and-candidates"])
+    ((25, 20, 4, 3, 3, None, 3, True), ["a dynamical action under the connected-lane search"]),
+], ids=["predecessors", "predecessors-and-candidates", "successors-and-candidates",
+        "dynamical"])
 def test_connected_limits_are_named(limits, what):
     """Under the connected-lane search (P given) the kernels' candidate
     tables hold MAX_CONN = 1 + MAX_SUCC + MAX_PRED lanes a lane."""

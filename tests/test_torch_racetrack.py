@@ -32,7 +32,6 @@ from scipy import stats
 import highwayenv_tpu as hj
 import highwayenv_tpu_torch as ht
 from highwayenv_tpu.road import lane as j_lane
-from highwayenv_tpu_torch import NotPortedError
 from highwayenv_tpu_torch.bridge import from_numpy_state
 from highwayenv_tpu_torch.envs.base import map_fields
 from highwayenv_tpu_torch.envs.racetrack import RacetrackEnv
@@ -406,9 +405,13 @@ def test_gate_refusals_name_their_reason():
     # raw controls on a regulated road take K5's raw-control branch
     regulated = RegulatedRacetrack(device="cpu")
     assert regulated._general is not None and regulated._general.period is not None
-    with pytest.raises(NotPortedError, match="vehicle/dynamics.py"):
-        ht.make("racetrack-v0", {"action": {"type": "ContinuousAction", "dynamical": True}},
-                device="cpu")
+    # a dynamical action: the dynamical instantiations, but not under the
+    # connected-lane search
+    dynamical = {"action": {"type": "ContinuousAction", "dynamical": True}}
+    assert ht.make("racetrack-v0", dynamical, device="cpu")._general.dynamical
+    with pytest.raises(NotImplementedError,
+                       match="a dynamical action under the connected-lane search"):
+        ht.make("racetrack-v1", dynamical, device="cpu")
     # an oval of 5 lanes an edge has 40 lanes: beyond the general gate
     with pytest.raises(NotImplementedError, match="40 lanes > 32"):
         ht.make("racetrack-oval-v0", {"no_lanes": 5}, device="cpu")

@@ -153,7 +153,19 @@ Phases:
      intersection-multi-agent-v0, intersection-v1 and lane-keeping-v0 eager
      against graph, full autoreset, with a profile
      of eager steps, the observation's and a reset placement's device
-     time.
+     time;
+  6. the single-env seeded path, the slice's main path: every
+     registered id (31) on CUDA at its registered config, B=1,
+     ``reset_seeded`` (the reference's NumPy draw order on the host, the
+     intersection ids' warm-up one K5 launch) and 8 steps of
+     ``step_batched``, what the Gymnasium ``GymEnv`` calls, the counts set
+     to 0 just before each id: K2a, K3, K2b and masked K1 once a step at
+     the straight ids, the id's K4 instantiation once a step, the id's K5
+     instantiation once a step and once for the warm-up, none of any
+     other; the same reset and steps with every kernel stood in for by its
+     plain version (``PlainKernels``) bit-exact (obs, every field, reward,
+     flags, info); the host ms of the seeded reset and of a B=1 eager step
+     per id.
 
 Exits non-zero on any failed check, and without CUDA.  The last lines are
 the kernels JSON, the card line and ``{"ok": true, "device": {...}}``.
@@ -334,6 +346,8 @@ DYN_OPS_RK4 = 4 * 27 + 78 + 4
 #: per query and candidate lane of the connected walk: the candidate and its
 #: offset loaded, the seen mask applied and merged
 GEN_OPS_CONN_LANE = 4
+#: policy steps of each id's single-env drive, from its seeded reset
+SINGLE_STEPS = 8
 COMPACT_SLOTS = (1024, 64)  # reset slots P: one pass a step, and further passes
 COMPACT_STEPS = 3  # autoreset steps of compact against full
 GRAPH_STEPS = 4  # steps of the captured step against the eager one
@@ -1601,6 +1615,154 @@ class FrameRecorder:
         return self.kernel(veh, spec, slot_actions, frames, *args, **kwargs)
 
 
+class PlainKernels:
+    """Within it, every frame kernel wrapper of the env path stands in for
+    its plain torch version: the same path, each kernel replaced by the
+    function it is held to (K2a, K3, K2b and masked K1 on the sorted step,
+    K1 on the dense one, every K4 / K5 instantiation on the general one).
+    The wrappers' launch counts do not move."""
+
+    def __init__(self, ss, sf, gf):
+        def frames(veh, fs, p, dt, frames, mask=None, out=None, raw=False, linear=True):
+            if mask is None:
+                return sf.frames_plain(veh, fs, p, dt, frames, raw)
+            return sf._masked_plain(veh, fs, p, dt, frames, mask, out, raw)
+
+        def sorted_frames(srt, idx, fs, p, dt, frames, raw=False, linear=True):
+            return ss.frames_sorted_plain(srt, idx, fs, p, dt, frames, raw)
+
+        def general(veh, spec, slot_actions, frames, steps0=None, raw=False, linear=True):
+            return gf.frames_general_plain(veh, spec, slot_actions, frames, steps0, raw)
+
+        self.plain = [(ss, "sort_kernel", ss.sort_plain),
+                      (ss, "frames_sorted_kernel", sorted_frames),
+                      (ss, "unsort_kernel", ss.unsort_plain),
+                      (ss, "frames_kernel", frames), (sf, "frames_kernel", frames)]
+        self.plain += [(gf, attr, general) for attr, _ in GENERAL_PATHS.values()]
+        self.saved = []
+
+    def __enter__(self):
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name, _ in self.plain]
+        for mod, name, fn in self.plain:
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def state_tensors(state, prefix: str = "") -> dict:
+    """Every tensor of an EnvState (its vehicles' fields and any field of the
+    env's own state type, lane-keeping's noise) by name."""
+    import dataclasses
+
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update(state_tensors(v, f"{prefix}{f.name}."))
+        else:
+            out[prefix + f.name] = v
+    return out
+
+
+def same_single(a, b, where: str) -> None:
+    """A seeded reset's (obs, state), or a step's (obs, state, reward,
+    terminated, truncated, info), against another: every tensor bit-exact."""
+    fa, fb = obs_fields(a[0]), obs_fields(b[0])
+    fa.update(state_tensors(a[1], "state.")), fb.update(state_tensors(b[1], "state."))
+    if len(a) > 2:
+        for k, name in ((2, "reward"), (3, "terminated"), (4, "truncated")):
+            fa[name], fb[name] = a[k], b[k]
+        fa.update(obs_fields(a[5], "info")), fb.update(obs_fields(b[5], "info"))
+    if fa.keys() != fb.keys():
+        raise AssertionError(f"{where}: fields {sorted(fa)} and {sorted(fb)}")
+    bad = [k for k in fa if not torch.equal(fa[k], fb[k])]
+    if bad:
+        raise AssertionError(f"{where}: kernels and plain versions differ in {bad}")
+
+
+def drive_single_env(ht, ss, sf, gf, kernels, card: str) -> dict:
+    """The single-env seeded path, the slice's main path: every
+    registered id made on CUDA at its registered config, B=1, a seeded
+    reset (``reset_seeded``: the reference's NumPy draw order on the host,
+    and on the intersection ids the 3 s warm-up, one K5 launch) and
+    SINGLE_STEPS policy steps of ``step_batched`` (what the Gymnasium
+    ``GymEnv`` calls) under ``random_actions``, the counts set to 0 just
+    before and read just after: the straight ids launch K2a, K3, K2b and
+    masked K1 once a step, the general ids their K4 instantiation once a
+    step, the intersection ids their K5 instantiation once a step and once
+    for the warm-up, and nothing else.  Then the same reset and steps with
+    every kernel stood in for by its plain version (``PlainKernels``):
+    obs, every field of the state, reward, flags and info bit-exact.
+    Prints the host ms of the seeded reset and the ms of an eager B=1 step
+    per id; returns the B=1 launches summed over the ids by kernel."""
+    totals = {name: 0 for name in kernels}
+    for env_id in ht.registered_ids():
+        env = ht.make(env_id)
+        spec = env._general
+        if spec is None:
+            path = ("K1", "K2a", "K3", "K2b")
+        else:
+            path = (("K5" if env.regulated else "K4") + (" connected" if spec.connected else "")
+                    + (" dynamical" if spec.dynamical else ""),)
+        acts = [random_actions(env, 1, env.generator(SEED + t)) for t in range(SINGLE_STEPS)]
+        recorder = None
+        if env.regulated:
+            recorder = FrameRecorder(kernels[path[0]])
+            setattr(gf, GENERAL_PATHS[path[0]][0], recorder)
+        try:
+            for k in kernels.values():
+                k.launches = 0
+            gen = torch.Generator(device=env.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reset_k = env.reset_seeded(seed=SEED, generator=gen)
+            torch.cuda.synchronize()
+            reset_ms = (time.perf_counter() - t0) * 1e3
+            steps_k, step_ms, st = [], [], reset_k[1]
+            for a in acts:
+                t0 = time.perf_counter()
+                out = env.step_batched(st, a, gen)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                steps_k.append(out)
+                st = out[1]
+        finally:
+            if recorder is not None:
+                setattr(gf, GENERAL_PATHS[path[0]][0], kernels[path[0]])
+        counts = {n: k.launches for n, k in kernels.items() if k.launches}
+        want = {n: SINGLE_STEPS + (1 if env.regulated else 0) for n in path}
+        if counts != want:
+            raise AssertionError(f"{env_id} single env: launches {counts}, expected {want}")
+        if recorder is not None and sorted(recorder.frames) != sorted(
+                [env.frames_per_step] * SINGLE_STEPS + [env._warmup_frames]):
+            raise AssertionError(f"{env_id} single env: K5 frames {recorder.frames}")
+        for n, c in counts.items():
+            totals[n] += c
+        with PlainKernels(ss, sf, gf):
+            gen = torch.Generator(device=env.device)
+            reset_p = env.reset_seeded(seed=SEED, generator=gen)
+            same_single(reset_k, reset_p, f"{env_id} seeded reset")
+            st = reset_p[1]
+            for t, a in enumerate(acts):
+                out = env.step_batched(st, a, gen)
+                same_single(steps_k[t], out, f"{env_id} step {t}")
+                st = out[1]
+        veh = steps_k[-1][1].vehicles
+        for k in ("pos", "speed", "heading"):
+            if not bool(torch.isfinite(getattr(veh, k)).all()):
+                raise AssertionError(f"{env_id} single env: non-finite {k}")
+        mid = sorted(step_ms)[len(step_ms) // 2]
+        print(f"  {env_id}: V={env.num_slots}, launches {counts}; seeded reset and "
+              f"{SINGLE_STEPS} steps bit-exact against the plain versions; rewards "
+              f"{[round(float(o[2][0]), 6) for o in steps_k]}; seeded reset {reset_ms:.3f} ms "
+              f"on the host, a B=1 eager step {mid:.3f} ms median (min {min(step_ms):.3f}, "
+              f"first {step_ms[0]:.3f}) ({card})")
+    return totals
+
+
 class FlagRecorder:
     """Stands in for the K3 wrapper during a rollout and keeps each step's
     per-env flags (on the device), so the firing share can be read after."""
@@ -2235,6 +2397,7 @@ def main() -> int:
                         conn_kernels, launches, DYNAMICAL_IDS)
     launches["K5 dynamical"] = launches["K5 dynamical intersection-v1"]
     launches["K4 dynamical"] = launches["K4 dynamical lane-keeping-v0"]
+
 
     # the rollouts again, each step one replay of a CapturedStep
     straight_names = ("straight_frames_kernel", "sort_kernel",
@@ -2896,7 +3059,19 @@ def main() -> int:
         print(f"  {env_id} observation ({type(e.observation_type).__name__}): {obs_ms:.4f} "
               f"ms on the device; a reset's placement at {B} rows {place_ms:.4f} ms")
 
-    print(f"(phases 1-5: {time.time() - start:.0f} s)")
+    # the single-env seeded path: every id at B=1, each with the counts set
+    # to 0 just before it.  It runs last: after it, torch.profiler on the
+    # H100 machine counts 3 to 7 fewer kernels a step (PERF.md §7), which
+    # the graph paths' exact kernels-a-replay checks would take for a wrong
+    # graph and which would shift phase 5's device counts
+    t_single = time.time()
+    print(f"== 6. single-env seeded path: every registered id on CUDA, B=1, seeded reset "
+          f"and {SINGLE_STEPS} steps of step_batched, kernels against plain versions")
+    single = drive_single_env(ht, ss, sf, gf, conn_kernels, card)
+    print(f"  B=1 launches over the {len(ht.registered_ids())} ids: {single} "
+          f"(single-env phase {time.time() - t_single:.1f} s)")
+
+    print(f"(phases 1-6: {time.time() - start:.0f} s)")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

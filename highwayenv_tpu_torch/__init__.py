@@ -6,25 +6,29 @@ hand-written CUDA kernel on an NVIDIA Hopper card.  The JAX package
 package imports nothing of it and nothing of JAX.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
-Registry ids mirror the reference; ported so far: the straight highway
-envs and, on the general analytic-lane path, roundabout-v0, merge-v0,
-merge-generic-v0, roundabout-generic-v0, two-way-v0 and u-turn-v0 (the
-time-to-collision observation), exit-v0 (the exit observation), the
-regulated intersection-v0, and the racetrack family (racetrack-v0,
-racetrack-large-v0, racetrack-oval-v0) and the parking family
-(parking-v0, parking-ActionRepeat-v0, parking-parked-v0: the KinematicsGoal
-dict observation), whose ContinuousAction egos run the frame kernels'
-raw-control branch; on every id the NPCs may be the
-Linear-family classes (``other_vehicles_type``), which the frame kernels'
-Linear rows' instantiation steps.  The -v1 / -v2 ids (merge-v1,
-merge-generic-v1, u-turn-v1, exit-v1, roundabout-v1, roundabout-generic-v1,
-racetrack-v1, racetrack-large-v1, racetrack-oval-v1, intersection-v2)
-search neighbours on the connected lanes too, on the general kernels'
-connected instantiations; intersection-multi-agent-v0 and -v2 run two egos
-with a MultiAgentAction and a MultiAgentObservation (a tuple observation);
-intersection-v1 and lane-keeping-v0 (the AttributesObservation dict) drive a
-dynamical ContinuousAction ego on the BicycleVehicle tire-slip model, on
-the general kernels' dynamical instantiations.
+Every id of the reference's registry is ported (31): the straight highway
+envs (highway-v0, highway-fast-v0) on the sorted frame kernels, and on the
+general analytic-lane path roundabout, merge, the generic merge and
+roundabout, two-way and u-turn (the time-to-collision observation), exit
+(the exit observation), the regulated intersection, the racetrack family and
+the parking family (the KinematicsGoal dict observation), whose
+ContinuousAction egos run the frame kernels' raw-control branch; on every id
+the NPCs may be the Linear-family classes (``other_vehicles_type``), which
+the frame kernels' Linear rows' instantiation steps.  The -v1 / -v2 ids
+(merge-v1, merge-generic-v1, u-turn-v1, exit-v1, roundabout-v1,
+roundabout-generic-v1, racetrack-v1, racetrack-large-v1, racetrack-oval-v1,
+intersection-v2) search neighbours on the connected lanes too, on the
+general kernels' connected instantiations; intersection-multi-agent-v0, -v1
+and -v2 run two egos with a MultiAgentAction and a MultiAgentObservation (a
+tuple observation; -v1 and -v2 come wrapped in Gymnasium's
+``MultiAgentWrapper`` from ``gymnasium.make``); intersection-v1 and
+lane-keeping-v0 (the AttributesObservation dict) drive a dynamical
+ContinuousAction ego on the BicycleVehicle tire-slip model, on the general
+kernels' dynamical instantiations.
+
+``reset_seeded(seed)`` of any env replays the reference's NumPy draw order
+for its ``reset(seed)`` scene (``seeding.py``); the single-env ``GymEnv``
+(``gym_env.py``) resets through it.
 """
 
 from __future__ import annotations
@@ -37,20 +41,9 @@ _REGISTRY: dict[str, tuple] = {}
 #: reference's ConnectedLaneNeighboursMixin)
 CONNECTED = {"config": {"neighbour_vehicles_connected_lanes": True}}
 
-#: the reference registry's ids that the port does not run, and why
-_UNPORTED_IDS = {
-    "intersection-multi-agent-v1": (
-        "Gymnasium's MultiAgentWrapper over the single-env GymEnv, which waits "
-        "for highwayenv_tpu/seeding.py"),
-}
-
 
 class NotPortedError(KeyError, NotImplementedError):
     """``make`` of an id the port does not run (yet)."""
-
-
-def _why_not_ported(env_id: str) -> str:
-    return _UNPORTED_IDS.get(env_id, "unknown or not ported")
 
 
 def register(env_id: str, cls, kwargs: dict | None = None):
@@ -68,8 +61,8 @@ def make(env_id: str, config: dict | None = None, device=None,
     """
     if env_id not in _REGISTRY:
         raise NotPortedError(
-            f"{env_id!r} is not ported to highwayenv_tpu_torch yet "
-            f"({_why_not_ported(env_id)}); ported: {sorted(_REGISTRY)}"
+            f"{env_id!r} is unknown or not ported to highwayenv_tpu_torch; "
+            f"ported: {sorted(_REGISTRY)}"
         )
     cls, base_kwargs = _REGISTRY[env_id]
     base_config = dict(base_kwargs.get("config", {}))
@@ -92,8 +85,8 @@ def make_vec(env_id: str, num_envs: int, config: dict | None = None, **kw):
 
 
 def register_gymnasium_envs(namespace: str = "highwayenv_tpu_torch") -> None:
-    """Register every ported id with Gymnasium (gym_env.py): ``make_vec``
-    works, ``make`` says why it does not."""
+    """Register every ported id with Gymnasium (gym_env.py): ``make`` gives
+    the single-env ``GymEnv``, ``make_vec`` the batched ``GymVectorEnv``."""
     from highwayenv_tpu_torch.gym_env import register_gymnasium_envs as _register
 
     _register(namespace)
@@ -133,6 +126,7 @@ def _register_all():
     register("intersection-v1", ContinuousIntersectionEnv)
     register("intersection-v2", IntersectionEnv, CONNECTED)
     register("intersection-multi-agent-v0", MultiAgentIntersectionEnv)
+    register("intersection-multi-agent-v1", MultiAgentIntersectionEnv)
     register("intersection-multi-agent-v2", MultiAgentIntersectionEnv, CONNECTED)
     register("lane-keeping-v0", LaneKeepingEnv)
     register("merge-v0", MergeEnv)

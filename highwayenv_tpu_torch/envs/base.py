@@ -458,8 +458,14 @@ class BaseEnv:
         return veh if name is None else with_preset(veh, veh.kind == KIND_IDM, name)
 
     def _place_state(self, draws: dict[str, torch.Tensor]) -> EnvState:
-        # the preset goes on every placed scene, full or compact reset
-        veh = self._apply_npc_type(self._place_vehicles(draws))
+        return self._state_of(self._place_vehicles(draws), draws)
+
+    def _state_of(self, veh: VehicleState, draws: dict[str, torch.Tensor]) -> EnvState:
+        """The EnvState of placed scenes ``veh``: the preset on (every placed
+        scene, full, compact or seeded reset), time 0, the frame counter at
+        its start.  An env whose state carries more fields takes them from
+        ``draws`` (``_state_draws``' where the scene was replayed)."""
+        veh = self._apply_npc_type(veh)
         batch = veh.kind.shape[0]
         return EnvState(
             vehicles=veh,
@@ -469,6 +475,11 @@ class BaseEnv:
                 device=self.device,
             ),
         )
+
+    def _state_draws(self, batch: int, generator) -> dict[str, torch.Tensor]:
+        """The draws of the state beyond its scene, for ``_state_of``: none
+        here (lane-keeping draws its observation noise)."""
+        return {}
 
     def _reset_state(self, batch: int, generator) -> EnvState:
         return self._place_state(self._reset_draws(batch, generator))
@@ -484,6 +495,20 @@ class BaseEnv:
         """The JAX package's ``reset_batch``: ``batch`` fresh scenes, (obs,
         EnvState), the warm-up of a regulated road on the frame kernel."""
         return self._reset(batch, generator)
+
+    def reset_seeded(self, seed: int | None = None, rng=None, generator=None):
+        """The reference's ``reset(seed)`` scene, replayed on the host with its
+        NumPy draw order (``seeding.py``): (obs, EnvState) of one env (B=1).
+
+        Pass a ``seed`` or an ``np.random.Generator`` ``rng``, whose state
+        carries on across resets (the Gymnasium contract).  After the scene's
+        draws ``generator`` (a ``torch.Generator`` on the env's device, or a
+        new one) is reseeded from ``rng`` without consuming a draw, and the
+        state's own draws come from it; the caller steps the episode on."""
+        from highwayenv_tpu_torch import seeding
+
+        rng = rng if rng is not None else seeding.np_random(seed)
+        return seeding.seeded_reset(self, rng, generator)
 
     def _finish_head(self, state: EnvState, action):
         """Reward / termination / info on an already-simulated state."""
@@ -542,7 +567,8 @@ class BaseEnv:
         head with the observation (an ``observes_before_step`` env's taken
         before the frames), then the population hook (which draws from
         ``generator`` where the env has one).  For drivers that handle
-        episode ends themselves (``parallel/rollout.py``'s ``fresh_pool``)."""
+        episode ends themselves (``parallel/rollout.py``'s ``fresh_pool``,
+        the single-env ``GymEnv``)."""
         states, pre_obs = self._observed_before(states, generator)
         obs, state, reward, terminated, truncated, info = self._finish_step(
             self._simulate_batched(states, actions), actions, pre_obs

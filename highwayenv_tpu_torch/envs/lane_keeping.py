@@ -119,10 +119,14 @@ class LaneKeepingEnv(BaseEnv):
             for k in ("state_noise", "derivative_noise")
         ], dim=1)
 
+    def _state_draws(self, batch: int, generator) -> dict[str, torch.Tensor]:
+        """The state's observation noise."""
+        return {"noise": self._noise(batch, generator)}
+
     def _reset_draws(self, batch: int, generator) -> dict[str, torch.Tensor]:
         """The scene is deterministic: a reset draws only its observation's
         noise."""
-        return {"noise": self._noise(batch, generator)}
+        return self._state_draws(batch, generator)
 
     def _place_vehicles(self, draws: dict[str, torch.Tensor]) -> VehicleState:
         """Reference lane_keeping_env.py ``_make_vehicles``: the ego at
@@ -143,8 +147,8 @@ class LaneKeepingEnv(BaseEnv):
             kind=torch.full((B, 1), KIND_EGO, dtype=torch.int32, device=dev),
         )
 
-    def _place_state(self, draws: dict[str, torch.Tensor]) -> LaneKeepingState:
-        state = super()._place_state(draws)
+    def _state_of(self, veh: VehicleState, draws: dict[str, torch.Tensor]) -> LaneKeepingState:
+        state = super()._state_of(veh, draws)
         return LaneKeepingState(vehicles=state.vehicles, time=state.time,
                                 steps=state.steps, noise=draws["noise"])
 

@@ -73,6 +73,12 @@ class StraightLane:
     def heading_at(self, s):
         return self.heading
 
+    def local_coordinates(self, pos):
+        """(s, lat) of a host position, in float64 (the seeded resets' lane
+        lookups, ``seeding.closest_lane_index``)."""
+        delta = np.asarray(pos) - self.start
+        return float(delta @ self.direction), float(delta @ self.direction_lateral)
+
 
 class SineLane(StraightLane):
     """Spec of a sinusoidal lane (reference road/lane.py SineLane):
@@ -98,6 +104,10 @@ class SineLane(StraightLane):
         return super().heading_at(s) + math.atan(
             self.amplitude * self.pulsation * np.cos(self.pulsation * s + self.phase)
         )
+
+    def local_coordinates(self, pos):
+        s, lat = super().local_coordinates(pos)
+        return s, lat - self.amplitude * np.sin(self.pulsation * s + self.phase)
 
 
 @dataclasses.dataclass
@@ -134,6 +144,15 @@ class CircularLane:
         return self.direction * s / self.radius + self.start_phase + (
             np.pi / 2 * self.direction
         )
+
+    def local_coordinates(self, pos):
+        delta = np.asarray(pos) - self.center
+        phi = math.atan2(delta[1], delta[0])
+        phi = self.start_phase + ((phi - self.start_phase + np.pi) % (2 * np.pi) - np.pi)
+        r = float(np.linalg.norm(delta))
+        s = self.direction * (phi - self.start_phase) * self.radius
+        lat = self.direction * (self.radius - r)
+        return s, lat
 
 
 class RoadNetworkBuilder:

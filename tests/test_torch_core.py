@@ -74,7 +74,8 @@ def test_make_defaults_to_cuda_and_refuses_without_it(monkeypatch):
 def test_unknown_or_unported_id_raises_keyerror():
     assert ht.registered_ids() == [
         "exit-v0", "exit-v1", "highway-fast-v0", "highway-v0",
-        "intersection-multi-agent-v0", "intersection-multi-agent-v2", "intersection-v0",
+        "intersection-multi-agent-v0", "intersection-multi-agent-v1",
+        "intersection-multi-agent-v2", "intersection-v0",
         "intersection-v1", "intersection-v2", "lane-keeping-v0", "merge-generic-v0",
         "merge-generic-v1", "merge-v0", "merge-v1",
         "parking-ActionRepeat-v0", "parking-parked-v0", "parking-v0",
@@ -83,9 +84,16 @@ def test_unknown_or_unported_id_raises_keyerror():
         "roundabout-generic-v1", "roundabout-v0", "roundabout-v1", "two-way-v0",
         "u-turn-v0", "u-turn-v1",
     ]
-    for env_id in ("intersection-multi-agent-v1", "no-such-env-v0"):
-        with pytest.raises(KeyError, match="not ported"):
-            ht.make(env_id, device="cpu")
+    assert ht.registered_ids() == hj.registered_ids()
+    with pytest.raises(KeyError, match="not ported"):
+        ht.make("no-such-env-v0", device="cpu")
+    # the 31st id, intersection-multi-agent-v1, makes and steps
+    env = ht.make("intersection-multi-agent-v1", device="cpu")
+    gen = env.generator(0)
+    _, states = env.reset(2, gen)
+    obs, _, reward, _, _, _ = env.step_autoreset_batched(
+        states, torch.ones((2, 2), dtype=torch.int32), gen)
+    assert isinstance(obs, tuple) and reward.shape == (2,)
 
 
 @pytest.mark.parametrize(

@@ -285,13 +285,13 @@ def test_general_gate_and_what_it_refuses():
     # lane kinds other than straight, sine and circular
     with pytest.raises(NotImplementedError, match="not ported"):
         RoadNetworkBuilder().add_lane("a", "b", object())
-    # ids not registered in the port: NotImplementedError (and KeyError)
-    # naming the reason
-    for env_id, why in (("intersection-multi-agent-v1", "seeding.py"),):
-        with pytest.raises(NotImplementedError, match=why):
-            ht.make(env_id, device="cpu")
-        with pytest.raises(KeyError, match="not ported"):
-            ht.make(env_id, device="cpu")
+    # an id not registered in the port: NotImplementedError (and KeyError);
+    # intersection-multi-agent-v1, the last id, is registered now
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ht.make("no-such-env-v0", device="cpu")
+    with pytest.raises(KeyError, match="not ported"):
+        ht.make("no-such-env-v0", device="cpu")
+    assert ht.make("intersection-multi-agent-v1", device="cpu").ego_slots == (24, 25)
     # intersection-v1 is made: the regulated road under a dynamical action
     env = ht.make("intersection-v1", device="cpu")
     assert env.regulated and env._general.dynamical

@@ -332,11 +332,10 @@ def test_reset_invariants_and_distribution_match_jax():
 def test_registry_and_what_stays_unported():
     et = ht.make("intersection-v0", device="cpu")
     assert et.regulated and et._straight is None and et._general.period == 7
-    for env_id, why in (
-        ("intersection-multi-agent-v1", "MultiAgentWrapper.*seeding.py"),
-    ):
-        with pytest.raises(ht.NotPortedError, match=why):
-            ht.make(env_id, device="cpu")
+    # intersection-multi-agent-v1 (Gymnasium wraps it in MultiAgentWrapper,
+    # tests/test_torch_gym_env.py): two egos, the v0 spec
+    ma1 = ht.make("intersection-multi-agent-v1", device="cpu")
+    assert ma1.ego_slots == (24, 25) and not ma1._general.connected
     # intersection-v1: the regulated road under a dynamical ContinuousAction
     v1 = ht.make("intersection-v1", device="cpu")
     assert v1.regulated and v1._general.period == 7 and v1._general.dynamical

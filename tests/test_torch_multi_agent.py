@@ -11,7 +11,7 @@ each element of the observation, reward, terminated, truncated,
 ``agents_rewards`` and ``agents_terminated`` within 1e-5 (flags exactly),
 discrete state exactly, pos, speed and heading within 5e-4.  Then the
 compact autoreset against the full one with the tuple observation, the
-vector env's Tuple spaces, and -v1, which stays unported.
+vector env's Tuple spaces, and -v1, which makes and steps as -v0 does.
 """
 
 import dataclasses
@@ -185,5 +185,14 @@ def test_rollout_and_vector_env_take_tuples():
 
 
 def test_multi_agent_v1_waits_for_seeding():
-    with pytest.raises(ht.NotPortedError, match="seeding.py"):
-        ht.make("intersection-multi-agent-v1", device="cpu")
+    """-v1 no longer waits: it makes and steps as -v0 does, from a reset
+    batch and from a seeded reset (``seeding.py``)."""
+    env = ht.make("intersection-multi-agent-v1", CONFIG, device="cpu")
+    gen = env.generator(0)
+    _, states = env.reset(B, gen)
+    obs, states, reward, _, _, info = env.step_batched(
+        states, random_actions(env, B, gen), gen)
+    assert isinstance(obs, tuple) and obs[0].shape == (B, 15, 7) and reward.shape == (B,)
+    assert len(info["agents_rewards"]) == 2
+    obs, state = env.reset_seeded(seed=0)
+    assert obs[0].shape == (1, 15, 7) and (state.vehicles.kind[0, [24, 25]] == 1).all()

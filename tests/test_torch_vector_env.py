@@ -67,9 +67,15 @@ def test_gymnasium_make_vec_entry_point():
     obs, r, term, trunc, info = envs.step(envs.action_space.sample())
     assert obs.shape[0] == 4 and r.shape == (4,)
     envs.close()
-    # the single-env GymEnv waits for seeding.py
-    with pytest.raises(ht.NotPortedError, match="seeding.py"):
-        gymnasium.make("highwayenv_tpu_torch/highway-fast-v0")
+    # the single-env GymEnv (gym_env.py) from the same registration
+    from highwayenv_tpu_torch.gym_env import GymEnv
+
+    env = gymnasium.make("highwayenv_tpu_torch/highway-fast-v0", config=CONFIG,
+                         device="cpu")
+    assert type(env.unwrapped) is GymEnv
+    obs, _ = env.reset(seed=0)
+    obs, r, term, trunc, info = env.step(env.action_space.sample())
+    assert obs.shape == envs.single_observation_space.shape and type(r) is float
 
 
 def test_vector_env_resets_on_the_same_step():

@@ -73,10 +73,19 @@ Phases:
      impacts and one with the egos braking across |v| = 1 and steering and
      yaw rates past their clips, B=4096, every field bit-exact (the lateral
      speed and yaw rate included), and both ids' autoreset steps against
-     the plain reference path; make() on the card
+     the plain reference path; several ego rows: K2a, K3, K2b,
+     masked and dense K1 at highway-v0 with two egos (V=52, slots 0 and
+     26) on the four scenes and 8 steps in, and its autoreset step against
+     the plain reference path, and K4's raw branch at parking-v0 with two
+     and three egos, parking-parked-v0 and racetrack-v0 with two, on the
+     reset scene, 8 steps in and the pile-up (every ego crashed), every
+     field bit-exact, and the autoreset steps of parking-v0 with three and
+     racetrack-v0 with two (one reward an env) against the plain
+     reference path; make() on the card
      refusing configs beyond the kernels' arrays (17 target speeds, 17
-     straight lanes, 12 connected-lane candidates a lane), naming the
-     limit; then
+     straight lanes, 12 connected-lane candidates a lane) and exit-v0 with
+     two controlled vehicles, naming the limit; to_finite_mdp of a B=1 and
+     a B=8 highway-v0 state on CUDA against the same call on the CPU; then
      on highway-v0, roundabout-v0, intersection-v0, racetrack-v0,
      highway-v0 LinearVehicle, u-turn-v0, exit-v0 (is_success too) and
      parking-v0 (the KinematicsGoal dict observation, field by field, and
@@ -125,6 +134,9 @@ Phases:
      slice's five and the parking family) again with each step one replay
      of a CapturedStep (the kernels' counts cover the warm-up step and the
      capture), and a profile of replays for the port's kernels per replay;
+     then highway-v0 with two egos through the sorted step and the
+     four several-ego K4 configs (every 8th first ego crashed at the
+     start), each with the counts set to 0 just before it;
   5. times on the card: each kernel's time (CUDA events around launches
      queued behind a device-side wait), its plain version's device time
      (torch.profiler), its bound and the PyTorch yardstick's where there
@@ -140,7 +152,9 @@ Phases:
      the connected K4 at roundabout-v1 and K5 at intersection-v2, each
      beside the v0 instantiation's time on the same scene, and the
      dynamical K5 at intersection-v1 and K4 at lane-keeping-v0, each beside
-     the v0 instantiation's raw branch on the same scene; the
+     the v0 instantiation's raw branch on the same scene, and K2a,
+     K3, K2b and K1 at highway-v0 with two egos (V=52) and K4's raw branch
+     at parking-v0 with three egos and racetrack-v0 with two; the
      simulation of a
      sorted and a dense policy step; the sorted and dense rollouts in
      turns; the roundabout-v0 and intersection-v0 rollouts three times
@@ -153,7 +167,14 @@ Phases:
      intersection-multi-agent-v0, intersection-v1 and lane-keeping-v0 eager
      against graph, full autoreset, with a profile
      of eager steps, the observation's and a reset placement's device
-     time;
+     time; then at highway-v0 with two egos, parking-v0 with two
+     and three, parking-parked-v0 and racetrack-v0 with two, highway-v0
+     under LidarObservation and under the shuffled Kinematics order, the
+     captured full autoreset step against the eager one (obs part by part,
+     every field, the generators equal after the replays: the shuffled
+     order's permutations are drawn from the registered generator) and
+     eager against graph ms per step, three runs each in turns, with the
+     device busy time and kernels per step;
   6. the single-env seeded path, the slice's main path: every
      registered id (31) on CUDA at its registered config, B=1,
      ``reset_seeded`` (the reference's NumPy draw order on the host, the
@@ -306,6 +327,7 @@ OVER_LIMITS = (
                                   "target_speeds": list(range(17))}},
      "17 target speeds outside 2 to 16"),
     ("highway-v0", {"lanes_count": 17}, "17 straight lanes > 16"),
+    ("exit-v0", {"controlled_vehicles": 2}, "several controlled vehicles"),
 )
 #: the connected-lane search (PR 12): K4's kConnected instantiation held to
 #: its plain version at these ids (exit-v1: the 32-thread group; racetrack-v1:
@@ -1264,6 +1286,217 @@ def crowded_merge(ht):
     return CrowdedMerge(config={"neighbour_vehicles_connected_lanes": True})
 
 
+# Several controlled vehicles at the highway, parking and racetrack
+# families (K1-K3 with two ego rows, K4's raw branch with two and three),
+# and the heads that run on their states (Lidar, the shuffled Kinematics
+# order, the finite-MDP export)
+SEVERAL_STRAIGHT = {"controlled_vehicles": 2}  # highway-v0, V=52, egos in slots 0, 26
+SEVERAL_GENERAL = (("parking-v0", 2), ("parking-v0", 3), ("parking-parked-v0", 2),
+                   ("racetrack-v0", 2))
+#: the several-ego K4 configs with a row of their own in the kernel table
+SEVERAL_ROWS = ("parking-v0 3 egos", "racetrack-v0 2 egos")
+LIDAR_CONFIG = {"observation": {"type": "LidarObservation"}}
+SHUFFLED_CONFIG = {"observation": {"type": "Kinematics", "order": "shuffled"}}
+
+
+def eight_steps_in(env, states, gen):
+    """``states`` after 8 random-policy autoreset steps of the env's main
+    path."""
+    n = states.time.shape[0]
+    for _ in range(8):
+        states = env.step_autoreset_batched(states, random_actions(env, n, gen), gen)[1]
+    return states
+
+
+def check_several_egos_kernels(ht, gf, err) -> dict:
+    """K4's raw-control branch with several ego rows against its plain
+    version at SEVERAL_GENERAL, B=4096, on the reset scene, 8 steps in and
+    the all-env pile-up (every ego crashed there), every field bit-exact;
+    records each config's max error in ``err`` under "K4 <id> <n> egos".
+    Returns {"<id> <n> egos": (env, states)}."""
+    k4 = gf.frames_general_kernel
+    envs = {}
+    for env_id, n in SEVERAL_GENERAL:
+        env = ht.make(env_id, {"controlled_vehicles": n})
+        spec, frames = env._general, env.frames_per_step
+        gen = env.generator(SEED)
+        _, states = env.reset(B, gen)
+        label, egos = f"{env_id} {n} egos", list(env.ego_slots)
+        key = f"K4 {label}"
+        err[key] = 0.0
+        print(f"== 3. K4 raw vs plain: {label} (slots {egos}) V={env.num_slots}, "
+              f"L={env.geo.num_lanes}, {frames} frames, B={B}, observation a tuple of "
+              f"{n} {type(env.observation_type).__name__}")
+        for name, veh in general_scenes(env, states, gen).items():
+            if int((veh.kind == 1).sum()) != B * n:
+                raise AssertionError(f"{label} {name}: not {n} ego rows an env")
+            sa = env._action_to_slots(random_actions(env, B, gen))
+            veh, _, raw = gf.store_raw_controls(env, veh, sa)
+            out_k = k4(veh, spec, None, frames, raw=raw, linear=env.linear_rows)
+            out_p = gf.frames_general_plain(veh, spec, None, frames, raw=raw)
+            torch.cuda.synchronize()
+            err[key] = max(err[key], compare_general(out_k, out_p, f"{label} {name}"))
+            if name == "pile-up" and not bool(out_k.crashed[:, egos].all()):
+                raise AssertionError(f"{label}: an ego of the pile-up did not crash")
+        envs[label] = (env, states)
+    return envs
+
+
+def drive_several_straight(env, kernels, launches) -> None:
+    """highway-v0 with two egos: reset and a HORIZON-step random-policy
+    rollout through the sorted step, the counts set to 0 just before and
+    read just after: K1, K2a, K3 and K2b once per policy step, alone."""
+    print(f"== 4. several-ego path: make('highway-v0', {SEVERAL_STRAIGHT}) on CUDA, B={B}, "
+          f"V={env.num_slots}, egos in slots {list(env.ego_slots)}, reset and {HORIZON} "
+          "random-policy autoreset steps, sorted step")
+    gen = env.generator(SEED + 1)
+    for k in kernels.values():
+        k.launches = 0
+    _, st = env.reset(B, gen)
+    st, m = rollout(env, st, HORIZON, gen)
+    torch.cuda.synchronize()
+    counts = {n: kernels[n].launches for n in ("K1", "K2a", "K3", "K2b")}
+    others = {n: k.launches for n, k in kernels.items() if n not in counts}
+    m = {k: float(v) for k, v in m.items()}
+    print(f"  launches: {counts}, other kernels {others}; rollout {m}")
+    if any(v != HORIZON for v in counts.values()) or any(others.values()):
+        raise AssertionError("highway-v0 2 egos: the sorted kernels must launch once per "
+                             "policy step, alone")
+    if not all(np.isfinite(list(m.values()))) or not m["done_rate"] > 0:
+        raise AssertionError("highway-v0 2 egos: non-finite metrics or no episode ended")
+    for name, n in counts.items():
+        launches[f"{name} 2 egos"] = n
+
+
+def straight_rows(env, states, timed, rows, sfx: str = "") -> None:
+    """K2a, K3, K2b and K1 (every env, and masked with no env firing) on the
+    reset scene ``states`` with every ego's FASTER applied: the rows "K2a"
+    .. "K1" (with ``sfx``, e.g. " 2 egos", and the env in the names), each
+    timed beside its bound."""
+    from highwayenv_tpu_torch.ops import straight_frames as sf, straight_sorted as ss
+
+    k1, k2a, k3, k2b = sf.frames_kernel, ss.sort_kernel, ss.frames_sorted_kernel, ss.unsort_kernel
+    fs, p, dt, frames = env._straight, env.idm_params, env.dt, env.frames_per_step
+    sa = env._action_to_slots(torch.ones((B,) + env.action_shape, dtype=torch.int32,
+                                         device=env.device))
+    veh = env.action_type.apply(env.geo, states.vehicles, states.vehicles.kind == 1, sa)
+    srt, idx = ss.sort_plain(veh, fs)
+    band, flags = ss.frames_sorted_plain(srt, idx, fs, p, dt, frames)
+    back = ss.unsort_plain(band, idx, veh)
+    none = torch.zeros(B, dtype=torch.bool, device=env.device)
+    V = veh.kind.shape[1]
+    tag = f" (highway-v0,{sfx}, V={V})" if sfx else ""
+    src_sort = "highwayenv_tpu_torch/csrc/straight_sort.cu"
+
+    # K2a: bytes of every field read once and written once, plus idx
+    s_key = ss.s_coordinate(veh.pos, fs) + 0.0
+
+    def sort_library():  # torch.sort + torch.gather of every field
+        order = torch.sort(s_key, dim=1, stable=True).indices
+        return [torch.gather(getattr(veh, n), 1, ss._per_row(order, getattr(veh, n)))
+                for n, _, _ in ss.SORT_FIELDS]
+
+    ms, plain_ms, lib_ms = timed(
+        f"K2a straight_sort{tag} (yardstick: torch.sort + torch.gather sequence)",
+        lambda: k2a(veh, fs), lambda: ss.sort_plain(veh, fs), sort_library, 50, 10)
+    n_bytes = 2 * field_bytes(veh, ss.SORT_FIELDS) + idx.numel() * 4
+    rank_ops = 3.0 * B * V * V + 4.0 * B * V
+    bms, by, t_ops, t_bytes = bound(rank_ops, n_bytes)
+    rows["K2a" + sfx] = ("straight_sort" + tag, src_sort,
+                         "highwayenv_tpu/ops/straight_pallas_bm.py:1241", ms, plain_ms, bms, by,
+                         lib_ms)
+    print(f"    bound {bms:.4f} ms by {by} ({n_bytes} bytes -> {t_bytes:.4f} ms, "
+          f"{rank_ops:.3e} ops -> {t_ops:.5f} ms)")
+
+    # K3: operations of this input's frames, frame by frame on the plain version
+    ms, plain_ms, _ = timed(
+        f"K3 straight_frames_sorted{tag}, per policy step",
+        lambda: k3(srt, idx, fs, p, dt, frames, linear=False),
+        lambda: ss.frames_sorted_plain(srt, idx, fs, p, dt, frames), None, 20, PLAIN_REPS)
+    ops, v = 0.0, srt
+    for _ in range(frames):
+        out, _ = ss.frames_sorted_plain(v, idx, fs, p, dt, 1)
+        ops += sorted_frame_ops(v, out, fs, p, dt)
+        v = out
+    n_bytes = (read_bytes(srt, sf._IN_FIELDS) + field_bytes(band, sf._OUT_FIELDS)
+               + idx.numel() * 4 + B * 2)
+    bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+    rows["K3" + sfx] = ("straight_frames_sorted" + tag,
+                        "highwayenv_tpu_torch/csrc/straight_frames_sorted.cu",
+                        "highwayenv_tpu/ops/straight_pallas_bm.py:1190", ms, plain_ms, bms, by,
+                        None)
+    print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.4f} ms, "
+          f"{n_bytes} bytes -> {t_bytes:.4f} ms); firing envs "
+          f"{int(flags.any(dim=1).sum())}")
+
+    # K2b: the mutated fields and idx read once, the fields written once
+    index = idx.long()
+
+    def unsort_library():  # torch scatter_ of every mutated field
+        return [torch.empty_like(getattr(band, n)).scatter_(
+            1, ss._per_row(index, getattr(band, n)), getattr(band, n))
+            for n, _, _ in ss.MUT_FIELDS]
+
+    ms, plain_ms, lib_ms = timed(
+        f"K2b straight_unsort{tag} (yardstick: torch scatter_ sequence)",
+        lambda: k2b(band, idx, veh), lambda: ss.unsort_plain(band, idx, veh),
+        unsort_library, 50, 10)
+    n_bytes = 2 * field_bytes(band, ss.MUT_FIELDS) + idx.numel() * 4
+    bms, by, t_ops, t_bytes = bound(0.0, n_bytes)
+    rows["K2b" + sfx] = ("straight_unsort" + tag, src_sort,
+                         "highwayenv_tpu/ops/straight_pallas_bm.py:1257", ms, plain_ms, bms, by,
+                         lib_ms)
+    print(f"    bound {bms:.4f} ms by {by} ({n_bytes} bytes)")
+
+    # K1: dense (every env), and masked with no env firing (the main path's
+    # usual launch)
+    ms, plain_ms, _ = timed(
+        f"K1 straight_frames{tag}, every env, per policy step",
+        lambda: k1(veh, fs, p, dt, frames, linear=False),
+        lambda: sf.frames_plain(veh, fs, p, dt, frames), None, 20, PLAIN_REPS)
+    masked_ms = queued_ms(lambda: k1(veh, fs, p, dt, frames, mask=none, out=back,
+                                   linear=False), 50)
+    ops, v = 0.0, veh
+    for _ in range(frames):
+        out = sf.frames_plain(v, fs, p, dt, 1)
+        ops += frame_ops(v, out, fs, p, dt)
+        v = out
+    n_bytes = read_bytes(veh, sf._IN_FIELDS) + field_bytes(veh, sf._OUT_FIELDS)
+    bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+    rows["K1" + sfx] = ("straight_frames" + tag, "highwayenv_tpu_torch/csrc/straight_frames.cu",
+                        "highwayenv_tpu/ops/straight_pallas_bm.py:1190", ms, plain_ms, bms, by,
+                        None)
+    print(f"    masked with no env firing: {masked_ms:.4f} ms queued; bound "
+          f"{bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.4f} ms, {n_bytes} "
+          f"bytes -> {t_bytes:.4f} ms)")
+
+
+def check_finite_mdp(ht) -> None:
+    """``to_finite_mdp`` of a B=1 highway-v0 state on CUDA against the same
+    call on the CPU, and of a B=8 batch (the widest edge's rule): the
+    transition table, the terminal states and the current state equal, the
+    rewards within 1e-6."""
+    from highwayenv_tpu_torch.envs.base import map_fields
+
+    env, cpu = ht.make("highway-v0"), ht.make("highway-v0", device="cpu")
+    _, states = env.reset(8, env.generator(SEED))
+    states = eight_steps_in(env, states, env.generator(SEED + 9))
+    for label, st in (("B=1", map_fields(lambda t: t[:1], states)), ("B=8", states)):
+        m = env.to_finite_mdp(st)
+        mc = cpu.to_finite_mdp(map_fields(lambda t: t.cpu(), st))
+        same = (m.original_shape == mc.original_shape
+                and torch.equal(m.transition.cpu(), mc.transition)
+                and torch.equal(m.terminal.cpu(), mc.terminal)
+                and torch.equal(m.state.cpu(), mc.state))
+        rew_err = float((m.reward.cpu() - mc.reward).abs().max())
+        print(f"  to_finite_mdp highway-v0 {label}: grid {m.original_shape}, CUDA vs CPU "
+              f"transition / terminal / state {'equal' if same else 'DIFFER'}, reward err "
+              f"{rew_err:.3e}; terminal states before the horizon "
+              f"{int(m.terminal.view(-1, *m.original_shape)[..., :-1].sum())}")
+        if not same or rew_err > 1e-6:
+            raise AssertionError(f"to_finite_mdp {label}: CUDA and CPU differ")
+
+
 def drive_general_paths(gf, envs, kernels, launches, rollouts, others=()) -> None:
     """A slice's general paths, each with the counts set to 0 just before
     it: ``rollouts`` made on CUDA, reset and HORIZON random-policy
@@ -1483,17 +1716,19 @@ def check_compact(env, states, label: str) -> None:
               f"reward, terminated, truncated; generator equal; per step {log}")
 
 
-def check_graph(env, states, label: str) -> None:
+def check_graph(env, states, label: str, variants=None) -> None:
     """CapturedStep replays against eager steps: GRAPH_STEPS steps from one
     cloned state (every CRASH_EVERY-th ego crashed) and one cloned generator
     state, full and compact, and with ``final_obs`` (the vector env's
-    terminal observations), bit-exact, the generators equal at the end."""
+    terminal observations), bit-exact, the generators equal at the end.
+    ``variants``: the (reset slots, final_obs) pairs, by default all."""
     from highwayenv_tpu_torch.envs.base import map_fields
     from highwayenv_tpu_torch.parallel.graph import CapturedStep
 
     start = crashed_every(env, states)
-    for P, final_obs in [(P, False) for P in (None,) + COMPACT_SLOTS] + [(None, True),
-                                                                         (64, True)]:
+    if variants is None:
+        variants = [(P, False) for P in (None,) + COMPACT_SLOTS] + [(None, True), (64, True)]
+    for P, final_obs in variants:
         g_e, g_g = env.generator(300), env.generator(300)
         s_e = map_fields(torch.clone, start)
         t0 = time.perf_counter()
@@ -1812,7 +2047,8 @@ def main() -> int:
     k1, k2a, k3, k2b = sf.frames_kernel, ss.sort_kernel, ss.frames_sorted_kernel, ss.unsort_kernel
     k4 = gf.frames_general_kernel
     err = {"K1": 0.0, "K2a": 0.0, "K3": 0.0, "K2b": 0.0, "K1 raw": 0.0, "K3 raw": 0.0,
-           "K1 linear": 0.0, "K3 linear": 0.0}
+           "K1 linear": 0.0, "K3 linear": 0.0, "K1 2 egos": 0.0, "K2a 2 egos": 0.0,
+           "K3 2 egos": 0.0, "K2b 2 egos": 0.0}
     # highway-fast-v0 (V=21, 5 frames) and highway-v0 at the warp
     # boundaries run the same kernels; highway-v0 under a ContinuousAction
     # runs K1's and K3's raw-control branch (its env carried on below as
@@ -1829,6 +2065,7 @@ def main() -> int:
                    ("highway-v0", LINEAR_CONFIG, B, None, SCENES),
                    ("highway-v0", AGGRESSIVE_CONFIG, B, None, ("normal", "pileup_all")),
                    ("highway-v0", None, B, NPC + "LinearVehicle", ("normal", "pileup_all")),
+                   ("highway-v0", SEVERAL_STRAIGHT, B, None, SCENES + ("8 steps in",)),
                    ("highway-v0", None, B, None, SCENES)])
     for env_id, config, Bc, change, scene_names in straight:
         env = ht.make(env_id, config)
@@ -1839,14 +2076,20 @@ def main() -> int:
         if change is not None:
             states = preprocessors.change_vehicles(env, states, change)
         linear = env.linear_rows
-        sfx = " raw" if raw else (" linear" if linear else "")
+        # several ego rows (highway-v0 with two egos) keep their own errors
+        esfx = f" {len(env.ego_slots)} egos" if len(env.ego_slots) > 1 else ""
+        sfx = " raw" if raw else (" linear" if linear else esfx)
         label = (f"{env_id} V={env.num_slots}" + (" ContinuousAction" if raw else "")
+                 + (f", egos in slots {list(env.ego_slots)}" if esfx else "")
                  + (f" {env.npc_preset}" if env.npc_preset else "")
                  + (f" change_vehicles({change.rsplit('.', 1)[-1]})" if change else ""))
         print(f"== 3. kernels vs plain: {label}, {frames} frames, B={Bc}")
         actions = random_actions(env, Bc, gen)
         both_fired = False
-        for name, veh in scenes(states.vehicles).items():
+        scene_map = scenes(states.vehicles)
+        if "8 steps in" in scene_names:
+            scene_map["8 steps in"] = eight_steps_in(env, states, gen).vehicles
+        for name, veh in scene_map.items():
             if name not in scene_names:
                 continue
             where = f"{label} {name}"
@@ -1908,17 +2151,20 @@ def main() -> int:
                   f"changes under way {int((fix_k.target_lane != fix_k.lane).sum())}")
             if linear and not lin_rows:
                 raise AssertionError(f"{where}: no Linear row")
-        if not both_fired and scene_names == SCENES:
+        if not both_fired and set(SCENES) <= set(scene_names):
             raise AssertionError(f"{label}: no scene fired both band flags")
         if raw:
             cenv = env
         if config == LINEAR_CONFIG:
             lenv, lstates = env, states
+        if config == SEVERAL_STRAIGHT:
+            e2env, e2states = env, states
     print(f"  [straight kernels checked at {time.time() - start:.0f} s]")
     # the whole autoreset step: the main path (sorted kernels) against the
     # plain reference path, and the Linear slice's main path
     check_autoreset(env, states, gen, "")
     check_autoreset(lenv, lstates, lenv.generator(SEED), "highway-v0 LinearVehicle ")
+    check_autoreset(e2env, e2states, e2env.generator(SEED), "highway-v0 2 egos ")
 
     # K4 on the general path, and its Linear rows' branch at roundabout-v0
     # under AggressiveVehicle (its env carried on as aenv); roundabout-v0
@@ -2096,8 +2342,16 @@ def main() -> int:
         check_autoreset(e, st, e.generator(SEED), env_id + " ")
     print(f"  [the slice, parking, connected and dynamical kernels checked at "
           f"{time.time() - start:.0f} s]")
+    # K4's raw branch with several ego rows
+    several_envs = check_several_egos_kernels(ht, gf, err)
+    for label in SEVERAL_ROWS:
+        e, st = several_envs[label]
+        check_autoreset(e, st, e.generator(SEED), label + " ")
+    print(f"  [the several-ego kernels checked at {time.time() - start:.0f} s]")
     print("== 3. the kernels' limits refused at make")
     check_refusals(ht)
+    print("== 3. to_finite_mdp on CUDA against the CPU")
+    check_finite_mdp(ht)
 
     # the compact autoreset and the captured step
     for label, e, st in (("highway-v0 ", env, states), ("roundabout-v0 ", genv, gstates),
@@ -2397,6 +2651,10 @@ def main() -> int:
                         conn_kernels, launches, DYNAMICAL_IDS)
     launches["K5 dynamical"] = launches["K5 dynamical intersection-v1"]
     launches["K4 dynamical"] = launches["K4 dynamical lane-keeping-v0"]
+    # several ego rows: highway-v0 with two egos through the sorted
+    # step, and the four K4 configs, every 8th first ego crashed at the start
+    drive_several_straight(e2env, all_kernels, launches)
+    drive_slice(several_envs, all_kernels, launches, crash_first=True)
 
 
     # the rollouts again, each step one replay of a CapturedStep
@@ -2452,8 +2710,10 @@ def main() -> int:
     slot_actions = env._action_to_slots(torch.ones(B, dtype=torch.int32, device=env.device))
     veh = env.action_type.apply(env.geo, states.vehicles, states.vehicles.kind == 1,
                                 slot_actions)
+    # the masked K1 rows below write into the unsorted output of the banded
+    # frames
     srt, idx = ss.sort_plain(veh, fs)
-    band, flags = ss.frames_sorted_plain(srt, idx, fs, p, dt, frames)
+    band, _ = ss.frames_sorted_plain(srt, idx, fs, p, dt, frames)
     back = ss.unsort_plain(band, idx, veh)
     none = torch.zeros(B, dtype=torch.bool, device=env.device)
     rows = {}
@@ -2472,90 +2732,7 @@ def main() -> int:
               + f" [at {time.time() - start:.0f} s]")
         return ms, plain_ms, lib_ms
 
-    # K2a: bytes of every field read once and written once, plus idx
-    s_key = ss.s_coordinate(veh.pos, fs) + 0.0
-
-    def sort_library():  # torch.sort + torch.gather of every field
-        order = torch.sort(s_key, dim=1, stable=True).indices
-        return [torch.gather(getattr(veh, n), 1, ss._per_row(order, getattr(veh, n)))
-                for n, _, _ in ss.SORT_FIELDS]
-
-    ms, plain_ms, lib_ms = timed(
-        "K2a straight_sort (yardstick: torch.sort + torch.gather sequence)",
-        lambda: k2a(veh, fs), lambda: ss.sort_plain(veh, fs), sort_library, 50, 10,
-    )
-    n_bytes = 2 * field_bytes(veh, ss.SORT_FIELDS) + idx.numel() * 4
-    V = veh.kind.shape[1]
-    rank_ops = 3.0 * B * V * V + 4.0 * B * V
-    bms, by, t_ops, t_bytes = bound(rank_ops, n_bytes)
-    rows["K2a"] = ("straight_sort", "highwayenv_tpu_torch/csrc/straight_sort.cu",
-                   "highwayenv_tpu/ops/straight_pallas_bm.py:1241", ms, plain_ms, bms, by,
-                   lib_ms)
-    print(f"    bound {bms:.4f} ms by {by} ({n_bytes} bytes -> {t_bytes:.4f} ms, "
-          f"{rank_ops:.3e} ops -> {t_ops:.5f} ms)")
-
-    # K3: operations of this input's frames, frame by frame on the plain version
-    ms, plain_ms, _ = timed(
-        "K3 straight_frames_sorted, per policy step",
-        lambda: k3(srt, idx, fs, p, dt, frames, linear=False),
-        lambda: ss.frames_sorted_plain(srt, idx, fs, p, dt, frames), None, 20, PLAIN_REPS,
-    )
-    ops, v = 0.0, srt
-    for _ in range(frames):
-        out, _ = ss.frames_sorted_plain(v, idx, fs, p, dt, 1)
-        ops += sorted_frame_ops(v, out, fs, p, dt)
-        v = out
-    n_bytes = (read_bytes(srt, sf._IN_FIELDS) + field_bytes(band, sf._OUT_FIELDS)
-               + idx.numel() * 4 + B * 2)
-    bms, by, t_ops, t_bytes = bound(ops, n_bytes)
-    rows["K3"] = ("straight_frames_sorted",
-                  "highwayenv_tpu_torch/csrc/straight_frames_sorted.cu",
-                  "highwayenv_tpu/ops/straight_pallas_bm.py:1190", ms, plain_ms, bms, by, None)
-    print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.4f} ms, "
-          f"{n_bytes} bytes -> {t_bytes:.4f} ms); firing envs "
-          f"{int(flags.any(dim=1).sum())}")
-
-    # K2b: the mutated fields and idx read once, the fields written once
-    index = idx.long()
-
-    def unsort_library():  # torch scatter_ of every mutated field
-        return [torch.empty_like(getattr(band, n)).scatter_(
-            1, ss._per_row(index, getattr(band, n)), getattr(band, n))
-            for n, _, _ in ss.MUT_FIELDS]
-
-    ms, plain_ms, lib_ms = timed(
-        "K2b straight_unsort (yardstick: torch scatter_ sequence)",
-        lambda: k2b(band, idx, veh), lambda: ss.unsort_plain(band, idx, veh),
-        unsort_library, 50, 10,
-    )
-    n_bytes = 2 * field_bytes(band, ss.MUT_FIELDS) + idx.numel() * 4
-    bms, by, t_ops, t_bytes = bound(0.0, n_bytes)
-    rows["K2b"] = ("straight_unsort", "highwayenv_tpu_torch/csrc/straight_sort.cu",
-                   "highwayenv_tpu/ops/straight_pallas_bm.py:1257", ms, plain_ms, bms, by,
-                   lib_ms)
-    print(f"    bound {bms:.4f} ms by {by} ({n_bytes} bytes)")
-
-    # K1: dense (every env), and masked with no env firing (the main path's
-    # usual launch)
-    ms, plain_ms, _ = timed(
-        "K1 straight_frames, every env, per policy step",
-        lambda: k1(veh, fs, p, dt, frames, linear=False),
-        lambda: sf.frames_plain(veh, fs, p, dt, frames), None, 20, PLAIN_REPS,
-    )
-    masked_ms = queued_ms(lambda: k1(veh, fs, p, dt, frames, mask=none, out=back,
-                                   linear=False), 50)
-    ops, v = 0.0, veh
-    for _ in range(frames):
-        out = sf.frames_plain(v, fs, p, dt, 1)
-        ops += frame_ops(v, out, fs, p, dt)
-        v = out
-    n_bytes = read_bytes(veh, sf._IN_FIELDS) + field_bytes(veh, sf._OUT_FIELDS)
-    bms, by, t_ops, t_bytes = bound(ops, n_bytes)
-    rows["K1"] = ("straight_frames", "highwayenv_tpu_torch/csrc/straight_frames.cu",
-                  "highwayenv_tpu/ops/straight_pallas_bm.py:1190", ms, plain_ms, bms, by, None)
-    print(f"    masked with no env firing: {masked_ms:.4f} ms queued; bound "
-          f"{bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.4f} ms, {n_bytes} "
-          f"bytes -> {t_bytes:.4f} ms)")
+    straight_rows(env, states, timed, rows)
 
     # K4 at roundabout-v0 from a fresh reset, random actions
     gspec, gframes = genv._general, genv.frames_per_step
@@ -2774,9 +2951,11 @@ def main() -> int:
                                 bms, by, None)
         print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, "
               f"{n_bytes} bytes -> {t_bytes:.5f} ms)")
-    # K4's raw-control branch at the parking family, 14 lanes an edge, from
-    # fresh resets with random actions stored on the egos first
-    for env_id, (e, _) in parking_envs.items():
+    # K4's raw-control branch at the parking family, 14 lanes an edge, and
+    # with several egos, from fresh resets with random actions
+    # stored on the egos first
+    for env_id, (e, _) in {**parking_envs,
+                           **{k: several_envs[k] for k in SEVERAL_ROWS}}.items():
         _, s0 = e.reset(B, e.generator(SEED + 2))
         sspec, sframes = e._general, e.frames_per_step
         sveh, _, _ = gf.store_raw_controls(
@@ -2920,6 +3099,9 @@ def main() -> int:
               f"{n_bytes} bytes -> {t_bytes:.5f} ms); the v0 instantiation's raw branch on "
               f"the same scene without the flag: {v0_ms:.4f} ms queued; dynamical / v0 "
               f"{ms / v0_ms:.3f}")
+    # several ego rows
+    straight_rows(e2env, e2env.reset(B, e2env.generator(SEED + 2))[1], timed, rows,
+                  " 2 egos")
     print(f"  [the kernel table done at {time.time() - start:.0f} s]")
     # the policy step's simulation, and the rollouts, in turns
     for which, sim in (("sorted", ss.simulate_bm_sorted), ("dense", sf.simulate_bm)):
@@ -3058,6 +3240,35 @@ def main() -> int:
         place_ms = device_ms(lambda: e._place_state(draws), 5)
         print(f"  {env_id} observation ({type(e.observation_type).__name__}): {obs_ms:.4f} "
               f"ms on the device; a reset's placement at {B} rows {place_ms:.4f} ms")
+
+    # the captured full autoreset step against the eager one, and
+    # eager against graph, at the several-ego configs and at highway-v0
+    # under LidarObservation and the shuffled Kinematics order (whose
+    # permutations the replays draw from the registered generator)
+    pr15 = {"highway-v0 2 egos": e2env, **{k: e for k, (e, _) in several_envs.items()},
+            "highway-v0 LidarObservation": ht.make("highway-v0", LIDAR_CONFIG),
+            "highway-v0 shuffled": ht.make("highway-v0", SHUFFLED_CONFIG)}
+    for label, e in pr15.items():
+        print(f"  [{label} at {time.time() - start:.0f} s]")
+        _, t0_states = e.reset(B, e.generator(SEED + 4))
+        check_graph(e, t0_states, label + " ", variants=((None, False),))
+        walls = {name: [] for name in ("eager full", "graph full")}
+        for r in range(3):
+            for name in (("eager full", "graph full") if r % 2 == 0
+                         else ("graph full", "eager full")):
+                walls[name].append(timed_steps(e, t0_states, e.generator(SEED + 5),
+                                               TIMED_STEPS, None, name == "graph full"))
+        for name, ws in walls.items():
+            busy, n_kernels = step_device_ms(e, t0_states, e.generator(SEED + 5), None,
+                                             name == "graph full")
+            mid = sorted(ws)[1]
+            print(f"  {label} {name}: " + ", ".join(f"{w:.4f}" for w in ws)
+                  + f" ms per step ({B * 1e3 / mid:.1f} env-steps/s at the median); device "
+                  f"busy {busy:.4f} ms per step, {100 * busy / mid:.1f}% of the median, "
+                  f"{n_kernels:.1f} device kernels per step ({card})")
+        obs_ms = device_ms(lambda e=e, s=t0_states: e._observe(s, e.generator(SEED)), 5)
+        print(f"  {label} observation ({type(e.observation_type).__name__}): {obs_ms:.4f} ms "
+              "on the device")
 
     # the single-env seeded path: every id at B=1, each with the counts set
     # to 0 just before it.  It runs last: after it, torch.profiler on the

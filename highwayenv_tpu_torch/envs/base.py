@@ -187,8 +187,9 @@ class BaseEnv:
     #: RegulatedRoad envs (the right-of-way pass in the frames) set this
     regulated = False
 
-    #: envs whose several controlled vehicles are ported (the intersection
-    #: family) set this; the others refuse ``controlled_vehicles`` > 1
+    #: envs whose several controlled vehicles are ported (highway, parking,
+    #: racetrack and intersection families) set this; the others refuse
+    #: ``controlled_vehicles`` > 1
     several_egos = False
 
     def __init__(self, config: dict | None = None, device=None,
@@ -252,7 +253,9 @@ class BaseEnv:
             what for what, bad in (
                 ("sequential_decisions", self.config.get("sequential_decisions")),
                 ("several controlled vehicles",
-                 len(self.ego_slots) != 1 and not self.several_egos),
+                 (len(self.ego_slots) != 1
+                  or self.config.get("controlled_vehicles", 1) > 1)
+                 and not self.several_egos),
                 # the straight frames integrate every row kinematically (so
                 # does the JAX package's straight path, which never reads
                 # the flag)
@@ -364,6 +367,53 @@ class BaseEnv:
         s, lat = lane_ops.local_coordinates(self.geo, lane, veh.pos[:, ego])
         return lane_ops.on_lane(self.geo, lane, s, lat)
 
+    def close_objects_to(self, state: EnvState, slot: int, distance: float,
+                         count: int | None = None, see_behind: bool = True,
+                         sort: bool = True, vehicles_only: bool = False):
+        """The perception query of the JAX package's ``close_objects_to``
+        (reference road/road.py ``close_objects_to``), batched: the slots
+        within ``distance`` of ``slot``, ordered by their distance along
+        its lane (slot order with ``sort=False``), vehicles then objects
+        ahead of -2 lengths.  Returns (indices (B, count), valid (B,
+        count)); ``count`` defaults to every other slot."""
+        veh = state.vehicles
+        V = veh.num_slots
+        lane = veh.lane[:, slot : slot + 1].expand_as(veh.lane)
+        s_all, _ = lane_ops.local_coordinates(self.geo, lane, veh.pos)
+        lane_dist = s_all - s_all[:, slot : slot + 1]
+        d = veh.pos - veh.pos[:, slot : slot + 1]
+        dist = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+        idx = torch.arange(V, device=veh.pos.device)
+        near = (idx != slot) & (dist < distance)
+        behind_ok = lane_dist > -2 * 5.0  # -2 * LENGTH
+        veh_ok = veh.is_vehicle & near & (behind_ok | see_behind)
+        obj_ok = veh.active & ~veh.is_vehicle & near & behind_ok & (not vehicles_only)
+        ok = veh_ok | obj_ok
+        key = torch.where(ok, lane_dist.abs() if sort else idx.to(torch.float32),
+                          torch.inf)
+        order = torch.argsort(key, dim=-1, stable=True)
+        sel = order[:, : (count if count is not None else V - 1)]
+        return sel, torch.gather(ok, 1, sel)
+
+    def to_finite_mdp(self, state: EnvState, horizon: float = 10.0):
+        """The time-to-collision grid's finite MDP of each env
+        (``ops/finite_mdp.py``; reference envs/common/finite_mdp.py).  The
+        grid's lane axis follows the JAX package's two rules: a B=1 state
+        takes the lane count of the ego's current edge (one host read), as
+        its call on a concrete state does; a batch takes the widest edge
+        (``ttc_grid_lanes`` where the env pins it), as its call under
+        ``jit`` / ``vmap`` does (PARITY #13)."""
+        from highwayenv_tpu_torch.ops.finite_mdp import finite_mdp
+
+        if not hasattr(self, "connected3"):
+            self.connected3 = self.net.connectivity_matrix(depth=3)
+        grid_lanes = None
+        if state.time.shape[0] == 1:
+            lane = state.vehicles.lane[:, self.ego_slots[0]]
+            grid_lanes = int(self.geo.edge_n[lane_ops._gather(self.geo, lane)][0])
+        return finite_mdp(self, state, 1.0 / self.config["policy_frequency"], horizon,
+                          grid_lanes=grid_lanes)
+
     # ------------------------------------------------------------------ #
     # policy-step simulation
     # ------------------------------------------------------------------ #
@@ -430,17 +480,27 @@ class BaseEnv:
     # ------------------------------------------------------------------ #
     # reset, heads, autoreset
     # ------------------------------------------------------------------ #
-    def _observe(self, state: EnvState):
+    def _observe(self, state: EnvState, generator=None):
         """The observation of the ego, or with several egos or a
         multi-agent observation the tuple of each ego slot's (the JAX
         package's ``_observe``); an observation of the whole EnvState
-        (``observes_env``: AttributesObservation) takes the state."""
+        (``observes_env``: AttributesObservation) takes the state.
+
+        An observation that draws (``needs_generator``: Kinematics'
+        ``order="shuffled"``) takes one permutation an env, shared by the
+        egos, drawn from ``generator``, the step's or the reset's, where the
+        JAX package folds the step count into the state's key; without a
+        generator it does not draw."""
         obs_type = self.observation_type
         if getattr(obs_type, "observes_env", False):
             return obs_type.observe_env(self, state)
+        kw = {}
+        if getattr(obs_type, "needs_generator", False) and generator is not None:
+            kw["perm"] = obs_type.permutation(state.time.shape[0], generator,
+                                              state.time.device)
         if len(self.ego_slots) == 1 and not getattr(obs_type, "multi_agent", False):
-            return obs_type.observe(self.geo, state.vehicles, self.ego_slots[0])
-        return tuple(obs_type.observe(self.geo, state.vehicles, slot)
+            return obs_type.observe(self.geo, state.vehicles, self.ego_slots[0], **kw)
+        return tuple(obs_type.observe(self.geo, state.vehicles, slot, **kw)
                      for slot in self.ego_slots)
 
     @property
@@ -487,7 +547,7 @@ class BaseEnv:
     def _reset(self, batch: int, generator):
         """``batch`` fresh scenes drawn from ``generator``: (obs, EnvState)."""
         state = self._reset_state(batch, generator)
-        return self._observe(state), state
+        return self._observe(state, generator), state
 
     reset = _reset
 
@@ -520,14 +580,14 @@ class BaseEnv:
             truncated = truncated | (state.steps // self.frames_per_step >= mes)
         return state, reward, terminated, truncated, self._info(state, action)
 
-    def _finish_step(self, state: EnvState, action, obs=None):
+    def _finish_step(self, state: EnvState, action, obs=None, generator=None):
         """The head with the observation (``obs`` where the step observed
         before its frames), and no reset: (obs, state, reward, terminated,
         truncated, info)."""
         state, reward, terminated, truncated, info = self._finish_head(
             state, action
         )
-        obs = self._observe(state) if obs is None else obs
+        obs = self._observe(state, generator) if obs is None else obs
         return obs, state, reward, terminated, truncated, info
 
     def _post_step_population(self, state: EnvState, generator) -> EnvState:
@@ -560,7 +620,7 @@ class BaseEnv:
         if not self.observes_before_step:
             return states, None
         states = self._pre_step(states, generator)
-        return states, self._observe(states)
+        return states, self._observe(states, generator)
 
     def step_batched(self, states: EnvState, actions, generator):
         """Step without autoreset, the frames on the frame kernels: the
@@ -571,7 +631,7 @@ class BaseEnv:
         the single-env ``GymEnv``)."""
         states, pre_obs = self._observed_before(states, generator)
         obs, state, reward, terminated, truncated, info = self._finish_step(
-            self._simulate_batched(states, actions), actions, pre_obs
+            self._simulate_batched(states, actions), actions, pre_obs, generator
         )
         state = self._post_step_population(state, generator)
         return obs, state, reward, terminated, truncated, info
@@ -606,7 +666,7 @@ class BaseEnv:
         )
         done = terminated | truncated
         if obs is None and (final_obs or self._has_population_hook):
-            obs = self._observe(state)
+            obs = self._observe(state, generator)
         state = self._post_step_population(state, generator)
         if final_obs:
             info = dict(info, final_obs=obs)
@@ -616,19 +676,19 @@ class BaseEnv:
             state = where_done(done, fresh, state)
             if obs is not None:
                 obs = map_obs(lambda a, b: torch.where(_rows(done, b), a, b),
-                              self._observe(fresh), obs)
+                              self._observe(fresh, generator), obs)
         else:
             pending, obs = self._compact_first(state, done, reset_slots, generator, obs)
             state = pending.state
         if obs is None:
-            obs = self._observe(state)
+            obs = self._observe(state, generator)
         return (obs, state, reward, terminated, truncated, info), pending
 
     # ------------------------------------------------------------------ #
     # compact autoreset: only the done rows are placed
     # ------------------------------------------------------------------ #
     def _compact_pass(self, state: EnvState, draws, mask, reset_slots: int,
-                      obs=None):
+                      obs=None, generator=None):
         """Place the first ``reset_slots`` rows of ``mask`` (in row order)
         from their draws and write them into ``state`` (and their
         observations into ``obs`` when given).  Returns (state, obs, the
@@ -656,7 +716,7 @@ class BaseEnv:
         if obs is not None:
             obs = map_obs(
                 lambda o, f: o.index_copy(0, idx, torch.where(_rows(valid, o), f, o[idx])),
-                obs, self._observe(fresh),
+                obs, self._observe(fresh, generator),
             )
         return state, obs, mask & ~take
 
@@ -671,8 +731,8 @@ class BaseEnv:
         if P < 1:
             raise ValueError(f"reset_slots={reset_slots}: at least 1")
         draws = self._reset_draws(B, generator)
-        state, obs_out, left = self._compact_pass(state, draws, done, P, obs)
-        return PendingReset(state, draws, left, P, obs is None), obs_out
+        state, obs_out, left = self._compact_pass(state, draws, done, P, obs, generator)
+        return PendingReset(state, draws, left, P, obs is None, generator), obs_out
 
     def _compact_rest(self, pending: "PendingReset", obs):
         """The passes after the first: one host read of the rows left, then
@@ -680,16 +740,16 @@ class BaseEnv:
         (``pending.observe``) the whole batch is observed again when a pass
         ran; otherwise ``obs`` is patched row by row.  Returns (state,
         obs)."""
-        state, draws, left, P, observe = pending
+        state, draws, left, P, observe, generator = pending
         n_left = int(left.sum())  # the compact path's one host read
         if n_left == 0:
             return state, obs
         for _ in range(-(-n_left // P)):
             state, patched, left = self._compact_pass(
-                state, draws, left, P, None if observe else obs
+                state, draws, left, P, None if observe else obs, generator
             )
             obs = obs if observe else patched
-        return state, self._observe(state) if observe else obs
+        return state, self._observe(state, generator) if observe else obs
 
     def _compact_autoreset(self, state: EnvState, done, reset_slots: int,
                            generator, obs=None):
@@ -756,10 +816,12 @@ class BaseEnv:
 class PendingReset(NamedTuple):
     """A compact autoreset after its first pass: the state so far, the
     draws of all B rows, the (B,) rows still to place, the slots P of a
-    pass, and whether the observation follows the reset (no rows patched)."""
+    pass, whether the observation follows the reset (no rows patched), and
+    the step's generator (a shuffled observation's draws)."""
 
     state: EnvState
     draws: dict
     left: torch.Tensor
     slots: int
     observe: bool
+    generator: Any = None

@@ -29,6 +29,11 @@ from highwayenv_tpu_torch.vehicle.state import KIND_EGO, KIND_IDM, VehicleState,
 
 
 class ExitEnv(HighwayEnv):
+    #: one ego slot, as in the JAX package, whose seeded reset cannot place
+    #: more than one controlled vehicle: ``make`` refuses
+    #: ``controlled_vehicles`` > 1
+    several_egos = False
+
     @classmethod
     def default_config(cls) -> dict:
         config = super().default_config()

@@ -40,6 +40,11 @@ def _uniform(shape, lo, hi, generator, device):
 
 
 class HighwayEnv(BaseEnv):
+    #: ``controlled_vehicles`` egos, each ahead of its share of the NPCs;
+    #: the reward, termination and info read the first (the reference's
+    #: ``self.vehicle``)
+    several_egos = True
+
     @classmethod
     def default_config(cls) -> dict:
         config = super().default_config()
@@ -73,6 +78,7 @@ class HighwayEnv(BaseEnv):
         )
         self.geo = self.net.build(device=self.device)
         self.obs_edge_lanes = cfg["lanes_count"]  # ego reset edge (PARITY #5)
+        self.max_edge_lanes = cfg["lanes_count"]
         n_ctrl = cfg["controlled_vehicles"]
         self.others_per_controlled = near_split(cfg["vehicles_count"], n_ctrl)
         self.num_slots = n_ctrl + cfg["vehicles_count"]

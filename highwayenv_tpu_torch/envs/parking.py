@@ -40,6 +40,11 @@ WALL_W, WALL_H = 70.0, 42.0
 
 
 class ParkingEnv(BaseEnv):
+    #: ``controlled_vehicles`` egos, each with its goal: the reward sums
+    #: their goal rewards and crashes, success takes every ego's, any crash
+    #: terminates
+    several_egos = True
+
     #: the observation the reward reads, whatever the configured one
     PARKING_OBS = {
         "observation": {

@@ -3,12 +3,16 @@ lateral-only continuous control, occupancy-grid observation.
 
 PyTorch counterpart of ``highwayenv_tpu/envs/racetrack.py`` (reference
 highway_env/envs/racetrack_env.py, racetrack-v0, racetrack-large-v0 and
-racetrack-oval-v0).  The ego spawns on a random lane of the first straight
-("a", "b") at s ~ U(20, 50) and the lane's speed limit, one IDM vehicle
-ahead of it on the same lane of the first arc ("b", "c"); further NPCs (with
-``other_vehicles`` > 1) on random lanes, dropped when within 20 m of an
-earlier vehicle.  The ego's ContinuousAction stores its steering (the frame
-kernels keep it: their raw-control branch).  The oval draws its length and
+racetrack-oval-v0).  The first ego spawns on a random lane of the first
+straight ("a", "b") at s ~ U(20, 50) and the lane's speed limit, the other
+``controlled_vehicles`` on random lanes of the track at stations drawn
+alike, one IDM vehicle ahead of the first on the same lane of the first arc
+("b", "c"); further NPCs (with ``other_vehicles`` > 1) on random lanes,
+dropped when within 20 m of an earlier vehicle.  The egos' ContinuousAction
+stores their steering (the frame kernels keep it: their raw-control
+branch).  With several egos the reward is one number an env: its action
+term is the norm of all the egos' actions together, the reference's
+``np.linalg.norm`` of the action tuple.  The oval draws its length and
 lane count on the host when the env is built, as the JAX package does, and
 may hold roadblock obstacles in its last slots.
 """
@@ -97,6 +101,8 @@ def _racetrack_network() -> RoadNetworkBuilder:
 
 
 class RacetrackEnv(BaseEnv):
+    several_egos = True
+
     @classmethod
     def default_config(cls) -> dict:
         config = super().default_config()
@@ -162,11 +168,19 @@ class RacetrackEnv(BaseEnv):
 
     def _reset_draws(self, batch: int, generator) -> dict:
         """The reset's draws, in order (the JAX package's key order): the
-        ego's lane on ("a", "b") and station, the front NPC's station and
-        speed, the count of extra NPCs, then their lanes, stations (a share
-        of the lane's length) and speeds, each (B,) or (B, n_extra)."""
+        first ego's lane on ("a", "b") and station, the front NPC's station
+        and speed, the count of extra NPCs, then their lanes, stations (a
+        share of the lane's length) and speeds, each (B,) or (B, n_extra);
+        with several egos last the other egos' lanes (any lane of the
+        track) and stations, (B, n_ctrl - 1)."""
         B, dev = batch, self.device
         n_other, E, L = self.config["other_vehicles"], self._n_extra, self.geo.num_lanes
+        n_more = len(self.ego_slots) - 1
+        more = {} if not n_more else {
+            "more_ego_lane": torch.randint(0, L, (B, n_more), generator=generator,
+                                           device=dev, dtype=torch.int32),
+            "more_ego_s": _uniform((B, n_more), 20.0, 50.0, generator, dev),
+        }
         return {
             "ego_lane": torch.randint(0, self._ab_lanes, (B,), generator=generator,
                                       device=dev, dtype=torch.int32),
@@ -179,37 +193,44 @@ class RacetrackEnv(BaseEnv):
                                         dtype=torch.int32),
             "extra_u": _uniform((B, E), 0.0, 1.0, generator, dev),
             "extra_speed": 6.0 + _uniform((B, E), 0.0, 3.0, generator, dev),
+            **more,
         }
 
     def _place_vehicles(self, draws: dict) -> VehicleState:
-        """Reference racetrack_env.py ``_make_vehicles``."""
-        ego_lane = self._ab_base + draws["ego_lane"]
+        """Reference racetrack_env.py ``_make_vehicles``: the egos in slots
+        0 .. n_ctrl - 1, the front NPC after them, then the extras."""
+        ego_lane = (self._ab_base + draws["ego_lane"])[:, None]
+        ego_s = draws["ego_s"][:, None]
+        if "more_ego_lane" in draws:
+            ego_lane = torch.cat([ego_lane, draws["more_ego_lane"]], dim=1)
+            ego_s = torch.cat([ego_s, draws["more_ego_s"]], dim=1)
+        n_ctrl = ego_lane.shape[1]
         B, V, E, dev = ego_lane.shape[0], self.num_slots, self._n_extra, self.device
         front_lane = self._bc_base + draws["ego_lane"]
         extra_lane = draws["extra_lane"]
-        lane = torch.cat([ego_lane[:, None], front_lane[:, None], extra_lane], dim=1)
-        s = torch.cat([draws["ego_s"][:, None], draws["front_s"][:, None],
+        lane = torch.cat([ego_lane, front_lane[:, None], extra_lane], dim=1)
+        s = torch.cat([ego_s, draws["front_s"][:, None],
                        draws["extra_u"] * self.geo.length[extra_lane.long()]], dim=1)
-        # make_on_lane(speed=None): the ego at its lane's speed limit
-        speed = torch.cat([self.geo.speed_limit[ego_lane.long()][:, None],
+        # make_on_lane(speed=None): the egos at their lanes' speed limits
+        speed = torch.cat([self.geo.speed_limit[ego_lane.long()],
                            draws["front_speed"][:, None], draws["extra_speed"]], dim=1)
         pos = lane_ops.position(self.geo, lane, s, torch.zeros_like(s))
         heading = lane_ops.heading_at(self.geo, lane, s)
 
-        n_veh = 2 + E  # < V when the oval keeps roadblock slots
+        n_veh = n_ctrl + 1 + E  # < V when the oval keeps roadblock slots
         extra_on = torch.arange(E, device=dev) < draws["extra_count"][:, None]
         kind = torch.cat([
-            torch.full((B, 2), KIND_IDM, dtype=torch.int32, device=dev),
+            torch.full((B, n_ctrl), KIND_EGO, dtype=torch.int32, device=dev),
+            torch.full((B, 1), KIND_IDM, dtype=torch.int32, device=dev),
             torch.where(extra_on, KIND_IDM, KIND_PAD).to(torch.int32),
         ], dim=1)
-        kind[:, 0] = KIND_EGO
         # "prevent early collisions": drop the extras within 20 m of an
         # earlier vehicle
         d = torch.linalg.vector_norm(pos[:, :, None] - pos[:, None, :], dim=-1)
         order = torch.arange(n_veh, device=dev)
         earlier = (order[None, :] < order[:, None]) & (kind[:, None, :] != KIND_PAD)
         too_close = (earlier & (d < 20.0)).any(dim=-1)
-        kind = torch.where((order >= 2) & too_close, KIND_PAD, kind).to(torch.int32)
+        kind = torch.where((order > n_ctrl) & too_close, KIND_PAD, kind).to(torch.int32)
 
         veh = empty_state(B, V, device=dev)
         i = slice(0, n_veh)
@@ -228,8 +249,9 @@ class RacetrackEnv(BaseEnv):
         veh = state.vehicles
         ego = self.ego_slots[0]
         _, lat = lane_ops.local_coordinates(self.geo, veh.lane[:, ego], veh.pos[:, ego])
-        a = action.to(torch.float32)
-        a = a[:, None] if a.dim() == 1 else a
+        # one norm an env over every ego's action: (B,), (B, size) or
+        # (B, n_agents, size) flattened
+        a = action.to(torch.float32).reshape(action.shape[0], -1)
         return {
             "lane_centering_reward": 1.0
             / (1.0 + self.config["lane_centering_cost"] * lat**2),

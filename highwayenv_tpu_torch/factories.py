@@ -4,8 +4,8 @@ PyTorch counterpart of ``highwayenv_tpu/factories.py`` (reference
 envs/common/observation.py ``observation_factory`` and envs/common/action.py
 ``action_factory``), so scenario configs stay drop-in.  The port has the
 Kinematics, KinematicsGoal, TimeToCollision, ExitObservation,
-OccupancyGrid, MultiAgentObservation, TupleObservation and
-AttributesObservation observations and
+OccupancyGrid, LidarObservation, MultiAgentObservation, TupleObservation
+and AttributesObservation observations and
 the DiscreteMetaAction, ContinuousAction, DiscreteAction and
 MultiAgentAction (every action type the JAX package knows); every other
 observation type it knows raises ``NotPortedError`` naming the module it
@@ -22,13 +22,13 @@ from highwayenv_tpu_torch.observations.attributes import AttributesObservation
 from highwayenv_tpu_torch.observations.exit_obs import ExitObservation
 from highwayenv_tpu_torch.observations.kinematics import KinematicsObservation
 from highwayenv_tpu_torch.observations.kinematics_goal import KinematicsGoalObservation
+from highwayenv_tpu_torch.observations.lidar import LidarObservation
 from highwayenv_tpu_torch.observations.multi import MultiAgentObservation, TupleObservation
 from highwayenv_tpu_torch.observations.occupancy_grid import OccupancyGridObservation
 from highwayenv_tpu_torch.observations.ttc import TimeToCollisionObservation
 
 #: the JAX package's other types and the module each one needs
 _UNPORTED_OBSERVATIONS = {
-    "LidarObservation": "observations/lidar.py",
     "GrayscaleObservation": "observations/grayscale.py",
 }
 
@@ -58,6 +58,8 @@ def observation_factory(env, config: dict):
         )
     if config["type"] == "OccupancyGrid":
         return OccupancyGridObservation(**kwargs)
+    if config["type"] == "LidarObservation":
+        return LidarObservation(**kwargs)
     if config["type"] == "MultiAgentObservation":
         return MultiAgentObservation(env, **kwargs)
     if config["type"] == "TupleObservation":

@@ -5,6 +5,12 @@ PyTorch counterpart of ``highwayenv_tpu/observations/kinematics.py``
 perception query, the relative features, the stable sort by lane distance,
 lmap normalization, clipping and zero padding, as masked gathers over the
 padded slot axis.
+
+``order="shuffled"`` permutes the rows after the ego's, one permutation an
+env and an observation (shared by the egos of a step), drawn from the
+step's ``torch.Generator`` (``BaseEnv._observe``); the JAX package draws it
+from its state's key folded with the step count, so the permutations have
+the same distribution, not the same bits.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from highwayenv_tpu_torch.vehicle.state import MAX_SPEED, VehicleState
 
 DEFAULT_FEATURES = ("presence", "x", "y", "vx", "vy")
 SUPPORTED_FEATURES = ("presence", "x", "y", "vx", "vy", "heading", "cos_h", "sin_h",
-                      "long_off", "lat_off", "ang_off")
+                      "long_off", "lat_off", "ang_off", "cos_d", "sin_d")
 #: the features measured in the frame of each row's current lane
 LANE_FEATURES = ("long_off", "lat_off", "ang_off")
 PERCEPTION_DISTANCE = 5.0 * MAX_SPEED
@@ -29,7 +35,8 @@ PERCEPTION_DISTANCE = 5.0 * MAX_SPEED
 
 class KinematicsObservation:
     """Config-compatible with the reference KinematicObservation for the
-    features above and ``order="sorted"``."""
+    features above, ``order="sorted"`` (any order but ``"shuffled"``) and
+    ``order="shuffled"``."""
 
     def __init__(
         self,
@@ -48,10 +55,9 @@ class KinematicsObservation:
     ):
         self.features = tuple(features) if features else DEFAULT_FEATURES
         unported = [f for f in self.features if f not in SUPPORTED_FEATURES]
-        if unported or order != "sorted":
+        if unported:
             raise NotImplementedError(
-                f"Kinematics features {unported} / order={order!r} are not "
-                "ported yet"
+                f"Kinematics features {unported} are not ported yet"
             )
         self.vehicles_count = vehicles_count
         self.features_range = features_range
@@ -76,6 +82,22 @@ class KinematicsObservation:
         from gymnasium import spaces
 
         return spaces.Box(shape=self.shape, low=-np.inf, high=np.inf, dtype=np.float32)
+
+    @property
+    def needs_generator(self) -> bool:
+        """The shuffled order draws its permutations
+        (``BaseEnv._observe``)."""
+        return self.order == "shuffled"
+
+    def permutation(self, batch: int, generator, device) -> torch.Tensor | None:
+        """(B, N - 1) int64: a uniform permutation of the non-ego rows per
+        env, the argsort of uniforms drawn from ``generator``; None where
+        there is no row to permute."""
+        n = self.vehicles_count - 1
+        if n < 1:
+            return None
+        u = torch.rand((batch, n), generator=generator, device=device)
+        return torch.argsort(u, dim=1)
 
     def _relative(self, device) -> torch.Tensor:
         """(F,) bool: the features taken relative to the ego, on ``device``,
@@ -109,10 +131,29 @@ class KinematicsObservation:
             cols["long_off"] = s
             cols["lat_off"] = lat
             cols["ang_off"] = lane_ops.local_angle(geo, state.lane, state.heading, s)
+        if "cos_d" in self.features or "sin_d" in self.features:
+            # the unit vector to the end of the last route segment; zero
+            # without a route or without observe_intentions
+            R = state.route_base.shape[-1]
+            last = (state.route_len - 1).clamp(0, R - 1)[..., None].long()
+            base = torch.gather(state.route_base, -1, last)[..., 0]
+            rid = torch.gather(state.route_id, -1, last)[..., 0]
+            lane = (base + rid.clamp(min=0)).clamp(0, geo.num_lanes - 1)
+            dest = lane_ops.position(geo, lane, geo.length[lane.long()],
+                                     torch.zeros_like(state.speed))
+            delta = dest - state.pos
+            norm = torch.sqrt(delta[..., 0] * delta[..., 0] + delta[..., 1] * delta[..., 1])
+            ok = (state.route_len > 0) & (norm > 0) & bool(self.observe_intentions)
+            d = torch.where(ok[..., None],
+                            delta / torch.where(norm == 0, 1.0, norm)[..., None], 0.0)
+            cols["cos_d"] = d[..., 0]
+            cols["sin_d"] = d[..., 1]
         return cols
 
-    def observe(self, geo: LaneGeometry, state: VehicleState, ego: int):
-        """Observation of controlled slot ``ego``: (B, N, F) float32."""
+    def observe(self, geo: LaneGeometry, state: VehicleState, ego: int, perm=None):
+        """Observation of controlled slot ``ego``: (B, N, F) float32; with
+        ``perm`` ((B, N - 1), ``permutation``) the rows after the ego's in
+        that order."""
         B, V = state.kind.shape
         ego_pos = state.pos[:, ego]
         ego_lane = state.lane[:, ego : ego + 1].expand(B, V)
@@ -155,7 +196,11 @@ class KinematicsObservation:
             obs = self._normalize(geo, state, ego, obs)
         # zero the padding rows after normalization
         row_ok = torch.cat([torch.ones_like(sel_ok[:, :1]), sel_ok], dim=1)
-        return torch.where(row_ok[..., None], obs, 0.0)
+        obs = torch.where(row_ok[..., None], obs, 0.0)
+        if perm is not None:
+            rest = torch.gather(obs[:, 1:], 1, perm[..., None].expand(-1, -1, obs.shape[-1]))
+            obs = torch.cat([obs[:, :1], rest], dim=1)
+        return obs
 
     def _ego_row(self, geo, state, ego, ego_row):
         """Hook: the ego's (B, F) feature row as displayed, before

@@ -746,9 +746,12 @@ def seeded_reset_state(env, rng: np.random.Generator, generator=None):
 
 
 def seeded_reset(env, rng: np.random.Generator, generator=None):
-    """(obs, EnvState) of ``seeded_reset_state``."""
+    """(obs, EnvState) of ``seeded_reset_state``; a shuffled observation
+    draws from the generator reseeded from ``rng`` (``generator`` itself,
+    or a new one)."""
+    generator = generator if generator is not None else torch.Generator(device=env.device)
     state = seeded_reset_state(env, rng, generator)
-    return env._observe(state), state
+    return env._observe(state, generator), state
 
 
 # the fields the reference's challenger sets on its slot

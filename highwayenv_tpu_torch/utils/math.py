@@ -1,8 +1,8 @@
 """Elementwise geometry helpers on float32 tensors.
 
 PyTorch counterparts of ``highwayenv_tpu/utils/math.py``: every function
-broadcasts over leading batch dimensions.  Only the helpers the straight
-highway path needs are here.
+broadcasts over leading batch dimensions.  Only the helpers the port's
+paths need are here.
 """
 
 from __future__ import annotations
@@ -155,3 +155,16 @@ def rects_intersecting_xy_folded(
         min_dist * sign * best_ax,
         min_dist * sign * best_ay,
     )
+
+
+def rect_corners(center, length, width, angle):
+    """Corners of rotated rectangles: ``center`` (..., 2), the rest (...,);
+    (..., 4, 2) in the reference polygon's order, the (-l, -w), (-l, +w),
+    (+l, +w), (+l, -w) half extents."""
+    hl = length[..., None] / 2.0
+    hw = width[..., None] / 2.0
+    lx = torch.cat([-hl, -hl, hl, hl], dim=-1)
+    ly = torch.cat([-hw, hw, hw, -hw], dim=-1)
+    c = torch.cos(angle)[..., None]
+    s = torch.sin(angle)[..., None]
+    return center[..., None, :] + torch.stack([c * lx - s * ly, s * lx + c * ly], dim=-1)

@@ -97,16 +97,16 @@ def test_unknown_or_unported_id_raises_keyerror():
 
 
 @pytest.mark.parametrize(
-    "config",
+    "env_id,config",
     [
-        {"sequential_decisions": True},
-        {"controlled_vehicles": 2},
-        {"observation": {"type": "LidarObservation"}},
+        ("highway-v0", {"sequential_decisions": True}),
+        ("exit-v0", {"controlled_vehicles": 2}),
+        ("highway-v0", {"observation": {"type": "GrayscaleObservation"}}),
     ],
 )
-def test_unported_configurations_raise_at_make(config):
+def test_unported_configurations_raise_at_make(env_id, config):
     with pytest.raises(NotImplementedError, match="not ported"):
-        ht.make("highway-v0", config, device="cpu")
+        ht.make(env_id, config, device="cpu")
 
 
 def test_route_choice_preprocessor_is_not_ported():

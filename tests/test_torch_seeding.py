@@ -134,11 +134,37 @@ def test_torch_generator_from_consumes_no_draw():
     assert float(s1.noise.abs().max()) <= 0.05
 
 
-def test_torch_oval_random_layout_not_replayed():
-    for length, no_lanes in ((0, 3), (100, 0)):
+def _layout_seed(wide: bool) -> int:
+    """The first seed whose generator draws an oval of 5 or 6 lanes
+    (``wide``), or of at most 4, from ``integers(2, 7)``."""
+    return next(s for s in range(100)
+                if (int(np.random.default_rng(s).integers(2, 7)) >= 5) == wide)
+
+
+def test_torch_oval_random_layout_not_replayed(monkeypatch):
+    """Both packages draw the oval's random layout from an unseeded
+    ``np.random.default_rng()``; the test seeds it for its duration, so
+    both outcomes of the lane count are pinned: at most 4 lanes make in
+    both packages and neither replays them; 5 or 6 lanes (40 or 48 lanes
+    in all) are refused by the port's ``make``, past its kernels' 32
+    lanes, while the JAX package makes them."""
+    real_rng = np.random.default_rng
+    narrow, wide = _layout_seed(False), _layout_seed(True)
+    cases = ((0, 3, 0), (100, 0, narrow), (100, 0, wide))
+    for length, no_lanes, seed in cases:
+        monkeypatch.setattr(np.random, "default_rng", lambda *_, s=seed: real_rng(s))
         config = {"length": length, "no_lanes": no_lanes}
+        # the class itself: conftest.py memoizes ``hj.make`` across tests
+        cls, kwargs = hj._REGISTRY["racetrack-oval-v0"]
+        ej = cls(config={**kwargs.get("config", {}), **config})
+        assert not sj.supports_seeded_reset(ej)
+        if ej._oval_lanes >= 5:
+            assert no_lanes == 0 and ej.geo.num_lanes == 8 * ej._oval_lanes > 32
+            with pytest.raises(NotImplementedError, match=r"\d+ lanes > 32.*not ported"):
+                ht.make("racetrack-oval-v0", config, device="cpu")
+            continue
         et = ht.make("racetrack-oval-v0", config, device="cpu")
-        ej = hj.make("racetrack-oval-v0", config)
-        assert not st.supports_seeded_reset(et) and not sj.supports_seeded_reset(ej)
+        assert (et._oval_lanes, et._oval_length) == (ej._oval_lanes, ej._oval_length)
+        assert not st.supports_seeded_reset(et)
         with pytest.raises(NotImplementedError):
             et.reset_seeded(seed=0)

@@ -128,8 +128,10 @@ def test_spaces_match_jax(env_id):
 
 
 def test_unported_types_name_their_module():
-    with pytest.raises(ht.NotPortedError, match="observations/lidar.py"):
-        ht.make("highway-v0", {"observation": {"type": "LidarObservation"}}, device="cpu")
+    # Lidar is ported: it makes and observes (cells, 2)
+    env = ht.make("highway-v0", {"observation": {"type": "LidarObservation"}}, device="cpu")
+    obs, _ = env.reset(2, env.generator(0))
+    assert obs.shape == (2, 16, 2)
     with pytest.raises(ht.NotPortedError, match="observations/grayscale.py"):
         ht.make("highway-v0", {"observation": {"type": "GrayscaleObservation"}}, device="cpu")
     with pytest.raises(ValueError, match="Unknown observation type"):

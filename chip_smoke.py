@@ -136,7 +136,27 @@ Phases:
      capture), and a profile of replays for the port's kernels per replay;
      then highway-v0 with two egos through the sorted step and the
      four several-ego K4 configs (every 8th first ego crashed at the
-     start), each with the counts set to 0 just before it;
+     start), each with the counts set to 0 just before it; (after phase
+     5's times and before phase 6) the GrayscaleObservation path:
+     highway-v0 (V=51) at B=4096 with HighwayEnv's documented example
+     config, the counts set to 0 just before a 32-step rollout (K1, K2a,
+     K3, K2b once a step, nothing else), the CUDA frames of 64 rows against
+     the CPU's plain frames of the same states (at least 99.9% of each
+     frame's pixels equal, none off by more than a gray level), compact
+     (P=1024) against full and the captured full step against the eager
+     one, the stack included, bit-exact, eager and graph ms per step (three
+     runs each, in turns), device busy and kernels per step, a profile of
+     replays, the head's device ms at 4,096 rows, the step's peak device
+     memory (at most 16 GB), K1–K3 against their plain versions on its
+     reset scene, and the kernel rows "K1 grayscale" .. "K2b grayscale"
+     (its launches beside the main path's times); intersection-v0 (K5)
+     and racetrack-v0 (K4 raw) the same way at B=512 and 8 steps, without
+     the times; ``render_rgb`` of row 0 of a
+     CUDA state against its CPU copy; ``sequential_decisions`` at
+     highway-v0, u-turn-v0 and intersection-v0, B=64: the reset's scenes
+     (the warm-up included) and 2 steps' frames on CUDA against the CPU,
+     discrete fields equal, pos within 2e-4 m, no frame kernel launched,
+     ms per step;
   5. times on the card: each kernel's time (CUDA events around launches
      queued behind a device-side wait), its plain version's device time
      (torch.profiler), its bound and the PyTorch yardstick's where there
@@ -175,18 +195,18 @@ Phases:
      order's permutations are drawn from the registered generator) and
      eager against graph ms per step, three runs each in turns, with the
      device busy time and kernels per step;
-  6. the single-env seeded path, the slice's main path: every
+  6. the single-env seeded path: every
      registered id (31) on CUDA at its registered config, B=1,
      ``reset_seeded`` (the reference's NumPy draw order on the host, the
-     intersection ids' warm-up one K5 launch) and 8 steps of
+     intersection ids' warm-up one K5 launch) and 4 steps of
      ``step_batched``, what the Gymnasium ``GymEnv`` calls, the counts set
      to 0 just before each id: K2a, K3, K2b and masked K1 once a step at
      the straight ids, the id's K4 instantiation once a step, the id's K5
      instantiation once a step and once for the warm-up, none of any
-     other; the same reset and steps with every kernel stood in for by its
-     plain version (``PlainKernels``) bit-exact (obs, every field, reward,
-     flags, info); the host ms of the seeded reset and of a B=1 eager step
-     per id.
+     other; at the first id of each instantiation the same reset and steps
+     with every kernel stood in for by its plain version (``PlainKernels``)
+     bit-exact (obs, every field, reward, flags, info); the host ms of the
+     seeded reset and of a B=1 eager step per id.
 
 Exits non-zero on any failed check, and without CUDA.  The last lines are
 the kernels JSON, the card line and ``{"ok": true, "device": {...}}``.
@@ -369,13 +389,27 @@ DYN_OPS_RK4 = 4 * 27 + 78 + 4
 #: offset loaded, the seen mask applied and merged
 GEN_OPS_CONN_LANE = 4
 #: policy steps of each id's single-env drive, from its seeded reset
-SINGLE_STEPS = 8
+SINGLE_STEPS = 4
+#: GrayscaleObservation, HighwayEnv's documented example config
+GRAY_CONFIG = {"observation": {"type": "GrayscaleObservation", "observation_shape": (128, 64),
+                               "stack_size": 4, "weights": [0.2989, 0.5870, 0.1140],
+                               "scaling": 1.75}}
+GRAY_SMALL_B = 512  # envs of the intersection-v0 and racetrack-v0 Grayscale checks
+GRAY_SMALL_STEPS = 8  # policy steps of their rollouts
+GRAY_CPU_ROWS = 64  # rows of a CUDA frame batch held to the CPU's frames
+GRAY_MIN_EQUAL = 0.999  # share of a frame's pixels equal, CUDA against the CPU
+GRAY_MAX_LEVELS = 1  # gray levels a pixel may differ by, CUDA against the CPU
+GRAY_MAX_BYTES = 16e9  # the Grayscale step's peak device memory at B=4096
+#: the reference's decision order: ids, envs and policy steps of its checks
+SEQ_IDS = ("highway-v0", "u-turn-v0", "intersection-v0")
+SEQ_B = 64
+SEQ_STEPS = 2
 COMPACT_SLOTS = (1024, 64)  # reset slots P: one pass a step, and further passes
 COMPACT_STEPS = 3  # autoreset steps of compact against full
 GRAPH_STEPS = 4  # steps of the captured step against the eager one
 CRASH_EVERY = 8  # every 8th ego crashed at the start: 512 done rows at B=4096
 PROFILE_REPLAYS = 2  # replays of a captured step under the profiler
-TIMED_STEPS = 8  # steps of each timed eager / graph, full / compact run
+TIMED_STEPS = 4  # steps of each timed eager / graph, full / compact run
 #: profiled runs of a frame kernel's plain version, after one warm-up (its
 #: device time is a yardstick; each run is tens to hundreds of ms, and the
 #: profiler's processing of its thousands of small kernels dominates phase 5)
@@ -1660,6 +1694,10 @@ def same_step(a, b, where: str) -> None:
     names = list(oa) + ["reward", "terminated", "truncated", "time", "steps"]
     pairs = list(oa.values()) + [a[2], a[3], a[4], a[1].time, a[1].steps]
     others = list(ob.values()) + [b[2], b[3], b[4], b[1].time, b[1].steps]
+    if a[1].obs_stack is not None or b[1].obs_stack is not None:  # Grayscale
+        names.append("obs_stack")
+        pairs.append(a[1].obs_stack)
+        others.append(b[1].obs_stack)
     for f in dataclasses.fields(a[1].vehicles):
         names.append(f.name)
         pairs.append(getattr(a[1].vehicles, f.name))
@@ -1691,19 +1729,21 @@ class PassCounter:
         del self.env._compact_pass
 
 
-def check_compact(env, states, label: str) -> None:
-    """``reset_slots=P`` against the full autoreset: COMPACT_STEPS steps
-    from ``states`` with every CRASH_EVERY-th ego crashed, from one
-    generator state, each step's outputs bit-exact and the generators equal
-    at the end; prints the done rows and the passes of each step."""
+def check_compact(env, states, label: str, slots=COMPACT_SLOTS) -> None:
+    """``reset_slots=P`` (each P of ``slots``) against the full autoreset:
+    COMPACT_STEPS steps from ``states`` with every CRASH_EVERY-th ego
+    crashed, from one generator state, each step's outputs bit-exact and the
+    generators equal at the end; prints the done rows and the passes of each
+    step."""
     start = crashed_every(env, states)
-    for P in COMPACT_SLOTS:
+    n = start.time.shape[0]
+    for P in slots:
         g_f, g_c = env.generator(200), env.generator(200)
         s_f = s_c = start
         log = []
         for t in range(COMPACT_STEPS):
-            acts = random_actions(env, B, g_f)
-            random_actions(env, B, g_c)
+            acts = random_actions(env, n, g_f)
+            random_actions(env, n, g_c)
             out_f = env.step_autoreset_batched(s_f, acts, g_f)
             with PassCounter(env) as passes:
                 out_c = env.step_autoreset_batched(s_c, acts, g_c, reset_slots=P)
@@ -1712,7 +1752,7 @@ def check_compact(env, states, label: str) -> None:
             s_f, s_c = out_f[1], out_c[1]
         if not torch.equal(g_f.get_state(), g_c.get_state()):
             raise AssertionError(f"{label}P={P}: the generators differ")
-        print(f"  {label}compact P={P} vs full, B={B}: bit-exact on every field, obs, "
+        print(f"  {label}compact P={P} vs full, B={n}: bit-exact on every field, obs, "
               f"reward, terminated, truncated; generator equal; per step {log}")
 
 
@@ -1726,6 +1766,7 @@ def check_graph(env, states, label: str, variants=None) -> None:
     from highwayenv_tpu_torch.parallel.graph import CapturedStep
 
     start = crashed_every(env, states)
+    n = start.time.shape[0]
     if variants is None:
         variants = [(P, False) for P in (None,) + COMPACT_SLOTS] + [(None, True), (64, True)]
     for P, final_obs in variants:
@@ -1738,8 +1779,8 @@ def check_graph(env, states, label: str, variants=None) -> None:
         where = f"{label}graph P={P}{' final_obs' if final_obs else ''}"
         dones = []
         for t in range(GRAPH_STEPS):
-            acts = random_actions(env, B, g_e)
-            acts_g = random_actions(env, B, g_g)
+            acts = random_actions(env, n, g_e)
+            acts_g = random_actions(env, n, g_g)
             out_e = env._autoreset_rest(*env._autoreset_first(s_e, acts, g_e, P, final_obs))
             out_g = step(acts_g)
             same_step(out_g, out_e, f"{where} step {t}")
@@ -1750,7 +1791,7 @@ def check_graph(env, states, label: str, variants=None) -> None:
         if not torch.equal(g_e.get_state(), g_g.get_state()):
             raise AssertionError(f"{where}: the generators differ")
         print(f"  {label}CapturedStep P={P}{', final_obs' if final_obs else ''} vs eager, "
-              f"{GRAPH_STEPS} steps, B={B}: bit-exact, generator equal; warm-up and capture "
+              f"{GRAPH_STEPS} steps, B={n}: bit-exact, generator equal; warm-up and capture "
               f"{capture_s:.3f} s; done rows {dones}")
 
 
@@ -1801,8 +1842,10 @@ def stepper(env, states, gen, reset_slots, graph: bool):
             box[0] = out[1]
             return out
 
+    n = states.time.shape[0]
+
     def acts():
-        return random_actions(env, B, gen)
+        return random_actions(env, n, gen)
 
     step(acts())
     torch.cuda.synchronize()
@@ -1897,7 +1940,7 @@ def state_tensors(state, prefix: str = "") -> dict:
         v = getattr(state, f.name)
         if dataclasses.is_dataclass(v):
             out.update(state_tensors(v, f"{prefix}{f.name}."))
-        else:
+        elif v is not None:  # the frame stack of an env without one is None
             out[prefix + f.name] = v
     return out
 
@@ -1928,12 +1971,15 @@ def drive_single_env(ht, ss, sf, gf, kernels, card: str) -> dict:
     before and read just after: the straight ids launch K2a, K3, K2b and
     masked K1 once a step, the general ids their K4 instantiation once a
     step, the intersection ids their K5 instantiation once a step and once
-    for the warm-up, and nothing else.  Then the same reset and steps with
-    every kernel stood in for by its plain version (``PlainKernels``):
-    obs, every field of the state, reward, flags and info bit-exact.
+    for the warm-up, and nothing else.  Then, at the first id of each
+    instantiation (ids that share one are held once), the same reset
+    and steps with every kernel stood in for by its plain version
+    (``PlainKernels``): obs, every field of the state, reward, flags and
+    info bit-exact.
     Prints the host ms of the seeded reset and the ms of an eager B=1 step
     per id; returns the B=1 launches summed over the ids by kernel."""
     totals = {name: 0 for name in kernels}
+    held = set()  # the instantiations held to their plain versions
     for env_id in ht.registered_ids():
         env = ht.make(env_id)
         spec = env._general
@@ -1976,22 +2022,27 @@ def drive_single_env(ht, ss, sf, gf, kernels, card: str) -> dict:
             raise AssertionError(f"{env_id} single env: K5 frames {recorder.frames}")
         for n, c in counts.items():
             totals[n] += c
-        with PlainKernels(ss, sf, gf):
-            gen = torch.Generator(device=env.device)
-            reset_p = env.reset_seeded(seed=SEED, generator=gen)
-            same_single(reset_k, reset_p, f"{env_id} seeded reset")
-            st = reset_p[1]
-            for t, a in enumerate(acts):
-                out = env.step_batched(st, a, gen)
-                same_single(steps_k[t], out, f"{env_id} step {t}")
-                st = out[1]
+        plain = path not in held
+        if plain:
+            held.add(path)
+            with PlainKernels(ss, sf, gf):
+                gen = torch.Generator(device=env.device)
+                reset_p = env.reset_seeded(seed=SEED, generator=gen)
+                same_single(reset_k, reset_p, f"{env_id} seeded reset")
+                st = reset_p[1]
+                for t, a in enumerate(acts):
+                    out = env.step_batched(st, a, gen)
+                    same_single(steps_k[t], out, f"{env_id} step {t}")
+                    st = out[1]
         veh = steps_k[-1][1].vehicles
         for k in ("pos", "speed", "heading"):
             if not bool(torch.isfinite(getattr(veh, k)).all()):
                 raise AssertionError(f"{env_id} single env: non-finite {k}")
         mid = sorted(step_ms)[len(step_ms) // 2]
         print(f"  {env_id}: V={env.num_slots}, launches {counts}; seeded reset and "
-              f"{SINGLE_STEPS} steps bit-exact against the plain versions; rewards "
+              f"{SINGLE_STEPS} steps " + ("bit-exact against the plain versions" if plain
+                                          else "(instantiation held at an earlier id)")
+              + "; rewards "
               f"{[round(float(o[2][0]), 6) for o in steps_k]}; seeded reset {reset_ms:.3f} ms "
               f"on the host, a B=1 eager step {mid:.3f} ms median (min {min(step_ms):.3f}, "
               f"first {step_ms[0]:.3f}) ({card})")
@@ -2010,6 +2061,259 @@ class FlagRecorder:
         out, flags = self.kernel(*args, **kwargs)
         self.flags.append(flags)
         return out, flags
+
+
+def check_frames_cpu(ht, env_id, env, states, label: str) -> str:
+    """The env's Grayscale frames of the first GRAY_CPU_ROWS rows of
+    ``states`` on CUDA against the CPU's plain torch frames of the same
+    states copied over: at least GRAY_MIN_EQUAL of each frame's pixels equal
+    and none off by more than GRAY_MAX_LEVELS.  Returns the count."""
+    from highwayenv_tpu_torch.envs.base import map_fields
+
+    cpu = ht.make(env_id, GRAY_CONFIG, device="cpu")
+    veh = map_fields(lambda t: t[:GRAY_CPU_ROWS], states.vehicles)
+    got = env.observation_type.frame(env.geo, veh, env.ego_slots[0]).cpu()
+    want = cpu.observation_type.frame(cpu.geo, map_fields(lambda t: t.cpu(), veh),
+                                      cpu.ego_slots[0])
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs().flatten(1)
+    equal = (diff == 0).double().mean(dim=1)
+    off, n = int((diff > 0).sum()), diff.numel()
+    if float(equal.min()) < GRAY_MIN_EQUAL or int(diff.max()) > GRAY_MAX_LEVELS:
+        raise AssertionError(f"{label}: CUDA frames against the CPU's: {off} of {n} pixels "
+                             f"differ, max {int(diff.max())} levels, a frame "
+                             f"{float(equal.min()):.5f} equal")
+    return f"{off} of {n} pixels differ (max {int(diff.max())} levels)"
+
+
+def check_grayscale(ht, kernels, launches, rows, err, card: str, start: float) -> dict:
+    """GrayscaleObservation on the card.
+
+    highway-v0 (V=51) at B=4096 with GRAY_CONFIG, the counts set to 0 just
+    before a HORIZON-step random-policy rollout and read just after: K1,
+    K2a, K3 and K2b once a policy step, as at one-ego highway-v0, and no
+    other kernel; K1, K2a, K3 and K2b against their plain versions on the
+    reset scene, bit-exact (their errors in ``err`` under "K1 grayscale"
+    ..); then the compact autoreset (P=1024) against the full one and the
+    captured full step against the eager one, the stack included,
+    bit-exact; the CUDA frames against the CPU's (``check_frames_cpu``) of
+    the reset batch and of the rollout's last state; eager and graph ms per
+    step (three runs each, in turns), device busy and kernels per step and
+    a profile of replays, the head's device ms at B rows, the step's peak
+    device memory (at most GRAY_MAX_BYTES), and the rows "K1 grayscale" ..
+    "K2b grayscale": the Grayscale path's launches beside the times of
+    the same kernels on the main path's highway-v0 scene (phase 5: the
+    state the kernels read is the same under any observation).  Then
+    intersection-v0 (K5: twice a step and once for the first reset) and
+    racetrack-v0 (K4 raw: once a step) at GRAY_SMALL_B and
+    GRAY_SMALL_STEPS steps, the curved chords: the same equalities
+    (compact at P = GRAY_SMALL_B / 4, further passes) and launches.
+    Returns {env_id: (env, states)}."""
+    from highwayenv_tpu_torch.envs.base import map_fields
+    from highwayenv_tpu_torch.parallel.graph import CapturedStep
+
+    out = {}
+    for env_id, n, path in (("highway-v0", B, ("K1", "K2a", "K3", "K2b")),
+                            ("intersection-v0", GRAY_SMALL_B, ("K5",)),
+                            ("racetrack-v0", GRAY_SMALL_B, ("K4",))):
+        env = ht.make(env_id, GRAY_CONFIG)
+        label = f"{env_id} Grayscale"
+        steps = HORIZON if n == B else GRAY_SMALL_STEPS
+        print(f"== 4. Grayscale path: make('{env_id}', {GRAY_CONFIG}) on CUDA, B={n}, "
+              f"V={env.num_slots}, reset and {steps} random-policy autoreset steps "
+              f"[at {time.time() - start:.0f} s]")
+        gen = env.generator(SEED + 20)
+        for k in kernels.values():
+            k.launches = 0
+        obs, states = env.reset(n, gen)
+        if obs.shape != (n, 4, 128, 64) or obs.dtype != torch.uint8:
+            raise AssertionError(f"{label}: observation {tuple(obs.shape)} {obs.dtype}")
+        if bool(obs[:, :3].any()) or not bool(obs[:, 3].any(dim=(1, 2)).all()):
+            raise AssertionError(f"{label}: a reset stack is not three zero frames and one")
+        last, m = rollout(env, states, steps, gen)
+        torch.cuda.synchronize()
+        counts = {name: k.launches for name, k in kernels.items() if k.launches}
+        want = {name: steps for name in path}
+        if env.regulated:
+            want = {"K5": 2 * steps + 1}
+        m = {k: float(v) for k, v in m.items()}
+        print(f"  launches {counts}; rollout {m}")
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts}, expected {want}")
+        if not all(np.isfinite(list(m.values()))):
+            raise AssertionError(f"{label}: non-finite metrics")
+        for name, c in counts.items():
+            launches[f"{name} grayscale" + ("" if n == B else f" {env_id}")] = c
+        for what, st in (("reset", states), (f"{steps} steps in", last)):
+            print(f"  CUDA frames against the CPU's, {what}, {GRAY_CPU_ROWS} rows: "
+                  + check_frames_cpu(ht, env_id, env, st, f"{label} {what}"))
+        check_compact(env, states, label + " ", slots=(1024,) if n == B else (n // 4,))
+        check_graph(env, states, label + " ", variants=((None, False),))
+        out[env_id] = (env, states)
+        if n != B:
+            continue
+
+        # the main path's times at B=4096
+        walls = {name: [] for name in ("eager full", "graph full")}
+        for r in range(3):
+            for name in (("eager full", "graph full") if r % 2 == 0
+                         else ("graph full", "eager full")):
+                walls[name].append(timed_steps(env, states, env.generator(SEED + 5),
+                                               TIMED_STEPS, None, name == "graph full"))
+        for name, ws in walls.items():
+            busy, n_kernels = step_device_ms(env, states, env.generator(SEED + 5), None,
+                                             name == "graph full")
+            mid = sorted(ws)[1]
+            print(f"  {label} {name}: " + ", ".join(f"{w:.4f}" for w in ws)
+                  + f" ms per step ({B * 1e3 / mid:.1f} env-steps/s at the median); device "
+                  f"busy {busy:.4f} ms per step, {100 * busy / mid:.1f}% of the median, "
+                  f"{n_kernels:.1f} device kernels per step ({card})")
+        names = ("straight_frames_kernel", "sort_kernel", "straight_frames_sorted_kernel",
+                 "unsort_kernel")
+        prof = profile_replays(env, states, env.generator(SEED + 6), names)
+        print(f"  {label} graph full, profile of {PROFILE_REPLAYS} replays: "
+              f"{prof['kernels']:.1f} device kernels and {prof['busy_ms']:.4f} ms device busy "
+              f"per replay; the port's kernels per replay {prof['ours']} ({card})")
+        if prof["kernels"] > 0 and any(prof["ours"].get(k, 0.0) != 1.0 for k in names):
+            raise AssertionError(f"{label}: a replay launched {prof['ours']}, expected one "
+                                 "of each sorted-path kernel")
+        ot, veh = env.observation_type, states.vehicles
+        head_ms = device_ms(lambda: ot.frame(env.geo, veh, env.ego_slots[0]), 3)
+        push_ms = device_ms(lambda: env._push_frame(states), 3)
+        print(f"  {label} head at {B} rows: a frame {head_ms:.4f} ms on the device, the push "
+              f"(frame and roll) {push_ms:.4f} ms ({card})")
+        peaks = {}
+        for name, P in (("full", None), ("compact P=1024", 1024)):
+            st = map_fields(torch.clone, states)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            env.step_autoreset_batched(st, random_actions(env, B, gen), gen, reset_slots=P)
+            torch.cuda.synchronize()
+            peaks[f"eager {name}"] = torch.cuda.max_memory_allocated()
+            peaks[f"eager {name}, above the state"] = peaks[f"eager {name}"] - base
+        torch.cuda.reset_peak_memory_stats()
+        cap = CapturedStep(env, states, env.generator(SEED + 7))
+        cap(random_actions(env, B, gen))
+        torch.cuda.synchronize()
+        peaks["captured full (capture and a replay)"] = torch.cuda.max_memory_allocated()
+        del cap
+        print(f"  {label} peak device memory (max_memory_allocated, bytes): {peaks} ({card})")
+        if max(peaks.values()) > GRAY_MAX_BYTES:
+            raise AssertionError(f"{label}: peak device memory {max(peaks.values())} bytes")
+        check_gray_kernels(env, states, err)
+        for name in path:
+            main = rows[name]
+            rows[f"{name} grayscale"] = (
+                main[0] + " (highway-v0 Grayscale path; timed on the main path's scene)",
+            ) + main[1:]
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_gray_kernels(env, states, err) -> None:
+    """K1, K2a, K3 and K2b against their plain versions on the Grayscale
+    path's reset scene with random actions applied, every field bit-exact;
+    their max errors in ``err`` under "K1 grayscale" .. "K2b grayscale"."""
+    from highwayenv_tpu_torch.ops import straight_frames as sf, straight_sorted as ss
+
+    fs, p, dt, frames = env._straight, env.idm_params, env.dt, env.frames_per_step
+    n = states.time.shape[0]
+    sa = env._action_to_slots(random_actions(env, n, env.generator(SEED + 21)))
+    veh = env.action_type.apply(env.geo, states.vehicles, states.vehicles.kind == 1, sa)
+    where = "highway-v0 Grayscale reset"
+    err["K1 grayscale"] = exact_state(sf.frames_kernel(veh, fs, p, dt, frames, linear=False),
+                                      sf.frames_plain(veh, fs, p, dt, frames), f"{where} K1")
+    srt_k, idx_k = ss.sort_kernel(veh, fs)
+    srt_p, idx_p = ss.sort_plain(veh, fs)
+    if not torch.equal(idx_k, idx_p):
+        raise AssertionError(f"{where} K2a: idx differs")
+    exact(srt_k, srt_p, [name for name, _, _ in ss.SORT_FIELDS], f"{where} K2a")
+    band_k, flags_k = ss.frames_sorted_kernel(srt_p, idx_p, fs, p, dt, frames, linear=False)
+    band_p, flags_p = ss.frames_sorted_plain(srt_p, idx_p, fs, p, dt, frames)
+    if not torch.equal(flags_k, flags_p):
+        raise AssertionError(f"{where} K3: flags differ")
+    err["K3 grayscale"] = exact_state(band_k, band_p, f"{where} K3")
+    exact(ss.unsort_kernel(band_p, idx_p, veh), ss.unsort_plain(band_p, idx_p, veh),
+          [name for name, _, _ in ss.MUT_FIELDS], f"{where} K2b")
+    err["K2a grayscale"] = err["K2b grayscale"] = 0.0
+    print(f"  {where}: K1, K2a, K3 (flags too) and K2b bit-exact against their plain versions")
+
+def check_render(ht, gray) -> None:
+    """``render.render_rgb`` of row 0 of a CUDA state equal to the same
+    from the state copied to the CPU, at highway-v0 and intersection-v0."""
+    from highwayenv_tpu_torch.envs.base import map_fields
+    from highwayenv_tpu_torch.render import render_rgb
+
+    for env_id in ("highway-v0", "intersection-v0"):
+        env, states = gray[env_id]
+        cpu = ht.make(env_id, GRAY_CONFIG, device="cpu")
+        got = render_rgb(env, states)
+        want = render_rgb(cpu, map_fields(lambda t: t.cpu(), states))
+        if got.shape != (env.config["screen_height"], env.config["screen_width"], 3) or (
+                not np.array_equal(got, want)):
+            raise AssertionError(f"{env_id}: render_rgb of a CUDA state differs "
+                                 "from its CPU copy's")
+        print(f"  render_rgb {env_id}: {got.shape} frame of row 0 on CUDA equal to "
+              "its CPU copy's")
+
+
+def check_sequential(ht, kernels, card: str) -> None:
+    """``sequential_decisions`` (the reference's decision order, plain torch
+    frames) at SEQ_IDS, B=SEQ_B, the counts set to 0 just before and read
+    just after: the reset's scenes (intersection-v0's warm-up included) and
+    SEQ_STEPS policy steps' frames on CUDA against the CPU on the same
+    inputs (the draws, then each step's state copied over): discrete fields
+    equal, pos within POS_ATOL; no frame kernel launched; ms per
+    ``step_batched`` step on CUDA."""
+    import dataclasses
+
+    from highwayenv_tpu_torch.envs.base import map_fields
+
+    for k in kernels.values():
+        k.launches = 0
+    for env_id in SEQ_IDS:
+        cfg = {"sequential_decisions": True}
+        env, cpu = ht.make(env_id, cfg), ht.make(env_id, cfg, device="cpu")
+        if not (env._general.sequential and env._straight is None):
+            raise AssertionError(f"{env_id}: sequential_decisions is not on the plain frames")
+        gen = env.generator(SEED + 30)
+        draws = env._reset_draws(SEQ_B, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = env._place_state(draws)
+        torch.cuda.synchronize()
+        reset_ms = (time.perf_counter() - t0) * 1e3
+        pairs = [("reset", st, cpu._place_state({k: v.cpu() for k, v in draws.items()}))]
+        step_ms = []
+        for t in range(SEQ_STEPS):
+            acts = random_actions(env, SEQ_B, gen)
+            sim = env._simulate_batched(st, acts)
+            pairs.append((f"step {t}", sim, cpu._simulate_batched(
+                map_fields(lambda x: x.cpu(), st), acts.cpu())))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = env.step_batched(st, acts, gen)[1]
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        pos_err = 0.0
+        for what, a, b in pairs:
+            for f in dataclasses.fields(a.vehicles):
+                x, y = getattr(a.vehicles, f.name).cpu(), getattr(b.vehicles, f.name)
+                if f.name in DISCRETE + ("kind", "route_ptr", "speed_index", "is_yielding"):
+                    if not torch.equal(x, y):
+                        raise AssertionError(f"{env_id} sequential {what}: {f.name} differs "
+                                             "between CUDA and the CPU")
+            pos_err = max(pos_err, float((a.vehicles.pos.cpu() - b.vehicles.pos).abs().max()))
+        if pos_err > POS_ATOL:
+            raise AssertionError(f"{env_id} sequential: pos differs by {pos_err} m")
+        print(f"  {env_id} sequential_decisions, V={env.num_slots}, B={SEQ_B}: the reset and "
+              f"{SEQ_STEPS} steps' frames on CUDA against the CPU: discrete fields equal, pos "
+              f"err {pos_err:.3e} m; the reset's placement {reset_ms:.1f} ms, a step "
+              + ", ".join(f"{t:.1f}" for t in step_ms) + f" ms on CUDA ({card})")
+    counts = {n: k.launches for n, k in kernels.items() if k.launches}
+    if counts:
+        raise AssertionError(f"sequential_decisions launched frame kernels: {counts}")
+    print("  no frame kernel launched in the sequential_decisions runs")
 
 
 def main() -> int:
@@ -3269,6 +3573,16 @@ def main() -> int:
         obs_ms = device_ms(lambda e=e, s=t0_states: e._observe(s, e.generator(SEED)), 5)
         print(f"  {label} observation ({type(e.observation_type).__name__}): {obs_ms:.4f} ms "
               "on the device")
+
+    # GrayscaleObservation on the card (before phase 6: the profiles),
+    # render_rgb of a CUDA state, and the reference's decision order
+    gray = check_grayscale(ht, conn_kernels, launches, rows, err, card, start)
+    print("== 4. render_rgb of a CUDA state against its CPU copy")
+    check_render(ht, gray)
+    print(f"== 4. sequential_decisions at {SEQ_IDS} on CUDA, B={SEQ_B} "
+          f"[at {time.time() - start:.0f} s]")
+    check_sequential(ht, conn_kernels, card)
+    del gray
 
     # the single-env seeded path: every id at B=1, each with the counts set
     # to 0 just before it.  It runs last: after it, torch.profiler on the

@@ -97,6 +97,9 @@ class EnvState:
     vehicles: VehicleState
     time: torch.Tensor  # (B,) f32, simulation time [s]
     steps: torch.Tensor  # (B,) i32, simulation frames executed
+    #: (B, stack, W, H) uint8, the GrayscaleObservation's frame stack (None
+    #: under any other observation)
+    obs_stack: torch.Tensor | None = None
 
     def replace(self, **changes) -> "EnvState":
         return dataclasses.replace(self, **changes)
@@ -115,12 +118,17 @@ def resolve_device(device=None) -> torch.device:
 
 def map_fields(fn, *states):
     """``fn`` applied tensor by tensor over EnvStates (or VehicleStates) of
-    one structure: a state of its results."""
+    one structure: a state of its results.  A field that is None (the frame
+    stack of an env without one) stays None."""
     out = {}
     for f in dataclasses.fields(states[0]):
         values = [getattr(s, f.name) for s in states]
-        out[f.name] = (map_fields(fn, *values) if dataclasses.is_dataclass(values[0])
-                       else fn(*values))
+        if values[0] is None:
+            out[f.name] = None
+        elif dataclasses.is_dataclass(values[0]):
+            out[f.name] = map_fields(fn, *values)
+        else:
+            out[f.name] = fn(*values)
     return type(states[0])(**out)
 
 
@@ -237,8 +245,12 @@ class BaseEnv:
         self.frames_per_step = int(
             self.config["simulation_frequency"] // self.config["policy_frequency"]
         )
+        # the reference's decision order runs only in the general frames
+        # (plain torch), on a straight road too, as in the JAX package
+        sequential = general_frames.sequential(self)
         self._straight = (
-            None if self.regulated else straight_fast.try_compile(self.net)
+            None if self.regulated or sequential
+            else straight_fast.try_compile(self.net)
         )
         # analytic networks that are not straight take the general path
         self._general = (
@@ -251,7 +263,6 @@ class BaseEnv:
         self.linear_rows = self.npc_preset is not None
         unported = [
             what for what, bad in (
-                ("sequential_decisions", self.config.get("sequential_decisions")),
                 ("several controlled vehicles",
                  (len(self.ego_slots) != 1
                   or self.config.get("controlled_vehicles", 1) > 1)
@@ -263,10 +274,10 @@ class BaseEnv:
                  self._straight is not None and general_frames.dynamical(self.action_type)),
             ) if bad
         ]
-        if self._straight is None:
-            unported += general_frames.general_unported(self)
-        else:
+        if self._straight is not None:
             unported += straight_frames.kernel_limits(self.num_slots, self._straight)
+        elif not sequential:  # the sequential mode launches no kernel
+            unported += general_frames.general_unported(self)
         if unported:
             raise NotImplementedError(
                 f"{type(self).__name__}: {', '.join(unported)} not ported yet"
@@ -468,9 +479,14 @@ class BaseEnv:
         """One policy step through the frame kernels (CUDA tensors) or their
         plain versions (CPU tensors): on a general network the general frame
         kernel; on a straight one the sorted path, or the dense one when the
-        env was made with ``sorted_frames=False``.  The ported straight
+        env was made with ``sorted_frames=False``.  A ``sequential_decisions``
+        env steps the plain general frames on its device (the JAX package
+        turns its kernels off for it too).  The ported straight
         scenes are all lean (vehicles only), the JAX package's condition for
         sorting."""
+        if self._general is not None and self._general.sequential:
+            # the reference's decision order is the plain frames' alone
+            return self._simulate(states, actions)
         if self._general is not None:
             return self._advance(states, actions, general_frames.simulate_general)
         return self._advance(
@@ -492,6 +508,14 @@ class BaseEnv:
         JAX package folds the step count into the state's key; without a
         generator it does not draw."""
         obs_type = self.observation_type
+        if getattr(obs_type, "stateful_stack", False):
+            # the grayscale frame stack, pushed by _push_frame
+            return state.obs_stack
+        if getattr(obs_type, "host_side", False):
+            # a host-rendered observation (the pygame grayscale backend):
+            # the single-env GymEnv fills it in; the batch carries zeros
+            return torch.zeros((state.time.shape[0],) + tuple(obs_type.shape),
+                               dtype=torch.uint8, device=state.time.device)
         if getattr(obs_type, "observes_env", False):
             return obs_type.observe_env(self, state)
         kw = {}
@@ -517,24 +541,39 @@ class BaseEnv:
         name = self.npc_preset
         return veh if name is None else with_preset(veh, veh.kind == KIND_IDM, name)
 
+    def _push_frame(self, state: EnvState) -> EnvState:
+        """The grayscale frame stack rolled with the current scene (the JAX
+        package's ``_push_frame``); unchanged under any other observation.
+        Every placed scene (full, compact and seeded resets) and every
+        step's head push once."""
+        obs_type = self.observation_type
+        if not getattr(obs_type, "stateful_stack", False):
+            return state
+        stack = state.obs_stack
+        if stack is None:
+            stack = obs_type.init_stack(state.time.shape[0], state.time.device)
+        return state.replace(obs_stack=obs_type.push(
+            self.geo, state.vehicles, self.ego_slots[0], stack))
+
     def _place_state(self, draws: dict[str, torch.Tensor]) -> EnvState:
         return self._state_of(self._place_vehicles(draws), draws)
 
     def _state_of(self, veh: VehicleState, draws: dict[str, torch.Tensor]) -> EnvState:
         """The EnvState of placed scenes ``veh``: the preset on (every placed
         scene, full, compact or seeded reset), time 0, the frame counter at
-        its start.  An env whose state carries more fields takes them from
-        ``draws`` (``_state_draws``' where the scene was replayed)."""
+        its start, the first frame pushed on a grayscale stack.  An env
+        whose state carries more fields takes them from ``draws``
+        (``_state_draws``' where the scene was replayed)."""
         veh = self._apply_npc_type(veh)
         batch = veh.kind.shape[0]
-        return EnvState(
+        return self._push_frame(EnvState(
             vehicles=veh,
             time=torch.zeros(batch, dtype=torch.float32, device=self.device),
             steps=torch.full(
                 (batch,), self._initial_steps, dtype=torch.int32,
                 device=self.device,
             ),
-        )
+        ))
 
     def _state_draws(self, batch: int, generator) -> dict[str, torch.Tensor]:
         """The draws of the state beyond its scene, for ``_state_of``: none
@@ -571,7 +610,9 @@ class BaseEnv:
         return seeding.seeded_reset(self, rng, generator)
 
     def _finish_head(self, state: EnvState, action):
-        """Reward / termination / info on an already-simulated state."""
+        """The frame pushed on a grayscale stack, then reward / termination /
+        info, on an already-simulated state."""
+        state = self._push_frame(state)
         reward = self._reward(state, action)
         terminated = self._is_terminated(state)
         truncated = self._is_truncated(state)

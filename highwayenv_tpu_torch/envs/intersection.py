@@ -348,7 +348,8 @@ class IntersectionEnv(BaseEnv):
 
     def _warm_up(self, veh: VehicleState) -> VehicleState:
         """The 3 s of traffic before the episode, from frame counter 0, on
-        the first ``_warmup_slots`` slots: one launch of K5 on CUDA."""
+        the first ``_warmup_slots`` slots: one launch of K5 on CUDA, or the
+        plain frames under ``sequential_decisions``."""
         B, W = veh.kind.shape[0], self._warmup_slots
         dev = self.device
         fields = [f.name for f in dataclasses.fields(VehicleState)]
@@ -357,11 +358,15 @@ class IntersectionEnv(BaseEnv):
         extra = tuple(self.action_type.action_shape)
         zeros = torch.zeros((B, W) + extra, device=dev,
                             dtype=torch.float32 if extra else torch.int32)
-        # IDM rows only: a preset goes on after the warm-up
-        sub = general_frames.simulate_general(
-            self, sub, zeros, self._warmup_frames,
-            steps0=torch.zeros(B, dtype=torch.int32, device=dev), linear=False,
-        )
+        steps0 = torch.zeros(B, dtype=torch.int32, device=dev)
+        if self._general.sequential:
+            # the reference's decision order: the plain frames
+            sub = general_frames.simulate_general_reference(
+                self, sub, zeros, self._warmup_frames, steps0=steps0)
+        else:
+            # IDM rows only: a preset goes on after the warm-up
+            sub = general_frames.simulate_general(
+                self, sub, zeros, self._warmup_frames, steps0=steps0, linear=False)
         return VehicleState(**{
             f: torch.cat([getattr(sub, f), getattr(veh, f)[:, W:]], dim=1) for f in fields
         })

@@ -46,7 +46,7 @@ from highwayenv_tpu_torch.vehicle.state import KIND_EGO, VehicleState, empty_sta
 class LaneKeepingState(EnvState):
     #: (B, 2, 4, 1) the uniform noise of the state's observation: the
     #: ``state`` attribute's, then the ``derivative`` attribute's
-    noise: torch.Tensor
+    noise: torch.Tensor = dataclasses.field(kw_only=True)
 
 
 class LaneKeepingEnv(BaseEnv):
@@ -150,7 +150,8 @@ class LaneKeepingEnv(BaseEnv):
     def _state_of(self, veh: VehicleState, draws: dict[str, torch.Tensor]) -> LaneKeepingState:
         state = super()._state_of(veh, draws)
         return LaneKeepingState(vehicles=state.vehicles, time=state.time,
-                                steps=state.steps, noise=draws["noise"])
+                                steps=state.steps, obs_stack=state.obs_stack,
+                                noise=draws["noise"])
 
     def _tracked_lane(self, state: EnvState) -> torch.Tensor:
         ptr = torch.clamp(state.vehicles.route_ptr[:, 0], 0, 1)

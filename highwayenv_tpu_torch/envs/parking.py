@@ -40,6 +40,10 @@ WALL_W, WALL_H = 70.0, 42.0
 
 
 class ParkingEnv(BaseEnv):
+    #: the egos' colour in the rendered frames (the reference sets the
+    #: vehicle's color attribute, parking_env.py)
+    ego_color = (50, 200, 0)
+
     #: ``controlled_vehicles`` egos, each with its goal: the reward sums
     #: their goal rewards and crashes, success takes every ego's, any crash
     #: terminates

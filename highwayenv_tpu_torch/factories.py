@@ -4,43 +4,27 @@ PyTorch counterpart of ``highwayenv_tpu/factories.py`` (reference
 envs/common/observation.py ``observation_factory`` and envs/common/action.py
 ``action_factory``), so scenario configs stay drop-in.  The port has the
 Kinematics, KinematicsGoal, TimeToCollision, ExitObservation,
-OccupancyGrid, LidarObservation, MultiAgentObservation, TupleObservation
-and AttributesObservation observations and
-the DiscreteMetaAction, ContinuousAction, DiscreteAction and
-MultiAgentAction (every action type the JAX package knows); every other
-observation type it knows raises ``NotPortedError`` naming the module it
-waits for, and an unknown type raises ``ValueError`` as in the JAX package.
+OccupancyGrid, LidarObservation, GrayscaleObservation,
+MultiAgentObservation, TupleObservation and AttributesObservation
+observations and the DiscreteMetaAction, ContinuousAction, DiscreteAction
+and MultiAgentAction (every observation and action type the JAX package
+knows); an unknown type raises ``ValueError`` as in the JAX package.
 """
 
 from __future__ import annotations
 
-from highwayenv_tpu_torch import NotPortedError
 from highwayenv_tpu_torch.actions.continuous import ContinuousAction, DiscreteAction
 from highwayenv_tpu_torch.actions.discrete_meta import DiscreteMetaAction
 from highwayenv_tpu_torch.actions.multi_agent import MultiAgentAction
 from highwayenv_tpu_torch.observations.attributes import AttributesObservation
 from highwayenv_tpu_torch.observations.exit_obs import ExitObservation
+from highwayenv_tpu_torch.observations.grayscale import GrayscaleObservation
 from highwayenv_tpu_torch.observations.kinematics import KinematicsObservation
 from highwayenv_tpu_torch.observations.kinematics_goal import KinematicsGoalObservation
 from highwayenv_tpu_torch.observations.lidar import LidarObservation
 from highwayenv_tpu_torch.observations.multi import MultiAgentObservation, TupleObservation
 from highwayenv_tpu_torch.observations.occupancy_grid import OccupancyGridObservation
 from highwayenv_tpu_torch.observations.ttc import TimeToCollisionObservation
-
-#: the JAX package's other types and the module each one needs
-_UNPORTED_OBSERVATIONS = {
-    "GrayscaleObservation": "observations/grayscale.py",
-}
-
-
-def _refuse_observation(kind: str):
-    if kind in _UNPORTED_OBSERVATIONS:
-        raise NotPortedError(
-            f"observation type {kind!r} is not ported yet: it needs the port of "
-            f"highwayenv_tpu/{_UNPORTED_OBSERVATIONS[kind]}"
-        )
-    raise ValueError(f"Unknown observation type: {kind}")
-
 
 def observation_factory(env, config: dict):
     kwargs = {k: v for k, v in config.items() if k != "type"}
@@ -66,7 +50,9 @@ def observation_factory(env, config: dict):
         return TupleObservation(env, **kwargs)
     if config["type"] == "AttributesObservation":
         return AttributesObservation(env, **kwargs)
-    return _refuse_observation(config["type"])
+    if config["type"] == "GrayscaleObservation":
+        return GrayscaleObservation(env, **kwargs)
+    raise ValueError(f"Unknown observation type: {config['type']}")
 
 
 def action_factory(config: dict, env=None):

@@ -13,26 +13,29 @@ lane-keeping noise) come from a ``torch.Generator`` derived from it without
 consuming a draw.  A step runs the batched step at B=1 (``step_batched``,
 the frame kernels on CUDA) with no autoreset.
 
+Rendering is host code over the state: ``render()`` gives the
+``rgb_array`` frame of ``render.py`` (or of ``pygame_render.py`` under
+``config["render_backend"] = "pygame"``, pixel-exact to the reference), and
+in ``human`` mode shows it in a pygame window (``viewer.EnvViewer``; with
+``SDL_VIDEODRIVER=dummy`` headless), whose keys drive the ego under
+``config["manual_control"]``.  A pygame-backend GrayscaleObservation is
+rendered on the host here, on every reset and step.
+
 ``register_gymnasium_envs()`` registers every id under
 ``highwayenv_tpu_torch/<id>``: ``gymnasium.make`` gives a ``GymEnv`` (the
 multi-agent intersection's -v1 and -v2 wrapped in ``MultiAgentWrapper``, as
 the reference registers them) and ``gymnasium.make_vec`` the batched
-``vector_env.GymVectorEnv``.  Rendering is not ported: ``render()`` with a
-render mode and ``manual_control`` raise ``NotPortedError``.
+``vector_env.GymVectorEnv``.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
 
 import gymnasium
-
-from highwayenv_tpu_torch import NotPortedError
-
-#: what rendering waits for (ROADMAP Queue 1 item 8)
-_RENDERING = ("rendering is not ported yet (ROADMAP Queue 1 item 8: render.py, "
-              "observations/grayscale.py, viewer.py)")
 
 
 def _row(x):
@@ -60,12 +63,14 @@ class GymEnv(gymnasium.Env):
         self.env = self._make()
         self._state = None
         self._generator = self.env.generator(0)
+        self._viewer = None
+        self._pygame_renderer = None
+        #: per slot, the deque of its last 30 poses (show_trajectories)
+        self._history = {}
 
     def _make(self):
         import highwayenv_tpu_torch as ht
 
-        if self._user_config.get("manual_control"):
-            raise NotPortedError(f"manual_control: {_RENDERING}")
         return ht.make(self._env_id, dict(self._user_config) or None, device=self._device)
 
     # -- config surface (reference abstract.py) ----------------------------- #
@@ -104,6 +109,18 @@ class GymEnv(gymnasium.Env):
             action = action.astype(np.float32)
         return torch.as_tensor(action[None], device=self.env.device)
 
+    @property
+    def _host_obs(self) -> bool:
+        """The observation is rendered on the host (a pygame-backend
+        GrayscaleObservation)."""
+        return getattr(self.env.observation_type, "host_side", False)
+
+    def _observation(self, obs):
+        """Row 0 of the step's observation, or the host-rendered one."""
+        if self._host_obs:
+            return self.env.observation_type.observe_host(self.env, self._state)
+        return _row(obs)
+
     def reset(self, *, seed: int | None = None, options: dict | None = None):
         from highwayenv_tpu_torch import seeding
 
@@ -118,25 +135,70 @@ class GymEnv(gymnasium.Env):
             if seed is not None:
                 self._generator.manual_seed(seed)
             obs, self._state = self.env.reset_batch(1, self._generator)
+        if self._host_obs:
+            self.env.observation_type.reset_stack()
+        obs = self._observation(obs)
         # the reset's info (reference abstract.py): _info with a sampled action
         info = self.env._info(self._state, self._actions(self.action_space.sample()))
-        return _row(obs), _row(info)
+        return obs, _row(info)
 
     def step(self, action):
         if self._state is None:
             raise RuntimeError("reset() must be called before step()")
+        if self.config.get("manual_control", False) and self._viewer is not None:
+            # the keyboard overrides the agent
+            action = self._viewer.get_manual_action()
         obs, self._state, reward, terminated, truncated, info = self.env.step_batched(
             self._state, self._actions(action), self._generator
         )
-        return (_row(obs), float(reward[0]), bool(terminated[0]), bool(truncated[0]),
+        return (self._observation(obs), float(reward[0]), bool(terminated[0]), bool(truncated[0]),
                 _row(info))
 
+    def render_frame(self) -> np.ndarray:
+        """The (H, W, 3) uint8 frame of the state: ``render.render_rgb``, or
+        the pygame pipeline under ``config["render_backend"] = "pygame"``;
+        with ``show_trajectories`` the past poses as faded ghosts."""
+        from highwayenv_tpu_torch.render import render_rgb, row0
+
+        if self._state is None:
+            raise RuntimeError("reset() must be called before render()")
+        if self.config.get("render_backend") == "pygame":
+            from highwayenv_tpu_torch.pygame_render import PygameFrameRenderer
+
+            if self._pygame_renderer is None:
+                self._pygame_renderer = PygameFrameRenderer(
+                    self.env, self.config["screen_width"], self.config["screen_height"])
+            self._pygame_renderer.display(self._state)
+            return self._pygame_renderer.get_image()
+        if not self.config.get("show_trajectories"):
+            return render_rgb(self.env, self._state)
+        # each slot's pose history (reference Vehicle.history, a deque of 30)
+        veh = row0(self._state.vehicles)
+        for i in range(self.env.num_slots):
+            if veh["kind"][i] == 0:
+                continue
+            self._history.setdefault(i, collections.deque(maxlen=30)).appendleft(
+                (veh["pos"][i].copy(), float(veh["heading"][i]), float(veh["length"][i]),
+                 float(veh["width"][i])))
+        return render_rgb(self.env, self._state, history=self._history)
+
     def render(self):
-        if self.render_mode is not None:
-            raise NotPortedError(_RENDERING)
+        if self._state is None:
+            return None
+        if self.render_mode == "rgb_array":
+            return self.render_frame()
+        if self.render_mode == "human":
+            from highwayenv_tpu_torch.viewer import EnvViewer
+
+            if self._viewer is None:
+                self._viewer = EnvViewer(self)
+            return self._viewer.display()
         return None
 
     def close(self):
+        if self._viewer is not None:
+            self._viewer.close()
+            self._viewer = None
         self._state = None
 
 

@@ -99,6 +99,9 @@ class GeneralSpec(NamedTuple):
     connected: bool = False
     #: the egos integrate by the tire-slip model (a dynamical action type)
     dynamical: bool = False
+    #: the reference's decision order (``sequential_decisions``): plain
+    #: torch frames only, on any network, no kernel
+    sequential: bool = False
 
 
 def kernel_limits(V: int, L: int, M: int, R: int, S: int,
@@ -153,15 +156,24 @@ def general_unported(env) -> list[str]:
     )
 
 
+def sequential(env) -> bool:
+    """Whether ``env`` decides in the reference's act() order
+    (``config["sequential_decisions"]``)."""
+    return bool(env.config.get("sequential_decisions", False))
+
+
 def try_general(env) -> GeneralSpec | None:
-    """The general path's spec, or None when the env is outside the gate."""
-    if general_unported(env):
+    """The general path's spec, or None when the env is outside the gate.
+    A ``sequential_decisions`` env launches no kernel, so the kernels'
+    limits do not gate it."""
+    if not sequential(env) and general_unported(env):
         return None
     return GeneralSpec(
         geo=env.geo, p=env.idm_params, dt=env.dt,
         max_edge_lanes=int(env.max_edge_lanes), action_type=env.action_type,
         period=env._regulation_period if env.regulated else None,
         connected=_connected(env), dynamical=dynamical(env.action_type),
+        sequential=sequential(env),
     )
 
 
@@ -185,13 +197,24 @@ def frame_general_plain(veh: VehicleState, spec: GeneralSpec, table,
     ``(s, lat)`` (B, L, V); the ego's action is applied when
     ``slot_actions`` is given, the right-of-way pass in the envs where the
     (B,) bool ``tick`` is set; with ``raw`` the egos keep their stored
-    controls.  Returns the state and the new table."""
+    controls.  Under ``spec.sequential`` the decisions go in the
+    reference's order (the JAX package's ``_frame`` branch): the ego's
+    action, then ``behavior.idm_act_sequential``.  Returns the state and
+    the new table."""
     geo, p = spec.geo, spec.p
     table_s, table_lat = table
-    veh = controller.follow_road(geo, veh, spec.max_edge_lanes, table_s)
-    if slot_actions is not None:
-        veh = spec.action_type.apply(geo, veh, veh.kind == KIND_EGO, slot_actions)
-    veh, idm_acc = behavior.idm_act(geo, p, veh, table_s, table_lat, spec.connected)
+    if spec.sequential:
+        # the reference's act() order: the ego's action first, then slot
+        # after slot its follow_road and decision
+        if slot_actions is not None:
+            veh = spec.action_type.apply(geo, veh, veh.kind == KIND_EGO, slot_actions)
+        veh, idm_acc = behavior.idm_act_sequential(
+            geo, p, veh, table_s, table_lat, spec.max_edge_lanes, spec.connected)
+    else:
+        veh = controller.follow_road(geo, veh, spec.max_edge_lanes, table_s)
+        if slot_actions is not None:
+            veh = spec.action_type.apply(geo, veh, veh.kind == KIND_EGO, slot_actions)
+        veh, idm_acc = behavior.idm_act(geo, p, veh, table_s, table_lat, spec.connected)
     # the ego's target is its own after the decision pass: one steering
     # law serves the ego and the IDM rows, LinearVehicle's the Linear rows
     steer = controller.steering_from_table(

@@ -135,10 +135,10 @@ class CircularLane:
             self.line_types = [LineType.STRIPED, LineType.STRIPED]
 
     def position(self, s, lat):
-        phi = self.direction * s / self.radius + self.start_phase
-        return self.center + (self.radius - lat * self.direction) * np.array(
-            [np.cos(phi), np.sin(phi)]
-        )
+        phi = self.direction * np.asarray(s, np.float64) / self.radius + self.start_phase
+        # stacked on the last axis, so that an (n, 1) array of s gives (n, 1, 2)
+        pts = np.stack([np.cos(phi), np.sin(phi)], axis=-1)
+        return self.center + (self.radius - lat * self.direction) * pts
 
     def heading_at(self, s):
         return self.direction * s / self.radius + self.start_phase + (

@@ -20,7 +20,9 @@ returned observation is already the first observation of the next episode.
 autoreset of ``envs/base.py``).
 
 The batch lives on the card unless ``device="cpu"`` is asked for, where it
-steps eagerly.  Observations, rewards, flags and info come back as numpy.
+steps eagerly.  ``render_mode="rgb_array"`` renders env 0 on the host
+(``render.py``); an observation rendered on the host (the pygame grayscale
+backend) is refused.  Observations, rewards, flags and info come back as numpy.
 A seed is one integer, which seeds the env's generator; the port draws the
 batch from that one generator and has no per-env keys, so a list of seeds
 raises ``NotPortedError``.  One card: the JAX package's ``shard`` is not
@@ -66,19 +68,21 @@ class GymVectorEnv(VectorEnv):
         ``None`` for CUDA (raises without it), or ``"cpu"``.
     """
 
-    metadata = {"autoreset_mode": AutoresetMode.SAME_STEP, "render_modes": []}
+    metadata = {"autoreset_mode": AutoresetMode.SAME_STEP, "render_modes": ["rgb_array"]}
 
     def __init__(self, env_id: str, num_envs: int, config: dict | None = None,
                  render_mode: str | None = None, final_obs: bool = False,
                  reset_slots: int | None = None, device=None):
         import highwayenv_tpu_torch as ht
 
-        if render_mode is not None:
-            raise NotPortedError(
-                "rendering is not ported yet (highwayenv_tpu/render.py)"
-            )
         self.env = ht.make(env_id, dict(config) if config else None, device=device)
-        self.render_mode = None
+        if getattr(self.env.observation_type, "host_side", False):
+            raise ValueError(
+                "GymVectorEnv needs an observation computed on the device; "
+                f"{type(self.env.observation_type).__name__} is rendered on the "
+                "host under this config (the pygame grayscale backend)"
+            )
+        self.render_mode = render_mode
         self.num_envs = int(num_envs)
         self._final_obs = bool(final_obs)
         self._reset_slots = reset_slots
@@ -156,6 +160,15 @@ class GymVectorEnv(VectorEnv):
             truncated.cpu().numpy().astype(bool),
             info,
         )
+
+    def render(self):
+        """The ``rgb_array`` frame of env 0 (``render.render_rgb``), or None
+        without that render mode or before a reset."""
+        if self.render_mode != "rgb_array" or self._states is None:
+            return None
+        from highwayenv_tpu_torch.render import render_rgb
+
+        return render_rgb(self.env, self._states)
 
     def close_extras(self, **kwargs):
         self._states = None

@@ -20,8 +20,9 @@ on the (B, L, V) projection table of every object on every lane, with
 neighbour slots as indices (-1 = none).  With ``connected`` (the -v1 and
 -v2 ids' ``neighbour_vehicles_connected_lanes``) every neighbour query goes
 through ``neighbours_connected``, which also searches the query lane's
-successor and predecessor lanes.  The sequential decision order is not
-ported.
+successor and predecessor lanes.  ``idm_act_sequential`` is the
+reference's exact decision order (``sequential_decisions``, PARITY.md #1):
+slot after slot, each reading the targets the slots before it wrote.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 from highwayenv_tpu_torch.road import lane as lane_ops
 from highwayenv_tpu_torch.road.lane import VEHICLE_LENGTH, LaneGeometry
 from highwayenv_tpu_torch.utils.math import not_zero
+from highwayenv_tpu_torch.vehicle import controller
 from highwayenv_tpu_torch.vehicle.controller import table_row
 from highwayenv_tpu_torch.vehicle.state import (
     KIND_IDM,
@@ -338,29 +340,12 @@ def _mobil(geo, p, state, rows: Rows, cand, cur_front, cur_rear, table, elig,
     return safe & torch.where(has_route_id, route_ok, jerk >= state.mobil_gain)
 
 
-def idm_act(geo: LaneGeometry, p: IDMParams, state: VehicleState, table_s,
-            table_lat, connected: bool = False):
-    """The decision pass of every IDM and Linear vehicle on the frame-start table
-    (reference ``IDMVehicle.act``): abort a lane change into a gap another
-    controlled vehicle is closing (same road only), else the timer-gated
-    MOBIL choice of the left then the right lane; then the IDM acceleration,
-    the minimum of the current and the target lane's while changing lanes.
-    ``connected``: every neighbour query searches the connected lanes too
-    (``neighbours_connected``); the gaps stay measured on the ego's own
-    lane.  Returns the state with the new target lanes and timers, and the
-    IDM acceleration (B, V)."""
+def conflict_pairs(p: IDMParams, state: VehicleState, rows: Rows, table_s) -> torch.Tensor:
+    """The frame-start part of the abort-on-conflict test, (B, V, V):
+    ``[b, i, j]`` row j is another controlled vehicle within row i's safe
+    distance ahead of it, measured on row i's current lane."""
     V = state.num_slots
-    rows = Rows(geo, state, table_s)
-    me = rows.self_idx
-    elig = eligible_on_lane(geo, state, table_s, table_lat)
-    idm = is_driven(state)
-    lane, tlane = state.lane, state.target_lane
-    li, tli = lane_ops._gather(geo, lane), lane_ops._gather(geo, tlane)
-    mid_change = lane != tlane
-    table = (table_s, table_lat)
-    cur_front, cur_rear = query_neighbours(geo, state, lane, *table, elig, connected)
-
-    # abort-on-conflict: [b, i, j] = row i changing lanes against row j
+    lane = state.lane
     s_pairs = pair_table(table_s, lane)
     d_ij = s_pairs - table_row(table_s, lane)[..., None]
     vx, vy = rows.fields["vx"], rows.fields["vy"]
@@ -372,26 +357,34 @@ def idm_act(geo: LaneGeometry, p: IDMParams, state: VehicleState, table_s,
         p.inv_two_sqrt_ab
     )
     eye = torch.eye(V, dtype=torch.bool, device=lane.device)
-    conflict = (
-        ~eye
-        & state.is_controlled[:, None, :]
-        & (lane[:, None, :] != tlane[:, :, None])
-        & (tlane[:, None, :] == tlane[:, :, None])
-        & (0.0 < d_ij)
-        & (d_ij < d_star_ij)
-    )
-    abort = (
-        idm & mid_change & (geo.edge_base[li] == geo.edge_base[tli])
-        & conflict.any(dim=-1)
-    )
+    return ~eye & state.is_controlled[:, None, :] & (0.0 < d_ij) & (d_ij < d_star_ij)
 
-    # timer-gated side-lane decision, left then right
+
+def may_abort(geo: LaneGeometry, state: VehicleState) -> torch.Tensor:
+    """(B, V) the rows whose lane change an abort can stop: driven rows
+    changing lanes on their own road."""
+    li = lane_ops._gather(geo, state.lane)
+    tli = lane_ops._gather(geo, state.target_lane)
+    return (is_driven(state) & (state.lane != state.target_lane)
+            & (geo.edge_base[li] == geo.edge_base[tli]))
+
+
+def lane_decision(geo: LaneGeometry, p: IDMParams, state: VehicleState, rows: Rows,
+                  table, elig, cur_front, cur_rear, connected: bool):
+    """The timer-gated MOBIL choice of the left then the right lane of every
+    IDM and Linear row not changing lanes (reference
+    ``IDMVehicle.change_lane_policy`` after its abort test).  Reads each
+    row's own target lane and route cursor, the frame-start ``rows`` and
+    ``elig`` and the current lane's neighbours ``cur_front`` / ``cur_rear``,
+    never another row's target.  Returns (target lanes, timers)."""
+    table_s, table_lat = table
+    li = lane_ops._gather(geo, state.lane)
     deciding = (
-        idm & ~mid_change & (state.timer > p.lane_change_delay)
-        & state.enable_lane_change
+        is_driven(state) & (state.lane == state.target_lane)
+        & (state.timer > p.lane_change_delay) & state.enable_lane_change
     )
     moving = state.speed.abs() >= 1.0
-    target = tlane
+    target = state.target_lane
     for delta_id in (-1, 1):
         cand_id = geo.lane_id[li] + delta_id
         exists = (cand_id >= 0) & (cand_id < geo.edge_n[li])
@@ -403,15 +396,97 @@ def idm_act(geo: LaneGeometry, p: IDMParams, state: VehicleState, table_s,
             geo, p, state, rows, cand, cur_front, cur_rear, table, elig, connected
         )
         target = torch.where(ok, cand, target)
-    target = torch.where(abort, lane, target)
-    state = state.replace(
-        target_lane=target, timer=torch.where(deciding, 0.0, state.timer)
-    )
+    return target, torch.where(deciding, 0.0, state.timer)
 
-    # acceleration; the dual-lane minimum while changing lanes
+
+def change_lane_policy(geo: LaneGeometry, p: IDMParams, state: VehicleState,
+                       rows: Rows, table, elig, cur_front, cur_rear,
+                       connected: bool) -> VehicleState:
+    """The decision of every IDM and Linear vehicle on the frame-start table
+    (reference ``IDMVehicle.change_lane_policy``): abort a lane change into
+    a gap another controlled vehicle is closing (same road only), else the
+    timer-gated MOBIL choice (``lane_decision``).  Every row reads the
+    others' targets as ``state`` holds them.  Returns the state with the new
+    target lanes and timers."""
+    lane, tlane = state.lane, state.target_lane
+    conflict = (
+        conflict_pairs(p, state, rows, table[0])
+        & (lane[:, None, :] != tlane[:, :, None])
+        & (tlane[:, None, :] == tlane[:, :, None])
+    )
+    abort = may_abort(geo, state) & conflict.any(dim=-1)
+    target, timer = lane_decision(geo, p, state, rows, table, elig, cur_front, cur_rear,
+                                  connected)
+    return state.replace(target_lane=torch.where(abort, lane, target), timer=timer)
+
+
+def idm_accel(geo: LaneGeometry, p: IDMParams, state: VehicleState, rows: Rows,
+              table, elig, cur_front, connected: bool) -> torch.Tensor:
+    """The IDM (or Linear) acceleration of every row toward ``state``'s
+    target lanes: behind the current lane's front row, the minimum with the
+    target lane's front row while changing lanes; clipped to +-acc_max."""
+    me = rows.self_idx
     accel = rows.accel(p, me, cur_front)
+    target = state.target_lane
     target_front, _ = query_neighbours(geo, state, target, *table, elig, connected)
     accel = torch.where(
-        lane != target, torch.minimum(accel, rows.accel(p, me, target_front)), accel
+        state.lane != target, torch.minimum(accel, rows.accel(p, me, target_front)), accel
     )
-    return state, accel.clamp(-p.acc_max, p.acc_max)
+    return accel.clamp(-p.acc_max, p.acc_max)
+
+
+def idm_act(geo: LaneGeometry, p: IDMParams, state: VehicleState, table_s,
+            table_lat, connected: bool = False):
+    """The decision pass of every IDM and Linear vehicle on the frame-start
+    table (reference ``IDMVehicle.act``), each row deciding on the
+    frame-start targets (``change_lane_policy``); then the IDM acceleration,
+    the minimum of the current and the target lane's while changing lanes
+    (``idm_accel``).  ``connected``: every neighbour query searches the
+    connected lanes too (``neighbours_connected``); the gaps stay measured
+    on the ego's own lane.  Returns the state with the new target lanes and
+    timers, and the IDM acceleration (B, V)."""
+    rows = Rows(geo, state, table_s)
+    elig = eligible_on_lane(geo, state, table_s, table_lat)
+    table = (table_s, table_lat)
+    cur_front, cur_rear = query_neighbours(geo, state, state.lane, *table, elig, connected)
+    state = change_lane_policy(geo, p, state, rows, table, elig, cur_front, cur_rear,
+                               connected)
+    return state, idm_accel(geo, p, state, rows, table, elig, cur_front, connected)
+
+
+def idm_act_sequential(geo: LaneGeometry, p: IDMParams, state: VehicleState, table_s,
+                       table_lat, max_edge_lanes: int, connected: bool = False):
+    """The decision pass in the reference's act() order (road/road.py
+    ``act``: vehicle after vehicle), the JAX package's
+    ``idm_act_sequential``: slot by slot in index order, the slot's
+    ``follow_road``, then its ``change_lane_policy`` reading the other
+    rows' target lanes as they stand, the slots before it done and the
+    slots after it not yet moved by their own ``follow_road``.
+
+    Only the abort test reads another row's target, so the rest is computed
+    once for every row: ``follow_road`` and the MOBIL choice read each row's
+    own fields (``lane_decision``), and a row that is changing lanes cannot
+    also decide.  The slot loop then runs the abort test alone, row i
+    against the targets of the rows before it (final) and after it (as the
+    frame began): the JAX package's scan, in a few operations a slot.  The
+    accelerations read positions, speeds and each row's own final target,
+    so they follow the loop once, on every row.  Returns the state and the
+    IDM acceleration (B, V)."""
+    rows = Rows(geo, state, table_s)
+    elig = eligible_on_lane(geo, state, table_s, table_lat)
+    table = (table_s, table_lat)
+    cur_front, cur_rear = query_neighbours(geo, state, state.lane, *table, elig, connected)
+    pairs = conflict_pairs(p, state, rows, table_s)
+    before = state.target_lane
+    state = controller.follow_road(geo, state, max_edge_lanes, table_s)
+    decided, timer = lane_decision(geo, p, state, rows, table, elig, cur_front, cur_rear,
+                                   connected)
+    lane, own = state.lane, state.target_lane
+    aborts = may_abort(geo, state)
+    target = before.clone()
+    for i in range(state.num_slots):
+        mine = own[:, i, None]
+        hit = (pairs[:, i] & (lane != mine) & (target == mine)).any(dim=-1)
+        target[:, i] = torch.where(aborts[:, i] & hit, lane[:, i], decided[:, i])
+    state = state.replace(target_lane=target, timer=timer)
+    return state, idm_accel(geo, p, state, rows, table, elig, cur_front, connected)

@@ -99,14 +99,33 @@ def test_unknown_or_unported_id_raises_keyerror():
 @pytest.mark.parametrize(
     "env_id,config",
     [
-        ("highway-v0", {"sequential_decisions": True}),
         ("exit-v0", {"controlled_vehicles": 2}),
-        ("highway-v0", {"observation": {"type": "GrayscaleObservation"}}),
     ],
 )
 def test_unported_configurations_raise_at_make(env_id, config):
     with pytest.raises(NotImplementedError, match="not ported"):
         ht.make(env_id, config, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "env_id,config",
+    [
+        ("highway-v0", {"sequential_decisions": True}),
+        ("highway-v0", {"observation": {"type": "GrayscaleObservation",
+                                        "observation_shape": (128, 64), "stack_size": 4,
+                                        "weights": [0.2989, 0.5870, 0.1140]}}),
+    ],
+)
+def test_configurations_ported_since_make_and_step(env_id, config):
+    """Once refused at make: the reference's decision order and the
+    grayscale observation make, reset and step."""
+    env = ht.make(env_id, config, device="cpu")
+    gen = env.generator(0)
+    _, states = env.reset(2, gen)
+    obs, states, reward, _, _, _ = env.step_autoreset_batched(
+        states, torch.ones(2, dtype=torch.int32), gen)
+    assert obs.shape[0] == 2 and bool(torch.isfinite(reward).all())
+    assert bool(torch.isfinite(states.vehicles.pos).all())
 
 
 def test_route_choice_preprocessor_is_not_ported():

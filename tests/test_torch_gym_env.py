@@ -11,8 +11,8 @@ observations, and over 3 steps with the same actions the reward (within
 ``step_batched`` from the JAX package's seeded state of the same seed.
 Then the config option of ``reset``, the multi-agent wrapper, what
 ``gymnasium.make`` gives for every id, Gymnasium's ``check_env``, the
-refusals of what is not ported (rendering, manual control) and the
-registry against the JAX package's.
+rendering and manual control that were once refused, and the registry
+against the JAX package's.
 """
 
 import numpy as np
@@ -126,13 +126,15 @@ def test_torch_gym_env_check_env():
 
 
 def test_torch_gym_env_refuses_what_is_not_ported():
+    """Rendering and manual control are ported (tests/test_torch_render.py):
+    an rgb_array render gives a frame, a manual-control env makes; a step
+    before the reset still raises."""
     env = GymEnv("highway-fast-v0", render_mode="rgb_array", device="cpu")
     env.reset(seed=0)
-    with pytest.raises(ht.NotPortedError, match="rendering"):
-        env.render()
+    assert env.render().shape == (150, 600, 3)
     assert GymEnv("highway-fast-v0", device="cpu").render() is None
-    with pytest.raises(ht.NotPortedError, match="manual_control"):
-        GymEnv("highway-fast-v0", {"manual_control": True}, device="cpu")
+    assert GymEnv("highway-fast-v0", {"manual_control": True}, device="cpu").config[
+        "manual_control"]
     with pytest.raises(RuntimeError, match="reset"):
         GymEnv("highway-fast-v0", device="cpu").step(1)
 

@@ -132,8 +132,12 @@ def test_unported_types_name_their_module():
     env = ht.make("highway-v0", {"observation": {"type": "LidarObservation"}}, device="cpu")
     obs, _ = env.reset(2, env.generator(0))
     assert obs.shape == (2, 16, 2)
-    with pytest.raises(ht.NotPortedError, match="observations/grayscale.py"):
-        ht.make("highway-v0", {"observation": {"type": "GrayscaleObservation"}}, device="cpu")
+    # Grayscale is ported: it makes and stacks (stack, W, H) uint8 frames
+    gray = {"type": "GrayscaleObservation", "observation_shape": (128, 64),
+            "stack_size": 4, "weights": [0.2989, 0.5870, 0.1140]}
+    env = ht.make("highway-v0", {"observation": gray}, device="cpu")
+    obs, _ = env.reset(2, env.generator(0))
+    assert obs.shape == (2, 4, 128, 64) and obs.dtype == torch.uint8
     with pytest.raises(ValueError, match="Unknown observation type"):
         ht.make("highway-v0", {"observation": {"type": "NoSuchObservation"}}, device="cpu")
 

@@ -83,8 +83,9 @@ Phases:
      racetrack-v0 with two (one reward an env) against the plain
      reference path; make() on the card
      refusing configs beyond the kernels' arrays (17 target speeds, 17
-     straight lanes, 12 connected-lane candidates a lane) and exit-v0 with
-     two controlled vehicles, naming the limit; to_finite_mdp of a B=1 and
+     straight lanes, 12 connected-lane candidates a lane, a poly lane, the
+     last also under ``sequential_decisions``) and exit-v0 with two
+     controlled vehicles, naming the limit; to_finite_mdp of a B=1 and
      a B=8 highway-v0 state on CUDA against the same call on the CPU; then
      on highway-v0, roundabout-v0, intersection-v0, racetrack-v0,
      highway-v0 LinearVehicle, u-turn-v0, exit-v0 (is_success too) and
@@ -156,7 +157,19 @@ Phases:
      highway-v0, u-turn-v0 and intersection-v0, B=64: the reset's scenes
      (the warm-up included) and 2 steps' frames on CUDA against the CPU,
      discrete fields equal, pos within 2e-4 m, no frame kernel launched,
-     ms per step;
+     ms per step; then the robust-control tools:
+     ``observer_step_batch`` at 4,096 observers on intersection-v0's lanes
+     and on poly lanes, without and with fronts, CUDA against the CPU
+     within 1e-5 of magnitude, its device and back-to-back ms; ``lpv_step``
+     at 4,096 systems (the observer's longitudinal LPV, its lateral one
+     and the lateral one in its eigenbasis) over 20 steps within 1e-6,
+     TF32 off; the poly lane ops on 4,096 points a lane (pose indices
+     equal, values within 1e-5); ``set_route_at_intersection`` on a
+     B=4096 intersection-v0 batch for every option and ``"random"``, equal
+     to its CPU copy's, then 8 steps of the rerouted batch through K5 (K5
+     once a step, nothing else; 4 of them bit-exact against the plain
+     path) and a ``MultipleModelTracker`` on row 0 over them, equal to one
+     over their CPU copies, with its host ms per ``act``;
   5. times on the card: each kernel's time (CUDA events around launches
      queued behind a device-side wait), its plain version's device time
      (torch.profiler), its bound and the PyTorch yardstick's where there
@@ -440,16 +453,17 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def queued_ms(fn, reps: int) -> float:
+def queued_ms(fn, reps: int, wait_cycles: int = 200_000_000) -> float:
     """Device time of one ``fn()`` from CUDA events around ``reps`` runs
-    queued behind a device-side wait (``torch.cuda._sleep``) long enough for
-    the host to issue them all, so the events bracket the kernels back to
-    back and no host gap.  ``fn`` must not synchronize."""
+    queued behind a device-side wait (``torch.cuda._sleep``, ``wait_cycles``:
+    ~0.1 s at the H100's clock by default) long enough for the host to issue
+    them all, so the events bracket the kernels back to back and no host
+    gap.  ``fn`` must not synchronize."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's clock
+    torch.cuda._sleep(wait_cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -1128,7 +1142,8 @@ def check_parking_kernels(ht, gf, err) -> dict:
 
 def check_refusals(ht) -> None:
     """``make`` on the card refuses what the kernels' arrays do not hold,
-    as on the CPU, naming the limit: no such env reaches a launch."""
+    as on the CPU, naming the limit: no such env reaches a launch.  A poly
+    lane (``poly_merge``) is refused on every frame path."""
     for env_id, config, what in OVER_LIMITS:
         try:
             ht.make(env_id, config)
@@ -1147,6 +1162,17 @@ def check_refusals(ht) -> None:
         print(f"  merge-v1 with 10 predecessor edges into a node, on CUDA, refused: {e}")
     else:
         raise AssertionError("crowded merge-v1: made past the candidate tables")
+    from highwayenv_tpu_torch.ops.general_frames import POLY_LIMIT
+
+    for config in (None, {"sequential_decisions": True}):
+        try:
+            poly_merge(ht, config)
+        except NotImplementedError as e:
+            if POLY_LIMIT not in str(e) or "not ported" not in str(e):
+                raise AssertionError(f"poly-lane merge-v0: refused for another reason: {e}") from e
+            print(f"  merge-v0 with a poly lane, {config}, on CUDA, refused: {e}")
+        else:
+            raise AssertionError(f"poly-lane merge-v0 {config}: made with a poly lane")
 
 
 def check_connected_kernels(ht, gf, err) -> dict:
@@ -1318,6 +1344,32 @@ def crowded_merge(ht):
             self.geo = self.net.build(device=self.device)
 
     return CrowdedMerge(config={"neighbour_vehicles_connected_lanes": True})
+
+
+def poly_lanes(net_mod, seed: int = SEED):
+    """A fixed-width and a variable-width poly lane of seeded control points
+    (``net_mod``'s classes): (fixed, variable)."""
+    rng = np.random.default_rng(seed + 40)
+    x = np.cumsum(rng.uniform(6.0, 15.0, size=8)) - 6.0
+    y = np.cumsum(rng.normal(scale=3.0, size=8))
+    pts = np.stack([x, y], 1)
+    half = rng.uniform(1.8, 3.0, size=8)[:, None] * np.array([0.0, 1.0])
+    return (net_mod.PolyLaneFixedWidth(pts.tolist(), width=3.5),
+            net_mod.PolyLane(pts.tolist(), (pts + half).tolist(), (pts - half).tolist()))
+
+
+def poly_merge(ht, config=None):
+    """merge-v0 with a poly lane after its end: ``make`` refuses it."""
+    from highwayenv_tpu_torch.envs.merge import MergeEnv
+    from highwayenv_tpu_torch.road import network
+
+    class PolyMerge(MergeEnv):
+        def _build_scene(self):
+            super()._build_scene()
+            self.net.add_lane("d", "e", poly_lanes(network)[0])
+            self.geo = self.net.build(device=self.device)
+
+    return PolyMerge(config=config)
 
 
 # Several controlled vehicles at the highway, parking and racetrack
@@ -2314,6 +2366,310 @@ def check_sequential(ht, kernels, card: str) -> None:
     if counts:
         raise AssertionError(f"sequential_decisions launched frame kernels: {counts}")
     print("  no frame kernel launched in the sequential_decisions runs")
+
+
+# The robust-control tools: interval observers, LPV predictors,
+# poly lanes, the route-choice preprocessor and the route-hypothesis tracker
+RC_B = 4096  # observers, LPV systems, query points a lane, rows of the batch
+RC_OBS_TOL = 1e-5  # observer bounds, CUDA against the CPU, of their magnitude
+RC_LPV_TOL = 1e-6  # LPV intervals over RC_LPV_STEPS, of their magnitude
+RC_LPV_STEPS = 20
+RC_STEPS = 8  # K5 steps of the rerouted intersection-v0 batch (tracked)
+RC_PLAIN_STEPS = 4  # of them held to the plain path
+RC_ROUTE_OPTIONS = (0, 1, 2, 5, "random")
+RC_WAIT_CYCLES = 500_000_000  # ~0.25 s: the device-side wait before a queued step
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max(1, max |b|)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def observer_inputs(net, geo_cpu, rng, n: int):
+    """``observer_step_batch``'s inputs for n observers on random lanes of
+    ``net`` (CPU tensors): a box around a point of the lane, a speed and a
+    heading interval, and a front box 15 m ahead on the same lane."""
+    from highwayenv_tpu_torch.ops import uncertainty as unc
+    from highwayenv_tpu_torch.road import lane as lane_ops
+
+    L = geo_cpu.num_lanes
+    lane = torch.from_numpy(rng.integers(0, L, n).astype(np.int32))
+    length = geo_cpu.length[lane.long()]
+    s = torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32)) * length
+    lat = torch.from_numpy(rng.uniform(-1.0, 1.0, n).astype(np.float32))
+    pos = lane_ops.position(geo_cpu, lane, s, lat)
+    half = torch.from_numpy(rng.uniform(0.1, 0.5, (n, 2)).astype(np.float32))
+    psi = lane_ops.heading_at(geo_cpu, lane, s)
+    v = torch.from_numpy(rng.uniform(3.0, 12.0, n).astype(np.float32))
+    fpos = lane_ops.position(geo_cpu, lane, s + 15.0, torch.zeros_like(s))
+    f32 = torch.float32
+    return dict(
+        target_lane=lane, target_speed=v + 2.0,
+        theta_a_i=torch.as_tensor(unc.ACCELERATION_RANGE, dtype=f32).expand(n, 2, 3).clone(),
+        theta_b_i=torch.as_tensor(unc.STEERING_RANGE, dtype=f32).expand(n, 2, 2).clone(),
+        position_i=torch.stack([pos - half, pos + half], 1),
+        speed_i=torch.stack([v - 0.5, v + 0.5], -1),
+        heading_i=torch.stack([psi - 0.05, psi + 0.05], -1),
+        position=pos,
+    ), dict(
+        front_position_i=torch.stack([fpos - 0.5, fpos + 0.5], 1),
+        front_speed_i=torch.stack([v - 2.0, v - 1.0], -1),
+        front_mask=torch.from_numpy(rng.uniform(size=n) < 0.5),
+    )
+
+
+def check_observer_batch(ht, card: str) -> None:
+    """``observer_step_batch`` at RC_B observers on intersection-v0's lanes
+    (straight and circular) and on a network of poly lanes, without and with
+    fronts: CUDA against the CPU on the same inputs, every bound within
+    RC_OBS_TOL of its magnitude; the device ms of one batched step (CUDA
+    events around steps queued behind a device-side wait) and its wall ms."""
+    from highwayenv_tpu_torch.ops import uncertainty as unc
+    from highwayenv_tpu_torch.road import network
+
+    poly = network.RoadNetworkBuilder()
+    for k, lane in enumerate(poly_lanes(network)):
+        poly.add_lane("p", f"q{k}", lane)
+    nets = {"intersection-v0": ht.make("intersection-v0", device="cpu").net, "poly lanes": poly}
+    rng = np.random.default_rng(SEED + 41)
+    for name, net in nets.items():
+        geo_cpu, geo = net.build("cpu"), net.build("cuda")
+        args, fronts = observer_inputs(net, geo_cpu, rng, RC_B)
+        for with_front in (False, True):
+            kw_cpu = {**args, **(fronts if with_front else {})}
+            kw = {k: v.cuda() for k, v in kw_cpu.items()}
+            got = unc.observer_step_batch(geo, **kw, dt=0.1)
+            want = unc.observer_step_batch(geo_cpu, **kw_cpu, dt=0.1)
+            errs = [rel_err(g, w) for g, w in zip(got, want)]
+            if max(errs) > RC_OBS_TOL or not all(bool(torch.isfinite(g).all()) for g in got):
+                raise AssertionError(f"observer_step_batch {name} fronts={with_front}: CUDA "
+                                     f"against the CPU {errs} (tolerance {RC_OBS_TOL})")
+            def step():
+                return unc.observer_step_batch(geo, **kw, dt=0.1)
+
+            # one step is ~300 launches: queued alone, so that the CUDA
+            # launch queue never fills and the events bracket device time
+            dev_ms = queued_ms(step, 1, RC_WAIT_CYCLES)
+            prof_ms = device_ms(step, 3)
+            wall_ms = cuda_ms(step, 20)
+            print(f"  observer_step_batch on {name}, B={RC_B}, fronts {with_front}: CUDA against "
+                  f"the CPU (position, speed, heading) {errs[0]:.3e} {errs[1]:.3e} "
+                  f"{errs[2]:.3e} of magnitude; a step {dev_ms:.4f} ms on the device (queued), "
+                  f"its kernels {prof_ms:.4f} ms (profiler), {wall_ms:.4f} ms back to back "
+                  f"({card})")
+
+
+def lpv_systems():
+    """The interval observer's longitudinal LPV (Metzler), its lateral one
+    (the naive branch) and the lateral one over a steering box whose mean
+    matrix has real eigenvalues (its eigenbasis coordinates)."""
+    from highwayenv_tpu_torch.ops import interval as iv
+    from highwayenv_tpu_torch.ops import uncertainty as unc
+
+    obs = unc.IntervalObserver(geo=None, target_lane=0, target_speed=25.0)
+    a, phi = obs._longitudinal_structure(front_exists=True, at_safe_gap=False)
+    a0, da = iv.polytope(lambda p: a + np.tensordot(phi, p, axes=[0, 0]), obs.theta_a_i)
+    x0 = [10.0, 40.0, 20.0, 15.0]
+    out = {"longitudinal": iv.LPV(x0, a0, da, b=np.eye(4), d=np.array([[1], [0], [0], [0]]),
+                                  omega_i=np.array([[-1], [1]]) * 1.0,
+                                  u=[[25.0], [25.0], [0], [0]],
+                                  center=[-72.5, 0, 25.0, 25.0])}
+    a, phi = obs._lateral_structure()
+    for name, box in (("lateral", obs.theta_b_i),
+                      ("lateral eigenbasis", np.array([[6.0, 1.0], [8.0, 3.0]]))):
+        a0, da = iv.polytope(lambda p: a + np.tensordot(phi, p, axes=[0, 0]), box)
+        out[name] = iv.LPV([0.3, 0.02], a0, da, b=np.identity(2), d=np.array([[1], [0]]),
+                           omega_i=np.array([[-1], [1]]) * 0.5, u=[[0], [0]], center=[0, 0])
+    return out
+
+
+def check_lpv(card: str) -> None:
+    """``lpv_step`` at RC_B systems over RC_LPV_STEPS steps, each system's
+    float32 params: CUDA against the CPU on the same seeded boxes within
+    RC_LPV_TOL of magnitude, TF32 off."""
+    from highwayenv_tpu_torch.ops import interval as iv
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on")
+    rng = np.random.default_rng(SEED + 42)
+    for name, lpv in lpv_systems().items():
+        p = lpv.params
+        branch = "Metzler" if p.metzler else "naive"
+        N, U, W = p.a0.shape[0], p.b.shape[1], p.d.shape[1]
+        x = torch.from_numpy(np.sort(rng.normal(size=(RC_B, 2, N)) * 3, 1).astype(np.float32))
+        u = torch.from_numpy(rng.normal(size=(RC_B, U)).astype(np.float32))
+        om = torch.from_numpy(np.sort(rng.normal(size=(RC_B, 2, W)), 1).astype(np.float32))
+        pc = p.to("cuda")
+        xc, uc, omc = x.cuda(), u.cuda(), om.cuda()
+        err = 0.0
+        for _ in range(RC_LPV_STEPS):
+            x = iv.lpv_step_batch(p, x, u, om, 0.05)
+            xc = iv.lpv_step_batch(pc, xc, uc, omc, 0.05)
+            err = max(err, rel_err(xc, x))
+        if err > RC_LPV_TOL or not bool(torch.isfinite(xc).all()):
+            raise AssertionError(f"lpv_step {name}: CUDA against the CPU {err:.3e}")
+        step_ms = queued_ms(lambda: iv.lpv_step_batch(pc, xc, uc, omc, 0.05), 1,
+                            RC_WAIT_CYCLES)
+        wall_ms = cuda_ms(lambda: iv.lpv_step_batch(pc, xc, uc, omc, 0.05), 20)
+        if lpv.coordinates is None:
+            coords = "world"
+        elif np.array_equal(lpv.coordinates[0], np.eye(N)):
+            coords = "identity"
+        else:
+            coords = "eigenbasis"
+        print(f"  lpv_step {name} ({branch} branch, {coords} coordinates), B={RC_B}, "
+              f"{RC_LPV_STEPS} steps: CUDA against the CPU {err:.3e} of magnitude; a step "
+              f"{step_ms:.4f} ms on the device (queued), {wall_ms:.4f} ms back to back "
+              f"({card})")
+
+
+def check_poly_ops(card: str) -> None:
+    """The poly lane ops on RC_B points a lane (before the start, along the
+    lane, past the end): the winning pose index equal, CUDA against the CPU,
+    and ``local_coordinates``, ``position``, ``heading_at``, ``width_at``
+    within RC_OBS_TOL of magnitude."""
+    from highwayenv_tpu_torch.road import lane as lane_ops
+    from highwayenv_tpu_torch.road import network
+
+    net = network.RoadNetworkBuilder()
+    for k, lane in enumerate(poly_lanes(network)):
+        net.add_lane("p", f"q{k}", lane)
+    geo_cpu, geo = net.build("cpu"), net.build("cuda")
+    rng = np.random.default_rng(SEED + 43)
+    for g, spec in enumerate(net.lanes_on_edge("p", "q0") + net.lanes_on_edge("p", "q1")):
+        s = torch.from_numpy(rng.uniform(-8.0, spec.length + 8.0, RC_B).astype(np.float32))
+        lat = torch.from_numpy(rng.uniform(-4.0, 4.0, RC_B).astype(np.float32))
+        lane = torch.full((RC_B,), g, dtype=torch.int32)
+        pos = lane_ops.position(geo_cpu, lane, s, lat)
+        out = {}
+        for dev, gg in (("cpu", geo_cpu), ("cuda", geo)):
+            ln, p_, s_, l_ = lane.to(dev), pos.to(dev), s.to(dev), lat.to(dev)
+            sc, lc = lane_ops.local_coordinates(gg, ln, p_)
+            out[dev] = dict(pose=lane_ops.poly_pose_index(gg, ln, p_), s=sc, lat=lc,
+                            position=lane_ops.position(gg, ln, s_, l_),
+                            heading=lane_ops.heading_at(gg, ln, s_),
+                            width=lane_ops.width_at(gg, ln, s_))
+        if not torch.equal(out["cuda"]["pose"].cpu(), out["cpu"]["pose"]):
+            raise AssertionError(f"poly lane {g}: the winning pose index differs")
+        errs = {k: rel_err(out["cuda"][k], out["cpu"][k]) for k in out["cpu"] if k != "pose"}
+        if max(errs.values()) > RC_OBS_TOL:
+            raise AssertionError(f"poly lane {g}: CUDA against the CPU {errs}")
+        ends = int((out["cpu"]["s"] < 0).sum()), int((out["cpu"]["s"] > spec.length).sum())
+        print(f"  poly lane {g} ({type(spec).__name__}, {spec.length:.1f} m, "
+              f"{int(geo.poly.n[g])} poses): {RC_B} points ({ends[0]} before the start, "
+              f"{ends[1]} past the end), pose indices equal, CUDA against the CPU "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" of magnitude ({card})")
+
+
+def route_cols(state, slot: int) -> dict:
+    return {f: getattr(state.vehicles, f)[:, slot].cpu()
+            for f in ("route_base", "route_n", "route_id", "route_ptr", "route_len")}
+
+
+def check_route_choice(ht, ss, sf, gf, kernels, card: str) -> None:
+    """``set_route_at_intersection`` on a CUDA intersection-v0 batch of RC_B
+    rows for every option of RC_ROUTE_OPTIONS (``"random"`` from a CPU
+    generator of one seed on both sides): the route arrays equal those of
+    the same call on its CPU copy.  Then RC_STEPS eager ``step_batched``
+    steps of the rerouted batch through K5, the counts set to 0 just before
+    and read just after (K5 once a step, nothing else), the first
+    RC_PLAIN_STEPS against the same steps with every kernel stood in for
+    by its plain version, bit-exact; and a ``MultipleModelTracker`` on row 0
+    over the RC_STEPS states, against one over their CPU copies: route,
+    hypotheses and data equal.  Prints the host ms of a rerouting and of
+    the tracker's ``act``."""
+    from highwayenv_tpu_torch.envs import preprocessors
+    from highwayenv_tpu_torch.envs.base import map_fields
+    from highwayenv_tpu_torch.ops import uncertainty as unc
+    from highwayenv_tpu_torch.vehicle.state import KIND_IDM
+
+    env = ht.make("intersection-v0")
+    gen = env.generator(SEED + 44)
+    _, st = env.reset(RC_B, gen)
+    cpu_st = map_fields(lambda x: x.cpu(), st)
+    ego = env.ego_slots[0]
+    for slot in (ego, 0):
+        for to in RC_ROUTE_OPTIONS:
+            g1 = torch.Generator().manual_seed(SEED + 45)
+            g2 = torch.Generator().manual_seed(SEED + 45)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = preprocessors.set_route_at_intersection(env, st, slot, to, generator=g1)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            want = preprocessors.set_route_at_intersection(env, cpu_st, slot, to, generator=g2)
+            got_c, want_c = route_cols(out, slot), route_cols(want, slot)
+            bad = [f for f in got_c if not torch.equal(got_c[f], want_c[f])]
+            if bad:
+                raise AssertionError(f"set_route_at_intersection slot {slot} {to!r}: CUDA and "
+                                     f"the CPU differ in {bad}")
+            moved = int((got_c["route_base"] != route_cols(st, slot)["route_base"]).any(-1).sum())
+            print(f"  set_route_at_intersection(slot {slot}, {to!r}) on CUDA, B={RC_B}: route "
+                  f"arrays equal to the CPU copy's, {moved} rows rerouted, {host_ms:.1f} ms on "
+                  f"the host ({card})")
+    st = preprocessors.set_route_at_intersection(env, st, ego, "random",
+                                                 generator=torch.Generator().manual_seed(SEED))
+    acts = [random_actions(env, RC_B, env.generator(SEED + 46 + t)) for t in range(RC_STEPS)]
+    veh = unc.host_row(st, 0)
+    slot = int(np.nonzero((veh.kind == KIND_IDM) & (veh.route_len > 1))[0][0])
+    route = unc.route_of_slot(env, st, slot, row=0)
+    tracker = unc.MultipleModelTracker(env, slot, route=route, row=0)
+    tracker_cpu = unc.MultipleModelTracker(env, slot, route=route, row=0)
+    for k in kernels.values():
+        k.launches = 0
+    step_gen = env.generator(SEED + 47)
+    states, act_ms = [st], []
+    for t in range(RC_STEPS):
+        st = env.step_batched(st, acts[t], step_gen)[1]
+        states.append(st)
+    counts = {n: k.launches for n, k in kernels.items() if k.launches}
+    if counts != {"K5": RC_STEPS}:
+        raise AssertionError(f"rerouted intersection-v0: launches {counts}, "
+                             f"expected K5 {RC_STEPS}")
+    with PlainKernels(ss, sf, gf):
+        pst = states[0]
+        plain_gen = env.generator(SEED + 47)
+        for t in range(RC_PLAIN_STEPS):
+            pst = env.step_batched(pst, acts[t], plain_gen)[1]
+            kern = state_tensors(states[t + 1])
+            bad = [k for k, v in state_tensors(pst).items() if not torch.equal(v, kern[k])]
+            if bad:
+                raise AssertionError(f"rerouted intersection-v0 step {t}: K5 and the plain "
+                                     f"path differ in {bad}")
+    for t, s_ in enumerate(states[:RC_STEPS]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tracker.act(s_)
+        act_ms.append((time.perf_counter() - t0) * 1e3)
+        tracker_cpu.act(map_fields(lambda x: x.cpu(), s_))
+        same = tracker.route == tracker_cpu.route and len(tracker.data) == len(tracker_cpu.data)
+        for (ra, da), (rb, db) in zip(tracker.data, tracker_cpu.data):
+            same = same and ra == rb and da.keys() == db.keys() and all(
+                da[k]["outputs"] == db[k]["outputs"]
+                and all(np.array_equal(x, y) for x, y in zip(da[k]["features"],
+                                                             db[k]["features"]))
+                for k in da)
+        if not same:
+            raise AssertionError(f"MultipleModelTracker step {t}: CUDA states and their CPU "
+                                 "copies give different hypotheses or data")
+    ob, r, _ = tracker.assume_model_is_valid(states[-1], 0)
+    print(f"  rerouted intersection-v0, B={RC_B}: K5 {counts['K5']} launches in {RC_STEPS} "
+          f"steps, nothing else; {RC_PLAIN_STEPS} steps bit-exact against the plain path; "
+          f"MultipleModelTracker on row 0 slot {slot}: {len(tracker.data)} hypotheses, "
+          f"{sum(len(d['lateral']['features']) for _, d in tracker.data)} lateral samples, equal "
+          f"on CUDA and on the CPU copies; act {sorted(act_ms)[len(act_ms) // 2]:.3f} ms median "
+          f"on the host (min {min(act_ms):.3f}, first {act_ms[0]:.3f}); observer of hypothesis "
+          f"0 on lane {ob.target_lane} ({card})")
+
+
+def check_robust_control(ht, ss, sf, gf, kernels, card: str) -> None:
+    """The robust-control block: observers, LPV, poly lanes, rerouting and
+    the tracker on the card."""
+    check_observer_batch(ht, card)
+    check_lpv(card)
+    check_poly_ops(card)
+    check_route_choice(ht, ss, sf, gf, kernels, card)
 
 
 def main() -> int:
@@ -3583,6 +3939,11 @@ def main() -> int:
           f"[at {time.time() - start:.0f} s]")
     check_sequential(ht, conn_kernels, card)
     del gray
+    t_rc = time.time()
+    print(f"== 4. robust-control tools on CUDA: observer_step_batch, lpv_step, poly lanes, "
+          f"set_route_at_intersection and MultipleModelTracker [at {time.time() - start:.0f} s]")
+    check_robust_control(ht, ss, sf, gf, conn_kernels, card)
+    print(f"  (robust-control block {time.time() - t_rc:.1f} s)")
 
     # the single-env seeded path: every id at B=1, each with the counts set
     # to 0 just before it.  It runs last: after it, torch.profiler on the

@@ -11,12 +11,13 @@ frame path: the law goes by each row's kind, and ``change_vehicles`` sets
 the env's ``linear_rows``, which sends its frames to the CUDA kernels'
 Linear rows' instantiation.
 
-``set_route_at_intersection`` needs the host-side route tools of the JAX
-package's ``ops/uncertainty.py``, which are not ported; it raises
-``NotPortedError``.
+``set_route_at_intersection`` picks each row's route through the host-side
+route tools of ``ops/uncertainty.py``.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import torch
 
@@ -145,13 +146,49 @@ def randomize_behavior(env, state: EnvState, generator: torch.Generator | None =
     ))
 
 
-def set_route_at_intersection(env, state: EnvState, slot: int, _to) -> EnvState:
-    """Not ported: it picks the route through the host-side route tools of
-    the JAX package's ``ops/uncertainty.py`` (``route_of_slot``,
-    ``routes_at_intersection``)."""
-    from highwayenv_tpu_torch import NotPortedError
+def set_route_at_intersection(env, state: EnvState, slot: int, _to,
+                              generator: torch.Generator | None = None) -> EnvState:
+    """The road ``slot`` follows at its next intersection chosen, and its
+    route arrays rewritten from the cursor (reference
+    ``ControlledVehicle.set_route_at_intersection``), in every row: each
+    row's own route (``ops/uncertainty.py``'s ``route_of_slot``) and its
+    followable routes (``routes_at_intersection``), the one of index
+    ``_to`` modulo their count, or with ``_to="random"`` one index a row
+    drawn uniformly from ``generator`` (a fresh one if None).  A row with
+    no route keeps its own.  The slot's route columns are read to the host
+    once and written back as tensors on the state's device."""
+    from highwayenv_tpu_torch.ops.uncertainty import _route_of, routes_at_intersection
 
-    raise NotPortedError(
-        "set_route_at_intersection needs the route tools of ops/uncertainty.py "
-        "(route_of_slot, routes_at_intersection), which are not ported yet"
-    )
+    veh = state.vehicles
+    names = ("route_base", "route_n", "route_id", "route_ptr", "route_len")
+    cols = {f: getattr(veh, f)[:, slot].cpu().numpy() for f in names}
+    B, R = cols["route_base"].shape
+    if _to == "random":
+        if generator is None:
+            generator = torch.Generator()
+            generator.seed()
+        draws = torch.rand(B, generator=generator, device=generator.device).cpu().numpy()
+    found: dict[tuple, list] = {}
+    new = {f: c.copy() for f, c in cols.items()}
+    for b in range(B):
+        route = tuple(_route_of(env, SimpleNamespace(**{f: c[b][None] for f, c in cols.items()}), 0))
+        if route not in found:
+            found[route] = routes_at_intersection(env.net, list(route))
+        routes = found[route]
+        if not routes:
+            continue
+        k = int(draws[b] * len(routes)) if _to == "random" else _to
+        chosen = routes[k % len(routes)]
+        new["route_base"][b], new["route_n"][b], new["route_id"][b] = -1, 0, -1
+        for i, (f, t, lid) in enumerate(chosen[:R]):
+            new["route_base"][b, i] = env.net.global_lane_index((f, t, 0))
+            new["route_n"][b, i] = len(env.net.lanes_on_edge(f, t))
+            new["route_id"][b, i] = -1 if lid is None else int(lid)
+        new["route_ptr"][b] = 0
+        new["route_len"][b] = min(len(chosen), R)
+    out = {}
+    for f in names:
+        t = getattr(veh, f).clone()
+        t[:, slot] = torch.as_tensor(new[f], device=t.device)
+        out[f] = t
+    return state.replace(vehicles=veh.replace(**out))

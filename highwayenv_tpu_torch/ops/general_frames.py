@@ -153,7 +153,17 @@ def general_unported(env) -> list[str]:
         None if at.stores_raw_controls else len(at.target_speeds),
         geo.pred_edge_base.shape[1] if _connected(env) else None,
         dynamical(at),
-    )
+    ) + poly_unported(geo)
+
+
+def poly_unported(geo) -> list[str]:
+    """Poly lanes, which the frames' lane tables do not hold (the JAX
+    package steps them on its XLA frames, the port has no such frame)."""
+    return [] if geo.poly is None else [POLY_LIMIT]
+
+
+#: what ``make`` names when it refuses a poly-lane network
+POLY_LIMIT = "poly lanes (the frame kernels hold analytic lanes only)"
 
 
 def sequential(env) -> bool:

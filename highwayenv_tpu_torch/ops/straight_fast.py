@@ -43,6 +43,7 @@ def try_compile(net) -> "StraightGeo | None":
     u = first.direction
     sl0 = np.inf if first.speed_limit is None else first.speed_limit
     for lane in lanes:
+        # a poly lane's network goes to the general gate, which refuses it
         if type(lane) is not StraightLane:
             return None
         if not np.allclose(lane.direction, u, atol=1e-9):

@@ -9,7 +9,15 @@ kind, as the JAX package's ``_local_core`` / ``_position_core`` /
 ``_heading_core`` do; on a network of straight lanes only
 (``geo.all_straight``, set when the network is built) it computes the
 straight form alone, so the highway path runs the same operations as before
-the curved lanes were ported.  Poly lanes are not ported yet.
+the curved lanes were ported.
+
+Poly lanes (reference road/lane.py PolyLaneFixedWidth, PolyLane) live in a
+sample bank (``PolyBank``: 1 m pose samples, control points, widths) that
+``RoadNetworkBuilder.build`` sets on ``geo.poly`` only when the network has
+one; the ops then compute the poly form too and select it by kind, as the
+JAX package's ``has_poly`` branches do.  On a network without one
+(``geo.poly is None``) every op runs the same operations as before poly
+lanes were ported.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from highwayenv_tpu_torch.utils.math import wrap_to_pi
 STRAIGHT = 0
 SINE = 1
 CIRCULAR = 2
+POLY = 3  # piecewise-linear lane of 1 m pose samples
 
 # AbstractLane constants (reference road/lane.py)
 DEFAULT_WIDTH = 4.0
@@ -41,7 +50,7 @@ class LaneTables(NamedTuple):
     """Per-lane tables, leading dim L.  Lanes of one edge occupy contiguous
     global indices; ``global_id = edge_base + lane_id``."""
 
-    kind: torch.Tensor  # (L,) i32: STRAIGHT / SINE / CIRCULAR
+    kind: torch.Tensor  # (L,) i32: STRAIGHT / SINE / CIRCULAR / POLY
     start: torch.Tensor  # (L,2) f32 (straight and sine axis)
     end: torch.Tensor  # (L,2) f32
     direction: torch.Tensor  # (L,2) unit vector along the axis
@@ -80,13 +89,32 @@ class LaneTables(NamedTuple):
         return self.kind.shape[0]
 
 
+class PolyBank(NamedTuple):
+    """The sample bank of a network's P poly lanes (JAX ``LaneGeometry``'s
+    ``poly_*`` fields): per lane an index into (P, S) pose tables and (P, C)
+    control points, padded with the last entry (``cp_s`` with +inf)."""
+
+    slot: torch.Tensor  # (L,) i32 bank row of a poly lane, -1 on the others
+    pos: torch.Tensor  # (P,S,2) f32 1 m pose samples
+    normal: torch.Tensor  # (P,S,2) f32 unit tangents
+    n: torch.Tensor  # (P,) i32 pose samples
+    cp_s: torch.Tensor  # (P,C) f32 control-point arc lengths, +inf pad
+    cp_x: torch.Tensor  # (P,C) f32
+    cp_y: torch.Tensor  # (P,C) f32
+    cp_n: torch.Tensor  # (P,) i32 control points
+    width: torch.Tensor  # (P,Sw) f32 widths at int(s) (PolyLane's variable width)
+
+
 class LaneGeometry(LaneTables):
-    """The lane tables plus a host flag kept beside them, not among them."""
+    """The lane tables plus host attributes kept beside them, not among
+    them (so that the kernels' inputs stay the analytic tables)."""
 
     #: every lane is straight, so the lane ops take the straight form alone;
     #: ``RoadNetworkBuilder.build`` sets it on the instance, and tables built
     #: otherwise take the general form, right on any network
     all_straight = False
+    #: the poly lanes' sample bank, or None on a network without one
+    poly: PolyBank | None = None
 
 
 def _gather(geo: LaneGeometry, lane: torch.Tensor) -> torch.Tensor:
@@ -127,7 +155,13 @@ def local_coordinates(geo: LaneGeometry, lane: torch.Tensor, pos: torch.Tensor):
     lane: (...,) int; pos: (..., 2), broadcast together.  Returns two
     tensors of the broadcast shape.
     """
-    return _local_core(geo, _gather(geo, lane), pos[..., 0], pos[..., 1])
+    li = _gather(geo, lane)
+    s, lat = _local_core(geo, li, pos[..., 0], pos[..., 1])
+    if geo.poly is None:
+        return s, lat
+    s_pol, lat_pol, _ = _poly_frenet(geo, li, pos)
+    pol = geo.kind[li] == POLY
+    return torch.where(pol, s_pol, s), torch.where(pol, lat_pol, lat)
 
 
 def position(geo: LaneGeometry, lane, s, lat):
@@ -155,7 +189,16 @@ def position(geo: LaneGeometry, lane, s, lat):
     p_cir = geo.center[li] + (radius - lat * cw)[..., None] * torch.stack(
         [torch.cos(phi), torch.sin(phi)], dim=-1
     )
-    return torch.where((kind == CIRCULAR)[..., None], p_cir, p_str)
+    out = torch.where((kind == CIRCULAR)[..., None], p_cir, p_str)
+    if geo.poly is None:
+        return out
+    # PolyLaneFixedWidth.position: the control points' interpolation, then
+    # the lateral offset along the pose segment's normal
+    p = _poly_row(geo, li)
+    x, y = _poly_interp(geo.poly, p, s)
+    nrm = _poly_segment_normal(geo.poly, p, s)
+    p_pol = torch.stack([x - nrm[..., 1] * lat, y + nrm[..., 0] * lat], dim=-1)
+    return torch.where((kind == POLY)[..., None], p_pol, out)
 
 
 def heading_at(geo: LaneGeometry, lane, s):
@@ -170,16 +213,35 @@ def heading_at(geo: LaneGeometry, lane, s):
     )
     cw = geo.cw[li]
     h_cir = cw * s / geo.radius[li] + geo.start_phase[li] + math.pi / 2 * cw
-    return torch.where(
+    out = torch.where(
         kind == CIRCULAR, h_cir, torch.where(kind == SINE, h_sin, geo.heading0[li])
     )
+    if geo.poly is None:
+        return out
+    nrm = _poly_segment_normal(geo.poly, _poly_row(geo, li), s)
+    return torch.where(kind == POLY, torch.atan2(nrm[..., 1], nrm[..., 0]), out)
+
+
+def width_at(geo: LaneGeometry, lane, s):
+    """Lane width at ``s``: a PolyLane's sample at int(s), the lane's width
+    elsewhere (reference road/lane.py ``width_at``)."""
+    li = _gather(geo, lane)
+    out = geo.width[li]
+    if geo.poly is None:
+        return out.expand(torch.broadcast_shapes(li.shape, s.shape))
+    bank = geo.poly
+    p, s = torch.broadcast_tensors(_poly_row(geo, li), s)
+    idx = _floor_index(s, bank.n[p])
+    w_pol = torch.gather(bank.width[p], -1, idx[..., None])[..., 0]
+    return torch.where(geo.kind[li] == POLY, w_pol, out)
 
 
 def on_lane(geo: LaneGeometry, lane, s, lat, margin: float = 0.0):
     """Reference road/lane.py ``on_lane`` with precomputed coordinates."""
     li = _gather(geo, lane)
+    width = geo.width[li] if geo.poly is None else width_at(geo, lane, s)
     return (
-        (lat.abs() <= geo.width[li] / 2 + margin)
+        (lat.abs() <= width / 2 + margin)
         & (-VEHICLE_LENGTH <= s)
         & (s < geo.length[li] + VEHICLE_LENGTH)
     )
@@ -233,6 +295,8 @@ def projection_table(geo: LaneGeometry, pos: torch.Tensor):
     """(s, lat) of every object on every lane: pos (..., V, 2) -> two
     (..., L, V) tensors."""
     all_lanes = torch.arange(geo.num_lanes, device=pos.device)[:, None]
+    if geo.poly is not None:
+        return local_coordinates(geo, all_lanes, pos[..., None, :, :])
     return _local_core(
         geo, all_lanes, pos[..., None, :, 0], pos[..., None, :, 1]
     )
@@ -250,3 +314,75 @@ def closest_lane(geo: LaneGeometry, pos: torch.Tensor, heading: torch.Tensor):
     """``closest_lane_from_table`` of positions (..., V, 2)."""
     s, lat = projection_table(geo, pos)
     return closest_lane_from_table(geo, s, lat, heading)
+
+
+# --------------------------------------------------------------------------- #
+# poly lanes (JAX ``_poly_slot`` / ``_poly_interp`` / ``_poly_segment_normal``
+# / ``_poly_frenet``; reference road/spline.py LinearSpline2D)
+# --------------------------------------------------------------------------- #
+
+
+def _poly_row(geo: LaneGeometry, li: torch.Tensor) -> torch.Tensor:
+    """Bank rows of the lanes ``li`` (clipped: a lane that is not poly reads
+    row 0, which its kind then discards)."""
+    return geo.poly.slot[li].clamp(0, geo.poly.n.shape[0] - 1).long()
+
+
+def _floor_index(s: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """int(floor(s)) clipped to [0, n - 1]: the 1 m sample ``s`` lies on."""
+    return torch.minimum(torch.floor(s).to(torch.int32).clamp(min=0), n - 1).long()
+
+
+def _take(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """tab (..., C) at idx (...,) along its last axis."""
+    return torch.gather(tab, -1, idx[..., None])[..., 0]
+
+
+def _poly_interp(bank: PolyBank, p: torch.Tensor, s: torch.Tensor):
+    """(x, y) at arc length ``s`` of the control points' polyline, linear
+    between them and extrapolated past either end (road/spline.py
+    ``numpy_interp1d``).  p: (...,) bank rows; s: (...,)."""
+    p, s = torch.broadcast_tensors(p, s)
+    cp_s, cp_n = bank.cp_s[p], bank.cp_n[p]  # (..., C), (...,)
+    cols = torch.arange(cp_s.shape[-1], device=s.device)
+    count = ((cp_s <= s[..., None]) & (cols < cp_n[..., None])).sum(-1)
+    k = torch.minimum((count - 1).clamp(min=0), (cp_n - 2).clamp(min=0)).long()
+    s0, s1 = _take(cp_s, k), _take(cp_s, k + 1)
+    t = (s - s0) / torch.where(s1 == s0, torch.ones_like(s1), s1 - s0)
+    cp_x, cp_y = bank.cp_x[p], bank.cp_y[p]
+    x0, y0 = _take(cp_x, k), _take(cp_y, k)
+    return x0 + t * (_take(cp_x, k + 1) - x0), y0 + t * (_take(cp_y, k + 1) - y0)
+
+
+def _poly_segment_normal(bank: PolyBank, p: torch.Tensor, s: torch.Tensor):
+    """Unit tangent (..., 2) of the 1 m pose segment ``s`` lies on
+    (road/spline.py ``_get_segment_for_position``)."""
+    p, s = torch.broadcast_tensors(p, s)
+    seg = _floor_index(s, bank.n[p])
+    return bank.normal[p, seg]
+
+
+def _poly_frenet(geo: LaneGeometry, li: torch.Tensor, pos: torch.Tensor):
+    """(s, lat, pose index) of positions on the lanes ``li``
+    (road/spline.py ``cartesian_to_frenet``): the highest pose index >= 1
+    with a non-negative projection on its tangent wins, pose 0 is the
+    fallback."""
+    bank = geo.poly
+    p = _poly_row(geo, li)
+    p, px, py = torch.broadcast_tensors(p, pos[..., 0], pos[..., 1])
+    samples, normals = bank.pos[p], bank.normal[p]  # (..., S, 2)
+    dx = px[..., None] - samples[..., 0]
+    dy = py[..., None] - samples[..., 1]
+    proj = normals[..., 0] * dx + normals[..., 1] * dy
+    lat_all = -normals[..., 1] * dx + normals[..., 0] * dy
+    idxs = torch.arange(samples.shape[-2], device=pos.device)
+    valid = (idxs >= 1) & (idxs < bank.n[p][..., None]) & (proj >= 0)
+    idx = torch.where(valid, idxs, torch.zeros_like(idxs)).amax(-1)
+    s = idx.to(proj.dtype) + _take(proj, idx)  # the samples are 1 m apart
+    return s, _take(lat_all, idx), idx
+
+
+def poly_pose_index(geo: LaneGeometry, lane, pos: torch.Tensor) -> torch.Tensor:
+    """The pose sample whose frame ``local_coordinates`` takes for positions
+    (..., 2) on poly lanes ``lane`` (...,)."""
+    return _poly_frenet(geo, _gather(geo, lane), pos)[2]

@@ -1,13 +1,13 @@
 """Host-side road-network builder: lane specs -> LaneGeometry.
 
-PyTorch counterpart of the analytic subset of
-``highwayenv_tpu/road/network.py`` (straight, sine and circular lanes; poly
-lanes are not ported yet): node names become integer ids, lanes of one edge
+PyTorch counterpart of ``highwayenv_tpu/road/network.py`` (straight, sine,
+circular and poly lanes): node names become integer ids, lanes of one edge
 get contiguous global indices, and successor / predecessor edges are
 flattened into fixed-width padded tables, all built once in numpy and moved
-to the env's device.  The host-side queries the scenario resets use (lane
-lookup, global indices, BFS routes compiled into route arrays) live here
-too.
+to the env's device; poly lanes add their sample bank (``geo.poly``).  The
+host-side queries the scenario resets use (lane lookup, global indices, BFS
+routes compiled into route arrays) and the reference's serialization
+(``to_config`` / ``from_config``) live here too.
 """
 
 from __future__ import annotations
@@ -26,9 +26,11 @@ from highwayenv_tpu_torch.road.lane import (
     LINE_CONTINUOUS_LINE,
     LINE_NONE,
     LINE_STRIPED,
+    POLY,
     SINE,
     STRAIGHT,
     LaneGeometry,
+    PolyBank,
 )
 
 
@@ -155,6 +157,167 @@ class CircularLane:
         return s, lat
 
 
+def _interp_extrap(s, xs, ys):
+    """Linear interpolation, extrapolated linearly past both ends
+    (reference road/spline.py ``numpy_interp1d``)."""
+    s = np.asarray(s, float)
+    out = np.interp(s, xs, ys)
+    left = s < xs[0]
+    if np.any(left):
+        slope = (ys[1] - ys[0]) / (xs[1] - xs[0])
+        out = np.where(left, ys[0] + slope * (s - xs[0]), out)
+    right = s > xs[-1]
+    if np.any(right):
+        slope = (ys[-1] - ys[-2]) / (xs[-1] - xs[-2])
+        out = np.where(right, ys[-1] + slope * (s - xs[-1]), out)
+    return out
+
+
+class _Spline2D:
+    """Piecewise-linear curve through control points, with pose samples
+    every 1 m (reference road/spline.py LinearSpline2D)."""
+
+    SAMPLE_DISTANCE = 1.0
+
+    def __init__(self, points):
+        pts = np.asarray(points, float)
+        d = np.diff(pts, axis=0)
+        d = np.vstack([d, d[-1]])
+        arc = np.hstack([0.0, np.cumsum(np.linalg.norm(d[:-1], axis=1))])
+        self.cp_s, self.cp_x, self.cp_y = arc, pts[:, 0], pts[:, 1]
+        self.length = float(arc[-1])
+        n = int(np.floor(self.length / self.SAMPLE_DISTANCE))
+        self.s_samples = self.SAMPLE_DISTANCE * np.arange(n + 1)
+        x = _interp_extrap(self.s_samples, arc, pts[:, 0])
+        y = _interp_extrap(self.s_samples, arc, pts[:, 1])
+        dx = np.diff(x)
+        dx = np.hstack([dx, dx[-1]])
+        dy = np.diff(y)
+        dy = np.hstack([dy, dy[-1]])
+        norm = np.sqrt(dx**2 + dy**2)
+        self.pose_pos = np.stack([x, y], axis=1)
+        self.pose_normal = np.stack([dx / norm, dy / norm], axis=1)
+
+    def __call__(self, lon):
+        return (float(_interp_extrap(lon, self.cp_s, self.cp_x)),
+                float(_interp_extrap(lon, self.cp_s, self.cp_y)))
+
+    def _segment(self, lon):
+        """The pose sample below ``lon``: the first sample above it, minus
+        one, clipped to the samples."""
+        if lon >= self.s_samples[-1]:
+            return len(self.s_samples) - 1
+        if lon < self.s_samples[0]:
+            return 0
+        smaller = np.argwhere(lon < self.s_samples)
+        if int(smaller[0].item()) == 0:
+            return 0
+        return int(smaller[0].item()) - 1
+
+    def cartesian_to_frenet(self, position):
+        """(s, lat) of a position: the last pose (index >= 1) it projects
+        forward of wins, pose 0 is the fallback."""
+        p = np.asarray(position, float)
+        ortho = np.stack([-self.pose_normal[:, 1], self.pose_normal[:, 0]], axis=1)
+        proj = np.einsum("sd,sd->s", self.pose_normal, p - self.pose_pos)
+        for idx in range(len(self.s_samples) - 1, 0, -1):
+            if proj[idx] >= 0:
+                return (float(self.s_samples[idx] + proj[idx]),
+                        float(ortho[idx] @ (p - self.pose_pos[idx])))
+        return float(proj[0]), float(ortho[0] @ (p - self.pose_pos[0]))
+
+
+class PolyLaneFixedWidth:
+    """Fixed-width piecewise-linear lane (reference road/lane.py
+    PolyLaneFixedWidth)."""
+
+    kind = POLY
+
+    def __init__(self, lane_points, width: float = DEFAULT_WIDTH, line_types=None,
+                 forbidden: bool = False, speed_limit: float = 20, priority: int = 0):
+        self.curve = _Spline2D(lane_points)
+        self.lane_points = [list(map(float, p)) for p in lane_points]
+        self.length = self.curve.length
+        self.width = width
+        self.line_types = list(line_types) if line_types else [1, 1]
+        self.forbidden = forbidden
+        self.speed_limit = speed_limit
+        self.priority = priority
+
+    def width_samples(self):
+        """The width at each pose sample: constant here."""
+        return np.full(len(self.curve.s_samples), self.width, float)
+
+    def heading_at(self, s):
+        n = self.curve.pose_normal[self.curve._segment(s)]
+        return float(np.arctan2(n[1], n[0]))
+
+    def position(self, s, lat):
+        x, y = self.curve(s)
+        yaw = self.heading_at(s)
+        return np.array([x - np.sin(yaw) * lat, y + np.cos(yaw) * lat])
+
+    def local_coordinates(self, pos):
+        return self.curve.cartesian_to_frenet(pos)
+
+
+class PolyLane(PolyLaneFixedWidth):
+    """Variable-width poly lane between two boundary curves (reference
+    road/lane.py PolyLane); its width is sampled every ~1 m."""
+
+    def __init__(self, lane_points, left_boundary_points, right_boundary_points,
+                 line_types=None, forbidden: bool = False, speed_limit: float = 20,
+                 priority: int = 0):
+        super().__init__(lane_points, line_types=line_types, forbidden=forbidden,
+                         speed_limit=speed_limit, priority=priority)
+        self.left_boundary = _Spline2D(left_boundary_points)
+        self.right_boundary = _Spline2D(right_boundary_points)
+        s_samples = np.linspace(0, self.curve.length,
+                                num=int(np.ceil(self.curve.length)) + 1)
+        self._width_samples = np.array([self._width_at_s(s) for s in s_samples])
+        self.width = float(self._width_samples[0])
+
+    def _width_at_s(self, s):
+        cx, cy = self.position(s, 0)
+        r_lon, _ = self.right_boundary.cartesian_to_frenet([cx, cy])
+        rx, ry = self.right_boundary(r_lon)
+        l_lon, _ = self.left_boundary.cartesian_to_frenet([cx, cy])
+        lx, ly = self.left_boundary(l_lon)
+        d_r = np.hypot(rx - cx, ry - cy)
+        d_l = np.hypot(lx - cx, ly - cy)
+        return max(min(d_r, d_l) * 2, DEFAULT_WIDTH)
+
+    def width_samples(self):
+        """The widths at int(s)."""
+        return np.asarray(self._width_samples, float)
+
+
+def lane_from_config(cfg: dict):
+    """A lane spec from its serialized config (reference road/lane.py
+    ``lane_from_config``; poly lanes under "class_name", the others under
+    "class_path")."""
+    path = cfg.get("class_path") or cfg.get("class_name")
+    name = path.rsplit(".", 1)[-1]
+    kwargs = dict(cfg["config"])
+    if name == "StraightLane":
+        return StraightLane(**kwargs)
+    if name == "SineLane":
+        return SineLane(**kwargs)
+    if name == "CircularLane":
+        return CircularLane(**kwargs)
+    if name == "PolyLaneFixedWidth":
+        return PolyLaneFixedWidth(**kwargs)
+    if name == "PolyLane":
+        pts = kwargs.pop("ordered_boundary_points")
+        half = len(pts) // 2
+        return PolyLane(left_boundary_points=list(reversed(pts[:half])),
+                        right_boundary_points=pts[half:], **kwargs)
+    raise ValueError(f"Unknown lane class {path}")
+
+
+LANE_SPECS = (StraightLane, SineLane, CircularLane, PolyLaneFixedWidth, PolyLane)
+
+
 class RoadNetworkBuilder:
     """Accumulates lanes per (from, to) edge, then compiles to LaneGeometry."""
 
@@ -164,10 +327,10 @@ class RoadNetworkBuilder:
         self._node_ids: dict[str, int] = {}
 
     def add_lane(self, _from: str, _to: str, lane) -> None:
-        if type(lane) not in (StraightLane, SineLane, CircularLane):
+        if type(lane) not in LANE_SPECS:
             raise NotImplementedError(
-                f"{type(lane).__name__} is not ported yet; straight, sine and "
-                "circular lanes only"
+                f"{type(lane).__name__}: lane kinds other than straight, sine, "
+                "circular and poly are not ported"
             )
         self._edges.setdefault((_from, _to), []).append(lane)
         for node in (_from, _to):
@@ -274,6 +437,74 @@ class RoadNetworkBuilder:
             rid[i] = -1 if lid is None else int(lid)
         return base, n, rid, min(len(route), route_slots)
 
+    # ------------------------------------------------------------------ #
+    # serialization (reference road/road.py ``to_config`` / ``from_config``)
+    # ------------------------------------------------------------------ #
+    _CLASS_PATHS = {
+        "StraightLane": "highway_env.road.lane.StraightLane",
+        "SineLane": "highway_env.road.lane.SineLane",
+        "CircularLane": "highway_env.road.lane.CircularLane",
+    }
+
+    def to_config(self) -> dict:
+        """Nested ``{from: {to: [lane config]}}`` dict with the reference's
+        class paths and keys."""
+        graph: dict = {}
+        for (f, t), lanes in self._edges.items():
+            graph.setdefault(f, {})[t] = [self._lane_to_config(lane) for lane in lanes]
+        return graph
+
+    def _lane_to_config(self, lane) -> dict:
+        common = {
+            "width": float(lane.width),
+            "line_types": [int(x) for x in lane.line_types],
+            "forbidden": bool(lane.forbidden),
+            "speed_limit": lane.speed_limit,
+            "priority": int(lane.priority),
+        }
+        if isinstance(lane, PolyLane):
+            # the reference's poly lanes serialize under "class_name"
+            bnd = [list(p) for p in reversed(self._spline_points(lane.left_boundary))]
+            bnd += [list(p) for p in self._spline_points(lane.right_boundary)]
+            cfg = {"lane_points": lane.lane_points, "ordered_boundary_points": bnd,
+                   **{k: v for k, v in common.items() if k != "width"}}
+            return {"class_name": "PolyLane", "config": cfg}
+        if isinstance(lane, PolyLaneFixedWidth):
+            return {"class_name": "PolyLaneFixedWidth",
+                    "config": {"lane_points": lane.lane_points, **common}}
+        if isinstance(lane, SineLane):
+            cfg = {"start": [float(x) for x in lane.start],
+                   "end": [float(x) for x in lane.end],
+                   "amplitude": float(lane.amplitude), "pulsation": float(lane.pulsation),
+                   "phase": float(lane.phase), **common}
+            path = self._CLASS_PATHS["SineLane"]
+        elif isinstance(lane, StraightLane):
+            cfg = {"start": [float(x) for x in lane.start],
+                   "end": [float(x) for x in lane.end], **common}
+            path = self._CLASS_PATHS["StraightLane"]
+        elif isinstance(lane, CircularLane):
+            cfg = {"center": [float(x) for x in lane.center], "radius": float(lane.radius),
+                   "start_phase": float(lane.start_phase),
+                   "end_phase": float(lane.end_phase), "clockwise": bool(lane.clockwise),
+                   **common}
+            path = self._CLASS_PATHS["CircularLane"]
+        else:
+            raise TypeError(type(lane))
+        return {"class_path": path, "config": cfg}
+
+    @staticmethod
+    def _spline_points(spline: _Spline2D):
+        return list(zip(spline.cp_x.tolist(), spline.cp_y.tolist()))
+
+    @classmethod
+    def from_config(cls, config: dict) -> "RoadNetworkBuilder":
+        net = cls()
+        for _from, to_dict in config.items():
+            for _to, lanes in to_dict.items():
+                for lane_cfg in lanes:
+                    net.add_lane(_from, _to, lane_from_config(lane_cfg))
+        return net
+
     @staticmethod
     def straight_road_network(
         lanes: int = 4,
@@ -350,7 +581,7 @@ class RoadNetworkBuilder:
                     t["radius"][g] = lane.radius
                     t["start_phase"][g] = lane.start_phase
                     t["cw"][g] = lane.direction
-                else:
+                elif lane.kind != POLY:  # poly lanes live in the sample bank
                     t["start"][g] = lane.start
                     t["end"][g] = lane.end
                     t["direction"][g] = lane.direction
@@ -424,4 +655,43 @@ class RoadNetworkBuilder:
                 t["conn_offsets"][g, k] = offset
         geo = LaneGeometry(**{k: torch.as_tensor(v, device=device) for k, v in t.items()})
         geo.all_straight = bool((t["kind"] == STRAIGHT).all())
+        geo.poly = _poly_bank(lanes, device)
         return geo
+
+
+def _poly_bank(lanes: list, device) -> PolyBank | None:
+    """The sample bank of the poly lanes among ``lanes`` (global order), in
+    float32 as the JAX package's ``build`` pads it, or None without one."""
+    poly = [(g, lane) for g, lane in enumerate(lanes) if lane.kind == POLY]
+    if not poly:
+        return None
+    f32, i32 = np.float32, np.int32
+    P = len(poly)
+    S = max(len(lane.curve.s_samples) for _, lane in poly)
+    C = max(len(lane.curve.cp_s) for _, lane in poly)
+    Sw = max(max(len(lane.width_samples()) for _, lane in poly), S)
+    b = {
+        "slot": np.full(len(lanes), -1, i32),
+        "pos": np.zeros((P, S, 2), f32),
+        "normal": np.zeros((P, S, 2), f32),
+        "n": np.zeros(P, i32),
+        "cp_s": np.full((P, C), np.inf, f32),
+        "cp_x": np.zeros((P, C), f32),
+        "cp_y": np.zeros((P, C), f32),
+        "cp_n": np.zeros(P, i32),
+        "width": np.zeros((P, Sw), f32),
+    }
+    for p, (g, lane) in enumerate(poly):
+        curve = lane.curve
+        b["slot"][g] = p
+        n, c_n = len(curve.s_samples), len(curve.cp_s)
+        b["pos"][p, :n], b["pos"][p, n:] = curve.pose_pos, curve.pose_pos[-1]
+        b["normal"][p, :n], b["normal"][p, n:] = curve.pose_normal, curve.pose_normal[-1]
+        b["n"][p] = n
+        b["cp_s"][p, :c_n] = curve.cp_s
+        b["cp_x"][p, :c_n], b["cp_x"][p, c_n:] = curve.cp_x, curve.cp_x[-1]
+        b["cp_y"][p, :c_n], b["cp_y"][p, c_n:] = curve.cp_y, curve.cp_y[-1]
+        b["cp_n"][p] = c_n
+        ws = lane.width_samples()
+        b["width"][p, :len(ws)], b["width"][p, len(ws):] = ws, ws[-1]
+    return PolyBank(**{k: torch.as_tensor(v, device=device) for k, v in b.items()})

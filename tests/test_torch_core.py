@@ -128,13 +128,22 @@ def test_configurations_ported_since_make_and_step(env_id, config):
     assert bool(torch.isfinite(states.vehicles.pos).all())
 
 
-def test_route_choice_preprocessor_is_not_ported():
+def test_route_choice_preprocessor_returns_the_chosen_route():
+    """The ego's route after ``set_route_at_intersection`` is the chosen one
+    of the routes followable at its next intersection, from the cursor."""
     from highwayenv_tpu_torch.envs import preprocessors
+    from highwayenv_tpu_torch.ops.uncertainty import route_of_slot, routes_at_intersection
 
     env = ht.make("intersection-v0", device="cpu")
     _, state = env.reset(2, env.generator(0))
-    with pytest.raises(ht.NotPortedError, match="ops/uncertainty.py"):
-        preprocessors.set_route_at_intersection(env, state, 0, "random")
+    ego = env.ego_slots[0]
+    for row in range(2):
+        routes = routes_at_intersection(env.net, route_of_slot(env, state, ego, row))
+        assert len(routes) == 3
+        for k, want in enumerate(routes):
+            out = preprocessors.set_route_at_intersection(env, state, ego, k)
+            assert route_of_slot(env, out, ego, row) == want
+            assert int(out.vehicles.route_ptr[row, ego]) == 0
 
 
 def test_bridge_round_trip_is_bitwise():

@@ -169,7 +169,24 @@ Phases:
      to its CPU copy's, then 8 steps of the rerouted batch through K5 (K5
      once a step, nothing else; 4 of them bit-exact against the plain
      path) and a ``MultipleModelTracker`` on row 0 over them, equal to one
-     over their CPU copies, with its host ms per ``act``;
+     over their CPU copies, with its host ms per ``act``; then the
+     multi-device layer (``parallel/sharding.py``) on the one card: an
+     NCCL group of world size 1 and ``make_mesh()``, (a)
+     ``sharded_rollout_fn`` at highway-v0, B=4096, 8 steps, eager, captured
+     and compact (P=1024), (b) two 2048-row shards on the card at
+     highway-v0 and intersection-v0, eager and captured, (c)
+     ``pooled_rollout_fn`` at intersection-v0 (bank 64); every shard's
+     state bit-exact against the one-card loop on its rows and generator,
+     the metrics bit-exact, the counts set to 0 just before each run (K1,
+     K2a, K3, K2b once a step a shard; K5 twice; a capture counts its
+     warm-up and itself; the pooled step's K5 and a one-row warm-up a
+     step, nothing else), ms per step against one card in turns; the
+     eager full runs of (a), (b) and (c) have kernel rows of their own
+     ("K1 sharded" .. "K2b sharded", "K1 two shards" .. "K2b two shards",
+     "K5 step two shards", "K5 warm-up two shards", "K5 step pooled", "K5
+     warm-up pooled"): the launches of their own run, each kernel held
+     against its plain version on inputs that run gave it, the times and
+     bound of the main path's row of the kernel;
   5. times on the card: each kernel's time (CUDA events around launches
      queued behind a device-side wait), its plain version's device time
      (torch.profiler), its bound and the PyTorch yardstick's where there
@@ -490,12 +507,15 @@ def device_ms(fn, reps: int) -> float:
     drops a share of the launches on the H100 machine (it recorded 2 to 49
     of 20 to 50 launches of one kernel), so a kernel's own time is taken
     with ``queued_ms`` and this serves only sums over many kernels (the
-    plain versions, a step's device busy time)."""
+    plain versions, a step's device busy time).  It records the device's
+    activity alone: the host's ops add nothing to the sum and, for a plain
+    version's tens of thousands of kernels, take two to three times as long
+    to record (``tools/profiler_activities.py``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -1982,6 +2002,110 @@ class PlainKernels:
             setattr(mod, name, fn)
 
 
+def _copied(x):
+    """A copy of a kernel call's argument: its tensors cloned (a state's
+    field by field), the specs and numbers as they are."""
+    from highwayenv_tpu_torch.envs.base import map_fields
+    from highwayenv_tpu_torch.vehicle.state import VehicleState
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, VehicleState):
+        return map_fields(torch.clone, x)
+    if type(x) in (tuple, list):  # a spec (a NamedTuple) is kept as it is
+        return type(x)(_copied(v) for v in x)
+    if type(x) is dict:
+        return {k: _copied(v) for k, v in x.items()}
+    return x
+
+
+def _out_tensors(x) -> list:
+    """The tensors of a kernel's output (a state, a tensor or a tuple)."""
+    import dataclasses
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if dataclasses.is_dataclass(x):
+        return [t for f in dataclasses.fields(x) for t in _out_tensors(getattr(x, f.name))]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _out_tensors(v)]
+    return []
+
+
+class KernelInputs:
+    """Within it, every frame kernel wrapper of the env path logs each call
+    (wrapper, rows, frames of a general one) and keeps a copy of the inputs
+    of its first call of each kind, so that after a path's run, its counts
+    read, each kernel is held against its plain version on inputs the path
+    gave it (``check``).  The wrappers still launch and count."""
+
+    ROW_OF = {"sort_kernel": "K2a", "frames_sorted_kernel": "K3", "unsort_kernel": "K2b",
+              "frames_kernel": "K1"}
+
+    def __init__(self, ss, sf, gf):
+        self.gf = gf
+        self.plain = PlainKernels(ss, sf, gf).plain
+        self.log = []
+        self.kept = {}
+        self.saved = []
+
+    def __enter__(self):
+        self.log.clear()
+        self.kept.clear()
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name, _ in self.plain]
+        for (mod, name, kernel), (_, _, plain) in zip(self.saved, self.plain):
+            setattr(mod, name, self._keeper(mod, name, kernel, plain))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def _keeper(self, mod, name, kernel, plain):
+        def call(*args, **kwargs):
+            key = (name, args[0].speed.shape[0], args[3] if mod is self.gf else None)
+            self.log.append(key)
+            if key not in self.kept:
+                self.kept[key] = (kernel, plain, _copied(args), _copied(kwargs))
+            return kernel(*args, **kwargs)
+
+        return call
+
+    def row(self, env, key) -> str:
+        """The kernel row of a logged call: "K1" .. "K2b", or for K5 "K5
+        step" / "K5 warm-up" by its frame count."""
+        name, _, frames = key
+        if name in self.ROW_OF:
+            return self.ROW_OF[name]
+        if name != "frames_regulated_kernel":
+            raise AssertionError(f"a call of {name} where this path runs K1-K3 or K5")
+        return "K5 step" if frames == env.frames_per_step else "K5 warm-up"
+
+    def launches(self, env) -> dict:
+        """The logged calls, counted by row."""
+        out = {}
+        for key in self.log:
+            out[self.row(env, key)] = out.get(self.row(env, key), 0) + 1
+        return out
+
+    def check(self, env, where: str) -> dict:
+        """Each kept call's kernel against its plain version, both on copies
+        of its inputs, every output tensor bit-exact: {row: max abs err}."""
+        err = {}
+        for key, (kernel, plain, args, kwargs) in self.kept.items():
+            got = _out_tensors(kernel(*_copied(args), **_copied(kwargs)))
+            want = _out_tensors(plain(*_copied(args), **_copied(kwargs)))
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+            if len(got) != len(want) or bad:
+                raise AssertionError(f"{where}: {key} differs from its plain version in "
+                                     f"outputs {bad}")
+            e = max([float((a.double() - b.double()).abs().max()) for a, b in zip(got, want)
+                     if a.is_floating_point() and a.numel()] + [0.0])
+            row = self.row(env, key)
+            err[row] = max(err.get(row, 0.0), e)
+        return err
+
+
 def state_tensors(state, prefix: str = "") -> dict:
     """Every tensor of an EnvState (its vehicles' fields and any field of the
     env's own state type, lane-keeping's noise) by name."""
@@ -2670,6 +2794,264 @@ def check_robust_control(ht, ss, sf, gf, kernels, card: str) -> None:
     check_lpv(card)
     check_poly_ops(card)
     check_route_choice(ht, ss, sf, gf, kernels, card)
+
+
+SHARD_B = 4096  # rows of every sharded scene, over all its shards
+SHARD_STEPS = 8  # policy steps of each sharded run
+SHARD_RUNS = 3  # timed runs of each variant, in turns
+SHARD_POOL = 64  # pooled_rollout_fn's bank
+SHARD_COMPACT = 1024  # reset slots of the compact sharded run
+
+
+def one_card_loop(env, states, gen, graph: bool = False, compact_reset=None):
+    """The one-card ``rollout``'s loop (``PolicyStep``, built and captured
+    here) on ``states``: a function that runs SHARD_STEPS steps and returns
+    the per-step sums the sharded rollout keeps, (steps, 3) float64, and
+    the step."""
+    from highwayenv_tpu_torch.parallel import sharding
+    from highwayenv_tpu_torch.parallel.rollout import PolicyStep
+
+    step = PolicyStep(env, states, gen, compact_reset=compact_reset, graph=graph)
+
+    def run():
+        sums = []
+        for _ in range(SHARD_STEPS):
+            step.launch()
+            obs, _, reward, term, trunc, _ = step.finish()
+            sums.append(sharding._step_sums(reward, term | trunc, obs))
+        return torch.stack(sums)
+
+    return run, step
+
+
+def shard_scene(sharding, mesh, env, label, kernels, graph=False, compact_reset=None,
+                inputs=None):
+    """One sharded run of SHARD_STEPS steps from a fresh reset of SHARD_B
+    rows: each shard's states bit-exact against the one-card loop on the
+    same rows from a clone of its generator, the metrics bit-exact against
+    those of the one-card loops' sums; the counts set to 0 just before the
+    run and read just after.  Returns the counts; a ``KernelInputs``
+    (eager runs) logs the run's calls."""
+    import contextlib
+
+    from highwayenv_tpu_torch.envs.base import map_fields
+
+    _, states = env.reset(SHARD_B, env.generator(SEED + 60))
+    shards = sharding.shard_batch(states, mesh)
+    gens = sharding.shard_generators(SEED + 61, mesh)
+    refs = sharding.shard_generators(SEED + 61, mesh)
+    rows = [map_fields(torch.clone, s) for s in shards]
+    fn = sharding.sharded_rollout_fn(env, mesh, SHARD_STEPS, graph=graph,
+                                     compact_reset=compact_reset)
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    with inputs if inputs is not None else contextlib.nullcontext():
+        out, metrics = fn(shards, gens)
+        torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in kernels.items() if k.launches}
+    envs = sharding.shard_envs(env, mesh)
+    sums = []
+    for i in range(mesh.local_shards):
+        run, step = one_card_loop(envs[i], rows[i], refs[i], compact_reset=compact_reset)
+        sums.append(run())
+        want, got = state_tensors(step.states), state_tensors(out[i])
+        bad = [k for k, v in want.items() if not torch.equal(v, got[k])]
+        if bad:
+            raise AssertionError(f"{label} shard {i}: differs from the one-card loop in {bad}")
+        if not torch.equal(gens[i].get_state(), refs[i].get_state()):
+            raise AssertionError(f"{label} shard {i}: the generators differ")
+    want = sharding._global_metrics(sharding.Mesh(mesh.devices), sums, SHARD_B)
+    bad = [k for k in want if not torch.equal(want[k].to(metrics[k].device), metrics[k])]
+    if bad:
+        raise AssertionError(f"{label}: metrics {bad} differ from the one-card loops'")
+    print(f"  {label}: {mesh.local_shards} shard(s) of {SHARD_B // mesh.local_shards} rows, "
+          f"{SHARD_STEPS} steps: every shard's state bit-exact against the one-card loop on "
+          f"its rows and generator, metrics bit-exact ({', '.join(f'{k} {float(v):.6f}' for k, v in metrics.items())}); "
+          f"launches {counts}")
+    return counts
+
+
+def path_rows(inputs, env, label, sfx, what, rows, err, launches) -> None:
+    """The kernel rows "<row> <sfx>" of a sharded path: its own launches,
+    read from its own zeroed run (``inputs``' log), and each kernel's error
+    against its plain version on the inputs the run gave it; its times and
+    bound are those of the main path's row of the kernel (the same kernel
+    timed on the main path's scene), as the Grayscale rows'."""
+    errs = inputs.check(env, label)
+    for row, n in inputs.launches(env).items():
+        main = rows[row]
+        rows[f"{row} {sfx}"] = (f"{main[0]} ({what}; timed on the main path's scene)",
+                                ) + main[1:]
+        launches[f"{row} {sfx}"] = n
+        err[f"{row} {sfx}"] = errs[row]
+    print(f"  {label}: its kernels bit-exact against their plain versions on the inputs the "
+          f"run gave them; rows {sorted(f'{r} {sfx}' for r in errs)}")
+
+
+def timed_turns(label, variants, card) -> None:
+    """ms per step of each of ``variants`` ({name: run}), SHARD_RUNS runs of
+    SHARD_STEPS steps each, in turns (the order reversed every other
+    round), after one untimed run each."""
+    for run in variants.values():
+        run()
+    torch.cuda.synchronize()
+    ms = {name: [] for name in variants}
+    for r in range(SHARD_RUNS):
+        for name in (list(variants) if r % 2 == 0 else list(variants)[::-1]):
+            t0 = time.perf_counter()
+            variants[name]()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) / SHARD_STEPS * 1e3)
+    for name, ws in ms.items():
+        print(f"  {label} {name}: " + ", ".join(f"{w:.4f}" for w in ws)
+              + f" ms per step ({SHARD_B * 1e3 / sorted(ws)[1]:.1f} env-steps/s at the "
+              f"median; {card})")
+
+
+def sharded_runner(sharding, mesh, env, graph=False):
+    """A function that runs SHARD_STEPS sharded steps from a fresh reset of
+    SHARD_B rows, carrying its shards (and, with ``graph``, its captured
+    steps) from call to call."""
+    _, states = env.reset(SHARD_B, env.generator(SEED + 62))
+    fn = sharding.sharded_rollout_fn(env, mesh, SHARD_STEPS, graph=graph)
+    box = [sharding.shard_batch(states, mesh), sharding.shard_generators(SEED + 63, mesh)]
+
+    def run():
+        box[0] = fn(box[0], box[1])[0]
+
+    return run
+
+
+def check_sharding(ht, ss, sf, gf, kernels, rows, err, launches, card: str) -> None:
+    """The multi-device layer on the one card: (a) ``make_mesh()`` under an
+    NCCL group of world size 1 and ``sharded_rollout_fn`` at highway-v0,
+    eager, captured and compact; (b) two shards on the one card at
+    highway-v0 and intersection-v0, eager and captured; (c)
+    ``pooled_rollout_fn`` at intersection-v0.  Each shard bit-exact against
+    the one-card loop, the launch counts as stated, ms per step against one
+    card in turns.  The eager full runs of (a), (b) and (c) get kernel rows
+    of their own (``path_rows``): the main path's rows keep the main
+    path's counts."""
+    import torch.distributed as dist
+
+    from highwayenv_tpu_torch.parallel import sharding
+    from highwayenv_tpu_torch.tools.multiproc_rollout import free_port
+
+    straight = ("K1", "K2a", "K3", "K2b")
+    inputs = KernelInputs(ss, sf, gf)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    init_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        mesh = sharding.make_mesh()  # its check of the device counts: the first NCCL call
+        first_s = time.perf_counter() - t0
+        if not mesh.distributed or mesh.world_size != 1:
+            raise AssertionError(f"make_mesh under a group of one: {mesh}")
+        print(f"  NCCL group of world size 1: init_process_group {init_s:.3f} s, make_mesh "
+              f"(the first all_gather) {first_s:.3f} s; mesh {[str(d) for d in mesh.devices]}")
+        henv = ht.make("highway-v0")
+        # (a) one shard a card under NCCL
+        n = SHARD_STEPS * mesh.local_shards
+        for graph, compact in ((False, None), (True, None), (False, SHARD_COMPACT)):
+            label = (f"(a) highway-v0 {'graph' if graph else 'eager'}"
+                     + (f" compact P={compact}" if compact else ""))
+            full = not graph and compact is None
+            counts = shard_scene(sharding, mesh, henv, label, kernels, graph, compact,
+                                 inputs if full else None)
+            want = {k: 2 * mesh.local_shards if graph else n for k in straight}
+            if counts != want:
+                raise AssertionError(f"{label}: launches {counts}, expected {want}")
+            if full:
+                path_rows(inputs, henv, label, "sharded", "sharded_rollout_fn, one shard "
+                          "under NCCL", rows, err, launches)
+        timed_turns("(a) highway-v0", {
+            "sharded eager": sharded_runner(sharding, mesh, henv),
+            "one card eager": one_card_loop(henv, henv.reset(SHARD_B, henv.generator(SEED))[1],
+                                            henv.generator(SEED))[0],
+            "sharded graph": sharded_runner(sharding, mesh, henv, graph=True),
+            "one card graph": one_card_loop(henv, henv.reset(SHARD_B, henv.generator(SEED))[1],
+                                            henv.generator(SEED), graph=True)[0],
+        }, card)
+        # (b) two shards on the one card
+        two = sharding.make_mesh([mesh.devices[0]] * 2)
+        ienv = ht.make("intersection-v0")
+        for env_id, env in (("highway-v0", henv), ("intersection-v0", ienv)):
+            for graph in (False, True):
+                label = f"(b) {env_id} {'graph' if graph else 'eager'}"
+                counts = shard_scene(sharding, two, env, label, kernels, graph,
+                                     inputs=None if graph else inputs)
+                per = 2 if graph else SHARD_STEPS  # a capture counts its warm-up and itself
+                want = ({k: 2 * per for k in straight} if env is henv
+                        else {"K5": 2 * 2 * per})
+                if counts != want:
+                    raise AssertionError(f"{label}: launches {counts}, expected {want}")
+                if not graph:
+                    split = inputs.launches(env)
+                    if env.regulated and split != {"K5 step": 2 * per, "K5 warm-up": 2 * per}:
+                        raise AssertionError(f"{label}: K5 calls {split}, expected a step "
+                                             "and a warm-up a step on each shard")
+                    path_rows(inputs, env, label, "two shards",
+                              f"sharded_rollout_fn, two shards of {SHARD_B // 2} rows on the "
+                              "card", rows, err, launches)
+            timed_turns(f"(b) {env_id}", {
+                "two shards eager": sharded_runner(sharding, two, env),
+                "one card eager": one_card_loop(env, env.reset(SHARD_B, env.generator(SEED))[1],
+                                                env.generator(SEED))[0],
+                "two shards graph": sharded_runner(sharding, two, env, graph=True),
+                "one card graph": one_card_loop(env, env.reset(SHARD_B, env.generator(SEED))[1],
+                                                env.generator(SEED), graph=True)[0],
+            }, card)
+        # (c) the pooled rollout at intersection-v0
+        roll, init_pool = sharding.pooled_rollout_fn(ienv, mesh, SHARD_STEPS,
+                                                     pool_size=SHARD_POOL)
+        pool = init_pool(SEED + 64)
+        _, states = ienv.reset(SHARD_B, ienv.generator(SEED + 65))
+        shards = sharding.shard_batch(crashed_every(ienv, states), mesh)
+        gens = sharding.shard_generators(SEED + 66, mesh)
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        with inputs:
+            shards, pool, metrics = roll(shards, pool, gens)
+            torch.cuda.synchronize()
+        counts = {n_: k.launches for n_, k in kernels.items() if k.launches}
+        calls = [(frames, n_rows) for _, n_rows, frames in inputs.log]
+        steps_ = [c for c in calls if c == (ienv.frames_per_step, SHARD_B // mesh.local_shards)]
+        warm = [c for c in calls if c == (ienv._warmup_frames, 1)]
+        want_n = SHARD_STEPS * mesh.local_shards
+        if counts != {"K5": 2 * want_n} or len(steps_) != want_n or len(warm) != want_n:
+            raise AssertionError(f"(c) pooled intersection-v0: launches {counts}, calls "
+                                 f"(frames, rows) {calls}; expected K5 once a step and a "
+                                 "one-row warm-up a step, each shard")
+        finite = all(math.isfinite(float(v)) for v in metrics.values())
+        got = sharding.gather_batch(shards, mesh)
+        # a row drawn from the bank during the run restarted its clock
+        restarted = int((got.time < SHARD_STEPS / ienv.config["policy_frequency"]).sum())
+        if not finite or restarted < SHARD_B // CRASH_EVERY:
+            raise AssertionError(f"(c) pooled intersection-v0: metrics {metrics}, "
+                                 f"{restarted} rows restarted")
+        path_rows(inputs, ienv, "(c) pooled intersection-v0", "pooled",
+                  f"pooled_rollout_fn, bank {SHARD_POOL}, one-row warm-ups", rows, err,
+                  launches)
+        print(f"  (c) pooled intersection-v0, B={SHARD_B}, bank {SHARD_POOL}, {SHARD_STEPS} "
+              f"steps: K5 {len(steps_)} step launches and {len(warm)} one-row warm-ups, nothing "
+              f"else; {restarted} rows drawn from the bank during the run; metrics "
+              + ", ".join(f"{k} {float(v):.6f}" for k, v in metrics.items()))
+
+        def pooled():
+            box[0], box[1] = roll(box[0], box[1], gens)[:2]
+
+        box = [shards, pool]
+        timed_turns("(c) intersection-v0", {
+            "pooled": pooled,
+            "full autoreset": one_card_loop(ienv, ienv.reset(SHARD_B, ienv.generator(SEED))[1],
+                                            ienv.generator(SEED))[0],
+        }, card)
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> int:
@@ -3944,6 +4326,11 @@ def main() -> int:
           f"set_route_at_intersection and MultipleModelTracker [at {time.time() - start:.0f} s]")
     check_robust_control(ht, ss, sf, gf, conn_kernels, card)
     print(f"  (robust-control block {time.time() - t_rc:.1f} s)")
+    t_sh = time.time()
+    print(f"== 4. sharded rollouts on CUDA: the mesh, an NCCL group of one, two shards on "
+          f"the card, the pooled rollout [at {time.time() - start:.0f} s]")
+    check_sharding(ht, ss, sf, gf, all_kernels, rows, err, launches, card)
+    print(f"  (sharding block {time.time() - t_sh:.1f} s)")
 
     # the single-env seeded path: every id at B=1, each with the counts set
     # to 0 just before it.  It runs last: after it, torch.profiler on the

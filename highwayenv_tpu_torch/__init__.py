@@ -78,7 +78,15 @@ def registered_ids():
 
 def make_vec(env_id: str, num_envs: int, config: dict | None = None, **kw):
     """Gymnasium VectorEnv over the batched step (vector_env.py): on the card
-    the whole batch steps as one replay of a CUDA graph."""
+    the whole batch steps as one replay of a CUDA graph.
+
+    ``shard=`` splits the batch over the process's cards
+    (``parallel/sharding.py``): ``None`` (the default) when the env is on
+    CUDA and more than one card divides ``num_envs`` evenly, ``True``
+    always (``ValueError`` on a batch that does not divide), ``False``
+    never.  Sharded, each card holds an env, a graph and a generator
+    seeded from the reset's seed and its shard index
+    (``sharding.shard_generators``)."""
     from highwayenv_tpu_torch.vector_env import GymVectorEnv
 
     return GymVectorEnv(env_id, num_envs, config=config, **kw)

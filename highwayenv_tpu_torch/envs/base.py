@@ -107,12 +107,18 @@ class EnvState:
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means CUDA.  Refuses CUDA when it is absent: the CPU runs
-    only when the caller asks for it."""
+    only when the caller asks for it.  A CUDA device without an index is
+    named (the current one): tensors made on a bare ``"cuda"`` go to
+    whichever card is current when they are made, which with several cards
+    is not always the env's."""
     device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run on the CPU"
-        )
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU"
+            )
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 

@@ -22,6 +22,14 @@ again (``BaseEnv._autoreset_rest``).
 
 The kernel wrappers count launches in Python, so a replay does not move
 their counters: the capture counts one step's launches once.
+
+Every CUDA call here names the batch's device (the warm-up's streams, the
+capture stream, the synchronize) and runs under ``torch.cuda.device(dev)``:
+with several cards (``parallel/sharding.py``) the current device is not
+the shard's, and ``torch.cuda.graph`` left to itself captures on a stream
+of the current device (its default capture stream is made once, on the
+device current at its first use), which would capture none of the
+shard's kernels.
 """
 
 from __future__ import annotations
@@ -76,22 +84,24 @@ class CapturedStep:
                 batch, self.actions, generator, reset_slots, final_obs
             )
 
-        # one eager step on a copy, off the default stream as capture
-        # wants, the generator put back after it
-        before = generator.get_state()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            env._autoreset_rest(*first(map_fields(torch.clone, states)))
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        generator.set_state(before)
+        self.device = dev
+        with torch.cuda.device(dev):
+            # one eager step on a copy, off the default stream as capture
+            # wants, the generator put back after it
+            before = generator.get_state()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                env._autoreset_rest(*first(map_fields(torch.clone, states)))
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            generator.set_state(before)
 
-        self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph):
-            out, pending = first(self.states)
-            map_fields(lambda dst, src: dst.copy_(src), self.states, out[1])
+            self.graph = torch.cuda.CUDAGraph()
+            self.graph.register_generator_state(generator)
+            with torch.cuda.graph(self.graph, stream=torch.cuda.Stream(dev)):
+                out, pending = first(self.states)
+                map_fields(lambda dst, src: dst.copy_(src), self.states, out[1])
         self._out, self._pending = out, pending
 
     def load(self, states: EnvState) -> None:
@@ -99,8 +109,19 @@ class CapturedStep:
         map_fields(lambda dst, src: dst.copy_(src), self.states, states)
 
     def __call__(self, actions: torch.Tensor):
-        self.actions.copy_(actions)
-        self.graph.replay()
+        self.replay(actions)
+        return self.finish()
+
+    def replay(self, actions: torch.Tensor) -> None:
+        """Queue a step: the actions copied in and the graph replayed, with
+        no host sync."""
+        with torch.cuda.device(self.device):
+            self.actions.copy_(actions)
+            self.graph.replay()
+
+    def finish(self):
+        """The replayed step's outputs, after the compact autoreset's
+        further passes where rows are left (its one host read)."""
         obs = self._out[0]
         if self._pending is not None:
             state, new_obs = self.env._compact_rest(self._pending, obs)

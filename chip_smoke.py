@@ -83,7 +83,8 @@ Phases:
      racetrack-v0 with two (one reward an env) against the plain
      reference path; make() on the card
      refusing configs beyond the kernels' arrays (17 target speeds, 17
-     straight lanes, 12 connected-lane candidates a lane, a poly lane, the
+     straight lanes, 201 general slots, 12 connected-lane candidates a
+     lane, a poly lane, the
      last also under ``sequential_decisions``) and exit-v0 with two
      controlled vehicles, naming the limit; to_finite_mdp of a B=1 and
      a B=8 highway-v0 state on CUDA against the same call on the CPU; then
@@ -186,7 +187,24 @@ Phases:
      "K5 step two shards", "K5 warm-up two shards", "K5 step pooled", "K5
      warm-up pooled"): the launches of their own run, each kernel held
      against its plain version on inputs that run gave it, the times and
-     bound of the main path's row of the kernel;
+     bound of the main path's row of the kernel; then the scenes
+     over the narrow kernels' 32 slots and 32 lanes (``check_wide``):
+     intersection-v0, -v2 and -v1 with duration 30 (V=42: the wide K5,
+     connected and dynamical), exit-v0 with 50 vehicles and exit-v1 (V=51:
+     the wide K4 and its connected twin), racetrack-v0 with 40 NPCs (V=41:
+     the wide K4 raw, and dynamical), intersection-v0 with duration 116
+     (V=128, 61.0 KB of shared memory a block) and racetrack-oval-v0 with 6
+     lanes (L=48: the narrow K4 raw), B=4096, each instantiation against its
+     plain version on 8 steps in (K5: the tick phases spread), the
+     conflict scene and the warm-up or the all-env pile-up, every field
+     bit-exact; the six row scenes driven 16 steps with the counts set to 0
+     (the instantiation once a step, the narrow K5 once more for each
+     reset's 16-slot warm-up, nothing else), timed from a fresh reset, each
+     a kernel row of its own ("K5 wide step", "K5 wide connected", "K5 wide
+     dynamical", "K4 wide", "K4 wide raw", "K4 raw 48 lanes"); compact
+     against full and captured against eager at intersection-v0 with
+     duration 30, and its eager and captured full steps beside the default
+     intersection-v0's, in turns;
   5. times on the card: each kernel's time (CUDA events around launches
      queued behind a device-side wait), its plain version's device time
      (torch.profiler), its bound and the PyTorch yardstick's where there
@@ -378,6 +396,7 @@ OVER_LIMITS = (
      "17 target speeds outside 2 to 16"),
     ("highway-v0", {"lanes_count": 17}, "17 straight lanes > 16"),
     ("exit-v0", {"controlled_vehicles": 2}, "several controlled vehicles"),
+    ("exit-v0", {"vehicles_count": 200}, "201 slots > 128"),
 )
 #: the connected-lane search (PR 12): K4's kConnected instantiation held to
 #: its plain version at these ids (exit-v1: the 32-thread group; racetrack-v1:
@@ -407,6 +426,18 @@ GENERAL_PATHS = {
                      "general_frames_kernel<false, false, false, true, DynFields>"),
     "K5 dynamical": ("frames_regulated_dynamical_kernel",
                      "general_frames_kernel<true, false, false, true, DynFields>"),
+    "K4 wide": ("frames_general_wide_kernel",
+                "general_frames_wide_kernel<false, false, false, false>"),
+    "K4 wide connected": ("frames_general_connected_wide_kernel",
+                          "general_frames_wide_kernel<false, false, true, false>"),
+    "K5 wide": ("frames_regulated_wide_kernel",
+                "general_frames_wide_kernel<true, false, false, false>"),
+    "K5 wide connected": ("frames_regulated_connected_wide_kernel",
+                          "general_frames_wide_kernel<true, false, true, false>"),
+    "K4 wide dynamical": ("frames_general_dynamical_wide_kernel",
+                          "general_frames_wide_kernel<false, false, false, true, DynFields>"),
+    "K5 wide dynamical": ("frames_regulated_dynamical_wide_kernel",
+                          "general_frames_wide_kernel<true, false, false, true, DynFields>"),
 }
 #: the ids of the dynamical ContinuousAction: K5's and K4's
 #: kDynamical instantiations
@@ -992,9 +1023,10 @@ def bound(ops: float, n_bytes: int):
 
 
 def group_size(V: int) -> int:
-    """Threads per env of the general frame kernel (``threads_per_env`` in
-    csrc/general_frames.cu)."""
-    return 16 if V <= 16 else 32
+    """Threads per env of the general frame kernels (``threads_per_env`` in
+    csrc/general_frames.cu; a block of 128 in the wide kernels, over 32
+    slots)."""
+    return 16 if V <= 16 else (32 if V <= 32 else 128)
 
 
 def k4_work(gf, env, veh, sa, spec=None):
@@ -3054,6 +3086,189 @@ def check_sharding(ht, ss, sf, gf, kernels, rows, err, launches, card: str) -> N
         dist.destroy_process_group()
 
 
+#: scenes over the narrow kernels' limits, each (row, env id,
+#: config): the wide K5 (intersection-v0 with duration 30, V=42, and its
+#: connected and dynamical ids), the wide K4 (exit-v0 at highway-v0's
+#: density, V=51; racetrack-v0 with 40 NPCs, V=41, raw controls) and the
+#: narrow K4 on 48 lanes (racetrack-oval-v0 with 6 lanes, V=2); each held
+#: to its plain version, driven with the counts set to 0 and timed, with a
+#: kernel row of its own
+WIDE_ROWS = (
+    ("K5 wide step", "intersection-v0", {"duration": 30}),
+    ("K5 wide connected", "intersection-v2", {"duration": 30}),
+    ("K5 wide dynamical", "intersection-v1", {"duration": 30}),
+    ("K4 wide", "exit-v0", {"vehicles_count": 50}),
+    ("K4 wide raw", "racetrack-v0", {"other_vehicles": 40}),
+    ("K4 raw 48 lanes", "racetrack-oval-v0", {"no_lanes": 6}),
+)
+#: the wide instantiations no row reaches, held to their plain versions:
+#: the connected K4 (exit-v1, V=51) and the dynamical K4 (racetrack-v0
+#: with 40 NPCs under a dynamical ContinuousAction); and the wide K5 at
+#: its 128 slots (intersection-v0 with duration 116: 61.0 KB of shared
+#: memory a block, over the 48 KB default, the function attribute's path)
+WIDE_CHECKED = (
+    ("K4 wide connected", "exit-v1", {"vehicles_count": 50}),
+    ("K4 wide dynamical", "racetrack-v0", {"other_vehicles": 40, "action": {
+        "type": "ContinuousAction", "dynamical": True}}),
+    ("K5 wide 128 slots", "intersection-v0", {"duration": 116}),
+)
+WIDE_HORIZON = 16  # policy steps of each wide path's zeroed rollout
+
+
+def wide_scenes(env, states, gen) -> dict:
+    """A wide scene's frame calls, {name: (vehicles, steps0 or None, slot
+    actions or None, frames, raw)}: on a regulated road ``regulated_scenes``
+    (8 steps in with the tick phases spread, the conflict scene, the
+    warm-up), else ``general_scenes`` (8 steps in, the all-env pile-up);
+    raw controls stored on the egos first."""
+    from highwayenv_tpu_torch.ops import general_frames as gf
+
+    Bn = states.vehicles.kind.shape[0]
+    if env.regulated:
+        calls = regulated_scenes(env, states, gen)
+    else:
+        calls = {name: (veh, None, env._action_to_slots(random_actions(env, Bn, gen)),
+                        env.frames_per_step)
+                 for name, veh in general_scenes(env, states, gen).items()}
+    out = {}
+    for name, (veh, steps0, sa, frames) in calls.items():
+        veh, sa, raw = gf.store_raw_controls(env, veh, sa)
+        out[name] = (veh, steps0, sa, frames, raw)
+    return out
+
+
+def frame_call(gf, env, veh, steps0, sa, frames, raw):
+    """(kernel call, plain call) of one frame launch of ``env``: the
+    instantiation ``frames_kernel_for`` picks for its slots."""
+    spec = env._general
+    kernel = gf.frames_kernel_for(spec, env.regulated, veh.kind.shape[1])
+    args = (veh, spec, sa, frames) + ((steps0,) if env.regulated else ())
+
+    def run():
+        return kernel(*args, raw=raw, linear=env.linear_rows)
+
+    def plain():
+        return gf.frames_general_plain(*args, raw=raw)
+
+    return kernel, run, plain
+
+
+def check_wide(ht, gf, kernels, rows, err, launches, card: str, start: float) -> None:
+    """The scenes over the narrow kernels' limits: each of WIDE_ROWS
+    and WIDE_CHECKED made on CUDA at B, its wide (or 48-lane) instantiation
+    against its plain version on every scene of ``wide_scenes``, every field
+    bit-exact; each of WIDE_ROWS driven WIDE_HORIZON steps with the counts
+    set to 0 just before (its instantiation once a step; on a regulated road
+    the narrow K5 once a step and once more for the reset's 16-slot warm-up,
+    nothing else), its launch timed from a fresh reset (queued), its plain
+    version's device time and its bound, a row of its own; then at
+    intersection-v0 with duration 30 compact against full and captured
+    against eager, and its captured and eager full step beside the default
+    intersection-v0's, in turns."""
+    wide = {f"{road} wide{law}": getattr(gf, f"frames_{kind}{sfx}_wide_kernel")
+            for road, kind in (("K4", "general"), ("K5", "regulated"))
+            for law, sfx in (("", ""), (" connected", "_connected"),
+                             (" dynamical", "_dynamical"))}
+    every = {**kernels, **wide}
+    envs = {}
+    for key, env_id, config in WIDE_ROWS + WIDE_CHECKED:
+        env = ht.make(env_id, config)
+        gen = env.generator(SEED)
+        _, states = env.reset(B, gen)
+        V = env.num_slots
+        kernel = gf.frames_kernel_for(env._general, env.regulated, V)
+        print(f"== 4. wide scenes: {key}, {env_id} {config}: V={V}, L={env.geo.num_lanes}, "
+              f"R={states.vehicles.route_base.shape[-1]}, {group_size(V)} threads an env, "
+              f"{kernel.source}.{kernel.entry}, B={B} [at {time.time() - start:.0f} s]")
+        err[key] = 0.0
+        for name, call in wide_scenes(env, states, gen).items():
+            k, run, plain = frame_call(gf, env, *call)
+            out_k = run()
+            out_p = plain()
+            torch.cuda.synchronize()
+            e = compare_general(out_k, out_p, f"{env_id} {name} ({k.source}.{k.entry}, "
+                                f"V={call[0].kind.shape[1]})")
+            if k is kernel:
+                err[key] = max(err[key], e)
+            if name == "pile-up" and not bool(out_k.crashed.any()):
+                raise AssertionError(f"{env_id}: the pile-up crashed nothing")
+        envs[key] = (env, states)
+    for key, env_id, config in WIDE_ROWS:
+        env = envs[key][0]
+        kernel = gf.frames_kernel_for(env._general, env.regulated, env.num_slots)
+        label = [n for n, k in every.items() if k is kernel][0]
+        gen = env.generator(SEED + 1)
+        for k in every.values():
+            k.launches = 0
+        _, st = env.reset(B, gen)
+        st, m = rollout(env, st, WIDE_HORIZON, gen)
+        torch.cuda.synchronize()
+        counts = {n: k.launches for n, k in every.items() if k.launches}
+        want = {label: WIDE_HORIZON}
+        if env.regulated:  # the reset batch's 16-slot warm-up, every step and the first
+            want[label.replace(" wide", "")] = WIDE_HORIZON + 1
+        m = {k: float(v) for k, v in m.items()}
+        print(f"  {key} path, {env_id} {config}: reset and {WIDE_HORIZON} autoreset steps, "
+              f"launches {counts}; rollout {m}")
+        if counts != want:
+            raise AssertionError(f"{env_id} {config}: launches {counts}, expected {want}")
+        if not all(np.isfinite(list(m.values()))):
+            raise AssertionError(f"{env_id} {config}: non-finite metrics")
+        for k in ("pos", "speed", "heading"):
+            if not bool(torch.isfinite(getattr(st.vehicles, k)).all()):
+                raise AssertionError(f"{env_id} {config}: non-finite {k}")
+        launches[key] = counts[label]
+        # the timed launch: a fresh reset, the tick phases spread, random actions
+        _, s0 = env.reset(B, env.generator(SEED + 2))
+        steps0 = None
+        if env.regulated:
+            steps0 = s0.steps + torch.arange(B, device=env.device, dtype=torch.int32) * 15
+        sa = env._action_to_slots(random_actions(env, B, gen))
+        veh, sa, raw = gf.store_raw_controls(env, s0.vehicles, sa)
+        _, run, plain = frame_call(gf, env, veh, steps0, sa, env.frames_per_step, raw)
+        out_k = run()
+        torch.cuda.synchronize()
+        err[key] = max(err[key], compare_general(out_k, plain(), f"{env_id} timed inputs"))
+        ms = queued_ms(run, 10)
+        plain_ms = device_ms(plain, PLAIN_REPS)
+        ops, n_bytes = (k5_work(gf, env, veh, sa, steps0, env.frames_per_step)
+                        if env.regulated else k4_work(gf, env, veh, sa))
+        bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+        rows[key] = (f"{kernel.entry} ({env_id} {json.dumps(config)}, V={env.num_slots}, "
+                     f"L={env.geo.num_lanes}, {group_size(env.num_slots)} threads an env"
+                     + (", raw controls" if raw else "") + ")",
+                     f"highwayenv_tpu_torch/csrc/{kernel.source}.cu",
+                     "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms, bms, by,
+                     None)
+        print(f"  {key}: {ms:.4f} ms queued; plain {plain_ms:.4f} ms on the device; bound "
+              f"{bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, {n_bytes} bytes "
+              f"-> {t_bytes:.5f} ms) ({card}) [at {time.time() - start:.0f} s]")
+    # intersection-v0 with duration 30: the compact and captured steps
+    ienv = envs["K5 wide step"][0]
+    _, ist = ienv.reset(B, ienv.generator(SEED + 3))
+    label = "intersection-v0 duration 30 "
+    check_compact(ienv, ist, label)
+    check_graph(ienv, ist, label)
+    # its captured and eager full steps beside the default intersection-v0's
+    denv = ht.make("intersection-v0")
+    walls = {}
+    runs = [(f"{name} {mode}", e, mode == "graph")
+            for name, e in (("duration 30", ienv), ("default", denv))
+            for mode in ("eager", "graph")]
+    firsts = {name: e.reset(B, e.generator(SEED + 4))[1] for name, e, _ in runs}
+    for r in range(3):
+        for name, e, graph in (runs if r % 2 == 0 else runs[::-1]):
+            walls.setdefault(name, []).append(
+                timed_steps(e, firsts[name], e.generator(SEED + 5), TIMED_STEPS, None, graph))
+    for name, e, graph in runs:
+        busy, n_kernels = step_device_ms(e, firsts[name], e.generator(SEED + 5), None, graph)
+        ws = walls[name]
+        print(f"  intersection-v0 {name} full: " + ", ".join(f"{w:.4f}" for w in ws)
+              + f" ms per step ({B * 1e3 / sorted(ws)[1]:.1f} env-steps/s at the median); "
+              f"device busy {busy:.4f} ms per step, {n_kernels:.1f} device kernels per step "
+              f"({card})")
+
+
 def main() -> int:
     start = time.time()
     if not torch.cuda.is_available():
@@ -3078,7 +3293,8 @@ def main() -> int:
     print("== 2. build")
     t0 = time.time()
     paths = _build.build(
-        ["straight_frames", "straight_sort", "straight_frames_sorted", "general_frames"]
+        ["straight_frames", "straight_sort", "straight_frames_sorted", "general_frames",
+         "general_frames_wide"]
     )
     print(f"built {[p.name for p in paths.values()]} in {time.time() - t0:.1f} s")
     for p in paths.values():
@@ -4331,6 +4547,11 @@ def main() -> int:
           f"the card, the pooled rollout [at {time.time() - start:.0f} s]")
     check_sharding(ht, ss, sf, gf, all_kernels, rows, err, launches, card)
     print(f"  (sharding block {time.time() - t_sh:.1f} s)")
+    t_wide = time.time()
+    print(f"== 4. scenes over the narrow kernels' limits on CUDA: the wide K4 / K5 and the "
+          f"48-lane oval [at {time.time() - start:.0f} s]")
+    check_wide(ht, gf, conn_kernels, rows, err, launches, card, start)
+    print(f"  (wide block {time.time() - t_wide:.1f} s)")
 
     # the single-env seeded path: every id at B=1, each with the counts set
     # to 0 just before it.  It runs last: after it, torch.profiler on the

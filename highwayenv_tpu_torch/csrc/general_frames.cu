@@ -106,22 +106,45 @@
 //   warm-up's 1,024 run in one wave, intersection-v0's 2,048 in two.
 // Every exchange between an env's threads goes through shared memory or a
 // warp vote at points every thread of the warp reaches (the warp barrier
-// GROUP_SYNC between phases), whatever its env does: a design with one block
-// per env (V > 32) would make them block-wide and keep the rest.
+// group_sync between phases), whatever its env does.
+//
+// The wide branch (general_frames_wide_kernel, built from
+// general_frames_wide.cu into a library of its own with the same entry
+// names): scenes of 33 to GEN_WIDE_SLOTS = 128 slots (intersection-v0 at
+// longer durations, exit-v0 at highway density, a crowded racetrack), which
+// the TPU kernels leave to the JAX package's XLA frames (its Pallas gate,
+// general_pallas_bm.py:190, takes V <= 32).  The same frame body, with one
+// env a block of GEN_WIDE_BLOCK = 128 threads, slot t on thread t and the
+// spare threads sharing the projection table and the pair passes as in the
+// narrow design; the barrier is the block's; every slot mask (a lane's
+// eligible slots, a slot's impact partners, the crash / hit / yield bits)
+// is W = GEN_WIDE_WORDS words, slot s at bit s % 32 of word s / 32, set by
+// one atomicOr a bit (a lane's eligible slots are few); the neighbour
+// searches walk the words in ascending order, so the tie rules hold as in
+// one word, and the impact takes the highest partner bit from the top word
+// down.  Shared memory a block: intersection-v0 with duration 30 (V=42,
+// L=20, R=3) 18.6 KB, with duration 116 (V=128) 61.0 KB, the most a scene
+// in the limits can take (V=128, L=64, R=16, regulated and connected)
+// 131.7 KB; over 48 KB only through cudaFuncSetAttribute, set once per
+// kernel and card (launch).  Registers (96 to 128 a thread) allow 4 to 5
+// blocks an SM: B=4096 runs in 7 to 8 waves.
 
 #include <string.h>
 
 #include "straight_common.cuh"
 
-#define GEN_MAX_LANES 32
-#define GEN_MAX_SLOTS 32
+#define GEN_MAX_LANES 64
+#define GEN_MAX_SLOTS 32  // the narrow kernels: an env's group within one warp
+#define GEN_WIDE_SLOTS 128  // the wide kernels: one env a block
+#define GEN_WIDE_BLOCK 128  // threads a block of the wide kernels, one a slot
+#define GEN_WIDE_WORDS (GEN_WIDE_SLOTS / 32)  // words of a wide slot mask
 #define GEN_MAX_SUCC 4
 #define GEN_MAX_PRED 4
 // the connected-lane search's candidates a lane: itself, successors, predecessors
 #define GEN_MAX_CONN (1 + GEN_MAX_SUCC + GEN_MAX_PRED)
 #define GEN_MAX_SPEEDS 16
 #define GEN_MAX_ROUTE 16
-#define GEN_BLOCK 64  // threads a block
+#define GEN_BLOCK 64  // threads a block of the narrow kernels
 #define KIND_OBSTACLE 5
 #define LANE_STRAIGHT 0
 #define LANE_SINE 1
@@ -134,8 +157,30 @@
 #define REG_YIELD_TICKS 0.0f
 
 // The barrier between the phases of a frame: an env's threads are one
-// group of one warp, and every thread of the warp reaches it.
-#define GROUP_SYNC() __syncwarp()
+// group of one warp (narrow) or one block (kWide), and every thread of the
+// warp or the block reaches it.
+template <bool kWide>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (kWide)
+    __syncthreads();
+  else
+    __syncwarp();
+}
+
+// Slot s in a slot mask of W words: word s / 32, bit s % 32 (one word
+// where W is 1, as the narrow kernels hold at most 32 slots).
+template <int W>
+__device__ __forceinline__ int word_of(int s) {
+  return W == 1 ? 0 : s >> 5;
+}
+template <int W>
+__device__ __forceinline__ unsigned bit_of(int s) {
+  return 1u << (W == 1 ? s : s & 31);
+}
+template <int W>
+__device__ __forceinline__ bool has_slot(const unsigned* m, int s) {
+  return (m[word_of<W>(s)] & bit_of<W>(s)) != 0u;
+}
 
 // extra flag bits of the post-integration rows (F_ACTIVE, F_VEHICLE, F_CHECK,
 // F_COLLIDABLE as in straight_common.cuh)
@@ -431,9 +476,10 @@ struct EnvSmem {
   int *lane, *tlane, *flags;
   // route arrays, slot-major: [j * R + r]
   int *rbase, *rn, *rid;
-  unsigned* elig;  // per lane, the slots eligible there (frame-start table)
-  unsigned* imp;   // per slot, the partners whose impact it takes
-  unsigned* bits;  // crash, hit and yield slot bits of the env
+  // slot masks of W words (word_of / bit_of)
+  unsigned* elig;  // per lane [l * W + w], the slots eligible there (frame-start table)
+  unsigned* imp;   // per slot [j * W + w], the partners whose impact it takes
+  unsigned* bits;  // the env's crash, hit and yield slot masks, [k * W + w]
   // K5, on the union's words: per slot the route walk's start, frame-start
   // position, priority, first / last segment and valid segments, and per
   // segment the cumulative length and the lane
@@ -444,12 +490,13 @@ struct EnvSmem {
     const int rows = 2 * L * V + 9 * V;
     return reg ? max(rows, 4 * REG_TIMES * V + 7 * V + 2 * R * V) : rows;
   }
-  __host__ __device__ static int words(int L, int V, int R, bool reg) {
-    const int w = 2 * V + union_words(L, V, R, reg) + 12 * V + 3 * R * V + L + V + 4;
+  // W: words of a slot mask (1 in the narrow kernels)
+  __host__ __device__ static int words(int L, int V, int R, bool reg, int W) {
+    const int w = 2 * V + union_words(L, V, R, reg) + 12 * V + 3 * R * V + W * (L + V + 4);
     return (w + 1) & ~1;  // keeps the next env's keys 8-byte aligned
   }
 
-  __device__ void carve(float* p, int L, int V, int R, bool reg) {
+  __device__ void carve(float* p, int L, int V, int R, bool reg, int W) {
     key = reinterpret_cast<unsigned long long*>(p);
     float* u = p + 2 * V;
     S = u;
@@ -495,8 +542,8 @@ struct EnvSmem {
     rn = rbase + R * V;
     rid = rn + R * V;
     elig = reinterpret_cast<unsigned*>(rid + R * V);
-    imp = elig + L;
-    bits = imp + V;
+    imp = elig + L * W;
+    bits = imp + V * W;
   }
 };
 
@@ -515,7 +562,8 @@ __host__ __device__ static int block_words(int L, int V, bool conn) {
 #define FS_VEHICLE 2
 #define FS_CONTROLLED 4
 
-template <bool kLinear, bool kConnected>
+// W: words of a slot mask
+template <bool kLinear, bool kConnected, int W>
 struct Ctx {
   const Lanes& g;
   const GenParams& p;
@@ -531,7 +579,7 @@ struct Ctx {
   // vehicle/behavior.py::neighbours of slot i on query lane q: front =
   // smallest s >= own s, the last slot among ties; rear = largest s < own s,
   // the first among ties; -1 = none.  The walk visits the eligible slots in
-  // ascending order, as the dense loop over every slot did.
+  // ascending order, as the dense loop over every slot did, word after word.
   // kConnected: vehicle/behavior.py::neighbours_connected.  The candidate
   // lanes of q in column order; a slot counts on the first candidate whose
   // eligibility bit it has (the bits already seen are masked off), with its
@@ -545,37 +593,46 @@ struct Ctx {
     float f_key = INFINITY, r_key = -INFINITY;
     int f = -1, r = -1;
     if constexpr (kConnected) {
-      unsigned seen = 1u << i;
+      unsigned seen[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) seen[w] = w == word_of<W>(i) ? bit_of<W>(i) : 0u;
       for (int k = 0; k < GEN_MAX_CONN; ++k) {
         const int c = conn_l[l * GEN_MAX_CONN + k];
         if (c < 0) continue;
         const float off = conn_f[l * GEN_MAX_CONN + k];
-        unsigned bits = e.elig[c] & ~seen;
-        seen |= bits;
-        for (; bits; bits &= bits - 1) {
-          const int j = __ffs(bits) - 1;
-          const float sc = e.S[c * V + j] + off;
-          if (s_self <= sc && (sc < f_key || (sc == f_key && j > f))) {
-            f_key = sc;
-            f = j;
-          }
-          if (sc < s_self && (sc > r_key || (sc == r_key && j < r))) {
-            r_key = sc;
-            r = j;
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          unsigned bits = e.elig[c * W + w] & ~seen[w];
+          seen[w] |= bits;
+          for (; bits; bits &= bits - 1) {
+            const int j = 32 * w + __ffs(bits) - 1;
+            const float sc = e.S[c * V + j] + off;
+            if (s_self <= sc && (sc < f_key || (sc == f_key && j > f))) {
+              f_key = sc;
+              f = j;
+            }
+            if (sc < s_self && (sc > r_key || (sc == r_key && j < r))) {
+              r_key = sc;
+              r = j;
+            }
           }
         }
       }
     } else {
-      for (unsigned bits = e.elig[l] & ~(1u << i); bits; bits &= bits - 1) {
-        const int j = __ffs(bits) - 1;
-        const float sc = e.S[l * V + j];
-        if (s_self <= sc && sc <= f_key) {
-          f_key = sc;
-          f = j;
-        }
-        if (sc < s_self && sc > r_key) {
-          r_key = sc;
-          r = j;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const unsigned self = w == word_of<W>(i) ? bit_of<W>(i) : 0u;
+        for (unsigned bits = e.elig[l * W + w] & ~self; bits; bits &= bits - 1) {
+          const int j = 32 * w + __ffs(bits) - 1;
+          const float sc = e.S[l * V + j];
+          if (s_self <= sc && sc <= f_key) {
+            f_key = sc;
+            f = j;
+          }
+          if (sc < s_self && sc > r_key) {
+            r_key = sc;
+            r = j;
+          }
         }
       }
     }
@@ -696,14 +753,17 @@ __device__ __forceinline__ void for_items(int M, int V, int t, int G, Fn fn) {
 // when `relocate` and slot j is a vehicle, keeps the smallest packed key of
 // the closest lane over its lanes and merges it with one atomicMin; each
 // lane's eligibility mask is the warp's ballot of the step, one atomicOr per
-// lane from the thread of slot 0.
+// lane from the thread of slot 0; kWide (an env's threads span warps, and a
+// slot's bit lies in word j / 32): one atomicOr of its bit per slot eligible
+// there, a handful a lane.
+template <bool kWide>
 __device__ void project_table(const Lanes& g, const EnvSmem& e, const int* lorder, int L,
                               int V, int t, int G, bool env_live, bool relocate) {
   const int c = G / V, q = t / V, j = t - q * V;
   const bool mine = env_live && q < c;
   const int steps = (L + c - 1) / c;
   const int base = (threadIdx.x & 31) - t + q * V;  // this q's first lane of the warp
-  const unsigned slot_mask = V == 32 ? FULL_MASK : (1u << V) - 1u;
+  const unsigned slot_mask = kWide ? 0u : (V == 32 ? FULL_MASK : (1u << V) - 1u);
   const float px = mine ? e.px[j] : 0.f, py = mine ? e.py[j] : 0.f;
   const float hd = mine ? e.phead[j] : 0.f;
   const bool occupies = mine && (e.flags[j] & FS_OCCUPIES);
@@ -730,9 +790,13 @@ __device__ void project_table(const Lanes& g, const EnvSmem& e, const int* lorde
         if (k < best) best = k;
       }
     }
-    // bit j of the shifted ballot: slot j on this q's lane of the step
-    const unsigned bits = (__ballot_sync(FULL_MASK, on) >> base) & slot_mask;
-    if (has && j == 0 && bits) atomicOr(&e.elig[l], bits);
+    if constexpr (kWide) {
+      if (on) atomicOr(&e.elig[l * GEN_WIDE_WORDS + (j >> 5)], 1u << (j & 31));
+    } else {
+      // bit j of the shifted ballot: slot j on this q's lane of the step
+      const unsigned bits = (__ballot_sync(FULL_MASK, on) >> base) & slot_mask;
+      if (has && j == 0 && bits) atomicOr(&e.elig[l], bits);
+    }
   }
   if (reloc) atomicMin(&e.key[j], best);
 }
@@ -740,8 +804,8 @@ __device__ void project_table(const Lanes& g, const EnvSmem& e, const int* lorde
 // Phase B for the owner of slot i: the IDM / MOBIL decision pass and the
 // controls.  kLinear: each row's own kind picks its law (a Linear row's is
 // LinearVehicle's); without it every law is IDM's.
-template <bool kLinear, bool kConnected>
-__device__ __forceinline__ void decide(GSlot& v, const Ctx<kLinear, kConnected>& cx,
+template <bool kLinear, bool kConnected, int W>
+__device__ __forceinline__ void decide(GSlot& v, const Ctx<kLinear, kConnected, W>& cx,
                                        const Lanes& g,
                                        const GenParams& p, const EnvSmem& e, int i, int V,
                                        int R, const int* rid) {
@@ -839,19 +903,23 @@ __device__ __forceinline__ void decide(GSlot& v, const Ctx<kLinear, kConnected>&
   }
 }
 
-// conn_lanes / conn_offsets: the (L, GEN_MAX_CONN) candidate tables, read by
-// the kConnected instantiations alone (last, so that the other parameters
-// keep their places); dyn: the kDynamical instantiations' DynFields, a
-// parameter of theirs alone (an empty pack elsewhere)
-template <bool kRegulated, bool kLinear, bool kConnected, bool kDynamical, typename... Dyn>
-__global__ void __launch_bounds__(GEN_BLOCK)
-    general_frames_kernel(const __grid_constant__ GenFields f,
-                          const __grid_constant__ RegFields rf, const float* lane_f,
-                          const int* lane_i, const __grid_constant__ GenParams p, int B,
-                          int G, const int* conn_lanes, const float* conn_offsets,
-                          const Dyn... dyn) {
+// The frame body of both kernels below: G threads an env, GEN_BLOCK / G
+// envs a block (narrow), or one env a block of G = GEN_WIDE_BLOCK threads
+// (kWide).  conn_lanes / conn_offsets: the (L, GEN_MAX_CONN) candidate
+// tables, read by the kConnected instantiations alone (last, so that the
+// other parameters keep their places); dyn: the kDynamical instantiations'
+// DynFields, a parameter of theirs alone (an empty pack elsewhere)
+template <bool kRegulated, bool kLinear, bool kConnected, bool kDynamical, bool kWide,
+          typename... Dyn>
+__device__ __forceinline__ void frames_body(const GenFields& f, const RegFields& rf,
+                                            const float* lane_f, const int* lane_i,
+                                            const GenParams& p, int B, int G,
+                                            const int* conn_lanes, const float* conn_offsets,
+                                            const Dyn... dyn) {
   static_assert(sizeof...(Dyn) == (kDynamical ? 1 : 0) && !(kDynamical && kConnected),
                 "a kDynamical instantiation takes its DynFields, and is not connected");
+  constexpr int W = kWide ? GEN_WIDE_WORDS : 1;  // words of a slot mask
+  constexpr int kBlock = kWide ? GEN_WIDE_BLOCK : GEN_BLOCK;
   extern __shared__ float smem[];
   const int L = p.L, V = p.V, R = p.R, M = p.M;
   const int P = V * (V - 1) / 2;
@@ -895,15 +963,15 @@ __global__ void __launch_bounds__(GEN_BLOCK)
   const Lanes g = {lf, li, L};
 
   const int group = threadIdx.x / G, t = threadIdx.x % G;
-  const int env = blockIdx.x * (GEN_BLOCK / G) + group;
+  const int env = blockIdx.x * (kBlock / G) + group;
   const bool env_live = env < B;
   const bool live = env_live && t < V;  // this thread owns slot t
   const int i = t;
 
   EnvSmem e;
   float* env_base = smem + block_words(L, V, kConnected) +
-                    static_cast<size_t>(group) * EnvSmem::words(L, V, R, kRegulated);
-  e.carve(env_base, L, V, R, kRegulated);
+                    static_cast<size_t>(group) * EnvSmem::words(L, V, R, kRegulated, W);
+  e.carve(env_base, L, V, R, kRegulated, W);
   const int phase = (kRegulated && env_live) ? rf.phase[env] : 0;
 
   const size_t o = static_cast<size_t>(env) * V + i;
@@ -967,11 +1035,11 @@ __global__ void __launch_bounds__(GEN_BLOCK)
                  (v.is_vehicle() ? FS_VEHICLE : 0) | (v.is_controlled() ? FS_CONTROLLED : 0);
   }
   if (env_live)
-    for (int l = t; l < L; l += G) e.elig[l] = 0u;
-  GROUP_SYNC();
+    for (int l = t; l < L * W; l += G) e.elig[l] = 0u;
+  group_sync<kWide>();
   // the frame-start projection table and eligibility masks
-  project_table(g, e, lorder, L, V, t, G, env_live, false);
-  GROUP_SYNC();
+  project_table<kWide>(g, e, lorder, L, V, t, G, env_live, false);
+  group_sync<kWide>();
 
   // the deciding slot's law: its kind and, on a Linear row, its parameters
   Law law = {kLinear && v.kind == KIND_LINEAR, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -982,7 +1050,7 @@ __global__ void __launch_bounds__(GEN_BLOCK)
     law.sp0 = f.steer_params[2 * o];
     law.sp1 = f.steer_params[2 * o + 1];
   }
-  const Ctx<kLinear, kConnected> cx = {g, p, e, V, i, v.delta, law, conn_l, conn_f};
+  const Ctx<kLinear, kConnected, W> cx = {g, p, e, V, i, v.delta, law, conn_l, conn_f};
   const int* rb = e.rbase + i * R;
   const int* rn = e.rn + i * R;
   const int* rid = e.rid + i * R;
@@ -1070,11 +1138,11 @@ __global__ void __launch_bounds__(GEN_BLOCK)
       e.lane[i] = v.lane;
       e.tlane[i] = v.tlane;
     }
-    GROUP_SYNC();
+    group_sync<kWide>();
 
     // --- B: the IDM / MOBIL decision pass and the controls ----------------
-    if (live) decide<kLinear, kConnected>(v, cx, g, p, e, i, V, R, rid);
-    GROUP_SYNC();  // the frame-start table and eligibility masks are read
+    if (live) decide<kLinear, kConnected, W>(v, cx, g, p, e, i, V, R, rid);
+    group_sync<kWide>();  // the frame-start table and eligibility masks are read
 
     // --- B': the right-of-way pass on the env's tick frames ----------------
     // road/regulation.py::enforce_road_rules on the frame-start state (after
@@ -1082,7 +1150,7 @@ __global__ void __launch_bounds__(GEN_BLOCK)
     if constexpr (kRegulated) {
       const bool tick = env_live && (phase + frame + 1) % p.period == 0;
       if (__any_sync(FULL_MASK, tick)) {
-        if (tick && t == 0) e.bits[2] = 0u;
+        if (tick && t < W) e.bits[2 * W + t] = 0u;
         if (tick && live) {
           // the constant-speed route walk's segments (predict_route_positions)
           const int lc = g.clip(v.lane);
@@ -1114,7 +1182,7 @@ __global__ void __launch_bounds__(GEN_BLOCK)
           e.fy[i] = v.py;
           e.prio[i] = g.I(lc, LI_PRIORITY);
         }
-        GROUP_SYNC();  // every read of S / LAT is done: the predictions take their words
+        group_sync<kWide>();  // every read of S / LAT is done: the predictions take their words
         // every slot's positions and headings at the 11 times, item (t, j)
         if (tick)
           for_items(REG_TIMES, V, t, G, [&](int tt, int j) {
@@ -1138,7 +1206,7 @@ __global__ void __launch_bounds__(GEN_BLOCK)
             e.qc[tt * V + j] = cosf(h);
             e.qs[tt * V + j] = sinf(h);
           });
-        GROUP_SYNC();
+        group_sync<kWide>();
         // future overlaps of every pair of vehicles (lower, upper), each
         // pair on one thread; the yielder's bit
         if (tick)
@@ -1169,11 +1237,12 @@ __global__ void __launch_bounds__(GEN_BLOCK)
               const float front_ba = (-dx0) * e.cos[b] + (-dy0) * e.sin[b];
               a_yields = front_ab > front_ba;
             }
-            atomicOr(&e.bits[2], 1u << (a_yields ? a : b));
+            const int y = a_yields ? a : b;
+            atomicOr(&e.bits[2 * W + word_of<W>(y)], bit_of<W>(y));
           });
-        GROUP_SYNC();  // the predictions are read: the rows take their words back
+        group_sync<kWide>();  // the predictions are read: the rows take their words back
         if (tick && live) {
-          const bool new_yield = ((e.bits[2] >> i) & 1u) &&
+          const bool new_yield = has_slot<W>(e.bits + 2 * W, i) &&
                                  (v.kind == KIND_IDM || v.kind == KIND_LINEAR);
           // release the expired yielders to the lane's limit, then the new yields
           const bool expired = v.yld && static_cast<float>(v.yt) >= REG_YIELD_TICKS;
@@ -1240,16 +1309,16 @@ __global__ void __launch_bounds__(GEN_BLOCK)
                     (v.chk ? F_CHECK : 0) | (v.coll ? F_COLLIDABLE : 0) |
                     (solid ? F_SOLID : 0) | (v.kind == KIND_OBSTACLE ? F_OBSTACLE : 0);
       e.key[i] = ~0ull;
-      e.imp[i] = 0u;
+      for (int w = 0; w < W; ++w) e.imp[i * W + w] = 0u;
     }
     if (env_live) {
-      for (int l = t; l < L; l += G) e.elig[l] = 0u;
-      if (t == 0) e.bits[0] = e.bits[1] = 0u;
+      for (int l = t; l < L * W; l += G) e.elig[l] = 0u;
+      if (t < W) e.bits[t] = e.bits[W + t] = 0u;
     }
-    GROUP_SYNC();
+    group_sync<kWide>();
 
     // --- C': the new projection table and re-localization, slot-major -------
-    project_table(g, e, lorder, L, V, t, G, env_live, true);
+    project_table<kWide>(g, e, lorder, L, V, t, G, env_live, true);
     // --- D: collisions, each pair once: sphere pre-check, swept SAT, slot bits
     // (no barrier between C' and D: they touch other words)
     if (env_live)
@@ -1265,27 +1334,42 @@ __global__ void __launch_bounds__(GEN_BLOCK)
             e.len[b], e.wid[b], e.pcos[b], e.psin[b], (e.pvx[a] - e.pvx[b]) * p.dt,
             (e.pvy[a] - e.pvy[b]) * p.dt, &inter, &will, &tx, &ty);
         const bool both_solid = (fa & F_SOLID) && (fb & F_SOLID);
-        const unsigned ba = 1u << a, bb = 1u << b;
-        if (inter && both_solid) atomicOr(&e.bits[0], ba | bb);
-        if (inter && !both_solid)
-          atomicOr(&e.bits[1], ((fa & F_SOLID) ? 0u : ba) | ((fb & F_SOLID) ? 0u : bb));
+        const unsigned ba = bit_of<W>(a), bb = bit_of<W>(b);
+        if constexpr (W == 1) {
+          if (inter && both_solid) atomicOr(&e.bits[0], ba | bb);
+          if (inter && !both_solid)
+            atomicOr(&e.bits[1], ((fa & F_SOLID) ? 0u : ba) | ((fb & F_SOLID) ? 0u : bb));
+        } else {  // a and b may lie in different words
+          if (inter && both_solid) {
+            atomicOr(&e.bits[word_of<W>(a)], ba);
+            atomicOr(&e.bits[word_of<W>(b)], bb);
+          }
+          if (inter && !both_solid) {
+            if (!(fa & F_SOLID)) atomicOr(&e.bits[W + word_of<W>(a)], ba);
+            if (!(fb & F_SOLID)) atomicOr(&e.bits[W + word_of<W>(b)], bb);
+          }
+        }
         if (will && both_solid) {
-          if (!(fa & F_OBSTACLE)) atomicOr(&e.imp[a], bb);
-          if (!(fb & F_OBSTACLE)) atomicOr(&e.imp[b], ba);
+          if (!(fa & F_OBSTACLE)) atomicOr(&e.imp[a * W + word_of<W>(b)], bb);
+          if (!(fb & F_OBSTACLE)) atomicOr(&e.imp[b * W + word_of<W>(a)], ba);
         }
       });
-    GROUP_SYNC();
+    group_sync<kWide>();
 
     // --- D': the closest lane, crash / hit flags, the last-write impact ----
     if (live) {
       if (v.is_vehicle()) v.lane = static_cast<int>(e.key[i] & 0xffffffffull);
-      const unsigned partners = e.imp[i];
-      if (partners) {
-        // the highest partner: every partner above i outranks every one
-        // below (row before column), and ascending order leaves the last
-        // write; the full translation against an obstacle, half each
-        // between two vehicles
-        const int j = 31 - __clz(partners);
+      // the highest partner, from the top word down: every partner above i
+      // outranks every one below (row before column), and ascending order
+      // leaves the last write; the full translation against an obstacle,
+      // half each between two vehicles
+      int j = -1;
+#pragma unroll
+      for (int w = W - 1; w >= 0; --w) {
+        const unsigned partners = e.imp[i * W + w];
+        if (j < 0 && partners) j = 32 * w + 31 - __clz(partners);
+      }
+      if (j >= 0) {
         const int a = min(i, j), b = max(i, j);
         bool inter, will;
         float tx, ty;
@@ -1298,8 +1382,8 @@ __global__ void __launch_bounds__(GEN_BLOCK)
         v.iy = coef * ty;
         v.pend = true;
       }
-      v.crashed = v.crashed || ((e.bits[0] >> i) & 1u);
-      v.hit = v.hit || ((e.bits[1] >> i) & 1u);
+      v.crashed = v.crashed || has_slot<W>(e.bits, i);
+      v.hit = v.hit || has_slot<W>(e.bits + W, i);
     }
     // the next frame's phase A writes only frame-start rows, which nothing
     // reads until after its barrier; the words read here are rewritten
@@ -1336,20 +1420,47 @@ __global__ void __launch_bounds__(GEN_BLOCK)
   }
 }
 
+// The narrow kernels: G = 16 or 32 threads an env within one warp.
+template <bool kRegulated, bool kLinear, bool kConnected, bool kDynamical, typename... Dyn>
+__global__ void __launch_bounds__(GEN_BLOCK)
+    general_frames_kernel(const __grid_constant__ GenFields f,
+                          const __grid_constant__ RegFields rf, const float* lane_f,
+                          const int* lane_i, const __grid_constant__ GenParams p, int B,
+                          int G, const int* conn_lanes, const float* conn_offsets,
+                          const Dyn... dyn) {
+  frames_body<kRegulated, kLinear, kConnected, kDynamical, false>(
+      f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, dyn...);
+}
+
+// The wide kernels: one env a block of G = GEN_WIDE_BLOCK threads.
+template <bool kRegulated, bool kLinear, bool kConnected, bool kDynamical, typename... Dyn>
+__global__ void __launch_bounds__(GEN_WIDE_BLOCK)
+    general_frames_wide_kernel(const __grid_constant__ GenFields f,
+                               const __grid_constant__ RegFields rf, const float* lane_f,
+                               const int* lane_i, const __grid_constant__ GenParams p, int B,
+                               int G, const int* conn_lanes, const float* conn_offsets,
+                               const Dyn... dyn) {
+  frames_body<kRegulated, kLinear, kConnected, kDynamical, true>(
+      f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, dyn...);
+}
+
 // Threads an env: 16 up to 16 slots, else 32 (32 at V <= 16 ran 1.29x to
 // 1.50x slower at roundabout-v0, merge-v0 and the V = 16 warm-up; PERF.md).
 static int threads_per_env(int V) { return V <= 16 ? 16 : 32; }
 
-// dyn: the kDynamical instantiations' DynFields (one pointer), or nothing
-template <bool kRegulated, bool kConnected, typename... Dyn>
+// dyn: the kDynamical instantiations' DynFields (one pointer), or nothing;
+// kWide: the wide kernels (up to GEN_WIDE_SLOTS slots), else the narrow
+// ones (up to GEN_MAX_SLOTS)
+template <bool kRegulated, bool kConnected, bool kWide, typename... Dyn>
 static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
                   const int* lane_i, const int* conn_lanes, const float* conn_offsets,
                   const GenParams* params, int B, void* stream, const Dyn*... dyn) {
   static_assert(sizeof(GenFields) == (N_IN + 1 + N_OUT) * sizeof(void*),
                 "GenFields holds one pointer per tensor");
   constexpr bool kDynamical = sizeof...(Dyn) > 0;
+  constexpr int max_slots = kWide ? GEN_WIDE_SLOTS : GEN_MAX_SLOTS;
   const GenParams& p = *params;
-  if (p.V < 1 || p.V > GEN_MAX_SLOTS || p.L < 1 || p.L > GEN_MAX_LANES || p.R < 1 ||
+  if (p.V < 1 || p.V > max_slots || p.L < 1 || p.L > GEN_MAX_LANES || p.R < 1 ||
       p.R > GEN_MAX_ROUTE || p.M < 1 || p.M > GEN_MAX_LANES ||
       (p.raw ? p.n_speeds != 0 : (p.n_speeds < 1 || p.n_speeds > GEN_MAX_SPEEDS)) ||
       (kRegulated && p.period < 1) || (kConnected && (!conn_lanes || !conn_offsets)) ||
@@ -1357,27 +1468,56 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
     return static_cast<int>(cudaErrorInvalidValue);
   GenFields f;
   memcpy(&f, ptrs, sizeof(GenFields));
-  const int G = threads_per_env(p.V);
-  const int envs_per_block = GEN_BLOCK / G;
+  const int block = kWide ? GEN_WIDE_BLOCK : GEN_BLOCK;
+  const int G = kWide ? GEN_WIDE_BLOCK : threads_per_env(p.V);
+  const int envs_per_block = block / G;
   const size_t smem =
-      sizeof(float) *
-      (static_cast<size_t>(block_words(p.L, p.V, kConnected)) +
-       static_cast<size_t>(envs_per_block) * EnvSmem::words(p.L, p.V, p.R, kRegulated));
-  // the Linear rows' instantiation where the caller says they are possible
-  auto kernel = p.linear ? general_frames_kernel<kRegulated, true, kConnected, kDynamical, Dyn...>
-                         : general_frames_kernel<kRegulated, false, kConnected, kDynamical, Dyn...>;
+      sizeof(float) * (static_cast<size_t>(block_words(p.L, p.V, kConnected)) +
+                       static_cast<size_t>(envs_per_block) *
+                           EnvSmem::words(p.L, p.V, p.R, kRegulated, kWide ? GEN_WIDE_WORDS : 1));
+  // the Linear rows' instantiation where the caller says they are possible;
+  // only this library's kernels (narrow or wide) are instantiated
+  const auto kernel = [&] {
+    if constexpr (kWide)
+      return p.linear
+                 ? general_frames_wide_kernel<kRegulated, true, kConnected, kDynamical, Dyn...>
+                 : general_frames_wide_kernel<kRegulated, false, kConnected, kDynamical, Dyn...>;
+    else
+      return p.linear ? general_frames_kernel<kRegulated, true, kConnected, kDynamical, Dyn...>
+                      : general_frames_kernel<kRegulated, false, kConnected, kDynamical, Dyn...>;
+  }();
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+    // above the default only by the attribute, set once per kernel and card
+    // for the largest size asked so far: a launch under stream capture after
+    // an eager one of the same shape calls no function attribute
+    static size_t allowed[2][64] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return static_cast<int>(e);
+    size_t& set = allowed[p.linear ? 1 : 0][dev & 63];
+    if (smem > set) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      set = smem;
+    }
   }
   if (B > 0) {
     const int blocks = (B + envs_per_block - 1) / envs_per_block;
-    kernel<<<blocks, GEN_BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<blocks, block, smem, static_cast<cudaStream_t>(stream)>>>(
         f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, *dyn...);
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// This source builds the narrow library; general_frames_wide.cu includes it
+// with GEN_WIDE_LIBRARY defined and builds the wide one, whose entries below
+// have the same names and launch the wide kernels.
+#ifdef GEN_WIDE_LIBRARY
+#define GEN_WIDE true
+#else
+#define GEN_WIDE false
+#endif
 
 // ptrs: the N_IN input tensors, the (B, V) int32 slot actions (null with
 // GenParams::raw, never read) and the N_OUT output tensors, as device
@@ -1387,8 +1527,8 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
 // error code (cudaErrorInvalidValue for shapes outside the kernel's limits).
 extern "C" int general_frames(void* const* ptrs, const float* lane_f, const int* lane_i,
                               const GenParams* params, int B, void* stream) {
-  return launch<false, false>(ptrs, RegFields{}, lane_f, lane_i, nullptr, nullptr, params, B,
-                              stream);
+  return launch<false, false, GEN_WIDE>(ptrs, RegFields{}, lane_f, lane_i, nullptr, nullptr,
+                                        params, B, stream);
 }
 
 // The size of GenParams, which the wrapper holds its ctypes mirror to.
@@ -1402,7 +1542,8 @@ extern "C" int general_frames_regulated(void* const* ptrs, void* const* reg_ptrs
   static_assert(sizeof(RegFields) == 5 * sizeof(void*), "RegFields holds five pointers");
   RegFields rf;
   memcpy(&rf, reg_ptrs, sizeof(RegFields));
-  return launch<true, false>(ptrs, rf, lane_f, lane_i, nullptr, nullptr, params, B, stream);
+  return launch<true, false, GEN_WIDE>(ptrs, rf, lane_f, lane_i, nullptr, nullptr, params, B,
+                                       stream);
 }
 
 // The connected-lane search's K4: as general_frames, plus conn_lanes /
@@ -1412,8 +1553,8 @@ extern "C" int general_frames_connected(void* const* ptrs, const float* lane_f,
                                         const int* lane_i, const int* conn_lanes,
                                         const float* conn_offsets, const GenParams* params,
                                         int B, void* stream) {
-  return launch<false, true>(ptrs, RegFields{}, lane_f, lane_i, conn_lanes, conn_offsets,
-                             params, B, stream);
+  return launch<false, true, GEN_WIDE>(ptrs, RegFields{}, lane_f, lane_i, conn_lanes,
+                                       conn_offsets, params, B, stream);
 }
 
 // The connected-lane search's K5: as general_frames_regulated, plus the
@@ -1426,8 +1567,8 @@ extern "C" int general_frames_regulated_connected(void* const* ptrs, void* const
                                                   void* stream) {
   RegFields rf;
   memcpy(&rf, reg_ptrs, sizeof(RegFields));
-  return launch<true, true>(ptrs, rf, lane_f, lane_i, conn_lanes, conn_offsets, params, B,
-                            stream);
+  return launch<true, true, GEN_WIDE>(ptrs, rf, lane_f, lane_i, conn_lanes, conn_offsets, params,
+                                      B, stream);
 }
 
 // The size of DynFields, which the wrapper holds its ctypes mirror to.
@@ -1438,8 +1579,8 @@ extern "C" int general_dyn_bytes() { return static_cast<int>(sizeof(DynFields));
 extern "C" int general_frames_dynamical(void* const* ptrs, const float* lane_f,
                                         const int* lane_i, const GenParams* params, int B,
                                         void* stream, const DynFields* dyn) {
-  return launch<false, false>(ptrs, RegFields{}, lane_f, lane_i, nullptr, nullptr, params, B,
-                              stream, dyn);
+  return launch<false, false, GEN_WIDE>(ptrs, RegFields{}, lane_f, lane_i, nullptr, nullptr,
+                                        params, B, stream, dyn);
 }
 
 // K5 under a dynamical action: as general_frames_regulated, plus dyn.
@@ -1449,6 +1590,6 @@ extern "C" int general_frames_regulated_dynamical(void* const* ptrs, void* const
                                                   const DynFields* dyn) {
   RegFields rf;
   memcpy(&rf, reg_ptrs, sizeof(RegFields));
-  return launch<true, false>(ptrs, rf, lane_f, lane_i, nullptr, nullptr, params, B, stream,
-                             dyn);
+  return launch<true, false, GEN_WIDE>(ptrs, rf, lane_f, lane_i, nullptr, nullptr, params, B,
+                                       stream, dyn);
 }

@@ -43,9 +43,13 @@ on a connected spec their ``kConnected`` instantiations
 ``frames_general_connected_kernel`` and
 ``frames_regulated_connected_kernel``, and on a dynamical spec their
 ``kDynamical`` instantiations ``frames_general_dynamical_kernel`` and
-``frames_regulated_dynamical_kernel``, each with its own launch count; on
-CPU tensors all run ``frames_general_plain``.  ``try_general`` is the scope
-gate: the envs outside it raise when made, naming the reason.
+``frames_regulated_dynamical_kernel``, each with its own launch count; a
+scene of more than ``NARROW_SLOTS`` slots launches the wide twin of its
+instantiation (``csrc/general_frames_wide.cu``, one env a block of 128
+threads, up to ``MAX_SLOTS``: ``frames_general_wide_kernel`` ...), picked by
+``frames_kernel_for``; on CPU tensors all run ``frames_general_plain``.
+``try_general`` is the scope gate: the envs outside it raise when made,
+naming the reason.
 """
 
 from __future__ import annotations
@@ -71,11 +75,13 @@ from highwayenv_tpu_torch.vehicle import behavior, controller, dynamics, kinemat
 from highwayenv_tpu_torch.vehicle.behavior import IDMParams
 from highwayenv_tpu_torch.vehicle.state import KIND_EGO, KIND_LINEAR, VehicleState
 
-#: the gate's limits: one warp per env holds at most 32 slots, and the
-#: TPU kernel's unrolled lane loops stop at 32 lanes (also the most lanes
-#: an edge can have)
-MAX_SLOTS = 32
-MAX_LANES = 32
+#: the gate's limits: the wide kernels hold an env's slots in one block of
+#: 128 threads (the narrow ones, in a warp, at most ``NARROW_SLOTS``), and
+#: the lane tables in shared memory at most 64 lanes (also the most lanes an
+#: edge can have)
+MAX_SLOTS = 128
+NARROW_SLOTS = 32
+MAX_LANES = 64
 #: sizes of the kernel's fixed arrays (``GEN_MAX_SUCC`` ... in the .cu)
 MAX_SUCC = 4
 MAX_PRED = 4
@@ -472,7 +478,10 @@ class GeneralFramesKernel(KernelWrapper):
     ``general_frames_dynamical`` and ``general_frames_regulated_dynamical``),
     which integrate the egos by the tire-slip model and read and write
     ``lateral_speed`` and ``yaw_rate`` too (``DynFields``), for a dynamical
-    spec only.
+    spec only.  With ``wide=True`` the same entry of the wide library
+    (``csrc/general_frames_wide.cu``): scenes of ``NARROW_SLOTS`` + 1 to
+    ``MAX_SLOTS`` slots, one env a block; the others take at most
+    ``NARROW_SLOTS``.
 
     Called on CUDA tensors it launches its kernel once for all frames of
     the policy step, the ego meta-action applied inside on frame 0, and adds
@@ -486,18 +495,20 @@ class GeneralFramesKernel(KernelWrapper):
     IDM code, which traps on a Linear row.
     """
 
-    source = "general_frames"
     #: the fields the kernel reads, in the order of its pointer block
     in_fields = _IN_FIELDS
     #: the ctypes mirror of the library's parameter block
     params_type = GenParams
 
     def __init__(self, regulated: bool = False, connected: bool = False,
-                 dynamical: bool = False):
+                 dynamical: bool = False, wide: bool = False):
         super().__init__()
         if connected and dynamical:  # refused at make (kernel_limits)
             raise ValueError("no instantiation is both connected and dynamical")
         self.regulated, self.connected, self.dynamical = regulated, connected, dynamical
+        self.wide = wide
+        self.source = "general_frames_wide" if wide else "general_frames"
+        self.max_slots = MAX_SLOTS if wide else NARROW_SLOTS
         self.entry = ("general_frames" + "_regulated" * regulated
                       + "_connected" * connected + "_dynamical" * dynamical)
         self._tables: dict = {}
@@ -543,6 +554,9 @@ class GeneralFramesKernel(KernelWrapper):
             return frames_general_plain(veh, spec, slot_actions, frames, steps0, raw)
         _check_raw(slot_actions, raw)
         B, V = veh.kind.shape
+        if V > self.max_slots:
+            raise ValueError(f"{V} slots > {self.max_slots}: frames_kernel_for picks the "
+                             "instantiation of a scene")
         R = veh.route_base.shape[-1]
         dev = veh.speed.device
         action_ptr = None
@@ -591,6 +605,7 @@ class GeneralFramesKernel(KernelWrapper):
 #: the wrapper instances the env path launches through: K4, and K5 for
 #: regulated roads, their connected instantiations for the envs with the
 #: connected-lane search and their dynamical ones for a dynamical action,
+#: and the wide twin of each for scenes of more than NARROW_SLOTS slots,
 #: each counting its own launches
 frames_general_kernel = GeneralFramesKernel()
 frames_regulated_kernel = GeneralFramesKernel(regulated=True)
@@ -598,6 +613,14 @@ frames_general_connected_kernel = GeneralFramesKernel(connected=True)
 frames_regulated_connected_kernel = GeneralFramesKernel(regulated=True, connected=True)
 frames_general_dynamical_kernel = GeneralFramesKernel(dynamical=True)
 frames_regulated_dynamical_kernel = GeneralFramesKernel(regulated=True, dynamical=True)
+frames_general_wide_kernel = GeneralFramesKernel(wide=True)
+frames_regulated_wide_kernel = GeneralFramesKernel(regulated=True, wide=True)
+frames_general_connected_wide_kernel = GeneralFramesKernel(connected=True, wide=True)
+frames_regulated_connected_wide_kernel = GeneralFramesKernel(regulated=True, connected=True,
+                                                             wide=True)
+frames_general_dynamical_wide_kernel = GeneralFramesKernel(dynamical=True, wide=True)
+frames_regulated_dynamical_wide_kernel = GeneralFramesKernel(regulated=True, dynamical=True,
+                                                             wide=True)
 
 
 def store_raw_controls(env, veh: VehicleState, slot_actions: torch.Tensor):
@@ -619,24 +642,27 @@ def simulate_general(env, veh: VehicleState, slot_actions: torch.Tensor,
     ``frames_general_kernel``, or with the envs' frame counters ``steps0``
     (a regulated road) through ``frames_regulated_kernel``; under the
     connected-lane search through their connected instantiations, under a
-    dynamical action through their dynamical ones (``frames_kernel_for``).
+    dynamical action through their dynamical ones, and over
+    ``NARROW_SLOTS`` slots through the wide twins (``frames_kernel_for``).
     Raw controls are stored first (``store_raw_controls``) and the launch
     reads none.  ``linear`` (default ``env.linear_rows``): Linear rows
     possible."""
     veh, slot_actions, raw = store_raw_controls(env, veh, slot_actions)
     linear = env.linear_rows if linear is None else linear
-    kernel = frames_kernel_for(env._general, steps0 is not None)
+    kernel = frames_kernel_for(env._general, steps0 is not None, veh.kind.shape[1])
     return kernel(veh, env._general, slot_actions, frames, steps0, raw, linear)
 
 
-def frames_kernel_for(spec: GeneralSpec, regulated: bool) -> GeneralFramesKernel:
-    """The wrapper instance of ``spec``'s instantiation: K4, or K5 on a
-    regulated road, connected or dynamical as the spec is."""
-    if spec.connected:
-        return frames_regulated_connected_kernel if regulated else frames_general_connected_kernel
-    if spec.dynamical:
-        return frames_regulated_dynamical_kernel if regulated else frames_general_dynamical_kernel
-    return frames_regulated_kernel if regulated else frames_general_kernel
+def frames_kernel_for(spec: GeneralSpec, regulated: bool,
+                      slots: int = 1) -> GeneralFramesKernel:
+    """The wrapper instance of ``spec``'s instantiation for a scene of
+    ``slots`` slots: K4, or K5 on a regulated road, connected or dynamical as
+    the spec is, and its wide twin over ``NARROW_SLOTS`` slots.  Looked up by
+    name when called, so that a stand-in put in the module's place is taken."""
+    wide = "_wide" * (slots > NARROW_SLOTS)
+    law = "_connected" if spec.connected else ("_dynamical" if spec.dynamical else "")
+    road = "regulated" if regulated else "general"
+    return globals()[f"frames_{road}{law}{wide}_kernel"]
 
 
 def simulate_general_reference(env, veh: VehicleState, slot_actions: torch.Tensor,

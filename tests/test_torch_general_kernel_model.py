@@ -8,18 +8,22 @@ and hold the model to the plain version the kernel is held to on the card
 (``frames_general_plain``'s pieces: ``lane.closest_lane_from_table``,
 ``behavior.neighbours``, ``collision.handle_collisions``,
 ``regulation.enforce_road_rules``), at V = 5 (roundabout-v0), 6 (merge-v0),
-16, 25 and 32 (intersection-v0 with ``duration`` 4, 13 and 20), B = 4:
+16, 25 and 32 (intersection-v0 with ``duration`` 4, 13 and 20), and for the
+wide kernels (one env a block, every slot mask W = ceil(V / 32) words, slot
+s at bit s % 32 of word s / 32) at V = 33, 42, 51 and 128 (``duration`` 21,
+30, 39 and 116), B = 4:
 
   (a) the closest lane as the minimum of a packed key over the lanes (the
       order of the distance, -0 as +0, then the lane index; NaN on lane 0
       keeps lane 0, a later NaN never wins): the first minimum of the lane
       loop, on tables with ties, -0.0, NaN and infinities;
   (b) the neighbour searches as walks of a per-lane bitmask of eligible
-      slots in ascending slot order, with the dense loop's comparisons:
-      front = smallest s >= own, the last slot among ties; rear = largest
-      s < own, the first among ties;
+      slots, word after word and each word's bits in ascending order, with
+      the dense loop's comparisons: front = smallest s >= own, the last
+      slot among ties; rear = largest s < own, the first among ties;
   (c) the collision pass with each pair evaluated once, crash and hit
-      flags merged as slot bits, the impact from the highest partner bit;
+      flags merged as slot bits into their words, the impact from the
+      highest partner bit, scanned from the top word down;
   (d) the right-of-way pass with each pair of vehicles evaluated once and
       the yielder's bit merged, at equal and unequal priority;
   (e) the connected-lane search (``kConnected``) as a walk of the query
@@ -29,7 +33,9 @@ and hold the model to the plain version the kernel is held to on the card
       shuffled order with the explicit tie rules (front: the highest slot
       among equal keys, rear: the lowest), held to the plain
       ``behavior.neighbours_connected`` at V = 5, 6, 21 and 26
-      (roundabout-v1, merge-v1, exit-v1, intersection-multi-agent-v2).
+      (roundabout-v1, merge-v1, exit-v1, intersection-multi-agent-v2), and
+      with the seen mask in words at V = 42 and 51 (intersection-v2 with
+      duration 30, exit-v1 with 50 vehicles).
 
 The pairs are merged in a shuffled order: the result must not depend on it.
 """
@@ -53,12 +59,40 @@ from highwayenv_tpu_torch.vehicle.state import KIND_IDM, KIND_LINEAR, KIND_OBSTA
 torch.set_num_threads(1)
 
 B = 4
-SIZES = (5, 6, 16, 25, 32)
+SIZES = (5, 6, 16, 25, 32, 33, 42, 51, 128)
+
+
+def _n_words(V: int) -> int:
+    """Words of a slot mask: 1 in the narrow kernels (V <= 32), V / 32
+    rounded up in the wide ones."""
+    return -(-V // 32)
+
+
+def _to_words(flags: torch.Tensor) -> torch.Tensor:
+    """A (..., V) bool of slots as the kernels' (..., W) words of 32 bits
+    (int64 holding each word's unsigned value): slot s at bit s % 32 of
+    word s / 32."""
+    V = flags.shape[-1]
+    W = _n_words(V)
+    pad = torch.zeros(flags.shape[:-1] + (32 * W - V,), dtype=torch.bool)
+    bits = torch.cat([flags, pad], dim=-1).reshape(flags.shape[:-1] + (W, 32))
+    return (bits.to(torch.int64) << torch.arange(32)).sum(dim=-1)
+
+
+def _slot_bit(s: int) -> tuple[int, int]:
+    """(word, bit value) of slot s in a mask."""
+    return s // 32, 1 << (s % 32)
+
+
+def _has(words: torch.Tensor, s: int) -> torch.Tensor:
+    """Whether slot s is set in the (..., W) words."""
+    w, bit = _slot_bit(s)
+    return (words[..., w] & bit) != 0
 
 
 def _env(V: int):
     """An env with V slots: roundabout-v0 (5), merge-v0 (6) or
-    intersection-v0 with duration V - 12 (16, 25, 32)."""
+    intersection-v0 with duration V - 12 (16, 25, 32, 33, 42, 51, 128)."""
     if V == 5:
         return ht.make("roundabout-v0", device="cpu")
     if V == 6:
@@ -164,20 +198,25 @@ def test_closest_lane_key_min_is_the_first_minimum(V):
 
 def _bit_walk_neighbours(query, table_s, elig):
     """The kernel's search: for each slot i and its query lane, the set bits
-    of the lane's eligibility mask but i, ascending, with the dense loop's
-    comparisons.  query (B, V) lanes; returns (front, rear), -1 = none."""
+    of the lane's eligibility mask but i, word after word and each word's
+    bits ascending, with the dense loop's comparisons.  query (B, V) lanes;
+    returns (front, rear), -1 = none."""
     Bn, L, V = table_s.shape
+    W = _n_words(V)
     q = query.clamp(0, L - 1).long()
-    bits = (elig.to(torch.int64) << torch.arange(V)).sum(dim=-1)  # (B, L)
-    qbits = torch.gather(bits, 1, q) & ~(1 << torch.arange(V))  # (B, V): no self
+    words = _to_words(elig)  # (B, L, W)
+    qwords = torch.gather(words, 1, q[..., None].expand(Bn, V, W)).clone()  # (B, V, W)
+    for i in range(V):  # no self: the bit of slot i cleared in its word
+        w, bit = _slot_bit(i)
+        qwords[:, i, w] &= ~bit
     s_q = torch.gather(table_s, 1, q[..., None].expand(Bn, V, V))  # [b, i, j]
     s_self = torch.diagonal(s_q, dim1=-2, dim2=-1)
     f_key = torch.full((Bn, V), math.inf)
     r_key = torch.full((Bn, V), -math.inf)
     front = torch.full((Bn, V), -1, dtype=torch.int64)
     rear = torch.full((Bn, V), -1, dtype=torch.int64)
-    for j in range(V):  # ascending: the order the set bits are visited in
-        on = ((qbits >> j) & 1) == 1
+    for j in range(V):  # word after word, bits ascending: the walk's order
+        on = _has(qwords, j)
         sc = s_q[..., j]
         take_f = on & (s_self <= sc) & (sc <= f_key)
         take_r = on & (sc < s_self) & (sc > r_key)
@@ -225,7 +264,8 @@ def test_neighbour_bit_walks_keep_the_tie_rules(V):
 def _pair_once_collisions(state, dt: float, seed: int):
     """The kernel's collision pass: the pair tests of handle_collisions
     (the same (lower, upper) rows), read once per pair in a shuffled order
-    and merged as slot bits; the impact of the highest partner bit."""
+    and merged as slot bits into their words; the impact of the highest
+    partner bit, from the top word down."""
     Bn, V = state.kind.shape
     px, py = state.pos[..., 0], state.pos[..., 1]
 
@@ -246,9 +286,10 @@ def _pair_once_collisions(state, dt: float, seed: int):
     active, veh_, chk, coll = (state.active, state.is_vehicle, state.check_collisions,
                                state.collidable)
     solid, obst = state.solid, state.kind == KIND_OBSTACLE
-    crash = torch.zeros(Bn, dtype=torch.int64)
-    hit = torch.zeros(Bn, dtype=torch.int64)
-    imp = torch.zeros((Bn, V), dtype=torch.int64)
+    W = _n_words(V)
+    crash = torch.zeros((Bn, W), dtype=torch.int64)
+    hit = torch.zeros((Bn, W), dtype=torch.int64)
+    imp = torch.zeros((Bn, V, W), dtype=torch.int64)
     for a, b in _shuffled_pairs(V, seed):
         ok = (active[:, a] & active[:, b] & (veh_[:, a] | veh_[:, b]) & (chk[:, a] | chk[:, b])
               & coll[:, a] & coll[:, b])
@@ -257,14 +298,20 @@ def _pair_once_collisions(state, dt: float, seed: int):
         ok = ok & (dx * dx + dy * dy <= reach * reach)
         i_ab, w_ab = inter[:, a, b] & ok, will[:, a, b] & ok
         both = solid[:, a] & solid[:, b]
-        ba, bb = 1 << a, 1 << b
-        crash |= torch.where(i_ab & both, ba | bb, 0)
-        hit |= torch.where(i_ab & ~solid[:, a], ba, 0) | torch.where(i_ab & ~solid[:, b], bb, 0)
-        imp[:, a] |= torch.where(w_ab & both & ~obst[:, a], bb, 0)
-        imp[:, b] |= torch.where(w_ab & both & ~obst[:, b], ba, 0)
+        (wa, ba), (wb, bb) = _slot_bit(a), _slot_bit(b)
+        crash[:, wa] |= torch.where(i_ab & both, ba, 0)
+        crash[:, wb] |= torch.where(i_ab & both, bb, 0)
+        hit[:, wa] |= torch.where(i_ab & ~solid[:, a], ba, 0)
+        hit[:, wb] |= torch.where(i_ab & ~solid[:, b], bb, 0)
+        imp[:, a, wb] |= torch.where(w_ab & both & ~obst[:, a], bb, 0)
+        imp[:, b, wa] |= torch.where(w_ab & both & ~obst[:, b], ba, 0)
     slots = torch.arange(V)
-    # the highest set bit of each slot's partner word
-    top = torch.where(imp > 0, torch.floor(torch.log2(imp.double().clamp(min=1))).long(), -1)
+    # the highest set bit of each slot's partner words, from the top word down
+    top = torch.full((Bn, V), -1, dtype=torch.int64)
+    for w in reversed(range(W)):
+        word = imp[..., w]
+        hi = 32 * w + torch.floor(torch.log2(word.double().clamp(min=1))).long()
+        top = torch.where((top < 0) & (word > 0), hi, top)
     j = top.clamp(min=0)
     lo, hi = torch.minimum(slots, j), torch.maximum(slots, j)
     t_x = torch.gather(tx.flatten(1), 1, lo * V + hi)
@@ -274,7 +321,9 @@ def _pair_once_collisions(state, dt: float, seed: int):
     has = top >= 0
     impact = torch.stack([torch.where(has, coef * t_x, state.impact[..., 0]),
                           torch.where(has, coef * t_y, state.impact[..., 1])], dim=-1)
-    bit = lambda word: ((word[:, None] >> slots) & 1) == 1  # noqa: E731
+    def bit(words):
+        return torch.stack([_has(words, s) for s in range(V)], dim=1)
+
     return state.replace(
         crashed=state.crashed | bit(crash), hit=state.hit | bit(hit), impact=impact,
         impact_pending=state.impact_pending | has,
@@ -313,7 +362,7 @@ def _conflict_scene(V: int):
 
     from highwayenv_tpu_torch.vehicle.state import VehicleState
 
-    env = ht.make("intersection-v0", {"duration": 20}, device="cpu")
+    env = ht.make("intersection-v0", {"duration": max(20, V - 12)}, device="cpu")
     _, states = env.reset(B, env.generator(V))
     full = states.vehicles
     veh = VehicleState(**{f.name: getattr(full, f.name)[:, :V].clone()
@@ -344,7 +393,8 @@ def _conflict_scene(V: int):
 def _pair_once_yields(geo, state, seed: int):
     """The kernel's right-of-way pass: the plain predictions, each pair of
     vehicles tested once (lower, upper) in a shuffled order, the yielder's
-    slot bit merged; then each slot's release and new yield."""
+    slot bit merged into its word; then each slot's release and new
+    yield."""
     Bn, V = state.kind.shape
     pos, heading = regulation.predict_route_positions(geo, state)
     px, py = pos[..., 0], pos[..., 1]
@@ -353,7 +403,7 @@ def _pair_once_yields(geo, state, seed: int):
     prio = geo.priority[li]
     cos0, sin0 = torch.cos(state.heading), torch.sin(state.heading)
     vh = state.is_vehicle
-    yields = torch.zeros(Bn, dtype=torch.int64)
+    yields = torch.zeros((Bn, _n_words(V)), dtype=torch.int64)
     kinds = {"equal": 0, "unequal": 0}
     for a, b in _shuffled_pairs(V, seed):
         both = vh[:, a] & vh[:, b]
@@ -371,10 +421,12 @@ def _pair_once_yields(geo, state, seed: int):
         front_ba = (-d0x) * cos0[:, b] + (-d0y) * sin0[:, b]
         pa, pb = prio[:, a], prio[:, b]
         a_yields = torch.where(pa != pb, pa < pb, front_ab > front_ba)
-        yields |= torch.where(conflict, torch.where(a_yields, 1 << a, 1 << b), 0)
+        for y, mine in ((a, a_yields), (b, ~a_yields)):
+            w, bit = _slot_bit(y)
+            yields[:, w] |= torch.where(conflict & mine, bit, 0)
         kinds["equal"] += int((conflict & (pa == pb)).sum())
         kinds["unequal"] += int((conflict & (pa != pb)).sum())
-    bit = ((yields[:, None] >> torch.arange(V)) & 1) == 1
+    bit = torch.stack([_has(yields, s) for s in range(V)], dim=1)
     new_yield = bit & ((state.kind == KIND_IDM) | (state.kind == KIND_LINEAR))
     expired = state.is_yielding & (state.yield_timer.float() >= 0.0)
     ts = torch.where(expired, geo.speed_limit[li], state.target_speed)
@@ -402,21 +454,25 @@ def test_pair_once_yield_merge_matches_enforce_road_rules(V):
 # (e) the connected-lane search: candidate walks, explicit tie rules
 # --------------------------------------------------------------------------- #
 
-CONNECTED_SIZES = {5: "roundabout-v1", 6: "merge-v1", 21: "exit-v1",
-                   26: "intersection-multi-agent-v2"}
+CONNECTED_SIZES = {5: ("roundabout-v1", None), 6: ("merge-v1", None), 21: ("exit-v1", None),
+                   26: ("intersection-multi-agent-v2", None),
+                   42: ("intersection-v2", {"duration": 30}),
+                   51: ("exit-v1", {"vehicles_count": 50})}
 
 
 def _connected_walk(geo, veh, query, table_s, elig, seed: int):
     """The kernel's ``Ctx::neighbours`` under kConnected, one (env, slot) at
     a time: the candidate lanes of the query lane in column order (pads
-    skipped), the slots newly seen on each (its eligibility bits but the
-    slots seen and the slot itself), key = s there + the offset; the keys
-    fed to the front / rear selection in a shuffled order with the
-    explicit tie rules.  Returns (front, rear), -1 = none."""
+    skipped), on each the slots newly seen, word after word (its
+    eligibility words but the slots seen and the slot itself), key = s
+    there + the offset; the keys fed to the front / rear selection in a
+    shuffled order with the explicit tie rules.  Returns (front, rear), -1
+    = none."""
     Bn, L, V = table_s.shape
+    W = _n_words(V)
     rng = np.random.default_rng(seed)
     lanes, offsets = geo.conn_lanes.tolist(), geo.conn_offsets.tolist()
-    bits = (elig.to(torch.int64) << torch.arange(V)).sum(dim=-1).tolist()  # (B, L)
+    words = _to_words(elig).tolist()  # (B, L, W)
     s = table_s.tolist()
     front = np.full((Bn, V), -1)
     rear = np.full((Bn, V), -1)
@@ -425,13 +481,17 @@ def _connected_walk(geo, veh, query, table_s, elig, seed: int):
         for i in range(V):
             q = min(max(int(query[b, i]), 0), L - 1)
             s_self = f32(s[b][q][i])
-            seen, items = 1 << i, []
+            seen = [0] * W
+            seen[i // 32] = 1 << (i % 32)
+            items = []
             for c, off in zip(lanes[q], offsets[q]):
                 if c < 0:
                     continue
-                new = bits[b][c] & ~seen
-                seen |= new
-                items += [(j, f32(s[b][c][j]) + f32(off)) for j in range(V) if new >> j & 1]
+                for w in range(W):
+                    new = words[b][c][w] & ~seen[w]
+                    seen[w] |= new
+                    items += [(32 * w + k, f32(s[b][c][32 * w + k]) + f32(off))
+                              for k in range(32) if new >> k & 1]
             f_key, r_key, f, r = f32(np.inf), f32(-np.inf), -1, -1
             for k in rng.permutation(len(items)):
                 j, key = items[k]
@@ -445,7 +505,7 @@ def _connected_walk(geo, veh, query, table_s, elig, seed: int):
 
 @pytest.mark.parametrize("V", sorted(CONNECTED_SIZES))
 def test_connected_candidate_walks_keep_the_tie_rules(V):
-    env = ht.make(CONNECTED_SIZES[V], device="cpu")
+    env = ht.make(*CONNECTED_SIZES[V], device="cpu")
     assert env.num_slots == V and env._general.connected
     _, states = env.reset(B, env.generator(V))
     veh = states.vehicles

@@ -13,7 +13,9 @@ Three configs that the general kernels refused at launch before their
 edge-lane and target-speed arrays were widened now make, and one policy
 step of each from a JAX reset batch matches the JAX step (the XLA general
 frame) on the CPU: exit-v0 with 8 lanes (9 lanes on the exit section's
-edge), roundabout-v0 with 9 target speeds and merge-v0 with 10.
+edge), roundabout-v0 with 9 target speeds and merge-v0 with 10; and a
+config that ``make`` refused before the lane tables held 64 lanes,
+racetrack-oval-v0 with 5 lanes (40 lanes, 5 an edge, raw controls).
 Tolerances: discrete fields exact, pos 2e-4 m, other continuous state
 1e-4 of its magnitude, obs and reward 1e-5.
 """
@@ -45,11 +47,12 @@ def _meta(speeds):
     return {"action": {"type": "DiscreteMetaAction", "target_speeds": list(speeds)}}
 
 
-#: (env id, config, lanes an edge, target speeds)
+#: (env id, config, lanes an edge, target speeds; None under raw controls)
 PROBES = [
     ("exit-v0", {"lanes_count": 8}, 9, 3),
     ("roundabout-v0", _meta(np.linspace(0.0, 16.0, 9)), 2, 9),
     ("merge-v0", _meta(np.linspace(20.0, 30.0, 10)), 3, 10),
+    ("racetrack-oval-v0", {"no_lanes": 5}, 5, None),
 ]
 
 
@@ -92,16 +95,24 @@ def _launch_tables(env):
                          ids=[p[0] for p in PROBES])
 def test_probe_configs_make_and_step_as_jax(env_id, config, edge_lanes, n_speeds):
     ej, et = hj.make(env_id, config), ht.make(env_id, config, device="cpu")
-    assert et.max_edge_lanes == edge_lanes and len(et.action_type.target_speeds) == n_speeds
     params = _launch_tables(et)
-    assert params.M == edge_lanes and params.n_speeds == n_speeds
-    assert list(params.target_speeds[:n_speeds]) == list(
-        np.asarray(et.action_type.target_speeds, np.float32))
+    assert et.max_edge_lanes == edge_lanes and params.M == edge_lanes
+    if n_speeds is None:  # raw controls: no speed grid
+        assert et.action_type.stores_raw_controls and params.n_speeds == 0
+        assert params.L == et.geo.num_lanes > 32
+    else:
+        assert len(et.action_type.target_speeds) == n_speeds == params.n_speeds
+        assert list(params.target_speeds[:n_speeds]) == list(
+            np.asarray(et.action_type.target_speeds, np.float32))
 
     _, sj = jax.vmap(ej._reset)(jax.random.split(jax.random.PRNGKey(3), B))
     st = from_numpy_state(_numpy_state(sj))
-    # FASTER and SLOWER walk the grid, the lane changes cross the edges
-    acts = np.arange(B, dtype=np.int32) % et.action_type.n
+    if n_speeds is None:
+        shape = (B,) + tuple(et.action_type.action_shape)
+        acts = np.random.default_rng(3).uniform(-1.0, 1.0, shape).astype(np.float32)
+    else:
+        # FASTER and SLOWER walk the grid, the lane changes cross the edges
+        acts = np.arange(B, dtype=np.int32) % et.action_type.n
     obs_j, st_j, rew_j, term_j, trunc_j, _ = jax.jit(ej.step_batched)(sj, jnp.asarray(acts))
     obs_t, st_t, rew_t, term_t, trunc_t, _ = et.step_batched(
         st, torch.from_numpy(acts), et.generator(0))
@@ -124,31 +135,32 @@ def test_probe_configs_make_and_step_as_jax(env_id, config, edge_lanes, n_speeds
     ("merge-v0", _meta([25.0]), "1 target speeds outside 2 to 16"),
     ("highway-v0", {"lanes_count": 17}, "17 straight lanes > 16"),
     ("highway-fast-v0", {"vehicles_count": 1024}, "1025 slots > 1024"),
-    ("racetrack-oval-v0", {"no_lanes": 5}, "40 lanes > 32"),
+    ("racetrack-oval-v0", {"no_lanes": 9}, "72 lanes > 64"),
+    ("exit-v0", {"vehicles_count": 200}, "201 slots > 128"),
     ("highway-v0", {"action": {"type": "ContinuousAction", "dynamical": True}},
      "a dynamical action on a straight road"),
     ("intersection-v2", {"action": {"type": "ContinuousAction", "dynamical": True}},
      "a dynamical action under the connected-lane search"),
 ], ids=["speeds-17", "speeds-1", "straight-lanes", "straight-slots", "general-lanes",
-        "straight-dynamical", "connected-dynamical"])
+        "general-slots", "straight-dynamical", "connected-dynamical"])
 def test_over_limit_configs_are_refused_at_make(env_id, config, what):
     with pytest.raises(NotImplementedError, match=f"{what}.*not ported"):
         ht.make(env_id, config, device="cpu")
 
 
 @pytest.mark.parametrize("limits,what", [
-    ((33, 20, 4, 3, 2, 3), "33 slots > 32"),
-    ((25, 33, 4, 3, 2, 3), "33 lanes > 32"),
-    ((25, 32, 33, 3, 2, 3), "33 lanes an edge > 32"),
+    ((129, 20, 4, 3, 2, 3), "129 slots > 128"),
+    ((25, 65, 4, 3, 2, 3), "65 lanes > 64"),
+    ((25, 64, 65, 3, 2, 3), "65 lanes an edge > 64"),
     ((25, 20, 4, 17, 2, 3), "17 route slots > 16"),
     ((25, 20, 4, 3, 5, 3), "5 successor edges > 4"),
     ((25, 20, 4, 3, 2, 17), "17 target speeds outside 2 to 16"),
 ], ids=["slots", "lanes", "edge-lanes", "route", "successors", "speeds"])
 def test_each_general_limit_is_named(limits, what):
     assert general_frames.kernel_limits(*limits) == [what]
-    assert general_frames.kernel_limits(32, 32, 32, 16, 4, 16) == []
-    assert general_frames.kernel_limits(32, 32, 32, 16, 4, None) == []
-    assert general_frames.kernel_limits(32, 32, 32, 16, 4, 16, 4) == []
+    assert general_frames.kernel_limits(128, 64, 64, 16, 4, 16) == []
+    assert general_frames.kernel_limits(128, 64, 64, 16, 4, None) == []
+    assert general_frames.kernel_limits(128, 64, 64, 16, 4, 16, 4) == []
 
 
 @pytest.mark.parametrize("limits,what", [

@@ -412,10 +412,12 @@ def test_gate_refusals_name_their_reason():
     with pytest.raises(NotImplementedError,
                        match="a dynamical action under the connected-lane search"):
         ht.make("racetrack-v1", dynamical, device="cpu")
-    # an oval of 5 lanes an edge has 40 lanes: beyond the general gate
-    with pytest.raises(NotImplementedError, match="40 lanes > 32"):
-        ht.make("racetrack-oval-v0", {"no_lanes": 5}, device="cpu")
+    # an oval of 5 lanes an edge has 40 lanes, within the lane tables' 64;
+    # 128 NPCs and the ego are 129 slots: beyond the wide kernels' block
+    assert ht.make("racetrack-oval-v0", {"no_lanes": 5}, device="cpu").geo.num_lanes == 40
     assert ht.make("racetrack-oval-v0", {"no_lanes": 4}, device="cpu").geo.num_lanes == 32
+    with pytest.raises(NotImplementedError, match="129 slots > 128"):
+        ht.make("racetrack-v0", {"other_vehicles": 128}, device="cpu")
     # the -v1 ids: the same envs with the connected-lane neighbour search
     for env_id in ("racetrack-v1", "racetrack-large-v1", "racetrack-oval-v1"):
         env = ht.make(env_id, device="cpu")

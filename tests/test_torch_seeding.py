@@ -144,10 +144,9 @@ def _layout_seed(wide: bool) -> int:
 def test_torch_oval_random_layout_not_replayed(monkeypatch):
     """Both packages draw the oval's random layout from an unseeded
     ``np.random.default_rng()``; the test seeds it for its duration, so
-    both outcomes of the lane count are pinned: at most 4 lanes make in
-    both packages and neither replays them; 5 or 6 lanes (40 or 48 lanes
-    in all) are refused by the port's ``make``, past its kernels' 32
-    lanes, while the JAX package makes them."""
+    both outcomes of the lane count are pinned: at most 4 lanes, and 5 or
+    6 lanes (40 or 48 lanes in all, within the kernels' lane tables of 64),
+    make in both packages and neither replays them."""
     real_rng = np.random.default_rng
     narrow, wide = _layout_seed(False), _layout_seed(True)
     cases = ((0, 3, 0), (100, 0, narrow), (100, 0, wide))
@@ -160,11 +159,9 @@ def test_torch_oval_random_layout_not_replayed(monkeypatch):
         assert not sj.supports_seeded_reset(ej)
         if ej._oval_lanes >= 5:
             assert no_lanes == 0 and ej.geo.num_lanes == 8 * ej._oval_lanes > 32
-            with pytest.raises(NotImplementedError, match=r"\d+ lanes > 32.*not ported"):
-                ht.make("racetrack-oval-v0", config, device="cpu")
-            continue
         et = ht.make("racetrack-oval-v0", config, device="cpu")
         assert (et._oval_lanes, et._oval_length) == (ej._oval_lanes, ej._oval_length)
+        assert et.geo.num_lanes == ej.geo.num_lanes
         assert not st.supports_seeded_reset(et)
         with pytest.raises(NotImplementedError):
             et.reset_seeded(seed=0)

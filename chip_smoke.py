@@ -83,7 +83,7 @@ Phases:
      racetrack-v0 with two (one reward an env) against the plain
      reference path; make() on the card
      refusing configs beyond the kernels' arrays (17 target speeds, 17
-     straight lanes, 201 general slots, 12 connected-lane candidates a
+     straight lanes, 1101 general slots, 12 connected-lane candidates a
      lane, a poly lane, the
      last also under ``sequential_decisions``) and exit-v0 with two
      controlled vehicles, naming the limit; to_finite_mdp of a B=1 and
@@ -204,7 +204,26 @@ Phases:
      dynamical", "K4 wide", "K4 wide raw", "K4 raw 48 lanes"); compact
      against full and captured against eager at intersection-v0 with
      duration 30, and its eager and captured full steps beside the default
-     intersection-v0's, in turns;
+     intersection-v0's, in turns; then the scenes over the wide kernels'
+     128 slots (``check_cluster``): intersection-v0, -v2 and -v1 at
+     policy_frequency 15 (V=207, two blocks a cluster: the cluster K5,
+     connected and dynamical), exit-v0 and exit-v1 with 150 vehicles
+     (V=151: the cluster K4 and its connected twin), racetrack-v0 with 150
+     NPCs (V=151: the cluster K4 raw, and dynamical) and intersection-v0
+     with duration 60 at policy_frequency 15 (V=912, eight blocks), each
+     instantiation against its plain version at 256 rows (16 at V=912) on
+     the scenes of check_wide, on twins across the first rank boundary
+     (``tied``) and, on the regulated road, on the 8-steps-in and conflict
+     scenes with the slots rolled across a rank boundary, every field
+     bit-exact; the six row scenes driven 8 steps at B=4096 with the counts
+     set to 0 (the cluster instantiation once a step, the narrow K5 once
+     more for each reset's warm-up, nothing else), each timed at B=4096, a
+     kernel row of its own ("K5 cluster step", "K5 cluster connected", "K5
+     cluster dynamical", "K4 cluster", "K4 cluster connected", "K4 cluster
+     dynamical"), its plain version over the same rows in chunks; compact
+     against full and captured against eager at intersection-v1 with
+     policy_frequency 15; and the wide K5 at 128 slots timed ("K5 wide 128
+     slots");
   5. times on the card: each kernel's time (CUDA events around launches
      queued behind a device-side wait), its plain version's device time
      (torch.profiler), its bound and the PyTorch yardstick's where there
@@ -396,7 +415,7 @@ OVER_LIMITS = (
      "17 target speeds outside 2 to 16"),
     ("highway-v0", {"lanes_count": 17}, "17 straight lanes > 16"),
     ("exit-v0", {"controlled_vehicles": 2}, "several controlled vehicles"),
-    ("exit-v0", {"vehicles_count": 200}, "201 slots > 128"),
+    ("exit-v0", {"vehicles_count": 1100}, "1101 slots > 1024"),
 )
 #: the connected-lane search (PR 12): K4's kConnected instantiation held to
 #: its plain version at these ids (exit-v1: the 32-thread group; racetrack-v1:
@@ -438,6 +457,18 @@ GENERAL_PATHS = {
                           "general_frames_wide_kernel<false, false, false, true, DynFields>"),
     "K5 wide dynamical": ("frames_regulated_dynamical_wide_kernel",
                           "general_frames_wide_kernel<true, false, false, true, DynFields>"),
+    "K4 cluster": ("frames_general_cluster_kernel",
+                   "general_frames_cluster_kernel<false, false, false, false>"),
+    "K4 cluster connected": ("frames_general_connected_cluster_kernel",
+                             "general_frames_cluster_kernel<false, false, true, false>"),
+    "K5 cluster": ("frames_regulated_cluster_kernel",
+                   "general_frames_cluster_kernel<true, false, false, false>"),
+    "K5 cluster connected": ("frames_regulated_connected_cluster_kernel",
+                             "general_frames_cluster_kernel<true, false, true, false>"),
+    "K4 cluster dynamical": ("frames_general_dynamical_cluster_kernel",
+                             "general_frames_cluster_kernel<false, false, false, true, DynFields>"),
+    "K5 cluster dynamical": ("frames_regulated_dynamical_cluster_kernel",
+                             "general_frames_cluster_kernel<true, false, false, true, DynFields>"),
 }
 #: the ids of the dynamical ContinuousAction: K5's and K4's
 #: kDynamical instantiations
@@ -485,11 +516,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     """Mean time of ``fn()`` between CUDA events over ``reps`` runs, after
-    one warm-up: the device time when the device is the limit, else the
-    host's time to issue the calls."""
-    fn()
+    one warm-up (without ``warmup``: ``fn`` ran just before): the device
+    time when the device is the limit, else the host's time to issue the
+    calls."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1029,13 +1062,14 @@ def group_size(V: int) -> int:
     return 16 if V <= 16 else (32 if V <= 32 else 128)
 
 
-def k4_work(gf, env, veh, sa, spec=None):
+def k4_work(gf, env, veh, sa, spec=None, with_state=False):
     """(float32 operations, bytes) of one K4 launch from ``veh`` with the
     slot actions ``sa`` (None: raw controls stored on the egos, which run
     no P-cascade) under ``spec`` (default the env's): the operations
     counted frame by frame on the plain version (``gen_frame_ops``), the
     bytes of every field read and written once (``read_bytes``), the slot
-    actions, the lane tables and (connected) the candidate tables."""
+    actions, the lane tables and (connected) the candidate tables; with
+    ``with_state`` also the plain frames' state after the launch's frames."""
     from highwayenv_tpu_torch.road import lane as lane_ops
 
     spec, raw = spec or env._general, sa is None
@@ -1052,7 +1086,7 @@ def k4_work(gf, env, veh, sa, spec=None):
                + field_bytes(v, gf._resolve(gf.OUT_FIELDS, R))
                + lf.numel() * 4 + li.numel() * 4 + conn_bytes(gf, spec)
                + dyn_bytes(gf, spec, veh))
-    return ops, n_bytes
+    return (ops, n_bytes, v) if with_state else (ops, n_bytes)
 
 
 def conn_bytes(gf, spec) -> int:
@@ -1066,13 +1100,14 @@ def dyn_bytes(gf, spec, veh) -> int:
     return 2 * field_bytes(veh, gf.DYN_FIELDS) if spec.dynamical else 0
 
 
-def k5_work(gf, env, veh, sa, steps0, frames, spec=None):
+def k5_work(gf, env, veh, sa, steps0, frames, spec=None, with_state=False):
     """(float32 operations, bytes) of one K5 launch under ``spec``
     (default the env's): ``regulated_ops``, and the bytes of every field
     and K5's own read and written once, the slot actions (none with ``sa``
     None: raw controls stored on the egos), the tick phases, the lane
     tables, (connected) the candidate tables and (dynamical) the lateral
-    speed and yaw rate."""
+    speed and yaw rate; with ``with_state`` also the plain frames' state
+    after the launch's frames."""
     spec, raw = spec or env._general, sa is None
     ops, out = regulated_ops(veh, spec, sa, frames, steps0)
     R = veh.route_base.shape[-1]
@@ -1082,7 +1117,7 @@ def k5_work(gf, env, veh, sa, steps0, frames, spec=None):
                + field_bytes(out, gf._resolve(gf.OUT_FIELDS, R) + gf.REG_FIELDS)
                + lf.numel() * 4 + li.numel() * 4 + conn_bytes(gf, spec)
                + dyn_bytes(gf, spec, veh))
-    return ops, n_bytes
+    return (ops, n_bytes, out) if with_state else (ops, n_bytes)
 
 
 def check_slice_kernels(ht, gf, err) -> dict:
@@ -3115,6 +3150,15 @@ WIDE_CHECKED = (
 WIDE_HORIZON = 16  # policy steps of each wide path's zeroed rollout
 
 
+def layout_kernels(gf, layout: str) -> dict:
+    """The six wrappers of one library's layout ("wide" or "cluster"),
+    keyed "K4 wide", "K5 wide connected", ..., as the rows name them."""
+    return {f"{road} {layout}{law}": getattr(gf, f"frames_{kind}{sfx}_{layout}_kernel")
+            for road, kind in (("K4", "general"), ("K5", "regulated"))
+            for law, sfx in (("", ""), (" connected", "_connected"),
+                             (" dynamical", "_dynamical"))}
+
+
 def wide_scenes(env, states, gen) -> dict:
     """A wide scene's frame calls, {name: (vehicles, steps0 or None, slot
     actions or None, frames, raw)}: on a regulated road ``regulated_scenes``
@@ -3160,16 +3204,13 @@ def check_wide(ht, gf, kernels, rows, err, launches, card: str, start: float) ->
     bit-exact; each of WIDE_ROWS driven WIDE_HORIZON steps with the counts
     set to 0 just before (its instantiation once a step; on a regulated road
     the narrow K5 once a step and once more for the reset's 16-slot warm-up,
-    nothing else), its launch timed from a fresh reset (queued), its plain
-    version's device time and its bound, a row of its own; then at
+    nothing else), its launch timed from a fresh reset (queued), held to the
+    plain frames, their time and the bound, a row of its own (``frame_row``);
+    then at
     intersection-v0 with duration 30 compact against full and captured
     against eager, and its captured and eager full step beside the default
     intersection-v0's, in turns."""
-    wide = {f"{road} wide{law}": getattr(gf, f"frames_{kind}{sfx}_wide_kernel")
-            for road, kind in (("K4", "general"), ("K5", "regulated"))
-            for law, sfx in (("", ""), (" connected", "_connected"),
-                             (" dynamical", "_dynamical"))}
-    every = {**kernels, **wide}
+    every = {**kernels, **layout_kernels(gf, "wide")}
     envs = {}
     for key, env_id, config in WIDE_ROWS + WIDE_CHECKED:
         env = ht.make(env_id, config)
@@ -3195,54 +3236,8 @@ def check_wide(ht, gf, kernels, rows, err, launches, card: str, start: float) ->
         envs[key] = (env, states)
     for key, env_id, config in WIDE_ROWS:
         env = envs[key][0]
-        kernel = gf.frames_kernel_for(env._general, env.regulated, env.num_slots)
-        label = [n for n, k in every.items() if k is kernel][0]
-        gen = env.generator(SEED + 1)
-        for k in every.values():
-            k.launches = 0
-        _, st = env.reset(B, gen)
-        st, m = rollout(env, st, WIDE_HORIZON, gen)
-        torch.cuda.synchronize()
-        counts = {n: k.launches for n, k in every.items() if k.launches}
-        want = {label: WIDE_HORIZON}
-        if env.regulated:  # the reset batch's 16-slot warm-up, every step and the first
-            want[label.replace(" wide", "")] = WIDE_HORIZON + 1
-        m = {k: float(v) for k, v in m.items()}
-        print(f"  {key} path, {env_id} {config}: reset and {WIDE_HORIZON} autoreset steps, "
-              f"launches {counts}; rollout {m}")
-        if counts != want:
-            raise AssertionError(f"{env_id} {config}: launches {counts}, expected {want}")
-        if not all(np.isfinite(list(m.values()))):
-            raise AssertionError(f"{env_id} {config}: non-finite metrics")
-        for k in ("pos", "speed", "heading"):
-            if not bool(torch.isfinite(getattr(st.vehicles, k)).all()):
-                raise AssertionError(f"{env_id} {config}: non-finite {k}")
-        launches[key] = counts[label]
-        # the timed launch: a fresh reset, the tick phases spread, random actions
-        _, s0 = env.reset(B, env.generator(SEED + 2))
-        steps0 = None
-        if env.regulated:
-            steps0 = s0.steps + torch.arange(B, device=env.device, dtype=torch.int32) * 15
-        sa = env._action_to_slots(random_actions(env, B, gen))
-        veh, sa, raw = gf.store_raw_controls(env, s0.vehicles, sa)
-        _, run, plain = frame_call(gf, env, veh, steps0, sa, env.frames_per_step, raw)
-        out_k = run()
-        torch.cuda.synchronize()
-        err[key] = max(err[key], compare_general(out_k, plain(), f"{env_id} timed inputs"))
-        ms = queued_ms(run, 10)
-        plain_ms = device_ms(plain, PLAIN_REPS)
-        ops, n_bytes = (k5_work(gf, env, veh, sa, steps0, env.frames_per_step)
-                        if env.regulated else k4_work(gf, env, veh, sa))
-        bms, by, t_ops, t_bytes = bound(ops, n_bytes)
-        rows[key] = (f"{kernel.entry} ({env_id} {json.dumps(config)}, V={env.num_slots}, "
-                     f"L={env.geo.num_lanes}, {group_size(env.num_slots)} threads an env"
-                     + (", raw controls" if raw else "") + ")",
-                     f"highwayenv_tpu_torch/csrc/{kernel.source}.cu",
-                     "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms, bms, by,
-                     None)
-        print(f"  {key}: {ms:.4f} ms queued; plain {plain_ms:.4f} ms on the device; bound "
-              f"{bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} ms, {n_bytes} bytes "
-              f"-> {t_bytes:.5f} ms) ({card}) [at {time.time() - start:.0f} s]")
+        launches[key] = drive_path(gf, env, every, key, env_id, config, WIDE_HORIZON)
+        frame_row(gf, env, key, env_id, config, rows, err, card, start)
     # intersection-v0 with duration 30: the compact and captured steps
     ienv = envs["K5 wide step"][0]
     _, ist = ienv.reset(B, ienv.generator(SEED + 3))
@@ -3267,6 +3262,251 @@ def check_wide(ht, gf, kernels, rows, err, launches, card: str, start: float) ->
               + f" ms per step ({B * 1e3 / sorted(ws)[1]:.1f} env-steps/s at the median); "
               f"device busy {busy:.4f} ms per step, {n_kernels:.1f} device kernels per step "
               f"({card})")
+
+
+#: scenes over the wide kernels' 128 slots (the cluster K4 / K5), each
+#: (row key, env id, config, rows of the checks): the cluster K5 at
+#: intersection-v0, -v2 and -v1 at policy_frequency 15 (V=207, one frame a
+#: step, the simulator's decision rate), the cluster K4 at exit-v0 and
+#: exit-v1 with 150 vehicles (V=151) and, dynamical, at racetrack-v0 with 150
+#: NPCs (V=151); each held to its plain version, driven with the counts set
+#: to 0 and timed, with a kernel row of its own.  The checks run at fewer
+#: rows than B: the plain frames' (B, V, V[, 11]) pair tensors
+CLUSTER_ROWS = (
+    ("K5 cluster step", "intersection-v0", {"policy_frequency": 15}, 256),
+    ("K5 cluster connected", "intersection-v2", {"policy_frequency": 15}, 256),
+    ("K5 cluster dynamical", "intersection-v1", {"policy_frequency": 15}, 256),
+    ("K4 cluster", "exit-v0", {"vehicles_count": 150}, 256),
+    ("K4 cluster connected", "exit-v1", {"vehicles_count": 150}, 256),
+    ("K4 cluster dynamical", "racetrack-v0", {"other_vehicles": 150, "action": {
+        "type": "ContinuousAction", "dynamical": True}}, 256),
+)
+#: held only: K4's raw branch at racetrack-v0 with 150 NPCs, and the top of
+#: the range, intersection-v0 with duration 60 (V=912, 8 blocks a cluster)
+CLUSTER_CHECKED = (
+    ("K4 cluster raw", "racetrack-v0", {"other_vehicles": 150}, 256),
+    ("K5 cluster 912 slots", "intersection-v0", {"duration": 60, "policy_frequency": 15}, 16),
+)
+CLUSTER_HORIZON = 8  # policy steps of each cluster path's zeroed rollout
+#: float32 elements of one (rows, V, V, 11) tensor of the plain right-of-way
+#: pass that a plain call of a timed row may make at once (0.5 GB)
+PLAIN_PAIR_ELEMENTS = 2**27
+#: the wide K5 at its 128 slots, held bit-exact by check_wide, timed here
+WIDE_128 = ("K5 wide 128 slots", "intersection-v0", {"duration": 116})
+
+
+def rolled(veh, sa, shift: int):
+    """``veh`` and its slot actions with every slot moved ``shift`` places up
+    (mod V): the live vehicles, which the intersection keeps in its first
+    slots, then straddle a cluster rank's boundary."""
+    from highwayenv_tpu_torch.envs.base import map_fields
+
+    veh = map_fields(lambda t: torch.roll(t, shift, dims=1), veh)
+    return veh, None if sa is None else torch.roll(sa, shift, dims=1)
+
+
+def tied(veh, n: int = 23):
+    """``veh`` with slots 1 .. n copied whole into slots 128 .. 127 + n: each
+    copied vehicle meets its twin at the same s on the same lane across the
+    cluster's first rank boundary (the front neighbour takes the later slot
+    of a tie, the rear the earlier), and the twins collide (crash flags and
+    impacts set across the boundary)."""
+    from highwayenv_tpu_torch.envs.base import map_fields
+
+    n = min(n, veh.kind.shape[1] - 128)
+
+    def copy(t):
+        t = t.clone()
+        t[:, 128:128 + n] = t[:, 1:1 + n]
+        return t
+
+    return map_fields(copy, veh)
+
+
+def row_slice(x, lo: int, rows: int):
+    """Rows ``lo`` .. ``lo + rows`` of a state or tensor; None and specs
+    and numbers as they are."""
+    from highwayenv_tpu_torch.envs.base import map_fields
+    from highwayenv_tpu_torch.vehicle.state import VehicleState
+
+    if isinstance(x, VehicleState):
+        return map_fields(lambda t: t[lo:lo + rows], x)
+    return x[lo:lo + rows] if isinstance(x, torch.Tensor) else x
+
+
+def chunked(fn, args, rows: int):
+    """``fn(*args)`` over the batch in chunks of ``rows`` rows (``args``
+    sliced by ``row_slice``), the output states concatenated."""
+    from highwayenv_tpu_torch.envs.base import map_fields
+
+    n = args[0].kind.shape[0]
+    outs = [fn(*[row_slice(a, lo, rows) for a in args]) for lo in range(0, n, rows)]
+    return map_fields(lambda *ts: torch.cat(ts), *outs)
+
+
+def chunked_work(gf, env, veh, sa, steps0, rows: int):
+    """(float32 operations, bytes, the plain frames' state) of one frame
+    launch from ``veh`` over the batch (k4_work / k5_work), counted on
+    chunks of ``rows`` rows and summed, the lane and candidate tables'
+    bytes counted once, the chunks' states concatenated."""
+    from highwayenv_tpu_torch.envs.base import map_fields
+
+    spec = env._general
+    lf, li = gf.lane_tables(spec.geo, env.device)
+    tables = lf.numel() * 4 + li.numel() * 4 + conn_bytes(gf, spec)
+    ops, n_bytes, outs = 0.0, 0, []
+    for lo in range(0, veh.kind.shape[0], rows):
+        v, a, s = (row_slice(x, lo, rows) for x in (veh, sa, steps0))
+        o, b, out = (k5_work(gf, env, v, a, s, env.frames_per_step, with_state=True)
+                     if env.regulated else k4_work(gf, env, v, a, with_state=True))
+        ops, n_bytes = ops + o, n_bytes + b
+        outs.append(out)
+    return ops, n_bytes - (len(outs) - 1) * tables, map_fields(lambda *ts: torch.cat(ts), *outs)
+
+
+def check_cluster(ht, gf, kernels, rows, err, launches, card: str, start: float) -> None:
+    """The scenes over the wide kernels' 128 slots: each of CLUSTER_ROWS and
+    CLUSTER_CHECKED made on CUDA, its cluster instantiation against its plain
+    version at the row count each names on every scene of ``wide_scenes``
+    and on ``tied`` (twins across the first rank boundary) and, on a
+    regulated road, on the 8-steps-in and conflict scenes ``rolled`` so
+    that the live vehicles straddle a rank boundary, every field bit-exact;
+    each of CLUSTER_ROWS driven CLUSTER_HORIZON steps at B with the counts
+    set to 0 just before (its cluster instantiation once a step; on a
+    regulated road the narrow K5 once a step and once more for the reset's
+    16-slot warm-up, nothing else), its launch timed at B from a fresh reset
+    (queued), held to its plain version over the same B rows in chunks,
+    their time and the bound, a row of its own (``frame_row``); then at
+    intersection-v1 with policy_frequency 15 compact against full and
+    captured against eager; and the wide K5 at 128 slots driven and timed
+    (WIDE_128), a row of its own."""
+    every = {**kernels, **layout_kernels(gf, "wide"), **layout_kernels(gf, "cluster")}
+    envs = {}
+    for key, env_id, config, n_check in CLUSTER_ROWS + CLUSTER_CHECKED:
+        env = ht.make(env_id, config)
+        gen = env.generator(SEED)
+        _, states = env.reset(n_check, gen)
+        V = env.num_slots
+        kernel = gf.frames_kernel_for(env._general, env.regulated, V)
+        if not kernel.cluster:
+            raise AssertionError(f"{env_id} {config}: V={V} routes to {kernel.source}")
+        print(f"== 4. cluster scenes: {key}, {env_id} {config}: V={V}, L={env.geo.num_lanes}, "
+              f"R={states.vehicles.route_base.shape[-1]}, {-(-V // 128)} blocks an env, "
+              f"{kernel.source}.{kernel.entry}, B={n_check} [at {time.time() - start:.0f} s]")
+        calls = wide_scenes(env, states, gen)
+        for name in ("8 steps in", "conflict") if env.regulated else ():
+            veh, steps0, sa, frames, raw = calls[name]
+            shift = 100 if V < 256 else V - 32
+            veh, sa = rolled(veh, sa, shift)
+            calls[f"{name}, rolled {shift}"] = (veh, steps0, sa, frames, raw)
+        veh, steps0, sa, frames, raw = calls["reset"]
+        calls["tied"] = (tied(veh), steps0, sa, frames, raw)
+        err[key] = 0.0
+        for name, call in calls.items():
+            k, run, plain = frame_call(gf, env, *call)
+            out_k = run()
+            out_p = plain()
+            torch.cuda.synchronize()
+            e = compare_general(out_k, out_p, f"{env_id} {name} ({k.source}.{k.entry}, "
+                                f"V={call[0].kind.shape[1]})")
+            if k is kernel:
+                err[key] = max(err[key], e)
+            if name in ("pile-up", "tied") and not bool(out_k.crashed.any()):
+                raise AssertionError(f"{env_id}: the {name} scene crashed nothing")
+        envs[key] = env
+    for key, env_id, config, _ in CLUSTER_ROWS:
+        env = envs[key]
+        launches[key] = drive_path(gf, env, every, key, env_id, config, CLUSTER_HORIZON)
+        frame_row(gf, env, key, env_id, config, rows, err, card, start)
+    # intersection-v1 at the simulator's decision rate: compact and captured
+    ienv = envs["K5 cluster dynamical"]
+    _, ist = ienv.reset(B, ienv.generator(SEED + 3))
+    label = "intersection-v1 policy_frequency 15 "
+    check_compact(ienv, ist, label)
+    check_graph(ienv, ist, label, variants=[(None, False), (COMPACT_SLOTS[0], False)])
+    key, env_id, config = WIDE_128
+    env = ht.make(env_id, config)
+    launches[key] = drive_path(gf, env, every, key, env_id, config, CLUSTER_HORIZON)
+    frame_row(gf, env, key, env_id, config, rows, err, card, start)
+
+
+def drive_path(gf, env, kernels, key: str, env_id: str, config, steps: int) -> int:
+    """``env``'s path with the counts of ``kernels`` set to 0 just before:
+    a reset of B rows and ``steps`` random-policy autoreset steps; its
+    frame instantiation launches once a step and, on a regulated road, the
+    narrow K5 of the same law once a step and once more for the reset's
+    16-slot warm-up, nothing else.  Returns the instantiation's launches."""
+    kernel = gf.frames_kernel_for(env._general, env.regulated, env.num_slots)
+    label = [n for n, k in kernels.items() if k is kernel][0]
+    gen = env.generator(SEED + 1)
+    for k in kernels.values():
+        k.launches = 0
+    _, st = env.reset(B, gen)
+    st, m = rollout(env, st, steps, gen)
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in kernels.items() if k.launches}
+    want = {label: steps}
+    if env.regulated:  # the reset batch's 16-slot warm-up, every step and the first
+        want[label.replace(" wide", "").replace(" cluster", "")] = steps + 1
+    m = {k: float(v) for k, v in m.items()}
+    print(f"  {key} path, {env_id} {config}: reset and {steps} autoreset steps, B={B}, "
+          f"launches {counts}; rollout {m}")
+    if counts != want:
+        raise AssertionError(f"{env_id} {config}: launches {counts}, expected {want}")
+    if not all(np.isfinite(list(m.values()))):
+        raise AssertionError(f"{env_id} {config}: non-finite metrics")
+    for k in ("pos", "speed", "heading"):
+        if not bool(torch.isfinite(getattr(st.vehicles, k)).all()):
+            raise AssertionError(f"{env_id} {config}: non-finite {k}")
+    return counts[label]
+
+
+def plain_rows(V: int) -> int:
+    """Rows of a chunk of the plain frames at V slots: the largest power of
+    two, up to B, whose (rows, V, V, 11) tensors hold PLAIN_PAIR_ELEMENTS."""
+    return min(B, 2 ** int(math.log2(max(1, PLAIN_PAIR_ELEMENTS // (11 * V * V)))))
+
+
+def frame_row(gf, env, key: str, env_id: str, config, rows, err, card: str,
+              start: float) -> None:
+    """A kernel row for ``env``'s frame launch at B: its time queued from a
+    fresh reset (the tick phases spread, random actions); the plain frames
+    over the same rows, in chunks of ``plain_rows`` rows, frame by frame
+    with the operations counted (the bound), the launch's output held
+    bit-exact to theirs; the plain version's time, CUDA events around one
+    more run of it, the host's gaps between its kernels included (the
+    profiler's device sum, which leaves them out, took about two minutes
+    to gather at the 128-slot scene)."""
+    _, s0 = env.reset(B, env.generator(SEED + 2))
+    steps0 = None
+    if env.regulated:
+        steps0 = s0.steps + torch.arange(B, device=env.device, dtype=torch.int32) * 15
+    sa = env._action_to_slots(random_actions(env, B, env.generator(SEED + 2)))
+    veh, sa, raw = gf.store_raw_controls(env, s0.vehicles, sa)
+    kernel, run, _ = frame_call(gf, env, veh, steps0, sa, env.frames_per_step, raw)
+    args = (veh, env._general, sa, env.frames_per_step) + ((steps0,) if env.regulated else ())
+    chunk = plain_rows(env.num_slots)
+
+    def plain():
+        return chunked(lambda *a: gf.frames_general_plain(*a, raw=raw), args, chunk)
+
+    out_k = run()
+    ops, n_bytes, out_p = chunked_work(gf, env, veh, sa, steps0, chunk)
+    torch.cuda.synchronize()
+    err[key] = max(err.get(key, 0.0), compare_general(out_k, out_p, f"{key} timed inputs"))
+    ms = queued_ms(run, 10)
+    plain_ms = cuda_ms(plain, 1, warmup=False)
+    bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+    V = env.num_slots
+    layout = (f"{-(-V // 128)} blocks an env" if kernel.cluster
+              else f"{group_size(V)} threads an env")
+    rows[key] = (f"{kernel.entry} ({env_id} {json.dumps(config)}, V={V}, "
+                 f"L={env.geo.num_lanes}, {layout}" + (", raw controls" if raw else "") + ")",
+                 f"highwayenv_tpu_torch/csrc/{kernel.source}.cu",
+                 "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms, bms, by, None)
+    print(f"  {key}: {ms:.4f} ms queued at B={B}; plain {plain_ms:.4f} ms (CUDA events, chunks "
+          f"of {chunk} rows); bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} "
+          f"ms, {n_bytes} bytes -> {t_bytes:.5f} ms) ({card}) [at {time.time() - start:.0f} s]")
 
 
 def main() -> int:
@@ -3294,7 +3534,7 @@ def main() -> int:
     t0 = time.time()
     paths = _build.build(
         ["straight_frames", "straight_sort", "straight_frames_sorted", "general_frames",
-         "general_frames_wide"]
+         "general_frames_wide", "general_frames_cluster"]
     )
     print(f"built {[p.name for p in paths.values()]} in {time.time() - t0:.1f} s")
     for p in paths.values():
@@ -4552,6 +4792,11 @@ def main() -> int:
           f"48-lane oval [at {time.time() - start:.0f} s]")
     check_wide(ht, gf, conn_kernels, rows, err, launches, card, start)
     print(f"  (wide block {time.time() - t_wide:.1f} s)")
+    t_cluster = time.time()
+    print(f"== 4. scenes over the wide kernels' 128 slots on CUDA: the cluster K4 / K5 "
+          f"[at {time.time() - start:.0f} s]")
+    check_cluster(ht, gf, conn_kernels, rows, err, launches, card, start)
+    print(f"  (cluster block {time.time() - t_cluster:.1f} s)")
 
     # the single-env seeded path: every id at B=1, each with the counts set
     # to 0 just before it.  It runs last: after it, torch.profiler on the

@@ -128,16 +128,56 @@
 // 131.7 KB; over 48 KB only through cudaFuncSetAttribute, set once per
 // kernel and card (launch).  Registers (96 to 128 a thread) allow 4 to 5
 // blocks an SM: B=4096 runs in 7 to 8 waves.
+//
+// The cluster branch (general_frames_cluster_kernel, built from
+// general_frames_cluster.cu into a third library with the same entry
+// names): scenes of 129 to GEN_CLUSTER_SLOTS = 1024 slots (intersection at
+// the simulator's decision rate, exit-v0 and racetrack-v0 with 150
+// vehicles), which one block cannot hold: the pair table packs a slot in a
+// byte, and one env's arrays grow as L V (intersection at V = 300 would
+// take ~310 KB).  The same frame body, with one env a thread-block cluster
+// of N = ceil(V / 128) blocks (2 to 8) of 128 threads, slot j owned by
+// thread j % 128 of rank j / 128.  Each rank keeps the lane tables and, for
+// its own slots only, the projection-table columns, the frame-start and
+// post-integration rows, the route arrays and K5's predictions, at the same
+// offsets in every rank (a stride of 128 slots), so that the slot's own
+// chain (follow_road, the meta-action, MOBIL, the controls, the
+// integration, the closest lane's 64-bit key) stays in its block.  What
+// reads another slot (the neighbour walks, the abort test, the collision
+// and right-of-way pairs, the impact's SAT) reads its owner's shared memory
+// through cooperative_groups::cluster_group::map_shared_rank (slot_ref).
+// A slot mask keeps word w on rank w / 4; a pair's outcome sets the
+// partner's bit with an atomicOr on the partner's rank (crash, hit,
+// yield), and the impact keeps the highest partner as an atomicMax of
+// partner + 1 in the slot's first imp word, which is the same partner as
+// the highest bit.  The neighbour walks visit the ranks in ascending order,
+// so the tie rules hold as in one block.  There is no pair table: the
+// V (V - 1) / 2 pairs are enumerated over the N 128 threads of the cluster
+// (for_pairs_counted).  The barrier is cluster.sync(), which every thread
+// of every block reaches, and a last one keeps every block alive until no
+// rank reads its shared memory.  Shared memory a block, the same at any V:
+// intersection-v0 (L=20, R=3) 45.1 KB, the most a scene in the limits can
+// take (L=64, M=64, R=16, regulated and connected) 115.8 KB, so a cluster
+// of 8 holds V = 1024, the portable cluster size's limit.  launch asks
+// cudaOccupancyMaxActiveClusters once per shape and returns an error where
+// no such cluster fits the card.
 
+#include <cooperative_groups.h>
 #include <string.h>
 
 #include "straight_common.cuh"
+
+namespace cg = cooperative_groups;
 
 #define GEN_MAX_LANES 64
 #define GEN_MAX_SLOTS 32  // the narrow kernels: an env's group within one warp
 #define GEN_WIDE_SLOTS 128  // the wide kernels: one env a block
 #define GEN_WIDE_BLOCK 128  // threads a block of the wide kernels, one a slot
 #define GEN_WIDE_WORDS (GEN_WIDE_SLOTS / 32)  // words of a wide slot mask
+// the cluster kernels: one env a cluster of up to 8 blocks (the portable
+// cluster size) of GEN_WIDE_SLOTS slots each
+#define GEN_CLUSTER_BLOCKS 8
+#define GEN_CLUSTER_SLOTS (GEN_CLUSTER_BLOCKS * GEN_WIDE_SLOTS)
 #define GEN_MAX_SUCC 4
 #define GEN_MAX_PRED 4
 // the connected-lane search's candidates a lane: itself, successors, predecessors
@@ -157,14 +197,53 @@
 #define REG_YIELD_TICKS 0.0f
 
 // The barrier between the phases of a frame: an env's threads are one
-// group of one warp (narrow) or one block (kWide), and every thread of the
-// warp or the block reaches it.
-template <bool kWide>
+// group of one warp (narrow), one block (kWide) or one cluster (kCluster),
+// and every thread of the warp, the block or the cluster reaches it.
+template <bool kWide, bool kCluster>
 __device__ __forceinline__ void group_sync() {
-  if constexpr (kWide)
+  if constexpr (kCluster)
+    cg::this_cluster().sync();
+  else if constexpr (kWide)
     __syncthreads();
   else
     __syncwarp();
+}
+
+// The blocks of this block's cluster and its rank there (one block of
+// rank 0 outside kCluster).
+template <bool kCluster>
+__device__ __forceinline__ int cluster_blocks() {
+  if constexpr (kCluster)
+    return static_cast<int>(cg::this_cluster().num_blocks());
+  else
+    return 1;
+}
+template <bool kCluster>
+__device__ __forceinline__ int cluster_rank() {
+  if constexpr (kCluster)
+    return static_cast<int>(cg::this_cluster().block_rank());
+  else
+    return 0;
+}
+
+// Rank r's copy of the shared array a: under kCluster a pointer into rank
+// r's shared memory at a's offset (distributed shared memory), else a.
+template <bool kCluster, typename T>
+__device__ __forceinline__ T* peer(T* a, int r) {
+  if constexpr (kCluster)
+    return cg::this_cluster().map_shared_rank(a, r);
+  else
+    return a;
+}
+
+// Slot j's element of an env's per-slot array a: a[j], or under kCluster
+// element j % GEN_WIDE_SLOTS of the copy on j's owner, rank j / GEN_WIDE_SLOTS.
+template <bool kCluster, typename T>
+__device__ __forceinline__ T& slot_ref(T* a, int j) {
+  if constexpr (kCluster)
+    return *peer<true>(a + j % GEN_WIDE_SLOTS, j / GEN_WIDE_SLOTS);
+  else
+    return a[j];
 }
 
 // Slot s in a slot mask of W words: word s / 32, bit s % 32 (one word
@@ -180,6 +259,15 @@ __device__ __forceinline__ unsigned bit_of(int s) {
 template <int W>
 __device__ __forceinline__ bool has_slot(const unsigned* m, int s) {
   return (m[word_of<W>(s)] & bit_of<W>(s)) != 0u;
+}
+// Sets slot s in the slot mask m of an env: under kCluster in the words of
+// s's owner, which keeps the W words of its own slots.
+template <bool kCluster, int W>
+__device__ __forceinline__ void set_slot(unsigned* m, int s) {
+  if constexpr (kCluster)
+    atomicOr(peer<true>(m + word_of<W>(s % GEN_WIDE_SLOTS), s / GEN_WIDE_SLOTS), bit_of<W>(s));
+  else
+    atomicOr(&m[word_of<W>(s)], bit_of<W>(s));
 }
 
 // extra flag bits of the post-integration rows (F_ACTIVE, F_VEHICLE, F_CHECK,
@@ -549,8 +637,9 @@ struct EnvSmem {
 
 // The words of a block's shared memory before its envs' arrays: the lane
 // tables, the lanes' order by kind, under the connected-lane search the
-// candidate lanes and offsets of every lane, and the pair table, rounded up
-// to an even count so that each env's keys are 8-byte aligned.
+// candidate lanes and offsets of every lane, and the pair table of V slots
+// (none at V = 0, as the cluster kernels take it), rounded up to an even
+// count so that each env's keys are 8-byte aligned.
 __host__ __device__ static int block_words(int L, int V, bool conn) {
   const int w = L * (LANE_F_WORDS + LANE_I_WORDS + 1) + (conn ? 2 * L * GEN_MAX_CONN : 0) +
                 (V * (V - 1) / 2 + 1) / 2;
@@ -562,19 +651,27 @@ __host__ __device__ static int block_words(int L, int V, bool conn) {
 #define FS_VEHICLE 2
 #define FS_CONTROLLED 4
 
-// W: words of a slot mask
-template <bool kLinear, bool kConnected, int W>
+// W: words of a slot mask (of a rank's own slots under kCluster)
+template <bool kLinear, bool kConnected, int W, bool kCluster>
 struct Ctx {
   const Lanes& g;
   const GenParams& p;
   const EnvSmem& e;
-  int V, i;
+  int V, i;     // the env's slots, the deciding slot
   float delta;  // the deciding slot's IDM exponent
   Law law;      // the deciding slot's acceleration law, read where kLinear
   // kConnected: each lane's GEN_MAX_CONN candidate lanes (-1 pad) and the
   // offsets that shift a candidate's s into the lane's frame
   const int* conn_l;
   const float* conn_f;
+
+  // slot j's element of the per-slot array a, on j's owner under kCluster
+  template <typename T>
+  __device__ __forceinline__ T& at(T* a, int j) const { return slot_ref<kCluster>(a, j); }
+  // slot j's s on lane l (a clipped index)
+  __device__ __forceinline__ float s_on(int l, int j) const {
+    return at(e.S + l * (kCluster ? GEN_WIDE_SLOTS : V), j);
+  }
 
   // vehicle/behavior.py::neighbours of slot i on query lane q: front =
   // smallest s >= own s, the last slot among ties; rear = largest s < own s,
@@ -586,52 +683,62 @@ struct Ctx {
   // s there plus the candidate's offset as its key (one float add, as the
   // plain s + offset).  The slots no longer come in ascending order, so the
   // tie rules are explicit: the front keeps the highest slot among equal
-  // keys, the rear the lowest.
+  // keys, the rear the lowest.  kCluster: the same walk over each rank's
+  // eligibility words and S columns in turn, rank 0 first, so the slots
+  // still come in ascending order and a slot's first candidate lane is found
+  // within its owner's words.
   __device__ void neighbours(int q, int* front, int* rear) const {
+    const int VS = kCluster ? GEN_WIDE_SLOTS : V;  // the tables' stride
     const int l = g.clip(q);
-    const float s_self = e.S[l * V + i];
+    const float s_self = e.S[l * VS + (kCluster ? i % GEN_WIDE_SLOTS : i)];
     float f_key = INFINITY, r_key = -INFINITY;
     int f = -1, r = -1;
-    if constexpr (kConnected) {
-      unsigned seen[W];
+    for (int rk = 0; rk < cluster_blocks<kCluster>(); ++rk) {
+      const unsigned* elig = peer<kCluster>(e.elig, rk);
+      const float* S = peer<kCluster>(e.S, rk);
+      const int base = rk * GEN_WIDE_SLOTS;      // the rank's first slot
+      const int own_w = word_of<W>(i) - rk * W;  // i's word there
+      if constexpr (kConnected) {
+        unsigned seen[W];
 #pragma unroll
-      for (int w = 0; w < W; ++w) seen[w] = w == word_of<W>(i) ? bit_of<W>(i) : 0u;
-      for (int k = 0; k < GEN_MAX_CONN; ++k) {
-        const int c = conn_l[l * GEN_MAX_CONN + k];
-        if (c < 0) continue;
-        const float off = conn_f[l * GEN_MAX_CONN + k];
+        for (int w = 0; w < W; ++w) seen[w] = w == own_w ? bit_of<W>(i) : 0u;
+        for (int k = 0; k < GEN_MAX_CONN; ++k) {
+          const int c = conn_l[l * GEN_MAX_CONN + k];
+          if (c < 0) continue;
+          const float off = conn_f[l * GEN_MAX_CONN + k];
 #pragma unroll
-        for (int w = 0; w < W; ++w) {
-          unsigned bits = e.elig[c * W + w] & ~seen[w];
-          seen[w] |= bits;
-          for (; bits; bits &= bits - 1) {
-            const int j = 32 * w + __ffs(bits) - 1;
-            const float sc = e.S[c * V + j] + off;
-            if (s_self <= sc && (sc < f_key || (sc == f_key && j > f))) {
-              f_key = sc;
-              f = j;
-            }
-            if (sc < s_self && (sc > r_key || (sc == r_key && j < r))) {
-              r_key = sc;
-              r = j;
+          for (int w = 0; w < W; ++w) {
+            unsigned bits = elig[c * W + w] & ~seen[w];
+            seen[w] |= bits;
+            for (; bits; bits &= bits - 1) {
+              const int jl = 32 * w + __ffs(bits) - 1, j = base + jl;
+              const float sc = S[c * VS + jl] + off;
+              if (s_self <= sc && (sc < f_key || (sc == f_key && j > f))) {
+                f_key = sc;
+                f = j;
+              }
+              if (sc < s_self && (sc > r_key || (sc == r_key && j < r))) {
+                r_key = sc;
+                r = j;
+              }
             }
           }
         }
-      }
-    } else {
+      } else {
 #pragma unroll
-      for (int w = 0; w < W; ++w) {
-        const unsigned self = w == word_of<W>(i) ? bit_of<W>(i) : 0u;
-        for (unsigned bits = e.elig[l * W + w] & ~self; bits; bits &= bits - 1) {
-          const int j = 32 * w + __ffs(bits) - 1;
-          const float sc = e.S[l * V + j];
-          if (s_self <= sc && sc <= f_key) {
-            f_key = sc;
-            f = j;
-          }
-          if (sc < s_self && sc > r_key) {
-            r_key = sc;
-            r = j;
+        for (int w = 0; w < W; ++w) {
+          const unsigned self = w == own_w ? bit_of<W>(i) : 0u;
+          for (unsigned bits = elig[l * W + w] & ~self; bits; bits &= bits - 1) {
+            const int jl = 32 * w + __ffs(bits) - 1, j = base + jl;
+            const float sc = S[l * VS + jl];
+            if (s_self <= sc && sc <= f_key) {
+              f_key = sc;
+              f = j;
+            }
+            if (sc < s_self && sc > r_key) {
+              r_key = sc;
+              r = j;
+            }
           }
         }
       }
@@ -645,12 +752,12 @@ struct Ctx {
   // current lane's limit; 0 where accel returns 0 without it or does not
   // read it (a Linear decider)
   __device__ float free_acc(int ego) const {
-    if (ego < 0 || !(e.flags[ego] & FS_VEHICLE) || (kLinear && law.linear)) return 0.f;
-    const int el = g.clip(e.lane[ego]);
+    if (ego < 0 || !(at(e.flags, ego) & FS_VEHICLE) || (kLinear && law.linear)) return 0.f;
+    const int el = g.clip(at(e.lane, ego));
     const float limit = g.F(el, LF_LIMIT);
-    const float ts_raw = e.ts[ego];
+    const float ts_raw = at(e.ts, ego);
     const float ts = isinf(limit) ? ts_raw : fminf(fmaxf(ts_raw, 0.f), limit);
-    const float sp = e.speed[ego];
+    const float sp = at(e.speed, ego);
     return p.comfort_acc_max * (1.0f - powf(fmaxf(sp, 0.f) / fabsf(not_zero(ts)), delta));
   }
 
@@ -659,21 +766,22 @@ struct Ctx {
   // the ego's current lane, or the deciding slot's linear law; 0 where the
   // ego is absent or no vehicle
   __device__ float accel(int ego, int front, float free) const {
-    if (ego < 0 || !(e.flags[ego] & FS_VEHICLE)) return 0.f;
+    if (ego < 0 || !(at(e.flags, ego) & FS_VEHICLE)) return 0.f;
     if (kLinear && law.linear) {
-      const int el = g.clip(e.lane[ego]);
+      const int el = g.clip(at(e.lane, ego));
       const bool ex = front >= 0;
-      const Row er = {e.speed[ego], e.ts[ego], e.S[el * V + ego], 0.f, 0.f, 0.f, 0.f, true, true};
-      const Row fr = {ex ? e.speed[front] : 0.f, 0.f, ex ? e.S[el * V + front] : 0.f,
+      const Row er = {at(e.speed, ego), at(e.ts, ego), s_on(el, ego), 0.f, 0.f, 0.f, 0.f, true,
+                      true};
+      const Row fr = {ex ? at(e.speed, front) : 0.f, 0.f, ex ? s_on(el, front) : 0.f,
                       0.f, 0.f, 0.f, 0.f, ex, ex};
       return linear_accel(p.distance_wanted, law, er, fr);
     }
     if (front < 0) return free;
-    const int el = g.clip(e.lane[ego]);
-    const float sp = e.speed[ego];
-    const float d = e.S[el * V + front] - e.S[el * V + ego];
-    const float c = e.cos[ego], sn = e.sin[ego];
-    const float dv = (sp * c - e.vx[front]) * c + (sp * sn - e.vy[front]) * sn;
+    const int el = g.clip(at(e.lane, ego));
+    const float sp = at(e.speed, ego);
+    const float d = s_on(el, front) - s_on(el, ego);
+    const float c = at(e.cos, ego), sn = at(e.sin, ego);
+    const float dv = (sp * c - at(e.vx, front)) * c + (sp * sn - at(e.vy, front)) * sn;
     const float d_star =
         (p.distance_wanted + sp * p.time_wanted) + (sp * dv) * p.inv_two_sqrt_ab;
     const float qd = d_star / not_zero(d);
@@ -729,6 +837,23 @@ __device__ __forceinline__ void for_pairs(const unsigned short* pairs, int P, in
   for (int k = t; k < P; k += G) {
     const unsigned ab = pairs[k];
     fn(static_cast<int>(ab & 255u), static_cast<int>(ab >> 8));
+  }
+}
+
+// Calls fn(a, b) for the pairs a < b of V slots taken by thread t of T, the
+// k-th pair in (a, b) order on thread k % T: the pair table's enumeration,
+// counted instead of stored (the cluster kernels, whose V exceeds a byte).
+template <typename Fn>
+__device__ __forceinline__ void for_pairs_counted(int V, int t, int T, Fn fn) {
+  int a = 0, b = t + 1;
+  while (a < V - 1) {
+    if (b < V) {
+      fn(a, b);
+      b += T;
+    } else {  // past row a: as far into the next row, which starts at a + 2
+      ++a;
+      b += a + 1 - V;
+    }
   }
 }
 
@@ -803,12 +928,16 @@ __device__ void project_table(const Lanes& g, const EnvSmem& e, const int* lorde
 
 // Phase B for the owner of slot i: the IDM / MOBIL decision pass and the
 // controls.  kLinear: each row's own kind picks its law (a Linear row's is
-// LinearVehicle's); without it every law is IDM's.
-template <bool kLinear, bool kConnected, int W>
-__device__ __forceinline__ void decide(GSlot& v, const Ctx<kLinear, kConnected, W>& cx,
+// LinearVehicle's); without it every law is IDM's.  kCluster: i's own
+// arrays at me = i % 128 of its block, another slot's through cx.at.
+template <bool kLinear, bool kConnected, int W, bool kCluster>
+__device__ __forceinline__ void decide(GSlot& v,
+                                       const Ctx<kLinear, kConnected, W, kCluster>& cx,
                                        const Lanes& g,
                                        const GenParams& p, const EnvSmem& e, int i, int V,
                                        int R, const int* rid) {
+  const int VS = kCluster ? GEN_WIDE_SLOTS : V;  // the tables' stride
+  const int me = kCluster ? i % GEN_WIDE_SLOTS : i;
   const bool idm = (v.kind == KIND_IDM || (kLinear && v.kind == KIND_LINEAR)) && !v.crashed;
   const int lane = v.lane, tlane = v.tlane;
   const int lc = g.clip(lane), tc = g.clip(tlane);
@@ -835,7 +964,7 @@ __device__ __forceinline__ void decide(GSlot& v, const Ctx<kLinear, kConnected, 
         const int cand_id = g.I(lc, LI_LANE_ID) + d;
         const bool exists = cand_id >= 0 && cand_id < g.I(lc, LI_EDGE_N);
         const int cand = g.clip(g.I(lc, LI_EDGE_BASE) + cand_id);
-        const float s_c = e.S[cand * V + i], lat_c = e.LAT[cand * V + i];
+        const float s_c = e.S[cand * VS + me], lat_c = e.LAT[cand * VS + me];
         const bool reachable = fabsf(lat_c) <= 2.f * g.F(cand, LF_WIDTH) && 0.f <= s_c &&
                                s_c < g.F(cand, LF_LEN) + VEHICLE_LENGTH &&
                                !g.I(cand, LI_FORBIDDEN);
@@ -858,14 +987,14 @@ __device__ __forceinline__ void decide(GSlot& v, const Ctx<kLinear, kConnected, 
     // abort a lane change into a gap another controlled vehicle is
     // closing, on the same road only
     if (mid_change && g.I(lc, LI_EDGE_BASE) == g.I(tc, LI_EDGE_BASE)) {
-      const float s_self = e.S[lc * V + i];
-      const float ch = e.cos[i], sh = e.sin[i], vxi = e.vx[i], vyi = e.vy[i];
+      const float s_self = e.S[lc * VS + me];
+      const float ch = e.cos[me], sh = e.sin[me], vxi = e.vx[me], vyi = e.vy[me];
       bool conflict = false;
       for (int j = 0; j < V && !conflict; ++j) {
-        if (j == i || !(e.flags[j] & FS_CONTROLLED)) continue;
-        if (e.lane[j] == tlane || e.tlane[j] != tlane) continue;
-        const float d_ij = e.S[lc * V + j] - s_self;
-        const float dv = (vxi - e.vx[j]) * ch + (vyi - e.vy[j]) * sh;
+        if (j == i || !(cx.at(e.flags, j) & FS_CONTROLLED)) continue;
+        if (cx.at(e.lane, j) == tlane || cx.at(e.tlane, j) != tlane) continue;
+        const float d_ij = cx.s_on(lc, j) - s_self;
+        const float dv = (vxi - cx.at(e.vx, j)) * ch + (vyi - cx.at(e.vy, j)) * sh;
         const float d_star =
             (p.distance_wanted + speed * p.time_wanted) + (speed * dv) * p.inv_two_sqrt_ab;
         conflict = 0.f < d_ij && d_ij < d_star;
@@ -887,7 +1016,7 @@ __device__ __forceinline__ void decide(GSlot& v, const Ctx<kLinear, kConnected, 
   if (is_ego || idm) {
     // steering toward the target lane's heading a pursuit distance ahead
     const int tg = g.clip(target);
-    const float s = e.S[tg * V + i], lat = e.LAT[tg * V + i];
+    const float s = e.S[tg * VS + me], lat = e.LAT[tg * VS + me];
     const float future = lane_heading(g, tg, s + speed * p.tau_pursuit);
     if (kLinear && cx.law.linear) {
       v.steer = linear_steer(future, lat, v.heading, speed, v.len, cx.law.sp0, cx.law.sp1);
@@ -903,14 +1032,17 @@ __device__ __forceinline__ void decide(GSlot& v, const Ctx<kLinear, kConnected, 
   }
 }
 
-// The frame body of both kernels below: G threads an env, GEN_BLOCK / G
-// envs a block (narrow), or one env a block of G = GEN_WIDE_BLOCK threads
-// (kWide).  conn_lanes / conn_offsets: the (L, GEN_MAX_CONN) candidate
-// tables, read by the kConnected instantiations alone (last, so that the
-// other parameters keep their places); dyn: the kDynamical instantiations'
-// DynFields, a parameter of theirs alone (an empty pack elsewhere)
+// The frame body of the kernels below: G threads an env, GEN_BLOCK / G
+// envs a block (narrow), one env a block of G = GEN_WIDE_BLOCK threads
+// (kWide), or one env a cluster of such blocks (kWide and kCluster; slot i
+// on thread i % 128 of rank i / 128, which keeps the arrays of its 128
+// slots at me = i % 128).  conn_lanes / conn_offsets: the (L, GEN_MAX_CONN)
+// candidate tables, read by the kConnected instantiations alone (last, so
+// that the other parameters keep their places); dyn: the kDynamical
+// instantiations' DynFields, a parameter of theirs alone (an empty pack
+// elsewhere)
 template <bool kRegulated, bool kLinear, bool kConnected, bool kDynamical, bool kWide,
-          typename... Dyn>
+          bool kCluster, typename... Dyn>
 __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields& rf,
                                             const float* lane_f, const int* lane_i,
                                             const GenParams& p, int B, int G,
@@ -918,14 +1050,20 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
                                             const Dyn... dyn) {
   static_assert(sizeof...(Dyn) == (kDynamical ? 1 : 0) && !(kDynamical && kConnected),
                 "a kDynamical instantiation takes its DynFields, and is not connected");
+  static_assert(kWide || !kCluster, "a cluster's blocks are the wide kernels' blocks");
   constexpr int W = kWide ? GEN_WIDE_WORDS : 1;  // words of a slot mask
   constexpr int kBlock = kWide ? GEN_WIDE_BLOCK : GEN_BLOCK;
   extern __shared__ float smem[];
   const int L = p.L, V = p.V, R = p.R, M = p.M;
   const int P = V * (V - 1) / 2;
+  // kCluster: the cluster's blocks and this block's rank; the stride of the
+  // per-slot tables (a rank's slots) and this rank's slots
+  const int ranks = cluster_blocks<kCluster>(), rank = cluster_rank<kCluster>();
+  const int VS = kCluster ? GEN_WIDE_SLOTS : V;
+  const int V_own = kCluster ? min(GEN_WIDE_SLOTS, V - rank * GEN_WIDE_SLOTS) : V;
 
   // the lane tables, the lanes grouped by kind, the candidate tables
-  // (kConnected), and the pair table, once per block
+  // (kConnected), and the pair table (none under kCluster), once per block
   float* lf = smem;
   int* li = reinterpret_cast<int*>(lf + L * LANE_F_WORDS);
   int* lorder = li + L * LANE_I_WORDS;
@@ -945,11 +1083,12 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
   }
   for (int k = threadIdx.x; k < L * LANE_F_WORDS; k += blockDim.x) lf[k] = lane_f[k];
   for (int k = threadIdx.x; k < L * LANE_I_WORDS; k += blockDim.x) li[k] = lane_i[k];
-  for (int a = threadIdx.x; a < V; a += blockDim.x) {
-    const int base = a * (2 * V - a - 1) / 2;
-    for (int b = a + 1; b < V; ++b)
-      pairs[base + b - a - 1] = static_cast<unsigned short>(a | (b << 8));
-  }
+  if constexpr (!kCluster)
+    for (int a = threadIdx.x; a < V; a += blockDim.x) {
+      const int base = a * (2 * V - a - 1) / 2;
+      for (int b = a + 1; b < V; ++b)
+        pairs[base + b - a - 1] = static_cast<unsigned short>(a | (b << 8));
+    }
   if (threadIdx.x == 0) {
     int n = 0;
     for (int pass = 0; pass < 3; ++pass)
@@ -963,15 +1102,18 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
   const Lanes g = {lf, li, L};
 
   const int group = threadIdx.x / G, t = threadIdx.x % G;
-  const int env = blockIdx.x * (kBlock / G) + group;
+  const int env = kCluster ? blockIdx.x / ranks : blockIdx.x * (kBlock / G) + group;
   const bool env_live = env < B;
-  const bool live = env_live && t < V;  // this thread owns slot t
-  const int i = t;
+  const int i = kCluster ? rank * GEN_WIDE_SLOTS + t : t;
+  const int me = kCluster ? t : i;     // i's index in its block's arrays
+  const bool live = env_live && i < V;  // this thread owns slot i
+  // the projection's threads: an env's (narrow, wide) or the slot's owner
+  const bool projects = kCluster ? live : env_live;
 
   EnvSmem e;
-  float* env_base = smem + block_words(L, V, kConnected) +
-                    static_cast<size_t>(group) * EnvSmem::words(L, V, R, kRegulated, W);
-  e.carve(env_base, L, V, R, kRegulated, W);
+  float* env_base = smem + block_words(L, kCluster ? 0 : V, kConnected) +
+                    static_cast<size_t>(group) * EnvSmem::words(L, VS, R, kRegulated, W);
+  e.carve(env_base, L, VS, R, kRegulated, W);
   const int phase = (kRegulated && env_live) ? rf.phase[env] : 0;
 
   const size_t o = static_cast<size_t>(env) * V + i;
@@ -1022,24 +1164,24 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
     v.ch = cosf(v.heading);
     v.sh = sinf(v.heading);
     for (int r = 0; r < R; ++r) {
-      e.rbase[i * R + r] = f.route_base[o * R + r];
-      e.rn[i * R + r] = f.route_n[o * R + r];
-      e.rid[i * R + r] = f.route_id[o * R + r];
+      e.rbase[me * R + r] = f.route_base[o * R + r];
+      e.rn[me * R + r] = f.route_n[o * R + r];
+      e.rid[me * R + r] = f.route_id[o * R + r];
     }
-    e.len[i] = v.len;
-    e.wid[i] = v.wid;
-    e.diag[i] = sqrtf(v.len * v.len + v.wid * v.wid);
-    e.px[i] = v.px;
-    e.py[i] = v.py;
-    e.flags[i] = ((v.active() && v.kind != KIND_LANDMARK) ? FS_OCCUPIES : 0) |
-                 (v.is_vehicle() ? FS_VEHICLE : 0) | (v.is_controlled() ? FS_CONTROLLED : 0);
+    e.len[me] = v.len;
+    e.wid[me] = v.wid;
+    e.diag[me] = sqrtf(v.len * v.len + v.wid * v.wid);
+    e.px[me] = v.px;
+    e.py[me] = v.py;
+    e.flags[me] = ((v.active() && v.kind != KIND_LANDMARK) ? FS_OCCUPIES : 0) |
+                  (v.is_vehicle() ? FS_VEHICLE : 0) | (v.is_controlled() ? FS_CONTROLLED : 0);
   }
   if (env_live)
     for (int l = t; l < L * W; l += G) e.elig[l] = 0u;
-  group_sync<kWide>();
+  group_sync<kWide, kCluster>();
   // the frame-start projection table and eligibility masks
-  project_table<kWide>(g, e, lorder, L, V, t, G, env_live, false);
-  group_sync<kWide>();
+  project_table<kWide>(g, e, lorder, L, VS, t, G, projects, false);
+  group_sync<kWide, kCluster>();
 
   // the deciding slot's law: its kind and, on a Linear row, its parameters
   Law law = {kLinear && v.kind == KIND_LINEAR, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -1050,16 +1192,32 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
     law.sp0 = f.steer_params[2 * o];
     law.sp1 = f.steer_params[2 * o + 1];
   }
-  const Ctx<kLinear, kConnected, W> cx = {g, p, e, V, i, v.delta, law, conn_l, conn_f};
-  const int* rb = e.rbase + i * R;
-  const int* rn = e.rn + i * R;
-  const int* rid = e.rid + i * R;
+  const Ctx<kLinear, kConnected, W, kCluster> cx = {g, p, e, V, i, v.delta, law, conn_l, conn_f};
+  const int* rb = e.rbase + me * R;
+  const int* rn = e.rn + me * R;
+  const int* rid = e.rid + me * R;
+
+  // calls fn(a, b) for the env's pairs a < b taken by this thread: from the
+  // block's pair table, or counted over the cluster's threads
+  const auto each_pair = [&](auto fn) {
+    if constexpr (kCluster)
+      for_pairs_counted(V, rank * GEN_WIDE_BLOCK + t, ranks * GEN_WIDE_BLOCK, fn);
+    else
+      for_pairs(pairs, P, t, G, fn);
+  };
+  // the swept SAT of the post-integration rows of slots a < b
+  const auto sat_slots = [&](int a, int b, bool* inter, bool* will, float* tx, float* ty) {
+    sat(cx.at(e.px, a), cx.at(e.py, a), cx.at(e.len, a), cx.at(e.wid, a), cx.at(e.pcos, a),
+        cx.at(e.psin, a), cx.at(e.px, b), cx.at(e.py, b), cx.at(e.len, b), cx.at(e.wid, b),
+        cx.at(e.pcos, b), cx.at(e.psin, b), (cx.at(e.pvx, a) - cx.at(e.pvx, b)) * p.dt,
+        (cx.at(e.pvy, a) - cx.at(e.pvy, b)) * p.dt, inter, will, tx, ty);
+  };
 
   for (int frame = 0; frame < p.frames; ++frame) {
     // --- A: follow_road, then the ego meta-action on frame 0 --------------
     if (live) {
       const int lt = g.clip(v.tlane);
-      const float s_t = e.S[lt * V + i];
+      const float s_t = e.S[lt * VS + me];
       const bool ended = s_t > g.F(lt, LF_LEN) - VEHICLE_LENGTH / 2.f;
       if (ended && v.is_controlled()) {
         float projx, projy;
@@ -1123,26 +1281,26 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
         const int cand = g.I(lt2, LI_EDGE_BASE) +
                          min(max(g.I(lt2, LI_LANE_ID) + d_id, 0), g.I(lt2, LI_EDGE_N) - 1);
         const int cl = g.clip(cand);
-        const float s_c = e.S[cl * V + i], lat_c = e.LAT[cl * V + i];
+        const float s_c = e.S[cl * VS + me], lat_c = e.LAT[cl * VS + me];
         const bool reach = fabsf(lat_c) <= 2.f * g.F(cl, LF_WIDTH) && 0.f <= s_c &&
                            s_c < g.F(cl, LF_LEN) + VEHICLE_LENGTH &&
                            !g.I(cl, LI_FORBIDDEN);
         if ((ll || lr) && reach) v.tlane = cand;
       }
-      e.speed[i] = v.speed;
-      e.ts[i] = v.ts;
-      e.cos[i] = v.ch;
-      e.sin[i] = v.sh;
-      e.vx[i] = v.speed * v.ch;
-      e.vy[i] = v.speed * v.sh;
-      e.lane[i] = v.lane;
-      e.tlane[i] = v.tlane;
+      e.speed[me] = v.speed;
+      e.ts[me] = v.ts;
+      e.cos[me] = v.ch;
+      e.sin[me] = v.sh;
+      e.vx[me] = v.speed * v.ch;
+      e.vy[me] = v.speed * v.sh;
+      e.lane[me] = v.lane;
+      e.tlane[me] = v.tlane;
     }
-    group_sync<kWide>();
+    group_sync<kWide, kCluster>();
 
     // --- B: the IDM / MOBIL decision pass and the controls ----------------
-    if (live) decide<kLinear, kConnected, W>(v, cx, g, p, e, i, V, R, rid);
-    group_sync<kWide>();  // the frame-start table and eligibility masks are read
+    if (live) decide<kLinear, kConnected, W, kCluster>(v, cx, g, p, e, i, V, R, rid);
+    group_sync<kWide, kCluster>();  // the frame-start table and eligibility masks are read
 
     // --- B': the right-of-way pass on the env's tick frames ----------------
     // road/regulation.py::enforce_road_rules on the frame-start state (after
@@ -1165,8 +1323,8 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
             const int seg_id = rid[q] >= 0 ? rid[q] : fallback;
             const int seg = ok ? clampi(rb[q] + seg_id, 0, g.L - 1) : v.lane;
             acc = acc + (ok ? g.F(g.clip(seg), LF_LEN) : 0.f);
-            e.rcum[i * R + q] = acc;
-            e.rseg[i * R + q] = seg;
+            e.rcum[me * R + q] = acc;
+            e.rseg[me * R + q] = seg;
             if (ok) {
               valid |= 1u << q;
               ++n_valid;
@@ -1174,18 +1332,20 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
             }
           }
           first = max(first, 0);
-          e.rfirst[i] = first;
-          e.rlast[i] = n_valid > 0 ? first + n_valid - 1 : 0;
-          e.rvalid[i] = static_cast<int>(valid);
-          e.rs0[i] = e.S[lc * V + i];
-          e.fx[i] = v.px;
-          e.fy[i] = v.py;
-          e.prio[i] = g.I(lc, LI_PRIORITY);
+          e.rfirst[me] = first;
+          e.rlast[me] = n_valid > 0 ? first + n_valid - 1 : 0;
+          e.rvalid[me] = static_cast<int>(valid);
+          e.rs0[me] = e.S[lc * VS + me];
+          e.fx[me] = v.px;
+          e.fy[me] = v.py;
+          e.prio[me] = g.I(lc, LI_PRIORITY);
         }
-        group_sync<kWide>();  // every read of S / LAT is done: the predictions take their words
+        // every read of S / LAT is done: the predictions take their words
+        group_sync<kWide, kCluster>();
         // every slot's positions and headings at the 11 times, item (t, j)
+        // (kCluster: the rank's own slots, j its index there)
         if (tick)
-          for_items(REG_TIMES, V, t, G, [&](int tt, int j) {
+          for_items(REG_TIMES, V_own, t, G, [&](int tt, int j) {
             const int first = e.rfirst[j], last = e.rlast[j];
             const unsigned valid = static_cast<unsigned>(e.rvalid[j]);
             const float* cum = e.rcum + j * R;
@@ -1201,48 +1361,51 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
             float x, y;
             lane_position(g, lk, s_loc, 0.f, &x, &y);
             const float h = lane_heading(g, lk, s_loc);
-            e.qx[tt * V + j] = x;
-            e.qy[tt * V + j] = y;
-            e.qc[tt * V + j] = cosf(h);
-            e.qs[tt * V + j] = sinf(h);
+            e.qx[tt * VS + j] = x;
+            e.qy[tt * VS + j] = y;
+            e.qc[tt * VS + j] = cosf(h);
+            e.qs[tt * VS + j] = sinf(h);
           });
-        group_sync<kWide>();
+        group_sync<kWide, kCluster>();
         // future overlaps of every pair of vehicles (lower, upper), each
         // pair on one thread; the yielder's bit
         if (tick)
-          for_pairs(pairs, P, t, G, [&](int a, int b) {
-            if (!(e.flags[a] & FS_VEHICLE) || !(e.flags[b] & FS_VEHICLE)) return;
-            const float la = 1.5f * e.len[a], wa = 0.9f * e.wid[a];
-            const float lb = 1.5f * e.len[b], wb = 0.9f * e.wid[b];
-            const float reach2 = e.len[a] * e.len[a];
+          each_pair([&](int a, int b) {
+            if (!(cx.at(e.flags, a) & FS_VEHICLE) || !(cx.at(e.flags, b) & FS_VEHICLE)) return;
+            const float la = 1.5f * cx.at(e.len, a), wa = 0.9f * cx.at(e.wid, a);
+            const float lb = 1.5f * cx.at(e.len, b), wb = 0.9f * cx.at(e.wid, b);
+            const float reach2 = cx.at(e.len, a) * cx.at(e.len, a);
             bool conflict = false;
             for (int tt = 0; tt < REG_TIMES && !conflict; ++tt) {
-              const int ta = tt * V + a, tb = tt * V + b;
-              const float dx = e.qx[tb] - e.qx[ta], dy = e.qy[tb] - e.qy[ta];
+              float *qx = e.qx + tt * VS, *qy = e.qy + tt * VS;
+              float *qc = e.qc + tt * VS, *qs = e.qs + tt * VS;
+              const float dx = cx.at(qx, b) - cx.at(qx, a), dy = cx.at(qy, b) - cx.at(qy, a);
               if (!(dx * dx + dy * dy <= reach2)) continue;
-              conflict = probes_inside(e.qx[ta], e.qy[ta], la, wa, e.qc[ta], e.qs[ta],
-                                       e.qx[tb], e.qy[tb], lb, wb, e.qc[tb], e.qs[tb]) ||
-                         probes_inside(e.qx[tb], e.qy[tb], lb, wb, e.qc[tb], e.qs[tb],
-                                       e.qx[ta], e.qy[ta], la, wa, e.qc[ta], e.qs[ta]);
+              conflict = probes_inside(cx.at(qx, a), cx.at(qy, a), la, wa, cx.at(qc, a),
+                                       cx.at(qs, a), cx.at(qx, b), cx.at(qy, b), lb, wb,
+                                       cx.at(qc, b), cx.at(qs, b)) ||
+                         probes_inside(cx.at(qx, b), cx.at(qy, b), lb, wb, cx.at(qc, b),
+                                       cx.at(qs, b), cx.at(qx, a), cx.at(qy, a), la, wa,
+                                       cx.at(qc, a), cx.at(qs, a));
             }
             if (!conflict) return;
             // the lower priority yields; on a tie the one less far ahead
-            const int pa = e.prio[a], pb = e.prio[b];
+            const int pa = cx.at(e.prio, a), pb = cx.at(e.prio, b);
             bool a_yields;
             if (pa != pb) {
               a_yields = pa < pb;
             } else {
-              const float dx0 = e.fx[b] - e.fx[a], dy0 = e.fy[b] - e.fy[a];
-              const float front_ab = dx0 * e.cos[a] + dy0 * e.sin[a];
-              const float front_ba = (-dx0) * e.cos[b] + (-dy0) * e.sin[b];
+              const float dx0 = cx.at(e.fx, b) - cx.at(e.fx, a);
+              const float dy0 = cx.at(e.fy, b) - cx.at(e.fy, a);
+              const float front_ab = dx0 * cx.at(e.cos, a) + dy0 * cx.at(e.sin, a);
+              const float front_ba = (-dx0) * cx.at(e.cos, b) + (-dy0) * cx.at(e.sin, b);
               a_yields = front_ab > front_ba;
             }
-            const int y = a_yields ? a : b;
-            atomicOr(&e.bits[2 * W + word_of<W>(y)], bit_of<W>(y));
+            set_slot<kCluster, W>(e.bits + 2 * W, a_yields ? a : b);
           });
-        group_sync<kWide>();  // the predictions are read: the rows take their words back
+        group_sync<kWide, kCluster>();  // the predictions are read: the rows take their words back
         if (tick && live) {
-          const bool new_yield = has_slot<W>(e.bits + 2 * W, i) &&
+          const bool new_yield = has_slot<W>(e.bits + 2 * W, me) &&
                                  (v.kind == KIND_IDM || v.kind == KIND_LINEAR);
           // release the expired yielders to the lane's limit, then the new yields
           const bool expired = v.yld && static_cast<float>(v.yt) >= REG_YIELD_TICKS;
@@ -1296,43 +1459,41 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
       }
       v.ch = cosf(v.heading);
       v.sh = sinf(v.heading);
-      e.px[i] = v.px;
-      e.py[i] = v.py;
-      e.phead[i] = v.heading;
-      e.pspeed[i] = v.speed;
-      e.pcos[i] = v.ch;
-      e.psin[i] = v.sh;
-      e.pvx[i] = v.speed * v.ch;
-      e.pvy[i] = v.speed * v.sh;
+      e.px[me] = v.px;
+      e.py[me] = v.py;
+      e.phead[me] = v.heading;
+      e.pspeed[me] = v.speed;
+      e.pcos[me] = v.ch;
+      e.psin[me] = v.sh;
+      e.pvx[me] = v.speed * v.ch;
+      e.pvy[me] = v.speed * v.sh;
       const bool solid = v.active() && v.kind != KIND_LANDMARK;
-      e.pflags[i] = (v.active() ? F_ACTIVE : 0) | (v.is_vehicle() ? F_VEHICLE : 0) |
-                    (v.chk ? F_CHECK : 0) | (v.coll ? F_COLLIDABLE : 0) |
-                    (solid ? F_SOLID : 0) | (v.kind == KIND_OBSTACLE ? F_OBSTACLE : 0);
-      e.key[i] = ~0ull;
-      for (int w = 0; w < W; ++w) e.imp[i * W + w] = 0u;
+      e.pflags[me] = (v.active() ? F_ACTIVE : 0) | (v.is_vehicle() ? F_VEHICLE : 0) |
+                     (v.chk ? F_CHECK : 0) | (v.coll ? F_COLLIDABLE : 0) |
+                     (solid ? F_SOLID : 0) | (v.kind == KIND_OBSTACLE ? F_OBSTACLE : 0);
+      e.key[me] = ~0ull;
+      for (int w = 0; w < W; ++w) e.imp[me * W + w] = 0u;
     }
     if (env_live) {
       for (int l = t; l < L * W; l += G) e.elig[l] = 0u;
       if (t < W) e.bits[t] = e.bits[W + t] = 0u;
     }
-    group_sync<kWide>();
+    group_sync<kWide, kCluster>();
 
     // --- C': the new projection table and re-localization, slot-major -------
-    project_table<kWide>(g, e, lorder, L, V, t, G, env_live, true);
+    project_table<kWide>(g, e, lorder, L, VS, t, G, projects, true);
     // --- D: collisions, each pair once: sphere pre-check, swept SAT, slot bits
     // (no barrier between C' and D: they touch other words)
     if (env_live)
-      for_pairs(pairs, P, t, G, [&](int a, int b) {
-        const int fa = e.pflags[a], fb = e.pflags[b];
+      each_pair([&](int a, int b) {
+        const int fa = cx.at(e.pflags, a), fb = cx.at(e.pflags, b);
         if (!pair_eligible(fa, fb)) return;
-        const float dx = e.px[a] - e.px[b], dy = e.py[a] - e.py[b];
-        const float reach = (e.diag[a] + e.diag[b]) / 2.f + e.pspeed[a] * p.dt;
+        const float dx = cx.at(e.px, a) - cx.at(e.px, b), dy = cx.at(e.py, a) - cx.at(e.py, b);
+        const float reach = (cx.at(e.diag, a) + cx.at(e.diag, b)) / 2.f + cx.at(e.pspeed, a) * p.dt;
         if (!(dx * dx + dy * dy <= reach * reach)) return;
         bool inter, will;
         float tx, ty;
-        sat(e.px[a], e.py[a], e.len[a], e.wid[a], e.pcos[a], e.psin[a], e.px[b], e.py[b],
-            e.len[b], e.wid[b], e.pcos[b], e.psin[b], (e.pvx[a] - e.pvx[b]) * p.dt,
-            (e.pvy[a] - e.pvy[b]) * p.dt, &inter, &will, &tx, &ty);
+        sat_slots(a, b, &inter, &will, &tx, &ty);
         const bool both_solid = (fa & F_SOLID) && (fb & F_SOLID);
         const unsigned ba = bit_of<W>(a), bb = bit_of<W>(b);
         if constexpr (W == 1) {
@@ -1341,54 +1502,66 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
             atomicOr(&e.bits[1], ((fa & F_SOLID) ? 0u : ba) | ((fb & F_SOLID) ? 0u : bb));
         } else {  // a and b may lie in different words
           if (inter && both_solid) {
-            atomicOr(&e.bits[word_of<W>(a)], ba);
-            atomicOr(&e.bits[word_of<W>(b)], bb);
+            set_slot<kCluster, W>(e.bits, a);
+            set_slot<kCluster, W>(e.bits, b);
           }
           if (inter && !both_solid) {
-            if (!(fa & F_SOLID)) atomicOr(&e.bits[W + word_of<W>(a)], ba);
-            if (!(fb & F_SOLID)) atomicOr(&e.bits[W + word_of<W>(b)], bb);
+            if (!(fa & F_SOLID)) set_slot<kCluster, W>(e.bits + W, a);
+            if (!(fb & F_SOLID)) set_slot<kCluster, W>(e.bits + W, b);
           }
         }
         if (will && both_solid) {
-          if (!(fa & F_OBSTACLE)) atomicOr(&e.imp[a * W + word_of<W>(b)], bb);
-          if (!(fb & F_OBSTACLE)) atomicOr(&e.imp[b * W + word_of<W>(a)], ba);
+          if constexpr (kCluster) {  // the highest partner, + 1, in the slot's first word
+            const auto first_word = [&](int k) {
+              return peer<true>(e.imp + k % GEN_WIDE_SLOTS * W, k / GEN_WIDE_SLOTS);
+            };
+            if (!(fa & F_OBSTACLE)) atomicMax(first_word(a), static_cast<unsigned>(b + 1));
+            if (!(fb & F_OBSTACLE)) atomicMax(first_word(b), static_cast<unsigned>(a + 1));
+          } else {
+            if (!(fa & F_OBSTACLE)) atomicOr(&e.imp[a * W + word_of<W>(b)], bb);
+            if (!(fb & F_OBSTACLE)) atomicOr(&e.imp[b * W + word_of<W>(a)], ba);
+          }
         }
       });
-    group_sync<kWide>();
+    group_sync<kWide, kCluster>();
 
     // --- D': the closest lane, crash / hit flags, the last-write impact ----
     if (live) {
-      if (v.is_vehicle()) v.lane = static_cast<int>(e.key[i] & 0xffffffffull);
+      if (v.is_vehicle()) v.lane = static_cast<int>(e.key[me] & 0xffffffffull);
       // the highest partner, from the top word down: every partner above i
       // outranks every one below (row before column), and ascending order
       // leaves the last write; the full translation against an obstacle,
       // half each between two vehicles
       int j = -1;
+      if constexpr (kCluster) {
+        j = static_cast<int>(e.imp[me * W]) - 1;
+      } else {
 #pragma unroll
-      for (int w = W - 1; w >= 0; --w) {
-        const unsigned partners = e.imp[i * W + w];
-        if (j < 0 && partners) j = 32 * w + 31 - __clz(partners);
+        for (int w = W - 1; w >= 0; --w) {
+          const unsigned partners = e.imp[i * W + w];
+          if (j < 0 && partners) j = 32 * w + 31 - __clz(partners);
+        }
       }
       if (j >= 0) {
-        const int a = min(i, j), b = max(i, j);
         bool inter, will;
         float tx, ty;
-        sat(e.px[a], e.py[a], e.len[a], e.wid[a], e.pcos[a], e.psin[a], e.px[b], e.py[b],
-            e.len[b], e.wid[b], e.pcos[b], e.psin[b], (e.pvx[a] - e.pvx[b]) * p.dt,
-            (e.pvy[a] - e.pvy[b]) * p.dt, &inter, &will, &tx, &ty);
-        const bool other_obstacle = (e.pflags[j] & F_OBSTACLE) != 0;
+        sat_slots(min(i, j), max(i, j), &inter, &will, &tx, &ty);
+        const bool other_obstacle = (cx.at(e.pflags, j) & F_OBSTACLE) != 0;
         const float coef = other_obstacle ? 1.0f : (j > i ? 0.5f : -0.5f);
         v.ix = coef * tx;
         v.iy = coef * ty;
         v.pend = true;
       }
-      v.crashed = v.crashed || has_slot<W>(e.bits, i);
-      v.hit = v.hit || has_slot<W>(e.bits + W, i);
+      v.crashed = v.crashed || has_slot<W>(e.bits, me);
+      v.hit = v.hit || has_slot<W>(e.bits + W, me);
     }
     // the next frame's phase A writes only frame-start rows, which nothing
     // reads until after its barrier; the words read here are rewritten
     // after two more barriers
   }
+  // kCluster: no block leaves while another rank may still read its shared
+  // memory (phase D' of the last frame)
+  if constexpr (kCluster) group_sync<kWide, kCluster>();
 
   if (!kLinear) trap_on_linear(live && v.kind == KIND_LINEAR);
   if (live) {
@@ -1428,7 +1601,7 @@ __global__ void __launch_bounds__(GEN_BLOCK)
                           const int* lane_i, const __grid_constant__ GenParams p, int B,
                           int G, const int* conn_lanes, const float* conn_offsets,
                           const Dyn... dyn) {
-  frames_body<kRegulated, kLinear, kConnected, kDynamical, false>(
+  frames_body<kRegulated, kLinear, kConnected, kDynamical, false, false>(
       f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, dyn...);
 }
 
@@ -1440,7 +1613,20 @@ __global__ void __launch_bounds__(GEN_WIDE_BLOCK)
                                const int* lane_i, const __grid_constant__ GenParams p, int B,
                                int G, const int* conn_lanes, const float* conn_offsets,
                                const Dyn... dyn) {
-  frames_body<kRegulated, kLinear, kConnected, kDynamical, true>(
+  frames_body<kRegulated, kLinear, kConnected, kDynamical, true, false>(
+      f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, dyn...);
+}
+
+// The cluster kernels: one env a cluster of ceil(V / 128) blocks of
+// G = GEN_WIDE_BLOCK threads (the cluster's size is the launch's attribute).
+template <bool kRegulated, bool kLinear, bool kConnected, bool kDynamical, typename... Dyn>
+__global__ void __launch_bounds__(GEN_WIDE_BLOCK)
+    general_frames_cluster_kernel(const __grid_constant__ GenFields f,
+                                  const __grid_constant__ RegFields rf, const float* lane_f,
+                                  const int* lane_i, const __grid_constant__ GenParams p,
+                                  int B, int G, const int* conn_lanes,
+                                  const float* conn_offsets, const Dyn... dyn) {
+  frames_body<kRegulated, kLinear, kConnected, kDynamical, true, true>(
       f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, dyn...);
 }
 
@@ -1449,16 +1635,18 @@ __global__ void __launch_bounds__(GEN_WIDE_BLOCK)
 static int threads_per_env(int V) { return V <= 16 ? 16 : 32; }
 
 // dyn: the kDynamical instantiations' DynFields (one pointer), or nothing;
-// kWide: the wide kernels (up to GEN_WIDE_SLOTS slots), else the narrow
-// ones (up to GEN_MAX_SLOTS)
-template <bool kRegulated, bool kConnected, bool kWide, typename... Dyn>
+// kWide: the wide kernels (up to GEN_WIDE_SLOTS slots), with kCluster the
+// cluster kernels (up to GEN_CLUSTER_SLOTS), else the narrow ones (up to
+// GEN_MAX_SLOTS)
+template <bool kRegulated, bool kConnected, bool kWide, bool kCluster, typename... Dyn>
 static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
                   const int* lane_i, const int* conn_lanes, const float* conn_offsets,
                   const GenParams* params, int B, void* stream, const Dyn*... dyn) {
   static_assert(sizeof(GenFields) == (N_IN + 1 + N_OUT) * sizeof(void*),
                 "GenFields holds one pointer per tensor");
   constexpr bool kDynamical = sizeof...(Dyn) > 0;
-  constexpr int max_slots = kWide ? GEN_WIDE_SLOTS : GEN_MAX_SLOTS;
+  constexpr int max_slots =
+      kCluster ? GEN_CLUSTER_SLOTS : (kWide ? GEN_WIDE_SLOTS : GEN_MAX_SLOTS);
   const GenParams& p = *params;
   if (p.V < 1 || p.V > max_slots || p.L < 1 || p.L > GEN_MAX_LANES || p.R < 1 ||
       p.R > GEN_MAX_ROUTE || p.M < 1 || p.M > GEN_MAX_LANES ||
@@ -1471,14 +1659,22 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
   const int block = kWide ? GEN_WIDE_BLOCK : GEN_BLOCK;
   const int G = kWide ? GEN_WIDE_BLOCK : threads_per_env(p.V);
   const int envs_per_block = block / G;
+  // a cluster's blocks hold no pair table and the arrays of 128 slots each
   const size_t smem =
-      sizeof(float) * (static_cast<size_t>(block_words(p.L, p.V, kConnected)) +
-                       static_cast<size_t>(envs_per_block) *
-                           EnvSmem::words(p.L, p.V, p.R, kRegulated, kWide ? GEN_WIDE_WORDS : 1));
+      sizeof(float) *
+      (static_cast<size_t>(block_words(p.L, kCluster ? 0 : p.V, kConnected)) +
+       static_cast<size_t>(envs_per_block) *
+           EnvSmem::words(p.L, kCluster ? GEN_WIDE_SLOTS : p.V, p.R, kRegulated,
+                          kWide ? GEN_WIDE_WORDS : 1));
   // the Linear rows' instantiation where the caller says they are possible;
-  // only this library's kernels (narrow or wide) are instantiated
+  // only this library's kernels (narrow, wide or cluster) are instantiated
   const auto kernel = [&] {
-    if constexpr (kWide)
+    if constexpr (kCluster)
+      return p.linear
+                 ? general_frames_cluster_kernel<kRegulated, true, kConnected, kDynamical, Dyn...>
+                 : general_frames_cluster_kernel<kRegulated, false, kConnected, kDynamical,
+                                                 Dyn...>;
+    else if constexpr (kWide)
       return p.linear
                  ? general_frames_wide_kernel<kRegulated, true, kConnected, kDynamical, Dyn...>
                  : general_frames_wide_kernel<kRegulated, false, kConnected, kDynamical, Dyn...>;
@@ -1486,23 +1682,58 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
       return p.linear ? general_frames_kernel<kRegulated, true, kConnected, kDynamical, Dyn...>
                       : general_frames_kernel<kRegulated, false, kConnected, kDynamical, Dyn...>;
   }();
+  int dev = 0;
+  if (smem > 48 * 1024 || kCluster) {
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if (smem > 48 * 1024) {
     // above the default only by the attribute, set once per kernel and card
     // for the largest size asked so far: a launch under stream capture after
     // an eager one of the same shape calls no function attribute
     static size_t allowed[2][64] = {};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
     size_t& set = allowed[p.linear ? 1 : 0][dev & 63];
     if (smem > set) {
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
       if (e != cudaSuccess) return static_cast<int>(e);
       set = smem;
     }
   }
-  if (B > 0) {
+  if constexpr (kCluster) {
+    // one env a cluster of ceil(V / 128) blocks, B clusters
+    const int ranks = (p.V + GEN_WIDE_SLOTS - 1) / GEN_WIDE_SLOTS;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = static_cast<unsigned>(ranks);
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>((B > 0 ? B : 1) * ranks));
+    cfg.blockDim = dim3(block);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    // whether such a cluster fits the card's SMs at all, asked once per
+    // kernel, card and cluster size for the largest size asked so far (no
+    // query under stream capture after an eager launch of the same shape);
+    // none fits: the launch's error, which the wrapper raises
+    static size_t fits[2][64][GEN_CLUSTER_BLOCKS + 1] = {};
+    size_t& fit = fits[p.linear ? 1 : 0][dev & 63][ranks];
+    if (smem > fit) {
+      int clusters = 0;
+      cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+      fit = smem;
+    }
+    if (B > 0) {
+      cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, f, rf, lane_f, lane_i, p, B, G,
+                                         conn_lanes, conn_offsets, *dyn...);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+  } else if (B > 0) {
     const int blocks = (B + envs_per_block - 1) / envs_per_block;
     kernel<<<blocks, block, smem, static_cast<cudaStream_t>(stream)>>>(
         f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, *dyn...);
@@ -1511,12 +1742,16 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
 }
 
 // This source builds the narrow library; general_frames_wide.cu includes it
-// with GEN_WIDE_LIBRARY defined and builds the wide one, whose entries below
-// have the same names and launch the wide kernels.
-#ifdef GEN_WIDE_LIBRARY
-#define GEN_WIDE true
+// with GEN_WIDE_LIBRARY defined and builds the wide one, and
+// general_frames_cluster.cu with GEN_CLUSTER_LIBRARY defined the cluster
+// one, whose entries below have the same names and launch the wide or the
+// cluster kernels.
+#if defined(GEN_CLUSTER_LIBRARY)
+#define GEN_LAYOUT true, true
+#elif defined(GEN_WIDE_LIBRARY)
+#define GEN_LAYOUT true, false
 #else
-#define GEN_WIDE false
+#define GEN_LAYOUT false, false
 #endif
 
 // ptrs: the N_IN input tensors, the (B, V) int32 slot actions (null with
@@ -1527,7 +1762,7 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
 // error code (cudaErrorInvalidValue for shapes outside the kernel's limits).
 extern "C" int general_frames(void* const* ptrs, const float* lane_f, const int* lane_i,
                               const GenParams* params, int B, void* stream) {
-  return launch<false, false, GEN_WIDE>(ptrs, RegFields{}, lane_f, lane_i, nullptr, nullptr,
+  return launch<false, false, GEN_LAYOUT>(ptrs, RegFields{}, lane_f, lane_i, nullptr, nullptr,
                                         params, B, stream);
 }
 
@@ -1542,7 +1777,7 @@ extern "C" int general_frames_regulated(void* const* ptrs, void* const* reg_ptrs
   static_assert(sizeof(RegFields) == 5 * sizeof(void*), "RegFields holds five pointers");
   RegFields rf;
   memcpy(&rf, reg_ptrs, sizeof(RegFields));
-  return launch<true, false, GEN_WIDE>(ptrs, rf, lane_f, lane_i, nullptr, nullptr, params, B,
+  return launch<true, false, GEN_LAYOUT>(ptrs, rf, lane_f, lane_i, nullptr, nullptr, params, B,
                                        stream);
 }
 
@@ -1553,7 +1788,7 @@ extern "C" int general_frames_connected(void* const* ptrs, const float* lane_f,
                                         const int* lane_i, const int* conn_lanes,
                                         const float* conn_offsets, const GenParams* params,
                                         int B, void* stream) {
-  return launch<false, true, GEN_WIDE>(ptrs, RegFields{}, lane_f, lane_i, conn_lanes,
+  return launch<false, true, GEN_LAYOUT>(ptrs, RegFields{}, lane_f, lane_i, conn_lanes,
                                        conn_offsets, params, B, stream);
 }
 
@@ -1567,7 +1802,7 @@ extern "C" int general_frames_regulated_connected(void* const* ptrs, void* const
                                                   void* stream) {
   RegFields rf;
   memcpy(&rf, reg_ptrs, sizeof(RegFields));
-  return launch<true, true, GEN_WIDE>(ptrs, rf, lane_f, lane_i, conn_lanes, conn_offsets, params,
+  return launch<true, true, GEN_LAYOUT>(ptrs, rf, lane_f, lane_i, conn_lanes, conn_offsets, params,
                                       B, stream);
 }
 
@@ -1579,7 +1814,7 @@ extern "C" int general_dyn_bytes() { return static_cast<int>(sizeof(DynFields));
 extern "C" int general_frames_dynamical(void* const* ptrs, const float* lane_f,
                                         const int* lane_i, const GenParams* params, int B,
                                         void* stream, const DynFields* dyn) {
-  return launch<false, false, GEN_WIDE>(ptrs, RegFields{}, lane_f, lane_i, nullptr, nullptr,
+  return launch<false, false, GEN_LAYOUT>(ptrs, RegFields{}, lane_f, lane_i, nullptr, nullptr,
                                         params, B, stream, dyn);
 }
 
@@ -1590,6 +1825,6 @@ extern "C" int general_frames_regulated_dynamical(void* const* ptrs, void* const
                                                   const DynFields* dyn) {
   RegFields rf;
   memcpy(&rf, reg_ptrs, sizeof(RegFields));
-  return launch<true, false, GEN_WIDE>(ptrs, rf, lane_f, lane_i, nullptr, nullptr, params, B,
+  return launch<true, false, GEN_LAYOUT>(ptrs, rf, lane_f, lane_i, nullptr, nullptr, params, B,
                                        stream, dyn);
 }

@@ -46,8 +46,12 @@ on a connected spec their ``kConnected`` instantiations
 ``frames_regulated_dynamical_kernel``, each with its own launch count; a
 scene of more than ``NARROW_SLOTS`` slots launches the wide twin of its
 instantiation (``csrc/general_frames_wide.cu``, one env a block of 128
-threads, up to ``MAX_SLOTS``: ``frames_general_wide_kernel`` ...), picked by
-``frames_kernel_for``; on CPU tensors all run ``frames_general_plain``.
+threads, up to ``WIDE_SLOTS``: ``frames_general_wide_kernel`` ...), and one
+of more than ``WIDE_SLOTS`` its cluster twin
+(``csrc/general_frames_cluster.cu``, one env a thread-block cluster of up
+to 8 such blocks, up to ``MAX_SLOTS``: ``frames_general_cluster_kernel``
+...), picked by ``frames_kernel_for``; on CPU tensors all run
+``frames_general_plain``.
 ``try_general`` is the scope gate: the envs outside it raise when made,
 naming the reason.
 """
@@ -75,11 +79,15 @@ from highwayenv_tpu_torch.vehicle import behavior, controller, dynamics, kinemat
 from highwayenv_tpu_torch.vehicle.behavior import IDMParams
 from highwayenv_tpu_torch.vehicle.state import KIND_EGO, KIND_LINEAR, VehicleState
 
-#: the gate's limits: the wide kernels hold an env's slots in one block of
-#: 128 threads (the narrow ones, in a warp, at most ``NARROW_SLOTS``), and
-#: the lane tables in shared memory at most 64 lanes (also the most lanes an
-#: edge can have)
-MAX_SLOTS = 128
+#: the gate's limits: the cluster kernels hold an env's slots in a cluster
+#: of up to 8 blocks of 128 threads (the portable cluster size; a block's
+#: shared memory is the same at any V, 115.8 KB at the largest scene within
+#: the other limits, 64 lanes, 16 route slots, regulated and connected), the
+#: wide ones in one block (at most ``WIDE_SLOTS``), the narrow ones in a warp
+#: (at most ``NARROW_SLOTS``); the lane tables in shared memory hold at most
+#: 64 lanes (also the most lanes an edge can have)
+MAX_SLOTS = 1024
+WIDE_SLOTS = 128
 NARROW_SLOTS = 32
 MAX_LANES = 64
 #: sizes of the kernel's fixed arrays (``GEN_MAX_SUCC`` ... in the .cu)
@@ -480,8 +488,11 @@ class GeneralFramesKernel(KernelWrapper):
     ``lateral_speed`` and ``yaw_rate`` too (``DynFields``), for a dynamical
     spec only.  With ``wide=True`` the same entry of the wide library
     (``csrc/general_frames_wide.cu``): scenes of ``NARROW_SLOTS`` + 1 to
-    ``MAX_SLOTS`` slots, one env a block; the others take at most
-    ``NARROW_SLOTS``.
+    ``WIDE_SLOTS`` slots, one env a block; with ``cluster=True`` that of the
+    cluster library (``csrc/general_frames_cluster.cu``): scenes of up to
+    ``MAX_SLOTS`` slots, one env a cluster of ceil(V / 128) blocks, a launch
+    that no cluster of that size fits refused with its CUDA error; the
+    others take at most ``NARROW_SLOTS``.
 
     Called on CUDA tensors it launches its kernel once for all frames of
     the policy step, the ego meta-action applied inside on frame 0, and adds
@@ -501,14 +512,17 @@ class GeneralFramesKernel(KernelWrapper):
     params_type = GenParams
 
     def __init__(self, regulated: bool = False, connected: bool = False,
-                 dynamical: bool = False, wide: bool = False):
+                 dynamical: bool = False, wide: bool = False, cluster: bool = False):
         super().__init__()
         if connected and dynamical:  # refused at make (kernel_limits)
             raise ValueError("no instantiation is both connected and dynamical")
+        if wide and cluster:
+            raise ValueError("a wrapper launches the wide or the cluster library, not both")
         self.regulated, self.connected, self.dynamical = regulated, connected, dynamical
-        self.wide = wide
-        self.source = "general_frames_wide" if wide else "general_frames"
-        self.max_slots = MAX_SLOTS if wide else NARROW_SLOTS
+        self.wide, self.cluster = wide, cluster
+        self.source = ("general_frames_cluster" if cluster
+                       else "general_frames_wide" if wide else "general_frames")
+        self.max_slots = MAX_SLOTS if cluster else WIDE_SLOTS if wide else NARROW_SLOTS
         self.entry = ("general_frames" + "_regulated" * regulated
                       + "_connected" * connected + "_dynamical" * dynamical)
         self._tables: dict = {}
@@ -605,8 +619,8 @@ class GeneralFramesKernel(KernelWrapper):
 #: the wrapper instances the env path launches through: K4, and K5 for
 #: regulated roads, their connected instantiations for the envs with the
 #: connected-lane search and their dynamical ones for a dynamical action,
-#: and the wide twin of each for scenes of more than NARROW_SLOTS slots,
-#: each counting its own launches
+#: the wide twin of each for scenes of more than NARROW_SLOTS slots and the
+#: cluster twin for more than WIDE_SLOTS, each counting its own launches
 frames_general_kernel = GeneralFramesKernel()
 frames_regulated_kernel = GeneralFramesKernel(regulated=True)
 frames_general_connected_kernel = GeneralFramesKernel(connected=True)
@@ -621,6 +635,14 @@ frames_regulated_connected_wide_kernel = GeneralFramesKernel(regulated=True, con
 frames_general_dynamical_wide_kernel = GeneralFramesKernel(dynamical=True, wide=True)
 frames_regulated_dynamical_wide_kernel = GeneralFramesKernel(regulated=True, dynamical=True,
                                                              wide=True)
+frames_general_cluster_kernel = GeneralFramesKernel(cluster=True)
+frames_regulated_cluster_kernel = GeneralFramesKernel(regulated=True, cluster=True)
+frames_general_connected_cluster_kernel = GeneralFramesKernel(connected=True, cluster=True)
+frames_regulated_connected_cluster_kernel = GeneralFramesKernel(regulated=True, connected=True,
+                                                                cluster=True)
+frames_general_dynamical_cluster_kernel = GeneralFramesKernel(dynamical=True, cluster=True)
+frames_regulated_dynamical_cluster_kernel = GeneralFramesKernel(regulated=True, dynamical=True,
+                                                                cluster=True)
 
 
 def store_raw_controls(env, veh: VehicleState, slot_actions: torch.Tensor):
@@ -642,8 +664,9 @@ def simulate_general(env, veh: VehicleState, slot_actions: torch.Tensor,
     ``frames_general_kernel``, or with the envs' frame counters ``steps0``
     (a regulated road) through ``frames_regulated_kernel``; under the
     connected-lane search through their connected instantiations, under a
-    dynamical action through their dynamical ones, and over
-    ``NARROW_SLOTS`` slots through the wide twins (``frames_kernel_for``).
+    dynamical action through their dynamical ones, over ``NARROW_SLOTS``
+    slots through the wide twins and over ``WIDE_SLOTS`` through the
+    cluster twins (``frames_kernel_for``).
     Raw controls are stored first (``store_raw_controls``) and the launch
     reads none.  ``linear`` (default ``env.linear_rows``): Linear rows
     possible."""
@@ -657,12 +680,14 @@ def frames_kernel_for(spec: GeneralSpec, regulated: bool,
                       slots: int = 1) -> GeneralFramesKernel:
     """The wrapper instance of ``spec``'s instantiation for a scene of
     ``slots`` slots: K4, or K5 on a regulated road, connected or dynamical as
-    the spec is, and its wide twin over ``NARROW_SLOTS`` slots.  Looked up by
-    name when called, so that a stand-in put in the module's place is taken."""
-    wide = "_wide" * (slots > NARROW_SLOTS)
+    the spec is, its wide twin over ``NARROW_SLOTS`` slots and its cluster
+    twin over ``WIDE_SLOTS``.  Looked up by name when called, so that a
+    stand-in put in the module's place is taken."""
+    layout = ("_cluster" if slots > WIDE_SLOTS
+              else "_wide" if slots > NARROW_SLOTS else "")
     law = "_connected" if spec.connected else ("_dynamical" if spec.dynamical else "")
     road = "regulated" if regulated else "general"
-    return globals()[f"frames_{road}{law}{wide}_kernel"]
+    return globals()[f"frames_{road}{law}{layout}_kernel"]
 
 
 def simulate_general_reference(env, veh: VehicleState, slot_actions: torch.Tensor,

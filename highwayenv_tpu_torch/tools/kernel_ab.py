@@ -5,12 +5,12 @@ Usage (from the repo root, on a machine with a CUDA card):
     mkdir -p build/baseline
     git archive HEAD highwayenv_tpu_torch/csrc | tar -x -C build/baseline
     python3 highwayenv_tpu_torch/tools/kernel_ab.py [--baseline DIR] [--clocks]
-        [--kernels straight general] [--vehicles N ...]
+        [--kernels straight general wide] [--vehicles N ...]
 
 ``--baseline`` (default ``build/baseline/highwayenv_tpu_torch/csrc``) is a
 second ``csrc/`` directory, for example a commit's unpacked as above; when it
 is missing only the current kernels run.  ``--kernels`` picks the families
-(default both):
+(default all; ``--clocks`` stamps the straight and general ones):
 
   straight: K1 (``straight_frames``) and K3 (``straight_frames_sorted``) at
     highway-v0 (V=51, 15 frames), highway-fast-v0 (V=21, 5 frames) and
@@ -38,7 +38,15 @@ is missing only the current kernels run.  ``--kernels`` picks the families
     (reset scene, spread tick phases, a fifth of the egos crashed, a fifth
     below 1 m/s) and K4's at lane-keeping-v0 (V=1, L=3, 1 frame), each
     timed beside the v0 instantiation's raw branch on the same scene (its
-    spec without the flag), which both trees run and compare.
+    spec without the flag), which both trees run and compare.  Then the
+    ``kConnected`` instantiations: K4's at roundabout-v1 and K5's at
+    intersection-v2 (spread tick phases), each on the reset scene.
+  wide: the wide K4 / K5 (``general_frames_wide``, one env a block) at
+    exit-v0 with 50 vehicles (V=51, K4) on the reset scene, 8 steps in and
+    the all-env pile-up, and at intersection-v0 with duration 30 (V=42,
+    K5) on the reset scene, 8 steps in and the conflict scene, and their
+    connected twins at exit-v1 and intersection-v2 alike, B=4096.  Timed:
+    each on its reset scene (K5 with spread tick phases).
 
 Each scene runs the instantiation its env path launches: ``linear`` on
 for the Linear scenes, off (the IDM code alone) for the others.  A tree
@@ -85,7 +93,13 @@ sys.path.insert(0, str(REPO))
 FAMILIES = {
     "straight": ("straight_frames", "straight_frames_sorted"),
     "general": ("general_frames",),
+    "wide": ("general_frames_wide",),
 }
+#: the wide family's scenes, each (env id, config, kernel)
+WIDE_SCENES = (("exit-v0", {"vehicles_count": 50}, "K4"),
+               ("intersection-v0", {"duration": 30}, "K5"),
+               ("exit-v1", {"vehicles_count": 50}, "K4 connected"),
+               ("intersection-v2", {"duration": 30}, "K5 connected"))
 CONFIGS = (("highway-v0", None), ("highway-fast-v0", None))
 NPC = "highway_env.vehicle.behavior."
 LINEAR_CONFIGS = (("highway-v0", {"other_vehicles_type": NPC + "LinearVehicle"}),)
@@ -97,6 +111,8 @@ GENERAL_LINEAR = (
 )
 #: the dynamical scenes, each (env id, kernel)
 GENERAL_DYNAMICAL = (("intersection-v1", "K5"), ("lane-keeping-v0", "K4"))
+#: the connected-lane search's scenes, each (env id, kernel)
+GENERAL_CONNECTED = (("roundabout-v1", "K4 connected"), ("intersection-v2", "K5 connected"))
 #: the fields only the kernels of the Linear rows' branch read
 PARAM_FIELDS = ("accel_params", "steer_params")
 B = 4096
@@ -548,6 +564,9 @@ def run_general(args, paths, clock_paths, phases, params, speeds, dynamical) -> 
         "K4 dynamical": functools.partial(gf.GeneralFramesKernel, dynamical=True),
         "K5 dynamical": functools.partial(gf.GeneralFramesKernel, regulated=True,
                                           dynamical=True),
+        "K4 connected": functools.partial(gf.GeneralFramesKernel, connected=True),
+        "K5 connected": functools.partial(gf.GeneralFramesKernel, regulated=True,
+                                          connected=True),
     }
 
     def bound(p, label):
@@ -673,6 +692,26 @@ def run_general(args, paths, clock_paths, phases, params, speeds, dynamical) -> 
         timed[f"{k} {env_id} v0 raw, same scene"] = (
             k, (veh, v0, sa, frames, *extra), list(wrappers), {"raw": True, "linear": False})
 
+    # the kConnected instantiations, on the reset scene
+    for env_id, k in GENERAL_CONNECTED:
+        env = ht.make(env_id)
+        spec, frames = env._general, env.frames_per_step
+        _, states = env.reset(B, env.generator(SEED))
+        acts = torch.randint(0, env.action_type.n, (B,), generator=gen, device=env.device,
+                             dtype=torch.int32)
+        call = (states.vehicles, spec, env._action_to_slots(acts), frames)
+        if env.regulated:  # the tick phases spread over all 7 values
+            call += (states.steps + torch.arange(B, device=env.device, dtype=torch.int32) * 15,)
+        res = {label: w[k](*call, linear=False) for label, w in wrappers.items()}
+        torch.cuda.synchronize()
+        first = res[next(iter(res))]
+        for out in res.values():
+            equal_fields(out, first, reg_names if env.regulated else names, f"{k} {env_id}")
+        print(f"== {k} {env_id}: V={env.num_slots}, {frames} frames, B={B}: "
+              f"{' and '.join(res)} equal on every field; crashed slots "
+              f"{int(first.crashed.sum())}")
+        timed[f"{k} {env_id}"] = (k, call, list(wrappers), {"linear": False})
+
     # 3. device times in turns
     for key, (k, call, labels, kw) in timed.items():
         fns = {label: (lambda w=wrappers[label][k]: w(*call, **kw)) for label in labels}
@@ -686,6 +725,60 @@ def run_general(args, paths, clock_paths, phases, params, speeds, dynamical) -> 
             wrapper, lib = libs[k]
             print_clocks(label, key, lib, phases[label]["general_frames"],
                          lambda w=wrapper: w(*call, **kw))
+
+
+def run_wide(args, paths, params, speeds) -> None:
+    import torch
+
+    import highwayenv_tpu_torch as ht
+    from highwayenv_tpu_torch.ops import general_frames as gf
+
+    kinds = {"K4": functools.partial(gf.GeneralFramesKernel, wide=True),
+             "K5": functools.partial(gf.GeneralFramesKernel, regulated=True, wide=True),
+             "K4 connected": functools.partial(gf.GeneralFramesKernel, connected=True,
+                                               wide=True),
+             "K5 connected": functools.partial(gf.GeneralFramesKernel, regulated=True,
+                                               connected=True, wide=True)}
+    wrappers = {label: {k: load(p["general_frames_wide"], cls, params[label],
+                                gf.params_struct(speeds[label]))[0]
+                        for k, cls in kinds.items()}
+                for label, p in paths.items()}
+    names = [n for n, _, _ in gf.OUT_FIELDS]
+    reg_names = names + [n for n, _, _ in gf.REG_FIELDS]
+    timed = {}
+    for env_id, config, k in WIDE_SCENES:
+        env = ht.make(env_id, config)
+        spec, frames = env._general, env.frames_per_step
+        gen = env.generator(SEED)
+        _, states = env.reset(B, gen)
+        print(f"== {env_id} {config}: wide {k}, V={env.num_slots}, L={env.geo.num_lanes}, "
+              f"{frames} frames, B={B}")
+        if env.regulated:
+            scenes = {n: call for n, call in regulated_scenes(env, states, gen).items()
+                      if n != "warm-up"}
+            scenes["reset"] = (scenes["reset"][0], scenes["reset"][1] + torch.arange(
+                B, device=env.device, dtype=torch.int32) * 15, *scenes["reset"][2:])
+        else:
+            scenes = {}
+            for n, veh in general_scenes(env, states, gen).items():
+                acts = torch.randint(0, env.action_type.n, (B,), generator=gen,
+                                     device=env.device, dtype=torch.int32)
+                scenes[n] = (veh, None, env._action_to_slots(acts), frames)
+        for name, (veh, steps0, sa, n_frames) in scenes.items():
+            call = (veh, spec, sa, n_frames) + ((steps0,) if env.regulated else ())
+            res = {label: w[k](*call, linear=False) for label, w in wrappers.items()}
+            torch.cuda.synchronize()
+            first = res[next(iter(res))]
+            for out in res.values():
+                equal_fields(out, first, reg_names if env.regulated else names,
+                             f"{env_id} {name} wide {k}")
+            print(f"  {name}: {' and '.join(res)} equal on every field; crashed slots "
+                  f"{int(first.crashed.sum())}")
+            if name == "reset":
+                timed[f"wide {k} {env_id} {config}"] = (k, call)
+    for key, (k, call) in timed.items():
+        fns = {label: (lambda w=w[k]: w(*call, linear=False)) for label, w in wrappers.items()}
+        print(f"  {key}: " + in_turns(fns, args.rounds))
 
 
 def main(argv) -> int:
@@ -724,10 +817,11 @@ def main(argv) -> int:
             print(f"{label} {k}: {path.name}")
             for line in ptxas_report(path):
                 print(f"    {line}")
-        if args.clocks:
+        if args.clocks:  # the wide source holds no frame loop of its own
             stamped = OUT_DIR / f"{label}-clocks" / "csrc"
-            phases[label] = instrumented_tree(csrc, stamped, kernels)
-            clock_paths[label] = _build.build(kernels, stamped, OUT_DIR / f"{label}-clocks")
+            clocked = [k for k in kernels if k not in FAMILIES["wide"]]
+            phases[label] = instrumented_tree(csrc, stamped, clocked)
+            clock_paths[label] = _build.build(clocked, stamped, OUT_DIR / f"{label}-clocks")
             for k, path in clock_paths[label].items():
                 print(f"{label} {k} with clocks: " + "; ".join(ptxas_report(path)))
 
@@ -741,6 +835,9 @@ def main(argv) -> int:
         dynamical = {label: has_dynamical(pathlib.Path(csrc)) for label, csrc in trees.items()}
         print(f"trees with the kDynamical instantiations: {dynamical}")
         run_general(args, paths, clock_paths, phases, params, speeds, dynamical)
+    if "wide" in args.kernels:
+        speeds = {label: speed_slots(pathlib.Path(csrc)) for label, csrc in trees.items()}
+        run_wide(args, paths, params, speeds)
     return 0
 
 

@@ -273,14 +273,14 @@ def test_general_gate_and_what_it_refuses():
     assert reg._general is not None and reg._general.period == 7
     assert ht.make("roundabout-v0", device="cpu")._general.period is None
 
-    # more slots than the wide kernels' block holds
+    # more slots than the cluster kernels hold
 
     class Crowded(RoundaboutEnv):
         def _build_scene(self):
             super()._build_scene()
             self.num_slots = general_frames.MAX_SLOTS + 1
 
-    with pytest.raises(NotImplementedError, match="129 slots > 128"):
+    with pytest.raises(NotImplementedError, match="1025 slots > 1024"):
         Crowded(device="cpu")
     # lane kinds other than straight, sine and circular
     with pytest.raises(NotImplementedError, match="not ported"):

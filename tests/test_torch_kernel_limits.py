@@ -136,7 +136,7 @@ def test_probe_configs_make_and_step_as_jax(env_id, config, edge_lanes, n_speeds
     ("highway-v0", {"lanes_count": 17}, "17 straight lanes > 16"),
     ("highway-fast-v0", {"vehicles_count": 1024}, "1025 slots > 1024"),
     ("racetrack-oval-v0", {"no_lanes": 9}, "72 lanes > 64"),
-    ("exit-v0", {"vehicles_count": 200}, "201 slots > 128"),
+    ("exit-v0", {"vehicles_count": 1100}, "1101 slots > 1024"),
     ("highway-v0", {"action": {"type": "ContinuousAction", "dynamical": True}},
      "a dynamical action on a straight road"),
     ("intersection-v2", {"action": {"type": "ContinuousAction", "dynamical": True}},
@@ -149,7 +149,7 @@ def test_over_limit_configs_are_refused_at_make(env_id, config, what):
 
 
 @pytest.mark.parametrize("limits,what", [
-    ((129, 20, 4, 3, 2, 3), "129 slots > 128"),
+    ((1025, 20, 4, 3, 2, 3), "1025 slots > 1024"),
     ((25, 65, 4, 3, 2, 3), "65 lanes > 64"),
     ((25, 64, 65, 3, 2, 3), "65 lanes an edge > 64"),
     ((25, 20, 4, 17, 2, 3), "17 route slots > 16"),
@@ -158,9 +158,9 @@ def test_over_limit_configs_are_refused_at_make(env_id, config, what):
 ], ids=["slots", "lanes", "edge-lanes", "route", "successors", "speeds"])
 def test_each_general_limit_is_named(limits, what):
     assert general_frames.kernel_limits(*limits) == [what]
-    assert general_frames.kernel_limits(128, 64, 64, 16, 4, 16) == []
-    assert general_frames.kernel_limits(128, 64, 64, 16, 4, None) == []
-    assert general_frames.kernel_limits(128, 64, 64, 16, 4, 16, 4) == []
+    assert general_frames.kernel_limits(1024, 64, 64, 16, 4, 16) == []
+    assert general_frames.kernel_limits(1024, 64, 64, 16, 4, None) == []
+    assert general_frames.kernel_limits(1024, 64, 64, 16, 4, 16, 4) == []
 
 
 @pytest.mark.parametrize("limits,what", [

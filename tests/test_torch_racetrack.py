@@ -413,11 +413,12 @@ def test_gate_refusals_name_their_reason():
                        match="a dynamical action under the connected-lane search"):
         ht.make("racetrack-v1", dynamical, device="cpu")
     # an oval of 5 lanes an edge has 40 lanes, within the lane tables' 64;
-    # 128 NPCs and the ego are 129 slots: beyond the wide kernels' block
+    # 1024 NPCs and the ego are 1025 slots: beyond the cluster kernels' 8
+    # blocks of 128
     assert ht.make("racetrack-oval-v0", {"no_lanes": 5}, device="cpu").geo.num_lanes == 40
     assert ht.make("racetrack-oval-v0", {"no_lanes": 4}, device="cpu").geo.num_lanes == 32
-    with pytest.raises(NotImplementedError, match="129 slots > 128"):
-        ht.make("racetrack-v0", {"other_vehicles": 128}, device="cpu")
+    with pytest.raises(NotImplementedError, match="1025 slots > 1024"):
+        ht.make("racetrack-v0", {"other_vehicles": 1024}, device="cpu")
     # the -v1 ids: the same envs with the connected-lane neighbour search
     for env_id in ("racetrack-v1", "racetrack-large-v1", "racetrack-oval-v1"):
         env = ht.make(env_id, device="cpu")

@@ -187,7 +187,7 @@ def test_wide_wrappers_run_the_plain_frames_on_the_cpu():
             assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
     wides = [getattr(general_frames, n) for n in dir(general_frames)
              if n.endswith("_wide_kernel")]
-    assert len(wides) == 6 and all(k.wide and k.max_slots == general_frames.MAX_SLOTS
+    assert len(wides) == 6 and all(k.wide and k.max_slots == general_frames.WIDE_SLOTS == 128
                                    for k in wides)
     assert len({k.entry for k in wides}) == 6
     before = [k.launches for k in wides]

@@ -223,11 +223,34 @@ Phases:
      dynamical"), its plain version over the same rows in chunks; compact
      against full and captured against eager at intersection-v1 with
      policy_frequency 15; and the wide K5 at 128 slots timed ("K5 wide 128
-     slots");
+     slots"); then a dynamical action under the connected-lane search
+     (``check_connected_dynamical``): the connected dynamical K4 / K5 at
+     racetrack-v1 (V=2) and exit-v1 (V=21), intersection-v2 (V=25), exit-v1
+     with 50 vehicles and intersection-v2 with duration 30 (wide), exit-v1
+     with 150 vehicles and intersection-v2 at policy_frequency 15 (cluster),
+     each against its plain version on the scenes of check_cluster (512
+     rows, 256 on the cluster), every field bit-exact; at the slice's path
+     (intersection-v2 and racetrack-v1 with a dynamical ContinuousAction,
+     driven in phase 4 with the other paths: reset and 32 autoreset steps
+     at B=4096 eager and captured with the counts set to 0, the
+     instantiation once a step, the K5 once more a warm-up, nothing else, a
+     profile of the replays) the captured step against the eager one
+     bit-exact and their ms per step in turns; a kernel row each ("K4
+     connected dynamical" .. "K5 cluster connected dynamical"); then the
+     scenes over 1024 slots (``check_large_clusters``): intersection-v0
+     and -v2 (dynamical) at policy_frequency 15 with duration 80 (V=1212,
+     10 blocks a cluster) and exit-v0 with 2047 vehicles (V=2048, 16
+     blocks), the clusters of that size the card holds at once, each
+     against its plain version at 16 rows (twins across every rank
+     boundary), driven 4 steps at B=4096 with the counts set to 0, its
+     launch timed at B=4096 and a kernel row at 128 or 64 rows ("K5
+     cluster 1212 slots", "K4 cluster 2048 slots", "K5 cluster connected
+     dynamical 1212 slots");
   5. times on the card: each kernel's time (CUDA events around launches
-     queued behind a device-side wait), its plain version's device time
-     (torch.profiler), its bound and the PyTorch yardstick's where there
-     is one, with the wall time of a call (CUDA events), K4 at racetrack-v0
+     queued behind a device-side wait), its plain version's time (CUDA
+     events, the host's gaps between its kernels included), its bound and
+     the PyTorch yardstick's device time (torch.profiler) where there is
+     one, with the wall time of a call (CUDA events), K4 at racetrack-v0
      and K3 and K1 at highway-v0 ContinuousAction among them, their
      bounds without the egos' P-cascade, and the Linear rows' branches (K3
      and K1 at highway-v0 LinearVehicle, K4 at roundabout-v0
@@ -415,7 +438,7 @@ OVER_LIMITS = (
      "17 target speeds outside 2 to 16"),
     ("highway-v0", {"lanes_count": 17}, "17 straight lanes > 16"),
     ("exit-v0", {"controlled_vehicles": 2}, "several controlled vehicles"),
-    ("exit-v0", {"vehicles_count": 1100}, "1101 slots > 1024"),
+    ("exit-v0", {"vehicles_count": 2048}, "2049 slots > 2048"),
 )
 #: the connected-lane search (PR 12): K4's kConnected instantiation held to
 #: its plain version at these ids (exit-v1: the 32-thread group; racetrack-v1:
@@ -469,6 +492,22 @@ GENERAL_PATHS = {
                              "general_frames_cluster_kernel<false, false, false, true, DynFields>"),
     "K5 cluster dynamical": ("frames_regulated_dynamical_cluster_kernel",
                              "general_frames_cluster_kernel<true, false, false, true, DynFields>"),
+    "K4 connected dynamical": ("frames_general_connected_dynamical_kernel",
+                               "general_frames_kernel<false, false, true, true, DynFields>"),
+    "K5 connected dynamical": ("frames_regulated_connected_dynamical_kernel",
+                               "general_frames_kernel<true, false, true, true, DynFields>"),
+    "K4 wide connected dynamical": (
+        "frames_general_connected_dynamical_wide_kernel",
+        "general_frames_wide_kernel<false, false, true, true, DynFields>"),
+    "K5 wide connected dynamical": (
+        "frames_regulated_connected_dynamical_wide_kernel",
+        "general_frames_wide_kernel<true, false, true, true, DynFields>"),
+    "K4 cluster connected dynamical": (
+        "frames_general_connected_dynamical_cluster_kernel",
+        "general_frames_cluster_kernel<false, false, true, true, DynFields>"),
+    "K5 cluster connected dynamical": (
+        "frames_regulated_connected_dynamical_cluster_kernel",
+        "general_frames_cluster_kernel<true, false, true, true, DynFields>"),
 }
 #: the ids of the dynamical ContinuousAction: K5's and K4's
 #: kDynamical instantiations
@@ -502,9 +541,8 @@ GRAPH_STEPS = 4  # steps of the captured step against the eager one
 CRASH_EVERY = 8  # every 8th ego crashed at the start: 512 done rows at B=4096
 PROFILE_REPLAYS = 2  # replays of a captured step under the profiler
 TIMED_STEPS = 4  # steps of each timed eager / graph, full / compact run
-#: profiled runs of a frame kernel's plain version, after one warm-up (its
-#: device time is a yardstick; each run is tens to hundreds of ms, and the
-#: profiler's processing of its thousands of small kernels dominates phase 5)
+#: timed runs of a frame kernel's plain version in the kernel table, after
+#: one warm-up (a yardstick; each run is tens to hundreds of ms)
 PLAIN_REPS = 1
 
 
@@ -1724,11 +1762,15 @@ def drive_general_paths(gf, envs, kernels, launches, rollouts, others=()) -> Non
             if not graph:
                 launches[f"{path} {env_id}"] = step_n
                 continue
-            prof = profile_replays(env, st, gen, list(gf_names.values()))
+            prof = profile_replays(env, st, gen, list(gf_names.values()), kernels)
             ours = {n: prof["ours"].get(gf_names[n], 0.0) for n in gf_names}
+            counted = {n: c for n, c in prof["counted"].items() if c}
             print(f"  profile of {PROFILE_REPLAYS} replays: {prof['kernels']:.1f} device "
                   f"kernels and {prof['busy_ms']:.4f} ms device busy per replay; per replay "
-                  f"{ours}")
+                  f"{ours}; counted by the wrappers over the capture {counted}")
+            if counted != {path: per_step}:
+                raise AssertionError(f"{env_id}: a capture launched {counted}, expected "
+                                     f"{per_step} of {path} alone")
             if prof["kernels"] > 0 and (ours[path] != per_step or any(
                     v for n, v in ours.items() if n != path)):
                 raise AssertionError(f"{env_id}: a replay launched {ours}, expected "
@@ -1934,16 +1976,22 @@ def check_graph(env, states, label: str, variants=None) -> None:
               f"{capture_s:.3f} s; done rows {dones}")
 
 
-def profile_replays(env, states, gen, kernel_names, reset_slots=None) -> dict:
-    """Device kernels per replay of a CapturedStep, from torch.profiler over
-    PROFILE_REPLAYS replays: {kernel name: launches per replay} for the
-    names containing one of ``kernel_names``, and the device busy time per
-    replay."""
+def profile_replays(env, states, gen, kernel_names, counters: dict) -> dict:
+    """Device kernels per replay of a CapturedStep of the full autoreset,
+    from torch.profiler over PROFILE_REPLAYS replays: {kernel name: launches
+    per replay} for the names containing one of ``kernel_names``, and the
+    device busy time per replay; and, apart from the profiler's events,
+    ``counted``: {name: launches per replay} of the wrappers ``counters``
+    over the CapturedStep's build, whose eager warm-up step and capture make
+    the same launches (a replay runs what was captured)."""
     from torch.profiler import ProfilerActivity, profile
 
     from highwayenv_tpu_torch.parallel.graph import CapturedStep
 
-    step = CapturedStep(env, states, gen, reset_slots=reset_slots)
+    for k in counters.values():
+        k.launches = 0
+    step = CapturedStep(env, states, gen)
+    counted = {name: k.launches / 2 for name, k in counters.items()}
     step(torch.zeros_like(step.actions))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1959,6 +2007,7 @@ def profile_replays(env, states, gen, kernel_names, reset_slots=None) -> dict:
             ours[name] = count / PROFILE_REPLAYS
     return {
         "ours": ours,
+        "counted": counted,
         "kernels": sum(e.count for e in kernels) / PROFILE_REPLAYS,
         "busy_ms": sum(e.self_device_time_total for e in kernels) / PROFILE_REPLAYS / 1e3,
     }
@@ -2412,10 +2461,15 @@ def check_grayscale(ht, kernels, launches, rows, err, card: str, start: float) -
                   f"{n_kernels:.1f} device kernels per step ({card})")
         names = ("straight_frames_kernel", "sort_kernel", "straight_frames_sorted_kernel",
                  "unsort_kernel")
-        prof = profile_replays(env, states, env.generator(SEED + 6), names)
+        prof = profile_replays(env, states, env.generator(SEED + 6), names, kernels)
+        counted = {n: c for n, c in prof["counted"].items() if c}
         print(f"  {label} graph full, profile of {PROFILE_REPLAYS} replays: "
               f"{prof['kernels']:.1f} device kernels and {prof['busy_ms']:.4f} ms device busy "
-              f"per replay; the port's kernels per replay {prof['ours']} ({card})")
+              f"per replay; the port's kernels per replay {prof['ours']}; counted by the "
+              f"wrappers over the capture {counted} ({card})")
+        if counted != {name: 1.0 for name in path}:
+            raise AssertionError(f"{label}: a capture launched {counted}, expected one of "
+                                 f"each of {path}")
         if prof["kernels"] > 0 and any(prof["ours"].get(k, 0.0) != 1.0 for k in names):
             raise AssertionError(f"{label}: a replay launched {prof['ours']}, expected one "
                                  "of each sorted-path kernel")
@@ -3151,12 +3205,16 @@ WIDE_HORIZON = 16  # policy steps of each wide path's zeroed rollout
 
 
 def layout_kernels(gf, layout: str) -> dict:
-    """The six wrappers of one library's layout ("wide" or "cluster"),
-    keyed "K4 wide", "K5 wide connected", ..., as the rows name them."""
-    return {f"{road} {layout}{law}": getattr(gf, f"frames_{kind}{sfx}_{layout}_kernel")
+    """The eight wrappers of one library's layout ("wide", "cluster", or ""
+    the narrow one), keyed "K4 wide", "K5 wide connected", ..., "K4 wide
+    connected dynamical" ("K4", "K5 connected", ... for the narrow), as the
+    rows name them."""
+    return {" ".join(filter(None, (road, layout))) + law:
+            getattr(gf, f"frames_{kind}{sfx}{'_' * bool(layout)}{layout}_kernel")
             for road, kind in (("K4", "general"), ("K5", "regulated"))
             for law, sfx in (("", ""), (" connected", "_connected"),
-                             (" dynamical", "_dynamical"))}
+                             (" dynamical", "_dynamical"),
+                             (" connected dynamical", "_connected_dynamical"))}
 
 
 def wide_scenes(env, states, gen) -> dict:
@@ -3181,9 +3239,11 @@ def wide_scenes(env, states, gen) -> dict:
     return out
 
 
-def frame_call(gf, env, veh, steps0, sa, frames, raw):
+def frame_call(gf, env, veh, steps0, sa, frames, raw, chunk=None):
     """(kernel call, plain call) of one frame launch of ``env``: the
-    instantiation ``frames_kernel_for`` picks for its slots."""
+    instantiation ``frames_kernel_for`` picks for its slots; with ``chunk``
+    the plain frames run over the rows in chunks of that many rows (the
+    pair tensors of a large scene), their states concatenated."""
     spec = env._general
     kernel = gf.frames_kernel_for(spec, env.regulated, veh.kind.shape[1])
     args = (veh, spec, sa, frames) + ((steps0,) if env.regulated else ())
@@ -3192,7 +3252,9 @@ def frame_call(gf, env, veh, steps0, sa, frames, raw):
         return kernel(*args, raw=raw, linear=env.linear_rows)
 
     def plain():
-        return gf.frames_general_plain(*args, raw=raw)
+        if chunk is None:
+            return gf.frames_general_plain(*args, raw=raw)
+        return chunked(lambda *a: gf.frames_general_plain(*a, raw=raw), args, chunk)
 
     return kernel, run, plain
 
@@ -3305,19 +3367,24 @@ def rolled(veh, sa, shift: int):
     return veh, None if sa is None else torch.roll(sa, shift, dims=1)
 
 
-def tied(veh, n: int = 23):
+def tied(veh, n: int = 23, every_rank: bool = False):
     """``veh`` with slots 1 .. n copied whole into slots 128 .. 127 + n: each
     copied vehicle meets its twin at the same s on the same lane across the
     cluster's first rank boundary (the front neighbour takes the later slot
     of a tie, the rear the earlier), and the twins collide (crash flags and
-    impacts set across the boundary)."""
+    impacts set across the boundary); with ``every_rank`` into the first n
+    slots of every rank past the first, the copies meeting across every
+    boundary."""
     from highwayenv_tpu_torch.envs.base import map_fields
 
-    n = min(n, veh.kind.shape[1] - 128)
+    V = veh.kind.shape[1]
+    starts = range(128, V, 128) if every_rank else (128,)
 
     def copy(t):
         t = t.clone()
-        t[:, 128:128 + n] = t[:, 1:1 + n]
+        for lo in starts:
+            m = min(n, V - lo)
+            t[:, lo:lo + m] = t[:, 1:1 + m]
         return t
 
     return map_fields(copy, veh)
@@ -3384,35 +3451,9 @@ def check_cluster(ht, gf, kernels, rows, err, launches, card: str, start: float)
     envs = {}
     for key, env_id, config, n_check in CLUSTER_ROWS + CLUSTER_CHECKED:
         env = ht.make(env_id, config)
-        gen = env.generator(SEED)
-        _, states = env.reset(n_check, gen)
-        V = env.num_slots
-        kernel = gf.frames_kernel_for(env._general, env.regulated, V)
-        if not kernel.cluster:
-            raise AssertionError(f"{env_id} {config}: V={V} routes to {kernel.source}")
-        print(f"== 4. cluster scenes: {key}, {env_id} {config}: V={V}, L={env.geo.num_lanes}, "
-              f"R={states.vehicles.route_base.shape[-1]}, {-(-V // 128)} blocks an env, "
-              f"{kernel.source}.{kernel.entry}, B={n_check} [at {time.time() - start:.0f} s]")
-        calls = wide_scenes(env, states, gen)
-        for name in ("8 steps in", "conflict") if env.regulated else ():
-            veh, steps0, sa, frames, raw = calls[name]
-            shift = 100 if V < 256 else V - 32
-            veh, sa = rolled(veh, sa, shift)
-            calls[f"{name}, rolled {shift}"] = (veh, steps0, sa, frames, raw)
-        veh, steps0, sa, frames, raw = calls["reset"]
-        calls["tied"] = (tied(veh), steps0, sa, frames, raw)
-        err[key] = 0.0
-        for name, call in calls.items():
-            k, run, plain = frame_call(gf, env, *call)
-            out_k = run()
-            out_p = plain()
-            torch.cuda.synchronize()
-            e = compare_general(out_k, out_p, f"{env_id} {name} ({k.source}.{k.entry}, "
-                                f"V={call[0].kind.shape[1]})")
-            if k is kernel:
-                err[key] = max(err[key], e)
-            if name in ("pile-up", "tied") and not bool(out_k.crashed.any()):
-                raise AssertionError(f"{env_id}: the {name} scene crashed nothing")
+        if not gf.frames_kernel_for(env._general, env.regulated, env.num_slots).cluster:
+            raise AssertionError(f"{env_id} {config}: V={env.num_slots} is not a cluster scene")
+        hold_scenes(gf, env, key, env_id, config, n_check, err, start)
         envs[key] = env
     for key, env_id, config, _ in CLUSTER_ROWS:
         env = envs[key]
@@ -3428,6 +3469,47 @@ def check_cluster(ht, gf, kernels, rows, err, launches, card: str, start: float)
     env = ht.make(env_id, config)
     launches[key] = drive_path(gf, env, every, key, env_id, config, CLUSTER_HORIZON)
     frame_row(gf, env, key, env_id, config, rows, err, card, start)
+
+
+def hold_scenes(gf, env, key: str, env_id: str, config, n_check: int, err,
+                start: float) -> None:
+    """``env``'s instantiation (``frames_kernel_for``) against its plain
+    version at ``n_check`` rows, every field bit-exact, on every scene of
+    ``wide_scenes`` and, over 128 slots, on the regulated 8-steps-in and
+    conflict scenes rolled so that the live vehicles straddle a rank
+    boundary and on ``tied`` (twins across the first rank boundary, across
+    every one over 8 ranks); the plain frames in chunks of ``plain_rows``.
+    Records the largest error in ``err[key]``."""
+    gen = env.generator(SEED)
+    _, states = env.reset(n_check, gen)
+    V = env.num_slots
+    kernel = gf.frames_kernel_for(env._general, env.regulated, V)
+    layout = (f"{-(-V // 128)} blocks an env" if kernel.cluster
+              else f"{group_size(V)} threads an env")
+    print(f"== 4. {key}, {env_id} {config}: V={V}, L={env.geo.num_lanes}, "
+          f"R={states.vehicles.route_base.shape[-1]}, {layout}, {kernel.source}.{kernel.entry}, "
+          f"B={n_check} [at {time.time() - start:.0f} s]")
+    calls = wide_scenes(env, states, gen)
+    if kernel.cluster:
+        for name in ("8 steps in", "conflict") if env.regulated else ():
+            veh, steps0, sa, frames, raw = calls[name]
+            shift = 100 if V < 256 else V - 32
+            veh, sa = rolled(veh, sa, shift)
+            calls[f"{name}, rolled {shift}"] = (veh, steps0, sa, frames, raw)
+        veh, steps0, sa, frames, raw = calls["reset"]
+        calls["tied"] = (tied(veh, every_rank=V > 1024), steps0, sa, frames, raw)
+    err[key] = 0.0
+    for name, call in calls.items():
+        k, run, plain = frame_call(gf, env, *call, chunk=plain_rows(call[0].kind.shape[1]))
+        out_k = run()
+        out_p = plain()
+        torch.cuda.synchronize()
+        e = compare_general(out_k, out_p, f"{env_id} {name} ({k.source}.{k.entry}, "
+                            f"V={call[0].kind.shape[1]})")
+        if k is kernel:
+            err[key] = max(err[key], e)
+        if name in ("pile-up", "tied") and not bool(out_k.crashed.any()):
+            raise AssertionError(f"{env_id}: the {name} scene crashed nothing")
 
 
 def drive_path(gf, env, kernels, key: str, env_id: str, config, steps: int) -> int:
@@ -3467,29 +3549,32 @@ def plain_rows(V: int) -> int:
     return min(B, 2 ** int(math.log2(max(1, PLAIN_PAIR_ELEMENTS // (11 * V * V)))))
 
 
-def frame_row(gf, env, key: str, env_id: str, config, rows, err, card: str,
-              start: float) -> None:
-    """A kernel row for ``env``'s frame launch at B: its time queued from a
-    fresh reset (the tick phases spread, random actions); the plain frames
-    over the same rows, in chunks of ``plain_rows`` rows, frame by frame
-    with the operations counted (the bound), the launch's output held
-    bit-exact to theirs; the plain version's time, CUDA events around one
-    more run of it, the host's gaps between its kernels included (the
-    profiler's device sum, which leaves them out, took about two minutes
-    to gather at the 128-slot scene)."""
-    _, s0 = env.reset(B, env.generator(SEED + 2))
+def row_inputs(gf, env, batch: int):
+    """(vehicles, steps0 or None, slot actions or None, raw) of a timed
+    frame launch at ``batch`` rows: a fresh reset, the tick phases spread,
+    random actions, raw controls stored on the egos."""
+    _, s0 = env.reset(batch, env.generator(SEED + 2))
     steps0 = None
     if env.regulated:
-        steps0 = s0.steps + torch.arange(B, device=env.device, dtype=torch.int32) * 15
-    sa = env._action_to_slots(random_actions(env, B, env.generator(SEED + 2)))
+        steps0 = s0.steps + torch.arange(batch, device=env.device, dtype=torch.int32) * 15
+    sa = env._action_to_slots(random_actions(env, batch, env.generator(SEED + 2)))
     veh, sa, raw = gf.store_raw_controls(env, s0.vehicles, sa)
-    kernel, run, _ = frame_call(gf, env, veh, steps0, sa, env.frames_per_step, raw)
-    args = (veh, env._general, sa, env.frames_per_step) + ((steps0,) if env.regulated else ())
+    return veh, steps0, sa, raw
+
+
+def frame_row(gf, env, key: str, env_id: str, config, rows, err, card: str,
+              start: float, batch: int = B) -> None:
+    """A kernel row for ``env``'s frame launch at ``batch`` rows (B unless
+    said): its time queued from a fresh reset (the tick phases spread,
+    random actions); the plain frames over the same rows, in chunks of
+    ``plain_rows`` rows, frame by frame with the operations counted (the
+    bound), the launch's output held bit-exact to theirs; the plain
+    version's time, CUDA events around one more run of it, the host's gaps
+    between its kernels included (the profiler's device sum, which leaves
+    them out, took about two minutes to gather at the 128-slot scene)."""
+    veh, steps0, sa, raw = row_inputs(gf, env, batch)
     chunk = plain_rows(env.num_slots)
-
-    def plain():
-        return chunked(lambda *a: gf.frames_general_plain(*a, raw=raw), args, chunk)
-
+    kernel, run, plain = frame_call(gf, env, veh, steps0, sa, env.frames_per_step, raw, chunk)
     out_k = run()
     ops, n_bytes, out_p = chunked_work(gf, env, veh, sa, steps0, chunk)
     torch.cuda.synchronize()
@@ -3501,12 +3586,142 @@ def frame_row(gf, env, key: str, env_id: str, config, rows, err, card: str,
     layout = (f"{-(-V // 128)} blocks an env" if kernel.cluster
               else f"{group_size(V)} threads an env")
     rows[key] = (f"{kernel.entry} ({env_id} {json.dumps(config)}, V={V}, "
-                 f"L={env.geo.num_lanes}, {layout}" + (", raw controls" if raw else "") + ")",
+                 f"L={env.geo.num_lanes}, {layout}" + (", raw controls" if raw else "")
+                 + ("" if batch == B else f", B={batch}") + ")",
                  f"highwayenv_tpu_torch/csrc/{kernel.source}.cu",
                  "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms, bms, by, None)
-    print(f"  {key}: {ms:.4f} ms queued at B={B}; plain {plain_ms:.4f} ms (CUDA events, chunks "
+    print(f"  {key}: {ms:.4f} ms queued at B={batch}; plain {plain_ms:.4f} ms (CUDA events, chunks "
           f"of {chunk} rows); bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} "
           f"ms, {n_bytes} bytes -> {t_bytes:.5f} ms) ({card}) [at {time.time() - start:.0f} s]")
+
+
+#: a dynamical ContinuousAction: the ego on the tire-slip model
+DYNAMICAL = {"action": {"type": "ContinuousAction", "dynamical": True}}
+#: a dynamical action under the connected-lane search: the connected
+#: dynamical instantiations, each (row key, env id, config, rows of the
+#: checks): the narrow K4 (racetrack-v1, V=2, raw controls) and K5
+#: (intersection-v2, V=25, and the warm-up of its resets), the wide K4 / K5
+#: (exit-v1 with 50 vehicles, V=51; intersection-v2 with duration 30, V=42)
+#: and the cluster K4 / K5 (exit-v1 with 150 vehicles, V=151;
+#: intersection-v2 at policy_frequency 15, V=207); each held to its plain
+#: version, driven with the counts set to 0 and timed at B, with a kernel
+#: row of its own
+CONN_DYN_ROWS = (
+    ("K4 connected dynamical", "racetrack-v1", DYNAMICAL, 512),
+    ("K5 connected dynamical", "intersection-v2", DYNAMICAL, 512),
+    ("K4 wide connected dynamical", "exit-v1", {"vehicles_count": 50, **DYNAMICAL}, 512),
+    ("K5 wide connected dynamical", "intersection-v2", {"duration": 30, **DYNAMICAL}, 512),
+    ("K4 cluster connected dynamical", "exit-v1", {"vehicles_count": 150, **DYNAMICAL}, 256),
+    ("K5 cluster connected dynamical", "intersection-v2",
+     {"policy_frequency": 15, **DYNAMICAL}, 256),
+)
+#: held only: the narrow K4 at exit-v1 (V=21, the 32-thread group)
+CONN_DYN_CHECKED = (("K4 connected dynamical exit-v1", "exit-v1", DYNAMICAL, 512),)
+#: the slice's path at full width: the narrow K5 and K4 of the connected
+#: dynamical law, driven HORIZON steps eager and captured (phase 4)
+CONN_DYN_PATHS = ("intersection-v2", "racetrack-v1")
+#: scenes over 1024 slots, clusters of 9 to 16 blocks (the non-portable
+#: cluster size), each (row key, env id, config, rows of the checks, rows of
+#: the kernel row): the regulated K5 at intersection-v0 at policy_frequency
+#: 15 with duration 80 (V=1212, 10 blocks), K4 at exit-v0 with 2047 vehicles
+#: (V=2048, 16 blocks) and the connected dynamical K5 at intersection-v2 at
+#: the same settings (V=1212); each held to its plain version at 16 rows,
+#: driven LARGE_HORIZON steps with the counts set to 0 at B and timed at B; its kernel row at
+#: fewer rows than B: the plain frames over the row's rows give its bound
+#: and plain time, and at B they would take minutes (29 s at V=2048 over
+#: 256 rows, 9 s at V=1212 over 512, on the H100)
+LARGE_ROWS = (
+    ("K5 cluster 1212 slots", "intersection-v0", {"policy_frequency": 15, "duration": 80},
+     16, 128),
+    ("K4 cluster 2048 slots", "exit-v0", {"vehicles_count": 2047}, 16, 64),
+    ("K5 cluster connected dynamical 1212 slots", "intersection-v2",
+     {"policy_frequency": 15, "duration": 80, **DYNAMICAL}, 16, 128),
+)
+LARGE_HORIZON = 4  # policy steps of each large scene's zeroed rollout at B
+
+
+def eager_graph_turns(label: str, env, t0_states, card: str) -> None:
+    """ms per step of ``env``'s full autoreset step from ``t0_states``,
+    eager against captured, TIMED_STEPS steps three times each in turns,
+    with the device busy time and kernels per step."""
+    walls = {"eager full": [], "graph full": []}
+    for r in range(3):
+        for name in (("eager full", "graph full") if r % 2 == 0
+                     else ("graph full", "eager full")):
+            walls[name].append(timed_steps(env, t0_states, env.generator(SEED + 5),
+                                           TIMED_STEPS, None, name == "graph full"))
+    for name, ws in walls.items():
+        busy, n_kernels = step_device_ms(env, t0_states, env.generator(SEED + 5), None,
+                                         name == "graph full")
+        mid = sorted(ws)[1]
+        print(f"  {label} {name}: " + ", ".join(f"{w:.4f}" for w in ws)
+              + f" ms per step ({B * 1e3 / mid:.1f} env-steps/s at the median); device "
+              f"busy {busy:.4f} ms per step, {100 * busy / mid:.1f}% of the median, "
+              f"{n_kernels:.1f} device kernels per step ({card})")
+
+
+def check_connected_dynamical(ht, gf, kernels, rows, err, launches, card: str,
+                              start: float) -> None:
+    """A dynamical action under the connected-lane search: each of
+    CONN_DYN_ROWS and CONN_DYN_CHECKED made on CUDA, its connected dynamical
+    instantiation held to its plain version (``hold_scenes``); at the
+    slice's path (CONN_DYN_PATHS, driven eager and captured in phase 4) the
+    captured step against the eager one bit-exact and their ms per step in
+    turns; the rows whose launches phase 4 did not count driven
+    CLUSTER_HORIZON steps with the counts set to 0 (``drive_path``); a
+    kernel row each (``frame_row``)."""
+    every = {**kernels, **layout_kernels(gf, ""), **layout_kernels(gf, "wide"),
+             **layout_kernels(gf, "cluster")}
+    envs = {}
+    for key, env_id, config, n_check in CONN_DYN_ROWS + CONN_DYN_CHECKED:
+        env = ht.make(env_id, config)
+        spec = env._general
+        if not (spec.connected and spec.dynamical):
+            raise AssertionError(f"{env_id} {config}: not a connected dynamical spec")
+        hold_scenes(gf, env, key, env_id, config, n_check, err, start)
+        envs[key] = env
+    for env_id in CONN_DYN_PATHS:
+        env = envs[f"{'K5' if env_id.startswith('intersection') else 'K4'} connected dynamical"]
+        _, gst = env.reset(B, env.generator(SEED + 3))
+        check_graph(env, gst, f"{env_id} dynamical ", variants=[(None, False)])
+        print(f"  [{env_id} dynamical at {time.time() - start:.0f} s]")
+        _, t0_states = env.reset(B, env.generator(SEED + 4))
+        eager_graph_turns(f"{env_id} dynamical", env, t0_states, card)
+    for key, env_id, config, _ in CONN_DYN_ROWS:
+        env = envs[key]
+        if key not in launches:
+            launches[key] = drive_path(gf, env, every, key, env_id, config, CLUSTER_HORIZON)
+        frame_row(gf, env, key, env_id, config, rows, err, card, start)
+
+
+def check_large_clusters(ht, gf, kernels, rows, err, launches, card: str,
+                         start: float) -> None:
+    """The scenes over 1024 slots (LARGE_ROWS), on clusters of 9 to 16
+    blocks: each made on CUDA (a cluster the card cannot hold is the
+    launch's own error), its cluster instantiation held to its plain
+    version at 16 rows (``hold_scenes``:
+    every scene, the rolled ones, twins across every rank boundary), driven
+    LARGE_HORIZON steps at B with the counts set to 0 (``drive_path``),
+    its launch timed queued at B from a fresh reset, and a kernel row at the
+    row's own rows (``frame_row``)."""
+    every = {**kernels, **layout_kernels(gf, ""), **layout_kernels(gf, "wide"),
+             **layout_kernels(gf, "cluster")}
+    for key, env_id, config, n_check, n_row in LARGE_ROWS:
+        env = ht.make(env_id, config)
+        spec, V = env._general, env.num_slots
+        kernel = gf.frames_kernel_for(spec, env.regulated, V)
+        ranks = -(-V // gf.WIDE_SLOTS)
+        if not kernel.cluster or ranks <= 8:
+            raise AssertionError(f"{env_id} {config}: V={V}, {ranks} blocks, {kernel.entry}")
+        hold_scenes(gf, env, key, env_id, config, n_check, err, start)
+        launches[key] = drive_path(gf, env, every, key, env_id, config, LARGE_HORIZON)
+        torch.cuda.reset_peak_memory_stats()
+        veh, steps0, sa, raw = row_inputs(gf, env, B)
+        _, run, _ = frame_call(gf, env, veh, steps0, sa, env.frames_per_step, raw)
+        ms_b = queued_ms(run, 3)
+        print(f"  {key}: {ms_b:.4f} ms queued at B={B}; peak device memory of the reset batch "
+              f"and the launches {torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})")
+        frame_row(gf, env, key, env_id, config, rows, err, card, start, batch=n_row)
 
 
 def main() -> int:
@@ -3851,7 +4066,7 @@ def main() -> int:
     print("== 3. to_finite_mdp on CUDA against the CPU")
     check_finite_mdp(ht)
 
-    # the compact autoreset and the captured step
+    # the compact autoreset and the captured step, every variant at each id
     for label, e, st in (("highway-v0 ", env, states), ("roundabout-v0 ", genv, gstates),
                          ("intersection-v0 ", ienv, istates),
                          ("racetrack-v0 ", renv, rstates),
@@ -4149,6 +4364,15 @@ def main() -> int:
                         conn_kernels, launches, DYNAMICAL_IDS)
     launches["K5 dynamical"] = launches["K5 dynamical intersection-v1"]
     launches["K4 dynamical"] = launches["K4 dynamical lane-keeping-v0"]
+    # a dynamical action under the connected-lane search: the
+    # slice's path at full width, intersection-v2 through the narrow
+    # connected dynamical K5 (its step and its resets' warm-up) and
+    # racetrack-v1 through the K4 of the same law
+    drive_general_paths(gf, {env_id: ht.make(env_id, DYNAMICAL) for env_id in CONN_DYN_PATHS},
+                        {**conn_kernels, **layout_kernels(gf, "")}, launches, CONN_DYN_PATHS)
+    for env_id in CONN_DYN_PATHS:
+        key = f"{'K5' if env_id.startswith('intersection') else 'K4'} connected dynamical"
+        launches[key] = launches.pop(f"{key} {env_id}")
     # several ego rows: highway-v0 with two egos through the sorted
     # step, and the four K4 configs, every 8th first ego crashed at the start
     drive_several_straight(e2env, all_kernels, launches)
@@ -4192,11 +4416,16 @@ def main() -> int:
         for k in ("pos", "speed", "heading"):
             if not bool(torch.isfinite(getattr(gst.vehicles, k)).all()):
                 raise AssertionError(f"{label} graph path: non-finite {k}")
-        prof = profile_replays(e, gst, gen, names)
+        every = {"K1": k1, "K2a": k2a, "K3": k3, "K2b": k2b, "K4": k4, "K5": k5}
+        prof = profile_replays(e, gst, gen, names, every)
+        counted = {n: c for n, c in prof["counted"].items() if c}
         print(f"  profile of {PROFILE_REPLAYS} replays: {prof['kernels']:.1f} device kernels "
               f"and {prof['busy_ms']:.4f} ms device busy per replay; the port's kernels per "
-              f"replay {prof['ours']}")
+              f"replay {prof['ours']}; counted by the wrappers over the capture {counted}")
         want = {"intersection-v0": 2.0}.get(label, 1.0)  # K5: step and reset warm-up
+        if counted != {name: want for name in path}:
+            raise AssertionError(f"{label}: a capture launched {counted}, expected {want} of "
+                                 f"each of {list(path)}")
         if prof["kernels"] > 0 and any(prof["ours"].get(n, 0.0) != want for n in names):
             raise AssertionError(f"{label}: a replay launched {prof['ours']}, expected "
                                  f"{want} of each of {names}")
@@ -4217,16 +4446,21 @@ def main() -> int:
     rows = {}
 
     def timed(label, kernel_fn, plain_fn, library_fn, reps, plain_reps):
-        """(kernel ms, plain device ms, library device ms or None): the
-        kernel's time between CUDA events around launches queued behind a
-        device-side wait, printed with the wall time of one call."""
+        """(kernel ms, plain ms, library device ms or None): the kernel's
+        time between CUDA events around launches queued behind a
+        device-side wait, printed with the wall time of one call; the
+        plain version's between CUDA events around ``plain_reps`` runs
+        after one warm-up, the host's gaps between its kernels included
+        (as ``frame_row`` takes it: the profiler's device sum took 10 to
+        30 s to gather over a K5 plain run's 40,000 to 120,000 kernels)."""
         ms = queued_ms(kernel_fn, reps)
         wall = cuda_ms(kernel_fn, reps)
-        plain_ms = device_ms(plain_fn, plain_reps)
+        plain_ms = cuda_ms(plain_fn, plain_reps)
         lib_ms = None if library_fn is None else device_ms(library_fn, plain_reps)
         print(f"  {label}: {ms:.4f} ms between CUDA events behind a device-side wait "
               f"({wall:.4f} ms a call between CUDA events); plain {plain_ms:.4f} ms "
-              "on the device" + ("" if lib_ms is None else f"; yardstick {lib_ms:.4f} ms")
+              "between CUDA events" + ("" if lib_ms is None else
+                                       f"; yardstick {lib_ms:.4f} ms on the device")
               + f" [at {time.time() - start:.0f} s]")
         return ms, plain_ms, lib_ms
 
@@ -4430,9 +4664,10 @@ def main() -> int:
         sveh, sspec, sframes = s0.vehicles, e._general, e.frames_per_step
         ssa = e._action_to_slots(random_actions(e, B, gen))
         what = f"{env_id}, V={e.num_slots}, group {group_size(e.num_slots)}"
-        # the timed launch's own output against the plain version's
+        # the timed launch's own output against the plain frames that count
+        # its operations
         out_k = k4(sveh, sspec, ssa, sframes, linear=False)
-        out_p = gf.frames_general_plain(sveh, sspec, ssa, sframes)
+        ops, n_bytes, out_p = k4_work(gf, e, sveh, ssa, with_state=True)
         torch.cuda.synchronize()
         err[f"K4 {env_id}"] = max(err[f"K4 {env_id}"],
                                   compare_general(out_k, out_p, f"{env_id} timed inputs"))
@@ -4441,7 +4676,6 @@ def main() -> int:
             lambda: k4(sveh, sspec, ssa, sframes, linear=False),
             lambda: gf.frames_general_plain(sveh, sspec, ssa, sframes), None, 20, PLAIN_REPS,
         )
-        ops, n_bytes = k4_work(gf, e, sveh, ssa)
         bms, by, t_ops, t_bytes = bound(ops, n_bytes)
         rows[f"K4 {env_id}"] = (f"general_frames ({what})",
                                 "highwayenv_tpu_torch/csrc/general_frames.cu",
@@ -4459,9 +4693,10 @@ def main() -> int:
         sveh, _, _ = gf.store_raw_controls(
             e, s0.vehicles, e._action_to_slots(random_actions(e, B, gen)))
         what = f"{env_id}, raw controls, V={e.num_slots}, group {group_size(e.num_slots)}"
-        # the timed launch's own output against the plain version's
+        # the timed launch's own output against the plain frames that count
+        # its operations
         out_k = k4(sveh, sspec, None, sframes, raw=True, linear=False)
-        out_p = gf.frames_general_plain(sveh, sspec, None, sframes, raw=True)
+        ops, n_bytes, out_p = k4_work(gf, e, sveh, None, with_state=True)
         torch.cuda.synchronize()
         err[f"K4 {env_id}"] = max(err[f"K4 {env_id}"],
                                   compare_general(out_k, out_p, f"{env_id} timed inputs"))
@@ -4470,7 +4705,6 @@ def main() -> int:
             lambda: k4(sveh, sspec, None, sframes, raw=True, linear=False),
             lambda: gf.frames_general_plain(sveh, sspec, None, sframes, raw=True), None, 20, PLAIN_REPS,
         )
-        ops, n_bytes = k4_work(gf, e, sveh, None)
         bms, by, t_ops, t_bytes = bound(ops, n_bytes)
         rows[f"K4 {env_id}"] = (f"general_frames ({what})",
                                 "highwayenv_tpu_torch/csrc/general_frames.cu",
@@ -4534,15 +4768,15 @@ def main() -> int:
             args, v0_args = (sveh, spec, ssa, frames, steps0), (sveh, v0_spec, ssa, frames, steps0)
             kernel, v0_kernel = k5c, k5
             plain = lambda: gf.frames_general_plain(sveh, spec, ssa, frames, steps0)  # noqa: E731
-            ops, n_bytes = k5_work(gf, e, sveh, ssa, steps0, frames)
+            ops, n_bytes, out_p = k5_work(gf, e, sveh, ssa, steps0, frames, with_state=True)
         else:
             args, v0_args = (sveh, spec, ssa, frames), (sveh, v0_spec, ssa, frames)
             kernel, v0_kernel = k4c, k4
             plain = lambda: gf.frames_general_plain(sveh, spec, ssa, frames)  # noqa: E731
-            ops, n_bytes = k4_work(gf, e, sveh, ssa)
+            ops, n_bytes, out_p = k4_work(gf, e, sveh, ssa, with_state=True)
         out_k = kernel(*args, linear=False)
         torch.cuda.synchronize()
-        err[key] = max(err[key], compare_general(out_k, plain(), f"{env_id} timed inputs"))
+        err[key] = max(err[key], compare_general(out_k, out_p, f"{env_id} timed inputs"))
         what = f"{env_id}, V={e.num_slots}, group {group_size(e.num_slots)}"
         ms, plain_ms, _ = timed(f"{key} ({what}), per policy step",
                                 lambda: kernel(*args, linear=False), plain, None, 20, PLAIN_REPS)
@@ -4578,16 +4812,18 @@ def main() -> int:
             return gf.frames_general_plain(*args, raw=True)
 
         out_k = kernel(*args, raw=True, linear=False)
+        # the plain frames that count its operations
+        ops, n_bytes, out_p = (
+            k5_work(gf, e, sveh, None, extra[0], dframes, with_state=True) if e.regulated
+            else k4_work(gf, e, sveh, None, with_state=True))
         torch.cuda.synchronize()
-        err[key] = max(err[key], compare_general(out_k, plain(), f"{env_id} timed inputs"))
+        err[key] = max(err[key], compare_general(out_k, out_p, f"{env_id} timed inputs"))
         what = f"{env_id}, V={e.num_slots}, group {group_size(e.num_slots)}, raw controls"
         ms, plain_ms, _ = timed(
             f"{key} ({what}), per policy step",
             lambda kernel=kernel, args=args: kernel(*args, raw=True, linear=False), plain,
             None, 20, PLAIN_REPS)
         v0_ms = queued_ms(lambda: v0_kernel(*v0_args, raw=True, linear=False), 20)
-        ops, n_bytes = (k5_work(gf, e, sveh, None, extra[0], dframes) if e.regulated
-                        else k4_work(gf, e, sveh, None))
         bms, by, t_ops, t_bytes = bound(ops, n_bytes)
         rows[key] = (f"{'general_frames_regulated' if e.regulated else 'general_frames'}"
                      f"_dynamical ({env_id})", "highwayenv_tpu_torch/csrc/general_frames.cu",
@@ -4716,20 +4952,7 @@ def main() -> int:
             k: conn_envs[k] for k in CONNECTED_ROLLOUTS}, **dyn_envs}.items():
         print(f"  [{env_id} at {time.time() - start:.0f} s]")
         _, t0_states = e.reset(B, e.generator(SEED + 4))
-        walls = {name: [] for name in ("eager full", "graph full")}
-        for r in range(3):
-            for name in (("eager full", "graph full") if r % 2 == 0
-                         else ("graph full", "eager full")):
-                walls[name].append(timed_steps(e, t0_states, e.generator(SEED + 5),
-                                               TIMED_STEPS, None, name == "graph full"))
-        for name, ws in walls.items():
-            busy, n_kernels = step_device_ms(e, t0_states, e.generator(SEED + 5), None,
-                                             name == "graph full")
-            mid = sorted(ws)[1]
-            print(f"  {env_id} {name}: " + ", ".join(f"{w:.4f}" for w in ws)
-                  + f" ms per step ({B * 1e3 / mid:.1f} env-steps/s at the median); device "
-                  f"busy {busy:.4f} ms per step, {100 * busy / mid:.1f}% of the median, "
-                  f"{n_kernels:.1f} device kernels per step ({card})")
+        eager_graph_turns(env_id, e, t0_states, card)
         # where an eager step's device time goes: kernels by name, the
         # observation and a reset's placement at B rows
         profile_rollout(e, t0_states, e.generator(SEED + 5))
@@ -4750,20 +4973,7 @@ def main() -> int:
         print(f"  [{label} at {time.time() - start:.0f} s]")
         _, t0_states = e.reset(B, e.generator(SEED + 4))
         check_graph(e, t0_states, label + " ", variants=((None, False),))
-        walls = {name: [] for name in ("eager full", "graph full")}
-        for r in range(3):
-            for name in (("eager full", "graph full") if r % 2 == 0
-                         else ("graph full", "eager full")):
-                walls[name].append(timed_steps(e, t0_states, e.generator(SEED + 5),
-                                               TIMED_STEPS, None, name == "graph full"))
-        for name, ws in walls.items():
-            busy, n_kernels = step_device_ms(e, t0_states, e.generator(SEED + 5), None,
-                                             name == "graph full")
-            mid = sorted(ws)[1]
-            print(f"  {label} {name}: " + ", ".join(f"{w:.4f}" for w in ws)
-                  + f" ms per step ({B * 1e3 / mid:.1f} env-steps/s at the median); device "
-                  f"busy {busy:.4f} ms per step, {100 * busy / mid:.1f}% of the median, "
-                  f"{n_kernels:.1f} device kernels per step ({card})")
+        eager_graph_turns(label, e, t0_states, card)
         obs_ms = device_ms(lambda e=e, s=t0_states: e._observe(s, e.generator(SEED)), 5)
         print(f"  {label} observation ({type(e.observation_type).__name__}): {obs_ms:.4f} ms "
               "on the device")
@@ -4797,6 +5007,16 @@ def main() -> int:
           f"[at {time.time() - start:.0f} s]")
     check_cluster(ht, gf, conn_kernels, rows, err, launches, card, start)
     print(f"  (cluster block {time.time() - t_cluster:.1f} s)")
+    t_cd = time.time()
+    print(f"== 4. a dynamical action under the connected-lane search on CUDA: the connected "
+          f"dynamical K4 / K5, narrow, wide and cluster [at {time.time() - start:.0f} s]")
+    check_connected_dynamical(ht, gf, conn_kernels, rows, err, launches, card, start)
+    print(f"  (connected dynamical block {time.time() - t_cd:.1f} s)")
+    t_large = time.time()
+    print(f"== 4. scenes over 1024 slots on CUDA: clusters of 9 to 16 blocks "
+          f"[at {time.time() - start:.0f} s]")
+    check_large_clusters(ht, gf, conn_kernels, rows, err, launches, card, start)
+    print(f"  (large cluster block {time.time() - t_large:.1f} s)")
 
     # the single-env seeded path: every id at B=1, each with the counts set
     # to 0 just before it.  It runs last: after it, torch.profiler on the

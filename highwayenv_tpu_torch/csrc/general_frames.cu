@@ -37,16 +37,22 @@
 // no such branch (the JAX package runs those ids on its XLA frames,
 // BaseEnv._frame); the plain version with GeneralSpec.connected is held to
 // that XLA path on the CPU and this branch to the plain version on the card.
-// Each entry but the connected ones has a kDynamical twin
-// (general_frames_dynamical, general_frames_regulated_dynamical) for a
-// dynamical ContinuousAction (intersection-v1, lane-keeping-v0): after the
-// kinematic integration the ego rows take their position, heading and speed
-// from one RK4 step of the BicycleVehicle tire-slip model
-// (vehicle/dynamics.py::integrate_dynamic) and write their lateral speed and
-// yaw rate, which these instantiations alone read and write (DynFields, the
-// kernel's last parameter, which the others do not have).  The TPU kernels
-// have no such branch either (the JAX package runs those ids on its XLA
-// frames, BaseEnv._frame, whose override this follows).
+// Each entry has a kDynamical twin (general_frames_dynamical,
+// general_frames_regulated_dynamical) for a dynamical ContinuousAction
+// (intersection-v1, lane-keeping-v0): after the kinematic integration the
+// ego rows take their position, heading and speed from one RK4 step of the
+// BicycleVehicle tire-slip model (vehicle/dynamics.py::integrate_dynamic)
+// and write their lateral speed and yaw rate, which these instantiations
+// alone read and write (DynFields, the kernel's last parameter, which the
+// others do not have).  The TPU kernels have no such branch either (the JAX
+// package runs those ids on its XLA frames, BaseEnv._frame, whose override
+// this follows).  The two flags are independent (the search reads the
+// frame-start tables, the override writes the ego's integrated row), and
+// the connected entries have their dynamical twins too
+// (general_frames_connected_dynamical,
+// general_frames_regulated_connected_dynamical: a dynamical action at the
+// -v1 / -v2 ids, e.g. racetrack-v1 with a bicycle-model ego), which take
+// the candidate tables and then the DynFields.
 // Each operation rounds as the op-by-op torch version does on the same card:
 // the library is built with -fmad=false and the precise libm functions, and
 // every expression keeps the torch version's order of operations.
@@ -131,12 +137,12 @@
 //
 // The cluster branch (general_frames_cluster_kernel, built from
 // general_frames_cluster.cu into a third library with the same entry
-// names): scenes of 129 to GEN_CLUSTER_SLOTS = 1024 slots (intersection at
-// the simulator's decision rate, exit-v0 and racetrack-v0 with 150
+// names): scenes of 129 to GEN_CLUSTER_SLOTS = 2048 slots (intersection at
+// the simulator's decision rate, exit-v0 and racetrack-v0 with 150 to 2047
 // vehicles), which one block cannot hold: the pair table packs a slot in a
 // byte, and one env's arrays grow as L V (intersection at V = 300 would
 // take ~310 KB).  The same frame body, with one env a thread-block cluster
-// of N = ceil(V / 128) blocks (2 to 8) of 128 threads, slot j owned by
+// of N = ceil(V / 128) blocks (2 to 16) of 128 threads, slot j owned by
 // thread j % 128 of rank j / 128.  Each rank keeps the lane tables and, for
 // its own slots only, the projection-table columns, the frame-start and
 // post-integration rows, the route arrays and K5's predictions, at the same
@@ -157,10 +163,14 @@
 // of every block reaches, and a last one keeps every block alive until no
 // rank reads its shared memory.  Shared memory a block, the same at any V:
 // intersection-v0 (L=20, R=3) 45.1 KB, the most a scene in the limits can
-// take (L=64, M=64, R=16, regulated and connected) 115.8 KB, so a cluster
-// of 8 holds V = 1024, the portable cluster size's limit.  launch asks
-// cudaOccupancyMaxActiveClusters once per shape and returns an error where
-// no such cluster fits the card.
+// take (L=64, M=64, R=16, regulated and connected) 115.8 KB.  Up to 8
+// blocks (V = 1024) is the portable cluster size; 9 to 16 blocks (V up to
+// 2048) only with cudaFuncAttributeNonPortableClusterSizeAllowed, which
+// launch sets once per kernel and card before it asks
+// cudaOccupancyMaxActiveClusters (once per shape) and returns an error
+// where no such cluster fits the card.  An H100 holds 7 clusters of 16
+// blocks at once even at the largest block (general_cluster_fit,
+// tools/cluster_fit.py), so the gate at make needs no rule for it.
 
 #include <cooperative_groups.h>
 #include <string.h>
@@ -174,9 +184,11 @@ namespace cg = cooperative_groups;
 #define GEN_WIDE_SLOTS 128  // the wide kernels: one env a block
 #define GEN_WIDE_BLOCK 128  // threads a block of the wide kernels, one a slot
 #define GEN_WIDE_WORDS (GEN_WIDE_SLOTS / 32)  // words of a wide slot mask
-// the cluster kernels: one env a cluster of up to 8 blocks (the portable
-// cluster size) of GEN_WIDE_SLOTS slots each
-#define GEN_CLUSTER_BLOCKS 8
+// the cluster kernels: one env a cluster of up to 16 blocks of
+// GEN_WIDE_SLOTS slots each (over GEN_PORTABLE_CLUSTER blocks, the
+// portable cluster size, through the non-portable size attribute)
+#define GEN_CLUSTER_BLOCKS 16
+#define GEN_PORTABLE_CLUSTER 8
 #define GEN_CLUSTER_SLOTS (GEN_CLUSTER_BLOCKS * GEN_WIDE_SLOTS)
 #define GEN_MAX_SUCC 4
 #define GEN_MAX_PRED 4
@@ -1048,8 +1060,8 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
                                             const GenParams& p, int B, int G,
                                             const int* conn_lanes, const float* conn_offsets,
                                             const Dyn... dyn) {
-  static_assert(sizeof...(Dyn) == (kDynamical ? 1 : 0) && !(kDynamical && kConnected),
-                "a kDynamical instantiation takes its DynFields, and is not connected");
+  static_assert(sizeof...(Dyn) == (kDynamical ? 1 : 0),
+                "a kDynamical instantiation takes its DynFields, and only it");
   static_assert(kWide || !kCluster, "a cluster's blocks are the wide kernels' blocks");
   constexpr int W = kWide ? GEN_WIDE_WORDS : 1;  // words of a slot mask
   constexpr int kBlock = kWide ? GEN_WIDE_BLOCK : GEN_BLOCK;
@@ -1634,6 +1646,39 @@ __global__ void __launch_bounds__(GEN_WIDE_BLOCK)
 // 1.50x slower at roundabout-v0, merge-v0 and the V = 16 warm-up; PERF.md).
 static int threads_per_env(int V) { return V <= 16 ? 16 : 32; }
 
+// The dynamic shared memory a launch asks of each block: the block's words
+// and those of each env it holds (a cluster's blocks hold no pair table and
+// the arrays of 128 slots each, the same at any V).
+template <bool kRegulated, bool kConnected, bool kWide, bool kCluster>
+static size_t launch_smem(int L, int V, int R) {
+  const int block = kWide ? GEN_WIDE_BLOCK : GEN_BLOCK;
+  const int G = kWide ? GEN_WIDE_BLOCK : threads_per_env(V);
+  return sizeof(float) *
+         (static_cast<size_t>(block_words(L, kCluster ? 0 : V, kConnected)) +
+          static_cast<size_t>(block / G) *
+              EnvSmem::words(L, kCluster ? GEN_WIDE_SLOTS : V, R, kRegulated,
+                             kWide ? GEN_WIDE_WORDS : 1));
+}
+
+// The launch configuration of B clusters of `ranks` blocks of
+// GEN_WIDE_BLOCK threads, each block asking `smem` bytes; `attr` receives
+// the cluster dimension, which the configuration points to.
+static cudaLaunchConfig_t cluster_config(int ranks, int B, size_t smem, cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(ranks);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((B > 0 ? B : 1) * ranks));
+  cfg.blockDim = dim3(GEN_WIDE_BLOCK);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 // dyn: the kDynamical instantiations' DynFields (one pointer), or nothing;
 // kWide: the wide kernels (up to GEN_WIDE_SLOTS slots), with kCluster the
 // cluster kernels (up to GEN_CLUSTER_SLOTS), else the narrow ones (up to
@@ -1659,13 +1704,7 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
   const int block = kWide ? GEN_WIDE_BLOCK : GEN_BLOCK;
   const int G = kWide ? GEN_WIDE_BLOCK : threads_per_env(p.V);
   const int envs_per_block = block / G;
-  // a cluster's blocks hold no pair table and the arrays of 128 slots each
-  const size_t smem =
-      sizeof(float) *
-      (static_cast<size_t>(block_words(p.L, kCluster ? 0 : p.V, kConnected)) +
-       static_cast<size_t>(envs_per_block) *
-           EnvSmem::words(p.L, kCluster ? GEN_WIDE_SLOTS : p.V, p.R, kRegulated,
-                          kWide ? GEN_WIDE_WORDS : 1));
+  const size_t smem = launch_smem<kRegulated, kConnected, kWide, kCluster>(p.L, p.V, p.R);
   // the Linear rows' instantiation where the caller says they are possible;
   // only this library's kernels (narrow, wide or cluster) are instantiated
   const auto kernel = [&] {
@@ -1704,17 +1743,21 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
     // one env a cluster of ceil(V / 128) blocks, B clusters
     const int ranks = (p.V + GEN_WIDE_SLOTS - 1) / GEN_WIDE_SLOTS;
     cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = static_cast<unsigned>(ranks);
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(static_cast<unsigned>((B > 0 ? B : 1) * ranks));
-    cfg.blockDim = dim3(block);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = static_cast<cudaStream_t>(stream);
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
+    cudaLaunchConfig_t cfg =
+        cluster_config(ranks, B, smem, static_cast<cudaStream_t>(stream), &attr);
+    if (ranks > GEN_PORTABLE_CLUSTER) {
+      // a cluster over the portable size only by the attribute, set once
+      // per kernel and card before the occupancy query and the launch: a
+      // launch under stream capture calls no function attribute
+      static bool nonportable[2][64] = {};
+      bool& set = nonportable[p.linear ? 1 : 0][dev & 63];
+      if (!set) {
+        cudaError_t e =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        set = true;
+      }
+    }
     // whether such a cluster fits the card's SMs at all, asked once per
     // kernel, card and cluster size for the largest size asked so far (no
     // query under stream capture after an eager launch of the same shape);
@@ -1828,3 +1871,76 @@ extern "C" int general_frames_regulated_dynamical(void* const* ptrs, void* const
   return launch<true, false, GEN_LAYOUT>(ptrs, rf, lane_f, lane_i, nullptr, nullptr, params, B,
                                        stream, dyn);
 }
+
+// The connected-lane search's K4 under a dynamical action: as
+// general_frames_connected, plus dyn.
+extern "C" int general_frames_connected_dynamical(void* const* ptrs, const float* lane_f,
+                                                  const int* lane_i, const int* conn_lanes,
+                                                  const float* conn_offsets,
+                                                  const GenParams* params, int B, void* stream,
+                                                  const DynFields* dyn) {
+  return launch<false, true, GEN_LAYOUT>(ptrs, RegFields{}, lane_f, lane_i, conn_lanes,
+                                       conn_offsets, params, B, stream, dyn);
+}
+
+// The connected-lane search's K5 under a dynamical action: as
+// general_frames_regulated_connected, plus dyn.
+extern "C" int general_frames_regulated_connected_dynamical(
+    void* const* ptrs, void* const* reg_ptrs, const float* lane_f, const int* lane_i,
+    const int* conn_lanes, const float* conn_offsets, const GenParams* params, int B,
+    void* stream, const DynFields* dyn) {
+  RegFields rf;
+  memcpy(&rf, reg_ptrs, sizeof(RegFields));
+  return launch<true, true, GEN_LAYOUT>(ptrs, rf, lane_f, lane_i, conn_lanes, conn_offsets, params,
+                                      B, stream, dyn);
+}
+
+#if defined(GEN_CLUSTER_LIBRARY)
+// How many clusters of `ranks` blocks of one cluster instantiation the
+// current card holds at once, each block asking the shared memory a launch
+// asks at L lanes and R route slots (written to *smem): the question launch
+// asks before a cluster launch, with the same attributes set first (the
+// shared-memory size over 48 KB, the non-portable cluster size over
+// GEN_PORTABLE_CLUSTER blocks).
+template <bool kRegulated, bool kConnected, typename... Dyn>
+static int cluster_fit(int linear, int ranks, int L, int R, int* smem, int* clusters) {
+  constexpr bool kDynamical = sizeof...(Dyn) > 0;
+  const auto kernel =
+      linear ? general_frames_cluster_kernel<kRegulated, true, kConnected, kDynamical, Dyn...>
+             : general_frames_cluster_kernel<kRegulated, false, kConnected, kDynamical, Dyn...>;
+  if (ranks < 1 || ranks > GEN_CLUSTER_BLOCKS || L < 1 || L > GEN_MAX_LANES || R < 1 ||
+      R > GEN_MAX_ROUTE || !smem || !clusters)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes =
+      launch_smem<kRegulated, kConnected, true, true>(L, ranks * GEN_WIDE_SLOTS, R);
+  *smem = static_cast<int>(bytes);
+  // the shared-memory size only ever raised, so that no launch finds it
+  // below what it set before
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess && bytes > 48 * 1024 &&
+      static_cast<int>(bytes) > fa.maxDynamicSharedSizeBytes)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (e == cudaSuccess && ranks > GEN_PORTABLE_CLUSTER)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(ranks, 1, bytes, 0, &attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
+}
+
+// cluster_fit of the instantiation the flags name (regulated, connected,
+// dynamical, linear as 0 / 1); returns the CUDA error code.
+extern "C" int general_cluster_fit(int regulated, int connected, int dynamical, int linear,
+                                   int ranks, int L, int R, int* smem, int* clusters) {
+  using Fit = int (*)(int, int, int, int, int*, int*);
+  static const Fit fits[8] = {
+      cluster_fit<false, false>, cluster_fit<false, false, DynFields>,
+      cluster_fit<false, true>,  cluster_fit<false, true, DynFields>,
+      cluster_fit<true, false>,  cluster_fit<true, false, DynFields>,
+      cluster_fit<true, true>,   cluster_fit<true, true, DynFields>};
+  return fits[4 * (regulated != 0) + 2 * (connected != 0) + (dynamical != 0)](
+      linear, ranks, L, R, smem, clusters);
+}
+#endif

@@ -41,15 +41,17 @@ one launch of ``csrc/general_frames.cu``: ``frames_general_kernel`` (K4)
 without the regulated block, ``frames_regulated_kernel`` (K5) with it, and
 on a connected spec their ``kConnected`` instantiations
 ``frames_general_connected_kernel`` and
-``frames_regulated_connected_kernel``, and on a dynamical spec their
+``frames_regulated_connected_kernel``, on a dynamical spec their
 ``kDynamical`` instantiations ``frames_general_dynamical_kernel`` and
-``frames_regulated_dynamical_kernel``, each with its own launch count; a
-scene of more than ``NARROW_SLOTS`` slots launches the wide twin of its
-instantiation (``csrc/general_frames_wide.cu``, one env a block of 128
-threads, up to ``WIDE_SLOTS``: ``frames_general_wide_kernel`` ...), and one
-of more than ``WIDE_SLOTS`` its cluster twin
+``frames_regulated_dynamical_kernel``, and on a spec with both flags the
+instantiations with both, ``frames_general_connected_dynamical_kernel`` and
+``frames_regulated_connected_dynamical_kernel``, each with its own launch
+count; a scene of more than ``NARROW_SLOTS`` slots launches the wide twin
+of its instantiation (``csrc/general_frames_wide.cu``, one env a block of
+128 threads, up to ``WIDE_SLOTS``: ``frames_general_wide_kernel`` ...), and
+one of more than ``WIDE_SLOTS`` its cluster twin
 (``csrc/general_frames_cluster.cu``, one env a thread-block cluster of up
-to 8 such blocks, up to ``MAX_SLOTS``: ``frames_general_cluster_kernel``
+to 16 such blocks, up to ``MAX_SLOTS``: ``frames_general_cluster_kernel``
 ...), picked by ``frames_kernel_for``; on CPU tensors all run
 ``frames_general_plain``.
 ``try_general`` is the scope gate: the envs outside it raise when made,
@@ -80,13 +82,16 @@ from highwayenv_tpu_torch.vehicle.behavior import IDMParams
 from highwayenv_tpu_torch.vehicle.state import KIND_EGO, KIND_LINEAR, VehicleState
 
 #: the gate's limits: the cluster kernels hold an env's slots in a cluster
-#: of up to 8 blocks of 128 threads (the portable cluster size; a block's
-#: shared memory is the same at any V, 115.8 KB at the largest scene within
-#: the other limits, 64 lanes, 16 route slots, regulated and connected), the
-#: wide ones in one block (at most ``WIDE_SLOTS``), the narrow ones in a warp
-#: (at most ``NARROW_SLOTS``); the lane tables in shared memory hold at most
-#: 64 lanes (also the most lanes an edge can have)
-MAX_SLOTS = 1024
+#: of up to 16 blocks of 128 threads (over the portable cluster size of 8
+#: through the non-portable size attribute; a block's shared memory is the
+#: same at any V, 115.8 KB at the largest scene within the other limits, 64
+#: lanes, 16 route slots, regulated and connected, where an H100 still holds
+#: 7 clusters of 16 such blocks at once: ``GeneralFramesKernel.cluster_fit``,
+#: ``tools/cluster_fit.py``), the wide ones in one block (at most
+#: ``WIDE_SLOTS``), the narrow ones in a warp (at most ``NARROW_SLOTS``);
+#: the lane tables in shared memory hold at most 64 lanes (also the most
+#: lanes an edge can have)
+MAX_SLOTS = 2048
 WIDE_SLOTS = 128
 NARROW_SLOTS = 32
 MAX_LANES = 64
@@ -119,18 +124,16 @@ class GeneralSpec(NamedTuple):
 
 
 def kernel_limits(V: int, L: int, M: int, R: int, S: int,
-                  n_speeds: int | None, P: int | None = None,
-                  dynamical: bool = False) -> list[str]:
+                  n_speeds: int | None, P: int | None = None) -> list[str]:
     """The limits of the kernels' arrays that a scene of V slots, L lanes,
     at most M lanes an edge, R route slots, S successor edges a lane,
     ``n_speeds`` target speeds (None under raw controls) and, under the
     connected-lane search, P predecessor edges a lane (None without it)
-    breaks; and a dynamical action under the connected-lane search, which no
-    instantiation runs."""
+    breaks.  A dynamical action is no limit: every instantiation has its
+    dynamical twin, the connected ones too."""
     conn = [] if P is None else [
         (f"{P} predecessor edges > {MAX_PRED}", P > MAX_PRED),
         (f"{1 + S + P} connected-lane candidates > {MAX_CONN}", 1 + S + P > MAX_CONN),
-        ("a dynamical action under the connected-lane search", dynamical),
     ]
     return [
         what for what, bad in (
@@ -166,7 +169,6 @@ def general_unported(env) -> list[str]:
         geo.succ_edge_base.shape[1],
         None if at.stores_raw_controls else len(at.target_speeds),
         geo.pred_edge_base.shape[1] if _connected(env) else None,
-        dynamical(at),
     ) + poly_unported(geo)
 
 
@@ -448,8 +450,7 @@ def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int,
     geo = spec.geo
     bad = kernel_limits(V, geo.num_lanes, spec.max_edge_lanes, R,
                         geo.succ_edge_base.shape[1], None if raw else len(ts),
-                        geo.pred_edge_base.shape[1] if spec.connected else None,
-                        spec.dynamical)
+                        geo.pred_edge_base.shape[1] if spec.connected else None)
     if bad:
         raise ValueError(f"outside the general kernels' limits: {', '.join(bad)}")
     out = params_type(
@@ -486,13 +487,17 @@ class GeneralFramesKernel(KernelWrapper):
     ``general_frames_dynamical`` and ``general_frames_regulated_dynamical``),
     which integrate the egos by the tire-slip model and read and write
     ``lateral_speed`` and ``yaw_rate`` too (``DynFields``), for a dynamical
-    spec only.  With ``wide=True`` the same entry of the wide library
-    (``csrc/general_frames_wide.cu``): scenes of ``NARROW_SLOTS`` + 1 to
-    ``WIDE_SLOTS`` slots, one env a block; with ``cluster=True`` that of the
-    cluster library (``csrc/general_frames_cluster.cu``): scenes of up to
-    ``MAX_SLOTS`` slots, one env a cluster of ceil(V / 128) blocks, a launch
-    that no cluster of that size fits refused with its CUDA error; the
-    others take at most ``NARROW_SLOTS``.
+    spec only; with both flags the instantiations that do both (entries
+    ``general_frames_connected_dynamical`` and
+    ``general_frames_regulated_connected_dynamical``: the candidate tables,
+    then the parameters, then ``DynFields``).  With ``wide=True`` the same
+    entry of the wide library (``csrc/general_frames_wide.cu``): scenes of
+    ``NARROW_SLOTS`` + 1 to ``WIDE_SLOTS`` slots, one env a block; with
+    ``cluster=True`` that of the cluster library
+    (``csrc/general_frames_cluster.cu``): scenes of up to ``MAX_SLOTS``
+    slots, one env a cluster of ceil(V / 128) blocks, a launch that no
+    cluster of that size fits refused with its CUDA error; the others take
+    at most ``NARROW_SLOTS``.
 
     Called on CUDA tensors it launches its kernel once for all frames of
     the policy step, the ego meta-action applied inside on frame 0, and adds
@@ -514,8 +519,6 @@ class GeneralFramesKernel(KernelWrapper):
     def __init__(self, regulated: bool = False, connected: bool = False,
                  dynamical: bool = False, wide: bool = False, cluster: bool = False):
         super().__init__()
-        if connected and dynamical:  # refused at make (kernel_limits)
-            raise ValueError("no instantiation is both connected and dynamical")
         if wide and cluster:
             raise ValueError("a wrapper launches the wide or the cluster library, not both")
         self.regulated, self.connected, self.dynamical = regulated, connected, dynamical
@@ -543,6 +546,34 @@ class GeneralFramesKernel(KernelWrapper):
             + [ctypes.POINTER(DynFields)] * self.dynamical
         )
         fn.restype = ctypes.c_int
+
+    def cluster_fit(self, ranks: int, L: int, R: int, linear: bool = True,
+                    device=None) -> tuple[int, int]:
+        """(clusters, bytes): how many clusters of ``ranks`` blocks of this
+        cluster instantiation the card can hold at once
+        (``cudaOccupancyMaxActiveClusters``, the launch's own question; 0:
+        none fits), each block asking the shared memory a launch at ``L``
+        lanes and ``R`` route slots asks, which the library computes as the
+        launch does and returns beside.  Raises on a CUDA error."""
+        if not self.cluster:
+            raise ValueError("cluster_fit asks the cluster library's kernels")
+        limits = ((ranks, -(-MAX_SLOTS // WIDE_SLOTS), "cluster blocks"),
+                  (L, MAX_LANES, "lanes"), (R, MAX_ROUTE, "route slots"))
+        for n, most, what in limits:
+            if not 1 <= n <= most:
+                raise ValueError(f"cluster_fit: {n} {what} outside 1 to {most}")
+        lib = self._library()
+        fn = lib.general_cluster_fit
+        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.restype = ctypes.c_int
+        smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+            err = fn(int(self.regulated), int(self.connected), int(self.dynamical),
+                     int(linear), ranks, L, R, ctypes.byref(smem), ctypes.byref(clusters))
+        if err != 0:
+            raise RuntimeError(f"general_cluster_fit({ranks} blocks, L={L}, R={R}): "
+                               f"CUDA error {err}")
+        return clusters.value, smem.value
 
     def _lane_tables(self, geo: LaneGeometry, dev):
         key = (id(geo), str(dev))
@@ -618,15 +649,19 @@ class GeneralFramesKernel(KernelWrapper):
 
 #: the wrapper instances the env path launches through: K4, and K5 for
 #: regulated roads, their connected instantiations for the envs with the
-#: connected-lane search and their dynamical ones for a dynamical action,
-#: the wide twin of each for scenes of more than NARROW_SLOTS slots and the
-#: cluster twin for more than WIDE_SLOTS, each counting its own launches
+#: connected-lane search, their dynamical ones for a dynamical action and
+#: their connected dynamical ones for both, the wide twin of each for
+#: scenes of more than NARROW_SLOTS slots and the cluster twin for more than
+#: WIDE_SLOTS, each counting its own launches
 frames_general_kernel = GeneralFramesKernel()
 frames_regulated_kernel = GeneralFramesKernel(regulated=True)
 frames_general_connected_kernel = GeneralFramesKernel(connected=True)
 frames_regulated_connected_kernel = GeneralFramesKernel(regulated=True, connected=True)
 frames_general_dynamical_kernel = GeneralFramesKernel(dynamical=True)
 frames_regulated_dynamical_kernel = GeneralFramesKernel(regulated=True, dynamical=True)
+frames_general_connected_dynamical_kernel = GeneralFramesKernel(connected=True, dynamical=True)
+frames_regulated_connected_dynamical_kernel = GeneralFramesKernel(regulated=True,
+                                                                  connected=True, dynamical=True)
 frames_general_wide_kernel = GeneralFramesKernel(wide=True)
 frames_regulated_wide_kernel = GeneralFramesKernel(regulated=True, wide=True)
 frames_general_connected_wide_kernel = GeneralFramesKernel(connected=True, wide=True)
@@ -635,6 +670,10 @@ frames_regulated_connected_wide_kernel = GeneralFramesKernel(regulated=True, con
 frames_general_dynamical_wide_kernel = GeneralFramesKernel(dynamical=True, wide=True)
 frames_regulated_dynamical_wide_kernel = GeneralFramesKernel(regulated=True, dynamical=True,
                                                              wide=True)
+frames_general_connected_dynamical_wide_kernel = GeneralFramesKernel(
+    connected=True, dynamical=True, wide=True)
+frames_regulated_connected_dynamical_wide_kernel = GeneralFramesKernel(
+    regulated=True, connected=True, dynamical=True, wide=True)
 frames_general_cluster_kernel = GeneralFramesKernel(cluster=True)
 frames_regulated_cluster_kernel = GeneralFramesKernel(regulated=True, cluster=True)
 frames_general_connected_cluster_kernel = GeneralFramesKernel(connected=True, cluster=True)
@@ -643,6 +682,10 @@ frames_regulated_connected_cluster_kernel = GeneralFramesKernel(regulated=True, 
 frames_general_dynamical_cluster_kernel = GeneralFramesKernel(dynamical=True, cluster=True)
 frames_regulated_dynamical_cluster_kernel = GeneralFramesKernel(regulated=True, dynamical=True,
                                                                 cluster=True)
+frames_general_connected_dynamical_cluster_kernel = GeneralFramesKernel(
+    connected=True, dynamical=True, cluster=True)
+frames_regulated_connected_dynamical_cluster_kernel = GeneralFramesKernel(
+    regulated=True, connected=True, dynamical=True, cluster=True)
 
 
 def store_raw_controls(env, veh: VehicleState, slot_actions: torch.Tensor):
@@ -679,13 +722,13 @@ def simulate_general(env, veh: VehicleState, slot_actions: torch.Tensor,
 def frames_kernel_for(spec: GeneralSpec, regulated: bool,
                       slots: int = 1) -> GeneralFramesKernel:
     """The wrapper instance of ``spec``'s instantiation for a scene of
-    ``slots`` slots: K4, or K5 on a regulated road, connected or dynamical as
-    the spec is, its wide twin over ``NARROW_SLOTS`` slots and its cluster
-    twin over ``WIDE_SLOTS``.  Looked up by name when called, so that a
-    stand-in put in the module's place is taken."""
+    ``slots`` slots: K4, or K5 on a regulated road, connected, dynamical or
+    both as the spec is, its wide twin over ``NARROW_SLOTS`` slots and its
+    cluster twin over ``WIDE_SLOTS``.  Looked up by name when called, so
+    that a stand-in put in the module's place is taken."""
     layout = ("_cluster" if slots > WIDE_SLOTS
               else "_wide" if slots > NARROW_SLOTS else "")
-    law = "_connected" if spec.connected else ("_dynamical" if spec.dynamical else "")
+    law = "_connected" * spec.connected + "_dynamical" * spec.dynamical
     road = "regulated" if regulated else "general"
     return globals()[f"frames_{road}{law}{layout}_kernel"]
 

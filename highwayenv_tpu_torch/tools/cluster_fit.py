@@ -1,0 +1,109 @@
+"""Which thread-block clusters of the cluster K4 / K5 a CUDA card holds: the occupancy probe.
+
+Usage (from the repo root, on a machine with a CUDA card):
+
+    python3 highwayenv_tpu_torch/tools/cluster_fit.py
+
+It builds ``csrc/general_frames_cluster.cu`` and asks the card, through the
+library's ``general_cluster_fit`` (``cudaOccupancyMaxActiveClusters`` with
+the attributes a launch sets first, the non-portable cluster size over 8
+blocks among them, at the shared memory a launch asks, which the library
+computes as the launch does), how many clusters of 8 to 16 blocks of 128
+threads it holds at once:
+
+  - at the lanes and route slots of the scenes the cluster kernels run over
+    1024 slots (a block's shared memory is the same at any V) and at the
+    largest blocks within the other limits (64 lanes, 16 route slots:
+    115.8 KB under the connected-lane search), for every instantiation
+    (regulated, connected, dynamical, linear);
+  - for the largest instantiation at 16 route slots, over a scan of the
+    lanes from 1 to 64, the most lanes (and the block's bytes) at which
+    each cluster size still fits: where it is 64, every scene within the
+    limits fits, and ``make`` needs no rule for the cluster's size.
+
+It prints the card's name and power limit first and last.
+"""
+
+from __future__ import annotations
+
+import itertools
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(REPO))
+
+#: the scenes over 1024 slots, (label, env id, config)
+SCENES = (
+    ("intersection-v0 pf 15, duration 80", "intersection-v0",
+     {"policy_frequency": 15, "duration": 80}),
+    ("intersection-v2 dynamical pf 15, duration 80", "intersection-v2",
+     {"policy_frequency": 15, "duration": 80,
+      "action": {"type": "ContinuousAction", "dynamical": True}}),
+    ("exit-v0, 2047 vehicles", "exit-v0", {"vehicles_count": 2047}),
+)
+RANKS = tuple(range(8, 17))
+
+
+def card_line() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi failed: {e}"
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("cluster_fit: CUDA is not available")
+        return 1
+    import highwayenv_tpu_torch as ht
+    from highwayenv_tpu_torch.ops import general_frames as gf
+
+    print(card_line())
+    props = torch.cuda.get_device_properties(0)
+    print(f"{props.name}, {props.multi_processor_count} SMs")
+    kernels = {
+        (reg, conn, dyn): getattr(gf, f"frames_{'regulated' if reg else 'general'}"
+                                      f"{'_connected' * conn}{'_dynamical' * dyn}_cluster_kernel")
+        for reg, conn, dyn in itertools.product((False, True), repeat=3)
+    }
+    sizes = []
+    for label, env_id, config in SCENES:
+        env = ht.make(env_id, config, device="cpu")
+        spec = env._general
+        sizes.append((f"{label} (V={env.num_slots}, L={env.geo.num_lanes}, "
+                      f"R={env.route_slots})", (env.regulated, spec.connected, spec.dynamical),
+                      env.geo.num_lanes, env.route_slots))
+    sizes.append(("largest block within the limits (L=64, R=16)", None, gf.MAX_LANES,
+                  gf.MAX_ROUTE))
+    print("clusters a card holds at once, by cluster blocks " + ", ".join(map(str, RANKS)))
+    for label, law, L, R in sizes:
+        for key, kernel in kernels.items():
+            if law is not None and key != law:
+                continue
+            for linear in (False, True):
+                fits = [kernel.cluster_fit(r, L, R, linear) for r in RANKS]
+                print(f"  {label}, {fits[0][1]} bytes a block: {kernel.entry} "
+                      f"{'Linear' if linear else 'IDM'}: {[n for n, _ in fits]}")
+    # the most lanes at which each cluster size fits, for the largest
+    # instantiation (regulated, connected, dynamical, Linear) at 16 route slots
+    kernel = kernels[(True, True, True)]
+    print(f"  scan of {kernel.entry} Linear, R={gf.MAX_ROUTE}, L from 1 to {gf.MAX_LANES}:")
+    for r in RANKS:
+        scan = {L: kernel.cluster_fit(r, L, gf.MAX_ROUTE, True) for L in range(1, gf.MAX_LANES + 1)}
+        fit = [L for L, (n, _) in scan.items() if n > 0]
+        most = max(fit) if fit else None
+        counts = {f"L={L} ({scan[L][1]} bytes)": scan[L][0] for L in (1, 16, 32, gf.MAX_LANES)}
+        print(f"    {r} blocks: fits up to L={most}"
+              + (f" ({scan[most][1]} bytes a block)" if most else "") + f"; clusters at {counts}")
+    print(card_line())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

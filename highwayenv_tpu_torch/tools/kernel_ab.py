@@ -5,7 +5,7 @@ Usage (from the repo root, on a machine with a CUDA card):
     mkdir -p build/baseline
     git archive HEAD highwayenv_tpu_torch/csrc | tar -x -C build/baseline
     python3 highwayenv_tpu_torch/tools/kernel_ab.py [--baseline DIR] [--clocks]
-        [--kernels straight general wide] [--vehicles N ...]
+        [--kernels straight general wide cluster] [--vehicles N ...]
 
 ``--baseline`` (default ``build/baseline/highwayenv_tpu_torch/csrc``) is a
 second ``csrc/`` directory, for example a commit's unpacked as above; when it
@@ -45,8 +45,17 @@ is missing only the current kernels run.  ``--kernels`` picks the families
     exit-v0 with 50 vehicles (V=51, K4) on the reset scene, 8 steps in and
     the all-env pile-up, and at intersection-v0 with duration 30 (V=42,
     K5) on the reset scene, 8 steps in and the conflict scene, and their
-    connected twins at exit-v1 and intersection-v2 alike, B=4096.  Timed:
-    each on its reset scene (K5 with spread tick phases).
+    connected twins at exit-v1 and intersection-v2 alike, and the
+    dynamical K5 at intersection-v1 with duration 30 on its dynamical
+    scene (``dynamical_scene``), B=4096.  Timed: each on its reset scene
+    (K5 with spread tick phases).
+  cluster: the cluster K4 / K5 (``general_frames_cluster``, one env a
+    cluster of blocks) alike at exit-v0 and exit-v1 with 150 vehicles
+    (V=151, 2 blocks), intersection-v0, -v2 and -v1 at policy_frequency 15
+    (V=207, 2 blocks) and racetrack-v0 with 150 NPCs under a dynamical
+    ContinuousAction (V=151, K4 dynamical), B=512 (the 8-steps-in scenes
+    step the plain frames, whose (B, 207, 207, 11) right-of-way tensors run
+    out of the card's memory at 4096 rows).
 
 Each scene runs the instantiation its env path launches: ``linear`` on
 for the Linear scenes, off (the IDM code alone) for the others.  A tree
@@ -94,12 +103,25 @@ FAMILIES = {
     "straight": ("straight_frames", "straight_frames_sorted"),
     "general": ("general_frames",),
     "wide": ("general_frames_wide",),
+    "cluster": ("general_frames_cluster",),
 }
-#: the wide family's scenes, each (env id, config, kernel)
-WIDE_SCENES = (("exit-v0", {"vehicles_count": 50}, "K4"),
-               ("intersection-v0", {"duration": 30}, "K5"),
-               ("exit-v1", {"vehicles_count": 50}, "K4 connected"),
-               ("intersection-v2", {"duration": 30}, "K5 connected"))
+DYNAMICAL = {"action": {"type": "ContinuousAction", "dynamical": True}}
+#: the wide and cluster families' scenes, each (env id, config, kernel)
+LAYOUT_SCENES = {
+    "wide": (("exit-v0", {"vehicles_count": 50}, "K4"),
+             ("intersection-v0", {"duration": 30}, "K5"),
+             ("exit-v1", {"vehicles_count": 50}, "K4 connected"),
+             ("intersection-v2", {"duration": 30}, "K5 connected"),
+             ("intersection-v1", {"duration": 30}, "K5 dynamical")),
+    "cluster": (("exit-v0", {"vehicles_count": 150}, "K4"),
+                ("intersection-v0", {"policy_frequency": 15}, "K5"),
+                ("exit-v1", {"vehicles_count": 150}, "K4 connected"),
+                ("intersection-v2", {"policy_frequency": 15}, "K5 connected"),
+                ("intersection-v1", {"policy_frequency": 15}, "K5 dynamical"),
+                ("racetrack-v0", {"other_vehicles": 150, **DYNAMICAL}, "K4 dynamical")),
+}
+#: the rows of each family's scenes
+LAYOUT_ROWS = {"wide": 4096, "cluster": 512}
 CONFIGS = (("highway-v0", None), ("highway-fast-v0", None))
 NPC = "highway_env.vehicle.behavior."
 LINEAR_CONFIGS = (("highway-v0", {"other_vehicles_type": NPC + "LinearVehicle"}),)
@@ -727,57 +749,66 @@ def run_general(args, paths, clock_paths, phases, params, speeds, dynamical) -> 
                          lambda w=wrapper: w(*call, **kw))
 
 
-def run_wide(args, paths, params, speeds) -> None:
+def run_layout(args, paths, params, speeds, layout: str) -> None:
+    """The ``layout`` family ("wide" or "cluster"): its K4 / K5 at
+    LAYOUT_SCENES on both trees, equal bit for bit, then timed in turns."""
     import torch
 
     import highwayenv_tpu_torch as ht
     from highwayenv_tpu_torch.ops import general_frames as gf
 
-    kinds = {"K4": functools.partial(gf.GeneralFramesKernel, wide=True),
-             "K5": functools.partial(gf.GeneralFramesKernel, regulated=True, wide=True),
-             "K4 connected": functools.partial(gf.GeneralFramesKernel, connected=True,
-                                               wide=True),
-             "K5 connected": functools.partial(gf.GeneralFramesKernel, regulated=True,
-                                               connected=True, wide=True)}
-    wrappers = {label: {k: load(p["general_frames_wide"], cls, params[label],
+    kinds = {f"{road}{law}": functools.partial(gf.GeneralFramesKernel, regulated=road == "K5",
+                                               connected=law == " connected",
+                                               dynamical=law == " dynamical", **{layout: True})
+             for road in ("K4", "K5") for law in ("", " connected", " dynamical")}
+    library = f"general_frames_{layout}"
+    wrappers = {label: {k: load(p[library], cls, params[label],
                                 gf.params_struct(speeds[label]))[0]
                         for k, cls in kinds.items()}
                 for label, p in paths.items()}
     names = [n for n, _, _ in gf.OUT_FIELDS]
     reg_names = names + [n for n, _, _ in gf.REG_FIELDS]
+    dyn_names = [n for n, _, _ in gf.DYN_FIELDS]
     timed = {}
-    for env_id, config, k in WIDE_SCENES:
+    rows = LAYOUT_ROWS[layout]
+    for env_id, config, k in LAYOUT_SCENES[layout]:
         env = ht.make(env_id, config)
         spec, frames = env._general, env.frames_per_step
         gen = env.generator(SEED)
-        _, states = env.reset(B, gen)
-        print(f"== {env_id} {config}: wide {k}, V={env.num_slots}, L={env.geo.num_lanes}, "
-              f"{frames} frames, B={B}")
-        if env.regulated:
+        _, states = env.reset(rows, gen)
+        print(f"== {env_id} {config}: {layout} {k}, V={env.num_slots}, L={env.geo.num_lanes}, "
+              f"{frames} frames, B={rows}")
+        kw = {"linear": False}
+        if spec.dynamical:  # raw controls stored on the egos: the reset scene alone
+            veh, sa, extra = dynamical_scene(env, states, gen)
+            scenes = {"reset": (veh, extra[0] if extra else None, sa, frames)}
+            kw["raw"] = True
+        elif env.regulated:
             scenes = {n: call for n, call in regulated_scenes(env, states, gen).items()
                       if n != "warm-up"}
             scenes["reset"] = (scenes["reset"][0], scenes["reset"][1] + torch.arange(
-                B, device=env.device, dtype=torch.int32) * 15, *scenes["reset"][2:])
+                rows, device=env.device, dtype=torch.int32) * 15, *scenes["reset"][2:])
         else:
             scenes = {}
             for n, veh in general_scenes(env, states, gen).items():
-                acts = torch.randint(0, env.action_type.n, (B,), generator=gen,
+                acts = torch.randint(0, env.action_type.n, (rows,), generator=gen,
                                      device=env.device, dtype=torch.int32)
                 scenes[n] = (veh, None, env._action_to_slots(acts), frames)
+        fields = ((reg_names if env.regulated else names)
+                  + (dyn_names if spec.dynamical else []))
         for name, (veh, steps0, sa, n_frames) in scenes.items():
             call = (veh, spec, sa, n_frames) + ((steps0,) if env.regulated else ())
-            res = {label: w[k](*call, linear=False) for label, w in wrappers.items()}
+            res = {label: w[k](*call, **kw) for label, w in wrappers.items()}
             torch.cuda.synchronize()
             first = res[next(iter(res))]
             for out in res.values():
-                equal_fields(out, first, reg_names if env.regulated else names,
-                             f"{env_id} {name} wide {k}")
+                equal_fields(out, first, fields, f"{env_id} {name} {layout} {k}")
             print(f"  {name}: {' and '.join(res)} equal on every field; crashed slots "
                   f"{int(first.crashed.sum())}")
             if name == "reset":
-                timed[f"wide {k} {env_id} {config}"] = (k, call)
-    for key, (k, call) in timed.items():
-        fns = {label: (lambda w=w[k]: w(*call, linear=False)) for label, w in wrappers.items()}
+                timed[f"{layout} {k} {env_id} {config}"] = (k, call, kw)
+    for key, (k, call, kw) in timed.items():
+        fns = {label: (lambda w=w[k]: w(*call, **kw)) for label, w in wrappers.items()}
         print(f"  {key}: " + in_turns(fns, args.rounds))
 
 
@@ -817,9 +848,10 @@ def main(argv) -> int:
             print(f"{label} {k}: {path.name}")
             for line in ptxas_report(path):
                 print(f"    {line}")
-        if args.clocks:  # the wide source holds no frame loop of its own
+        if args.clocks:  # the wide and cluster sources hold no frame loop of their own
             stamped = OUT_DIR / f"{label}-clocks" / "csrc"
-            clocked = [k for k in kernels if k not in FAMILIES["wide"]]
+            clocked = [k for k in kernels
+                       if k not in FAMILIES["wide"] + FAMILIES["cluster"]]
             phases[label] = instrumented_tree(csrc, stamped, clocked)
             clock_paths[label] = _build.build(clocked, stamped, OUT_DIR / f"{label}-clocks")
             for k, path in clock_paths[label].items():
@@ -835,9 +867,10 @@ def main(argv) -> int:
         dynamical = {label: has_dynamical(pathlib.Path(csrc)) for label, csrc in trees.items()}
         print(f"trees with the kDynamical instantiations: {dynamical}")
         run_general(args, paths, clock_paths, phases, params, speeds, dynamical)
-    if "wide" in args.kernels:
-        speeds = {label: speed_slots(pathlib.Path(csrc)) for label, csrc in trees.items()}
-        run_wide(args, paths, params, speeds)
+    for layout in ("wide", "cluster"):
+        if layout in args.kernels:
+            speeds = {label: speed_slots(pathlib.Path(csrc)) for label, csrc in trees.items()}
+            run_layout(args, paths, params, speeds, layout)
     return 0
 
 

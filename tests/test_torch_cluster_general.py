@@ -3,11 +3,12 @@
 The wide K4 / K5 hold an env in one block of 128 threads; the cluster ones
 (``csrc/general_frames_cluster.cu``) hold one in a thread-block cluster of
 ceil(V / 128) blocks, slot j owned by thread j % 128 of rank j / 128, up to
-``MAX_SLOTS`` = 1024.  ``make`` now accepts the scenes users reach with
-ordinary settings that it refused before: intersection-v0, -v1 and -v2 at
-``policy_frequency`` 15 (V=207: a decision every frame, the simulator's
-rate), intersection-v0 with ``duration`` 60 as well (V=912), exit-v0 and
-racetrack-v0 with 150 vehicles (V=151).  On the CPU every instantiation
+``MAX_SLOTS`` = 2048 (16 blocks, over the portable cluster size of 8).
+``make`` now accepts the scenes users reach with ordinary settings that
+it refused before: intersection-v0, -v1 and -v2 at ``policy_frequency`` 15
+(V=207: a decision every frame, the simulator's rate), intersection-v0
+with ``duration`` 60 as well (V=912), exit-v0 and racetrack-v0 with 150
+vehicles (V=151).  On the CPU every instantiation
 runs ``frames_general_plain``, which takes any V; here
 
   - exit-v0 with 150 vehicles and intersection-v0 at ``policy_frequency``
@@ -34,7 +35,9 @@ runs ``frames_general_plain``, which takes any V; here
     (the tie rules across the 128-slot boundary), and the impact as the
     highest partner, an atomicMax of partner + 1, held to the plain
     version's ``behavior.neighbours`` and ``collision.handle_collisions``
-    on vehicles copied across the boundary.
+    on vehicles copied across the boundary; and the same at 16 ranks
+    (exit-v0 with 2047 vehicles, V=2048), vehicles copied to the first
+    slots of every rank.
 """
 
 import dataclasses
@@ -206,7 +209,7 @@ def test_scene_makes_and_routes_to_its_cluster_instantiation(env_id, config, V, 
 
 def test_one_slot_over_the_cluster_limit_is_refused():
     limit = general_frames.MAX_SLOTS
-    assert limit == 1024
+    assert limit == 2048
     ht.make("exit-v0", {"vehicles_count": limit - 1}, device="cpu")
     with pytest.raises(NotImplementedError, match=f"{limit + 1} slots > {limit}.*not ported"):
         ht.make("exit-v0", {"vehicles_count": limit}, device="cpu")
@@ -229,7 +232,7 @@ def test_cluster_wrappers_run_the_plain_frames_on_the_cpu():
         assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
     clusters = [getattr(general_frames, n) for n in dir(general_frames)
                 if n.endswith("_cluster_kernel")]
-    assert len(clusters) == 6 and len({k.entry for k in clusters}) == 6
+    assert len(clusters) == 8 and len({k.entry for k in clusters}) == 8
     assert all(k.cluster and not k.wide and k.source == "general_frames_cluster"
                and k.max_slots == general_frames.MAX_SLOTS for k in clusters)
     before = [k.launches for k in clusters]
@@ -257,7 +260,7 @@ def _counted_pairs(V: int, t: int, T: int) -> list:
     return out
 
 
-@pytest.mark.parametrize("V", [129, 151, 207, 256, 912, 1024])
+@pytest.mark.parametrize("V", [129, 151, 207, 256, 912, 1024, 1025, 1212, 2048])
 def test_counted_pairs_take_each_pair_once(V):
     T = -(-V // RANK_SLOTS) * RANK_SLOTS  # the cluster's threads
     seen = np.zeros((V, V), dtype=np.int64)
@@ -271,15 +274,20 @@ def test_counted_pairs_take_each_pair_once(V):
     assert np.array_equal(seen, np.triu(np.ones((V, V), dtype=np.int64), 1))
 
 
-def _twins(env, n: int = 23):
-    """A reset batch of ``env`` with slots 1 .. n copied whole into slots
-    128 .. 127 + n (chip_smoke.py's tied scene): twins at the same s on the
-    same lane, one on each side of the first rank boundary."""
-    _, st = env.reset(4, env.generator(3))
+def _twins(env, n: int = 23, every_rank: bool = False, rows: int = 4):
+    """A reset batch of ``rows`` rows of ``env`` with slots 1 .. n copied
+    whole into slots 128 .. 127 + n (chip_smoke.py's tied scene): twins at
+    the same s on the same lane, one on each side of the first rank
+    boundary; with ``every_rank`` into the first n slots of every rank past
+    the first, so that the copies meet across every boundary."""
+    _, st = env.reset(rows, env.generator(3))
+    V = env.num_slots
+    starts = range(RANK_SLOTS, V, RANK_SLOTS) if every_rank else (RANK_SLOTS,)
 
     def copy(t):
         t = t.clone()
-        t[:, RANK_SLOTS:RANK_SLOTS + n] = t[:, 1:1 + n]
+        for lo in starts:
+            t[:, lo:lo + n] = t[:, 1:1 + n]
         return t
 
     return map_fields(copy, st.vehicles)
@@ -362,7 +370,13 @@ def _max_partner_collisions(state, dt: float, seed: int):
               & rows(state.collidable) & cols(state.collidable))
     crashed, hit = state.crashed.clone(), state.hit.clone()
     partner = torch.zeros((Bn, V), dtype=torch.int64)  # partner + 1, 0 = none
-    pairs = [(a, b) for a in range(V) for b in range(a + 1, V)]
+    # the pairs eligible and within reach in some row: every other pair
+    # leaves every flag and partner as it is, wherever it falls in the order
+    dx_all = px[:, :, None] - px[:, None, :]
+    dy_all = py[:, :, None] - py[:, None, :]
+    reach_all = (diag[:, :, None] + diag[:, None, :]) / 2 + state.speed[:, :, None] * dt
+    near = ok_all & (dx_all * dx_all + dy_all * dy_all <= reach_all * reach_all)
+    pairs = torch.nonzero(torch.triu(near.any(0), 1)).tolist()
     for k in np.random.default_rng(seed).permutation(len(pairs)):
         a, b = pairs[k]
         dx, dy = px[:, a] - px[:, b], py[:, a] - py[:, b]
@@ -400,3 +414,41 @@ def test_highest_partner_impacts_match_handle_collisions_across_the_boundary():
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     # twins crash across the boundary, and some impacts cross it
     assert bool(want.crashed[:, RANK_SLOTS:].any()) and bool(has[:, :RANK_SLOTS].any())
+
+
+def test_rank_walks_keep_the_tie_rules_across_sixteen_ranks():
+    """The walks of a 16-block cluster (exit-v0 with 2047 vehicles,
+    V=2048): slots 1 .. 23 copied to the first slots of every rank, so that
+    up to 16 vehicles share an s on a lane, one a rank; the rank-after-rank
+    walk keeps the dense loop's ties (the front the last slot, the rear the
+    first)."""
+    env = ht.make("exit-v0", {"vehicles_count": 2047}, device="cpu")
+    assert -(-env.num_slots // RANK_SLOTS) == 16
+    veh = _twins(env, every_rank=True, rows=1)
+    s, lat = lane_ops.projection_table(env.geo, veh.pos)
+    elig = behavior.eligible_on_lane(env.geo, veh, s, lat)
+    want_f, want_r = behavior.neighbours(veh, veh.lane, s, elig)
+    got_f, got_r = _rank_walk_neighbours(veh.lane, s, elig)
+    assert torch.equal(got_f, want_f.to(torch.int64))
+    assert torch.equal(got_r, want_r.to(torch.int64))
+    # slot k and its copies on ranks 1 .. 14 take the last rank's copy as
+    # their front: the last slot of the tie, 15 ranks up the walk
+    twins = torch.arange(1, 24)
+    last = 15 * RANK_SLOTS + twins - 1
+    assert bool((got_f[:, twins] == last).any())
+    for rank in range(1, 15):
+        assert bool((got_f[:, rank * RANK_SLOTS + twins - 1] == last).any()), rank
+
+
+def test_highest_partner_impacts_match_handle_collisions_across_sixteen_ranks():
+    env = ht.make("exit-v0", {"vehicles_count": 2047}, device="cpu")
+    veh = _twins(env, every_rank=True, rows=1)
+    want = collision.handle_collisions(veh, env.dt)
+    got, has = _max_partner_collisions(veh, env.dt, seed=9)
+    for name in ("crashed", "hit", "impact_pending", "impact"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    # the copies crash on every rank, and their partners lie on other ranks
+    ranks = torch.arange(env.num_slots) // RANK_SLOTS
+    for rank in range(16):
+        assert bool(want.crashed[:, ranks == rank].any()), rank
+    assert bool(has[:, ranks == 15].any())

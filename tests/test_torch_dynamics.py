@@ -246,5 +246,6 @@ def test_frames_kernel_for_picks_the_dynamical_instantiations():
     with pytest.raises(ValueError, match="dynamical spec"):
         general_frames.frames_regulated_dynamical_kernel(
             st.vehicles, v0, None, 1, st.steps, raw=True)
-    with pytest.raises(ValueError, match="both connected and dynamical"):
-        general_frames.GeneralFramesKernel(connected=True, dynamical=True)
+    # both flags: the connected dynamical instantiation, its own entry
+    both = general_frames.GeneralFramesKernel(connected=True, dynamical=True)
+    assert both.entry == "general_frames_connected_dynamical"

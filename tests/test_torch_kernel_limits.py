@@ -31,7 +31,9 @@ import torch
 import highwayenv_tpu as hj
 import highwayenv_tpu_torch as ht
 from highwayenv_tpu_torch.bridge import from_numpy_state
+from highwayenv_tpu_torch.envs.merge import MergeEnv
 from highwayenv_tpu_torch.ops import general_frames, straight_frames
+from highwayenv_tpu_torch.road.network import StraightLane
 from highwayenv_tpu_torch.vehicle.state import VehicleState
 
 torch.set_num_threads(1)
@@ -45,6 +47,24 @@ STATE_CONTINUOUS = ("pos", "heading", "speed", "target_speed", "timer",
 
 def _meta(speeds):
     return {"action": {"type": "DiscreteMetaAction", "target_speeds": list(speeds)}}
+
+
+class FivePredecessorMerge(MergeEnv):
+    """merge with 3 more edges into node "b": 5 predecessor edges, one
+    over the candidate tables' 4 under the connected-lane search."""
+
+    def _build_scene(self):
+        super()._build_scene()
+        for k in range(3):
+            self.net.add_lane(f"x{k}", "b", StraightLane(
+                [100.0, 40.0 + 10.0 * k], [230.0, 40.0 + 10.0 * k]))
+        self.geo = self.net.build(device=self.device)
+
+
+def _make(env, config):
+    """``ht.make`` of a registered id, or an env class made with ``config``."""
+    return env(config, device="cpu") if isinstance(env, type) else ht.make(env, config,
+                                                                            device="cpu")
 
 
 #: (env id, config, lanes an edge, target speeds; None under raw controls)
@@ -136,20 +156,22 @@ def test_probe_configs_make_and_step_as_jax(env_id, config, edge_lanes, n_speeds
     ("highway-v0", {"lanes_count": 17}, "17 straight lanes > 16"),
     ("highway-fast-v0", {"vehicles_count": 1024}, "1025 slots > 1024"),
     ("racetrack-oval-v0", {"no_lanes": 9}, "72 lanes > 64"),
-    ("exit-v0", {"vehicles_count": 1100}, "1101 slots > 1024"),
+    ("exit-v0", {"vehicles_count": 2048}, "2049 slots > 2048"),
     ("highway-v0", {"action": {"type": "ContinuousAction", "dynamical": True}},
      "a dynamical action on a straight road"),
-    ("intersection-v2", {"action": {"type": "ContinuousAction", "dynamical": True}},
-     "a dynamical action under the connected-lane search"),
+    # a dynamical action under the connected-lane search is made now; the
+    # search's own limits still hold under it
+    (FivePredecessorMerge, {"neighbour_vehicles_connected_lanes": True, "action": {
+        "type": "ContinuousAction", "dynamical": True}}, "5 predecessor edges > 4"),
 ], ids=["speeds-17", "speeds-1", "straight-lanes", "straight-slots", "general-lanes",
         "general-slots", "straight-dynamical", "connected-dynamical"])
 def test_over_limit_configs_are_refused_at_make(env_id, config, what):
     with pytest.raises(NotImplementedError, match=f"{what}.*not ported"):
-        ht.make(env_id, config, device="cpu")
+        _make(env_id, config)
 
 
 @pytest.mark.parametrize("limits,what", [
-    ((1025, 20, 4, 3, 2, 3), "1025 slots > 1024"),
+    ((2049, 20, 4, 3, 2, 3), "2049 slots > 2048"),
     ((25, 65, 4, 3, 2, 3), "65 lanes > 64"),
     ((25, 64, 65, 3, 2, 3), "65 lanes an edge > 64"),
     ((25, 20, 4, 17, 2, 3), "17 route slots > 16"),
@@ -161,6 +183,7 @@ def test_each_general_limit_is_named(limits, what):
     assert general_frames.kernel_limits(1024, 64, 64, 16, 4, 16) == []
     assert general_frames.kernel_limits(1024, 64, 64, 16, 4, None) == []
     assert general_frames.kernel_limits(1024, 64, 64, 16, 4, 16, 4) == []
+    assert general_frames.kernel_limits(2048, 64, 64, 16, 4, None, 4) == []
 
 
 @pytest.mark.parametrize("limits,what", [
@@ -169,7 +192,9 @@ def test_each_general_limit_is_named(limits, what):
      ["5 predecessor edges > 4", "10 connected-lane candidates > 9"]),
     ((25, 20, 4, 3, 5, 3, 4),
      ["5 successor edges > 4", "10 connected-lane candidates > 9"]),
-    ((25, 20, 4, 3, 3, None, 3, True), ["a dynamical action under the connected-lane search"]),
+    # a dynamical action's raw controls (no target speeds): its law is
+    # refused no more under the search, only the search's own tables
+    ((25, 20, 4, 3, 3, None, 5), ["5 predecessor edges > 4"]),
 ], ids=["predecessors", "predecessors-and-candidates", "successors-and-candidates",
         "dynamical"])
 def test_connected_limits_are_named(limits, what):

@@ -405,20 +405,19 @@ def test_gate_refusals_name_their_reason():
     # raw controls on a regulated road take K5's raw-control branch
     regulated = RegulatedRacetrack(device="cpu")
     assert regulated._general is not None and regulated._general.period is not None
-    # a dynamical action: the dynamical instantiations, but not under the
-    # connected-lane search
+    # a dynamical action: the dynamical instantiations, under the
+    # connected-lane search too (the connected dynamical ones)
     dynamical = {"action": {"type": "ContinuousAction", "dynamical": True}}
     assert ht.make("racetrack-v0", dynamical, device="cpu")._general.dynamical
-    with pytest.raises(NotImplementedError,
-                       match="a dynamical action under the connected-lane search"):
-        ht.make("racetrack-v1", dynamical, device="cpu")
+    both = ht.make("racetrack-v1", dynamical, device="cpu")._general
+    assert both.dynamical and both.connected
     # an oval of 5 lanes an edge has 40 lanes, within the lane tables' 64;
-    # 1024 NPCs and the ego are 1025 slots: beyond the cluster kernels' 8
+    # 2048 NPCs and the ego are 2049 slots: beyond the cluster kernels' 16
     # blocks of 128
     assert ht.make("racetrack-oval-v0", {"no_lanes": 5}, device="cpu").geo.num_lanes == 40
     assert ht.make("racetrack-oval-v0", {"no_lanes": 4}, device="cpu").geo.num_lanes == 32
-    with pytest.raises(NotImplementedError, match="1025 slots > 1024"):
-        ht.make("racetrack-v0", {"other_vehicles": 1024}, device="cpu")
+    with pytest.raises(NotImplementedError, match="2049 slots > 2048"):
+        ht.make("racetrack-v0", {"other_vehicles": 2048}, device="cpu")
     # the -v1 ids: the same envs with the connected-lane neighbour search
     for env_id in ("racetrack-v1", "racetrack-large-v1", "racetrack-oval-v1"):
         env = ht.make(env_id, device="cpu")

@@ -187,9 +187,9 @@ def test_wide_wrappers_run_the_plain_frames_on_the_cpu():
             assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
     wides = [getattr(general_frames, n) for n in dir(general_frames)
              if n.endswith("_wide_kernel")]
-    assert len(wides) == 6 and all(k.wide and k.max_slots == general_frames.WIDE_SLOTS == 128
+    assert len(wides) == 8 and all(k.wide and k.max_slots == general_frames.WIDE_SLOTS == 128
                                    for k in wides)
-    assert len({k.entry for k in wides}) == 6
+    assert len({k.entry for k in wides}) == 8
     before = [k.launches for k in wides]
     _, metrics = rollout(env, st, 2, gen)
     assert [k.launches for k in wides] == before

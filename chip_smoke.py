@@ -7,7 +7,9 @@ Run from the repo root on a machine with an NVIDIA Hopper card:
 Phases:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
   2. build every CUDA kernel of the main path from csrc/ (nvcc, sm_90a, one
-     process per source, all started together);
+     process per source): the straight libraries first, then the six
+     general ones all started together on a thread while phase 3 holds the
+     straight kernels, waited for before K4's checks;
   3. each kernel against its plain torch version at highway-fast-v0
      (V=21, 5 frames) and highway-v0 full width (V=51, 15 frames), B=4096,
      and at highway-v0 with 31, 32, 63 and 100 vehicles (V = 32, 33, 64,
@@ -140,16 +142,15 @@ Phases:
      four several-ego K4 configs (every 8th first ego crashed at the
      start), each with the counts set to 0 just before it; (after phase
      5's times and before phase 6) the GrayscaleObservation path:
-     highway-v0 (V=51) at B=4096 with HighwayEnv's documented example
-     config, the counts set to 0 just before a 32-step rollout (K1, K2a,
+     highway-v0 (V=51) at 1024 rows with HighwayEnv's documented example
+     config, the counts set to 0 just before an 8-step rollout (K1, K2a,
      K3, K2b once a step, nothing else), the CUDA frames of 64 rows against
      the CPU's plain frames of the same states (at least 99.9% of each
      frame's pixels equal, none off by more than a gray level), compact
-     (P=1024) against full and the captured full step against the eager
+     (P=256) against full and the captured full step against the eager
      one, the stack included, bit-exact, eager and graph ms per step (three
-     runs each, in turns), device busy and kernels per step, a profile of
-     replays, the head's device ms at 4,096 rows, the step's peak device
-     memory (at most 16 GB), K1–K3 against their plain versions on its
+     runs each, in turns), a profile of replays, the step's peak device
+     memory (at most 4 GB: 16 GB at 4,096 rows), K1–K3 against their plain versions on its
      reset scene, and the kernel rows "K1 grayscale" .. "K2b grayscale"
      (its launches beside the main path's times); intersection-v0 (K5)
      and racetrack-v0 (K4 raw) the same way at B=512 and 8 steps, without
@@ -194,24 +195,23 @@ Phases:
      the wide K4 and its connected twin), racetrack-v0 with 40 NPCs (V=41:
      the wide K4 raw, and dynamical), intersection-v0 with duration 116
      (V=128, 61.0 KB of shared memory a block) and racetrack-oval-v0 with 6
-     lanes (L=48: the narrow K4 raw), B=4096, each instantiation against its
+     lanes (L=48: the narrow K4 raw), 256 rows, each instantiation against its
      plain version on 8 steps in (K5: the tick phases spread), the
      conflict scene and the warm-up or the all-env pile-up, every field
-     bit-exact; the six row scenes driven 16 steps with the counts set to 0
+     bit-exact; the six row scenes driven 8 steps with the counts set to 0
      (the instantiation once a step, the narrow K5 once more for each
      reset's 16-slot warm-up, nothing else), timed from a fresh reset, each
      a kernel row of its own ("K5 wide step", "K5 wide connected", "K5 wide
      dynamical", "K4 wide", "K4 wide raw", "K4 raw 48 lanes"); compact
      against full and captured against eager at intersection-v0 with
-     duration 30, and its eager and captured full steps beside the default
-     intersection-v0's, in turns; then the scenes over the wide kernels'
+     duration 30, and its eager and captured full steps in turns; then the scenes over the wide kernels'
      128 slots (``check_cluster``): intersection-v0, -v2 and -v1 at
      policy_frequency 15 (V=207, two blocks a cluster: the cluster K5,
      connected and dynamical), exit-v0 and exit-v1 with 150 vehicles
      (V=151: the cluster K4 and its connected twin), racetrack-v0 with 150
      NPCs (V=151: the cluster K4 raw, and dynamical) and intersection-v0
      with duration 60 at policy_frequency 15 (V=912, eight blocks), each
-     instantiation against its plain version at 256 rows (16 at V=912) on
+     instantiation against its plain version at 64 rows (8 at V=912) on
      the scenes of check_wide, on twins across the first rank boundary
      (``tied``) and, on the regulated road, on the 8-steps-in and conflict
      scenes with the slots rolled across a rank boundary, every field
@@ -223,29 +223,36 @@ Phases:
      dynamical"), its plain version over the same rows in chunks; compact
      against full and captured against eager at intersection-v1 with
      policy_frequency 15; and the wide K5 at 128 slots timed ("K5 wide 128
-     slots"); then a dynamical action under the connected-lane search
+     slots", its row at 1024 rows); then a dynamical action under the connected-lane search
      (``check_connected_dynamical``): the connected dynamical K4 / K5 at
      racetrack-v1 (V=2) and exit-v1 (V=21), intersection-v2 (V=25), exit-v1
      with 50 vehicles and intersection-v2 with duration 30 (wide), exit-v1
      with 150 vehicles and intersection-v2 at policy_frequency 15 (cluster),
-     each against its plain version on the scenes of check_cluster (512
-     rows, 256 on the cluster), every field bit-exact; at the slice's path
+     each against its plain version on the scenes of check_cluster (256
+     rows, 64 on the cluster), every field bit-exact; at the slice's path
      (intersection-v2 and racetrack-v1 with a dynamical ContinuousAction,
      driven in phase 4 with the other paths: reset and 32 autoreset steps
      at B=4096 eager and captured with the counts set to 0, the
      instantiation once a step, the K5 once more a warm-up, nothing else, a
      profile of the replays) the captured step against the eager one
-     bit-exact and their ms per step in turns; a kernel row each ("K4
+     bit-exact; a kernel row each ("K4
      connected dynamical" .. "K5 cluster connected dynamical"); then the
      scenes over 1024 slots (``check_large_clusters``): intersection-v0
      and -v2 (dynamical) at policy_frequency 15 with duration 80 (V=1212,
      10 blocks a cluster) and exit-v0 with 2047 vehicles (V=2048, 16
      blocks), the clusters of that size the card holds at once, each
-     against its plain version at 16 rows (twins across every rank
-     boundary), driven 4 steps at B=4096 with the counts set to 0, its
-     launch timed at B=4096 and a kernel row at 128 or 64 rows ("K5
+     against its plain version at 8 rows (twins across every rank
+     boundary), driven 2 steps at B=4096 with the counts set to 0, its
+     launch timed at B=4096 and a kernel row at 32 or 16 rows ("K5
      cluster 1212 slots", "K4 cluster 2048 slots", "K5 cluster connected
-     dynamical 1212 slots");
+     dynamical 1212 slots"); then the roads the fixed tables once refused
+     (``check_custom_roads``: a junction of 5 successor edges with two poly
+     lanes and an 18-slot route, 5 and 10 predecessor edges under the
+     connected search, roundabout-v0 with 17 and 31 target speeds, the
+     72-lane oval, the kSized K5 and K4 of every layout, highway-v0 with 17
+     lanes), each held to its plain version at 256, 128 or 64 rows, the
+     driven ones 8 steps with the counts set to 0 and 8 captured steps
+     against eager at B=4096, with a kernel row at B=4096;
   5. times on the card: each kernel's time (CUDA events around launches
      queued behind a device-side wait), its plain version's time (CUDA
      events, the host's gaps between its kernels included), its bound and
@@ -267,17 +274,11 @@ Phases:
      at parking-v0 with three egos and racetrack-v0 with two; the
      simulation of a
      sorted and a dense policy step; the sorted and dense rollouts in
-     turns; the roundabout-v0 and intersection-v0 rollouts three times
-     each, and the three racetrack rollouts; a profile of rollout steps of
-     each (device kernels by name, device busy share); and ms per step of
-     racetrack-v0, the three envs and highway-v0 LinearVehicle, eager against
-     graph, full against compact P=1024, three runs each in turns, with
-     the device busy time per step, and of the slice's five envs, the
-     parking family, roundabout-v1, intersection-v2,
-     intersection-multi-agent-v0, intersection-v1 and lane-keeping-v0 eager
-     against graph, full autoreset, with a profile
-     of eager steps, the observation's and a reset placement's device
-     time; then at highway-v0 with two egos, parking-v0 with two
+     turns; and ms per step of
+     the three envs, eager against graph, full autoreset, three runs each
+     in turns, with the device busy time per step, a reset placement's
+     device time and the host's time to issue a replay, full and compact
+     P=1024; then at highway-v0 with two egos, parking-v0 with two
      and three, parking-parked-v0 and racetrack-v0 with two, highway-v0
      under LidarObservation and under the shuffled Kinematics order, the
      captured full autoreset step against the eager one (obs part by part,
@@ -304,11 +305,13 @@ the kernels JSON, the card line and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -393,8 +396,13 @@ OPS_FAR_QUERY = 16
 # same units.  Per (live slot, lane) and frame: the local coordinates on a
 # straight / sine / circular lane (the projection table), and the lane
 # heading at s plus the closest-lane distance (re-localization).
-GEN_OPS_PROJECT = (8, 13, 16)
-GEN_OPS_RELOCATE = (6, 13, 11)
+GEN_OPS_PROJECT = (8, 13, 16, 4)
+GEN_OPS_RELOCATE = (6, 13, 11, 13)
+# on a poly lane the projection also scans pose samples back from the last
+# until one projects forward: per sample scanned, 2 differences, 2 products,
+# a sum and the test (the 4 of GEN_OPS_PROJECT: k + proj and the lateral
+# offset)
+GEN_OPS_POLY_SAMPLE = 6
 GEN_OPS_SLOT = 120  # per live slot: lane-end test, rows, steering, integration
 # the ego's P-cascade within GEN_OPS_SLOT (the steering law toward the
 # target lane's heading ahead, and the speed control), which a raw-control
@@ -431,14 +439,20 @@ SLICE_ROWS = ("exit-v0", "u-turn-v0")
 #: and 16; 3, 15 and 3 frames), each checked, driven, timed and with a K4
 #: row of its own at B
 PARKING_ENVS = ("parking-v0", "parking-ActionRepeat-v0", "parking-parked-v0")
-#: configs beyond the kernels' arrays, each (env id, config, the limit named)
+#: configs beyond what the kernels take, each (env id, config, the limit
+#: named): the slots of the largest layouts, a block's shared memory, one
+#: target speed, several egos where the env has one, a dynamical action on
+#: a straight road
 OVER_LIMITS = (
-    ("roundabout-v0", {"action": {"type": "DiscreteMetaAction",
-                                  "target_speeds": list(range(17))}},
-     "17 target speeds outside 2 to 16"),
-    ("highway-v0", {"lanes_count": 17}, "17 straight lanes > 16"),
-    ("exit-v0", {"controlled_vehicles": 2}, "several controlled vehicles"),
+    ("merge-v0", {"action": {"type": "DiscreteMetaAction", "target_speeds": [25.0]}},
+     "1 target speeds < 2"),
+    ("highway-fast-v0", {"vehicles_count": 1024}, "1025 slots > 1024"),
     ("exit-v0", {"vehicles_count": 2048}, "2049 slots > 2048"),
+    ("exit-v0", {"lanes_count": 100, "vehicles_count": 100},
+     "315840 bytes of shared memory a block > 232448"),
+    ("exit-v0", {"controlled_vehicles": 2}, "several controlled vehicles"),
+    ("highway-v0", {"action": {"type": "ContinuousAction", "dynamical": True}},
+     "a dynamical action on a straight road"),
 )
 #: the connected-lane search (PR 12): K4's kConnected instantiation held to
 #: its plain version at these ids (exit-v1: the 32-thread group; racetrack-v1:
@@ -456,58 +470,59 @@ CONNECTED_OTHERS = ("merge-v1", "merge-generic-v1", "u-turn-v1", "exit-v1",
                     "racetrack-oval-v1", "intersection-multi-agent-v2")
 CONNECTED_SHORT = 4
 #: the general path's wrappers in ops/general_frames.py and the demangled
-#: names of their IDM instantiations in a profile
+#: names of their IDM instantiations of the fixed layout in a profile
+#: (kRegulated, kLinear, kConnected, kDynamical, kSized)
 GENERAL_PATHS = {
-    "K4": ("frames_general_kernel", "general_frames_kernel<false, false, false, false>"),
+    "K4": ("frames_general_kernel", "general_frames_kernel<false, false, false, false, false>"),
     "K4 connected": ("frames_general_connected_kernel",
-                     "general_frames_kernel<false, false, true, false>"),
-    "K5": ("frames_regulated_kernel", "general_frames_kernel<true, false, false, false>"),
+                     "general_frames_kernel<false, false, true, false, false>"),
+    "K5": ("frames_regulated_kernel", "general_frames_kernel<true, false, false, false, false>"),
     "K5 connected": ("frames_regulated_connected_kernel",
-                     "general_frames_kernel<true, false, true, false>"),
+                     "general_frames_kernel<true, false, true, false, false>"),
     "K4 dynamical": ("frames_general_dynamical_kernel",
-                     "general_frames_kernel<false, false, false, true, DynFields>"),
+                     "general_frames_kernel<false, false, false, true, false, DynFields>"),
     "K5 dynamical": ("frames_regulated_dynamical_kernel",
-                     "general_frames_kernel<true, false, false, true, DynFields>"),
+                     "general_frames_kernel<true, false, false, true, false, DynFields>"),
     "K4 wide": ("frames_general_wide_kernel",
-                "general_frames_wide_kernel<false, false, false, false>"),
+                "general_frames_wide_kernel<false, false, false, false, false>"),
     "K4 wide connected": ("frames_general_connected_wide_kernel",
-                          "general_frames_wide_kernel<false, false, true, false>"),
+                          "general_frames_wide_kernel<false, false, true, false, false>"),
     "K5 wide": ("frames_regulated_wide_kernel",
-                "general_frames_wide_kernel<true, false, false, false>"),
+                "general_frames_wide_kernel<true, false, false, false, false>"),
     "K5 wide connected": ("frames_regulated_connected_wide_kernel",
-                          "general_frames_wide_kernel<true, false, true, false>"),
+                          "general_frames_wide_kernel<true, false, true, false, false>"),
     "K4 wide dynamical": ("frames_general_dynamical_wide_kernel",
-                          "general_frames_wide_kernel<false, false, false, true, DynFields>"),
+                          "general_frames_wide_kernel<false, false, false, true, false, DynFields>"),
     "K5 wide dynamical": ("frames_regulated_dynamical_wide_kernel",
-                          "general_frames_wide_kernel<true, false, false, true, DynFields>"),
+                          "general_frames_wide_kernel<true, false, false, true, false, DynFields>"),
     "K4 cluster": ("frames_general_cluster_kernel",
-                   "general_frames_cluster_kernel<false, false, false, false>"),
+                   "general_frames_cluster_kernel<false, false, false, false, false>"),
     "K4 cluster connected": ("frames_general_connected_cluster_kernel",
-                             "general_frames_cluster_kernel<false, false, true, false>"),
+                             "general_frames_cluster_kernel<false, false, true, false, false>"),
     "K5 cluster": ("frames_regulated_cluster_kernel",
-                   "general_frames_cluster_kernel<true, false, false, false>"),
+                   "general_frames_cluster_kernel<true, false, false, false, false>"),
     "K5 cluster connected": ("frames_regulated_connected_cluster_kernel",
-                             "general_frames_cluster_kernel<true, false, true, false>"),
+                             "general_frames_cluster_kernel<true, false, true, false, false>"),
     "K4 cluster dynamical": ("frames_general_dynamical_cluster_kernel",
-                             "general_frames_cluster_kernel<false, false, false, true, DynFields>"),
+                             "general_frames_cluster_kernel<false, false, false, true, false, DynFields>"),
     "K5 cluster dynamical": ("frames_regulated_dynamical_cluster_kernel",
-                             "general_frames_cluster_kernel<true, false, false, true, DynFields>"),
+                             "general_frames_cluster_kernel<true, false, false, true, false, DynFields>"),
     "K4 connected dynamical": ("frames_general_connected_dynamical_kernel",
-                               "general_frames_kernel<false, false, true, true, DynFields>"),
+                               "general_frames_kernel<false, false, true, true, false, DynFields>"),
     "K5 connected dynamical": ("frames_regulated_connected_dynamical_kernel",
-                               "general_frames_kernel<true, false, true, true, DynFields>"),
+                               "general_frames_kernel<true, false, true, true, false, DynFields>"),
     "K4 wide connected dynamical": (
         "frames_general_connected_dynamical_wide_kernel",
-        "general_frames_wide_kernel<false, false, true, true, DynFields>"),
+        "general_frames_wide_kernel<false, false, true, true, false, DynFields>"),
     "K5 wide connected dynamical": (
         "frames_regulated_connected_dynamical_wide_kernel",
-        "general_frames_wide_kernel<true, false, true, true, DynFields>"),
+        "general_frames_wide_kernel<true, false, true, true, false, DynFields>"),
     "K4 cluster connected dynamical": (
         "frames_general_connected_dynamical_cluster_kernel",
-        "general_frames_cluster_kernel<false, false, true, true, DynFields>"),
+        "general_frames_cluster_kernel<false, false, true, true, false, DynFields>"),
     "K5 cluster connected dynamical": (
         "frames_regulated_connected_dynamical_cluster_kernel",
-        "general_frames_cluster_kernel<true, false, true, true, DynFields>"),
+        "general_frames_cluster_kernel<true, false, true, true, false, DynFields>"),
 }
 #: the ids of the dynamical ContinuousAction: K5's and K4's
 #: kDynamical instantiations
@@ -525,12 +540,13 @@ SINGLE_STEPS = 4
 GRAY_CONFIG = {"observation": {"type": "GrayscaleObservation", "observation_shape": (128, 64),
                                "stack_size": 4, "weights": [0.2989, 0.5870, 0.1140],
                                "scaling": 1.75}}
+GRAY_B = 1024  # envs of the highway-v0 Grayscale path (cut from B for the time limit)
 GRAY_SMALL_B = 512  # envs of the intersection-v0 and racetrack-v0 Grayscale checks
 GRAY_SMALL_STEPS = 8  # policy steps of their rollouts
 GRAY_CPU_ROWS = 64  # rows of a CUDA frame batch held to the CPU's frames
 GRAY_MIN_EQUAL = 0.999  # share of a frame's pixels equal, CUDA against the CPU
 GRAY_MAX_LEVELS = 1  # gray levels a pixel may differ by, CUDA against the CPU
-GRAY_MAX_BYTES = 16e9  # the Grayscale step's peak device memory at B=4096
+GRAY_MAX_BYTES = 16e9  # the Grayscale step's peak device memory at B=4096, pro rata at GRAY_B
 #: the reference's decision order: ids, envs and policy steps of its checks
 SEQ_IDS = ("highway-v0", "u-turn-v0", "intersection-v0")
 SEQ_B = 64
@@ -544,6 +560,36 @@ TIMED_STEPS = 4  # steps of each timed eager / graph, full / compact run
 #: timed runs of a frame kernel's plain version in the kernel table, after
 #: one warm-up (a yardstick; each run is tens to hundreds of ms)
 PLAIN_REPS = 1
+
+
+STRAIGHT_LIBRARIES = ["straight_frames", "straight_sort", "straight_frames_sorted"]
+GENERAL_LIBRARIES = ["general_frames", "general_frames_wide", "general_frames_cluster",
+                     "general_frames_sized", "general_frames_wide_sized",
+                     "general_frames_cluster_sized"]
+
+
+def build_in_background(_build, names):
+    """Start ``_build.build(names)`` on a thread (its nvcc processes all
+    started together) and return a function that waits for it and returns
+    its paths, raising its error."""
+    box = {}
+
+    def work():
+        try:
+            box["paths"] = _build.build(names)
+        except BaseException as e:
+            box["error"] = e
+
+    thread = threading.Thread(target=work, daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["paths"]
+
+    return wait
 
 
 def card_line() -> str:
@@ -801,6 +847,12 @@ def gen_frame_ops(veh, out, spec, table, raw=False) -> float:
     kinds = geo.kind.long()
     per_lane = float((torch.tensor(GEN_OPS_PROJECT, device=dev)[kinds]
                       + torch.tensor(GEN_OPS_RELOCATE, device=dev)[kinds]).sum())
+    poly_ops = 0
+    if geo.poly is not None:  # the samples each (poly lane, live slot) scans
+        poly = (geo.kind == lane_ops.POLY).nonzero()[:, 0].to(torch.int32)
+        idx = lane_ops.poly_pose_index(geo, poly[:, None, None], out.pos[None])
+        n = geo.poly.n[geo.poly.slot[poly.long()].long()]
+        poly_ops = GEN_OPS_POLY_SAMPLE * ((n[:, None, None] - idx) * (out.kind != 0)).sum()
     table_s, table_lat = table
     live = veh.kind != 0
     li = veh.lane.clamp(0, L - 1).long()
@@ -858,7 +910,8 @@ def gen_frame_ops(veh, out, spec, table, raw=False) -> float:
     raw_egos = (veh.kind == 1).sum() if raw else 0
     rk4 = DYN_OPS_RK4 * (veh.kind == 1).sum() if spec.dynamical else 0
     return float(
-        rk4 + (per_lane + GEN_OPS_SLOT) * live.sum() - GEN_OPS_EGO_CONTROLS * raw_egos
+        rk4 + poly_ops + (per_lane + GEN_OPS_SLOT) * live.sum()
+        - GEN_OPS_EGO_CONTROLS * raw_egos
         + GEN_OPS_EDGE_LANE * edge_lanes
         + GEN_OPS_IDM * idm_evals + OPS_LINEAR_ACCEL * lin_evals
         - (GEN_OPS_STEER_PC - OPS_LINEAR_STEER) * lin.sum()
@@ -1007,18 +1060,7 @@ def general_scenes(env, states, gen, obstacle_hit=False):
     for _ in range(8):
         acts = random_actions(env, Bn, gen)
         st = env.step_autoreset_batched(st, acts, gen)[1]
-    out = {"reset": veh, "8 steps in": st.vehicles}
-    h = veh.heading[:, 0]
-    u = torch.stack([torch.cos(h), torch.sin(h)], dim=-1)
-    k = torch.arange(V, device=dev, dtype=torch.float32)
-    row = veh.pos[:, :1] + 1.5 * k[None, :, None] * u[:, None, :]
-    is_veh = veh.is_vehicle
-    out["pile-up"] = veh.replace(
-        pos=torch.where(is_veh[..., None], row, veh.pos),
-        heading=torch.where(is_veh, h[:, None], veh.heading),
-        lane=torch.where(is_veh, veh.lane[:, :1], veh.lane),
-        target_lane=torch.where(is_veh, veh.lane[:, :1], veh.target_lane),
-    )
+    out = {"reset": veh, "8 steps in": st.vehicles, "pile-up": pile_up(veh)}
     if obstacle_hit:  # merge-v0: the obstacle in slot 5
         pos, heading, speed = veh.pos.clone(), veh.heading.clone(), veh.speed.clone()
         lane, tlane = veh.lane.clone(), veh.target_lane.clone()
@@ -1034,6 +1076,22 @@ def general_scenes(env, states, gen, obstacle_hit=False):
         out["obstacle hit"] = veh.replace(pos=pos, heading=heading, speed=speed,
                                           lane=lane, target_lane=tlane)
     return out
+
+
+def pile_up(veh):
+    """Every env's vehicles in a row 1.5 m apart along the ego's heading."""
+    V, dev = veh.kind.shape[1], veh.pos.device
+    h = veh.heading[:, 0]
+    u = torch.stack([torch.cos(h), torch.sin(h)], dim=-1)
+    k = torch.arange(V, device=dev, dtype=torch.float32)
+    row = veh.pos[:, :1] + 1.5 * k[None, :, None] * u[:, None, :]
+    is_veh = veh.is_vehicle
+    return veh.replace(
+        pos=torch.where(is_veh[..., None], row, veh.pos),
+        heading=torch.where(is_veh, h[:, None], veh.heading),
+        lane=torch.where(is_veh, veh.lane[:, :1], veh.lane),
+        target_lane=torch.where(is_veh, veh.lane[:, :1], veh.target_lane),
+    )
 
 
 def compare_general(a, b, where: str) -> float:
@@ -1119,17 +1177,24 @@ def k4_work(gf, env, veh, sa, spec=None, with_state=False):
         ops += gen_frame_ops(v, out, spec, table, raw=raw)
         v, table = out, next_table
     R = veh.route_base.shape[-1]
-    lf, li = gf.lane_tables(spec.geo, env.device)
     n_bytes = (read_bytes(veh, gf._resolve(gf._IN_FIELDS, R)) + (0 if raw else sa.numel() * 4)
                + field_bytes(v, gf._resolve(gf.OUT_FIELDS, R))
-               + lf.numel() * 4 + li.numel() * 4 + conn_bytes(gf, spec)
-               + dyn_bytes(gf, spec, veh))
+               + table_bytes(gf, spec, raw, R, env.device) + dyn_bytes(gf, spec, veh))
     return (ops, n_bytes, v) if with_state else (ops, n_bytes)
 
 
-def conn_bytes(gf, spec) -> int:
-    """The bytes of the candidate tables a connected launch reads."""
-    return 2 * 4 * spec.geo.num_lanes * gf.MAX_CONN if spec.connected else 0
+def table_bytes(gf, spec, raw: bool, R: int, device) -> int:
+    """The bytes of the tables a general launch at R route slots reads:
+    the lane tables, (connected) the candidate tables, in the layout of
+    ``scene_tables``, (poly lanes) the poly bank and (the kSized layout's
+    meta-actions) the speed grid."""
+    S, K, sized = gf.scene_tables(spec, R, raw)
+    tables = gf.lane_tables(spec.geo, device, S, sized) + gf.poly_tables(spec.geo, device)
+    if spec.connected:
+        tables += gf.conn_tables(spec.geo, device, K)
+    if sized:  # the fixed layout's grid is in the parameter block
+        tables += gf.speed_table(spec, raw, device)
+    return sum(t.numel() * t.element_size() for t in tables)
 
 
 def dyn_bytes(gf, spec, veh) -> int:
@@ -1149,12 +1214,10 @@ def k5_work(gf, env, veh, sa, steps0, frames, spec=None, with_state=False):
     spec, raw = spec or env._general, sa is None
     ops, out = regulated_ops(veh, spec, sa, frames, steps0)
     R = veh.route_base.shape[-1]
-    lf, li = gf.lane_tables(spec.geo, env.device)
     n_bytes = (read_bytes(veh, gf._resolve(gf._IN_FIELDS, R) + gf.REG_FIELDS)
                + (0 if raw else sa.numel() * 4) + veh.kind.shape[0] * 4
                + field_bytes(out, gf._resolve(gf.OUT_FIELDS, R) + gf.REG_FIELDS)
-               + lf.numel() * 4 + li.numel() * 4 + conn_bytes(gf, spec)
-               + dyn_bytes(gf, spec, veh))
+               + table_bytes(gf, spec, raw, R, env.device) + dyn_bytes(gf, spec, veh))
     return (ops, n_bytes, out) if with_state else (ops, n_bytes)
 
 
@@ -1266,9 +1329,13 @@ def check_parking_kernels(ht, gf, err) -> dict:
 
 
 def check_refusals(ht) -> None:
-    """``make`` on the card refuses what the kernels' arrays do not hold,
-    as on the CPU, naming the limit: no such env reaches a launch.  A poly
-    lane (``poly_merge``) is refused on every frame path."""
+    """``make`` on the card refuses what the kernels do not take, as on the
+    CPU, naming the limit: no such env reaches a launch.  The roads the
+    fixed tables once refused (a crowded node under the connected-lane
+    search, poly lanes, with ``sequential_decisions`` too) are made and
+    take two policy steps at 64 rows."""
+    from highwayenv_tpu_torch.tools import custom_roads
+
     for env_id, config, what in OVER_LIMITS:
         try:
             ht.make(env_id, config)
@@ -1278,26 +1345,19 @@ def check_refusals(ht) -> None:
             print(f"  make('{env_id}', {config}) on CUDA refused: {e}")
         else:
             raise AssertionError(f"{env_id} {config}: made past the kernels' limits")
-    what = "12 connected-lane candidates > 9"
-    try:
-        crowded_merge(ht)
-    except NotImplementedError as e:
-        if what not in str(e) or "not ported" not in str(e):
-            raise AssertionError(f"crowded merge-v1: refused for another reason: {e}") from e
-        print(f"  merge-v1 with 10 predecessor edges into a node, on CUDA, refused: {e}")
-    else:
-        raise AssertionError("crowded merge-v1: made past the candidate tables")
-    from highwayenv_tpu_torch.ops.general_frames import POLY_LIMIT
-
-    for config in (None, {"sequential_decisions": True}):
-        try:
-            poly_merge(ht, config)
-        except NotImplementedError as e:
-            if POLY_LIMIT not in str(e) or "not ported" not in str(e):
-                raise AssertionError(f"poly-lane merge-v0: refused for another reason: {e}") from e
-            print(f"  merge-v0 with a poly lane, {config}, on CUDA, refused: {e}")
-        else:
-            raise AssertionError(f"poly-lane merge-v0 {config}: made with a poly lane")
+    for cls, config in ((custom_roads.CrowdedMerge, {"neighbour_vehicles_connected_lanes": True}),
+                        (custom_roads.PolyJunctionMerge, None),
+                        (custom_roads.PolyJunctionMerge, {"sequential_decisions": True})):
+        env = cls(config)
+        gen = env.generator(SEED)
+        _, st = env.reset(64, gen)
+        st, m = rollout(env, st, 2, gen)
+        if not all(np.isfinite([float(v) for v in m.values()])):
+            raise AssertionError(f"{cls.__name__} {config}: non-finite metrics")
+        print(f"  {cls.__name__} {config} on CUDA made and stepped: {env.geo.num_lanes} lanes, "
+              f"{env.geo.pred_edge_base.shape[1]} predecessor and "
+              f"{env.geo.succ_edge_base.shape[1]} successor edges a lane at most, "
+              f"{'a' if env.geo.poly is not None else 'no'} poly bank")
 
 
 def check_connected_kernels(ht, gf, err) -> dict:
@@ -1453,24 +1513,6 @@ def check_dynamical_kernels(ht, gf, err) -> dict:
     return envs
 
 
-def crowded_merge(ht):
-    """merge-v1 with 8 more one-lane edges into node "b": 10 predecessor
-    edges, 12 candidate lanes on the lanes leaving "b", beyond the
-    kernels' candidate tables."""
-    from highwayenv_tpu_torch.envs.merge import MergeEnv
-    from highwayenv_tpu_torch.road.network import StraightLane
-
-    class CrowdedMerge(MergeEnv):
-        def _build_scene(self):
-            super()._build_scene()
-            for k in range(8):
-                self.net.add_lane(f"x{k}", "b", StraightLane(
-                    [100.0, 40.0 + 10.0 * k], [230.0, 40.0 + 10.0 * k]))
-            self.geo = self.net.build(device=self.device)
-
-    return CrowdedMerge(config={"neighbour_vehicles_connected_lanes": True})
-
-
 def poly_lanes(net_mod, seed: int = SEED):
     """A fixed-width and a variable-width poly lane of seeded control points
     (``net_mod``'s classes): (fixed, variable)."""
@@ -1481,20 +1523,6 @@ def poly_lanes(net_mod, seed: int = SEED):
     half = rng.uniform(1.8, 3.0, size=8)[:, None] * np.array([0.0, 1.0])
     return (net_mod.PolyLaneFixedWidth(pts.tolist(), width=3.5),
             net_mod.PolyLane(pts.tolist(), (pts + half).tolist(), (pts - half).tolist()))
-
-
-def poly_merge(ht, config=None):
-    """merge-v0 with a poly lane after its end: ``make`` refuses it."""
-    from highwayenv_tpu_torch.envs.merge import MergeEnv
-    from highwayenv_tpu_torch.road import network
-
-    class PolyMerge(MergeEnv):
-        def _build_scene(self):
-            super()._build_scene()
-            self.net.add_lane("d", "e", poly_lanes(network)[0])
-            self.geo = self.net.build(device=self.device)
-
-    return PolyMerge(config=config)
 
 
 # Several controlled vehicles at the highway, parking and racetrack
@@ -1809,32 +1837,6 @@ def drive_slice(envs, kernels, launches, crash_first: bool = False) -> None:
         launches[f"K4 {env_id}"] = k4.launches
 
 
-def profile_rollout(env, states, gen, steps: int = 4) -> None:
-    """Where a rollout step's time goes: device kernels by name and the
-    device's busy share of the wall time, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rollout(env, states, steps, gen)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    ]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels)
-    print(f"  profile of {steps} rollout steps: wall {wall_us / steps:.1f} us per "
-          f"step, device busy {busy_us / steps:.1f} us per step "
-          f"({100 * busy_us / wall_us:.1f}%), {launches / steps:.1f} device "
-          "kernels per step")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"    {e.self_device_time_total / steps:10.1f} us/step "
-              f"{e.count / steps:6.1f}x  {e.key[:90]}")
-
-
 def crashed_every(env, states, k: int = CRASH_EVERY):
     """``states`` with the ego of every k-th env crashed: their episodes end
     at the next step."""
@@ -1996,7 +1998,7 @@ def profile_replays(env, states, gen, kernel_names, counters: dict) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_REPLAYS):
-            step(random_actions(env, B, gen))
+            step(random_actions(env, states.time.shape[0], gen))
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -2380,18 +2382,18 @@ def check_frames_cpu(ht, env_id, env, states, label: str) -> str:
 def check_grayscale(ht, kernels, launches, rows, err, card: str, start: float) -> dict:
     """GrayscaleObservation on the card.
 
-    highway-v0 (V=51) at B=4096 with GRAY_CONFIG, the counts set to 0 just
-    before a HORIZON-step random-policy rollout and read just after: K1,
-    K2a, K3 and K2b once a policy step, as at one-ego highway-v0, and no
-    other kernel; K1, K2a, K3 and K2b against their plain versions on the
-    reset scene, bit-exact (their errors in ``err`` under "K1 grayscale"
-    ..); then the compact autoreset (P=1024) against the full one and the
-    captured full step against the eager one, the stack included,
-    bit-exact; the CUDA frames against the CPU's (``check_frames_cpu``) of
-    the reset batch and of the rollout's last state; eager and graph ms per
-    step (three runs each, in turns), device busy and kernels per step and
-    a profile of replays, the head's device ms at B rows, the step's peak
-    device memory (at most GRAY_MAX_BYTES), and the rows "K1 grayscale" ..
+    highway-v0 (V=51) at GRAY_B with GRAY_CONFIG, the counts set to 0 just
+    before a GRAY_SMALL_STEPS-step random-policy rollout and read just
+    after: K1, K2a, K3 and K2b once a policy step, as at one-ego
+    highway-v0, and no other kernel; K1, K2a, K3 and K2b against their
+    plain versions on the reset scene, bit-exact (their errors in ``err``
+    under "K1 grayscale" ..); then the compact autoreset (P = GRAY_B / 4)
+    against the full one and the captured full step against the eager one,
+    the stack included, bit-exact; the CUDA frames against the CPU's
+    (``check_frames_cpu``) of the reset batch and of the rollout's last
+    state; eager and graph ms per step (three runs each, in turns), a
+    profile of replays, the step's peak device memory (at most
+    GRAY_MAX_BYTES pro rata), and the rows "K1 grayscale" ..
     "K2b grayscale": the Grayscale path's launches beside the times of
     the same kernels on the main path's highway-v0 scene (phase 5: the
     state the kernels read is the same under any observation).  Then
@@ -2404,12 +2406,13 @@ def check_grayscale(ht, kernels, launches, rows, err, card: str, start: float) -
     from highwayenv_tpu_torch.parallel.graph import CapturedStep
 
     out = {}
-    for env_id, n, path in (("highway-v0", B, ("K1", "K2a", "K3", "K2b")),
+    for env_id, n, path in (("highway-v0", GRAY_B, ("K1", "K2a", "K3", "K2b")),
                             ("intersection-v0", GRAY_SMALL_B, ("K5",)),
                             ("racetrack-v0", GRAY_SMALL_B, ("K4",))):
         env = ht.make(env_id, GRAY_CONFIG)
         label = f"{env_id} Grayscale"
-        steps = HORIZON if n == B else GRAY_SMALL_STEPS
+        steps = GRAY_SMALL_STEPS  # at GRAY_B too: HORIZON was cut for the time limit
+        main = env_id == "highway-v0"
         print(f"== 4. Grayscale path: make('{env_id}', {GRAY_CONFIG}) on CUDA, B={n}, "
               f"V={env.num_slots}, reset and {steps} random-policy autoreset steps "
               f"[at {time.time() - start:.0f} s]")
@@ -2434,17 +2437,17 @@ def check_grayscale(ht, kernels, launches, rows, err, card: str, start: float) -
         if not all(np.isfinite(list(m.values()))):
             raise AssertionError(f"{label}: non-finite metrics")
         for name, c in counts.items():
-            launches[f"{name} grayscale" + ("" if n == B else f" {env_id}")] = c
+            launches[f"{name} grayscale" + ("" if main else f" {env_id}")] = c
         for what, st in (("reset", states), (f"{steps} steps in", last)):
             print(f"  CUDA frames against the CPU's, {what}, {GRAY_CPU_ROWS} rows: "
                   + check_frames_cpu(ht, env_id, env, st, f"{label} {what}"))
-        check_compact(env, states, label + " ", slots=(1024,) if n == B else (n // 4,))
+        check_compact(env, states, label + " ", slots=(n // 4,))
         check_graph(env, states, label + " ", variants=((None, False),))
         out[env_id] = (env, states)
-        if n != B:
+        if not main:
             continue
 
-        # the main path's times at B=4096
+        # the path's times at GRAY_B
         walls = {name: [] for name in ("eager full", "graph full")}
         for r in range(3):
             for name in (("eager full", "graph full") if r % 2 == 0
@@ -2452,13 +2455,12 @@ def check_grayscale(ht, kernels, launches, rows, err, card: str, start: float) -
                 walls[name].append(timed_steps(env, states, env.generator(SEED + 5),
                                                TIMED_STEPS, None, name == "graph full"))
         for name, ws in walls.items():
-            busy, n_kernels = step_device_ms(env, states, env.generator(SEED + 5), None,
-                                             name == "graph full")
             mid = sorted(ws)[1]
             print(f"  {label} {name}: " + ", ".join(f"{w:.4f}" for w in ws)
-                  + f" ms per step ({B * 1e3 / mid:.1f} env-steps/s at the median); device "
-                  f"busy {busy:.4f} ms per step, {100 * busy / mid:.1f}% of the median, "
-                  f"{n_kernels:.1f} device kernels per step ({card})")
+                  + f" ms per step at B={n} ({n * 1e3 / mid:.1f} env-steps/s at the median; "
+                  f"{card})")
+        # (the steps' device busy time, and the head's and the push's device
+        # ms, are cut for the time limit: a profile of ~10,800 kernels a step)
         names = ("straight_frames_kernel", "sort_kernel", "straight_frames_sorted_kernel",
                  "unsort_kernel")
         prof = profile_replays(env, states, env.generator(SEED + 6), names, kernels)
@@ -2473,29 +2475,24 @@ def check_grayscale(ht, kernels, launches, rows, err, card: str, start: float) -
         if prof["kernels"] > 0 and any(prof["ours"].get(k, 0.0) != 1.0 for k in names):
             raise AssertionError(f"{label}: a replay launched {prof['ours']}, expected one "
                                  "of each sorted-path kernel")
-        ot, veh = env.observation_type, states.vehicles
-        head_ms = device_ms(lambda: ot.frame(env.geo, veh, env.ego_slots[0]), 3)
-        push_ms = device_ms(lambda: env._push_frame(states), 3)
-        print(f"  {label} head at {B} rows: a frame {head_ms:.4f} ms on the device, the push "
-              f"(frame and roll) {push_ms:.4f} ms ({card})")
         peaks = {}
-        for name, P in (("full", None), ("compact P=1024", 1024)):
+        for name, P in (("full", None), (f"compact P={n // 4}", n // 4)):
             st = map_fields(torch.clone, states)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
-            env.step_autoreset_batched(st, random_actions(env, B, gen), gen, reset_slots=P)
+            env.step_autoreset_batched(st, random_actions(env, n, gen), gen, reset_slots=P)
             torch.cuda.synchronize()
             peaks[f"eager {name}"] = torch.cuda.max_memory_allocated()
             peaks[f"eager {name}, above the state"] = peaks[f"eager {name}"] - base
         torch.cuda.reset_peak_memory_stats()
         cap = CapturedStep(env, states, env.generator(SEED + 7))
-        cap(random_actions(env, B, gen))
+        cap(random_actions(env, n, gen))
         torch.cuda.synchronize()
         peaks["captured full (capture and a replay)"] = torch.cuda.max_memory_allocated()
         del cap
         print(f"  {label} peak device memory (max_memory_allocated, bytes): {peaks} ({card})")
-        if max(peaks.values()) > GRAY_MAX_BYTES:
+        if max(peaks.values()) > GRAY_MAX_BYTES * n / B:
             raise AssertionError(f"{label}: peak device memory {max(peaks.values())} bytes")
         check_gray_kernels(env, states, err)
         for name in path:
@@ -3201,7 +3198,9 @@ WIDE_CHECKED = (
         "type": "ContinuousAction", "dynamical": True}}),
     ("K5 wide 128 slots", "intersection-v0", {"duration": 116}),
 )
-WIDE_HORIZON = 16  # policy steps of each wide path's zeroed rollout
+WIDE_HORIZON = 8  # policy steps of each wide path's zeroed rollout
+#: rows of the wide scenes' checks (cut from B for the time limit)
+WIDE_CHECK_ROWS = 256
 
 
 def layout_kernels(gf, layout: str) -> dict:
@@ -3261,7 +3260,7 @@ def frame_call(gf, env, veh, steps0, sa, frames, raw, chunk=None):
 
 def check_wide(ht, gf, kernels, rows, err, launches, card: str, start: float) -> None:
     """The scenes over the narrow kernels' limits: each of WIDE_ROWS
-    and WIDE_CHECKED made on CUDA at B, its wide (or 48-lane) instantiation
+    and WIDE_CHECKED made on CUDA at WIDE_CHECK_ROWS rows, its wide (or 48-lane) instantiation
     against its plain version on every scene of ``wide_scenes``, every field
     bit-exact; each of WIDE_ROWS driven WIDE_HORIZON steps with the counts
     set to 0 just before (its instantiation once a step; on a regulated road
@@ -3270,19 +3269,19 @@ def check_wide(ht, gf, kernels, rows, err, launches, card: str, start: float) ->
     plain frames, their time and the bound, a row of its own (``frame_row``);
     then at
     intersection-v0 with duration 30 compact against full and captured
-    against eager, and its captured and eager full step beside the default
-    intersection-v0's, in turns."""
+    against eager, and its captured and eager full step in turns."""
     every = {**kernels, **layout_kernels(gf, "wide")}
     envs = {}
     for key, env_id, config in WIDE_ROWS + WIDE_CHECKED:
         env = ht.make(env_id, config)
         gen = env.generator(SEED)
-        _, states = env.reset(B, gen)
+        _, states = env.reset(WIDE_CHECK_ROWS, gen)
         V = env.num_slots
         kernel = gf.frames_kernel_for(env._general, env.regulated, V)
         print(f"== 4. wide scenes: {key}, {env_id} {config}: V={V}, L={env.geo.num_lanes}, "
               f"R={states.vehicles.route_base.shape[-1]}, {group_size(V)} threads an env, "
-              f"{kernel.source}.{kernel.entry}, B={B} [at {time.time() - start:.0f} s]")
+              f"{kernel.source}.{kernel.entry}, B={WIDE_CHECK_ROWS} "
+              f"[at {time.time() - start:.0f} s]")
         err[key] = 0.0
         for name, call in wide_scenes(env, states, gen).items():
             k, run, plain = frame_call(gf, env, *call)
@@ -3306,12 +3305,10 @@ def check_wide(ht, gf, kernels, rows, err, launches, card: str, start: float) ->
     label = "intersection-v0 duration 30 "
     check_compact(ienv, ist, label)
     check_graph(ienv, ist, label)
-    # its captured and eager full steps beside the default intersection-v0's
-    denv = ht.make("intersection-v0")
+    # its captured and eager full steps, in turns (the default
+    # intersection-v0's are phase 5's)
     walls = {}
-    runs = [(f"{name} {mode}", e, mode == "graph")
-            for name, e in (("duration 30", ienv), ("default", denv))
-            for mode in ("eager", "graph")]
+    runs = [(f"duration 30 {mode}", ienv, mode == "graph") for mode in ("eager", "graph")]
     firsts = {name: e.reset(B, e.generator(SEED + 4))[1] for name, e, _ in runs}
     for r in range(3):
         for name, e, graph in (runs if r % 2 == 0 else runs[::-1]):
@@ -3333,28 +3330,31 @@ def check_wide(ht, gf, kernels, rows, err, launches, card: str, start: float) ->
 #: exit-v1 with 150 vehicles (V=151) and, dynamical, at racetrack-v0 with 150
 #: NPCs (V=151); each held to its plain version, driven with the counts set
 #: to 0 and timed, with a kernel row of its own.  The checks run at fewer
-#: rows than B: the plain frames' (B, V, V[, 11]) pair tensors
+#: rows than B: the plain frames' (B, V, V[, 11]) pair tensors (and the
+#: time limit)
 CLUSTER_ROWS = (
-    ("K5 cluster step", "intersection-v0", {"policy_frequency": 15}, 256),
-    ("K5 cluster connected", "intersection-v2", {"policy_frequency": 15}, 256),
-    ("K5 cluster dynamical", "intersection-v1", {"policy_frequency": 15}, 256),
-    ("K4 cluster", "exit-v0", {"vehicles_count": 150}, 256),
-    ("K4 cluster connected", "exit-v1", {"vehicles_count": 150}, 256),
+    ("K5 cluster step", "intersection-v0", {"policy_frequency": 15}, 64),
+    ("K5 cluster connected", "intersection-v2", {"policy_frequency": 15}, 64),
+    ("K5 cluster dynamical", "intersection-v1", {"policy_frequency": 15}, 64),
+    ("K4 cluster", "exit-v0", {"vehicles_count": 150}, 64),
+    ("K4 cluster connected", "exit-v1", {"vehicles_count": 150}, 64),
     ("K4 cluster dynamical", "racetrack-v0", {"other_vehicles": 150, "action": {
-        "type": "ContinuousAction", "dynamical": True}}, 256),
+        "type": "ContinuousAction", "dynamical": True}}, 64),
 )
 #: held only: K4's raw branch at racetrack-v0 with 150 NPCs, and the top of
 #: the range, intersection-v0 with duration 60 (V=912, 8 blocks a cluster)
 CLUSTER_CHECKED = (
-    ("K4 cluster raw", "racetrack-v0", {"other_vehicles": 150}, 256),
-    ("K5 cluster 912 slots", "intersection-v0", {"duration": 60, "policy_frequency": 15}, 16),
+    ("K4 cluster raw", "racetrack-v0", {"other_vehicles": 150}, 64),
+    ("K5 cluster 912 slots", "intersection-v0", {"duration": 60, "policy_frequency": 15}, 8),
 )
 CLUSTER_HORIZON = 8  # policy steps of each cluster path's zeroed rollout
 #: float32 elements of one (rows, V, V, 11) tensor of the plain right-of-way
 #: pass that a plain call of a timed row may make at once (0.5 GB)
 PLAIN_PAIR_ELEMENTS = 2**27
-#: the wide K5 at its 128 slots, held bit-exact by check_wide, timed here
+#: the wide K5 at its 128 slots, held bit-exact by check_wide, timed here,
+#: its row at WIDE_128_ROWS rows (its plain frames took 13 s at B)
 WIDE_128 = ("K5 wide 128 slots", "intersection-v0", {"duration": 116})
+WIDE_128_ROWS = 1024
 
 
 def rolled(veh, sa, shift: int):
@@ -3411,24 +3411,51 @@ def chunked(fn, args, rows: int):
     return map_fields(lambda *ts: torch.cat(ts), *outs)
 
 
-def chunked_work(gf, env, veh, sa, steps0, rows: int):
-    """(float32 operations, bytes, the plain frames' state) of one frame
-    launch from ``veh`` over the batch (k4_work / k5_work), counted on
-    chunks of ``rows`` rows and summed, the lane and candidate tables'
-    bytes counted once, the chunks' states concatenated."""
+def plain_work(gf, env, veh, sa, steps0, rows: int):
+    """(plain ms, float32 operations, bytes, the plain frames' state) of one
+    frame launch from ``veh`` over the batch: the plain frames once, in
+    chunks of ``rows`` rows, frame by frame as ``frames_general_plain`` runs
+    them, between CUDA events (the host's gaps included), each frame's
+    inputs and outputs kept; then the operations counted on those
+    (``gen_frame_ops``, and ``reg_tick_ops`` where an env ticks, as
+    k4_work / k5_work count them) and the bytes of k4_work / k5_work over
+    the batch, the tables once."""
     from highwayenv_tpu_torch.envs.base import map_fields
+    from highwayenv_tpu_torch.road import lane as lane_ops
 
-    spec = env._general
-    lf, li = gf.lane_tables(spec.geo, env.device)
-    tables = lf.numel() * 4 + li.numel() * 4 + conn_bytes(gf, spec)
-    ops, n_bytes, outs = 0.0, 0, []
+    spec, raw = env._general, sa is None
+    kept, outs = [], []
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for lo in range(0, veh.kind.shape[0], rows):
-        v, a, s = (row_slice(x, lo, rows) for x in (veh, sa, steps0))
-        o, b, out = (k5_work(gf, env, v, a, s, env.frames_per_step, with_state=True)
-                     if env.regulated else k4_work(gf, env, v, a, with_state=True))
-        ops, n_bytes = ops + o, n_bytes + b
-        outs.append(out)
-    return ops, n_bytes - (len(outs) - 1) * tables, map_fields(lambda *ts: torch.cat(ts), *outs)
+        v, a, s0 = (row_slice(x, lo, rows) for x in (veh, sa, steps0))
+        phase = None if s0 is None else torch.remainder(s0.to(torch.int32), spec.period)
+        table = lane_ops.projection_table(spec.geo, v.pos)
+        for f in range(env.frames_per_step):
+            tick = None if phase is None else torch.remainder(phase + (f + 1), spec.period) == 0
+            out, next_table = gf.frame_general_plain(v, spec, table, a if f == 0 else None,
+                                                     tick, raw=raw)
+            kept.append((v, out, table, tick))
+            v, table = out, next_table
+        outs.append(v)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    ops = 0.0
+    for v, out, table, tick in kept:
+        ops += gen_frame_ops(v, out, spec, table, raw=raw)
+        if tick is not None and bool(tick.any()):
+            ops += reg_tick_ops(v, spec, tick)
+    out = map_fields(lambda *ts: torch.cat(ts), *outs)
+    R = veh.route_base.shape[-1]
+    reg = gf.REG_FIELDS if env.regulated else []
+    n_bytes = (read_bytes(veh, gf._resolve(gf._IN_FIELDS, R) + reg)
+               + (0 if raw else sa.numel() * 4) + (veh.kind.shape[0] * 4 if reg else 0)
+               + field_bytes(out, gf._resolve(gf.OUT_FIELDS, R) + reg)
+               + table_bytes(gf, spec, raw, R, env.device) + dyn_bytes(gf, spec, veh))
+    return ms, ops, n_bytes, out
 
 
 def check_cluster(ht, gf, kernels, rows, err, launches, card: str, start: float) -> None:
@@ -3468,7 +3495,7 @@ def check_cluster(ht, gf, kernels, rows, err, launches, card: str, start: float)
     key, env_id, config = WIDE_128
     env = ht.make(env_id, config)
     launches[key] = drive_path(gf, env, every, key, env_id, config, CLUSTER_HORIZON)
-    frame_row(gf, env, key, env_id, config, rows, err, card, start)
+    frame_row(gf, env, key, env_id, config, rows, err, card, start, batch=WIDE_128_ROWS)
 
 
 def hold_scenes(gf, env, key: str, env_id: str, config, n_check: int, err,
@@ -3517,7 +3544,8 @@ def drive_path(gf, env, kernels, key: str, env_id: str, config, steps: int) -> i
     a reset of B rows and ``steps`` random-policy autoreset steps; its
     frame instantiation launches once a step and, on a regulated road, the
     narrow K5 of the same law once a step and once more for the reset's
-    16-slot warm-up, nothing else.  Returns the instantiation's launches."""
+    16-slot warm-up (on a narrow scene the same wrapper: 2 steps + 1),
+    nothing else.  Returns the instantiation's launches."""
     kernel = gf.frames_kernel_for(env._general, env.regulated, env.num_slots)
     label = [n for n, k in kernels.items() if k is kernel][0]
     gen = env.generator(SEED + 1)
@@ -3529,7 +3557,8 @@ def drive_path(gf, env, kernels, key: str, env_id: str, config, steps: int) -> i
     counts = {n: k.launches for n, k in kernels.items() if k.launches}
     want = {label: steps}
     if env.regulated:  # the reset batch's 16-slot warm-up, every step and the first
-        want[label.replace(" wide", "").replace(" cluster", "")] = steps + 1
+        narrow = label.replace(" wide", "").replace(" cluster", "")
+        want[narrow] = want.get(narrow, 0) + steps + 1
     m = {k: float(v) for k, v in m.items()}
     print(f"  {key} path, {env_id} {config}: reset and {steps} autoreset steps, B={B}, "
           f"launches {counts}; rollout {m}")
@@ -3566,29 +3595,28 @@ def frame_row(gf, env, key: str, env_id: str, config, rows, err, card: str,
               start: float, batch: int = B) -> None:
     """A kernel row for ``env``'s frame launch at ``batch`` rows (B unless
     said): its time queued from a fresh reset (the tick phases spread,
-    random actions); the plain frames over the same rows, in chunks of
-    ``plain_rows`` rows, frame by frame with the operations counted (the
-    bound), the launch's output held bit-exact to theirs; the plain
-    version's time, CUDA events around one more run of it, the host's gaps
-    between its kernels included (the profiler's device sum, which leaves
-    them out, took about two minutes to gather at the 128-slot scene)."""
+    random actions); the plain frames over the same rows once, in chunks of
+    ``plain_rows`` rows (``plain_work``): their time, CUDA events around
+    them, the host's gaps between their kernels included (the profiler's
+    device sum, which leaves them out, took about two minutes to gather at
+    the 128-slot scene), the operations counted on their frames (the
+    bound), the launch's output held bit-exact to theirs."""
     veh, steps0, sa, raw = row_inputs(gf, env, batch)
     chunk = plain_rows(env.num_slots)
-    kernel, run, plain = frame_call(gf, env, veh, steps0, sa, env.frames_per_step, raw, chunk)
+    kernel, run, _ = frame_call(gf, env, veh, steps0, sa, env.frames_per_step, raw)
     out_k = run()
-    ops, n_bytes, out_p = chunked_work(gf, env, veh, sa, steps0, chunk)
-    torch.cuda.synchronize()
+    plain_ms, ops, n_bytes, out_p = plain_work(gf, env, veh, sa, steps0, chunk)
     err[key] = max(err.get(key, 0.0), compare_general(out_k, out_p, f"{key} timed inputs"))
     ms = queued_ms(run, 10)
-    plain_ms = cuda_ms(plain, 1, warmup=False)
     bms, by, t_ops, t_bytes = bound(ops, n_bytes)
     V = env.num_slots
     layout = (f"{-(-V // 128)} blocks an env" if kernel.cluster
               else f"{group_size(V)} threads an env")
+    sized = gf.scene_tables(env._general, env.route_slots, raw)[2]
     rows[key] = (f"{kernel.entry} ({env_id} {json.dumps(config)}, V={V}, "
                  f"L={env.geo.num_lanes}, {layout}" + (", raw controls" if raw else "")
-                 + ("" if batch == B else f", B={batch}") + ")",
-                 f"highwayenv_tpu_torch/csrc/{kernel.source}.cu",
+                 + (", kSized" if sized else "") + ("" if batch == B else f", B={batch}") + ")",
+                 f"highwayenv_tpu_torch/csrc/{kernel.source}{'_sized' * sized}.cu",
                  "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms, bms, by, None)
     print(f"  {key}: {ms:.4f} ms queued at B={batch}; plain {plain_ms:.4f} ms (CUDA events, chunks "
           f"of {chunk} rows); bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} "
@@ -3607,16 +3635,16 @@ DYNAMICAL = {"action": {"type": "ContinuousAction", "dynamical": True}}
 #: version, driven with the counts set to 0 and timed at B, with a kernel
 #: row of its own
 CONN_DYN_ROWS = (
-    ("K4 connected dynamical", "racetrack-v1", DYNAMICAL, 512),
-    ("K5 connected dynamical", "intersection-v2", DYNAMICAL, 512),
-    ("K4 wide connected dynamical", "exit-v1", {"vehicles_count": 50, **DYNAMICAL}, 512),
-    ("K5 wide connected dynamical", "intersection-v2", {"duration": 30, **DYNAMICAL}, 512),
-    ("K4 cluster connected dynamical", "exit-v1", {"vehicles_count": 150, **DYNAMICAL}, 256),
+    ("K4 connected dynamical", "racetrack-v1", DYNAMICAL, 256),
+    ("K5 connected dynamical", "intersection-v2", DYNAMICAL, 256),
+    ("K4 wide connected dynamical", "exit-v1", {"vehicles_count": 50, **DYNAMICAL}, 256),
+    ("K5 wide connected dynamical", "intersection-v2", {"duration": 30, **DYNAMICAL}, 256),
+    ("K4 cluster connected dynamical", "exit-v1", {"vehicles_count": 150, **DYNAMICAL}, 64),
     ("K5 cluster connected dynamical", "intersection-v2",
-     {"policy_frequency": 15, **DYNAMICAL}, 256),
+     {"policy_frequency": 15, **DYNAMICAL}, 64),
 )
 #: held only: the narrow K4 at exit-v1 (V=21, the 32-thread group)
-CONN_DYN_CHECKED = (("K4 connected dynamical exit-v1", "exit-v1", DYNAMICAL, 512),)
+CONN_DYN_CHECKED = (("K4 connected dynamical exit-v1", "exit-v1", DYNAMICAL, 256),)
 #: the slice's path at full width: the narrow K5 and K4 of the connected
 #: dynamical law, driven HORIZON steps eager and captured (phase 4)
 CONN_DYN_PATHS = ("intersection-v2", "racetrack-v1")
@@ -3625,39 +3653,19 @@ CONN_DYN_PATHS = ("intersection-v2", "racetrack-v1")
 #: the kernel row): the regulated K5 at intersection-v0 at policy_frequency
 #: 15 with duration 80 (V=1212, 10 blocks), K4 at exit-v0 with 2047 vehicles
 #: (V=2048, 16 blocks) and the connected dynamical K5 at intersection-v2 at
-#: the same settings (V=1212); each held to its plain version at 16 rows,
+#: the same settings (V=1212); each held to its plain version at 8 rows,
 #: driven LARGE_HORIZON steps with the counts set to 0 at B and timed at B; its kernel row at
 #: fewer rows than B: the plain frames over the row's rows give its bound
 #: and plain time, and at B they would take minutes (29 s at V=2048 over
 #: 256 rows, 9 s at V=1212 over 512, on the H100)
 LARGE_ROWS = (
     ("K5 cluster 1212 slots", "intersection-v0", {"policy_frequency": 15, "duration": 80},
-     16, 128),
-    ("K4 cluster 2048 slots", "exit-v0", {"vehicles_count": 2047}, 16, 64),
+     8, 32),
+    ("K4 cluster 2048 slots", "exit-v0", {"vehicles_count": 2047}, 8, 16),
     ("K5 cluster connected dynamical 1212 slots", "intersection-v2",
-     {"policy_frequency": 15, "duration": 80, **DYNAMICAL}, 16, 128),
+     {"policy_frequency": 15, "duration": 80, **DYNAMICAL}, 8, 32),
 )
-LARGE_HORIZON = 4  # policy steps of each large scene's zeroed rollout at B
-
-
-def eager_graph_turns(label: str, env, t0_states, card: str) -> None:
-    """ms per step of ``env``'s full autoreset step from ``t0_states``,
-    eager against captured, TIMED_STEPS steps three times each in turns,
-    with the device busy time and kernels per step."""
-    walls = {"eager full": [], "graph full": []}
-    for r in range(3):
-        for name in (("eager full", "graph full") if r % 2 == 0
-                     else ("graph full", "eager full")):
-            walls[name].append(timed_steps(env, t0_states, env.generator(SEED + 5),
-                                           TIMED_STEPS, None, name == "graph full"))
-    for name, ws in walls.items():
-        busy, n_kernels = step_device_ms(env, t0_states, env.generator(SEED + 5), None,
-                                         name == "graph full")
-        mid = sorted(ws)[1]
-        print(f"  {label} {name}: " + ", ".join(f"{w:.4f}" for w in ws)
-              + f" ms per step ({B * 1e3 / mid:.1f} env-steps/s at the median); device "
-              f"busy {busy:.4f} ms per step, {100 * busy / mid:.1f}% of the median, "
-              f"{n_kernels:.1f} device kernels per step ({card})")
+LARGE_HORIZON = 2  # policy steps of each large scene's zeroed rollout at B
 
 
 def check_connected_dynamical(ht, gf, kernels, rows, err, launches, card: str,
@@ -3666,8 +3674,7 @@ def check_connected_dynamical(ht, gf, kernels, rows, err, launches, card: str,
     CONN_DYN_ROWS and CONN_DYN_CHECKED made on CUDA, its connected dynamical
     instantiation held to its plain version (``hold_scenes``); at the
     slice's path (CONN_DYN_PATHS, driven eager and captured in phase 4) the
-    captured step against the eager one bit-exact and their ms per step in
-    turns; the rows whose launches phase 4 did not count driven
+    captured step against the eager one bit-exact; the rows whose launches phase 4 did not count driven
     CLUSTER_HORIZON steps with the counts set to 0 (``drive_path``); a
     kernel row each (``frame_row``)."""
     every = {**kernels, **layout_kernels(gf, ""), **layout_kernels(gf, "wide"),
@@ -3685,8 +3692,8 @@ def check_connected_dynamical(ht, gf, kernels, rows, err, launches, card: str,
         _, gst = env.reset(B, env.generator(SEED + 3))
         check_graph(env, gst, f"{env_id} dynamical ", variants=[(None, False)])
         print(f"  [{env_id} dynamical at {time.time() - start:.0f} s]")
-        _, t0_states = env.reset(B, env.generator(SEED + 4))
-        eager_graph_turns(f"{env_id} dynamical", env, t0_states, card)
+        # (its eager and captured ms per step are cut for the time limit;
+        # PERF.md keeps their earlier numbers)
     for key, env_id, config, _ in CONN_DYN_ROWS:
         env = envs[key]
         if key not in launches:
@@ -3699,7 +3706,7 @@ def check_large_clusters(ht, gf, kernels, rows, err, launches, card: str,
     """The scenes over 1024 slots (LARGE_ROWS), on clusters of 9 to 16
     blocks: each made on CUDA (a cluster the card cannot hold is the
     launch's own error), its cluster instantiation held to its plain
-    version at 16 rows (``hold_scenes``:
+    version at 8 rows (``hold_scenes``:
     every scene, the rolled ones, twins across every rank boundary), driven
     LARGE_HORIZON steps at B with the counts set to 0 (``drive_path``),
     its launch timed queued at B from a fresh reset, and a kernel row at the
@@ -3722,6 +3729,224 @@ def check_large_clusters(ht, gf, kernels, rows, err, launches, card: str,
         print(f"  {key}: {ms_b:.4f} ms queued at B={B}; peak device memory of the reset batch "
               f"and the launches {torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})")
         frame_row(gf, env, key, env_id, config, rows, err, card, start, batch=n_row)
+
+
+#: roads the fixed tables once refused, on the general kernels
+#: (``highwayenv_tpu_torch/tools/custom_roads.py``), each (row key, env id
+#: or custom_roads class name, config, driven, rows of the checks): merge-v0
+#: with a junction of 5 successor edges (a fixed-width and a variable-width
+#: poly lane carrying NPCs, a chain of 17 short edges on an 18-slot route),
+#: with 5 and 10 predecessor edges into a node under the connected-lane
+#: search (7 and 12 candidate lanes a lane), roundabout-v0 with 17 and 31
+#: target speeds, racetrack-oval-v0 with 9 lanes an edge (72 lanes); then
+#: the kSized instantiation of each law in each layout (SIZED_ROWS); each
+#: held to its plain version, the driven ones driven CUSTOM_STEPS steps with
+#: the counts set to 0 and captured against eager, with a kernel row at B.
+#: The 5-predecessor merge under a dynamical action is held only: merge's
+#: reward compares the action to 0 and 2, which a ContinuousAction's is not.
+CUSTOM_ROWS = (
+    ("K4 poly junction", "PolyJunctionMerge", {}, True, 256),
+    ("K4 connected 5 predecessors", "FivePredecessorMerge",
+     {"neighbour_vehicles_connected_lanes": True}, True, 256),
+    ("K4 connected 12 candidates", "CrowdedMerge",
+     {"neighbour_vehicles_connected_lanes": True}, True, 256),
+    ("K4 connected dynamical 5 predecessors", "FivePredecessorMerge",
+     {"neighbour_vehicles_connected_lanes": True, **DYNAMICAL}, False, 256),
+    ("K4 17 speeds", "roundabout-v0", {"action": {
+        "type": "DiscreteMetaAction", "target_speeds": list(np.linspace(0.0, 16.0, 17))}},
+     True, 256),
+    ("K4 31 speeds", "roundabout-v0", {"action": {
+        "type": "DiscreteMetaAction", "target_speeds": list(np.linspace(0.0, 30.0, 31))}},
+     True, 256),
+    ("K4 raw 72 lanes", "racetrack-oval-v0", {"no_lanes": 9}, True, 256),
+)
+#: intersection-v0's action with 17 target speeds (its own 3 are 0, 4.5, 9)
+SPEEDS_17 = {"action": {"type": "DiscreteMetaAction", "longitudinal": True, "lateral": False,
+                        "target_speeds": [float(x) for x in np.linspace(0.0, 9.0, 17)]}}
+CONNECTED = {"neighbour_vehicles_connected_lanes": True}
+#: the kSized instantiations of the wide and cluster libraries and the
+#: sized K5, which ordinary settings reach: intersection-v0 with 17 target
+#: speeds (V=25 narrow, at duration 30 V=42 wide, at policy_frequency 15
+#: V=207 cluster) and exit-v0 with a poly edge past its end carrying NPCs
+#: (PolyExit, V=51 wide and V=151 cluster, the poly lanes' NPCs in both
+#: ranks); each driven, and its connected twin (intersection-v2, exit-v1's
+#: search) held only, as are PolyExit's dynamical wide and connected
+#: dynamical cluster instantiations
+SIZED_ROWS = (
+    ("K5 17 speeds", "intersection-v0", SPEEDS_17, True, 256),
+    ("K5 wide 17 speeds", "intersection-v0", {"duration": 30, **SPEEDS_17}, True, 128),
+    ("K5 cluster 17 speeds", "intersection-v0", {"policy_frequency": 15, **SPEEDS_17},
+     True, 64),
+    ("K4 wide poly", "PolyExit", {"vehicles_count": 50}, True, 128),
+    ("K4 cluster poly", "PolyExit", {"vehicles_count": 150}, True, 64),
+    ("K5 connected 17 speeds", "intersection-v0", {**CONNECTED, **SPEEDS_17}, False, 256),
+    ("K5 wide connected 17 speeds", "intersection-v0",
+     {"duration": 30, **CONNECTED, **SPEEDS_17}, False, 128),
+    ("K5 cluster connected 17 speeds", "intersection-v0",
+     {"policy_frequency": 15, **CONNECTED, **SPEEDS_17}, False, 64),
+    ("K4 wide connected poly", "PolyExit", {"vehicles_count": 50, **CONNECTED}, False, 128),
+    ("K4 cluster connected poly", "PolyExit", {"vehicles_count": 150, **CONNECTED}, False,
+     64),
+    ("K4 wide dynamical poly", "PolyExit", {"vehicles_count": 50, **DYNAMICAL}, False, 128),
+    ("K4 cluster connected dynamical poly", "PolyExit",
+     {"vehicles_count": 150, **CONNECTED, **DYNAMICAL}, False, 64),
+)
+#: the straight road past 16 lanes: K1 / K3 (phase 3 holds them on its
+#: scenes with the other straight configs)
+CUSTOM_STRAIGHT = {"lanes_count": 17}
+CUSTOM_STEPS = 8  # policy steps of each driven path, eager and captured
+
+
+def custom_env(ht, name: str, config):
+    """``ht.make(name, config)``, or the custom_roads class ``name`` made
+    with ``config`` on the card."""
+    from highwayenv_tpu_torch.tools import custom_roads
+
+    cls = getattr(custom_roads, name, None)
+    return ht.make(name, config) if cls is None else cls(config)
+
+
+def hold_custom(gf, env, key: str, label: str, err, start: float, steps_in: bool,
+                n_check: int) -> None:
+    """``env``'s instantiation against its plain version at ``n_check``
+    rows (in chunks of ``plain_rows``), every field bit-exact, on the reset
+    scene, 8 steps in (the env's autoreset step; with ``steps_in`` off the
+    frames alone, ``_simulate_batched``) and the all-env pile-up, or on a
+    regulated road ``regulated_scenes``; the largest error in
+    ``err[key]``."""
+    gen = env.generator(SEED)
+    _, states = env.reset(n_check, gen)
+    kernel = gf.frames_kernel_for(env._general, env.regulated, env.num_slots)
+    sized = gf.scene_tables(env._general, env.route_slots, env.action_type.stores_raw_controls)[2]
+    print(f"== 4. {key}, {label}: V={env.num_slots}, L={env.geo.num_lanes}, "
+          f"R={states.vehicles.route_base.shape[-1]}, S={env.geo.succ_edge_base.shape[1]}, "
+          f"K={env.geo.conn_lanes.shape[1] if env._general.connected else 0}, "
+          f"{kernel.source}{'_sized' * sized}.{kernel.entry}, B={n_check} "
+          f"[at {time.time() - start:.0f} s]")
+    if steps_in:
+        calls = wide_scenes(env, states, gen)
+    else:  # the frames alone: the env's reward takes no such action
+        st = states
+        for _ in range(8):
+            st = env._simulate_batched(st, random_actions(env, n_check, gen))
+        calls = {}
+        for name, veh in (("reset", states.vehicles), ("8 frames-only steps in", st.vehicles),
+                          ("pile-up", pile_up(states.vehicles))):
+            sa = env._action_to_slots(random_actions(env, n_check, gen))
+            veh, sa, raw = gf.store_raw_controls(env, veh, sa)
+            calls[name] = (veh, None, sa, env.frames_per_step, raw)
+    err[key] = 0.0
+    for name, call in calls.items():
+        k, run, plain = frame_call(gf, env, *call, chunk=plain_rows(env.num_slots))
+        out_k = run()
+        out_p = plain()
+        torch.cuda.synchronize()
+        err[key] = max(err[key], compare_general(out_k, out_p, f"{label} {name} ({k.entry})"))
+        if name == "pile-up" and not bool(out_k.crashed.any()):
+            raise AssertionError(f"{label}: the pile-up scene crashed nothing")
+    print(f"  {key}: {list(calls)} bit-exact on every field")
+
+
+def captured_against_eager(env, label: str, steps: int = CUSTOM_STEPS) -> None:
+    """``steps`` random-policy autoreset steps at B from one reset, eager
+    and through the captured step (``rollout(..., graph=True)``), the
+    states and metrics equal bit for bit."""
+    from highwayenv_tpu_torch.envs.base import map_fields
+
+    _, st = env.reset(B, env.generator(SEED + 6))
+    s_e, m_e = rollout(env, map_fields(torch.clone, st), steps, env.generator(SEED + 7))
+    s_g, m_g = rollout(env, map_fields(torch.clone, st), steps, env.generator(SEED + 7),
+                       graph=True)
+    torch.cuda.synchronize()
+    same = {n: torch.equal(m_e[n], m_g[n]) for n in m_e}
+    for f in dataclasses.fields(s_e.vehicles):
+        same[f.name] = torch.equal(getattr(s_e.vehicles, f.name), getattr(s_g.vehicles, f.name))
+    if not all(same.values()):
+        raise AssertionError(f"{label}: captured differs from eager in "
+                             f"{[n for n, ok in same.items() if not ok]}")
+    print(f"  {label}: {steps} captured steps against eager at B={B}, states and metrics "
+          f"bit-exact; {({n: float(v) for n, v in m_g.items()})}")
+
+
+def check_custom_roads(ht, ss, sf, gf, kernels, rows, err, launches, card: str, start: float,
+                       timed) -> None:
+    """The roads the fixed tables once refused (CUSTOM_ROWS) and the kSized
+    instantiations of every layout (SIZED_ROWS): each made on CUDA, its
+    instantiation held to its plain version (``hold_custom``);
+    the driven ones take CUSTOM_STEPS steps with the counts set to 0
+    (``drive_path``) and CUSTOM_STEPS captured steps against eager, and get
+    a kernel row at B (``frame_row``).  Then highway-v0 with 17 lanes: the
+    sorted step driven CUSTOM_STEPS steps with the counts set to 0 (K1, K2a,
+    K3, K2b once a step, alone), captured against eager, and rows
+    "K1 17 lanes" .. (``straight_rows``).  Also holds the launch's shared
+    memory (``general_smem_bytes`` of each library, ``*_smem_bytes`` of
+    K1 and K3) to make's copy of its formula."""
+    every = {**kernels, **layout_kernels(gf, ""), **layout_kernels(gf, "wide"),
+             **layout_kernels(gf, "cluster")}
+    # the launches' own shared-memory counts against make's copy, in the
+    # fixed and the kSized libraries
+    sizes = 0
+    for layout, V in (("", 5), ("", 25), ("wide", 42), ("wide", 128), ("cluster", 207),
+                      ("cluster", 2048)):
+        lib = layout_kernels(gf, layout)
+        for reg in (False, True):
+            for conn in (False, True):
+                for L, R, S, sized in ((20, 3, 4, False), (72, 16, 4, False),
+                                       (72, 18, 5, True), (300, 40, 9, True)):
+                    K = (gf.FIXED_CONN if not sized else 1 + 2 * S) if conn else 0
+                    k = lib[f"{'K5' if reg else 'K4'}{' ' + layout if layout else ''}"
+                            f"{' connected' if conn else ''}"]
+                    got = k.smem_bytes(L, V, R, S, K, sized)
+                    want = gf.launch_smem(V, L, R, S, K, reg, sized)
+                    if got != want:
+                        raise AssertionError(f"{k.source}.{k.entry} V={V} L={L} R={R} S={S} "
+                                             f"K={K} sized={sized}: {got} bytes at launch, "
+                                             f"{want} at make")
+                    sizes += 1
+    for V in (21, 51, 101, 1024):
+        for L in (4, 17, 40):
+            got = (sf.frames_kernel.smem_bytes(V, L), ss.frames_sorted_kernel.smem_bytes(V, L))
+            if got != sf.launch_smem(V, L):
+                raise AssertionError(f"K1 / K3 V={V} L={L}: {got} bytes at launch, "
+                                     f"{sf.launch_smem(V, L)} at make")
+            sizes += 1
+    print(f"  shared memory a block: the launches' counts equal make's at {sizes} shapes")
+    sized_keys = {row[0] for row in SIZED_ROWS}
+    for key, name, config, driven, n_check in CUSTOM_ROWS + SIZED_ROWS:
+        env = custom_env(ht, name, config)
+        label = f"{name} {json.dumps(config)}"
+        if key in sized_keys and not gf.scene_tables(
+                env._general, env.route_slots, env.action_type.stores_raw_controls)[2]:
+            raise AssertionError(f"{label}: not the kSized instantiation SIZED_ROWS names")
+        # the frames alone only where the env's reward takes no such action
+        # (merge's under a ContinuousAction)
+        hold_custom(gf, env, key, label, err, start, driven or not env._general.dynamical,
+                    n_check)
+        if driven:
+            launches[key] = drive_path(gf, env, every, key, name, config, CUSTOM_STEPS)
+            captured_against_eager(env, label)
+            frame_row(gf, env, key, name, config, rows, err, card, start)
+    # the straight road past 16 lanes
+    env = ht.make("highway-v0", CUSTOM_STRAIGHT)
+    label = f"highway-v0 {json.dumps(CUSTOM_STRAIGHT)}"
+    gen = env.generator(SEED + 1)
+    for k in kernels.values():
+        k.launches = 0
+    _, st = env.reset(B, gen)
+    st, m = rollout(env, st, CUSTOM_STEPS, gen)
+    torch.cuda.synchronize()
+    counts = {n: kernels[n].launches for n in ("K1", "K2a", "K3", "K2b")}
+    others = {n: k.launches for n, k in kernels.items() if n not in counts and k.launches}
+    print(f"  {label} path: reset and {CUSTOM_STEPS} autoreset steps, B={B}, launches "
+          f"{counts}, other kernels {others}; rollout {({n: float(v) for n, v in m.items()})}")
+    if any(v != CUSTOM_STEPS for v in counts.values()) or others:
+        raise AssertionError(f"{label}: the sorted kernels must launch once a step, alone")
+    for n, c in counts.items():
+        launches[f"{n} 17 lanes"] = c
+        err[f"{n} 17 lanes"] = err.get(f"{n} 17 lanes", 0.0)
+    captured_against_eager(env, label)
+    _, states = env.reset(B, env.generator(SEED))
+    straight_rows(env, states, timed, rows, " 17 lanes")
 
 
 def main() -> int:
@@ -3747,15 +3972,10 @@ def main() -> int:
 
     print("== 2. build")
     t0 = time.time()
-    paths = _build.build(
-        ["straight_frames", "straight_sort", "straight_frames_sorted", "general_frames",
-         "general_frames_wide", "general_frames_cluster"]
-    )
-    print(f"built {[p.name for p in paths.values()]} in {time.time() - t0:.1f} s")
-    for p in paths.values():
-        log = p.with_suffix(".log")
-        if log.exists():
-            print(log.read_text().strip())
+    wait_general = build_in_background(_build, GENERAL_LIBRARIES)
+    paths = _build.build(STRAIGHT_LIBRARIES)
+    print(f"built {[p.name for p in paths.values()]} in {time.time() - t0:.1f} s; the general "
+          "libraries build meanwhile, while phase 3 holds the straight kernels")
 
     k1, k2a, k3, k2b = sf.frames_kernel, ss.sort_kernel, ss.frames_sorted_kernel, ss.unsort_kernel
     k4 = gf.frames_general_kernel
@@ -3779,6 +3999,7 @@ def main() -> int:
                    ("highway-v0", AGGRESSIVE_CONFIG, B, None, ("normal", "pileup_all")),
                    ("highway-v0", None, B, NPC + "LinearVehicle", ("normal", "pileup_all")),
                    ("highway-v0", SEVERAL_STRAIGHT, B, None, SCENES + ("8 steps in",)),
+                   ("highway-v0", CUSTOM_STRAIGHT, B, None, ("normal", "compressed", "pileup_all")),
                    ("highway-v0", None, B, None, SCENES)])
     for env_id, config, Bc, change, scene_names in straight:
         env = ht.make(env_id, config)
@@ -3792,6 +4013,9 @@ def main() -> int:
         # several ego rows (highway-v0 with two egos) keep their own errors
         esfx = f" {len(env.ego_slots)} egos" if len(env.ego_slots) > 1 else ""
         sfx = " raw" if raw else (" linear" if linear else esfx)
+        if config == CUSTOM_STRAIGHT:  # 17 lanes keep their own errors
+            sfx = " 17 lanes"
+            err.update({f"{n}{sfx}": 0.0 for n in ("K1", "K2a", "K3", "K2b")})
         label = (f"{env_id} V={env.num_slots}" + (" ContinuousAction" if raw else "")
                  + (f", egos in slots {list(env.ego_slots)}" if esfx else "")
                  + (f" {env.npc_preset}" if env.npc_preset else "")
@@ -3878,6 +4102,13 @@ def main() -> int:
     check_autoreset(env, states, gen, "")
     check_autoreset(lenv, lstates, lenv.generator(SEED), "highway-v0 LinearVehicle ")
     check_autoreset(e2env, e2states, e2env.generator(SEED), "highway-v0 2 egos ")
+    general_paths = wait_general()
+    print(f"  [the general libraries {[p.name for p in general_paths.values()]} built at "
+          f"{time.time() - start:.0f} s]")
+    for lib in {**paths, **general_paths}.values():
+        log = lib.with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip())
 
     # K4 on the general path, and its Linear rows' branch at roundabout-v0
     # under AggressiveVehicle (its env carried on as aenv); roundabout-v0
@@ -4343,6 +4574,7 @@ def main() -> int:
     # the slice's paths, each with the counts set to 0 just before it; then
     # the parking family's, every 8th ego crashed at the start
     all_kernels = {"K1": k1, "K2a": k2a, "K3": k3, "K2b": k2b, "K4": k4, "K5": k5}
+    print(f"  [the main, raw-control and Linear paths driven at {time.time() - start:.0f} s]")
     drive_slice(slice_envs, all_kernels, launches)
     drive_slice(parking_envs, all_kernels, launches, crash_first=True)
     # the connected-lane search's paths and the two-ego intersection (PR 12)
@@ -4377,6 +4609,8 @@ def main() -> int:
     # step, and the four K4 configs, every 8th first ego crashed at the start
     drive_several_straight(e2env, all_kernels, launches)
     drive_slice(several_envs, all_kernels, launches, crash_first=True)
+    print(f"  [the slice, connected, dynamical and several-ego paths driven at "
+          f"{time.time() - start:.0f} s]")
 
 
     # the rollouts again, each step one replay of a CapturedStep
@@ -4395,7 +4629,7 @@ def main() -> int:
               for env_id, (e, _) in {**slice_envs, **parking_envs}.items())
     for label, e, path, names in path_kernels:
         print(f"== 4. graph path: {label} on CUDA, B={B}, {HORIZON} random-policy "
-              "autoreset steps, each one replay of a CapturedStep")
+              f"autoreset steps, each one replay of a CapturedStep [at {time.time() - start:.0f} s]")
         gen = e.generator(SEED + 3)
         _, gst = e.reset(B, gen)
         if label in PARKING_ENVS:
@@ -4449,13 +4683,14 @@ def main() -> int:
         """(kernel ms, plain ms, library device ms or None): the kernel's
         time between CUDA events around launches queued behind a
         device-side wait, printed with the wall time of one call; the
-        plain version's between CUDA events around ``plain_reps`` runs
-        after one warm-up, the host's gaps between its kernels included
+        plain version's between CUDA events around ``plain_reps`` runs (no
+        warm-up: phase 3 ran it at these shapes), the host's gaps between
+        its kernels included
         (as ``frame_row`` takes it: the profiler's device sum took 10 to
         30 s to gather over a K5 plain run's 40,000 to 120,000 kernels)."""
         ms = queued_ms(kernel_fn, reps)
         wall = cuda_ms(kernel_fn, reps)
-        plain_ms = cuda_ms(plain_fn, plain_reps)
+        plain_ms = cuda_ms(plain_fn, plain_reps, warmup=False)
         lib_ms = None if library_fn is None else device_ms(library_fn, plain_reps)
         print(f"  {label}: {ms:.4f} ms between CUDA events behind a device-side wait "
               f"({wall:.4f} ms a call between CUDA events); plain {plain_ms:.4f} ms "
@@ -4858,59 +5093,22 @@ def main() -> int:
             print(f"  {which} rollout: {HORIZON} steps x {B} envs in {wall:.4f} s = "
                   f"{HORIZON * B / wall:.1f} env-steps/s ({wall / HORIZON * 1e3:.4f} ms "
                   "per step)")
-    print("  sorted step:")
-    profile_rollout(env, states, gen)
-    print("  dense step:")
-    profile_rollout(dense_env, states, gen)
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rollout(genv, g0, GEN_HORIZON, gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        print(f"  roundabout-v0 rollout: {GEN_HORIZON} steps x {B} envs in {wall:.4f} s "
-              f"= {GEN_HORIZON * B / wall:.1f} env-steps/s ({wall / GEN_HORIZON * 1e3:.4f} "
-              "ms per step)")
-    print("  roundabout-v0 step:")
-    profile_rollout(genv, g0, gen)
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rollout(ienv, i0, INT_HORIZON, gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        print(f"  intersection-v0 rollout: {INT_HORIZON} steps x {B} envs in {wall:.4f} s "
-              f"= {INT_HORIZON * B / wall:.1f} env-steps/s ({wall / INT_HORIZON * 1e3:.4f} "
-              "ms per step)")
-    print("  intersection-v0 step:")
-    profile_rollout(ienv, i0, gen)
-    for env_id, e in racers.items():
-        _, e0 = e.reset(B, e.generator(SEED + 2))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rollout(e, e0, HORIZON, gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        print(f"  {env_id} rollout: {HORIZON} steps x {B} envs in {wall:.4f} s "
-              f"= {HORIZON * B / wall:.1f} env-steps/s ({wall / HORIZON * 1e3:.4f} "
-              "ms per step)")
-        print(f"  {env_id} step:")
-        profile_rollout(e, e0, gen)
-        obs_ms = device_ms(lambda: e._observe(e0), 5)
-        road_ms = device_ms(
-            lambda: e.observation_type._road_layer(e.geo, e0.vehicles, e.ego_slots[0]), 5)
-        print(f"  {env_id} observation (OccupancyGrid, B={B}): {obs_ms:.4f} ms on the "
-              f"device, of which the on_road layer {road_ms:.4f} ms")
+    print(f"  [the policy step's simulation and rollouts timed at {time.time() - start:.0f} s]")
+    # (the step profiles of highway-v0 sorted and dense, roundabout-v0,
+    # intersection-v0 and the racetracks, their rollouts three times and the
+    # OccupancyGrid times are cut for the time limit; PERF.md keeps their
+    # earlier numbers)
 
     # ms per step: eager against graph, full against compact, in turns
     from highwayenv_tpu_torch.parallel.graph import CapturedStep
 
     print(f"  ms per step of {TIMED_STEPS} random-policy autoreset steps at B={B}, "
           f"three runs each in turns, on {card}:")
-    variants = (("eager full", None, False), ("eager compact P=1024", 1024, False),
-                ("graph full", None, True), ("graph compact P=1024", 1024, True))
-    for label, e in (("racetrack-v0", renv), ("highway-v0", env), ("roundabout-v0", genv),
-                     ("intersection-v0", ienv), ("highway-v0 LinearVehicle", lenv)):
+    # (the compact P=1024 variants' timings, and racetrack-v0's and highway-v0
+    # LinearVehicle's, are cut for the time limit; phase 3 still holds the
+    # compact step to the full one and the captured step to the eager one)
+    variants = (("eager full", None, False), ("graph full", None, True))
+    for label, e in (("highway-v0", env), ("roundabout-v0", genv), ("intersection-v0", ienv)):
         print(f"  [{label} at {time.time() - start:.0f} s]")
         _, t0_states = e.reset(B, e.generator(SEED + 4))
         walls = {name: [] for name, _, _ in variants}
@@ -4946,21 +5144,10 @@ def main() -> int:
             print(f"  {label} graph {name}: the host issues a replay in "
                   f"{sorted(issue)[5]:.4f} ms (median of 10, from an idle queue)")
 
-    # the slice's envs and the parking family: eager against graph, the
-    # full autoreset, in turns
-    for env_id, (e, _) in {**slice_envs, **parking_envs, **{
-            k: conn_envs[k] for k in CONNECTED_ROLLOUTS}, **dyn_envs}.items():
-        print(f"  [{env_id} at {time.time() - start:.0f} s]")
-        _, t0_states = e.reset(B, e.generator(SEED + 4))
-        eager_graph_turns(env_id, e, t0_states, card)
-        # where an eager step's device time goes: kernels by name, the
-        # observation and a reset's placement at B rows
-        profile_rollout(e, t0_states, e.generator(SEED + 5))
-        draws = e._reset_draws(B, e.generator(SEED + 6))
-        obs_ms = device_ms(lambda: e._observe(t0_states), 5)
-        place_ms = device_ms(lambda: e._place_state(draws), 5)
-        print(f"  {env_id} observation ({type(e.observation_type).__name__}): {obs_ms:.4f} "
-              f"ms on the device; a reset's placement at {B} rows {place_ms:.4f} ms")
+    # (the slice's, parking's, the connected and the dynamical ids' eager
+    # against graph ms per step, their step profiles and head times are cut
+    # for the time limit, ~104 s on a slow host, as ROADMAP's rules order
+    # the cuts; PERF.md keeps their earlier numbers)
 
     # the captured full autoreset step against the eager one, and
     # eager against graph, at the several-ego configs and at highway-v0
@@ -4973,7 +5160,6 @@ def main() -> int:
         print(f"  [{label} at {time.time() - start:.0f} s]")
         _, t0_states = e.reset(B, e.generator(SEED + 4))
         check_graph(e, t0_states, label + " ", variants=((None, False),))
-        eager_graph_turns(label, e, t0_states, card)
         obs_ms = device_ms(lambda e=e, s=t0_states: e._observe(s, e.generator(SEED)), 5)
         print(f"  {label} observation ({type(e.observation_type).__name__}): {obs_ms:.4f} ms "
               "on the device")
@@ -5017,6 +5203,13 @@ def main() -> int:
           f"[at {time.time() - start:.0f} s]")
     check_large_clusters(ht, gf, conn_kernels, rows, err, launches, card, start)
     print(f"  (large cluster block {time.time() - t_large:.1f} s)")
+    t_custom = time.time()
+    print(f"== 4. roads the fixed tables refused, on CUDA: poly lanes, 5 successor edges, "
+          f"an 18-slot route, 5 and 10 predecessor edges, 17 and 31 target speeds, 72 "
+          f"general and 17 straight lanes; the kSized K4 / K5, narrow, wide and cluster "
+          f"[at {time.time() - start:.0f} s]")
+    check_custom_roads(ht, ss, sf, gf, conn_kernels, rows, err, launches, card, start, timed)
+    print(f"  (custom roads block {time.time() - t_custom:.1f} s)")
 
     # the single-env seeded path: every id at B=1, each with the counts set
     # to 0 just before it.  It runs last: after it, torch.profiler on the

@@ -107,9 +107,33 @@
 //   roundabout-v0 (V=5, L=32, R=11): 4 envs a block, 2.6 KB an env,
 //   14.8 KB a block; the intersection-v0 warm-up (V=16, L=20, R=3): 4
 //   envs, 5.3 KB an env, 24.1 KB a block; intersection-v0 (V=25): 2 envs,
-//   8.2 KB an env, 19.8 KB a block.  Registers (115 and 118, PERF.md) then
-//   allow 8 blocks, 16 warps, an SM: roundabout-v0's 1,024 blocks and the
-//   warm-up's 1,024 run in one wave, intersection-v0's 2,048 in two.
+//   8.2 KB an env, 19.8 KB a block (the fixed layout's tables).  Registers (115
+//   and 118, PERF.md) then allow 8 blocks, 16 warps, an SM: roundabout-v0's
+//   1,024 blocks and the warm-up's 1,024 run in one wave, intersection-v0's
+//   2,048 in two.
+// - Tables of the scene's size.  The lane tables (an int row of
+//   lane_i_words(S, sized) words for S successor edges a lane), the
+//   candidate tables of K lanes a lane, the route arrays of R slots a slot
+//   and the lanes' order are as wide as the scene asks; the speed grid of
+//   n_speeds entries and the poly bank are read from global memory.  A
+//   scene within the fixed layout (S <= 4, K <= 9, R <= 16, no poly lane)
+//   runs the instantiations without kSized, on tables padded to it (the
+//   strides compile-time constants, the code and registers those of the
+//   tables before they were sized); any other the kSized instantiation,
+//   built into libraries of their own (general_frames_sized.cu and its
+//   wide and cluster twins: the same entries, Linear rows always
+//   possible).  The one limit besides the slots is the shared memory a
+//   block asks (launch_smem), at most the card's opt-in maximum (227 KB on
+//   an H100), which make refuses past with a copy of the formula
+//   (ops/general_frames.py::launch_smem).
+// - Poly lanes (road/lane.py's POLY kind, PolyLaneFixedWidth and PolyLane):
+//   a fourth kind in local_coords, lane_position and lane_heading over the
+//   bank of 1 m pose samples and control points (PolyBank, global memory,
+//   read-only), projected by a backward scan that stops at the first pose
+//   the point projects forward on (the reference's last such pose), taken
+//   last in the lanes' order by kind.  The frame reads a lane's table width
+//   where the JAX package's _frame does (eligibility, reachability); no
+//   step of the frame reads a PolyLane's width at s.
 // Every exchange between an env's threads goes through shared memory or a
 // warp vote at points every thread of the warp reaches (the warp barrier
 // group_sync between phases), whatever its env does.
@@ -129,10 +153,8 @@
 // searches walk the words in ascending order, so the tie rules hold as in
 // one word, and the impact takes the highest partner bit from the top word
 // down.  Shared memory a block: intersection-v0 with duration 30 (V=42,
-// L=20, R=3) 18.6 KB, with duration 116 (V=128) 61.0 KB, the most a scene
-// in the limits can take (V=128, L=64, R=16, regulated and connected)
-// 131.7 KB; over 48 KB only through cudaFuncSetAttribute, set once per
-// kernel and card (launch).  Registers (96 to 128 a thread) allow 4 to 5
+// L=20, R=3) 18.6 KB, with duration 116 (V=128) 61.0 KB; over 48 KB only
+// through cudaFuncSetAttribute, set once per kernel and card (launch).  Registers (96 to 128 a thread) allow 4 to 5
 // blocks an SM: B=4096 runs in 7 to 8 waves.
 //
 // The cluster branch (general_frames_cluster_kernel, built from
@@ -162,15 +184,12 @@
 // (for_pairs_counted).  The barrier is cluster.sync(), which every thread
 // of every block reaches, and a last one keeps every block alive until no
 // rank reads its shared memory.  Shared memory a block, the same at any V:
-// intersection-v0 (L=20, R=3) 45.1 KB, the most a scene in the limits can
-// take (L=64, M=64, R=16, regulated and connected) 115.8 KB.  Up to 8
-// blocks (V = 1024) is the portable cluster size; 9 to 16 blocks (V up to
-// 2048) only with cudaFuncAttributeNonPortableClusterSizeAllowed, which
-// launch sets once per kernel and card before it asks
-// cudaOccupancyMaxActiveClusters (once per shape) and returns an error
-// where no such cluster fits the card.  An H100 holds 7 clusters of 16
-// blocks at once even at the largest block (general_cluster_fit,
-// tools/cluster_fit.py), so the gate at make needs no rule for it.
+// intersection-v0 (L=20, R=3) 45.1 KB.  Up to 8 blocks (V = 1024) is the
+// portable cluster size; 9 to 16 blocks (V up to 2048) only with
+// cudaFuncAttributeNonPortableClusterSizeAllowed, which launch sets once
+// per kernel and card before it asks cudaOccupancyMaxActiveClusters (once
+// per shape) and returns an error where no such cluster fits the card
+// (general_cluster_fit, tools/cluster_fit.py, asks the same question).
 
 #include <cooperative_groups.h>
 #include <string.h>
@@ -179,7 +198,6 @@
 
 namespace cg = cooperative_groups;
 
-#define GEN_MAX_LANES 64
 #define GEN_MAX_SLOTS 32  // the narrow kernels: an env's group within one warp
 #define GEN_WIDE_SLOTS 128  // the wide kernels: one env a block
 #define GEN_WIDE_BLOCK 128  // threads a block of the wide kernels, one a slot
@@ -190,17 +208,19 @@ namespace cg = cooperative_groups;
 #define GEN_CLUSTER_BLOCKS 16
 #define GEN_PORTABLE_CLUSTER 8
 #define GEN_CLUSTER_SLOTS (GEN_CLUSTER_BLOCKS * GEN_WIDE_SLOTS)
-#define GEN_MAX_SUCC 4
-#define GEN_MAX_PRED 4
-// the connected-lane search's candidates a lane: itself, successors, predecessors
-#define GEN_MAX_CONN (1 + GEN_MAX_SUCC + GEN_MAX_PRED)
-#define GEN_MAX_SPEEDS 16
-#define GEN_MAX_ROUTE 16
 #define GEN_BLOCK 64  // threads a block of the narrow kernels
 #define KIND_OBSTACLE 5
 #define LANE_STRAIGHT 0
 #define LANE_SINE 1
 #define LANE_CIRCULAR 2
+#define LANE_POLY 3  // a lane of 1 m pose samples in the poly bank (PolyBank)
+// The fixed layout of the tables, which the instantiations without kSized
+// read at compile-time strides: 4 successor edges a lane, 9 candidate lanes
+// a lane under the connected-lane search (the tables padded to them)
+#define GEN_FIXED_SUCC 4
+#define GEN_FIXED_CONN 9
+#define GEN_FIXED_ROUTE 16  // and at most 16 route slots (a mask's bits)
+#define GEN_FIXED_SPEEDS 16  // and at most 16 target speeds, in GenParams
 #define HALF_PI_F 1.57079632679489661923f
 // road/regulation.py: the prediction times CONFLICT_STEP .. 2.75 s and the
 // yield duration in ticks, YIELD_DURATION * REGULATION_FREQUENCY
@@ -292,23 +312,49 @@ enum {
   LF_SX, LF_SY, LF_UX, LF_UY, LF_NX, LF_NY, LF_H0, LF_AMP, LF_PULS, LF_PHASE,
   LF_CX, LF_CY, LF_RAD, LF_SP, LF_CW, LF_WIDTH, LF_LEN, LF_LIMIT, LANE_F_WORDS
 };
+// The int table's row of a lane: the fixed columns, the S successor edges'
+// base lanes (-1 pad) and their lane counts, the priority, and in the kSized
+// layout the lane's row of the poly bank (-1 on an analytic lane): a row of
+// lane_i_words(S, kSized) words, 16 in the fixed layout (S = 4).
 enum {
   LI_KIND, LI_FORBIDDEN, LI_LANE_ID, LI_EDGE_BASE, LI_EDGE_N, LI_FROM, LI_TO,
-  LI_SUCC_BASE, LI_SUCC_N = LI_SUCC_BASE + GEN_MAX_SUCC,
-  LI_PRIORITY = LI_SUCC_N + GEN_MAX_SUCC, LANE_I_WORDS
+  LI_SUCC  // succ_base[S], succ_n[S], priority[, poly]
+};
+__host__ __device__ __forceinline__ int lane_i_words(int S, bool poly) {
+  return LI_SUCC + 2 * S + 1 + (poly ? 1 : 0);
+}
+
+// The poly lanes' sample bank (road/lane.py::PolyBank, built by
+// road/network.py), read-only in global memory: bank row b holds n[b]
+// 1 m pose samples (x, y) and unit tangents at [b * S + k] (S a row) and
+// cp_n[b] control points, their arc lengths, x and y at cp[(3 b + c) * C +
+// k] (C a row, padded as the bank pads them).  Null on a network without
+// poly lanes, which no lane then reads.
+struct PolyBank {
+  const float2* pos;
+  const float2* normal;
+  const int* n;
+  const float* cp;
+  const int* cp_n;
+  int S, C;
 };
 
-struct GenParams {  // ops/general_frames.py::params_struct
+struct GenParams {  // ops/general_frames.py::GenParams
   int L, M, V, R, frames, n_speeds, longitudinal, lateral, period;
   int raw;  // 1: egos keep their stored controls; no slot actions, n_speeds 0
   float dt, acc_max, comfort_acc_max, distance_wanted, time_wanted;
   float inv_two_sqrt_ab, politeness, lane_change_delay;
   float kp_a, kp_heading, kp_lateral, tau_pursuit, ts_lo, inv_ts_range;
-  float target_speeds[GEN_MAX_SPEEDS];
+  float target_speeds[GEN_FIXED_SPEEDS];  // the fixed layout's speed grid
   int linear;  // 1: Linear rows possible (the Linear rows' instantiation)
+  int S;       // successor edges a lane: the int lane table's row is lane_i_words(S, sized)
+  int K;       // kConnected: candidate lanes a lane, the candidate tables' row
+  const float* speed_grid;  // kSized: the n_speeds speed grid on the device (null under raw)
+  PolyBank poly;
 };
-static_assert(sizeof(GenParams) == (25 + GEN_MAX_SPEEDS) * sizeof(int),
-              "GenParams: 10 ints, 14 floats, the speed grid and linear, as params_struct");
+static_assert(sizeof(GenParams) == 232,
+              "GenParams: 10 ints, 14 floats, the fixed speed grid, linear, S, K, the kSized "
+              "speed grid's pointer and the bank, as ops/general_frames.py::GenParams");
 
 // The (B, V[, ...]) tensors, in the order of ops/general_frames.py::
 // _IN_FIELDS, then the slot actions, then OUT_FIELDS.
@@ -444,20 +490,96 @@ __device__ void bicycle_rk4(float* s, float steer, float acc, float dt, const Dy
   for (int c = 0; c < 6; ++c) s[c] = s[c] + d.dt_sixth * (sum[c] + k[c]);
 }
 
-// The lane tables in shared memory.
+// The lane tables in shared memory (an int row of lane_i_words(S) words),
+// and the poly bank in global memory.  kSized: S read at run time and poly
+// lanes possible; else the fixed layout's S = GEN_FIXED_SUCC at compile time
+// and no lane of kind LANE_POLY (the lane functions drop that branch).
+template <bool kSized>
 struct Lanes {
+  static constexpr bool kPoly = kSized;
   const float* f;
   const int* i;
-  int L;
+  int L, S_;
+  const PolyBank* poly;
+  __device__ int S() const { return kSized ? S_ : GEN_FIXED_SUCC; }
   __device__ float F(int l, int k) const { return f[l * LANE_F_WORDS + k]; }
-  __device__ int I(int l, int k) const { return i[l * LANE_I_WORDS + k]; }
+  __device__ int I(int l, int k) const { return i[l * lane_i_words(S(), kSized) + k]; }
   __device__ int clip(int l) const { return clampi(l, 0, L - 1); }
+  // successor edge k < S of lane l: its base lane (-1: none) and lane count
+  __device__ int succ_base(int l, int k) const { return I(l, LI_SUCC + k); }
+  __device__ int succ_n(int l, int k) const { return I(l, LI_SUCC + S() + k); }
+  __device__ int priority(int l) const { return I(l, LI_SUCC + 2 * S()); }
+  __device__ int poly_row(int l) const { return I(l, LI_SUCC + 2 * S() + 1); }
 };
 
-// road/lane.py::_local_core on lane l (a clipped index)
-__device__ void local_coords(const Lanes& g, int l, float px, float py, float* s,
-                             float* lat) {
+// road/lane.py::_floor_index: the 1 m sample that s lies on, clipped to
+// [0, n - 1] (the float's conversion as torch's .to(int32) on the card)
+__device__ __forceinline__ int poly_sample(float s, int n) {
+  return min(max(static_cast<int>(floorf(s)), 0), n - 1);
+}
+
+// road/lane.py::_poly_frenet on bank row b: the last pose k >= 1 whose
+// tangent the point projects on with a non-negative proj wins (a backward
+// scan stops at the first), pose 0 the fallback; s = k + proj.  Inlined: a
+// call's saved registers spilled more in the cluster kernels (PERF.md).
+__device__ __forceinline__ void poly_local(const PolyBank& pb, int b, float px, float py,
+                                        float* s, float* lat) {
+  const float2* pos = pb.pos + static_cast<size_t>(b) * pb.S;
+  const float2* nrm = pb.normal + static_cast<size_t>(b) * pb.S;
+  float dx = 0.f, dy = 0.f, proj = 0.f;
+  int k = pb.n[b] - 1;
+  for (; k >= 1; --k) {
+    dx = px - pos[k].x;
+    dy = py - pos[k].y;
+    proj = nrm[k].x * dx + nrm[k].y * dy;
+    if (proj >= 0.f) break;
+  }
+  if (k < 1) {  // no pose k >= 1 qualifies: pose 0
+    k = 0;
+    dx = px - pos[0].x;
+    dy = py - pos[0].y;
+    proj = nrm[0].x * dx + nrm[0].y * dy;
+  }
+  *s = static_cast<float>(k) + proj;
+  *lat = -nrm[k].y * dx + nrm[k].x * dy;
+}
+
+// road/lane.py::_poly_segment_normal: the unit tangent of the pose
+// segment s lies on, on bank row b
+__device__ __forceinline__ float2 poly_normal(const PolyBank& pb, int b, float s) {
+  return pb.normal[static_cast<size_t>(b) * pb.S + poly_sample(s, pb.n[b])];
+}
+
+// road/lane.py::position on poly bank row b: the control points'
+// interpolation (_poly_interp: linear between them, extrapolated past
+// either end) plus lat along the segment's normal.
+__device__ __forceinline__ void poly_position(const PolyBank& pb, int b, float s, float lat,
+                                           float* x, float* y) {
+  const float* cs = pb.cp + static_cast<size_t>(3 * b) * pb.C;
+  const float* cx = cs + pb.C;
+  const float* cy = cx + pb.C;
+  const int n = pb.cp_n[b];
+  int count = 0;
+  for (int c = 0; c < n; ++c) count += cs[c] <= s;
+  const int k = min(max(count - 1, 0), max(n - 2, 0));
+  const float s0 = cs[k], s1 = cs[k + 1];
+  const float t = (s - s0) / (s1 == s0 ? 1.0f : s1 - s0);
+  const float2 nr = poly_normal(pb, b, s);
+  *x = (cx[k] + t * (cx[k + 1] - cx[k])) - nr.y * lat;
+  *y = (cy[k] + t * (cy[k + 1] - cy[k])) + nr.x * lat;
+}
+
+// road/lane.py::_local_core on lane l (a clipped index); a poly lane's
+// _poly_frenet
+template <class LanesT>
+__device__ void local_coords(const LanesT& g, int l, float px, float py, float* s, float* lat) {
   const int kind = g.I(l, LI_KIND);
+  if constexpr (LanesT::kPoly) {
+    if (kind == LANE_POLY) {
+      poly_local(*g.poly, g.poly_row(l), px, py, s, lat);
+      return;
+    }
+  }
   if (kind == LANE_CIRCULAR) {
     const float dcx = px - g.F(l, LF_CX), dcy = py - g.F(l, LF_CY);
     const float sp = g.F(l, LF_SP), cw = g.F(l, LF_CW), rad = g.F(l, LF_RAD);
@@ -477,9 +599,15 @@ __device__ void local_coords(const Lanes& g, int l, float px, float py, float* s
 }
 
 // road/lane.py::position on lane l
-__device__ void lane_position(const Lanes& g, int l, float s, float lat, float* x,
-                              float* y) {
+template <class LanesT>
+__device__ void lane_position(const LanesT& g, int l, float s, float lat, float* x, float* y) {
   const int kind = g.I(l, LI_KIND);
+  if constexpr (LanesT::kPoly) {
+    if (kind == LANE_POLY) {
+      poly_position(*g.poly, g.poly_row(l), s, lat, x, y);
+      return;
+    }
+  }
   if (kind == LANE_CIRCULAR) {
     const float cw = g.F(l, LF_CW), rad = g.F(l, LF_RAD);
     const float phi = cw * s / rad + g.F(l, LF_SP);
@@ -496,8 +624,15 @@ __device__ void lane_position(const Lanes& g, int l, float s, float lat, float* 
 }
 
 // road/lane.py::heading_at on lane l
-__device__ float lane_heading(const Lanes& g, int l, float s) {
+template <class LanesT>
+__device__ float lane_heading(const LanesT& g, int l, float s) {
   const int kind = g.I(l, LI_KIND);
+  if constexpr (LanesT::kPoly) {
+    if (kind == LANE_POLY) {
+      const float2 nr = poly_normal(*g.poly, g.poly_row(l), s);
+      return atan2f(nr.y, nr.x);
+    }
+  }
   if (kind == LANE_CIRCULAR) {
     const float cw = g.F(l, LF_CW);
     return cw * s / g.F(l, LF_RAD) + g.F(l, LF_SP) + HALF_PI_F * cw;
@@ -514,8 +649,9 @@ __device__ float lane_heading(const Lanes& g, int l, float s) {
 // distance to it (inf for an empty edge).  The loop keeps the distance of
 // the lane it will return (the explicit one on an edge as wide as lt's, else
 // its first minimum) rather than every lane's, so no array bounds the lanes
-// an edge (M <= GEN_MAX_LANES).
-__device__ int lane_on_edge(const Lanes& g, int lt, int base, int n, int next_id,
+// an edge (M <= L).
+template <class LanesT>
+__device__ int lane_on_edge(const LanesT& g, int lt, int base, int n, int next_id,
                             float px, float py, int M, float* dist) {
   const bool same_width = g.I(lt, LI_EDGE_N) == n;
   const int lane_max = max(n - 1, 0);
@@ -581,8 +717,9 @@ struct EnvSmem {
   unsigned* imp;   // per slot [j * W + w], the partners whose impact it takes
   unsigned* bits;  // the env's crash, hit and yield slot masks, [k * W + w]
   // K5, on the union's words: per slot the route walk's start, frame-start
-  // position, priority, first / last segment and valid segments, and per
-  // segment the cumulative length and the lane
+  // position, priority, first / last segment and valid segments (a mask,
+  // the fixed layout's; the valid segments are a run), and per segment the
+  // cumulative length and the lane
   float *rs0, *fx, *fy, *rcum;
   int *prio, *rfirst, *rlast, *rvalid, *rseg;
 
@@ -648,12 +785,13 @@ struct EnvSmem {
 };
 
 // The words of a block's shared memory before its envs' arrays: the lane
-// tables, the lanes' order by kind, under the connected-lane search the
-// candidate lanes and offsets of every lane, and the pair table of V slots
-// (none at V = 0, as the cluster kernels take it), rounded up to an even
-// count so that each env's keys are 8-byte aligned.
-__host__ __device__ static int block_words(int L, int V, bool conn) {
-  const int w = L * (LANE_F_WORDS + LANE_I_WORDS + 1) + (conn ? 2 * L * GEN_MAX_CONN : 0) +
+// tables (an int row of lane_i_words(S, sized) words), the lanes' order by kind,
+// under the connected-lane search the K candidate lanes and offsets of
+// every lane, and the pair table of V slots (none at V = 0, as the cluster
+// kernels take it), rounded up to an even count so that each env's keys are
+// 8-byte aligned.
+__host__ __device__ static int block_words(int L, int V, int S, int K, bool sized) {
+  const int w = L * (LANE_F_WORDS + lane_i_words(S, sized) + 1) + 2 * L * K +
                 (V * (V - 1) / 2 + 1) / 2;
   return (w + 1) & ~1;
 }
@@ -663,19 +801,22 @@ __host__ __device__ static int block_words(int L, int V, bool conn) {
 #define FS_VEHICLE 2
 #define FS_CONTROLLED 4
 
-// W: words of a slot mask (of a rank's own slots under kCluster)
-template <bool kLinear, bool kConnected, int W, bool kCluster>
+// W: words of a slot mask (of a rank's own slots under kCluster); kSized:
+// the candidate tables' row K read at run time, else GEN_FIXED_CONN
+template <bool kLinear, bool kConnected, int W, bool kCluster, bool kSized>
 struct Ctx {
-  const Lanes& g;
+  const Lanes<kSized>& g;
   const GenParams& p;
   const EnvSmem& e;
   int V, i;     // the env's slots, the deciding slot
   float delta;  // the deciding slot's IDM exponent
   Law law;      // the deciding slot's acceleration law, read where kLinear
-  // kConnected: each lane's GEN_MAX_CONN candidate lanes (-1 pad) and the
-  // offsets that shift a candidate's s into the lane's frame
+  // kConnected: each lane's K candidate lanes (-1 pad) and the offsets that
+  // shift a candidate's s into the lane's frame
   const int* conn_l;
   const float* conn_f;
+  int K_;
+  __device__ __forceinline__ int K() const { return kSized ? K_ : GEN_FIXED_CONN; }
 
   // slot j's element of the per-slot array a, on j's owner under kCluster
   template <typename T>
@@ -714,10 +855,10 @@ struct Ctx {
         unsigned seen[W];
 #pragma unroll
         for (int w = 0; w < W; ++w) seen[w] = w == own_w ? bit_of<W>(i) : 0u;
-        for (int k = 0; k < GEN_MAX_CONN; ++k) {
-          const int c = conn_l[l * GEN_MAX_CONN + k];
+        for (int k = 0; k < K(); ++k) {
+          const int c = conn_l[l * K() + k];
           if (c < 0) continue;
-          const float off = conn_f[l * GEN_MAX_CONN + k];
+          const float off = conn_f[l * K() + k];
 #pragma unroll
           for (int w = 0; w < W; ++w) {
             unsigned bits = elig[c * W + w] & ~seen[w];
@@ -893,8 +1034,8 @@ __device__ __forceinline__ void for_items(int M, int V, int t, int G, Fn fn) {
 // lane from the thread of slot 0; kWide (an env's threads span warps, and a
 // slot's bit lies in word j / 32): one atomicOr of its bit per slot eligible
 // there, a handful a lane.
-template <bool kWide>
-__device__ void project_table(const Lanes& g, const EnvSmem& e, const int* lorder, int L,
+template <bool kWide, class LanesT>
+__device__ void project_table(const LanesT& g, const EnvSmem& e, const int* lorder, int L,
                               int V, int t, int G, bool env_live, bool relocate) {
   const int c = G / V, q = t / V, j = t - q * V;
   const bool mine = env_live && q < c;
@@ -942,10 +1083,10 @@ __device__ void project_table(const Lanes& g, const EnvSmem& e, const int* lorde
 // controls.  kLinear: each row's own kind picks its law (a Linear row's is
 // LinearVehicle's); without it every law is IDM's.  kCluster: i's own
 // arrays at me = i % 128 of its block, another slot's through cx.at.
-template <bool kLinear, bool kConnected, int W, bool kCluster>
+template <bool kLinear, bool kConnected, int W, bool kCluster, bool kSized>
 __device__ __forceinline__ void decide(GSlot& v,
-                                       const Ctx<kLinear, kConnected, W, kCluster>& cx,
-                                       const Lanes& g,
+                                       const Ctx<kLinear, kConnected, W, kCluster, kSized>& cx,
+                                       const Lanes<kSized>& g,
                                        const GenParams& p, const EnvSmem& e, int i, int V,
                                        int R, const int* rid) {
   const int VS = kCluster ? GEN_WIDE_SLOTS : V;  // the tables' stride
@@ -1048,13 +1189,14 @@ __device__ __forceinline__ void decide(GSlot& v,
 // envs a block (narrow), one env a block of G = GEN_WIDE_BLOCK threads
 // (kWide), or one env a cluster of such blocks (kWide and kCluster; slot i
 // on thread i % 128 of rank i / 128, which keeps the arrays of its 128
-// slots at me = i % 128).  conn_lanes / conn_offsets: the (L, GEN_MAX_CONN)
+// slots at me = i % 128).  conn_lanes / conn_offsets: the (L, GenParams::K)
 // candidate tables, read by the kConnected instantiations alone (last, so
 // that the other parameters keep their places); dyn: the kDynamical
 // instantiations' DynFields, a parameter of theirs alone (an empty pack
-// elsewhere)
+// elsewhere); kSized: the tables' strides at run time and poly lanes, else
+// the fixed layout
 template <bool kRegulated, bool kLinear, bool kConnected, bool kDynamical, bool kWide,
-          bool kCluster, typename... Dyn>
+          bool kCluster, bool kSized, typename... Dyn>
 __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields& rf,
                                             const float* lane_f, const int* lane_i,
                                             const GenParams& p, int B, int G,
@@ -1067,6 +1209,9 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
   constexpr int kBlock = kWide ? GEN_WIDE_BLOCK : GEN_BLOCK;
   extern __shared__ float smem[];
   const int L = p.L, V = p.V, R = p.R, M = p.M;
+  // the candidates and the words of an int lane row
+  const int K = kSized ? p.K : (kConnected ? GEN_FIXED_CONN : 0);
+  const int iw = lane_i_words(kSized ? p.S : GEN_FIXED_SUCC, kSized);
   const int P = V * (V - 1) / 2;
   // kCluster: the cluster's blocks and this block's rank; the stride of the
   // per-slot tables (a rank's slots) and this rank's slots
@@ -1078,15 +1223,15 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
   // (kConnected), and the pair table (none under kCluster), once per block
   float* lf = smem;
   int* li = reinterpret_cast<int*>(lf + L * LANE_F_WORDS);
-  int* lorder = li + L * LANE_I_WORDS;
+  int* lorder = li + L * iw;
   int* conn_l = nullptr;
   float* conn_f = nullptr;
   unsigned short* pairs;
   if constexpr (kConnected) {
     conn_l = lorder + L;
-    conn_f = reinterpret_cast<float*>(conn_l + L * GEN_MAX_CONN);
-    pairs = reinterpret_cast<unsigned short*>(conn_f + L * GEN_MAX_CONN);
-    for (int k = threadIdx.x; k < L * GEN_MAX_CONN; k += blockDim.x) {
+    conn_f = reinterpret_cast<float*>(conn_l + L * K);
+    pairs = reinterpret_cast<unsigned short*>(conn_f + L * K);
+    for (int k = threadIdx.x; k < L * K; k += blockDim.x) {
       conn_l[k] = conn_lanes[k];
       conn_f[k] = conn_offsets[k];
     }
@@ -1094,7 +1239,7 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
     pairs = reinterpret_cast<unsigned short*>(lorder + L);
   }
   for (int k = threadIdx.x; k < L * LANE_F_WORDS; k += blockDim.x) lf[k] = lane_f[k];
-  for (int k = threadIdx.x; k < L * LANE_I_WORDS; k += blockDim.x) li[k] = lane_i[k];
+  for (int k = threadIdx.x; k < L * iw; k += blockDim.x) li[k] = lane_i[k];
   if constexpr (!kCluster)
     for (int a = threadIdx.x; a < V; a += blockDim.x) {
       const int base = a * (2 * V - a - 1) / 2;
@@ -1103,15 +1248,18 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
     }
   if (threadIdx.x == 0) {
     int n = 0;
-    for (int pass = 0; pass < 3; ++pass)
+    for (int pass = 0; pass < (kSized ? 4 : 3); ++pass)
       for (int l = 0; l < L; ++l) {
-        const int kind = lane_i[l * LANE_I_WORDS + LI_KIND];
-        const int group = kind == LANE_CIRCULAR ? 0 : (kind == LANE_SINE ? 1 : 2);
+        const int kind = lane_i[l * iw + LI_KIND];
+        const int group = kind == LANE_CIRCULAR ? 0
+                          : kind == LANE_SINE   ? 1
+                          : kind == LANE_POLY   ? 3
+                                                : 2;
         if (group == pass) lorder[n++] = l;
       }
   }
   __syncthreads();
-  const Lanes g = {lf, li, L};
+  const Lanes<kSized> g = {lf, li, L, p.S, &p.poly};
 
   const int group = threadIdx.x / G, t = threadIdx.x % G;
   const int env = kCluster ? blockIdx.x / ranks : blockIdx.x * (kBlock / G) + group;
@@ -1123,7 +1271,7 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
   const bool projects = kCluster ? live : env_live;
 
   EnvSmem e;
-  float* env_base = smem + block_words(L, kCluster ? 0 : V, kConnected) +
+  float* env_base = smem + block_words(L, kCluster ? 0 : V, g.S(), K, kSized) +
                     static_cast<size_t>(group) * EnvSmem::words(L, VS, R, kRegulated, W);
   e.carve(env_base, L, VS, R, kRegulated, W);
   const int phase = (kRegulated && env_live) ? rf.phase[env] : 0;
@@ -1204,7 +1352,8 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
     law.sp0 = f.steer_params[2 * o];
     law.sp1 = f.steer_params[2 * o + 1];
   }
-  const Ctx<kLinear, kConnected, W, kCluster> cx = {g, p, e, V, i, v.delta, law, conn_l, conn_f};
+  const Ctx<kLinear, kConnected, W, kCluster, kSized> cx = {
+      g, p, e, V, i, v.delta, law, conn_l, conn_f, K};
   const int* rb = e.rbase + me * R;
   const int* rn = e.rn + me * R;
   const int* rid = e.rid + me * R;
@@ -1251,11 +1400,10 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
           // the first minimum; with no successor the lane is kept
           float best = INFINITY;
           next = v.tlane;
-          for (int k = 0; k < GEN_MAX_SUCC; ++k) {
-            const int sb = g.I(lt, LI_SUCC_BASE + k);
+          for (int k = 0; k < g.S(); ++k) {
+            const int sb = g.succ_base(lt, k);
             if (sb < 0) continue;
-            const int cl = lane_on_edge(g, lt, sb, g.I(lt, LI_SUCC_N + k), -1, projx,
-                                        projy, M, &dist);
+            const int cl = lane_on_edge(g, lt, sb, g.succ_n(lt, k), -1, projx, projy, M, &dist);
             if (dist < best) {
               best = dist;
               next = cl;
@@ -1286,7 +1434,7 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
         const int cur =
             static_cast<int>(clampf(rintf(((v.speed - p.ts_lo) * p.inv_ts_range) * n1), 0.f, n1));
         const int idx = clampi(fa ? cur + 1 : (sl ? cur - 1 : v.speed_index), 0, p.n_speeds - 1);
-        if (fa || sl) v.ts = p.target_speeds[idx];
+        if (fa || sl) v.ts = kSized ? p.speed_grid[idx] : p.target_speeds[idx];
         v.speed_index = idx;
         const int lt2 = g.clip(v.tlane);
         const int d_id = lr ? 1 : (ll ? -1 : 0);
@@ -1311,7 +1459,7 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
     group_sync<kWide, kCluster>();
 
     // --- B: the IDM / MOBIL decision pass and the controls ----------------
-    if (live) decide<kLinear, kConnected, W, kCluster>(v, cx, g, p, e, i, V, R, rid);
+    if (live) decide(v, cx, g, p, e, i, V, R, rid);
     group_sync<kWide, kCluster>();  // the frame-start table and eligibility masks are read
 
     // --- B': the right-of-way pass on the env's tick frames ----------------
@@ -1326,7 +1474,7 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
           const int lc = g.clip(v.lane);
           const bool has_rt = v.route_ptr < v.route_len;
           const int cur_id = g.I(lc, LI_LANE_ID);
-          unsigned valid = 0u;
+          unsigned valid = 0u;  // the fixed layout's routes: at most 16 slots
           float acc = 0.f;
           int n_valid = 0, first = -1;
           for (int q = 0; q < R; ++q) {
@@ -1338,7 +1486,7 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
             e.rcum[me * R + q] = acc;
             e.rseg[me * R + q] = seg;
             if (ok) {
-              valid |= 1u << q;
+              if constexpr (!kSized) valid |= 1u << q;
               ++n_valid;
               if (first < 0) first = q;
             }
@@ -1350,7 +1498,7 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
           e.rs0[me] = e.S[lc * VS + me];
           e.fx[me] = v.px;
           e.fy[me] = v.py;
-          e.prio[me] = g.I(lc, LI_PRIORITY);
+          e.prio[me] = g.priority(lc);
         }
         // every read of S / LAT is done: the predictions take their words
         group_sync<kWide, kCluster>();
@@ -1359,13 +1507,21 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
         if (tick)
           for_items(REG_TIMES, V_own, t, G, [&](int tt, int j) {
             const int first = e.rfirst[j], last = e.rlast[j];
-            const unsigned valid = static_cast<unsigned>(e.rvalid[j]);
             const float* cum = e.rcum + j * R;
             const float target =
                 e.rs0[j] + e.speed[j] * (REG_STEP * static_cast<float>(tt + 1));
+            // the valid segments before the last that the target passes:
+            // kSized (any number of route slots) the run [first, last), which
+            // the valid slots are; else by the valid mask
             int k = first;
-            for (int q = 0; q < R; ++q)
-              if (target > cum[q] && q < last && ((valid >> q) & 1u)) ++k;
+            if constexpr (kSized) {
+              for (int q = first; q < last; ++q)
+                if (target > cum[q]) ++k;
+            } else {
+              const unsigned valid = static_cast<unsigned>(e.rvalid[j]);
+              for (int q = 0; q < R; ++q)
+                if (target > cum[q] && q < last && ((valid >> q) & 1u)) ++k;
+            }
             k = min(k, last);
             const int lk = g.clip(e.rseg[j * R + k]);
             const float base = k > first ? cum[k - 1] : 0.f;
@@ -1606,39 +1762,53 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
 }
 
 // The narrow kernels: G = 16 or 32 threads an env within one warp.
-template <bool kRegulated, bool kLinear, bool kConnected, bool kDynamical, typename... Dyn>
+template <bool kRegulated, bool kLinear, bool kConnected, bool kDynamical, bool kSized,
+          typename... Dyn>
 __global__ void __launch_bounds__(GEN_BLOCK)
     general_frames_kernel(const __grid_constant__ GenFields f,
                           const __grid_constant__ RegFields rf, const float* lane_f,
                           const int* lane_i, const __grid_constant__ GenParams p, int B,
                           int G, const int* conn_lanes, const float* conn_offsets,
                           const Dyn... dyn) {
-  frames_body<kRegulated, kLinear, kConnected, kDynamical, false, false>(
+  frames_body<kRegulated, kLinear, kConnected, kDynamical, false, false, kSized>(
       f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, dyn...);
 }
 
+// Blocks an SM the wide kernels are built for: 5 for the IDM K4 of the fixed
+// layout (kinematic or connected), the occupancy ptxas chose for it before
+// the tables were sized (96 registers and 28-40 bytes of spill; left to
+// itself it now takes 117-121 and 4 blocks, 1.05-1.07x the time: kernel_ab,
+// PERF.md), else none asked.
+template <bool kRegulated, bool kLinear, bool kDynamical, bool kSized>
+constexpr int wide_min_blocks() {
+  return (!kRegulated && !kLinear && !kDynamical && !kSized) ? 5 : 1;
+}
+
 // The wide kernels: one env a block of G = GEN_WIDE_BLOCK threads.
-template <bool kRegulated, bool kLinear, bool kConnected, bool kDynamical, typename... Dyn>
-__global__ void __launch_bounds__(GEN_WIDE_BLOCK)
+template <bool kRegulated, bool kLinear, bool kConnected, bool kDynamical, bool kSized,
+          typename... Dyn>
+__global__ void __launch_bounds__(GEN_WIDE_BLOCK,
+                                  wide_min_blocks<kRegulated, kLinear, kDynamical, kSized>())
     general_frames_wide_kernel(const __grid_constant__ GenFields f,
                                const __grid_constant__ RegFields rf, const float* lane_f,
                                const int* lane_i, const __grid_constant__ GenParams p, int B,
                                int G, const int* conn_lanes, const float* conn_offsets,
                                const Dyn... dyn) {
-  frames_body<kRegulated, kLinear, kConnected, kDynamical, true, false>(
+  frames_body<kRegulated, kLinear, kConnected, kDynamical, true, false, kSized>(
       f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, dyn...);
 }
 
 // The cluster kernels: one env a cluster of ceil(V / 128) blocks of
 // G = GEN_WIDE_BLOCK threads (the cluster's size is the launch's attribute).
-template <bool kRegulated, bool kLinear, bool kConnected, bool kDynamical, typename... Dyn>
+template <bool kRegulated, bool kLinear, bool kConnected, bool kDynamical, bool kSized,
+          typename... Dyn>
 __global__ void __launch_bounds__(GEN_WIDE_BLOCK)
     general_frames_cluster_kernel(const __grid_constant__ GenFields f,
                                   const __grid_constant__ RegFields rf, const float* lane_f,
                                   const int* lane_i, const __grid_constant__ GenParams p,
                                   int B, int G, const int* conn_lanes,
                                   const float* conn_offsets, const Dyn... dyn) {
-  frames_body<kRegulated, kLinear, kConnected, kDynamical, true, true>(
+  frames_body<kRegulated, kLinear, kConnected, kDynamical, true, true, kSized>(
       f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, dyn...);
 }
 
@@ -1648,13 +1818,16 @@ static int threads_per_env(int V) { return V <= 16 ? 16 : 32; }
 
 // The dynamic shared memory a launch asks of each block: the block's words
 // and those of each env it holds (a cluster's blocks hold no pair table and
-// the arrays of 128 slots each, the same at any V).
-template <bool kRegulated, bool kConnected, bool kWide, bool kCluster>
-static size_t launch_smem(int L, int V, int R) {
+// the arrays of 128 slots each, the same at any V).  The scene sizes every
+// table (L lanes, R route slots, S successor edges and, kConnected, K
+// candidates a lane); the one limit is the card's shared memory a block,
+// which ops/general_frames.py::launch_smem computes alike for make.
+template <bool kRegulated, bool kConnected, bool kWide, bool kCluster, bool kSized>
+static size_t launch_smem(int L, int V, int R, int S, int K) {
   const int block = kWide ? GEN_WIDE_BLOCK : GEN_BLOCK;
   const int G = kWide ? GEN_WIDE_BLOCK : threads_per_env(V);
   return sizeof(float) *
-         (static_cast<size_t>(block_words(L, kCluster ? 0 : V, kConnected)) +
+         (static_cast<size_t>(block_words(L, kCluster ? 0 : V, S, kConnected ? K : 0, kSized)) +
           static_cast<size_t>(block / G) *
               EnvSmem::words(L, kCluster ? GEN_WIDE_SLOTS : V, R, kRegulated,
                              kWide ? GEN_WIDE_WORDS : 1));
@@ -1679,11 +1852,37 @@ static cudaLaunchConfig_t cluster_config(int ranks, int B, size_t smem, cudaStre
   return cfg;
 }
 
+// The kernel of a layout and law: the Linear rows' instantiation or the
+// IDM code's; with kSized both are the kSized instantiation (Linear rows
+// possible), so a library instantiates only its own kernels.
+template <bool kRegulated, bool kConnected, bool kDynamical, bool kWide, bool kCluster,
+          bool kSized, typename... Dyn>
+static auto kernel_of(bool linear) {
+  if constexpr (kCluster)
+    return linear
+               ? general_frames_cluster_kernel<kRegulated, true, kConnected, kDynamical, kSized,
+                                               Dyn...>
+               : general_frames_cluster_kernel<kRegulated, kSized, kConnected, kDynamical,
+                                               kSized, Dyn...>;
+  else if constexpr (kWide)
+    return linear
+               ? general_frames_wide_kernel<kRegulated, true, kConnected, kDynamical, kSized,
+                                            Dyn...>
+               : general_frames_wide_kernel<kRegulated, kSized, kConnected, kDynamical, kSized,
+                                            Dyn...>;
+  else
+    return linear
+               ? general_frames_kernel<kRegulated, true, kConnected, kDynamical, kSized, Dyn...>
+               : general_frames_kernel<kRegulated, kSized, kConnected, kDynamical, kSized,
+                                       Dyn...>;
+}
+
 // dyn: the kDynamical instantiations' DynFields (one pointer), or nothing;
 // kWide: the wide kernels (up to GEN_WIDE_SLOTS slots), with kCluster the
 // cluster kernels (up to GEN_CLUSTER_SLOTS), else the narrow ones (up to
 // GEN_MAX_SLOTS)
-template <bool kRegulated, bool kConnected, bool kWide, bool kCluster, typename... Dyn>
+template <bool kRegulated, bool kConnected, bool kWide, bool kCluster, bool kSized,
+          typename... Dyn>
 static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
                   const int* lane_i, const int* conn_lanes, const float* conn_offsets,
                   const GenParams* params, int B, void* stream, const Dyn*... dyn) {
@@ -1693,10 +1892,15 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
   constexpr int max_slots =
       kCluster ? GEN_CLUSTER_SLOTS : (kWide ? GEN_WIDE_SLOTS : GEN_MAX_SLOTS);
   const GenParams& p = *params;
-  if (p.V < 1 || p.V > max_slots || p.L < 1 || p.L > GEN_MAX_LANES || p.R < 1 ||
-      p.R > GEN_MAX_ROUTE || p.M < 1 || p.M > GEN_MAX_LANES ||
-      (p.raw ? p.n_speeds != 0 : (p.n_speeds < 1 || p.n_speeds > GEN_MAX_SPEEDS)) ||
-      (kRegulated && p.period < 1) || (kConnected && (!conn_lanes || !conn_offsets)) ||
+  if (p.V < 1 || p.V > max_slots || p.L < 1 || p.R < 1 || p.M < 1 || p.M > p.L || p.S < 0 ||
+      (p.raw ? p.n_speeds != 0 : (p.n_speeds < 1 || (kSized && !p.speed_grid))) ||
+      (kRegulated && p.period < 1) ||
+      (kConnected ? (p.K < 1 || !conn_lanes || !conn_offsets) : p.K != 0) ||
+      // the fixed library's layout: padded successors and candidates,
+      // routes of at most 16 slots, at most 16 speeds and no poly bank
+      (!kSized && (p.S != GEN_FIXED_SUCC || (kConnected && p.K != GEN_FIXED_CONN) ||
+                   p.R > GEN_FIXED_ROUTE || p.n_speeds > GEN_FIXED_SPEEDS ||
+                   p.poly.pos != nullptr)) ||
       (false || ... || (dyn == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   GenFields f;
@@ -1704,23 +1908,13 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
   const int block = kWide ? GEN_WIDE_BLOCK : GEN_BLOCK;
   const int G = kWide ? GEN_WIDE_BLOCK : threads_per_env(p.V);
   const int envs_per_block = block / G;
-  const size_t smem = launch_smem<kRegulated, kConnected, kWide, kCluster>(p.L, p.V, p.R);
-  // the Linear rows' instantiation where the caller says they are possible;
-  // only this library's kernels (narrow, wide or cluster) are instantiated
-  const auto kernel = [&] {
-    if constexpr (kCluster)
-      return p.linear
-                 ? general_frames_cluster_kernel<kRegulated, true, kConnected, kDynamical, Dyn...>
-                 : general_frames_cluster_kernel<kRegulated, false, kConnected, kDynamical,
-                                                 Dyn...>;
-    else if constexpr (kWide)
-      return p.linear
-                 ? general_frames_wide_kernel<kRegulated, true, kConnected, kDynamical, Dyn...>
-                 : general_frames_wide_kernel<kRegulated, false, kConnected, kDynamical, Dyn...>;
-    else
-      return p.linear ? general_frames_kernel<kRegulated, true, kConnected, kDynamical, Dyn...>
-                      : general_frames_kernel<kRegulated, false, kConnected, kDynamical, Dyn...>;
-  }();
+  const size_t smem =
+      launch_smem<kRegulated, kConnected, kWide, kCluster, kSized>(p.L, p.V, p.R, p.S, p.K);
+  // the Linear rows' instantiation where the caller says they are possible
+  // (the kSized library's one always); only this library's kernels
+  // (narrow, wide or cluster, fixed or sized) are instantiated
+  const auto kernel =
+      kernel_of<kRegulated, kConnected, kDynamical, kWide, kCluster, kSized, Dyn...>(p.linear);
   int dev = 0;
   if (smem > 48 * 1024 || kCluster) {
     cudaError_t e = cudaGetDevice(&dev);
@@ -1790,19 +1984,29 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
 // one, whose entries below have the same names and launch the wide or the
 // cluster kernels.
 #if defined(GEN_CLUSTER_LIBRARY)
-#define GEN_LAYOUT true, true
+#define GEN_LAYOUT_ONLY true, true
 #elif defined(GEN_WIDE_LIBRARY)
-#define GEN_LAYOUT true, false
+#define GEN_LAYOUT_ONLY true, false
 #else
-#define GEN_LAYOUT false, false
+#define GEN_LAYOUT_ONLY false, false
 #endif
+// general_frames_sized.cu, general_frames_wide_sized.cu and
+// general_frames_cluster_sized.cu define GEN_SIZED_LIBRARY too: the same
+// entries launching the kSized instantiations, built beside the fixed ones
+#if defined(GEN_SIZED_LIBRARY)
+#define GEN_SIZED true
+#else
+#define GEN_SIZED false
+#endif
+#define GEN_LAYOUT GEN_LAYOUT_ONLY, GEN_SIZED
 
 // ptrs: the N_IN input tensors, the (B, V) int32 slot actions (null with
 // GenParams::raw, never read) and the N_OUT output tensors, as device
 // pointers in GenFields' order; lane_f / lane_i:
-// the (L, LANE_F_WORDS) float and (L, LANE_I_WORDS) int lane tables on the
-// device.  Launches K4 on `stream` without synchronizing; returns the CUDA
-// error code (cudaErrorInvalidValue for shapes outside the kernel's limits).
+// the (L, LANE_F_WORDS) float and (L, lane_i_words(S)) int lane tables on
+// the device.  Launches K4 on `stream` without synchronizing; returns the
+// CUDA error code (cudaErrorInvalidValue for a parameter block that does
+// not describe a scene).
 extern "C" int general_frames(void* const* ptrs, const float* lane_f, const int* lane_i,
                               const GenParams* params, int B, void* stream) {
   return launch<false, false, GEN_LAYOUT>(ptrs, RegFields{}, lane_f, lane_i, nullptr, nullptr,
@@ -1811,6 +2015,18 @@ extern "C" int general_frames(void* const* ptrs, const float* lane_f, const int*
 
 // The size of GenParams, which the wrapper holds its ctypes mirror to.
 extern "C" int general_params_bytes() { return static_cast<int>(sizeof(GenParams)); }
+
+// The shared memory a block of this library's launch asks at a scene of V
+// slots, L lanes, R route slots, S successor edges and (connected) K
+// candidates a lane: what ops/general_frames.py::launch_smem is held to.
+extern "C" long long general_smem_bytes(int regulated, int connected, int L, int V, int R,
+                                        int S, int K) {
+  using Smem = size_t (*)(int, int, int, int, int);
+  static const Smem sizes[4] = {
+      launch_smem<false, false, GEN_LAYOUT>, launch_smem<false, true, GEN_LAYOUT>,
+      launch_smem<true, false, GEN_LAYOUT>, launch_smem<true, true, GEN_LAYOUT>};
+  return static_cast<long long>(sizes[2 * (regulated != 0) + (connected != 0)](L, V, R, S, K));
+}
 
 // K5: as general_frames, plus reg_ptrs, the device pointers of RegFields in
 // its order.
@@ -1825,7 +2041,7 @@ extern "C" int general_frames_regulated(void* const* ptrs, void* const* reg_ptrs
 }
 
 // The connected-lane search's K4: as general_frames, plus conn_lanes /
-// conn_offsets, the (L, GEN_MAX_CONN) int candidate lanes (-1 pad) and float
+// conn_offsets, the (L, GenParams::K) int candidate lanes (-1 pad) and float
 // offsets of ops/general_frames.py::conn_tables on the device.
 extern "C" int general_frames_connected(void* const* ptrs, const float* lane_f,
                                         const int* lane_i, const int* conn_lanes,
@@ -1898,21 +2114,22 @@ extern "C" int general_frames_regulated_connected_dynamical(
 #if defined(GEN_CLUSTER_LIBRARY)
 // How many clusters of `ranks` blocks of one cluster instantiation the
 // current card holds at once, each block asking the shared memory a launch
-// asks at L lanes and R route slots (written to *smem): the question launch
-// asks before a cluster launch, with the same attributes set first (the
-// shared-memory size over 48 KB, the non-portable cluster size over
-// GEN_PORTABLE_CLUSTER blocks).
+// asks at L lanes, R route slots, S successor edges and K candidates a lane
+// (written to *smem): the question launch asks before a cluster launch,
+// with the same attributes set first (the shared-memory size over 48 KB,
+// the non-portable cluster size over GEN_PORTABLE_CLUSTER blocks).
 template <bool kRegulated, bool kConnected, typename... Dyn>
-static int cluster_fit(int linear, int ranks, int L, int R, int* smem, int* clusters) {
+static int cluster_fit(int linear, int ranks, int L, int R, int S, int K, int* smem,
+                       int* clusters) {
   constexpr bool kDynamical = sizeof...(Dyn) > 0;
-  const auto kernel =
-      linear ? general_frames_cluster_kernel<kRegulated, true, kConnected, kDynamical, Dyn...>
-             : general_frames_cluster_kernel<kRegulated, false, kConnected, kDynamical, Dyn...>;
-  if (ranks < 1 || ranks > GEN_CLUSTER_BLOCKS || L < 1 || L > GEN_MAX_LANES || R < 1 ||
-      R > GEN_MAX_ROUTE || !smem || !clusters)
+  constexpr bool kSized = GEN_SIZED;
+  if (ranks < 1 || ranks > GEN_CLUSTER_BLOCKS || L < 1 || R < 1 || S < 0 ||
+      (kConnected ? K < 1 : K != 0) || !smem || !clusters)
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel =
+      kernel_of<kRegulated, kConnected, kDynamical, true, true, kSized, Dyn...>(linear != 0);
   const size_t bytes =
-      launch_smem<kRegulated, kConnected, true, true>(L, ranks * GEN_WIDE_SLOTS, R);
+      launch_smem<kRegulated, kConnected, true, true, kSized>(L, ranks * GEN_WIDE_SLOTS, R, S, K);
   *smem = static_cast<int>(bytes);
   // the shared-memory size only ever raised, so that no launch finds it
   // below what it set before
@@ -1931,16 +2148,19 @@ static int cluster_fit(int linear, int ranks, int L, int R, int* smem, int* clus
 }
 
 // cluster_fit of the instantiation the flags name (regulated, connected,
-// dynamical, linear as 0 / 1); returns the CUDA error code.
+// dynamical, linear as 0 / 1; the kSized library's instantiation whatever
+// linear says, at the scene's S and K, the fixed library's at the fixed
+// layout's); returns the CUDA error code.
 extern "C" int general_cluster_fit(int regulated, int connected, int dynamical, int linear,
-                                   int ranks, int L, int R, int* smem, int* clusters) {
-  using Fit = int (*)(int, int, int, int, int*, int*);
+                                   int ranks, int L, int R, int S, int K, int* smem,
+                                   int* clusters) {
+  using Fit = int (*)(int, int, int, int, int, int, int*, int*);
   static const Fit fits[8] = {
       cluster_fit<false, false>, cluster_fit<false, false, DynFields>,
       cluster_fit<false, true>,  cluster_fit<false, true, DynFields>,
       cluster_fit<true, false>,  cluster_fit<true, false, DynFields>,
       cluster_fit<true, true>,   cluster_fit<true, true, DynFields>};
   return fits[4 * (regulated != 0) + 2 * (connected != 0) + (dynamical != 0)](
-      linear, ranks, L, R, smem, clusters);
+      linear, ranks, L, R, S, K, smem, clusters);
 }
 #endif

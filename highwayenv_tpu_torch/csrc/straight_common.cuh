@@ -53,7 +53,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#define MAX_LANES 16
 #define MAX_BLOCK_THREADS 1024
 #define FULL_MASK 0xffffffffu
 #define KIND_PAD 0
@@ -89,8 +88,23 @@ struct Geo {  // ops/straight_frames.py::_Geo
   float speed_limit;
   int has_limit;
   int n_lanes;
-  float offsets[MAX_LANES];
+  // the n_lanes lateral lane offsets on the device; each block copies them
+  // to the head of its shared memory (load_lane_offsets), where lane_offset
+  // reads them, so the scene's lane count sizes the table
+  const float* offsets;
 };
+
+// The block's dynamic shared memory: its first lane_offset_words(L) words
+// hold the lane offsets, the frame kernels' rows follow.
+extern __shared__ __align__(16) float straight_smem[];
+__host__ __device__ __forceinline__ int lane_offset_words(int L) { return (L + 3) & ~3; }
+__device__ __forceinline__ float lane_offset(int l) { return straight_smem[l]; }
+
+// Copies the lane offsets into shared memory; every thread of the block
+// calls it, and a barrier follows before the first lane_offset.
+__device__ __forceinline__ void load_lane_offsets(const Geo& g) {
+  for (int l = threadIdx.x; l < g.n_lanes; l += blockDim.x) straight_smem[l] = g.offsets[l];
+}
 
 struct Params {  // ops/straight_frames.py::_Params
   float dt;
@@ -543,7 +557,7 @@ __device__ __forceinline__ Start frame_start(const Slot& v, const Geo& g) {
 // Is slot i a member of lane l (occupiable, |lat - offset_l| <= width / 2 + 1)?
 __device__ __forceinline__ bool lane_member(const Start& st, bool live, const Geo& g,
                                             int l) {
-  return live && st.occ && fabsf(st.lat0 - g.offsets[l]) <= g.member_tol;
+  return live && st.occ && fabsf(st.lat0 - lane_offset(l)) <= g.member_tol;
 }
 
 // Stages slot i's frame-start row and its bits of the lane and abort
@@ -633,7 +647,7 @@ __device__ void drive(S& v, const Start& st, const int front[3], const int rear[
       const float jerk = (a_self_pred - a_self) +
                          p.politeness * (((a_nf_pred - a_nf) + a_of_pred) - a_of);
       const int q = query_lane(lane, k, L);
-      const bool reachable = fabsf(lat0 - g.offsets[q]) <= g.reach_lat &&
+      const bool reachable = fabsf(lat0 - lane_offset(q)) <= g.reach_lat &&
                              0.f <= s && s < g.in_range_hi;
       if (exists && reachable && moving && safe && jerk >= v.gain) target = q;
     }
@@ -664,7 +678,7 @@ __device__ void drive(S& v, const Start& st, const int front[3], const int rear[
   }
 
   // --- low-level controls ---------------------------------------------------
-  const float lat_t = lat0 - g.offsets[clampi(target, 0, L - 1)];
+  const float lat_t = lat0 - lane_offset(clampi(target, 0, L - 1));
   float steer_pc;
   if (law.linear) {
     steer_pc = linear_steer(g.theta, lat_t, v.heading, speed, v.len, law.sp0, law.sp1);
@@ -712,9 +726,9 @@ __device__ void drive(S& v, const Start& st, const int front[3], const int rear[
     new_timer = new_timer + p.dt;
     const float lat_new = (v.px - g.ox) * g.nx + (v.py - g.oy) * g.ny;
     int best = 0;
-    float best_d = fabsf(lat_new - g.offsets[0]);
+    float best_d = fabsf(lat_new - lane_offset(0));
     for (int l = 1; l < L; ++l) {
-      const float dl = fabsf(lat_new - g.offsets[l]);
+      const float dl = fabsf(lat_new - lane_offset(l));
       if (dl < best_d) {
         best_d = dl;
         best = l;
@@ -772,16 +786,25 @@ __device__ __forceinline__ void sat_pair(const Rows& r, const Params& p, int a, 
       (A.vx - B.vx) * p.dt, (A.vy - B.vy) * p.dt, inter, will, tx, ty);
 }
 
+// The dynamic shared memory of a frame kernel's block at V slots and L
+// lanes: the lane offsets, then `words` 4-byte words per thread (one a slot,
+// rounded up to a warp) and `warp_words` per warp
+// (ops/straight_frames.py::launch_smem computes it alike for make).
+__host__ __forceinline__ size_t frames_smem(int V, int L, int words, int warp_words) {
+  const int threads = ((V + 31) / 32) * 32;
+  return (static_cast<size_t>(lane_offset_words(L)) + static_cast<size_t>(words) * threads +
+          static_cast<size_t>(warp_words) * (threads / 32)) *
+         sizeof(float);
+}
+
 // Launch of a frame kernel with one block per env, one thread per slot
-// (rounded up to a warp), `words` 4-byte words of shared memory per thread
-// and `warp_words` per warp.  Returns the CUDA error code.
+// (rounded up to a warp) and frames_smem of shared memory.  Returns the
+// CUDA error code.
 template <typename Kernel, typename... Args>
-int launch_per_env(Kernel kernel, int B, int V, int words, int warp_words,
+int launch_per_env(Kernel kernel, int B, int V, int L, int words, int warp_words,
                    void* stream, Args... args) {
   const int threads = ((V + 31) / 32) * 32;
-  const size_t smem =
-      (static_cast<size_t>(words) * threads + static_cast<size_t>(warp_words) * (threads / 32)) *
-      sizeof(float);
+  const size_t smem = frames_smem(V, L, words, warp_words);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

@@ -46,9 +46,10 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
   extern __shared__ __align__(16) float smem[];
   const int N = blockDim.x;
   const int L = g.n_lanes;
+  load_lane_offsets(g);
   Rows r;
   // per slot, its partners whose pair passed the sphere pre-check, [N][N / 32]
-  unsigned* near = reinterpret_cast<unsigned*>(r.carve(smem, N, L));
+  unsigned* near = reinterpret_cast<unsigned*>(r.carve(smem + lane_offset_words(L), N, L));
 
   const int i = threadIdx.x;
   const bool live = i < V;
@@ -58,6 +59,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
   v.derive();
   r.post[i].len = v.len;
   r.post[i].wid = v.wid;
+  __syncthreads();  // the lane offsets are loaded
 
   for (int frame = 0; frame < frames; ++frame) {
     const Start st = frame_start(v, g);
@@ -183,6 +185,12 @@ extern "C" int straight_frames(
   // the Linear rows' instantiation where the caller says they are possible;
   // per thread: the rows and a word of pre-check bits per warp
   auto kernel = params->linear ? straight_frames_kernel<true> : straight_frames_kernel<false>;
-  return launch_per_env(kernel, B, V, ROW_WORDS + (V + 31) / 32,
+  return launch_per_env(kernel, B, V, geo->n_lanes, ROW_WORDS + (V + 31) / 32,
                         WARP_WORDS(geo->n_lanes), stream, f, mask, *geo, *params, V, frames);
+}
+
+// The shared memory a block of straight_frames asks at V slots and L lanes
+// (what ops/straight_frames.py::launch_smem is held to).
+extern "C" long long straight_frames_smem_bytes(int V, int L) {
+  return static_cast<long long>(frames_smem(V, L, ROW_WORDS + (V + 31) / 32, WARP_WORDS(L)));
 }

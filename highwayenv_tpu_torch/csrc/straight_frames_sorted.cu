@@ -77,9 +77,10 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
   extern __shared__ __align__(16) float smem[];
   const int N = blockDim.x;
   const int L = g.n_lanes;
+  load_lane_offsets(g);
   Rows r;
   // the in-warp suffix min / max of the active ranks' s, [N]
-  float2* band_s = reinterpret_cast<float2*>(r.carve(smem, N, L));
+  float2* band_s = reinterpret_cast<float2*>(r.carve(smem + lane_offset_words(L), N, L));
   // each warp's max diag and max speed, [2][N / 32]
   float* warp_max = reinterpret_cast<float*>(band_s + N);
   // the in-warp far-band winners' ranks, [ahead, behind][L][N]
@@ -99,6 +100,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
   r.post[i].wid = v.wid;
   r.post[i].orig = live ? idx[o] : -1;
   bool viol_coll = false, viol_neigh = false;
+  __syncthreads();  // the lane offsets are loaded
 
   for (int frame = 0; frame < frames; ++frame) {
     const Start st = frame_start(v, g);
@@ -329,6 +331,12 @@ extern "C" int straight_frames_sorted(
   // the Linear rows' instantiation where the caller says they are possible
   auto kernel =
       params->linear ? straight_frames_sorted_kernel<true> : straight_frames_sorted_kernel<false>;
-  return launch_per_env(kernel, B, V, words, warp_words, stream, f,
+  return launch_per_env(kernel, B, V, geo->n_lanes, words, warp_words, stream, f,
                         idx, flags, *geo, *params, V, frames, W, Wn);
+}
+
+// The shared memory a block of straight_frames_sorted asks at V slots and L
+// lanes (what ops/straight_frames.py::launch_smem is held to).
+extern "C" long long straight_frames_sorted_smem_bytes(int V, int L) {
+  return static_cast<long long>(frames_smem(V, L, ROW_WORDS + 2 + L + 1, WARP_WORDS(L) + 2));
 }

@@ -284,8 +284,6 @@ class BaseEnv:
             unported += straight_frames.kernel_limits(self.num_slots, self._straight)
         elif not sequential:  # the sequential mode launches no kernel
             unported += general_frames.general_unported(self)
-        else:  # nor does it hold poly lanes
-            unported += general_frames.poly_unported(self.geo)
         if unported:
             raise NotImplementedError(
                 f"{type(self).__name__}: {', '.join(unported)} not ported yet"

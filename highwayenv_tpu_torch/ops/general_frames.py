@@ -54,8 +54,12 @@ one of more than ``WIDE_SLOTS`` its cluster twin
 to 16 such blocks, up to ``MAX_SLOTS``: ``frames_general_cluster_kernel``
 ...), picked by ``frames_kernel_for``; on CPU tensors all run
 ``frames_general_plain``.
-``try_general`` is the scope gate: the envs outside it raise when made,
-naming the reason.
+The kernels' tables are sized by the scene: lanes, lanes an edge, route
+slots, successor and predecessor edges, candidate lanes and target speeds
+(``lane_tables``, ``conn_tables``, ``speed_table``), and poly lanes read
+from the sample bank (``poly_tables``); what bounds a scene is the shared
+memory a block asks (``launch_smem``).  ``try_general`` is the scope gate:
+the envs outside it raise when made, naming the reason.
 """
 
 from __future__ import annotations
@@ -83,25 +87,43 @@ from highwayenv_tpu_torch.vehicle.state import KIND_EGO, KIND_LINEAR, VehicleSta
 
 #: the gate's limits: the cluster kernels hold an env's slots in a cluster
 #: of up to 16 blocks of 128 threads (over the portable cluster size of 8
-#: through the non-portable size attribute; a block's shared memory is the
-#: same at any V, 115.8 KB at the largest scene within the other limits, 64
-#: lanes, 16 route slots, regulated and connected, where an H100 still holds
-#: 7 clusters of 16 such blocks at once: ``GeneralFramesKernel.cluster_fit``,
-#: ``tools/cluster_fit.py``), the wide ones in one block (at most
-#: ``WIDE_SLOTS``), the narrow ones in a warp (at most ``NARROW_SLOTS``);
-#: the lane tables in shared memory hold at most 64 lanes (also the most
-#: lanes an edge can have)
+#: through the non-portable size attribute; ``GeneralFramesKernel.
+#: cluster_fit``, ``tools/cluster_fit.py``), the wide ones in one block (at
+#: most ``WIDE_SLOTS``), the narrow ones in a warp (at most
+#: ``NARROW_SLOTS``).  Every table is sized by the scene (lanes, lanes an
+#: edge, route slots, successor and predecessor edges, target speeds); the
+#: one limit besides the slots is the shared memory a block asks
+#: (``launch_smem``), at most ``SMEM_LIMIT``
 MAX_SLOTS = 2048
 WIDE_SLOTS = 128
 NARROW_SLOTS = 32
-MAX_LANES = 64
-#: sizes of the kernel's fixed arrays (``GEN_MAX_SUCC`` ... in the .cu)
-MAX_SUCC = 4
-MAX_PRED = 4
-#: the connected-lane search's candidates a lane: itself, successors, predecessors
-MAX_CONN = 1 + MAX_SUCC + MAX_PRED
-MAX_SPEEDS = 16
-MAX_ROUTE = 16
+#: the shared memory a block may ask on an H100 (its opt-in maximum,
+#: ``cudaDevAttrMaxSharedMemoryPerBlockOptin``: 227 KB)
+SMEM_LIMIT = 232448
+#: the fixed layout of the tables (``GEN_FIXED_SUCC`` ... in the .cu): a
+#: scene within it (no poly lane, at most 4 successor edges, 16 route slots
+#: and, under the connected-lane search, 9 candidate lanes a lane) runs the
+#: kernels' instantiations of compile-time strides, its tables padded to
+#: it; any other the ``kSized`` one of the ``_sized`` libraries
+#: (``launch_tables``)
+FIXED_SUCC = 4
+FIXED_CONN = 9
+FIXED_ROUTE = 16
+FIXED_SPEEDS = 16
+
+
+def launch_tables(S: int, K: int | None, poly: bool, R: int = 1,
+                  n_speeds: int | None = None) -> tuple[int, int, bool]:
+    """(successor columns, candidate columns, sized) of a launch's tables
+    for a scene of S successor edges a lane, K candidate lanes a lane
+    (None without the connected-lane search), poly lanes or not, R route
+    slots and ``n_speeds`` target speeds (None under raw controls): the
+    fixed layout's padded ones, or the scene's own under ``kSized``."""
+    sized = (poly or S > FIXED_SUCC or R > FIXED_ROUTE or (K is not None and K > FIXED_CONN)
+             or (n_speeds is not None and n_speeds > FIXED_SPEEDS))
+    if sized:
+        return S, K or 0, True
+    return FIXED_SUCC, 0 if K is None else FIXED_CONN, False
 
 
 class GeneralSpec(NamedTuple):
@@ -123,28 +145,61 @@ class GeneralSpec(NamedTuple):
     sequential: bool = False
 
 
-def kernel_limits(V: int, L: int, M: int, R: int, S: int,
-                  n_speeds: int | None, P: int | None = None) -> list[str]:
-    """The limits of the kernels' arrays that a scene of V slots, L lanes,
-    at most M lanes an edge, R route slots, S successor edges a lane,
-    ``n_speeds`` target speeds (None under raw controls) and, under the
-    connected-lane search, P predecessor edges a lane (None without it)
-    breaks.  A dynamical action is no limit: every instantiation has its
-    dynamical twin, the connected ones too."""
-    conn = [] if P is None else [
-        (f"{P} predecessor edges > {MAX_PRED}", P > MAX_PRED),
-        (f"{1 + S + P} connected-lane candidates > {MAX_CONN}", 1 + S + P > MAX_CONN),
-    ]
+def _words_env(L: int, V: int, R: int, regulated: bool, W: int) -> int:
+    """``EnvSmem::words`` of the .cu: one env's words in shared memory."""
+    rows = 2 * L * V + 9 * V
+    union = max(rows, 4 * 11 * V + 7 * V + 2 * R * V) if regulated else rows
+    w = 2 * V + union + 12 * V + 3 * R * V + W * (L + V + 4)
+    return (w + 1) & ~1
+
+
+def _words_block(L: int, V: int, S: int, K: int, sized: bool) -> int:
+    """``block_words`` of the .cu: the lane tables, the lanes' order, the
+    candidate tables (K a lane, 0 without the search) and the pair table."""
+    w = (L * (LANE_F_WORDS + lane_i_words(S, sized) + 1) + 2 * L * K
+         + (V * (V - 1) // 2 + 1) // 2)
+    return (w + 1) & ~1
+
+
+def launch_smem(V: int, L: int, R: int, S: int, K: int, regulated: bool,
+                sized: bool = False) -> int:
+    """The shared memory, in bytes, that a block of the launch asks at a
+    scene of V slots, L lanes, R route slots, S successor columns and K
+    candidate columns a lane (0 without the connected-lane search), in the
+    fixed or the ``sized`` layout, in the layout ``frames_kernel_for`` picks
+    for V: the .cu's ``launch_smem`` (``general_smem_bytes`` of each
+    library, which chip_smoke.py holds this copy to)."""
+    if V > WIDE_SLOTS:  # a cluster's block: 128 slots of its own, no pair table
+        return 4 * (_words_block(L, 0, S, K, sized)
+                    + _words_env(L, WIDE_SLOTS, R, regulated, 4))
+    if V > NARROW_SLOTS:  # one env a block
+        return 4 * (_words_block(L, V, S, K, sized) + _words_env(L, V, R, regulated, 4))
+    envs = 64 // (16 if V <= 16 else 32)
+    return 4 * (_words_block(L, V, S, K, sized) + envs * _words_env(L, V, R, regulated, 1))
+
+
+def kernel_limits(V: int, L: int, R: int, S: int, n_speeds: int | None,
+                  K: int | None = None, regulated: bool = False,
+                  poly: bool = False) -> list[str]:
+    """The limits of the kernels that a scene of V slots, L lanes, R route
+    slots, S successor edges a lane, ``n_speeds`` target speeds (None under
+    raw controls) and, under the connected-lane search, K candidate lanes a
+    lane (None without it), on a regulated road or not, with poly lanes or
+    not, breaks: the slots of the largest layout, the shared memory a block
+    of the launch asks (its tables as ``launch_tables`` lays them out), and
+    a grid of one speed (``speed_to_index`` divides by the grid's span).
+    Lanes, lanes an edge, route slots, successor and predecessor edges and
+    target speeds are otherwise tables of the scene's size.  A dynamical
+    action is no limit: every instantiation has its dynamical twin, the
+    connected ones too."""
+    S_t, K_t, sized = launch_tables(S, K, poly, R, n_speeds)
+    smem = launch_smem(V, L, R, S_t, K_t, regulated, sized)
     return [
         what for what, bad in (
             (f"{V} slots > {MAX_SLOTS}", V > MAX_SLOTS),
-            (f"{L} lanes > {MAX_LANES}", L > MAX_LANES),
-            (f"{M} lanes an edge > {MAX_LANES}", M > MAX_LANES),
-            (f"{R} route slots > {MAX_ROUTE}", R > MAX_ROUTE),
-            (f"{S} successor edges > {MAX_SUCC}", S > MAX_SUCC),
-            (f"{n_speeds} target speeds outside 2 to {MAX_SPEEDS}",
-             n_speeds is not None and not 2 <= n_speeds <= MAX_SPEEDS),
-            *conn,
+            (f"{smem} bytes of shared memory a block > {SMEM_LIMIT}", smem > SMEM_LIMIT),
+            (f"{n_speeds} target speeds < 2 (speed_to_index divides by the grid's span)",
+             n_speeds is not None and n_speeds < 2),
         ) if bad
     ]
 
@@ -165,21 +220,11 @@ def general_unported(env) -> list[str]:
     search outside its kernel)."""
     geo, at = env.geo, env.action_type
     return kernel_limits(
-        env.num_slots, geo.num_lanes, int(env.max_edge_lanes), env.route_slots,
-        geo.succ_edge_base.shape[1],
+        env.num_slots, geo.num_lanes, env.route_slots, geo.succ_edge_base.shape[1],
         None if at.stores_raw_controls else len(at.target_speeds),
-        geo.pred_edge_base.shape[1] if _connected(env) else None,
-    ) + poly_unported(geo)
-
-
-def poly_unported(geo) -> list[str]:
-    """Poly lanes, which the frames' lane tables do not hold (the JAX
-    package steps them on its XLA frames, the port has no such frame)."""
-    return [] if geo.poly is None else [POLY_LIMIT]
-
-
-#: what ``make`` names when it refuses a poly-lane network
-POLY_LIMIT = "poly lanes (the frame kernels hold analytic lanes only)"
+        geo.conn_lanes.shape[1] if _connected(env) else None, env.regulated,
+        geo.poly is not None,
+    )
 
 
 def sequential(env) -> bool:
@@ -323,16 +368,34 @@ _LANE_F = ("sx", "sy", "ux", "uy", "nx", "ny", "heading0", "amplitude",
 _LANE_I = ("kind", "forbidden", "lane_id", "edge_base", "edge_n", "from_node",
            "to_node")
 LANE_F_WORDS = len(_LANE_F)
-LANE_I_WORDS = 16  # _LANE_I, succ_base[MAX_SUCC], succ_n[MAX_SUCC], priority
-LANE_I_PRIORITY = LANE_I_WORDS - 1
+#: the first successor column: S base lanes, then S lane counts, then the
+#: priority and (the kSized layout) the lane's poly bank row
+LANE_I_SUCC = len(_LANE_I)
+#: the priority's column in the fixed layout (S = FIXED_SUCC)
+LANE_I_PRIORITY = LANE_I_SUCC + 2 * FIXED_SUCC
 
 
-def lane_tables(geo: LaneGeometry, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's (L, LANE_F_WORDS) float and (L, LANE_I_WORDS) int lane
-    tables (the counterpart of ``GeneralGeo``)."""
-    S = geo.succ_edge_base.shape[1]
-    if S > MAX_SUCC:  # refused at make (general_unported)
-        raise ValueError(f"{S} successor edges > {MAX_SUCC}")
+def lane_i_words(S: int, sized: bool) -> int:
+    """Words of an int lane row at S successor columns, in the fixed or the
+    ``sized`` layout (``lane_i_words`` of the .cu; 16 in the fixed one)."""
+    return LANE_I_SUCC + 2 * S + 1 + int(sized)
+
+
+def lane_tables(geo: LaneGeometry, device, succ: int | None = None,
+                sized: bool | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's (L, LANE_F_WORDS) float and (L, lane_i_words(S, sized))
+    int lane tables (the counterpart of ``GeneralGeo``): the columns of
+    ``_LANE_I``, S = ``succ`` successor edges' base lanes (-1 pad) and lane
+    counts (0 pad), the priority, and in the ``sized`` layout the lane's
+    poly bank row (-1 on an analytic lane).  By default the layout
+    ``launch_tables`` gives the network (under no connected search, at one
+    route slot)."""
+    n_succ = geo.succ_edge_base.shape[1]
+    if sized is None:
+        succ, _, sized = launch_tables(n_succ, None, geo.poly is not None)
+    S = n_succ if succ is None else succ
+    if S < n_succ:
+        raise ValueError(f"{S} successor columns < the scene's {n_succ}")
     cols = {
         "sx": geo.start[:, 0], "sy": geo.start[:, 1],
         "ux": geo.direction[:, 0], "uy": geo.direction[:, 1],
@@ -342,56 +405,83 @@ def lane_tables(geo: LaneGeometry, device) -> tuple[torch.Tensor, torch.Tensor]:
     lf = torch.stack(
         [cols[k] if k in cols else getattr(geo, k) for k in _LANE_F], dim=1
     ).to(device=device, dtype=torch.float32).contiguous()
-    L = geo.num_lanes
-    li = torch.zeros((L, LANE_I_WORDS), dtype=torch.int32)
+    L, n = geo.num_lanes, LANE_I_SUCC
+    li = torch.full((L, lane_i_words(S, sized)), -1, dtype=torch.int32)
     for k, name in enumerate(_LANE_I):
         li[:, k] = getattr(geo, name).cpu().to(torch.int32)
-    n = len(_LANE_I)
-    li[:, n:n + MAX_SUCC] = -1
-    li[:, n:n + S] = geo.succ_edge_base.cpu()
-    li[:, n + MAX_SUCC:n + MAX_SUCC + S] = geo.succ_edge_n.cpu()
-    li[:, LANE_I_PRIORITY] = geo.priority.cpu().to(torch.int32)
+    li[:, n:n + n_succ] = geo.succ_edge_base.cpu()
+    li[:, n + S:n + 2 * S] = 0
+    li[:, n + S:n + S + n_succ] = geo.succ_edge_n.cpu()
+    li[:, n + 2 * S] = geo.priority.cpu().to(torch.int32)
+    if sized and geo.poly is not None:
+        li[:, n + 2 * S + 1] = geo.poly.slot.cpu().to(torch.int32)
     return lf, li.to(device).contiguous()
 
 
-def conn_tables(geo: LaneGeometry, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The connected kernels' (L, MAX_CONN) int candidate lanes (-1 pad)
-    and float offsets: ``geo.conn_lanes`` / ``conn_offsets`` padded."""
-    L, K = geo.conn_lanes.shape
-    if K > MAX_CONN:  # refused at make (general_unported)
-        raise ValueError(f"{K} connected-lane candidates > {MAX_CONN}")
-    lanes = torch.full((L, MAX_CONN), -1, dtype=torch.int32)
-    offsets = torch.zeros((L, MAX_CONN), dtype=torch.float32)
-    lanes[:, :K] = geo.conn_lanes.cpu()
-    offsets[:, :K] = geo.conn_offsets.cpu()
+def conn_tables(geo: LaneGeometry, device,
+                cands: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The connected kernels' (L, K) int candidate lanes (-1 pad) and float
+    offsets (0 pad): ``geo.conn_lanes`` / ``conn_offsets`` (K = 1 + S + P
+    columns), padded to ``cands`` columns where given."""
+    L, n = geo.conn_lanes.shape
+    K = n if cands is None else cands
+    if K < n:
+        raise ValueError(f"{K} candidate columns < the scene's {n}")
+    lanes = torch.full((L, K), -1, dtype=torch.int32)
+    offsets = torch.zeros((L, K), dtype=torch.float32)
+    lanes[:, :n] = geo.conn_lanes.cpu()
+    offsets[:, :n] = geo.conn_offsets.cpu()
     return lanes.to(device).contiguous(), offsets.to(device).contiguous()
 
 
-def params_struct(max_speeds: int = MAX_SPEEDS) -> type:
-    """The ctypes mirror of the .cu's ``GenParams`` with a speed grid of
-    ``max_speeds`` entries (its ``GEN_MAX_SPEEDS``)."""
-
-    class GenParams(ctypes.Structure):
-        _fields_ = [
-            ("L", ctypes.c_int), ("M", ctypes.c_int), ("V", ctypes.c_int),
-            ("R", ctypes.c_int), ("frames", ctypes.c_int),
-            ("n_speeds", ctypes.c_int), ("longitudinal", ctypes.c_int),
-            ("lateral", ctypes.c_int), ("period", ctypes.c_int), ("raw", ctypes.c_int),
-            ("dt", ctypes.c_float), ("acc_max", ctypes.c_float),
-            ("comfort_acc_max", ctypes.c_float), ("distance_wanted", ctypes.c_float),
-            ("time_wanted", ctypes.c_float), ("inv_two_sqrt_ab", ctypes.c_float),
-            ("politeness", ctypes.c_float), ("lane_change_delay", ctypes.c_float),
-            ("kp_a", ctypes.c_float), ("kp_heading", ctypes.c_float),
-            ("kp_lateral", ctypes.c_float), ("tau_pursuit", ctypes.c_float),
-            ("ts_lo", ctypes.c_float), ("inv_ts_range", ctypes.c_float),
-            ("target_speeds", ctypes.c_float * max_speeds),
-            ("linear", ctypes.c_int),
-        ]
-
-    return GenParams
+def poly_tables(geo: LaneGeometry, device) -> tuple[torch.Tensor, ...]:
+    """The kernels' copy of the poly bank (``PolyBank`` of the .cu): the
+    (P, S, 2) pose samples and tangents, their (P,) counts, the (P, 3, C)
+    control points (arc length, x, y) and their (P,) counts; () on a network
+    without poly lanes."""
+    bank = geo.poly
+    if bank is None:
+        return ()
+    f32 = dict(device=device, dtype=torch.float32)
+    i32 = dict(device=device, dtype=torch.int32)
+    return (bank.pos.to(**f32).contiguous(), bank.normal.to(**f32).contiguous(),
+            bank.n.to(**i32).contiguous(),
+            torch.stack([bank.cp_s, bank.cp_x, bank.cp_y], dim=1).to(**f32).contiguous(),
+            bank.cp_n.to(**i32).contiguous())
 
 
-GenParams = params_struct()
+class PolyBankFields(ctypes.Structure):
+    """The ctypes mirror of the .cu's ``PolyBank``: the device pointers of
+    ``poly_tables``, samples a bank row and control points a bank row."""
+
+    _fields_ = [
+        ("pos", ctypes.c_void_p), ("normal", ctypes.c_void_p), ("n", ctypes.c_void_p),
+        ("cp", ctypes.c_void_p), ("cp_n", ctypes.c_void_p),
+        ("S", ctypes.c_int), ("C", ctypes.c_int),
+    ]
+
+
+class GenParams(ctypes.Structure):
+    """The ctypes mirror of the .cu's ``GenParams``; its pointers (the
+    speed grid, the poly bank) are the wrapper's device tables."""
+
+    _fields_ = [
+        ("L", ctypes.c_int), ("M", ctypes.c_int), ("V", ctypes.c_int),
+        ("R", ctypes.c_int), ("frames", ctypes.c_int),
+        ("n_speeds", ctypes.c_int), ("longitudinal", ctypes.c_int),
+        ("lateral", ctypes.c_int), ("period", ctypes.c_int), ("raw", ctypes.c_int),
+        ("dt", ctypes.c_float), ("acc_max", ctypes.c_float),
+        ("comfort_acc_max", ctypes.c_float), ("distance_wanted", ctypes.c_float),
+        ("time_wanted", ctypes.c_float), ("inv_two_sqrt_ab", ctypes.c_float),
+        ("politeness", ctypes.c_float), ("lane_change_delay", ctypes.c_float),
+        ("kp_a", ctypes.c_float), ("kp_heading", ctypes.c_float),
+        ("kp_lateral", ctypes.c_float), ("tau_pursuit", ctypes.c_float),
+        ("ts_lo", ctypes.c_float), ("inv_ts_range", ctypes.c_float),
+        ("target_speeds", ctypes.c_float * FIXED_SPEEDS),
+        ("linear", ctypes.c_int), ("S", ctypes.c_int), ("K", ctypes.c_int),
+        ("speed_grid", ctypes.c_void_p),
+        ("poly", PolyBankFields),
+    ]
 
 
 _IN_FIELDS = [
@@ -438,23 +528,28 @@ def _resolve(fields, R: int):
 
 
 def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int,
-                  raw: bool = False, linear: bool = True, params_type=GenParams):
-    """The kernel's parameter block, a ``params_type``.  Raw controls take
-    no target speeds: ``n_speeds = 0`` and ``raw = 1``; ``linear`` picks
-    the Linear rows' instantiation.  A scene outside the kernels' limits
-    raises: ``make`` refuses its env (``general_unported``)."""
-    at, p = spec.action_type, spec.p
+                  raw: bool = False, linear: bool = True) -> GenParams:
+    """The kernel's parameter block without its device pointers (the
+    wrapper sets ``speed_grid`` and ``poly`` to its tables in the kSized
+    layout; the fixed one carries the speed grid in ``target_speeds``).  Raw
+    controls take no target speeds: ``n_speeds = 0`` and ``raw = 1``;
+    ``linear`` picks the Linear rows' instantiation.  A scene outside the
+    kernels' limits raises: ``make`` refuses its env
+    (``general_unported``)."""
+    at, p, geo = spec.action_type, spec.p, spec.geo
     ts = np.zeros(0, np.float32) if raw else np.asarray(at.target_speeds, np.float32)
     # the grid as controller.speed_to_index takes it
     span = None if raw else np.asarray(at.target_speeds)
-    geo = spec.geo
-    bad = kernel_limits(V, geo.num_lanes, spec.max_edge_lanes, R,
-                        geo.succ_edge_base.shape[1], None if raw else len(ts),
-                        geo.pred_edge_base.shape[1] if spec.connected else None)
+    S, K, sized = scene_tables(spec, R, raw)
+    bad = kernel_limits(V, geo.num_lanes, R, geo.succ_edge_base.shape[1],
+                        None if raw else len(ts),
+                        geo.conn_lanes.shape[1] if spec.connected else None,
+                        spec.period is not None, geo.poly is not None)
     if bad:
         raise ValueError(f"outside the general kernels' limits: {', '.join(bad)}")
-    out = params_type(
-        L=spec.geo.num_lanes, M=spec.max_edge_lanes, V=V, R=R, frames=frames,
+    bank = geo.poly
+    out = GenParams(
+        L=geo.num_lanes, M=spec.max_edge_lanes, V=V, R=R, frames=frames,
         n_speeds=len(ts), longitudinal=int(at.longitudinal),
         lateral=int(at.lateral), period=spec.period or 0, raw=int(raw),
         dt=spec.dt, acc_max=p.acc_max,
@@ -468,11 +563,34 @@ def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int,
         # rounded to float32
         ts_lo=float(ts[0]) if len(ts) else 0.0,
         inv_ts_range=(float(np.float32(1.0 / (span[-1] - span[0]))) if len(ts) else 0.0),
-        linear=int(linear),
+        linear=int(linear), S=S, K=K,
+        poly=PolyBankFields(S=0 if bank is None else bank.pos.shape[1],
+                            C=0 if bank is None else bank.cp_s.shape[1]),
     )
-    for i, x in enumerate(ts):
-        out.target_speeds[i] = float(x)
+    if not sized:  # the fixed layout's grid, in the block
+        for i, x in enumerate(ts):
+            out.target_speeds[i] = float(x)
     return out
+
+
+def scene_tables(spec: GeneralSpec, R: int, raw: bool) -> tuple[int, int, bool]:
+    """``launch_tables`` of ``spec``'s scene at R route slots, under raw
+    controls or meta-actions: (successor columns, candidate columns,
+    sized)."""
+    geo = spec.geo
+    return launch_tables(geo.succ_edge_base.shape[1],
+                         geo.conn_lanes.shape[1] if spec.connected else None,
+                         geo.poly is not None, R,
+                         None if raw else len(spec.action_type.target_speeds))
+
+
+def speed_table(spec: GeneralSpec, raw: bool, device) -> tuple[torch.Tensor, ...]:
+    """The kSized kernels' device copy of the target-speed grid, () under
+    raw controls."""
+    if raw:
+        return ()
+    return (torch.tensor(np.asarray(spec.action_type.target_speeds, np.float32),
+                         device=device),)
 
 
 class GeneralFramesKernel(KernelWrapper):
@@ -508,7 +626,14 @@ class GeneralFramesKernel(KernelWrapper):
     step's start and passes the kernel only their tick phase
     ``steps0 % period``, as the JAX wrapper does.  ``linear`` as for K1
     (``ops/straight_frames.py``): the Linear rows' instantiation, or the
-    IDM code, which traps on a Linear row.
+    IDM code, which traps on a Linear row.  A scene outside the tables'
+    fixed layout (poly lanes, more than ``FIXED_SUCC`` successor edges,
+    ``FIXED_CONN`` candidate lanes a lane, ``FIXED_ROUTE`` route slots or
+    ``FIXED_SPEEDS`` target speeds: ``launch_tables``) launches the ``kSized`` instantiation of the same
+    entry in the ``source + "_sized"`` library instead (the tables' strides
+    read at run time, the poly bank in global memory; Linear rows possible
+    whatever ``linear`` says); the others launch on tables padded to the
+    fixed layout.
     """
 
     #: the fields the kernel reads, in the order of its pointer block
@@ -529,6 +654,21 @@ class GeneralFramesKernel(KernelWrapper):
         self.entry = ("general_frames" + "_regulated" * regulated
                       + "_connected" * connected + "_dynamical" * dynamical)
         self._tables: dict = {}
+        self._sized_lib = None
+
+    def _library(self, sized: bool = False):
+        """The fixed layout's library (``source``), or with ``sized`` the
+        ``kSized`` one (``source`` + "_sized"), each built and bound at its
+        first use."""
+        if not sized:
+            return super()._library()
+        if self._sized_lib is None:
+            from highwayenv_tpu_torch.ops import _build
+
+            lib = _build.load_kernel_library(self.source + "_sized")
+            self._bind(lib)
+            self._sized_lib = lib
+        return self._sized_lib
 
     def _bind(self, lib):
         sizes = [("general_params_bytes", "GenParams", self.params_type)]
@@ -547,40 +687,78 @@ class GeneralFramesKernel(KernelWrapper):
         )
         fn.restype = ctypes.c_int
 
-    def cluster_fit(self, ranks: int, L: int, R: int, linear: bool = True,
+    def cluster_fit(self, ranks: int, L: int, R: int, S: int = FIXED_SUCC,
+                    K: int | None = None, linear: bool = True,
                     device=None) -> tuple[int, int]:
         """(clusters, bytes): how many clusters of ``ranks`` blocks of this
         cluster instantiation the card can hold at once
         (``cudaOccupancyMaxActiveClusters``, the launch's own question; 0:
         none fits), each block asking the shared memory a launch at ``L``
-        lanes and ``R`` route slots asks, which the library computes as the
-        launch does and returns beside.  Raises on a CUDA error."""
+        lanes, ``R`` route slots, ``S`` successor edges and ``K`` candidates
+        a lane (connected; default 1 + 2 S) asks (the tables as
+        ``launch_tables`` lays them out, the ``kSized`` instantiation where
+        it does), which the library computes as the launch does and returns
+        beside.  Raises on a CUDA error."""
         if not self.cluster:
             raise ValueError("cluster_fit asks the cluster library's kernels")
-        limits = ((ranks, -(-MAX_SLOTS // WIDE_SLOTS), "cluster blocks"),
-                  (L, MAX_LANES, "lanes"), (R, MAX_ROUTE, "route slots"))
-        for n, most, what in limits:
-            if not 1 <= n <= most:
-                raise ValueError(f"cluster_fit: {n} {what} outside 1 to {most}")
-        lib = self._library()
+        most = -(-MAX_SLOTS // WIDE_SLOTS)
+        if not 1 <= ranks <= most:
+            raise ValueError(f"cluster_fit: {ranks} cluster blocks outside 1 to {most}")
+        for n, what in ((L, "lanes"), (R, "route slots")):
+            if n < 1:
+                raise ValueError(f"cluster_fit: {n} {what} < 1")
+        S, K, sized = launch_tables(S, (1 + 2 * S if K is None else K) if self.connected
+                                    else None, False, R)
+        lib = self._library(sized)
         fn = lib.general_cluster_fit
-        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)] * 2
         fn.restype = ctypes.c_int
         smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
             err = fn(int(self.regulated), int(self.connected), int(self.dynamical),
-                     int(linear), ranks, L, R, ctypes.byref(smem), ctypes.byref(clusters))
+                     int(linear), ranks, L, R, S, K, ctypes.byref(smem), ctypes.byref(clusters))
         if err != 0:
             raise RuntimeError(f"general_cluster_fit({ranks} blocks, L={L}, R={R}): "
                                f"CUDA error {err}")
         return clusters.value, smem.value
 
-    def _lane_tables(self, geo: LaneGeometry, dev):
-        key = (id(geo), str(dev))
+    def smem_bytes(self, L: int, V: int, R: int, S: int, K: int = 0,
+                   sized: bool = False) -> int:
+        """The shared memory a block of this wrapper's fixed or ``sized``
+        library's launch asks at the scene (``general_smem_bytes``, the
+        launch's own count), for a check of ``launch_smem``."""
+        fn = self._library(sized).general_smem_bytes
+        fn.argtypes = [ctypes.c_int] * 7
+        fn.restype = ctypes.c_longlong
+        return int(fn(int(self.regulated), int(self.connected), L, V, R, S, K))
+
+    def _device_tables(self, spec: GeneralSpec, raw: bool, dev, S: int, K: int,
+                       sized: bool):
+        """(lane tables, poly bank, speed grid) on ``dev`` in the layout
+        (S, K, sized) of ``launch_tables``: the lane tables (and the
+        candidate tables of a connected instantiation) as the launch's
+        pointer arguments, built once per network, action type, layout and
+        device (before a graph captures the launch)."""
+        key = (id(spec.geo), id(spec.action_type), raw, str(dev), S, K, sized)
         if key not in self._tables:
-            conn = conn_tables(geo, dev) if self.connected else ()
-            self._tables[key] = (geo, lane_tables(geo, dev) + conn)
-        return self._tables[key][1]
+            conn = conn_tables(spec.geo, dev, K) if self.connected else ()
+            self._tables[key] = (spec.geo, spec.action_type, (
+                lane_tables(spec.geo, dev, S, sized) + conn,
+                poly_tables(spec.geo, dev) if sized else (),
+                speed_table(spec, raw, dev) if sized else ()))
+        return self._tables[key][2]
+
+    def _params(self, spec: GeneralSpec, V: int, R: int, frames: int, raw: bool,
+                linear: bool, dev):
+        """(table pointers, parameter block) of a launch on ``dev``."""
+        lanes, poly, speeds = self._device_tables(spec, raw, dev, *scene_tables(spec, R, raw))
+        params = kernel_params(spec, V, R, frames, raw, linear)
+        if speeds:
+            params.speed_grid = speeds[0].data_ptr()
+        if poly:
+            for name, t in zip(("pos", "normal", "n", "cp", "cp_n"), poly):
+                setattr(params.poly, name, t.data_ptr())
+        return [t.data_ptr() for t in lanes], params
 
     def __call__(self, veh: VehicleState, spec: GeneralSpec,
                  slot_actions: torch.Tensor | None, frames: int,
@@ -612,8 +790,7 @@ class GeneralFramesKernel(KernelWrapper):
             action_ptr = slot_actions.data_ptr()
         ins = checked_fields(veh, _resolve(self.in_fields, R), B, V, dev)
         outs = empty_fields(_resolve(OUT_FIELDS, R), B, V, dev)
-        tables = [t.data_ptr() for t in self._lane_tables(spec.geo, dev)]
-        params = kernel_params(spec, V, R, frames, raw, linear, self.params_type)
+        tables, params = self._params(spec, V, R, frames, raw, linear, dev)
         ptrs = (ctypes.c_void_p * (len(ins) + 1 + len(outs)))(
             *[t.data_ptr() for t in ins], action_ptr, *[t.data_ptr() for t in outs]
         )
@@ -634,7 +811,7 @@ class GeneralFramesKernel(KernelWrapper):
                 *[t.data_ptr() for t in dyn_ins + dyn_outs],
                 *dynamics.kernel_constants(spec.dt),
             ))]
-        lib = self._library()
+        lib = self._library(scene_tables(spec, R, raw)[2])
         with torch.cuda.device(dev):
             err = getattr(lib, self.entry)(
                 *args, *tables, ctypes.byref(params),

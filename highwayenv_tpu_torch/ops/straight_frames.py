@@ -45,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from highwayenv_tpu_torch.ops import collision
@@ -65,10 +66,12 @@ from highwayenv_tpu_torch.vehicle.state import (
     VehicleState,
 )
 
-#: most lanes the kernel's constant block holds (``MAX_LANES`` in the .cu)
-MAX_LANES = 16
 #: most slots one thread block can hold (one thread per slot)
 MAX_SLOTS = 1024
+#: the shared memory a block may ask on an H100 (its opt-in maximum: 227 KB)
+SMEM_LIMIT = 232448
+#: words of a slot's rows in shared memory (``ROW_WORDS`` in straight_common.cuh)
+ROW_WORDS = 22
 
 
 def lane_members(s, lat0, occupiable, q_off, tol: float):
@@ -315,7 +318,7 @@ class _Geo(ctypes.Structure):
         ("speed_limit", ctypes.c_float),
         ("has_limit", ctypes.c_int),
         ("n_lanes", ctypes.c_int),
-        ("offsets", ctypes.c_float * MAX_LANES),
+        ("offsets", ctypes.c_void_p),  # the device copy of the lane offsets
     ]
 
 
@@ -400,14 +403,30 @@ def with_fields(state: VehicleState, fields, tensors) -> VehicleState:
     return state.replace(**{name: t for (name, _, _), t in zip(fields, tensors)})
 
 
+def launch_smem(V: int, L: int) -> tuple[int, int]:
+    """The shared memory, in bytes, a block of K1 and of K3 asks at V slots
+    and L lanes (``frames_smem`` in straight_common.cuh: the lane offsets,
+    then per thread its rows and per warp its ballot words; each library's
+    ``*_smem_bytes``, which chip_smoke.py holds this copy to)."""
+    threads = -(-V // 32) * 32
+    warps = threads // 32
+
+    def smem(words, warp_words):
+        return 4 * (((L + 3) & ~3) + words * threads + warp_words * warps)
+
+    return (smem(ROW_WORDS + warps, 2 * L + 4),
+            smem(ROW_WORDS + 2 + L + 1, 2 * L + 4 + 2))
+
+
 def kernel_limits(V: int, fs: StraightGeo) -> list[str]:
     """The limits of the straight kernels that a scene of V slots on ``fs``
-    breaks: one thread per slot, at most ``MAX_LANES`` lane offsets in the
-    constant block."""
+    breaks: one thread per slot, and the shared memory a block of the dense
+    (K1) or the sorted (K3) kernel asks, which grows with the lanes."""
+    smem = max(launch_smem(V, len(fs.offsets)))
     return [
         what for what, bad in (
             (f"{V} slots > {MAX_SLOTS}", V > MAX_SLOTS),
-            (f"{len(fs.offsets)} straight lanes > {MAX_LANES}", len(fs.offsets) > MAX_LANES),
+            (f"{smem} bytes of shared memory a block > {SMEM_LIMIT}", smem > SMEM_LIMIT),
         ) if bad
     ]
 
@@ -422,10 +441,26 @@ def check_frame_shape(veh: VehicleState, fs: StraightGeo) -> tuple[int, int]:
     return B, V
 
 
+_OFFSETS: dict = {}
+
+
+def offsets_table(fs: StraightGeo, device) -> torch.Tensor:
+    """The device copy of the road's lane offsets, which the kernels copy
+    to shared memory: built once per set of offsets and device (before a
+    graph captures the launch), so that every env of one road layout
+    shares it and making envs does not grow the cache."""
+    offsets = np.asarray(fs.offsets, np.float32)
+    key = (offsets.tobytes(), str(device))
+    if key not in _OFFSETS:
+        _OFFSETS[key] = torch.as_tensor(offsets, device=device)
+    return _OFFSETS[key]
+
+
 def kernel_params(fs: StraightGeo, p: IDMParams, dt: float, raw: bool = False,
-                  linear: bool = True):
+                  linear: bool = True, device=None):
     """The (Geo, Params) structures of the frame kernels; ``linear`` picks
-    the kernels' Linear rows' instantiation."""
+    the kernels' Linear rows' instantiation; with ``device``, ``Geo.offsets``
+    points to the offsets' copy there."""
     geo = _Geo(
         ox=float(fs.origin[0]), oy=float(fs.origin[1]),
         ux=float(fs.u[0]), uy=float(fs.u[1]),
@@ -436,9 +471,8 @@ def kernel_params(fs: StraightGeo, p: IDMParams, dt: float, raw: bool = False,
         speed_limit=0.0 if math.isinf(fs.speed_limit) else fs.speed_limit,
         has_limit=0 if math.isinf(fs.speed_limit) else 1,
         n_lanes=len(fs.offsets),
+        offsets=None if device is None else offsets_table(fs, device).data_ptr(),
     )
-    for i, o in enumerate(fs.offsets):
-        geo.offsets[i] = float(o)
     params = _Params(
         dt=dt, acc_max=p.acc_max, comfort_acc_max=p.comfort_acc_max,
         distance_wanted=p.distance_wanted, time_wanted=p.time_wanted,
@@ -524,16 +558,29 @@ class StraightFramesKernel(KernelWrapper):
     source = "straight_frames"
     #: the fields the kernel reads, in the order of its arguments
     in_fields = _IN_FIELDS
+    #: the ctypes mirror of the library's Geo block, and its (Geo, Params)
+    #: for a launch on a device
+    geo_type = _Geo
+    _kernel_params = staticmethod(kernel_params)
 
     def _bind(self, lib):
         lib.straight_frames.argtypes = (
             [ctypes.c_void_p] * (len(self.in_fields) + len(_OUT_FIELDS) + 1)
             + [
-                ctypes.POINTER(_Geo), ctypes.POINTER(_Params),
+                ctypes.POINTER(self.geo_type), ctypes.POINTER(_Params),
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
         )
         lib.straight_frames.restype = ctypes.c_int
+
+    def smem_bytes(self, V: int, L: int) -> int:
+        """The shared memory a block of the launch asks at V slots and L
+        lanes (the library's ``straight_frames_smem_bytes``), for a check of
+        ``straight_frames.launch_smem``."""
+        fn = getattr(self._library(), "straight_frames_smem_bytes")
+        fn.argtypes = [ctypes.c_int] * 2
+        fn.restype = ctypes.c_longlong
+        return int(fn(V, L))
 
     def __call__(
         self, veh: VehicleState, fs: StraightGeo, p: IDMParams, dt: float,
@@ -557,7 +604,7 @@ class StraightFramesKernel(KernelWrapper):
                     or mask.device != dev or not mask.is_contiguous()):
                 raise ValueError(f"mask: expected contiguous bool ({B},) on {dev}")
             outs = checked_fields(out, _OUT_FIELDS, B, V, dev)
-        geo, params = kernel_params(fs, p, dt, raw, linear)
+        geo, params = self._kernel_params(fs, p, dt, raw, linear, dev)
         lib = self._library()
         with torch.cuda.device(dev):
             err = lib.straight_frames(

@@ -375,17 +375,30 @@ class FramesSortedKernel(KernelWrapper):
     source = "straight_frames_sorted"
     #: the fields the kernel reads, in the order of its arguments
     in_fields = SORT_FIELDS
+    #: the ctypes mirror of the library's Geo block, and its (Geo, Params)
+    #: for a launch on a device
+    geo_type = _Geo
+    _kernel_params = staticmethod(kernel_params)
 
     def _bind(self, lib):
         lib.straight_frames_sorted.argtypes = (
             [ctypes.c_void_p] * (len(self.in_fields) + len(MUT_FIELDS) + 2)
             + [
-                ctypes.POINTER(_Geo), ctypes.POINTER(_Params),
+                ctypes.POINTER(self.geo_type), ctypes.POINTER(_Params),
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_void_p,
             ]
         )
         lib.straight_frames_sorted.restype = ctypes.c_int
+
+    def smem_bytes(self, V: int, L: int) -> int:
+        """The shared memory a block of the launch asks at V slots and L
+        lanes (the library's ``straight_frames_sorted_smem_bytes``), for a check of
+        ``straight_frames.launch_smem``."""
+        fn = getattr(self._library(), "straight_frames_sorted_smem_bytes")
+        fn.argtypes = [ctypes.c_int] * 2
+        fn.restype = ctypes.c_longlong
+        return int(fn(V, L))
 
     def __call__(self, srt: VehicleState, idx: torch.Tensor, fs: StraightGeo,
                  p: IDMParams, dt: float, frames: int, raw: bool = False,
@@ -399,7 +412,7 @@ class FramesSortedKernel(KernelWrapper):
         index = _checked_idx(idx, B, V, dev)
         outs = empty_fields(MUT_FIELDS, B, V, dev)
         flags = torch.empty((B, 2), dtype=torch.bool, device=dev)
-        geo, params = kernel_params(fs, p, dt, raw, linear)
+        geo, params = self._kernel_params(fs, p, dt, raw, linear, dev)
         W, Wn = windows(V)
         lib = self._library()
         with torch.cuda.device(dev):

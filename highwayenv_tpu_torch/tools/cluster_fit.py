@@ -11,15 +11,17 @@ blocks among them, at the shared memory a launch asks, which the library
 computes as the launch does), how many clusters of 8 to 16 blocks of 128
 threads it holds at once:
 
-  - at the lanes and route slots of the scenes the cluster kernels run over
-    1024 slots (a block's shared memory is the same at any V) and at the
-    largest blocks within the other limits (64 lanes, 16 route slots:
-    115.8 KB under the connected-lane search), for every instantiation
-    (regulated, connected, dynamical, linear);
+  - at the lanes, route slots and successor edges of the scenes the
+    cluster kernels run over 1024 slots (a block's shared memory is the
+    same at any V) and at the largest block ``make`` takes (the most lanes
+    whose block stays within ``general_frames.SMEM_LIMIT`` at 16 route
+    slots, 4 successor and 4 predecessor edges, regulated and connected),
+    for every instantiation (regulated, connected, dynamical, linear);
   - for the largest instantiation at 16 route slots, over a scan of the
-    lanes from 1 to 64, the most lanes (and the block's bytes) at which
-    each cluster size still fits: where it is 64, every scene within the
-    limits fits, and ``make`` needs no rule for the cluster's size.
+    lanes up to that largest block, the most lanes (and the block's bytes)
+    at which each cluster size still fits: where it is the largest block's,
+    every scene ``make`` takes fits, and ``make`` needs no rule for the
+    cluster's size.
 
 It prints the card's name and power limit first and last.
 """
@@ -44,6 +46,8 @@ SCENES = (
     ("exit-v0, 2047 vehicles", "exit-v0", {"vehicles_count": 2047}),
 )
 RANKS = tuple(range(8, 17))
+#: the largest block's route slots and successor (and predecessor) edges
+ROUTE, SUCC = 16, 4
 
 
 def card_line() -> str:
@@ -76,29 +80,34 @@ def main() -> int:
     for label, env_id, config in SCENES:
         env = ht.make(env_id, config, device="cpu")
         spec = env._general
+        S = env.geo.succ_edge_base.shape[1]
         sizes.append((f"{label} (V={env.num_slots}, L={env.geo.num_lanes}, "
-                      f"R={env.route_slots})", (env.regulated, spec.connected, spec.dynamical),
-                      env.geo.num_lanes, env.route_slots))
-    sizes.append(("largest block within the limits (L=64, R=16)", None, gf.MAX_LANES,
-                  gf.MAX_ROUTE))
+                      f"R={env.route_slots}, S={S})",
+                      (env.regulated, spec.connected, spec.dynamical),
+                      env.geo.num_lanes, env.route_slots, S))
+    largest = max(L for L in range(1, 4096)
+                  if gf.launch_smem(2048, L, ROUTE, SUCC, 1 + 2 * SUCC, True) <= gf.SMEM_LIMIT)
+    sizes.append((f"largest block make takes (L={largest}, R={ROUTE}, S={SUCC})", None,
+                  largest, ROUTE, SUCC))
     print("clusters a card holds at once, by cluster blocks " + ", ".join(map(str, RANKS)))
-    for label, law, L, R in sizes:
+    for label, law, L, R, S in sizes:
         for key, kernel in kernels.items():
             if law is not None and key != law:
                 continue
             for linear in (False, True):
-                fits = [kernel.cluster_fit(r, L, R, linear) for r in RANKS]
+                fits = [kernel.cluster_fit(r, L, R, S, linear=linear) for r in RANKS]
                 print(f"  {label}, {fits[0][1]} bytes a block: {kernel.entry} "
                       f"{'Linear' if linear else 'IDM'}: {[n for n, _ in fits]}")
     # the most lanes at which each cluster size fits, for the largest
     # instantiation (regulated, connected, dynamical, Linear) at 16 route slots
     kernel = kernels[(True, True, True)]
-    print(f"  scan of {kernel.entry} Linear, R={gf.MAX_ROUTE}, L from 1 to {gf.MAX_LANES}:")
+    lanes = sorted({1, 16, 32, 64, largest} | set(range(8, largest + 1, 8)))
+    print(f"  scan of {kernel.entry} Linear, R={ROUTE}, S={SUCC}, L from 1 to {largest}:")
     for r in RANKS:
-        scan = {L: kernel.cluster_fit(r, L, gf.MAX_ROUTE, True) for L in range(1, gf.MAX_LANES + 1)}
+        scan = {L: kernel.cluster_fit(r, L, ROUTE, SUCC, linear=True) for L in lanes}
         fit = [L for L, (n, _) in scan.items() if n > 0]
         most = max(fit) if fit else None
-        counts = {f"L={L} ({scan[L][1]} bytes)": scan[L][0] for L in (1, 16, 32, gf.MAX_LANES)}
+        counts = {f"L={L} ({scan[L][1]} bytes)": scan[L][0] for L in (1, 16, 32, 64, largest)}
         print(f"    {r} blocks: fits up to L={most}"
               + (f" ({scan[most][1]} bytes a block)" if most else "") + f"; clusters at {counts}")
     print(card_line())

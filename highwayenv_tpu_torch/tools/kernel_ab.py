@@ -61,8 +61,8 @@ Each scene runs the instantiation its env path launches: ``linear`` on
 for the Linear scenes, off (the IDM code alone) for the others.  A tree
 whose kernels read no Linear parameters (a baseline from before them, told
 by its sources) is bound with its own field list and runs the scenes
-without Linear rows alone; the general kernels of each tree are bound with
-a parameter block of that tree's ``GEN_MAX_SPEEDS``.
+without Linear rows alone.  Both trees must take the current tree's
+parameter blocks and tables (those of the tables sized by the scene).
 
 For each family the script
 
@@ -231,25 +231,14 @@ def has_dynamical(csrc: pathlib.Path) -> bool:
     return "general_frames_dynamical" in (csrc / "general_frames.cu").read_text()
 
 
-def speed_slots(csrc: pathlib.Path) -> int:
-    """The size of the target-speed grid in the general kernels'
-    parameter block of the tree ``csrc`` (its ``GEN_MAX_SPEEDS``)."""
-    text = (csrc / "general_frames.cu").read_text()
-    return int(re.search(r"#define GEN_MAX_SPEEDS (\d+)", text).group(1))
-
-
-def load(path: pathlib.Path, wrapper_cls, params: bool = True, params_type=None):
+def load(path: pathlib.Path, wrapper_cls, params: bool = True):
     """A wrapper instance (``wrapper_cls()``) bound to the library at
     ``path``; ``params=False``: a library whose kernels take no parameter
-    fields, bound with its field list; ``params_type``: the ctypes
-    parameter block of a general library, where it is not the current
-    one."""
+    fields, bound with its field list."""
     lib = ctypes.CDLL(str(path))
     wrapper = wrapper_cls()
     if not params:
         wrapper.in_fields = [f for f in wrapper.in_fields if f[0] not in PARAM_FIELDS]
-    if params_type is not None:
-        wrapper.params_type = params_type
     wrapper._bind(lib)
     wrapper._lib = lib
     return wrapper, lib
@@ -574,7 +563,7 @@ def dynamical_scene(env, states, gen):
     return veh, sa, extra
 
 
-def run_general(args, paths, clock_paths, phases, params, speeds, dynamical) -> None:
+def run_general(args, paths, clock_paths, phases, params, dynamical) -> None:
     import torch
 
     import highwayenv_tpu_torch as ht
@@ -592,8 +581,7 @@ def run_general(args, paths, clock_paths, phases, params, speeds, dynamical) -> 
     }
 
     def bound(p, label):
-        block = gf.params_struct(speeds[label])
-        return {k: load(p["general_frames"], cls, params[label], block)
+        return {k: load(p["general_frames"], cls, params[label])
                 for k, cls in kinds.items() if dynamical[label] or "dynamical" not in k}
 
     wrappers = {label: {k: w for k, (w, _) in bound(p, label).items()}
@@ -749,7 +737,7 @@ def run_general(args, paths, clock_paths, phases, params, speeds, dynamical) -> 
                          lambda w=wrapper: w(*call, **kw))
 
 
-def run_layout(args, paths, params, speeds, layout: str) -> None:
+def run_layout(args, paths, params, layout: str) -> None:
     """The ``layout`` family ("wide" or "cluster"): its K4 / K5 at
     LAYOUT_SCENES on both trees, equal bit for bit, then timed in turns."""
     import torch
@@ -762,8 +750,7 @@ def run_layout(args, paths, params, speeds, layout: str) -> None:
                                                dynamical=law == " dynamical", **{layout: True})
              for road in ("K4", "K5") for law in ("", " connected", " dynamical")}
     library = f"general_frames_{layout}"
-    wrappers = {label: {k: load(p[library], cls, params[label],
-                                gf.params_struct(speeds[label]))[0]
+    wrappers = {label: {k: load(p[library], cls, params[label])[0]
                         for k, cls in kinds.items()}
                 for label, p in paths.items()}
     names = [n for n, _, _ in gf.OUT_FIELDS]
@@ -862,15 +849,12 @@ def main(argv) -> int:
     if "straight" in args.kernels:
         run_straight(args, paths, clock_paths, phases, params)
     if "general" in args.kernels:
-        speeds = {label: speed_slots(pathlib.Path(csrc)) for label, csrc in trees.items()}
-        print(f"the general kernels' target-speed slots: {speeds}")
         dynamical = {label: has_dynamical(pathlib.Path(csrc)) for label, csrc in trees.items()}
         print(f"trees with the kDynamical instantiations: {dynamical}")
-        run_general(args, paths, clock_paths, phases, params, speeds, dynamical)
+        run_general(args, paths, clock_paths, phases, params, dynamical)
     for layout in ("wide", "cluster"):
         if layout in args.kernels:
-            speeds = {label: speed_slots(pathlib.Path(csrc)) for label, csrc in trees.items()}
-            run_layout(args, paths, params, speeds, layout)
+            run_layout(args, paths, params, layout)
     return 0
 
 

@@ -98,13 +98,14 @@ def test_conn_tables_match_jax(env_id):
     assert et.geo.conn_offsets.dtype == torch.float32
     np.testing.assert_array_equal(et.geo.conn_offsets.numpy().view(np.int32),
                                   want_o.astype(np.float32).view(np.int32))
-    # column 0 is the lane itself at offset 0; the kernels' copy pads to MAX_CONN
+    # column 0 is the lane itself at offset 0; the kernels' copy has the
+    # scene's K = 1 + S + P columns
     L, K = want_l.shape
     assert (want_l[:, 0] == np.arange(L)).all() and (want_o[:, 0] == 0).all()
     lanes, offsets = general_frames.conn_tables(et.geo, "cpu")
-    assert lanes.shape == offsets.shape == (L, general_frames.MAX_CONN)
-    assert torch.equal(lanes[:, :K], et.geo.conn_lanes) and bool((lanes[:, K:] == -1).all())
-    assert torch.equal(offsets[:, :K], et.geo.conn_offsets)
+    assert K == 1 + et.geo.succ_edge_base.shape[1] + et.geo.pred_edge_base.shape[1]
+    assert lanes.shape == offsets.shape == (L, K) and lanes.dtype == torch.int32
+    assert torch.equal(lanes, et.geo.conn_lanes) and torch.equal(offsets, et.geo.conn_offsets)
 
 
 def _jax_search(ej):

@@ -202,14 +202,14 @@ def test_connected_dynamical_wrappers_run_the_plain_frames_on_the_cpu():
     ("frames_regulated_connected_dynamical_kernel", 10, 20, 3, "cluster library"),
     ("frames_general_connected_dynamical_wide_kernel", 16, 20, 3, "cluster library"),
     ("frames_general_cluster_kernel", 17, 20, 3, "17 cluster blocks outside 1 to 16"),
-    ("frames_regulated_connected_dynamical_cluster_kernel", 10, 65, 16,
-     "65 lanes outside 1 to 64"),
+    ("frames_regulated_connected_dynamical_cluster_kernel", 10, 0, 16, "0 lanes < 1"),
 ], ids=["narrow", "wide", "ranks", "lanes"])
 def test_cluster_fit_refuses_before_the_card(name, ranks, L, R, match):
     """``GeneralFramesKernel.cluster_fit`` (the occupancy question of
     ``tools/cluster_fit.py``) asks only a cluster wrapper, of 1 to 16 blocks
-    within the lane and route limits: anything else is refused before the
-    library is built or the card asked."""
+    at a scene of at least one lane and route slot (the lanes have no other
+    bound since the tables are sized by the scene): anything else is refused
+    before the library is built or the card asked."""
     kernel = getattr(general_frames, name)
     with pytest.raises(ValueError, match=match):
         kernel.cluster_fit(ranks, L, R)

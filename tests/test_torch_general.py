@@ -391,13 +391,16 @@ def test_kernel_wrapper_on_cpu_runs_plain_and_counts_no_launch():
 @pytest.mark.parametrize("env_id", ENV_IDS)
 def test_kernel_lane_tables_hold_the_geometry(env_id):
     """The CUDA kernel's lane tables: one row per lane, columns in the order
-    the kernel reads them, successor slots padded with -1."""
+    the kernel reads them, successor slots padded with -1 to the fixed
+    layout's (the layout of these networks), then the priority."""
     _, et, _, _ = _setup(env_id)
     geo = et.geo
     lf, li = general_frames.lane_tables(geo, "cpu")
     L = geo.num_lanes
+    F = general_frames.FIXED_SUCC
     assert lf.shape == (L, general_frames.LANE_F_WORDS) and lf.dtype == torch.float32
-    assert li.shape == (L, general_frames.LANE_I_WORDS) and li.dtype == torch.int32
+    assert li.shape == (L, general_frames.lane_i_words(F, False)) == (L, 16)
+    assert li.dtype == torch.int32
     cols = dict(zip(general_frames._LANE_F, lf.T))
     assert torch.equal(cols["sx"], geo.start[:, 0]) and torch.equal(cols["ny"], geo.direction_lateral[:, 1])
     assert torch.equal(cols["cy"], geo.center[:, 1]) and torch.equal(cols["speed_limit"], geo.speed_limit)
@@ -406,9 +409,9 @@ def test_kernel_lane_tables_hold_the_geometry(env_id):
     n = len(general_frames._LANE_I)
     S = geo.succ_edge_base.shape[1]
     assert torch.equal(li[:, n:n + S], geo.succ_edge_base)
-    assert (li[:, n + S:n + general_frames.MAX_SUCC] == -1).all()
-    assert torch.equal(li[:, n + general_frames.MAX_SUCC:n + general_frames.MAX_SUCC + S],
-                       geo.succ_edge_n)
+    assert (li[:, n + S:n + F] == -1).all()
+    assert torch.equal(li[:, n + F:n + F + S], geo.succ_edge_n)
+    assert torch.equal(li[:, general_frames.LANE_I_PRIORITY], geo.priority.to(torch.int32))
 
 
 def report():

@@ -1,23 +1,27 @@
 """The kernels' limits are refused when an env is made, never at launch.
 
-Every limit of the CUDA frame kernels' arrays (slots, lanes, lanes an
-edge, route slots, successor edges and target speeds of the general
-kernels, and under the connected-lane search predecessor edges and
-candidates a lane; slots and lanes of the straight ones) is checked by
-``make`` on every device, which raises ``NotImplementedError`` naming the
-limit and "not ported".  So ``kernel_params``, ``lane_tables``,
-``conn_tables`` and ``check_frame_shape`` never raise for an env that
-``make`` returned: checked here for every registered id.
+The CUDA frame kernels' tables are sized by the scene (lanes, lanes an
+edge, route slots, successor and predecessor edges, candidate lanes a lane,
+target speeds, straight lanes).  What limits remain (the slots of the
+largest layout, the shared memory a block of the launch asks, at most
+227 KB on an H100, and a grid of one target speed, which
+``speed_to_index`` cannot take) are checked by ``make`` on every device,
+which raises ``NotImplementedError`` naming the limit and "not ported".
+So ``kernel_params``, ``lane_tables``, ``conn_tables`` and
+``check_frame_shape`` never raise for an env that ``make`` returned:
+checked here for every registered id.
 
-Three configs that the general kernels refused at launch before their
-edge-lane and target-speed arrays were widened now make, and one policy
-step of each from a JAX reset batch matches the JAX step (the XLA general
-frame) on the CPU: exit-v0 with 8 lanes (9 lanes on the exit section's
-edge), roundabout-v0 with 9 target speeds and merge-v0 with 10; and a
-config that ``make`` refused before the lane tables held 64 lanes,
-racetrack-oval-v0 with 5 lanes (40 lanes, 5 an edge, raw controls).
-Tolerances: discrete fields exact, pos 2e-4 m, other continuous state
-1e-4 of its magnitude, obs and reward 1e-5.
+Configs past the old fixed tables make, and one policy step of each from
+a JAX reset batch matches the JAX step (the XLA general frame) on the CPU:
+exit-v0 with 8 lanes (9 lanes on the exit section's edge), roundabout-v0
+with 17 target speeds, merge-v0 with 10 and racetrack-oval-v0 with 9 lanes
+(72 lanes, 9 an edge, raw controls).  Tolerances: discrete fields exact,
+pos 2e-4 m, other continuous state 1e-4 of its magnitude, obs and reward
+1e-5.  The configs the fixed tables refused before this (17 target speeds,
+17 straight lanes, 72 general lanes, 5 predecessor edges under the
+connected-lane search and a dynamical action, a route of 17 slots, 12
+candidate lanes a lane) are made and stepped here on the port;
+``test_torch_custom_roads.py`` holds the others to the JAX package.
 """
 
 import dataclasses
@@ -31,9 +35,9 @@ import torch
 import highwayenv_tpu as hj
 import highwayenv_tpu_torch as ht
 from highwayenv_tpu_torch.bridge import from_numpy_state
-from highwayenv_tpu_torch.envs.merge import MergeEnv
 from highwayenv_tpu_torch.ops import general_frames, straight_frames
-from highwayenv_tpu_torch.road.network import StraightLane
+from highwayenv_tpu_torch.parallel.rollout import random_actions
+from highwayenv_tpu_torch.tools.custom_roads import CrowdedMerge, FivePredecessorMerge
 from highwayenv_tpu_torch.vehicle.state import VehicleState
 
 torch.set_num_threads(1)
@@ -49,18 +53,6 @@ def _meta(speeds):
     return {"action": {"type": "DiscreteMetaAction", "target_speeds": list(speeds)}}
 
 
-class FivePredecessorMerge(MergeEnv):
-    """merge with 3 more edges into node "b": 5 predecessor edges, one
-    over the candidate tables' 4 under the connected-lane search."""
-
-    def _build_scene(self):
-        super()._build_scene()
-        for k in range(3):
-            self.net.add_lane(f"x{k}", "b", StraightLane(
-                [100.0, 40.0 + 10.0 * k], [230.0, 40.0 + 10.0 * k]))
-        self.geo = self.net.build(device=self.device)
-
-
 def _make(env, config):
     """``ht.make`` of a registered id, or an env class made with ``config``."""
     return env(config, device="cpu") if isinstance(env, type) else ht.make(env, config,
@@ -70,9 +62,9 @@ def _make(env, config):
 #: (env id, config, lanes an edge, target speeds; None under raw controls)
 PROBES = [
     ("exit-v0", {"lanes_count": 8}, 9, 3),
-    ("roundabout-v0", _meta(np.linspace(0.0, 16.0, 9)), 2, 9),
+    ("roundabout-v0", _meta(np.linspace(0.0, 16.0, 17)), 2, 17),
     ("merge-v0", _meta(np.linspace(20.0, 30.0, 10)), 3, 10),
-    ("racetrack-oval-v0", {"no_lanes": 5}, 5, None),
+    ("racetrack-oval-v0", {"no_lanes": 9}, 9, None),
 ]
 
 
@@ -117,13 +109,14 @@ def test_probe_configs_make_and_step_as_jax(env_id, config, edge_lanes, n_speeds
     ej, et = hj.make(env_id, config), ht.make(env_id, config, device="cpu")
     params = _launch_tables(et)
     assert et.max_edge_lanes == edge_lanes and params.M == edge_lanes
-    if n_speeds is None:  # raw controls: no speed grid
-        assert et.action_type.stores_raw_controls and params.n_speeds == 0
-        assert params.L == et.geo.num_lanes > 32
+    raw = n_speeds is None
+    grid = general_frames.speed_table(et._general, raw, "cpu")
+    if raw:  # raw controls: no speed grid
+        assert et.action_type.stores_raw_controls and params.n_speeds == 0 and grid == ()
+        assert params.L == et.geo.num_lanes == 72
     else:
         assert len(et.action_type.target_speeds) == n_speeds == params.n_speeds
-        assert list(params.target_speeds[:n_speeds]) == list(
-            np.asarray(et.action_type.target_speeds, np.float32))
+        assert grid[0].tolist() == list(np.asarray(et.action_type.target_speeds, np.float32))
 
     _, sj = jax.vmap(ej._reset)(jax.random.split(jax.random.PRNGKey(3), B))
     st = from_numpy_state(_numpy_state(sj))
@@ -151,95 +144,144 @@ def test_probe_configs_make_and_step_as_jax(env_id, config, edge_lanes, n_speeds
 
 
 @pytest.mark.parametrize("env_id,config,what", [
-    ("roundabout-v0", _meta(np.linspace(0.0, 16.0, 17)), "17 target speeds outside 2 to 16"),
-    ("merge-v0", _meta([25.0]), "1 target speeds outside 2 to 16"),
-    ("highway-v0", {"lanes_count": 17}, "17 straight lanes > 16"),
+    ("merge-v0", _meta([25.0]), "1 target speeds < 2"),
     ("highway-fast-v0", {"vehicles_count": 1024}, "1025 slots > 1024"),
-    ("racetrack-oval-v0", {"no_lanes": 9}, "72 lanes > 64"),
     ("exit-v0", {"vehicles_count": 2048}, "2049 slots > 2048"),
     ("highway-v0", {"action": {"type": "ContinuousAction", "dynamical": True}},
      "a dynamical action on a straight road"),
-    # a dynamical action under the connected-lane search is made now; the
-    # search's own limits still hold under it
-    (FivePredecessorMerge, {"neighbour_vehicles_connected_lanes": True, "action": {
-        "type": "ContinuousAction", "dynamical": True}}, "5 predecessor edges > 4"),
-], ids=["speeds-17", "speeds-1", "straight-lanes", "straight-slots", "general-lanes",
-        "general-slots", "straight-dynamical", "connected-dynamical"])
+    ("exit-v0", {"lanes_count": 100, "vehicles_count": 100},
+     "315840 bytes of shared memory a block > 232448"),
+], ids=["speeds-1", "straight-slots", "general-slots", "straight-dynamical",
+        "shared-memory"])
 def test_over_limit_configs_are_refused_at_make(env_id, config, what):
     with pytest.raises(NotImplementedError, match=f"{what}.*not ported"):
         _make(env_id, config)
 
 
+def _steps(env, frames_only: bool = False):
+    """Two policy steps of ``env`` (B = 2) on the CPU: ``step_batched``, or
+    with ``frames_only`` the frames alone (``_simulate_batched``); the
+    states after them."""
+    gen = env.generator(0)
+    _, st = env.reset(2, gen)
+    for _ in range(2):
+        acts = random_actions(env, 2, gen)
+        if frames_only:
+            st = env._simulate_batched(st, acts)
+        else:
+            _, st, reward, *_ = env.step_batched(st, acts, gen)
+            assert bool(torch.isfinite(reward).all())
+    assert bool(torch.isfinite(st.vehicles.pos).all())
+    return st
+
+
+#: the configs that the fixed tables once refused: (env, config, the
+#: wrapper the scene routes to, None on the straight path); the dynamical
+#: action on merge-v0 steps its frames alone (merge's reward compares the
+#: action to 0 and 2, which a ContinuousAction's is not, as in the reference)
+LIFTED = [
+    ("roundabout-v0", _meta(np.linspace(0.0, 16.0, 17)), "frames_general_kernel"),
+    ("highway-v0", {"lanes_count": 17}, None),
+    ("racetrack-oval-v0", {"no_lanes": 9}, "frames_general_kernel"),
+    (FivePredecessorMerge, {"neighbour_vehicles_connected_lanes": True, "action": {
+        "type": "ContinuousAction", "dynamical": True}},
+     "frames_general_connected_dynamical_kernel"),
+]
+
+
+@pytest.mark.parametrize("env_id,config,wrapper", LIFTED, ids=[
+    "speeds-17", "straight-lanes", "general-lanes", "connected-dynamical"])
+def test_lifted_limits_make_and_step(env_id, config, wrapper):
+    env = _make(env_id, config)
+    assert _launch_tables(env) is None or wrapper is not None
+    if wrapper is None:
+        assert len(env._straight.offsets) == 17
+    else:
+        kernel = general_frames.frames_kernel_for(env._general, env.regulated, env.num_slots)
+        assert kernel is getattr(general_frames, wrapper)
+    _steps(env, frames_only=isinstance(env_id, type))
+
+
 @pytest.mark.parametrize("limits,what", [
-    ((2049, 20, 4, 3, 2, 3), "2049 slots > 2048"),
-    ((25, 65, 4, 3, 2, 3), "65 lanes > 64"),
-    ((25, 64, 65, 3, 2, 3), "65 lanes an edge > 64"),
-    ((25, 20, 4, 17, 2, 3), "17 route slots > 16"),
-    ((25, 20, 4, 3, 5, 3), "5 successor edges > 4"),
-    ((25, 20, 4, 3, 2, 17), "17 target speeds outside 2 to 16"),
-], ids=["slots", "lanes", "edge-lanes", "route", "successors", "speeds"])
+    ((2049, 20, 3, 2, 3), "2049 slots > 2048"),
+    ((25, 200, 3, 2, 3), None),
+    ((25, 100, 3, 2, 3), None),
+    ((25, 20, 40, 2, 3), None),
+    ((25, 20, 3, 8, 3), None),
+    ((25, 20, 3, 2, 40), None),
+    ((25, 20, 3, 2, 1), "1 target speeds < 2 (speed_to_index divides by the grid's span)"),
+    ((128, 300, 3, 3, 3), "shared memory"),
+], ids=["slots", "lanes", "edge-lanes", "route", "successors", "speeds", "one-speed",
+        "shared-memory"])
 def test_each_general_limit_is_named(limits, what):
-    assert general_frames.kernel_limits(*limits) == [what]
-    assert general_frames.kernel_limits(1024, 64, 64, 16, 4, 16) == []
-    assert general_frames.kernel_limits(1024, 64, 64, 16, 4, None) == []
-    assert general_frames.kernel_limits(1024, 64, 64, 16, 4, 16, 4) == []
-    assert general_frames.kernel_limits(2048, 64, 64, 16, 4, None, 4) == []
+    """The slots, a grid of one speed and the block's shared memory are
+    named; lanes (and so lanes an edge, which an edge's lanes bound), route
+    slots, successor edges and target speeds well past the old fixed tables
+    (64, 16, 4, 16) are no limit."""
+    V, L, R, S, n = limits
+    if what is None:
+        assert general_frames.kernel_limits(*limits) == []
+    elif what == "shared memory":  # V = 128: one block an env, the fixed layout's S = 4
+        assert general_frames.launch_tables(S, None, False) == (4, 0, False)
+        smem = general_frames.launch_smem(V, L, R, 4, 0, False)
+        assert general_frames.kernel_limits(*limits) == [
+            f"{smem} bytes of shared memory a block > {general_frames.SMEM_LIMIT}"]
+    else:
+        assert general_frames.kernel_limits(*limits) == [what]
+    assert general_frames.kernel_limits(1024, 64, 16, 4, 16) == []
+    assert general_frames.kernel_limits(2048, 64, 16, 4, None, 9) == []
 
 
 @pytest.mark.parametrize("limits,what", [
-    ((25, 20, 4, 3, 3, 3, 5), ["5 predecessor edges > 4"]),
-    ((25, 20, 4, 3, 4, 3, 5),
-     ["5 predecessor edges > 4", "10 connected-lane candidates > 9"]),
-    ((25, 20, 4, 3, 5, 3, 4),
-     ["5 successor edges > 4", "10 connected-lane candidates > 9"]),
-    # a dynamical action's raw controls (no target speeds): its law is
-    # refused no more under the search, only the search's own tables
-    ((25, 20, 4, 3, 3, None, 5), ["5 predecessor edges > 4"]),
+    ((25, 20, 3, 3, 3, 9), []),
+    ((25, 20, 3, 4, 3, 10), []),
+    ((25, 20, 3, 5, 3, 10), []),
+    ((25, 20, 3, 3, None, 9), []),
 ], ids=["predecessors", "predecessors-and-candidates", "successors-and-candidates",
         "dynamical"])
 def test_connected_limits_are_named(limits, what):
-    """Under the connected-lane search (P given) the kernels' candidate
-    tables hold MAX_CONN = 1 + MAX_SUCC + MAX_PRED lanes a lane."""
-    assert general_frames.MAX_CONN == 1 + general_frames.MAX_SUCC + general_frames.MAX_PRED
+    """Under the connected-lane search (K given) the candidate tables hold
+    the scene's K = 1 + S + P lanes a lane: 5 predecessors, 10 candidates
+    and a dynamical action's raw controls are no limit; the K columns count
+    in the block's shared memory."""
     assert general_frames.kernel_limits(*limits) == what
-    # without the search, predecessors are not read
-    assert general_frames.kernel_limits(*limits[:6]) == what[:1] * (limits[4] > 4)
+    L, S, K = limits[1], limits[3], limits[5]
+    assert general_frames.launch_smem(25, L, 3, S, K, False) == (
+        general_frames.launch_smem(25, L, 3, S, 0, False) + 4 * 2 * L * K)
 
 
-def test_a_route_longer_than_the_kernel_is_refused_at_make():
-    """A route width the kernel does not hold is refused like the others,
-    on any device, before the env is stepped."""
+def test_a_route_of_17_slots_makes_and_steps():
+    """Routes of 17 slots, over the 16 the route check took (roundabout-v0's
+    routes padded with empty slots), are made and step, on any device."""
     from highwayenv_tpu_torch.envs.roundabout import RoundaboutEnv
 
     class LongRoutes(RoundaboutEnv):
         def _build_scene(self):
             super()._build_scene()
+            pad = 17 - self.route_slots
+            # an empty slot: no base lane, no lanes, no lane id
+            fill = torch.tensor([-1, 0, -1], dtype=torch.int32)[:, None].expand(3, pad)
+            self._npc_routes = torch.cat(
+                [self._npc_routes, fill.expand(*self._npc_routes.shape[:-1], pad)], dim=-1)
+            self._ego_route = torch.cat([self._ego_route, fill], dim=-1)
             self.route_slots = 17
 
-    with pytest.raises(NotImplementedError, match="17 route slots > 16.*not ported"):
-        LongRoutes(device="cpu")
+    env = LongRoutes(device="cpu")
+    params = _launch_tables(env)
+    assert params.R == 17
+    st = _steps(env)
+    assert st.vehicles.route_base.shape[-1] == 17
 
 
-def test_a_crowded_node_is_refused_under_the_connected_search():
+def test_a_crowded_node_makes_and_steps_under_the_connected_search():
     """merge with 8 more edges into node "b" (10 predecessor edges, 12
-    candidate lanes): made without the connected-lane search, which never
-    reads predecessors, refused with it."""
-    from highwayenv_tpu_torch.envs.merge import MergeEnv
-    from highwayenv_tpu_torch.road.network import StraightLane
-
-    class CrowdedMerge(MergeEnv):
-        def _build_scene(self):
-            super()._build_scene()
-            for k in range(8):
-                self.net.add_lane(f"x{k}", "b", StraightLane(
-                    [100.0, 40.0 + 10.0 * k], [230.0, 40.0 + 10.0 * k]))
-            self.geo = self.net.build(device=self.device)
-
+    candidate lanes): made and stepped with the connected-lane search, and
+    without it, which never reads predecessors."""
     env = CrowdedMerge(device="cpu")
     assert env.geo.pred_edge_base.shape[1] == 10 and env.geo.conn_lanes.shape[1] == 12
-    with pytest.raises(NotImplementedError, match="10 predecessor edges > 4, 12 "
-                       "connected-lane candidates > 9 not ported"):
-        CrowdedMerge({"neighbour_vehicles_connected_lanes": True}, device="cpu")
+    conn = CrowdedMerge({"neighbour_vehicles_connected_lanes": True}, device="cpu")
+    assert conn._general.connected and _launch_tables(conn).K == 12
+    _steps(conn)
 
 
 @pytest.mark.parametrize("env_id", ht.registered_ids())

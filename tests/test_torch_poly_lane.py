@@ -14,8 +14,9 @@ package, on the CPU.
   poly lane, and a network without one keeps no bank;
 - ``to_config`` equals the JAX package's dict for every lane class, and
   ``from_config(to_config())`` rebuilds equal tables;
-- ``make`` refuses a network with a poly lane, naming the limit, on every
-  frame path.
+- ``make`` takes a network with a poly lane on both frame paths (the frame
+  kernels and the sequential mode's plain frames), and it steps
+  (``test_torch_custom_roads.py`` holds such a road to the JAX package).
 """
 
 import jax.numpy as jnp
@@ -27,6 +28,7 @@ from highwayenv_tpu.road import lane as j_lane
 from highwayenv_tpu.road import network as j_net
 from highwayenv_tpu_torch.envs.merge import MergeEnv
 from highwayenv_tpu_torch.ops import general_frames
+from highwayenv_tpu_torch.parallel.rollout import random_actions
 from highwayenv_tpu_torch.road import lane as t_lane
 from highwayenv_tpu_torch.road import network as t_net
 
@@ -233,8 +235,19 @@ class PolyMerge(MergeEnv):
 
 @pytest.mark.parametrize("config", [None, {"sequential_decisions": True}],
                          ids=["kernel", "sequential"])
-def test_make_refuses_poly_lanes(config):
-    with pytest.raises(NotImplementedError, match="not ported") as e:
-        PolyMerge(config=config, device="cpu")
-    assert general_frames.POLY_LIMIT in str(e.value)
-    assert MergeEnv(config=config, device="cpu").geo.poly is None
+def test_make_takes_poly_lanes(config):
+    env = PolyMerge(config=config, device="cpu")
+    assert env.geo.poly is not None and MergeEnv(config=config, device="cpu").geo.poly is None
+    assert env._general.sequential == (config is not None)
+    # the kernels' tables (the kSized layout) carry the poly lane's bank row
+    S = env.geo.succ_edge_base.shape[1]
+    assert general_frames.launch_tables(S, None, True) == (S, 0, True)
+    _, li = general_frames.lane_tables(env.geo, "cpu")
+    assert li.shape[1] == general_frames.lane_i_words(S, True)
+    poly = (env.geo.kind == t_lane.POLY).nonzero()[:, 0]
+    assert li[poly, general_frames.LANE_I_SUCC + 2 * S + 1].tolist() == [0]
+    assert (li[:, -1] >= 0).sum() == 1
+    gen = env.generator(0)
+    _, st = env.reset(2, gen)
+    _, st, reward, *_ = env.step_batched(st, random_actions(env, 2, gen), gen)
+    assert bool(torch.isfinite(st.vehicles.pos).all()) and bool(torch.isfinite(reward).all())

@@ -245,13 +245,28 @@ Phases:
      boundary), driven 2 steps at B=4096 with the counts set to 0, its
      launch timed at B=4096 and a kernel row at 32 or 16 rows ("K5
      cluster 1212 slots", "K4 cluster 2048 slots", "K5 cluster connected
-     dynamical 1212 slots"); then the roads the fixed tables once refused
+     dynamical 1212 slots"); then the scenes that no layout of shared
+     memory holds (``check_global``): exit-v0 with 100 lanes and 100
+     vehicles (L=302, V=101: a block over 227 KB), exit-v0 with 4095 and
+     8191 vehicles (V=4096, 8192: 16 blocks of 256 and 512 threads) and
+     intersection-v0 at policy_frequency 15 for 140 s (V=2112), on the
+     global K4 / K5, the slab's words of every global entry held to the
+     library's count, each held to its plain version (16, 2 or 1 rows,
+     twins across every chunk boundary), driven 2 steps with the counts
+     set to 0 (at 4096, 256, 64 and 512 rows), timed there with the slab's
+     bytes and the peak device memory, a kernel row each at 256, 4, 1 and
+     8 rows ("K4 global 302 lanes", "K4 global 4096 slots", "K4 global
+     8192 slots", "K5 global"), the 302-lane scene's captured step against
+     the eager one; every other global entry (connected, dynamical, both),
+     the Linear branch and poly lanes held to their plain versions at
+     exit-v0 / exit-v1 / PolyExit with 100 lanes and intersection-v0 / -v1
+     / -v2 for 140 s; then the roads the fixed tables once refused
      (``check_custom_roads``: a junction of 5 successor edges with two poly
      lanes and an 18-slot route, 5 and 10 predecessor edges under the
      connected search, roundabout-v0 with 17 and 31 target speeds, the
      72-lane oval, the kSized K5 and K4 of every layout, highway-v0 with 17
      lanes), each held to its plain version at 256, 128 or 64 rows, the
-     driven ones 8 steps with the counts set to 0 and 8 captured steps
+     driven ones 4 steps with the counts set to 0 and 4 captured steps
      against eager at B=4096, with a kernel row at B=4096;
   5. times on the card: each kernel's time (CUDA events around launches
      queued behind a device-side wait), its plain version's time (CUDA
@@ -440,16 +455,16 @@ SLICE_ROWS = ("exit-v0", "u-turn-v0")
 #: row of its own at B
 PARKING_ENVS = ("parking-v0", "parking-ActionRepeat-v0", "parking-parked-v0")
 #: configs beyond what the kernels take, each (env id, config, the limit
-#: named): the slots of the largest layouts, a block's shared memory, one
-#: target speed, several egos where the env has one, a dynamical action on
-#: a straight road
+#: named): the slots of the largest layouts (the straight kernels' 1024, the
+#: global K4 / K5's 8192), one target speed, several egos where the env has
+#: one, a dynamical action on a straight road (the general scenes past the
+#: cluster kernels' 2048 slots or a block's shared memory take the global
+#: layout: check_global)
 OVER_LIMITS = (
     ("merge-v0", {"action": {"type": "DiscreteMetaAction", "target_speeds": [25.0]}},
      "1 target speeds < 2"),
     ("highway-fast-v0", {"vehicles_count": 1024}, "1025 slots > 1024"),
-    ("exit-v0", {"vehicles_count": 2048}, "2049 slots > 2048"),
-    ("exit-v0", {"lanes_count": 100, "vehicles_count": 100},
-     "315840 bytes of shared memory a block > 232448"),
+    ("exit-v0", {"vehicles_count": 8192}, "8193 slots > 8192"),
     ("exit-v0", {"controlled_vehicles": 2}, "several controlled vehicles"),
     ("highway-v0", {"action": {"type": "ContinuousAction", "dynamical": True}},
      "a dynamical action on a straight road"),
@@ -523,6 +538,16 @@ GENERAL_PATHS = {
     "K5 cluster connected dynamical": (
         "frames_regulated_connected_dynamical_cluster_kernel",
         "general_frames_cluster_kernel<true, false, true, true, false, DynFields>"),
+    **{f"{road} global{law}": (
+        f"frames_{kind}{sfx}_global_kernel",
+        f"general_frames_global_kernel<{reg}, true, {conn}, {dyn}, true"
+        + (", DynFields>" if dyn == "true" else ">"))
+       for road, kind, reg in (("K4", "general", "false"), ("K5", "regulated", "true"))
+       for law, sfx, conn, dyn in (("", "", "false", "false"),
+                                   (" connected", "_connected", "true", "false"),
+                                   (" dynamical", "_dynamical", "false", "true"),
+                                   (" connected dynamical", "_connected_dynamical", "true",
+                                    "true"))},
 }
 #: the ids of the dynamical ContinuousAction: K5's and K4's
 #: kDynamical instantiations
@@ -565,7 +590,7 @@ PLAIN_REPS = 1
 STRAIGHT_LIBRARIES = ["straight_frames", "straight_sort", "straight_frames_sorted"]
 GENERAL_LIBRARIES = ["general_frames", "general_frames_wide", "general_frames_cluster",
                      "general_frames_sized", "general_frames_wide_sized",
-                     "general_frames_cluster_sized"]
+                     "general_frames_cluster_sized", "general_frames_global"]
 
 
 def build_in_background(_build, names):
@@ -1183,13 +1208,16 @@ def k4_work(gf, env, veh, sa, spec=None, with_state=False):
     return (ops, n_bytes, v) if with_state else (ops, n_bytes)
 
 
-def table_bytes(gf, spec, raw: bool, R: int, device) -> int:
+def table_bytes(gf, spec, raw: bool, R: int, device, glob: bool = False) -> int:
     """The bytes of the tables a general launch at R route slots reads:
     the lane tables, (connected) the candidate tables, in the layout of
-    ``scene_tables``, (poly lanes) the poly bank and (the kSized layout's
+    ``scene_tables`` (``glob``: the global library's kSized one, and its
+    lanes' order), (poly lanes) the poly bank and (the kSized layout's
     meta-actions) the speed grid."""
-    S, K, sized = gf.scene_tables(spec, R, raw)
+    S, K, sized = gf.scene_tables(spec, R, raw, glob)
     tables = gf.lane_tables(spec.geo, device, S, sized) + gf.poly_tables(spec.geo, device)
+    if glob:
+        tables += (gf.lane_order(spec.geo, device),)
     if spec.connected:
         tables += gf.conn_tables(spec.geo, device, K)
     if sized:  # the fixed layout's grid is in the parameter block
@@ -1330,7 +1358,7 @@ def check_parking_kernels(ht, gf, err) -> dict:
 
 def check_refusals(ht) -> None:
     """``make`` on the card refuses what the kernels do not take, as on the
-    CPU, naming the limit: no such env reaches a launch.  The roads the
+    CPU, naming the limit (OVER_LIMITS): no such env reaches a launch.  The roads the
     fixed tables once refused (a crowded node under the connected-lane
     search, poly lanes, with ``sequential_decisions`` too) are made and
     take two policy steps at 64 rows."""
@@ -3204,10 +3232,10 @@ WIDE_CHECK_ROWS = 256
 
 
 def layout_kernels(gf, layout: str) -> dict:
-    """The eight wrappers of one library's layout ("wide", "cluster", or ""
-    the narrow one), keyed "K4 wide", "K5 wide connected", ..., "K4 wide
-    connected dynamical" ("K4", "K5 connected", ... for the narrow), as the
-    rows name them."""
+    """The eight wrappers of one library's layout ("wide", "cluster",
+    "global", or "" the narrow one), keyed "K4 wide", "K5 wide connected",
+    ..., "K4 wide connected dynamical" ("K4", "K5 connected", ... for the
+    narrow), as the rows name them."""
     return {" ".join(filter(None, (road, layout))) + law:
             getattr(gf, f"frames_{kind}{sfx}{'_' * bool(layout)}{layout}_kernel")
             for road, kind in (("K4", "general"), ("K5", "regulated"))
@@ -3451,10 +3479,11 @@ def plain_work(gf, env, veh, sa, steps0, rows: int):
     out = map_fields(lambda *ts: torch.cat(ts), *outs)
     R = veh.route_base.shape[-1]
     reg = gf.REG_FIELDS if env.regulated else []
+    glob = gf.frames_kernel_for(spec, env.regulated, veh.kind.shape[1]).glob
     n_bytes = (read_bytes(veh, gf._resolve(gf._IN_FIELDS, R) + reg)
                + (0 if raw else sa.numel() * 4) + (veh.kind.shape[0] * 4 if reg else 0)
                + field_bytes(out, gf._resolve(gf.OUT_FIELDS, R) + reg)
-               + table_bytes(gf, spec, raw, R, env.device) + dyn_bytes(gf, spec, veh))
+               + table_bytes(gf, spec, raw, R, env.device, glob) + dyn_bytes(gf, spec, veh))
     return ms, ops, n_bytes, out
 
 
@@ -3498,26 +3527,41 @@ def check_cluster(ht, gf, kernels, rows, err, launches, card: str, start: float)
     frame_row(gf, env, key, env_id, config, rows, err, card, start, batch=WIDE_128_ROWS)
 
 
+def layout_text(gf, kernel, env) -> str:
+    """How ``kernel`` (``frames_kernel_for`` of ``env``) maps an env: the
+    threads of a narrow or wide env, a cluster's blocks, or the global
+    layout's blocks, their threads and the slab's bytes an env."""
+    V = env.num_slots
+    if kernel.glob:
+        G = gf.global_threads(V)
+        words = gf.global_words(env.geo.num_lanes, V, env.route_slots, env.regulated)
+        n = -(-V // G)
+        return (f"{n} block{'s' * (n > 1)} of {G} threads an env, a slab of {4 * words} bytes "
+                "an env")
+    if kernel.cluster:
+        return f"{-(-V // 128)} blocks an env"
+    return f"{group_size(V)} threads an env"
+
+
 def hold_scenes(gf, env, key: str, env_id: str, config, n_check: int, err,
                 start: float) -> None:
     """``env``'s instantiation (``frames_kernel_for``) against its plain
     version at ``n_check`` rows, every field bit-exact, on every scene of
     ``wide_scenes`` and, over 128 slots, on the regulated 8-steps-in and
-    conflict scenes rolled so that the live vehicles straddle a rank
-    boundary and on ``tied`` (twins across the first rank boundary, across
-    every one over 8 ranks); the plain frames in chunks of ``plain_rows``.
-    Records the largest error in ``err[key]``."""
+    conflict scenes rolled so that the live vehicles straddle a rank (a
+    cluster's block, the global layout's chunk of 128 slots) boundary and on
+    ``tied`` (twins across the first rank boundary, across every one over 8
+    ranks); the plain frames in chunks of ``plain_rows``.  Records the
+    largest error in ``err[key]``."""
     gen = env.generator(SEED)
     _, states = env.reset(n_check, gen)
     V = env.num_slots
     kernel = gf.frames_kernel_for(env._general, env.regulated, V)
-    layout = (f"{-(-V // 128)} blocks an env" if kernel.cluster
-              else f"{group_size(V)} threads an env")
     print(f"== 4. {key}, {env_id} {config}: V={V}, L={env.geo.num_lanes}, "
-          f"R={states.vehicles.route_base.shape[-1]}, {layout}, {kernel.source}.{kernel.entry}, "
-          f"B={n_check} [at {time.time() - start:.0f} s]")
+          f"R={states.vehicles.route_base.shape[-1]}, {layout_text(gf, kernel, env)}, "
+          f"{kernel.source}.{kernel.entry}, B={n_check} [at {time.time() - start:.0f} s]")
     calls = wide_scenes(env, states, gen)
-    if kernel.cluster:
+    if kernel.cluster or (kernel.glob and V > 128):
         for name in ("8 steps in", "conflict") if env.regulated else ():
             veh, steps0, sa, frames, raw = calls[name]
             shift = 100 if V < 256 else V - 32
@@ -3539,28 +3583,29 @@ def hold_scenes(gf, env, key: str, env_id: str, config, n_check: int, err,
             raise AssertionError(f"{env_id}: the {name} scene crashed nothing")
 
 
-def drive_path(gf, env, kernels, key: str, env_id: str, config, steps: int) -> int:
+def drive_path(gf, env, kernels, key: str, env_id: str, config, steps: int,
+               batch: int = B) -> int:
     """``env``'s path with the counts of ``kernels`` set to 0 just before:
-    a reset of B rows and ``steps`` random-policy autoreset steps; its
-    frame instantiation launches once a step and, on a regulated road, the
-    narrow K5 of the same law once a step and once more for the reset's
-    16-slot warm-up (on a narrow scene the same wrapper: 2 steps + 1),
-    nothing else.  Returns the instantiation's launches."""
+    a reset of ``batch`` rows (B unless said) and ``steps`` random-policy
+    autoreset steps; its frame instantiation launches once a step and, on a
+    regulated road, the narrow K5 of the same law once a step and once more
+    for the reset's 16-slot warm-up (on a narrow scene the same wrapper: 2
+    steps + 1), nothing else.  Returns the instantiation's launches."""
     kernel = gf.frames_kernel_for(env._general, env.regulated, env.num_slots)
     label = [n for n, k in kernels.items() if k is kernel][0]
     gen = env.generator(SEED + 1)
     for k in kernels.values():
         k.launches = 0
-    _, st = env.reset(B, gen)
+    _, st = env.reset(batch, gen)
     st, m = rollout(env, st, steps, gen)
     torch.cuda.synchronize()
     counts = {n: k.launches for n, k in kernels.items() if k.launches}
     want = {label: steps}
     if env.regulated:  # the reset batch's 16-slot warm-up, every step and the first
-        narrow = label.replace(" wide", "").replace(" cluster", "")
+        narrow = label.replace(" wide", "").replace(" cluster", "").replace(" global", "")
         want[narrow] = want.get(narrow, 0) + steps + 1
     m = {k: float(v) for k, v in m.items()}
-    print(f"  {key} path, {env_id} {config}: reset and {steps} autoreset steps, B={B}, "
+    print(f"  {key} path, {env_id} {config}: reset and {steps} autoreset steps, B={batch}, "
           f"launches {counts}; rollout {m}")
     if counts != want:
         raise AssertionError(f"{env_id} {config}: launches {counts}, expected {want}")
@@ -3610,13 +3655,13 @@ def frame_row(gf, env, key: str, env_id: str, config, rows, err, card: str,
     ms = queued_ms(run, 10)
     bms, by, t_ops, t_bytes = bound(ops, n_bytes)
     V = env.num_slots
-    layout = (f"{-(-V // 128)} blocks an env" if kernel.cluster
-              else f"{group_size(V)} threads an env")
-    sized = gf.scene_tables(env._general, env.route_slots, raw)[2]
+    sized = gf.scene_tables(env._general, env.route_slots, raw, kernel.glob)[2]
     rows[key] = (f"{kernel.entry} ({env_id} {json.dumps(config)}, V={V}, "
-                 f"L={env.geo.num_lanes}, {layout}" + (", raw controls" if raw else "")
+                 f"L={env.geo.num_lanes}, {layout_text(gf, kernel, env)}"
+                 + (", raw controls" if raw else "")
                  + (", kSized" if sized else "") + ("" if batch == B else f", B={batch}") + ")",
-                 f"highwayenv_tpu_torch/csrc/{kernel.source}{'_sized' * sized}.cu",
+                 f"highwayenv_tpu_torch/csrc/{kernel.source}"
+                 f"{'_sized' * (sized and not kernel.glob)}.cu",
                  "highwayenv_tpu/ops/general_pallas_bm.py:1474", ms, plain_ms, bms, by, None)
     print(f"  {key}: {ms:.4f} ms queued at B={batch}; plain {plain_ms:.4f} ms (CUDA events, chunks "
           f"of {chunk} rows); bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.5f} "
@@ -3731,6 +3776,99 @@ def check_large_clusters(ht, gf, kernels, rows, err, launches, card: str,
         frame_row(gf, env, key, env_id, config, rows, err, card, start, batch=n_row)
 
 
+#: exit-v0 with 100 lanes and 100 vehicles (L=302, V=101): its wide block
+#: would ask 315,840 bytes of shared memory
+WIDE_EXIT = {"lanes_count": 100, "vehicles_count": 100}
+#: intersection-v0 at the simulator's decision rate for 140 s (V=2112)
+LONG_INTERSECTION = {"policy_frequency": 15, "duration": 140}
+#: the scenes that no layout of shared memory holds, on the global K4 / K5
+#: (``csrc/general_frames_global.cu``: past a block's 227 KB, past 2048
+#: slots), each (row key, env id, config, rows of the checks, rows of the
+#: driven path and the timed launch, rows of the kernel row): each held to
+#: its plain version (``hold_scenes``), driven GLOBAL_HORIZON steps with the
+#: counts set to 0, its launch timed queued, a kernel row at the row's own
+#: rows (the plain frames at V = 2112 to 8192 go as (rows, V, V), so a few
+#: rows; the driven rows cut from B as the launches grow as V^2)
+GLOBAL_ROWS = (
+    ("K4 global 302 lanes", "exit-v0", WIDE_EXIT, 16, B, 256),
+    ("K4 global 4096 slots", "exit-v0", {"vehicles_count": 4095}, 2, 256, 4),
+    ("K4 global 8192 slots", "exit-v0", {"vehicles_count": 8191}, 1, 64, 1),
+    ("K5 global", "intersection-v0", LONG_INTERSECTION, 2, 512, 8),
+)
+#: held only: every other entry of the global library (connected,
+#: dynamical, both; K4 at exit-v1 / exit-v0 with 100 lanes, K5 at
+#: intersection-v2 / -v1 for 140 s), its Linear branch (an
+#: AggressiveVehicle and a DefensiveVehicle preset) and its poly lanes
+#: (PolyExit with 100 lanes), each (row key, env id or custom_roads class
+#: name, config, rows of the checks)
+GLOBAL_CHECKED = (
+    ("K4 global connected", "exit-v1", WIDE_EXIT, 16),
+    ("K4 global dynamical", "exit-v0", {**WIDE_EXIT, **DYNAMICAL}, 16),
+    ("K4 global connected dynamical", "exit-v1", {**WIDE_EXIT, **DYNAMICAL}, 16),
+    ("K4 global linear", "exit-v0", {**WIDE_EXIT, **AGGRESSIVE_CONFIG}, 16),
+    ("K4 global poly", "PolyExit", WIDE_EXIT, 16),
+    ("K5 global connected", "intersection-v2", LONG_INTERSECTION, 2),
+    ("K5 global dynamical", "intersection-v1", LONG_INTERSECTION, 2),
+    ("K5 global connected dynamical", "intersection-v2", {**LONG_INTERSECTION, **DYNAMICAL}, 2),
+    ("K5 global linear", "intersection-v0", {**LONG_INTERSECTION, **DEFENSIVE_CONFIG}, 2),
+)
+GLOBAL_HORIZON = 2  # policy steps of each global row's zeroed rollout
+GLOBAL_GRAPH_STEPS = 2  # captured steps against eager at the 302-lane scene
+
+
+def check_global(ht, gf, kernels, rows, err, launches, card: str, start: float) -> None:
+    """The scenes that no layout of shared memory holds, on the global K4 /
+    K5: each of GLOBAL_ROWS and GLOBAL_CHECKED made on CUDA and routed to
+    its global wrapper (``frames_kernel_for``), the slab's words of every
+    global wrapper held to the library's count (``general_global_words``)
+    at its scene, its global instantiation held to its plain version
+    (``hold_scenes``: every scene, the rolled ones, twins across every
+    chunk boundary), every entry of the global library among them; each of
+    GLOBAL_ROWS driven GLOBAL_HORIZON steps with the counts set to 0 at its
+    driven rows (``drive_path``), its launch timed queued there with the
+    peak device memory of the reset batch and the launches, and a kernel
+    row at its own rows (``frame_row``); the 302-lane scene's captured step
+    against the eager one (GLOBAL_GRAPH_STEPS steps at B)."""
+    every = {**kernels, **{k: w for layout in ("", "wide", "cluster", "global")
+                           for k, w in layout_kernels(gf, layout).items()}}
+    globs = layout_kernels(gf, "global")
+    held, envs = set(), {}
+    for key, name, config, n_check, *_ in GLOBAL_ROWS + GLOBAL_CHECKED:
+        env = custom_env(ht, name, config)
+        V, L, R = env.num_slots, env.geo.num_lanes, env.route_slots
+        kernel = gf.frames_kernel_for(env._general, env.regulated, V)
+        if not kernel.glob:
+            raise AssertionError(f"{name} {config}: V={V}, L={L}, {kernel.source}, not global")
+        for k in globs.values():
+            got, want = k.global_words(L, V, R), gf.global_words(L, V, R, k.regulated)
+            if got != want:
+                raise AssertionError(f"{k.entry} L={L} V={V} R={R}: {got} slab words at "
+                                     f"launch, {want} in general_frames.global_words")
+        print(f"  {key}: the slab's words of the 8 global entries at L={L}, V={V}, R={R} "
+              f"equal the library's; {4 * gf.global_words(L, V, R, env.regulated)} bytes an env")
+        hold_scenes(gf, env, key, name, config, n_check, err, start)
+        held.add(kernel.entry)
+        envs[key] = env
+    missing = {k.entry for k in globs.values()} - held
+    if missing:
+        raise AssertionError(f"global entries held by no scene: {sorted(missing)}")
+    for key, name, config, _, n_drive, n_row in GLOBAL_ROWS:
+        env = envs[key]
+        launches[key] = drive_path(gf, env, every, key, name, config, GLOBAL_HORIZON, n_drive)
+        torch.cuda.reset_peak_memory_stats()
+        veh, steps0, sa, raw = row_inputs(gf, env, n_drive)
+        _, run, _ = frame_call(gf, env, veh, steps0, sa, env.frames_per_step, raw)
+        ms = queued_ms(run, 3)
+        print(f"  {key}: {ms:.4f} ms queued at B={n_drive}; slab "
+              f"{4 * n_drive * gf.global_words(env.geo.num_lanes, env.num_slots, env.route_slots, env.regulated)} "
+              f"bytes; peak device memory of the reset batch and the launches "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})")
+        del veh, steps0, sa, run
+        frame_row(gf, env, key, name, config, rows, err, card, start, batch=n_row)
+    key, name, config = GLOBAL_ROWS[0][:3]
+    captured_against_eager(envs[key], f"{name} {json.dumps(config)}", GLOBAL_GRAPH_STEPS)
+
+
 #: roads the fixed tables once refused, on the general kernels
 #: (``highwayenv_tpu_torch/tools/custom_roads.py``), each (row key, env id
 #: or custom_roads class name, config, driven, rows of the checks): merge-v0
@@ -3794,7 +3932,7 @@ SIZED_ROWS = (
 #: the straight road past 16 lanes: K1 / K3 (phase 3 holds them on its
 #: scenes with the other straight configs)
 CUSTOM_STRAIGHT = {"lanes_count": 17}
-CUSTOM_STEPS = 8  # policy steps of each driven path, eager and captured
+CUSTOM_STEPS = 4  # policy steps of each driven path, eager and captured
 
 
 def custom_env(ht, name: str, config):
@@ -5203,6 +5341,11 @@ def main() -> int:
           f"[at {time.time() - start:.0f} s]")
     check_large_clusters(ht, gf, conn_kernels, rows, err, launches, card, start)
     print(f"  (large cluster block {time.time() - t_large:.1f} s)")
+    t_global = time.time()
+    print(f"== 4. scenes no layout of shared memory holds, on CUDA: the global K4 / K5, past a "
+          f"block's 227 KB and past 2048 slots [at {time.time() - start:.0f} s]")
+    check_global(ht, gf, conn_kernels, rows, err, launches, card, start)
+    print(f"  (global block {time.time() - t_global:.1f} s)")
     t_custom = time.time()
     print(f"== 4. roads the fixed tables refused, on CUDA: poly lanes, 5 successor edges, "
           f"an 18-slot route, 5 and 10 predecessor edges, 17 and 31 target speeds, 72 "

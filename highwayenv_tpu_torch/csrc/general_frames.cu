@@ -190,6 +190,36 @@
 // per kernel and card before it asks cudaOccupancyMaxActiveClusters (once
 // per shape) and returns an error where no such cluster fits the card
 // (general_cluster_fit, tools/cluster_fit.py, asks the same question).
+//
+// The global branch (general_frames_global_kernel, built from
+// general_frames_global.cu into a library of its own with the same entry
+// names, the kSized instantiations alone): the scenes that no layout with
+// shared memory holds, past a block's 227 KB (exit-v0 with 100 lanes and
+// 100 vehicles asks 315,840 bytes of the wide block) or past
+// GEN_CLUSTER_SLOTS, up to GEN_GLOBAL_SLOTS = 8192 (exit-v0 with 2048 to
+// 8191 vehicles, intersection at the simulator's decision rate past 135
+// s).  The cluster branch's frame body with its arrays in global memory:
+// one env a cluster of N blocks (at most 16) of RS threads, RS the fewest
+// of 128, 256 and 512 with N RS >= V (global_threads), slot j on thread
+// j % RS of rank j / RS.  The env's per-slot arrays are a slab the wrapper
+// allocates, cut into chunks of GEN_WIDE_SLOTS = 128 slots, each laid out
+// as one cluster block's shared memory is (EnvSmem at V = 128, W = 4), so
+// that the cluster branch's strides, slot masks and walks hold unchanged:
+// slot j's arrays lie in chunk j / 128, which slot_ref reaches at an
+// offset into the slab (peer, Chunks) where the cluster branch maps
+// another rank's shared memory.  A block of RS threads owns RS / 128
+// chunks; the phases that go over a chunk's words (clearing the masks, the
+// projection table) take the chunk's 128 threads, K5's predictions go
+// slot by slot on the owners.  The lane tables, the candidate tables and
+// the lanes' order by kind (the wrapper's table) stay in global memory:
+// nothing of a block grows with L or V, so no scene is over a block's
+// limit.  The barrier is cluster.sync(), whose arrive / wait are release /
+// acquire at cluster scope, so a slab word one block writes is seen by
+// every block of the cluster after it; the slab is never read through the
+// non-coherent path.  The pair and item loops, the atomics and the
+// impact's atomicMax are the cluster branch's, on global words.  Registers
+// are capped at 128 a thread by __launch_bounds__(512), so that 16 blocks
+// of 512 threads fit 16 SMs.
 
 #include <cooperative_groups.h>
 #include <string.h>
@@ -208,6 +238,10 @@ namespace cg = cooperative_groups;
 #define GEN_CLUSTER_BLOCKS 16
 #define GEN_PORTABLE_CLUSTER 8
 #define GEN_CLUSTER_SLOTS (GEN_CLUSTER_BLOCKS * GEN_WIDE_SLOTS)
+// the global kernels: one env a cluster of up to 16 blocks of up to 512
+// threads, its arrays in global memory
+#define GEN_GLOBAL_THREADS 512
+#define GEN_GLOBAL_SLOTS (GEN_CLUSTER_BLOCKS * GEN_GLOBAL_THREADS)
 #define GEN_BLOCK 64  // threads a block of the narrow kernels
 #define KIND_OBSTACLE 5
 #define LANE_STRAIGHT 0
@@ -258,22 +292,34 @@ __device__ __forceinline__ int cluster_rank() {
     return 0;
 }
 
-// Rank r's copy of the shared array a: under kCluster a pointer into rank
-// r's shared memory at a's offset (distributed shared memory), else a.
-template <bool kCluster, typename T>
-__device__ __forceinline__ T* peer(T* a, int r) {
-  if constexpr (kCluster)
+// The global layout's chunks of an env's slab (kGlobal): `bytes` apart,
+// this thread's slot in chunk `chunk`; unread by the other layouts.
+struct Chunks {
+  ptrdiff_t bytes = 0;
+  int chunk = 0;
+};
+
+// Rank r's copy of the shared array a: under kGlobal chunk r's array in
+// the env's slab (a lies in chunk c.chunk), under kCluster a pointer into
+// rank r's shared memory at a's offset (distributed shared memory), else a.
+template <bool kCluster, bool kGlobal, typename T>
+__device__ __forceinline__ T* peer(const Chunks& c, T* a, int r) {
+  if constexpr (kGlobal)
+    return reinterpret_cast<T*>(reinterpret_cast<char*>(a) +
+                                static_cast<ptrdiff_t>(r - c.chunk) * c.bytes);
+  else if constexpr (kCluster)
     return cg::this_cluster().map_shared_rank(a, r);
   else
     return a;
 }
 
 // Slot j's element of an env's per-slot array a: a[j], or under kCluster
-// element j % GEN_WIDE_SLOTS of the copy on j's owner, rank j / GEN_WIDE_SLOTS.
-template <bool kCluster, typename T>
-__device__ __forceinline__ T& slot_ref(T* a, int j) {
+// element j % GEN_WIDE_SLOTS of the copy on j's owner, rank (kGlobal:
+// chunk) j / GEN_WIDE_SLOTS.
+template <bool kCluster, bool kGlobal, typename T>
+__device__ __forceinline__ T& slot_ref(const Chunks& c, T* a, int j) {
   if constexpr (kCluster)
-    return *peer<true>(a + j % GEN_WIDE_SLOTS, j / GEN_WIDE_SLOTS);
+    return *peer<true, kGlobal>(c, a + j % GEN_WIDE_SLOTS, j / GEN_WIDE_SLOTS);
   else
     return a[j];
 }
@@ -294,10 +340,11 @@ __device__ __forceinline__ bool has_slot(const unsigned* m, int s) {
 }
 // Sets slot s in the slot mask m of an env: under kCluster in the words of
 // s's owner, which keeps the W words of its own slots.
-template <bool kCluster, int W>
-__device__ __forceinline__ void set_slot(unsigned* m, int s) {
+template <bool kCluster, bool kGlobal, int W>
+__device__ __forceinline__ void set_slot(const Chunks& c, unsigned* m, int s) {
   if constexpr (kCluster)
-    atomicOr(peer<true>(m + word_of<W>(s % GEN_WIDE_SLOTS), s / GEN_WIDE_SLOTS), bit_of<W>(s));
+    atomicOr(peer<true, kGlobal>(c, m + word_of<W>(s % GEN_WIDE_SLOTS), s / GEN_WIDE_SLOTS),
+             bit_of<W>(s));
   else
     atomicOr(&m[word_of<W>(s)], bit_of<W>(s));
 }
@@ -722,6 +769,8 @@ struct EnvSmem {
   // cumulative length and the lane
   float *rs0, *fx, *fy, *rcum;
   int *prio, *rfirst, *rlast, *rvalid, *rseg;
+  // kGlobal: where the env's other chunks lie (peer)
+  Chunks chunks;
 
   __host__ __device__ static int union_words(int L, int V, int R, bool reg) {
     const int rows = 2 * L * V + 9 * V;
@@ -801,9 +850,10 @@ __host__ __device__ static int block_words(int L, int V, int S, int K, bool size
 #define FS_VEHICLE 2
 #define FS_CONTROLLED 4
 
-// W: words of a slot mask (of a rank's own slots under kCluster); kSized:
-// the candidate tables' row K read at run time, else GEN_FIXED_CONN
-template <bool kLinear, bool kConnected, int W, bool kCluster, bool kSized>
+// W: words of a slot mask (of a rank's own slots under kCluster, of a
+// chunk's under kGlobal); kSized: the candidate tables' row K read at run
+// time, else GEN_FIXED_CONN
+template <bool kLinear, bool kConnected, int W, bool kCluster, bool kGlobal, bool kSized>
 struct Ctx {
   const Lanes<kSized>& g;
   const GenParams& p;
@@ -820,7 +870,9 @@ struct Ctx {
 
   // slot j's element of the per-slot array a, on j's owner under kCluster
   template <typename T>
-  __device__ __forceinline__ T& at(T* a, int j) const { return slot_ref<kCluster>(a, j); }
+  __device__ __forceinline__ T& at(T* a, int j) const {
+    return slot_ref<kCluster, kGlobal>(e.chunks, a, j);
+  }
   // slot j's s on lane l (a clipped index)
   __device__ __forceinline__ float s_on(int l, int j) const {
     return at(e.S + l * (kCluster ? GEN_WIDE_SLOTS : V), j);
@@ -839,16 +891,18 @@ struct Ctx {
   // keys, the rear the lowest.  kCluster: the same walk over each rank's
   // eligibility words and S columns in turn, rank 0 first, so the slots
   // still come in ascending order and a slot's first candidate lane is found
-  // within its owner's words.
+  // within its owner's words.  kGlobal: the same walk over the env's chunks.
   __device__ void neighbours(int q, int* front, int* rear) const {
     const int VS = kCluster ? GEN_WIDE_SLOTS : V;  // the tables' stride
     const int l = g.clip(q);
     const float s_self = e.S[l * VS + (kCluster ? i % GEN_WIDE_SLOTS : i)];
     float f_key = INFINITY, r_key = -INFINITY;
     int f = -1, r = -1;
-    for (int rk = 0; rk < cluster_blocks<kCluster>(); ++rk) {
-      const unsigned* elig = peer<kCluster>(e.elig, rk);
-      const float* S = peer<kCluster>(e.S, rk);
+    for (int rk = 0;
+         rk < (kGlobal ? (V + GEN_WIDE_SLOTS - 1) / GEN_WIDE_SLOTS : cluster_blocks<kCluster>());
+         ++rk) {
+      const unsigned* elig = peer<kCluster, kGlobal>(e.chunks, e.elig, rk);
+      const float* S = peer<kCluster, kGlobal>(e.chunks, e.S, rk);
       const int base = rk * GEN_WIDE_SLOTS;      // the rank's first slot
       const int own_w = word_of<W>(i) - rk * W;  // i's word there
       if constexpr (kConnected) {
@@ -1082,10 +1136,12 @@ __device__ void project_table(const LanesT& g, const EnvSmem& e, const int* lord
 // Phase B for the owner of slot i: the IDM / MOBIL decision pass and the
 // controls.  kLinear: each row's own kind picks its law (a Linear row's is
 // LinearVehicle's); without it every law is IDM's.  kCluster: i's own
-// arrays at me = i % 128 of its block, another slot's through cx.at.
-template <bool kLinear, bool kConnected, int W, bool kCluster, bool kSized>
+// arrays at me = i % 128 of its block (kGlobal: its chunk), another slot's
+// through cx.at.
+template <bool kLinear, bool kConnected, int W, bool kCluster, bool kGlobal, bool kSized>
 __device__ __forceinline__ void decide(GSlot& v,
-                                       const Ctx<kLinear, kConnected, W, kCluster, kSized>& cx,
+                                       const Ctx<kLinear, kConnected, W, kCluster, kGlobal,
+                                                 kSized>& cx,
                                        const Lanes<kSized>& g,
                                        const GenParams& p, const EnvSmem& e, int i, int V,
                                        int R, const int* rid) {
@@ -1189,22 +1245,29 @@ __device__ __forceinline__ void decide(GSlot& v,
 // envs a block (narrow), one env a block of G = GEN_WIDE_BLOCK threads
 // (kWide), or one env a cluster of such blocks (kWide and kCluster; slot i
 // on thread i % 128 of rank i / 128, which keeps the arrays of its 128
-// slots at me = i % 128).  conn_lanes / conn_offsets: the (L, GenParams::K)
+// slots at me = i % 128), or under kGlobal a cluster of blocks of G
+// threads (slot i on thread i % G of rank i / G), the arrays of slot i in
+// chunk i / 128 of the env's slab at me = i % 128.  conn_lanes /
+// conn_offsets: the (L, GenParams::K)
 // candidate tables, read by the kConnected instantiations alone (last, so
-// that the other parameters keep their places); dyn: the kDynamical
+// that the other parameters keep their places); slab / order: kGlobal's
+// per-env arrays and lanes' order by kind (null elsewhere); dyn: the kDynamical
 // instantiations' DynFields, a parameter of theirs alone (an empty pack
 // elsewhere); kSized: the tables' strides at run time and poly lanes, else
 // the fixed layout
 template <bool kRegulated, bool kLinear, bool kConnected, bool kDynamical, bool kWide,
-          bool kCluster, bool kSized, typename... Dyn>
+          bool kCluster, bool kGlobal, bool kSized, typename... Dyn>
 __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields& rf,
                                             const float* lane_f, const int* lane_i,
                                             const GenParams& p, int B, int G,
                                             const int* conn_lanes, const float* conn_offsets,
+                                            float* slab, const int* order,
                                             const Dyn... dyn) {
   static_assert(sizeof...(Dyn) == (kDynamical ? 1 : 0),
                 "a kDynamical instantiation takes its DynFields, and only it");
   static_assert(kWide || !kCluster, "a cluster's blocks are the wide kernels' blocks");
+  static_assert(kCluster || !kGlobal, "the global layout's env is a cluster");
+  static_assert(kSized || !kGlobal, "the global layout reads the tables at run-time strides");
   constexpr int W = kWide ? GEN_WIDE_WORDS : 1;  // words of a slot mask
   constexpr int kBlock = kWide ? GEN_WIDE_BLOCK : GEN_BLOCK;
   extern __shared__ float smem[];
@@ -1220,7 +1283,8 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
   const int V_own = kCluster ? min(GEN_WIDE_SLOTS, V - rank * GEN_WIDE_SLOTS) : V;
 
   // the lane tables, the lanes grouped by kind, the candidate tables
-  // (kConnected), and the pair table (none under kCluster), once per block
+  // (kConnected), and the pair table (none under kCluster), once per block;
+  // kGlobal: none, the tables read where they are
   float* lf = smem;
   int* li = reinterpret_cast<int*>(lf + L * LANE_F_WORDS);
   int* lorder = li + L * iw;
@@ -1231,48 +1295,65 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
     conn_l = lorder + L;
     conn_f = reinterpret_cast<float*>(conn_l + L * K);
     pairs = reinterpret_cast<unsigned short*>(conn_f + L * K);
-    for (int k = threadIdx.x; k < L * K; k += blockDim.x) {
-      conn_l[k] = conn_lanes[k];
-      conn_f[k] = conn_offsets[k];
-    }
+    if constexpr (!kGlobal)
+      for (int k = threadIdx.x; k < L * K; k += blockDim.x) {
+        conn_l[k] = conn_lanes[k];
+        conn_f[k] = conn_offsets[k];
+      }
   } else {
     pairs = reinterpret_cast<unsigned short*>(lorder + L);
   }
-  for (int k = threadIdx.x; k < L * LANE_F_WORDS; k += blockDim.x) lf[k] = lane_f[k];
-  for (int k = threadIdx.x; k < L * iw; k += blockDim.x) li[k] = lane_i[k];
-  if constexpr (!kCluster)
-    for (int a = threadIdx.x; a < V; a += blockDim.x) {
-      const int base = a * (2 * V - a - 1) / 2;
-      for (int b = a + 1; b < V; ++b)
-        pairs[base + b - a - 1] = static_cast<unsigned short>(a | (b << 8));
-    }
-  if (threadIdx.x == 0) {
-    int n = 0;
-    for (int pass = 0; pass < (kSized ? 4 : 3); ++pass)
-      for (int l = 0; l < L; ++l) {
-        const int kind = lane_i[l * iw + LI_KIND];
-        const int group = kind == LANE_CIRCULAR ? 0
-                          : kind == LANE_SINE   ? 1
-                          : kind == LANE_POLY   ? 3
-                                                : 2;
-        if (group == pass) lorder[n++] = l;
+  if constexpr (!kGlobal) {
+    for (int k = threadIdx.x; k < L * LANE_F_WORDS; k += blockDim.x) lf[k] = lane_f[k];
+    for (int k = threadIdx.x; k < L * iw; k += blockDim.x) li[k] = lane_i[k];
+    if constexpr (!kCluster)
+      for (int a = threadIdx.x; a < V; a += blockDim.x) {
+        const int base = a * (2 * V - a - 1) / 2;
+        for (int b = a + 1; b < V; ++b)
+          pairs[base + b - a - 1] = static_cast<unsigned short>(a | (b << 8));
       }
+    if (threadIdx.x == 0) {
+      int n = 0;
+      for (int pass = 0; pass < (kSized ? 4 : 3); ++pass)
+        for (int l = 0; l < L; ++l) {
+          const int kind = lane_i[l * iw + LI_KIND];
+          const int group = kind == LANE_CIRCULAR ? 0
+                            : kind == LANE_SINE   ? 1
+                            : kind == LANE_POLY   ? 3
+                                                  : 2;
+          if (group == pass) lorder[n++] = l;
+        }
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  const Lanes<kSized> g = {lf, li, L, p.S, &p.poly};
+  const Lanes<kSized> g = {kGlobal ? lane_f : lf, kGlobal ? lane_i : li, L, p.S, &p.poly};
+  const int* lanes_order = kGlobal ? order : lorder;
 
   const int group = threadIdx.x / G, t = threadIdx.x % G;
   const int env = kCluster ? blockIdx.x / ranks : blockIdx.x * (kBlock / G) + group;
   const bool env_live = env < B;
-  const int i = kCluster ? rank * GEN_WIDE_SLOTS + t : t;
-  const int me = kCluster ? t : i;     // i's index in its block's arrays
+  const int i = kGlobal ? rank * G + t : (kCluster ? rank * GEN_WIDE_SLOTS + t : t);
+  // i's index in its block's arrays (kGlobal: its chunk's)
+  const int me = kGlobal ? i % GEN_WIDE_SLOTS : (kCluster ? t : i);
   const bool live = env_live && i < V;  // this thread owns slot i
   // the projection's threads: an env's (narrow, wide) or the slot's owner
   const bool projects = kCluster ? live : env_live;
+  // the threads that go over the words of this thread's arrays: the env's,
+  // the block's, or under kGlobal the 128 of its chunk (tc of gc)
+  const int tc = kGlobal ? me : t, gc = kGlobal ? GEN_WIDE_SLOTS : G;
 
   EnvSmem e;
-  float* env_base = smem + block_words(L, kCluster ? 0 : V, g.S(), K, kSized) +
-                    static_cast<size_t>(group) * EnvSmem::words(L, VS, R, kRegulated, W);
+  float* env_base;
+  if constexpr (kGlobal) {
+    // chunk i / 128 of the env's ranks * G / 128 in the slab
+    const size_t words = EnvSmem::words(L, VS, R, kRegulated, W);
+    const int chunk = i / GEN_WIDE_SLOTS;
+    env_base = slab + (static_cast<size_t>(env) * (ranks * G / GEN_WIDE_SLOTS) + chunk) * words;
+    e.chunks = {static_cast<ptrdiff_t>(words * sizeof(float)), chunk};
+  } else {
+    env_base = smem + block_words(L, kCluster ? 0 : V, g.S(), K, kSized) +
+               static_cast<size_t>(group) * EnvSmem::words(L, VS, R, kRegulated, W);
+  }
   e.carve(env_base, L, VS, R, kRegulated, W);
   const int phase = (kRegulated && env_live) ? rf.phase[env] : 0;
 
@@ -1337,10 +1418,10 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
                   (v.is_vehicle() ? FS_VEHICLE : 0) | (v.is_controlled() ? FS_CONTROLLED : 0);
   }
   if (env_live)
-    for (int l = t; l < L * W; l += G) e.elig[l] = 0u;
+    for (int l = tc; l < L * W; l += gc) e.elig[l] = 0u;
   group_sync<kWide, kCluster>();
   // the frame-start projection table and eligibility masks
-  project_table<kWide>(g, e, lorder, L, VS, t, G, projects, false);
+  project_table<kWide>(g, e, lanes_order, L, VS, tc, gc, projects, false);
   group_sync<kWide, kCluster>();
 
   // the deciding slot's law: its kind and, on a Linear row, its parameters
@@ -1352,8 +1433,9 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
     law.sp0 = f.steer_params[2 * o];
     law.sp1 = f.steer_params[2 * o + 1];
   }
-  const Ctx<kLinear, kConnected, W, kCluster, kSized> cx = {
-      g, p, e, V, i, v.delta, law, conn_l, conn_f, K};
+  const Ctx<kLinear, kConnected, W, kCluster, kGlobal, kSized> cx = {
+      g, p, e, V, i, v.delta, law, kGlobal ? conn_lanes : conn_l,
+      kGlobal ? conn_offsets : conn_f, K};
   const int* rb = e.rbase + me * R;
   const int* rn = e.rn + me * R;
   const int* rid = e.rid + me * R;
@@ -1361,7 +1443,9 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
   // calls fn(a, b) for the env's pairs a < b taken by this thread: from the
   // block's pair table, or counted over the cluster's threads
   const auto each_pair = [&](auto fn) {
-    if constexpr (kCluster)
+    if constexpr (kGlobal)
+      for_pairs_counted(V, rank * G + t, ranks * G, fn);
+    else if constexpr (kCluster)
       for_pairs_counted(V, rank * GEN_WIDE_BLOCK + t, ranks * GEN_WIDE_BLOCK, fn);
     else
       for_pairs(pairs, P, t, G, fn);
@@ -1468,7 +1552,7 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
     if constexpr (kRegulated) {
       const bool tick = env_live && (phase + frame + 1) % p.period == 0;
       if (__any_sync(FULL_MASK, tick)) {
-        if (tick && t < W) e.bits[2 * W + t] = 0u;
+        if (tick && tc < W) e.bits[2 * W + tc] = 0u;
         if (tick && live) {
           // the constant-speed route walk's segments (predict_route_positions)
           const int lc = g.clip(v.lane);
@@ -1503,37 +1587,43 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
         // every read of S / LAT is done: the predictions take their words
         group_sync<kWide, kCluster>();
         // every slot's positions and headings at the 11 times, item (t, j)
-        // (kCluster: the rank's own slots, j its index there)
-        if (tick)
-          for_items(REG_TIMES, V_own, t, G, [&](int tt, int j) {
-            const int first = e.rfirst[j], last = e.rlast[j];
-            const float* cum = e.rcum + j * R;
-            const float target =
-                e.rs0[j] + e.speed[j] * (REG_STEP * static_cast<float>(tt + 1));
-            // the valid segments before the last that the target passes:
-            // kSized (any number of route slots) the run [first, last), which
-            // the valid slots are; else by the valid mask
-            int k = first;
-            if constexpr (kSized) {
-              for (int q = first; q < last; ++q)
-                if (target > cum[q]) ++k;
-            } else {
-              const unsigned valid = static_cast<unsigned>(e.rvalid[j]);
-              for (int q = 0; q < R; ++q)
-                if (target > cum[q] && q < last && ((valid >> q) & 1u)) ++k;
-            }
-            k = min(k, last);
-            const int lk = g.clip(e.rseg[j * R + k]);
-            const float base = k > first ? cum[k - 1] : 0.f;
-            const float s_loc = target - base;
-            float x, y;
-            lane_position(g, lk, s_loc, 0.f, &x, &y);
-            const float h = lane_heading(g, lk, s_loc);
-            e.qx[tt * VS + j] = x;
-            e.qy[tt * VS + j] = y;
-            e.qc[tt * VS + j] = cosf(h);
-            e.qs[tt * VS + j] = sinf(h);
-          });
+        // (kCluster: the rank's own slots, j its index there; kGlobal: the
+        // owner's 11 items, j = me in its chunk)
+        const auto predict = [&](int tt, int j) {
+          const int first = e.rfirst[j], last = e.rlast[j];
+          const float* cum = e.rcum + j * R;
+          const float target =
+              e.rs0[j] + e.speed[j] * (REG_STEP * static_cast<float>(tt + 1));
+          // the valid segments before the last that the target passes:
+          // kSized (any number of route slots) the run [first, last), which
+          // the valid slots are; else by the valid mask
+          int k = first;
+          if constexpr (kSized) {
+            for (int q = first; q < last; ++q)
+              if (target > cum[q]) ++k;
+          } else {
+            const unsigned valid = static_cast<unsigned>(e.rvalid[j]);
+            for (int q = 0; q < R; ++q)
+              if (target > cum[q] && q < last && ((valid >> q) & 1u)) ++k;
+          }
+          k = min(k, last);
+          const int lk = g.clip(e.rseg[j * R + k]);
+          const float base = k > first ? cum[k - 1] : 0.f;
+          const float s_loc = target - base;
+          float x, y;
+          lane_position(g, lk, s_loc, 0.f, &x, &y);
+          const float h = lane_heading(g, lk, s_loc);
+          e.qx[tt * VS + j] = x;
+          e.qy[tt * VS + j] = y;
+          e.qc[tt * VS + j] = cosf(h);
+          e.qs[tt * VS + j] = sinf(h);
+        };
+        if constexpr (kGlobal) {
+          if (tick && live)
+            for (int tt = 0; tt < REG_TIMES; ++tt) predict(tt, me);
+        } else if (tick) {
+          for_items(REG_TIMES, V_own, t, G, predict);
+        }
         group_sync<kWide, kCluster>();
         // future overlaps of every pair of vehicles (lower, upper), each
         // pair on one thread; the yielder's bit
@@ -1569,7 +1659,7 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
               const float front_ba = (-dx0) * cx.at(e.cos, b) + (-dy0) * cx.at(e.sin, b);
               a_yields = front_ab > front_ba;
             }
-            set_slot<kCluster, W>(e.bits + 2 * W, a_yields ? a : b);
+            set_slot<kCluster, kGlobal, W>(e.chunks, e.bits + 2 * W, a_yields ? a : b);
           });
         group_sync<kWide, kCluster>();  // the predictions are read: the rows take their words back
         if (tick && live) {
@@ -1643,13 +1733,13 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
       for (int w = 0; w < W; ++w) e.imp[me * W + w] = 0u;
     }
     if (env_live) {
-      for (int l = t; l < L * W; l += G) e.elig[l] = 0u;
-      if (t < W) e.bits[t] = e.bits[W + t] = 0u;
+      for (int l = tc; l < L * W; l += gc) e.elig[l] = 0u;
+      if (tc < W) e.bits[tc] = e.bits[W + tc] = 0u;
     }
     group_sync<kWide, kCluster>();
 
     // --- C': the new projection table and re-localization, slot-major -------
-    project_table<kWide>(g, e, lorder, L, VS, t, G, projects, true);
+    project_table<kWide>(g, e, lanes_order, L, VS, tc, gc, projects, true);
     // --- D: collisions, each pair once: sphere pre-check, swept SAT, slot bits
     // (no barrier between C' and D: they touch other words)
     if (env_live)
@@ -1670,18 +1760,19 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
             atomicOr(&e.bits[1], ((fa & F_SOLID) ? 0u : ba) | ((fb & F_SOLID) ? 0u : bb));
         } else {  // a and b may lie in different words
           if (inter && both_solid) {
-            set_slot<kCluster, W>(e.bits, a);
-            set_slot<kCluster, W>(e.bits, b);
+            set_slot<kCluster, kGlobal, W>(e.chunks, e.bits, a);
+            set_slot<kCluster, kGlobal, W>(e.chunks, e.bits, b);
           }
           if (inter && !both_solid) {
-            if (!(fa & F_SOLID)) set_slot<kCluster, W>(e.bits + W, a);
-            if (!(fb & F_SOLID)) set_slot<kCluster, W>(e.bits + W, b);
+            if (!(fa & F_SOLID)) set_slot<kCluster, kGlobal, W>(e.chunks, e.bits + W, a);
+            if (!(fb & F_SOLID)) set_slot<kCluster, kGlobal, W>(e.chunks, e.bits + W, b);
           }
         }
         if (will && both_solid) {
           if constexpr (kCluster) {  // the highest partner, + 1, in the slot's first word
             const auto first_word = [&](int k) {
-              return peer<true>(e.imp + k % GEN_WIDE_SLOTS * W, k / GEN_WIDE_SLOTS);
+              return peer<true, kGlobal>(e.chunks, e.imp + k % GEN_WIDE_SLOTS * W,
+                                         k / GEN_WIDE_SLOTS);
             };
             if (!(fa & F_OBSTACLE)) atomicMax(first_word(a), static_cast<unsigned>(b + 1));
             if (!(fb & F_OBSTACLE)) atomicMax(first_word(b), static_cast<unsigned>(a + 1));
@@ -1770,8 +1861,8 @@ __global__ void __launch_bounds__(GEN_BLOCK)
                           const int* lane_i, const __grid_constant__ GenParams p, int B,
                           int G, const int* conn_lanes, const float* conn_offsets,
                           const Dyn... dyn) {
-  frames_body<kRegulated, kLinear, kConnected, kDynamical, false, false, kSized>(
-      f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, dyn...);
+  frames_body<kRegulated, kLinear, kConnected, kDynamical, false, false, false, kSized>(
+      f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, nullptr, nullptr, dyn...);
 }
 
 // Blocks an SM the wide kernels are built for: 5 for the IDM K4 of the fixed
@@ -1794,8 +1885,8 @@ __global__ void __launch_bounds__(GEN_WIDE_BLOCK,
                                const int* lane_i, const __grid_constant__ GenParams p, int B,
                                int G, const int* conn_lanes, const float* conn_offsets,
                                const Dyn... dyn) {
-  frames_body<kRegulated, kLinear, kConnected, kDynamical, true, false, kSized>(
-      f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, dyn...);
+  frames_body<kRegulated, kLinear, kConnected, kDynamical, true, false, false, kSized>(
+      f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, nullptr, nullptr, dyn...);
 }
 
 // The cluster kernels: one env a cluster of ceil(V / 128) blocks of
@@ -1808,22 +1899,59 @@ __global__ void __launch_bounds__(GEN_WIDE_BLOCK)
                                   const int* lane_i, const __grid_constant__ GenParams p,
                                   int B, int G, const int* conn_lanes,
                                   const float* conn_offsets, const Dyn... dyn) {
-  frames_body<kRegulated, kLinear, kConnected, kDynamical, true, true, kSized>(
-      f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, dyn...);
+  frames_body<kRegulated, kLinear, kConnected, kDynamical, true, true, false, kSized>(
+      f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, nullptr, nullptr, dyn...);
+}
+
+// The global kernels: one env a cluster of ceil(V / G) blocks of G = 128,
+// 256 or 512 threads (global_threads), its arrays in the slab (a float
+// array of global_words(...) words an env) and the lanes' order by kind
+// the wrapper's; at most 128 registers a thread, so that a block of 512
+// threads fits an SM.
+template <bool kRegulated, bool kLinear, bool kConnected, bool kDynamical, bool kSized,
+          typename... Dyn>
+__global__ void __launch_bounds__(GEN_GLOBAL_THREADS)
+    general_frames_global_kernel(const __grid_constant__ GenFields f,
+                                 const __grid_constant__ RegFields rf, const float* lane_f,
+                                 const int* lane_i, const __grid_constant__ GenParams p, int B,
+                                 int G, const int* conn_lanes, const float* conn_offsets,
+                                 float* slab, const int* order, const Dyn... dyn) {
+  frames_body<kRegulated, kLinear, kConnected, kDynamical, true, true, true, kSized>(
+      f, rf, lane_f, lane_i, p, B, G, conn_lanes, conn_offsets, slab, order, dyn...);
 }
 
 // Threads an env: 16 up to 16 slots, else 32 (32 at V <= 16 ran 1.29x to
 // 1.50x slower at roundabout-v0, merge-v0 and the V = 16 warm-up; PERF.md).
 static int threads_per_env(int V) { return V <= 16 ? 16 : 32; }
 
+// Threads a block of the global kernels at V slots: the fewest of 128, 256
+// and 512 whose GEN_CLUSTER_BLOCKS blocks hold V.
+static int global_threads(int V) {
+  int threads = GEN_WIDE_BLOCK;
+  while (threads < GEN_GLOBAL_THREADS && (V + threads - 1) / threads > GEN_CLUSTER_BLOCKS)
+    threads *= 2;
+  return threads;
+}
+
+// The words of one env's slab in the global layout: the chunks of 128
+// slots of its ceil(V / G) blocks of G = global_threads(V) threads, each
+// EnvSmem's words at V = 128 and W = GEN_WIDE_WORDS.
+static long long global_words(bool regulated, int L, int V, int R) {
+  const int G = global_threads(V);
+  const long long chunks = static_cast<long long>((V + G - 1) / G) * (G / GEN_WIDE_SLOTS);
+  return chunks * EnvSmem::words(L, GEN_WIDE_SLOTS, R, regulated, GEN_WIDE_WORDS);
+}
+
 // The dynamic shared memory a launch asks of each block: the block's words
 // and those of each env it holds (a cluster's blocks hold no pair table and
-// the arrays of 128 slots each, the same at any V).  The scene sizes every
+// the arrays of 128 slots each, the same at any V; the global kernels'
+// none).  The scene sizes every
 // table (L lanes, R route slots, S successor edges and, kConnected, K
 // candidates a lane); the one limit is the card's shared memory a block,
 // which ops/general_frames.py::launch_smem computes alike for make.
-template <bool kRegulated, bool kConnected, bool kWide, bool kCluster, bool kSized>
+template <bool kRegulated, bool kConnected, bool kWide, bool kCluster, bool kGlobal, bool kSized>
 static size_t launch_smem(int L, int V, int R, int S, int K) {
+  if constexpr (kGlobal) return 0;
   const int block = kWide ? GEN_WIDE_BLOCK : GEN_BLOCK;
   const int G = kWide ? GEN_WIDE_BLOCK : threads_per_env(V);
   return sizeof(float) *
@@ -1833,18 +1961,20 @@ static size_t launch_smem(int L, int V, int R, int S, int K) {
                              kWide ? GEN_WIDE_WORDS : 1));
 }
 
-// The launch configuration of B clusters of `ranks` blocks of
-// GEN_WIDE_BLOCK threads, each block asking `smem` bytes; `attr` receives
-// the cluster dimension, which the configuration points to.
+// The launch configuration of B clusters of `ranks` blocks of `threads`
+// threads (GEN_WIDE_BLOCK, or global_threads), each block asking `smem`
+// bytes; `attr` receives the cluster dimension, which the configuration
+// points to.
 static cudaLaunchConfig_t cluster_config(int ranks, int B, size_t smem, cudaStream_t stream,
-                                         cudaLaunchAttribute* attr) {
+                                         cudaLaunchAttribute* attr,
+                                         int threads = GEN_WIDE_BLOCK) {
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = static_cast<unsigned>(ranks);
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>((B > 0 ? B : 1) * ranks));
-  cfg.blockDim = dim3(GEN_WIDE_BLOCK);
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
@@ -1856,9 +1986,15 @@ static cudaLaunchConfig_t cluster_config(int ranks, int B, size_t smem, cudaStre
 // IDM code's; with kSized both are the kSized instantiation (Linear rows
 // possible), so a library instantiates only its own kernels.
 template <bool kRegulated, bool kConnected, bool kDynamical, bool kWide, bool kCluster,
-          bool kSized, typename... Dyn>
+          bool kGlobal, bool kSized, typename... Dyn>
 static auto kernel_of(bool linear) {
-  if constexpr (kCluster)
+  if constexpr (kGlobal)
+    return linear
+               ? general_frames_global_kernel<kRegulated, true, kConnected, kDynamical, kSized,
+                                              Dyn...>
+               : general_frames_global_kernel<kRegulated, kSized, kConnected, kDynamical,
+                                              kSized, Dyn...>;
+  else if constexpr (kCluster)
     return linear
                ? general_frames_cluster_kernel<kRegulated, true, kConnected, kDynamical, kSized,
                                                Dyn...>
@@ -1879,9 +2015,11 @@ static auto kernel_of(bool linear) {
 
 // dyn: the kDynamical instantiations' DynFields (one pointer), or nothing;
 // kWide: the wide kernels (up to GEN_WIDE_SLOTS slots), with kCluster the
-// cluster kernels (up to GEN_CLUSTER_SLOTS), else the narrow ones (up to
-// GEN_MAX_SLOTS)
-template <bool kRegulated, bool kConnected, bool kWide, bool kCluster, bool kSized,
+// cluster kernels (up to GEN_CLUSTER_SLOTS), with kGlobal too the global
+// ones (up to GEN_GLOBAL_SLOTS; ptrs then holds two more pointers past the
+// outputs: the slab, global_words(...) floats an env, and the (L,) int32
+// lanes' order by kind), else the narrow ones (up to GEN_MAX_SLOTS)
+template <bool kRegulated, bool kConnected, bool kWide, bool kCluster, bool kGlobal, bool kSized,
           typename... Dyn>
 static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
                   const int* lane_i, const int* conn_lanes, const float* conn_offsets,
@@ -1890,8 +2028,15 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
                 "GenFields holds one pointer per tensor");
   constexpr bool kDynamical = sizeof...(Dyn) > 0;
   constexpr int max_slots =
-      kCluster ? GEN_CLUSTER_SLOTS : (kWide ? GEN_WIDE_SLOTS : GEN_MAX_SLOTS);
+      kGlobal ? GEN_GLOBAL_SLOTS
+              : (kCluster ? GEN_CLUSTER_SLOTS : (kWide ? GEN_WIDE_SLOTS : GEN_MAX_SLOTS));
   const GenParams& p = *params;
+  float* slab = nullptr;
+  const int* order = nullptr;
+  if constexpr (kGlobal) {
+    slab = static_cast<float*>(ptrs[N_IN + 1 + N_OUT]);
+    order = static_cast<const int*>(ptrs[N_IN + 2 + N_OUT]);
+  }
   if (p.V < 1 || p.V > max_slots || p.L < 1 || p.R < 1 || p.M < 1 || p.M > p.L || p.S < 0 ||
       (p.raw ? p.n_speeds != 0 : (p.n_speeds < 1 || (kSized && !p.speed_grid))) ||
       (kRegulated && p.period < 1) ||
@@ -1901,20 +2046,22 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
       (!kSized && (p.S != GEN_FIXED_SUCC || (kConnected && p.K != GEN_FIXED_CONN) ||
                    p.R > GEN_FIXED_ROUTE || p.n_speeds > GEN_FIXED_SPEEDS ||
                    p.poly.pos != nullptr)) ||
-      (false || ... || (dyn == nullptr)))
+      (kGlobal && (!slab || !order)) || (false || ... || (dyn == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   GenFields f;
   memcpy(&f, ptrs, sizeof(GenFields));
   const int block = kWide ? GEN_WIDE_BLOCK : GEN_BLOCK;
-  const int G = kWide ? GEN_WIDE_BLOCK : threads_per_env(p.V);
+  const int G = kGlobal ? global_threads(p.V) : (kWide ? GEN_WIDE_BLOCK : threads_per_env(p.V));
   const int envs_per_block = block / G;
   const size_t smem =
-      launch_smem<kRegulated, kConnected, kWide, kCluster, kSized>(p.L, p.V, p.R, p.S, p.K);
+      launch_smem<kRegulated, kConnected, kWide, kCluster, kGlobal, kSized>(p.L, p.V, p.R, p.S,
+                                                                          p.K);
   // the Linear rows' instantiation where the caller says they are possible
   // (the kSized library's one always); only this library's kernels
-  // (narrow, wide or cluster, fixed or sized) are instantiated
+  // (narrow, wide, cluster or global, fixed or sized) are instantiated
   const auto kernel =
-      kernel_of<kRegulated, kConnected, kDynamical, kWide, kCluster, kSized, Dyn...>(p.linear);
+      kernel_of<kRegulated, kConnected, kDynamical, kWide, kCluster, kGlobal, kSized, Dyn...>(
+          p.linear);
   int dev = 0;
   if (smem > 48 * 1024 || kCluster) {
     cudaError_t e = cudaGetDevice(&dev);
@@ -1934,11 +2081,11 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
     }
   }
   if constexpr (kCluster) {
-    // one env a cluster of ceil(V / 128) blocks, B clusters
-    const int ranks = (p.V + GEN_WIDE_SLOTS - 1) / GEN_WIDE_SLOTS;
+    // one env a cluster of ceil(V / G) blocks, B clusters
+    const int ranks = (p.V + G - 1) / G;
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg =
-        cluster_config(ranks, B, smem, static_cast<cudaStream_t>(stream), &attr);
+        cluster_config(ranks, B, smem, static_cast<cudaStream_t>(stream), &attr, G);
     if (ranks > GEN_PORTABLE_CLUSTER) {
       // a cluster over the portable size only by the attribute, set once
       // per kernel and card before the occupancy query and the launch: a
@@ -1953,21 +2100,28 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
       }
     }
     // whether such a cluster fits the card's SMs at all, asked once per
-    // kernel, card and cluster size for the largest size asked so far (no
-    // query under stream capture after an eager launch of the same shape);
-    // none fits: the launch's error, which the wrapper raises
-    static size_t fits[2][64][GEN_CLUSTER_BLOCKS + 1] = {};
-    size_t& fit = fits[p.linear ? 1 : 0][dev & 63][ranks];
-    if (smem > fit) {
+    // kernel, card and cluster size (kGlobal: and block size) for the
+    // largest shared memory asked so far (no query under stream capture
+    // after an eager launch of the same shape); none fits: the launch's
+    // error, which the wrapper raises.  fit holds the bytes asked + 1 (0:
+    // never asked), since the global kernels ask none
+    static size_t fits[2][64][GEN_CLUSTER_BLOCKS + 1][3] = {};
+    size_t& fit = fits[p.linear ? 1 : 0][dev & 63][ranks][G / (2 * GEN_WIDE_BLOCK)];
+    if (smem + 1 > fit) {
       int clusters = 0;
       cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
       if (e != cudaSuccess) return static_cast<int>(e);
       if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-      fit = smem;
+      fit = smem + 1;
     }
     if (B > 0) {
-      cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, f, rf, lane_f, lane_i, p, B, G,
-                                         conn_lanes, conn_offsets, *dyn...);
+      cudaError_t e;
+      if constexpr (kGlobal)
+        e = cudaLaunchKernelEx(&cfg, kernel, f, rf, lane_f, lane_i, p, B, G, conn_lanes,
+                               conn_offsets, slab, order, *dyn...);
+      else
+        e = cudaLaunchKernelEx(&cfg, kernel, f, rf, lane_f, lane_i, p, B, G, conn_lanes,
+                               conn_offsets, *dyn...);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
   } else if (B > 0) {
@@ -1979,26 +2133,35 @@ static int launch(void* const* ptrs, const RegFields& rf, const float* lane_f,
 }
 
 // This source builds the narrow library; general_frames_wide.cu includes it
-// with GEN_WIDE_LIBRARY defined and builds the wide one, and
+// with GEN_WIDE_LIBRARY defined and builds the wide one,
 // general_frames_cluster.cu with GEN_CLUSTER_LIBRARY defined the cluster
-// one, whose entries below have the same names and launch the wide or the
-// cluster kernels.
-#if defined(GEN_CLUSTER_LIBRARY)
-#define GEN_LAYOUT_ONLY true, true
+// one, and general_frames_global.cu with GEN_GLOBAL_LIBRARY defined the
+// global one, whose entries below have the same names and launch the wide,
+// the cluster or the global kernels.
+#if defined(GEN_GLOBAL_LIBRARY)
+#define GEN_LAYOUT_ONLY true, true, true
+#elif defined(GEN_CLUSTER_LIBRARY)
+#define GEN_LAYOUT_ONLY true, true, false
 #elif defined(GEN_WIDE_LIBRARY)
-#define GEN_LAYOUT_ONLY true, false
+#define GEN_LAYOUT_ONLY true, false, false
 #else
-#define GEN_LAYOUT_ONLY false, false
+#define GEN_LAYOUT_ONLY false, false, false
 #endif
 // general_frames_sized.cu, general_frames_wide_sized.cu and
 // general_frames_cluster_sized.cu define GEN_SIZED_LIBRARY too: the same
-// entries launching the kSized instantiations, built beside the fixed ones
-#if defined(GEN_SIZED_LIBRARY)
+// entries launching the kSized instantiations, built beside the fixed ones;
+// the global library has only those
+#if defined(GEN_SIZED_LIBRARY) || defined(GEN_GLOBAL_LIBRARY)
 #define GEN_SIZED true
 #else
 #define GEN_SIZED false
 #endif
 #define GEN_LAYOUT GEN_LAYOUT_ONLY, GEN_SIZED
+#if defined(GEN_GLOBAL_LIBRARY)
+#define GEN_GLOBAL true
+#else
+#define GEN_GLOBAL false
+#endif
 
 // ptrs: the N_IN input tensors, the (B, V) int32 slot actions (null with
 // GenParams::raw, never read) and the N_OUT output tensors, as device
@@ -2111,25 +2274,32 @@ extern "C" int general_frames_regulated_connected_dynamical(
                                       B, stream, dyn);
 }
 
-#if defined(GEN_CLUSTER_LIBRARY)
-// How many clusters of `ranks` blocks of one cluster instantiation the
-// current card holds at once, each block asking the shared memory a launch
-// asks at L lanes, R route slots, S successor edges and K candidates a lane
-// (written to *smem): the question launch asks before a cluster launch,
-// with the same attributes set first (the shared-memory size over 48 KB,
-// the non-portable cluster size over GEN_PORTABLE_CLUSTER blocks).
+#if defined(GEN_CLUSTER_LIBRARY) || defined(GEN_GLOBAL_LIBRARY)
+// How many clusters of `ranks` blocks of `threads` threads (the cluster
+// library's 128; the global library's 128, 256 or 512) of one cluster or
+// global instantiation the current card holds at once, each block asking
+// the shared memory a launch asks at L lanes, R route slots, S successor
+// edges and K candidates a lane (written to *smem; 0 in the global
+// library): the question launch asks before a cluster launch, with the same
+// attributes set first (the shared-memory size over 48 KB, the
+// non-portable cluster size over GEN_PORTABLE_CLUSTER blocks).
 template <bool kRegulated, bool kConnected, typename... Dyn>
-static int cluster_fit(int linear, int ranks, int L, int R, int S, int K, int* smem,
-                       int* clusters) {
+static int cluster_fit(int linear, int ranks, int threads, int L, int R, int S, int K,
+                       int* smem, int* clusters) {
   constexpr bool kDynamical = sizeof...(Dyn) > 0;
   constexpr bool kSized = GEN_SIZED;
-  if (ranks < 1 || ranks > GEN_CLUSTER_BLOCKS || L < 1 || R < 1 || S < 0 ||
+  constexpr bool kGlobal = GEN_GLOBAL;
+  const bool threads_ok = kGlobal ? (threads == GEN_WIDE_BLOCK || threads == 2 * GEN_WIDE_BLOCK ||
+                                     threads == GEN_GLOBAL_THREADS)
+                                  : threads == GEN_WIDE_BLOCK;
+  if (ranks < 1 || ranks > GEN_CLUSTER_BLOCKS || !threads_ok || L < 1 || R < 1 || S < 0 ||
       (kConnected ? K < 1 : K != 0) || !smem || !clusters)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel =
-      kernel_of<kRegulated, kConnected, kDynamical, true, true, kSized, Dyn...>(linear != 0);
-  const size_t bytes =
-      launch_smem<kRegulated, kConnected, true, true, kSized>(L, ranks * GEN_WIDE_SLOTS, R, S, K);
+      kernel_of<kRegulated, kConnected, kDynamical, true, true, kGlobal, kSized, Dyn...>(
+          linear != 0);
+  const size_t bytes = launch_smem<kRegulated, kConnected, true, true, kGlobal, kSized>(
+      L, ranks * GEN_WIDE_SLOTS, R, S, K);
   *smem = static_cast<int>(bytes);
   // the shared-memory size only ever raised, so that no launch finds it
   // below what it set before
@@ -2143,7 +2313,7 @@ static int cluster_fit(int linear, int ranks, int L, int R, int S, int K, int* s
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(ranks, 1, bytes, 0, &attr);
+  const cudaLaunchConfig_t cfg = cluster_config(ranks, 1, bytes, 0, &attr, threads);
   return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
 }
 
@@ -2152,15 +2322,24 @@ static int cluster_fit(int linear, int ranks, int L, int R, int S, int K, int* s
 // linear says, at the scene's S and K, the fixed library's at the fixed
 // layout's); returns the CUDA error code.
 extern "C" int general_cluster_fit(int regulated, int connected, int dynamical, int linear,
-                                   int ranks, int L, int R, int S, int K, int* smem,
-                                   int* clusters) {
-  using Fit = int (*)(int, int, int, int, int, int, int*, int*);
+                                   int ranks, int threads, int L, int R, int S, int K,
+                                   int* smem, int* clusters) {
+  using Fit = int (*)(int, int, int, int, int, int, int, int*, int*);
   static const Fit fits[8] = {
       cluster_fit<false, false>, cluster_fit<false, false, DynFields>,
       cluster_fit<false, true>,  cluster_fit<false, true, DynFields>,
       cluster_fit<true, false>,  cluster_fit<true, false, DynFields>,
       cluster_fit<true, true>,   cluster_fit<true, true, DynFields>};
   return fits[4 * (regulated != 0) + 2 * (connected != 0) + (dynamical != 0)](
-      linear, ranks, L, R, S, K, smem, clusters);
+      linear, ranks, threads, L, R, S, K, smem, clusters);
+}
+#endif
+
+#if defined(GEN_GLOBAL_LIBRARY)
+// The words (floats) of one env's slab at a scene of V slots, L lanes and R
+// route slots, regulated or not (global_words): what the wrapper allocates
+// an env, and what ops/general_frames.py::global_words is held to.
+extern "C" long long general_global_words(int regulated, int L, int V, int R) {
+  return global_words(regulated != 0, L, V, R);
 }
 #endif

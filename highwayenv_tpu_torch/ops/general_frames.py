@@ -52,14 +52,18 @@ of its instantiation (``csrc/general_frames_wide.cu``, one env a block of
 one of more than ``WIDE_SLOTS`` its cluster twin
 (``csrc/general_frames_cluster.cu``, one env a thread-block cluster of up
 to 16 such blocks, up to ``MAX_SLOTS``: ``frames_general_cluster_kernel``
-...), picked by ``frames_kernel_for``; on CPU tensors all run
-``frames_general_plain``.
+...), and a scene that no layout with shared memory holds (over
+``MAX_SLOTS`` slots, or a block over ``SMEM_LIMIT``: ``launch_smem``) its
+global twin (``csrc/general_frames_global.cu``, the cluster design with an
+env's arrays in a slab of global memory, up to ``GLOBAL_SLOTS``:
+``frames_general_global_kernel`` ...), picked by ``frames_kernel_for``
+(``layout_for``); on CPU tensors all run ``frames_general_plain``.
 The kernels' tables are sized by the scene: lanes, lanes an edge, route
 slots, successor and predecessor edges, candidate lanes and target speeds
 (``lane_tables``, ``conn_tables``, ``speed_table``), and poly lanes read
-from the sample bank (``poly_tables``); what bounds a scene is the shared
-memory a block asks (``launch_smem``).  ``try_general`` is the scope gate:
-the envs outside it raise when made, naming the reason.
+from the sample bank (``poly_tables``); what bounds a scene is its slots
+(``GLOBAL_SLOTS``) and a grid of one target speed.  ``try_general`` is the
+scope gate: the envs outside it raise when made, naming the reason.
 """
 
 from __future__ import annotations
@@ -85,15 +89,20 @@ from highwayenv_tpu_torch.vehicle import behavior, controller, dynamics, kinemat
 from highwayenv_tpu_torch.vehicle.behavior import IDMParams
 from highwayenv_tpu_torch.vehicle.state import KIND_EGO, KIND_LINEAR, VehicleState
 
-#: the gate's limits: the cluster kernels hold an env's slots in a cluster
-#: of up to 16 blocks of 128 threads (over the portable cluster size of 8
-#: through the non-portable size attribute; ``GeneralFramesKernel.
-#: cluster_fit``, ``tools/cluster_fit.py``), the wide ones in one block (at
-#: most ``WIDE_SLOTS``), the narrow ones in a warp (at most
-#: ``NARROW_SLOTS``).  Every table is sized by the scene (lanes, lanes an
-#: edge, route slots, successor and predecessor edges, target speeds); the
-#: one limit besides the slots is the shared memory a block asks
-#: (``launch_smem``), at most ``SMEM_LIMIT``
+#: the layouts' slots: the global kernels hold an env's slots in a cluster of
+#: up to 16 blocks of up to ``GLOBAL_THREADS`` threads, one a slot, their
+#: arrays in global memory (at most ``GLOBAL_SLOTS``: the card holds such a
+#: cluster, ``GeneralFramesKernel.cluster_fit``, ``tools/cluster_fit.py``);
+#: the cluster kernels in a cluster of up to 16 blocks of 128 threads (over
+#: the portable cluster size of 8 through the non-portable size attribute),
+#: at most ``MAX_SLOTS``; the wide ones in one block (at most
+#: ``WIDE_SLOTS``), the narrow ones in a warp (at most ``NARROW_SLOTS``).
+#: Every table is sized by the scene (lanes, lanes an edge, route slots,
+#: successor and predecessor edges, target speeds); a scene whose block
+#: would ask more shared memory than ``SMEM_LIMIT`` (``launch_smem``) takes
+#: the global kernels, which ask none
+GLOBAL_SLOTS = 8192
+GLOBAL_THREADS = 512
 MAX_SLOTS = 2048
 WIDE_SLOTS = 128
 NARROW_SLOTS = 32
@@ -143,6 +152,9 @@ class GeneralSpec(NamedTuple):
     #: the reference's decision order (``sequential_decisions``): plain
     #: torch frames only, on any network, no kernel
     sequential: bool = False
+    #: the route slots a slot holds (the env's ``route_slots``), which the
+    #: layout of a launch counts (``frames_kernel_for``)
+    route_slots: int = 1
 
 
 def _words_env(L: int, V: int, R: int, regulated: bool, W: int) -> int:
@@ -166,9 +178,10 @@ def launch_smem(V: int, L: int, R: int, S: int, K: int, regulated: bool,
     """The shared memory, in bytes, that a block of the launch asks at a
     scene of V slots, L lanes, R route slots, S successor columns and K
     candidate columns a lane (0 without the connected-lane search), in the
-    fixed or the ``sized`` layout, in the layout ``frames_kernel_for`` picks
-    for V: the .cu's ``launch_smem`` (``general_smem_bytes`` of each
-    library, which chip_smoke.py holds this copy to)."""
+    fixed or the ``sized`` layout, in the layout of shared memory that V
+    picks (narrow, wide or cluster; the global layout asks none): the .cu's
+    ``launch_smem`` (``general_smem_bytes`` of each library, which
+    chip_smoke.py holds this copy to)."""
     if V > WIDE_SLOTS:  # a cluster's block: 128 slots of its own, no pair table
         return 4 * (_words_block(L, 0, S, K, sized)
                     + _words_env(L, WIDE_SLOTS, R, regulated, 4))
@@ -178,6 +191,41 @@ def launch_smem(V: int, L: int, R: int, S: int, K: int, regulated: bool,
     return 4 * (_words_block(L, V, S, K, sized) + envs * _words_env(L, V, R, regulated, 1))
 
 
+def global_threads(V: int) -> int:
+    """Threads a block of the global launch at V slots: the fewest of 128,
+    256 and ``GLOBAL_THREADS`` whose 16 blocks hold V (``global_threads`` of
+    the .cu)."""
+    threads = WIDE_SLOTS
+    while threads < GLOBAL_THREADS and -(-V // threads) > 16:
+        threads *= 2
+    return threads
+
+
+def global_words(L: int, V: int, R: int, regulated: bool) -> int:
+    """The float32 words of one env's slab in the global layout at a scene
+    of V slots, L lanes and R route slots: a chunk of 128 slots laid out as
+    a cluster block's shared memory (``_words_env`` at 128 slots, 4 mask
+    words) for each 128 threads of the launch's blocks (``global_words`` of
+    the .cu, ``general_global_words`` of the library, which chip_smoke.py
+    holds this copy to)."""
+    G = global_threads(V)
+    return -(-V // G) * (G // WIDE_SLOTS) * _words_env(L, WIDE_SLOTS, R, regulated, 4)
+
+
+def layout_for(V: int, L: int, R: int, S: int, n_speeds: int | None,
+               K: int | None = None, regulated: bool = False, poly: bool = False) -> str:
+    """The layout of the frame kernels a scene launches ("" narrow, "wide",
+    "cluster" or "global"; the arguments as ``kernel_limits`` takes them):
+    the one of shared memory its slots pick (up to ``NARROW_SLOTS``,
+    ``WIDE_SLOTS``, ``MAX_SLOTS``) where a block of it asks at most
+    ``SMEM_LIMIT`` bytes (``launch_smem``, the tables as ``launch_tables``
+    lays them out), else the global one."""
+    S_t, K_t, sized = launch_tables(S, K, poly, R, n_speeds)
+    if V <= MAX_SLOTS and launch_smem(V, L, R, S_t, K_t, regulated, sized) <= SMEM_LIMIT:
+        return "cluster" if V > WIDE_SLOTS else "wide" if V > NARROW_SLOTS else ""
+    return "global"
+
+
 def kernel_limits(V: int, L: int, R: int, S: int, n_speeds: int | None,
                   K: int | None = None, regulated: bool = False,
                   poly: bool = False) -> list[str]:
@@ -185,19 +233,16 @@ def kernel_limits(V: int, L: int, R: int, S: int, n_speeds: int | None,
     slots, S successor edges a lane, ``n_speeds`` target speeds (None under
     raw controls) and, under the connected-lane search, K candidate lanes a
     lane (None without it), on a regulated road or not, with poly lanes or
-    not, breaks: the slots of the largest layout, the shared memory a block
-    of the launch asks (its tables as ``launch_tables`` lays them out), and
-    a grid of one speed (``speed_to_index`` divides by the grid's span).
-    Lanes, lanes an edge, route slots, successor and predecessor edges and
-    target speeds are otherwise tables of the scene's size.  A dynamical
-    action is no limit: every instantiation has its dynamical twin, the
-    connected ones too."""
-    S_t, K_t, sized = launch_tables(S, K, poly, R, n_speeds)
-    smem = launch_smem(V, L, R, S_t, K_t, regulated, sized)
+    not, breaks: the slots of the global layout and a grid of one speed
+    (``speed_to_index`` divides by the grid's span).  Lanes, lanes an edge,
+    route slots, successor and predecessor edges and target speeds are
+    tables of the scene's size, and a scene whose block of shared memory
+    would be too large takes the global layout (``layout_for``).  A
+    dynamical action is no limit: every instantiation has its dynamical
+    twin, the connected ones too."""
     return [
         what for what, bad in (
-            (f"{V} slots > {MAX_SLOTS}", V > MAX_SLOTS),
-            (f"{smem} bytes of shared memory a block > {SMEM_LIMIT}", smem > SMEM_LIMIT),
+            (f"{V} slots > {GLOBAL_SLOTS}", V > GLOBAL_SLOTS),
             (f"{n_speeds} target speeds < 2 (speed_to_index divides by the grid's span)",
              n_speeds is not None and n_speeds < 2),
         ) if bad
@@ -244,7 +289,7 @@ def try_general(env) -> GeneralSpec | None:
         max_edge_lanes=int(env.max_edge_lanes), action_type=env.action_type,
         period=env._regulation_period if env.regulated else None,
         connected=_connected(env), dynamical=dynamical(env.action_type),
-        sequential=sequential(env),
+        sequential=sequential(env), route_slots=int(env.route_slots),
     )
 
 
@@ -528,19 +573,20 @@ def _resolve(fields, R: int):
 
 
 def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int,
-                  raw: bool = False, linear: bool = True) -> GenParams:
+                  raw: bool = False, linear: bool = True, sized: bool = False) -> GenParams:
     """The kernel's parameter block without its device pointers (the
     wrapper sets ``speed_grid`` and ``poly`` to its tables in the kSized
     layout; the fixed one carries the speed grid in ``target_speeds``).  Raw
     controls take no target speeds: ``n_speeds = 0`` and ``raw = 1``;
-    ``linear`` picks the Linear rows' instantiation.  A scene outside the
-    kernels' limits raises: ``make`` refuses its env
+    ``linear`` picks the Linear rows' instantiation; ``sized``: the kSized
+    layout whatever the scene (the global library's, ``scene_tables``).  A
+    scene outside the kernels' limits raises: ``make`` refuses its env
     (``general_unported``)."""
     at, p, geo = spec.action_type, spec.p, spec.geo
     ts = np.zeros(0, np.float32) if raw else np.asarray(at.target_speeds, np.float32)
     # the grid as controller.speed_to_index takes it
     span = None if raw else np.asarray(at.target_speeds)
-    S, K, sized = scene_tables(spec, R, raw)
+    S, K, sized = scene_tables(spec, R, raw, sized)
     bad = kernel_limits(V, geo.num_lanes, R, geo.succ_edge_base.shape[1],
                         None if raw else len(ts),
                         geo.conn_lanes.shape[1] if spec.connected else None,
@@ -573,15 +619,30 @@ def kernel_params(spec: GeneralSpec, V: int, R: int, frames: int,
     return out
 
 
-def scene_tables(spec: GeneralSpec, R: int, raw: bool) -> tuple[int, int, bool]:
+def scene_tables(spec: GeneralSpec, R: int, raw: bool,
+                 sized: bool = False) -> tuple[int, int, bool]:
     """``launch_tables`` of ``spec``'s scene at R route slots, under raw
     controls or meta-actions: (successor columns, candidate columns,
-    sized)."""
+    sized); with ``sized`` the scene's own columns in the kSized layout
+    whatever they are (the global library has only that layout)."""
     geo = spec.geo
-    return launch_tables(geo.succ_edge_base.shape[1],
-                         geo.conn_lanes.shape[1] if spec.connected else None,
-                         geo.poly is not None, R,
+    S = geo.succ_edge_base.shape[1]
+    K = geo.conn_lanes.shape[1] if spec.connected else None
+    if sized:
+        return S, K or 0, True
+    return launch_tables(S, K, geo.poly is not None, R,
                          None if raw else len(spec.action_type.target_speeds))
+
+
+def lane_order(geo: LaneGeometry, device) -> torch.Tensor:
+    """The (L,) int32 lanes grouped by kind (circular, sine, straight, poly,
+    each in lane order), the order the projection takes them in: what the
+    shared layouts' thread 0 builds in shared memory, built once here for
+    the global layout."""
+    group = {lane_ops.CIRCULAR: 0, lane_ops.SINE: 1, lane_ops.POLY: 3}
+    kinds = geo.kind.cpu().tolist()
+    order = sorted(range(len(kinds)), key=lambda l: group.get(kinds[l], 2))
+    return torch.tensor(order, dtype=torch.int32, device=device)
 
 
 def speed_table(spec: GeneralSpec, raw: bool, device) -> tuple[torch.Tensor, ...]:
@@ -614,7 +675,15 @@ class GeneralFramesKernel(KernelWrapper):
     ``cluster=True`` that of the cluster library
     (``csrc/general_frames_cluster.cu``): scenes of up to ``MAX_SLOTS``
     slots, one env a cluster of ceil(V / 128) blocks, a launch that no
-    cluster of that size fits refused with its CUDA error; the others take
+    cluster of that size fits refused with its CUDA error; with
+    ``glob=True`` that of the global library
+    (``csrc/general_frames_global.cu``): scenes of up to ``GLOBAL_SLOTS``
+    slots and any lanes, one env a cluster of ceil(V / G) blocks of G =
+    ``global_threads(V)`` threads, its arrays in a slab of
+    ``global_words`` floats an env that each call takes from torch's
+    allocator as it takes the outputs (a captured launch from the graph's
+    pool), the lanes' order by kind a table of the wrapper's
+    (``lane_order``), the kSized instantiations alone; the others take
     at most ``NARROW_SLOTS``.
 
     Called on CUDA tensors it launches its kernel once for all frames of
@@ -642,15 +711,18 @@ class GeneralFramesKernel(KernelWrapper):
     params_type = GenParams
 
     def __init__(self, regulated: bool = False, connected: bool = False,
-                 dynamical: bool = False, wide: bool = False, cluster: bool = False):
+                 dynamical: bool = False, wide: bool = False, cluster: bool = False,
+                 glob: bool = False):
         super().__init__()
-        if wide and cluster:
-            raise ValueError("a wrapper launches the wide or the cluster library, not both")
+        if wide + cluster + glob > 1:
+            raise ValueError("a wrapper launches the wide, the cluster or the global library, "
+                             "one of them")
         self.regulated, self.connected, self.dynamical = regulated, connected, dynamical
-        self.wide, self.cluster = wide, cluster
-        self.source = ("general_frames_cluster" if cluster
+        self.wide, self.cluster, self.glob = wide, cluster, glob
+        self.source = ("general_frames_global" if glob else "general_frames_cluster" if cluster
                        else "general_frames_wide" if wide else "general_frames")
-        self.max_slots = MAX_SLOTS if cluster else WIDE_SLOTS if wide else NARROW_SLOTS
+        self.max_slots = (GLOBAL_SLOTS if glob else MAX_SLOTS if cluster
+                          else WIDE_SLOTS if wide else NARROW_SLOTS)
         self.entry = ("general_frames" + "_regulated" * regulated
                       + "_connected" * connected + "_dynamical" * dynamical)
         self._tables: dict = {}
@@ -659,8 +731,8 @@ class GeneralFramesKernel(KernelWrapper):
     def _library(self, sized: bool = False):
         """The fixed layout's library (``source``), or with ``sized`` the
         ``kSized`` one (``source`` + "_sized"), each built and bound at its
-        first use."""
-        if not sized:
+        first use; the global library, whatever ``sized`` says."""
+        if not sized or self.glob:
             return super()._library()
         if self._sized_lib is None:
             from highwayenv_tpu_torch.ops import _build
@@ -689,38 +761,58 @@ class GeneralFramesKernel(KernelWrapper):
 
     def cluster_fit(self, ranks: int, L: int, R: int, S: int = FIXED_SUCC,
                     K: int | None = None, linear: bool = True,
-                    device=None) -> tuple[int, int]:
-        """(clusters, bytes): how many clusters of ``ranks`` blocks of this
-        cluster instantiation the card can hold at once
+                    device=None, threads: int = WIDE_SLOTS) -> tuple[int, int]:
+        """(clusters, bytes): how many clusters of ``ranks`` blocks of
+        ``threads`` threads (128 in the cluster library; 128, 256 or
+        ``GLOBAL_THREADS`` in the global one) of this cluster or global
+        instantiation the card can hold at once
         (``cudaOccupancyMaxActiveClusters``, the launch's own question; 0:
         none fits), each block asking the shared memory a launch at ``L``
         lanes, ``R`` route slots, ``S`` successor edges and ``K`` candidates
         a lane (connected; default 1 + 2 S) asks (the tables as
         ``launch_tables`` lays them out, the ``kSized`` instantiation where
-        it does), which the library computes as the launch does and returns
-        beside.  Raises on a CUDA error."""
-        if not self.cluster:
-            raise ValueError("cluster_fit asks the cluster library's kernels")
+        it does; none in the global library), which the library computes as
+        the launch does and returns beside.  Raises on a CUDA error."""
+        if not (self.cluster or self.glob):
+            raise ValueError("cluster_fit asks the cluster library's kernels, or the global "
+                             "library's")
         most = -(-MAX_SLOTS // WIDE_SLOTS)
         if not 1 <= ranks <= most:
             raise ValueError(f"cluster_fit: {ranks} cluster blocks outside 1 to {most}")
+        allowed = (WIDE_SLOTS, 2 * WIDE_SLOTS, GLOBAL_THREADS) if self.glob else (WIDE_SLOTS,)
+        if threads not in allowed:
+            raise ValueError(f"cluster_fit: blocks of {threads} threads, not of {allowed}")
         for n, what in ((L, "lanes"), (R, "route slots")):
             if n < 1:
                 raise ValueError(f"cluster_fit: {n} {what} < 1")
         S, K, sized = launch_tables(S, (1 + 2 * S if K is None else K) if self.connected
                                     else None, False, R)
+        if self.glob:
+            sized = True
         lib = self._library(sized)
         fn = lib.general_cluster_fit
-        fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.argtypes = [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)] * 2
         fn.restype = ctypes.c_int
         smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
             err = fn(int(self.regulated), int(self.connected), int(self.dynamical),
-                     int(linear), ranks, L, R, S, K, ctypes.byref(smem), ctypes.byref(clusters))
+                     int(linear), ranks, threads, L, R, S, K, ctypes.byref(smem),
+                     ctypes.byref(clusters))
         if err != 0:
-            raise RuntimeError(f"general_cluster_fit({ranks} blocks, L={L}, R={R}): "
-                               f"CUDA error {err}")
+            raise RuntimeError(f"general_cluster_fit({ranks} blocks of {threads} threads, "
+                               f"L={L}, R={R}): CUDA error {err}")
         return clusters.value, smem.value
+
+    def global_words(self, L: int, V: int, R: int) -> int:
+        """The words of one env's slab that the global library's launch
+        takes at the scene (``general_global_words``), for a check of
+        ``global_words``."""
+        if not self.glob:
+            raise ValueError("global_words asks the global library")
+        fn = self._library().general_global_words
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_longlong
+        return int(fn(int(self.regulated), L, V, R))
 
     def smem_bytes(self, L: int, V: int, R: int, S: int, K: int = 0,
                    sized: bool = False) -> int:
@@ -745,20 +837,23 @@ class GeneralFramesKernel(KernelWrapper):
             self._tables[key] = (spec.geo, spec.action_type, (
                 lane_tables(spec.geo, dev, S, sized) + conn,
                 poly_tables(spec.geo, dev) if sized else (),
-                speed_table(spec, raw, dev) if sized else ()))
+                speed_table(spec, raw, dev) if sized else (),
+                lane_order(spec.geo, dev) if self.glob else None))
         return self._tables[key][2]
 
     def _params(self, spec: GeneralSpec, V: int, R: int, frames: int, raw: bool,
                 linear: bool, dev):
-        """(table pointers, parameter block) of a launch on ``dev``."""
-        lanes, poly, speeds = self._device_tables(spec, raw, dev, *scene_tables(spec, R, raw))
-        params = kernel_params(spec, V, R, frames, raw, linear)
+        """(table pointers, parameter block, the global layout's lanes'
+        order or None) of a launch on ``dev``."""
+        lanes, poly, speeds, order = self._device_tables(
+            spec, raw, dev, *scene_tables(spec, R, raw, self.glob))
+        params = kernel_params(spec, V, R, frames, raw, linear, self.glob)
         if speeds:
             params.speed_grid = speeds[0].data_ptr()
         if poly:
             for name, t in zip(("pos", "normal", "n", "cp", "cp_n"), poly):
                 setattr(params.poly, name, t.data_ptr())
-        return [t.data_ptr() for t in lanes], params
+        return [t.data_ptr() for t in lanes], params, order
 
     def __call__(self, veh: VehicleState, spec: GeneralSpec,
                  slot_actions: torch.Tensor | None, frames: int,
@@ -790,9 +885,15 @@ class GeneralFramesKernel(KernelWrapper):
             action_ptr = slot_actions.data_ptr()
         ins = checked_fields(veh, _resolve(self.in_fields, R), B, V, dev)
         outs = empty_fields(_resolve(OUT_FIELDS, R), B, V, dev)
-        tables, params = self._params(spec, V, R, frames, raw, linear, dev)
-        ptrs = (ctypes.c_void_p * (len(ins) + 1 + len(outs)))(
-            *[t.data_ptr() for t in ins], action_ptr, *[t.data_ptr() for t in outs]
+        tables, params, order = self._params(spec, V, R, frames, raw, linear, dev)
+        # the global layout's slab and lanes' order, past the outputs
+        extra = []
+        if self.glob:
+            slab = torch.empty(B * global_words(spec.geo.num_lanes, V, R, self.regulated),
+                               dtype=torch.float32, device=dev)
+            extra = [slab.data_ptr(), order.data_ptr()]
+        ptrs = (ctypes.c_void_p * (len(ins) + 1 + len(outs) + len(extra)))(
+            *[t.data_ptr() for t in ins], action_ptr, *[t.data_ptr() for t in outs], *extra
         )
         args = [ptrs]
         if self.regulated:
@@ -811,7 +912,7 @@ class GeneralFramesKernel(KernelWrapper):
                 *[t.data_ptr() for t in dyn_ins + dyn_outs],
                 *dynamics.kernel_constants(spec.dt),
             ))]
-        lib = self._library(scene_tables(spec, R, raw)[2])
+        lib = self._library(scene_tables(spec, R, raw, self.glob)[2])
         with torch.cuda.device(dev):
             err = getattr(lib, self.entry)(
                 *args, *tables, ctypes.byref(params),
@@ -828,8 +929,9 @@ class GeneralFramesKernel(KernelWrapper):
 #: regulated roads, their connected instantiations for the envs with the
 #: connected-lane search, their dynamical ones for a dynamical action and
 #: their connected dynamical ones for both, the wide twin of each for
-#: scenes of more than NARROW_SLOTS slots and the cluster twin for more than
-#: WIDE_SLOTS, each counting its own launches
+#: scenes of more than NARROW_SLOTS slots, the cluster twin for more than
+#: WIDE_SLOTS and the global twin for the scenes no layout of shared memory
+#: holds (``layout_for``), each counting its own launches
 frames_general_kernel = GeneralFramesKernel()
 frames_regulated_kernel = GeneralFramesKernel(regulated=True)
 frames_general_connected_kernel = GeneralFramesKernel(connected=True)
@@ -863,6 +965,18 @@ frames_general_connected_dynamical_cluster_kernel = GeneralFramesKernel(
     connected=True, dynamical=True, cluster=True)
 frames_regulated_connected_dynamical_cluster_kernel = GeneralFramesKernel(
     regulated=True, connected=True, dynamical=True, cluster=True)
+frames_general_global_kernel = GeneralFramesKernel(glob=True)
+frames_regulated_global_kernel = GeneralFramesKernel(regulated=True, glob=True)
+frames_general_connected_global_kernel = GeneralFramesKernel(connected=True, glob=True)
+frames_regulated_connected_global_kernel = GeneralFramesKernel(regulated=True, connected=True,
+                                                               glob=True)
+frames_general_dynamical_global_kernel = GeneralFramesKernel(dynamical=True, glob=True)
+frames_regulated_dynamical_global_kernel = GeneralFramesKernel(regulated=True, dynamical=True,
+                                                               glob=True)
+frames_general_connected_dynamical_global_kernel = GeneralFramesKernel(
+    connected=True, dynamical=True, glob=True)
+frames_regulated_connected_dynamical_global_kernel = GeneralFramesKernel(
+    regulated=True, connected=True, dynamical=True, glob=True)
 
 
 def store_raw_controls(env, veh: VehicleState, slot_actions: torch.Tensor):
@@ -885,8 +999,9 @@ def simulate_general(env, veh: VehicleState, slot_actions: torch.Tensor,
     (a regulated road) through ``frames_regulated_kernel``; under the
     connected-lane search through their connected instantiations, under a
     dynamical action through their dynamical ones, over ``NARROW_SLOTS``
-    slots through the wide twins and over ``WIDE_SLOTS`` through the
-    cluster twins (``frames_kernel_for``).
+    slots through the wide twins, over ``WIDE_SLOTS`` through the cluster
+    twins and past the layouts of shared memory through the global twins
+    (``frames_kernel_for``).
     Raw controls are stored first (``store_raw_controls``) and the launch
     reads none.  ``linear`` (default ``env.linear_rows``): Linear rows
     possible."""
@@ -896,18 +1011,30 @@ def simulate_general(env, veh: VehicleState, slot_actions: torch.Tensor,
     return kernel(veh, env._general, slot_actions, frames, steps0, raw, linear)
 
 
+def scene_layout(spec: GeneralSpec, regulated: bool, slots: int) -> str:
+    """``layout_for`` of ``spec``'s scene at ``slots`` slots (its lanes,
+    route slots, successor edges, candidates under the connected-lane
+    search, target speeds or raw controls and poly lanes), on a regulated
+    road or not."""
+    geo, at = spec.geo, spec.action_type
+    return layout_for(slots, geo.num_lanes, spec.route_slots, geo.succ_edge_base.shape[1],
+                      None if at.stores_raw_controls else len(at.target_speeds),
+                      geo.conn_lanes.shape[1] if spec.connected else None, regulated,
+                      geo.poly is not None)
+
+
 def frames_kernel_for(spec: GeneralSpec, regulated: bool,
                       slots: int = 1) -> GeneralFramesKernel:
     """The wrapper instance of ``spec``'s instantiation for a scene of
     ``slots`` slots: K4, or K5 on a regulated road, connected, dynamical or
-    both as the spec is, its wide twin over ``NARROW_SLOTS`` slots and its
-    cluster twin over ``WIDE_SLOTS``.  Looked up by name when called, so
-    that a stand-in put in the module's place is taken."""
-    layout = ("_cluster" if slots > WIDE_SLOTS
-              else "_wide" if slots > NARROW_SLOTS else "")
+    both as the spec is, its wide twin over ``NARROW_SLOTS`` slots, its
+    cluster twin over ``WIDE_SLOTS`` and its global twin where no layout of
+    shared memory holds the scene (``scene_layout``).  Looked up by name
+    when called, so that a stand-in put in the module's place is taken."""
+    layout = scene_layout(spec, regulated, slots)
     law = "_connected" * spec.connected + "_dynamical" * spec.dynamical
     road = "regulated" if regulated else "general"
-    return globals()[f"frames_{road}{law}{layout}_kernel"]
+    return globals()[f"frames_{road}{law}{'_' * bool(layout)}{layout}_kernel"]
 
 
 def simulate_general_reference(env, veh: VehicleState, slot_actions: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Which thread-block clusters of the cluster K4 / K5 a CUDA card holds: the occupancy probe.
+"""Which thread-block clusters of the cluster and global K4 / K5 a CUDA card holds: the occupancy probe.
 
 Usage (from the repo root, on a machine with a CUDA card):
 
@@ -21,7 +21,13 @@ threads it holds at once:
     lanes up to that largest block, the most lanes (and the block's bytes)
     at which each cluster size still fits: where it is the largest block's,
     every scene ``make`` takes fits, and ``make`` needs no rule for the
-    cluster's size.
+    cluster's size;
+  - then, through ``csrc/general_frames_global.cu``'s ``general_cluster_fit``,
+    how many clusters of 1, 8 and 16 blocks of 128, 256 and 512 threads each
+    of the 8 global instantiations (its kSized ones, at their ptxas
+    registers; no shared memory) the card holds, and so the largest slots a
+    global launch maps, 16 blocks of the most threads that fit: what
+    ``general_frames.GLOBAL_SLOTS`` must not exceed.
 
 It prints the card's name and power limit first and last.
 """
@@ -110,8 +116,24 @@ def main() -> int:
         counts = {f"L={L} ({scan[L][1]} bytes)": scan[L][0] for L in (1, 16, 32, 64, largest)}
         print(f"    {r} blocks: fits up to L={most}"
               + (f" ({scan[most][1]} bytes a block)" if most else "") + f"; clusters at {counts}")
+    # the global library: no shared memory, so lanes and route slots change
+    # nothing; the threads a block and the registers decide
+    print("global K4 / K5: clusters a card holds at once, by cluster blocks 1, 8, 16 and "
+          "threads a block")
+    most = gf.GLOBAL_THREADS
+    for reg, conn, dyn in itertools.product((False, True), repeat=3):
+        kernel = getattr(gf, f"frames_{'regulated' if reg else 'general'}"
+                             f"{'_connected' * conn}{'_dynamical' * dyn}_global_kernel")
+        fits = {t: [kernel.cluster_fit(r, 20, 3, threads=t)[0] for r in (1, 8, 16)]
+                for t in (128, 256, gf.GLOBAL_THREADS)}
+        print(f"  {kernel.entry}: {fits}")
+        fit = max(t for t, n in fits.items() if n[-1] > 0) if any(
+            n[-1] > 0 for n in fits.values()) else 0
+        most = min(most, fit)
+    print(f"  slots a global launch maps on this card: 16 blocks of {most} threads = {16 * most} "
+          f"(general_frames.GLOBAL_SLOTS = {gf.GLOBAL_SLOTS})")
     print(card_line())
-    return 0
+    return 0 if 16 * most >= gf.GLOBAL_SLOTS else 1
 
 
 if __name__ == "__main__":

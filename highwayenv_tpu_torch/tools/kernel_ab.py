@@ -5,12 +5,12 @@ Usage (from the repo root, on a machine with a CUDA card):
     mkdir -p build/baseline
     git archive HEAD highwayenv_tpu_torch/csrc | tar -x -C build/baseline
     python3 highwayenv_tpu_torch/tools/kernel_ab.py [--baseline DIR] [--clocks]
-        [--kernels straight general wide cluster] [--vehicles N ...]
+        [--kernels straight general wide cluster global] [--vehicles N ...]
 
 ``--baseline`` (default ``build/baseline/highwayenv_tpu_torch/csrc``) is a
 second ``csrc/`` directory, for example a commit's unpacked as above; when it
 is missing only the current kernels run.  ``--kernels`` picks the families
-(default all; ``--clocks`` stamps the straight and general ones):
+(default all; ``--clocks`` stamps the straight, general and global ones):
 
   straight: K1 (``straight_frames``) and K3 (``straight_frames_sorted``) at
     highway-v0 (V=51, 15 frames), highway-fast-v0 (V=21, 5 frames) and
@@ -56,6 +56,18 @@ is missing only the current kernels run.  ``--kernels`` picks the families
     ContinuousAction (V=151, K4 dynamical), B=512 (the 8-steps-in scenes
     step the plain frames, whose (B, 207, 207, 11) right-of-way tensors run
     out of the card's memory at 4096 rows).
+  global: the global K4 / K5 (``general_frames_global``, one env a cluster
+    of blocks with its arrays in global memory) at the cluster family's
+    scenes, held bit for bit to the cluster K4 / K5 of the current tree
+    (and to the baseline's global library where it has one) and timed in
+    turns against it (what the arrays in global memory cost where shared
+    memory holds them), then alone (or against the baseline's) at the
+    scenes only it takes: exit-v0 with 100 lanes and 100 vehicles (L=302,
+    V=101), exit-v0 with 2100 vehicles (V=2101, blocks of 256 threads) and
+    intersection-v0 at policy_frequency 15 with duration 140 (V=2112),
+    B=512 (8 at V > 2048).  With ``--clocks`` its stamps are those of
+    ``general_frames.cu``'s frame loop, which the global source includes,
+    thread 0 of every block.
 
 Each scene runs the instantiation its env path launches: ``linear`` on
 for the Linear scenes, off (the IDM code alone) for the others.  A tree
@@ -104,6 +116,7 @@ FAMILIES = {
     "general": ("general_frames",),
     "wide": ("general_frames_wide",),
     "cluster": ("general_frames_cluster",),
+    "global": ("general_frames_global", "general_frames_cluster"),
 }
 DYNAMICAL = {"action": {"type": "ContinuousAction", "dynamical": True}}
 #: the wide and cluster families' scenes, each (env id, config, kernel)
@@ -120,8 +133,15 @@ LAYOUT_SCENES = {
                 ("intersection-v1", {"policy_frequency": 15}, "K5 dynamical"),
                 ("racetrack-v0", {"other_vehicles": 150, **DYNAMICAL}, "K4 dynamical")),
 }
-#: the rows of each family's scenes
-LAYOUT_ROWS = {"wide": 4096, "cluster": 512}
+#: the global family: the cluster family's scenes, then those only it takes
+GLOBAL_ONLY = (("exit-v0", {"lanes_count": 100, "vehicles_count": 100}, "K4"),
+               ("exit-v0", {"vehicles_count": 2100}, "K4"),
+               ("intersection-v0", {"policy_frequency": 15, "duration": 140}, "K5"))
+LAYOUT_SCENES["global"] = LAYOUT_SCENES["cluster"] + GLOBAL_ONLY
+#: the rows of each family's scenes (the global family's past 2048 slots:
+#: GLOBAL_WIDE_ROWS)
+LAYOUT_ROWS = {"wide": 4096, "cluster": 512, "global": 512}
+GLOBAL_WIDE_ROWS = 8
 CONFIGS = (("highway-v0", None), ("highway-fast-v0", None))
 NPC = "highway_env.vehicle.behavior."
 LINEAR_CONFIGS = (("highway-v0", {"other_vehicles_type": NPC + "LinearVehicle"}),)
@@ -279,10 +299,10 @@ def in_turns(fns: dict, rounds: int) -> str:
         times[label].append(queued_ms(fns[label], REPS))
     line = [f"{label} {sum(t) / len(t):.4f} ms ({min(t):.4f}-{max(t):.4f}, "
             f"{len(t)} turns)" for label, t in times.items()]
-    if len(labels) == 2:
-        ratio = (sum(times["current"]) / len(times["current"])) / (
-            sum(times["baseline"]) / len(times["baseline"]))
-        line.append(f"current / baseline {ratio:.3f}")
+    if len(labels) == 2:  # the second over the first (current / baseline)
+        a, b = labels
+        ratio = (sum(times[b]) / len(times[b])) / (sum(times[a]) / len(times[a]))
+        line.append(f"{b} / {a} {ratio:.3f}")
     return "; ".join(line)
 
 
@@ -737,32 +757,51 @@ def run_general(args, paths, clock_paths, phases, params, dynamical) -> None:
                          lambda w=wrapper: w(*call, **kw))
 
 
-def run_layout(args, paths, params, layout: str) -> None:
-    """The ``layout`` family ("wide" or "cluster"): its K4 / K5 at
-    LAYOUT_SCENES on both trees, equal bit for bit, then timed in turns."""
+def layout_wrappers(path, params: bool, layout: str) -> dict:
+    """The six wrappers (K4 / K5, v0, connected, dynamical) of the
+    ``layout`` library at ``path`` ("wide", "cluster" or "global"), keyed
+    "K4", "K5 connected", ..."""
+    from highwayenv_tpu_torch.ops import general_frames as gf
+
+    flag = {"global": "glob"}.get(layout, layout)
+    return {f"{road}{law}": load(path, functools.partial(
+        gf.GeneralFramesKernel, regulated=road == "K5", connected=law == " connected",
+        dynamical=law == " dynamical", **{flag: True}), params)
+        for road in ("K4", "K5") for law in ("", " connected", " dynamical")}
+
+
+def run_layout(args, paths, params, layout: str, clock_paths=None, phases=None) -> None:
+    """The ``layout`` family ("wide", "cluster" or "global"): its K4 / K5
+    at LAYOUT_SCENES on both trees (the global family: the trees' global
+    libraries and the current cluster library, where the scene fits it),
+    equal bit for bit, then timed in turns; the global family's cycles per
+    frame phase with ``--clocks``."""
     import torch
 
     import highwayenv_tpu_torch as ht
     from highwayenv_tpu_torch.ops import general_frames as gf
 
-    kinds = {f"{road}{law}": functools.partial(gf.GeneralFramesKernel, regulated=road == "K5",
-                                               connected=law == " connected",
-                                               dynamical=law == " dynamical", **{layout: True})
-             for road in ("K4", "K5") for law in ("", " connected", " dynamical")}
     library = f"general_frames_{layout}"
-    wrappers = {label: {k: load(p[library], cls, params[label])[0]
-                        for k, cls in kinds.items()}
-                for label, p in paths.items()}
+    bound = {label: layout_wrappers(p[library], params[label], layout)
+             for label, p in paths.items() if library in p}
+    if layout == "global":  # the current tree's cluster library, the yardstick
+        bound = {"cluster": layout_wrappers(paths["current"]["general_frames_cluster"],
+                                            params["current"], "cluster"), **bound}
+    wrappers = {label: {k: w for k, (w, _) in ws.items()} for label, ws in bound.items()}
     names = [n for n, _, _ in gf.OUT_FIELDS]
     reg_names = names + [n for n, _, _ in gf.REG_FIELDS]
     dyn_names = [n for n, _, _ in gf.DYN_FIELDS]
     timed = {}
-    rows = LAYOUT_ROWS[layout]
     for env_id, config, k in LAYOUT_SCENES[layout]:
         env = ht.make(env_id, config)
         spec, frames = env._general, env.frames_per_step
+        rows = GLOBAL_WIDE_ROWS if env.num_slots > gf.MAX_SLOTS else LAYOUT_ROWS[layout]
         gen = env.generator(SEED)
         _, states = env.reset(rows, gen)
+        # the cluster yardstick only where a cluster's blocks hold the scene
+        labels = [label for label in wrappers
+                  if label != "cluster"
+                  or gf.scene_layout(spec, env.regulated, env.num_slots) == "cluster"]
         print(f"== {env_id} {config}: {layout} {k}, V={env.num_slots}, L={env.geo.num_lanes}, "
               f"{frames} frames, B={rows}")
         kw = {"linear": False}
@@ -785,7 +824,7 @@ def run_layout(args, paths, params, layout: str) -> None:
                   + (dyn_names if spec.dynamical else []))
         for name, (veh, steps0, sa, n_frames) in scenes.items():
             call = (veh, spec, sa, n_frames) + ((steps0,) if env.regulated else ())
-            res = {label: w[k](*call, **kw) for label, w in wrappers.items()}
+            res = {label: wrappers[label][k](*call, **kw) for label in labels}
             torch.cuda.synchronize()
             first = res[next(iter(res))]
             for out in res.values():
@@ -793,10 +832,19 @@ def run_layout(args, paths, params, layout: str) -> None:
             print(f"  {name}: {' and '.join(res)} equal on every field; crashed slots "
                   f"{int(first.crashed.sum())}")
             if name == "reset":
-                timed[f"{layout} {k} {env_id} {config}"] = (k, call, kw)
-    for key, (k, call, kw) in timed.items():
-        fns = {label: (lambda w=w[k]: w(*call, **kw)) for label, w in wrappers.items()}
+                timed[f"{layout} {k} {env_id} {config}"] = (k, call, kw, labels)
+    for key, (k, call, kw, labels) in timed.items():
+        fns = {label: (lambda w=wrappers[label][k]: w(*call, **kw)) for label in labels}
         print(f"  {key}: " + in_turns(fns, args.rounds))
+    # cycles per frame phase: the stamped global libraries
+    for label, p in (clock_paths or {}).items():
+        if library not in p:
+            continue
+        stamped = layout_wrappers(p[library], params[label], layout)
+        for key, (k, call, kw, _) in timed.items():
+            wrapper, lib = stamped[k]
+            print_clocks(label, key, lib, phases[label][library],
+                         lambda w=wrapper: w(*call, **kw))
 
 
 def main(argv) -> int:
@@ -826,21 +874,30 @@ def main(argv) -> int:
     else:
         print(f"no baseline tree at {args.baseline}: the current kernels alone")
 
-    # 1. builds
-    kernels = [k for fam in args.kernels for k in FAMILIES[fam]]
+    # 1. builds (of the sources a tree has: a baseline from before the
+    # global layout has no general_frames_global.cu)
+    kernels = list(dict.fromkeys(k for fam in args.kernels for k in FAMILIES[fam]))
     paths, clock_paths, phases = {}, {}, {}
     for label, csrc in trees.items():
-        paths[label] = _build.build(kernels, csrc, OUT_DIR / label)
+        names = [k for k in kernels if (pathlib.Path(csrc) / f"{k}.cu").exists()]
+        paths[label] = _build.build(names, csrc, OUT_DIR / label)
         for k, path in paths[label].items():
             print(f"{label} {k}: {path.name}")
             for line in ptxas_report(path):
                 print(f"    {line}")
-        if args.clocks:  # the wide and cluster sources hold no frame loop of their own
+        if args.clocks:
+            # the wide and cluster sources hold no frame loop of their own;
+            # the global one's stamps are general_frames.cu's, which it includes
             stamped = OUT_DIR / f"{label}-clocks" / "csrc"
-            clocked = [k for k in kernels
-                       if k not in FAMILIES["wide"] + FAMILIES["cluster"]]
-            phases[label] = instrumented_tree(csrc, stamped, clocked)
-            clock_paths[label] = _build.build(clocked, stamped, OUT_DIR / f"{label}-clocks")
+            clocked = [k for k in names if k not in FAMILIES["wide"] + FAMILIES["global"]]
+            glob = "general_frames_global" in names
+            phases[label] = instrumented_tree(
+                csrc, stamped, list(dict.fromkeys(clocked + ["general_frames"] * glob)))
+            built = clocked
+            if glob:
+                phases[label]["general_frames_global"] = phases[label]["general_frames"]
+                built = clocked + ["general_frames_global"]
+            clock_paths[label] = _build.build(built, stamped, OUT_DIR / f"{label}-clocks")
             for k, path in clock_paths[label].items():
                 print(f"{label} {k} with clocks: " + "; ".join(ptxas_report(path)))
 
@@ -855,6 +912,8 @@ def main(argv) -> int:
     for layout in ("wide", "cluster"):
         if layout in args.kernels:
             run_layout(args, paths, params, layout)
+    if "global" in args.kernels:
+        run_layout(args, paths, params, "global", clock_paths, phases)
     return 0
 
 

@@ -208,11 +208,17 @@ def test_scene_makes_and_routes_to_its_cluster_instantiation(env_id, config, V, 
 
 
 def test_one_slot_over_the_cluster_limit_is_refused():
+    """The cluster kernels hold 2048 slots; one slot more takes the global
+    layout, and one slot past its 8192 is refused at ``make``."""
     limit = general_frames.MAX_SLOTS
     assert limit == 2048
-    ht.make("exit-v0", {"vehicles_count": limit - 1}, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"{limit + 1} slots > {limit}.*not ported"):
-        ht.make("exit-v0", {"vehicles_count": limit}, device="cpu")
+    at = ht.make("exit-v0", {"vehicles_count": limit - 1}, device="cpu")
+    over = ht.make("exit-v0", {"vehicles_count": limit}, device="cpu")
+    assert general_frames.frames_kernel_for(at._general, False, at.num_slots).cluster
+    assert general_frames.frames_kernel_for(over._general, False, over.num_slots).glob
+    cap = general_frames.GLOBAL_SLOTS
+    with pytest.raises(NotImplementedError, match=f"{cap + 1} slots > {cap}.*not ported"):
+        ht.make("exit-v0", {"vehicles_count": cap}, device="cpu")
 
 
 def test_cluster_wrappers_run_the_plain_frames_on_the_cpu():

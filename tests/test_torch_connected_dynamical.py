@@ -172,14 +172,15 @@ def test_scene_makes_and_routes_to_its_instantiation(env_id, config, V, wrapper,
 
 
 def test_connected_dynamical_wrappers_run_the_plain_frames_on_the_cpu():
-    """The six connected dynamical wrappers: distinct entries, one a
-    layout and road, each running ``frames_general_plain`` on CPU tensors
-    without counting a launch, as a rollout through them does."""
+    """The eight connected dynamical wrappers (narrow, wide, cluster and
+    global): distinct entries, one a layout and road, each running
+    ``frames_general_plain`` on CPU tensors without counting a launch, as a
+    rollout through them does."""
     names = [n for n in dir(general_frames)
              if n.startswith("frames_") and "_connected_dynamical" in n and n.endswith("kernel")]
     kernels = [getattr(general_frames, n) for n in names]
-    assert len(kernels) == 6
-    assert len({(k.regulated, k.wide, k.cluster) for k in kernels}) == 6
+    assert len(kernels) == 8
+    assert len({(k.regulated, k.wide, k.cluster, k.glob) for k in kernels}) == 8
     assert all(k.connected and k.dynamical for k in kernels)
     env = ht.make("racetrack-v1", DYNAMICAL, device="cpu")
     gen = env.generator(1)
@@ -194,7 +195,7 @@ def test_connected_dynamical_wrappers_run_the_plain_frames_on_the_cpu():
         assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
     before = [k.launches for k in kernels]
     _, metrics = rollout(env, st, 2, gen)
-    assert [k.launches for k in kernels] == before == [0] * 6
+    assert [k.launches for k in kernels] == before == [0] * 8
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
 
 

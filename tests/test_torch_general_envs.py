@@ -273,14 +273,14 @@ def test_general_gate_and_what_it_refuses():
     assert reg._general is not None and reg._general.period == 7
     assert ht.make("roundabout-v0", device="cpu")._general.period is None
 
-    # more slots than the cluster kernels hold
+    # more slots than the global kernels hold
 
     class Crowded(RoundaboutEnv):
         def _build_scene(self):
             super()._build_scene()
-            self.num_slots = general_frames.MAX_SLOTS + 1
+            self.num_slots = general_frames.GLOBAL_SLOTS + 1
 
-    limit = general_frames.MAX_SLOTS
+    limit = general_frames.GLOBAL_SLOTS
     with pytest.raises(NotImplementedError, match=f"{limit + 1} slots > {limit}"):
         Crowded(device="cpu")
     # lane kinds other than straight, sine and circular

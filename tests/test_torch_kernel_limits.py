@@ -146,14 +146,23 @@ def test_probe_configs_make_and_step_as_jax(env_id, config, edge_lanes, n_speeds
 @pytest.mark.parametrize("env_id,config,what", [
     ("merge-v0", _meta([25.0]), "1 target speeds < 2"),
     ("highway-fast-v0", {"vehicles_count": 1024}, "1025 slots > 1024"),
-    ("exit-v0", {"vehicles_count": 2048}, "2049 slots > 2048"),
+    ("exit-v0", {"vehicles_count": 2048}, None),
     ("highway-v0", {"action": {"type": "ContinuousAction", "dynamical": True}},
      "a dynamical action on a straight road"),
-    ("exit-v0", {"lanes_count": 100, "vehicles_count": 100},
-     "315840 bytes of shared memory a block > 232448"),
+    ("exit-v0", {"lanes_count": 100, "vehicles_count": 100}, None),
+    ("exit-v0", {"vehicles_count": 8192}, "8193 slots > 8192"),
 ], ids=["speeds-1", "straight-slots", "general-slots", "straight-dynamical",
-        "shared-memory"])
+        "shared-memory", "global-slots"])
 def test_over_limit_configs_are_refused_at_make(env_id, config, what):
+    """What no kernel takes is refused at ``make``, naming the limit.  Past
+    the cluster kernels' 2048 slots and past a block's shared memory (exit-v0
+    with 100 lanes and 100 vehicles asked 315,840 bytes of the wide block)
+    the global layout takes the scene: made, routed to its global wrapper."""
+    if what is None:
+        env = _make(env_id, config)
+        assert general_frames.frames_kernel_for(env._general, env.regulated,
+                                                env.num_slots).glob
+        return
     with pytest.raises(NotImplementedError, match=f"{what}.*not ported"):
         _make(env_id, config)
 
@@ -203,7 +212,7 @@ def test_lifted_limits_make_and_step(env_id, config, wrapper):
 
 
 @pytest.mark.parametrize("limits,what", [
-    ((2049, 20, 3, 2, 3), "2049 slots > 2048"),
+    ((2049, 20, 3, 2, 3), None),
     ((25, 200, 3, 2, 3), None),
     ((25, 100, 3, 2, 3), None),
     ((25, 20, 40, 2, 3), None),
@@ -211,21 +220,26 @@ def test_lifted_limits_make_and_step(env_id, config, wrapper):
     ((25, 20, 3, 2, 40), None),
     ((25, 20, 3, 2, 1), "1 target speeds < 2 (speed_to_index divides by the grid's span)"),
     ((128, 300, 3, 3, 3), "shared memory"),
+    ((8193, 20, 3, 2, 3), "8193 slots > 8192"),
 ], ids=["slots", "lanes", "edge-lanes", "route", "successors", "speeds", "one-speed",
-        "shared-memory"])
+        "shared-memory", "global-slots"])
 def test_each_general_limit_is_named(limits, what):
-    """The slots, a grid of one speed and the block's shared memory are
+    """The slots past the global layout's 8192 and a grid of one speed are
     named; lanes (and so lanes an edge, which an edge's lanes bound), route
     slots, successor edges and target speeds well past the old fixed tables
-    (64, 16, 4, 16) are no limit."""
+    (64, 16, 4, 16) are no limit, nor are the cluster kernels' 2048 slots
+    or a block's shared memory, past which the scene takes the global
+    layout (``layout_for``)."""
     V, L, R, S, n = limits
-    if what is None:
-        assert general_frames.kernel_limits(*limits) == []
-    elif what == "shared memory":  # V = 128: one block an env, the fixed layout's S = 4
+    if what == "shared memory":  # V = 128: one block an env, the fixed layout's S = 4
         assert general_frames.launch_tables(S, None, False) == (4, 0, False)
         smem = general_frames.launch_smem(V, L, R, 4, 0, False)
-        assert general_frames.kernel_limits(*limits) == [
-            f"{smem} bytes of shared memory a block > {general_frames.SMEM_LIMIT}"]
+        assert smem > general_frames.SMEM_LIMIT
+        assert general_frames.kernel_limits(*limits) == []
+        assert general_frames.layout_for(*limits) == "global"
+    elif what is None:
+        assert general_frames.kernel_limits(*limits) == []
+        assert general_frames.layout_for(*limits) == ("global" if V > 2048 else "")
     else:
         assert general_frames.kernel_limits(*limits) == [what]
     assert general_frames.kernel_limits(1024, 64, 16, 4, 16) == []

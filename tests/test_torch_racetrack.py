@@ -413,11 +413,14 @@ def test_gate_refusals_name_their_reason():
     assert both.dynamical and both.connected
     # an oval of 5 lanes an edge has 40 lanes, within the lane tables' 64;
     # 2048 NPCs and the ego are 2049 slots: beyond the cluster kernels' 16
-    # blocks of 128
+    # blocks of 128, the global layout's; 8192 NPCs and the ego are past its
+    # 8192 slots
     assert ht.make("racetrack-oval-v0", {"no_lanes": 5}, device="cpu").geo.num_lanes == 40
     assert ht.make("racetrack-oval-v0", {"no_lanes": 4}, device="cpu").geo.num_lanes == 32
-    with pytest.raises(NotImplementedError, match="2049 slots > 2048"):
-        ht.make("racetrack-v0", {"other_vehicles": 2048}, device="cpu")
+    crowded = ht.make("racetrack-v0", {"other_vehicles": 2048}, device="cpu")
+    assert general_frames.frames_kernel_for(crowded._general, False, crowded.num_slots).glob
+    with pytest.raises(NotImplementedError, match="8193 slots > 8192"):
+        ht.make("racetrack-v0", {"other_vehicles": 8192}, device="cpu")
     # the -v1 ids: the same envs with the connected-lane neighbour search
     for env_id in ("racetrack-v1", "racetrack-large-v1", "racetrack-oval-v1"):
         env = ht.make(env_id, device="cpu")

@@ -260,7 +260,20 @@ Phases:
      the eager one; every other global entry (connected, dynamical, both),
      the Linear branch and poly lanes held to their plain versions at
      exit-v0 / exit-v1 / PolyExit with 100 lanes and intersection-v0 / -v1
-     / -v2 for 140 s; then the roads the fixed tables once refused
+     / -v2 for 140 s; then the straight scenes one block cannot hold
+     (``check_straight_global``): highway-v0 with 2047, 4095 and 8191
+     vehicles, with 32 lanes and 1023 (a block over 227 KB), with 4 egos
+     and 1200, highway-fast-v0 with 1024, LinearVehicle and
+     ContinuousAction at 2047, on the global K1 and K3 (picked by
+     ``*_kernel_for``) and K2a and K2b, the slab's words held to the
+     libraries' counts, every kernel held bit-exact to its plain version (1
+     to 4 rows, a pile-up across every block boundary), the 2048- and
+     8192-slot highways driven 3 and 2 steps at 4096 and 64 rows with the
+     counts set to 0 (the band firing share), the 2048-slot highway's
+     captured step against the eager one (2 steps at 256 rows), kernel rows
+     at 16 and 1 rows ("K1 global 2048 slots" .. "K2b global 8192 slots");
+     then
+     the roads the fixed tables once refused
      (``check_custom_roads``: a junction of 5 successor edges with two poly
      lanes and an 18-slot route, 5 and 10 predecessor edges under the
      connected search, roundabout-v0 with 17 and 31 target speeds, the
@@ -455,15 +468,15 @@ SLICE_ROWS = ("exit-v0", "u-turn-v0")
 #: row of its own at B
 PARKING_ENVS = ("parking-v0", "parking-ActionRepeat-v0", "parking-parked-v0")
 #: configs beyond what the kernels take, each (env id, config, the limit
-#: named): the slots of the largest layouts (the straight kernels' 1024, the
-#: global K4 / K5's 8192), one target speed, several egos where the env has
-#: one, a dynamical action on a straight road (the general scenes past the
-#: cluster kernels' 2048 slots or a block's shared memory take the global
-#: layout: check_global)
+#: named): the slots of the largest layouts (the global straight kernels'
+#: 8192, the global K4 / K5's 8192), one target speed, several egos where
+#: the env has one, a dynamical action on a straight road (the scenes past
+#: the block or cluster kernels' slots or a block's shared memory take the
+#: global layouts: check_global, check_straight_global)
 OVER_LIMITS = (
     ("merge-v0", {"action": {"type": "DiscreteMetaAction", "target_speeds": [25.0]}},
      "1 target speeds < 2"),
-    ("highway-fast-v0", {"vehicles_count": 1024}, "1025 slots > 1024"),
+    ("highway-fast-v0", {"vehicles_count": 8192}, "8193 slots > 8192"),
     ("exit-v0", {"vehicles_count": 8192}, "8193 slots > 8192"),
     ("exit-v0", {"controlled_vehicles": 2}, "several controlled vehicles"),
     ("highway-v0", {"action": {"type": "ContinuousAction", "dynamical": True}},
@@ -587,7 +600,8 @@ TIMED_STEPS = 4  # steps of each timed eager / graph, full / compact run
 PLAIN_REPS = 1
 
 
-STRAIGHT_LIBRARIES = ["straight_frames", "straight_sort", "straight_frames_sorted"]
+STRAIGHT_LIBRARIES = ["straight_frames", "straight_sort", "straight_frames_sorted",
+                      "straight_frames_global", "straight_frames_sorted_global"]
 GENERAL_LIBRARIES = ["general_frames", "general_frames_wide", "general_frames_cluster",
                      "general_frames_sized", "general_frames_wide_sized",
                      "general_frames_cluster_sized", "general_frames_global"]
@@ -1635,27 +1649,35 @@ def drive_several_straight(env, kernels, launches) -> None:
         launches[f"{name} 2 egos"] = n
 
 
-def straight_rows(env, states, timed, rows, sfx: str = "") -> None:
+def straight_rows(env, states, timed, rows, sfx: str = "", glob: bool = False) -> None:
     """K2a, K3, K2b and K1 (every env, and masked with no env firing) on the
     reset scene ``states`` with every ego's FASTER applied: the rows "K2a"
     .. "K1" (with ``sfx``, e.g. " 2 egos", and the env in the names), each
-    timed beside its bound."""
+    timed beside its bound.  ``glob``: the scene takes the global layout of
+    K1 and K3, whose sources the rows name."""
     from highwayenv_tpu_torch.ops import straight_frames as sf, straight_sorted as ss
 
-    k1, k2a, k3, k2b = sf.frames_kernel, ss.sort_kernel, ss.frames_sorted_kernel, ss.unsort_kernel
     fs, p, dt, frames = env._straight, env.idm_params, env.dt, env.frames_per_step
-    sa = env._action_to_slots(torch.ones((B,) + env.action_shape, dtype=torch.int32,
+    V, L = env.num_slots, len(fs.offsets)
+    k1, k3 = sf.frames_kernel_for(V, L), ss.frames_sorted_kernel_for(V, L)
+    k2a, k2b = ss.sort_kernel, ss.unsort_kernel
+    if k1.glob != glob or k3.glob != glob:
+        raise AssertionError(f"V={V}, L={L}: K1 / K3 layout global={k1.glob} / {k3.glob}")
+    Bc = states.vehicles.kind.shape[0]
+    sa = env._action_to_slots(torch.ones((Bc,) + env.action_shape, dtype=torch.int32,
                                          device=env.device))
     veh = env.action_type.apply(env.geo, states.vehicles, states.vehicles.kind == 1, sa)
     srt, idx = ss.sort_plain(veh, fs)
     band, flags = ss.frames_sorted_plain(srt, idx, fs, p, dt, frames)
     back = ss.unsort_plain(band, idx, veh)
-    none = torch.zeros(B, dtype=torch.bool, device=env.device)
-    V = veh.kind.shape[1]
-    tag = f" (highway-v0,{sfx}, V={V})" if sfx else ""
+    none = torch.zeros(Bc, dtype=torch.bool, device=env.device)
+    tag = (f" (highway-v0,{sfx}, V={V}" + (f", B={Bc}" if Bc != B else "") + ")") if sfx else ""
+    glob_sfx = "_global" if glob else ""
     src_sort = "highwayenv_tpu_torch/csrc/straight_sort.cu"
 
-    # K2a: bytes of every field read once and written once, plus idx
+    # K2a: bytes of every field read once and written once, plus idx; the
+    # operations those of a comparison sort of V keys (V log2 V comparisons
+    # an env) and the projection to s, not the kernel's V^2 rank count
     s_key = ss.s_coordinate(veh.pos, fs) + 0.0
 
     def sort_library():  # torch.sort + torch.gather of every field
@@ -1667,7 +1689,7 @@ def straight_rows(env, states, timed, rows, sfx: str = "") -> None:
         f"K2a straight_sort{tag} (yardstick: torch.sort + torch.gather sequence)",
         lambda: k2a(veh, fs), lambda: ss.sort_plain(veh, fs), sort_library, 50, 10)
     n_bytes = 2 * field_bytes(veh, ss.SORT_FIELDS) + idx.numel() * 4
-    rank_ops = 3.0 * B * V * V + 4.0 * B * V
+    rank_ops = Bc * V * math.log2(max(V, 2)) + 4.0 * Bc * V
     bms, by, t_ops, t_bytes = bound(rank_ops, n_bytes)
     rows["K2a" + sfx] = ("straight_sort" + tag, src_sort,
                          "highwayenv_tpu/ops/straight_pallas_bm.py:1241", ms, plain_ms, bms, by,
@@ -1686,10 +1708,10 @@ def straight_rows(env, states, timed, rows, sfx: str = "") -> None:
         ops += sorted_frame_ops(v, out, fs, p, dt)
         v = out
     n_bytes = (read_bytes(srt, sf._IN_FIELDS) + field_bytes(band, sf._OUT_FIELDS)
-               + idx.numel() * 4 + B * 2)
+               + idx.numel() * 4 + Bc * 2)
     bms, by, t_ops, t_bytes = bound(ops, n_bytes)
-    rows["K3" + sfx] = ("straight_frames_sorted" + tag,
-                        "highwayenv_tpu_torch/csrc/straight_frames_sorted.cu",
+    rows["K3" + sfx] = (f"straight_frames_sorted{glob_sfx}" + tag,
+                        f"highwayenv_tpu_torch/csrc/straight_frames_sorted{glob_sfx}.cu",
                         "highwayenv_tpu/ops/straight_pallas_bm.py:1190", ms, plain_ms, bms, by,
                         None)
     print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.4f} ms, "
@@ -1730,7 +1752,8 @@ def straight_rows(env, states, timed, rows, sfx: str = "") -> None:
         v = out
     n_bytes = read_bytes(veh, sf._IN_FIELDS) + field_bytes(veh, sf._OUT_FIELDS)
     bms, by, t_ops, t_bytes = bound(ops, n_bytes)
-    rows["K1" + sfx] = ("straight_frames" + tag, "highwayenv_tpu_torch/csrc/straight_frames.cu",
+    rows["K1" + sfx] = (f"straight_frames{glob_sfx}" + tag,
+                        f"highwayenv_tpu_torch/csrc/straight_frames{glob_sfx}.cu",
                         "highwayenv_tpu/ops/straight_pallas_bm.py:1190", ms, plain_ms, bms, by,
                         None)
     print(f"    masked with no env firing: {masked_ms:.4f} ms queued; bound "
@@ -2133,7 +2156,7 @@ class PlainKernels:
         self.plain = [(ss, "sort_kernel", ss.sort_plain),
                       (ss, "frames_sorted_kernel", sorted_frames),
                       (ss, "unsort_kernel", ss.unsort_plain),
-                      (ss, "frames_kernel", frames), (sf, "frames_kernel", frames)]
+                      (sf, "frames_kernel", frames)]
         self.plain += [(gf, attr, general) for attr, _ in GENERAL_PATHS.values()]
         self.saved = []
 
@@ -3869,6 +3892,219 @@ def check_global(ht, gf, kernels, rows, err, launches, card: str, start: float) 
     captured_against_eager(envs[key], f"{name} {json.dumps(config)}", GLOBAL_GRAPH_STEPS)
 
 
+#: the straight scenes one block cannot hold, on the global K1 and K3
+#: (``csrc/straight_frames_global.cu``, ``straight_frames_sorted_global.cu``:
+#: past 1024 slots, or past a block's 227 KB of shared memory) and on K2a and
+#: K2b (``straight_sort.cu``, each thread looping over its slots), each (label, env id, config, rows of the checks,
+#: scenes): every kernel held bit-exact to its plain version on each scene,
+#: the Linear rows' and the raw instantiations among them
+STRAIGHT_GLOBAL_SCENES = (
+    ("2048 slots", "highway-v0", {"vehicles_count": 2047}, 4, SCENES + ("boundary",)),
+    ("4096 slots", "highway-v0", {"vehicles_count": 4095}, 2, ("normal", "compressed",
+                                                              "boundary")),
+    ("8192 slots", "highway-v0", {"vehicles_count": 8191}, 1, ("normal", "compressed",
+                                                              "boundary")),
+    ("32 lanes", "highway-v0", {"lanes_count": 32, "vehicles_count": 1023}, 4,
+     ("normal", "compressed", "boundary")),
+    ("1025 slots", "highway-fast-v0", {"vehicles_count": 1024}, 4,
+     ("normal", "compressed", "boundary")),
+    ("4 egos", "highway-v0", {"controlled_vehicles": 4, "vehicles_count": 1200}, 4,
+     ("normal", "compressed", "boundary")),
+    ("linear", "highway-v0", {"vehicles_count": 2047, **LINEAR_CONFIG}, 4,
+     ("normal", "pileup_all", "boundary")),
+    ("raw", "highway-v0", {"vehicles_count": 2047, **CONTINUOUS_CONFIG}, 4,
+     ("normal", "compressed", "boundary")),
+)
+#: the slice's paths, each driven with the counts set to 0 just before it
+#: ((label, rows, policy steps)), and the scenes of the kernel rows ((label,
+#: rows)); the plain frames go as (rows, V, V) pair tensors, so the rows
+#: are few where V is large
+STRAIGHT_GLOBAL_DRIVES = (("2048 slots", 4096, 3), ("8192 slots", 64, 2))
+STRAIGHT_GLOBAL_ROWS = (("2048 slots", 16), ("8192 slots", 1))
+#: captured steps against eager at the 2048-slot scene, and its rows
+STRAIGHT_GRAPH_STEPS, STRAIGHT_GRAPH_ROWS = 2, 256
+
+
+def boundary_pileup(veh, G: int):
+    """A 20-vehicle pile-up in 6 m across every block boundary of the
+    global layout (blocks of G threads): slots k G - 10 .. k G + 9 moved to
+    the s of the env's rank k G - 10, so that the pile-up straddles the
+    boundary in slot order (K1) and about there in rank order (K3)."""
+    pos = veh.pos.clone()
+    V = veh.kind.shape[1]
+    ramp = torch.linspace(0, 6, 20, device=veh.pos.device)
+    xs = torch.sort(veh.pos[..., 0], dim=1).values
+    for k in range(G, V, G):
+        lo, hi = max(k - 10, 0), min(k + 10, V)
+        pos[:, lo:hi, 0] = xs[:, lo:lo + 1] + ramp[: hi - lo]
+    return veh.replace(pos=pos)
+
+
+def hold_straight(ss, sf, env, veh, where: str, err, key: str, every_env: bool = True):
+    """K1 (every env; with ``every_env`` masked to every env; masked by the
+    band flags over the banded rows), K2a, K3 and K2b on ``veh`` with the
+    env's action applied, each bit-exact to its plain version (K3's flags
+    equal), the errors kept under "K1" + ``key`` and "K3" + ``key``; the
+    sorted step within the ulp bound of the dense one.  Returns (K3's
+    flags, the sorted step, whether it equals the dense step bitwise).
+    K1 and K3 in the scene's layout (``*_kernel_for``)."""
+    from highwayenv_tpu_torch.envs.base import map_fields
+
+    fs, p, dt, frames = env._straight, env.idm_params, env.dt, env.frames_per_step
+    raw, linear = env.action_type.stores_raw_controls, env.linear_rows
+    Bc, V = veh.kind.shape
+    k1 = sf.frames_kernel_for(V, len(fs.offsets))
+    k3 = ss.frames_sorted_kernel_for(V, len(fs.offsets))
+    k2a, k2b = ss.sort_kernel, ss.unsort_kernel
+    out_k = k1(veh, fs, p, dt, frames, raw=raw, linear=linear)
+    out_p = sf.frames_plain(veh, fs, p, dt, frames, raw)
+    torch.cuda.synchronize()
+    err["K1" + key] = max(err["K1" + key], exact_state(out_k, out_p, f"{where} K1"))
+    del out_p
+    srt_k, idx_k = k2a(veh, fs)
+    srt_p, idx_p = ss.sort_plain(veh, fs)
+    torch.cuda.synchronize()
+    if not torch.equal(idx_k, idx_p):
+        raise AssertionError(f"{where} K2a: idx differs")
+    exact(srt_k, srt_p, [n for n, _, _ in ss.SORT_FIELDS], f"{where} K2a")
+    del srt_k, idx_k
+    band_k, flags_k = k3(srt_p, idx_p, fs, p, dt, frames, raw=raw, linear=linear)
+    band_p, flags_p = ss.frames_sorted_plain(srt_p, idx_p, fs, p, dt, frames, raw)
+    torch.cuda.synchronize()
+    if not torch.equal(flags_k, flags_p):
+        raise AssertionError(f"{where} K3: flags differ")
+    err["K3" + key] = max(err["K3" + key], exact_state(band_k, band_p, f"{where} K3"))
+    back_k = k2b(band_p, idx_p, veh)
+    back_p = ss.unsort_plain(band_p, idx_p, veh)
+    torch.cuda.synchronize()
+    exact(back_k, back_p, [n for n, _, _ in ss.MUT_FIELDS], f"{where} K2b")
+    if every_env:
+        every = torch.ones(Bc, dtype=torch.bool, device=veh.speed.device)
+        all_k = k1(veh, fs, p, dt, frames, mask=every, out=map_fields(torch.clone, back_k),
+                   raw=raw, linear=linear)
+        all_p = sf._masked_plain(veh, fs, p, dt, frames, every, map_fields(torch.clone, back_p),
+                                 raw)
+        torch.cuda.synchronize()
+        err["K1" + key] = max(err["K1" + key],
+                              exact_state(all_k, all_p, f"{where} K1 masked to every env"))
+        del all_k, all_p
+    mask = flags_p.any(dim=1)
+    fix_k = k1(veh, fs, p, dt, frames, mask=mask, out=back_k, raw=raw, linear=linear)
+    fix_p = sf._masked_plain(veh, fs, p, dt, frames, mask, back_p, raw)
+    torch.cuda.synchronize()
+    err["K1" + key] = max(err["K1" + key], exact_state(fix_k, fix_p, f"{where} K1 masked"))
+    return flags_k, fix_k, compare_steps(fix_k, out_k, f"{where} sorted step vs dense")
+
+
+def check_straight_global(ht, ss, sf, rows, err, launches, card: str, start: float,
+                          timed) -> None:
+    """The straight scenes one block cannot hold, on the global K1 and K3
+    and on K2a and K2b past one slot a thread: each of
+    STRAIGHT_GLOBAL_SCENES made on CUDA, its layout ``straight_layout_for``
+    global, the slab's words of the global K1 and K3 held to the libraries'
+    counts (``*_global_words``), every kernel held bit-exact to its plain
+    version on each scene (``hold_straight``; the compressed scene and a
+    pile-up across every block boundary reach across the chunks), K1 and K3
+    picked by ``*_kernel_for`` (the global counts move, the block ones stay
+    0), the Linear rows' and the raw instantiations among them;
+    STRAIGHT_GLOBAL_DRIVES driven with the counts set to 0 (the band firing
+    share, the launches of each kernel, one a step), the 2048-slot scene's
+    captured step against the eager one; the kernel rows at
+    STRAIGHT_GLOBAL_ROWS."""
+    block = {"K1": sf.frames_kernel, "K3": ss.frames_sorted_kernel}
+    glob = {"K1": sf.frames_global_kernel, "K2a": ss.sort_kernel,
+            "K3": ss.frames_sorted_global_kernel, "K2b": ss.unsort_kernel}
+    envs = {}
+    for label, env_id, config, n_check, scene_names in STRAIGHT_GLOBAL_SCENES:
+        t0 = time.time()
+        env = ht.make(env_id, config)
+        envs[label] = env
+        V, L = env.num_slots, len(env._straight.offsets)
+        if sf.straight_layout_for(V, L) != "global":
+            raise AssertionError(f"{env_id} {config}: V={V}, L={L} not in the global layout")
+        k1_words, k3_words = sf.global_words(V, L)
+        got = (glob["K1"].global_words(V, L), glob["K3"].global_words(V, L))
+        if got != (k1_words, k3_words):
+            raise AssertionError(f"{env_id} {config}: slab words {got} at launch, "
+                                 f"{(k1_words, k3_words)} in straight_frames.global_words")
+        G = sf.global_threads(V)
+        key = f" global {label}"
+        err.update({f"{n}{key}": err.get(f"{n}{key}", 0.0) for n in ("K1", "K2a", "K3", "K2b")})
+        gen = env.generator(SEED)
+        _, states = env.reset(n_check, gen)
+        scene_map = scenes(states.vehicles)
+        scene_map["boundary"] = boundary_pileup(states.vehicles, G)
+        acts = random_actions(env, n_check, gen)
+        fired = [0, 0]
+        for name in scene_names:
+            veh = env.action_type.apply(env.geo, scene_map[name], scene_map[name].kind == 1,
+                                        env._action_to_slots(acts))
+            for k in (*block.values(), *glob.values()):
+                k.launches = 0
+            flags = hold_straight(ss, sf, env, veh, f"{env_id} {config} {name}", err, key)[0]
+            moved = {**{f"{n} block": k.launches for n, k in block.items()},
+                     **{n: k.launches for n, k in glob.items()}}
+            if moved != {"K1 block": 0, "K3 block": 0, "K1": 3, "K2a": 1, "K3": 1, "K2b": 1}:
+                raise AssertionError(f"{env_id} {config} {name}: launches {moved}")
+            f = flags.sum(dim=0).tolist()
+            fired = [fired[0] + f[0], fired[1] + f[1]]
+        blocks = sf.global_blocks(V)
+        print(f"  {label}: {env_id} {config}, V={V}, L={L}, {blocks} block"
+              f"{'s' * (blocks > 1)} of {G} threads an env, slab "
+              f"{4 * k1_words} / {4 * k3_words} bytes an env (K1 / K3, the libraries' counts); "
+              f"K1 (every env, masked to every env, masked by the flags), K2a, K3 with its "
+              f"flags and K2b bit-exact to their plain versions on {list(scene_names)} at "
+              f"B={n_check}, K1 and K3 through their global wrappers; envs fired: collision "
+              f"{fired[0]}, neighbour {fired[1]}; Linear rows {int((states.vehicles.kind == 3).sum())}"
+              f" ({time.time() - t0:.1f} s) [at {time.time() - start:.0f} s]")
+    every = {**{f"{n} block": k for n, k in block.items()},
+             **{f"{n} global": k for n, k in glob.items()}}
+    for label, n_drive, steps in STRAIGHT_GLOBAL_DRIVES:
+        t0 = time.time()
+        env = envs[label]
+        gen = env.generator(SEED + 1)
+        recorder = FlagRecorder(glob["K3"])
+        ss.frames_sorted_global_kernel = recorder
+        try:
+            for k in every.values():
+                k.launches = 0
+            _, st = env.reset(n_drive, gen)
+            st, m = rollout(env, st, steps, gen)
+            torch.cuda.synchronize()
+        finally:
+            ss.frames_sorted_global_kernel = glob["K3"]
+        counts = {n: k.launches for n, k in every.items()}
+        want = {n: (steps if n.endswith("global") else 0) for n in every}
+        m = {k: float(v) for k, v in m.items()}
+        fl = torch.stack(recorder.flags)
+        share = float(fl.any(dim=2).double().mean())
+        print(f"  {label} path, highway-v0 V={env.num_slots}: reset and {steps} autoreset "
+              f"steps, B={n_drive}, launches {counts}; env-steps whose band flag fired "
+              f"{share:.6f} (collision {float(fl[..., 0].double().mean()):.6f}, neighbour "
+              f"{float(fl[..., 1].double().mean()):.6f}); rollout {m} "
+              f"({time.time() - t0:.1f} s) [at {time.time() - start:.0f} s]")
+        if counts != want:
+            raise AssertionError(f"{label} path: launches {counts}, expected {want}")
+        if not all(np.isfinite(list(m.values()))):
+            raise AssertionError(f"{label} path: non-finite metrics")
+        for k in ("pos", "speed", "heading"):
+            if not bool(torch.isfinite(getattr(st.vehicles, k)).all()):
+                raise AssertionError(f"{label} path: non-finite {k}")
+        for n in ("K1", "K2a", "K3", "K2b"):
+            launches[f"{n} global {label}"] = counts[f"{n} global"]
+        del st
+    captured_against_eager(envs["2048 slots"], "highway-v0 2048 slots", STRAIGHT_GRAPH_STEPS,
+                           STRAIGHT_GRAPH_ROWS)
+    for label, n_row in STRAIGHT_GLOBAL_ROWS:
+        env = envs[label]
+        torch.cuda.reset_peak_memory_stats()
+        _, st = env.reset(n_row, env.generator(SEED + 2))
+        straight_rows(env, st, timed, rows, f" global {label}", glob=True)
+        print(f"  rows at {label}: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+              f" GB ({card}) [at {time.time() - start:.0f} s]")
+        del st
+
+
 #: roads the fixed tables once refused, on the general kernels
 #: (``highwayenv_tpu_torch/tools/custom_roads.py``), each (row key, env id
 #: or custom_roads class name, config, driven, rows of the checks): merge-v0
@@ -3985,13 +4221,13 @@ def hold_custom(gf, env, key: str, label: str, err, start: float, steps_in: bool
     print(f"  {key}: {list(calls)} bit-exact on every field")
 
 
-def captured_against_eager(env, label: str, steps: int = CUSTOM_STEPS) -> None:
-    """``steps`` random-policy autoreset steps at B from one reset, eager
-    and through the captured step (``rollout(..., graph=True)``), the
+def captured_against_eager(env, label: str, steps: int = CUSTOM_STEPS, n: int = B) -> None:
+    """``steps`` random-policy autoreset steps at ``n`` rows from one reset,
+    eager and through the captured step (``rollout(..., graph=True)``), the
     states and metrics equal bit for bit."""
     from highwayenv_tpu_torch.envs.base import map_fields
 
-    _, st = env.reset(B, env.generator(SEED + 6))
+    _, st = env.reset(n, env.generator(SEED + 6))
     s_e, m_e = rollout(env, map_fields(torch.clone, st), steps, env.generator(SEED + 7))
     s_g, m_g = rollout(env, map_fields(torch.clone, st), steps, env.generator(SEED + 7),
                        graph=True)
@@ -4002,7 +4238,7 @@ def captured_against_eager(env, label: str, steps: int = CUSTOM_STEPS) -> None:
     if not all(same.values()):
         raise AssertionError(f"{label}: captured differs from eager in "
                              f"{[n for n, ok in same.items() if not ok]}")
-    print(f"  {label}: {steps} captured steps against eager at B={B}, states and metrics "
+    print(f"  {label}: {steps} captured steps against eager at B={n}, states and metrics "
           f"bit-exact; {({n: float(v) for n, v in m_g.items()})}")
 
 
@@ -4094,7 +4330,6 @@ def main() -> int:
         return 1
     import highwayenv_tpu_torch as ht
     from highwayenv_tpu_torch.envs import preprocessors
-    from highwayenv_tpu_torch.envs.base import map_fields
     from highwayenv_tpu_torch.ops import _build, general_frames, straight_frames, straight_sorted
     from highwayenv_tpu_torch.road import lane as lane_ops
     from highwayenv_tpu_torch.vehicle.state import KIND_LINEAR
@@ -4171,50 +4406,12 @@ def main() -> int:
             veh = env.action_type.apply(
                 env.geo, veh, veh.kind == 1, env._action_to_slots(actions)
             )
-            # K1, dense
-            out_k = k1(veh, fs, p, dt, frames, raw=raw, linear=linear)
-            out_p = sf.frames_plain(veh, fs, p, dt, frames, raw)
-            torch.cuda.synchronize()
-            err["K1" + sfx] = max(err["K1" + sfx], exact_state(out_k, out_p, f"{where} K1"))
-            # K2a
-            srt_k, idx_k = k2a(veh, fs)
-            srt_p, idx_p = ss.sort_plain(veh, fs)
-            torch.cuda.synchronize()
-            if not torch.equal(idx_k, idx_p):
-                raise AssertionError(f"{where} K2a: idx differs")
-            exact(srt_k, srt_p, [n for n, _, _ in ss.SORT_FIELDS], f"{where} K2a")
-            # K3 on the same sorted inputs
-            band_k, flags_k = k3(srt_p, idx_p, fs, p, dt, frames, raw=raw, linear=linear)
-            band_p, flags_p = ss.frames_sorted_plain(srt_p, idx_p, fs, p, dt, frames, raw)
-            torch.cuda.synchronize()
-            if not torch.equal(flags_k, flags_p):
-                raise AssertionError(f"{where} K3: flags differ")
-            err["K3" + sfx] = max(err["K3" + sfx], exact_state(band_k, band_p, f"{where} K3"))
-            # K2b
-            back_k = k2b(band_p, idx_p, veh)
-            back_p = ss.unsort_plain(band_p, idx_p, veh)
-            torch.cuda.synchronize()
-            exact(back_k, back_p, [n for n, _, _ in ss.MUT_FIELDS], f"{where} K2b")
-            if linear:
-                # K1 masked to every env: the dense step
-                every = torch.ones(Bc, dtype=torch.bool, device=veh.speed.device)
-                all_k = k1(veh, fs, p, dt, frames, mask=every,
-                           out=map_fields(torch.clone, back_k), raw=raw, linear=True)
-                all_p = sf._masked_plain(veh, fs, p, dt, frames, every,
-                                         map_fields(torch.clone, back_p), raw)
-                torch.cuda.synchronize()
-                err["K1" + sfx] = max(err["K1" + sfx],
-                                      exact_state(all_k, all_p, f"{where} K1 masked to every env"))
-            # K1 masked by the flags, over the banded rows
-            mask = flags_p.any(dim=1)
-            fix_k = k1(veh, fs, p, dt, frames, mask=mask, out=back_k, raw=raw,
-                       linear=linear)
-            fix_p = sf._masked_plain(veh, fs, p, dt, frames, mask, back_p, raw)
-            torch.cuda.synchronize()
-            err["K1" + sfx] = max(err["K1" + sfx],
-                                  exact_state(fix_k, fix_p, f"{where} K1 masked"))
-            # the sorted step (kernels) against the dense step (kernel)
-            bitwise = compare_steps(fix_k, out_k, f"{where} sorted step vs dense")
+            # K1 dense, K2a, K3 on the sorted plain inputs, K2b, K1 masked
+            # to every env (the Linear branch's dense step) and by the flags
+            # over the banded rows, and the sorted step against the dense one
+            flags_k, fix_k, bitwise = hold_straight(ss, sf, env, veh, where, err, sfx,
+                                                    every_env=linear)
+            mask = flags_k.any(dim=1)
             fired = flags_k.sum(dim=0).tolist()
             both_fired |= min(fired) > 0
             lin_rows = int((veh.kind == KIND_LINEAR).sum())
@@ -5346,6 +5543,11 @@ def main() -> int:
           f"block's 227 KB and past 2048 slots [at {time.time() - start:.0f} s]")
     check_global(ht, gf, conn_kernels, rows, err, launches, card, start)
     print(f"  (global block {time.time() - t_global:.1f} s)")
+    t_sglobal = time.time()
+    print(f"== 4. straight scenes one block cannot hold, on CUDA: the global K1, K2a, K3 and "
+          f"K2b, past 1024 slots and past a block's 227 KB [at {time.time() - start:.0f} s]")
+    check_straight_global(ht, ss, sf, rows, err, launches, card, start, timed)
+    print(f"  (straight global block {time.time() - t_sglobal:.1f} s)")
     t_custom = time.time()
     print(f"== 4. roads the fixed tables refused, on CUDA: poly lanes, 5 successor edges, "
           f"an 18-slot route, 5 and 10 predecessor edges, 17 and 31 target speeds, 72 "

@@ -462,6 +462,16 @@ struct Rows {
     return reinterpret_cast<float*>(words + WARP_WORDS(L) * nw);
   }
 
+  // the same rows with the ballot words' base moved to the env's warp w0:
+  // the view through which a block whose first warp is w0 writes its warps'
+  // words with ballot_word, which indexes them by threadIdx.x (the global
+  // layout, straight_global.cuh, where an env spans several blocks)
+  __device__ Rows at_warp(int w0) const {
+    Rows v = *this;
+    v.words += w0;
+    return v;
+  }
+
   __device__ unsigned* memb(int l) const { return words + l * nw; }
   __device__ unsigned* abrt(int l) const { return words + (L + l) * nw; }
   __device__ unsigned* ac() const { return words + 2 * L * nw; }

@@ -36,35 +36,52 @@
 // (straight_common.cuh) does the rest.
 
 #include "straight_common.cuh"
+#include "straight_global.cuh"
 
-template <bool kLinear>
-__global__ void __launch_bounds__(MAX_BLOCK_THREADS)
-    straight_frames_kernel(const __grid_constant__ Fields f, const uint8_t* mask,
-                           const __grid_constant__ Geo g, const __grid_constant__ Params p,
-                           int V, int frames) {
-  if (mask != nullptr && mask[blockIdx.x] == 0) return;  // the whole block
+// The words of one env's rows and pre-check bits at n threads (its slots
+// rounded up to a warp, a block's or in the global layout the env's
+// cluster's) and L lanes: the rows and a word of pre-check bits per warp
+// per thread, and the ballot words per warp.  The global layout's slab
+// holds this many an env, rounded up to 4 (16-byte-aligned rows).
+__host__ __device__ __forceinline__ long long frames_env_words(int n, int L) {
+  const long long w = static_cast<long long>(ROW_WORDS + n / 32) * n +
+                      static_cast<long long>(WARP_WORDS(L)) * (n / 32);
+  return (w + 3) & ~3ll;
+}
+
+// The frame loop of one env, its rows in the block's shared memory or, in
+// the global layout (kGlobal, straight_global.cuh), in its slab of global
+// memory at slab + env * frames_env_words, the env a cluster of blocks.
+template <bool kLinear, bool kGlobal>
+__device__ __forceinline__ void frames_body(const Fields& f, const uint8_t* mask, const Geo& g,
+                                            const Params& p, int V, int frames, float* slab) {
+  const Place at = place<kGlobal>();
+  if (mask != nullptr && mask[at.env] == 0) return;  // every block of the env
   extern __shared__ __align__(16) float smem[];
-  const int N = blockDim.x;
+  const int N = at.n;
   const int L = g.n_lanes;
   load_lane_offsets(g);
   Rows r;
+  float* rows = kGlobal ? slab + at.env * frames_env_words(N, L) : smem + lane_offset_words(L);
   // per slot, its partners whose pair passed the sphere pre-check, [N][N / 32]
-  unsigned* near = reinterpret_cast<unsigned*>(r.carve(smem + lane_offset_words(L), N, L));
+  unsigned* near = reinterpret_cast<unsigned*>(r.carve(rows, N, L));
+  // the view through which this block writes its warps' ballot words
+  const Rows rb = kGlobal ? r.at_warp(at.warp0) : r;
 
-  const int i = threadIdx.x;
+  const int i = at.i;
   const bool live = i < V;
-  const size_t o = static_cast<size_t>(blockIdx.x) * V + i;
+  const size_t o = static_cast<size_t>(at.env) * V + i;
   typename SlotOf<kLinear>::type v;
   if (live) v.load(f, o);
   v.derive();
   r.post[i].len = v.len;
   r.post[i].wid = v.wid;
-  __syncthreads();  // the lane offsets are loaded
+  env_sync<kGlobal>();  // the lane offsets are loaded
 
   for (int frame = 0; frame < frames; ++frame) {
     const Start st = frame_start(v, g);
-    stage_start(r, i, live, v, st, g);
-    __syncthreads();
+    stage_start(rb, i, live, v, st, g);
+    env_sync<kGlobal>();
 
     if (live) {
       // --- neighbours on the own lane and lanes -1 / +1: the members ------
@@ -95,8 +112,8 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
     // cleared after the last frame's SATs, set only after the next barrier
     unsigned* mine = near + i * r.nw;
     for (int w = 0; w < r.nw; ++w) mine[w] = 0u;
-    stage_post(r, i, live, v);
-    __syncthreads();
+    stage_post(rb, i, live, v);
+    env_sync<kGlobal>();
 
     // --- collisions: each pair's sphere pre-check once, half way round ------
     // slot i tests the slots i + 1 .. i + V / 2 (mod V) that pass its gate,
@@ -116,7 +133,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
       visit_bits(gate, i + 1, min(half, V - 1), i, test);
       if (half >= V) visit_bits(gate, 0, half - V, i, test);
     }
-    __syncthreads();
+    env_sync<kGlobal>();
 
     // --- collisions: the swept SATs of the pairs that passed, impacts -------
     if (live) {
@@ -158,30 +175,17 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
   if (live) v.store(f, o);
 }
 
-extern "C" int straight_frames(
-    const float* pos, const float* heading, const float* speed, const int* lane,
-    const int* target_lane, const float* target_speed, const float* timer,
-    const uint8_t* crashed, const uint8_t* impact_pending, const float* impact,
-    const float* steering, const float* accel, const float* delta,
-    const int* kind, const float* length, const float* width,
-    const uint8_t* check_collisions, const uint8_t* collidable,
-    const uint8_t* enable_lane_change, const float* mobil_gain,
-    const float* mobil_max_braking, const float* accel_params,
-    const float* steer_params, float* pos_out, float* heading_out,
-    float* speed_out, int* lane_out, int* target_lane_out, float* timer_out,
-    uint8_t* crashed_out, uint8_t* impact_pending_out, float* impact_out,
-    float* steering_out, float* accel_out, const uint8_t* mask,
-    const Geo* geo, const Params* params, int B, int V, int frames,
-    void* stream) {
-  Fields f = {pos,          heading,          speed,           lane,
-              target_lane,  target_speed,     timer,           crashed,
-              impact_pending, impact,         steering,        accel,
-              delta,        kind,             length,          width,
-              check_collisions, collidable,   enable_lane_change, mobil_gain,
-              mobil_max_braking, accel_params, steer_params,
-              pos_out,      heading_out,      speed_out,
-              lane_out,     target_lane_out,  timer_out,       crashed_out,
-              impact_pending_out, impact_out, steering_out,    accel_out};
+template <bool kLinear>
+__global__ void __launch_bounds__(MAX_BLOCK_THREADS)
+    straight_frames_kernel(const __grid_constant__ Fields f, const uint8_t* mask,
+                           const __grid_constant__ Geo g, const __grid_constant__ Params p,
+                           int V, int frames) {
+  frames_body<kLinear, false>(f, mask, g, p, V, frames, nullptr);
+}
+
+extern "C" int straight_frames(STRAIGHT_FIELD_PARAMS, const uint8_t* mask, const Geo* geo,
+                               const Params* params, int B, int V, int frames, void* stream) {
+  const Fields f = STRAIGHT_FIELDS;
   // the Linear rows' instantiation where the caller says they are possible;
   // per thread: the rows and a word of pre-check bits per warp
   auto kernel = params->linear ? straight_frames_kernel<true> : straight_frames_kernel<false>;

@@ -57,6 +57,7 @@
 // walks and the scans cost; from V = 101 on the sorted kernel is faster.
 
 #include "straight_common.cuh"
+#include "straight_global.cuh"
 
 // The order of s as an unsigned: a < b as floats, with -0 equal to 0, iff
 // float_order(a) < float_order(b).  A far-band scan packs it with ~rank
@@ -68,31 +69,52 @@ __device__ __forceinline__ unsigned float_order(float s) {
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
-template <bool kLinear>
-__global__ void __launch_bounds__(MAX_BLOCK_THREADS)
-    straight_frames_sorted_kernel(const __grid_constant__ Fields f, const int* idx,
-                                  uint8_t* flags, const __grid_constant__ Geo g,
-                                  const __grid_constant__ Params p, int V, int frames, int W,
-                                  int Wn) {
+// The words of one env's rows at n threads (its slots rounded up to a
+// warp, a block's or in the global layout the env's cluster's), L lanes and
+// nb blocks: per thread the rows, the collision band's s, the far-band
+// winners (two 16-bit ranks per lane) and the pre-check bits; per warp the
+// ballot words and the max diag / speed; in the global layout two flag
+// words per block.  The global layout's slab holds this many an env,
+// rounded up to 4 (16-byte-aligned rows).
+__host__ __device__ __forceinline__ long long sorted_env_words(int n, int L, int nb) {
+  const long long w = static_cast<long long>(ROW_WORDS + 2 + L + 1) * n +
+                      static_cast<long long>(WARP_WORDS(L) + 2) * (n / 32) + 2ll * nb;
+  return (w + 3) & ~3ll;
+}
+
+// The frame loop of one env on the rank layout, its rows in the block's
+// shared memory or, in the global layout (kGlobal, straight_global.cuh), in
+// its slab of global memory at slab + env * sorted_env_words, the env a
+// cluster of blocks.
+template <bool kLinear, bool kGlobal>
+__device__ __forceinline__ void frames_sorted_body(const Fields& f, const int* idx,
+                                                   uint8_t* flags, const Geo& g,
+                                                   const Params& p, int V, int frames, int W,
+                                                   int Wn, float* slab) {
   extern __shared__ __align__(16) float smem[];
-  const int N = blockDim.x;
+  const Place at = place<kGlobal>();
+  const int N = at.n;
   const int L = g.n_lanes;
   load_lane_offsets(g);
   Rows r;
+  float* rows = kGlobal ? slab + at.env * sorted_env_words(N, L, at.blocks)
+                        : smem + lane_offset_words(L);
   // the in-warp suffix min / max of the active ranks' s, [N]
-  float2* band_s = reinterpret_cast<float2*>(r.carve(smem + lane_offset_words(L), N, L));
+  float2* band_s = reinterpret_cast<float2*>(r.carve(rows, N, L));
   // each warp's max diag and max speed, [2][N / 32]
   float* warp_max = reinterpret_cast<float*>(band_s + N);
   // the in-warp far-band winners' ranks, [ahead, behind][L][N]
   short* far = reinterpret_cast<short*>(warp_max + 2 * r.nw);
   // per rank, bit d - 1: its pair with rank + d passed the sphere pre-check
   unsigned* near_up = reinterpret_cast<unsigned*>(far + 2 * L * N);
+  // the view through which this block writes its warps' ballot words
+  const Rows rb = kGlobal ? r.at_warp(at.warp0) : r;
 #define FAR(dir, l, j) far[((dir) * L + (l)) * N + (j)]
 
-  const int i = threadIdx.x;
+  const int i = at.i;
   const int lane_i = i & 31;
   const bool live = i < V;
-  const size_t o = static_cast<size_t>(blockIdx.x) * V + i;
+  const size_t o = static_cast<size_t>(at.env) * V + i;
   typename SlotOf<kLinear>::type v;
   if (live) v.load(f, o);
   v.derive();
@@ -100,11 +122,11 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
   r.post[i].wid = v.wid;
   r.post[i].orig = live ? idx[o] : -1;
   bool viol_coll = false, viol_neigh = false;
-  __syncthreads();  // the lane offsets are loaded
+  env_sync<kGlobal>();  // the lane offsets are loaded
 
   for (int frame = 0; frame < frames; ++frame) {
     const Start st = frame_start(v, g);
-    stage_start(r, i, live, v, st, g);
+    stage_start(rb, i, live, v, st, g);
     // --- far-band winners per lane: in-warp suffix argmin / prefix argmax --
     const unsigned long long key =
         (static_cast<unsigned long long>(float_order(st.s)) << 32) | ~static_cast<unsigned>(i);
@@ -123,7 +145,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
       FAR(0, l, i) = ka == ~0ull ? -1 : static_cast<short>(~static_cast<unsigned>(ka));
       FAR(1, l, i) = kb == 0ull ? -1 : static_cast<short>(~static_cast<unsigned>(kb));
     }
-    __syncthreads();
+    env_sync<kGlobal>();
 
     if (live) {
       // --- banded neighbours on the own lane and lanes -1 / +1 -------------
@@ -181,7 +203,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
       drive(v, st, front, rear, r, i, V, g, p);
     }
 
-    stage_post(r, i, live, v);
+    stage_post(rb, i, live, v);
     // --- collision band: in-warp suffix min / max of s, max diag and speed -
     const bool act = live && v.active();
     const float s_new = (v.px - g.ox) * g.ux + (v.py - g.oy) * g.uy;
@@ -207,7 +229,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
         warp_max[r.nw + (i >> 5)] = sp;
       }
     }
-    __syncthreads();
+    env_sync<kGlobal>();
 
     // --- banded collisions: the flag, each pair's pre-check at its lower rank
     const float4 me = r.pose(i);
@@ -240,7 +262,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
                  });
     }
     near_up[i] = up;
-    __syncthreads();
+    env_sync<kGlobal>();
 
     // --- banded collisions: the swept SATs of the pairs that passed, impacts
     if (live) {
@@ -293,36 +315,43 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
   const int any_neigh = __syncthreads_or(viol_neigh);
   if (!kLinear) trap_on_linear(live && v.kind == KIND_LINEAR);
   if (live) v.store(f, o);
-  if (i == 0) {
-    flags[2 * blockIdx.x] = any_coll ? 1 : 0;
-    flags[2 * blockIdx.x + 1] = any_neigh ? 1 : 0;
+  if constexpr (kGlobal) {
+    // the env's flags: each block's two votes, joined by the env's first
+    // thread after the barrier
+    unsigned* votes = near_up + N;
+    if (threadIdx.x == 0) {
+      votes[2 * at.rank] = any_coll ? 1u : 0u;
+      votes[2 * at.rank + 1] = any_neigh ? 1u : 0u;
+    }
+    env_sync<true>();
+    if (i == 0) {
+      unsigned coll = 0u, neigh = 0u;
+      for (int k = 0; k < at.blocks; ++k) {
+        coll |= votes[2 * k];
+        neigh |= votes[2 * k + 1];
+      }
+      flags[2 * at.env] = coll ? 1 : 0;
+      flags[2 * at.env + 1] = neigh ? 1 : 0;
+    }
+  } else if (i == 0) {
+    flags[2 * at.env] = any_coll ? 1 : 0;
+    flags[2 * at.env + 1] = any_neigh ? 1 : 0;
   }
 }
 
-extern "C" int straight_frames_sorted(
-    const float* pos, const float* heading, const float* speed, const int* lane,
-    const int* target_lane, const float* target_speed, const float* timer,
-    const uint8_t* crashed, const uint8_t* impact_pending, const float* impact,
-    const float* steering, const float* accel, const float* delta,
-    const int* kind, const float* length, const float* width,
-    const uint8_t* check_collisions, const uint8_t* collidable,
-    const uint8_t* enable_lane_change, const float* mobil_gain,
-    const float* mobil_max_braking, const float* accel_params,
-    const float* steer_params, float* pos_out, float* heading_out,
-    float* speed_out, int* lane_out, int* target_lane_out, float* timer_out,
-    uint8_t* crashed_out, uint8_t* impact_pending_out, float* impact_out,
-    float* steering_out, float* accel_out, const int* idx, uint8_t* flags,
-    const Geo* geo, const Params* params, int B, int V, int frames, int W,
-    int Wn, void* stream) {
-  Fields f = {pos,          heading,          speed,           lane,
-              target_lane,  target_speed,     timer,           crashed,
-              impact_pending, impact,         steering,        accel,
-              delta,        kind,             length,          width,
-              check_collisions, collidable,   enable_lane_change, mobil_gain,
-              mobil_max_braking, accel_params, steer_params,
-              pos_out,      heading_out,      speed_out,
-              lane_out,     target_lane_out,  timer_out,       crashed_out,
-              impact_pending_out, impact_out, steering_out,    accel_out};
+template <bool kLinear>
+__global__ void __launch_bounds__(MAX_BLOCK_THREADS)
+    straight_frames_sorted_kernel(const __grid_constant__ Fields f, const int* idx,
+                                  uint8_t* flags, const __grid_constant__ Geo g,
+                                  const __grid_constant__ Params p, int V, int frames, int W,
+                                  int Wn) {
+  frames_sorted_body<kLinear, false>(f, idx, flags, g, p, V, frames, W, Wn, nullptr);
+}
+
+extern "C" int straight_frames_sorted(STRAIGHT_FIELD_PARAMS, const int* idx, uint8_t* flags,
+                                      const Geo* geo, const Params* params, int B, int V,
+                                      int frames, int W, int Wn, void* stream) {
+  const Fields f = STRAIGHT_FIELDS;
   // per thread: the rows, the collision band's s, the far-band winners
   // (two 16-bit ranks per lane) and the pre-check bits; per warp: the
   // ballot words and the max diag / speed

@@ -1,5 +1,7 @@
 // The stable s-rank permutation of a policy step's vehicle rows (K2a) and
-// its inverse (K2b), one thread block per env and one thread per slot.
+// its inverse (K2b), one thread block per env of up to 1024 threads, each
+// looping over its slots q, q + blockDim.x, ... (one slot a thread up to
+// 1024 slots; up to 8192 slots, the straight path's cap).
 //
 // Replaces the TPU kernels highwayenv_tpu/ops/straight_pallas_bm.py::
 // build_sort_kernels: sort_kernel (:1241-1255) and unsort_kernel
@@ -16,13 +18,16 @@
 // bytes.  K2a moves ~97 bytes a slot each way (B = 4096, V = 51: ~41 MB),
 // against B V^2 ~ 1e7 comparisons for the ranks; K2b moves the 11 mutated
 // fields.  What the design does about it: one pass over each field, the
-// env's s staged once in shared memory for the rank count, and the field
-// list passed by value so one kernel moves every field of any width.
+// env's s staged once in shared memory for the rank count (32 KB at 8192
+// slots, so no cluster is needed), and the field list passed by value so
+// one kernel moves every field of any width.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define MAX_FIELDS 32
+// Most slots of an env: its s, staged in shared memory, takes 32 KB.
+#define SORT_MAX_SLOTS 8192
 
 // The fields one launch permutes: (B, V) rows of 1, 4, 8 or 12 bytes a slot.
 struct Perm {
@@ -59,31 +64,33 @@ __device__ __forceinline__ void move_row(const Perm& p, size_t from, size_t to) 
 __global__ void sort_kernel(Perm p, const float* pos, int* idx, float ox,
                             float oy, float ux, float uy, int V) {
   extern __shared__ float s_env[];
-  const int q = threadIdx.x;
   const size_t base = static_cast<size_t>(blockIdx.x) * V;
-  float s = 0.f;
-  if (q < V) {
+  for (int q = threadIdx.x; q < V; q += blockDim.x) {
     const size_t o = base + q;
-    s = (pos[2 * o] - ox) * ux + (pos[2 * o + 1] - oy) * uy;
-    s_env[q] = s;
+    s_env[q] = (pos[2 * o] - ox) * ux + (pos[2 * o + 1] - oy) * uy;
   }
   __syncthreads();
-  if (q >= V) return;
-  int rank = 0;
-  for (int c = 0; c < V; ++c) {
-    const float sc = s_env[c];
-    rank += (sc < s || (sc == s && c < q)) ? 1 : 0;
+  for (int q = threadIdx.x; q < V; q += blockDim.x) {
+    const float s = s_env[q];
+    int rank = 0;
+    for (int c = 0; c < V; ++c) {
+      const float sc = s_env[c];
+      rank += (sc < s || (sc == s && c < q)) ? 1 : 0;
+    }
+    move_row(p, base + q, base + rank);
+    idx[base + rank] = q;
   }
-  move_row(p, base + q, base + rank);
-  idx[base + rank] = q;
 }
 
 __global__ void unsort_kernel(Perm p, const int* idx, int V) {
-  const int r = threadIdx.x;
-  if (r >= V) return;
   const size_t base = static_cast<size_t>(blockIdx.x) * V;
-  move_row(p, base + r, base + idx[base + r]);
+  for (int r = threadIdx.x; r < V; r += blockDim.x) {
+    move_row(p, base + r, base + idx[base + r]);
+  }
 }
+
+// Threads of a launch's block: V rounded up to a warp, at most 1024.
+static int sort_threads(int V) { return V >= 1024 ? 1024 : ((V + 31) / 32) * 32; }
 
 static int make_perm(Perm* p, const void* const* ins, void* const* outs,
                      const int* bytes, int n) {
@@ -104,9 +111,9 @@ extern "C" int straight_sort(const void* const* ins, void* const* outs,
   Perm p;
   const int err = make_perm(&p, ins, outs, bytes, n);
   if (err != 0) return err;
-  const int threads = ((V + 31) / 32) * 32;
+  if (V > SORT_MAX_SLOTS) return static_cast<int>(cudaErrorInvalidValue);
   if (B > 0 && V > 0) {
-    sort_kernel<<<B, threads, threads * sizeof(float),
+    sort_kernel<<<B, sort_threads(V), V * sizeof(float),
                   static_cast<cudaStream_t>(stream)>>>(p, pos, idx, ox, oy, ux,
                                                        uy, V);
   }
@@ -119,9 +126,9 @@ extern "C" int straight_unsort(const void* const* ins, void* const* outs,
   Perm p;
   const int err = make_perm(&p, ins, outs, bytes, n);
   if (err != 0) return err;
-  const int threads = ((V + 31) / 32) * 32;
+  if (V > SORT_MAX_SLOTS) return static_cast<int>(cudaErrorInvalidValue);
   if (B > 0 && V > 0) {
-    unsort_kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(p, idx, V);
+    unsort_kernel<<<B, sort_threads(V), 0, static_cast<cudaStream_t>(stream)>>>(p, idx, V);
   }
   return static_cast<int>(cudaGetLastError());
 }

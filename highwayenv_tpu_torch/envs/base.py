@@ -281,6 +281,8 @@ class BaseEnv:
             ) if bad
         ]
         if self._straight is not None:
+            # the slots past the global layout's STRAIGHT_GLOBAL_SLOTS (8192):
+            # a scene one block cannot hold takes the global layout
             unported += straight_frames.kernel_limits(self.num_slots, self._straight)
         elif not sequential:  # the sequential mode launches no kernel
             unported += general_frames.general_unported(self)

@@ -33,6 +33,17 @@ rows' instantiation where the caller passes ``linear`` (the env path: the
 env's ``linear_rows``), else their IDM code alone, which stops on a Linear
 row with an error.
 
+Two layouts (``straight_layout_for``): the block layout, one env a thread
+block and one thread a slot with its rows in shared memory, for up to
+``MAX_SLOTS`` = 1024 slots whose block asks at most ``SMEM_LIMIT``
+(``launch_smem``); and past it the global layout
+(``csrc/straight_frames_global.cu``, ``frames_global_kernel``), one env a
+thread-block cluster of up to 16 blocks with its rows in a slab of global
+memory, up to ``STRAIGHT_GLOBAL_SLOTS`` = 8192 slots, the only limit
+``make`` names (``kernel_limits``).  ``frames_kernel_for(V, L)`` picks
+the wrapper of a scene's layout; a block wrapper refuses a scene of the
+global layout.
+
 The ego meta-action is applied once per policy step in torch before the
 frames (``simulate_bm``), as ``pallas_simulate_bm`` does.  Under a
 ContinuousAction (``raw=True``, the JAX kernel's ``raw_controls`` branch)
@@ -66,12 +77,17 @@ from highwayenv_tpu_torch.vehicle.state import (
     VehicleState,
 )
 
-#: most slots one thread block can hold (one thread per slot)
+#: most slots one thread block can hold (one thread per slot): the block layout
 MAX_SLOTS = 1024
 #: the shared memory a block may ask on an H100 (its opt-in maximum: 227 KB)
 SMEM_LIMIT = 232448
 #: words of a slot's rows in shared memory (``ROW_WORDS`` in straight_common.cuh)
 ROW_WORDS = 22
+#: most slots of the global layout (``csrc/straight_global.cuh``): one env a
+#: thread-block cluster of up to 16 blocks of up to ``GLOBAL_THREADS`` threads,
+#: its rows in a slab of global memory; the general path's cap too
+STRAIGHT_GLOBAL_SLOTS = 8192
+GLOBAL_THREADS = 512
 
 
 def lane_members(s, lat0, occupiable, q_off, tol: float):
@@ -418,17 +434,53 @@ def launch_smem(V: int, L: int) -> tuple[int, int]:
             smem(ROW_WORDS + 2 + L + 1, 2 * L + 4 + 2))
 
 
+def global_blocks(V: int) -> int:
+    """Blocks an env of V slots takes in the global layout (its cluster)."""
+    return -(-V // GLOBAL_THREADS)
+
+
+def global_threads(V: int) -> int:
+    """Threads a block of the global launch at V slots: the fewest multiple
+    of 32 whose ``global_blocks(V)`` blocks hold V (``global_threads`` of
+    straight_global.cuh)."""
+    return -(-(-(-V // global_blocks(V))) // 32) * 32
+
+
+def global_words(V: int, L: int) -> tuple[int, int]:
+    """The float32 words of one env's slab in the global layout of K1 and
+    of K3 at V slots and L lanes: the block layout's rows and ballot words
+    carved for the env's ``global_blocks(V) * global_threads(V)`` threads
+    (K1: a word of pre-check bits per warp per thread; K3: the band's s, the
+    far-band winners, the pre-check bits and two flag words per block), each
+    rounded up to 4 (``frames_env_words`` and ``sorted_env_words`` of the
+    .cu files, the libraries' ``*_global_words``, which chip_smoke.py holds
+    this copy to)."""
+    blocks = global_blocks(V)
+    n = blocks * global_threads(V)
+    warps = n // 32
+
+    def up4(w):
+        return (w + 3) & ~3
+
+    return (up4((ROW_WORDS + warps) * n + (2 * L + 4) * warps),
+            up4((ROW_WORDS + 2 + L + 1) * n + (2 * L + 4 + 2) * warps + 2 * blocks))
+
+
+def straight_layout_for(V: int, L: int) -> str:
+    """The layout of K1 and K3 at V slots and L lanes: "block" (one env a
+    block, one thread a slot, its rows in shared memory) where
+    ``V <= MAX_SLOTS`` and a block of each asks at most ``SMEM_LIMIT``
+    (``launch_smem``), else "global"."""
+    if V <= MAX_SLOTS and max(launch_smem(V, L)) <= SMEM_LIMIT:
+        return "block"
+    return "global"
+
+
 def kernel_limits(V: int, fs: StraightGeo) -> list[str]:
     """The limits of the straight kernels that a scene of V slots on ``fs``
-    breaks: one thread per slot, and the shared memory a block of the dense
-    (K1) or the sorted (K3) kernel asks, which grows with the lanes."""
-    smem = max(launch_smem(V, len(fs.offsets)))
-    return [
-        what for what, bad in (
-            (f"{V} slots > {MAX_SLOTS}", V > MAX_SLOTS),
-            (f"{smem} bytes of shared memory a block > {SMEM_LIMIT}", smem > SMEM_LIMIT),
-        ) if bad
-    ]
+    breaks: the global layout's slots, whatever the lanes (a scene one block
+    cannot hold takes the global layout, ``straight_layout_for``)."""
+    return [f"{V} slots > {STRAIGHT_GLOBAL_SLOTS}"] if V > STRAIGHT_GLOBAL_SLOTS else []
 
 
 def check_frame_shape(veh: VehicleState, fs: StraightGeo) -> tuple[int, int]:
@@ -553,9 +605,17 @@ class StraightFramesKernel(KernelWrapper):
     that reads each row's kind runs; without it the IDM code alone runs,
     which traps on a Linear row (cudaErrorLaunchFailure; on CPU tensors a
     ValueError).
+
+    ``glob=True`` is the wrapper of the global layout's K1
+    (``csrc/straight_frames_global.cu``, entry ``straight_frames_global``):
+    scenes of up to ``STRAIGHT_GLOBAL_SLOTS`` slots and any lanes, one env a
+    cluster of ``global_blocks(V)`` blocks of ``global_threads(V)`` threads,
+    its rows in a slab of ``global_words(V, L)[0]`` floats an env that each
+    call takes from torch's allocator (from the graph's pool when
+    captured).  ``frames_kernel_for`` picks the wrapper of a scene's
+    layout; the block wrapper raises on a CUDA scene of the global layout.
     """
 
-    source = "straight_frames"
     #: the fields the kernel reads, in the order of its arguments
     in_fields = _IN_FIELDS
     #: the ctypes mirror of the library's Geo block, and its (Geo, Params)
@@ -563,15 +623,21 @@ class StraightFramesKernel(KernelWrapper):
     geo_type = _Geo
     _kernel_params = staticmethod(kernel_params)
 
+    def __init__(self, glob: bool = False):
+        super().__init__()
+        self.glob = glob
+        self.source = self.entry = "straight_frames_global" if glob else "straight_frames"
+
     def _bind(self, lib):
-        lib.straight_frames.argtypes = (
-            [ctypes.c_void_p] * (len(self.in_fields) + len(_OUT_FIELDS) + 1)
+        fn = getattr(lib, self.entry)
+        fn.argtypes = (
+            [ctypes.c_void_p] * (len(self.in_fields) + len(_OUT_FIELDS) + 1 + self.glob)
             + [
                 ctypes.POINTER(self.geo_type), ctypes.POINTER(_Params),
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
         )
-        lib.straight_frames.restype = ctypes.c_int
+        fn.restype = ctypes.c_int
 
     def smem_bytes(self, V: int, L: int) -> int:
         """The shared memory a block of the launch asks at V slots and L
@@ -581,6 +647,18 @@ class StraightFramesKernel(KernelWrapper):
         fn.argtypes = [ctypes.c_int] * 2
         fn.restype = ctypes.c_longlong
         return int(fn(V, L))
+
+    def global_words(self, V: int, L: int) -> int:
+        """The words of one env's slab that the global launch takes at V
+        slots and L lanes (the library's ``straight_frames_global_words``),
+        for a check of ``straight_frames.global_words``."""
+        return _library_words(self, "straight_frames_global_words", V, L)
+
+    def cluster_fit(self, blocks: int, threads: int, L: int, linear: bool = False) -> int:
+        """Clusters of ``blocks`` blocks of ``threads`` threads of the global
+        launch the card holds at once (the library's
+        ``straight_frames_cluster_fit``; tools/cluster_fit.py)."""
+        return _library_fit(self, "straight_frames_cluster_fit", blocks, threads, L, linear)
 
     def __call__(
         self, veh: VehicleState, fs: StraightGeo, p: IDMParams, dt: float,
@@ -595,6 +673,8 @@ class StraightFramesKernel(KernelWrapper):
                 return frames_plain(veh, fs, p, dt, frames, raw)
             return _masked_plain(veh, fs, p, dt, frames, mask, out, raw)
         B, V = check_frame_shape(veh, fs)
+        L = len(fs.offsets)
+        check_layout(self, V, L)
         dev = veh.speed.device
         ins = checked_fields(veh, self.in_fields, B, V, dev)
         if mask is None:
@@ -604,28 +684,81 @@ class StraightFramesKernel(KernelWrapper):
                     or mask.device != dev or not mask.is_contiguous()):
                 raise ValueError(f"mask: expected contiguous bool ({B},) on {dev}")
             outs = checked_fields(out, _OUT_FIELDS, B, V, dev)
+        slab = _slab(self.glob, B, global_words(V, L)[0], dev)
         geo, params = self._kernel_params(fs, p, dt, raw, linear, dev)
         lib = self._library()
         with torch.cuda.device(dev):
-            err = lib.straight_frames(
+            err = getattr(lib, self.entry)(
                 *[t.data_ptr() for t in ins + outs],
-                None if mask is None else mask.data_ptr(),
+                None if mask is None else mask.data_ptr(), *[t.data_ptr() for t in slab],
                 ctypes.byref(geo), ctypes.byref(params), B, V, frames,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
-        self._launched("straight_frames", err)
+        self._launched(self.entry, err)
         return out if mask is not None else with_fields(veh, _OUT_FIELDS, outs)
 
 
-#: the one wrapper instance the env path launches through
+def check_layout(wrapper, V: int, L: int) -> None:
+    """A block wrapper refuses a scene of V slots and L lanes that one block
+    cannot hold (``straight_layout_for``); the global wrapper takes any."""
+    if not wrapper.glob and straight_layout_for(V, L) == "global":
+        raise ValueError(f"{V} slots and {L} lanes take the global layout, which "
+                         f"{wrapper.source} does not launch: call the *_kernel_for wrapper")
+
+
+def _slab(glob: bool, B: int, words: int, dev) -> list[torch.Tensor]:
+    """The slab a global launch takes (B envs of ``words`` floats), as the
+    list of the entry's extra arguments; none for a block launch.  The
+    caller holds it until the launch is queued: freed after it, torch's
+    allocator hands its memory only to work queued behind the kernel on the
+    same stream."""
+    if not glob:
+        return []
+    return [torch.empty(B * words, dtype=torch.float32, device=dev)]
+
+
+def _library_words(wrapper, name: str, V: int, L: int) -> int:
+    if not wrapper.glob:
+        raise ValueError(f"{name} asks the global library")
+    fn = getattr(wrapper._library(), name)
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_longlong
+    return int(fn(V, L))
+
+
+def _library_fit(wrapper, name: str, blocks: int, threads: int, L: int, linear: bool) -> int:
+    if not wrapper.glob:
+        raise ValueError(f"{name} asks the global library")
+    if not 1 <= blocks <= 16 or threads % 32 or not 32 <= threads <= GLOBAL_THREADS:
+        raise ValueError(f"clusters of 1 to 16 blocks of 32 to {GLOBAL_THREADS} threads, a "
+                         f"multiple of 32 (got {blocks} blocks of {threads} threads)")
+    fn = getattr(wrapper._library(), name)
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return int(fn(blocks, threads, L, int(linear)))
+
+
+#: the wrapper instances the env path launches through, one a layout
 frames_kernel = StraightFramesKernel()
+frames_global_kernel = StraightFramesKernel(glob=True)
+
+
+def frames_kernel_for(V: int, L: int) -> StraightFramesKernel:
+    """K1's wrapper for a scene of V slots and L lanes: ``frames_kernel``,
+    or ``frames_global_kernel`` where ``straight_layout_for`` says "global".
+    Looked up by name when called, so that a stand-in put in the module's
+    place is taken."""
+    return globals()["frames_global_kernel" if straight_layout_for(V, L) == "global"
+                     else "frames_kernel"]
 
 
 def simulate_bm(
     env, veh: VehicleState, slot_actions: torch.Tensor, frames: int
 ) -> VehicleState:
     """Policy-step simulation: the ego's action in torch (frame 0), then
-    all ``frames`` frames through ``frames_kernel``."""
+    all ``frames`` frames through K1 in the scene's layout
+    (``frames_kernel_for``)."""
     veh = env.action_type.apply(env.geo, veh, veh.kind == KIND_EGO, slot_actions)
-    return frames_kernel(veh, env._straight, env.idm_params, env.dt, frames,
-                         raw=env.action_type.stores_raw_controls, linear=env.linear_rows)
+    k1 = frames_kernel_for(veh.kind.shape[1], len(env._straight.offsets))
+    return k1(veh, env._straight, env.idm_params, env.dt, frames,
+              raw=env.action_type.stores_raw_controls, linear=env.linear_rows)

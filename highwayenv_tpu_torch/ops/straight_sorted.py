@@ -14,14 +14,21 @@ default step for lean straight scenes.  ``simulate_bm_sorted``:
      rise when the band may have missed something
      (``csrc/straight_frames_sorted.cu``);
   4. K2b ``unsort_kernel``: the mutated fields back to slot order;
-  5. K1 ``straight_frames.frames_kernel`` with the per-env mask of the
+  5. K1 (``straight_frames.frames_kernel_for``) with the per-env mask of the
      flags: the flagged envs re-run densely from the pre-step state and
      overwrite their banded rows, so the result is the dense step's for
      every env (up to the order of a SAT's two rectangles, a few ulp).
 
 Each kernel's plain torch version sits beside it (``sort_plain``,
 ``frames_sorted_plain``, ``unsort_plain``); a wrapper launches its kernel
-on CUDA tensors and runs the plain version on CPU tensors.
+on CUDA tensors and runs the plain version on CPU tensors.  K2a and K2b
+take every scene of up to 8192 slots (one block an env, each thread
+looping over its slots).  K3 and K1 have a wrapper a layout: past one
+block (``straight_frames.straight_layout_for``: over 1024 slots, or a
+block over its shared memory) ``frames_sorted_kernel_for`` and
+``straight_frames.frames_kernel_for`` pick the global ones
+(``frames_sorted_global_kernel``: ``csrc/straight_frames_sorted_global.cu``,
+one env a cluster of blocks with its rows in global memory).
 
 The bands: collisions are checked on the ``SORT_WINDOW`` nearest rank
 diagonals, neighbours searched ``NEIGH_WINDOW`` ranks either side, both
@@ -49,13 +56,19 @@ from highwayenv_tpu_torch.ops.straight_fast import StraightGeo
 from highwayenv_tpu_torch.ops.straight_frames import (
     KernelWrapper,
     _Geo,
+    _library_fit,
+    _library_words,
     _Params,
+    _slab,
     check_frame_shape,
+    check_layout,
     checked_fields,
     empty_fields,
-    frames_kernel,
+    frames_kernel_for,
+    global_words,
     kernel_params,
     on_cuda,
+    straight_layout_for,
     with_fields,
 )
 from highwayenv_tpu_torch.utils.math import rects_intersecting_xy_folded
@@ -370,9 +383,13 @@ class UnsortKernel(KernelWrapper):
 class FramesSortedKernel(KernelWrapper):
     """Wrapper of K3, ``csrc/straight_frames_sorted.cu``: ``(srt, idx, fs,
     p, dt, frames) -> (srt, flags)`` as ``frames_sorted_plain``, all frames
-    in one launch; ``raw`` and ``linear`` as for K1."""
+    in one launch; ``raw`` and ``linear`` as for K1.  With ``glob`` the
+    global layout's K3 (``csrc/straight_frames_sorted_global.cu``, entry
+    ``straight_frames_sorted_global``), its rows in a slab of
+    ``global_words(V, L)[1]`` floats an env; ``frames_sorted_kernel_for``
+    picks the wrapper of a scene's layout, and the block wrapper refuses a
+    CUDA scene of the global layout, as K1's does."""
 
-    source = "straight_frames_sorted"
     #: the fields the kernel reads, in the order of its arguments
     in_fields = SORT_FIELDS
     #: the ctypes mirror of the library's Geo block, and its (Geo, Params)
@@ -380,16 +397,23 @@ class FramesSortedKernel(KernelWrapper):
     geo_type = _Geo
     _kernel_params = staticmethod(kernel_params)
 
+    def __init__(self, glob: bool = False):
+        super().__init__()
+        self.glob = glob
+        self.source = self.entry = ("straight_frames_sorted_global" if glob
+                                    else "straight_frames_sorted")
+
     def _bind(self, lib):
-        lib.straight_frames_sorted.argtypes = (
-            [ctypes.c_void_p] * (len(self.in_fields) + len(MUT_FIELDS) + 2)
+        fn = getattr(lib, self.entry)
+        fn.argtypes = (
+            [ctypes.c_void_p] * (len(self.in_fields) + len(MUT_FIELDS) + 2 + self.glob)
             + [
                 ctypes.POINTER(self.geo_type), ctypes.POINTER(_Params),
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_void_p,
             ]
         )
-        lib.straight_frames_sorted.restype = ctypes.c_int
+        fn.restype = ctypes.c_int
 
     def smem_bytes(self, V: int, L: int) -> int:
         """The shared memory a block of the launch asks at V slots and L
@@ -400,6 +424,18 @@ class FramesSortedKernel(KernelWrapper):
         fn.restype = ctypes.c_longlong
         return int(fn(V, L))
 
+    def global_words(self, V: int, L: int) -> int:
+        """The words of one env's slab that the global launch takes at V
+        slots and L lanes (``straight_frames_sorted_global_words``), for a
+        check of ``straight_frames.global_words``."""
+        return _library_words(self, "straight_frames_sorted_global_words", V, L)
+
+    def cluster_fit(self, blocks: int, threads: int, L: int, linear: bool = False) -> int:
+        """Clusters of ``blocks`` blocks of ``threads`` threads of the global
+        launch the card holds at once (``straight_frames_sorted_cluster_fit``)."""
+        return _library_fit(self, "straight_frames_sorted_cluster_fit", blocks, threads, L,
+                            linear)
+
     def __call__(self, srt: VehicleState, idx: torch.Tensor, fs: StraightGeo,
                  p: IDMParams, dt: float, frames: int, raw: bool = False,
                  linear: bool = True):
@@ -407,29 +443,40 @@ class FramesSortedKernel(KernelWrapper):
             self.check_linear(srt, linear)
             return frames_sorted_plain(srt, idx, fs, p, dt, frames, raw)
         B, V = check_frame_shape(srt, fs)
+        L = len(fs.offsets)
+        check_layout(self, V, L)
         dev = srt.speed.device
         ins = checked_fields(srt, self.in_fields, B, V, dev)
         index = _checked_idx(idx, B, V, dev)
         outs = empty_fields(MUT_FIELDS, B, V, dev)
         flags = torch.empty((B, 2), dtype=torch.bool, device=dev)
+        slab = _slab(self.glob, B, global_words(V, L)[1], dev)
         geo, params = self._kernel_params(fs, p, dt, raw, linear, dev)
         W, Wn = windows(V)
         lib = self._library()
         with torch.cuda.device(dev):
-            err = lib.straight_frames_sorted(
+            err = getattr(lib, self.entry)(
                 *[t.data_ptr() for t in ins + outs],
-                index.data_ptr(), flags.data_ptr(),
+                index.data_ptr(), flags.data_ptr(), *[t.data_ptr() for t in slab],
                 ctypes.byref(geo), ctypes.byref(params), B, V, frames, W, Wn,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
-        self._launched("straight_frames_sorted", err)
+        self._launched(self.entry, err)
         return with_fields(srt, MUT_FIELDS, outs), flags
 
 
-#: the wrapper instances the env path launches through
+#: the wrapper instances the env path launches through (K3: one a layout)
 sort_kernel = SortKernel()
 frames_sorted_kernel = FramesSortedKernel()
+frames_sorted_global_kernel = FramesSortedKernel(glob=True)
 unsort_kernel = UnsortKernel()
+
+
+def frames_sorted_kernel_for(V: int, L: int) -> FramesSortedKernel:
+    """K3's wrapper for a scene of V slots and L lanes, as
+    ``straight_frames.frames_kernel_for`` picks K1's."""
+    return globals()["frames_sorted_global_kernel" if straight_layout_for(V, L) == "global"
+                     else "frames_sorted_kernel"]
 
 
 def simulate_bm_sorted(env, veh: VehicleState, slot_actions: torch.Tensor,
@@ -442,9 +489,11 @@ def simulate_bm_sorted(env, veh: VehicleState, slot_actions: torch.Tensor,
     veh = env.action_type.apply(env.geo, veh, veh.kind == KIND_EGO, slot_actions)
     fs, p, dt = env._straight, env.idm_params, env.dt
     raw, linear = env.action_type.stores_raw_controls, env.linear_rows
+    V, L = veh.kind.shape[1], len(fs.offsets)
     srt, idx = sort_kernel(veh, fs)
-    srt, flags = frames_sorted_kernel(srt, idx, fs, p, dt, frames, raw=raw, linear=linear)
+    srt, flags = frames_sorted_kernel_for(V, L)(srt, idx, fs, p, dt, frames, raw=raw,
+                                                linear=linear)
     out = unsort_kernel(srt, idx, veh)
-    out = frames_kernel(veh, fs, p, dt, frames, mask=flags.any(dim=1), out=out, raw=raw,
-                        linear=linear)
+    out = frames_kernel_for(V, L)(veh, fs, p, dt, frames, mask=flags.any(dim=1), out=out,
+                                  raw=raw, linear=linear)
     return (out, flags) if return_flags else out

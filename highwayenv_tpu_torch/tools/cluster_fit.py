@@ -1,4 +1,4 @@
-"""Which thread-block clusters of the cluster and global K4 / K5 a CUDA card holds: the occupancy probe.
+"""Which thread-block clusters of the cluster and global K4 / K5 and the global K1 / K3 a CUDA card holds: the occupancy probe.
 
 Usage (from the repo root, on a machine with a CUDA card):
 
@@ -27,7 +27,11 @@ threads it holds at once:
     of the 8 global instantiations (its kSized ones, at their ptxas
     registers; no shared memory) the card holds, and so the largest slots a
     global launch maps, 16 blocks of the most threads that fit: what
-    ``general_frames.GLOBAL_SLOTS`` must not exceed.
+    ``general_frames.GLOBAL_SLOTS`` must not exceed;
+  - then, through ``csrc/straight_frames_global.cu``'s and
+    ``straight_frames_sorted_global.cu``'s ``*_cluster_fit``, the same for
+    the global K1 and K3 (IDM and Linear instantiations): what
+    ``straight_frames.STRAIGHT_GLOBAL_SLOTS`` must not exceed.
 
 It prints the card's name and power limit first and last.
 """
@@ -73,6 +77,8 @@ def main() -> int:
         return 1
     import highwayenv_tpu_torch as ht
     from highwayenv_tpu_torch.ops import general_frames as gf
+    from highwayenv_tpu_torch.ops import straight_frames as sf
+    from highwayenv_tpu_torch.ops import straight_sorted as ss
 
     print(card_line())
     props = torch.cuda.get_device_properties(0)
@@ -132,8 +138,23 @@ def main() -> int:
         most = min(most, fit)
     print(f"  slots a global launch maps on this card: 16 blocks of {most} threads = {16 * most} "
           f"(general_frames.GLOBAL_SLOTS = {gf.GLOBAL_SLOTS})")
+    # the straight global K1 / K3: a block's shared memory holds the lane
+    # offsets alone (4 lanes here; 17 and 64 lanes change nothing below 12 KB)
+    print("straight global K1 / K3: clusters a card holds at once, by cluster blocks 1, 8, 16 and "
+          "threads a block")
+    smost = sf.GLOBAL_THREADS
+    for kernel in (sf.frames_global_kernel, ss.frames_sorted_global_kernel):
+        for linear in (False, True):
+            fits = {t: [kernel.cluster_fit(r, t, 4, linear) for r in (1, 8, 16)]
+                    for t in (128, 256, sf.GLOBAL_THREADS)}
+            print(f"  {kernel.entry} {'Linear' if linear else 'IDM'}: {fits}")
+            fit = [t for t, n in fits.items() if n[-1] > 0]
+            smost = min(smost, max(fit) if fit else 0)
+    print(f"  slots a straight global launch maps on this card: 16 blocks of {smost} threads = "
+          f"{16 * smost} (straight_frames.STRAIGHT_GLOBAL_SLOTS = {sf.STRAIGHT_GLOBAL_SLOTS})")
     print(card_line())
-    return 0 if 16 * most >= gf.GLOBAL_SLOTS else 1
+    return 0 if (16 * most >= gf.GLOBAL_SLOTS
+                 and 16 * smost >= sf.STRAIGHT_GLOBAL_SLOTS) else 1
 
 
 if __name__ == "__main__":

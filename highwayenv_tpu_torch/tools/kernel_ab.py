@@ -5,7 +5,8 @@ Usage (from the repo root, on a machine with a CUDA card):
     mkdir -p build/baseline
     git archive HEAD highwayenv_tpu_torch/csrc | tar -x -C build/baseline
     python3 highwayenv_tpu_torch/tools/kernel_ab.py [--baseline DIR] [--clocks]
-        [--kernels straight general wide cluster global] [--vehicles N ...]
+        [--kernels straight straight_global general wide cluster global]
+        [--vehicles N ...]
 
 ``--baseline`` (default ``build/baseline/highwayenv_tpu_torch/csrc``) is a
 second ``csrc/`` directory, for example a commit's unpacked as above; when it
@@ -20,6 +21,16 @@ is missing only the current kernels run.  ``--kernels`` picks the families
     env; K1 on every env and masked to every third env, K3 with its flags.
     Timed: K1 on every env, K3, K1 masked with no env firing, on the reset
     scene.
+  straight_global: K1 and K3 in each layout (``straight_frames`` and
+    ``straight_frames_global``, ``straight_frames_sorted`` and
+    ``straight_frames_sorted_global``: one env a cluster of blocks with its
+    rows in global memory), each with its tree's K2a and K2b
+    (``straight_sort``), of every tree, at the straight family's scenes,
+    held bit for bit to each other and timed in turns: what the rows in
+    global memory and the cluster's barriers cost where one block holds
+    the scene, and each tree's permutations against the other's; then the
+    global layouts alone at highway-v0 with 2047 vehicles (V=2048, 4 blocks
+    of 512 threads) at GLOBAL_STRAIGHT_ROWS rows.  No ``--clocks`` stamps.
   general: K4 (``general_frames``) at roundabout-v0 (V=5, L=32, R=11),
     merge-v0 (V=6, L=9, an obstacle) and exit-v0 (V=21, L=20, 7 lanes on
     one edge, the 32-thread group) on the reset scene, 8 steps in, an
@@ -113,6 +124,8 @@ sys.path.insert(0, str(REPO))
 
 FAMILIES = {
     "straight": ("straight_frames", "straight_frames_sorted"),
+    "straight_global": ("straight_frames_global", "straight_frames_sorted_global",
+                        "straight_frames", "straight_frames_sorted", "straight_sort"),
     "general": ("general_frames",),
     "wide": ("general_frames_wide",),
     "cluster": ("general_frames_cluster",),
@@ -299,8 +312,8 @@ def in_turns(fns: dict, rounds: int) -> str:
         times[label].append(queued_ms(fns[label], REPS))
     line = [f"{label} {sum(t) / len(t):.4f} ms ({min(t):.4f}-{max(t):.4f}, "
             f"{len(t)} turns)" for label, t in times.items()]
-    if len(labels) == 2:  # the second over the first (current / baseline)
-        a, b = labels
+    a = labels[0]
+    for b in labels[1:]:  # each over the first (e.g. current / baseline)
         ratio = (sum(times[b]) / len(times[b])) / (sum(times[a]) / len(times[a]))
         line.append(f"{b} / {a} {ratio:.3f}")
     return "; ".join(line)
@@ -435,6 +448,96 @@ def run_straight(args, paths, clock_paths, phases, params) -> None:
                     kname == "K1") else (
                     lambda w=wrapper: w(srt, idx, fs, p, dt, frames, linear=linear))
                 print_clocks(label, kname, lib, phases[label][kernel], run)
+
+
+#: rows of the straight global family's scene past one block
+GLOBAL_STRAIGHT_ROWS = 256
+
+
+def run_straight_global(args, paths, params) -> None:
+    """The straight_global family: every tree's K1 and K3 in each layout it
+    has, each with the tree's K2a and K2b, at the straight family's scenes
+    (B=4096), equal bit for bit and timed in turns; then the global layouts
+    alone at highway-v0 with 2047 vehicles, GLOBAL_STRAIGHT_ROWS rows."""
+    import torch
+
+    import highwayenv_tpu_torch as ht
+    from highwayenv_tpu_torch.ops import straight_frames as sf
+    from highwayenv_tpu_torch.ops import straight_sorted as ss
+    from highwayenv_tpu_torch.vehicle.state import KIND_EGO
+
+    def bound(p, glob: bool, label: str):
+        sfx = "_global" if glob else ""
+        ctor = functools.partial
+        return {"K1": load(p[f"straight_frames{sfx}"], ctor(sf.StraightFramesKernel, glob=glob),
+                           params[label])[0],
+                "K3": load(p[f"straight_frames_sorted{sfx}"],
+                           ctor(ss.FramesSortedKernel, glob=glob), params[label])[0],
+                "K2a": load(p["straight_sort"], ss.SortKernel)[0],
+                "K2b": load(p["straight_sort"], ss.UnsortKernel)[0]}
+
+    wrappers = {}
+    for label, p in paths.items():
+        wrappers[f"{label} block"] = bound(p, False, label)
+        if "straight_frames_global" in p:
+            wrappers[f"{label} global"] = bound(p, True, label)
+    configs = (CONFIGS + tuple(("highway-v0", {"vehicles_count": n}) for n in args.vehicles)
+               + (("highway-v0", {"vehicles_count": 2047}),))
+    out_names = [n for n, _, _ in sf._OUT_FIELDS]
+    sort_names = [n for n, _, _ in ss.SORT_FIELDS]
+    for env_id, config in configs:
+        env = ht.make(env_id, config)
+        V, L = env.num_slots, len(env._straight.offsets)
+        labels = [k for k in wrappers
+                  if k.endswith("global") or sf.straight_layout_for(V, L) == "block"]
+        rows = B if sf.straight_layout_for(V, L) == "block" else GLOBAL_STRAIGHT_ROWS
+        fs, p, dt, frames = env._straight, env.idm_params, env.dt, env.frames_per_step
+        gen = env.generator(SEED)
+        _, states = env.reset(rows, gen)
+        sa = env._action_to_slots(torch.ones(rows, dtype=torch.int32, device=env.device))
+        v0 = env.action_type.apply(env.geo, states.vehicles, states.vehicles.kind == KIND_EGO,
+                                   sa)
+        mask = torch.arange(rows, device=env.device) % 3 == 0
+        print(f"== straight global {env_id} {config}: V={V}, L={L}, {frames} frames, B={rows}, "
+              f"{' / '.join(labels)}")
+        for name, veh in straight_scenes(v0).items():
+            srt, idx = ss.sort_plain(veh, fs)
+            res = {}
+            for label in labels:
+                w = wrappers[label]
+                srt_k, idx_k = w["K2a"](veh, fs)
+                band, flags = w["K3"](srt, idx, fs, p, dt, frames, linear=False)
+                back = w["K2b"](band, idx, veh)
+                dense = w["K1"](veh, fs, p, dt, frames, linear=False)
+                out = back.replace(**{n: getattr(back, n).clone() for n in out_names})
+                masked = w["K1"](veh, fs, p, dt, frames, mask=mask, out=out, linear=False)
+                res[label] = (srt_k, idx_k, band, flags, back, dense, masked)
+            torch.cuda.synchronize()
+            first = res[labels[0]]
+            for label, r in res.items():
+                equal_fields(r[0], first[0], sort_names, f"{env_id} {name} K2a")
+                if not (torch.equal(r[1], first[1]) and torch.equal(r[3], first[3])):
+                    raise AssertionError(f"{env_id} {name}: idx or flags differ ({label})")
+                equal_fields(r[2], first[2], out_names, f"{env_id} {name} K3")
+                equal_fields(r[4], first[4], out_names, f"{env_id} {name} K2b")
+                equal_fields(r[5], first[5], out_names, f"{env_id} {name} K1")
+                equal_fields(r[6], first[6], out_names, f"{env_id} {name} K1 masked")
+            fired = first[3].sum(dim=0).tolist()
+            print(f"  {name}: {' and '.join(res)} equal on every field (K2a, K3 and its flags, "
+                  f"K2b, K1, K1 masked); flags fired collision {fired[0]}, neighbour {fired[1]}")
+        veh = v0
+        srt, idx = ss.sort_plain(veh, fs)
+        # the banded rows from a kernel: the plain frames' (rows, V, V) pair
+        # tensors do not fit the card at V = 2048
+        band, _ = wrappers[labels[0]]["K3"](srt, idx, fs, p, dt, frames, linear=False)
+        for kname, make_fn in (
+            ("K1 every env", lambda w: lambda: w["K1"](veh, fs, p, dt, frames, linear=False)),
+            ("K3", lambda w: lambda: w["K3"](srt, idx, fs, p, dt, frames, linear=False)),
+            ("K2a", lambda w: lambda: w["K2a"](veh, fs)),
+            ("K2b", lambda w: lambda: w["K2b"](band, idx, veh)),
+        ):
+            fns = {label: make_fn(wrappers[label]) for label in labels}
+            print(f"  {kname}: " + in_turns(fns, args.rounds))
 
 
 # --------------------------------------------------------------------------- #
@@ -889,7 +992,9 @@ def main(argv) -> int:
             # the wide and cluster sources hold no frame loop of their own;
             # the global one's stamps are general_frames.cu's, which it includes
             stamped = OUT_DIR / f"{label}-clocks" / "csrc"
-            clocked = [k for k in names if k not in FAMILIES["wide"] + FAMILIES["global"]]
+            # nor do the straight global and permutation sources
+            clocked = [k for k in names if k not in FAMILIES["wide"] + FAMILIES["global"]
+                       and not k.startswith("straight_sort") and not k.endswith("_global")]
             glob = "general_frames_global" in names
             phases[label] = instrumented_tree(
                 csrc, stamped, list(dict.fromkeys(clocked + ["general_frames"] * glob)))
@@ -905,6 +1010,8 @@ def main(argv) -> int:
     print(f"trees that read the Linear parameter fields: {params}")
     if "straight" in args.kernels:
         run_straight(args, paths, clock_paths, phases, params)
+    if "straight_global" in args.kernels:
+        run_straight_global(args, paths, params)
     if "general" in args.kernels:
         dynamical = {label: has_dynamical(pathlib.Path(csrc)) for label, csrc in trees.items()}
         print(f"trees with the kDynamical instantiations: {dynamical}")

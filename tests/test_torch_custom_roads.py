@@ -217,14 +217,17 @@ def test_poly_junction_steps_with_sequential_decisions():
 def test_straight_lanes_past_16_fit_the_kernels():
     """The straight kernels' shared memory holds the scene's lane offsets:
     17 and 64 lanes at V = 51 are within the block's limit, 1024 slots at 17
-    lanes too, and 1024 slots at 32 lanes are not, which ``make`` names."""
+    lanes too, and 1024 slots at 32 lanes are not: ``make`` takes that scene
+    on the global layout, whose rows lie in global memory."""
     for V, L in ((51, 17), (51, 64), (1024, 17)):
         assert max(straight_frames.launch_smem(V, L)) <= straight_frames.SMEM_LIMIT
         assert straight_frames.kernel_limits(V, _road(L)) == []
+        assert straight_frames.straight_layout_for(V, L) == "block"
     smem = max(straight_frames.launch_smem(1024, 32))
     assert smem > straight_frames.SMEM_LIMIT
-    with pytest.raises(NotImplementedError, match=f"{smem} bytes of shared memory a block"):
-        ht.make("highway-v0", {"lanes_count": 32, "vehicles_count": 1023}, device="cpu")
+    env = ht.make("highway-v0", {"lanes_count": 32, "vehicles_count": 1023}, device="cpu")
+    assert straight_frames.kernel_limits(env.num_slots, env._straight) == []
+    assert straight_frames.straight_layout_for(env.num_slots, 32) == "global"
 
 
 def _road(lanes: int):

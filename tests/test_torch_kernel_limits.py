@@ -3,8 +3,9 @@
 The CUDA frame kernels' tables are sized by the scene (lanes, lanes an
 edge, route slots, successor and predecessor edges, candidate lanes a lane,
 target speeds, straight lanes).  What limits remain (the slots of the
-largest layout, the shared memory a block of the launch asks, at most
-227 KB on an H100, and a grid of one target speed, which
+largest layout, 8192 on the straight and on the general path, whose global
+layouts take the scenes past a block's slots or its 227 KB of shared
+memory on an H100, and a grid of one target speed, which
 ``speed_to_index`` cannot take) are checked by ``make`` on every device,
 which raises ``NotImplementedError`` naming the limit and "not ported".
 So ``kernel_params``, ``lane_tables``, ``conn_tables`` and
@@ -145,7 +146,7 @@ def test_probe_configs_make_and_step_as_jax(env_id, config, edge_lanes, n_speeds
 
 @pytest.mark.parametrize("env_id,config,what", [
     ("merge-v0", _meta([25.0]), "1 target speeds < 2"),
-    ("highway-fast-v0", {"vehicles_count": 1024}, "1025 slots > 1024"),
+    ("highway-fast-v0", {"vehicles_count": 8192}, "8193 slots > 8192"),
     ("exit-v0", {"vehicles_count": 2048}, None),
     ("highway-v0", {"action": {"type": "ContinuousAction", "dynamical": True}},
      "a dynamical action on a straight road"),

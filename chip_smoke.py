@@ -280,7 +280,19 @@ Phases:
      72-lane oval, the kSized K5 and K4 of every layout, highway-v0 with 17
      lanes), each held to its plain version at 256, 128 or 64 rows, the
      driven ones 4 steps with the counts set to 0 and 4 captured steps
-     against eager at B=4096, with a kernel row at B=4096;
+     against eager at B=4096, with a kernel row at B=4096; then obstacles,
+     landmarks and plain Vehicle rows on a straight road
+     (``check_objects``, the scenes of ``tools/object_scenes.py``): K1's
+     four objects instantiations (IDM and Linear, block and global) held
+     bit-exact to the plain frames at B=4096 and at 2047 vehicles (4 rows,
+     objects piled across every block boundary), ``make("highway-v0",
+     lean=False)`` and its LinearVehicle and 2048-slot twins driven with
+     the counts set to 0 (one K1 launch a step, no K2a, K3 or K2b), three
+     autoreset steps against the plain reference path and 4 captured steps
+     against eager, the lean K3 trapping on an obstacle row in a child
+     process (exit 3), and the rows "K1 objects", "K1 objects linear" and
+     "K1 objects global 2048 slots", each beside the lean K1 on the same
+     vehicles;
   5. times on the card: each kernel's time (CUDA events around launches
      queued behind a device-side wait), its plain version's time (CUDA
      events, the host's gaps between its kernels included), its bound and
@@ -2142,7 +2154,8 @@ class PlainKernels:
     The wrappers' launch counts do not move."""
 
     def __init__(self, ss, sf, gf):
-        def frames(veh, fs, p, dt, frames, mask=None, out=None, raw=False, linear=True):
+        def frames(veh, fs, p, dt, frames, mask=None, out=None, raw=False, linear=True,
+                   objects=False):
             if mask is None:
                 return sf.frames_plain(veh, fs, p, dt, frames, raw)
             return sf._masked_plain(veh, fs, p, dt, frames, mask, out, raw)
@@ -4323,6 +4336,241 @@ def check_custom_roads(ht, ss, sf, gf, kernels, rows, err, launches, card: str, 
     straight_rows(env, states, timed, rows, " 17 lanes")
 
 
+
+#: obstacles, landmarks and plain Vehicle rows on a straight road, on K1's
+#: objects instantiations (an env made with lean=False): the scenes of
+#: highwayenv_tpu_torch/tools/object_scenes.py at B under the IDM and the
+#: LinearVehicle configs, and at 2047 vehicles (V=2048, the global layout)
+#: at OBJECT_GLOBAL_ROWS rows with a pile-up across every block boundary
+OBJECT_CONFIGS = (("IDM", None), ("Linear", LINEAR_CONFIG))
+OBJECT_GLOBAL = {"vehicles_count": 2047}
+OBJECT_GLOBAL_ROWS = 4
+OBJECT_HORIZON = 8  # policy steps of each lean=False path's zeroed eager rollout
+OBJECT_GLOBAL_DRIVE = (256, 2)  # rows and policy steps of the global path's rollout
+OBJECT_ROW_ROWS = 16  # rows of the global kernel row
+#: a child process: the lean K3 launched on a state with one obstacle row,
+#: which must trap; exit 3 on the launch failure, 0 if none came
+LEAN_TRAP_CHILD = r"""
+import sys, torch
+import highwayenv_tpu_torch as ht
+from highwayenv_tpu_torch.ops import straight_sorted as ss
+env = ht.make("highway-v0")
+_, st = env.reset(64, env.generator(0))
+kind = st.vehicles.kind.clone()
+kind[:, 5] = 5  # KIND_OBSTACLE
+srt, idx = ss.sort_kernel(st.vehicles.replace(kind=kind), env._straight)
+try:
+    ss.frames_sorted_kernel(srt, idx, env._straight, env.idm_params, env.dt, env.frames_per_step)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print(f"lean K3 on an obstacle row: {str(e).strip().splitlines()[0]}")
+    sys.exit(3 if "launch failure" in str(e) else 4)
+print("lean K3 on an obstacle row: no error")
+"""
+
+
+def hold_objects(sf, env, veh, where: str, err, key: str):
+    """K1's objects instantiation on ``veh`` (the env's action applied), in
+    the scene's layout, every field bit-exact to ``frames_plain`` (``hit``
+    among them), and masked to every env bit-exact to the masked plain
+    version; the errors kept under ``key``.  Returns the plain result."""
+    from highwayenv_tpu_torch.envs.base import map_fields
+
+    fs, p, dt, frames = env._straight, env.idm_params, env.dt, env.frames_per_step
+    raw, linear = env.action_type.stores_raw_controls, env.linear_rows
+    Bc, V = veh.kind.shape
+    k1 = sf.frames_kernel_for(V, len(fs.offsets))
+    out_k = k1(veh, fs, p, dt, frames, raw=raw, linear=linear, objects=True)
+    out_p = sf.frames_plain(veh, fs, p, dt, frames, raw)
+    torch.cuda.synchronize()
+    err[key] = max(err[key], exact_state(out_k, out_p, f"{where} K1 objects"))
+    every = torch.ones(Bc, dtype=torch.bool, device=veh.speed.device)
+    base = map_fields(torch.clone, veh)
+    all_k = k1(veh, fs, p, dt, frames, mask=every, out=map_fields(torch.clone, base), raw=raw,
+               linear=linear, objects=True)
+    all_p = sf._masked_plain(veh, fs, p, dt, frames, every, map_fields(torch.clone, base), raw)
+    torch.cuda.synchronize()
+    err[key] = max(err[key], exact_state(all_k, all_p, f"{where} K1 objects masked to every env"))
+    return out_p
+
+
+def object_work(sf, env, veh):
+    """(fp32 operations, bytes) of K1's objects launch on ``veh``: the
+    operations counted frame by frame on the plain version as the K1 row
+    counts them, the bytes every field read once (``hit`` too) and the
+    mutated ones and ``hit`` written once."""
+    fs, p, dt, frames = env._straight, env.idm_params, env.dt, env.frames_per_step
+    ops, v = 0.0, veh
+    for _ in range(frames):
+        out = sf.frames_plain(v, fs, p, dt, 1)
+        ops += frame_ops(v, out, fs, p, dt)
+        v = out
+    n_bytes = (read_bytes(veh, sf._IN_FIELDS) + field_bytes(veh, sf._OUT_FIELDS)
+               + 2 * field_bytes(veh, sf._HIT))
+    return ops, n_bytes
+
+
+def check_objects(ht, ss, sf, rows, err, launches, card: str, start: float, timed) -> None:
+    """Obstacles, landmarks and plain Vehicle rows on a straight road: K1's
+    four objects instantiations (IDM / Linear, block / global) held
+    bit-exact to ``frames_plain`` on the object scenes (OBJECT_CONFIGS at B,
+    OBJECT_GLOBAL at OBJECT_GLOBAL_ROWS rows); ``make("highway-v0",
+    lean=False)`` (and LinearVehicle) driven OBJECT_HORIZON eager steps from
+    an obstacle scene with the counts set to 0 (one K1 launch a step, no
+    K2a, K3 or K2b), three autoreset steps against the plain reference
+    path and the captured step against the eager one; the 2048-slot path
+    driven alike; the lean K3 trapping on an obstacle row in a child
+    process; and the rows "K1 objects", "K1 objects linear" and "K1 objects
+    global 2048 slots", each beside the lean K1 on the same vehicles."""
+    import pathlib
+
+    from highwayenv_tpu_torch.tools import object_scenes
+
+    every = {"K1": sf.frames_kernel, "K1 global": sf.frames_global_kernel,
+             "K2a": ss.sort_kernel, "K3": ss.frames_sorted_kernel,
+             "K3 global": ss.frames_sorted_global_kernel, "K2b": ss.unsort_kernel}
+    envs = {}
+    for label, config in OBJECT_CONFIGS:
+        t0 = time.time()
+        key = "K1 objects" + ("" if config is None else " linear")
+        err[key] = err.get(key, 0.0)
+        env = ht.make("highway-v0", config, lean=False)
+        envs[label] = env
+        gen = env.generator(SEED)
+        _, states = env.reset(B, gen)
+        acts = random_actions(env, B, gen)
+        seen = []
+        for name in object_scenes.SCENES:
+            scene = object_scenes.object_state(states.vehicles, name)
+            veh = env.action_type.apply(env.geo, scene, scene.kind == 1, env._action_to_slots(acts))
+            out = hold_objects(sf, env, veh, f"highway-v0 {label} {name}", err, key)
+            obst, land = veh.kind == 5, veh.kind == 6
+            if not torch.equal(out.pos[obst | land], veh.pos[obst | land]):
+                raise AssertionError(f"highway-v0 {label} {name}: an object moved")
+            seen.append(f"{name}: crashed {int(out.crashed.sum())} (obstacles "
+                        f"{int(out.crashed[obst].sum())}), hit {int(out.hit.sum())}")
+            if name == "landmark" and not bool(out.hit[land].any()):
+                raise AssertionError(f"highway-v0 {label} landmark: no landmark hit")
+            if name == "obstacle" and not bool(out.crashed[obst].any()):
+                raise AssertionError(f"highway-v0 {label} obstacle: no vehicle ran into one")
+        print(f"  highway-v0 {label} lean=False, V={env.num_slots}, B={B}: K1 objects (every "
+              f"env and masked to every env) bit-exact to its plain version on "
+              f"{list(object_scenes.SCENES)}; {'; '.join(seen)} ({time.time() - t0:.1f} s) "
+              f"[at {time.time() - start:.0f} s]")
+    for label, config in OBJECT_CONFIGS:
+        t0 = time.time()
+        env = ht.make("highway-v0", {**OBJECT_GLOBAL, **(config or {})}, lean=False)
+        envs[f"{label} global"] = env
+        V, L = env.num_slots, len(env._straight.offsets)
+        if sf.straight_layout_for(V, L) != "global":
+            raise AssertionError(f"highway-v0 {label} V={V}: not the global layout")
+        key = "K1 objects global 2048 slots" + ("" if config is None else " linear")
+        err[key] = err.get(key, 0.0)
+        gen = env.generator(SEED)
+        _, states = env.reset(OBJECT_GLOBAL_ROWS, gen)
+        acts = random_actions(env, OBJECT_GLOBAL_ROWS, gen)
+        for name in ("obstacle", "boundary"):
+            scene = object_scenes.object_state(states.vehicles, name, sf.global_threads(V))
+            veh = env.action_type.apply(env.geo, scene, scene.kind == 1, env._action_to_slots(acts))
+            for k in every.values():
+                k.launches = 0
+            hold_objects(sf, env, veh, f"highway-v0 {label} V={V} {name}", err, key)
+            moved = {n: k.launches for n, k in every.items() if k.launches}
+            if moved != {"K1 global": 2}:
+                raise AssertionError(f"highway-v0 {label} V={V} {name}: launches {moved}")
+        print(f"  highway-v0 {label} lean=False, V={V} ({sf.global_blocks(V)} blocks of "
+              f"{sf.global_threads(V)} threads an env), B={OBJECT_GLOBAL_ROWS}: the global K1 "
+              f"objects bit-exact to its plain version on the obstacle scene and a pile-up of "
+              f"objects across every block boundary ({time.time() - t0:.1f} s) "
+              f"[at {time.time() - start:.0f} s]")
+
+    # the lean=False paths: one K1 launch a step, nothing else of the
+    # straight path; against the plain reference path; captured
+    drives = [(label, envs[label], B, OBJECT_HORIZON) for label, _ in OBJECT_CONFIGS]
+    drives.append(("IDM global", envs["IDM global"], *OBJECT_GLOBAL_DRIVE))
+    for label, env, n, steps in drives:
+        t0 = time.time()
+        glob = label.endswith("global")
+        gen = env.generator(SEED + 1)
+        _, st = env.reset(n, gen)
+        st = st.replace(vehicles=object_scenes.object_state(st.vehicles, "obstacle"))
+        start_state = st
+        for k in every.values():
+            k.launches = 0
+        st, m = rollout(env, st, steps, gen)
+        torch.cuda.synchronize()
+        counts = {name: k.launches for name, k in every.items()}
+        want = {name: steps if name == ("K1 global" if glob else "K1") else 0 for name in every}
+        m = {k: float(v) for k, v in m.items()}
+        print(f"  make('highway-v0', lean=False) {label} path, V={env.num_slots}: the obstacle "
+              f"scene and {steps} autoreset steps, B={n}, launches {counts}; rollout {m} "
+              f"({time.time() - t0:.1f} s) [at {time.time() - start:.0f} s]")
+        if counts != want:
+            raise AssertionError(f"lean=False {label} path: launches {counts}, expected {want}")
+        if not all(np.isfinite(list(m.values()))):
+            raise AssertionError(f"lean=False {label} path: non-finite metrics")
+        key = "K1 objects" + {"IDM": "", "Linear": " linear", "IDM global": " global 2048 slots"}[
+            label]
+        launches[key] = counts["K1 global" if glob else "K1"]
+        if not glob:
+            check_autoreset(env, start_state, env.generator(SEED + 2),
+                            f"highway-v0 {label} lean=False ")
+            check_graph(env, start_state, f"highway-v0 {label} lean=False ",
+                        variants=((None, False),))
+        del st, start_state
+
+    # the lean K3 traps on an obstacle row: in a child process, whose CUDA
+    # context the trap ends
+    t0 = time.time()
+    child = subprocess.run([sys.executable, "-c", LEAN_TRAP_CHILD],
+                           cwd=pathlib.Path(__file__).resolve().parent, capture_output=True,
+                           text=True, timeout=600)
+    said = (child.stdout.strip().splitlines() or [""])[-1]
+    print(f"  child process: {said!r}, exit {child.returncode} ({time.time() - t0:.1f} s)")
+    if child.returncode != 3:
+        raise AssertionError(f"the lean K3 on an obstacle row: exit {child.returncode}, not 3 "
+                             f"(a launch failure); stderr {child.stderr[-2000:]}")
+
+    # the rows: K1 objects on the obstacle scene from a fresh reset, every
+    # ego FASTER; beside it the lean K1 and the objects K1 on the same
+    # vehicles without the objects
+    for label, rows_n, key in (("IDM", B, "K1 objects"), ("Linear", B, "K1 objects linear"),
+                               ("IDM global", OBJECT_ROW_ROWS, "K1 objects global 2048 slots")):
+        env = envs[label]
+        fs, p, dt, frames = env._straight, env.idm_params, env.dt, env.frames_per_step
+        V, L = env.num_slots, len(fs.offsets)
+        k1 = sf.frames_kernel_for(V, L)
+        linear = env.linear_rows
+        _, st = env.reset(rows_n, env.generator(SEED + 3))
+        sa = env._action_to_slots(torch.ones((rows_n,) + env.action_shape, dtype=torch.int32,
+                                             device=env.device))
+        plain_veh = env.action_type.apply(env.geo, st.vehicles, st.vehicles.kind == 1, sa)
+        veh = object_scenes.object_state(plain_veh, "obstacle")
+        tag = f" (highway-v0 {label} obstacle scene, V={V}, B={rows_n})"
+        out_k = k1(veh, fs, p, dt, frames, linear=linear, objects=True)
+        out_p = sf.frames_plain(veh, fs, p, dt, frames)
+        torch.cuda.synchronize()
+        err[key] = max(err[key], exact_state(out_k, out_p, f"{key} timed inputs"))
+        ms, plain_ms, _ = timed(
+            f"{key} straight_frames{'_global' if k1.glob else ''}{tag}, per policy step",
+            lambda: k1(veh, fs, p, dt, frames, linear=linear, objects=True),
+            lambda: sf.frames_plain(veh, fs, p, dt, frames), None, 20, PLAIN_REPS)
+        lean_ms = queued_ms(lambda: k1(plain_veh, fs, p, dt, frames, linear=linear), 20)
+        same_ms = queued_ms(lambda: k1(plain_veh, fs, p, dt, frames, linear=linear,
+                                       objects=True), 20)
+        ops, n_bytes = object_work(sf, env, veh)
+        bms, by, t_ops, t_bytes = bound(ops, n_bytes)
+        glob_sfx = "_global" if k1.glob else ""
+        rows[key] = (f"straight_frames{glob_sfx} objects" + tag,
+                     f"highwayenv_tpu_torch/csrc/straight_frames{glob_sfx}.cu",
+                     "highwayenv_tpu/ops/straight_pallas_bm.py:1190", ms, plain_ms, bms, by, None)
+        print(f"    bound {bms:.4f} ms by {by} ({ops:.3e} fp32 ops -> {t_ops:.4f} ms, {n_bytes} "
+              f"bytes -> {t_bytes:.4f} ms); on the same vehicles without objects: the lean K1 "
+              f"{lean_ms:.4f} ms, the objects K1 {same_ms:.4f} ms queued (objects / lean "
+              f"{same_ms / lean_ms:.3f}; {card}) [at {time.time() - start:.0f} s]")
+        del st, veh, plain_veh, out_k, out_p
+
+
 def main() -> int:
     start = time.time()
     if not torch.cuda.is_available():
@@ -5555,6 +5803,11 @@ def main() -> int:
           f"[at {time.time() - start:.0f} s]")
     check_custom_roads(ht, ss, sf, gf, conn_kernels, rows, err, launches, card, start, timed)
     print(f"  (custom roads block {time.time() - t_custom:.1f} s)")
+    t_objects = time.time()
+    print(f"== 4. obstacles, landmarks and plain Vehicle rows on a straight road, on CUDA: K1's "
+          f"objects instantiations, make('highway-v0', lean=False) [at {time.time() - start:.0f} s]")
+    check_objects(ht, ss, sf, rows, err, launches, card, start, timed)
+    print(f"  (objects block {time.time() - t_objects:.1f} s)")
 
     # the single-env seeded path: every id at B=1, each with the counts set
     # to 0 just before it.  It runs last: after it, torch.profiler on the

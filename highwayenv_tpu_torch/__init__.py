@@ -51,13 +51,18 @@ def register(env_id: str, cls, kwargs: dict | None = None):
 
 
 def make(env_id: str, config: dict | None = None, device=None,
-         sorted_frames: bool = True):
+         sorted_frames: bool = True, lean: bool = True):
     """Instantiate a registered environment on ``device`` (default CUDA).
 
     Returns an env with batched ``reset(batch_size, generator)`` and
     ``step_autoreset_batched(states, actions, generator)``; see envs/base.py.
     ``sorted_frames=False`` steps the frames through the dense kernel alone
     instead of the s-sorted banded path (the JAX package's ``HT_NO_SORTED``).
+    ``lean=False`` (the JAX package's ``pallas_lean = False``) lets a
+    straight scene hold obstacle and landmark rows (``HostVehicle`` records
+    of those kinds, or a ``kind`` edited in a batch): its frames run the
+    dense kernel's objects instantiation, one launch a step; the default
+    lean step refuses such rows.
     """
     if env_id not in _REGISTRY:
         raise NotPortedError(
@@ -69,7 +74,7 @@ def make(env_id: str, config: dict | None = None, device=None,
     if config:
         base_config.update(config)
     return cls(config=base_config or None, device=device,
-               sorted_frames=sorted_frames)
+               sorted_frames=sorted_frames, lean=lean)
 
 
 def registered_ids():

@@ -27,7 +27,7 @@
 // GenParams::linear the one whose decision pass reads each row's kind,
 // without it the IDM code alone (the parent's registers, so an IDM-only
 // scene pays nothing for the branch), which traps where it meets a Linear
-// row (trap_on_linear, straight_common.cuh).
+// row (trap_on_rows, straight_common.cuh).
 // Each entry has a kConnected twin (general_frames_connected,
 // general_frames_regulated_connected) for the -v1 / -v2 ids' connected-lane
 // neighbour search (vehicle/behavior.py::neighbours_connected): every
@@ -243,7 +243,6 @@ namespace cg = cooperative_groups;
 #define GEN_GLOBAL_THREADS 512
 #define GEN_GLOBAL_SLOTS (GEN_CLUSTER_BLOCKS * GEN_GLOBAL_THREADS)
 #define GEN_BLOCK 64  // threads a block of the narrow kernels
-#define KIND_OBSTACLE 5
 #define LANE_STRAIGHT 0
 #define LANE_SINE 1
 #define LANE_CIRCULAR 2
@@ -349,10 +348,8 @@ __device__ __forceinline__ void set_slot(const Chunks& c, unsigned* m, int s) {
     atomicOr(&m[word_of<W>(s)], bit_of<W>(s));
 }
 
-// extra flag bits of the post-integration rows (F_ACTIVE, F_VEHICLE, F_CHECK,
-// F_COLLIDABLE as in straight_common.cuh)
-#define F_SOLID 16
-#define F_OBSTACLE 32
+// the post-integration rows' flag bits are straight_common.cuh's (F_ACTIVE,
+// F_VEHICLE, F_CHECK, F_COLLIDABLE, F_SOLID, F_OBSTACLE)
 
 // columns of the lane tables (ops/general_frames.py::lane_tables)
 enum {
@@ -1822,7 +1819,7 @@ __device__ __forceinline__ void frames_body(const GenFields& f, const RegFields&
   // memory (phase D' of the last frame)
   if constexpr (kCluster) group_sync<kWide, kCluster>();
 
-  if (!kLinear) trap_on_linear(live && v.kind == KIND_LINEAR);
+  if (!kLinear) trap_on_rows(live && v.kind == KIND_LINEAR);
   if (live) {
     f.pos_out[2 * o] = v.px;
     f.pos_out[2 * o + 1] = v.py;

@@ -9,18 +9,25 @@
 // and the kernels cannot drift apart.
 //
 // Semantics are those of ops/straight_frames.py (frames_plain and its
-// phases), in the specialization the straight highway envs spawn: vehicles
-// only (no obstacles or landmarks), IDM and Linear NPCs.  A Linear row
+// phases).  The lean instantiations specialize them to the scenes the
+// straight highway envs spawn, vehicles only, with IDM and Linear NPCs; the
+// dense kernel's objects instantiations (Params::objects, the TPU kernel's
+// non-lean branch) also take obstacle and landmark rows, which the lean
+// ones trap on (trap_on_kinds).  The frame code here reads every row's kind
+// already (a landmark occupies no lane, only vehicles integrate, a pair
+// needs a vehicle); the objects resolution of a collision lives in
+// straight_frames.cu.  A Linear row
 // (kind KIND_LINEAR, the TPU kernels' has_linear branch,
 // straight_pallas_bm.py:569-573, :697-707, :857-862) decides with
 // LinearVehicle's acceleration in every pair it evaluates, its own law and
 // parameters even where the pair's ego is a neighbour, and steers by
 // LinearVehicle's law; the law goes by the row's kind, as the JAX package's
-// XLA frame decides it.  Each kernel is two instantiations: with
+// XLA frame decides it.  Each kernel has two instantiations of the law
+// (K1 each of them lean and objects): with
 // Params::linear the one whose drive() reads each row's kind (LinearSlot),
 // without it the IDM code alone (Slot: the parent's code, so an IDM-only
 // scene pays nothing for the branch), which traps where it meets a Linear
-// row (trap_on_linear).  Under Params::raw (a ContinuousAction) the ego
+// row (trap_on_kinds).  Under Params::raw (a ContinuousAction) the ego
 // keeps its stored steering and acc, the TPU kernels' raw_controls branch.
 // Rounding: the kernels are built with -fmad=false and the precise libm
 // functions, so every operation rounds as the op-by-op torch version does on
@@ -60,6 +67,7 @@
 #define KIND_IDM 2
 #define KIND_LINEAR 3
 #define KIND_PLAIN 4
+#define KIND_OBSTACLE 5
 #define KIND_LANDMARK 6
 #define VEHICLE_LENGTH 5.0f
 #define MAX_SPEED 40.0f
@@ -78,6 +86,11 @@
 #define F_ACTIVE 1
 #define F_CHECK 4
 #define F_COLLIDABLE 8
+// the object bits of a row: solid (active, not a landmark) and an obstacle;
+// in the general kernel's flags and the straight K1's objects
+// instantiation's PostRow::obj
+#define F_SOLID 16
+#define F_OBSTACLE 32
 
 struct Geo {  // ops/straight_frames.py::_Geo
   float ox, oy, ux, uy, nx, ny;
@@ -111,8 +124,12 @@ struct Params {  // ops/straight_frames.py::_Params
   float acc_max, comfort_acc_max, distance_wanted, time_wanted;
   float inv_two_sqrt_ab, politeness, lane_change_delay;
   float kp_a, kp_heading, kp_lateral;
-  int raw;     // 1: egos keep their stored steering and acc (ContinuousAction)
-  int linear;  // 1: Linear rows possible (the Linear rows' instantiation)
+  int raw;      // 1: egos keep their stored steering and acc (ContinuousAction)
+  int linear;   // 1: Linear rows possible (the Linear rows' instantiation)
+  int objects;  // 1: obstacle and landmark rows possible (K1's objects instantiation)
+  // the objects instantiation's (B, V) hit field, read and written
+  const uint8_t* hit;
+  uint8_t* hit_out;
 };
 
 // The (B, V) fields a frame kernel reads and the ones it writes, in the
@@ -423,13 +440,14 @@ struct __align__(16) StartRow {
 };
 
 // A slot's post-integration row, three float4s: the sphere pre-check reads
-// the first, the SAT all three.  len, wid and orig (the sorted kernel's
-// original slot) do not change and are staged once per launch.
+// the first, the SAT all three.  len, wid, orig (the sorted kernel's
+// original slot) and obj (the dense kernel's objects instantiation:
+// F_SOLID | F_OBSTACLE) do not change and are staged once per launch.
 struct __align__(16) PostRow {
   float px, py, speed, diag;
   float cos, sin, vx, vy;
   float len, wid;
-  int orig, pad;
+  int orig, obj;
 };
 
 // A block's rows and ballot words in shared memory: ROW_WORDS per thread
@@ -749,15 +767,29 @@ __device__ void drive(S& v, const Start& st, const int front[3], const int rear[
   v.timer = new_timer;
 }
 
-// The IDM instantiation of a frame kernel meets no Linear row: where its
-// block holds one (linear_row in some thread), the caller launched it with
-// Params::linear (GenParams::linear) off on a state that has Linear rows,
-// and the launch traps (cudaErrorLaunchFailure) before it stores the
-// block's rows, so no row comes out stepped as IDM.  Every thread of the
-// block calls it, after the frame loop: there the check leaves the loop's
+// A frame kernel's instantiation meets no row it was not built for (the
+// general kernels' IDM one no Linear row, GenParams::linear off; the
+// straight ones', trap_on_kinds): where its block holds one (bad_row in
+// some thread), the caller launched it with the wrong parameters for the
+// state, and the launch traps
+// (cudaErrorLaunchFailure) before it stores the block's rows, so no row
+// comes out stepped by the wrong law.  Every thread of the block calls it,
+// once a launch, after the frame loop: there the check leaves the loop's
 // registers and spills as they are without it.
-__device__ __forceinline__ void trap_on_linear(bool linear_row) {
-  if (__syncthreads_or(linear_row)) __trap();
+__device__ __forceinline__ void trap_on_rows(bool bad_row) {
+  if (__syncthreads_or(bad_row)) __trap();
+}
+
+// The straight kernels' check: a Linear row without kLinear (Params::linear
+// off), an obstacle or landmark row without kObjects (Params::objects off:
+// every lean instantiation, the sorted K3 among them); one barrier a
+// launch, none where the instantiation takes every kind
+template <bool kLinear, bool kObjects>
+__device__ __forceinline__ void trap_on_kinds(bool live, int kind) {
+  if constexpr (!kLinear || !kObjects) {
+    trap_on_rows(live && ((!kLinear && kind == KIND_LINEAR) ||
+                          (!kObjects && (kind == KIND_OBSTACLE || kind == KIND_LANDMARK))));
+  }
 }
 
 // The pair's collision gate of the general frame kernel (road collision

@@ -8,6 +8,21 @@
 // phases other than the two pair searches live in straight_common.cuh,
 // shared with the sorted kernel.
 //
+// Four instantiations, by Params::linear and Params::objects.  The lean ones
+// (objects off) resolve a collision as the TPU kernel's lean branch does,
+// every pair between two vehicles, and trap on an obstacle or landmark row.
+// The objects ones (the TPU kernel's non-lean branch, _frame_body
+// :567-579, :591-595, :993-1019, :1066-1102; the env path of an env made
+// with lean=False) stage each slot's solid and obstacle bits once a launch
+// (PostRow::obj) and resolve each pair by the object rule of
+// ops/collision.py, as the general kernel K4 does: a pair crashes and
+// pushes only where both members are solid; the push is the full
+// translation against an obstacle and half of it between two vehicles; an
+// obstacle records no push of its own, so the last-write rule runs over
+// the pairs where the slot writes; a non-solid slot (a landmark) that
+// intersects a partner is marked hit (Params::hit / hit_out).  The gate,
+// the sphere pre-check and the SAT walk are the lean code's.
+//
 // On the sorted main path (ops/straight_sorted.py::simulate_bm_sorted) it is
 // the per-env exact fallback: given a mask, a block whose env has no flag
 // returns at once, before any barrier, and a block whose env has one writes
@@ -51,8 +66,9 @@ __host__ __device__ __forceinline__ long long frames_env_words(int n, int L) {
 
 // The frame loop of one env, its rows in the block's shared memory or, in
 // the global layout (kGlobal, straight_global.cuh), in its slab of global
-// memory at slab + env * frames_env_words, the env a cluster of blocks.
-template <bool kLinear, bool kGlobal>
+// memory at slab + env * frames_env_words, the env a cluster of blocks;
+// kObjects: the objects instantiation (obstacle and landmark rows).
+template <bool kLinear, bool kGlobal, bool kObjects>
 __device__ __forceinline__ void frames_body(const Fields& f, const uint8_t* mask, const Geo& g,
                                             const Params& p, int V, int frames, float* slab) {
   const Place at = place<kGlobal>();
@@ -76,6 +92,12 @@ __device__ __forceinline__ void frames_body(const Fields& f, const uint8_t* mask
   v.derive();
   r.post[i].len = v.len;
   r.post[i].wid = v.wid;
+  bool hit = false;  // kObjects: the slot's hit flag
+  if constexpr (kObjects) {
+    if (live) hit = p.hit[o] != 0;
+    const bool solid = v.active() && v.kind != KIND_LANDMARK;
+    r.post[i].obj = (solid ? F_SOLID : 0) | (v.kind == KIND_OBSTACLE ? F_OBSTACLE : 0);
+  }
   env_sync<kGlobal>();  // the lane offsets are loaded
 
   for (int frame = 0; frame < frames; ++frame) {
@@ -140,11 +162,33 @@ __device__ __forceinline__ void frames_body(const Fields& f, const uint8_t* mask
       bool any_inter = false;
       int row_j = -1, col_j = -1;
       float row_tx = 0.f, row_ty = 0.f, col_tx = 0.f, col_ty = 0.f;
+      const int me_obj = kObjects ? r.post[i].obj : 0;
       visit_bits([&](int w) { return mine[w]; }, 0, V - 1, i, [&](int j) {
         const bool lower = i < j;  // this slot is the pair's ``self``
         bool inter, will;
         float tx, ty;
         sat_pair(r, p, lower ? i : j, lower ? j : i, &inter, &will, &tx, &ty);
+        if constexpr (kObjects) {
+          // both solid: a crash, and a push unless this slot is an
+          // obstacle; a non-solid slot that intersects is hit
+          const int obj = r.post[j].obj;
+          const bool both = (me_obj & obj & F_SOLID) != 0;
+          any_inter = any_inter || (inter && both);
+          hit = hit || (inter && !(me_obj & F_SOLID));
+          if (will && both && !(me_obj & F_OBSTACLE)) {
+            const bool obstacle = (obj & F_OBSTACLE) != 0;
+            if (lower) {
+              row_j = j;
+              row_tx = (obstacle ? 1.0f : 0.5f) * tx;
+              row_ty = (obstacle ? 1.0f : 0.5f) * ty;
+            } else {
+              col_j = j;
+              col_tx = (obstacle ? 1.0f : -0.5f) * tx;
+              col_ty = (obstacle ? 1.0f : -0.5f) * ty;
+            }
+          }
+          return;
+        }
         any_inter = any_inter || inter;
         if (will) {
           // ascending j: the last write is the max-index partner
@@ -171,24 +215,39 @@ __device__ __forceinline__ void frames_body(const Fields& f, const uint8_t* mask
     }
   }
 
-  if (!kLinear) trap_on_linear(live && v.kind == KIND_LINEAR);
+  trap_on_kinds<kLinear, kObjects>(live, v.kind);
   if (live) v.store(f, o);
+  if (kObjects && live) p.hit_out[o] = hit ? 1 : 0;
 }
 
-template <bool kLinear>
+template <bool kLinear, bool kObjects>
 __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
     straight_frames_kernel(const __grid_constant__ Fields f, const uint8_t* mask,
                            const __grid_constant__ Geo g, const __grid_constant__ Params p,
                            int V, int frames) {
-  frames_body<kLinear, false>(f, mask, g, p, V, frames, nullptr);
+  frames_body<kLinear, false, kObjects>(f, mask, g, p, V, frames, nullptr);
+}
+
+// The instantiation of a frame kernel template K<kLinear, kObjects> that a
+// launch asks: the Linear rows' where Linear rows are possible
+// (Params::linear), the objects one where obstacle and landmark rows are
+// (Params::objects)
+template <typename Kernel>
+Kernel pick_instantiation(bool linear, bool objects, Kernel lean_idm, Kernel lean_linear,
+                          Kernel objects_idm, Kernel objects_linear) {
+  if (objects) return linear ? objects_linear : objects_idm;
+  return linear ? lean_linear : lean_idm;
 }
 
 extern "C" int straight_frames(STRAIGHT_FIELD_PARAMS, const uint8_t* mask, const Geo* geo,
                                const Params* params, int B, int V, int frames, void* stream) {
   const Fields f = STRAIGHT_FIELDS;
-  // the Linear rows' instantiation where the caller says they are possible;
   // per thread: the rows and a word of pre-check bits per warp
-  auto kernel = params->linear ? straight_frames_kernel<true> : straight_frames_kernel<false>;
+  auto kernel = pick_instantiation(params->linear, params->objects,
+                                   straight_frames_kernel<false, false>,
+                                   straight_frames_kernel<true, false>,
+                                   straight_frames_kernel<false, true>,
+                                   straight_frames_kernel<true, true>);
   return launch_per_env(kernel, B, V, geo->n_lanes, ROW_WORDS + (V + 31) / 32,
                         WARP_WORDS(geo->n_lanes), stream, f, mask, *geo, *params, V, frames);
 }

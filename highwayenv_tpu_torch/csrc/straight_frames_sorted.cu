@@ -313,7 +313,7 @@ __device__ __forceinline__ void frames_sorted_body(const Fields& f, const int* i
 
   const int any_coll = __syncthreads_or(viol_coll);
   const int any_neigh = __syncthreads_or(viol_neigh);
-  if (!kLinear) trap_on_linear(live && v.kind == KIND_LINEAR);
+  trap_on_kinds<kLinear, false>(live, v.kind);  // lean: vehicles only
   if (live) v.store(f, o);
   if constexpr (kGlobal) {
     // the env's flags: each block's two votes, joined by the env's first

@@ -120,12 +120,13 @@ inline cudaLaunchConfig_t global_config(int blocks, int threads, int grid, size_
 // Launch of a global frame kernel: one env a cluster of global_blocks(V)
 // blocks of global_threads(V) threads, the lane offsets in shared memory.
 // Over STRAIGHT_PORTABLE_CLUSTER blocks the non-portable cluster size is
-// allowed once per instantiation (linear) and card; whether such a cluster
+// allowed once per instantiation (variant: bit 0 the Linear rows', bit 1
+// K1's objects one) and card; whether such a cluster
 // fits the card is asked once per instantiation, card and shape (none:
 // cudaErrorLaunchOutOfResources, which the wrapper raises).  Returns the
 // CUDA error code.
 template <typename Kernel, typename... Args>
-int launch_global(Kernel kernel, int linear, int B, int V, int L, void* stream, Args... args) {
+int launch_global(Kernel kernel, int variant, int B, int V, int L, void* stream, Args... args) {
   if (V < 1 || V > STRAIGHT_GLOBAL_SLOTS) return static_cast<int>(cudaErrorInvalidValue);
   const int nb = global_blocks(V), G = global_threads(V);
   const size_t smem = static_cast<size_t>(lane_offset_words(L)) * sizeof(float);
@@ -134,8 +135,8 @@ int launch_global(Kernel kernel, int linear, int B, int V, int L, void* stream, 
   if (e != cudaSuccess) return static_cast<int>(e);
   // set once per instantiation and card, before the occupancy query and
   // the launch: a launch under stream capture calls no function attribute
-  static bool nonportable[2][64] = {};
-  bool& set = nonportable[linear ? 1 : 0][dev & 63];
+  static bool nonportable[4][64] = {};
+  bool& set = nonportable[variant & 3][dev & 63];
   if (!set) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -149,8 +150,8 @@ int launch_global(Kernel kernel, int linear, int B, int V, int L, void* stream, 
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       global_config(nb, G, nb * (B > 0 ? B : 1), smem, stream, &attr);
-  static size_t fits[2][64][STRAIGHT_GLOBAL_BLOCKS + 1][STRAIGHT_GLOBAL_THREADS / 32 + 1] = {};
-  size_t& fit = fits[linear ? 1 : 0][dev & 63][nb][G / 32];
+  static size_t fits[4][64][STRAIGHT_GLOBAL_BLOCKS + 1][STRAIGHT_GLOBAL_THREADS / 32 + 1] = {};
+  size_t& fit = fits[variant & 3][dev & 63][nb][G / 32];
   if (smem + 1 > fit) {  // fit: the bytes asked + 1 (0: never asked)
     int clusters = 0;
     e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);

@@ -15,7 +15,10 @@ runs them, as the JAX package does:
     and the dense frame kernel on the envs whose band flags fired: four CUDA
     kernels on the card), or with ``sorted_frames=False`` through
     ``ops/straight_frames.simulate_bm`` (the dense frame kernel alone, the
-    JAX package's ``HT_NO_SORTED=1``);
+    JAX package's ``HT_NO_SORTED=1``); an env made with ``lean=False`` (the
+    JAX package's ``pallas_lean = False``: obstacle and landmark rows
+    possible) always steps the dense frame kernel's objects instantiation,
+    since the sorted kernels take vehicles only;
   - on any other analytic-lane network the general gate admits
     (roundabout, merge, racetrack) through
     ``ops/general_frames.simulate_general`` (one launch of the general
@@ -207,10 +210,15 @@ class BaseEnv:
     several_egos = False
 
     def __init__(self, config: dict | None = None, device=None,
-                 sorted_frames: bool = True):
+                 sorted_frames: bool = True, lean: bool = True):
         self.device = resolve_device(device)
         #: frames on the s-sorted banded path (default) or dense
         self.sorted_frames = sorted_frames
+        #: vehicles only on a straight road (the JAX package's
+        #: ``pallas_lean``); False: obstacle and landmark rows possible, the
+        #: frames on the dense kernel's objects instantiation.  A general
+        #: env's kernels always resolve objects, so there it changes nothing
+        self.lean = lean
         self.config = self.default_config()
         self.configure(config)
         self._build()
@@ -487,18 +495,19 @@ class BaseEnv:
         """One policy step through the frame kernels (CUDA tensors) or their
         plain versions (CPU tensors): on a general network the general frame
         kernel; on a straight one the sorted path, or the dense one when the
-        env was made with ``sorted_frames=False``.  A ``sequential_decisions``
+        env was made with ``sorted_frames=False`` or ``lean=False`` (the JAX
+        package sorts lean scenes alone, ``base.py:1124-1129``; the lean
+        kernels refuse obstacle and landmark rows).  A ``sequential_decisions``
         env steps the plain general frames on its device (the JAX package
-        turns its kernels off for it too).  The ported straight
-        scenes are all lean (vehicles only), the JAX package's condition for
-        sorting."""
+        turns its kernels off for it too)."""
         if self._general is not None and self._general.sequential:
             # the reference's decision order is the plain frames' alone
             return self._simulate(states, actions)
         if self._general is not None:
             return self._advance(states, actions, general_frames.simulate_general)
         return self._advance(
-            states, actions, simulate_bm_sorted if self.sorted_frames else simulate_bm
+            states, actions,
+            simulate_bm_sorted if self.sorted_frames and self.lean else simulate_bm,
         )
 
     # ------------------------------------------------------------------ #

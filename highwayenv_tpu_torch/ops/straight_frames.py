@@ -22,9 +22,19 @@ which replaces the two pair searches 2 and 6 by banded ones, as
 ``frames`` frames of a policy step in one launch of
 ``csrc/straight_frames.cu`` for CUDA tensors, and ``frames_plain`` (batched
 torch over (B, V, V) pair tensors) for CPU tensors; the two compute the
-same float32 arithmetic in the same order.  The kernel covers the scenes
-the straight highway envs spawn: vehicles only (no obstacles or
-landmarks), IDM and Linear NPCs.  A Linear row (``KIND_LINEAR``: the
+same float32 arithmetic in the same order.  The kernel's lean
+instantiations cover the scenes the straight highway envs spawn: vehicles
+only, IDM and Linear NPCs.  Its objects instantiations (``objects``, the
+env path's ``not env.lean``: the TPU kernel's non-``lean`` branch,
+``_frame_body`` ``:567-579``, ``:591-595``, ``:993-1019``,
+``:1066-1102``) also take obstacle and landmark rows: a landmark occupies
+no lane, a pair counts for crashes and impacts only where both members are
+solid, an obstacle partner gives the full translation and an obstacle
+writes no impact of its own, and a non-solid slot that intersects a
+partner is marked ``hit`` (``ops/collision.py``, the plain rule, which
+``frames_plain`` always runs).  A lean call on a state with such a row
+raises on CPU tensors (``check_objects``) and traps on the card.  A
+Linear row (``KIND_LINEAR``: the
 Linear-family presets, or ``envs/preprocessors.change_vehicles``) takes
 the same MOBIL decisions with LinearVehicle's acceleration wherever it
 decides, and LinearVehicle's steering; the law goes by each row's kind, as
@@ -73,6 +83,7 @@ from highwayenv_tpu_torch.vehicle.state import (
     KIND_EGO,
     KIND_LANDMARK,
     KIND_LINEAR,
+    KIND_OBSTACLE,
     VEHICLE_LENGTH,
     VehicleState,
 )
@@ -353,6 +364,10 @@ class _Params(ctypes.Structure):
         ("kp_lateral", ctypes.c_float),
         ("raw", ctypes.c_int),
         ("linear", ctypes.c_int),
+        ("objects", ctypes.c_int),
+        # the objects instantiation's (B, V) hit field, in and out
+        ("hit", ctypes.c_void_p),
+        ("hit_out", ctypes.c_void_p),
     ]
 
 
@@ -380,6 +395,9 @@ _OUT_FIELDS = [
     ("impact", torch.float32, (2,)), ("steering", torch.float32, ()),
     ("accel", torch.float32, ()),
 ]
+#: the field K1's objects instantiation reads and writes besides these
+#: (through ``Params.hit`` / ``hit_out``)
+_HIT = [("hit", torch.bool, ())]
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -509,10 +527,11 @@ def offsets_table(fs: StraightGeo, device) -> torch.Tensor:
 
 
 def kernel_params(fs: StraightGeo, p: IDMParams, dt: float, raw: bool = False,
-                  linear: bool = True, device=None):
+                  linear: bool = True, device=None, objects: bool = False):
     """The (Geo, Params) structures of the frame kernels; ``linear`` picks
-    the kernels' Linear rows' instantiation; with ``device``, ``Geo.offsets``
-    points to the offsets' copy there."""
+    the kernels' Linear rows' instantiation, ``objects`` K1's objects one
+    (the caller sets ``Params.hit`` / ``hit_out``); with ``device``,
+    ``Geo.offsets`` points to the offsets' copy there."""
     geo = _Geo(
         ox=float(fs.origin[0]), oy=float(fs.origin[1]),
         ux=float(fs.u[0]), uy=float(fs.u[1]),
@@ -531,7 +550,7 @@ def kernel_params(fs: StraightGeo, p: IDMParams, dt: float, raw: bool = False,
         inv_two_sqrt_ab=p.inv_two_sqrt_ab, politeness=p.politeness,
         lane_change_delay=p.lane_change_delay, kp_a=controller.KP_A,
         kp_heading=controller.KP_HEADING, kp_lateral=controller.KP_LATERAL,
-        raw=int(raw), linear=int(linear),
+        raw=int(raw), linear=int(linear), objects=int(objects),
     )
     return geo, params
 
@@ -569,6 +588,19 @@ class KernelWrapper:
                 "kernels' IDM code would trap on the card"
             )
 
+    @staticmethod
+    def check_objects(veh: VehicleState, objects: bool) -> None:
+        """On CPU tensors, what the kernels' lean instantiations assert on
+        the card: without ``objects`` the state holds no obstacle or
+        landmark row (a plain ``Vehicle`` row, ``KIND_PLAIN``, is a vehicle)."""
+        if not objects and bool(((veh.kind == KIND_OBSTACLE)
+                                 | (veh.kind == KIND_LANDMARK)).any()):
+            raise ValueError(
+                "obstacle or landmark rows (KIND_OBSTACLE, KIND_LANDMARK) in a lean frame "
+                "call: make the env with lean=False (the dense kernel's objects "
+                "instantiation); the lean kernels would trap on the card"
+            )
+
     def _launched(self, name: str, err: int) -> None:
         if err != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -577,12 +609,13 @@ class KernelWrapper:
 
 def _masked_plain(veh, fs, p, dt, frames, mask, out, raw: bool = False):
     """``frames_plain`` written over the rows of ``out`` where ``mask`` is
-    set, in place.  It runs the whole batch: the CPU's vectorized libm
-    rounds a row differently depending on how many rows run, and the rows
-    must equal those of the dense step."""
+    set, in place (``hit`` too, which only obstacle and landmark rows
+    move).  It runs the whole batch: the CPU's vectorized libm rounds a row
+    differently depending on how many rows run, and the rows must equal
+    those of the dense step."""
     if bool(mask.any()):
         dense = frames_plain(veh, fs, p, dt, frames, raw)
-        for name, _, _ in _OUT_FIELDS:
+        for name, _, _ in _OUT_FIELDS + _HIT:
             t = getattr(out, name)
             m = mask.view((-1,) + (1,) * (t.dim() - 1))
             t.copy_(torch.where(m, getattr(dense, name), t))
@@ -604,6 +637,9 @@ class StraightFramesKernel(KernelWrapper):
     ``linear``: Linear rows are possible, and the kernel's instantiation
     that reads each row's kind runs; without it the IDM code alone runs,
     which traps on a Linear row (cudaErrorLaunchFailure; on CPU tensors a
+    ValueError).  ``objects``: obstacle and landmark rows are possible, and
+    the objects instantiation runs, which also steps ``hit`` (with a mask,
+    in ``out.hit``); without it such a row traps (on CPU tensors a
     ValueError).
 
     ``glob=True`` is the wrapper of the global layout's K1
@@ -654,21 +690,26 @@ class StraightFramesKernel(KernelWrapper):
         for a check of ``straight_frames.global_words``."""
         return _library_words(self, "straight_frames_global_words", V, L)
 
-    def cluster_fit(self, blocks: int, threads: int, L: int, linear: bool = False) -> int:
+    def cluster_fit(self, blocks: int, threads: int, L: int, linear: bool = False,
+                    objects: bool = False) -> int:
         """Clusters of ``blocks`` blocks of ``threads`` threads of the global
-        launch the card holds at once (the library's
-        ``straight_frames_cluster_fit``; tools/cluster_fit.py)."""
-        return _library_fit(self, "straight_frames_cluster_fit", blocks, threads, L, linear)
+        launch (its ``linear`` / ``objects`` instantiation) the card holds at
+        once (the library's ``straight_frames_cluster_fit``;
+        tools/cluster_fit.py)."""
+        return _library_fit(self, "straight_frames_cluster_fit", blocks, threads, L,
+                            linear + 2 * objects)
 
     def __call__(
         self, veh: VehicleState, fs: StraightGeo, p: IDMParams, dt: float,
         frames: int, mask: torch.Tensor | None = None,
         out: VehicleState | None = None, raw: bool = False, linear: bool = True,
+        objects: bool = False,
     ) -> VehicleState:
         if (mask is None) != (out is None):
             raise ValueError("mask and out are given together")
         if not on_cuda(veh.speed):
             self.check_linear(veh, linear)
+            self.check_objects(veh, objects)
             if mask is None:
                 return frames_plain(veh, fs, p, dt, frames, raw)
             return _masked_plain(veh, fs, p, dt, frames, mask, out, raw)
@@ -685,7 +726,13 @@ class StraightFramesKernel(KernelWrapper):
                 raise ValueError(f"mask: expected contiguous bool ({B},) on {dev}")
             outs = checked_fields(out, _OUT_FIELDS, B, V, dev)
         slab = _slab(self.glob, B, global_words(V, L)[0], dev)
-        geo, params = self._kernel_params(fs, p, dt, raw, linear, dev)
+        geo, params = self._kernel_params(fs, p, dt, raw, linear, dev, objects)
+        hit = []  # with objects: hit in and out
+        if objects:
+            hit = checked_fields(veh, _HIT, B, V, dev)
+            hit += (empty_fields(_HIT, B, V, dev) if mask is None
+                    else checked_fields(out, _HIT, B, V, dev))
+            params.hit, params.hit_out = hit[0].data_ptr(), hit[1].data_ptr()
         lib = self._library()
         with torch.cuda.device(dev):
             err = getattr(lib, self.entry)(
@@ -695,7 +742,9 @@ class StraightFramesKernel(KernelWrapper):
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         self._launched(self.entry, err)
-        return out if mask is not None else with_fields(veh, _OUT_FIELDS, outs)
+        if mask is not None:
+            return out
+        return with_fields(veh, _OUT_FIELDS + _HIT * objects, outs + hit[1:])
 
 
 def check_layout(wrapper, V: int, L: int) -> None:
@@ -726,7 +775,9 @@ def _library_words(wrapper, name: str, V: int, L: int) -> int:
     return int(fn(V, L))
 
 
-def _library_fit(wrapper, name: str, blocks: int, threads: int, L: int, linear: bool) -> int:
+def _library_fit(wrapper, name: str, blocks: int, threads: int, L: int, variant: int) -> int:
+    """The library's ``*_cluster_fit`` of its ``variant`` instantiation
+    (bit 0: the Linear rows', bit 1: K1's objects one)."""
     if not wrapper.glob:
         raise ValueError(f"{name} asks the global library")
     if not 1 <= blocks <= 16 or threads % 32 or not 32 <= threads <= GLOBAL_THREADS:
@@ -735,7 +786,7 @@ def _library_fit(wrapper, name: str, blocks: int, threads: int, L: int, linear: 
     fn = getattr(wrapper._library(), name)
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
-    return int(fn(blocks, threads, L, int(linear)))
+    return int(fn(blocks, threads, L, int(variant)))
 
 
 #: the wrapper instances the env path launches through, one a layout
@@ -757,8 +808,10 @@ def simulate_bm(
 ) -> VehicleState:
     """Policy-step simulation: the ego's action in torch (frame 0), then
     all ``frames`` frames through K1 in the scene's layout
-    (``frames_kernel_for``)."""
+    (``frames_kernel_for``), its objects instantiation where the env was
+    made with ``lean=False``."""
     veh = env.action_type.apply(env.geo, veh, veh.kind == KIND_EGO, slot_actions)
     k1 = frames_kernel_for(veh.kind.shape[1], len(env._straight.offsets))
     return k1(veh, env._straight, env.idm_params, env.dt, frames,
-              raw=env.action_type.stores_raw_controls, linear=env.linear_rows)
+              raw=env.action_type.stores_raw_controls, linear=env.linear_rows,
+              objects=not env.lean)

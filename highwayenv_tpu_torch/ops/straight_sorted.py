@@ -36,6 +36,12 @@ clipped to V - 1 as the JAX package clips them.  Beyond the band, each lane
 keeps the winner of a suffix argmin / prefix argmax of s, so the neighbour
 search is exact unless a far member crossed the query in s within the step.
 
+The sorted kernels are lean, as the JAX package's are: its sorted step
+runs only where ``pallas_lean`` holds (``envs/base.py:1124-1129``), and
+its lean kernel drives an obstacle row as IDM.  Here K3 refuses obstacle
+and landmark rows (a ValueError on CPU tensors, a trap on the card), and an
+env made with ``lean=False`` steps ``straight_frames.simulate_bm`` instead.
+
 One difference from the JAX kernel, on purpose: the collision flag's reach
 R = max diag + max speed * dt is taken over the env's own slots, where the
 TPU kernel takes it over its whole tile of envs (``:196-198``), which makes
@@ -383,7 +389,9 @@ class UnsortKernel(KernelWrapper):
 class FramesSortedKernel(KernelWrapper):
     """Wrapper of K3, ``csrc/straight_frames_sorted.cu``: ``(srt, idx, fs,
     p, dt, frames) -> (srt, flags)`` as ``frames_sorted_plain``, all frames
-    in one launch; ``raw`` and ``linear`` as for K1.  With ``glob`` the
+    in one launch; ``raw`` and ``linear`` as for K1.  It is lean, as the JAX
+    package's sorted step is: an obstacle or landmark row raises on CPU
+    tensors (``check_objects``) and traps on the card.  With ``glob`` the
     global layout's K3 (``csrc/straight_frames_sorted_global.cu``, entry
     ``straight_frames_sorted_global``), its rows in a slab of
     ``global_words(V, L)[1]`` floats an env; ``frames_sorted_kernel_for``
@@ -441,6 +449,7 @@ class FramesSortedKernel(KernelWrapper):
                  linear: bool = True):
         if not on_cuda(srt.speed):
             self.check_linear(srt, linear)
+            self.check_objects(srt, False)
             return frames_sorted_plain(srt, idx, fs, p, dt, frames, raw)
         B, V = check_frame_shape(srt, fs)
         L = len(fs.offsets)

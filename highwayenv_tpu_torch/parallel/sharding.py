@@ -204,7 +204,8 @@ def shard_envs(env, mesh: Mesh) -> list:
     made = {env.device: env}
     for dev in mesh.devices:
         if dev not in made:
-            other = type(env)(config=env.config, device=dev, sorted_frames=env.sorted_frames)
+            other = type(env)(config=env.config, device=dev, sorted_frames=env.sorted_frames,
+                              lean=env.lean)
             other.linear_rows = env.linear_rows
             made[dev] = other
     return [made[dev] for dev in mesh.devices]

@@ -30,7 +30,8 @@ threads it holds at once:
     ``general_frames.GLOBAL_SLOTS`` must not exceed;
   - then, through ``csrc/straight_frames_global.cu``'s and
     ``straight_frames_sorted_global.cu``'s ``*_cluster_fit``, the same for
-    the global K1 and K3 (IDM and Linear instantiations): what
+    the global K1 and K3 (IDM and Linear instantiations, and K1's objects
+    instantiations of both): what
     ``straight_frames.STRAIGHT_GLOBAL_SLOTS`` must not exceed.
 
 It prints the card's name and power limit first and last.
@@ -143,11 +144,14 @@ def main() -> int:
     print("straight global K1 / K3: clusters a card holds at once, by cluster blocks 1, 8, 16 and "
           "threads a block")
     smost = sf.GLOBAL_THREADS
-    for kernel in (sf.frames_global_kernel, ss.frames_sorted_global_kernel):
+    for kernel, objects in ((sf.frames_global_kernel, False), (sf.frames_global_kernel, True),
+                            (ss.frames_sorted_global_kernel, False)):
         for linear in (False, True):
-            fits = {t: [kernel.cluster_fit(r, t, 4, linear) for r in (1, 8, 16)]
+            fit_args = {"objects": True} if objects else {}
+            fits = {t: [kernel.cluster_fit(r, t, 4, linear, **fit_args) for r in (1, 8, 16)]
                     for t in (128, 256, sf.GLOBAL_THREADS)}
-            print(f"  {kernel.entry} {'Linear' if linear else 'IDM'}: {fits}")
+            print(f"  {kernel.entry} {'Linear' if linear else 'IDM'}"
+                  f"{' objects' if objects else ''}: {fits}")
             fit = [t for t, n in fits.items() if n[-1] > 0]
             smost = min(smost, max(fit) if fit else 0)
     print(f"  slots a straight global launch maps on this card: 16 blocks of {smost} threads = "

@@ -5,7 +5,7 @@ Usage (from the repo root, on a machine with a CUDA card):
     mkdir -p build/baseline
     git archive HEAD highwayenv_tpu_torch/csrc | tar -x -C build/baseline
     python3 highwayenv_tpu_torch/tools/kernel_ab.py [--baseline DIR] [--clocks]
-        [--kernels straight straight_global general wide cluster global]
+        [--kernels straight straight_global objects general wide cluster global]
         [--vehicles N ...]
 
 ``--baseline`` (default ``build/baseline/highwayenv_tpu_torch/csrc``) is a
@@ -31,6 +31,17 @@ is missing only the current kernels run.  ``--kernels`` picks the families
     the scene, and each tree's permutations against the other's; then the
     global layouts alone at highway-v0 with 2047 vehicles (V=2048, 4 blocks
     of 512 threads) at GLOBAL_STRAIGHT_ROWS rows.  No ``--clocks`` stamps.
+  objects: K1's objects instantiations (``objects=True``: obstacle and
+    landmark rows, an env made with ``lean=False``) of the current tree,
+    in each layout, against its lean ones on the same vehicles-only scenes
+    (the straight family's, at highway-v0 under the IDM and the
+    LinearVehicle configs, B=4096, and with 2047 vehicles at
+    GLOBAL_STRAIGHT_ROWS rows): equal bit for bit (with no object row the
+    objects rule is the lean one, and ``hit`` stays), timed in turns (lean,
+    objects, objects, lean); then each alone on the obstacle scene of
+    ``tools/object_scenes.py``.  A baseline tree has no objects
+    instantiation; the straight and straight_global families time its lean
+    ones against the current tree's.  No ``--clocks`` stamps.
   general: K4 (``general_frames``) at roundabout-v0 (V=5, L=32, R=11),
     merge-v0 (V=6, L=9, an obstacle) and exit-v0 (V=21, L=20, 7 lanes on
     one edge, the 32-thread group) on the reset scene, 8 steps in, an
@@ -126,6 +137,7 @@ FAMILIES = {
     "straight": ("straight_frames", "straight_frames_sorted"),
     "straight_global": ("straight_frames_global", "straight_frames_sorted_global",
                         "straight_frames", "straight_frames_sorted", "straight_sort"),
+    "objects": ("straight_frames", "straight_frames_global"),
     "general": ("general_frames",),
     "wide": ("general_frames_wide",),
     "cluster": ("general_frames_cluster",),
@@ -538,6 +550,49 @@ def run_straight_global(args, paths, params) -> None:
         ):
             fns = {label: make_fn(wrappers[label]) for label in labels}
             print(f"  {kname}: " + in_turns(fns, args.rounds))
+
+
+def run_objects(args, paths) -> None:
+    """The objects family: the current tree's K1 objects instantiations
+    against its lean ones on vehicles-only scenes, equal and timed in
+    turns, then alone on the obstacle scene."""
+    import torch
+
+    import highwayenv_tpu_torch as ht
+    from highwayenv_tpu_torch.ops import straight_frames as sf
+    from highwayenv_tpu_torch.tools import object_scenes
+    from highwayenv_tpu_torch.vehicle.state import KIND_EGO
+
+    out_names = [n for n, _, _ in sf._OUT_FIELDS] + ["hit"]
+    for env_id, config in (("highway-v0", None), LINEAR_CONFIGS[0],
+                           ("highway-v0", {"vehicles_count": 2047})):
+        env = ht.make(env_id, config)
+        V, L = env.num_slots, len(env._straight.offsets)
+        glob = sf.straight_layout_for(V, L) == "global"
+        rows = GLOBAL_STRAIGHT_ROWS if glob else B
+        k1 = load(paths["current"]["straight_frames_global" if glob else "straight_frames"],
+                  functools.partial(sf.StraightFramesKernel, glob=glob))[0]
+        fs, p, dt, frames = env._straight, env.idm_params, env.dt, env.frames_per_step
+        linear = env.linear_rows
+        _, states = env.reset(rows, env.generator(SEED))
+        sa = env._action_to_slots(torch.ones(rows, dtype=torch.int32, device=env.device))
+        v0 = env.action_type.apply(env.geo, states.vehicles, states.vehicles.kind == KIND_EGO,
+                                   sa)
+        print(f"== objects {env_id} {config}: V={V}, L={L}, {frames} frames, B={rows}, "
+              f"{k1.entry}, linear={linear}")
+        for name, veh in straight_scenes(v0).items():
+            lean = k1(veh, fs, p, dt, frames, linear=linear)
+            objs = k1(veh, fs, p, dt, frames, linear=linear, objects=True)
+            torch.cuda.synchronize()
+            equal_fields(objs, lean, out_names, f"{env_id} {name} objects")
+            print(f"  {name}: the objects instantiation equals the lean one on every field, "
+                  f"hit unchanged")
+        fns = {"lean": lambda: k1(v0, fs, p, dt, frames, linear=linear),
+               "objects": lambda: k1(v0, fs, p, dt, frames, linear=linear, objects=True)}
+        print("  K1 every env, vehicles only: " + in_turns(fns, args.rounds))
+        scene = object_scenes.object_state(v0, "obstacle")
+        ms = queued_ms(lambda: k1(scene, fs, p, dt, frames, linear=linear, objects=True), REPS)
+        print(f"  K1 objects on the obstacle scene: {ms:.4f} ms")
 
 
 # --------------------------------------------------------------------------- #
@@ -1012,6 +1067,8 @@ def main(argv) -> int:
         run_straight(args, paths, clock_paths, phases, params)
     if "straight_global" in args.kernels:
         run_straight_global(args, paths, params)
+    if "objects" in args.kernels:
+        run_objects(args, paths)
     if "general" in args.kernels:
         dynamical = {label: has_dynamical(pathlib.Path(csrc)) for label, csrc in trees.items()}
         print(f"trees with the kDynamical instantiations: {dynamical}")
